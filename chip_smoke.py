@@ -1,0 +1,354 @@
+#!/usr/bin/env python3
+"""Smoke run of zlib_rs_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from zlib_rs_tpu_torch/csrc with nvcc,
+holds each kernel against its plain PyTorch version on the card at the
+shapes the main path gives it, then drives the main path: level-6
+`compress_parallel` of an 8 MiB corpus (a tar of system binaries, the
+recipe of bench.py's corpus), checked by stdlib zlib. Any mismatch raises;
+no phase's failure is caught.
+
+Lines before the last: the build time, per-phase results, one JSON object
+{"kernels": [...]} with each kernel's launches on the main path, error
+against its plain version, times and bound, the end-to-end numbers, and
+the card's name and power limit from nvidia-smi. The last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import subprocess
+import sys
+import tarfile
+import time
+import zlib
+from pathlib import Path
+
+CORPUS_BYTES = 8 * 1024 * 1024
+LEVEL = 6
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+ALU_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+COMPARE_ROWS = 8  # chunks held against the plain chase and pack
+
+
+def load_corpus(size: int = CORPUS_BYTES) -> tuple[bytes, list[str]]:
+    """A deterministic tar of /bin/bash, /usr/bin/python3.12 and /bin/ls
+    (those present), repeated to `size` bytes, fixed metadata; with the
+    names of the members used."""
+    members = []
+    for extra in ("/bin/bash", "/usr/bin/python3.12", "/bin/ls"):
+        try:
+            members.append((Path(extra).name, Path(extra).read_bytes()))
+        except OSError:
+            pass
+    if not members:
+        raise RuntimeError("no corpus member is readable")
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w", format=tarfile.USTAR_FORMAT) as tf:
+        rep = 0
+        while buf.tell() < size:
+            for name, blob in members:
+                ti = tarfile.TarInfo(f"{rep}/{name}")
+                ti.size = len(blob)
+                ti.mtime = 0
+                tf.addfile(ti, io.BytesIO(blob))
+            rep += 1
+    return buf.getvalue()[:size], [m[0] for m in members]
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def event_ms(torch, fn, reps: int) -> float:
+    """Mean device time of `fn` over `reps` launches after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Mean wall time of `fn` (host work included) after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs(pairs) -> int:
+    """Largest absolute difference over (got, want) integer tensor pairs,
+    compared as int64."""
+    err = 0
+    for got, want in pairs:
+        d = (got.to("cpu").long() - want.to("cpu").long()).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    if not (root / "zlib_rs_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch import _device
+    from zlib_rs_tpu_torch.ops import lzvec
+    from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+    from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    dev = _device.resolve_device(None)
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"card: {smi} ({torch.cuda.device_count()} visible), torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    _device.build()
+    for name in _device.SOURCES:
+        _device.library(name)
+    print(f"setup: built {', '.join(_device.SOURCES)} for sm_90a in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    corpus, members = load_corpus(CORPUS_BYTES)
+    print(f"corpus: {len(corpus)} bytes, tar of {members}", flush=True)
+
+    # the main path's first super-batch, as compress_parallel builds it
+    good, mlazy, nice, chain = PL._level_knobs(LEVEL)["kernel_cfg"]
+    _variant, w_g = PL._resolve_kernel_variant((good, mlazy, nice, chain))
+    cs = PL.DEFAULT_CHUNK
+    n_chunks = -(-len(corpus) // cs)
+    dict_size = PL.priming_dict_size(n_chunks, cs, True)
+    padded, n_valid, valid_from, data_len = PL.chunk_buffers(corpus, cs, dict_size)
+    b0, bsz = PL.batch_spans(n_chunks)[0]
+    dc = torch.from_numpy(padded[b0 : b0 + bsz]).to(dev)
+    dn = torch.from_numpy(n_valid[b0 : b0 + bsz]).to(dev)
+    dv = torch.from_numpy(valid_from[b0 : b0 + bsz]).to(dev)
+    words4 = DK.words_from_bytes(dc)
+    htab = lzvec.build_hop_tables(
+        words4, dn, dv, depth=chain, nice=nice, good=good, max_lazy=mlazy,
+        w_g=w_g, bytes_arr=dc,
+    )
+    torch.cuda.synchronize()
+    print(f"batch: {bsz} chunks of {cs} bytes, dict {dict_size}, words "
+          f"{tuple(words4.shape)}, htab {tuple(htab.shape)}", flush=True)
+    rows = {}
+
+    # -- phase 1: K1 against its plain version and zlib ------------------
+    seg = dc[:, dict_size : dict_size + cs]
+    lens = (dn - dict_size).to(torch.int32)
+    got = CK.adler32_batch_cuda(seg, lens)
+    want = CK.adler32_batch_plain(seg, lens)
+    err = max_abs([(got, want)])
+    host = seg.cpu().numpy()
+    for r in range(bsz):
+        z = zlib.adler32(host[r, : int(lens[r])].tobytes())
+        if int(got[r].item()) & 0xFFFFFFFF != z:
+            raise AssertionError(f"K1 row {r}: {int(got[r]) & 0xFFFFFFFF:#x} != zlib {z:#x}")
+    g = torch.Generator().manual_seed(1)
+    rag = torch.randint(0, 256, (3, 1000), generator=g, dtype=torch.uint8)
+    rlen = torch.tensor([0, 517, 1000], dtype=torch.int32)
+    rg = CK.adler32_batch_cuda(rag.to(dev), rlen.to(dev))
+    err = max(err, max_abs([(rg, CK.adler32_batch_plain(rag, rlen))]))
+    for r in range(3):
+        if int(rg[r].item()) & 0xFFFFFFFF != zlib.adler32(rag[r, : rlen[r]].numpy().tobytes()):
+            raise AssertionError(f"K1 ragged row {r} disagrees with zlib")
+    if err:
+        raise AssertionError(f"K1 disagrees with its plain version: max abs err {err}")
+    nb = int(lens.sum())
+    rows["adler32_batch"] = dict(
+        source="zlib_rs_tpu_torch/csrc/adler32.cu",
+        replaces="zlib_rs_tpu/ops/pallas/checksum_kernels.py:64",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: CK.adler32_batch_cuda(seg, lens), 50),
+        plain_ms=event_ms(torch, lambda: CK.adler32_batch_plain(seg, lens), 10),
+        bnd=bound(nb + 8 * bsz, 3 * nb),
+    )
+    print(f"phase 1 K1: {bsz}x{cs} and 3x1000 ragged equal to plain and zlib", flush=True)
+
+    # -- phase 2: K2 against its plain version -----------------------------
+    cap_g = 4 * w_g
+    chase = DK.hop_chase_cuda(words4, htab, dn, dict_size, cap_g)
+    torch.cuda.synchronize()
+    k = min(COMPARE_ROWS, bsz)
+    plain = DK.hop_chase_plain(words4[:k], htab[:k], dn[:k], dict_size, cap_g)
+    kpost = DK._hop_post(*[t[:k] for t in chase])
+    ppost = DK._hop_post(*plain)
+    nm_k, nm_p = kpost[2], ppost[2]
+    if not torch.equal(nm_k, nm_p) or not torch.equal(kpost[3], ppost[3]):
+        raise AssertionError(f"K2 nmatch/bad: {nm_k.tolist()} != {nm_p.tolist()}")
+    sel = torch.cat([torch.arange(0, 286), torch.arange(288, 318)]).to(dev)
+    pairs = [(kpost[4][:, sel], ppost[4][:, sel])]
+    for r in range(k):
+        m = int(nm_k[r])
+        pairs += [(chase[0][r, :m], plain[0][r, :m]), (chase[1][r, :m], plain[1][r, :m])]
+    err = max_abs(pairs)
+    if err:
+        raise AssertionError(f"K2 disagrees with its plain version: max abs err {err}")
+    st = chase[2]
+    nmatch = st[:, 0].long()
+    span = (dn - dict_size).long()
+    nb = int((span + 8 * nmatch + 8 * nmatch + 32 + 4 * 4 * 320).sum())
+    rows["hop_chase"] = dict(
+        source="zlib_rs_tpu_torch/csrc/hop_chase.cu",
+        replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:895",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: DK.hop_chase_cuda(words4, htab, dn, dict_size, cap_g), 5),
+        plain_ms=wall_ms(torch, lambda: DK.hop_chase_plain(words4, htab, dn, dict_size, cap_g), 1),
+        bnd=bound(nb, int((span + 20 * nmatch).sum())),
+    )
+    print(f"phase 2 K2: {k} chunks equal to plain, nmatch {nm_k.tolist()}", flush=True)
+
+    # -- phase 3: K3 against its plain version, with and without seeds -----
+    mpos, mld, nm, kbad, freq = DK._hop_post(*chase)
+    nm_eff = torch.where(kbad, 0, nm)
+    lltab, dtab = DK.code_tables(freq)
+    err = 0
+    for n_seeds in (0, PL.SEEDS_PER_CHUNK):
+        words, meta, oww = DK.pack_inputs(dc[:k], dn[:k], dict_size, nm_eff[:k], n_seeds)
+        args = (words, mpos[:k], mld[:k], meta, lltab[:k], dtab[:k], oww, n_seeds)
+        ko = DK.pack_cuda(*args)
+        po = DK.pack_plain(*args)
+        total = ko[1][:, 0]
+        if not torch.equal(total, po[1][:, 0]) or not torch.equal(ko[1][:, 1], po[1][:, 1]):
+            raise AssertionError(f"K3 total/bad differ (n_seeds={n_seeds})")
+        pairs = [(ko[4] >> 16, po[4] >> 16)]
+        if n_seeds:
+            pairs += [(ko[2], po[2]), (ko[3], po[3])]
+        for r in range(k):
+            nw = int(total[r]) // 32 + 2
+            pairs.append((ko[0][r, :nw], po[0][r, :nw]))
+        err = max(err, max_abs(pairs))
+    if err:
+        raise AssertionError(f"K3 disagrees with its plain version: max abs err {err}")
+    words, meta, oww = DK.pack_inputs(dc, dn, dict_size, nm_eff, 0)
+    args = (words, mpos, mld, meta, lltab, dtab, oww, 0)
+    st3 = DK.pack_cuda(*args)[1]
+    torch.cuda.synchronize()
+    nmk = nm_eff.long()
+    out_words = st3[:, 0].long() // 32 + 2
+    nb = int((span + 8 * nmk + 4 * 320 + 32 + 4 * out_words + 32 + 4 * 320).sum())
+    rows["pack"] = dict(
+        source="zlib_rs_tpu_torch/csrc/pack.cu",
+        replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:1487",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: DK.pack_cuda(*args), 5),
+        plain_ms=event_ms(torch, lambda: DK.pack_plain(*args), 2),
+        bnd=bound(nb, int((10 * (span + 2 * nmk)).sum())),
+    )
+    print(f"phase 3 K3: {k} chunks equal to plain with 0 and "
+          f"{PL.SEEDS_PER_CHUNK} seeds", flush=True)
+
+    # -- phase 4: the main path, end to end ------------------------------
+    counters = {"adler32_batch": CK.launches, "hop_chase": DK.launches, "pack": DK.launches}
+    for c in counters.values():
+        for name in c:
+            c[name] = 0
+    t0 = time.perf_counter()
+    out = zt.compress_parallel(corpus, LEVEL)
+    cold_s = time.perf_counter() - t0
+    launches = {name: c[name] for name, c in counters.items()}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if zlib.decompress(out) != corpus:
+        raise AssertionError("the level-6 stream does not decode to the corpus")
+    zref = len(zlib.compress(corpus, LEVEL))
+    print(f"phase 4 e2e: {len(corpus)} -> {len(out)} bytes, ratio to zlib-{LEVEL} "
+          f"{len(out) / zref:.6f} ({zref} bytes), cold {cold_s:.3f} s, launches "
+          f"{launches}", flush=True)
+
+    PL.STAGES.enabled = True
+    walls, stages = [], None
+    for _ in range(3):
+        PL.STAGES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = zt.compress_parallel(corpus, LEVEL)
+        walls.append(time.perf_counter() - t0)
+        stages = PL.STAGES.ms()
+        if again != out:
+            raise AssertionError("a warm run gave other bytes than the first")
+    PL.STAGES.enabled = False
+    mbps = [len(corpus) / w / 1e6 for w in walls]
+    print("phase 4 warm: wall s " + ", ".join(f"{w:.4f}" for w in walls)
+          + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
+    print("phase 4 stages ms (last warm run): "
+          + json.dumps({k2: round(v, 3) for k2, v in stages.items()}), flush=True)
+
+    idx_out, index = zt.compress_parallel(corpus, LEVEL, return_index=True)
+    if zlib.decompress(idx_out) != corpus or len(index) != n_chunks:
+        raise AssertionError("the indexed stream does not decode")
+    pos = 0
+    for off, ln, out_len in index[:4]:
+        d = zlib.decompressobj(-15)
+        if d.decompress(idx_out[off : off + ln]) != corpus[pos : pos + out_len]:
+            raise AssertionError("an indexed chunk does not decode on its own")
+        pos += out_len
+    seeded = sum(s is not None for s in index.seeds)
+    gz = zt.compress_parallel(corpus, LEVEL, window_bits=31)
+    if zlib.decompress(gz, 31) != corpus:
+        raise AssertionError("the gzip stream does not decode")
+    small = corpus[:100_000]
+    on_card = zt.compress_parallel(small, LEVEL)
+    on_cpu = zt.compress_parallel(small, LEVEL, device="cpu")
+    if zlib.decompress(on_card) != small or zlib.decompress(on_cpu) != small:
+        raise AssertionError("the 100 kB streams do not decode")
+    print(f"phase 4 more: return_index {len(idx_out)} bytes, {seeded}/{len(index)} "
+          f"chunks seeded; gzip {len(gz)} bytes; 100 kB card stream equal to the "
+          f"CPU port's: {on_card == on_cpu}", flush=True)
+
+    kernels = []
+    for name in ("adler32_batch", "hop_chase", "pack"):
+        r = rows[name]
+        b_ms, b_by = r.pop("bnd")
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"], replaces=r["replaces"],
+            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"e2e": {
+        "bytes_in": len(corpus), "bytes_out": len(out), "zlib_bytes": zref,
+        "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, "warm_s": walls,
+        "warm_mb_per_s": mbps, "stage_ms": stages,
+    }}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,242 @@
+"""The slice as a whole: the port's `compress_parallel` (device="cpu", every
+kernel's plain version) against the JAX package's kernel engine
+(ZRS_TPU_KERNEL=1, Pallas kernels in interpret mode) on the same inputs.
+Streams, chunk indexes and decode seeds must be byte-for-byte equal, and
+every stream must decode with stdlib zlib.
+
+The port runs with XLA's own 2^len density weights (fixture
+`kernel_engine`, see tests/test_torch_dynhuff.py) so that both tree
+builders do the same float32 arithmetic; `test_shipped_weights_against_jax`
+runs the port's own exact weights instead and pins how far its streams
+are from the JAX package's."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import zlib_rs_tpu.parallel.pipeline as jp
+import zlib_rs_tpu_torch as zt
+from zlib_rs_tpu_torch.config import Strategy
+from zlib_rs_tpu_torch.ops import dynhuff as td
+from zlib_rs_tpu_torch.parallel import pipeline as tp
+
+_BASH = open("/bin/bash", "rb").read()
+MULTI = _BASH[400_000 : 400_000 + 70_001]  # three chunks, odd length
+ENV = ("ZRS_TPU_KERNEL", "ZRS_TPU_CHAIN", "ZRS_TPU_WG", "ZRS_TPU_HOPSCAN",
+       "ZRS_TPU_TABSCAN", "ZRS_TPU_HOP_IL")
+_JAX_CACHE = {}
+SHIPPED_EXP2 = td.EXP2_LEN  # the port's exact 2^len, before any test swaps it
+
+
+@pytest.fixture(autouse=True)
+def kernel_engine(monkeypatch):
+    for name in ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
+    table = np.asarray(jnp.exp2(jnp.arange(16, dtype=jnp.float32))).copy()
+    monkeypatch.setattr(td, "EXP2_LEN", torch.from_numpy(table))
+
+
+def _jax(data: bytes, level: int, **kw):
+    key = (data, level, tuple(sorted(kw.items())))
+    if key not in _JAX_CACHE:
+        _JAX_CACHE[key] = jp.compress_parallel(data, level, **kw)
+    return _JAX_CACHE[key]
+
+
+def _decode(stream: bytes, window_bits: int = 15) -> bytes:
+    d = zlib.decompressobj(window_bits)
+    out = d.decompress(stream) + d.flush()
+    assert d.eof and not d.unused_data
+    return out
+
+
+@pytest.mark.parametrize("level", [3, 4, 5, 6, 7])
+def test_levels_equal_jax(level):
+    got = zt.compress_parallel(MULTI, level, device="cpu")
+    assert got == _jax(MULTI, level)
+    assert _decode(got) == MULTI
+
+
+@pytest.mark.parametrize("window_bits", [15, 31, -15, 9])
+def test_wrappers_equal_jax(window_bits):
+    got = zt.compress_parallel(MULTI, 6, window_bits=window_bits, device="cpu")
+    assert got == _jax(MULTI, 6, window_bits=window_bits)
+    assert _decode(got, window_bits if window_bits != 9 else 15) == MULTI
+    if window_bits == 31:
+        assert got[:2] == b"\x1f\x8b"
+        assert int.from_bytes(got[-8:-4], "little") == zlib.crc32(MULTI)
+
+
+@pytest.mark.parametrize("window_bits", [15, 31])
+def test_return_index_equal_jax(window_bits):
+    got, index = zt.compress_parallel(
+        MULTI, 6, return_index=True, window_bits=window_bits, device="cpu"
+    )
+    ref, ref_index = _jax(MULTI, 6, return_index=True, window_bits=window_bits)
+    assert got == ref
+    assert isinstance(index, zt.ChunkIndex)
+    assert list(index) == list(ref_index)
+    assert index.seeds == ref_index.seeds
+    assert all(len(s[0]) == len(s[1]) == tp.SEEDS_PER_CHUNK for s in index.seeds)
+    assert _decode(got, window_bits) == MULTI
+    # indexed chunks are not primed: each body inflates on its own
+    pos = 0
+    for off, ln, out_len in index:
+        d = zlib.decompressobj(-15)
+        assert d.decompress(got[off : off + ln]) == MULTI[pos : pos + out_len]
+        pos += out_len
+
+
+@pytest.mark.parametrize(
+    "data",
+    [b"", b"x", _BASH[:1001], _BASH[500_000 : 500_000 + 65_536]],
+    ids=["empty", "one_byte", "odd_1001", "two_chunks"],
+)
+def test_edge_inputs_equal_jax(data):
+    got = zt.compress_parallel(data, 6, device="cpu")
+    assert got == _jax(data, 6)
+    assert _decode(got) == data
+
+
+def test_incompressible_input_falls_back_to_stored_chunks():
+    data = np.random.default_rng(12).integers(0, 256, size=40_000, dtype=np.uint8).tobytes()
+    got, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
+    ref, ref_index = _jax(data, 6, return_index=True)
+    assert got == ref and list(index) == list(ref_index)
+    assert index.seeds == ref_index.seeds
+    assert index.seeds[0] is None  # a stored chunk carries no seeds
+    assert _decode(got) == data
+    plain = zt.compress_parallel(data, 6, device="cpu")
+    assert plain == _jax(data, 6) and _decode(plain) == data
+
+
+TIE = _BASH[100_000 : 100_000 + 70_001]  # a density tie in the level-3 tree
+
+# (data, level, options, port bytes minus JAX bytes) with the shipped
+# weights; a nonzero difference is a Kraft density tie that XLA's inexact
+# CPU exp2 breaks the other way (ROADMAP.md, queue 3)
+SHIPPED_CASES = {
+    "level3": (MULTI, 3, {}, 0),
+    "level4": (MULTI, 4, {}, 0),
+    "level5": (MULTI, 5, {}, 0),
+    "level6": (MULTI, 6, {}, 0),
+    "level7": (MULTI, 7, {}, 0),
+    "gzip": (MULTI, 6, dict(window_bits=31), 0),
+    "raw": (MULTI, 6, dict(window_bits=-15), 0),
+    "index": (MULTI, 6, dict(return_index=True), 0),
+    "empty": (b"", 6, {}, 0),
+    "one_byte": (b"x", 6, {}, 0),
+    "odd_1001": (_BASH[:1001], 6, {}, 0),
+    "two_chunks": (_BASH[500_000 : 500_000 + 65_536], 6, {}, -1),
+    "tie_level3": (TIE, 3, {}, 11),
+    "tie_level6": (TIE, 6, {}, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SHIPPED_CASES))
+def test_shipped_weights_against_jax(monkeypatch, case):
+    data, level, kw, diff = SHIPPED_CASES[case]
+    xla_exp2 = td.EXP2_LEN
+    monkeypatch.setattr(td, "EXP2_LEN", SHIPPED_EXP2)
+    got = zt.compress_parallel(data, level, device="cpu", **kw)
+    ref = _jax(data, level, **kw)
+    if kw.get("return_index"):
+        (got, index), (ref, ref_index) = got, ref
+        assert list(index) == list(ref_index) and index.seeds == ref_index.seeds
+    assert len(got) - len(ref) == diff
+    if diff == 0:
+        assert got == ref
+    else:
+        # the difference is the weight table alone: XLA's values close it
+        monkeypatch.setattr(td, "EXP2_LEN", xla_exp2)
+        assert zt.compress_parallel(data, level, device="cpu", **kw) == ref
+    assert _decode(got, kw.get("window_bits", 15)) == data
+
+
+def test_unset_kernel_env_and_hop_il_run_the_same_engine(monkeypatch):
+    want = _jax(MULTI, 6)
+    monkeypatch.delenv("ZRS_TPU_KERNEL")
+    assert zt.compress_parallel(MULTI, 6, device="cpu") == want
+    monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
+    monkeypatch.setenv("ZRS_TPU_HOP_IL", "2")
+    assert zt.compress_parallel(MULTI, 6, device="cpu") == want
+
+
+def test_chain_env_and_wg_env_are_honoured(monkeypatch):
+    monkeypatch.setenv("ZRS_TPU_CHAIN", "16")
+    monkeypatch.setenv("ZRS_TPU_WG", "4")
+    data = MULTI[:40_000]
+    got = zt.compress_parallel(data, 6, device="cpu")
+    assert got == jp.compress_parallel(data, 6)
+    assert _decode(got) == data
+
+
+@pytest.mark.parametrize(
+    "kw,env,match",
+    [
+        (dict(level=1), {}, "static"),
+        (dict(level=2), {}, "static"),
+        (dict(level=8), {}, "K8"),
+        (dict(level=9), {}, "K8"),
+        (dict(level=6), {"ZRS_TPU_TABSCAN": "0"}, "K8"),
+        (dict(level=6), {"ZRS_TPU_HOPSCAN": "0"}, "K10"),
+        (dict(level=6), {"ZRS_TPU_WG": "32"}, "K10"),
+        (dict(level=6), {"ZRS_TPU_KERNEL": "0"}, "XLA matcher"),
+        (dict(level=6, mesh=object()), {}, "mesh"),
+        (dict(level=6, strategy=Strategy.Filtered), {}, "host engine"),
+        (dict(level=6, chunk_size=65536), {}, "65024"),
+    ],
+)
+def test_routes_not_ported_raise(monkeypatch, kw, env, match):
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    with pytest.raises(NotImplementedError, match=match):
+        zt.compress_parallel(MULTI, device="cpu", **kw)
+
+
+def test_default_strategy_is_the_kernel_engine():
+    got = zt.compress_parallel(MULTI, 6, strategy=Strategy.Default, device="cpu")
+    assert got == _jax(MULTI, 6)
+    assert zt.fallback_stats() == {}
+
+
+def test_no_gpu_and_no_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zt.compress_parallel(b"abc", 6)
+
+
+def test_import_leaves_jax_and_the_jax_package_out():
+    code = (
+        "import sys, zlib_rs_tpu_torch, zlib_rs_tpu_torch.interop;"
+        "import zlib_rs_tpu_torch.ops.kernels.deflate_kernel;"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'zlib_rs_tpu' or m.startswith('zlib_rs_tpu.')];"
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_port_source_names_jax_or_the_jax_package():
+    root = pathlib.Path(zt.__file__).resolve().parent
+    files = [p for p in root.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    assert len(files) >= 15
+    files.append(root.parent / "chip_smoke.py")
+    for path in files:
+        text = path.read_text()
+        assert not re.search(
+            r"\bjax\b|zlib_rs_tpu\.\w|(import|from) zlib_rs_tpu\b", text
+        ), path

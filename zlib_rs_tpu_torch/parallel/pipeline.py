@@ -1,0 +1,454 @@
+"""Chunk-parallel deflate on one CUDA device: the encode half.
+
+Input is split into fixed-size chunks, every chunk is compressed on the
+device as one dynamic-Huffman block body, and the host stitches the
+byte-aligned chunk blocks into ONE valid zlib/gzip/raw stream:
+
+  * each non-final chunk ends byte-aligned with an empty stored block
+    (a sync flush), so concatenation is pure byte concatenation;
+  * the final chunk's block carries BFINAL;
+  * per-chunk adler32 values (the K1 kernel) are combined on the host;
+    the gzip trailer's crc32 is stdlib zlib's over the whole input.
+
+Device stages per batch of chunks (the kernel engine): `scan_chunks_hop`
+(hop tables in torch, the K2 chase, the symbol histogram) ->
+`freq_pack_chunks` (both trees in torch, the K3 pack) -> K1 adler32; the
+host builds each chunk's block header from the code lengths and splices it
+in front of the body.
+
+Every produced stream decodes with any zlib inflater.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import zlib
+
+import numpy as np
+import torch
+
+from .. import _device
+from ..config import Strategy, Wrap, decode_window_bits_deflate
+from ..models.deflate import BitWriter, _scan_code_lengths
+from ..ops import checksum
+from ..ops import huffman as H
+from ..ops.kernels import deflate_kernel as DK
+from ..utils.stages import STAGES
+
+DEFAULT_CHUNK = 32 * 1024  # the kernel engine's chunk size
+SEEDS_PER_CHUNK = 128  # decode seeds per indexed chunk
+SUPER_BATCH = 128  # chunks per batch for the bulk of an input
+TAIL_BATCH = 16  # chunks per batch for the rest
+
+# Observability of engine fallbacks, keyed "stage:ExcType". The encode
+# path of the port catches nothing, so this stays empty; it is kept so
+# that callers can assert it.
+_FALLBACKS: "collections.Counter[str]" = collections.Counter()
+
+
+def _note_fallback(stage: str, exc: BaseException) -> None:
+    _FALLBACKS[f"{stage}:{type(exc).__name__}"] += 1
+
+
+def fallback_stats() -> dict:
+    """Counters of device-path fallbacks since import: {stage:ExcType: n}."""
+    return dict(_FALLBACKS)
+
+
+class ChunkIndex(list):
+    """Chunk index: a list of (body_offset, body_len, out_len) tuples,
+    optionally carrying per-chunk decode seeds (`.seeds`: a list of
+    (bit_offsets, out_offsets), or None for stored-fallback chunks)."""
+
+    seeds = None
+
+
+def _dyn_header(ll_lens: np.ndarray, d_lens: np.ndarray, final: bool) -> tuple[bytes, int]:
+    """One dynamic block header (BFINAL/BTYPE/HLIT/HDIST/HCLEN + the code
+    length RLE) from the device-computed length arrays. O(100) bits."""
+    nlen = max(257, int(np.max(np.nonzero(ll_lens)[0])) + 1) if np.any(ll_lens) else 257
+    ndist = int(np.max(np.nonzero(d_lens)[0])) + 1 if np.any(d_lens) else 1
+    rle_ll = _scan_code_lengths(ll_lens[:nlen])
+    rle_d = _scan_code_lengths(d_lens[:ndist])
+    bl_freq = np.zeros(19, np.int64)
+    for sym, _v, _eb in rle_ll + rle_d:
+        bl_freq[sym] += 1
+    bl_lens = H.huffman_code_lengths(bl_freq, 7)
+    _, bl_codes = H.canonical_codes(bl_lens)
+    order = H.CL_ORDER
+    hclen = 19
+    while hclen > 4 and bl_lens[order[hclen - 1]] == 0:
+        hclen -= 1
+    out = bytearray()
+    bw = BitWriter(out)
+    bw.send_bits(1 if final else 0, 1)
+    bw.send_bits(2, 2)
+    bw.send_bits(nlen - 257, 5)
+    bw.send_bits(ndist - 1, 5)
+    bw.send_bits(hclen - 4, 4)
+    for i in range(hclen):
+        bw.send_bits(int(bl_lens[order[i]]), 3)
+    for sym, v, eb in rle_ll + rle_d:
+        bw.send_bits(int(bl_codes[sym]), int(bl_lens[sym]))
+        if eb:
+            bw.send_bits(v, eb)
+    nbits = len(out) * 8 + bw.bitcnt
+    if bw.bitcnt:
+        out.append(bw.bitbuf & 0xFF)
+    return bytes(out), nbits
+
+
+def _splice_bits(header: bytes, hb: int, body_u8: np.ndarray, body_bits: int) -> bytes:
+    """Concatenate two LSB-first bitstreams: header (hb bits) + body."""
+    nbody = (body_bits + 7) // 8
+    body = body_u8[: nbody + 1]  # +1 slack for the shifted tail
+    if body.shape[0] < nbody + 1:
+        body = np.concatenate([body, np.zeros(nbody + 1 - body.shape[0], np.uint8)])
+    r = hb & 7
+    total_bytes = (hb + body_bits + 7) // 8
+    if r == 0:
+        return (header + body[:nbody].tobytes())[:total_bytes]
+    b16 = body.astype(np.uint16)
+    lo = ((b16 << r) & 0xFF).astype(np.uint8)
+    hi = (b16 >> (8 - r)).astype(np.uint8)
+    out = bytearray(header)
+    out[-1] |= int(lo[0])
+    tail = hi[:-1] | lo[1:]
+    out.extend(tail.tobytes())
+    return bytes(out[:total_bytes])
+
+
+def _level_knobs(level: int) -> dict:
+    """zlib's (good, max_lazy, nice, chain) for the kernel matcher. At
+    level 6 the device chain budget is 64 instead of zlib's 128 (the
+    kernel engine's speed/ratio knee); ZRS_TPU_CHAIN overrides it."""
+    kcfg = DK.ZLIB_CONFIG[min(max(level, 1), 9)]
+    if level == 6 or level == -1:
+        kcfg = (kcfg[0], kcfg[1], kcfg[2], 64)
+    chain_env = os.environ.get("ZRS_TPU_CHAIN")
+    if chain_env:
+        kcfg = (kcfg[0], kcfg[1], kcfg[2], int(chain_env))
+    return dict(kernel_cfg=kcfg)
+
+
+def _resolve_kernel_variant(kernel_cfg) -> tuple[str, int]:
+    """(variant, w_g) of the kernel engine's matcher: "hop" (hop tables +
+    the K2 chase, the default), "tab" (table walk) or "chain" (hash-chain
+    walk, also the route of chains over 256)."""
+    _good, mlazy, _nice, chain = kernel_cfg or (8, 16, 128, 128)
+    wg = int(os.environ.get("ZRS_TPU_WG", "6"))
+    if chain > 256 or os.environ.get("ZRS_TPU_TABSCAN", "1") == "0":
+        return "chain", wg
+    if (mlazy - 3 < 128 and 4 * wg < 128
+            and os.environ.get("ZRS_TPU_HOPSCAN", "1") != "0"):
+        return "hop", wg
+    return "tab", wg
+
+
+def _encode_batch(chunks, n_valid, valid_from, *, dict_size, n_seeds, kernel_cfg, w_g):
+    """The kernel engine on one batch: uint8 [B, dict + chunk + PAD] ->
+    (words, bits, ll_lens, d_lens, seeds_bit, seeds_out)."""
+    good, mlazy, nice, chain = kernel_cfg
+    with STAGES.stage("hop_tables", chunks.device):
+        words4 = DK.words_from_bytes(chunks)
+    mpos, mld, nmatch, kbad, freq = DK.scan_chunks_hop(
+        words4, n_valid, valid_from, start=dict_size, depth=chain, nice=nice,
+        good=good, max_lazy=mlazy, w_g=w_g, bytes_arr=chunks,
+    )
+    # a bad (match-overflow) chunk degrades to an all-literal parse
+    nm_eff = torch.where(kbad, 0, nmatch)
+    res = DK.freq_pack_chunks(
+        chunks, n_valid, dict_size, mpos, mld, nm_eff, freq, n_seeds=n_seeds
+    )
+    if n_seeds:
+        words, bits, ll_lens, d_lens, seeds_bit, seeds_out, _bad = res
+    else:
+        (words, bits, ll_lens, d_lens, _bad), seeds_bit, seeds_out = res, None, None
+    return words, bits, ll_lens, d_lens, seeds_bit, seeds_out
+
+
+def _stored_blocks(data: bytes, final: bool) -> bytes:
+    """Byte-aligned stored block(s) for one chunk (used when the coded
+    block would be larger)."""
+    out = bytearray()
+    i = 0
+    while True:
+        take = min(len(data) - i, 65535)
+        is_last = final and (i + take == len(data))
+        out.append(1 if is_last else 0)  # BFINAL + BTYPE=00 + 5 pad bits
+        out.extend(take.to_bytes(2, "little"))
+        out.extend((~take & 0xFFFF).to_bytes(2, "little"))
+        out.extend(data[i : i + take])
+        i += take
+        if i >= len(data):
+            return bytes(out)
+
+
+def _assemble(payloads, chunks_raw, n_chunks: int):
+    """Stitch per-chunk block payloads [(bytes, total_bits)]: byte-align
+    every non-final chunk with an empty stored block (the 00 00 FF FF sync
+    seam); the final chunk carries BFINAL and is only zero-padded. A chunk
+    whose coded block is larger than raw + overhead is re-emitted as
+    stored blocks. Also returns per-chunk stored flags."""
+    out = bytearray()
+    index = []
+    stored_flags = []
+    for k in range(n_chunks):
+        payload, total_bits = payloads[k]
+        raw_chunk = chunks_raw[k]
+        final = k == n_chunks - 1
+        start = len(out)
+        stored_cost = len(raw_chunk) + 5 * max(1, -(-len(raw_chunk) // 65535))
+        if (total_bits + 7) // 8 > stored_cost and len(raw_chunk):
+            out.extend(_stored_blocks(raw_chunk, final))
+            index.append((start, len(out) - start, len(raw_chunk)))
+            stored_flags.append(True)
+            continue  # stored blocks end byte-aligned: no seam needed
+        out.extend(payload)
+        if not final:
+            # stored-block seam: 3 header bits are 0, padding bits are 0 —
+            # all inside already-zero bytes — then LEN=0000/NLEN=FFFF
+            rem = total_bits & 7
+            if rem == 0 or rem > 5:
+                out.append(0)  # the 3 header bits need a fresh byte
+            out.extend(b"\x00\x00\xff\xff")
+        index.append((start, len(out) - start, len(raw_chunk)))
+        stored_flags.append(False)
+    return out, index, stored_flags
+
+
+def priming_dict_size(n_chunks: int, chunk_size: int, prime: bool) -> int:
+    """Bytes of preceding data each chunk sees as dictionary: 32 KiB when
+    priming a multi-chunk input, shrunk (never below 8 KiB of room) so that
+    dict + chunk + PAD fits the kernel's u16 position space. Raises when
+    the chunk buffer cannot fit it at all."""
+    dict_size = 32768 if (prime and n_chunks > 1) else 0
+    if dict_size:
+        room = DK.MAX_BUF - chunk_size - DK.PAD
+        if 8192 <= room < dict_size:
+            dict_size = room & ~7
+    if dict_size + chunk_size + DK.PAD > DK.MAX_BUF:
+        raise NotImplementedError(
+            "a chunk buffer over 65024 bytes runs the XLA matcher "
+            "engine, which is not ported yet"
+        )
+    return dict_size
+
+
+def chunk_buffers(data: bytes, chunk_size: int, dict_size: int):
+    """The chunk buffers of `data`: uint8 [n_chunks, dict + chunk + PAD],
+    chunk k's bytes at offset dict_size after up to dict_size bytes of
+    the data before it. Returns (padded, n_valid, valid_from, data_len),
+    the last three int32 [n_chunks]; [valid_from, n_valid) is real data."""
+    n = len(data)
+    n_chunks = max(1, -(-n // chunk_size))
+    padded = np.zeros((n_chunks, dict_size + chunk_size + DK.PAD), np.uint8)
+    flat = np.frombuffer(data, np.uint8)
+    valid_from = np.zeros(n_chunks, np.int32)
+    for k in range(n_chunks):
+        seg = flat[k * chunk_size : (k + 1) * chunk_size]
+        padded[k, dict_size : dict_size + seg.shape[0]] = seg
+        dlen = min(dict_size, k * chunk_size)
+        if dlen:
+            padded[k, dict_size - dlen : dict_size] = flat[
+                k * chunk_size - dlen : k * chunk_size
+            ]
+        valid_from[k] = dict_size - dlen
+    data_len = np.array(
+        [min(chunk_size, max(0, n - k * chunk_size)) for k in range(n_chunks)], np.int32
+    )
+    n_valid = (data_len + dict_size).astype(np.int32)
+    return padded, n_valid, valid_from, data_len
+
+
+def batch_spans(n_chunks: int) -> list[tuple[int, int]]:
+    """(first chunk, size) of each batch: super-batches for the bulk, then
+    tail batches. PyTorch has no per-shape compile, so the last batch is
+    not padded with empty rows."""
+    bulk = (n_chunks // SUPER_BATCH) * SUPER_BATCH
+    return [(i, SUPER_BATCH) for i in range(0, bulk, SUPER_BATCH)] + [
+        (i, min(TAIL_BATCH, n_chunks - i)) for i in range(bulk, n_chunks, TAIL_BATCH)
+    ]
+
+
+def compress_parallel(
+    data: bytes,
+    level: int = 6,
+    *,
+    window_bits: int = 15,
+    chunk_size: int | None = None,
+    mesh=None,
+    return_index: bool = False,
+    prime_dict: bool = True,
+    strategy=None,
+    device=None,
+):
+    """Compress `data` into one valid zlib/gzip/raw stream, chunk-parallel
+    on one CUDA device (`device=None`; it raises when there is none), or
+    through the kernels' plain PyTorch versions with `device="cpu"`.
+
+    The engine is the kernel engine: 32 KiB chunks (the default), each
+    primed with up to ~31 KiB of the preceding data as dictionary, the hop
+    matcher, and batches of 128 chunks (16 for the tail). An unset
+    ZRS_TPU_KERNEL means this engine; ZRS_TPU_CHAIN, ZRS_TPU_WG,
+    ZRS_TPU_HOPSCAN, ZRS_TPU_TABSCAN and ZRS_TPU_HOP_IL keep their
+    meanings (ZRS_TPU_HOP_IL=2 gives the same outputs through K2). Routes
+    not ported yet raise NotImplementedError naming what is missing:
+    levels below 3 (the static engine), the chain route (levels 8-9, K8),
+    the tab route (ZRS_TPU_HOPSCAN=0, K10), ZRS_TPU_KERNEL other than 1
+    (the XLA matcher), a chunk buffer over the kernel's 65024 bytes,
+    `mesh=` and a non-default `strategy` (the host engine).
+
+    With return_index=True, also returns the ChunkIndex of (body_offset,
+    body_len, out_len) per chunk with 128 decode seeds per coded chunk;
+    indexed streams are not dictionary-primed, so every chunk decodes on
+    its own.
+    """
+    if strategy is not None and strategy != Strategy.Default:
+        raise NotImplementedError(
+            "a non-default strategy runs the host engine, which the port "
+            "does not carry yet"
+        )
+    if mesh is not None:
+        raise NotImplementedError("mesh= (the sharded encode) is not ported yet")
+    kernel_env = os.environ.get("ZRS_TPU_KERNEL")
+    if kernel_env is not None and kernel_env != "1":
+        raise NotImplementedError(
+            f"ZRS_TPU_KERNEL={kernel_env} selects the XLA matcher engine, "
+            "which is not ported yet"
+        )
+    if level < 3:
+        raise NotImplementedError(
+            f"level {level} runs the static-Huffman engine, which is not "
+            "ported yet (the port covers levels 3-9 of the kernel engine)"
+        )
+    knobs = _level_knobs(level)
+    variant, w_g = _resolve_kernel_variant(knobs["kernel_cfg"])
+    if variant == "chain":
+        raise NotImplementedError(
+            "the chain matcher route (levels 8-9, kernel K8 "
+            "scan_chunks_pallas) is not ported yet"
+        )
+    if variant == "tab":
+        raise NotImplementedError(
+            "the tab matcher route (kernel K10 scan_chunks_tab_pallas) is "
+            "not ported yet"
+        )
+    dev = _device.resolve_device(device)
+    if chunk_size is None:
+        chunk_size = DEFAULT_CHUNK
+    wrap, wbits = decode_window_bits_deflate(window_bits)
+    n = len(data)
+    n_chunks = max(1, -(-n // chunk_size))
+    # indexed streams stay independently decodable, so priming is off
+    # with return_index
+    dict_size = priming_dict_size(
+        n_chunks, chunk_size, prime_dict and not return_index
+    )
+    padded, n_valid, valid_from, data_len = chunk_buffers(data, chunk_size, dict_size)
+    n_seeds = SEEDS_PER_CHUNK if return_index else 0
+
+    cw = chunk_size // 4 + 80  # compressed-size bound fetched per chunk
+    parts = collections.defaultdict(list)
+    full_rows = []
+    for b0, bsz in batch_spans(n_chunks):
+        sl = slice(b0, b0 + bsz)
+        dc = torch.from_numpy(padded[sl]).to(dev)
+        dn = torch.from_numpy(n_valid[sl]).to(dev)
+        dv = torch.from_numpy(valid_from[sl]).to(dev)
+        words, bits, ll_lens, d_lens, sbit, sout = _encode_batch(
+            dc, dn, dv, dict_size=dict_size, n_seeds=n_seeds,
+            kernel_cfg=knobs["kernel_cfg"], w_g=w_g,
+        )
+        with STAGES.stage("adler32", dev):
+            adlers = checksum.adler32_batch(
+                dc[:, dict_size : dict_size + chunk_size], dn - dict_size
+            )
+        # fetch only a compressed-size bound per chunk; a chunk whose
+        # payload exceeds it (incompressible data, stored anyway) reads
+        # its full row from the retained device array
+        if words.shape[1] > cw:
+            full_rows.append((b0, words))
+            words = words[:, :cw]
+        parts["words"].append(words)
+        parts["bits"].append(bits)
+        parts["adler"].append(adlers.to(torch.int32))
+        parts["ll"].append(ll_lens)
+        parts["d"].append(d_lens)
+        if n_seeds:
+            parts["sbit"].append(sbit)
+            parts["sout"].append(sout)
+
+    if STAGES.enabled and dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # keep device time out of the host stage
+    with STAGES.host("host_assembly"):
+        # one device -> host transfer of every result
+        names = list(parts)
+        cat = {k: torch.cat(parts[k]).to(torch.int32) for k in names}
+        flat_dev = torch.cat([cat[k].reshape(-1) for k in names])
+        flat_host = flat_dev.cpu().numpy()
+        host, pos = {}, 0
+        for k in names:
+            sz = cat[k].numel()
+            host[k] = flat_host[pos : pos + sz].reshape(cat[k].shape)
+            pos += sz
+        words_np = host["words"].view(np.uint32)
+        bits_np = host["bits"]
+        adlers_np = host["adler"].astype(np.int64) & 0xFFFFFFFF
+
+        def row_words(k, need_bytes):
+            if need_bytes <= words_np.shape[1] * 4:
+                return words_np[k]
+            for b0, full in full_rows:
+                if b0 <= k < b0 + full.shape[0]:
+                    return full[k - b0].cpu().numpy().view(np.uint32)
+            return words_np[k]
+
+        payloads = []
+        for k in range(n_chunks):
+            hdr, hb = _dyn_header(host["ll"][k], host["d"][k], final=k == n_chunks - 1)
+            body_bits = int(bits_np[k])
+            row = row_words(k, (body_bits + 7) // 8 + 1)
+            payload = _splice_bits(hdr, hb, row.view(np.uint8), body_bits)
+            payloads.append((payload, hb + body_bits))
+
+        chunks_raw = [
+            data[k * chunk_size : k * chunk_size + int(data_len[k])] for k in range(n_chunks)
+        ]
+        body, index, stored_flags = _assemble(payloads, chunks_raw, n_chunks)
+
+        out = bytearray()
+        if wrap == Wrap.Zlib:
+            cinfo = wbits - 8
+            cmf = (cinfo << 4) | 8
+            flevel = 0 if level < 2 else 1 if level < 6 else 2 if level == 6 else 3
+            flg = flevel << 6
+            flg |= (31 - (cmf * 256 + flg) % 31) % 31
+            out.extend(bytes([cmf, flg]))
+        elif wrap == Wrap.Gzip:
+            out.extend(bytes([0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 2 if level == 9 else 0, 3]))
+        out.extend(body)
+        if wrap == Wrap.Zlib:
+            a = 1
+            for k in range(n_chunks):
+                a = checksum.adler32_combine(a, int(adlers_np[k]), int(data_len[k]))
+            out.extend(a.to_bytes(4, "big"))
+        elif wrap == Wrap.Gzip:
+            out.extend(zlib.crc32(data).to_bytes(4, "little"))
+            out.extend((n & 0xFFFFFFFF).to_bytes(4, "little"))
+    if return_index:
+        hdr_len = len(out) - len(body) - (
+            4 if wrap == Wrap.Zlib else 8 if wrap == Wrap.Gzip else 0
+        )
+        abs_index = ChunkIndex(
+            (hdr_len + off, ln, out_len) for off, ln, out_len in index
+        )
+        # seeds for coded chunks only; stored chunks decode by memcpy
+        abs_index.seeds = [
+            None if stored_flags[k]
+            else (host["sbit"][k].tolist(), host["sout"][k].tolist())
+            for k in range(n_chunks)
+        ]
+        return bytes(out), abs_index
+    return bytes(out)
