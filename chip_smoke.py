@@ -7,8 +7,11 @@ Builds the port's CUDA kernels from zlib_rs_tpu_torch/csrc with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it, then drives the main path: level-6
 `compress_parallel` of an 8 MiB corpus (a tar of system binaries, the
-recipe of bench.py's corpus), checked by stdlib zlib. Any mismatch raises;
-no phase's failure is caught.
+recipe of bench.py's corpus), checked by stdlib zlib, and
+`decompress_parallel` of its indexed zlib and gzip streams through the
+vector engine (K4 decode, K5 expansion), checked against the corpus, then
+the decode's fail-safe on damaged input. Any mismatch raises; no phase's
+failure is caught.
 
 Lines before the last: the build time, per-phase results, one JSON object
 {"kernels": [...]} with each kernel's launches on the main path, error
@@ -33,7 +36,8 @@ CORPUS_BYTES = 8 * 1024 * 1024
 LEVEL = 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ALU_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
-COMPARE_ROWS = 8  # chunks held against the plain chase and pack
+COMPARE_ROWS = 8  # chunks held against the plain chase, pack, decode and expansion
+UNDERSIZED_CAP = 16  # tape rows: walkers of this corpus need ~33 on average
 
 
 def load_corpus(size: int = CORPUS_BYTES) -> tuple[bytes, list[str]]:
@@ -110,6 +114,155 @@ def max_abs(pairs) -> int:
     return err
 
 
+def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches) -> dict:
+    """Phases 5-8: K4 and K5 against their plain versions on the indexed
+    stream's chunks, the decode path end to end (zlib and gzip), and the
+    fail-safe on damaged input. Fills `rows` and `launches` for K4 and K5;
+    returns the decode's end-to-end numbers."""
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+    from zlib_rs_tpu_torch.parallel import vector_inflate as VI
+
+    bodies = [idx_out[off : off + ln] for off, ln, _ in index]
+    sizes = [n for _, _, n in index]
+    seeds = index.seeds
+    staged, meta = VI.prepare_vector_inputs(bodies, sizes, seeds, dev)
+    S, K, B = meta["S"], meta["K"], meta["B"]
+    cap = VI._twoplane_cap(meta)
+    W = B * S
+    k = min(COMPARE_ROWS, B)
+    names = ("words", "start_word", "align", "span", "tables")
+    full_args = [staged[n] for n in names]
+    sub_args = [staged["words"][:k]] + [staged[n][: k * S] for n in names[1:4]] + [
+        staged["tables"][:k]]
+
+    # -- phase 5: K4 against its plain version -----------------------------
+    got = VK.decode_tokens_vector2_cuda(*sub_args, S=S, K=K, cap=cap)
+    want = VK.decode_tokens_vector2_plain(*sub_args, S=S, K=K, cap=cap)
+    err = max_abs(zip(got, want))
+    if err:
+        raise AssertionError(f"K4 disagrees with its plain version: max abs err {err}")
+    tapeA, tapeB, cons, bad, rem = VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap)
+    torch.cuda.synchronize()
+    if int(bad.abs().sum()) or int(rem.abs().sum()):
+        raise AssertionError("K4 flags walkers of the clean stream")
+    used_rows = int((tapeB != 0).sum())
+    # the body bytes the walkers read, the tables, three walker arrays in,
+    # the tape rows used and three walker arrays out (the zero rows past
+    # each walker's stop are left out)
+    body_bytes = sum(len(b) for b in bodies) + 4 * staged["tables"].numel()
+    nb = body_bytes + 3 * 4 * W + 8 * used_rows + 3 * 4 * W
+    rows["vhuff_decode"] = dict(
+        source="zlib_rs_tpu_torch/csrc/vhuff_decode.cu",
+        replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:1200",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap), 5),
+        plain_ms=wall_ms(torch, lambda: VK.decode_tokens_vector2_plain(*full_args, S=S, K=K, cap=cap), 1),
+        # four cascade lookups (~30 operations each) and ~80 more a row
+        bnd=bound(nb, 200 * used_rows),
+    )
+    print(f"phase 5 K4: {k} chunks ({k * S} walkers) equal to plain; {B} chunks, "
+          f"{W} walkers, K {K}, cap {cap}, {used_rows} rows", flush=True)
+
+    # -- phase 6: K5 against its plain version -----------------------------
+    out_words = -(-max(sizes) // 4) + 2
+    offs_k = staged["offs"][:k]
+    got = VK.expand_tokens2_cuda(got[0], got[1], offs_k, out_words=out_words)
+    want = VK.expand_tokens2_plain(want[0], want[1], offs_k, out_words=out_words)
+    g8 = got.cpu().numpy().view("u1")
+    w8 = want.cpu().numpy().view("u1")
+    err = max_abs([(torch.from_numpy(g8[r, : sizes[r]]), torch.from_numpy(w8[r, : sizes[r]]))
+                   for r in range(k)])
+    if err:
+        raise AssertionError(f"K5 disagrees with its plain version: max abs err {err}")
+    outw = VK.expand_tokens2_cuda(tapeA, tapeB, staged["offs"], out_words=out_words)
+    full8 = outw.cpu().numpy().view("u1")
+    if b"".join(full8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
+        raise AssertionError("the full K5 expansion is not the corpus")
+    nb = 8 * used_rows + 4 * staged["offs"].numel() + len(corpus)
+    rows["vhuff_expand"] = dict(
+        source="zlib_rs_tpu_torch/csrc/vhuff_expand.cu",
+        replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:1168",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: VK.expand_tokens2_cuda(tapeA, tapeB, staged["offs"], out_words=out_words), 5),
+        plain_ms=wall_ms(torch, lambda: VK.expand_tokens2_plain(tapeA, tapeB, staged["offs"], out_words=out_words), 1),
+        # a funnel store and a match copy: ~40 operations a row
+        bnd=bound(nb, 40 * used_rows),
+    )
+    print(f"phase 6 K5: {k} chunks equal to plain; {B} chunks expand to the corpus",
+          flush=True)
+
+    # -- phase 7: the decode path, end to end ------------------------------
+    before = PL.fallback_stats()
+    for name in VK.launches:
+        VK.launches[name] = 0
+    t0 = time.perf_counter()
+    back = zt.decompress_parallel(idx_out, index)
+    cold_s = time.perf_counter() - t0
+    launches.update(VK.launches)
+    if back != corpus:
+        raise AssertionError("decompress_parallel does not return the corpus")
+    if min(VK.launches.values()) < 1:
+        raise AssertionError(f"a decode kernel never launched: {VK.launches}")
+    result = {"bytes_out": len(back), "cold_s": cold_s}
+    for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
+        PL.STAGES.enabled = True
+        walls, stages = [], []
+        for _ in range(3):
+            PL.STAGES.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = zt.decompress_parallel(stream, ix)
+            walls.append(time.perf_counter() - t0)
+            stages.append(PL.STAGES.ms())
+            if again != corpus:
+                raise AssertionError(f"a warm {label} decode is not the corpus")
+        PL.STAGES.enabled = False
+        mbps = [len(corpus) / w / 1e6 for w in walls]
+        result[label] = {"warm_s": walls, "warm_mb_per_s": mbps, "stage_ms": stages}
+        print(f"phase 7 decode {label}: wall s " + ", ".join(f"{w:.4f}" for w in walls)
+              + "; MB/s of output " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
+        for run, st in enumerate(stages, 1):
+            print(f"phase 7 {label} stages ms (warm run {run}): "
+                  + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
+    if PL.fallback_stats() != before or before:
+        raise AssertionError(f"the clean decode fell back: {PL.fallback_stats()}")
+    print(f"phase 7 e2e: cold {cold_s:.3f} s, launches "
+          f"{ {n: launches[n] for n in VK.launches} }, no fallback", flush=True)
+
+    # -- phase 8: fail-safe on the card ------------------------------------
+    broken = list(bodies)
+    hit = B // 2
+    flip = bytearray(broken[hit])
+    flip[len(flip) // 2] ^= 0xFF
+    broken[hit] = bytes(flip)
+    try:
+        VI.decode_chunks_vector(broken, sizes, seeds, device=dev)
+    except VI.VectorDataFault as e:
+        why = str(e)
+    else:
+        raise AssertionError("a flipped body byte decoded without a VectorDataFault")
+    real_cap = VI._twoplane_cap
+    VI._twoplane_cap = lambda m: UNDERSIZED_CAP
+    try:
+        n0 = PL.fallback_stats().get("vector_decode:ValueError", 0)
+        if zt.decompress_parallel(idx_out, index) != corpus:
+            raise AssertionError("the undersized-cap decode is not the corpus")
+        if PL.fallback_stats().get("vector_decode:ValueError", 0) != n0 + 1:
+            raise AssertionError(f"the undersized cap was not counted: {PL.fallback_stats()}")
+    finally:
+        VI._twoplane_cap = real_cap
+    torch.cuda.synchronize()
+    if zt.decompress_parallel(idx_out, index) != corpus:
+        raise AssertionError("the clean decode after the faults is not the corpus")
+    torch.cuda.synchronize()
+    print(f"phase 8 fail-safe: flipped byte in chunk {hit} raised VectorDataFault ({why}); "
+          f"cap {UNDERSIZED_CAP} fell back to the host step and was counted; a clean decode "
+          f"followed", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -126,6 +279,7 @@ def main() -> int:
     from zlib_rs_tpu_torch.ops import lzvec
     from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
     from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
     from zlib_rs_tpu_torch.parallel import pipeline as PL
 
     dev = _device.resolve_device(None)
@@ -271,7 +425,8 @@ def main() -> int:
           f"{PL.SEEDS_PER_CHUNK} seeds", flush=True)
 
     # -- phase 4: the main path, end to end ------------------------------
-    counters = {"adler32_batch": CK.launches, "hop_chase": DK.launches, "pack": DK.launches}
+    counters = {"adler32_batch": CK.launches, "hop_chase": DK.launches, "pack": DK.launches,
+                "vhuff_decode": VK.launches, "vhuff_expand": VK.launches}
     for c in counters.values():
         for name in c:
             c[name] = 0
@@ -279,6 +434,8 @@ def main() -> int:
     out = zt.compress_parallel(corpus, LEVEL)
     cold_s = time.perf_counter() - t0
     launches = {name: c[name] for name, c in counters.items()}
+    if launches.pop("vhuff_decode") + launches.pop("vhuff_expand"):
+        raise AssertionError("the encode path launched a decode kernel")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if zlib.decompress(out) != corpus:
@@ -316,7 +473,7 @@ def main() -> int:
             raise AssertionError("an indexed chunk does not decode on its own")
         pos += out_len
     seeded = sum(s is not None for s in index.seeds)
-    gz = zt.compress_parallel(corpus, LEVEL, window_bits=31)
+    gz, gz_index = zt.compress_parallel(corpus, LEVEL, window_bits=31, return_index=True)
     if zlib.decompress(gz, 31) != corpus:
         raise AssertionError("the gzip stream does not decode")
     small = corpus[:100_000]
@@ -328,8 +485,10 @@ def main() -> int:
           f"chunks seeded; gzip {len(gz)} bytes; 100 kB card stream equal to the "
           f"CPU port's: {on_card == on_cpu}", flush=True)
 
+    decode = decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches)
+
     kernels = []
-    for name in ("adler32_batch", "hop_chase", "pack"):
+    for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -341,7 +500,7 @@ def main() -> int:
     print(json.dumps({"e2e": {
         "bytes_in": len(corpus), "bytes_out": len(out), "zlib_bytes": zref,
         "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, "warm_s": walls,
-        "warm_mb_per_s": mbps, "stage_ms": stages,
+        "warm_mb_per_s": mbps, "stage_ms": stages, "decode": decode,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

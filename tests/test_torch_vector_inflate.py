@@ -1,0 +1,254 @@
+"""The decode slice as a whole: the port's vector engine and
+`decompress_parallel` (device="cpu", the kernels' plain versions) against
+the input and the JAX package's `decode_chunks_vector` (Pallas kernels in
+interpret mode), on the JAX package's indexed stream (XLA engine, 128 KiB
+chunks) and the port's own (kernel engine, 32 KiB chunks), zlib and gzip.
+
+Also the fail-safe contract: a data fault (corrupt body, wrong seed,
+undersized tape cap, wrong bytes behind a good-looking decode) falls back
+to the host exact step and is counted; a kernel error, and a wrapper's
+argument error, is never caught;
+routes not ported raise NotImplementedError."""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import zlib_rs_tpu.parallel.pipeline as jp
+import zlib_rs_tpu.parallel.vector_inflate as JV
+import zlib_rs_tpu_torch as zt
+from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+from zlib_rs_tpu_torch.parallel import pipeline as tp
+from zlib_rs_tpu_torch.parallel import vector_inflate as TV
+
+_BASH = open("/bin/bash", "rb").read()
+
+
+def _index(entries, seeds):
+    index = zt.ChunkIndex(entries)
+    index.seeds = seeds
+    return index
+
+
+def _as_gzip(data, zstream, index):
+    """The zlib-wrapped indexed stream re-wrapped as gzip: the chunk bodies
+    are the bytes the JAX package's own gzip encode emits (header of 10
+    bytes against 2), so only the offsets shift."""
+    body = zstream[2:-4]
+    gz = (bytes([0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 0, 3]) + body
+          + zlib.crc32(data).to_bytes(4, "little")
+          + (len(data) & 0xFFFFFFFF).to_bytes(4, "little"))
+    return gz, _index([(off + 8, ln, n) for off, ln, n in index], index.seeds)
+
+
+def _bundle(data, zstream, index, gz=None, gz_index=None):
+    if gz is None:
+        gz, gz_index = _as_gzip(data, zstream, index)
+    assert zlib.decompress(zstream) == data and zlib.decompress(gz, 31) == data
+    bodies = [zstream[off : off + ln] for off, ln, _ in index]
+    return dict(
+        data=data, zlib=(zstream, _index(list(index), index.seeds)),
+        gzip=(gz, gz_index), bodies=bodies, sizes=[n for _, _, n in index],
+        seeds=index.seeds,
+    )
+
+
+@pytest.fixture(scope="module")
+def xla_stream():
+    mp = pytest.MonkeyPatch()
+    mp.delenv("ZRS_TPU_KERNEL", raising=False)
+    data = _BASH[:140_000]
+    out, index = jp.compress_parallel(data, 6, chunk_size=128 * 1024, return_index=True)
+    mp.undo()
+    return _bundle(data, out, index)
+
+
+@pytest.fixture(scope="module")
+def kernel_stream():
+    # two chunks of /bin/bash, then one of dist-1 and dist-2 runs
+    data = _BASH[200_000 : 200_000 + 65_536] + b"a" * 20_000 + b"bc" * 6_384
+    out, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
+    gz, gz_index = zt.compress_parallel(data, 6, window_bits=31, return_index=True, device="cpu")
+    return _bundle(data, out, index, gz, gz_index)
+
+
+@pytest.fixture(params=["xla_stream", "kernel_stream"])
+def stream(request):
+    return request.getfixturevalue(request.param)
+
+
+@pytest.fixture(autouse=True)
+def clean_fallbacks(monkeypatch):
+    monkeypatch.delenv("ZRS_TPU_VECTOR", raising=False)
+    monkeypatch.delenv("ZRS_VECTOR_TWOPLANE", raising=False)
+    tp._FALLBACKS.clear()
+    yield
+    tp._FALLBACKS.clear()
+
+
+def test_decode_chunks_vector_equals_input_and_jax(stream):
+    got = TV.decode_chunks_vector(stream["bodies"], stream["sizes"], stream["seeds"], device="cpu")
+    want = JV.decode_chunks_vector(stream["bodies"], stream["sizes"], stream["seeds"])
+    assert got == want
+    assert b"".join(got) == stream["data"]
+
+
+@pytest.mark.parametrize("wrap", ["zlib", "gzip"])
+def test_decompress_parallel_equals_input(stream, wrap):
+    comp, index = stream[wrap]
+    assert zt.decompress_parallel(comp, index, device="cpu") == stream["data"]
+    assert zt.fallback_stats() == {}
+    assert zt.decompress_parallel(comp, index, engine="host") == stream["data"]
+    assert zt.decompress_parallel(comp, None) == stream["data"]
+
+
+def _int64_words(real):
+    def call(words, *a, **kw):
+        return real(words.long(), *a, **kw)
+    return call
+
+
+@pytest.mark.parametrize("fault", ["cap0", "int64_words"])
+def test_wrapper_argument_errors_propagate(monkeypatch, kernel_stream, fault):
+    # a wrapper's refusal to launch is a plain ValueError, not a data fault:
+    # it must not reach the host exact step
+    if fault == "cap0":
+        monkeypatch.setattr(TV, "_twoplane_cap", lambda m: 0)
+        match = "K and cap must be positive"
+    else:
+        monkeypatch.setattr(VK, "decode_tokens_vector2", _int64_words(VK.decode_tokens_vector2))
+        match = "operands must be int32"
+    comp, index = kernel_stream["zlib"]
+    with pytest.raises(ValueError, match=match) as info:
+        zt.decompress_parallel(comp, index, device="cpu")
+    assert not isinstance(info.value, TV.VectorDataFault)
+    assert zt.fallback_stats() == {}
+
+
+# ---------------------------------------------------------------------------
+# the fail-safe contract, as the JAX package's tests hold it
+# ---------------------------------------------------------------------------
+
+
+def test_corrupt_body_raises(stream):
+    bodies = list(stream["bodies"])
+    bad = bytearray(bodies[0])
+    bad[len(bad) // 2] ^= 0xFF
+    bodies[0] = bytes(bad)
+    with pytest.raises(TV.VectorDataFault):
+        TV.decode_chunks_vector(bodies, stream["sizes"], stream["seeds"], device="cpu")
+
+
+def test_wrong_seed_raises(stream):
+    bits, outs = stream["seeds"][0]
+    bits = list(bits)
+    bits[1] += 1  # one walker a bit off its symbol boundary
+    seeds = [(bits, outs)] + list(stream["seeds"][1:])
+    with pytest.raises(TV.VectorDataFault):
+        TV.decode_chunks_vector(stream["bodies"], stream["sizes"], seeds, device="cpu")
+
+
+def test_undersized_cap_raises_and_falls_back(monkeypatch, stream):
+    s = stream
+    _dev, meta = TV.prepare_vector_inputs(s["bodies"], s["sizes"], s["seeds"], device="cpu")
+    cap = TV._twoplane_cap(meta)
+    assert int(meta["sspan"].max()) // 3 <= cap <= meta["cap"]
+    monkeypatch.setattr(TV, "_twoplane_cap", lambda m: 16)
+    with pytest.raises(TV.VectorDataFault, match="bad/short"):
+        TV.decode_chunks_vector(s["bodies"], s["sizes"], s["seeds"], device="cpu")
+    comp, index = s["zlib"]
+    assert zt.decompress_parallel(comp, index, device="cpu") == s["data"]
+    assert zt.fallback_stats() == {"vector_decode:ValueError": 1}
+
+
+def test_seed_count_not_a_multiple_of_128_falls_back(kernel_stream):
+    comp, index = kernel_stream["zlib"]
+    half = _index(list(index), [(b[:64], o[:64]) for b, o in index.seeds])
+    assert zt.decompress_parallel(comp, half, device="cpu") == kernel_stream["data"]
+    assert zt.fallback_stats() == {"vector_decode:ValueError": 1}
+
+
+def test_silently_corrupt_device_result_falls_back(monkeypatch, kernel_stream):
+    def corrupt(bodies, out_sizes, seeds, **kw):
+        return [b"\x00" * n for n in out_sizes]  # wrong bytes, no fault raised
+
+    monkeypatch.setattr(TV, "decode_chunks_vector", corrupt)
+    for wrap in ("zlib", "gzip"):
+        comp, index = kernel_stream[wrap]
+        assert zt.decompress_parallel(comp, index, device="cpu") == kernel_stream["data"]
+    assert zt.fallback_stats() == {"device_checksum:ValueError": 2}
+
+
+def test_corrupt_stream_raises_after_the_host_step(kernel_stream):
+    comp, index = kernel_stream["zlib"]
+    bad = bytearray(comp)
+    bad[-1] ^= 0x01  # the adler32 trailer
+    with pytest.raises(ValueError, match="incorrect data check"):
+        zt.decompress_parallel(bytes(bad), index, device="cpu")
+    assert zt.fallback_stats() == {"device_checksum:ValueError": 1}
+
+
+# ---------------------------------------------------------------------------
+# what is never caught, and what is not ported
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("exc", [RuntimeError, OSError, NotImplementedError])
+def test_kernel_errors_propagate(monkeypatch, kernel_stream, exc):
+    def failing(*a, **kw):
+        raise exc("vhuff_decode: CUDA launch failed with error 700")
+
+    monkeypatch.setattr(VK, "decode_tokens_vector2", failing)
+    comp, index = kernel_stream["zlib"]
+    with pytest.raises(exc):
+        zt.decompress_parallel(comp, index, device="cpu")
+    assert zt.fallback_stats() == {}
+
+
+def test_unseeded_index_is_not_ported(kernel_stream):
+    comp, index = kernel_stream["zlib"]
+    for seeds in (None, [None] + list(index.seeds[1:])):
+        with pytest.raises(NotImplementedError, match="K6"):
+            zt.decompress_parallel(comp, _index(list(index), seeds), device="cpu")
+    assert zt.decompress_parallel(comp, _index(list(index), None), engine="host") == kernel_stream["data"]
+
+
+def test_stored_chunks_decode_on_the_host():
+    data = np.random.default_rng(12).integers(0, 256, 40_000, dtype=np.uint8).tobytes()
+    comp, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
+    assert index.seeds[0] is None  # a stored chunk carries no seeds
+    with pytest.raises(NotImplementedError):
+        zt.decompress_parallel(comp, index, device="cpu")
+    assert zt.decompress_parallel(comp, index, engine="host") == data
+
+
+@pytest.mark.parametrize(
+    "env,match",
+    [({"ZRS_TPU_VECTOR": "0"}, "K6"), ({"ZRS_VECTOR_TWOPLANE": "0"}, "K11")],
+)
+def test_env_routes_not_ported_raise(monkeypatch, kernel_stream, env, match):
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    comp, index = kernel_stream["zlib"]
+    with pytest.raises(NotImplementedError, match=match):
+        zt.decompress_parallel(comp, index, device="cpu")
+    assert zt.fallback_stats() == {}
+
+
+def test_engine_native_and_unknown_engines(kernel_stream):
+    comp, index = kernel_stream["zlib"]
+    with pytest.raises(NotImplementedError, match="C\\+\\+"):
+        zt.decompress_parallel(comp, index, engine="native")
+    with pytest.raises(ValueError, match="unknown engine"):
+        zt.decompress_parallel(comp, index, engine="tpu")
+
+
+def test_no_gpu_and_no_device_raises(monkeypatch, kernel_stream):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    comp, index = kernel_stream["zlib"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zt.decompress_parallel(comp, index)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TV.decode_chunks_vector(kernel_stream["bodies"], kernel_stream["sizes"], kernel_stream["seeds"])

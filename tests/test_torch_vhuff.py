@@ -1,0 +1,297 @@
+"""K4 and K5 of the vector decode engine and their host tables: the port
+(`zlib_rs_tpu_torch`, plain versions on the CPU) against the JAX package
+(`zlib_rs_tpu`, Pallas kernels in interpret mode) on the same inputs.
+
+Inputs are two indexed streams: the JAX package's own (the XLA engine at
+128 KiB chunks, the shape of its vector tests and bench) and the port's
+(the kernel engine at 32 KiB chunks). Every comparison is exact: header
+parse and cascade tables; per walker the tapes, `cons`, `bad` and `rem`;
+the expanded bytes in [0, out_len) of each chunk."""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import zlib_rs_tpu.ops.pallas.vhuff_kernel as JK
+import zlib_rs_tpu.parallel.swarm_inflate as JS
+import zlib_rs_tpu.parallel.vector_inflate as JV
+import zlib_rs_tpu.parallel.pipeline as jp
+import zlib_rs_tpu_torch as zt
+from zlib_rs_tpu_torch import interop
+from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+from zlib_rs_tpu_torch.parallel import swarm_inflate as TS
+from zlib_rs_tpu_torch.parallel import vector_inflate as TV
+
+_BASH = open("/bin/bash", "rb").read()
+
+
+def _chunks(out, index):
+    bodies = [out[off : off + ln] for off, ln, _ in index]
+    return bodies, [n for _, _, n in index], index.seeds
+
+
+@pytest.fixture(scope="module")
+def xla_stream(monkeypatch_module):
+    monkeypatch_module.delenv("ZRS_TPU_KERNEL", raising=False)
+    data = _BASH[:140_000]
+    out, index = jp.compress_parallel(data, 6, chunk_size=128 * 1024, return_index=True)
+    return (data, *_chunks(out, index))
+
+
+# two chunks of /bin/bash, then one of dist-1 and dist-2 runs whose
+# walkers' matches reach into the bytes of the walkers before them
+KERNEL_DATA = _BASH[200_000 : 200_000 + 65_536] + b"a" * 20_000 + b"bc" * 6_384
+
+
+@pytest.fixture(scope="module")
+def kernel_stream():
+    out, index = zt.compress_parallel(KERNEL_DATA, 6, return_index=True, device="cpu")
+    return (KERNEL_DATA, *_chunks(out, index))
+
+
+@pytest.fixture(scope="module")
+def monkeypatch_module():
+    mp = pytest.MonkeyPatch()
+    yield mp
+    mp.undo()
+
+
+@pytest.fixture(params=["xla_stream", "kernel_stream"])
+def stream(request):
+    return request.getfixturevalue(request.param)
+
+
+# ---------------------------------------------------------------------------
+# host tables
+# ---------------------------------------------------------------------------
+
+
+def _same_parse(body):
+    got, want = TS.parse_block_header(body), JS.parse_block_header(body)
+    if want is None:
+        assert got is None
+        return None
+    assert got is not None
+    assert got[0] == want[0] and got[3] == want[3]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    return got
+
+
+def _raw_deflate(data, level=6, strategy=zlib.Z_DEFAULT_STRATEGY):
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
+    return c.compress(data) + c.flush()
+
+
+def test_parse_block_header_real_bodies(stream):
+    _data, bodies, _sizes, _seeds = stream
+    for body in bodies:
+        assert _same_parse(body) is not None
+
+
+def test_parse_block_header_fixed_stored_and_damaged():
+    fixed = _raw_deflate(_BASH[:3000], strategy=zlib.Z_FIXED)
+    assert _same_parse(fixed)[0] == 1
+    assert _same_parse(_raw_deflate(_BASH[:3000], level=0)) is None  # stored
+    dyn = _raw_deflate(_BASH[:20_000])
+    assert _same_parse(dyn)[0] == 2
+    rng = np.random.default_rng(7)
+    nones = 0
+    for trial in range(300):
+        bad = bytearray(dyn[:200])
+        for _ in range(1 + trial % 3):
+            pos = int(rng.integers(0, 60 * 8))  # inside the header
+            bad[pos >> 3] ^= 1 << (pos & 7)
+        nones += _same_parse(bytes(bad)) is None
+    for trial in range(100):  # random bytes behind a dynamic block's first bits
+        noise = bytearray(rng.integers(0, 256, 120, dtype=np.uint8).tobytes())
+        noise[0] = (noise[0] & ~6) | 4
+        nones += _same_parse(bytes(noise)) is None
+    assert nones > 0  # damaged headers reach the None returns
+    assert _same_parse(b"") is None
+    assert TS.parse_block_header(bytes([0xFD, 0x00])) is None  # HLIT = 288 > 286
+
+
+def _random_lengths(rng, n, complete):
+    """A code over a random subset of n symbols: complete (Kraft sum 1)
+    from a random Huffman tree, or random lengths that need not be."""
+    used = rng.choice(n, size=int(rng.integers(1, n + 1)), replace=False)
+    lens = np.zeros(320, np.int64)
+    if not complete:
+        lens[used] = rng.integers(1, 16, used.size)
+        return lens
+    if used.size == 1:
+        lens[used] = 1
+        return lens
+    freqs = rng.integers(1, 1000, used.size)
+    from zlib_rs_tpu_torch.ops.huffman import huffman_code_lengths
+
+    lens[used] = huffman_code_lengths(freqs, 15)
+    return lens
+
+
+@pytest.mark.parametrize("complete", [True, False], ids=["complete", "incomplete"])
+def test_cascade_tables_equal_jax(complete):
+    rng = np.random.default_rng(11 + complete)
+    for _ in range(40):
+        ll = _random_lengths(rng, 286, complete)
+        ll[256] = max(ll[256], 1)
+        d = _random_lengths(rng, 30, complete)
+        got = VK.build_cascade_tables_np(ll, d)
+        want = JK.build_cascade_tables_np(ll, d)
+        for g, w in zip(got, want):
+            assert g.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(VK.table_row(ll, d), np.concatenate(want))
+
+
+# ---------------------------------------------------------------------------
+# K4: the two-plane decode
+# ---------------------------------------------------------------------------
+
+
+def _jax_k4(bodies, sizes, seeds, cap=None):
+    dev, meta = JV.prepare_vector_inputs(bodies, sizes, seeds)
+    cap = cap or JV._twoplane_cap(meta)
+    tA, tB, cons, bad, rem = JK.decode_tokens_vector2(
+        dev["fifo"], *dev["tables"], dev["align"], dev["span"],
+        cap=cap, K=meta["K"], interpret=True,
+    )
+    W = meta["B"] * meta["S"]
+    walker_major = lambda x: np.asarray(x).transpose(0, 2, 3, 1).reshape(-1, cap)[:W]
+    flat = lambda x: np.asarray(x).reshape(-1)[:W]
+    return dict(
+        tapeA=walker_major(tA), tapeB=walker_major(tB), cons=flat(cons),
+        bad=flat(bad), rem=flat(rem), offs=np.asarray(dev["offs"]), meta=meta, cap=cap,
+    )
+
+
+def _port_k4(bodies, sizes, seeds, cap=None):
+    dev, meta = TV.prepare_vector_inputs(bodies, sizes, seeds, device="cpu")
+    cap = cap or TV._twoplane_cap(meta)
+    out = VK.decode_tokens_vector2(
+        dev["words"], dev["start_word"], dev["align"], dev["span"], dev["tables"],
+        S=meta["S"], K=meta["K"], cap=cap,
+    )
+    state = interop.state_to_numpy(dict(zip(("tapeA", "tapeB", "cons", "bad", "rem"), out)))
+    state["tapeA"], state["tapeB"] = state["tapeA"].T, state["tapeB"].T
+    return state, dev, meta
+
+
+def _assert_k4_equal(bodies, sizes, seeds, cap=None):
+    want = _jax_k4(bodies, sizes, seeds, cap)
+    got, _dev, meta = _port_k4(bodies, sizes, seeds, cap)
+    assert (meta["K"], meta["cap"]) == (want["meta"]["K"], want["meta"]["cap"])
+    for name in ("tapeA", "tapeB", "cons", "bad", "rem"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert got["tapeA"].dtype == np.uint32
+    return got, want
+
+
+def test_k4_equals_jax(stream):
+    _data, bodies, sizes, seeds = stream
+    got, _ = _assert_k4_equal(bodies, sizes, seeds)
+    assert not got["bad"].any() and not got["rem"].any()
+    # rows after each walker's terminator stay zero
+    live = got["tapeB"] != 0
+    assert (np.cumsum(~live, axis=1)[live] == 0).all()
+
+
+def test_k4_bit_flipped_body_equals_jax(stream):
+    _data, bodies, sizes, seeds = stream
+    bad = bytearray(bodies[0])
+    bad[len(bad) // 2] ^= 0xFF
+    got, _ = _assert_k4_equal([bytes(bad)] + bodies[1:], sizes, seeds)
+    clean, _dev, _meta = _port_k4(bodies, sizes, seeds)
+    assert (got["cons"] != clean["cons"]).any() or got["bad"].any() or got["rem"].any()
+
+
+def test_k4_shifted_seed_equals_jax(stream):
+    _data, bodies, sizes, seeds = stream
+    bits, outs = seeds[0]
+    bits = list(bits)
+    bits[1] += 1  # one walker a bit off its symbol boundary
+    _assert_k4_equal(bodies, sizes, [(bits, outs)] + list(seeds[1:]))
+
+
+def test_k4_undersized_cap_equals_jax(kernel_stream):
+    _data, bodies, sizes, seeds = kernel_stream
+    got, _ = _assert_k4_equal(bodies, sizes, seeds, cap=16)
+    assert got["rem"].any()  # walkers stop at the cap with span left
+
+
+def test_k4_wrapper_takes_the_plain_version_only_on_the_cpu(kernel_stream):
+    _data, bodies, sizes, seeds = kernel_stream
+    dev, meta = TV.prepare_vector_inputs(bodies, sizes, seeds, device="cpu")
+    args = (dev["words"], dev["start_word"], dev["align"], dev["span"], dev["tables"])
+    before = dict(VK.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VK.decode_tokens_vector2_cuda(*args, S=meta["S"], K=meta["K"], cap=256)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VK.expand_tokens2_cuda(
+            torch.zeros((4, 256), dtype=torch.int32),
+            torch.zeros((4, 256), dtype=torch.int32), dev["offs"], out_words=8,
+        )
+    with pytest.raises(ValueError, match="S % 128"):
+        VK.decode_tokens_vector2(*args, S=64, K=meta["K"], cap=256)
+    assert VK.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K5: the two-plane expansion
+# ---------------------------------------------------------------------------
+
+
+def _assert_k5_equal(bodies, sizes, seeds, data):
+    """Both expansions fed the JAX package's own tapes."""
+    want = _jax_k4(bodies, sizes, seeds)
+    meta, cap = want["meta"], want["cap"]
+    B, S = meta["B"], meta["S"]
+    out_words = -(-max(sizes) // 4) + 2
+    jax_out = np.asarray(JK.expand_tokens_pallas2(
+        want["tapeA"].reshape(B, S, cap), want["tapeB"].reshape(B, S, cap),
+        want["offs"], S=S, cap=cap, out_words=out_words, interpret=True,
+    ))
+    offs = np.concatenate([want["offs"][:, :S], want["offs"][:, S : S + 1]], axis=1)
+    st = interop.state_from_numpy(
+        {"tapeA": want["tapeA"].T, "tapeB": want["tapeB"].T, "offs": offs}, device="cpu"
+    )
+    got = VK.expand_tokens2(st["tapeA"], st["tapeB"], st["offs"], out_words=out_words)
+    got_np = interop.state_to_numpy({"outw": got})["outw"]
+    assert got_np.shape == jax_out.shape == (B, out_words)
+    pos = 0
+    for k in range(B):
+        g = got_np[k].view(np.uint8)[: sizes[k]]
+        np.testing.assert_array_equal(g, jax_out[k].view(np.uint8)[: sizes[k]])
+        assert g.tobytes() == data[pos : pos + sizes[k]]
+        pos += sizes[k]
+    return want
+
+
+def test_k5_equals_jax(stream):
+    data, bodies, sizes, seeds = stream
+    _assert_k5_equal(bodies, sizes, seeds, data)
+
+
+def test_k5_short_distance_runs_equal_jax(kernel_stream):
+    data, bodies, sizes, seeds = kernel_stream
+    tape_b = _assert_k5_equal(bodies, sizes, seeds, data)["tapeB"]
+    has = (tape_b & 8) != 0
+    dists = set(((tape_b[has] >> 12) & 0xFFFF).tolist())
+    assert {1, 2} <= dists  # the byte-head path of dist < 4 matches ran
+
+
+def test_k5_plain_bounds_every_access():
+    """Tapes of a corrupt decode and a damaged index: every read clamps
+    into the output row and every store outside it is dropped."""
+    rng = np.random.default_rng(3)
+    cap, S = 16, 8
+    tA = rng.integers(0, 2**32, (cap, 2 * S), dtype=np.uint64).astype(np.uint32)
+    tB = rng.integers(0, 2**32, (cap, 2 * S), dtype=np.uint64).astype(np.uint32)
+    offs = np.sort(rng.integers(-50, 400, (2, S + 1)), axis=1).astype(np.int32)
+    offs[1, 3] = 2**31 - 8  # past any row
+    st = interop.state_from_numpy({"tapeA": tA, "tapeB": tB, "offs": offs}, device="cpu")
+    out = VK.expand_tokens2(st["tapeA"], st["tapeB"], st["offs"], out_words=20)
+    assert out.shape == (2, 20) and out.dtype == torch.int32

@@ -1,4 +1,4 @@
-"""The state carried between the encode stages, to and from numpy.
+"""The state carried between the encode and decode stages, to and from numpy.
 
 A codec has no learned weights; what one implementation can hand another
 is the arrays between its stages. `state_from_numpy` turns such arrays,
@@ -12,7 +12,11 @@ Known names and their dtypes in numpy:
   words4 u32 [B, W], htab i32 [B, 4W], tabf / tabq i32 [B, 4W],
   mpos i32 [B, CAP_M + 8], mld u32 [B, CAP_M + 8], nmatch i32 [B],
   kbad bool [B], freq i32 [B, 320], lltab u32 [B, 288], dtab u32 [B, 32],
-  n_valid / ins_from / start i32 [B], chunks u8 [B, L].
+  n_valid / ins_from / start i32 [B], chunks u8 [B, L];
+  decode: words i32 [B, Lw] (body words), start_word / align / span
+  i32 [W], tables i32 [B, 576], offs i32 [B, S + 1], tapeA / tapeB u32
+  [cap, W] (the JAX package's are [G, cap, 8, 128]), cons / bad / rem
+  i32 [W], outw u32 [B, out_words].
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from . import _device
 
-UNSIGNED = frozenset({"words4", "mld", "lltab", "dtab"})
+UNSIGNED = frozenset({"words4", "mld", "lltab", "dtab", "tapeA", "tapeB", "outw"})
 
 
 def state_from_numpy(arrays: dict, device=None) -> dict:

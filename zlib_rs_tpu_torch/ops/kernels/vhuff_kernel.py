@@ -1,0 +1,523 @@
+"""K4 (two-plane Huffman decode) and K5 (two-plane expansion) of the
+vector decode engine, with their plain versions and the host tables.
+
+The port of zlib_rs_tpu/ops/pallas/vhuff_kernel.py's two-plane engine:
+
+  decode_tokens_vector2   one walker per encoder seed decodes its span of
+                          the chunk body into paired tape rows (K4,
+                          csrc/vhuff_decode.cu; replaces
+                          `decode_tokens_vector2`, body `_make_kernel2`)
+  expand_tokens2          the rows of each chunk's walkers, in order,
+                          become the chunk's bytes (K5, csrc/vhuff_expand.cu;
+                          replaces `expand_tokens_pallas2`, body
+                          `_make_expand_kernel2`)
+
+A tape row holds up to three literals and the match that follows them, or
+four literals, or a lone match: tapeA the literal bytes LSB first, tapeB
+`cnt | has << 3 | (len - 3) << 4 | dist << 12`; an all-zero row ends a
+walker's tape. Tapes are row-major int32 [cap, W] (walker w's row t at
+t * W + w), so the decode kernel's stores coalesce across walkers.
+
+Walker w belongs to chunk w // S. Its input word widx is
+words.flat[clip(chunk * Lw + start_word[w] + min(widx, K - 1), 0, B * Lw - 1)]:
+the reference's staged FIFO, read in place. The flat index may run into
+the next chunk's row, as the reference's does, so `cons`, `bad` and `rem`
+agree even on corrupt input.
+
+Tables: one int32 row of TABLE_WORDS per chunk, the six cascade tables of
+`build_cascade_tables_np` end to end (offsets below).
+
+Each wrapper runs the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor; nothing falls back. 32-bit words cross the
+kernel boundary as int32 bit-views.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ... import _device
+from ...parallel.device_inflate import (
+    KIND_EOB,
+    KIND_INVALID,
+    KIND_LIT,
+    KIND_MATCH,
+    _DBASE,
+    _DEXTRA,
+    _LBASE,
+    _LEXTRA,
+)
+
+# launches of the CUDA kernels; the plain versions do not count
+launches = {"vhuff_decode": 0, "vhuff_expand": 0}
+
+WALKERS_PER_BLOCK = 128  # K4's block; S must be a multiple of it
+
+# offsets of the six tables in a chunk's table row
+LL_LIM, LL_PACK, LL_WORK = 0, 16, 32
+D_LIM, D_PACK, D_WORK = 416, 432, 448
+TABLE_WORDS = 576
+
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# host-side table construction (numpy; O(320) per chunk)
+# ---------------------------------------------------------------------------
+
+
+def _work_entry(kind, extra, payload):
+    return (int(kind) << 28) | (int(extra) << 20) | int(payload)
+
+
+_INVALID_ENTRY = _work_entry(KIND_INVALID, 0, 0)
+
+
+def _cascade_np(lens: np.ndarray, entries: np.ndarray, work_size: int):
+    """Canonical cascade tables for one alphabet.
+
+    lens: int[n] code lengths (0 = absent); entries: uint32[n] packed
+    (kind, extra, payload) per symbol. Returns (lim15[16], pack[16],
+    work[work_size]) as int64 numpy (values fit int32).
+    """
+    n = len(lens)
+    counts = np.bincount(lens, minlength=16)[:16]
+    counts[0] = 0
+    first = np.zeros(16, np.int64)
+    code = 0
+    for l in range(2, 16):
+        code = (code + counts[l - 1]) << 1
+        first[l] = code
+    lim15 = np.zeros(16, np.int64)
+    base15 = np.zeros(16, np.int64)
+    off = np.zeros(16, np.int64)
+    acc = 0
+    for l in range(1, 16):
+        base15[l] = first[l] << (15 - l)
+        lim15[l] = (first[l] + counts[l]) << (15 - l)
+        off[l] = acc
+        acc += counts[l]
+    pack = (off << 16) | base15
+    work = np.full(work_size, _INVALID_ENTRY, np.int64)
+    nxt = off.copy()
+    for sym in range(n):
+        l = lens[sym]
+        if l > 0:
+            work[nxt[l]] = entries[sym]
+            nxt[l] += 1
+    return lim15, pack, work
+
+
+_LL_ENTRIES = np.zeros(320, np.int64)
+for _s in range(320):
+    if _s < 256:
+        _LL_ENTRIES[_s] = _work_entry(KIND_LIT, 0, _s)
+    elif _s == 256:
+        _LL_ENTRIES[_s] = _work_entry(KIND_EOB, 0, 0)
+    elif _s < 286:
+        _LL_ENTRIES[_s] = _work_entry(KIND_MATCH, _LEXTRA[_s - 257], _LBASE[_s - 257])
+    else:
+        _LL_ENTRIES[_s] = _INVALID_ENTRY
+
+_D_ENTRIES = np.zeros(320, np.int64)
+for _s in range(320):
+    if _s < 30:
+        _D_ENTRIES[_s] = _work_entry(KIND_MATCH, _DEXTRA[_s], _DBASE[_s])
+    else:
+        _D_ENTRIES[_s] = _INVALID_ENTRY
+
+
+def build_cascade_tables_np(ll_lens: np.ndarray, d_lens: np.ndarray):
+    """Per-chunk decode tables for the vector kernel.
+
+    Returns (ll_lim15[16], ll_pack[16], ll_work[384], d_lim15[16],
+    d_pack[16], d_work[128]) int32 numpy arrays.
+    """
+    ll_lim, ll_pack, ll_work = _cascade_np(
+        np.asarray(ll_lens[:288], np.int64), _LL_ENTRIES[:288], 384
+    )
+    d_lim, d_pack, d_work = _cascade_np(
+        np.asarray(d_lens[:30], np.int64), _D_ENTRIES[:30], 128
+    )
+    return (
+        ll_lim.astype(np.int32), ll_pack.astype(np.int32),
+        ll_work.astype(np.int32), d_lim.astype(np.int32),
+        d_pack.astype(np.int32), d_work.astype(np.int32),
+    )
+
+
+def table_row(ll_lens: np.ndarray, d_lens: np.ndarray) -> np.ndarray:
+    """One chunk's int32 [TABLE_WORDS] table row."""
+    return np.concatenate(build_cascade_tables_np(ll_lens, d_lens))
+
+
+# ---------------------------------------------------------------------------
+# K4: the two-plane decode
+# ---------------------------------------------------------------------------
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken mod 2^32 as int32 values (two's complement)."""
+    return ((x + (1 << 31)) & _M32) - (1 << 31)
+
+
+def _rev15(x: torch.Tensor) -> torch.Tensor:
+    """MSB-first value of a 15-bit LSB-first peek (butterfly reversal)."""
+    x = ((x >> 1) & 0x5555) | ((x & 0x5555) << 1)
+    x = ((x >> 2) & 0x3333) | ((x & 0x3333) << 2)
+    x = ((x >> 4) & 0x0F0F) | ((x & 0x0F0F) << 4)
+    x = ((x >> 8) & 0x00FF) | ((x & 0x00FF) << 8)
+    return x >> 1
+
+
+def _check_decode_args(words, start_word, align, span, tables, S: int, K: int, cap: int):
+    if any(t.dtype != torch.int32 for t in (words, start_word, align, span, tables)):
+        raise ValueError("vhuff_decode: operands must be int32")
+    if words.dim() != 2 or start_word.dim() != 1:
+        raise ValueError("vhuff_decode: words must be [B, Lw] and start_word [W]")
+    B, Lw = words.shape
+    W = start_word.shape[0]
+    if S <= 0 or S % WALKERS_PER_BLOCK or W != B * S:
+        raise ValueError(f"vhuff_decode: need S % 128 == 0 and W == B * S (S={S}, W={W})")
+    if align.shape != (W,) or span.shape != (W,) or tables.shape != (B, TABLE_WORDS):
+        raise ValueError("vhuff_decode: align/span must be [W], tables [B, 576]")
+    if K < 1 or cap < 1:
+        raise ValueError("vhuff_decode: K and cap must be positive")
+    return B, Lw, W
+
+
+def decode_tokens_vector2_plain(words, start_word, align, span, tables, *, S: int,
+                                K: int, cap: int):
+    """The decode vectorised over walkers in torch, one Python step per
+    tape row, stopping once no walker is live. The 128-bit bit window is
+    four 32-bit registers kept in int64. Same outputs as the kernel:
+    tapeA, tapeB int32 [cap, W]; cons, bad, rem int32 [W]."""
+    B, Lw, W = _check_decode_args(words, start_word, align, span, tables, S, K, cap)
+    dev = words.device
+    i64 = torch.int64
+    flat = words.reshape(-1).to(i64) & _M32
+    tabs = tables.reshape(-1).to(i64)
+    chunk = torch.arange(W, device=dev, dtype=i64) // S
+    wbase = chunk * Lw + start_word.to(i64)
+    tbase = chunk * TABLE_WORDS
+    cols = torch.arange(1, 15, device=dev, dtype=i64)[None, :]
+    ll_lim = tabs[tbase[:, None] + LL_LIM + cols]  # [W, 14]: lim15[1..14]
+    d_lim = tabs[tbase[:, None] + D_LIM + cols]
+    reg4 = torch.arange(4, device=dev, dtype=i64)[None, :]
+    zero = torch.zeros(W, dtype=i64, device=dev)
+
+    win = torch.zeros((W, 4), dtype=i64, device=dev)  # bits 0..127, 32 per column
+    bitcnt = zero.clone()
+    widx = zero.clone()
+
+    def refill(win, bitcnt, widx, active):
+        """Insert one word at bit `bitcnt` where bitcnt <= 92."""
+        need = active & (bitcnt <= 92)
+        word = flat[(wbase + widx.clamp(max=K - 1)).clamp(0, B * Lw - 1)]
+        q = (bitcnt >> 5)[:, None]
+        r = (bitcnt & 31)[:, None]
+        w2 = word[:, None]
+        ins = torch.where(reg4 == q, (w2 << r) & _M32, 0) | torch.where(
+            reg4 == q + 1, w2 >> (32 - r), 0
+        )
+        win = torch.where(need[:, None], win | ins, win)
+        bitcnt = torch.where(need, bitcnt + 32, bitcnt)
+        widx = torch.where(need, torch.clamp(widx + 1, max=K - 1), widx)
+        return win, bitcnt, widx
+
+    def peek(win, s):
+        """32-bit view of the window starting at bit s (0 <= s <= 95)."""
+        ext = torch.cat([win, torch.zeros((W, 1), dtype=i64, device=dev)], dim=1)
+        q = (s >> 5)[:, None]
+        r = s & 31
+        a = ext.gather(1, q)[:, 0]
+        b = ext.gather(1, q + 1)[:, 0]
+        return ((a >> r) | (b << (32 - r))) & _M32
+
+    def consume(win, n):
+        """Drop n bits (0 <= n <= 95): an exact 128-bit right shift."""
+        ext = torch.cat([win, torch.zeros((W, 3), dtype=i64, device=dev)], dim=1)
+        idx = reg4 + (n >> 5)[:, None]
+        r = (n & 31)[:, None]
+        a = ext.gather(1, idx)
+        b = ext.gather(1, idx + 1)
+        return ((a >> r) | (b << (32 - r))) & _M32
+
+    def lookup(win, s, lim, pack_at, work_at, work_max):
+        v15 = _rev15(peek(win, s) & 0x7FFF)
+        ln = 1 + (v15[:, None] >= lim).sum(dim=1)
+        pk = tabs[tbase + pack_at + ln]
+        delta = ((v15 - (pk & 0xFFFF)) & _M32) >> (15 - ln)
+        idx = _i32((pk >> 16) + delta).clamp(0, work_max)
+        return tabs[tbase + work_at + idx], ln
+
+    def litlen_at(win, s):
+        return lookup(win, s, ll_lim, LL_PACK, LL_WORK, 383)
+
+    def dist_at(win, s):
+        return lookup(win, s, d_lim, D_PACK, D_WORK, 127)
+
+    span64 = span.to(i64)
+    live0 = span64 > 0
+    for _ in range(4):
+        win, bitcnt, widx = refill(win, bitcnt, widx, live0)
+    n0 = torch.where(live0, align.to(i64) & 31, 0)  # a seed's bit within its word
+    win = consume(win, n0)
+    bitcnt = bitcnt - n0
+    remaining = torch.where(live0, span64, 0)
+    cons = zero.clone()
+    bad = torch.zeros(W, dtype=torch.bool, device=dev)
+
+    tapeA = torch.zeros((cap, W), dtype=torch.int32, device=dev)
+    tapeB = torch.zeros((cap, W), dtype=torch.int32, device=dev)
+
+    def sel4(c, a, b, cc, d):
+        return torch.where(c == 0, a, torch.where(c == 1, b, torch.where(c == 2, cc, d)))
+
+    for it in range(cap):
+        active = (remaining > 0) & ~bad
+        if not bool(active.any()):
+            break
+        for _ in range(3):
+            win, bitcnt, widx = refill(win, bitcnt, widx, active)
+
+        e1, l1 = litlen_at(win, zero)
+        lit1 = (e1 >> 28) == KIND_LIT
+        e2, l2 = litlen_at(win, l1)
+        lit2 = lit1 & ((e2 >> 28) == KIND_LIT) & (remaining >= 2)
+        e3, l3 = litlen_at(win, l1 + l2)
+        lit3 = lit2 & ((e3 >> 28) == KIND_LIT) & (remaining >= 3)
+        e4, l4 = litlen_at(win, l1 + l2 + l3)
+        lit4 = lit3 & ((e4 >> 28) == KIND_LIT) & (remaining >= 4)
+        cnt = lit1.to(i64) + lit2.to(i64) + lit3.to(i64) + lit4.to(i64)
+        litreg = (
+            torch.where(lit1, e1 & 0xFF, 0)
+            | torch.where(lit2, (e2 & 0xFF) << 8, 0)
+            | torch.where(lit3, (e3 & 0xFF) << 16, 0)
+            | torch.where(lit4, (e4 & 0xFF) << 24, 0)
+        )
+        lbits = (
+            torch.where(lit1, l1, 0) + torch.where(lit2, l2, 0)
+            + torch.where(lit3, l3, 0) + torch.where(lit4, l4, 0)
+        )
+
+        # the match candidate: the first code after the literals taken
+        cand_e = sel4(cnt, e1, e2, e3, e4)
+        cand_l = sel4(cnt, l1, l2, l3, l4)
+        cand_off = sel4(cnt, zero, l1, l1 + l2, l1 + l2 + l3)
+        is_len = (cand_e >> 28) == KIND_MATCH
+        want_m = is_len & (cnt < 4) & (remaining > cnt)
+        x1 = (cand_e >> 20) & 0xF
+        length = (cand_e & 0xFFFFF) + (peek(win, cand_off + cand_l) & ((1 << x1) - 1))
+        s_d = cand_off + cand_l + x1
+        ed, ld = dist_at(win, s_d)
+        dkind = ed >> 28
+        dx = (ed >> 20) & 0xF
+        dist = (ed & 0xFFFFF) + (peek(win, s_d + ld) & ((1 << dx) - 1))
+        is_match = want_m & (dkind == KIND_MATCH)
+
+        bad_now = active & (((cnt == 0) & ~is_len) | (want_m & (dkind != KIND_MATCH)))
+        cover = cnt + torch.where(is_match, length, 0)
+        bad_now = bad_now | (active & (cover > remaining))
+        step = active & ~bad_now
+        emit = step & (cover > 0)
+        tokB = torch.where(
+            emit,
+            cnt | torch.where(is_match, 8 | ((length - 3) << 4) | (dist << 12), 0),
+            0,
+        )
+        tapeA[it] = _i32(torch.where(emit, litreg, 0)).to(torch.int32)
+        tapeB[it] = _i32(tokB).to(torch.int32)
+
+        n = torch.where(step, lbits + torch.where(is_match, cand_l + x1 + ld + dx, 0), 0)
+        win = consume(win, n)
+        bitcnt = bitcnt - n
+        cons = cons + n
+        remaining = remaining - torch.where(step, cover, 0)
+        bad = bad | bad_now
+
+    i32 = torch.int32
+    return tapeA, tapeB, cons.to(i32), bad.to(i32), remaining.to(i32)
+
+
+def _decode_lib():
+    fn = _device.library("vhuff_decode").zrs_vhuff_decode
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, P, P, P, P, I, I, I, I, P, P, P, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_tokens_vector2_cuda(words, start_word, align, span, tables, *, S: int,
+                               K: int, cap: int):
+    """Launch K4 over CUDA operands: words int32 [B, Lw], start_word,
+    align and span int32 [W = B * S], tables int32 [B, 576]."""
+    _device.require_cuda("vhuff_decode", words, start_word, align, span, tables)
+    B, Lw, W = _check_decode_args(words, start_word, align, span, tables, S, K, cap)
+    args = [t.contiguous() for t in (words, start_word, align, span, tables)]
+    dev = words.device
+    tapeA = torch.empty((cap, W), dtype=torch.int32, device=dev)
+    tapeB = torch.empty((cap, W), dtype=torch.int32, device=dev)
+    cons, bad, rem = (torch.empty(W, dtype=torch.int32, device=dev) for _ in range(3))
+    rc = _decode_lib()(
+        _device.ptr(args[0]), B, Lw, *(_device.ptr(t) for t in args[1:]),
+        S, K, cap, W, _device.ptr(tapeA), _device.ptr(tapeB), _device.ptr(cons),
+        _device.ptr(bad), _device.ptr(rem), _device.stream_of(words),
+    )
+    _device.check(rc, "vhuff_decode")
+    launches["vhuff_decode"] += 1
+    return tapeA, tapeB, cons, bad, rem
+
+
+def decode_tokens_vector2(words, start_word, align, span, tables, *, S: int, K: int,
+                          cap: int):
+    """The plain version for a CPU tensor, the kernel for a CUDA one.
+    Returns (tapeA, tapeB, cons, bad, rem)."""
+    if words.device.type == "cpu":
+        return decode_tokens_vector2_plain(
+            words, start_word, align, span, tables, S=S, K=K, cap=cap
+        )
+    return decode_tokens_vector2_cuda(
+        words, start_word, align, span, tables, S=S, K=K, cap=cap
+    )
+
+
+# ---------------------------------------------------------------------------
+# K5: the two-plane expansion
+# ---------------------------------------------------------------------------
+
+
+def _check_expand_args(tapeA, tapeB, offs, out_words: int):
+    if any(t.dtype != torch.int32 for t in (tapeA, tapeB, offs)):
+        raise ValueError("vhuff_expand: operands must be int32")
+    if tapeA.dim() != 2 or tapeA.shape != tapeB.shape:
+        raise ValueError("vhuff_expand: tapes must be equal [cap, W]")
+    cap, W = tapeA.shape
+    B = offs.shape[0]
+    if offs.dim() != 2 or B == 0 or W != B * (offs.shape[1] - 1):
+        raise ValueError("vhuff_expand: offs must be [B, S + 1] with W == B * S")
+    if out_words < 1:
+        raise ValueError("vhuff_expand: out_words must be positive")
+    return cap, W, B, offs.shape[1] - 1
+
+
+def _expand_chunk(colsA, colsB, offs_k, cap: int, out_words: int) -> list:
+    """One chunk's LE32 words: the walkers in order, each row a literal
+    funnel store of up to 4 bytes, then the match copy if the row has one.
+    Reads are clamped to [0, out_words) and stores outside it dropped, the
+    same rules as the kernel."""
+    o = [0] * out_words
+    top = out_words - 1
+
+    def rd(i):
+        return o[0 if i < 0 else top if i > top else i]
+
+    def wr(i, v):
+        if 0 <= i <= top:
+            o[i] = v
+
+    for s in range(len(colsA)):
+        ta, tb = colsA[s], colsB[s]
+        p, p1 = offs_k[s], offs_k[s + 1]
+        t = 0
+        while t < cap and p < p1:
+            tok_a, tok_b = ta[t], tb[t]
+            cnt = tok_b & 7
+            # literal funnel: up to 4 bytes, keeping the bytes below p
+            wi = p >> 2
+            sh = (p & 3) << 3
+            full = (rd(wi) & ((1 << sh) - 1)) | ((tok_a << sh) & _M32)
+            spill = tok_a >> (32 - sh) if sh else 0
+            p2 = p + cnt
+            wr(wi, full)
+            if (p2 >> 2) > wi:
+                wr(p2 >> 2, spill)
+            length = ((tok_b >> 4) & 0xFF) + 3 if tok_b & 8 else 0
+            if length:
+                dist = (tok_b >> 12) & 0xFFFF
+                d4 = dist if dist >= 4 else (6 if dist == 3 else 4)
+                base = 0 if dist >= 4 else d4 - dist
+                for i in range(base):  # byte head of a dist < 4 match
+                    q = p2 + i
+                    src = max(q - dist, 0)
+                    b = (rd(src >> 2) >> ((src & 3) << 3)) & 0xFF
+                    qs = (q & 3) << 3
+                    wr(q >> 2, (rd(q >> 2) & ~(0xFF << qs) & _M32) | (b << qs))
+                pw = p2 + base
+                wi = pw >> 2
+                sh = (pw & 3) << 3
+                sp = pw - d4
+                ssh = (sp & 3) << 3
+                w0 = rd(sp >> 2)
+                src4 = ((w0 >> ssh) | (rd((sp >> 2) + 1) << (32 - ssh))) & _M32 if ssh else w0
+                wr(wi, (rd(wi) & ((1 << sh) - 1)) | ((src4 << sh) & _M32))
+                nw = ((p2 + length - 1) >> 2) - wi
+                sp0 = ((wi + 1) << 2) - d4
+                swi0 = sp0 >> 2
+                sh_s = (sp0 & 3) << 3
+                rep4 = swi0 == wi
+                w0 = rd(swi0)
+                for k in range(nw):  # word copies; d4 == 4 repeats the stored word
+                    w1 = rd(swi0 + k + 1)
+                    val = ((w0 >> sh_s) | (w1 << (32 - sh_s))) & _M32 if sh_s else w0
+                    wr(wi + 1 + k, val)
+                    w0 = val if rep4 else w1
+            t = t + 1 if tok_b else cap
+            p = p2 + length
+    return o
+
+
+def expand_tokens2_plain(tapeA, tapeB, offs, *, out_words: int):
+    """The expansion as the serial host loop it is: tapes to numpy once,
+    then one Python step per row. Returns int32 [B, out_words] LE32 words
+    on the tapes' device; only bytes [0, out_len) of a chunk are defined."""
+    cap, W, B, S = _check_expand_args(tapeA, tapeB, offs, out_words)
+    a_np = tapeA.cpu().numpy().view(np.uint32)
+    b_np = tapeB.cpu().numpy().view(np.uint32)
+    offs_np = offs.cpu().numpy().astype(np.int64)
+    out = np.zeros((B, out_words), np.uint32)
+    for k in range(B):
+        cols = slice(k * S, (k + 1) * S)
+        out[k] = _expand_chunk(
+            a_np[:, cols].T.tolist(), b_np[:, cols].T.tolist(),
+            offs_np[k].tolist(), cap, out_words,
+        )
+    return torch.from_numpy(out.view(np.int32)).to(tapeA.device)
+
+
+def _expand_lib():
+    fn = _device.library("vhuff_expand").zrs_vhuff_expand
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, I, I, I, I, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def expand_tokens2_cuda(tapeA, tapeB, offs, *, out_words: int):
+    """Launch K5 over CUDA operands: tapes int32 [cap, W], offs int32
+    [B, S + 1] (walker s of chunk k covers [offs[k, s], offs[k, s + 1]))."""
+    _device.require_cuda("vhuff_expand", tapeA, tapeB, offs)
+    cap, W, B, S = _check_expand_args(tapeA, tapeB, offs, out_words)
+    if S % 8:
+        raise ValueError("vhuff_expand: the kernel stages walkers in groups of 8")
+    tapeA, tapeB, offs = (t.contiguous() for t in (tapeA, tapeB, offs))
+    out = torch.empty((B, out_words), dtype=torch.int32, device=tapeA.device)
+    rc = _expand_lib()(
+        _device.ptr(tapeA), _device.ptr(tapeB), _device.ptr(offs), cap, W, S,
+        out_words, _device.ptr(out), _device.stream_of(tapeA),
+    )
+    _device.check(rc, "vhuff_expand")
+    launches["vhuff_expand"] += 1
+    return out
+
+
+def expand_tokens2(tapeA, tapeB, offs, *, out_words: int):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    if tapeA.device.type == "cpu":
+        return expand_tokens2_plain(tapeA, tapeB, offs, out_words=out_words)
+    return expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)

@@ -17,6 +17,11 @@ host builds each chunk's block header from the code lengths and splices it
 in front of the body.
 
 Every produced stream decodes with any zlib inflater.
+
+The decode half, `decompress_parallel`, decodes indexed streams chunk-
+parallel on the device with the vector engine (parallel/vector_inflate.py:
+K4 decode, K5 expansion), behind the container checksum gate and a host
+exact step.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..ops import checksum
 from ..ops import huffman as H
 from ..ops.kernels import deflate_kernel as DK
 from ..utils.stages import STAGES
+from . import vector_inflate
 
 DEFAULT_CHUNK = 32 * 1024  # the kernel engine's chunk size
 SEEDS_PER_CHUNK = 128  # decode seeds per indexed chunk
@@ -42,8 +48,9 @@ SUPER_BATCH = 128  # chunks per batch for the bulk of an input
 TAIL_BATCH = 16  # chunks per batch for the rest
 
 # Observability of engine fallbacks, keyed "stage:ExcType". The encode
-# path of the port catches nothing, so this stays empty; it is kept so
-# that callers can assert it.
+# path catches nothing; the decode path counts the data faults it falls
+# back on (a VectorDataFault of the vector engine, a checksum mismatch), so a
+# healthy run leaves this empty and callers can assert it.
 _FALLBACKS: "collections.Counter[str]" = collections.Counter()
 
 
@@ -452,3 +459,103 @@ def compress_parallel(
         ]
         return bytes(out), abs_index
     return bytes(out)
+
+
+def _whole_stream_host(data: bytes) -> bytes:
+    """A whole zlib or gzip stream (sniffed, window_bits=47) on the host."""
+    d = zlib.decompressobj(47)
+    try:
+        out = d.decompress(data) + d.flush()
+    except zlib.error as e:
+        raise ValueError(str(e)) from e
+    if not d.eof:
+        raise ValueError("incomplete or truncated stream")
+    return out
+
+
+def _chunks_host_exact(data: bytes, index) -> bytes:
+    """The host exact step: stdlib raw inflate of each chunk body, held to
+    the index's out_len."""
+    parts = []
+    for k, (off, ln, out_len) in enumerate(index):
+        d = zlib.decompressobj(-15)
+        try:
+            part = d.decompress(data[off : off + ln], out_len + 1)
+        except zlib.error as e:
+            raise ValueError(f"chunk {k}: {e}") from e
+        if len(part) != out_len:
+            raise ValueError(f"chunk {k}: decoded {len(part)} bytes, the index says {out_len}")
+        parts.append(part)
+    return b"".join(parts)
+
+
+def container_ok(data: bytes, result: bytes) -> bool:
+    """The container's checksum over `result` (zlib or gzip, sniffed from
+    `data`; a raw stream has none): the last oracle over every engine."""
+    if data[:2] == b"\x1f\x8b":
+        return zlib.crc32(result) == int.from_bytes(data[-8:-4], "little")
+    if len(data) >= 2 and (data[0] & 0x0F) == 8 and ((data[0] << 8) | data[1]) % 31 == 0:
+        return zlib.adler32(result) == int.from_bytes(data[-4:], "big")
+    return True
+
+
+def decompress_parallel(data: bytes, index, engine: str = "device", *, device=None) -> bytes:
+    """Decode a stream made by compress_parallel with its chunk index:
+    every chunk body decodes on its own, the outputs concatenate in order
+    and the container checksum is verified (ValueError when it fails).
+
+    engine="device" (the default) runs the vector engine (K4, K5) on
+    `device`: the GPU when None, raising RuntimeError when there is none;
+    "cpu" runs the kernels' plain versions. A VectorDataFault of the engine
+    (a parse failure, bad or short walkers, drift, a coverage gap) or a
+    checksum mismatch of its result is a data fault: it is counted in
+    fallback_stats() and the host exact step (stdlib raw inflate per
+    chunk) decodes instead. Kernel build, launch and argument errors are
+    not caught.
+    engine="host" runs the host exact step only; index=None decodes the
+    whole stream on the host.
+
+    Routes not ported raise NotImplementedError: an index without seeds
+    for every chunk, or ZRS_TPU_VECTOR=0 (the inflate kernel K6 and the
+    seeded swarm engine), ZRS_VECTOR_TWOPLANE=0 (K11), engine="native".
+    """
+    if engine == "native":
+        raise NotImplementedError(
+            "engine='native' is the C++ engine of the JAX package, which the "
+            "port does not carry"
+        )
+    if engine not in ("device", "host"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if index is None:
+        return _whole_stream_host(data)
+
+    if engine == "device":
+        dev = _device.resolve_device(device)
+        seeds = getattr(index, "seeds", None)
+        if seeds is None or any(s is None for s in seeds) or os.environ.get("ZRS_TPU_VECTOR") == "0":
+            raise NotImplementedError(
+                "an index without seeds for every chunk, or ZRS_TPU_VECTOR=0, "
+                "runs the inflate kernel K6 (decode_chunks_kernel) and then "
+                "the seeded swarm engine, which are not ported yet"
+            )
+        bodies = [data[off : off + ln] for off, ln, _ in index]
+        out_sizes = [out_len for _, _, out_len in index]
+        result = None
+        try:
+            result = b"".join(
+                vector_inflate.decode_chunks_vector(bodies, out_sizes, seeds, device=dev)
+            )
+        except vector_inflate.VectorDataFault as e:
+            # counted under the reference's key; a wrapper's argument error
+            # (a plain ValueError) is not a data fault and propagates
+            _note_fallback("vector_decode", ValueError(e))
+        if result is not None:
+            with STAGES.host("container_check"):
+                if container_ok(data, result):
+                    return result
+            # wrong bytes without a flagged fault: the checksum discards them
+            _note_fallback("device_checksum", ValueError("device checksum mismatch"))
+    result = _chunks_host_exact(data, index)
+    if not container_ok(data, result):
+        raise ValueError("incorrect data check")
+    return result

@@ -1,4 +1,4 @@
-"""Per-stage timing of the encode path, off unless `STAGES.enabled`."""
+"""Per-stage timing of the encode and decode paths, off unless `STAGES.enabled`."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ import torch
 
 
 class StageTimes:
-    """Per-stage time of `compress_parallel`, off unless `enabled`.
+    """Per-stage time of `compress_parallel` and `decompress_parallel`,
+    off unless `enabled`.
     Device stages are bracketed with CUDA events (summed by `ms()` after
     a synchronize); host stages with the host clock."""
 
