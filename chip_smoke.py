@@ -10,8 +10,15 @@ shapes the main path gives it, then drives the main path: level-6
 recipe of bench.py's corpus), checked by stdlib zlib, and
 `decompress_parallel` of its indexed zlib and gzip streams through the
 vector engine (K4 decode, K5 expansion), checked against the corpus, then
-the decode's fail-safe on damaged input. Any mismatch raises; no phase's
-failure is caught.
+the decode's fail-safe on damaged input (phases 1-8). Then K7 (crc32)
+against its plain version and zlib and the gzip encode that launches it
+(phases 9-10); K6 (inflate) against its plain version on chunk bodies and
+stored, fixed, window-primed, sub-byte-start, stop-at-target and corrupt
+lanes, and in one launch over all chunks; the K6 route of
+`decompress_parallel` (ZRS_TPU_VECTOR=0) on both streams, an index with
+stored chunks, a flipped byte, `device_decode_streaming` of a stdlib raw
+stream of the corpus and `decompress_chunks` of its window-primed regions
+(phases 11-16). Any mismatch raises; no phase's failure is caught.
 
 Lines before the last: the build time, per-phase results, one JSON object
 {"kernels": [...]} with each kernel's launches on the main path, error
@@ -120,6 +127,7 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     fail-safe on damaged input. Fills `rows` and `launches` for K4 and K5;
     returns the decode's end-to-end numbers."""
     import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
     from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
     from zlib_rs_tpu_torch.parallel import pipeline as PL
     from zlib_rs_tpu_torch.parallel import vector_inflate as VI
@@ -247,10 +255,13 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     VI._twoplane_cap = lambda m: UNDERSIZED_CAP
     try:
         n0 = PL.fallback_stats().get("vector_decode:ValueError", 0)
+        k0 = IK.launches["inflate"]
         if zt.decompress_parallel(idx_out, index) != corpus:
             raise AssertionError("the undersized-cap decode is not the corpus")
         if PL.fallback_stats().get("vector_decode:ValueError", 0) != n0 + 1:
             raise AssertionError(f"the undersized cap was not counted: {PL.fallback_stats()}")
+        if IK.launches["inflate"] != k0 + 1 or len(PL.fallback_stats()) != 1:
+            raise AssertionError(f"the undersized cap did not land on K6: {PL.fallback_stats()}")
     finally:
         VI._twoplane_cap = real_cap
     torch.cuda.synchronize()
@@ -258,8 +269,334 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
         raise AssertionError("the clean decode after the faults is not the corpus")
     torch.cuda.synchronize()
     print(f"phase 8 fail-safe: flipped byte in chunk {hit} raised VectorDataFault ({why}); "
-          f"cap {UNDERSIZED_CAP} fell back to the host step and was counted; a clean decode "
+          f"cap {UNDERSIZED_CAP} fell back to K6 (one launch) and was counted; a clean decode "
           f"followed", flush=True)
+    return result
+
+
+def _raw(data: bytes, level: int = 6, strategy: int = zlib.Z_DEFAULT_STRATEGY, zdict=None,
+         mem: int = 8) -> bytes:
+    """A stdlib raw-deflate stream; mem=1 makes blocks of ~128 symbols."""
+    kw = {} if zdict is None else {"zdict": zdict}
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, mem, strategy, **kw)
+    return c.compress(data) + c.flush()
+
+
+def _flip(b: bytes, i: int) -> bytes:
+    b = bytearray(b)
+    b[i] ^= 0xFF
+    return bytes(b)
+
+
+def k6_against_plain(torch, dev, IK, streams, out_lens, max_out, *, start_bits=None, win=None,
+                     stop=False) -> tuple[int, list]:
+    """K6 and its plain version on the same lanes: max abs err over
+    produced, bad, end_bit (and fin_seen), and the bytes
+    [0, min(produced, max_out)) of every lane. Returns (err, plain's
+    (produced, bad) per lane)."""
+    words, bits = IK.pack_streams_words(streams)
+    B = len(streams)
+    sb = [0] * B if start_bits is None else start_bits
+    args = [torch.from_numpy(words.view("i4")), torch.tensor(sb, dtype=torch.int32),
+            torch.from_numpy(bits), torch.tensor(out_lens, dtype=torch.int32)]
+    got = IK.decode_streams_cuda(*[a.to(dev) for a in args], max_out=max_out,
+                                 win=None if win is None else win.to(dev), stop_at_target=stop)
+    want = IK.decode_streams_plain(*args, max_out=max_out, win=win, stop_at_target=stop)
+    return k6_err(torch, got, want, max_out), list(zip(want[1].tolist(), want[2].tolist()))
+
+
+def k6_err(torch, got, want, max_out) -> int:
+    """Max abs err between two K6 results: produced, bad, end_bit (and
+    fin_seen), and the bytes [0, min(produced, max_out)) of every lane."""
+    got = [t.cpu() for t in got]
+    pairs = [(g.to(torch.int32), w.to(torch.int32)) for g, w in zip(got[1:], want[1:])]
+    for r in range(want[0].shape[0]):
+        n = min(int(want[1][r]), max_out)
+        pairs.append((got[0][r, :n], want[0][r, :n]))
+    return max_abs(pairs)
+
+
+def crc_phase(torch, dev, corpus, rows) -> None:
+    """Phase 9: K7 against its plain version and zlib on the gzip
+    trailer's 256 full 32 KiB rows and on ragged rows."""
+    import numpy as np
+    from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    cs = PL.DEFAULT_CHUNK
+    nfull = len(corpus) // cs
+    full = torch.from_numpy(np.frombuffer(corpus, np.uint8, count=nfull * cs).reshape(nfull, cs).copy()).to(dev)
+    lens = torch.full((nfull,), cs, dtype=torch.int32, device=dev)
+    got = CRC.crc32_batch_cuda(full, lens)
+    want = CRC.crc32_batch_plain(full, lens)
+    err = max_abs([(got, want)])
+    for r in range(nfull):
+        z = zlib.crc32(corpus[r * cs : (r + 1) * cs])
+        if int(got[r].item()) & 0xFFFFFFFF != z:
+            raise AssertionError(f"K7 row {r} disagrees with zlib")
+    g = torch.Generator().manual_seed(2)
+    rag = torch.randint(0, 256, (6, 5000), generator=g, dtype=torch.uint8)
+    rlen = torch.tensor([0, 1, 255, 257, 4999, 5000], dtype=torch.int32)
+    rg = CRC.crc32_batch_cuda(rag.to(dev), rlen.to(dev))
+    err = max(err, max_abs([(rg, CRC.crc32_batch_plain(rag, rlen))]))
+    for r in range(6):
+        if int(rg[r].item()) & 0xFFFFFFFF != zlib.crc32(rag[r, : rlen[r]].numpy().tobytes()):
+            raise AssertionError(f"K7 ragged row {r} disagrees with zlib")
+    if err:
+        raise AssertionError(f"K7 disagrees with its plain version: max abs err {err}")
+    nb = nfull * cs
+    t0 = time.perf_counter()
+    CRC.crc32_batch_plain(full, lens)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rows["crc32_batch"] = dict(
+        source="zlib_rs_tpu_torch/csrc/crc32.cu",
+        replaces="zlib_rs_tpu/ops/pallas/crc_kernels.py:111",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: CRC.crc32_batch_cuda(full, lens), 50),
+        plain_ms=plain_ms,
+        # a table lookup, a shift and two xors a byte
+        bnd=bound(nb + 8 * nfull, 4 * nb),
+    )
+    print(f"phase 9 K7: {nfull}x{cs} and 6x5000 ragged equal to plain and zlib", flush=True)
+
+
+def gzip_encode_phase(torch, corpus, launches) -> dict:
+    """Phase 10: the gzip encode, one cold and three warm runs; K7
+    launches once a call and the trailer is zlib's crc32."""
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    CRC.launches["crc32_batch"] = 0
+    t0 = time.perf_counter()
+    gz = zt.compress_parallel(corpus, LEVEL, window_bits=31)
+    cold_s = time.perf_counter() - t0
+    launches["crc32_batch"] = CRC.launches["crc32_batch"]
+    if launches["crc32_batch"] != 1:
+        raise AssertionError(f"the gzip encode launched K7 {launches['crc32_batch']} times")
+    if zlib.decompress(gz, 31) != corpus or gz[-8:-4] != zlib.crc32(corpus).to_bytes(4, "little"):
+        raise AssertionError("the gzip stream or its trailer is wrong")
+    PL.STAGES.enabled = True
+    walls, stages = [], []
+    for _ in range(3):
+        PL.STAGES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = zt.compress_parallel(corpus, LEVEL, window_bits=31)
+        walls.append(time.perf_counter() - t0)
+        stages.append(PL.STAGES.ms())
+        if again != gz:
+            raise AssertionError("a warm gzip encode gave other bytes")
+    PL.STAGES.enabled = False
+    mbps = [len(corpus) / w / 1e6 for w in walls]
+    print(f"phase 10 gzip encode: {len(gz)} bytes, cold {cold_s:.3f} s, K7 launches 1; wall s "
+          + ", ".join(f"{w:.4f}" for w in walls) + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps),
+          flush=True)
+    for run, st in enumerate(stages, 1):
+        print(f"phase 10 gzip stages ms (warm run {run}): "
+              + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
+    return {"bytes_out": len(gz), "cold_s": cold_s, "warm_s": walls, "warm_mb_per_s": mbps,
+            "stage_ms": stages}
+
+
+def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches) -> dict:
+    """Phases 11-16: K6 against its plain version, the K6 route of the
+    decode end to end, a stored-chunk index, the fail-safe, the
+    checkpointed stream decode and the region decode."""
+    import os
+
+    import numpy as np
+
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+    from zlib_rs_tpu_torch.parallel import inflate as RI
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    bodies = [idx_out[off : off + ln] for off, ln, _ in index]
+    sizes = [n for _, _, n in index]
+    max_out = max(sizes)
+    k = min(COMPARE_ROWS, len(bodies))
+    result = {}
+
+    # -- phase 11: K6 against its plain version ----------------------------
+    level6 = _raw(corpus[:30_000])
+    stored = _raw(corpus[40_000:60_000], level=0)
+    lanes = [(b, n) for b, n in zip(bodies[:k], sizes[:k])] + [
+        (stored, 20_000),
+        (_raw(corpus[60_000:72_000], strategy=zlib.Z_FIXED), 12_000),
+        (_raw(b""), 0),
+        (_flip(level6, len(level6) // 2), 30_000),
+        (_flip(level6, 1), 30_000),
+        (level6[: len(level6) // 2], 30_000),
+        (b"\x07" + level6[1:200], 30_000),
+        (_flip(stored, 3), 20_000),
+        (_raw(corpus[90_000:98_000], zdict=corpus[90_000:100_000]), 8_000),
+        (level6, 29_999),
+        (_raw(corpus[:40_000], level=9), 40_000),
+    ]
+    err, st = k6_against_plain(torch, dev, IK, [b for b, _ in lanes], [n for _, n in lanes], max_out)
+    n_clean = k + 3
+    if any(bad for _, bad in st[:n_clean]) or not all(bad for _, bad in st[n_clean + 1 :]):
+        raise AssertionError(f"K6 lanes flagged wrongly: {st}")
+    prime, region = corpus[200_000:232_768], corpus[232_768:260_000]
+    primed = _raw(region, zdict=prime)
+    many = _raw(corpus[300_000:330_000], mem=1)
+    words, bits = IK.pack_streams_words([many])
+    _o, cut, _b, start, _f = IK.decode_streams_plain(
+        torch.from_numpy(words.view("i4")), torch.zeros(1, dtype=torch.int32),
+        torch.from_numpy(bits), torch.tensor([7000], dtype=torch.int32), max_out=max_out,
+        stop_at_target=True)
+    cut, start = int(cut[0]), int(start[0])
+    wlanes = [(primed, len(region), 0, prime), (many, 30_000 - cut, start, corpus[300_000 : 300_000 + cut]),
+              (many, 5_000, 0, b""), (_flip(primed, 40), len(region), 0, prime)]
+    win = np.zeros((len(wlanes), 32768), np.uint8)
+    for i, (*_r, w) in enumerate(wlanes):
+        if w:
+            win[i, 32768 - len(w) :] = np.frombuffer(w[-32768:], np.uint8)
+    err2, st2 = k6_against_plain(
+        torch, dev, IK, [w[0] for w in wlanes], [w[1] for w in wlanes], max_out,
+        start_bits=[w[2] for w in wlanes], win=torch.from_numpy(win), stop=True)
+    err = max(err, err2)
+    if err:
+        raise AssertionError(f"K6 disagrees with its plain version: max abs err {err}")
+    if st2[0] != (len(region), False) or st2[1][1] or st2[2][1]:
+        raise AssertionError(f"K6 window/start-bit/stop lanes: {st2}")
+    words, bits = IK.pack_streams_words(bodies)
+    args = [torch.from_numpy(words.view("i4")).to(dev), torch.zeros(len(bodies), dtype=torch.int32, device=dev),
+            torch.from_numpy(bits).to(dev), torch.tensor(sizes, dtype=torch.int32, device=dev)]
+    got = IK.decode_streams_cuda(*args, max_out=max_out)
+    out8 = got[0].cpu().numpy()
+    if bool(got[2].any()) or b"".join(out8[r, : sizes[r]].tobytes() for r in range(len(bodies))) != corpus:
+        raise AssertionError("the 256-chunk K6 launch is not the corpus")
+    host_args = [a.cpu() for a in args]
+    t0 = time.perf_counter()
+    want = IK.decode_streams_plain(*host_args, max_out=max_out)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err_all = k6_err(torch, got, want, max_out)
+    if err_all:
+        raise AssertionError(f"K6 over all {len(bodies)} chunks disagrees with its plain version: "
+                             f"max abs err {err_all}")
+    err = max(err, err_all)
+    comp = sum(len(b) for b in bodies)
+    rows["inflate"] = dict(
+        source="zlib_rs_tpu_torch/csrc/inflate.cu",
+        replaces="zlib_rs_tpu/ops/pallas/inflate_kernel.py:840",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: IK.decode_streams_cuda(*args, max_out=max_out), 5),
+        plain_ms=plain_ms,
+        # compressed bytes and meta in, output bytes and status out; about
+        # 10 operations an output byte
+        bnd=bound(comp + 48 * len(bodies) + len(corpus), 10 * len(corpus)),
+    )
+    print(f"phase 11 K6: {k} chunks and {len(lanes) - k} stored/fixed/empty/corrupt lanes, "
+          f"{len(wlanes)} window/start-bit/stop lanes equal to plain; {len(bodies)} chunks in one "
+          f"launch equal to plain and the corpus", flush=True)
+
+    # -- phase 12: the K6 route of the decode, end to end -----------------
+    PL._FALLBACKS.clear()  # phase 8 counted its undersized cap
+    os.environ["ZRS_TPU_VECTOR"] = "0"
+    try:
+        before = PL.fallback_stats()
+        IK.launches["inflate"] = 0
+        t0 = time.perf_counter()
+        back = zt.decompress_parallel(idx_out, index)
+        cold_s = time.perf_counter() - t0
+        launches["inflate"] = IK.launches["inflate"]
+        if back != corpus or launches["inflate"] != 1:
+            raise AssertionError(f"the K6 route: corpus {back == corpus}, launches {launches['inflate']}")
+        result["cold_s"] = cold_s
+        for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
+            PL.STAGES.enabled = True
+            walls, stages = [], []
+            for _ in range(3):
+                PL.STAGES.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = zt.decompress_parallel(stream, ix)
+                walls.append(time.perf_counter() - t0)
+                stages.append(PL.STAGES.ms())
+                if again != corpus:
+                    raise AssertionError(f"a warm K6-route {label} decode is not the corpus")
+            PL.STAGES.enabled = False
+            mbps = [len(corpus) / w / 1e6 for w in walls]
+            result[label] = {"warm_s": walls, "warm_mb_per_s": mbps, "stage_ms": stages}
+            print(f"phase 12 K6-route decode {label}: wall s " + ", ".join(f"{w:.4f}" for w in walls)
+                  + "; MB/s of output " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
+            for run, st in enumerate(stages, 1):
+                print(f"phase 12 {label} stages ms (warm run {run}): "
+                      + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
+        if PL.fallback_stats() != before or before:
+            raise AssertionError(f"the K6-route decode fell back: {PL.fallback_stats()}")
+    finally:
+        del os.environ["ZRS_TPU_VECTOR"]
+    print(f"phase 12 e2e: cold {cold_s:.3f} s, K6 launches {launches['inflate']}, no fallback",
+          flush=True)
+
+    # -- phase 13: an index with stored chunks -----------------------------
+    noise = np.random.default_rng(3).integers(0, 256, 4 * 32768, dtype=np.uint8).tobytes()
+    mixed = corpus[: 2 * 1024 * 1024] + noise + corpus[-1024 * 1024 :]
+    m_out, m_index = zt.compress_parallel(mixed, LEVEL, return_index=True)
+    n_stored = sum(s is None for s in m_index.seeds)
+    k0 = IK.launches["inflate"]
+    if zt.decompress_parallel(m_out, m_index) != mixed or IK.launches["inflate"] != k0 + 1:
+        raise AssertionError("the stored-chunk index did not decode through K6")
+    if n_stored < 1 or PL.fallback_stats():
+        raise AssertionError(f"stored chunks {n_stored}, fallbacks {PL.fallback_stats()}")
+    print(f"phase 13 stored chunks: {len(m_index)} chunks, {n_stored} stored, decoded through "
+          f"one K6 launch, no fallback", flush=True)
+
+    # -- phase 14: a flipped byte raises, then a clean decode --------------
+    broken = bytearray(idx_out)
+    off, ln, _n = index[len(index) // 2]
+    broken[off + ln // 2] ^= 0xFF
+    try:
+        zt.decompress_parallel(bytes(broken), index)
+    except ValueError as e:
+        why = str(e)
+    else:
+        raise AssertionError("a flipped byte decoded without a ValueError")
+    faults = PL.fallback_stats()
+    PL._FALLBACKS.clear()
+    torch.cuda.synchronize()
+    if zt.decompress_parallel(idx_out, index) != corpus or PL.fallback_stats():
+        raise AssertionError("the clean decode after the flipped byte failed")
+    print(f"phase 14 fail-safe: a flipped byte raised ValueError ({why}) after {faults}; a clean "
+          f"decode followed", flush=True)
+
+    # -- phase 15: the checkpointed stream decode --------------------------
+    raw = _raw(corpus)
+    t0 = time.perf_counter()
+    parts, states = [], []
+    # a level-6 block holds up to 16,384 symbols: on this repeated tar it
+    # can cover megabytes, past the default 256 KiB overshoot budget
+    for out_b, st in zt.device_decode_streaming(raw, step_bytes=1024 * 1024, max_out=len(corpus)):
+        parts.append(out_b)
+        states.append(st)
+    stream_s = time.perf_counter() - t0
+    if b"".join(parts) != corpus or states[-1].adler != zlib.adler32(corpus):
+        raise AssertionError("device_decode_streaming is not the corpus")
+    result["streaming_s"] = stream_s
+    print(f"phase 15 checkpoints: {len(states)} steps of 1 MiB over a {len(raw)}-byte raw "
+          f"stream equal the corpus, adler {states[-1].adler:#010x}, {stream_s:.3f} s", flush=True)
+
+    # -- phase 16: region decode with windows and sub-byte starts ---------
+    r_bodies, r_sizes, r_windows, r_starts = [], [], [], []
+    prev_bit, prev_out = 0, 0
+    for out_b, st in zip(parts, states):
+        r_bodies.append(raw[prev_bit >> 3 : (st.bit + 7) >> 3])
+        r_starts.append(prev_bit & 7)
+        r_sizes.append(len(out_b))
+        r_windows.append(corpus[max(0, prev_out - 32768) : prev_out])
+        prev_bit, prev_out = st.bit, st.produced
+    t0 = time.perf_counter()
+    regions = RI.decompress_chunks(r_bodies, r_sizes, r_windows, r_starts, engine="kernel")
+    region_s = time.perf_counter() - t0
+    if b"".join(regions) != corpus or not any(r_starts):
+        raise AssertionError("the primed regions are not the corpus")
+    result["regions_s"] = region_s
+    print(f"phase 16 regions: {len(regions)} regions, start bits {r_starts}, windows of 32 KiB, "
+          f"equal the corpus in {region_s:.3f} s", flush=True)
     return result
 
 
@@ -278,7 +615,9 @@ def main() -> int:
     from zlib_rs_tpu_torch import _device
     from zlib_rs_tpu_torch.ops import lzvec
     from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+    from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
     from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
     from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
     from zlib_rs_tpu_torch.parallel import pipeline as PL
 
@@ -426,7 +765,8 @@ def main() -> int:
 
     # -- phase 4: the main path, end to end ------------------------------
     counters = {"adler32_batch": CK.launches, "hop_chase": DK.launches, "pack": DK.launches,
-                "vhuff_decode": VK.launches, "vhuff_expand": VK.launches}
+                "vhuff_decode": VK.launches, "vhuff_expand": VK.launches,
+                "inflate": IK.launches, "crc32_batch": CRC.launches}
     for c in counters.values():
         for name in c:
             c[name] = 0
@@ -434,8 +774,8 @@ def main() -> int:
     out = zt.compress_parallel(corpus, LEVEL)
     cold_s = time.perf_counter() - t0
     launches = {name: c[name] for name, c in counters.items()}
-    if launches.pop("vhuff_decode") + launches.pop("vhuff_expand"):
-        raise AssertionError("the encode path launched a decode kernel")
+    if sum(launches.pop(n) for n in ("vhuff_decode", "vhuff_expand", "inflate", "crc32_batch")):
+        raise AssertionError("the zlib encode path launched a decode or crc32 kernel")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if zlib.decompress(out) != corpus:
@@ -486,9 +826,13 @@ def main() -> int:
           f"CPU port's: {on_card == on_cpu}", flush=True)
 
     decode = decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches)
+    crc_phase(torch, dev, corpus, rows)
+    gzip_encode = gzip_encode_phase(torch, corpus, launches)
+    k6_decode = inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches)
 
     kernels = []
-    for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand"):
+    for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
+                 "inflate", "crc32_batch"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -501,6 +845,7 @@ def main() -> int:
         "bytes_in": len(corpus), "bytes_out": len(out), "zlib_bytes": zref,
         "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, "warm_s": walls,
         "warm_mb_per_s": mbps, "stage_ms": stages, "decode": decode,
+        "gzip_encode": gzip_encode, "k6_decode": k6_decode,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ chunks) and the port's own (kernel engine, 32 KiB chunks), zlib and gzip.
 
 Also the fail-safe contract: a data fault (corrupt body, wrong seed,
 undersized tape cap, wrong bytes behind a good-looking decode) falls back
-to the host exact step and is counted; a kernel error, and a wrapper's
-argument error, is never caught;
-routes not ported raise NotImplementedError."""
+to the next engine (the inflate kernel K6, then the host exact step) and
+is counted; a kernel error, and a wrapper's argument error, is never
+caught; routes not ported raise NotImplementedError. The K6 route of the
+chain (ZRS_TPU_VECTOR=0, an index with a stored chunk, a vector fault)
+runs K6's plain version."""
 
 import zlib
 
@@ -19,8 +21,10 @@ import torch
 import zlib_rs_tpu.parallel.pipeline as jp
 import zlib_rs_tpu.parallel.vector_inflate as JV
 import zlib_rs_tpu_torch as zt
+from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
 from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
 from zlib_rs_tpu_torch.parallel import pipeline as tp
+from zlib_rs_tpu_torch.parallel import swarm_inflate as TS
 from zlib_rs_tpu_torch.parallel import vector_inflate as TV
 
 _BASH = open("/bin/bash", "rb").read()
@@ -83,6 +87,7 @@ def stream(request):
 def clean_fallbacks(monkeypatch):
     monkeypatch.delenv("ZRS_TPU_VECTOR", raising=False)
     monkeypatch.delenv("ZRS_VECTOR_TWOPLANE", raising=False)
+    monkeypatch.delenv("ZRS_TPU_KERNEL", raising=False)
     tp._FALLBACKS.clear()
     yield
     tp._FALLBACKS.clear()
@@ -207,32 +212,129 @@ def test_kernel_errors_propagate(monkeypatch, kernel_stream, exc):
     assert zt.fallback_stats() == {}
 
 
-def test_unseeded_index_is_not_ported(kernel_stream):
+def test_unseeded_index_decodes_through_k6(kernel_stream):
+    # an index without seeds for every chunk skips the vector engine
     comp, index = kernel_stream["zlib"]
     for seeds in (None, [None] + list(index.seeds[1:])):
-        with pytest.raises(NotImplementedError, match="K6"):
-            zt.decompress_parallel(comp, _index(list(index), seeds), device="cpu")
+        got = zt.decompress_parallel(comp, _index(list(index), seeds), device="cpu")
+        assert got == kernel_stream["data"]
+    assert zt.fallback_stats() == {}
     assert zt.decompress_parallel(comp, _index(list(index), None), engine="host") == kernel_stream["data"]
 
 
-def test_stored_chunks_decode_on_the_host():
-    data = np.random.default_rng(12).integers(0, 256, 40_000, dtype=np.uint8).tobytes()
-    comp, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
-    assert index.seeds[0] is None  # a stored chunk carries no seeds
-    with pytest.raises(NotImplementedError):
-        zt.decompress_parallel(comp, index, device="cpu")
-    assert zt.decompress_parallel(comp, index, engine="host") == data
+def _stored_chunk_input():
+    rng = np.random.default_rng(12)
+    noise = rng.integers(0, 256, 32_768, dtype=np.uint8).tobytes()
+    return _BASH[:32_768] + noise + _BASH[40_000:50_000]
 
 
 @pytest.mark.parametrize(
     "env,match",
-    [({"ZRS_TPU_VECTOR": "0"}, "K6"), ({"ZRS_VECTOR_TWOPLANE": "0"}, "K11")],
+    [({"ZRS_TPU_KERNEL": "0"}, "K6"), ({"ZRS_VECTOR_TWOPLANE": "0"}, "K11")],
 )
 def test_env_routes_not_ported_raise(monkeypatch, kernel_stream, env, match):
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     comp, index = kernel_stream["zlib"]
     with pytest.raises(NotImplementedError, match=match):
+        zt.decompress_parallel(comp, index, device="cpu")
+    assert zt.fallback_stats() == {}
+
+
+# ---------------------------------------------------------------------------
+# the inflate kernel K6 in the chain
+# ---------------------------------------------------------------------------
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*a, **kw):
+        calls.append(name)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("wrap", ["zlib", "gzip"])
+def test_vector_off_decodes_through_k6(monkeypatch, stream, wrap):
+    monkeypatch.setenv("ZRS_TPU_VECTOR", "0")
+    calls = _spy(monkeypatch, TS, "decode_chunks_kernel")
+    vec = _spy(monkeypatch, TV, "decode_chunks_vector")
+    comp, index = stream[wrap]
+    assert zt.decompress_parallel(comp, index, device="cpu") == stream["data"]
+    assert calls == ["decode_chunks_kernel"] and vec == []
+    assert zt.fallback_stats() == {}
+
+
+@pytest.mark.parametrize("make,stored", [
+    (_stored_chunk_input, [False, True, False]),
+    (lambda: np.random.default_rng(12).integers(0, 256, 40_000, dtype=np.uint8).tobytes(),
+     [True, True]),
+])
+def test_stored_chunk_index_decodes_through_k6(monkeypatch, make, stored):
+    # a stored chunk carries no seeds: K6 decodes the whole index, and the
+    # host step decodes it alone
+    data = make()
+    comp, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
+    assert [s is None for s in index.seeds] == stored
+    calls = _spy(monkeypatch, TS, "decode_chunks_kernel")
+    assert zt.decompress_parallel(comp, index, device="cpu") == data
+    assert calls == ["decode_chunks_kernel"] and zt.fallback_stats() == {}
+    assert zt.decompress_parallel(comp, index, engine="host") == data
+
+
+def test_vector_fault_is_counted_and_k6_decodes(monkeypatch, stream):
+    monkeypatch.setattr(TV, "_twoplane_cap", lambda m: 16)
+    calls = _spy(monkeypatch, TS, "decode_chunks_kernel")
+    comp, index = stream["zlib"]
+    assert zt.decompress_parallel(comp, index, device="cpu") == stream["data"]
+    assert calls == ["decode_chunks_kernel"]
+    assert zt.fallback_stats() == {"vector_decode:ValueError": 1}
+
+
+def test_kernel_fault_is_counted_and_the_decode_raises(monkeypatch, kernel_stream):
+    # BTYPE 3 in the second chunk's first block header: K6 flags the lane,
+    # and the host step fails on the same block
+    comp, index = kernel_stream["zlib"]
+    broken = bytearray(comp)
+    off, _ln, _n = index[1]
+    broken[off] |= 0x06
+    monkeypatch.setenv("ZRS_TPU_VECTOR", "0")
+    with pytest.raises(ValueError):
+        zt.decompress_parallel(bytes(broken), index, device="cpu")
+    assert zt.fallback_stats() == {"kernel_decode:ValueError": 1}
+
+
+def test_corrupt_device_result_falls_back(monkeypatch, kernel_stream):
+    # mirror of the JAX package's test: every device engine returns wrong
+    # bytes without raising; the checksum discards them once, the host
+    # step decodes
+    def corrupt_vector(bodies, out_sizes, seeds, **kw):
+        return [b"\x00" * n for n in out_sizes]
+
+    def corrupt_kernel(bodies, out_sizes, **kw):
+        return [b"\x00" * n for n in out_sizes]
+
+    monkeypatch.setattr(TV, "decode_chunks_vector", corrupt_vector)
+    monkeypatch.setattr(TS, "decode_chunks_kernel", corrupt_kernel)
+    for vector in ("1", "0"):
+        monkeypatch.setenv("ZRS_TPU_VECTOR", vector)
+        comp, index = kernel_stream["zlib"]
+        assert zt.decompress_parallel(comp, index, device="cpu") == kernel_stream["data"]
+    assert zt.fallback_stats() == {"device_checksum:ValueError": 2}
+
+
+def test_kernel_wrapper_errors_propagate(monkeypatch, kernel_stream):
+    def failing(*a, **kw):
+        raise RuntimeError("inflate: CUDA launch failed with error 700")
+
+    monkeypatch.setattr(IK, "decode_streams", failing)
+    monkeypatch.setenv("ZRS_TPU_VECTOR", "0")
+    comp, index = kernel_stream["zlib"]
+    with pytest.raises(RuntimeError, match="inflate"):
         zt.decompress_parallel(comp, index, device="cpu")
     assert zt.fallback_stats() == {}
 

@@ -1,12 +1,17 @@
 """zlib_rs_tpu_torch: chunk-parallel DEFLATE encode and decode on a CUDA device.
 
-The PyTorch and CUDA port of zlib_rs_tpu's kernel encode engine and its
-two-plane vector decode engine. It imports neither JAX nor zlib_rs_tpu.
-Entry points run on `cuda` unless the caller passes `device="cpu"`, which
-runs every kernel's plain PyTorch version instead.
+The PyTorch and CUDA port of zlib_rs_tpu's kernel encode engine, its
+two-plane vector decode engine and its sequential inflate kernel (the
+decode of indexes with stored chunks or without seeds, the region decode
+and the checkpointed stream decode). It imports neither JAX nor
+zlib_rs_tpu. Entry points run on `cuda` unless the caller passes
+`device="cpu"`, which runs every kernel's plain PyTorch version instead.
 """
 
 from .ops.checksum import adler32_batch
+from .parallel.checkpoint import DeviceInflateState
+from .parallel.checkpoint import decode_step as device_decode_step
+from .parallel.checkpoint import decode_streaming as device_decode_streaming
 from .parallel.pipeline import (
     ChunkIndex,
     compress_parallel,
@@ -16,5 +21,6 @@ from .parallel.pipeline import (
 
 __all__ = [
     "compress_parallel", "decompress_parallel", "adler32_batch", "ChunkIndex",
-    "fallback_stats",
+    "fallback_stats", "DeviceInflateState", "device_decode_step",
+    "device_decode_streaming",
 ]

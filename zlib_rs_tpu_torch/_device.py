@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("adler32", "hop_chase", "pack", "vhuff_decode", "vhuff_expand")
+SOURCES = ("adler32", "hop_chase", "pack", "vhuff_decode", "vhuff_expand", "inflate", "crc32")
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"

@@ -17,6 +17,11 @@ Known names and their dtypes in numpy:
   i32 [W], tables i32 [B, 576], offs i32 [B, S + 1], tapeA / tapeB u32
   [cap, W] (the JAX package's are [G, cap, 8, 128]), cons / bad / rem
   i32 [W], outw u32 [B, out_words].
+
+The checkpointed decode's state is plain host data already, under the
+JAX package's field names (`bit`, `window`, `produced`, `adler`,
+`finished`): `DeviceInflateState(**dataclasses.asdict(snapshot))` turns a
+snapshot taken there into one that resumes here, and back.
 """
 
 from __future__ import annotations
@@ -59,3 +64,4 @@ def state_to_numpy(state: dict) -> dict:
             a = a.view(np.uint32)
         out[name] = a
     return out
+

@@ -1,17 +1,22 @@
-"""adler32: the batched device adler32 and the host combine.
+"""adler32 and crc32: the batched device checksums and the host combines.
 
 `adler32_batch(data, lens)` is the per-row adler32 in front of the
-hand-written CUDA kernel K1 (ops/kernels/checksum_kernels): the kernel for
-a CUDA tensor, its plain PyTorch version for a CPU tensor.
-`adler32_combine` joins the per-chunk values on the host into the zlib
-trailer.
+hand-written CUDA kernel K1 (ops/kernels/checksum_kernels), and
+`crc32_batch(data, lens)` the per-row crc32 in front of K7
+(ops/kernels/crc_kernels): the kernel for a CUDA tensor, its plain
+PyTorch version for a CPU tensor. `adler32_combine` and `crc32_combine`
+join per-chunk values on the host into the zlib and gzip trailers;
+`crc32` is the host crc32 of a tail.
 """
 
 from __future__ import annotations
 
+import zlib
+
 import torch
 
-from .kernels import checksum_kernels
+from . import gf2
+from .kernels import checksum_kernels, crc_kernels
 
 ADLER_BASE = 65521
 
@@ -38,4 +43,26 @@ def adler32_batch(data: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         out = checksum_kernels.adler32_batch_plain(data, lens)
     else:
         out = checksum_kernels.adler32_batch_cuda(data, lens)
+    return out.to(torch.int64) & 0xFFFFFFFF
+
+
+crc32_combine = gf2.crc32_combine
+
+
+def crc32(data, start: int = 0) -> int:
+    """Host crc32 of `data`, continuing from `start` (stdlib zlib's)."""
+    return zlib.crc32(data, start) & 0xFFFFFFFF
+
+
+def crc32_batch(data: torch.Tensor, lens: torch.Tensor | None = None) -> torch.Tensor:
+    """crc32 of each row of uint8 `data` [B, N] over its first lens[b]
+    bytes (all N when `lens` is None). Returns int64 [B] holding the
+    unsigned 32-bit values. A CUDA tensor runs the K7 kernel; a CPU tensor
+    its plain PyTorch version."""
+    if lens is None:
+        lens = torch.full((data.shape[0],), data.shape[1], dtype=torch.int32, device=data.device)
+    if data.device.type == "cpu":
+        out = crc_kernels.crc32_batch_plain(data, lens)
+    else:
+        out = crc_kernels.crc32_batch_cuda(data, lens)
     return out.to(torch.int64) & 0xFFFFFFFF

@@ -8,7 +8,8 @@ byte-aligned chunk blocks into ONE valid zlib/gzip/raw stream:
     (a sync flush), so concatenation is pure byte concatenation;
   * the final chunk's block carries BFINAL;
   * per-chunk adler32 values (the K1 kernel) are combined on the host;
-    the gzip trailer's crc32 is stdlib zlib's over the whole input.
+    so are the gzip trailer's per-chunk crc32 values (the K7 kernel over
+    the full chunks, the host crc32 of the tail).
 
 Device stages per batch of chunks (the kernel engine): `scan_chunks_hop`
 (hop tables in torch, the K2 chase, the symbol histogram) ->
@@ -20,8 +21,9 @@ Every produced stream decodes with any zlib inflater.
 
 The decode half, `decompress_parallel`, decodes indexed streams chunk-
 parallel on the device with the vector engine (parallel/vector_inflate.py:
-K4 decode, K5 expansion), behind the container checksum gate and a host
-exact step.
+K4 decode, K5 expansion) or the inflate kernel K6 (one sequential inflate
+per chunk, parallel/swarm_inflate.decode_chunks_kernel), behind the
+container checksum gate and a host exact step.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..ops import checksum
 from ..ops import huffman as H
 from ..ops.kernels import deflate_kernel as DK
 from ..utils.stages import STAGES
-from . import vector_inflate
+from . import swarm_inflate, vector_inflate
 
 DEFAULT_CHUNK = 32 * 1024  # the kernel engine's chunk size
 SEEDS_PER_CHUNK = 128  # decode seeds per indexed chunk
@@ -49,8 +51,9 @@ TAIL_BATCH = 16  # chunks per batch for the rest
 
 # Observability of engine fallbacks, keyed "stage:ExcType". The encode
 # path catches nothing; the decode path counts the data faults it falls
-# back on (a VectorDataFault of the vector engine, a checksum mismatch), so a
-# healthy run leaves this empty and callers can assert it.
+# back on (a VectorDataFault of the vector engine, a KernelDataFault of
+# K6, a checksum mismatch), so a healthy run leaves this empty and callers
+# can assert it.
 _FALLBACKS: "collections.Counter[str]" = collections.Counter()
 
 
@@ -279,6 +282,24 @@ def batch_spans(n_chunks: int) -> list[tuple[int, int]]:
     ]
 
 
+def _gzip_crc(data: bytes, chunk_size: int, device: torch.device) -> int:
+    """The gzip trailer's crc32: one K7 launch on `device` (its plain
+    version on the CPU) over the n // chunk_size full chunk rows, folded
+    with crc32_combine, then the host crc32 of the tail. K7 takes any row length,
+    so it also serves the rows the reference's `_crc_batch_best` hands to
+    its XLA crc32 when they do not tile onto its TPU kernel."""
+    n = len(data)
+    nfull = n // chunk_size
+    crc = 0
+    if nfull:
+        full = np.frombuffer(data, np.uint8, count=nfull * chunk_size).reshape(nfull, chunk_size)
+        with STAGES.stage("crc32", device):
+            crcs = checksum.crc32_batch(torch.from_numpy(full.copy()).to(device))
+        for c in crcs.cpu().numpy():
+            crc = checksum.crc32_combine(crc, int(c), chunk_size)
+    return checksum.crc32(data[nfull * chunk_size :], crc)
+
+
 def compress_parallel(
     data: bytes,
     level: int = 6,
@@ -387,6 +408,8 @@ def compress_parallel(
             parts["sbit"].append(sbit)
             parts["sout"].append(sout)
 
+    # before host_assembly, so that its clock holds no K7 time
+    crc = _gzip_crc(data, chunk_size, dev) if wrap == Wrap.Gzip else None
     if STAGES.enabled and dev.type == "cuda":
         torch.cuda.synchronize(dev)  # keep device time out of the host stage
     with STAGES.host("host_assembly"):
@@ -442,7 +465,7 @@ def compress_parallel(
                 a = checksum.adler32_combine(a, int(adlers_np[k]), int(data_len[k]))
             out.extend(a.to_bytes(4, "big"))
         elif wrap == Wrap.Gzip:
-            out.extend(zlib.crc32(data).to_bytes(4, "little"))
+            out.extend(crc.to_bytes(4, "little"))
             out.extend((n & 0xFFFFFFFF).to_bytes(4, "little"))
     if return_index:
         hdr_len = len(out) - len(body) - (
@@ -504,20 +527,28 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
     every chunk body decodes on its own, the outputs concatenate in order
     and the container checksum is verified (ValueError when it fails).
 
-    engine="device" (the default) runs the vector engine (K4, K5) on
-    `device`: the GPU when None, raising RuntimeError when there is none;
-    "cpu" runs the kernels' plain versions. A VectorDataFault of the engine
-    (a parse failure, bad or short walkers, drift, a coverage gap) or a
-    checksum mismatch of its result is a data fault: it is counted in
-    fallback_stats() and the host exact step (stdlib raw inflate per
-    chunk) decodes instead. Kernel build, launch and argument errors are
-    not caught.
+    engine="device" (the default) runs on `device`: the GPU when None,
+    raising RuntimeError when there is none; "cpu" runs the kernels' plain
+    versions. The engines run in the reference's order:
+      * the vector engine (K4, K5), when every chunk has seeds and
+        ZRS_TPU_VECTOR is not "0";
+      * the inflate kernel K6 (`swarm_inflate.decode_chunks_kernel`), when
+        there is no result yet: an index with a stored chunk (no seeds),
+        ZRS_TPU_VECTOR=0, or a data fault of the vector engine.
+    A data fault (a VectorDataFault or a KernelDataFault: a parse failure,
+    bad or short walkers or lanes, drift, a coverage gap) is counted in
+    fallback_stats() as `vector_decode:ValueError` or
+    `kernel_decode:ValueError` and passes the decode on. A device result
+    whose container checksum fails is counted as
+    `device_checksum:ValueError`; then the host exact step (stdlib raw
+    inflate per chunk) decodes. Kernel build, launch and argument errors
+    are not caught.
     engine="host" runs the host exact step only; index=None decodes the
     whole stream on the host.
 
-    Routes not ported raise NotImplementedError: an index without seeds
-    for every chunk, or ZRS_TPU_VECTOR=0 (the inflate kernel K6 and the
-    seeded swarm engine), ZRS_VECTOR_TWOPLANE=0 (K11), engine="native".
+    Routes not ported raise NotImplementedError: ZRS_TPU_KERNEL=0 on the
+    device engine (it skips K6 for the seeded swarm engine),
+    ZRS_VECTOR_TWOPLANE=0 (K11), engine="native".
     """
     if engine == "native":
         raise NotImplementedError(
@@ -531,24 +562,30 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
 
     if engine == "device":
         dev = _device.resolve_device(device)
-        seeds = getattr(index, "seeds", None)
-        if seeds is None or any(s is None for s in seeds) or os.environ.get("ZRS_TPU_VECTOR") == "0":
+        if os.environ.get("ZRS_TPU_KERNEL") == "0":
             raise NotImplementedError(
-                "an index without seeds for every chunk, or ZRS_TPU_VECTOR=0, "
-                "runs the inflate kernel K6 (decode_chunks_kernel) and then "
-                "the seeded swarm engine, which are not ported yet"
+                "ZRS_TPU_KERNEL=0 skips the inflate kernel K6 for the seeded "
+                "swarm engine, which is not ported yet"
             )
+        seeds = getattr(index, "seeds", None)
         bodies = [data[off : off + ln] for off, ln, _ in index]
         out_sizes = [out_len for _, _, out_len in index]
         result = None
-        try:
-            result = b"".join(
-                vector_inflate.decode_chunks_vector(bodies, out_sizes, seeds, device=dev)
-            )
-        except vector_inflate.VectorDataFault as e:
-            # counted under the reference's key; a wrapper's argument error
-            # (a plain ValueError) is not a data fault and propagates
-            _note_fallback("vector_decode", ValueError(e))
+        if (seeds is not None and all(s is not None for s in seeds)
+                and os.environ.get("ZRS_TPU_VECTOR") != "0"):
+            try:
+                result = b"".join(
+                    vector_inflate.decode_chunks_vector(bodies, out_sizes, seeds, device=dev)
+                )
+            except vector_inflate.VectorDataFault as e:
+                # counted under the reference's key; a wrapper's argument
+                # error (a plain ValueError) is not a data fault and propagates
+                _note_fallback("vector_decode", ValueError(e))
+        if result is None:
+            try:
+                result = b"".join(swarm_inflate.decode_chunks_kernel(bodies, out_sizes, device=dev))
+            except swarm_inflate.KernelDataFault as e:
+                _note_fallback("kernel_decode", ValueError(e))
         if result is not None:
             with STAGES.host("container_check"):
                 if container_ok(data, result):

@@ -1,16 +1,63 @@
-"""Host parse of a chunk's block header, for the seeded decode engines.
+"""The chunk decode through the inflate kernel K6, and the host parse of a
+chunk's block header for the seeded decode engines.
 
-The port's copy of `_HostBits` and `parse_block_header` of
-zlib_rs_tpu/parallel/swarm_inflate.py (lines 65-160). The swarm engine
-itself (the seeded XLA walkers, K6's `decode_chunks_kernel`) is not
-ported yet.
+The port of zlib_rs_tpu/parallel/swarm_inflate.py's `decode_chunks_kernel`
+(lines 296-331), `_HostBits` and `parse_block_header` (lines 65-160). The
+seeded swarm engine (the XLA walkers, `decode_chunks_seeded`) and the
+bench's `make_kernel_dispatch` are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .. import _device
 from ..ops import huffman as H
+from ..ops.kernels import inflate_kernel as IK
+from ..utils.stages import STAGES
+
+
+class KernelDataFault(ValueError):
+    """K6 could not decode the input exactly: a bad lane or a short
+    output. The caller takes it as a data fault and falls back."""
+
+
+def decode_chunks_kernel(bodies, out_sizes, *, device=None):
+    """Decode chunk bodies (or any raw-deflate streams) with K6 on `device`
+    (the GPU when None; "cpu" runs its plain version): one sequential
+    inflate per stream, no seeds and no host header parse. Returns a list
+    of bytes, one per body, or raises KernelDataFault on any bad lane or
+    short output."""
+    B = len(bodies)
+    if B == 0:
+        return []
+    dev = _device.resolve_device(device)
+    max_out = max(out_sizes)
+    with STAGES.host("kernel_prepare"):
+        words, comp_bits = IK.pack_streams_words(bodies)
+        args = [
+            torch.from_numpy(words.view(np.int32)).to(dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.from_numpy(comp_bits).to(dev),
+            torch.from_numpy(np.asarray(out_sizes, np.int32)).to(dev),
+        ]
+    with STAGES.stage("inflate", dev):
+        out, produced, bad, _end_bit = IK.decode_streams(*args, max_out=max_out)
+    if STAGES.enabled and dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # keep device time out of the host stage
+    with STAGES.host("kernel_checks"):
+        bad_np = bad.cpu().numpy()
+        if bad_np.any():
+            raise KernelDataFault(f"kernel decode failed on lanes {np.nonzero(bad_np)[0][:4]}")
+        produced_np = produced.cpu().numpy()
+        out_np = out.cpu().numpy()
+        parts = []
+        for k in range(B):
+            if produced_np[k] < out_sizes[k]:
+                raise KernelDataFault(f"chunk {k}: short output {produced_np[k]}")
+            parts.append(out_np[k, : out_sizes[k]].tobytes())
+        return parts
 
 _CL_ORDER_NP = np.array(
     [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15], np.int64
