@@ -18,7 +18,13 @@ lanes, and in one launch over all chunks; the K6 route of
 `decompress_parallel` (ZRS_TPU_VECTOR=0) on both streams, an index with
 stored chunks, a flipped byte, `device_decode_streaming` of a stdlib raw
 stream of the corpus and `decompress_chunks` of its window-primed regions
-(phases 11-16). Any mismatch raises; no phase's failure is caught.
+(phases 11-16). Then K8 (the hash-chain scan, level 9) and K9 (the symbol
+histogram) against their plain versions on the first super-batch, K10 (the
+table walk) on the same batch under level 6 with ZRS_TPU_HOPSCAN=0, every
+match stream checked on the card to tile its span with byte-valid
+matches, and `compress_parallel` through the chain route (levels 9 and 8)
+and the tab route, each checked by zlib (phases 17-20). Any mismatch
+raises; no phase's failure is caught.
 
 Lines before the last: the build time, per-phase results, one JSON object
 {"kernels": [...]} with each kernel's launches on the main path, error
@@ -45,6 +51,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ALU_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 COMPARE_ROWS = 8  # chunks held against the plain chase, pack, decode and expansion
 UNDERSIZED_CAP = 16  # tape rows: walkers of this corpus need ~33 on average
+PLAIN_K8_BUDGET_S = 60.0  # seconds of the plain K8 loop in phase 17 (at least two chunks)
 
 
 def load_corpus(size: int = CORPUS_BYTES) -> tuple[bytes, list[str]]:
@@ -600,6 +607,234 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
     return result
 
 
+def check_stream(torch, words4, mpos, mld, nmatch, n_valid, start: int, valid_from) -> int:
+    """On the card: every lane's match stream tiles [start, n_valid) in
+    order (each match at or after the previous one's end, 3 to 258 bytes,
+    inside the span, never reaching before valid_from) and every match
+    equals the bytes `dist` back. Returns the number of matches checked."""
+    B, W = words4.shape
+    Lp = 4 * W
+    dev = words4.device
+    C = mpos.shape[1]
+    nm = nmatch.long()[:, None]
+    slot = torch.arange(C, device=dev)[None, :]
+    vm = slot < nm
+    x = mld.long() & 0xFFFFFFFF
+    ln = (x >> 15) + 3
+    dist = (x & 0x7FFF) + 1
+    mp = mpos.long()
+    end = mp + ln
+    prev_end = torch.cat([torch.full((B, 1), start, dtype=torch.long, device=dev), end[:, :-1]], 1)
+    ok = ((mp >= prev_end) & (end <= n_valid.long()[:, None]) & (ln <= 258)
+          & (mp - dist >= valid_from.long()[:, None]))
+    if not bool((ok | ~vm).all()):
+        raise AssertionError("a match stream does not tile its span")
+    byte = words4.contiguous().view(torch.uint8).reshape(B, Lp).long()
+    mark = torch.zeros((B, Lp + 1), dtype=torch.long, device=dev)
+    mark.scatter_(1, torch.where(vm, mp, Lp).clamp(0, Lp), torch.where(vm, slot + 1, 0))
+    owner = torch.cummax(mark[:, :Lp], dim=1).values - 1  # the match at or before p
+    o = owner.clamp(min=0)
+    pos = torch.arange(Lp, device=dev)[None, :]
+    inside = (owner >= 0) & (pos < end.gather(1, o))
+    src = (pos - dist.gather(1, o)).clamp(min=0)
+    if not bool((byte == byte.gather(1, src))[inside].all()):
+        raise AssertionError("a match differs from the bytes it copies")
+    if int(inside.sum()) != int(torch.where(vm, ln, 0).sum()):
+        raise AssertionError("the matches overlap")
+    return int(nm.sum())
+
+
+def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
+    """Phases 17-20: K8 at level 9 and K9 against their plain versions on
+    the first super-batch, K10 on the same batch under level 6 with
+    ZRS_TPU_HOPSCAN=0, then the chain route (levels 9 and 8) and the tab
+    route of compress_parallel end to end. Fills `rows` and `launches` for
+    K8-K10; returns the routes' end-to-end numbers."""
+    import os
+
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops import lzvec
+    from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+    from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    dc, dn, dv, dict_size = batch
+    B = dc.shape[0]
+    words4 = DK.words_from_bytes(dc)
+    span = (dn - dv).long()  # the bytes a chunk's scan reads: dict and data
+    out_span = (dn - dict_size).long()  # the bytes it parses
+    starts = torch.full((B,), dict_size, dtype=torch.int32, device=dev)
+
+    # -- phase 17: K8 against its plain version (level 9) ------------------
+    good, mlazy, nice, chain = PL._level_knobs(9)["kernel_cfg"]
+    k8 = dict(depth=chain, nice=nice, good=good, max_lazy=mlazy)
+    mpos, mld, st = DK.chain_scan_cuda(words4, dn, starts, dv, **k8)
+    torch.cuda.synchronize()
+    pairs, k = [], 0
+    t0 = time.perf_counter()
+    while k < B and (k < 2 or time.perf_counter() - t0 < PLAIN_K8_BUDGET_S):
+        pm, pd, ps = DK.chain_scan_plain(words4[k : k + 1], dn[k : k + 1], starts[k : k + 1],
+                                         dv[k : k + 1], **k8)
+        m = int(ps[0, 0])
+        pairs += [(st[k, :3], ps[0, :3]), (mpos[k, :m], pm[0, :m]), (mld[k, :m], pd[0, :m])]
+        k += 1
+    plain_s = time.perf_counter() - t0
+    err = max_abs(pairs)
+    if err:
+        raise AssertionError(f"K8 disagrees with its plain version: max abs err {err}")
+    nmatch, bad = st[:, 0], st[:, 1] > 0
+    if bool(bad.any()):
+        raise AssertionError("K8 flags a chunk of the corpus bad")
+    n_checked = check_stream(torch, words4, mpos, mld, nmatch, dn, dict_size, dv)
+    visits = st[:, 2].long()
+    nml = nmatch.long()
+    rows["chain_scan"] = dict(
+        source="zlib_rs_tpu_torch/csrc/chain_scan.cu",
+        replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:1098",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: DK.chain_scan_cuda(words4, dn, starts, dv, **k8), 3),
+        plain_ms=plain_s * 1e3, plain_rows=k,
+        # the chunk read once, the match stream and status written once;
+        # ~6 operations a chain candidate visited, ~10 a position hashed
+        bnd=bound(int((span + 8 * nml + 32).sum()), int((6 * visits + 10 * span).sum())),
+    )
+    print(f"phase 17 K8 (level 9): {k} chunks equal to plain in {plain_s:.1f} s (nmatch, bad, "
+          f"candidates, mpos, mld); all {B} streams tile their spans, {n_checked} matches "
+          f"byte-valid on the card; {int(visits.sum())} candidates visited, most "
+          f"{int(visits.max())} in a chunk", flush=True)
+
+    # -- phase 18: K9 against its plain version ---------------------------
+    nm_eff = torch.where(bad, 0, nmatch)
+    words, meta, _oww = DK.pack_inputs(dc, dn, dict_size, nm_eff, 0)
+    got = DK.freq_cuda(words, mpos, mld, meta)
+    want = DK.freq_plain(words, mpos, mld, meta)
+    err = max_abs([(got, want)])
+    if err:
+        raise AssertionError(f"K9 disagrees with its plain version: max abs err {err}")
+    lens = torch.where(torch.arange(mpos.shape[1], device=dev)[None, :] < nm_eff.long()[:, None],
+                       ((mld.long() & 0xFFFFFFFF) >> 15) + 3, 0).sum(1)
+    if not torch.equal(got[:, :256].long().sum(1) + lens, out_span):
+        raise AssertionError("K9's literals and the match lengths do not cover the spans")
+    lits = got[:, :256].long().sum(1)
+    rows["freq"] = dict(
+        source="zlib_rs_tpu_torch/csrc/freq.cu",
+        replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:1517",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: DK.freq_cuda(words, mpos, mld, meta), 20),
+        plain_ms=event_ms(torch, lambda: DK.freq_plain(words, mpos, mld, meta), 3),
+        # the gap (literal) bytes, the match stream and meta in, 320 bins
+        # out; a shared atomic a literal, two and the code arithmetic a match
+        bnd=bound(int((lits + 8 * nml + 32 + 4 * 320).sum()), int((3 * lits + 30 * nml).sum())),
+    )
+    print(f"phase 18 K9: {B} chunks, all 320 bins equal to plain; literals and matches cover "
+          f"every span", flush=True)
+
+    # -- phase 19: K10 against its plain version (level 6, HOPSCAN=0) ------
+    os.environ["ZRS_TPU_HOPSCAN"] = "0"
+    try:
+        cfg6 = PL._level_knobs(6)["kernel_cfg"]
+        variant, w_g = PL._resolve_kernel_variant(cfg6)
+    finally:
+        del os.environ["ZRS_TPU_HOPSCAN"]
+    if variant != "tab":
+        raise AssertionError(f"level 6 with ZRS_TPU_HOPSCAN=0 resolves to {variant}")
+    good, mlazy, nice, chain = cfg6
+    tabf, tabq = lzvec.build_match_tables(words4, dn, dv, depth=chain, nice=nice, w_g=w_g,
+                                          bytes_arr=dc)
+    tf, tq = tabf[:, dict_size:], tabq[:, dict_size:]
+    kt = dict(nice=nice, good=good, max_lazy=mlazy)
+    tpos, tmld, tst = DK.tab_scan_cuda(words4, tf, tq, dn, dict_size, **kt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppos, pmld, pst = DK.tab_scan_plain(words4, tf, tq, dn, dict_size, **kt)
+    tab_plain_s = time.perf_counter() - t0
+    pairs = [(tst[:, :2], pst[:, :2])]
+    for r in range(B):
+        m = int(pst[r, 0])
+        pairs += [(tpos[r, :m], ppos[r, :m]), (tmld[r, :m], pmld[r, :m])]
+    err = max_abs(pairs)
+    if err:
+        raise AssertionError(f"K10 disagrees with its plain version: max abs err {err}")
+    if bool((tst[:, 1] > 0).any()):
+        raise AssertionError("K10 flags a chunk of the corpus bad")
+    t_checked = check_stream(torch, words4, tpos, tmld, tst[:, 0], dn, dict_size, dv)
+    tnm = tst[:, 0].long()
+    tlens = torch.where(torch.arange(tmld.shape[1], device=dev)[None, :] < tnm[:, None],
+                        ((tmld.long() & 0xFFFFFFFF) >> 15) + 3, 0).sum(1)
+    visited = out_span - tlens + tnm  # the walk's stops: each literal, each match
+    rows["tab_scan"] = dict(
+        source="zlib_rs_tpu_torch/csrc/tab_scan.cu",
+        replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:1036",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: DK.tab_scan_cuda(words4, tf, tq, dn, dict_size, **kt), 5),
+        plain_ms=tab_plain_s * 1e3, plain_rows=B,
+        # tabf at every stop and tabq once a match, the parsed span's words
+        # once, the match stream written once; ~10 operations a stop, ~20 a
+        # match
+        bnd=bound(int((4 * visited + 4 * tnm + out_span + 8 * tnm + 32).sum()),
+                  int((10 * visited + 20 * tnm).sum())),
+    )
+    print(f"phase 19 K10 (level 6, HOPSCAN=0, w_g {w_g}): {B} chunks equal to plain; "
+          f"{t_checked} matches tile their spans and are byte-valid on the card", flush=True)
+
+    # -- phase 20: the chain and tab routes, end to end --------------------
+    result = {}
+    for label, level, env, kernels, absent in (
+        ("level9", 9, {}, ("chain_scan", "freq", "pack", "adler32_batch"), ("hop_chase", "tab_scan")),
+        ("level8", 8, {}, ("chain_scan", "freq", "pack", "adler32_batch"), ("hop_chase", "tab_scan")),
+        ("level6_hopscan0", 6, {"ZRS_TPU_HOPSCAN": "0"}, ("tab_scan", "freq", "pack", "adler32_batch"),
+         ("hop_chase", "chain_scan")),
+    ):
+        os.environ.update(env)
+        try:
+            for name in DK.launches:
+                DK.launches[name] = 0
+            CK.launches["adler32_batch"] = 0
+            t0 = time.perf_counter()
+            out = zt.compress_parallel(corpus, level)
+            cold_s = time.perf_counter() - t0
+            seen = dict(DK.launches, adler32_batch=CK.launches["adler32_batch"])
+            if min(seen[n] for n in kernels) < 1 or max(seen[n] for n in absent) > 0:
+                raise AssertionError(f"{label}: launches {seen}")
+            if zlib.decompress(out) != corpus:
+                raise AssertionError(f"the {label} stream does not decode to the corpus")
+            PL.STAGES.enabled = True
+            walls, stages = [], []
+            for _ in range(3):
+                PL.STAGES.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = zt.compress_parallel(corpus, level)
+                walls.append(time.perf_counter() - t0)
+                stages.append(PL.STAGES.ms())
+                if again != out:
+                    raise AssertionError(f"a warm {label} run gave other bytes")
+            PL.STAGES.enabled = False
+        finally:
+            for name in env:
+                del os.environ[name]
+        zref = len(zlib.compress(corpus, level))
+        mbps = [len(corpus) / w / 1e6 for w in walls]
+        result[label] = {"bytes_out": len(out), "zlib_bytes": zref, "ratio_to_zlib": len(out) / zref,
+                         "cold_s": cold_s, "warm_s": walls, "warm_mb_per_s": mbps,
+                         "stage_ms": stages, "launches": seen}
+        if label == "level9":
+            launches["chain_scan"], launches["freq"] = seen["chain_scan"], seen["freq"]
+        if label == "level6_hopscan0":
+            launches["tab_scan"] = seen["tab_scan"]
+            result[label]["equals_hop_stream"] = out == hop_out
+        print(f"phase 20 {label}: {len(corpus)} -> {len(out)} bytes, ratio to zlib-{level} "
+              f"{len(out) / zref:.6f} ({zref} bytes), cold {cold_s:.3f} s, launches {seen}; wall s "
+              + ", ".join(f"{w:.4f}" for w in walls) + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps),
+              flush=True)
+        for run, st_ms in enumerate(stages, 1):
+            print(f"phase 20 {label} stages ms (warm run {run}): "
+                  + json.dumps({n: round(v, 3) for n, v in st_ms.items()}), flush=True)
+    print(f"phase 20: the tab-route stream equals phase 4's hop-route stream: "
+          f"{result['level6_hopscan0']['equals_hop_stream']}", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -765,6 +1000,7 @@ def main() -> int:
 
     # -- phase 4: the main path, end to end ------------------------------
     counters = {"adler32_batch": CK.launches, "hop_chase": DK.launches, "pack": DK.launches,
+                "chain_scan": DK.launches, "tab_scan": DK.launches, "freq": DK.launches,
                 "vhuff_decode": VK.launches, "vhuff_expand": VK.launches,
                 "inflate": IK.launches, "crc32_batch": CRC.launches}
     for c in counters.values():
@@ -776,6 +1012,8 @@ def main() -> int:
     launches = {name: c[name] for name, c in counters.items()}
     if sum(launches.pop(n) for n in ("vhuff_decode", "vhuff_expand", "inflate", "crc32_batch")):
         raise AssertionError("the zlib encode path launched a decode or crc32 kernel")
+    if sum(launches.pop(n) for n in ("chain_scan", "tab_scan", "freq")):
+        raise AssertionError("the level-6 hop route launched K8, K9 or K10")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if zlib.decompress(out) != corpus:
@@ -786,22 +1024,23 @@ def main() -> int:
           f"{launches}", flush=True)
 
     PL.STAGES.enabled = True
-    walls, stages = [], None
+    walls, stages = [], []
     for _ in range(3):
         PL.STAGES.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         again = zt.compress_parallel(corpus, LEVEL)
         walls.append(time.perf_counter() - t0)
-        stages = PL.STAGES.ms()
+        stages.append(PL.STAGES.ms())
         if again != out:
             raise AssertionError("a warm run gave other bytes than the first")
     PL.STAGES.enabled = False
     mbps = [len(corpus) / w / 1e6 for w in walls]
     print("phase 4 warm: wall s " + ", ".join(f"{w:.4f}" for w in walls)
           + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
-    print("phase 4 stages ms (last warm run): "
-          + json.dumps({k2: round(v, 3) for k2, v in stages.items()}), flush=True)
+    for run, st_ms in enumerate(stages, 1):
+        print(f"phase 4 stages ms (warm run {run}): "
+              + json.dumps({k2: round(v, 3) for k2, v in st_ms.items()}), flush=True)
 
     idx_out, index = zt.compress_parallel(corpus, LEVEL, return_index=True)
     if zlib.decompress(idx_out) != corpus or len(index) != n_chunks:
@@ -829,23 +1068,25 @@ def main() -> int:
     crc_phase(torch, dev, corpus, rows)
     gzip_encode = gzip_encode_phase(torch, corpus, launches)
     k6_decode = inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches)
+    routes = encode_route_phases(torch, dev, corpus, (dc, dn, dv, dict_size), out, rows, launches)
 
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
-                 "inflate", "crc32_batch"):
+                 "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
             name=name, route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}),
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
         "bytes_in": len(corpus), "bytes_out": len(out), "zlib_bytes": zref,
         "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, "warm_s": walls,
         "warm_mb_per_s": mbps, "stage_ms": stages, "decode": decode,
-        "gzip_encode": gzip_encode, "k6_decode": k6_decode,
+        "gzip_encode": gzip_encode, "k6_decode": k6_decode, "encode_routes": routes,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

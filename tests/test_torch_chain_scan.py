@@ -1,0 +1,361 @@
+"""K8 (hash-chain scan), K9 (symbol histogram) and K10 (table walk) of the
+port, as their plain PyTorch versions, against the JAX package's Pallas
+kernels in interpret mode on the same inputs. Integer codec: every
+comparison is exact."""
+
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from zlib_rs_tpu.ops.pallas import deflate_kernel as jdk
+from zlib_rs_tpu_torch import interop
+from zlib_rs_tpu_torch import compress_parallel
+from zlib_rs_tpu_torch.ops import dynhuff as td
+from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as tdk
+
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
+_BASH = open("/bin/bash", "rb").read()
+PAD = 272
+DICT, CHUNK = 4096, 8192
+C = tdk.CAP_M + 8
+
+# (good, max_lazy, nice, chain) of the three K8 settings the pipeline runs
+K8_KNOBS = {
+    "level6_tabscan0": (8, 16, 128, 64),
+    "level8": tdk.ZLIB_CONFIG[8],
+    "level9": tdk.ZLIB_CONFIG[9],
+}
+
+
+def _words(buf):
+    B = buf.shape[0]
+    bb = buf.reshape(B, -1, 4).astype(np.uint32)
+    w4 = bb[..., 0] | (bb[..., 1] << 8) | (bb[..., 2] << 16) | (bb[..., 3] << 24)
+    return np.concatenate([w4, np.zeros((B, 2), np.uint32)], axis=1)
+
+
+def _gen(seed, n=4096, maxcopy=56):
+    """Small-alphabet bytes with copied slices (tests/test_lzvec.py's)."""
+    rng = np.random.default_rng(seed)
+    data = bytearray(rng.integers(0, 12, n).astype(np.uint8).tobytes())
+    for _ in range(40):
+        s = int(rng.integers(0, n - maxcopy - 1))
+        d = int(rng.integers(0, n - maxcopy - 1))
+        ln = int(rng.integers(4, maxcopy))
+        data[d : d + ln] = data[s : s + ln]
+    return bytes(data)
+
+
+LONG_RUN = (b"abcdefgh" * 64) + _gen(9, n=1024) + (b"\x00" * 300) + b"tail"
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """Four chunks: three cut from /bin/bash (no dict, full dict, a short
+    last chunk) and one of long runs, every one emitted from DICT on."""
+    rng = np.random.default_rng(2024)
+    width = DICT + CHUNK + PAD
+    ins_from = np.array([DICT, 0, 0, DICT], np.int32)
+    data_len = np.array([CHUNK, CHUNK, 3001, len(LONG_RUN)], np.int32)
+    buf = np.zeros((4, width), np.uint8)
+    for r in range(3):
+        off = int(rng.integers(0, len(_BASH) - width))
+        n = DICT + int(data_len[r])
+        buf[r, ins_from[r] : n] = np.frombuffer(_BASH[off + ins_from[r] : off + n], np.uint8)
+    buf[3, DICT : DICT + len(LONG_RUN)] = np.frombuffer(LONG_RUN, np.uint8)
+    n_valid = (data_len + DICT).astype(np.int32)
+    return dict(buf=buf, w4=_words(buf), n_valid=n_valid, ins_from=ins_from)
+
+
+def _state(b):
+    return interop.state_from_numpy(
+        {"words4": b["w4"], "n_valid": b["n_valid"], "ins_from": b["ins_from"],
+         "chunks": b["buf"]}, device="cpu",
+    )
+
+
+def _assert_stream_equal(got, ref):
+    mpos, mld, nmatch, bad = [np.asarray(x) for x in ref]
+    tm, tl, tn, tb = [t.numpy() for t in got]
+    np.testing.assert_array_equal(tn, nmatch)
+    np.testing.assert_array_equal(tb, bad)
+    for r in range(len(nmatch)):
+        k = min(int(nmatch[r]), tdk.CAP_M)
+        np.testing.assert_array_equal(tm[r, :k], mpos[r, :k])
+        np.testing.assert_array_equal(tl[r, :k].view(np.uint32), mld[r, :k])
+
+
+def _assert_byte_valid(mpos, mld, nmatch, data: bytes, start: int, n_valid: int):
+    """The stream tiles [start, n_valid): matches in order, each equal to
+    the bytes `dist` back."""
+    lens = (mld[:nmatch].view(np.uint32) >> 15).astype(np.int64) + 3
+    dists = (mld[:nmatch].view(np.uint32) & 0x7FFF).astype(np.int64) + 1
+    end = start
+    for p, ln, d in zip(mpos[:nmatch].tolist(), lens.tolist(), dists.tolist()):
+        assert p >= end and p + ln <= n_valid and d <= p
+        assert data[p : p + ln] == data[p - d : p - d + ln], (p, ln, d)
+        end = p + ln
+    return lens
+
+
+@pytest.fixture(scope="module")
+def k8_ref(batch):
+    """The JAX K8 stream of the batch under each setting, computed once."""
+    out = {}
+    for name, (good, mlazy, nice, chain) in K8_KNOBS.items():
+        out[name] = [np.asarray(x) for x in jdk.scan_chunks_pallas(
+            jnp.asarray(batch["w4"]), jnp.asarray(batch["n_valid"]),
+            jnp.full((4,), DICT, jnp.int32), jnp.asarray(batch["ins_from"]),
+            depth=chain, nice=nice, good=good, max_lazy=mlazy, interpret=True,
+        )]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("setting", list(K8_KNOBS))
+def test_chain_scan_equals_pallas(batch, k8_ref, setting):
+    good, mlazy, nice, chain = K8_KNOBS[setting]
+    st = _state(batch)
+    got = tdk.scan_chunks(
+        st["words4"], st["n_valid"], DICT, st["ins_from"], depth=chain, nice=nice,
+        good=good, max_lazy=mlazy,
+    )
+    assert [t.dtype for t in got] == [torch.int32, torch.int32, torch.int32, torch.bool]
+    assert got[0].shape == (4, C)
+    _assert_stream_equal(got, k8_ref[setting])
+    assert k8_ref[setting][2][:3].min() > 400  # real parses, not all-literal
+    for r in range(4):
+        _assert_byte_valid(got[0][r].numpy(), got[1][r].numpy(), int(got[2][r]),
+                           batch["buf"][r].tobytes(), DICT, int(batch["n_valid"][r]))
+
+
+def test_chain_scan_counts_the_candidates_it_visits(batch):
+    # st[2] counts chain candidates: deeper budgets visit more of them
+    st = _state(batch)
+    args = (st["words4"], st["n_valid"], torch.full((4,), DICT), st["ins_from"])
+    v = {name: tdk.chain_scan(*args, depth=c, nice=n, good=g, max_lazy=m)[2][:, 2]
+         for name, (g, m, n, c) in K8_KNOBS.items()}
+    assert (v["level6_tabscan0"] > 0).all()
+    assert int(v["level9"].sum()) > int(v["level6_tabscan0"].sum())
+
+
+def test_chain_scan_overflow_flags_bad_like_pallas():
+    # 60 kB of an 8-letter alphabet parse into short matches: more than
+    # CAP_M of them, so the dead write lands in slot CAP_M and ends the parse
+    rng = np.random.default_rng(5)
+    n = 60000
+    buf = np.zeros((1, n + 16), np.uint8)
+    buf[0, :n] = rng.integers(0, 8, size=n)
+    w4 = _words(buf)
+    knobs = dict(depth=4, nice=16, good=4, max_lazy=4)
+    ref = [np.asarray(x) for x in jdk.scan_chunks_pallas(
+        jnp.asarray(w4), jnp.asarray([n], jnp.int32), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1,), jnp.int32), interpret=True, **knobs,
+    )]
+    z = torch.zeros(1, dtype=torch.int32)
+    got = tdk.scan_chunks(torch.from_numpy(w4.view(np.int32)), torch.tensor([n]), z, z, **knobs)
+    assert bool(ref[3][0]) and int(ref[2][0]) > tdk.CAP_M
+    _assert_stream_equal(got, ref)
+
+
+def test_chain_scan_refuses_an_oversized_buffer():
+    w = torch.zeros((1, (tdk.MAX_BUF + 16) // 4 + 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="MAX_BUF"):
+        tdk.scan_chunks(w, torch.tensor([100]), 0, 0, depth=8, nice=8)
+
+
+# ---------------------------------------------------------------------------
+# K9
+# ---------------------------------------------------------------------------
+
+
+def _jax_freq(w4, mpos, mld, meta):
+    B, W = w4.shape
+    call = jax.jit(lambda m, w, p, l: pl.pallas_call(
+        jdk._freq_kernel, grid=(B,),
+        in_specs=[pl.BlockSpec((1, 1, 8), lambda b: (b, 0, 0)),
+                  pl.BlockSpec((1, 1, W), lambda b: (b, 0, 0)),
+                  pl.BlockSpec((1, 1, C), lambda b: (b, 0, 0)),
+                  pl.BlockSpec((1, 1, C), lambda b: (b, 0, 0))],
+        out_specs=pl.BlockSpec((1, 1, 320), lambda b: (b, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((B, 1, 320), jnp.int32),
+        interpret=True,
+    )(m, w, p, l))
+    return np.asarray(call(jnp.asarray(meta[:, None]), jnp.asarray(w4[:, None]),
+                           jnp.asarray(mpos[:, None]), jnp.asarray(mld[:, None])))[:, 0]
+
+
+def test_freq_equals_pallas_with_an_all_literal_lane(batch, k8_ref):
+    mpos, mld, nmatch, _bad = k8_ref["level9"]
+    nm = nmatch.astype(np.int32).copy()
+    nm[1] = 0  # a bad chunk arrives with nmatch = 0: every byte a literal
+    meta = np.zeros((4, 8), np.int32)
+    meta[:, 0], meta[:, 1], meta[:, 2] = batch["n_valid"], DICT, nm
+    ref = _jax_freq(batch["w4"], mpos, mld, meta)
+    st = interop.state_from_numpy(
+        {"words4": batch["w4"], "mpos": mpos, "mld": mld, "meta": meta}, device="cpu")
+    got = tdk.freq(st["words4"], st["mpos"], st["mld"], st["meta"])
+    assert got.dtype == torch.int32 and got.shape == (4, 320)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert int(got[1, :256].sum()) == CHUNK and int(got[1, 256:].sum()) == 0
+    # each lane counts every byte of its span once, as a literal or a match
+    spans = batch["n_valid"] - DICT
+    lens = (mld.view(np.uint32) >> 15).astype(np.int64) + 3
+    for r in (0, 2, 3):
+        assert int(got[r, :256].sum()) + int(lens[r, : nm[r]].sum()) == spans[r]
+
+
+def test_freq_pack_without_freq_equals_pallas(batch, k8_ref, monkeypatch):
+    # freq=None runs K9 inside the composition, as the reference does
+    table = np.asarray(jnp.exp2(jnp.arange(16, dtype=jnp.float32))).copy()
+    monkeypatch.setattr(td, "EXP2_LEN", torch.from_numpy(table))
+    mpos, mld, nmatch, bad = k8_ref["level8"]
+    nm_eff = np.where(bad, 0, nmatch).astype(np.int32)
+    ref = jdk.freq_pack_chunks_pallas(
+        jnp.asarray(batch["buf"]), jnp.asarray(batch["n_valid"]),
+        jnp.full((4,), DICT, jnp.int32), jnp.asarray(mpos), jnp.asarray(mld),
+        jnp.asarray(nm_eff), None, n_seeds=0, interpret=True,
+    )
+    st = interop.state_from_numpy(
+        {"chunks": batch["buf"], "n_valid": batch["n_valid"], "mpos": mpos, "mld": mld,
+         "nmatch": nm_eff}, device="cpu")
+    got = tdk.freq_pack_chunks(st["chunks"], st["n_valid"], DICT, st["mpos"], st["mld"],
+                               st["nmatch"])
+    words, total, ll, dl, pbad = [np.asarray(x) for x in ref]
+    np.testing.assert_array_equal(got[1].numpy(), total)
+    np.testing.assert_array_equal(got[2].numpy(), ll)
+    np.testing.assert_array_equal(got[3].numpy(), dl)
+    np.testing.assert_array_equal(got[4].numpy(), pbad)
+    for r in range(4):
+        nw = int(total[r]) // 32 + 2
+        np.testing.assert_array_equal(got[0][r, :nw].numpy().view(np.uint32), words[r, :nw])
+
+
+# ---------------------------------------------------------------------------
+# K10
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w_g", [6, 32])
+def test_tab_scan_equals_pallas(batch, w_g):
+    knobs = dict(start=DICT, depth=64, nice=128, good=8, max_lazy=16, w_g=w_g)
+    ref = jdk.scan_chunks_tab_pallas(
+        jnp.asarray(batch["w4"]), jnp.asarray(batch["n_valid"]),
+        jnp.asarray(batch["ins_from"]), interpret=True, **knobs,
+    )
+    st = _state(batch)
+    got = tdk.scan_chunks_tab(st["words4"], st["n_valid"], st["ins_from"],
+                              bytes_arr=st["chunks"], **knobs)
+    _assert_stream_equal(got, ref)
+    lens = _assert_byte_valid(got[0][3].numpy(), got[1][3].numpy(), int(got[2][3]),
+                              batch["buf"][3].tobytes(), DICT, int(batch["n_valid"][3]))
+    assert lens.max() > 4 * w_g  # the long runs were extended past the table cap
+
+
+def test_tab_scan_overflow_flags_bad_like_pallas():
+    # every table entry is a 3-byte match at distance 1 over random bytes:
+    # more than CAP_M matches, so the chunk goes bad
+    rng = np.random.default_rng(3)
+    n = 3 * tdk.CAP_M + 600
+    buf = np.zeros((1, n + PAD), np.uint8)
+    buf[0, :n] = rng.integers(0, 256, size=n)
+    w4 = _words(buf)
+    tabn = 4 * w4.shape[1]
+    tab = np.full((1, tabn), (3 << 16) | 1, np.int32)
+    good, mlazy, nice, _chain = tdk.ZLIB_CONFIG[9]
+    meta = np.array([[n, 0, 0, 0, nice, good, mlazy, 0]], np.int32)
+    call = jax.jit(lambda m, w, f, q: pl.pallas_call(
+        jdk._make_kernel_tab(24), grid=(1,),
+        out_shape=[
+            jax.ShapeDtypeStruct((1, 1, C), jnp.int32),
+            jax.ShapeDtypeStruct((1, 1, C), jnp.uint32),
+            jax.ShapeDtypeStruct((1, 1, 8), jnp.int32),
+        ],
+        interpret=True,
+    )(m, w, f, q))
+    ref = [np.asarray(x)[:, 0] for x in call(
+        jnp.asarray(meta[:, None]), jnp.asarray(w4[:, None]),
+        jnp.asarray(tab[:, None]), jnp.asarray(tab[:, None]),
+    )]
+    t = torch.from_numpy(tab)
+    mpos, mld, st = [x.numpy() for x in tdk.tab_scan(
+        torch.from_numpy(w4.view(np.int32)), t, t, torch.tensor([n]), 0,
+        nice=nice, good=good, max_lazy=mlazy,
+    )]
+    assert st[0, 1] == 1 and ref[2][0, 1] == 1
+    np.testing.assert_array_equal(st[:, :2], ref[2][:, :2])
+    np.testing.assert_array_equal(mpos[:, : tdk.CAP_M], ref[0][:, : tdk.CAP_M])
+    np.testing.assert_array_equal(mld[:, : tdk.CAP_M].view(np.uint32), ref[1][:, : tdk.CAP_M])
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of tests/test_lzvec.py on the port
+# ---------------------------------------------------------------------------
+
+
+def _one_chunk(data: bytes):
+    w4 = _words(np.frombuffer(data + bytes(-len(data) % 4), np.uint8)[None])
+    z = torch.zeros(1, dtype=torch.int32)
+    return torch.from_numpy(w4.view(np.int32)), torch.tensor([len(data)], dtype=torch.int32), z
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_precise_tab_scan_equals_chain_scan(seed):
+    """With byte-exact table lengths and every true match below the table
+    cap, the table walk reproduces the hash-chain scan's stream."""
+    w4, nv, z = _one_chunk(_gen(seed))
+    knobs = dict(depth=128, nice=128, good=8, max_lazy=16)
+    chain = tdk.scan_chunks(w4, nv, z, z, **knobs)
+    tab = tdk.scan_chunks_tab(w4, nv, z, start=0, w_g=16, precise=True, **knobs)
+    assert not bool(chain[3][0]) and not bool(tab[3][0])
+    n = int(chain[2][0])
+    assert n == int(tab[2][0]) > 0
+    assert torch.equal(chain[0][0, :n], tab[0][0, :n])
+    assert torch.equal(chain[1][0, :n], tab[1][0, :n])
+
+
+def test_tab_route_stream_equals_hop_route(monkeypatch):
+    """The hop chase's literal histogram equals K9's, and both routes share
+    the parse: level 6 under ZRS_TPU_HOPSCAN=0 gives the hop route's bytes."""
+    data = (_gen(21, n=40000, maxcopy=120) + b"\x00" * 5000 + (b"repeat!" * 3000)
+            + _gen(22, n=20000))
+    monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
+    monkeypatch.setenv("ZRS_TPU_HOPSCAN", "1")
+    hop = compress_parallel(data, 6, device="cpu")
+    monkeypatch.setenv("ZRS_TPU_HOPSCAN", "0")
+    tab = compress_parallel(data, 6, device="cpu")
+    assert zlib.decompress(hop) == data
+    assert hop == tab
+
+
+@pytest.mark.parametrize("level", [7, 8, 9])
+def test_deep_levels_round_trip(level, monkeypatch):
+    monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
+    data = _gen(31, n=20000, maxcopy=100) + b"x" * 2000
+    out = compress_parallel(data, level, chunk_size=16 * 1024, device="cpu")
+    assert zlib.decompress(out) == data
+
+
+@pytest.mark.parametrize("wrapper", ["chain_scan_cuda", "tab_scan_cuda", "freq_cuda"])
+def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    z = torch.zeros((1, 8), dtype=torch.int32)
+    n = torch.zeros(1, dtype=torch.int32)
+    call = {
+        "chain_scan_cuda": lambda: tdk.chain_scan_cuda(z, n, n, n, depth=8, nice=8, good=4,
+                                                       max_lazy=4),
+        "tab_scan_cuda": lambda: tdk.tab_scan_cuda(z, z, z, n, 0, nice=8, good=4, max_lazy=4),
+        "freq_cuda": lambda: tdk.freq_cuda(z, z, z, z),
+    }[wrapper]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()

@@ -10,6 +10,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import zlib_rs_tpu.parallel.checkpoint as JC
 import zlib_rs_tpu.parallel.inflate as JI
@@ -17,6 +18,9 @@ import zlib_rs_tpu_torch as zt
 from zlib_rs_tpu_torch.parallel import checkpoint as TC
 from zlib_rs_tpu_torch.parallel import inflate as TI
 from zlib_rs_tpu_torch.parallel import pipeline as tp
+
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
 
 rng = np.random.default_rng(21)
 DATA = (

@@ -16,6 +16,9 @@ from zlib_rs_tpu.ops.pallas import checksum_kernels as jck
 from zlib_rs_tpu_torch.ops import checksum as tchk
 from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as tck
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 _BASH = open("/bin/bash", "rb").read()
 
 

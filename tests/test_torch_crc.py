@@ -19,6 +19,9 @@ from zlib_rs_tpu_torch.ops import gf2
 from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CK
 from zlib_rs_tpu_torch.parallel import pipeline as tp
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 _BASH = open("/bin/bash", "rb").read()
 
 

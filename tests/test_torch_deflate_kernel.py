@@ -20,6 +20,9 @@ from zlib_rs_tpu_torch import interop
 from zlib_rs_tpu_torch.ops import dynhuff as td
 from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as tdk
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 _BASH = open("/bin/bash", "rb").read()
 PAD = 272
 DICT, CHUNK = 4096, 8192

@@ -17,6 +17,9 @@ import torch
 from zlib_rs_tpu.ops import dynhuff as jd
 from zlib_rs_tpu_torch.ops import dynhuff as td
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def xla_exp2(monkeypatch):

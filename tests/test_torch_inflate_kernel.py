@@ -24,6 +24,9 @@ from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
 from zlib_rs_tpu_torch.parallel import pipeline as tp
 from zlib_rs_tpu_torch.parallel import swarm_inflate as TS
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 _BASH = open("/bin/bash", "rb").read()
 TEXT = b"".join(b"line %d of a text with repeats, words and numbers %d\n" % (i, i * i % 977)
                 for i in range(800))

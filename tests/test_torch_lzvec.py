@@ -10,6 +10,9 @@ import torch
 from zlib_rs_tpu.ops import lzvec as jl
 from zlib_rs_tpu_torch.ops import lzvec as tl
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 _BASH = open("/bin/bash", "rb").read()
 PAD = 272
 # level 6 of the kernel engine: depth 64, nice 128, good 8, max_lazy 16, w_g 6

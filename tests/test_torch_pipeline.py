@@ -28,6 +28,9 @@ from zlib_rs_tpu_torch.config import Strategy
 from zlib_rs_tpu_torch.ops import dynhuff as td
 from zlib_rs_tpu_torch.parallel import pipeline as tp
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 _BASH = open("/bin/bash", "rb").read()
 MULTI = _BASH[400_000 : 400_000 + 70_001]  # three chunks, odd length
 ENV = ("ZRS_TPU_KERNEL", "ZRS_TPU_CHAIN", "ZRS_TPU_WG", "ZRS_TPU_HOPSCAN",
@@ -46,7 +49,7 @@ def kernel_engine(monkeypatch):
 
 
 def _jax(data: bytes, level: int, **kw):
-    key = (data, level, tuple(sorted(kw.items())))
+    key = (data, level, tuple(sorted(kw.items())), tuple(os.environ.get(n) for n in ENV))
     if key not in _JAX_CACHE:
         _JAX_CACHE[key] = jp.compress_parallel(data, level, **kw)
     return _JAX_CACHE[key]
@@ -180,16 +183,44 @@ def test_chain_env_and_wg_env_are_honoured(monkeypatch):
     assert _decode(got) == data
 
 
+# the chain route (K8) and the tab route (K10), each with the K9 histogram
+ROUTES = {
+    "level8": (8, {}, {}),
+    "level9": (9, {}, {}),
+    "level9_gzip": (9, dict(window_bits=31), {}),
+    "level9_index": (9, dict(return_index=True), {}),
+    "level6_tabscan0": (6, {}, {"ZRS_TPU_TABSCAN": "0"}),
+    "level6_hopscan0": (6, {}, {"ZRS_TPU_HOPSCAN": "0"}),
+    "level6_wg32": (6, {}, {"ZRS_TPU_WG": "32"}),
+    "level9_chain128": (9, {}, {"ZRS_TPU_CHAIN": "128"}),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_chain_and_tab_routes_equal_jax(monkeypatch, case):
+    level, kw, env = ROUTES[case]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    want = "chain" if case in ("level8", "level9", "level9_gzip", "level9_index",
+                               "level6_tabscan0") else "tab"
+    assert tp._resolve_kernel_variant(tp._level_knobs(level)["kernel_cfg"])[0] == want
+    got = zt.compress_parallel(MULTI, level, device="cpu", **kw)
+    ref = _jax(MULTI, level, **kw)
+    if kw.get("return_index"):
+        (got, index), (ref, ref_index) = got, ref
+        assert list(index) == list(ref_index) and index.seeds == ref_index.seeds
+    assert got == ref
+    window_bits = kw.get("window_bits", 15)
+    assert _decode(got, window_bits) == MULTI
+    if window_bits == 31:
+        assert got[:2] == b"\x1f\x8b" and got[8] == 2  # gzip XFL: best compression
+
+
 @pytest.mark.parametrize(
     "kw,env,match",
     [
         (dict(level=1), {}, "static"),
         (dict(level=2), {}, "static"),
-        (dict(level=8), {}, "K8"),
-        (dict(level=9), {}, "K8"),
-        (dict(level=6), {"ZRS_TPU_TABSCAN": "0"}, "K8"),
-        (dict(level=6), {"ZRS_TPU_HOPSCAN": "0"}, "K10"),
-        (dict(level=6), {"ZRS_TPU_WG": "32"}, "K10"),
         (dict(level=6), {"ZRS_TPU_KERNEL": "0"}, "XLA matcher"),
         (dict(level=6, mesh=object()), {}, "mesh"),
         (dict(level=6, strategy=Strategy.Filtered), {}, "host engine"),

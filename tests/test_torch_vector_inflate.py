@@ -27,6 +27,9 @@ from zlib_rs_tpu_torch.parallel import pipeline as tp
 from zlib_rs_tpu_torch.parallel import swarm_inflate as TS
 from zlib_rs_tpu_torch.parallel import vector_inflate as TV
 
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
 _BASH = open("/bin/bash", "rb").read()
 
 

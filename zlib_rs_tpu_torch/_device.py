@@ -23,7 +23,8 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("adler32", "hop_chase", "pack", "vhuff_decode", "vhuff_expand", "inflate", "crc32")
+SOURCES = ("adler32", "hop_chase", "pack", "vhuff_decode", "vhuff_expand", "inflate", "crc32",
+           "chain_scan", "tab_scan", "freq")
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"

@@ -1,25 +1,33 @@
-"""K2 (hop chase) and K3 (bit pack) of the kernel encode engine, with
+"""The matchers (K2 hop chase, K8 chain scan, K10 table walk), the symbol
+histogram (K9) and the bit pack (K3) of the kernel encode engine, with
 their plain PyTorch versions and the torch stages around them.
 
-The port of zlib_rs_tpu/ops/pallas/deflate_kernel.py's hop route:
+The port of zlib_rs_tpu/ops/pallas/deflate_kernel.py's three routes:
 
   scan_chunks_hop    lzvec hop tables (torch) -> K2 chase -> _hop_post
-  freq_pack_chunks   EOB bump + both trees (torch) -> K3 pack -> lengths
-                     from the tables the kernel echoes
+  scan_chunks_tab    lzvec match tables (torch) -> K10 table walk
+  scan_chunks        K8 hash-chain scan (levels 8-9, ZRS_TPU_TABSCAN=0)
+  freq_pack_chunks   [K9 histogram, when the scan gave none] -> EOB bump +
+                     both trees (torch) -> K3 pack -> lengths from the
+                     tables the kernel echoes
 
-The encode pipeline runs exactly these two compositions, each stage
-bracketed by `utils.stages.STAGES`.
+The encode pipeline runs exactly these compositions, each stage bracketed
+by `utils.stages.STAGES`.
 
 K2 (csrc/hop_chase.cu) replaces `scan_chunks_hop_pallas` (body
-`_make_kernel_hop`); K3 (csrc/pack.cu) replaces `freq_pack_chunks_pallas`
-(body `_pack_kernel`). Both are serial per chunk and latency-bound on the
-H100 (one thread per chunk, one block per chunk); their byte floors are
-the operands read once and the outputs written once. The sources carry
-the design notes.
+`_make_kernel_hop`); K8 (csrc/chain_scan.cu) `scan_chunks_pallas` (body
+`_kernel`); K10 (csrc/tab_scan.cu) `scan_chunks_tab_pallas` (body
+`_make_kernel_tab`); K9 (csrc/freq.cu) the freq branch of
+`freq_pack_chunks_pallas` (body `_freq_kernel`); K3 (csrc/pack.cu)
+`freq_pack_chunks_pallas` (body `_pack_kernel`). The scans and the pack
+are serial per chunk and latency-bound on the H100 (one thread per chunk,
+one block per chunk); their byte floors are the operands read once and the
+outputs written once. The sources carry the design notes.
 
-Each wrapper (`hop_chase`, `pack`) runs the plain version for a CPU tensor
-and launches the kernel for a CUDA tensor; nothing falls back. 32-bit
-words cross the kernel boundary as int32 bit-views.
+Each wrapper (`hop_chase`, `chain_scan`, `tab_scan`, `freq`, `pack`) runs
+the plain version for a CPU tensor and launches the kernel for a CUDA
+tensor; nothing falls back. 32-bit words cross the kernel boundary as
+int32 bit-views.
 """
 
 from __future__ import annotations
@@ -36,6 +44,9 @@ from .. import dynhuff, lzvec
 
 MIN_MATCH = 3
 MAX_MATCH = 258
+MAX_DIST = 32768
+HSIZE = 1 << 15  # zlib's hash_bits = 15: 32K chain heads
+TOO_FAR = 4096  # a length-3 match further back than this is no match
 CAP_M = 12288  # match-stream slots per chunk; overflow flags `bad`
 MAX_BUF = 65024  # dict + data ceiling of the kernel engine (u16 positions)
 PAD = 272  # tail padding so word reads past n_valid stay in bounds
@@ -55,7 +66,7 @@ ZLIB_CONFIG = {
 }
 
 # launches of the CUDA kernels; the plain versions do not count
-launches = {"hop_chase": 0, "pack": 0}
+launches = {"hop_chase": 0, "chain_scan": 0, "tab_scan": 0, "freq": 0, "pack": 0}
 
 
 def words_from_bytes(chunks_u8: torch.Tensor) -> torch.Tensor:
@@ -277,6 +288,436 @@ def scan_chunks_hop(
 
 
 # ---------------------------------------------------------------------------
+# K8: the hash-chain scan
+# ---------------------------------------------------------------------------
+
+
+def _as_int32(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def _chain_scan_row(row, n_valid, start, ins_from, depth, nice, good, max_lazy, mpos_r, mld_r):
+    """One chunk of `chain_scan_plain`: fills mpos_r/mld_r, returns
+    (nmatch, bad, candidates visited)."""
+    buf = row.tobytes()
+    b = np.concatenate([row.astype(np.int64), np.zeros(2, np.int64)])
+    hsh = (((b[:-2] << 10) ^ (b[1:-1] << 5) ^ b[2:]) & (HSIZE - 1)).tolist()
+    head = [-1] * HSIZE
+    prev = [-1] * len(buf)
+    for j in range(ins_from, start):
+        h = hsh[j]
+        prev[j] = head[h]
+        head[h] = j
+    i, plen, pdist, avail, mc, bad, visits = start, 0, 0, False, 0, False, 0
+    while i < n_valid and not bad:
+        h = hsh[i]
+        cand = head[h]
+        prev[i] = cand
+        head[h] = i
+        blen = bdist = 0
+        if (not avail or plen < max_lazy) and cand >= 0:
+            # longest_match: a candidate whose byte at the current best
+            # length differs cannot beat it (the anchored-byte skip); every
+            # candidate visited costs one unit of the budget
+            bl0 = plen if avail else 0
+            cap = min(n_valid - i, MAX_MATCH)
+            nice_eff = min(nice, cap)
+            budget = depth >> 2 if bl0 >= good else depth
+            bl, bd, d = bl0, 0, 0
+            while cand >= 0 and i - cand <= MAX_DIST and d < budget and bl < nice_eff:
+                if buf[cand + bl] == buf[i + bl]:
+                    k = 0
+                    while k + 8 <= cap and buf[i + k : i + k + 8] == buf[cand + k : cand + k + 8]:
+                        k += 8
+                    while k < cap and buf[i + k] == buf[cand + k]:
+                        k += 1
+                    if k > bl:
+                        bl, bd = k, i - cand
+                cand = prev[cand]
+                d += 1
+            visits += d
+            if bl > bl0 and bl >= MIN_MATCH and not (bl == MIN_MATCH and bd > TOO_FAR):
+                blen, bdist = bl, bd
+        if avail and blen == 0 and plen >= MIN_MATCH:
+            # one-step lazy: the match pending at i - 1 stands
+            slot = min(mc, CAP_M)
+            mpos_r[slot] = i - 1
+            mld_r[slot] = ((plen - MIN_MATCH) << 15) | (pdist - 1)
+            bad = mc >= CAP_M
+            mc += 1
+            for j in range(i + 1, min(i - 1 + plen, n_valid)):
+                h = hsh[j]
+                prev[j] = head[h]
+                head[h] = j
+            i, plen, pdist, avail = i - 1 + plen, 0, 0, False
+        else:
+            avail = blen >= MIN_MATCH
+            plen, pdist = (blen, bdist) if avail else (0, 0)
+            i += 1
+    if avail and plen >= MIN_MATCH and i - 1 + plen <= n_valid:
+        slot = min(mc, CAP_M)
+        mpos_r[slot] = i - 1
+        mld_r[slot] = ((plen - MIN_MATCH) << 15) | (pdist - 1)
+        bad = bad or mc >= CAP_M
+        mc += 1
+    return mc, bad, visits
+
+
+def chain_scan_plain(words, n_valid, start, ins_from, *, depth, nice, good, max_lazy):
+    """zlib's hash-chain longest_match under deflate_slow's one-step-lazy
+    parse, one chunk at a time, as the scalar loop it is. Same outputs as
+    the kernel: mpos/mld int32 [B, CAP_M + 8] (slots past nmatch are 0),
+    st int32 [B, 8] = (nmatch, bad, chain candidates visited, 0, ...)."""
+    B, W = words.shape
+    C = CAP_M + 8
+    rows = words.cpu().contiguous().numpy().view(np.uint8).reshape(B, 4 * W)
+    nv, stt, ins = (x.cpu().tolist() for x in (n_valid, start, ins_from))
+    mpos = np.zeros((B, C), np.int64)
+    mld = np.zeros((B, C), np.int64)
+    st = np.zeros((B, 8), np.int64)
+    for r in range(B):
+        mc, bad, visits = _chain_scan_row(
+            rows[r], nv[r], stt[r], ins[r], depth, nice, good, max_lazy, mpos[r], mld[r]
+        )
+        st[r, :3] = (mc, int(bad), visits)
+    dev = words.device
+    return _as_int32(mpos, dev), _as_int32(mld, dev), _as_int32(st, dev)
+
+
+def _chain_lib():
+    fn = _device.library("chain_scan").zrs_chain_scan
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, P, P, P, I, I, I, I, P, P, P, I, P, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def chain_scan_cuda(words, n_valid, start, ins_from, *, depth, nice, good, max_lazy):
+    """Launch K8 over CUDA operands: words int32 [B, W] (>= 2 zero words
+    of tail padding, 4 (W - 2) <= MAX_BUF + 8), n_valid / start /
+    ins_from int [B]."""
+    _device.require_cuda("chain_scan", words, n_valid, start, ins_from)
+    B, W = words.shape
+    if words.dtype != torch.int32:
+        raise ValueError("chain_scan: words must be int32")
+    if (W - 2) * 4 > MAX_BUF + 8:
+        raise ValueError(f"chain_scan: chunk buffer {(W - 2) * 4} exceeds MAX_BUF={MAX_BUF}")
+    words = words.contiguous()
+    n_valid, start, ins_from = [t.to(torch.int32).contiguous() for t in (n_valid, start, ins_from)]
+    if any(t.shape != (B,) for t in (n_valid, start, ins_from)):
+        raise ValueError("chain_scan: n_valid, start and ins_from must be [B]")
+    if B and bool(((n_valid > 4 * (W - 2)) | (start > n_valid) | (ins_from < 0)).any()):
+        raise ValueError("chain_scan: needs 0 <= ins_from, start <= n_valid <= 4 (W - 2)")
+    C = CAP_M + 8
+    heads = torch.empty((B, HSIZE), dtype=torch.int16, device=words.device)  # scratch
+    mpos = torch.empty((B, C), dtype=torch.int32, device=words.device)
+    mld = torch.empty((B, C), dtype=torch.int32, device=words.device)
+    st = torch.empty((B, 8), dtype=torch.int32, device=words.device)
+    rc = _chain_lib()(
+        _device.ptr(words), W, _device.ptr(n_valid), _device.ptr(start),
+        _device.ptr(ins_from), int(depth), int(nice), int(good), int(max_lazy),
+        _device.ptr(heads), _device.ptr(mpos), _device.ptr(mld), C, _device.ptr(st), B,
+        _device.stream_of(words),
+    )
+    _device.check(rc, "chain_scan")
+    launches["chain_scan"] += 1
+    return mpos, mld, st
+
+
+def chain_scan(words, n_valid, start, ins_from, *, depth, nice, good, max_lazy):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    kw = dict(depth=depth, nice=nice, good=good, max_lazy=max_lazy)
+    if words.device.type == "cpu":
+        return chain_scan_plain(words, n_valid, start, ins_from, **kw)
+    return chain_scan_cuda(words, n_valid, start, ins_from, **kw)
+
+
+def scan_chunks(words4, n_valid, start, ins_from, *, depth: int, nice: int,
+                good: int = 8, max_lazy: int = 16):
+    """Hash-chain scan of B chunks (K8). words4: int32 [B, W] aligned LE
+    words (>= 2 zero words of tail padding, dict + data <= MAX_BUF);
+    [start, n_valid) is emitted after [ins_from, start) is inserted as
+    dictionary. (depth, nice, good, max_lazy) are zlib's (max_chain,
+    nice_length, good_length, max_lazy). Returns (mpos int32 [B, CAP_M +
+    8], mld int32 [B, CAP_M + 8] = (len - 3) << 15 | (dist - 1), nmatch
+    [B], bad bool [B])."""
+    B, W = words4.shape
+    if (W - 2) * 4 > MAX_BUF + 8:
+        raise ValueError(
+            f"chunk buffer {(W - 2) * 4} exceeds MAX_BUF={MAX_BUF} "
+            "(positions must fit the packed u16 prev chain)"
+        )
+    dev = words4.device
+    start, ins_from = [torch.as_tensor(x, device=dev).to(torch.int32).expand(B)
+                       for x in (start, ins_from)]
+    with STAGES.stage("chain_scan", dev):
+        mpos, mld, st = chain_scan(
+            words4, n_valid.to(dev), start, ins_from, depth=depth, nice=nice,
+            good=good, max_lazy=max_lazy,
+        )
+    return mpos, mld, st[:, 0], st[:, 1] > 0
+
+
+# ---------------------------------------------------------------------------
+# K10: the table walk
+# ---------------------------------------------------------------------------
+
+
+def _tail(x: int) -> int:
+    """Equal leading bytes (0..3) of a nonzero xor word."""
+    if x & 0xFF:
+        return 0
+    if x & 0xFFFF:
+        return 1
+    return 2 if x & 0xFFFFFF else 3
+
+
+def _tab_scan_row(w, tf, tq, n_valid, start, nice, good, max_lazy, mpos_r, mld_r):
+    """One chunk of `tab_scan_plain`: fills mpos_r/mld_r, returns (nmatch,
+    bad)."""
+    W = len(w)
+    tabn = len(tf)
+
+    def get32(p):
+        wi = p >> 2
+        sh = (p & 3) << 3
+        w0 = w[min(max(wi, 0), W - 1)]
+        if sh == 0:
+            return w0
+        return ((w0 >> sh) | (w[min(max(wi + 1, 0), W - 1)] << (32 - sh))) & 0xFFFFFFFF
+
+    def extend(i, blen, dist):
+        # the table's length is a floor: continue word-wise, then the tail
+        cap = min(n_valid - i, MAX_MATCH)
+        k = blen
+        while k < cap and get32(i + k) == get32(i - dist + k):
+            k += 4
+        k = min(k, cap)
+        x = get32(i + k) ^ get32(i - dist + k)
+        return min(k + (_tail(x) if x else 0), cap)
+
+    i, plen, pdist, avail, mc, bad = start, 0, 0, False, 0, False
+    while i < n_valid and not bad:
+        if not avail:
+            # literal sprint: a zero full-budget entry is a literal outright
+            while i < n_valid and tf[i - start] == 0:
+                i += 1
+        bl0 = plen if avail else 0
+        cap = min(n_valid - i, MAX_MATCH)
+        t = (tq if bl0 >= good else tf)[min(max(i - start, 0), tabn - 1)]
+        m, d = min(t >> 16, cap), t & 0xFFFF
+        blen = bdist = 0
+        if ((not avail or plen < max_lazy) and bl0 < min(nice, cap) and m > bl0
+                and m >= MIN_MATCH and not (m == MIN_MATCH and d > TOO_FAR)):
+            blen, bdist = m, d
+        if avail and blen == 0 and plen >= MIN_MATCH:
+            p = i - 1
+            plen = extend(p, plen, pdist)
+            slot = min(mc, CAP_M)
+            mpos_r[slot] = p
+            mld_r[slot] = ((plen - MIN_MATCH) << 15) | (pdist - 1)
+            bad = mc >= CAP_M
+            mc += 1
+            i, plen, pdist, avail = p + plen, 0, 0, False
+        else:
+            avail = blen >= MIN_MATCH
+            plen, pdist = (blen, bdist) if avail else (0, 0)
+            i += 1
+    if avail and plen >= MIN_MATCH and i - 1 + plen <= n_valid:
+        p = i - 1
+        plen = extend(p, plen, pdist)
+        slot = min(mc, CAP_M)
+        mpos_r[slot] = p
+        mld_r[slot] = ((plen - MIN_MATCH) << 15) | (pdist - 1)
+        bad = bad or mc >= CAP_M
+        mc += 1
+    return mc, bad
+
+
+def tab_scan_plain(words, tabf, tabq, n_valid, start: int, *, nice, good, max_lazy):
+    """deflate_slow's one-step-lazy parse over the match tables, one chunk
+    at a time: the literal sprint over zero `tabf` entries, `tabq` once
+    the pending match is `good`, and every emitted match extended byte-
+    exactly from its table length. tabf/tabq: int32 [B, tabn] indexed by
+    position - start. Same outputs as the kernel: mpos/mld int32 [B, CAP_M
+    + 8] (slots past nmatch are 0), st int32 [B, 8] = (nmatch, bad, 0...)."""
+    B, W = words.shape
+    C = CAP_M + 8
+    w_np = words.cpu().contiguous().numpy().view(np.uint32)
+    tf_np = tabf.cpu().numpy()
+    tq_np = tabq.cpu().numpy()
+    nv = n_valid.cpu().tolist()
+    mpos = np.zeros((B, C), np.int64)
+    mld = np.zeros((B, C), np.int64)
+    st = np.zeros((B, 8), np.int64)
+    for r in range(B):
+        mc, bad = _tab_scan_row(
+            w_np[r].tolist(), tf_np[r].tolist(), tq_np[r].tolist(), nv[r], int(start),
+            nice, good, max_lazy, mpos[r], mld[r],
+        )
+        st[r, :2] = (mc, int(bad))
+    dev = words.device
+    return _as_int32(mpos, dev), _as_int32(mld, dev), _as_int32(st, dev)
+
+
+def _tab_lib():
+    fn = _device.library("tab_scan").zrs_tab_scan
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, I, P, P, L, I, P, I, I, I, I, P, P, I, P, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def tab_scan_cuda(words, tabf, tabq, n_valid, start: int, *, nice, good, max_lazy):
+    """Launch K10 over CUDA operands: words int32 [B, W], tabf / tabq
+    int32 [B, tabn] (rows contiguous, one row stride for both), n_valid
+    int [B]."""
+    _device.require_cuda("tab_scan", words, tabf, tabq, n_valid)
+    B, W = words.shape
+    if words.dtype != torch.int32 or tabf.dtype != torch.int32 or tabq.dtype != torch.int32:
+        raise ValueError("tab_scan: words and tables must be int32")
+    tabn = tabf.shape[1]
+    if (tabf.shape != (B, tabn) or tabq.shape != tabf.shape or tabf.stride() != tabq.stride()
+            or tabf.stride(1) != 1):
+        raise ValueError("tab_scan: tabf and tabq must be [B, tabn] with one contiguous-row layout")
+    words = words.contiguous()
+    n_valid = n_valid.to(torch.int32).contiguous()
+    if n_valid.shape != (B,) or start < 0:
+        raise ValueError("tab_scan: n_valid must be [B] and start >= 0")
+    if B and int(n_valid.max()) > min(4 * (W - 2), start + tabn - 1):
+        raise ValueError("tab_scan: n_valid exceeds the word buffer or the tables")
+    C = CAP_M + 8
+    mpos = torch.empty((B, C), dtype=torch.int32, device=words.device)
+    mld = torch.empty((B, C), dtype=torch.int32, device=words.device)
+    st = torch.empty((B, 8), dtype=torch.int32, device=words.device)
+    rc = _tab_lib()(
+        _device.ptr(words), W, _device.ptr(tabf), _device.ptr(tabq), tabf.stride(0),
+        tabn, _device.ptr(n_valid), int(start), int(nice), int(good), int(max_lazy),
+        _device.ptr(mpos), _device.ptr(mld), C, _device.ptr(st), B,
+        _device.stream_of(words),
+    )
+    _device.check(rc, "tab_scan")
+    launches["tab_scan"] += 1
+    return mpos, mld, st
+
+
+def tab_scan(words, tabf, tabq, n_valid, start: int, *, nice, good, max_lazy):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    kw = dict(nice=nice, good=good, max_lazy=max_lazy)
+    if words.device.type == "cpu":
+        return tab_scan_plain(words, tabf, tabq, n_valid, start, **kw)
+    return tab_scan_cuda(words, tabf, tabq, n_valid, start, **kw)
+
+
+def scan_chunks_tab(
+    words4, n_valid, ins_from, *, start: int, depth: int, nice: int,
+    good: int = 8, max_lazy: int = 16, w_g: int = 16, bytes_arr=None,
+    precise: bool = False,
+):
+    """Match tables -> K10 table walk. Same outputs as `scan_chunks`; the
+    tables cap lengths at 4 * w_g, the walk extends every emitted match."""
+    B, W = words4.shape
+    dev = words4.device
+    with STAGES.stage("match_tables", dev):
+        tabf, tabq = lzvec.build_match_tables(
+            words4, n_valid, ins_from, depth=depth, nice=nice, w_g=w_g,
+            bytes_arr=bytes_arr, precise=precise,
+        )
+    with STAGES.stage("tab_scan", dev):
+        # the tables from `start` on, as views: row stride 4W
+        mpos, mld, st = tab_scan(
+            words4, tabf[:, start:], tabq[:, start:], n_valid.to(dev), start,
+            nice=nice, good=good, max_lazy=max_lazy,
+        )
+    return mpos, mld, st[:, 0], st[:, 1] > 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the symbol histogram
+# ---------------------------------------------------------------------------
+
+
+def freq_plain(words, mpos, mld, meta):
+    """The 320-bin symbol histogram of a compact match stream as vector
+    code: the literals of every gap between matches (gap k is [end of
+    match k - 1, mpos[k]), the first from `start`, the last to n_valid)
+    at 0..255, 257 + length code and 288 + distance code of each match;
+    EOB is not counted. meta int32 [B, 8] = (n_valid, start, nmatch, ...).
+    Returns int32 [B, 320]."""
+    B, W = words.shape
+    C = mpos.shape[1]
+    Lp = 4 * W
+    dev = words.device
+    i64 = torch.int64
+    meta = meta.to(i64)
+    nv, stt, nm = meta[:, 0:1], meta[:, 1:2], meta[:, 2:3]
+    vm = torch.arange(C, device=dev)[None, :] < nm
+    x = mld.to(i64) & 0xFFFFFFFF
+    ml = (x >> 15) + MIN_MATCH
+    md = (x & 0x7FFF) + 1
+    end = mpos.to(i64) + ml
+    last_end = torch.where(nm > 0, end.gather(1, (nm - 1).clamp(0, C - 1)), stt)
+    ga = torch.cat([torch.where(vm, torch.cat([stt, end[:, :-1]], dim=1), 0), last_end], dim=1)
+    gb = torch.cat([torch.where(vm, mpos.to(i64), 0), nv], dim=1)
+    live = ga < gb
+    one = live.to(i64)
+    # each position counts once for every gap that holds it
+    delta = torch.zeros((B, Lp + 1), dtype=i64, device=dev)
+    delta.scatter_add_(1, torch.where(live, ga, Lp).clamp(0, Lp), one)
+    delta.scatter_add_(1, torch.where(live, gb, Lp).clamp(0, Lp), -one)
+    mult = torch.cumsum(delta[:, :Lp], dim=1)
+    w64 = words.to(i64) & 0xFFFFFFFF
+    byte = torch.stack([(w64 >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1).reshape(B, Lp)
+    hist = torch.zeros((B, N_BINS), dtype=i64, device=dev)
+    hist.scatter_add_(1, byte, mult)
+    lc, _, _ = _len_sym(torch.where(vm, ml, MIN_MATCH))
+    dc, _, _ = _dist_sym(torch.where(vm, md, 1))
+    hist.scatter_add_(1, (257 + lc).clamp(max=N_BINS - 1), vm.to(i64))
+    hist.scatter_add_(1, 288 + dc, vm.to(i64))
+    return hist.to(torch.int32)
+
+
+def _freq_lib():
+    fn = _device.library("freq").zrs_freq
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, P, P, I, P, P, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def freq_cuda(words, mpos, mld, meta):
+    """Launch K9 over CUDA operands (all int32: words [B, W], mpos/mld
+    [B, C], meta [B, 8] = n_valid, start, nmatch, ...)."""
+    _device.require_cuda("freq", words, mpos, mld, meta)
+    B, W = words.shape
+    C = mpos.shape[1]
+    ops = [words, mpos, mld, meta]
+    if any(t.dtype != torch.int32 for t in ops):
+        raise ValueError("freq: operands must be int32")
+    if mpos.shape != (B, C) or mld.shape != (B, C) or meta.shape != (B, 8):
+        raise ValueError("freq: mpos/mld [B, C], meta [B, 8]")
+    words, mpos, mld, meta = [t.contiguous() for t in ops]
+    out = torch.empty((B, N_BINS), dtype=torch.int32, device=words.device)
+    rc = _freq_lib()(
+        _device.ptr(words), W, _device.ptr(mpos), _device.ptr(mld), C,
+        _device.ptr(meta), _device.ptr(out), B, _device.stream_of(words),
+    )
+    _device.check(rc, "freq")
+    launches["freq"] += 1
+    return out
+
+
+def freq(words, mpos, mld, meta):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    if words.device.type == "cpu":
+        return freq_plain(words, mpos, mld, meta)
+    return freq_cuda(words, mpos, mld, meta)
+
+
+# ---------------------------------------------------------------------------
 # K3: the bit pack
 # ---------------------------------------------------------------------------
 
@@ -430,9 +871,11 @@ def code_tables(freq: torch.Tensor):
 
 
 def freq_pack_chunks(
-    chunks_u8, n_valid, start, mpos, mld, nmatch, freq, *, n_seeds: int = 0,
+    chunks_u8, n_valid, start, mpos, mld, nmatch, hist=None, *, n_seeds: int = 0,
 ):
-    """Trees -> K3 pack from the chase's compact match stream.
+    """[K9 histogram] -> trees -> K3 pack from a scan's compact match
+    stream. `hist` is the scan's [B, 320] histogram (the hop route's);
+    None runs K9 on the match stream (the chain and tab routes).
 
     chunks_u8: uint8 [B, L] padded chunk buffers (L % 4 == 0). Returns
     (words int32 [B, OWW], total_bits [B], ll_lens [B, 286], d_lens
@@ -440,8 +883,12 @@ def freq_pack_chunks(
     are read back from the tables the kernel echoes.
     """
     dev = chunks_u8.device
+    if hist is None:
+        with STAGES.stage("freq", dev):
+            words, meta, _oww = pack_inputs(chunks_u8, n_valid, start, nmatch, 0)
+            hist = freq(words, mpos, mld, meta)
     with STAGES.stage("post_trees", dev):
-        lltab, dtab = code_tables(freq)
+        lltab, dtab = code_tables(hist)
     with STAGES.stage("pack", dev):
         return pack_chunks(
             chunks_u8, n_valid, start, mpos, mld, nmatch, lltab, dtab,

@@ -11,11 +11,15 @@ byte-aligned chunk blocks into ONE valid zlib/gzip/raw stream:
     so are the gzip trailer's per-chunk crc32 values (the K7 kernel over
     the full chunks, the host crc32 of the tail).
 
-Device stages per batch of chunks (the kernel engine): `scan_chunks_hop`
-(hop tables in torch, the K2 chase, the symbol histogram) ->
-`freq_pack_chunks` (both trees in torch, the K3 pack) -> K1 adler32; the
-host builds each chunk's block header from the code lengths and splices it
-in front of the body.
+Device stages per batch of chunks (the kernel engine): a matcher, chosen
+as the reference chooses it (`_resolve_kernel_variant`) -- `scan_chunks_hop`
+(hop tables in torch, the K2 chase, the symbol histogram; levels 3-7),
+`scan_chunks_tab` (match tables in torch, the K10 table walk;
+ZRS_TPU_HOPSCAN=0, a wide ZRS_TPU_WG, level 9 with a short ZRS_TPU_CHAIN)
+or `scan_chunks` (the K8 hash-chain scan; levels 8-9, ZRS_TPU_TABSCAN=0)
+-> `freq_pack_chunks` (the K9 histogram after K8 and K10, both trees in
+torch, the K3 pack) -> K1 adler32; the host builds each chunk's block
+header from the code lengths and splices it in front of the body.
 
 Every produced stream decodes with any zlib inflater.
 
@@ -156,16 +160,31 @@ def _resolve_kernel_variant(kernel_cfg) -> tuple[str, int]:
     return "tab", wg
 
 
-def _encode_batch(chunks, n_valid, valid_from, *, dict_size, n_seeds, kernel_cfg, w_g):
+def _encode_batch(chunks, n_valid, valid_from, *, dict_size, n_seeds, kernel_cfg, variant, w_g):
     """The kernel engine on one batch: uint8 [B, dict + chunk + PAD] ->
-    (words, bits, ll_lens, d_lens, seeds_bit, seeds_out)."""
+    (words, bits, ll_lens, d_lens, seeds_bit, seeds_out). `variant` is the
+    matcher route of `_resolve_kernel_variant`: "hop" (K2, whose chase
+    also counts the literals), "tab" (K10) or "chain" (K8); the last two
+    leave the histogram to K9 inside `freq_pack_chunks`."""
     good, mlazy, nice, chain = kernel_cfg
-    with STAGES.stage("hop_tables", chunks.device):
+    with STAGES.stage("words", chunks.device):
         words4 = DK.words_from_bytes(chunks)
-    mpos, mld, nmatch, kbad, freq = DK.scan_chunks_hop(
-        words4, n_valid, valid_from, start=dict_size, depth=chain, nice=nice,
-        good=good, max_lazy=mlazy, w_g=w_g, bytes_arr=chunks,
-    )
+    freq = None
+    if variant == "hop":
+        mpos, mld, nmatch, kbad, freq = DK.scan_chunks_hop(
+            words4, n_valid, valid_from, start=dict_size, depth=chain, nice=nice,
+            good=good, max_lazy=mlazy, w_g=w_g, bytes_arr=chunks,
+        )
+    elif variant == "tab":
+        mpos, mld, nmatch, kbad = DK.scan_chunks_tab(
+            words4, n_valid, valid_from, start=dict_size, depth=chain, nice=nice,
+            good=good, max_lazy=mlazy, w_g=w_g, bytes_arr=chunks,
+        )
+    else:
+        mpos, mld, nmatch, kbad = DK.scan_chunks(
+            words4, n_valid, dict_size, valid_from, depth=chain, nice=nice,
+            good=good, max_lazy=mlazy,
+        )
     # a bad (match-overflow) chunk degrades to an all-literal parse
     nm_eff = torch.where(kbad, 0, nmatch)
     res = DK.freq_pack_chunks(
@@ -316,16 +335,17 @@ def compress_parallel(
     on one CUDA device (`device=None`; it raises when there is none), or
     through the kernels' plain PyTorch versions with `device="cpu"`.
 
-    The engine is the kernel engine: 32 KiB chunks (the default), each
-    primed with up to ~31 KiB of the preceding data as dictionary, the hop
-    matcher, and batches of 128 chunks (16 for the tail). An unset
-    ZRS_TPU_KERNEL means this engine; ZRS_TPU_CHAIN, ZRS_TPU_WG,
-    ZRS_TPU_HOPSCAN, ZRS_TPU_TABSCAN and ZRS_TPU_HOP_IL keep their
-    meanings (ZRS_TPU_HOP_IL=2 gives the same outputs through K2). Routes
-    not ported yet raise NotImplementedError naming what is missing:
-    levels below 3 (the static engine), the chain route (levels 8-9, K8),
-    the tab route (ZRS_TPU_HOPSCAN=0, K10), ZRS_TPU_KERNEL other than 1
-    (the XLA matcher), a chunk buffer over the kernel's 65024 bytes,
+    The engine is the kernel engine at levels 3-9: 32 KiB chunks (the
+    default), each primed with up to ~31 KiB of the preceding data as
+    dictionary, batches of 128 chunks (16 for the tail), and the matcher
+    the reference picks: the hop route (K2) at levels 3-7, the chain route
+    (K8) at levels 8-9, the tab route (K10) where the hop fields do not
+    fit. An unset ZRS_TPU_KERNEL means this engine; ZRS_TPU_CHAIN,
+    ZRS_TPU_WG, ZRS_TPU_HOPSCAN, ZRS_TPU_TABSCAN and ZRS_TPU_HOP_IL keep
+    their meanings (ZRS_TPU_HOP_IL=2 gives the same outputs through K2).
+    Routes not ported yet raise NotImplementedError naming what is
+    missing: levels below 3 (the static engine), ZRS_TPU_KERNEL other than
+    1 (the XLA matcher), a chunk buffer over the kernel's 65024 bytes,
     `mesh=` and a non-default `strategy` (the host engine).
 
     With return_index=True, also returns the ChunkIndex of (body_offset,
@@ -353,16 +373,6 @@ def compress_parallel(
         )
     knobs = _level_knobs(level)
     variant, w_g = _resolve_kernel_variant(knobs["kernel_cfg"])
-    if variant == "chain":
-        raise NotImplementedError(
-            "the chain matcher route (levels 8-9, kernel K8 "
-            "scan_chunks_pallas) is not ported yet"
-        )
-    if variant == "tab":
-        raise NotImplementedError(
-            "the tab matcher route (kernel K10 scan_chunks_tab_pallas) is "
-            "not ported yet"
-        )
     dev = _device.resolve_device(device)
     if chunk_size is None:
         chunk_size = DEFAULT_CHUNK
@@ -387,7 +397,7 @@ def compress_parallel(
         dv = torch.from_numpy(valid_from[sl]).to(dev)
         words, bits, ll_lens, d_lens, sbit, sout = _encode_batch(
             dc, dn, dv, dict_size=dict_size, n_seeds=n_seeds,
-            kernel_cfg=knobs["kernel_cfg"], w_g=w_g,
+            kernel_cfg=knobs["kernel_cfg"], variant=variant, w_g=w_g,
         )
         with STAGES.stage("adler32", dev):
             adlers = checksum.adler32_batch(
