@@ -23,8 +23,14 @@ histogram) against their plain versions on the first super-batch, K10 (the
 table walk) on the same batch under level 6 with ZRS_TPU_HOPSCAN=0, every
 match stream checked on the card to tile its span with byte-valid
 matches, and `compress_parallel` through the chain route (levels 9 and 8)
-and the tab route, each checked by zlib (phases 17-20). Any mismatch
-raises; no phase's failure is caught.
+and the tab route, each checked by zlib (phases 17-20). Then K11a and K11b
+(the single-plane decode and expansion) against their plain versions and
+the single-plane route of `decompress_parallel` (ZRS_VECTOR_TWOPLANE=0) on
+both indexed streams, with its fail-safe (phases 21-23); K12 (the
+interleaved hop chase) against its plain version and K2 on the first
+super-batch, and the level-6 encode under ZRS_TPU_HOP_IL=2, whose stream
+must equal phase 4's (phases 24-25). Any mismatch raises; no phase's
+failure is caught.
 
 Lines before the last: the build time, per-phase results, one JSON object
 {"kernels": [...]} with each kernel's launches on the main path, error
@@ -101,15 +107,15 @@ def event_ms(torch, fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def wall_ms(torch, fn, reps: int) -> float:
-    """Mean wall time of `fn` (host work included) after one warm-up."""
-    fn()
+def timed_ms(torch, fn):
+    """One call of `fn`: its result and its wall time in ms (host work
+    included); for the plain versions, whose one run is both the reference
+    and the timing."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -128,6 +134,57 @@ def max_abs(pairs) -> int:
     return err
 
 
+def bytes_err(torch, got, want, sizes) -> int:
+    """max_abs over bytes [0, sizes[r]) of each row of two int32 [B, n]
+    arrays of LE32 words (an expansion defines only those bytes)."""
+    g8 = got.cpu().numpy().view("u1")
+    w8 = want.cpu().numpy().view("u1")
+    return max_abs([(torch.from_numpy(g8[r, :n]), torch.from_numpy(w8[r, :n]))
+                    for r, n in enumerate(sizes)])
+
+
+def warm_runs(torch, PL, fn, want, nbytes: int, label: str, phase: int) -> dict:
+    """Three warm runs of `fn` with stages, each result equal to `want`;
+    prints and returns their walls, MB/s (`nbytes` of corpus a run) and
+    stages."""
+    PL.STAGES.enabled = True
+    walls, stages = [], []
+    try:
+        for _ in range(3):
+            PL.STAGES.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = fn()
+            walls.append(time.perf_counter() - t0)
+            stages.append(PL.STAGES.ms())
+            if again != want:
+                raise AssertionError(f"a warm {label} run gave other bytes")
+    finally:
+        PL.STAGES.enabled = False
+    mbps = [nbytes / w / 1e6 for w in walls]
+    print(f"phase {phase} {label}: wall s " + ", ".join(f"{w:.4f}" for w in walls)
+          + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
+    for run, st in enumerate(stages, 1):
+        print(f"phase {phase} {label} stages ms (warm run {run}): "
+              + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
+    return {"warm_s": walls, "warm_mb_per_s": mbps, "stage_ms": stages}
+
+
+def stage_decode(VI, idx_out, index, dev):
+    """The vector decode's staged inputs of an indexed stream: (bodies,
+    sizes, seeds, staged, meta, the decode kernels' operands for all chunks
+    and for the first COMPARE_ROWS)."""
+    bodies = [idx_out[off : off + ln] for off, ln, _ in index]
+    sizes = [n for _, _, n in index]
+    staged, meta = VI.prepare_vector_inputs(bodies, sizes, index.seeds, dev)
+    k, S = min(COMPARE_ROWS, meta["B"]), meta["S"]
+    names = ("words", "start_word", "align", "span", "tables")
+    full_args = [staged[n] for n in names]
+    sub_args = [staged["words"][:k]] + [staged[n][: k * S] for n in names[1:4]] + [
+        staged["tables"][:k]]
+    return bodies, sizes, index.seeds, staged, meta, full_args, sub_args
+
+
 def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches) -> dict:
     """Phases 5-8: K4 and K5 against their plain versions on the indexed
     stream's chunks, the decode path end to end (zlib and gzip), and the
@@ -139,27 +196,19 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     from zlib_rs_tpu_torch.parallel import pipeline as PL
     from zlib_rs_tpu_torch.parallel import vector_inflate as VI
 
-    bodies = [idx_out[off : off + ln] for off, ln, _ in index]
-    sizes = [n for _, _, n in index]
-    seeds = index.seeds
-    staged, meta = VI.prepare_vector_inputs(bodies, sizes, seeds, dev)
+    bodies, sizes, seeds, staged, meta, full_args, _sub = stage_decode(VI, idx_out, index, dev)
     S, K, B = meta["S"], meta["K"], meta["B"]
     cap = VI._twoplane_cap(meta)
     W = B * S
-    k = min(COMPARE_ROWS, B)
-    names = ("words", "start_word", "align", "span", "tables")
-    full_args = [staged[n] for n in names]
-    sub_args = [staged["words"][:k]] + [staged[n][: k * S] for n in names[1:4]] + [
-        staged["tables"][:k]]
 
     # -- phase 5: K4 against its plain version -----------------------------
-    got = VK.decode_tokens_vector2_cuda(*sub_args, S=S, K=K, cap=cap)
-    want = VK.decode_tokens_vector2_plain(*sub_args, S=S, K=K, cap=cap)
-    err = max_abs(zip(got, want))
+    full = VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap)
+    want, plain_ms = timed_ms(
+        torch, lambda: VK.decode_tokens_vector2_plain(*full_args, S=S, K=K, cap=cap))
+    err = max_abs(zip(full, want))
     if err:
         raise AssertionError(f"K4 disagrees with its plain version: max abs err {err}")
-    tapeA, tapeB, cons, bad, rem = VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap)
-    torch.cuda.synchronize()
+    tapeA, tapeB, _cons, bad, rem = full
     if int(bad.abs().sum()) or int(rem.abs().sum()):
         raise AssertionError("K4 flags walkers of the clean stream")
     used_rows = int((tapeB != 0).sum())
@@ -173,40 +222,36 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
         replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:1200",
         max_abs_err=err,
         ms=event_ms(torch, lambda: VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap), 5),
-        plain_ms=wall_ms(torch, lambda: VK.decode_tokens_vector2_plain(*full_args, S=S, K=K, cap=cap), 1),
+        plain_ms=plain_ms,
         # four cascade lookups (~30 operations each) and ~80 more a row
         bnd=bound(nb, 200 * used_rows),
     )
-    print(f"phase 5 K4: {k} chunks ({k * S} walkers) equal to plain; {B} chunks, "
-          f"{W} walkers, K {K}, cap {cap}, {used_rows} rows", flush=True)
+    print(f"phase 5 K4: {B} chunks, {W} walkers, K {K}, cap {cap}, {used_rows} rows: both "
+          f"tapes, cons, bad and rem equal to plain", flush=True)
 
     # -- phase 6: K5 against its plain version -----------------------------
     out_words = -(-max(sizes) // 4) + 2
-    offs_k = staged["offs"][:k]
-    got = VK.expand_tokens2_cuda(got[0], got[1], offs_k, out_words=out_words)
-    want = VK.expand_tokens2_plain(want[0], want[1], offs_k, out_words=out_words)
-    g8 = got.cpu().numpy().view("u1")
-    w8 = want.cpu().numpy().view("u1")
-    err = max_abs([(torch.from_numpy(g8[r, : sizes[r]]), torch.from_numpy(w8[r, : sizes[r]]))
-                   for r in range(k)])
+    offs = staged["offs"]
+    outw = VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)
+    want, plain_ms = timed_ms(
+        torch, lambda: VK.expand_tokens2_plain(tapeA, tapeB, offs, out_words=out_words))
+    err = bytes_err(torch, outw, want, sizes)
     if err:
         raise AssertionError(f"K5 disagrees with its plain version: max abs err {err}")
-    outw = VK.expand_tokens2_cuda(tapeA, tapeB, staged["offs"], out_words=out_words)
     full8 = outw.cpu().numpy().view("u1")
     if b"".join(full8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
         raise AssertionError("the full K5 expansion is not the corpus")
-    nb = 8 * used_rows + 4 * staged["offs"].numel() + len(corpus)
+    nb = 8 * used_rows + 4 * offs.numel() + len(corpus)
     rows["vhuff_expand"] = dict(
         source="zlib_rs_tpu_torch/csrc/vhuff_expand.cu",
         replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:1168",
         max_abs_err=err,
-        ms=event_ms(torch, lambda: VK.expand_tokens2_cuda(tapeA, tapeB, staged["offs"], out_words=out_words), 5),
-        plain_ms=wall_ms(torch, lambda: VK.expand_tokens2_plain(tapeA, tapeB, staged["offs"], out_words=out_words), 1),
+        ms=event_ms(torch, lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words), 5),
+        plain_ms=plain_ms,
         # a funnel store and a match copy: ~40 operations a row
         bnd=bound(nb, 40 * used_rows),
     )
-    print(f"phase 6 K5: {k} chunks equal to plain; {B} chunks expand to the corpus",
-          flush=True)
+    print(f"phase 6 K5: {B} chunks equal to plain and expand to the corpus", flush=True)
 
     # -- phase 7: the decode path, end to end ------------------------------
     before = PL.fallback_stats()
@@ -215,36 +260,21 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     t0 = time.perf_counter()
     back = zt.decompress_parallel(idx_out, index)
     cold_s = time.perf_counter() - t0
-    launches.update(VK.launches)
+    launches.update({n: VK.launches[n] for n in ("vhuff_decode", "vhuff_expand")})
     if back != corpus:
         raise AssertionError("decompress_parallel does not return the corpus")
-    if min(VK.launches.values()) < 1:
-        raise AssertionError(f"a decode kernel never launched: {VK.launches}")
+    if min(launches["vhuff_decode"], launches["vhuff_expand"]) < 1 or (
+            VK.launches["vhuff_decode1"] + VK.launches["vhuff_expand1"]):
+        raise AssertionError(f"the two-plane decode launched {VK.launches}")
     result = {"bytes_out": len(back), "cold_s": cold_s}
     for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
-        PL.STAGES.enabled = True
-        walls, stages = [], []
-        for _ in range(3):
-            PL.STAGES.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            again = zt.decompress_parallel(stream, ix)
-            walls.append(time.perf_counter() - t0)
-            stages.append(PL.STAGES.ms())
-            if again != corpus:
-                raise AssertionError(f"a warm {label} decode is not the corpus")
-        PL.STAGES.enabled = False
-        mbps = [len(corpus) / w / 1e6 for w in walls]
-        result[label] = {"warm_s": walls, "warm_mb_per_s": mbps, "stage_ms": stages}
-        print(f"phase 7 decode {label}: wall s " + ", ".join(f"{w:.4f}" for w in walls)
-              + "; MB/s of output " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
-        for run, st in enumerate(stages, 1):
-            print(f"phase 7 {label} stages ms (warm run {run}): "
-                  + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
+        result[label] = warm_runs(torch, PL, lambda: zt.decompress_parallel(stream, ix), corpus,
+                                  len(corpus), f"decode {label}", 7)
     if PL.fallback_stats() != before or before:
         raise AssertionError(f"the clean decode fell back: {PL.fallback_stats()}")
     print(f"phase 7 e2e: cold {cold_s:.3f} s, launches "
-          f"{ {n: launches[n] for n in VK.launches} }, no fallback", flush=True)
+          f"{ {n: launches[n] for n in ('vhuff_decode', 'vhuff_expand')} }, no fallback",
+          flush=True)
 
     # -- phase 8: fail-safe on the card ------------------------------------
     broken = list(bodies)
@@ -384,27 +414,11 @@ def gzip_encode_phase(torch, corpus, launches) -> dict:
         raise AssertionError(f"the gzip encode launched K7 {launches['crc32_batch']} times")
     if zlib.decompress(gz, 31) != corpus or gz[-8:-4] != zlib.crc32(corpus).to_bytes(4, "little"):
         raise AssertionError("the gzip stream or its trailer is wrong")
-    PL.STAGES.enabled = True
-    walls, stages = [], []
-    for _ in range(3):
-        PL.STAGES.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = zt.compress_parallel(corpus, LEVEL, window_bits=31)
-        walls.append(time.perf_counter() - t0)
-        stages.append(PL.STAGES.ms())
-        if again != gz:
-            raise AssertionError("a warm gzip encode gave other bytes")
-    PL.STAGES.enabled = False
-    mbps = [len(corpus) / w / 1e6 for w in walls]
-    print(f"phase 10 gzip encode: {len(gz)} bytes, cold {cold_s:.3f} s, K7 launches 1; wall s "
-          + ", ".join(f"{w:.4f}" for w in walls) + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps),
+    print(f"phase 10 gzip encode: {len(gz)} bytes, cold {cold_s:.3f} s, K7 launches 1",
           flush=True)
-    for run, st in enumerate(stages, 1):
-        print(f"phase 10 gzip stages ms (warm run {run}): "
-              + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
-    return {"bytes_out": len(gz), "cold_s": cold_s, "warm_s": walls, "warm_mb_per_s": mbps,
-            "stage_ms": stages}
+    return {"bytes_out": len(gz), "cold_s": cold_s, **warm_runs(
+        torch, PL, lambda: zt.compress_parallel(corpus, LEVEL, window_bits=31), gz, len(corpus),
+        "gzip encode", 10)}
 
 
 def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches) -> dict:
@@ -514,25 +528,8 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
             raise AssertionError(f"the K6 route: corpus {back == corpus}, launches {launches['inflate']}")
         result["cold_s"] = cold_s
         for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
-            PL.STAGES.enabled = True
-            walls, stages = [], []
-            for _ in range(3):
-                PL.STAGES.reset()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                again = zt.decompress_parallel(stream, ix)
-                walls.append(time.perf_counter() - t0)
-                stages.append(PL.STAGES.ms())
-                if again != corpus:
-                    raise AssertionError(f"a warm K6-route {label} decode is not the corpus")
-            PL.STAGES.enabled = False
-            mbps = [len(corpus) / w / 1e6 for w in walls]
-            result[label] = {"warm_s": walls, "warm_mb_per_s": mbps, "stage_ms": stages}
-            print(f"phase 12 K6-route decode {label}: wall s " + ", ".join(f"{w:.4f}" for w in walls)
-                  + "; MB/s of output " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
-            for run, st in enumerate(stages, 1):
-                print(f"phase 12 {label} stages ms (warm run {run}): "
-                      + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
+            result[label] = warm_runs(torch, PL, lambda: zt.decompress_parallel(stream, ix),
+                                      corpus, len(corpus), f"K6-route decode {label}", 12)
         if PL.fallback_stats() != before or before:
             raise AssertionError(f"the K6-route decode fell back: {PL.fallback_stats()}")
     finally:
@@ -780,10 +777,12 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
     # -- phase 20: the chain and tab routes, end to end --------------------
     result = {}
     for label, level, env, kernels, absent in (
-        ("level9", 9, {}, ("chain_scan", "freq", "pack", "adler32_batch"), ("hop_chase", "tab_scan")),
-        ("level8", 8, {}, ("chain_scan", "freq", "pack", "adler32_batch"), ("hop_chase", "tab_scan")),
+        ("level9", 9, {}, ("chain_scan", "freq", "pack", "adler32_batch"),
+         ("hop_chase", "hop_chase_il", "tab_scan")),
+        ("level8", 8, {}, ("chain_scan", "freq", "pack", "adler32_batch"),
+         ("hop_chase", "hop_chase_il", "tab_scan")),
         ("level6_hopscan0", 6, {"ZRS_TPU_HOPSCAN": "0"}, ("tab_scan", "freq", "pack", "adler32_batch"),
-         ("hop_chase", "chain_scan")),
+         ("hop_chase", "hop_chase_il", "chain_scan")),
     ):
         os.environ.update(env)
         try:
@@ -798,40 +797,268 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
                 raise AssertionError(f"{label}: launches {seen}")
             if zlib.decompress(out) != corpus:
                 raise AssertionError(f"the {label} stream does not decode to the corpus")
-            PL.STAGES.enabled = True
-            walls, stages = [], []
-            for _ in range(3):
-                PL.STAGES.reset()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                again = zt.compress_parallel(corpus, level)
-                walls.append(time.perf_counter() - t0)
-                stages.append(PL.STAGES.ms())
-                if again != out:
-                    raise AssertionError(f"a warm {label} run gave other bytes")
-            PL.STAGES.enabled = False
+            warm = warm_runs(torch, PL, lambda: zt.compress_parallel(corpus, level), out,
+                             len(corpus), label, 20)
         finally:
             for name in env:
                 del os.environ[name]
         zref = len(zlib.compress(corpus, level))
-        mbps = [len(corpus) / w / 1e6 for w in walls]
         result[label] = {"bytes_out": len(out), "zlib_bytes": zref, "ratio_to_zlib": len(out) / zref,
-                         "cold_s": cold_s, "warm_s": walls, "warm_mb_per_s": mbps,
-                         "stage_ms": stages, "launches": seen}
+                         "cold_s": cold_s, **warm, "launches": seen}
         if label == "level9":
             launches["chain_scan"], launches["freq"] = seen["chain_scan"], seen["freq"]
         if label == "level6_hopscan0":
             launches["tab_scan"] = seen["tab_scan"]
             result[label]["equals_hop_stream"] = out == hop_out
         print(f"phase 20 {label}: {len(corpus)} -> {len(out)} bytes, ratio to zlib-{level} "
-              f"{len(out) / zref:.6f} ({zref} bytes), cold {cold_s:.3f} s, launches {seen}; wall s "
-              + ", ".join(f"{w:.4f}" for w in walls) + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps),
+              f"{len(out) / zref:.6f} ({zref} bytes), cold {cold_s:.3f} s, launches {seen}",
               flush=True)
-        for run, st_ms in enumerate(stages, 1):
-            print(f"phase 20 {label} stages ms (warm run {run}): "
-                  + json.dumps({n: round(v, 3) for n, v in st_ms.items()}), flush=True)
     print(f"phase 20: the tab-route stream equals phase 4's hop-route stream: "
           f"{result['level6_hopscan0']['equals_hop_stream']}", flush=True)
+    return result
+
+
+def single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches) -> dict:
+    """Phases 21-23: K11a and K11b against their plain versions on the
+    indexed stream's chunks, then the single-plane route of the decode
+    (ZRS_VECTOR_TWOPLANE=0) end to end on the zlib and gzip streams, and
+    its fail-safe. Fills `rows` and `launches` for K11a and K11b; returns
+    the route's end-to-end numbers."""
+    import os
+
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+    from zlib_rs_tpu_torch.parallel import vector_inflate as VI
+
+    bodies, sizes, seeds, staged, meta, full_args, sub_args = stage_decode(VI, idx_out, index, dev)
+    S, K, B, cap = meta["S"], meta["K"], meta["B"], meta["cap"]
+    W = B * S
+    k = min(COMPARE_ROWS, B)
+
+    # -- phase 21: K11a against its plain version --------------------------
+    # the first chunks with corrupt lanes (flipped body words, then an
+    # undersized cap), then all chunks clean
+    flipped = sub_args[0].clone()
+    flipped[:, flipped.shape[1] // 2] ^= 0xFF
+    err, bad_tapes = 0, []
+    for words_c, cap_c in ((flipped, cap), (sub_args[0], UNDERSIZED_CAP)):
+        args_c = [words_c] + sub_args[1:]
+        got_c = VK.decode_tokens_vector_cuda(*args_c, S=S, K=K, cap=cap_c)
+        want_c = VK.decode_tokens_vector_plain(*args_c, S=S, K=K, cap=cap_c)
+        err = max(err, max_abs(zip(got_c, want_c)))
+        if not (int(want_c[2].sum()) or int(want_c[3].abs().sum())):
+            raise AssertionError("a corrupt K11a lane set flags no walker")
+        bad_tapes.append(got_c[0])
+    full = VK.decode_tokens_vector_cuda(*full_args, S=S, K=K, cap=cap)
+    want, plain_ms = timed_ms(
+        torch, lambda: VK.decode_tokens_vector_plain(*full_args, S=S, K=K, cap=cap))
+    err = max(err, max_abs(zip(full, want)))
+    if err:
+        raise AssertionError(f"K11a disagrees with its plain version: max abs err {err}")
+    tape, _cons, bad, rem = full
+    if int(bad.abs().sum()) or int(rem.abs().sum()):
+        raise AssertionError("K11a flags walkers of the clean stream")
+    used_rows = int((tape != 0).sum())
+    # as K4's: the body bytes, the tables, three walker arrays in, the tape
+    # rows used (one word each) and three walker arrays out
+    body_bytes = sum(len(b) for b in bodies) + 4 * staged["tables"].numel()
+    nb = body_bytes + 3 * 4 * W + 4 * used_rows + 3 * 4 * W
+    rows["vhuff_decode1"] = dict(
+        source="zlib_rs_tpu_torch/csrc/vhuff_decode1.cu",
+        replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:722",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: VK.decode_tokens_vector_cuda(*full_args, S=S, K=K, cap=cap), 5),
+        plain_ms=plain_ms,
+        # four cascade lookups (~30 operations each) and ~80 more a row
+        bnd=bound(nb, 200 * used_rows),
+    )
+    print(f"phase 21 K11a: {B} chunks, {W} walkers, K {K}, cap {cap}, {used_rows} rows: tape, "
+          f"cons, bad and rem equal to plain, none flagged; the first {k} chunks with flipped "
+          f"words and with cap {UNDERSIZED_CAP} equal to plain", flush=True)
+
+    # -- phase 22: K11b against its plain version --------------------------
+    out_words = -(-max(sizes) // 4) + 2
+    offs = staged["offs"]
+    outw = VK.expand_tokens_cuda(tape, offs, out_words=out_words)
+    want, plain_ms = timed_ms(
+        torch, lambda: VK.expand_tokens_plain(tape, offs, out_words=out_words))
+    err = bytes_err(torch, outw, want, sizes)
+    full8 = outw.cpu().numpy().view("u1")
+    if b"".join(full8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
+        raise AssertionError("the full K11b expansion is not the corpus")
+    # phase 21's corrupt tapes, and a random tape with a damaged index:
+    # reads clamp and stray stores drop alike, so every output word is equal
+    pairs = [(VK.expand_tokens_cuda(t, offs[:k], out_words=out_words),
+              VK.expand_tokens_plain(t, offs[:k], out_words=out_words)) for t in bad_tapes]
+    g = torch.Generator().manual_seed(5)
+    rtape = torch.randint(-2**31, 2**31, (16, 16), generator=g, dtype=torch.int64)
+    rtape[:, ::3] = (rtape[:, ::3] & 0x3FFFFFFF) | (VK.VTOK_LIT << 30)
+    rtape = ((rtape + 2**31) % 2**32 - 2**31).to(torch.int32)
+    roffs = torch.sort(torch.randint(-50, 400, (2, 9), generator=g), dim=1).values.to(torch.int32)
+    roffs[1, 3] = 2**31 - 8
+    pairs.append((VK.expand_tokens_cuda(rtape.to(dev), roffs.to(dev), out_words=20),
+                  VK.expand_tokens_plain(rtape, roffs, out_words=20)))
+    err = max(err, max_abs(pairs))
+    if err:
+        raise AssertionError(f"K11b disagrees with its plain version: max abs err {err}")
+    nb = 4 * used_rows + 4 * offs.numel() + len(corpus)
+    rows["vhuff_expand1"] = dict(
+        source="zlib_rs_tpu_torch/csrc/vhuff_expand1.cu",
+        replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:688",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: VK.expand_tokens_cuda(tape, offs, out_words=out_words), 5),
+        plain_ms=plain_ms,
+        # a funnel store a literal row, a match copy a match row: ~40 operations a row
+        bnd=bound(nb, 40 * used_rows),
+    )
+    print(f"phase 22 K11b: {B} chunks equal to plain and expand to the corpus; phase 21's "
+          f"corrupt tapes and a random tape with a damaged index equal to plain", flush=True)
+
+    # -- phase 23: the single-plane route of the decode, end to end --------
+    os.environ["ZRS_VECTOR_TWOPLANE"] = "0"
+    try:
+        before = PL.fallback_stats()
+        for name in VK.launches:
+            VK.launches[name] = 0
+        t0 = time.perf_counter()
+        back = zt.decompress_parallel(idx_out, index)
+        cold_s = time.perf_counter() - t0
+        seen = dict(VK.launches)
+        if back != corpus:
+            raise AssertionError("the single-plane decode does not return the corpus")
+        if min(seen["vhuff_decode1"], seen["vhuff_expand1"]) < 1 or (
+                seen["vhuff_decode"] + seen["vhuff_expand"]):
+            raise AssertionError(f"the single-plane decode launched {seen}")
+        launches["vhuff_decode1"], launches["vhuff_expand1"] = (
+            seen["vhuff_decode1"], seen["vhuff_expand1"])
+        result = {"cold_s": cold_s}
+        for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
+            result[label] = warm_runs(torch, PL, lambda: zt.decompress_parallel(stream, ix),
+                                      corpus, len(corpus), f"single-plane decode {label}", 23)
+        if PL.fallback_stats() != before or before:
+            raise AssertionError(f"the single-plane decode fell back: {PL.fallback_stats()}")
+        broken = list(bodies)
+        hit = B // 2
+        broken[hit] = _flip(broken[hit], len(broken[hit]) // 2)
+        try:
+            VI.decode_chunks_vector(broken, sizes, seeds, device=dev)
+        except VI.VectorDataFault as e:
+            why = str(e)
+        else:
+            raise AssertionError("a flipped body byte decoded without a VectorDataFault")
+    finally:
+        del os.environ["ZRS_VECTOR_TWOPLANE"]
+    print(f"phase 23 single-plane e2e: cold {cold_s:.3f} s, launches {seen}, no fallback; a "
+          f"flipped byte in chunk {hit} raised VectorDataFault ({why})", flush=True)
+    return result
+
+
+def hop_pairs(cuda, plain, lanes, cap_m: int) -> list:
+    """(got, want) pairs of a K2 or K12 launch on `lanes` against its plain
+    version: nmatch and bad, every bin of every bank, each lane's match
+    slots (up to the overflow slot)."""
+    got, want = cuda(*lanes), plain(*lanes)
+    pairs = [(got[2][:, :2], want[2][:, :2]), (got[3], want[3])]
+    for r in range(lanes[0].shape[0]):
+        m = min(int(want[2][r, 0]), cap_m + 1)
+        pairs += [(got[0][r, :m], want[0][r, :m]), (got[1][r, :m], want[1][r, :m])]
+    return pairs
+
+
+def hop_crafted_lanes(DK, dev, words4, htab, dn, dict_size: int, cap_g: int) -> list:
+    """K2/K12 operands the corpus does not give: the port's overflow lanes
+    (one lane past CAP_M matches beside one that is not), and two corpus
+    chunks whose every match source lies before the row (dist 0xFFFF)."""
+    far = htab[:2].clone()
+    far[(far >> 30) > 0] |= 0xFFFF
+    return [(*[t.to(dev) for t in DK.overflow_lanes()], 0, 24),
+            (words4[:2], far, dn[:2], dict_size, cap_g)]
+
+
+def hop_il_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
+    """Phases 24-25: K12 against its plain version and K2 on the first
+    super-batch, then the level-6 encode under ZRS_TPU_HOP_IL=2 end to end,
+    its stream equal to phase 4's. Fills `rows` and `launches` for K12;
+    returns the route's end-to-end numbers."""
+    import os
+
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+    from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    dn, dict_size, words4, htab, cap_g = batch
+    B = words4.shape[0]
+    args = (words4, htab, dn, dict_size, cap_g)
+
+    # -- phase 24: K12 against its plain version and K2 --------------------
+    got = DK.hop_chase_il_cuda(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = DK.hop_chase_il_plain(*args)
+    plain_s = time.perf_counter() - t0
+    st = got[2]
+    nmatch = st[:, 0].long()
+    pairs = [(st[:, :2], want[2][:, :2]), (got[3], want[3])]
+    for r in range(B):
+        m = int(nmatch[r])
+        pairs += [(got[0][r, :m], want[0][r, :m]), (got[1][r, :m], want[1][r, :m])]
+    # an odd batch of three, and the crafted lanes: all four arrays, every bin
+    for lanes in [(words4[:3], htab[:3], dn[:3], dict_size, cap_g)] + hop_crafted_lanes(
+            DK, dev, words4, htab, dn, dict_size, cap_g):
+        pairs += hop_pairs(DK.hop_chase_il_cuda, DK.hop_chase_il_plain, lanes, DK.CAP_M)
+    err = max_abs(pairs)
+    if err:
+        raise AssertionError(f"K12 disagrees with its plain version: max abs err {err}")
+    if bool((st[:, 1] > 0).any()):
+        raise AssertionError("K12 flags a chunk of the corpus bad")
+    ilp = DK._hop_post(*got)
+    k2p = DK._hop_post(*DK.hop_chase_cuda(*args))
+    same = all(torch.equal(ilp[i], k2p[i]) for i in (2, 3, 4))
+    for r in range(B):
+        m = int(nmatch[r])
+        same = same and torch.equal(ilp[0][r, :m], k2p[0][r, :m]) and torch.equal(
+            ilp[1][r, :m], k2p[1][r, :m])
+    if not same:
+        raise AssertionError("K12's parse and histogram differ from K2's on clean lanes")
+    span = (dn - dict_size).long()
+    nb = int((span + 8 * nmatch + 8 * nmatch + 32 + 4 * 4 * 320).sum())
+    rows["hop_chase_il"] = dict(
+        source="zlib_rs_tpu_torch/csrc/hop_chase_il.cu",
+        replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:961",
+        max_abs_err=err,
+        ms=event_ms(torch, lambda: DK.hop_chase_il_cuda(*args), 5),
+        plain_ms=plain_s * 1e3, plain_rows=B,
+        bnd=bound(nb, int((span + 20 * nmatch).sum())),  # as K2's
+    )
+    print(f"phase 24 K12: {B} chunks ({(B + 1) // 2} pairs) equal to plain in {plain_s:.1f} s, "
+          f"and an odd batch of 3, an overflowing lane and far match sources; _hop_post equal "
+          f"to K2's on every lane of the batch", flush=True)
+
+    # -- phase 25: the level-6 encode under ZRS_TPU_HOP_IL=2 ---------------
+    os.environ["ZRS_TPU_HOP_IL"] = "2"
+    try:
+        for name in DK.launches:
+            DK.launches[name] = 0
+        CK.launches["adler32_batch"] = 0
+        t0 = time.perf_counter()
+        out = zt.compress_parallel(corpus, LEVEL)
+        cold_s = time.perf_counter() - t0
+        seen = dict(DK.launches, adler32_batch=CK.launches["adler32_batch"])
+        if min(seen[n] for n in ("hop_chase_il", "pack", "adler32_batch")) < 1 or max(
+                seen[n] for n in ("hop_chase", "chain_scan", "tab_scan", "freq")) > 0:
+            raise AssertionError(f"ZRS_TPU_HOP_IL=2: launches {seen}")
+        if out != hop_out:
+            raise AssertionError("the ZRS_TPU_HOP_IL=2 stream differs from phase 4's")
+        launches["hop_chase_il"] = seen["hop_chase_il"]
+        result = {"cold_s": cold_s, "launches": seen, "equals_hop_stream": True,
+                  **warm_runs(torch, PL, lambda: zt.compress_parallel(corpus, LEVEL), out,
+                              len(corpus), "HOP_IL=2 encode", 25)}
+    finally:
+        del os.environ["ZRS_TPU_HOP_IL"]
+    print(f"phase 25 HOP_IL=2 e2e: {len(out)} bytes, equal to phase 4's stream, cold "
+          f"{cold_s:.3f} s, launches {seen}", flush=True)
     return result
 
 
@@ -928,19 +1155,20 @@ def main() -> int:
     # -- phase 2: K2 against its plain version -----------------------------
     cap_g = 4 * w_g
     chase = DK.hop_chase_cuda(words4, htab, dn, dict_size, cap_g)
-    torch.cuda.synchronize()
-    k = min(COMPARE_ROWS, bsz)
-    plain = DK.hop_chase_plain(words4[:k], htab[:k], dn[:k], dict_size, cap_g)
-    kpost = DK._hop_post(*[t[:k] for t in chase])
+    plain, plain_ms = timed_ms(
+        torch, lambda: DK.hop_chase_plain(words4, htab, dn, dict_size, cap_g))
+    kpost = DK._hop_post(*chase)
     ppost = DK._hop_post(*plain)
-    nm_k, nm_p = kpost[2], ppost[2]
-    if not torch.equal(nm_k, nm_p) or not torch.equal(kpost[3], ppost[3]):
-        raise AssertionError(f"K2 nmatch/bad: {nm_k.tolist()} != {nm_p.tolist()}")
+    nm_k = kpost[2]
+    if not torch.equal(nm_k, ppost[2]) or not torch.equal(kpost[3], ppost[3]):
+        raise AssertionError("K2's nmatch or bad differ from its plain version's")
     sel = torch.cat([torch.arange(0, 286), torch.arange(288, 318)]).to(dev)
     pairs = [(kpost[4][:, sel], ppost[4][:, sel])]
-    for r in range(k):
+    for r in range(bsz):
         m = int(nm_k[r])
         pairs += [(chase[0][r, :m], plain[0][r, :m]), (chase[1][r, :m], plain[1][r, :m])]
+    for lanes in hop_crafted_lanes(DK, dev, words4, htab, dn, dict_size, cap_g):
+        pairs += hop_pairs(DK.hop_chase_cuda, DK.hop_chase_plain, lanes, DK.CAP_M)
     err = max_abs(pairs)
     if err:
         raise AssertionError(f"K2 disagrees with its plain version: max abs err {err}")
@@ -953,10 +1181,12 @@ def main() -> int:
         replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:895",
         max_abs_err=err,
         ms=event_ms(torch, lambda: DK.hop_chase_cuda(words4, htab, dn, dict_size, cap_g), 5),
-        plain_ms=wall_ms(torch, lambda: DK.hop_chase_plain(words4, htab, dn, dict_size, cap_g), 1),
+        plain_ms=plain_ms,
         bnd=bound(nb, int((span + 20 * nmatch).sum())),
     )
-    print(f"phase 2 K2: {k} chunks equal to plain, nmatch {nm_k.tolist()}", flush=True)
+    k = min(COMPARE_ROWS, bsz)
+    print(f"phase 2 K2: {bsz} chunks ({int(nm_k.sum())} matches) equal to plain, and an "
+          f"overflowing lane and far match sources", flush=True)
 
     # -- phase 3: K3 against its plain version, with and without seeds -----
     mpos, mld, nm, kbad, freq = DK._hop_post(*chase)
@@ -1001,8 +1231,9 @@ def main() -> int:
     # -- phase 4: the main path, end to end ------------------------------
     counters = {"adler32_batch": CK.launches, "hop_chase": DK.launches, "pack": DK.launches,
                 "chain_scan": DK.launches, "tab_scan": DK.launches, "freq": DK.launches,
-                "vhuff_decode": VK.launches, "vhuff_expand": VK.launches,
-                "inflate": IK.launches, "crc32_batch": CRC.launches}
+                "hop_chase_il": DK.launches, "vhuff_decode": VK.launches,
+                "vhuff_expand": VK.launches, "vhuff_decode1": VK.launches,
+                "vhuff_expand1": VK.launches, "inflate": IK.launches, "crc32_batch": CRC.launches}
     for c in counters.values():
         for name in c:
             c[name] = 0
@@ -1010,10 +1241,11 @@ def main() -> int:
     out = zt.compress_parallel(corpus, LEVEL)
     cold_s = time.perf_counter() - t0
     launches = {name: c[name] for name, c in counters.items()}
-    if sum(launches.pop(n) for n in ("vhuff_decode", "vhuff_expand", "inflate", "crc32_batch")):
+    if sum(launches.pop(n) for n in ("vhuff_decode", "vhuff_expand", "vhuff_decode1",
+                                     "vhuff_expand1", "inflate", "crc32_batch")):
         raise AssertionError("the zlib encode path launched a decode or crc32 kernel")
-    if sum(launches.pop(n) for n in ("chain_scan", "tab_scan", "freq")):
-        raise AssertionError("the level-6 hop route launched K8, K9 or K10")
+    if sum(launches.pop(n) for n in ("chain_scan", "tab_scan", "freq", "hop_chase_il")):
+        raise AssertionError("the level-6 hop route launched K8, K9, K10 or K12")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if zlib.decompress(out) != corpus:
@@ -1023,24 +1255,8 @@ def main() -> int:
           f"{len(out) / zref:.6f} ({zref} bytes), cold {cold_s:.3f} s, launches "
           f"{launches}", flush=True)
 
-    PL.STAGES.enabled = True
-    walls, stages = [], []
-    for _ in range(3):
-        PL.STAGES.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = zt.compress_parallel(corpus, LEVEL)
-        walls.append(time.perf_counter() - t0)
-        stages.append(PL.STAGES.ms())
-        if again != out:
-            raise AssertionError("a warm run gave other bytes than the first")
-    PL.STAGES.enabled = False
-    mbps = [len(corpus) / w / 1e6 for w in walls]
-    print("phase 4 warm: wall s " + ", ".join(f"{w:.4f}" for w in walls)
-          + "; MB/s " + ", ".join(f"{m:.2f}" for m in mbps), flush=True)
-    for run, st_ms in enumerate(stages, 1):
-        print(f"phase 4 stages ms (warm run {run}): "
-              + json.dumps({k2: round(v, 3) for k2, v in st_ms.items()}), flush=True)
+    warm = warm_runs(torch, PL, lambda: zt.compress_parallel(corpus, LEVEL), out, len(corpus),
+                     "warm", 4)
 
     idx_out, index = zt.compress_parallel(corpus, LEVEL, return_index=True)
     if zlib.decompress(idx_out) != corpus or len(index) != n_chunks:
@@ -1069,10 +1285,14 @@ def main() -> int:
     gzip_encode = gzip_encode_phase(torch, corpus, launches)
     k6_decode = inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches)
     routes = encode_route_phases(torch, dev, corpus, (dc, dn, dv, dict_size), out, rows, launches)
+    single = single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches)
+    hop_il = hop_il_phases(torch, dev, corpus, (dn, dict_size, words4, htab, cap_g), out, rows,
+                           launches)
 
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
-                 "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan"):
+                 "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan",
+                 "vhuff_decode1", "vhuff_expand1", "hop_chase_il"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -1084,9 +1304,9 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
         "bytes_in": len(corpus), "bytes_out": len(out), "zlib_bytes": zref,
-        "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, "warm_s": walls,
-        "warm_mb_per_s": mbps, "stage_ms": stages, "decode": decode,
+        "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, **warm, "decode": decode,
         "gzip_encode": gzip_encode, "k6_decode": k6_decode, "encode_routes": routes,
+        "single_plane_decode": single, "hop_il_encode": hop_il,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,15 +17,18 @@ import subprocess
 import sys
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import zlib_rs_tpu.parallel.pipeline as jp
+from zlib_rs_tpu.ops.pallas import deflate_kernel as jdk
 import zlib_rs_tpu_torch as zt
 from zlib_rs_tpu_torch.config import Strategy
 from zlib_rs_tpu_torch.ops import dynhuff as td
+from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as tdk
 from zlib_rs_tpu_torch.parallel import pipeline as tp
 
 # the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
@@ -170,8 +173,22 @@ def test_unset_kernel_env_and_hop_il_run_the_same_engine(monkeypatch):
     monkeypatch.delenv("ZRS_TPU_KERNEL")
     assert zt.compress_parallel(MULTI, 6, device="cpu") == want
     monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
+    # ZRS_TPU_HOP_IL=2: the JAX package reads it inside its jitted scan, so
+    # its caches are cleared around the run, and the K12 traces are counted
     monkeypatch.setenv("ZRS_TPU_HOP_IL", "2")
-    assert zt.compress_parallel(MULTI, 6, device="cpu") == want
+    traced, ran = [], []
+    real_jax, real_port = jdk._make_kernel_hop_il, tdk.hop_chase_il
+    monkeypatch.setattr(jdk, "_make_kernel_hop_il", lambda *a: traced.append(a) or real_jax(*a))
+    monkeypatch.setattr(tdk, "hop_chase_il", lambda *a: ran.append(a[0].shape[0]) or real_port(*a))
+    jax.clear_caches()
+    try:
+        ref = jp.compress_parallel(MULTI, 6)
+    finally:
+        jax.clear_caches()
+    assert traced and {a[1] for a in traced} == {2}
+    got = zt.compress_parallel(MULTI, 6, device="cpu")
+    assert ran == [3]  # one odd batch of three chunks
+    assert got == ref == want
 
 
 def test_chain_env_and_wg_env_are_honoured(monkeypatch):

@@ -231,10 +231,7 @@ def _stored_chunk_input():
     return _BASH[:32_768] + noise + _BASH[40_000:50_000]
 
 
-@pytest.mark.parametrize(
-    "env,match",
-    [({"ZRS_TPU_KERNEL": "0"}, "K6"), ({"ZRS_VECTOR_TWOPLANE": "0"}, "K11")],
-)
+@pytest.mark.parametrize("env,match", [({"ZRS_TPU_KERNEL": "0"}, "K6")])
 def test_env_routes_not_ported_raise(monkeypatch, kernel_stream, env, match):
     for name, value in env.items():
         monkeypatch.setenv(name, value)
@@ -242,6 +239,55 @@ def test_env_routes_not_ported_raise(monkeypatch, kernel_stream, env, match):
     with pytest.raises(NotImplementedError, match=match):
         zt.decompress_parallel(comp, index, device="cpu")
     assert zt.fallback_stats() == {}
+
+
+# ---------------------------------------------------------------------------
+# the single-plane engine (ZRS_VECTOR_TWOPLANE=0: K11a, K11b)
+# ---------------------------------------------------------------------------
+
+
+_JAX_SINGLE = {}
+
+
+@pytest.mark.parametrize("wrap", ["zlib", "gzip"])
+def test_single_plane_engine_decodes(monkeypatch, stream, wrap):
+    monkeypatch.setenv("ZRS_VECTOR_TWOPLANE", "0")
+    dec = _spy(monkeypatch, VK, "decode_tokens_vector")
+    exp = _spy(monkeypatch, VK, "expand_tokens")
+    two = _spy(monkeypatch, VK, "decode_tokens_vector2")
+    k6 = _spy(monkeypatch, TS, "decode_chunks_kernel")
+    comp, index = stream[wrap]
+    assert zt.decompress_parallel(comp, index, device="cpu") == stream["data"]
+    assert zt.fallback_stats() == {}
+    assert dec == ["decode_tokens_vector"] and exp == ["expand_tokens"]
+    assert two == [] and k6 == []
+    args = (stream["bodies"], stream["sizes"], stream["seeds"])
+    got = TV.decode_chunks_vector(*args, device="cpu")
+    if stream["data"] not in _JAX_SINGLE:  # one JAX decode of the bodies per stream
+        _JAX_SINGLE[stream["data"]] = JV.decode_chunks_vector(*args)
+    assert got == _JAX_SINGLE[stream["data"]]
+    assert b"".join(got) == stream["data"]
+
+
+def test_single_plane_corrupt_body_lands_on_k6(monkeypatch, kernel_stream):
+    monkeypatch.setenv("ZRS_VECTOR_TWOPLANE", "0")
+    comp, index = kernel_stream["zlib"]
+    off, ln, _n = index[1]
+    broken = bytearray(comp)
+    broken[off + ln // 2] ^= 0xFF
+    k6 = _spy(monkeypatch, TS, "decode_chunks_kernel")
+    with pytest.raises(TV.VectorDataFault):
+        TV.decode_chunks_vector(
+            [bytes(broken[o : o + n]) for o, n, _ in index], kernel_stream["sizes"],
+            kernel_stream["seeds"], device="cpu",
+        )
+    with pytest.raises(ValueError):
+        zt.decompress_parallel(bytes(broken), index, device="cpu")
+    assert k6 == ["decode_chunks_kernel"]
+    stats = zt.fallback_stats()
+    assert stats.pop("vector_decode:ValueError") == 1
+    assert sum(stats.values()) == 1 and set(stats) <= {
+        "kernel_decode:ValueError", "device_checksum:ValueError"}
 
 
 # ---------------------------------------------------------------------------

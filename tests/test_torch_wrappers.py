@@ -1,0 +1,128 @@
+"""The host side of every kernel wrapper (`*_cuda`): its argument checks,
+its output allocation and the ctypes argument list it hands the kernel's C
+entry. The kernels run only on the card, so here each wrapper calls a stub
+library that checks the argument count against the `argtypes` the wrapper
+declared and returns 0; a wrapper whose Python is broken fails on the CPU
+and not first in `chip_smoke.py`. Each call must count one launch."""
+
+import numpy as np
+import pytest
+import torch
+
+import zlib_rs_tpu_torch as zt
+from zlib_rs_tpu_torch import _device
+from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
+from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+from zlib_rs_tpu_torch.parallel import pipeline as PL
+from zlib_rs_tpu_torch.parallel import vector_inflate as TV
+
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
+DATA = open("/bin/bash", "rb").read()[300_000:370_000]
+
+
+class _Entry:
+    def __init__(self, calls, name):
+        self.calls, self.name, self.argtypes, self.restype = calls, name, None, None
+
+    def __call__(self, *args):
+        assert self.argtypes is not None and len(args) == len(self.argtypes), self.name
+        self.calls.append(self.name)
+        return 0
+
+
+class _Library:
+    def __init__(self, calls):
+        self._calls = calls
+
+    def __getattr__(self, name):
+        entry = _Entry(self._calls, name)
+        setattr(self, name, entry)
+        return entry
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    calls, libs = [], {}
+    monkeypatch.setattr(_device, "library", lambda name: libs.setdefault(name, _Library(calls)))
+    monkeypatch.setattr(_device, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_device, "stream_of", lambda t: 0)
+    for mod in (CK, CRC, DK, IK, VK):
+        monkeypatch.setattr(mod, "launches", dict.fromkeys(mod.launches, 0))
+    return calls
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    """One small batch of every kernel's operands, from the port's own
+    CPU encode (2 chunks of 32 KiB and a tail)."""
+    cs = PL.DEFAULT_CHUNK
+    n = -(-len(DATA) // cs)
+    dsz = PL.priming_dict_size(n, cs, True)
+    padded, n_valid, valid_from, _ = PL.chunk_buffers(DATA, cs, dsz)
+    dc, dn, dv = (torch.from_numpy(a) for a in (padded, n_valid, valid_from))
+    w4 = DK.words_from_bytes(dc)
+    htab = torch.zeros((n, 4 * w4.shape[1]), dtype=torch.int32)
+    mpos = torch.zeros((n, DK.CAP_M + 8), dtype=torch.int32)
+    nm = torch.zeros(n, dtype=torch.int32)
+    lltab, dtab = DK.code_tables(torch.ones((n, 320), dtype=torch.int32))
+    out, index = zt.compress_parallel(DATA, 6, return_index=True, device="cpu")
+    bodies = [out[o : o + ln] for o, ln, _ in index]
+    staged, meta = TV.prepare_vector_inputs(bodies, [m for *_, m in index], index.seeds, "cpu")
+    words, bits = IK.pack_streams_words(bodies)
+    return dict(dc=dc, dn=dn, dv=dv, dsz=dsz, w4=w4, htab=htab, mpos=mpos, nm=nm,
+                lltab=lltab, dtab=dtab, staged=staged, meta=meta, iwords=words, ibits=bits,
+                sizes=[m for *_, m in index])
+
+
+def _calls(i):
+    st, meta = i["staged"], i["meta"]
+    S, K = meta["S"], meta["K"]
+    dec = [st[n] for n in ("words", "start_word", "align", "span", "tables")]
+    tape = torch.zeros((64, dec[1].shape[0]), dtype=torch.int32)
+    start = torch.full_like(i["dn"], i["dsz"])
+    pw, pmeta, oww = DK.pack_inputs(i["dc"], i["dn"], i["dsz"], i["nm"], 0)
+    lanes = len(i["sizes"])
+    return {
+        "adler32_batch": (CK, lambda: CK.adler32_batch_cuda(i["dc"], i["dn"])),
+        "crc32_batch": (CRC, lambda: CRC.crc32_batch_cuda(i["dc"], i["dn"])),
+        "hop_chase": (DK, lambda: DK.hop_chase_cuda(i["w4"], i["htab"], i["dn"], i["dsz"], 24)),
+        "hop_chase_il": (DK, lambda: DK.hop_chase_il_cuda(i["w4"], i["htab"], i["dn"], i["dsz"], 24)),
+        "chain_scan": (DK, lambda: DK.chain_scan_cuda(i["w4"], i["dn"], start, i["dv"], depth=8,
+                                                      nice=8, good=4, max_lazy=4)),
+        "tab_scan": (DK, lambda: DK.tab_scan_cuda(i["w4"], i["htab"], i["htab"], i["dn"], i["dsz"],
+                                                  nice=8, good=4, max_lazy=4)),
+        "freq": (DK, lambda: DK.freq_cuda(pw, i["mpos"], i["mpos"], pmeta)),
+        "pack": (DK, lambda: DK.pack_cuda(pw, i["mpos"], i["mpos"], pmeta, i["lltab"], i["dtab"],
+                                          oww, 0)),
+        "vhuff_decode": (VK, lambda: VK.decode_tokens_vector2_cuda(*dec, S=S, K=K, cap=64)),
+        "vhuff_expand": (VK, lambda: VK.expand_tokens2_cuda(tape, tape, st["offs"], out_words=16)),
+        "vhuff_decode1": (VK, lambda: VK.decode_tokens_vector_cuda(*dec, S=S, K=K, cap=64)),
+        "vhuff_expand1": (VK, lambda: VK.expand_tokens_cuda(tape, st["offs"], out_words=16)),
+        "inflate": (IK, lambda: IK.decode_streams_cuda(
+            torch.from_numpy(i["iwords"].view(np.int32)), torch.zeros(lanes, dtype=torch.int32),
+            torch.from_numpy(i["ibits"]), torch.tensor(i["sizes"], dtype=torch.int32),
+            max_out=max(i["sizes"]))),
+    }
+
+
+KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_scan", "tab_scan",
+           "freq", "pack", "vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1",
+           "inflate"]
+
+
+def test_every_kernel_has_a_case():
+    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK) for n in m.launches)
+    assert len(_device.SOURCES) == len(KERNELS)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_wrapper_host_side(stub, inputs, name):
+    mod, call = _calls(inputs)[name]
+    call()
+    assert len(stub) == 1 and stub[0].startswith("zrs_")
+    assert mod.launches[name] == 1 and sum(mod.launches.values()) == 1

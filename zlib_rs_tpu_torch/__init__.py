@@ -1,7 +1,8 @@
 """zlib_rs_tpu_torch: chunk-parallel DEFLATE encode and decode on a CUDA device.
 
 The PyTorch and CUDA port of zlib_rs_tpu's kernel encode engine, its
-two-plane vector decode engine and its sequential inflate kernel (the
+vector decode engine (two-plane, and single-plane under
+ZRS_VECTOR_TWOPLANE=0) and its sequential inflate kernel (the
 decode of indexes with stored chunks or without seeds, the region decode
 and the checkpointed stream decode). It imports neither JAX nor
 zlib_rs_tpu. Entry points run on `cuda` unless the caller passes

@@ -20,7 +20,8 @@
 // histogram, kept in shared memory. words and htab are read through L1.
 // C has no harmless out-of-range read: every read is bounded as the
 // reference bounds it (landing slot clamped to n_valid - 1; a jump that
-// runs off the end stops before any speculative read), and an unaligned
+// runs off the end stops before any speculative read), a match source
+// before the row clamps to byte 0 as the plain version's does, and an unaligned
 // word read branches before the `>> 32` that C leaves undefined.
 
 #include <cstdint>
@@ -61,17 +62,13 @@ __device__ __forceinline__ void count_span(const uint32_t* __restrict__ w,
   }
 }
 
-// word-wise extension of a cap-hitting table length, then the sub-word tail
+// word-wise extension of a cap-hitting table length (the sub-word tail
+// follows at the call); a source before the row clamps to byte 0
 __device__ int extend(const uint32_t* __restrict__ w, int i, int blen,
                       int dist, int cap) {
   int k = blen;
-  while (k < cap) {
-    if (get32(w, i + k) != get32(w, i - dist + k)) break;
-    k += 4;
-  }
-  k = min(k, cap);
-  const uint32_t x = get32(w, i + k) ^ get32(w, i - dist + k);
-  return min(k + (x == 0 ? 0 : tail_bytes(x)), cap);
+  while (k < cap && get32(w, i + k) == get32(w, max(i - dist + k, 0))) k += 4;
+  return min(k, cap);
 }
 
 __global__ void hop_chase(const uint32_t* __restrict__ words, int W,

@@ -15,8 +15,9 @@ Known names and their dtypes in numpy:
   n_valid / ins_from / start i32 [B], chunks u8 [B, L];
   decode: words i32 [B, Lw] (body words), start_word / align / span
   i32 [W], tables i32 [B, 576], offs i32 [B, S + 1], tapeA / tapeB u32
-  [cap, W] (the JAX package's are [G, cap, 8, 128]), cons / bad / rem
-  i32 [W], outw u32 [B, out_words].
+  [cap, W] (two-plane) or tape u32 [cap, W] (single-plane; the JAX
+  package's are [G, cap, 8, 128]), cons / bad / rem i32 [W], outw u32
+  [B, out_words].
 
 The checkpointed decode's state is plain host data already, under the
 JAX package's field names (`bit`, `window`, `produced`, `adler`,
@@ -31,7 +32,7 @@ import torch
 
 from . import _device
 
-UNSIGNED = frozenset({"words4", "mld", "lltab", "dtab", "tapeA", "tapeB", "outw"})
+UNSIGNED = frozenset({"words4", "mld", "lltab", "dtab", "tapeA", "tapeB", "tape", "outw"})
 
 
 def state_from_numpy(arrays: dict, device=None) -> dict:

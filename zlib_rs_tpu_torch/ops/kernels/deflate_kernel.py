@@ -1,10 +1,12 @@
-"""The matchers (K2 hop chase, K8 chain scan, K10 table walk), the symbol
-histogram (K9) and the bit pack (K3) of the kernel encode engine, with
-their plain PyTorch versions and the torch stages around them.
+"""The matchers (K2 hop chase, K12 interleaved hop chase, K8 chain scan,
+K10 table walk), the symbol histogram (K9) and the bit pack (K3) of the
+kernel encode engine, with their plain PyTorch versions and the torch
+stages around them.
 
 The port of zlib_rs_tpu/ops/pallas/deflate_kernel.py's three routes:
 
-  scan_chunks_hop    lzvec hop tables (torch) -> K2 chase -> _hop_post
+  scan_chunks_hop    lzvec hop tables (torch) -> K2 chase (K12 under
+                     ZRS_TPU_HOP_IL=2) -> _hop_post
   scan_chunks_tab    lzvec match tables (torch) -> K10 table walk
   scan_chunks        K8 hash-chain scan (levels 8-9, ZRS_TPU_TABSCAN=0)
   freq_pack_chunks   [K9 histogram, when the scan gave none] -> EOB bump +
@@ -15,7 +17,8 @@ The encode pipeline runs exactly these compositions, each stage bracketed
 by `utils.stages.STAGES`.
 
 K2 (csrc/hop_chase.cu) replaces `scan_chunks_hop_pallas` (body
-`_make_kernel_hop`); K8 (csrc/chain_scan.cu) `scan_chunks_pallas` (body
+`_make_kernel_hop`); K12 (csrc/hop_chase_il.cu) its K=2 branch (body
+`_make_kernel_hop_il`); K8 (csrc/chain_scan.cu) `scan_chunks_pallas` (body
 `_kernel`); K10 (csrc/tab_scan.cu) `scan_chunks_tab_pallas` (body
 `_make_kernel_tab`); K9 (csrc/freq.cu) the freq branch of
 `freq_pack_chunks_pallas` (body `_freq_kernel`); K3 (csrc/pack.cu)
@@ -24,15 +27,16 @@ are serial per chunk and latency-bound on the H100 (one thread per chunk,
 one block per chunk); their byte floors are the operands read once and the
 outputs written once. The sources carry the design notes.
 
-Each wrapper (`hop_chase`, `chain_scan`, `tab_scan`, `freq`, `pack`) runs
-the plain version for a CPU tensor and launches the kernel for a CUDA
-tensor; nothing falls back. 32-bit words cross the kernel boundary as
+Each wrapper (`hop_chase`, `hop_chase_il`, `chain_scan`, `tab_scan`,
+`freq`, `pack`) runs the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor; nothing falls back. 32-bit words cross the kernel boundary as
 int32 bit-views.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -66,7 +70,8 @@ ZLIB_CONFIG = {
 }
 
 # launches of the CUDA kernels; the plain versions do not count
-launches = {"hop_chase": 0, "chain_scan": 0, "tab_scan": 0, "freq": 0, "pack": 0}
+launches = {"hop_chase": 0, "hop_chase_il": 0, "chain_scan": 0, "tab_scan": 0, "freq": 0,
+            "pack": 0}
 
 
 def words_from_bytes(chunks_u8: torch.Tensor) -> torch.Tensor:
@@ -116,14 +121,77 @@ def _dist_sym(dist: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def hop_chase_plain(words, htab, n_valid, start: int, cap_g: int):
-    """The chase, one chunk at a time, as the scalar loop it is: each
-    step's position depends on the previous match. Same outputs as the
-    kernel: mpos/mld int32 [B, CAP_M + 8] (slots past nmatch are 0), st
-    int32 [B, 8] (nmatch, bad), freq int32 [B, 4 * 320] (four banks)."""
+def _get32(w: list, p: int) -> int:
+    """The LE32 word at byte p of a row of words (Python ints)."""
+    wi = p >> 2
+    sh = (p & 3) << 3
+    if sh == 0:
+        return w[wi]
+    return ((w[wi] >> sh) | (w[wi + 1] << (32 - sh))) & 0xFFFFFFFF
+
+
+def _tail(x: int) -> int:
+    """Equal low bytes of a nonzero xor (0-3)."""
+    t0 = (x & 0xFF) == 0
+    t1 = t0 and (x & 0xFFFF) == 0
+    t2 = t1 and (x & 0xFFFFFF) == 0
+    return int(t0) + int(t1) + int(t2)
+
+
+def _count_span(w: list, hist: list, frm: int, to: int) -> None:
+    """The literals [frm, to), word-wise into four banks: bank k takes byte
+    k of each 4-byte read; a byte past `to` lands in bin 319 of its bank."""
+    for p in range(frm, to, 4):
+        x = _get32(w, p)
+        rem = to - p
+        hist[x & 0xFF] += 1
+        hist[N_BINS + ((x >> 8) & 0xFF if rem >= 2 else 319)] += 1
+        hist[2 * N_BINS + ((x >> 16) & 0xFF if rem >= 3 else 319)] += 1
+        hist[3 * N_BINS + (x >> 24 if rem >= 4 else 319)] += 1
+
+
+def _chase_row(w, ht, n_valid, start, cap_g, mpos_r, mld_r, hist=None):
+    """K2's parse of one chunk: fills mpos_r/mld_r and returns (nmatch,
+    bad); with `hist`, counts the literal spans as it goes, as K2 does."""
+    i0, mc, bad = start, 0, False
+    while i0 < n_valid and not bad:
+        e = ht[i0]
+        i = i0
+        if (e >> 30) <= 0:
+            i = min(i0 + e, n_valid)
+            e = ht[min(i, n_valid - 1)]
+        if i >= n_valid:
+            if hist is not None:
+                _count_span(w, hist, i0, n_valid)
+            break
+        h = (e >> 23) & 0x7F
+        mlen = (e >> 16) & 0x7F
+        dist = e & 0xFFFF
+        ip = i + h
+        if hist is not None:
+            _count_span(w, hist, i0, ip)
+        cap = min(n_valid - ip, MAX_MATCH)
+        if mlen == cap_g:
+            k = mlen
+            while k < cap and _get32(w, ip + k) == _get32(w, max(ip - dist + k, 0)):
+                k += 4
+            mlen = min(k, cap)
+        xt = _get32(w, ip + mlen) ^ _get32(w, max(ip - dist + mlen, 0))
+        mlen = min(mlen + _tail(xt), cap)
+        slot = mc if mc < CAP_M else CAP_M
+        mpos_r[slot] = ip
+        mld_r[slot] = ((mlen - MIN_MATCH) << 15) | (dist - 1)
+        bad = mc >= CAP_M
+        mc += 1
+        i0 = ip + mlen
+    return mc, bad
+
+
+def _chase_plain(words, htab, n_valid, row_fn):
+    """Run `row_fn(w, ht, n_valid, mpos_r, mld_r, hist) -> (nmatch, bad)`
+    over the rows; returns the four int32 arrays of K2 and K12."""
     B, W = words.shape
     C = CAP_M + 8
-    dev = words.device
     w_np = words.cpu().numpy().view(np.uint32)
     h_np = htab.cpu().numpy()
     nv_np = n_valid.cpu().numpy()
@@ -132,76 +200,33 @@ def hop_chase_plain(words, htab, n_valid, start: int, cap_g: int):
     st = np.zeros((B, 8), np.int64)
     freq = np.zeros((B, 4 * N_BINS), np.int64)
     for r in range(B):
-        w = w_np[r].tolist()
-        ht = h_np[r].tolist()
-        n_valid_r = int(nv_np[r])
         hist = [0] * (4 * N_BINS)
-
-        def get32(p):
-            wi = p >> 2
-            sh = (p & 3) << 3
-            if sh == 0:
-                return w[wi]
-            return ((w[wi] >> sh) | (w[wi + 1] << (32 - sh))) & 0xFFFFFFFF
-
-        def tail(x):
-            t0 = (x & 0xFF) == 0
-            t1 = t0 and (x & 0xFFFF) == 0
-            t2 = t1 and (x & 0xFFFFFF) == 0
-            return int(t0) + int(t1) + int(t2)
-
-        def count_span(frm, to):
-            for p in range(frm, to, 4):
-                x = get32(p)
-                rem = to - p
-                hist[x & 0xFF] += 1
-                hist[N_BINS + ((x >> 8) & 0xFF if rem >= 2 else 319)] += 1
-                hist[2 * N_BINS + ((x >> 16) & 0xFF if rem >= 3 else 319)] += 1
-                hist[3 * N_BINS + (x >> 24 if rem >= 4 else 319)] += 1
-
-        i0, mc, bad = start, 0, False
-        while i0 < n_valid_r and not bad:
-            e = ht[i0]
-            i = i0
-            if (e >> 30) <= 0:
-                i = min(i0 + e, n_valid_r)
-                e = ht[min(i, n_valid_r - 1)]
-            if i >= n_valid_r:
-                count_span(i0, n_valid_r)
-                break
-            h = (e >> 23) & 0x7F
-            mlen = (e >> 16) & 0x7F
-            dist = e & 0xFFFF
-            ip = i + h
-            count_span(i0, ip)
-            cap = min(n_valid_r - ip, MAX_MATCH)
-            if mlen == cap_g:
-                k = mlen
-                while k < cap and get32(ip + k) == get32(ip - dist + k):
-                    k += 4
-                k = min(k, cap)
-                x = get32(ip + k) ^ get32(ip - dist + k)
-                mlen = min(k + (0 if x == 0 else tail(x)), cap)
-            xt = get32(ip + mlen) ^ get32(max(ip - dist + mlen, 0))
-            mlen = min(mlen + tail(xt), cap)
-            slot = mc if mc < CAP_M else CAP_M
-            mpos[r, slot] = ip
-            mld[r, slot] = ((mlen - MIN_MATCH) << 15) | (dist - 1)
-            bad = mc >= CAP_M
-            mc += 1
-            i0 = ip + mlen
-        if bad:
-            hist[:N_BINS] = [0] * N_BINS
-            count_span(start, n_valid_r)
-        st[r, 0] = mc
-        st[r, 1] = int(bad)
+        st[r, :2] = row_fn(w_np[r].tolist(), h_np[r].tolist(), int(nv_np[r]), mpos[r], mld[r], hist)
         freq[r] = hist
-    as_t = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(dev)
+    as_t = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(words.device)
     return as_t(mpos), as_t(mld), as_t(st), as_t(freq)
 
 
-def _hop_lib():
-    fn = _device.library("hop_chase").zrs_hop_chase
+def hop_chase_plain(words, htab, n_valid, start: int, cap_g: int):
+    """The chase, one chunk at a time, as the scalar loop it is: each
+    step's position depends on the previous match. Same outputs as the
+    kernel: mpos/mld int32 [B, CAP_M + 8] (slots past nmatch are 0), st
+    int32 [B, 8] (nmatch, bad), freq int32 [B, 4 * 320] (four banks)."""
+
+    def row(w, ht, nv, mpos_r, mld_r, hist):
+        mc, bad = _chase_row(w, ht, nv, start, cap_g, mpos_r, mld_r, hist)
+        if bad:  # an all-literal recount; bank 0 only is cleared, as in K2
+            hist[:N_BINS] = [0] * N_BINS
+            _count_span(w, hist, start, nv)
+        return mc, int(bad)
+
+    return _chase_plain(words, htab, n_valid, row)
+
+
+def _hop_entry(kernel: str):
+    """The C entry `zrs_<kernel>` of K2 or K12, typed: both take the same
+    arguments."""
+    fn = getattr(_device.library(kernel), f"zrs_{kernel}")
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, I, P, L, P, I, I, P, P, I, P, P, I, P]
@@ -209,33 +234,38 @@ def _hop_lib():
     return fn
 
 
-def hop_chase_cuda(words, htab, n_valid, start: int, cap_g: int):
-    """Launch K2 over CUDA operands: words int32 [B, W], htab int32
-    [B, 4W] (row-contiguous), n_valid int [B]."""
-    _device.require_cuda("hop_chase", words, htab, n_valid)
+def _launch_hop(kernel, words, htab, n_valid, start, cap_g):
+    """K2's or K12's launch (`kernel` names it) over CUDA operands: words
+    int32 [B, W], htab int32 [B, 4W] (row-contiguous), n_valid int [B]."""
+    _device.require_cuda(kernel, words, htab, n_valid)
     B, W = words.shape
     if words.dtype != torch.int32 or htab.dtype != torch.int32:
-        raise ValueError("hop_chase: words and htab must be int32")
+        raise ValueError(f"{kernel}: words and htab must be int32")
     if htab.shape[0] != B or htab.shape[1] < 4 * (W - 2) or htab.stride(1) != 1:
-        raise ValueError("hop_chase: htab must be [B, >= 4(W-2)] with contiguous rows")
+        raise ValueError(f"{kernel}: htab must be [B, >= 4(W-2)] with contiguous rows")
     words = words.contiguous()
     n_valid = n_valid.to(torch.int32).contiguous()
     if B and int(n_valid.max()) > 4 * (W - 2):
-        raise ValueError("hop_chase: n_valid exceeds the word buffer")
+        raise ValueError(f"{kernel}: n_valid exceeds the word buffer")
     C = CAP_M + 8
     mpos = torch.empty((B, C), dtype=torch.int32, device=words.device)
     mld = torch.empty((B, C), dtype=torch.int32, device=words.device)
     st = torch.empty((B, 8), dtype=torch.int32, device=words.device)
     freq = torch.empty((B, 4 * N_BINS), dtype=torch.int32, device=words.device)
-    rc = _hop_lib()(
+    rc = _hop_entry(kernel)(
         _device.ptr(words), W, _device.ptr(htab), htab.stride(0),
         _device.ptr(n_valid), int(start), int(cap_g), _device.ptr(mpos),
         _device.ptr(mld), C, _device.ptr(st), _device.ptr(freq), B,
         _device.stream_of(words),
     )
-    _device.check(rc, "hop_chase")
-    launches["hop_chase"] += 1
+    _device.check(rc, kernel)
+    launches[kernel] += 1
     return mpos, mld, st, freq
+
+
+def hop_chase_cuda(words, htab, n_valid, start: int, cap_g: int):
+    """Launch K2 over CUDA operands (see `_launch_hop`)."""
+    return _launch_hop("hop_chase", words, htab, n_valid, start, cap_g)
 
 
 def hop_chase(words, htab, n_valid, start: int, cap_g: int):
@@ -243,6 +273,60 @@ def hop_chase(words, htab, n_valid, start: int, cap_g: int):
     if words.device.type == "cpu":
         return hop_chase_plain(words, htab, n_valid, start, cap_g)
     return hop_chase_cuda(words, htab, n_valid, start, cap_g)
+
+
+# ---------------------------------------------------------------------------
+# K12: the interleaved hop chase
+# ---------------------------------------------------------------------------
+
+
+def hop_chase_il_plain(words, htab, n_valid, start: int, cap_g: int):
+    """K12's two phases, one chunk at a time (the kernel's lockstep over
+    pairs of chunks changes no chunk's result): K2's chase without the
+    histogram, then the literal spans replayed from the match stream into
+    the four banks. A bad (overflowing) chunk's whole span is counted once
+    as literals; K2 clears bank 0 only before its recount. Same outputs as
+    the kernel: mpos/mld int32 [B, CAP_M + 8] (slots past nmatch are 0), st
+    int32 [B, 8] (nmatch, bad), freq int32 [B, 4 * 320]."""
+
+    def row(w, ht, nv, mpos_r, mld_r, hist):
+        mc, bad = _chase_row(w, ht, nv, start, cap_g, mpos_r, mld_r)
+        p = start
+        for j in range(0 if bad else mc):
+            _count_span(w, hist, p, int(mpos_r[j]))
+            p = int(mpos_r[j]) + (int(mld_r[j]) >> 15) + MIN_MATCH
+        _count_span(w, hist, p, nv)
+        return mc, int(bad)
+
+    return _chase_plain(words, htab, n_valid, row)
+
+
+def overflow_lanes():
+    """A crafted K2/K12 input on which the two differ: two lanes of random
+    bytes whose htab holds a literal with delta 5 at every p % 8 == 0 and a
+    3-byte distance-1 match everywhere else. Lane 0 (8 * CAP_M + 800 bytes)
+    emits more than CAP_M matches and goes bad, lane 1 (4,000 bytes) does
+    not. Returns (words, htab, n_valid), int32 CPU tensors; start is 0."""
+    n = 8 * CAP_M + 800
+    buf = np.zeros((2, n + PAD), np.uint8)
+    buf[:, :n] = np.random.default_rng(3).integers(0, 256, size=n)
+    words = words_from_bytes(torch.from_numpy(buf))
+    htab = torch.full((2, 4 * words.shape[1]), (1 << 30) | (3 << 16) | 1, dtype=torch.int32)
+    htab[:, 0::8] = 5
+    return words, htab, torch.tensor([n, 4000], dtype=torch.int32)
+
+
+def hop_chase_il_cuda(words, htab, n_valid, start: int, cap_g: int):
+    """Launch K12 over CUDA operands, as K2 (see `_launch_hop`); any B (an
+    odd batch's last pair has one inert lane)."""
+    return _launch_hop("hop_chase_il", words, htab, n_valid, start, cap_g)
+
+
+def hop_chase_il(words, htab, n_valid, start: int, cap_g: int):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    if words.device.type == "cpu":
+        return hop_chase_il_plain(words, htab, n_valid, start, cap_g)
+    return hop_chase_il_cuda(words, htab, n_valid, start, cap_g)
 
 
 def _hop_post(mpos, mld, st, freq):
@@ -273,16 +357,22 @@ def scan_chunks_hop(
     good: int = 8, max_lazy: int = 16, w_g: int = 8, bytes_arr=None,
     precise: bool = False,
 ):
-    """Hop tables -> K2 chase -> symbol histogram. Returns (mpos, mld,
-    nmatch, kbad, freq [B, 320]); needs max_lazy - MIN_MATCH < 128."""
+    """Hop tables -> K2 chase (K12 under ZRS_TPU_HOP_IL=2) -> symbol
+    histogram. Returns (mpos, mld, nmatch, kbad, freq [B, 320]); needs
+    max_lazy - MIN_MATCH < 128."""
     dev = words4.device
     with STAGES.stage("hop_tables", dev):
         htab = lzvec.build_hop_tables(
             words4, n_valid, ins_from, depth=depth, nice=nice, good=good,
             max_lazy=max_lazy, w_g=w_g, bytes_arr=bytes_arr, precise=precise,
         )
-    with STAGES.stage("hop_chase", dev):
-        mpos, mld, st, freq = hop_chase(words4, htab, n_valid, start, 4 * w_g)
+    # read on every call: ZRS_TPU_HOP_IL=2 runs K12 in place of K2, on any batch
+    if os.environ.get("ZRS_TPU_HOP_IL") == "2":
+        with STAGES.stage("hop_chase_il", dev):
+            mpos, mld, st, freq = hop_chase_il(words4, htab, n_valid, start, 4 * w_g)
+    else:
+        with STAGES.stage("hop_chase", dev):
+            mpos, mld, st, freq = hop_chase(words4, htab, n_valid, start, 4 * w_g)
     with STAGES.stage("post_trees", dev):
         return _hop_post(mpos, mld, st, freq)
 

@@ -13,7 +13,8 @@ byte-aligned chunk blocks into ONE valid zlib/gzip/raw stream:
 
 Device stages per batch of chunks (the kernel engine): a matcher, chosen
 as the reference chooses it (`_resolve_kernel_variant`) -- `scan_chunks_hop`
-(hop tables in torch, the K2 chase, the symbol histogram; levels 3-7),
+(hop tables in torch, the K2 chase (K12 under ZRS_TPU_HOP_IL=2), the
+symbol histogram; levels 3-7),
 `scan_chunks_tab` (match tables in torch, the K10 table walk;
 ZRS_TPU_HOPSCAN=0, a wide ZRS_TPU_WG, level 9 with a short ZRS_TPU_CHAIN)
 or `scan_chunks` (the K8 hash-chain scan; levels 8-9, ZRS_TPU_TABSCAN=0)
@@ -25,7 +26,8 @@ Every produced stream decodes with any zlib inflater.
 
 The decode half, `decompress_parallel`, decodes indexed streams chunk-
 parallel on the device with the vector engine (parallel/vector_inflate.py:
-K4 decode, K5 expansion) or the inflate kernel K6 (one sequential inflate
+K4 decode and K5 expansion, or K11a and K11b under ZRS_VECTOR_TWOPLANE=0)
+or the inflate kernel K6 (one sequential inflate
 per chunk, parallel/swarm_inflate.decode_chunks_kernel), behind the
 container checksum gate and a host exact step.
 """
@@ -342,7 +344,8 @@ def compress_parallel(
     (K8) at levels 8-9, the tab route (K10) where the hop fields do not
     fit. An unset ZRS_TPU_KERNEL means this engine; ZRS_TPU_CHAIN,
     ZRS_TPU_WG, ZRS_TPU_HOPSCAN, ZRS_TPU_TABSCAN and ZRS_TPU_HOP_IL keep
-    their meanings (ZRS_TPU_HOP_IL=2 gives the same outputs through K2).
+    their meanings (ZRS_TPU_HOP_IL=2 runs the hop route's chase as K12, the
+    interleaved chase, in place of K2; the stream is the same).
     Routes not ported yet raise NotImplementedError naming what is
     missing: levels below 3 (the static engine), ZRS_TPU_KERNEL other than
     1 (the XLA matcher), a chunk buffer over the kernel's 65024 bytes,
@@ -540,7 +543,8 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
     engine="device" (the default) runs on `device`: the GPU when None,
     raising RuntimeError when there is none; "cpu" runs the kernels' plain
     versions. The engines run in the reference's order:
-      * the vector engine (K4, K5), when every chunk has seeds and
+      * the vector engine (K4, K5; the single-plane K11a, K11b under
+        ZRS_VECTOR_TWOPLANE=0), when every chunk has seeds and
         ZRS_TPU_VECTOR is not "0";
       * the inflate kernel K6 (`swarm_inflate.decode_chunks_kernel`), when
         there is no result yet: an index with a stored chunk (no seeds),
@@ -558,7 +562,7 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
 
     Routes not ported raise NotImplementedError: ZRS_TPU_KERNEL=0 on the
     device engine (it skips K6 for the seeded swarm engine),
-    ZRS_VECTOR_TWOPLANE=0 (K11), engine="native".
+    engine="native".
     """
     if engine == "native":
         raise NotImplementedError(

@@ -1,7 +1,8 @@
 """The vector decode engine: seeded chunks decoded walker-parallel on the
-device, through K4 (decode to tape rows) and K5 (expansion to bytes).
+device, through K4 (decode to paired tape rows) and K5 (expansion to
+bytes), or, under ZRS_VECTOR_TWOPLANE=0, the single-plane K11a and K11b.
 
-The port of zlib_rs_tpu/parallel/vector_inflate.py's two-plane engine.
+The port of zlib_rs_tpu/parallel/vector_inflate.py.
 Inputs are chunk bodies, the encoder-recorded seeds of an indexed stream
 (128 (bit offset, output offset) pairs per chunk, `compress_parallel(...,
 return_index=True)`) and a host parse of each chunk's block header.
@@ -13,8 +14,6 @@ which the caller takes as a data fault (pipeline.decompress_parallel falls
 back to its host step). The kernel wrappers' own argument checks raise a
 plain ValueError, which is not a data fault. The container checksum stays
 the last oracle.
-
-The single-plane engine (ZRS_VECTOR_TWOPLANE=0, K11) is not ported yet.
 """
 
 from __future__ import annotations
@@ -123,20 +122,25 @@ def _twoplane_cap(meta) -> int:
 
 
 def _run(dev, meta, *, max_out: int):
-    """K4 then K5 on the staged inputs: (out words [B, out_words], cons,
-    bad, rem [W]), all on the inputs' device."""
-    if not _twoplane_default():
-        raise NotImplementedError(
-            "ZRS_VECTOR_TWOPLANE=0 selects the single-plane vector engine "
-            "(kernel K11), which is not ported yet"
-        )
+    """K4 then K5 (K11a then K11b under ZRS_VECTOR_TWOPLANE=0) on the
+    staged inputs: (out words [B, out_words], cons, bad, rem [W]), all on
+    the inputs' device. The single-plane tape is row-major [cap, W], so it
+    needs none of the reference's relayout to walker-major order."""
     device = dev["words"].device
     out_words = -(-max_out // 4) + 2
+    args = (dev["words"], dev["start_word"], dev["align"], dev["span"], dev["tables"])
+    if not _twoplane_default():
+        with STAGES.stage("vhuff_decode1", device):
+            tape, cons, bad, rem = VK.decode_tokens_vector(
+                *args, S=meta["S"], K=meta["K"], cap=meta["cap"]
+            )
+        with STAGES.stage("vhuff_expand1", device):
+            outw = VK.expand_tokens(tape, dev["offs"], out_words=out_words)
+        return outw, cons, bad, rem
     cap2 = _twoplane_cap(meta)
     with STAGES.stage("vhuff_decode", device):
         tapeA, tapeB, cons, bad, rem = VK.decode_tokens_vector2(
-            dev["words"], dev["start_word"], dev["align"], dev["span"],
-            dev["tables"], S=meta["S"], K=meta["K"], cap=cap2,
+            *args, S=meta["S"], K=meta["K"], cap=cap2
         )
     with STAGES.stage("vhuff_expand", device):
         outw = VK.expand_tokens2(tapeA, tapeB, dev["offs"], out_words=out_words)
