@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from zlib_rs_tpu_torch/csrc with nvcc,
+Sets ZRS_TPU_KERNEL=1 first: the port's encode runs the kernel engine
+only under it (unset selects the XLA matcher engine, which the port does
+not carry yet, and raises). Builds the port's CUDA kernels from
+zlib_rs_tpu_torch/csrc with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it, then drives the main path: level-6
 `compress_parallel` of an 8 MiB corpus (a tar of system binaries, the
@@ -18,8 +21,10 @@ lanes, and in one launch over all chunks; the K6 route of
 `decompress_parallel` (ZRS_TPU_VECTOR=0) on both streams, an index with
 stored chunks, a flipped byte, `device_decode_streaming` of a stdlib raw
 stream of the corpus and `decompress_chunks` of its window-primed regions
-(phases 11-16). Then K8 (the hash-chain scan, level 9) and K9 (the symbol
-histogram) against their plain versions on the first super-batch, K10 (the
+(phases 11-16). Then K8 (the hash-chain scan) against its plain version on
+the first super-batch at level 9 (chunk 0 and the chunk that visits the
+most candidates first) and at level 8 (that chunk), K9 (the symbol
+histogram) against its plain version on the same batch, K10 (the
 table walk) on the same batch under level 6 with ZRS_TPU_HOPSCAN=0, every
 match stream checked on the card to tile its span with byte-valid
 matches, and `compress_parallel` through the chain route (levels 9 and 8)
@@ -32,6 +37,9 @@ super-batch, and the level-6 encode under ZRS_TPU_HOP_IL=2, whose stream
 must equal phase 4's (phases 24-25). Any mismatch raises; no phase's
 failure is caught.
 
+Each encode prints its stream's length and sha256, so that two checkouts
+run in one call can be shown to give the same bytes.
+
 Lines before the last: the build time, per-phase results, one JSON object
 {"kernels": [...]} with each kernel's launches on the main path, error
 against its plain version, times and bound, the end-to-end numbers, and
@@ -42,8 +50,10 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tarfile
@@ -57,7 +67,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ALU_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 COMPARE_ROWS = 8  # chunks held against the plain chase, pack, decode and expansion
 UNDERSIZED_CAP = 16  # tape rows: walkers of this corpus need ~33 on average
-PLAIN_K8_BUDGET_S = 60.0  # seconds of the plain K8 loop in phase 17 (at least two chunks)
+PLAIN_K8_BUDGET_S = 60.0  # seconds of the plain K8 loop over the rest of phase 17's batch
 
 
 def load_corpus(size: int = CORPUS_BYTES) -> tuple[bytes, list[str]]:
@@ -122,6 +132,11 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def digest(stream: bytes) -> str:
+    """A stream's length and sha256, as the encode phases print them."""
+    return f"{len(stream)} bytes, sha256 {hashlib.sha256(stream).hexdigest()}"
 
 
 def max_abs(pairs) -> int:
@@ -414,7 +429,7 @@ def gzip_encode_phase(torch, corpus, launches) -> dict:
         raise AssertionError(f"the gzip encode launched K7 {launches['crc32_batch']} times")
     if zlib.decompress(gz, 31) != corpus or gz[-8:-4] != zlib.crc32(corpus).to_bytes(4, "little"):
         raise AssertionError("the gzip stream or its trailer is wrong")
-    print(f"phase 10 gzip encode: {len(gz)} bytes, cold {cold_s:.3f} s, K7 launches 1",
+    print(f"phase 10 gzip encode: {digest(gz)}, cold {cold_s:.3f} s, K7 launches 1",
           flush=True)
     return {"bytes_out": len(gz), "cold_s": cold_s, **warm_runs(
         torch, PL, lambda: zt.compress_parallel(corpus, LEVEL, window_bits=31), gz, len(corpus),
@@ -425,8 +440,6 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
     """Phases 11-16: K6 against its plain version, the K6 route of the
     decode end to end, a stored-chunk index, the fail-safe, the
     checkpointed stream decode and the region decode."""
-    import os
-
     import numpy as np
 
     import zlib_rs_tpu_torch as zt
@@ -641,14 +654,22 @@ def check_stream(torch, words4, mpos, mld, nmatch, n_valid, start: int, valid_fr
     return int(nm.sum())
 
 
+def k8_pairs(DK, inputs, got, r: int, knobs: dict) -> list:
+    """(kernel, plain) pairs of chunk r of a K8 launch `got` = (mpos, mld,
+    st) over `inputs` = (words4, n_valid, start, ins_from): nmatch, bad,
+    candidates visited, then mpos and mld up to nmatch."""
+    pm, pd, ps = DK.chain_scan_plain(*(x[r : r + 1] for x in inputs), **knobs)
+    m = int(ps[0, 0])
+    mpos, mld, st = got
+    return [(st[r, :3], ps[0, :3]), (mpos[r, :m], pm[0, :m]), (mld[r, :m], pd[0, :m])]
+
+
 def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
-    """Phases 17-20: K8 at level 9 and K9 against their plain versions on
-    the first super-batch, K10 on the same batch under level 6 with
+    """Phases 17-20: K8 at levels 9 and 8 and K9 against their plain
+    versions on the first super-batch, K10 on the same batch under level 6 with
     ZRS_TPU_HOPSCAN=0, then the chain route (levels 9 and 8) and the tab
     route of compress_parallel end to end. Fills `rows` and `launches` for
     K8-K10; returns the routes' end-to-end numbers."""
-    import os
-
     import zlib_rs_tpu_torch as zt
     from zlib_rs_tpu_torch.ops import lzvec
     from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
@@ -662,43 +683,60 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
     out_span = (dn - dict_size).long()  # the bytes it parses
     starts = torch.full((B,), dict_size, dtype=torch.int32, device=dev)
 
-    # -- phase 17: K8 against its plain version (level 9) ------------------
+    # -- phase 17: K8 against its plain version (levels 9 and 8) -----------
+    # at level 9 chunk 0 and the chunk that visits the most candidates come
+    # first, then the rest of the batch while the budget lasts; at level 8
+    # that chunk (and level 8's own, if another)
     good, mlazy, nice, chain = PL._level_knobs(9)["kernel_cfg"]
     k8 = dict(depth=chain, nice=nice, good=good, max_lazy=mlazy)
     mpos, mld, st = DK.chain_scan_cuda(words4, dn, starts, dv, **k8)
     torch.cuda.synchronize()
+    worst = int(st[:, 2].argmax())
+    order = [0] + [worst] * (worst != 0) + [r for r in range(1, B) if r != worst]
     pairs, k = [], 0
     t0 = time.perf_counter()
     while k < B and (k < 2 or time.perf_counter() - t0 < PLAIN_K8_BUDGET_S):
-        pm, pd, ps = DK.chain_scan_plain(words4[k : k + 1], dn[k : k + 1], starts[k : k + 1],
-                                         dv[k : k + 1], **k8)
-        m = int(ps[0, 0])
-        pairs += [(st[k, :3], ps[0, :3]), (mpos[k, :m], pm[0, :m]), (mld[k, :m], pd[0, :m])]
+        pairs += k8_pairs(DK, (words4, dn, starts, dv), (mpos, mld, st), order[k], k8)
         k += 1
     plain_s = time.perf_counter() - t0
+    g8, m8, n8, c8 = PL._level_knobs(8)["kernel_cfg"]
+    k8_l8 = dict(depth=c8, nice=n8, good=g8, max_lazy=m8)
+    got8 = DK.chain_scan_cuda(words4, dn, starts, dv, **k8_l8)
+    torch.cuda.synchronize()
+    worst8 = sorted({worst, int(got8[2][:, 2].argmax())})
+    t0 = time.perf_counter()
+    for r in worst8:
+        pairs += k8_pairs(DK, (words4, dn, starts, dv), got8, r, k8_l8)
+    plain8_s = time.perf_counter() - t0
     err = max_abs(pairs)
     if err:
         raise AssertionError(f"K8 disagrees with its plain version: max abs err {err}")
     nmatch, bad = st[:, 0], st[:, 1] > 0
-    if bool(bad.any()):
+    if bool(bad.any()) or bool((got8[2][:, 1] > 0).any()):
         raise AssertionError("K8 flags a chunk of the corpus bad")
     n_checked = check_stream(torch, words4, mpos, mld, nmatch, dn, dict_size, dv)
+    n_checked += check_stream(torch, words4, got8[0], got8[1], got8[2][:, 0], dn, dict_size, dv)
     visits = st[:, 2].long()
     nml = nmatch.long()
+    ms8 = event_ms(torch, lambda: DK.chain_scan_cuda(words4, dn, starts, dv, **k8_l8), 5)
     rows["chain_scan"] = dict(
         source="zlib_rs_tpu_torch/csrc/chain_scan.cu",
         replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:1098",
         max_abs_err=err,
-        ms=event_ms(torch, lambda: DK.chain_scan_cuda(words4, dn, starts, dv, **k8), 3),
+        ms=event_ms(torch, lambda: DK.chain_scan_cuda(words4, dn, starts, dv, **k8), 5),
         plain_ms=plain_s * 1e3, plain_rows=k,
         # the chunk read once, the match stream and status written once;
         # ~6 operations a chain candidate visited, ~10 a position hashed
         bnd=bound(int((span + 8 * nml + 32).sum()), int((6 * visits + 10 * span).sum())),
     )
     print(f"phase 17 K8 (level 9): {k} chunks equal to plain in {plain_s:.1f} s (nmatch, bad, "
-          f"candidates, mpos, mld); all {B} streams tile their spans, {n_checked} matches "
-          f"byte-valid on the card; {int(visits.sum())} candidates visited, most "
-          f"{int(visits.max())} in a chunk", flush=True)
+          f"candidates, mpos, mld), chunk 0 and chunk {worst} ({int(visits[worst])} "
+          f"candidates, the most) first; level 8: chunk(s) {worst8} "
+          f"({[int(got8[2][r, 2]) for r in worst8]} candidates) equal to plain in "
+          f"{plain8_s:.1f} s; all {B} streams of both levels tile their spans, {n_checked} "
+          f"matches byte-valid on the card; level 9 visits {int(visits.sum())} candidates; "
+          f"K8 ms a launch: level 9 {rows['chain_scan']['ms']:.3f}, level 8 {ms8:.3f}",
+          flush=True)
 
     # -- phase 18: K9 against its plain version ---------------------------
     nm_eff = torch.where(bad, 0, nmatch)
@@ -810,7 +848,7 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
         if label == "level6_hopscan0":
             launches["tab_scan"] = seen["tab_scan"]
             result[label]["equals_hop_stream"] = out == hop_out
-        print(f"phase 20 {label}: {len(corpus)} -> {len(out)} bytes, ratio to zlib-{level} "
+        print(f"phase 20 {label}: {len(corpus)} -> {digest(out)}, ratio to zlib-{level} "
               f"{len(out) / zref:.6f} ({zref} bytes), cold {cold_s:.3f} s, launches {seen}",
               flush=True)
     print(f"phase 20: the tab-route stream equals phase 4's hop-route stream: "
@@ -824,8 +862,6 @@ def single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, 
     (ZRS_VECTOR_TWOPLANE=0) end to end on the zlib and gzip streams, and
     its fail-safe. Fills `rows` and `launches` for K11a and K11b; returns
     the route's end-to-end numbers."""
-    import os
-
     import zlib_rs_tpu_torch as zt
     from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
     from zlib_rs_tpu_torch.parallel import pipeline as PL
@@ -981,8 +1017,6 @@ def hop_il_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
     super-batch, then the level-6 encode under ZRS_TPU_HOP_IL=2 end to end,
     its stream equal to phase 4's. Fills `rows` and `launches` for K12;
     returns the route's end-to-end numbers."""
-    import os
-
     import zlib_rs_tpu_torch as zt
     from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
     from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
@@ -1057,7 +1091,7 @@ def hop_il_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
                               len(corpus), "HOP_IL=2 encode", 25)}
     finally:
         del os.environ["ZRS_TPU_HOP_IL"]
-    print(f"phase 25 HOP_IL=2 e2e: {len(out)} bytes, equal to phase 4's stream, cold "
+    print(f"phase 25 HOP_IL=2 e2e: {digest(out)}, equal to phase 4's stream, cold "
           f"{cold_s:.3f} s, launches {seen}", flush=True)
     return result
 
@@ -1068,6 +1102,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    os.environ["ZRS_TPU_KERNEL"] = "1"  # the kernel engine; unset raises in the port
     root = Path(__file__).resolve().parent
     if not (root / "zlib_rs_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1251,7 +1286,7 @@ def main() -> int:
     if zlib.decompress(out) != corpus:
         raise AssertionError("the level-6 stream does not decode to the corpus")
     zref = len(zlib.compress(corpus, LEVEL))
-    print(f"phase 4 e2e: {len(corpus)} -> {len(out)} bytes, ratio to zlib-{LEVEL} "
+    print(f"phase 4 e2e: {len(corpus)} -> {digest(out)}, ratio to zlib-{LEVEL} "
           f"{len(out) / zref:.6f} ({zref} bytes), cold {cold_s:.3f} s, launches "
           f"{launches}", flush=True)
 

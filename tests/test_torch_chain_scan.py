@@ -169,6 +169,164 @@ def test_chain_scan_overflow_flags_bad_like_pallas():
     _assert_stream_equal(got, ref)
 
 
+# -- the kernel's design, as a numpy model ---------------------------------
+#
+# K8 on the card reads each chain from the positions sorted stably by hash
+# and walks it 32 candidates a step (csrc/chain_scan.cu). The model below is
+# that design in numpy: the bucket order, the groups of 32 with their live
+# prefix, the anchor test at the group's starting length, the cut after the
+# first lane that reaches nice and the first lane of greatest length. It
+# also counts the group edges it meets, so each case can show that it puts
+# its edge inside a group.
+
+
+def _match_len(buf, i, c, cap):
+    k = 0
+    while k + 8 <= cap and buf[i + k : i + k + 8] == buf[c + k : c + k + 8]:
+        k += 8
+    while k < cap and buf[i + k] == buf[c + k]:
+        k += 1
+    return k
+
+
+def _warp_scan_row(row, n_valid, start, ins_from, depth, nice, good, max_lazy, mpos_r, mld_r):
+    """One chunk as the kernel's warp walks it: fills mpos_r/mld_r, returns
+    (nmatch, bad, candidates visited, the group edges met)."""
+    buf = row.tobytes()
+    b = np.concatenate([row.astype(np.int64), np.zeros(2, np.int64)])
+    hsh = ((b[:-2] << 10) ^ (b[1:-1] << 5) ^ b[2:]) & (tdk.HSIZE - 1)
+    lo = min(ins_from, start)
+    order = lo + np.argsort(hsh[lo:n_valid], kind="stable")  # S: the bucket order
+    rank = np.zeros(len(buf), np.int64)
+    rank[order] = np.arange(len(order))
+    first = np.searchsorted(hsh[order], hsh, side="left")  # the bucket's first index
+    S, rank, first = order.tolist(), rank.tolist(), first.tolist()
+    edges = dict.fromkeys(("tie", "nice_mid", "budget_mid", "window_mid", "too_far",
+                           "nice_at_start", "quartered"), 0)
+    i, plen, pdist, avail, mc, bad, visits = start, 0, 0, False, 0, False, 0
+    while i < n_valid and not bad:
+        blen = bdist = 0
+        if (not avail or plen < max_lazy) and rank[i] > first[i]:
+            bl0 = plen if avail else 0
+            cap = min(n_valid - i, tdk.MAX_MATCH)
+            nice_eff = min(nice, cap)
+            budget = depth >> 2 if bl0 >= good else depth
+            edges["nice_at_start"] += bl0 >= nice_eff
+            edges["quartered"] += bl0 >= good and bl0 < nice_eff
+            bl, bd, d, top = bl0, 0, 0, rank[i] - 1
+            while bl < nice_eff:
+                live, ml = [], []
+                for j in range(32):  # the live lanes are a prefix
+                    k = top - j
+                    if k < first[i] or d + j >= budget:
+                        edges["budget_mid"] += 0 < j and k >= first[i]
+                        break
+                    if i - S[k] > tdk.MAX_DIST:
+                        edges["window_mid"] += 0 < j
+                        break
+                    c = S[k]
+                    live.append(c)
+                    ml.append(_match_len(buf, i, c, cap) if buf[c + bl] == buf[i + bl] else 0)
+                if not live:
+                    break
+                hit = [j for j, m in enumerate(ml) if m >= nice_eff]
+                used = hit[0] + 1 if hit else len(live)
+                edges["nice_mid"] += 1 < used < len(live)
+                m = max(ml[:used])
+                if m > bl:
+                    edges["tie"] += ml[:used].count(m) > 1
+                    bl, bd = m, i - live[ml.index(m)]
+                d += used
+                if used < 32 or d >= budget:
+                    break
+                top -= 32
+            visits += d
+            edges["too_far"] += bl == tdk.MIN_MATCH and bd > tdk.TOO_FAR and bl > bl0
+            if bl > bl0 and bl >= tdk.MIN_MATCH and not (bl == tdk.MIN_MATCH and bd > tdk.TOO_FAR):
+                blen, bdist = bl, bd
+        if avail and blen == 0 and plen >= tdk.MIN_MATCH:
+            slot = min(mc, tdk.CAP_M)
+            mpos_r[slot] = i - 1
+            mld_r[slot] = ((plen - tdk.MIN_MATCH) << 15) | (pdist - 1)
+            bad = mc >= tdk.CAP_M
+            mc += 1
+            i, plen, pdist, avail = i - 1 + plen, 0, 0, False
+        else:
+            avail = blen >= tdk.MIN_MATCH
+            plen, pdist = (blen, bdist) if avail else (0, 0)
+            i += 1
+    if avail and plen >= tdk.MIN_MATCH and i - 1 + plen <= n_valid:
+        slot = min(mc, tdk.CAP_M)
+        mpos_r[slot] = i - 1
+        mld_r[slot] = ((plen - tdk.MIN_MATCH) << 15) | (pdist - 1)
+        bad = bad or mc >= tdk.CAP_M
+        mc += 1
+    return mc, bad, visits, edges
+
+
+def _ties(n):
+    """'abcd' and one random byte, over and over: many candidates of equal
+    length at different distances."""
+    rng = np.random.default_rng(11)
+    tail = rng.integers(0, 256, n // 5 + 1).tolist()
+    return b"".join(b"abcd" + bytes([t]) for t in tail)[:n]
+
+
+def _small_alphabet(seed, n, letters):
+    return np.random.default_rng(seed).integers(0, letters, n).astype(np.uint8).tobytes()
+
+
+# name: (data, start, ins_from, (depth, nice, good, max_lazy), edges the walk must meet)
+GROUP_CASES = {
+    "equal_length_ties": (_ties(6000), 1000, 0, (4096, 258, 32, 258), ("tie",)),
+    "nice_cut_mid_group": (_small_alphabet(1, 6000, 4), 1000, 0, (4096, 8, 4, 6),
+                           ("nice_mid",)),
+    "budget_45_and_quartered": (_small_alphabet(2, 6000, 4), 2000, 0, (45, 258, 8, 32),
+                                ("budget_mid", "quartered")),
+    "window_edge_dict_36k_back": (_small_alphabet(3, 40000, 16), 36000, 0,
+                                  (4096, 258, 32, 258), ("window_mid",)),
+    "length_3_past_too_far": (_small_alphabet(4, 20000, 64), 8192, 0, (4096, 258, 32, 258),
+                              ("too_far",)),
+    "pending_reaches_nice_near_n_valid": (_gen(5, n=3000) + b"\x00" * 400, 0, 0,
+                                          (1024, 258, 32, 258), ("nice_at_start",)),
+    "bash_level8_dict_36k": (_BASH[500_000:540_000], 36000, 0, (1024, 258, 32, 128),
+                             ("tie", "window_mid", "too_far", "quartered")),
+    "cap_m_overflow": (_small_alphabet(5, 60000, 8), 0, 0, (4, 16, 4, 4), ()),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_warp_group_pick_equals_serial_walk_and_pallas(case):
+    data, start, ins_from, (depth, nice, good, max_lazy), want_edges = GROUP_CASES[case]
+    n = len(data)
+    row = np.zeros(-(-(n + 16) // 4) * 4, np.uint8)
+    row[:n] = np.frombuffer(data, np.uint8)
+    plain_m, plain_l, model_m, model_l = (np.zeros(C, np.int64) for _ in range(4))
+    knobs = (depth, nice, good, max_lazy)
+    serial = tdk._chain_scan_row(row, n, start, ins_from, *knobs, plain_m, plain_l)
+    *model, edges = _warp_scan_row(row, n, start, ins_from, *knobs, model_m, model_l)
+    for edge in want_edges:
+        assert edges[edge] > 0, (edge, edges)
+    # nmatch, bad and the candidates visited, then the streams
+    assert tuple(model) == serial
+    k = min(serial[0], tdk.CAP_M + 1)
+    np.testing.assert_array_equal(model_m[:k], plain_m[:k])
+    np.testing.assert_array_equal(model_l[:k], plain_l[:k])
+    mpos, mld, nmatch, bad = [np.asarray(x)[0] for x in jdk.scan_chunks_pallas(
+        jnp.asarray(_words(row[None])), jnp.asarray([n], jnp.int32),
+        jnp.asarray([start], jnp.int32), jnp.asarray([ins_from], jnp.int32),
+        depth=depth, nice=nice, good=good, max_lazy=max_lazy, interpret=True,
+    )]
+    assert (int(nmatch), bool(bad)) == (model[0], model[1])
+    k = min(model[0], tdk.CAP_M)
+    np.testing.assert_array_equal(model_m[:k], mpos[:k])
+    np.testing.assert_array_equal(model_l[:k].astype(np.uint32), mld[:k])
+    if case == "cap_m_overflow":
+        assert model[1] and model[0] > tdk.CAP_M
+    else:
+        assert not model[1] and model[0] > 50
+
+
 def test_chain_scan_refuses_an_oversized_buffer():
     w = torch.zeros((1, (tdk.MAX_BUF + 16) // 4 + 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="MAX_BUF"):

@@ -56,9 +56,9 @@ def stored_chunk_stream():
     chunk, no seeds), indexed by the port and by the JAX kernel engine."""
     rng = np.random.default_rng(12)
     data = _BASH[:32_768] + rng.integers(0, 256, 32_768, dtype=np.uint8).tobytes() + TEXT[:10_000]
-    out, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
     mp = pytest.MonkeyPatch()
     mp.setenv("ZRS_TPU_KERNEL", "1")
+    out, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
     ref, ref_index = jp.compress_parallel(data, 6, return_index=True)
     mp.undo()
     assert [s is None for s in index.seeds] == [False, True, False]

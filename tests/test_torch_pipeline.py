@@ -169,9 +169,12 @@ def test_shipped_weights_against_jax(monkeypatch, case):
 
 
 def test_unset_kernel_env_and_hop_il_run_the_same_engine(monkeypatch):
+    # unset selects the reference's XLA matcher engine, which the port
+    # refuses until it carries it; ZRS_TPU_HOP_IL=2 runs the kernel engine
     want = _jax(MULTI, 6)
     monkeypatch.delenv("ZRS_TPU_KERNEL")
-    assert zt.compress_parallel(MULTI, 6, device="cpu") == want
+    with pytest.raises(NotImplementedError, match="XLA matcher.*ZRS_TPU_KERNEL=1"):
+        zt.compress_parallel(MULTI, 6, device="cpu")
     monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
     # ZRS_TPU_HOP_IL=2: the JAX package reads it inside its jitted scan, so
     # its caches are cleared around the run, and the K12 traces are counted
@@ -242,11 +245,15 @@ def test_chain_and_tab_routes_equal_jax(monkeypatch, case):
         (dict(level=6, mesh=object()), {}, "mesh"),
         (dict(level=6, strategy=Strategy.Filtered), {}, "host engine"),
         (dict(level=6, chunk_size=65536), {}, "65024"),
+        (dict(level=6), {"ZRS_TPU_KERNEL": None}, "unset selects the XLA matcher"),
     ],
 )
 def test_routes_not_ported_raise(monkeypatch, kw, env, match):
     for name, value in env.items():
-        monkeypatch.setenv(name, value)
+        if value is None:
+            monkeypatch.delenv(name)
+        else:
+            monkeypatch.setenv(name, value)
     with pytest.raises(NotImplementedError, match=match):
         zt.compress_parallel(MULTI, device="cpu", **kw)
 

@@ -76,8 +76,11 @@ def xla_stream():
 def kernel_stream():
     # two chunks of /bin/bash, then one of dist-1 and dist-2 runs
     data = _BASH[200_000 : 200_000 + 65_536] + b"a" * 20_000 + b"bc" * 6_384
-    out, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
-    gz, gz_index = zt.compress_parallel(data, 6, window_bits=31, return_index=True, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ZRS_TPU_KERNEL", "1")  # the port's kernel engine
+        out, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
+        gz, gz_index = zt.compress_parallel(data, 6, window_bits=31, return_index=True,
+                                            device="cpu")
     return _bundle(data, out, index, gz, gz_index)
 
 
@@ -327,6 +330,7 @@ def test_stored_chunk_index_decodes_through_k6(monkeypatch, make, stored):
     # a stored chunk carries no seeds: K6 decodes the whole index, and the
     # host step decodes it alone
     data = make()
+    monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
     comp, index = zt.compress_parallel(data, 6, return_index=True, device="cpu")
     assert [s is None for s in index.seeds] == stored
     calls = _spy(monkeypatch, TS, "decode_chunks_kernel")

@@ -50,7 +50,9 @@ KERNEL_DATA = _BASH[200_000 : 200_000 + 65_536] + b"a" * 20_000 + b"bc" * 6_384
 
 @pytest.fixture(scope="module")
 def kernel_stream():
-    out, index = zt.compress_parallel(KERNEL_DATA, 6, return_index=True, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ZRS_TPU_KERNEL", "1")  # the port's kernel engine
+        out, index = zt.compress_parallel(KERNEL_DATA, 6, return_index=True, device="cpu")
     return (KERNEL_DATA, *_chunks(out, index))
 
 

@@ -48,7 +48,9 @@ def xla_stream():
 
 @pytest.fixture(scope="module")
 def kernel_stream():
-    out, index = zt.compress_parallel(KERNEL_DATA, 6, return_index=True, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ZRS_TPU_KERNEL", "1")  # the port's kernel engine
+        out, index = zt.compress_parallel(KERNEL_DATA, 6, return_index=True, device="cpu")
     return (KERNEL_DATA, *_chunks(out, index))
 
 

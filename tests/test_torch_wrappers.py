@@ -32,6 +32,7 @@ class _Entry:
     def __call__(self, *args):
         assert self.argtypes is not None and len(args) == len(self.argtypes), self.name
         self.calls.append(self.name)
+        self.args = args
         return 0
 
 
@@ -70,7 +71,9 @@ def inputs():
     mpos = torch.zeros((n, DK.CAP_M + 8), dtype=torch.int32)
     nm = torch.zeros(n, dtype=torch.int32)
     lltab, dtab = DK.code_tables(torch.ones((n, 320), dtype=torch.int32))
-    out, index = zt.compress_parallel(DATA, 6, return_index=True, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ZRS_TPU_KERNEL", "1")  # the port's kernel engine
+        out, index = zt.compress_parallel(DATA, 6, return_index=True, device="cpu")
     bodies = [out[o : o + ln] for o, ln, _ in index]
     staged, meta = TV.prepare_vector_inputs(bodies, [m for *_, m in index], index.seeds, "cpu")
     words, bits = IK.pack_streams_words(bodies)
@@ -126,3 +129,22 @@ def test_wrapper_host_side(stub, inputs, name):
     call()
     assert len(stub) == 1 and stub[0].startswith("zrs_")
     assert mod.launches[name] == 1 and sum(mod.launches.values()) == 1
+
+
+def test_chain_scan_hands_the_kernel_its_scratch(stub, inputs, monkeypatch):
+    """K8's C entry takes (words, W, n_valid, start, ins_from, depth, nice,
+    good, max_lazy, counts, ranks, mpos, mld, C, st, batch, stream); its
+    scratch is the int32 bucket counters [B, HSIZE] and each position's
+    packed rank [B, MAX_BUF + 8]."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)  # the tensors, not their pointers
+    _calls(inputs)["chain_scan"][1]()
+    args = _device.library("chain_scan").zrs_chain_scan.args
+    B, W = inputs["w4"].shape
+    C = DK.CAP_M + 8
+    assert args[0].shape == (B, W) and args[1] == W
+    assert [tuple(a.shape) for a in args[2:5]] == [(B,)] * 3
+    assert args[5:9] == (8, 8, 4, 4) and args[13:16:2] == (C, B)
+    counts, ranks, mpos, mld, st = args[9], args[10], args[11], args[12], args[14]
+    assert (counts.dtype, counts.shape) == (torch.int32, (B, DK.HSIZE))
+    assert (ranks.dtype, ranks.shape) == (torch.int32, (B, DK.MAX_BUF + 8))
+    assert mpos.shape == mld.shape == (B, C) and st.shape == (B, 8)

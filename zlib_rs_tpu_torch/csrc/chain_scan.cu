@@ -1,4 +1,5 @@
-// K8: zlib's hash-chain scan, one chunk per block.
+// K8: zlib's hash-chain scan, one chunk per block, the chain walked by a
+// warp 32 candidates a step.
 //
 // Replaces zlib_rs_tpu/ops/pallas/deflate_kernel.py:scan_chunks_pallas
 // (body _kernel). The chunk's positions [ins_from, start) are inserted as
@@ -13,38 +14,67 @@
 //     32 KiB window edge;
 //   * a length-3 match more than 4096 back is no match (TOO_FAR);
 //   * a pending match at least max_lazy long skips the search;
-//   * an emitted match's interior is inserted up to n_valid;
 //   * a pending match is flushed at the end only if it fits n_valid.
 // Output: mpos, mld = (len - 3) << 15 | (dist - 1) per emitted match; st =
 // (nmatch, bad, chain candidates visited, 0...). A write past CAP_M
 // matches lands in slot CAP_M and sets bad, which ends the parse.
 //
-// Bound on the H100: the walk is a chain of dependent loads (the next
-// candidate comes from the previous one's prev slot) plus a byte read per
-// candidate, one chain per chunk, so it is latency-bound; the byte floor
-// (the chunk read once, the match stream written once) is far below it.
+// Why the chain can be read from a sorted array. The serial walk this
+// kernel replaces, which the plain version keeps (ops/kernels/
+// deflate_kernel.py:_chain_scan_row, its `while cand >= 0 ...` loop over
+// prev), inserts the dictionary, then each parse position at the top of
+// its step, then an emitted match's interior. So every position of
+// [lo, n_valid), lo = min(ins_from, start), is inserted once and in
+// increasing order, whatever the parse decides, and prev is indexed by
+// absolute position and never aliases (positions are below MAX_BUF + 8).
+// The chain at i is then exactly the positions q in [lo, i) with
+// hash(q) == hash(i), in decreasing order. With the positions sorted
+// stably by hash into S, that chain is the run of S below the rank of i,
+// down to its bucket's first index: the parse needs no prev chase and no
+// head table.
 //
-// Layout: the TPU kernel keeps an i32 head table (128 KiB) and the prev
-// chain as packed u16 (127 KiB) in SMEM, and the chunk's words in SMEM
-// too. 255 KiB is more than the 227 KiB a Hopper block may use. The walk
-// reads prev and one chunk byte for every candidate, and the heads once a
-// position, so prev (u16 with 0xFFFF as NIL: every position is below
-// MAX_BUF + 8 = 65032, 130,064 bytes) and the chunk's words (at most
-// 65,040 bytes) live in dynamic shared memory (195,104 bytes at most, the
-// limit raised with cudaFuncSetAttribute), and the 32K u16 heads of each
-// chunk in a device-memory scratch row (64 KiB a chunk) that the wrapper
-// allocates. (A first layout with head and prev in shared memory and the
-// words read through L1 took 1.48 s a level-9 super-batch on the H100,
-// this one 1.38 s: ~240 cycles a candidate either way, so the walk is
-// bound by one thread's chain of dependent instructions, not by where the
-// bytes live.) One chunk a block, one block an SM: a 128-chunk
-// super-batch is one wave over the 132 SMs. The block's 256 threads copy
-// the words in and clear the heads; thread 0 then runs the serial parse
-// (prev is read only at positions that were inserted, so it needs no
-// clearing). Every word index is clamped to [0, W-1], as the TPU's SMEM
-// reads clamp, and an unaligned read branches before the `>> 32` that C
-// leaves undefined. The wrapper guarantees n_valid <= 4 (W - 2) <= MAX_BUF
-// + 8, so every position fits prev and the words fit their buffer.
+// Why a warp's pick equals the serial walk's. The serial walk replaces the
+// best only on a strictly longer match and stops right after the first
+// candidate that reaches nice. A candidate beats the running best bl only
+// if its true length exceeds bl, and then it also passes the anchored-byte
+// test at bl; a candidate that fails the test at the group's starting bl
+// cannot exceed it. So lane j takes S[top - j], tests it at the group's
+// starting bl and, if it passes, computes its length capped at the cap.
+// The lanes inside the bucket, the budget and the 32 KiB window form a
+// prefix (S ascends within a bucket, so distance grows with j). The group
+// is cut after its first lane whose length reaches nice; the greatest
+// length among the lanes it used, if above bl, is taken at the first lane
+// that has it; the candidates visited grow by the lanes used. The walk
+// ends at nice, at a group short of 32 lanes, or at the budget.
+//
+// Bound on the H100: the serial walk on the card was a chain of dependent
+// loads, about 240 cycles a candidate in one thread a chunk (1,280 ms a
+// 128-chunk level-9 launch on an H100 80GB HBM3 at 700 W, where the worst
+// chunk visits 11.2 M candidates). Here a group of 32 candidates costs one
+// shared read each, an anchor test, a ballot and a reduction, all of them
+// latency that one warp a block cannot hide (about 106 ms the same
+// launch, ~580 cycles a group); the lazy parse stays serial per chunk.
+// The byte floor (the chunk read once, the match stream written once)
+// stays far below either.
+//
+// Layout: S (u16, 130,064 bytes at most) and the chunk's words (at most
+// 65,040 bytes) live in dynamic shared memory (195,104 bytes, the limit
+// raised with cudaFuncSetAttribute); one chunk a block, one block an SM, so
+// a 128-chunk super-batch is one wave over the 132 SMs. Each block has two
+// device-memory scratch rows that the wrapper allocates: 32K int32 bucket
+// counters (counts, then bucket starts, then bucket ends) and, per
+// position, (bucket's first index << 16) | rank. The build: all 256
+// threads copy the words and count the hashes with atomics, the block
+// scans the counters, warp 0 scatters the positions in order 32 at a time
+// (__match_any_sync groups equal hashes; a lane's slot is its bucket's
+// cursor plus the lower lanes of its group, and the group's highest lane
+// advances the cursor), then all threads pack each parsed position's rank
+// and first index. Warps 1-7 then leave and warp 0 runs the parse, every
+// lane holding the same state; it loads the packed ranks 32 positions at a
+// time. Every word index is clamped to [0, W-1], as the TPU's SMEM reads
+// clamp, and an unaligned read branches before the `>> 32` that C leaves
+// undefined. The wrapper guarantees n_valid <= 4 (W - 2) <= MAX_BUF + 8, so
+// every position fits S and the words fit their buffer.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,12 +87,12 @@ constexpr int kMaxMatch = 258;
 constexpr int kMaxDist = 32768;
 constexpr int kTooFar = 4096;
 constexpr int kCapM = 12288;
-constexpr int kPrevLen = 65024 + 8;
-constexpr uint16_t kNil = 0xFFFF;
-constexpr int kMaxWords = kPrevLen / 4 + 2;
+constexpr int kPosLen = 65024 + 8;
+constexpr int kMaxWords = kPosLen / 4 + 2;
 constexpr int kThreads = 256;
-constexpr int kPrevBytes = kPrevLen * (int)sizeof(uint16_t);
-constexpr int kMaxSmemBytes = kPrevBytes + kMaxWords * (int)sizeof(uint32_t);
+constexpr int kSortBytes = kPosLen * (int)sizeof(uint16_t);
+constexpr int kMaxSmemBytes = kSortBytes + kMaxWords * (int)sizeof(uint32_t);
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Words {  // the chunk's words, in shared memory
   const uint32_t* w;
@@ -101,88 +131,167 @@ __device__ int match_len(const Words& w, int i, int cand, int cap) {
   return min(k + (x == 0 ? 0 : tail_bytes(x)), cap);
 }
 
+// exclusive scan of the 32K counters in place, by the whole block: thread
+// t owns counters [128 t, 128 t + 128)
+__device__ void scan_counts(int32_t* cnt) {
+  __shared__ int32_t warp_sum[kThreads / 32];
+  constexpr int kPer = kHSize / kThreads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int4* seg = reinterpret_cast<int4*>(cnt + threadIdx.x * kPer);
+  int sum = 0;
+  for (int k = 0; k < kPer / 4; ++k) {
+    const int4 v = __ldcg(seg + k);
+    sum += v.x + v.y + v.z + v.w;
+  }
+  int inc = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) warp_sum[warp] = inc;
+  __syncthreads();
+  int run = inc - sum;
+  for (int v = 0; v < warp; ++v) run += warp_sum[v];
+  for (int k = 0; k < kPer / 4; ++k) {
+    const int4 v = __ldcg(seg + k);
+    int4 o;
+    o.x = run;
+    o.y = o.x + v.x;
+    o.z = o.y + v.y;
+    o.w = o.z + v.z;
+    run = o.w + v.w;
+    seg[k] = o;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 chain_scan(const uint32_t* __restrict__ words, int W, const int32_t* __restrict__ n_valid_arr,
            const int32_t* __restrict__ start_arr, const int32_t* __restrict__ ins_from_arr,
-           int depth, int nice, int good, int max_lazy, uint16_t* __restrict__ heads,
-           int32_t* __restrict__ mpos, int32_t* __restrict__ mld, int C,
-           int32_t* __restrict__ st) {
+           int depth, int nice, int good, int max_lazy, int32_t* __restrict__ counts,
+           uint32_t* __restrict__ ranks, int32_t* __restrict__ mpos, int32_t* __restrict__ mld,
+           int C, int32_t* __restrict__ st) {
   extern __shared__ uint32_t smem[];
-  uint16_t* prev = reinterpret_cast<uint16_t*>(smem);
-  uint32_t* ws = smem + kPrevBytes / 4;
+  uint16_t* S = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* ws = smem + kSortBytes / 4;
   const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31;
   const uint32_t* src = words + (long long)row * W;
-  for (int k = threadIdx.x; k < W; k += blockDim.x) ws[k] = src[k];
-  uint16_t* head = heads + (long long)row * kHSize;
-  uint32_t* head2 = reinterpret_cast<uint32_t*>(head);
-  for (int h = threadIdx.x; h < kHSize / 2; h += blockDim.x) head2[h] = 0xFFFFFFFFu;
+  for (int k = threadIdx.x; k < W; k += kThreads) ws[k] = src[k];
+  int32_t* cnt = counts + (long long)row * kHSize;
+  uint32_t* rk = ranks + (long long)row * kPosLen;
+  for (int h = threadIdx.x; h < kHSize; h += kThreads) cnt[h] = 0;
   __syncthreads();
-  if (threadIdx.x != 0) return;
 
   const Words w{ws, W};
-  int32_t* mp = mpos + (long long)row * C;
-  int32_t* md = mld + (long long)row * C;
   const int n_valid = n_valid_arr[row];
   const int start = start_arr[row];
+  const int lo = min(ins_from_arr[row], start);
 
-  auto insert = [&](int p) {
+  // 1. bucket counts, then bucket starts
+  for (int p = lo + (int)threadIdx.x; p < n_valid; p += kThreads) atomicAdd(cnt + w.hash_at(p), 1);
+  __syncthreads();
+  scan_counts(cnt);
+  __syncthreads();
+
+  // 2. the stable scatter, in position order by warp 0; the counters end
+  // as bucket ends
+  if (threadIdx.x < 32) {
+    const unsigned below = (1u << lane) - 1u;
+    for (int base = lo; base < n_valid; base += 32) {
+      const int p = base + lane;
+      const bool valid = p < n_valid;
+      const int h = valid ? w.hash_at(p) : kHSize + lane;  // a lane past the end groups alone
+      const unsigned peers = __match_any_sync(kFull, h);
+      if (valid) {
+        const int cur = __ldcg(cnt + h);
+        const int slot = cur + __popc(peers & below);
+        S[slot] = (uint16_t)p;
+        rk[p] = (uint32_t)slot;
+        // the group's highest lane advances the cursor
+        if ((peers >> lane) == 1u) __stcg(cnt + h, cur + __popc(peers));
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // 3. each parsed position's rank beside its bucket's first index (the
+  // end of the bucket below)
+  for (int p = start + (int)threadIdx.x; p < n_valid; p += kThreads) {
     const int h = w.hash_at(p);
-    prev[p] = head[h];
-    head[h] = (uint16_t)p;
-  };
-  for (int p = ins_from_arr[row]; p < start; ++p) insert(p);
+    const uint32_t first = h == 0 ? 0u : (uint32_t)__ldcg(cnt + h - 1);
+    rk[p] = __ldcg(rk + p) | (first << 16);
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
 
+  // 4. the lazy parse, by warp 0 in lockstep
+  int32_t* mp = mpos + (long long)row * C;
+  int32_t* md = mld + (long long)row * C;
   int mc = 0;
   bool bad = false;
   long long visits = 0;
   auto emit = [&](int pos, int len, int dist) {
     const int slot = mc < kCapM ? mc : kCapM;
-    mp[slot] = pos;
-    md[slot] = (int32_t)(((uint32_t)(len - kMinMatch) << 15) | (uint32_t)(dist - 1));
+    if (lane == 0) {
+      mp[slot] = pos;
+      md[slot] = (int32_t)(((uint32_t)(len - kMinMatch) << 15) | (uint32_t)(dist - 1));
+    }
     bad = bad || mc >= kCapM;
     mc += 1;
   };
 
-  int i = start, plen = 0, pdist = 0;
+  int i = start, plen = 0, pdist = 0, pre_base = -32;
+  uint32_t pre = 0;  // lane j: the packed rank of position pre_base + j
   bool avail = false;
   while (i < n_valid && !bad) {
-    const int h = w.hash_at(i);
-    const uint16_t c0 = head[h];
-    prev[i] = c0;
-    head[h] = (uint16_t)i;
     int blen = 0, bdist = 0;
-    if ((!avail || plen < max_lazy) && c0 != kNil) {
-      // longest_match
+    if (!avail || plen < max_lazy) {
+      if (i - pre_base >= 32) {
+        pre_base = i;
+        pre = __ldcg(rk + min(i + lane, n_valid - 1));
+      }
+      const uint32_t packed = __shfl_sync(kFull, pre, i - pre_base);
+      const int rank = (int)(packed & 0xFFFFu), first = (int)(packed >> 16);
       const int bl0 = avail ? plen : 0;
       const int cap = min(n_valid - i, kMaxMatch);
       const int nice_eff = min(nice, cap);
-      const int budget = bl0 >= good ? depth >> 2 : depth;
-      int bl = bl0, bd = 0, d = 0, cand = c0;
-      int endb = w.byte_at(i + bl);
-      while (cand >= 0 && i - cand <= kMaxDist && d < budget && bl < nice_eff) {
-        const uint16_t nx = prev[cand];  // issued before the anchor test
-        if (w.byte_at(cand + bl) == endb) {
-          const int ml = match_len(w, i, cand, cap);
-          if (ml > bl) {
-            bl = ml;
-            bd = i - cand;
-            endb = w.byte_at(i + min(ml, cap - 1));
+      if (rank > first && bl0 < nice_eff) {
+        // longest_match, 32 candidates a step
+        const int budget = bl0 >= good ? depth >> 2 : depth;
+        int bl = bl0, bd = 0, d = 0, top = rank - 1;
+        while (bl < nice_eff) {
+          const int endb = w.byte_at(i + bl);
+          const int k = top - lane;
+          bool live = k >= first && d + lane < budget;
+          const int cand = live ? (int)S[k] : 0;
+          live = live && i - cand <= kMaxDist;
+          const unsigned lanes = __ballot_sync(kFull, live);
+          if (lanes == 0) break;
+          int ml = 0;
+          if (live && w.byte_at(cand + bl) == endb) ml = match_len(w, i, cand, cap);
+          const unsigned hit = __ballot_sync(kFull, live && ml >= nice_eff);
+          const int used = hit ? __ffs(hit) : __popc(lanes);
+          const int m = __reduce_max_sync(kFull, lane < used ? ml : 0);
+          if (m > bl) {
+            const int f = __ffs(__ballot_sync(kFull, lane < used && ml == m)) - 1;
+            bd = i - __shfl_sync(kFull, cand, f);
+            bl = m;
           }
+          d += used;
+          if (used < 32 || d >= budget) break;
+          top -= 32;
         }
-        cand = nx == kNil ? -1 : (int)nx;
-        ++d;
-      }
-      visits += d;
-      if (bl > bl0 && bl >= kMinMatch && !(bl == kMinMatch && bd > kTooFar)) {
-        blen = bl;
-        bdist = bd;
+        visits += d;
+        if (bl > bl0 && bl >= kMinMatch && !(bl == kMinMatch && bd > kTooFar)) {
+          blen = bl;
+          bdist = bd;
+        }
       }
     }
     if (avail && blen == 0 && plen >= kMinMatch) {
       // one-step lazy: the match pending at i - 1 stands
       emit(i - 1, plen, pdist);
-      const int hi = min(i - 1 + plen, n_valid);
-      for (int p = i + 1; p < hi; ++p) insert(p);
       i = i - 1 + plen;
       plen = pdist = 0;
       avail = false;
@@ -195,28 +304,30 @@ chain_scan(const uint32_t* __restrict__ words, int W, const int32_t* __restrict_
   }
   if (avail && plen >= kMinMatch && i - 1 + plen <= n_valid) emit(i - 1, plen, pdist);
 
-  int32_t* s = st + (long long)row * 8;
-  s[0] = mc;
-  s[1] = bad ? 1 : 0;
-  s[2] = (int32_t)min(visits, (long long)INT32_MAX);
-  for (int k = 3; k < 8; ++k) s[k] = 0;
+  if (lane == 0) {
+    int32_t* s = st + (long long)row * 8;
+    s[0] = mc;
+    s[1] = bad ? 1 : 0;
+    s[2] = (int32_t)min(visits, (long long)INT32_MAX);
+    for (int k = 3; k < 8; ++k) s[k] = 0;
+  }
 }
 
 }  // namespace
 
 extern "C" int zrs_chain_scan(const void* words, int W, const void* n_valid,
                               const void* start, const void* ins_from, int depth,
-                              int nice, int good, int max_lazy, void* heads, void* mpos,
-                              void* mld, int C, void* st, int batch, void* stream) {
+                              int nice, int good, int max_lazy, void* counts, void* ranks,
+                              void* mpos, void* mld, int C, void* st, int batch, void* stream) {
   if (W > kMaxWords) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(chain_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kMaxSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (batch > 0) {
-    chain_scan<<<batch, kThreads, kPrevBytes + W * (int)sizeof(uint32_t), (cudaStream_t)stream>>>(
+    chain_scan<<<batch, kThreads, kSortBytes + W * (int)sizeof(uint32_t), (cudaStream_t)stream>>>(
         (const uint32_t*)words, W, (const int32_t*)n_valid, (const int32_t*)start,
-        (const int32_t*)ins_from, depth, nice, good, max_lazy, (uint16_t*)heads,
-        (int32_t*)mpos, (int32_t*)mld, C, (int32_t*)st);
+        (const int32_t*)ins_from, depth, nice, good, max_lazy, (int32_t*)counts,
+        (uint32_t*)ranks, (int32_t*)mpos, (int32_t*)mld, C, (int32_t*)st);
   }
   return (int)cudaGetLastError();
 }

@@ -478,7 +478,7 @@ def _chain_lib():
     fn = _device.library("chain_scan").zrs_chain_scan
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, P, P, P, I, I, I, I, P, P, P, I, P, I, P]
+        fn.argtypes = [P, I, P, P, P, I, I, I, I, P, P, P, P, I, P, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -500,14 +500,16 @@ def chain_scan_cuda(words, n_valid, start, ins_from, *, depth, nice, good, max_l
     if B and bool(((n_valid > 4 * (W - 2)) | (start > n_valid) | (ins_from < 0)).any()):
         raise ValueError("chain_scan: needs 0 <= ins_from, start <= n_valid <= 4 (W - 2)")
     C = CAP_M + 8
-    heads = torch.empty((B, HSIZE), dtype=torch.int16, device=words.device)  # scratch
+    # scratch: the bucket counters, and each position's packed rank
+    counts = torch.empty((B, HSIZE), dtype=torch.int32, device=words.device)
+    ranks = torch.empty((B, MAX_BUF + 8), dtype=torch.int32, device=words.device)
     mpos = torch.empty((B, C), dtype=torch.int32, device=words.device)
     mld = torch.empty((B, C), dtype=torch.int32, device=words.device)
     st = torch.empty((B, 8), dtype=torch.int32, device=words.device)
     rc = _chain_lib()(
         _device.ptr(words), W, _device.ptr(n_valid), _device.ptr(start),
         _device.ptr(ins_from), int(depth), int(nice), int(good), int(max_lazy),
-        _device.ptr(heads), _device.ptr(mpos), _device.ptr(mld), C, _device.ptr(st), B,
+        _device.ptr(counts), _device.ptr(ranks), _device.ptr(mpos), _device.ptr(mld), C, _device.ptr(st), B,
         _device.stream_of(words),
     )
     _device.check(rc, "chain_scan")

@@ -342,14 +342,15 @@ def compress_parallel(
     dictionary, batches of 128 chunks (16 for the tail), and the matcher
     the reference picks: the hop route (K2) at levels 3-7, the chain route
     (K8) at levels 8-9, the tab route (K10) where the hop fields do not
-    fit. An unset ZRS_TPU_KERNEL means this engine; ZRS_TPU_CHAIN,
+    fit. ZRS_TPU_KERNEL=1 selects this engine; ZRS_TPU_CHAIN,
     ZRS_TPU_WG, ZRS_TPU_HOPSCAN, ZRS_TPU_TABSCAN and ZRS_TPU_HOP_IL keep
     their meanings (ZRS_TPU_HOP_IL=2 runs the hop route's chase as K12, the
     interleaved chase, in place of K2; the stream is the same).
     Routes not ported yet raise NotImplementedError naming what is
-    missing: levels below 3 (the static engine), ZRS_TPU_KERNEL other than
-    1 (the XLA matcher), a chunk buffer over the kernel's 65024 bytes,
-    `mesh=` and a non-default `strategy` (the host engine).
+    missing: levels below 3 (the static engine), ZRS_TPU_KERNEL unset or
+    other than 1 (the reference's XLA matcher engine), a chunk buffer over
+    the kernel's 65024 bytes, `mesh=` and a non-default `strategy` (the
+    host engine).
 
     With return_index=True, also returns the ChunkIndex of (body_offset,
     body_len, out_len) per chunk with 128 decode seeds per coded chunk;
@@ -364,10 +365,11 @@ def compress_parallel(
     if mesh is not None:
         raise NotImplementedError("mesh= (the sharded encode) is not ported yet")
     kernel_env = os.environ.get("ZRS_TPU_KERNEL")
-    if kernel_env is not None and kernel_env != "1":
+    if kernel_env != "1":
+        setting = " unset" if kernel_env is None else f"={kernel_env}"
         raise NotImplementedError(
-            f"ZRS_TPU_KERNEL={kernel_env} selects the XLA matcher engine, "
-            "which is not ported yet"
+            f"ZRS_TPU_KERNEL{setting} selects the XLA matcher engine, which "
+            "is not ported yet; ZRS_TPU_KERNEL=1 selects the kernel engine"
         )
     if level < 3:
         raise NotImplementedError(
