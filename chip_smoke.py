@@ -25,16 +25,21 @@ stream of the corpus and `decompress_chunks` of its window-primed regions
 the first super-batch at level 9 (chunk 0 and the chunk that visits the
 most candidates first) and at level 8 (that chunk), K9 (the symbol
 histogram) against its plain version on the same batch, K10 (the
-table walk) on the same batch under level 6 with ZRS_TPU_HOPSCAN=0, every
-match stream checked on the card to tile its span with byte-valid
-matches, and `compress_parallel` through the chain route (levels 9 and 8)
-and the tab route, each checked by zlib (phases 17-20). Then K11a and K11b
+table walk) on the same batch under level 6 with ZRS_TPU_HOPSCAN=0, at its
+tile and at MIN_TILE, and on crafted lanes (an overflow past one tile,
+all-literal lanes, far dists, the level-9 knob set under
+ZRS_TPU_CHAIN=256), every match stream checked on the card to tile its
+span with byte-valid matches, and `compress_parallel` through the chain
+route (levels 9 and 8) and the tab route, each checked by zlib (phases
+17-20). Then K11a and K11b
 (the single-plane decode and expansion) against their plain versions and
 the single-plane route of `decompress_parallel` (ZRS_VECTOR_TWOPLANE=0) on
 both indexed streams, with its fail-safe (phases 21-23); K12 (the
 interleaved hop chase) against its plain version and K2 on the first
-super-batch, and the level-6 encode under ZRS_TPU_HOP_IL=2, whose stream
-must equal phase 4's (phases 24-25). Any mismatch raises; no phase's
+super-batch, at its tile and at MIN_TILE, and on crafted lanes (an odd
+batch, an overflow past one tile, far sources, serial-step landings,
+all-literal lanes), and the level-6 encode under ZRS_TPU_HOP_IL=2, whose
+stream must equal phase 4's (phases 24-25). Any mismatch raises; no phase's
 failure is caught.
 
 Each encode prints its stream's length and sha256, so that two checkouts
@@ -783,10 +788,49 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
     t0 = time.perf_counter()
     ppos, pmld, pst = DK.tab_scan_plain(words4, tf, tq, dn, dict_size, **kt)
     tab_plain_s = time.perf_counter() - t0
-    pairs = [(tst[:, :2], pst[:, :2])]
-    for r in range(B):
-        m = int(pst[r, 0])
-        pairs += [(tpos[r, :m], ppos[r, :m]), (tmld[r, :m], pmld[r, :m])]
+    pairs = tab_pairs((tpos, tmld, tst), (ppos, pmld, pst), DK.CAP_M)
+    # the batch again in tiles of MIN_TILE, then the crafted lanes (start
+    # 0): an overflow lane past one tile (a 3-byte distance-1 match at every
+    # position of random bytes, level-9 knobs), three all-literal lanes
+    # (tables all zero), and two chunks whose every dist is past the
+    # window (0xFFFF: the serial walk)
+    pairs += tab_pairs(DK.tab_scan_cuda(words4, tf, tq, dn, dict_size, tile=DK.MIN_TILE, **kt),
+                       (ppos, pmld, pst), DK.CAP_M)
+    g9, m9, n9, _c9 = DK.ZLIB_CONFIG[9]
+    k9 = dict(nice=n9, good=g9, max_lazy=m9)
+    n_over = 3 * DK.CAP_M + 600
+    over = DK.words_from_bytes(random_rows(torch, DK, [n_over], 3)).to(dev)
+    over_tab = torch.full((1, 4 * over.shape[1]), (3 << 16) | 1, dtype=torch.int32, device=dev)
+    lit_lens = [5001, 6002, 7003]
+    lit = DK.words_from_bytes(random_rows(torch, DK, lit_lens, 8)).to(dev)
+    lit_tab = torch.zeros((3, 4 * lit.shape[1]), dtype=torch.int32, device=dev)
+    far_f = torch.where(tf[:2] != 0, tf[:2] | 0xFFFF, 0)
+    far_q = torch.where(tq[:2] != 0, tq[:2] | 0xFFFF, 0)
+    crafted = [
+        ((over, over_tab, over_tab, torch.tensor([n_over], device=dev), 0), k9),
+        ((lit, lit_tab, lit_tab, torch.tensor(lit_lens, device=dev), 0), kt),
+        ((words4[:2], far_f, far_q, dn[:2], dict_size), kt),
+    ]
+    # the level-9 knob set of the tab route (ZRS_TPU_CHAIN=256: max_lazy 258)
+    os.environ["ZRS_TPU_CHAIN"] = "256"
+    try:
+        cfg9 = PL._level_knobs(9)["kernel_cfg"]
+        variant9, w_g9 = PL._resolve_kernel_variant(cfg9)
+    finally:
+        del os.environ["ZRS_TPU_CHAIN"]
+    if variant9 != "tab" or cfg9[1] != 258:
+        raise AssertionError(f"level 9 with ZRS_TPU_CHAIN=256 resolves to {variant9}, {cfg9}")
+    f9, q9 = lzvec.build_match_tables(words4[:8], dn[:8], dv[:8], depth=cfg9[3], nice=cfg9[2],
+                                      w_g=w_g9, bytes_arr=dc[:8])
+    crafted.append(((words4[:8], f9[:, dict_size:], q9[:, dict_size:], dn[:8], dict_size),
+                     dict(nice=cfg9[2], good=cfg9[0], max_lazy=cfg9[1])))
+    bads = []
+    for lanes, knobs in crafted:
+        want_c = DK.tab_scan_plain(*lanes, **knobs)
+        pairs += tab_pairs(DK.tab_scan_cuda(*lanes, **knobs), want_c, DK.CAP_M)
+        bads.append(int(want_c[2][:, 1].sum()))
+    if bads != [1, 0, 0, 0]:
+        raise AssertionError(f"K10's crafted lanes: bad lanes {bads}, want the overflow lane only")
     err = max_abs(pairs)
     if err:
         raise AssertionError(f"K10 disagrees with its plain version: max abs err {err}")
@@ -809,8 +853,12 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
         bnd=bound(int((4 * visited + 4 * tnm + out_span + 8 * tnm + 32).sum()),
                   int((10 * visited + 20 * tnm).sum())),
     )
-    print(f"phase 19 K10 (level 6, HOPSCAN=0, w_g {w_g}): {B} chunks equal to plain; "
-          f"{t_checked} matches tile their spans and are byte-valid on the card", flush=True)
+    print(f"phase 19 K10 (level 6, HOPSCAN=0, w_g {w_g}): {B} chunks equal to plain at tiles "
+          f"of {DK.TILE} and {DK.MIN_TILE} positions, and an overflow lane past one tile, "
+          f"all-literal lanes, far dists (the serial walk) and the level-9 knob set under "
+          f"ZRS_TPU_CHAIN=256 on 8 chunks; {t_checked} matches tile their spans and are "
+          f"byte-valid on the card; launch: {DK.RESOLVE_THREADS} threads a block, "
+          f"{4 * DK.TILE} bytes of dynamic shared memory, tile {DK.TILE}", flush=True)
 
     # -- phase 20: the chain and tab routes, end to end --------------------
     result = {}
@@ -1012,6 +1060,45 @@ def hop_crafted_lanes(DK, dev, words4, htab, dn, dict_size: int, cap_g: int) -> 
             (words4[:2], far, dn[:2], dict_size, cap_g)]
 
 
+def random_rows(torch, DK, lengths, seed: int):
+    """uint8 rows of random bytes, `lengths[r]` each, zero-padded to a
+    common width with DK.PAD bytes of tail (a multiple of 4)."""
+    width = max(lengths) + DK.PAD
+    width += -width % 4
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.zeros((len(lengths), width), dtype=torch.uint8)
+    for r, n in enumerate(lengths):
+        buf[r, :n] = torch.randint(0, 256, (n,), generator=g, dtype=torch.uint8)
+    return buf
+
+
+def k12_extra_lanes(torch, DK, dev) -> list:
+    """K12 operands neither the corpus nor K2's lanes give (start 0): a lane
+    whose literal jumps land on literal entries that read as matches (h 0,
+    len 3, dist 1), so every landing takes the serial step; three
+    all-literal lanes whose one span is 1, 2 and 3 mod 4 long."""
+    words = DK.words_from_bytes(random_rows(torch, DK, [6000], 7))
+    htab = torch.full((1, 4 * words.shape[1]), (1 << 30) | (3 << 16) | 1, dtype=torch.int32)
+    htab[:, 0::8] = 5
+    htab[:, 5::8] = (3 << 16) | 1
+    lens = [5001, 6002, 7003]
+    lit = DK.words_from_bytes(random_rows(torch, DK, lens, 8))
+    lit_tab = torch.full((3, 4 * lit.shape[1]), 1 << 20, dtype=torch.int32)
+    n = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return [(words.to(dev), htab.to(dev), n([6000]), 0, 24),
+            (lit.to(dev), lit_tab.to(dev), n(lens), 0, 24)]
+
+
+def tab_pairs(got, want, cap_m: int) -> list:
+    """(got, want) pairs of two K10 results: nmatch and bad, each lane's
+    match slots up to the overflow slot."""
+    pairs = [(got[2][:, :2], want[2][:, :2])]
+    for r in range(got[0].shape[0]):
+        m = min(int(want[2][r, 0]), cap_m + 1)
+        pairs += [(got[0][r, :m], want[0][r, :m]), (got[1][r, :m], want[1][r, :m])]
+    return pairs
+
+
 def hop_il_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
     """Phases 24-25: K12 against its plain version and K2 on the first
     super-batch, then the level-6 encode under ZRS_TPU_HOP_IL=2 end to end,
@@ -1038,10 +1125,17 @@ def hop_il_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
     for r in range(B):
         m = int(nmatch[r])
         pairs += [(got[0][r, :m], want[0][r, :m]), (got[1][r, :m], want[1][r, :m])]
-    # an odd batch of three, and the crafted lanes: all four arrays, every bin
+    # an odd batch of three, and the crafted lanes (the overflowing one spans
+    # three tiles): all four arrays, every bin
     for lanes in [(words4[:3], htab[:3], dn[:3], dict_size, cap_g)] + hop_crafted_lanes(
-            DK, dev, words4, htab, dn, dict_size, cap_g):
+            DK, dev, words4, htab, dn, dict_size, cap_g) + k12_extra_lanes(torch, DK, dev):
         pairs += hop_pairs(DK.hop_chase_il_cuda, DK.hop_chase_il_plain, lanes, DK.CAP_M)
+    # the whole batch again in tiles of MIN_TILE: ~32 tile edges a chunk
+    small = DK.hop_chase_il_cuda(*args, tile=DK.MIN_TILE)
+    pairs += [(small[2][:, :2], want[2][:, :2]), (small[3], want[3])]
+    for r in range(B):
+        m = int(nmatch[r])
+        pairs += [(small[0][r, :m], want[0][r, :m]), (small[1][r, :m], want[1][r, :m])]
     err = max_abs(pairs)
     if err:
         raise AssertionError(f"K12 disagrees with its plain version: max abs err {err}")
@@ -1066,9 +1160,12 @@ def hop_il_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
         plain_ms=plain_s * 1e3, plain_rows=B,
         bnd=bound(nb, int((span + 20 * nmatch).sum())),  # as K2's
     )
-    print(f"phase 24 K12: {B} chunks ({(B + 1) // 2} pairs) equal to plain in {plain_s:.1f} s, "
-          f"and an odd batch of 3, an overflowing lane and far match sources; _hop_post equal "
-          f"to K2's on every lane of the batch", flush=True)
+    print(f"phase 24 K12: {B} chunks equal to plain in {plain_s:.1f} s, at tiles of "
+          f"{DK.TILE} and {DK.MIN_TILE} positions, and an odd batch of 3, an overflowing lane "
+          f"past one tile, far match sources, serial-step landings and all-literal lanes; "
+          f"_hop_post equal to K2's on every lane of the batch; launch: "
+          f"{DK.RESOLVE_THREADS} threads a block, {4 * DK.TILE} bytes of dynamic shared "
+          f"memory, tile {DK.TILE}", flush=True)
 
     # -- phase 25: the level-6 encode under ZRS_TPU_HOP_IL=2 ---------------
     os.environ["ZRS_TPU_HOP_IL"] = "2"

@@ -16,6 +16,7 @@ from zlib_rs_tpu.ops.pallas import deflate_kernel as jdk
 from zlib_rs_tpu_torch import interop
 from zlib_rs_tpu_torch import compress_parallel
 from zlib_rs_tpu_torch.ops import dynhuff as td
+from zlib_rs_tpu_torch.ops import lzvec
 from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as tdk
 
 # the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
@@ -517,3 +518,317 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     }[wrapper]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+# -- K10's design, as a numpy model ----------------------------------------
+#
+# K10 on the card (csrc/tab_scan.cu) resolves every position of a tile at
+# once: a stop into a slot holding the match its deferral chain leaves (h,
+# the extended length, the dist), then a literal into the distance to the
+# next stop of its warp's segment, found backward 32 positions at a time;
+# then the block chases the slots, one segment a thread, to a fixed point
+# or a one-thread fix-up. The model below is that design; it counts the edges it
+# meets, so each case can show that its edge occurred.
+
+STOP = 1 << 31
+M32 = 0xFFFFFFFF
+ROUNDS = 6  # chase rounds before the sequential fix-up
+TAB_EDGES = ("tabq", "too_far", "max_h", "serial", "tiles", "rounds", "fixup",
+             "literal_to_edge", "match_ends_on_edge")
+
+
+def _tab_resolve(w, tf, tq, nv, start, p, knobs, edges):
+    """The clean-arrival outcome at p: None for a literal, else (pos, exact
+    len, dist) of the match its deferral chain leaves."""
+    nice, good, max_lazy = knobs
+    W, tabn = len(w), len(tf)
+
+    def tab(t, q):
+        return t[min(max(q - start, 0), tabn - 1)]
+
+    def get32(q):
+        wi, sh = q >> 2, (q & 3) << 3
+        w0 = w[min(max(wi, 0), W - 1)]
+        return w0 if sh == 0 else ((w0 >> sh) | (w[min(max(wi + 1, 0), W - 1)] << (32 - sh))) & M32
+
+    cap = min(nv - p, tdk.MAX_MATCH)
+    t = tab(tf, p)
+    m, d = min(t >> 16, cap), t & 0xFFFF
+    far = m == tdk.MIN_MATCH and d > tdk.TOO_FAR
+    if not (0 < min(nice, cap) and m >= tdk.MIN_MATCH and not far):
+        edges["too_far"] += far and 0 < min(nice, cap)
+        return None
+    plen, pdist, q = m, d, p + 1
+    while True:
+        assert q < nv  # every pending match is decided before n_valid
+        cap = min(nv - q, tdk.MAX_MATCH)
+        edges["tabq"] += plen >= good
+        t = tab(tq if plen >= good else tf, q)
+        m = min(t >> 16, cap)
+        if not (plen < max_lazy and plen < min(nice, cap) and m > plen):
+            break
+        plen, pdist, q = m, t & 0xFFFF, q + 1
+    pos = q - 1
+    cap = min(nv - pos, tdk.MAX_MATCH)
+    k = plen
+    while k < cap and get32(pos + k) == get32(pos - pdist + k):
+        k += 4
+    k = min(k, cap)
+    x = get32(pos + k) ^ get32(pos - pdist + k)
+    edges["max_h"] = max(edges["max_h"], pos - p)
+    return pos, min(k + (tdk._tail(x) if x else 0), cap), pdist
+
+
+def _tab_tile(resolve, t0, tn, nv, edges, warps=16):
+    """The tile's slots as the kernel writes them, in two passes. First
+    every position, strided over the block: a stop's slot is STOP | h << 23
+    | (len - 3) << 15 | (dist - 1), or 0 when the dist does not fit; a
+    literal gets 1. Then each warp walks its segment of whole groups of 32
+    backward: a literal's slot becomes the distance to the next stop (the
+    lowest lane of the group's stop ballot above it, else the carry from
+    the groups after it, else the segment's end)."""
+    R = [1] * tn
+    for k in range(tn):
+        r = resolve(t0 + k)
+        if r is not None:
+            pos, ln, dist = r
+            R[k] = (STOP | (pos - t0 - k) << 23 | (ln - tdk.MIN_MATCH) << 15 | (dist - 1)
+                    if 1 <= dist <= 32768 else 0)
+    seg = -(-tn // (warps * 32)) * 32
+    for wp in range(warps):
+        s0 = min(wp * seg, tn)
+        s1 = min(s0 + seg, tn)
+        carry = s1
+        for gb in range(s0 + (s1 - s0 - 1) // 32 * 32, s0 - 1, -32) if s1 > s0 else ():
+            lanes = range(gb, min(gb + 32, s1))
+            mask = sum(1 << (k - gb) for k in lanes if R[k] != 1)
+            for k in lanes:
+                if R[k] == 1:
+                    above = mask & (M32 << (k - gb)) & M32
+                    nxt = gb + (above & -above).bit_length() - 1 if above else carry
+                    R[k] = nxt - k
+                    edges["literal_to_edge"] += nxt == tn and t0 + tn < nv
+            if mask:
+                carry = gb + (mask & -mask).bit_length() - 1
+    return R
+
+
+def _tab_step(R, t0, p):
+    s = R[p - t0]
+    if s & STOP:
+        pos = p + ((s >> 23) & 0xFF)
+        return pos + ((s >> 15) & 0xFF) + tdk.MIN_MATCH, (pos, s & 0x7FFFFF)
+    return (p + s, None) if s else (-1, None)
+
+
+def _segment_chase(step, t0, tn, edges, threads=512):
+    """The tile's chase as the kernel's threads run it (K12's, see
+    tests/test_torch_hop_il.py): rounds of segment walks to a fixed point,
+    else a fix-up in order. Returns (entries, ends, exits, counts) or None
+    if a walk met the serial walk's position."""
+    seg = -(-tn // threads)
+    hi = [t0 + min((k + 1) * seg, tn) for k in range(threads)]
+    frm = [t0 + min(k * seg, tn) for k in range(threads)]
+
+    def walk(p, end):
+        n = 0
+        while p < end:
+            p, m = step(p)
+            if p < 0:
+                return -1, 0
+            n += m is not None
+        return p, n
+
+    exits, cnt = map(list, zip(*[walk(frm[k], hi[k]) for k in range(threads)]))
+    for rnd in range(1, ROUNDS + 1):
+        if min(exits) < 0:
+            return None
+        entry = [t0] + exits[:-1]
+        if entry == frm:
+            edges["rounds"] = max(edges["rounds"], rnd)
+            return frm, hi, exits, cnt
+        if rnd == ROUNDS:
+            break
+        for k in range(threads):
+            if entry[k] != frm[k]:
+                frm[k] = entry[k]
+                exits[k], cnt[k] = walk(frm[k], hi[k])
+    edges["fixup"] += 1
+    p = t0
+    for k in range(threads):
+        if p != frm[k]:
+            x, c = walk(p, hi[k])
+            if x < 0:
+                return None
+            frm[k], exits[k], cnt[k] = p, x, c
+        p = exits[k]
+    return frm, hi, exits, cnt
+
+
+def _tab_model_row(w, tf, tq, nv, start, knobs, tile, mpos_r, mld_r, edges):
+    """One chunk as K10's block parses it: (nmatch, bad)."""
+    resolve = lambda p: _tab_resolve(w, tf, tq, nv, start, p, knobs, edges)
+    t0, mc = start, 0
+    while t0 < nv:
+        tn = min(nv - t0, tile)
+        R = _tab_tile(resolve, t0, tn, nv, edges)
+        edges["tiles"] += 1
+        chased = _segment_chase(lambda p: _tab_step(R, t0, p), t0, tn, edges)
+        if chased is None:  # the walk, by one thread, to the end of the span
+            edges["serial"] += 1
+            i, bad = t0, False
+            while i < nv and not bad:
+                r = resolve(i)
+                if r is None:
+                    i += 1
+                    continue
+                pos, ln, dist = r
+                slot = min(mc, tdk.CAP_M)
+                mpos_r[slot] = pos
+                mld_r[slot] = (((ln - tdk.MIN_MATCH) << 15) | ((dist - 1) & M32)) & M32
+                bad = mc >= tdk.CAP_M
+                mc += 1
+                i = pos + ln
+            return mc, bad
+        frm, hi, exits, cnt = chased
+        j = mc
+        for k in range(len(frm)):  # the prefix sum of the counts and the last walk
+            p = frm[k]
+            while p < hi[k] and j <= tdk.CAP_M:
+                p, m = _tab_step(R, t0, p)
+                if m is not None:
+                    mpos_r[j], mld_r[j] = m  # slot CAP_M takes the overflowing match
+                    j += 1
+        mc += sum(cnt)
+        if mc > tdk.CAP_M:
+            return tdk.CAP_M + 1, True
+        k = (tn - 1) // -(-tn // len(frm))  # the last segment that is not empty
+        p, last = frm[k], None
+        while p < hi[k]:  # how it leaves the tile
+            p, last = _tab_step(R, t0, p)
+        edge, t0 = t0 + tn, exits[-1]
+        edges["match_ends_on_edge"] += t0 == edge < nv and last is not None
+    return mc, False
+
+
+def _tab_model(w4, tf, tq, n_valid, start, knobs, tile):
+    """The design over a batch: (mpos, mld, st) as int64 arrays and the
+    edges met."""
+    B = w4.shape[0]
+    mpos, mld, st = np.zeros((B, C), np.int64), np.zeros((B, C), np.int64), np.zeros((B, 8), np.int64)
+    edges = dict.fromkeys(TAB_EDGES, 0)
+    for r in range(B):
+        st[r, :2] = _tab_model_row(w4[r].tolist(), tf[r].tolist(), tq[r].tolist(), int(n_valid[r]),
+                                   start, knobs, tile, mpos[r], mld[r], edges)
+    return mpos, mld, st, edges
+
+
+def _jax_tab_lanes(w4, tf, tq, n_valid, start, knobs, cap_g):
+    """The JAX K10 body in interpret mode, one lane a call, on given
+    tables (indexed by position - start)."""
+    nice, good, mlazy = knobs
+    call = jax.jit(lambda m, w, f, q: pl.pallas_call(
+        jdk._make_kernel_tab(cap_g), grid=(1,),
+        out_shape=[jax.ShapeDtypeStruct((1, 1, C), jnp.int32),
+                   jax.ShapeDtypeStruct((1, 1, C), jnp.uint32),
+                   jax.ShapeDtypeStruct((1, 1, 8), jnp.int32)],
+        interpret=True,
+    )(m, w, f, q))
+    out = []
+    for r in range(w4.shape[0]):
+        meta = np.array([[int(n_valid[r]), start, 0, 0, nice, good, mlazy, 0]], np.int32)
+        out.append([np.asarray(x)[0, 0] for x in call(
+            jnp.asarray(meta[:, None]), jnp.asarray(w4[r : r + 1, None]),
+            jnp.asarray(tf[r : r + 1, None]), jnp.asarray(tq[r : r + 1, None]))])
+    return [np.stack([o[k] for o in out]) for k in range(3)]
+
+
+def _crafted_tab(case):
+    """(words u32, tabf, tabq, n_valid, knobs, cap_g, tile, edges) of the
+    crafted K10 lanes; start is 0."""
+    l9 = tuple(tdk.ZLIB_CONFIG[9][i] for i in (2, 0, 1))  # nice, good, max_lazy
+    rng = np.random.default_rng(3)
+    if case == "staircase_h_255":
+        # zeros, and table lengths that grow by one a position from 3 to
+        # 258: a deferral chain of 255 steps at max_lazy = 258
+        n = 9000
+        buf = np.zeros((1, n + PAD), np.uint8)
+        buf[0, n - 500 :] = rng.integers(0, 256, 500 + PAD)
+        w4 = _words(buf)
+        p = np.arange(4 * w4.shape[1])
+        tab = ((np.minimum(3 + p % 300, 258) << 16) | 1)[None].astype(np.int32)
+        return w4, tab, tab, np.array([n], np.int32), l9, 24, 4000, ("max_h",)
+    if case == "overflow_past_one_tile":
+        n = 3 * tdk.CAP_M + 600
+        buf = np.zeros((1, n + PAD), np.uint8)
+        buf[0, :n] = rng.integers(0, 256, size=n)
+        w4 = _words(buf)
+        tab = np.full((1, 4 * w4.shape[1]), (3 << 16) | 1, np.int32)
+        return w4, tab, tab, np.array([n], np.int32), l9, 24, 5000, ("tiles", "match_ends_on_edge")
+    if case == "all_literal":
+        n = np.array([5001, 6002, 7003], np.int32)
+        buf = np.zeros((3, 7004 + PAD), np.uint8)
+        buf[:, :7003] = rng.integers(0, 256, size=(3, 7003))
+        w4 = _words(buf)
+        tab = np.zeros((3, 4 * w4.shape[1]), np.int32)
+        return w4, tab, tab, n, l9, 24, 2048, ("tiles", "literal_to_edge")
+    raise KeyError(case)
+
+
+K10_CASES = ["bash_level6_wg6", "bash_level6_wg32_tiles_of_1024", "level9_chain256_max_lazy_258",
+             "far_dist_serial", "staircase_h_255", "overflow_past_one_tile", "all_literal"]
+
+
+def _assert_tab_equal(model, ref, slots):
+    mpos, mld, st, _ = model
+    rm, rl, rs = [np.asarray(x) for x in ref]
+    np.testing.assert_array_equal(st[:, :2], rs[:, :2])
+    for r in range(st.shape[0]):
+        k = min(int(st[r, 0]), slots)
+        np.testing.assert_array_equal(mpos[r, :k], rm[r, :k])
+        np.testing.assert_array_equal(mld[r, :k].astype(np.uint32), rl[r, :k].astype(np.uint32))
+
+
+@pytest.mark.parametrize("case", K10_CASES)
+def test_resolved_tab_chase_model_equals_plain_and_pallas(batch, case):
+    jax_ref = None
+    if case.startswith("bash") or case in ("level9_chain256_max_lazy_258", "far_dist_serial"):
+        level9 = case == "level9_chain256_max_lazy_258"
+        good, mlazy, nice, _ = tdk.ZLIB_CONFIG[9 if level9 else 6]
+        depth, w_g = (256, 6) if level9 else (64, 32 if "wg32" in case else 6)
+        knobs, start, tile = (nice, good, mlazy), DICT, 1024 if "1024" in case else tdk.TILE
+        st = _state(batch)
+        tabf, tabq = lzvec.build_match_tables(st["words4"], st["n_valid"], st["ins_from"],
+                                              depth=depth, nice=nice, w_g=w_g,
+                                              bytes_arr=st["chunks"])
+        tf, tq = tabf[:, DICT:].numpy(), tabq[:, DICT:].numpy()
+        w4, nv = batch["w4"], batch["n_valid"]
+        want = {"bash_level6_wg6": ("too_far", "tabq"), "far_dist_serial": ("serial",),
+                "bash_level6_wg32_tiles_of_1024": ("tiles", "literal_to_edge", "fixup"),
+                # tables cap lengths at 4 * w_g = 24 here, below good = 32: tabq unread
+                "level9_chain256_max_lazy_258": ("too_far", "fixup")}[case]
+        if case == "far_dist_serial":  # every dist past the window: 0xFFFF
+            tf, tq = np.where(tf != 0, tf | 0xFFFF, 0), np.where(tq != 0, tq | 0xFFFF, 0)
+        else:
+            jax_ref = [np.asarray(x) for x in jdk.scan_chunks_tab_pallas(
+                jnp.asarray(w4), jnp.asarray(nv), jnp.asarray(batch["ins_from"]), start=DICT,
+                depth=depth, nice=nice, good=good, max_lazy=mlazy, w_g=w_g, interpret=True)]
+            jax_ref = [jax_ref[0], jax_ref[1], np.stack([jax_ref[2], jax_ref[3]], 1)]
+    else:
+        w4, tf, tq, nv, knobs, cap_g, tile, want = _crafted_tab(case)
+        start = 0
+        jax_ref = _jax_tab_lanes(w4, tf, tq, nv, start, knobs, cap_g)
+    model = _tab_model(w4, tf, tq, nv, start, knobs, tile)
+    edges = model[3]
+    for edge in want:
+        assert edges[edge] > 0, (edge, edges)
+    assert edges["max_h"] >= 128 or case != "staircase_h_255"
+    assert edges["serial"] == 0 or case == "far_dist_serial"
+    plain = tdk.tab_scan_plain(torch.from_numpy(w4.view(np.int32)), torch.from_numpy(tf),
+                               torch.from_numpy(tq), torch.from_numpy(nv), start, nice=knobs[0],
+                               good=knobs[1], max_lazy=knobs[2])
+    _assert_tab_equal(model, [t.numpy() for t in plain], tdk.CAP_M + 1)
+    if jax_ref is not None:
+        _assert_tab_equal(model, jax_ref, tdk.CAP_M)
+    if case == "overflow_past_one_tile":
+        assert model[2][0, 1] == 1

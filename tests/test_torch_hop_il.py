@@ -173,10 +173,11 @@ def test_odd_batch_equals_pallas_with_an_empty_fourth(batches):
     assert ref[2][3] == 0 and not ref[3][3]  # the JAX padding lane emits nothing
 
 
-def _pallas(kernel, w4, htab, n_valid):
+def _pallas(kernel, w4, htab, n_valid, start=0):
     B = len(n_valid)
     meta = np.zeros((B, 8), np.int32)
     meta[:, 0] = n_valid
+    meta[:, 1] = start
     shape = lambda n, dt: jax.ShapeDtypeStruct((1, B, n), dt)
     call = jax.jit(lambda m, w, h: pl.pallas_call(
         kernel, grid=(1,), interpret=True,
@@ -222,3 +223,359 @@ def test_hop_chase_il_cuda_refuses_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         tdk.hop_chase_il_cuda(z, z, torch.zeros(1, dtype=torch.int32), 0, 24)
     assert tdk.launches == before
+
+
+# -- the kernel's design, as a numpy model ---------------------------------
+#
+# K12 on the card (csrc/hop_chase_il.cu) resolves every match entry of a
+# tile of the span into a 32-bit slot at once, chases the slots a segment
+# a thread to a fixed point (or a one-thread fix-up), and counts the
+# literal spans from the match stream in parallel. The model below is that
+# design: the slot layout, the rounds and the fix-up, the tiles that start
+# where the chase leaves the last, the serial step for what the resolve
+# leaves, and the two passes of the span count. It counts the edges it meets, so
+# each case can show that its edge occurred.
+
+FLAG = 1 << 31
+M32 = 0xFFFFFFFF
+SHORT_WORDS = 32  # a span of more words is finished by a warp
+
+
+def _exact_len(w, ip, ml, dist, cap, cap_g):
+    if ml == cap_g:
+        k = ml
+        while k < cap and tdk._get32(w, ip + k) == tdk._get32(w, max(ip - dist + k, 0)):
+            k += 4
+        ml = min(k, cap)
+    xt = tdk._get32(w, ip + ml) ^ tdk._get32(w, max(ip - dist + ml, 0))
+    return min(ml + tdk._tail(xt), cap)
+
+
+def _resolve(w, ht, nv, p, cap_g):
+    """The resolved slot of position p: a literal entry as it is, a match
+    entry as FLAG | h << 24 | (len - 3) << 16 | dist, 0 for the serial step."""
+    e = ht[p]
+    if (e >> 30) <= 0:
+        return e if e > 0 else 0
+    h, ml, dist = (e >> 23) & 0x7F, (e >> 16) & 0x7F, e & 0xFFFF
+    ip = p + h
+    if ip >= nv:
+        return 0
+    cap = min(nv - ip, tdk.MAX_MATCH)
+    if ml != cap_g and ml > cap:
+        return 0
+    mlen = _exact_len(w, ip, ml, dist, cap, cap_g)
+    if mlen < tdk.MIN_MATCH:
+        return 0
+    return FLAG | h << 24 | (mlen - tdk.MIN_MATCH) << 16 | dist
+
+
+def _step(w, ht, nv, cap_g, R, t0, tn, p, edges):
+    """One step of the chase from the clean position p of the tile: (the
+    next position, (ip, slot) of the match it emits or None); -1 where
+    the serial step must take over."""
+    s, i = R[p - t0], p
+    if not s & FLAG:
+        if s == 0:
+            return -1, None
+        i = min(p + s, nv)
+        if i >= nv:
+            return nv, None
+        if i - t0 < tn:
+            s = R[i - t0]
+        else:  # a landing past the tile: resolved from device memory
+            edges["literal_across_edge"] += 1
+            s = _resolve(w, ht, nv, i, cap_g)
+        if not s & FLAG:
+            return -1, None
+    ip = i + ((s >> 24) & 0x7F)
+    return ip + ((s >> 16) & 0xFF) + tdk.MIN_MATCH, (ip, s)
+
+
+ROUNDS = 6  # chase rounds before the sequential fix-up
+
+
+def _segment_chase(step, t0, tn, edges, threads=512):
+    """The tile's chase as the kernel's threads run it: one segment a
+    thread, each walked from its entry to its end; every entry but the
+    first becomes the exit before it, and the segments whose entry changed
+    walk again, until none changes or ROUNDS have passed; then one thread
+    walks, in order, each segment that did not start from its true entry.
+    Returns (the entries, the segment ends, the exits, the match counts),
+    or None if a walk met the serial step."""
+    seg = -(-tn // threads)
+    hi = [t0 + min((k + 1) * seg, tn) for k in range(threads)]
+    frm = [t0 + min(k * seg, tn) for k in range(threads)]
+
+    def walk(p, end):
+        n = 0
+        while p < end:
+            p, m = step(p)
+            if p < 0:
+                return -1, 0
+            n += m is not None
+        return p, n
+
+    exits, cnt = map(list, zip(*[walk(frm[k], hi[k]) for k in range(threads)]))
+    for rnd in range(1, ROUNDS + 1):
+        if min(exits) < 0:
+            return None
+        entry = [t0] + exits[:-1]
+        if entry == frm:
+            edges["rounds"] = max(edges["rounds"], rnd)
+            return frm, hi, exits, cnt
+        if rnd == ROUNDS:
+            break
+        for k in range(threads):
+            if entry[k] != frm[k]:
+                frm[k] = entry[k]
+                exits[k], cnt[k] = walk(frm[k], hi[k])
+    edges["fixup"] += 1
+    p = t0
+    for k in range(threads):
+        if p != frm[k]:
+            x, c = walk(p, hi[k])
+            if x < 0:
+                return None
+            frm[k], exits[k], cnt[k] = p, x, c
+        p = exits[k]
+    return frm, hi, exits, cnt
+
+
+def _tiled_chase(w, ht, nv, start, cap_g, tile, mpos_r, mld_r, edges):
+    """The chase over resolved tiles; returns (nmatch, bad)."""
+    t0, mc = start, 0
+    while t0 < nv:
+        tn = min(nv - t0, tile)
+        R = [_resolve(w, ht, nv, t0 + k, cap_g) for k in range(tn)]
+        edges["tiles"] += 1
+        step = lambda p: _step(w, ht, nv, cap_g, R, t0, tn, p, edges)
+        chased = _segment_chase(step, t0, tn, edges)
+        if chased is None:  # K2's loop, by one thread, to the end of the span
+            edges["serial"] += 1
+            return _serial_chase(w, ht, nv, t0, mc, cap_g, mpos_r, mld_r)
+        entry, hi, exits, cnt = chased
+        j = mc
+        for k in range(len(entry)):  # the prefix sum of the counts and the last walk
+            p = entry[k]
+            while p < hi[k] and j <= tdk.CAP_M:
+                p, m = step(p)
+                if m is not None:
+                    ip, sl = m
+                    mpos_r[j] = ip  # slot CAP_M takes the overflowing match
+                    mld_r[j] = (((sl >> 16) & 0xFF) << 15) | (((sl & 0xFFFF) - 1) & M32)
+                    j += 1
+        mc += sum(cnt)
+        if mc > tdk.CAP_M:
+            return tdk.CAP_M + 1, True
+        edge, t0 = t0 + tn, exits[-1]
+        edges["match_ends_on_edge"] += t0 == edge < nv
+    return mc, False
+
+
+def _serial_chase(w, ht, nv, i0, mc, cap_g, mpos_r, mld_r):
+    """K2's loop from i0 with mc matches emitted: (nmatch, bad)."""
+    bad = False
+    while i0 < nv and not bad:
+        e, i = ht[i0], i0
+        if (e >> 30) <= 0:
+            i = min(i0 + e, nv)
+            e = ht[min(i, nv - 1)]
+        if i >= nv:
+            break
+        ip, dist = i + ((e >> 23) & 0x7F), e & 0xFFFF
+        mlen = _exact_len(w, ip, (e >> 16) & 0x7F, dist, min(nv - ip, tdk.MAX_MATCH), cap_g)
+        slot = min(mc, tdk.CAP_M)
+        mpos_r[slot] = ip
+        mld_r[slot] = (((mlen - tdk.MIN_MATCH) << 15) | ((dist - 1) & M32)) & M32
+        bad = mc >= tdk.CAP_M
+        mc += 1
+        i0 = ip + mlen
+    return mc, bad
+
+
+def _count_words(w, hist, p, e, ks):
+    """The 4-byte reads k of `ks` of the span [p, e): read k starts at p + 4k."""
+    for k in ks:
+        tdk._count_span(w, hist, p + 4 * k, min(e, p + 4 * k + 4))
+
+
+def _span_replay(w, mpos_r, mld_r, mc, bad, start, nv, hist, edges, threads=512, warps=16):
+    """The two passes of the span count: a thread a span, its first
+    SHORT_WORDS words; then a warp a longer span, lanes 32 words apart."""
+    meff = 0 if bad else mc
+    longs = []
+
+    def span(j):
+        p = start if j == 0 else int(mpos_r[j - 1]) + (int(mld_r[j - 1]) >> 15) + tdk.MIN_MATCH
+        return p, (int(mpos_r[j]) if j < meff else nv)
+
+    for t in range(threads):
+        for j in range(t, meff + 1, threads):
+            p, e = span(j)
+            nw = (e - p + 3) // 4 if e > p else 0
+            if e > p:
+                edges[f"dead_{(e - p) % 4}"] += 1
+            _count_words(w, hist, p, e, range(min(nw, SHORT_WORDS)))
+            if nw > SHORT_WORDS:
+                longs.append(j)
+    edges["long_spans"] += len(longs)
+    for wp in range(warps):
+        for j in longs[wp::warps]:
+            p, e = span(j)
+            for lane in range(32):
+                _count_words(w, hist, p, e, range(SHORT_WORDS + lane, (e - p + 3) // 4, 32))
+
+
+def _k12_model(words, htab, n_valid, start, cap_g, tile):
+    """The design over a batch: (mpos, mld, st, freq) as int64 arrays, and
+    the edges met."""
+    B = words.shape[0]
+    C = tdk.CAP_M + 8
+    w_np = words.numpy().view(np.uint32)
+    mpos, mld = np.zeros((B, C), np.int64), np.zeros((B, C), np.int64)
+    st, freq = np.zeros((B, 8), np.int64), np.zeros((B, 4 * 320), np.int64)
+    edges = dict.fromkeys(("serial", "tiles", "rounds", "fixup", "match_ends_on_edge",
+                           "literal_across_edge", "dead_0", "dead_1", "dead_2", "dead_3",
+                           "long_spans"), 0)
+    for r in range(B):
+        w, ht, nv = w_np[r].tolist(), htab[r].tolist(), int(n_valid[r])
+        mc, bad = _tiled_chase(w, ht, nv, start, cap_g, tile, mpos[r], mld[r], edges)
+        hist = [0] * (4 * 320)
+        _span_replay(w, mpos[r], mld[r], mc, bad, start, nv, hist, edges)
+        st[r, :2], freq[r] = (mc, int(bad)), hist
+    return mpos, mld, st, freq, edges
+
+
+def _lane_tables(data_rows, n_valid):
+    """Words, the JAX hop tables and n_valid of rows of bytes (PAD of
+    zero tail each), under the level-6 knobs of this file."""
+    width = max(len(d) for d in data_rows) + PAD
+    width += -width % 4
+    buf = np.zeros((len(data_rows), width), np.uint8)
+    for r, d in enumerate(data_rows):
+        buf[r, : len(d)] = np.frombuffer(d, np.uint8)
+    b = dict(buf=buf, w4=_words(buf), n_valid=np.asarray(n_valid, np.int32),
+             ins_from=np.zeros(len(data_rows), np.int32))
+    return b["w4"], _jax_htab(b), b["n_valid"]
+
+
+def _random(seed, n):
+    return np.random.default_rng(seed).integers(0, 256, n).astype(np.uint8).tobytes()
+
+
+def _serial_lane():
+    """Random bytes whose htab has at p % 8 == 5 a literal entry whose bits
+    read as a match (h 0, len 3, dist 1) where a literal jump from p % 8 == 0
+    lands, and 3-byte distance-1 matches elsewhere: every landing takes the
+    serial step, which decodes it as a match, as K2 does."""
+    n = 6000
+    buf = np.zeros((1, n + PAD), np.uint8)
+    buf[0, :n] = np.frombuffer(_random(7, n), np.uint8)
+    w4 = _words(buf)
+    htab = np.full((1, 4 * w4.shape[1]), (1 << 30) | (3 << 16) | 1, np.int32)
+    htab[:, 0::8] = 5
+    htab[:, 5::8] = (3 << 16) | 1
+    return w4, htab, np.array([n], np.int32)
+
+
+def _all_literal_lanes():
+    """Three lanes whose every htab slot jumps past n_valid: one literal
+    span each, of lengths 1, 2 and 3 mod 4."""
+    n = np.array([5001, 6002, 7003], np.int32)
+    buf = np.zeros((3, 7003 + PAD + 1), np.uint8)
+    for r in range(3):
+        buf[r, : n[r]] = np.frombuffer(_random(20 + r, int(n[r])), np.uint8)
+    w4 = _words(buf)
+    return w4, np.full((3, 4 * w4.shape[1]), 1 << 20, np.int32), n
+
+
+def _k12_case(name):
+    """(words u32, htab, n_valid, start, cap_g, tile, the edges the case
+    must meet) of a crafted case; None for the batch's own chunks, "far"
+    for them with every dist past the row."""
+    if name in ("bash_batch_one_tile", "bash_batch_tiles_of_1024"):
+        return None
+    if name == "overflow_lane":
+        w, h, n = tdk.overflow_lanes()
+        return w.numpy().view(np.uint32), h.numpy(), n.numpy(), 0, 24, 5000, (
+            "tiles", "match_ends_on_edge", "long_spans")
+    if name == "two_tiles_literal_across_edge":
+        text = _BASH[200_000:206_000]
+        data = [text + _random(1, 3000) + text[:3000] + b"\x00" * 517 + text[:2001]]
+        w4, htab, nv = _lane_tables(data, [len(data[0])])
+        return w4, htab, nv, 0, CAP_G, 7000, ("literal_across_edge", "tiles", "fixup", "dead_1",
+                                              "dead_2", "dead_3")
+    if name == "far_sources":
+        return "far"
+    if name == "serial_landings":
+        w4, htab, nv = _serial_lane()
+        return w4, htab, nv, 0, CAP_G, 1024, ("serial", "tiles")
+    if name == "all_literal":
+        w4, htab, nv = _all_literal_lanes()
+        return w4, htab, nv, 0, CAP_G, tdk.TILE, ("long_spans", "dead_1", "dead_2", "dead_3")
+    raise KeyError(name)
+
+
+K12_CASES = ["bash_batch_one_tile", "bash_batch_tiles_of_1024", "overflow_lane",
+             "two_tiles_literal_across_edge", "far_sources", "serial_landings", "all_literal"]
+
+
+def _assert_model_equal(model, plain, rows, dead_bins=True, slots=tdk.CAP_M + 1):
+    """The model's arrays against a reference's: nmatch and bad, the match
+    slots up to `slots` (the JAX kernel writes slot CAP_M whenever a lane
+    emits nothing), every bin, or every bin but the dead 319 of each bank."""
+    mpos, mld, st, freq, _ = model
+    pm, pl_, ps, pf = [t.numpy() for t in plain]
+    np.testing.assert_array_equal(st[:, :2], ps[:, :2])
+    for r in rows:
+        m = min(int(st[r, 0]), slots)
+        np.testing.assert_array_equal(mpos[r, :m], pm[r, :m])
+        np.testing.assert_array_equal(mld[r, :m].astype(np.uint32), pl_[r, :m].view(np.uint32))
+        got, want = freq[r].reshape(4, 320), pf[r].reshape(4, 320)
+        np.testing.assert_array_equal(got if dead_bins else got[:, :319],
+                                      want if dead_bins else want[:, :319])
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_resolved_chase_model_equals_plain_and_pallas(batches, case):
+    spec = _k12_case(case)
+    if spec is None or spec == "far":
+        b = batches["even"]
+        w4, htab, nv = b["w4"], b["htab"].copy(), b["n_valid"]
+        tile, want = (1024, ("tiles", "match_ends_on_edge")) if case.endswith("1024") else (
+            tdk.TILE, ("dead_1", "dead_2", "dead_3"))
+        if spec == "far":  # every match source before the row: dist 0xFFFF
+            w4, htab, nv = w4[:2], htab[:2], nv[:2]
+            htab[(htab >> 30) > 0] |= 0xFFFF
+        start, cap_g = DICT, CAP_G
+    else:
+        w4, htab, nv, start, cap_g, tile, want = spec
+    st = interop.state_from_numpy({"words4": w4, "htab": htab, "n_valid": nv}, device="cpu")
+    model = _k12_model(st["words4"], htab, nv, start, cap_g, tile)
+    edges = model[4]
+    for edge in want:
+        assert edges[edge] > 0, (edge, edges)
+    if case != "serial_landings":
+        assert edges["serial"] == 0  # tables of this shape never reach the serial step
+    # the plain version: every array, every bin, dead bins included
+    plain = tdk.hop_chase_il_plain(st["words4"], st["htab"], st["n_valid"], start, cap_g)
+    _assert_model_equal(model, plain, range(len(nv)))
+    # the JAX K12 in interpret mode (an even number of lanes; a spare lane
+    # waits, and its dead bins differ); a source before the row is read
+    # there as the TPU reads it, and the port clamps it to byte 0
+    if spec == "far":
+        return
+    if spec is None:
+        ref = batches["even"]["k12"]
+        post = tdk._hop_post(*[torch.from_numpy(a.astype(np.uint32).view(np.int32))
+                               for a in model[:4]])
+        _assert_chase_equal(post, ref)
+        return
+    lanes = len(nv)
+    pairs = [_pallas(jdk._make_kernel_hop_il(cap_g, 2), w4[[a, b]], htab[[a, b]], nv[[a, b]], start)
+             for a, b in zip(range(0, lanes, 2), [*range(1, lanes, 2), 0])]
+    jax_model = [np.concatenate([p[k] for p in pairs])[:lanes] for k in range(4)]
+    _assert_model_equal(model, [torch.from_numpy(np.asarray(a).astype(np.uint32).view(np.int32))
+                                for a in jax_model], range(lanes), dead_bins=False,
+                        slots=tdk.CAP_M)

@@ -148,3 +148,34 @@ def test_chain_scan_hands_the_kernel_its_scratch(stub, inputs, monkeypatch):
     assert (counts.dtype, counts.shape) == (torch.int32, (B, DK.HSIZE))
     assert (ranks.dtype, ranks.shape) == (torch.int32, (B, DK.MAX_BUF + 8))
     assert mpos.shape == mld.shape == (B, C) and st.shape == (B, 8)
+
+
+@pytest.mark.parametrize("name", ["hop_chase_il", "tab_scan"])
+def test_resolve_chase_wrappers_hand_the_kernel_its_tile(stub, inputs, monkeypatch, name):
+    """K12's and K10's C entries take the tile (the resolved slots a block
+    keeps in dynamic shared memory, 4 bytes each) right before the stream:
+    TILE by default, so one tile holds a 32 KiB chunk's span, any size in
+    [MIN_TILE, MAX_TILE] on request, and a size outside refused before the
+    launch. K2's entry takes no tile."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    i = inputs
+    call = {
+        "hop_chase_il": lambda **k: DK.hop_chase_il_cuda(i["w4"], i["htab"], i["dn"], i["dsz"], 24,
+                                                         **k),
+        "tab_scan": lambda **k: DK.tab_scan_cuda(i["w4"], i["htab"], i["htab"], i["dn"], i["dsz"],
+                                                 nice=8, good=4, max_lazy=4, **k),
+    }[name]
+    entry = lambda: getattr(_device.library(name), f"zrs_{name}")
+    call()
+    B = i["w4"].shape[0]
+    assert entry().args[-3:] == (B, DK.TILE, 0)
+    assert DK.MAX_TILE * 4 <= 232_448 - 16 * 1024  # a block's shared memory, static part aside
+    assert DK.TILE >= PL.DEFAULT_CHUNK  # one tile holds a chunk's span
+    call(tile=DK.MIN_TILE)
+    assert entry().args[-2] == DK.MIN_TILE
+    for bad in (DK.MIN_TILE - 1, DK.MAX_TILE + 1):
+        with pytest.raises(ValueError, match="tile"):
+            call(tile=bad)
+    assert DK.launches[name] == 2 and len(stub) == 2
+    DK.hop_chase_cuda(i["w4"], i["htab"], i["dn"], i["dsz"], 24)
+    assert len(_device.library("hop_chase").zrs_hop_chase.args) == 14

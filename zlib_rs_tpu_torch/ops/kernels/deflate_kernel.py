@@ -22,10 +22,12 @@ K2 (csrc/hop_chase.cu) replaces `scan_chunks_hop_pallas` (body
 `_kernel`); K10 (csrc/tab_scan.cu) `scan_chunks_tab_pallas` (body
 `_make_kernel_tab`); K9 (csrc/freq.cu) the freq branch of
 `freq_pack_chunks_pallas` (body `_freq_kernel`); K3 (csrc/pack.cu)
-`freq_pack_chunks_pallas` (body `_pack_kernel`). The scans and the pack
-are serial per chunk and latency-bound on the H100 (one thread per chunk,
-one block per chunk); their byte floors are the operands read once and the
-outputs written once. The sources carry the design notes.
+`freq_pack_chunks_pallas` (body `_pack_kernel`). One block takes one
+chunk. K2, K3 and K8 are serial per chunk and latency-bound on the H100;
+K12 and K10 resolve every position of a tile of the span in parallel into
+shared memory and chase it a segment a thread. Their byte floors are the
+operands read once and the outputs written once. The sources carry the
+design notes.
 
 Each wrapper (`hop_chase`, `hop_chase_il`, `chain_scan`, `tab_scan`,
 `freq`, `pack`) runs the plain version for a CPU tensor and launches the
@@ -68,6 +70,14 @@ ZLIB_CONFIG = {
     8: (32, 128, 258, 1024),
     9: (32, 258, 258, 4096),
 }
+
+# K12 and K10 keep the resolved slots of a tile of the span in dynamic
+# shared memory, one int32 a position: TILE holds a 32 KiB chunk's span in
+# one tile; a longer span takes more (MIN_TILE..MAX_TILE, 4 bytes a slot)
+TILE = 33792
+MIN_TILE = 1024
+MAX_TILE = 49152
+RESOLVE_THREADS = 512  # threads of a K12 or K10 block
 
 # launches of the CUDA kernels; the plain versions do not count
 launches = {"hop_chase": 0, "hop_chase_il": 0, "chain_scan": 0, "tab_scan": 0, "freq": 0,
@@ -225,19 +235,28 @@ def hop_chase_plain(words, htab, n_valid, start: int, cap_g: int):
 
 def _hop_entry(kernel: str):
     """The C entry `zrs_<kernel>` of K2 or K12, typed: both take the same
-    arguments."""
+    arguments, and K12 its tile before the stream."""
     fn = getattr(_device.library(kernel), f"zrs_{kernel}")
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, I, P, L, P, I, I, P, P, I, P, P, I, P]
+        tile = [I] if kernel == "hop_chase_il" else []
+        fn.argtypes = [P, I, P, L, P, I, I, P, P, I, P, P, I, *tile, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_hop(kernel, words, htab, n_valid, start, cap_g):
-    """K2's or K12's launch (`kernel` names it) over CUDA operands: words
-    int32 [B, W], htab int32 [B, 4W] (row-contiguous), n_valid int [B]."""
+def _check_tile(kernel: str, tile: int) -> int:
+    if not MIN_TILE <= int(tile) <= MAX_TILE:
+        raise ValueError(f"{kernel}: tile {tile} outside [{MIN_TILE}, {MAX_TILE}]")
+    return int(tile)
+
+
+def _launch_hop(kernel, words, htab, n_valid, start, cap_g, tile=None):
+    """K2's or K12's launch (`kernel` names it; K12 takes `tile`) over CUDA
+    operands: words int32 [B, W], htab int32 [B, 4W] (row-contiguous),
+    n_valid int [B]."""
     _device.require_cuda(kernel, words, htab, n_valid)
+    extra = () if tile is None else (_check_tile(kernel, tile),)
     B, W = words.shape
     if words.dtype != torch.int32 or htab.dtype != torch.int32:
         raise ValueError(f"{kernel}: words and htab must be int32")
@@ -255,7 +274,7 @@ def _launch_hop(kernel, words, htab, n_valid, start, cap_g):
     rc = _hop_entry(kernel)(
         _device.ptr(words), W, _device.ptr(htab), htab.stride(0),
         _device.ptr(n_valid), int(start), int(cap_g), _device.ptr(mpos),
-        _device.ptr(mld), C, _device.ptr(st), _device.ptr(freq), B,
+        _device.ptr(mld), C, _device.ptr(st), _device.ptr(freq), B, *extra,
         _device.stream_of(words),
     )
     _device.check(rc, kernel)
@@ -281,13 +300,14 @@ def hop_chase(words, htab, n_valid, start: int, cap_g: int):
 
 
 def hop_chase_il_plain(words, htab, n_valid, start: int, cap_g: int):
-    """K12's two phases, one chunk at a time (the kernel's lockstep over
-    pairs of chunks changes no chunk's result): K2's chase without the
-    histogram, then the literal spans replayed from the match stream into
-    the four banks. A bad (overflowing) chunk's whole span is counted once
-    as literals; K2 clears bank 0 only before its recount. Same outputs as
-    the kernel: mpos/mld int32 [B, CAP_M + 8] (slots past nmatch are 0), st
-    int32 [B, 8] (nmatch, bad), freq int32 [B, 4 * 320]."""
+    """K12's two phases, one chunk at a time, as serial loops: K2's chase
+    without the histogram, then the literal spans replayed from the match
+    stream into the four banks (the kernel resolves the chase's slots and
+    counts the spans in parallel, which changes no result). A bad
+    (overflowing) chunk's whole span is counted once as literals; K2 clears
+    bank 0 only before its recount. Same outputs as the kernel: mpos/mld
+    int32 [B, CAP_M + 8] (slots past nmatch are 0), st int32 [B, 8]
+    (nmatch, bad), freq int32 [B, 4 * 320]."""
 
     def row(w, ht, nv, mpos_r, mld_r, hist):
         mc, bad = _chase_row(w, ht, nv, start, cap_g, mpos_r, mld_r)
@@ -316,10 +336,11 @@ def overflow_lanes():
     return words, htab, torch.tensor([n, 4000], dtype=torch.int32)
 
 
-def hop_chase_il_cuda(words, htab, n_valid, start: int, cap_g: int):
-    """Launch K12 over CUDA operands, as K2 (see `_launch_hop`); any B (an
-    odd batch's last pair has one inert lane)."""
-    return _launch_hop("hop_chase_il", words, htab, n_valid, start, cap_g)
+def hop_chase_il_cuda(words, htab, n_valid, start: int, cap_g: int, *, tile: int = TILE):
+    """Launch K12 over CUDA operands, as K2 (see `_launch_hop`): one block
+    of RESOLVE_THREADS a chunk, `tile` resolved slots (4 * tile bytes of
+    dynamic shared memory) at a time."""
+    return _launch_hop("hop_chase_il", words, htab, n_valid, start, cap_g, tile)
 
 
 def hop_chase_il(words, htab, n_valid, start: int, cap_g: int):
@@ -657,16 +678,19 @@ def _tab_lib():
     fn = _device.library("tab_scan").zrs_tab_scan
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, I, P, P, L, I, P, I, I, I, I, P, P, I, P, I, P]
+        fn.argtypes = [P, I, P, P, L, I, P, I, I, I, I, P, P, I, P, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def tab_scan_cuda(words, tabf, tabq, n_valid, start: int, *, nice, good, max_lazy):
+def tab_scan_cuda(words, tabf, tabq, n_valid, start: int, *, nice, good, max_lazy,
+                  tile: int = TILE):
     """Launch K10 over CUDA operands: words int32 [B, W], tabf / tabq
     int32 [B, tabn] (rows contiguous, one row stride for both), n_valid
-    int [B]."""
+    int [B]; one block of RESOLVE_THREADS a chunk, `tile` resolved slots
+    (4 * tile bytes of dynamic shared memory) at a time."""
     _device.require_cuda("tab_scan", words, tabf, tabq, n_valid)
+    tile = _check_tile("tab_scan", tile)
     B, W = words.shape
     if words.dtype != torch.int32 or tabf.dtype != torch.int32 or tabq.dtype != torch.int32:
         raise ValueError("tab_scan: words and tables must be int32")
@@ -687,7 +711,7 @@ def tab_scan_cuda(words, tabf, tabq, n_valid, start: int, *, nice, good, max_laz
     rc = _tab_lib()(
         _device.ptr(words), W, _device.ptr(tabf), _device.ptr(tabq), tabf.stride(0),
         tabn, _device.ptr(n_valid), int(start), int(nice), int(good), int(max_lazy),
-        _device.ptr(mpos), _device.ptr(mld), C, _device.ptr(st), B,
+        _device.ptr(mpos), _device.ptr(mld), C, _device.ptr(st), B, tile,
         _device.stream_of(words),
     )
     _device.check(rc, "tab_scan")
