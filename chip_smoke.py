@@ -345,6 +345,112 @@ def _flip(b: bytes, i: int) -> bytes:
     return bytes(b)
 
 
+class BitWriter:
+    """An RFC 1951 bit stream, LSB first, Huffman codes MSB first: fixed
+    blocks of literals and (length, dist) pairs, and stored blocks."""
+
+    LBASE = (3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59, 67, 83, 99,
+             115, 131, 163, 195, 227, 258)
+    DBASE = (1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385, 513, 769, 1025,
+             1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385, 24577)
+
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def put(self, v: int, nbits: int) -> None:
+        self.acc |= v << self.n
+        self.n += nbits
+        while self.n >= 8:
+            self.out.append(self.acc & 0xFF)
+            self.acc >>= 8
+            self.n -= 8
+
+    def code(self, c: int, nbits: int) -> None:
+        self.put(int(format(c, f"0{nbits}b")[::-1], 2), nbits)
+
+    def sym(self, s: int) -> None:
+        if s < 144:
+            self.code(0x30 + s, 8)
+        elif s < 256:
+            self.code(0x190 + s - 144, 9)
+        elif s < 280:
+            self.code(s - 256, 7)
+        else:
+            self.code(0xC0 + s - 280, 8)
+
+    def fixed_block(self, items, final: int) -> "BitWriter":
+        self.put(final, 1)
+        self.put(1, 2)
+        for it in items:
+            if isinstance(it, int):
+                self.sym(it)
+                continue
+            length, dist = it
+            i = max(k for k in range(29) if self.LBASE[k] <= length)
+            self.sym(257 + i)
+            self.put(length - self.LBASE[i], 0 if i < 8 or i == 28 else (i - 4) // 4)
+            j = max(k for k in range(30) if self.DBASE[k] <= dist)
+            self.code(j, 5)
+            self.put(dist - self.DBASE[j], 0 if j < 4 else j // 2 - 1)
+        self.sym(256)
+        return self
+
+    def stored_block(self, data: bytes, final: int) -> "BitWriter":
+        self.put(final, 1)
+        self.put(0, 2)
+        if self.n:
+            self.put(0, 8 - self.n)
+        self.out += len(data).to_bytes(2, "little") + (len(data) ^ 0xFFFF).to_bytes(2, "little")
+        self.out += data
+        return self
+
+    def done(self) -> bytes:
+        if self.n:
+            self.put(0, 8 - self.n)
+        return bytes(self.out)
+
+
+def expand(items, history: bytes = b"") -> bytes:
+    """The bytes that literals and (length, dist) pairs stand for."""
+    out = bytearray(history)
+    for it in items:
+        if isinstance(it, int):
+            out.append(it)
+        else:
+            for _ in range(it[0]):
+                out.append(out[-it[1]])
+    return bytes(out[len(history) :])
+
+
+def k6_design_lanes(np, corpus: bytes, max_out: int) -> list:
+    """K6 lanes for the edges of its design: (label, streams, out_lens,
+    max_out, windows, clean). A stored block of 65,535 bytes after a fixed
+    block (it crosses the 4 KiB copy pieces and the 64 KiB ring);
+    distances 1, 2, 3, 31, 32 and 33 (the period rule); matches of distance
+    32,768 into a 32 KiB window; literals run past max_out (counted) and a
+    match that would cross it; an output several times the ring; one stream
+    of 1.2 MB at B=1."""
+    rnd = np.random.default_rng(8).integers(0, 256, 100_000, dtype=np.uint8).tobytes()
+    dists = list(rnd[:40]) + [(258, 1), (17, 2), (40, 3), (100, 31), (64, 32), (70, 33), (3, 1),
+                              (5, 2), (31, 31), (33, 32), (32, 33), (258, 31)]
+    history = corpus[120_000:152_768]
+    into = [(258, 32768), (10, 32763), (3, 32768), *b"abc", (40, 20_000), (258, 3), (100, 32768)]
+    stored = BitWriter().fixed_block(list(rnd[:1001]), 0).stored_block(rnd[1001:66_536], 1).done()
+    past = [BitWriter().fixed_block(list(rnd[: max_out + 100]) + [(3, 1)], 1).done(),
+            BitWriter().fixed_block(list(rnd[: max_out - 100]) + [(258, 1)], 1).done()]
+    return [
+        ("stored 65,535 after fixed", [stored], [66_536], 70_000, None, True),
+        ("distances 1-33", [BitWriter().fixed_block(dists, 1).done()], [len(expand(dists))],
+         max_out, None, True),
+        ("distance 32,768 into the window", [BitWriter().fixed_block(into, 1).done()],
+         [len(expand(into, history))], max_out, [history], True),
+        ("past max_out", past, [max_out + 103, max_out + 158], max_out, None, False),
+        ("300 kB, the ring four times over", [_raw(corpus[:300_000])], [300_000], 300_000, None,
+         True),
+        ("one 1.2 MB stream", [_raw(corpus[:1_200_000])], [-1], 1_200_000, None, True),
+    ]
+
+
 def k6_against_plain(torch, dev, IK, streams, out_lens, max_out, *, start_bits=None, win=None,
                      stop=False) -> tuple[int, list]:
     """K6 and its plain version on the same lanes: max abs err over
@@ -371,6 +477,35 @@ def k6_err(torch, got, want, max_out) -> int:
         n = min(int(want[1][r]), max_out)
         pairs.append((got[0][r, :n], want[0][r, :n]))
     return max_abs(pairs)
+
+
+class k6_events:
+    """Within the block, every K6 launch is bracketed by CUDA events; the
+    list it yields holds each launch's device ms once the block ends."""
+
+    def __init__(self, torch, IK):
+        self.torch, self.IK, self.ms, self.events = torch, IK, [], []
+
+    def __enter__(self):
+        real = self.real = self.IK.decode_streams_cuda
+
+        def timed(*a, **k):
+            e0 = self.torch.cuda.Event(enable_timing=True)
+            e1 = self.torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real(*a, **k)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+
+        self.IK.decode_streams_cuda = timed
+        return self.ms
+
+    def __exit__(self, *exc):
+        self.IK.decode_streams_cuda = self.real
+        self.torch.cuda.synchronize()
+        self.ms.extend(e0.elapsed_time(e1) for e0, e1 in self.events)
+        return False
 
 
 def crc_phase(torch, dev, corpus, rows) -> None:
@@ -501,6 +636,19 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
         raise AssertionError(f"K6 disagrees with its plain version: max abs err {err}")
     if st2[0] != (len(region), False) or st2[1][1] or st2[2][1]:
         raise AssertionError(f"K6 window/start-bit/stop lanes: {st2}")
+    design = []
+    for label, streams, out_lens, mo, windows, clean in k6_design_lanes(np, corpus, max_out):
+        w = None
+        if windows is not None:
+            w = np.zeros((len(streams), 32768), np.uint8)
+            for i, h in enumerate(windows):
+                w[i, 32768 - len(h) :] = np.frombuffer(h, np.uint8)
+            w = torch.from_numpy(w)
+        e, st3 = k6_against_plain(torch, dev, IK, streams, out_lens, mo, win=w)
+        if e or any(bad == clean for _, bad in st3):
+            raise AssertionError(f"K6 lanes '{label}': max abs err {e}, (produced, bad) {st3}")
+        design.append(f"{label} {[p for p, _ in st3]}")
+        err = max(err, e)
     words, bits = IK.pack_streams_words(bodies)
     args = [torch.from_numpy(words.view("i4")).to(dev), torch.zeros(len(bodies), dtype=torch.int32, device=dev),
             torch.from_numpy(bits).to(dev), torch.tensor(sizes, dtype=torch.int32, device=dev)]
@@ -529,8 +677,10 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
         bnd=bound(comp + 48 * len(bodies) + len(corpus), 10 * len(corpus)),
     )
     print(f"phase 11 K6: {k} chunks and {len(lanes) - k} stored/fixed/empty/corrupt lanes, "
-          f"{len(wlanes)} window/start-bit/stop lanes equal to plain; {len(bodies)} chunks in one "
-          f"launch equal to plain and the corpus", flush=True)
+          f"{len(wlanes)} window/start-bit/stop lanes, and the design's lanes ("
+          f"{'; '.join(design)} bytes) equal to plain; {len(bodies)} chunks in one launch equal "
+          f"to plain and the corpus; launch: a block of 64 threads a stream, "
+          f"{IK.SMEM_BYTES} bytes of dynamic shared memory", flush=True)
 
     # -- phase 12: the K6 route of the decode, end to end -----------------
     PL._FALLBACKS.clear()  # phase 8 counted its undersized cap
@@ -592,15 +742,20 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
     parts, states = [], []
     # a level-6 block holds up to 16,384 symbols: on this repeated tar it
     # can cover megabytes, past the default 256 KiB overshoot budget
-    for out_b, st in zt.device_decode_streaming(raw, step_bytes=1024 * 1024, max_out=len(corpus)):
-        parts.append(out_b)
-        states.append(st)
+    with k6_events(torch, IK) as k6_ms:
+        for out_b, st in zt.device_decode_streaming(raw, step_bytes=1024 * 1024,
+                                                    max_out=len(corpus)):
+            parts.append(out_b)
+            states.append(st)
     stream_s = time.perf_counter() - t0
     if b"".join(parts) != corpus or states[-1].adler != zlib.adler32(corpus):
         raise AssertionError("device_decode_streaming is not the corpus")
     result["streaming_s"] = stream_s
+    result["streaming_k6_ms"] = k6_ms
     print(f"phase 15 checkpoints: {len(states)} steps of 1 MiB over a {len(raw)}-byte raw "
-          f"stream equal the corpus, adler {states[-1].adler:#010x}, {stream_s:.3f} s", flush=True)
+          f"stream equal the corpus, adler {states[-1].adler:#010x}, {stream_s:.3f} s, of which "
+          f"K6 {sum(k6_ms):.3f} ms by CUDA events over {len(k6_ms)} launches "
+          f"({', '.join(f'{x:.3f}' for x in k6_ms)})", flush=True)
 
     # -- phase 16: region decode with windows and sub-byte starts ---------
     r_bodies, r_sizes, r_windows, r_starts = [], [], [], []
@@ -612,13 +767,16 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
         r_windows.append(corpus[max(0, prev_out - 32768) : prev_out])
         prev_bit, prev_out = st.bit, st.produced
     t0 = time.perf_counter()
-    regions = RI.decompress_chunks(r_bodies, r_sizes, r_windows, r_starts, engine="kernel")
+    with k6_events(torch, IK) as k6_ms:
+        regions = RI.decompress_chunks(r_bodies, r_sizes, r_windows, r_starts, engine="kernel")
     region_s = time.perf_counter() - t0
     if b"".join(regions) != corpus or not any(r_starts):
         raise AssertionError("the primed regions are not the corpus")
     result["regions_s"] = region_s
+    result["regions_k6_ms"] = k6_ms
     print(f"phase 16 regions: {len(regions)} regions, start bits {r_starts}, windows of 32 KiB, "
-          f"equal the corpus in {region_s:.3f} s", flush=True)
+          f"equal the corpus in {region_s:.3f} s, of which K6 {sum(k6_ms):.3f} ms by CUDA events "
+          f"over {len(k6_ms)} launch", flush=True)
     return result
 
 
@@ -1299,8 +1457,19 @@ def main() -> int:
     for r in range(bsz):
         m = int(nm_k[r])
         pairs += [(chase[0][r, :m], plain[0][r, :m]), (chase[1][r, :m], plain[1][r, :m])]
+    # every array and every bin of every bank, at the whole span and at
+    # tiles of MIN_TILE (~32 tile edges a chunk), on the batch and on the
+    # crafted lanes (an overflowing lane past one tile, far match sources)
+    small = DK.hop_chase_cuda(words4, htab, dn, dict_size, cap_g, tile=DK.MIN_TILE)
+    for got in (chase, small):
+        pairs += [(got[2], plain[2]), (got[3], plain[3])]
+        for r in range(bsz):
+            m = int(nm_k[r])
+            pairs += [(got[0][r, :m], plain[0][r, :m]), (got[1][r, :m], plain[1][r, :m])]
     for lanes in hop_crafted_lanes(DK, dev, words4, htab, dn, dict_size, cap_g):
-        pairs += hop_pairs(DK.hop_chase_cuda, DK.hop_chase_plain, lanes, DK.CAP_M)
+        for tile in (DK.TILE, DK.MIN_TILE):
+            pairs += hop_pairs(lambda *a, t=tile: DK.hop_chase_cuda(*a, tile=t),
+                               DK.hop_chase_plain, lanes, DK.CAP_M)
     err = max_abs(pairs)
     if err:
         raise AssertionError(f"K2 disagrees with its plain version: max abs err {err}")
@@ -1309,7 +1478,7 @@ def main() -> int:
     span = (dn - dict_size).long()
     nb = int((span + 8 * nmatch + 8 * nmatch + 32 + 4 * 4 * 320).sum())
     rows["hop_chase"] = dict(
-        source="zlib_rs_tpu_torch/csrc/hop_chase.cu",
+        source="zlib_rs_tpu_torch/csrc/hop_chase_il.cu",
         replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:895",
         max_abs_err=err,
         ms=event_ms(torch, lambda: DK.hop_chase_cuda(words4, htab, dn, dict_size, cap_g), 5),
@@ -1317,8 +1486,10 @@ def main() -> int:
         bnd=bound(nb, int((span + 20 * nmatch).sum())),
     )
     k = min(COMPARE_ROWS, bsz)
-    print(f"phase 2 K2: {bsz} chunks ({int(nm_k.sum())} matches) equal to plain, and an "
-          f"overflowing lane and far match sources", flush=True)
+    print(f"phase 2 K2: {bsz} chunks ({int(nm_k.sum())} matches) equal to plain in every bin "
+          f"at tiles of {DK.TILE} and {DK.MIN_TILE}, and an overflowing lane and far match "
+          f"sources; launch: K12's body with K2's recount, {DK.RESOLVE_THREADS} threads a "
+          f"block, {4 * DK.TILE} bytes of dynamic shared memory", flush=True)
 
     # -- phase 3: K3 against its plain version, with and without seeds -----
     mpos, mld, nm, kbad, freq = DK._hop_post(*chase)

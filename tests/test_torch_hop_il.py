@@ -342,8 +342,9 @@ def _segment_chase(step, t0, tn, edges, threads=512):
     return frm, hi, exits, cnt
 
 
-def _tiled_chase(w, ht, nv, start, cap_g, tile, mpos_r, mld_r, edges):
-    """The chase over resolved tiles; returns (nmatch, bad)."""
+def _tiled_chase(w, ht, nv, start, cap_g, tile, mpos_r, mld_r, edges, ends_r):
+    """The chase over resolved tiles; returns (nmatch, bad). Each match's
+    true end goes to ends_r (K2's scratch)."""
     t0, mc = start, 0
     while t0 < nv:
         tn = min(nv - t0, tile)
@@ -353,7 +354,7 @@ def _tiled_chase(w, ht, nv, start, cap_g, tile, mpos_r, mld_r, edges):
         chased = _segment_chase(step, t0, tn, edges)
         if chased is None:  # K2's loop, by one thread, to the end of the span
             edges["serial"] += 1
-            return _serial_chase(w, ht, nv, t0, mc, cap_g, mpos_r, mld_r)
+            return _serial_chase(w, ht, nv, t0, mc, cap_g, mpos_r, mld_r, ends_r)
         entry, hi, exits, cnt = chased
         j = mc
         for k in range(len(entry)):  # the prefix sum of the counts and the last walk
@@ -364,6 +365,7 @@ def _tiled_chase(w, ht, nv, start, cap_g, tile, mpos_r, mld_r, edges):
                     ip, sl = m
                     mpos_r[j] = ip  # slot CAP_M takes the overflowing match
                     mld_r[j] = (((sl >> 16) & 0xFF) << 15) | (((sl & 0xFFFF) - 1) & M32)
+                    ends_r[j] = ip + ((sl >> 16) & 0xFF) + tdk.MIN_MATCH
                     j += 1
         mc += sum(cnt)
         if mc > tdk.CAP_M:
@@ -373,7 +375,7 @@ def _tiled_chase(w, ht, nv, start, cap_g, tile, mpos_r, mld_r, edges):
     return mc, False
 
 
-def _serial_chase(w, ht, nv, i0, mc, cap_g, mpos_r, mld_r):
+def _serial_chase(w, ht, nv, i0, mc, cap_g, mpos_r, mld_r, ends_r):
     """K2's loop from i0 with mc matches emitted: (nmatch, bad)."""
     bad = False
     while i0 < nv and not bad:
@@ -388,6 +390,7 @@ def _serial_chase(w, ht, nv, i0, mc, cap_g, mpos_r, mld_r):
         slot = min(mc, tdk.CAP_M)
         mpos_r[slot] = ip
         mld_r[slot] = (((mlen - tdk.MIN_MATCH) << 15) | ((dist - 1) & M32)) & M32
+        ends_r[slot] = ip + mlen
         bad = mc >= tdk.CAP_M
         mc += 1
         i0 = ip + mlen
@@ -400,18 +403,30 @@ def _count_words(w, hist, p, e, ks):
         tdk._count_span(w, hist, p + 4 * k, min(e, p + 4 * k + 4))
 
 
-def _span_replay(w, mpos_r, mld_r, mc, bad, start, nv, hist, edges, threads=512, warps=16):
+def _span_replay(w, mpos_r, mld_r, ends_r, mc, bad, start, nv, hist, edges, threads=512,
+                 warps=16, k2_rule=False):
     """The two passes of the span count: a thread a span, its first
-    SHORT_WORDS words; then a warp a longer span, lanes 32 words apart."""
-    meff = 0 if bad else mc
+    SHORT_WORDS words; then a warp a longer span, lanes 32 words apart.
+    Span j ends at match j for j < nm and at n_valid for the tail span.
+    A bad lane under K12's rule has one span, the whole; under K2's rule
+    (`k2_rule`) its CAP_M + 1 spans end at matches, and after them bank 0
+    is cleared and the whole span counted again, a word a thread. K12
+    reads a match's end back from its mld, K2 from the true ends."""
+    nm = mc if not bad or k2_rule else 0
+    nspan = mc if bad and k2_rule else nm + 1
     longs = []
 
     def span(j):
-        p = start if j == 0 else int(mpos_r[j - 1]) + (int(mld_r[j - 1]) >> 15) + tdk.MIN_MATCH
-        return p, (int(mpos_r[j]) if j < meff else nv)
+        if j == 0:
+            p = start
+        elif k2_rule:
+            p = int(ends_r[j - 1])
+        else:
+            p = int(mpos_r[j - 1]) + (int(mld_r[j - 1]) >> 15) + tdk.MIN_MATCH
+        return p, (int(mpos_r[j]) if j < nm else nv)
 
     for t in range(threads):
-        for j in range(t, meff + 1, threads):
+        for j in range(t, nspan, threads):
             p, e = span(j)
             nw = (e - p + 3) // 4 if e > p else 0
             if e > p:
@@ -425,11 +440,17 @@ def _span_replay(w, mpos_r, mld_r, mc, bad, start, nv, hist, edges, threads=512,
             p, e = span(j)
             for lane in range(32):
                 _count_words(w, hist, p, e, range(SHORT_WORDS + lane, (e - p + 3) // 4, 32))
+    if bad and k2_rule:
+        edges["k2_recount"] += 1
+        hist[: tdk.N_BINS] = [0] * tdk.N_BINS
+        nw = (nv - start + 3) // 4 if nv > start else 0
+        for t in range(threads):
+            _count_words(w, hist, start, nv, range(t, nw, threads))
 
 
-def _k12_model(words, htab, n_valid, start, cap_g, tile):
+def _k12_model(words, htab, n_valid, start, cap_g, tile, k2_rule=False):
     """The design over a batch: (mpos, mld, st, freq) as int64 arrays, and
-    the edges met."""
+    the edges met; `k2_rule` counts a bad lane as K2 does."""
     B = words.shape[0]
     C = tdk.CAP_M + 8
     w_np = words.numpy().view(np.uint32)
@@ -437,12 +458,13 @@ def _k12_model(words, htab, n_valid, start, cap_g, tile):
     st, freq = np.zeros((B, 8), np.int64), np.zeros((B, 4 * 320), np.int64)
     edges = dict.fromkeys(("serial", "tiles", "rounds", "fixup", "match_ends_on_edge",
                            "literal_across_edge", "dead_0", "dead_1", "dead_2", "dead_3",
-                           "long_spans"), 0)
+                           "long_spans", "k2_recount"), 0)
     for r in range(B):
         w, ht, nv = w_np[r].tolist(), htab[r].tolist(), int(n_valid[r])
-        mc, bad = _tiled_chase(w, ht, nv, start, cap_g, tile, mpos[r], mld[r], edges)
+        ends = np.zeros(C, np.int64)
+        mc, bad = _tiled_chase(w, ht, nv, start, cap_g, tile, mpos[r], mld[r], edges, ends)
         hist = [0] * (4 * 320)
-        _span_replay(w, mpos[r], mld[r], mc, bad, start, nv, hist, edges)
+        _span_replay(w, mpos[r], mld[r], ends, mc, bad, start, nv, hist, edges, k2_rule=k2_rule)
         st[r, :2], freq[r] = (mc, int(bad)), hist
     return mpos, mld, st, freq, edges
 
@@ -537,8 +559,9 @@ def _assert_model_equal(model, plain, rows, dead_bins=True, slots=tdk.CAP_M + 1)
                                       want if dead_bins else want[:, :319])
 
 
-@pytest.mark.parametrize("case", K12_CASES)
-def test_resolved_chase_model_equals_plain_and_pallas(batches, case):
+def _case_inputs(batches, case):
+    """(spec, words u32, htab, n_valid, start, cap_g, tile, the edges the
+    K12 model must meet) of a case of K12_CASES."""
     spec = _k12_case(case)
     if spec is None or spec == "far":
         b = batches["even"]
@@ -548,9 +571,13 @@ def test_resolved_chase_model_equals_plain_and_pallas(batches, case):
         if spec == "far":  # every match source before the row: dist 0xFFFF
             w4, htab, nv = w4[:2], htab[:2], nv[:2]
             htab[(htab >> 30) > 0] |= 0xFFFF
-        start, cap_g = DICT, CAP_G
-    else:
-        w4, htab, nv, start, cap_g, tile, want = spec
+        return spec, w4, htab, nv, DICT, CAP_G, tile, want
+    return (spec, *spec)
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_resolved_chase_model_equals_plain_and_pallas(batches, case):
+    spec, w4, htab, nv, start, cap_g, tile, want = _case_inputs(batches, case)
     st = interop.state_from_numpy({"words4": w4, "htab": htab, "n_valid": nv}, device="cpu")
     model = _k12_model(st["words4"], htab, nv, start, cap_g, tile)
     edges = model[4]
@@ -579,3 +606,69 @@ def test_resolved_chase_model_equals_plain_and_pallas(batches, case):
     _assert_model_equal(model, [torch.from_numpy(np.asarray(a).astype(np.uint32).view(np.int32))
                                 for a in jax_model], range(lanes), dead_bins=False,
                         slots=tdk.CAP_M)
+
+
+# -- K2: the same body under K2's overflow rule ----------------------------
+#
+# K2 on the card (`zrs_hop_chase`) is K12's body with two differences, both
+# in the histogram: a lane that overflows CAP_M counts its CAP_M + 1 spans
+# that end at a match, then clears bank 0 and counts its whole span again
+# (banks 1-3 keep their counts from before the overflow, dead bins
+# included); and every span starts at the previous match's true end, which
+# mld cannot hold for a dist past 2^15.
+
+_JAX_K2 = {}
+
+
+def _pallas_k2(w4, htab, n_valid, start, cap_g):
+    """The JAX K2 (`_make_kernel_hop`) in interpret mode over a batch, one
+    grid step a lane, as `scan_chunks_hop_pallas` launches it: the raw
+    (mpos, mld, st, freq), every bank."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    B, W = w4.shape
+    tabn = 4 * W - start
+    meta = np.zeros((B, 1, 8), np.int32)
+    meta[:, 0, 0] = n_valid
+    meta[:, 0, 1] = start
+    spec = lambda n: pl.BlockSpec((1, 1, n), lambda b: (b, 0, 0), memory_space=pltpu.SMEM)
+    shape = lambda n, dt: jax.ShapeDtypeStruct((B, 1, n), dt)
+    C = tdk.CAP_M + 8
+    out = pl.pallas_call(
+        jdk._make_kernel_hop(cap_g), grid=(B,), interpret=True,
+        in_specs=[spec(8), spec(W), spec(tabn)],
+        out_specs=[spec(C), spec(C), spec(8), spec(4 * 320)],
+        out_shape=[shape(C, jnp.int32), shape(C, jnp.uint32), shape(8, jnp.int32),
+                   shape(4 * 320, jnp.int32)],
+    )(jnp.asarray(meta), jnp.asarray(w4.reshape(B, 1, W)),
+      jnp.asarray(np.ascontiguousarray(htab[:, start : start + tabn]).reshape(B, 1, tabn)))
+    return [np.asarray(x)[:, 0] for x in out]
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_resolved_chase_model_k2_rule_equals_plain_and_pallas(batches, case):
+    spec, w4, htab, nv, start, cap_g, tile, _want = _case_inputs(batches, case)
+    st = interop.state_from_numpy({"words4": w4, "htab": htab, "n_valid": nv}, device="cpu")
+    model = _k12_model(st["words4"], htab, nv, start, cap_g, tile, k2_rule=True)
+    edges = model[4]
+    plain = tdk.hop_chase_plain(st["words4"], st["htab"], st["n_valid"], start, cap_g)
+    _assert_model_equal(model, plain, range(len(nv)))  # every bin, dead bins included
+    if case == "overflow_lane":
+        assert edges["k2_recount"] == 1 and model[2][0, :2].tolist() == [tdk.CAP_M + 1, 1]
+        lits = model[3][0].reshape(4, 320)[:, :256].sum()
+        assert lits == nv[0] + K2_EXTRA_LITERALS == 135_026
+        k12 = _k12_model(st["words4"], htab, nv, start, cap_g, tile)
+        assert k12[3][0].reshape(4, 320)[:, :256].sum() == nv[0] == 99_104
+    if spec == "far":
+        # mld's dist - 1 spills into the length field: K12's replay and
+        # K2's true ends give other spans, and the model is K2's
+        k12 = tdk.hop_chase_il_plain(st["words4"], st["htab"], st["n_valid"], start, cap_g)
+        assert not torch.equal(k12[3], plain[3])
+        return  # the JAX kernel reads a source before the row as the TPU does
+    key = (case if spec is not None else "bash", tile if spec is not None else 0)
+    if key not in _JAX_K2:
+        _JAX_K2[key] = _pallas_k2(w4, htab, nv, start, cap_g)
+    jax_k2 = [torch.from_numpy(np.asarray(a).astype(np.uint32).view(np.int32))
+              for a in _JAX_K2[key]]
+    # every bin; the JAX kernel writes slot CAP_M whenever a lane emits nothing
+    _assert_model_equal(model, jax_k2, range(len(nv)), slots=tdk.CAP_M)

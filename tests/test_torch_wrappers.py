@@ -120,7 +120,9 @@ KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_s
 
 def test_every_kernel_has_a_case():
     assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK) for n in m.launches)
-    assert len(_device.SOURCES) == len(KERNELS)
+    # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 1
+    assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -150,22 +152,25 @@ def test_chain_scan_hands_the_kernel_its_scratch(stub, inputs, monkeypatch):
     assert mpos.shape == mld.shape == (B, C) and st.shape == (B, 8)
 
 
-@pytest.mark.parametrize("name", ["hop_chase_il", "tab_scan"])
+@pytest.mark.parametrize("name", ["hop_chase", "hop_chase_il", "tab_scan"])
 def test_resolve_chase_wrappers_hand_the_kernel_its_tile(stub, inputs, monkeypatch, name):
-    """K12's and K10's C entries take the tile (the resolved slots a block
-    keeps in dynamic shared memory, 4 bytes each) right before the stream:
-    TILE by default, so one tile holds a 32 KiB chunk's span, any size in
-    [MIN_TILE, MAX_TILE] on request, and a size outside refused before the
-    launch. K2's entry takes no tile."""
+    """K2's, K12's and K10's C entries take the tile (the resolved slots a
+    block keeps in dynamic shared memory, 4 bytes each) right before the
+    stream: TILE by default, so one tile holds a 32 KiB chunk's span, any
+    size in [MIN_TILE, MAX_TILE] on request, and a size outside refused
+    before the launch. K2 and K12 are two entries of the hop_chase_il
+    library."""
     monkeypatch.setattr(_device, "ptr", lambda t: t)
     i = inputs
     call = {
+        "hop_chase": lambda **k: DK.hop_chase_cuda(i["w4"], i["htab"], i["dn"], i["dsz"], 24, **k),
         "hop_chase_il": lambda **k: DK.hop_chase_il_cuda(i["w4"], i["htab"], i["dn"], i["dsz"], 24,
                                                          **k),
         "tab_scan": lambda **k: DK.tab_scan_cuda(i["w4"], i["htab"], i["htab"], i["dn"], i["dsz"],
                                                  nice=8, good=4, max_lazy=4, **k),
     }[name]
-    entry = lambda: getattr(_device.library(name), f"zrs_{name}")
+    lib = "tab_scan" if name == "tab_scan" else "hop_chase_il"
+    entry = lambda: getattr(_device.library(lib), f"zrs_{name}")
     call()
     B = i["w4"].shape[0]
     assert entry().args[-3:] == (B, DK.TILE, 0)
@@ -177,5 +182,30 @@ def test_resolve_chase_wrappers_hand_the_kernel_its_tile(stub, inputs, monkeypat
         with pytest.raises(ValueError, match="tile"):
             call(tile=bad)
     assert DK.launches[name] == 2 and len(stub) == 2
-    DK.hop_chase_cuda(i["w4"], i["htab"], i["dn"], i["dsz"], 24)
-    assert len(_device.library("hop_chase").zrs_hop_chase.args) == 14
+    if name != "tab_scan":
+        # K2 hands the kernel a B x C int32 scratch of match ends, K12 none
+        args = entry().args
+        C = DK.CAP_M + 8
+        assert len(args) == 16 and args[9] == C
+        assert (args[12] is None) == (name == "hop_chase_il")
+        if name == "hop_chase":
+            assert args[12].shape == (B, C) and args[12].dtype == torch.int32
+
+
+def test_inflate_wrapper_asks_for_its_shared_memory(stub, inputs, monkeypatch):
+    """K6's C entry takes (words, B, W, meta, win, WW, out, OW, st, smem,
+    stream): smem is a block's dynamic shared memory, the 64 KiB output
+    ring (every distance is at most 32 KiB, so a source lies in it beside
+    the bytes not yet stored), above the 48 KiB a launch gets without
+    asking and small enough, with the static tables, for three blocks an
+    SM."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    _calls(inputs)["inflate"][1]()
+    args = _device.library("inflate").zrs_inflate.args
+    B = len(inputs["sizes"])
+    assert len(args) == 11 and args[1] == B and args[-2] == IK.SMEM_BYTES and args[-1] == 0
+    assert IK.SMEM_BYTES >= 2 * 32768
+    static_tables = 4 * (IK.LL_CAP + IK.D_CAP + IK.CL_CAP) + 4 * 320 + 2 * 320 + 5 * 64
+    assert 48 * 1024 < IK.SMEM_BYTES and 3 * (IK.SMEM_BYTES + static_tables + 1024) <= 232_448
+    out, meta, st = args[6], args[3], args[8]
+    assert out.shape == (B, args[7]) and meta.shape == (B, IK.META_WORDS) and st.shape == (B, 4)

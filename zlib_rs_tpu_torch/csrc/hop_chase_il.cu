@@ -1,15 +1,20 @@
-// K12: the hop chase as a parallel resolve into shared memory, a parallel
-// chase over it and a parallel literal histogram, one block per chunk.
+// K2 and K12: the hop chase as a parallel resolve into shared memory, a
+// parallel chase over it and a parallel literal histogram, one block per
+// chunk. One templated body serves both kernels; they differ only in how
+// a lane that overflows CAP_M counts its literals.
 //
-// Replaces zlib_rs_tpu/ops/pallas/deflate_kernel.py:scan_chunks_hop_pallas
-// under ZRS_TPU_HOP_IL=2 (body _make_kernel_hop_il(cap_g, 2)). It computes
-// K2's parse (csrc/hop_chase.cu) and counts the literals afterwards, from
-// the match stream. The reference interleaves two chunks in one grid step
-// so that their SMEM loads overlap; that pairing is a TPU layout, and a
-// block of the card gains nothing from it, so each chunk has its own block.
+// Replaces zlib_rs_tpu/ops/pallas/deflate_kernel.py:scan_chunks_hop_pallas,
+// both its default body _make_kernel_hop (K2, `zrs_hop_chase`, the level
+// 3-7 encode's chase) and its ZRS_TPU_HOP_IL=2 body _make_kernel_hop_il(
+// cap_g, 2) (K12, `zrs_hop_chase_il`). K2's reference walks the chunk in
+// one serial loop and counts each literal span as it passes; this body
+// computes the same parse and counts the spans afterwards, from the match
+// stream. The reference's K12 interleaves two chunks in one grid step so
+// that their SMEM loads overlap; that pairing is a TPU layout, and a block
+// of the card gains nothing from it, so each chunk has its own block.
 //
-// Why resolving before the chase is exact. K2's serial loop (hop_chase.cu,
-// the `while (i0 < n_valid && !bad)` body) does at each step: read the slot
+// Why resolving before the chase is exact. K2's serial loop (`Serial::run`
+// below, deflate_kernel.py `_chase_row`) does at each step: read the slot
 // at i0; if it is a literal slot, jump by its delta and read the slot
 // where it lands, as a match entry; then recover the byte-exact length of
 // that match entry (the word extension where the table length is cap_g,
@@ -65,11 +70,25 @@
 // 320 bins (bank k takes byte k of each 4-byte read; a byte past the span
 // end lands in the dead bin 319 of its bank), by shared atomics. A thread
 // counts the first kShortWords words of each span it takes; a warp
-// finishes a longer span, its lanes 32 words apart. A bad lane's parse
-// degrades to all literals downstream, so its whole span [start, n_valid)
-// is counted once. That is the one difference from K2, whose recount
-// clears bank 0 only and keeps banks 1-3 from before the overflow; give K2
-// this body with its own overflow rule and the two kernels are one.
+// finishes a longer span, its lanes 32 words apart. Shared atomics make
+// the order of the counts free, so the bins are the serial loop's.
+//
+// Where a span starts. K12 reads a match's end back from its mld, as its
+// reference does: (len - 3) << 15 | (dist - 1), which holds the length
+// only while dist - 1 < 2^15. K2's serial loop jumps by the true length,
+// so under kK2 the chase also writes each match's end into a scratch row
+// (`ends`, B x C int32 from the wrapper) and the spans start there. The
+// two differ only on tables whose dist runs past the 32 KiB window.
+//
+// The overflow rule. A bad lane (more than CAP_M matches) degrades to an
+// all-literal parse downstream. K12 counts its whole span [start, n_valid)
+// once. K2 keeps its reference's rule: the serial loop has counted the
+// spans before matches 0..CAP_M when it stops, then clears bank 0 only and
+// counts the whole span again, so banks 1-3 keep their counts from before
+// the overflow, the dead bins 319 included. The template argument kK2
+// picks the rule: under it a bad lane counts its CAP_M + 1 spans that end
+// at a match, then, after a barrier, bank 0 is cleared and the whole span
+// is counted by all threads.
 //
 // Bound on the H100: the resolve reads a few words a match entry (more
 // where a table length hits cap_g and the match runs on), the chase a few
@@ -197,6 +216,7 @@ struct Serial {
   const int32_t* ht;
   int32_t* mp;
   int32_t* md;
+  int32_t* me;  // K2: each match's end; null for K12
   int nv, cap_g;
   int i0, mc;
   bool bad;
@@ -215,6 +235,7 @@ struct Serial {
       const int mlen = exact_len(w, ip, (e >> 16) & 0x7F, dist, min(nv - ip, kMaxMatch), cap_g);
       const int slot = mc < kCapM ? mc : kCapM;
       mp[slot] = ip;
+      if (me) me[slot] = ip + mlen;
       md[slot] = (int32_t)(((uint32_t)(mlen - kMinMatch) << 15) | (uint32_t)(dist - 1));
       bad = mc >= kCapM;
       mc += 1;
@@ -236,11 +257,13 @@ __device__ __forceinline__ void count_words(const uint32_t* __restrict__ w, int*
   }
 }
 
+template <bool kK2>
 __global__ void __launch_bounds__(kThreads)
-hop_chase_il(const uint32_t* __restrict__ words, int W, const int32_t* __restrict__ htab,
+hop_chase_body(const uint32_t* __restrict__ words, int W, const int32_t* __restrict__ htab,
              long long htab_stride, const int32_t* __restrict__ n_valid_arr, int start,
              int cap_g, int32_t* __restrict__ mpos, int32_t* __restrict__ mld, int C,
-             int32_t* __restrict__ st, int32_t* __restrict__ freq, int tile) {
+             int32_t* __restrict__ st, int32_t* __restrict__ freq,
+             int32_t* __restrict__ ends, int tile) {
   extern __shared__ uint32_t R[];  // the tile's slots; then the long spans
   __shared__ int hist[4 * kBins];
   __shared__ int s_from[kThreads], s_exit[kThreads], s_cnt[kThreads], s_wsum[kWarps];
@@ -253,6 +276,7 @@ hop_chase_il(const uint32_t* __restrict__ words, int W, const int32_t* __restric
   const int32_t* ht = htab + (long long)row * htab_stride;
   int32_t* mp = mpos + (long long)row * C;
   int32_t* md = mld + (long long)row * C;
+  int32_t* me = kK2 ? ends + (long long)row * C : nullptr;
   const int nv = n_valid_arr[row];
   for (int k = tid; k < 4 * kBins; k += kThreads) hist[k] = 0;
   int cnt = 0;
@@ -306,7 +330,7 @@ hop_chase_il(const uint32_t* __restrict__ words, int W, const int32_t* __restric
     }
     if (s_serial) {  // the serial step, by one thread, to the end of the span
       if (tid == 0) {
-        Serial sr{w, ht, mp, md, nv, cap_g, t0, mc, false};
+        Serial sr{w, ht, mp, md, me, nv, cap_g, t0, mc, false};
         sr.run();
         s_mc = sr.mc;
         s_bad = sr.bad;
@@ -341,6 +365,7 @@ hop_chase_il(const uint32_t* __restrict__ words, int W, const int32_t* __restric
         p = ln.step(p, ip, m);
         if (m != 0) {
           mp[j] = ip;  // slot CAP_M takes the overflowing match
+          if (kK2) me[j] = ip + (int)((m >> 16) & 0xFFu) + kMinMatch;
           md[j] = mld_of(m);
           ++j;
         }
@@ -363,14 +388,18 @@ hop_chase_il(const uint32_t* __restrict__ words, int W, const int32_t* __restric
   }
   __syncthreads();  // the match stream is visible to the block: read it through L2
 
-  // pass 1: a thread a span, its first kShortWords words
-  const int meff = bad ? 0 : mc;
+  // pass 1: a thread a span, its first kShortWords words. Span j ends at
+  // match j for j < nm, at n_valid for the tail span j == nm; a bad lane
+  // has no tail span under K2's rule and one span, the whole, under K12's
+  const int nm = bad && !kK2 ? 0 : mc;
+  const int nspan = bad && kK2 ? mc : nm + 1;
   auto span = [&](int jj, int& p, int& e) {
     p = jj == 0 ? start
+        : kK2   ? __ldcg(me + jj - 1)
                 : __ldcg(mp + jj - 1) + (int)((uint32_t)__ldcg(md + jj - 1) >> 15) + kMinMatch;
-    e = jj < meff ? __ldcg(mp + jj) : nv;
+    e = jj < nm ? __ldcg(mp + jj) : nv;
   };
-  for (int jj = tid; jj <= meff; jj += kThreads) {
+  for (int jj = tid; jj < nspan; jj += kThreads) {
     int p, e;
     span(jj, p, e);
     const int nw = e > p ? (e - p + 3) >> 2 : 0;
@@ -390,27 +419,52 @@ hop_chase_il(const uint32_t* __restrict__ words, int W, const int32_t* __restric
     count_words(w, hist, p, e, kShortWords + lane, (e - p + 3) >> 2, 32);
   }
   __syncthreads();
+  if (kK2 && bad) {  // K2's recount: bank 0 cleared, the whole span again
+    for (int k = tid; k < kBins; k += kThreads) hist[k] = 0;
+    __syncthreads();
+    count_words(w, hist, start, nv, tid, nv > start ? (nv - start + 3) >> 2 : 0, kThreads);
+    __syncthreads();
+  }
   int32_t* f = freq + (long long)row * 4 * kBins;
   for (int k = tid; k < 4 * kBins; k += kThreads) f[k] = hist[k];
 }
 
+template <bool kK2>
+int launch(const void* words, int W, const void* htab, long long htab_stride,
+           const void* n_valid, int start, int cap_g, void* mpos, void* mld, int C, void* st,
+           void* freq, void* ends, int batch, int tile, void* stream) {
+  if (tile < 1024 || (kK2 && ends == nullptr)) return (int)cudaErrorInvalidValue;
+  const int smem = tile * (int)sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(hop_chase_body<kK2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    hop_chase_body<kK2><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, W, (const int32_t*)htab, htab_stride,
+        (const int32_t*)n_valid, start, cap_g, (int32_t*)mpos, (int32_t*)mld,
+        C, (int32_t*)st, (int32_t*)freq, (int32_t*)ends, tile);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// K2: the overflow recount of the reference's _make_kernel_hop; ends is
+// the B x C int32 scratch of match ends
+extern "C" int zrs_hop_chase(const void* words, int W, const void* htab,
+                             long long htab_stride, const void* n_valid, int start,
+                             int cap_g, void* mpos, void* mld, int C, void* st,
+                             void* freq, void* ends, int batch, int tile, void* stream) {
+  return launch<true>(words, W, htab, htab_stride, n_valid, start, cap_g, mpos, mld, C, st,
+                      freq, ends, batch, tile, stream);
+}
+
+// K12: a bad lane's span counted once; ends is unused (null)
 extern "C" int zrs_hop_chase_il(const void* words, int W, const void* htab,
                                 long long htab_stride, const void* n_valid,
                                 int start, int cap_g, void* mpos, void* mld,
-                                int C, void* st, void* freq, int batch, int tile,
-                                void* stream) {
-  if (tile < 1024) return (int)cudaErrorInvalidValue;
-  const int smem = tile * (int)sizeof(uint32_t);
-  cudaError_t err =
-      cudaFuncSetAttribute(hop_chase_il, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (batch > 0) {
-    hop_chase_il<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, W, (const int32_t*)htab, htab_stride,
-        (const int32_t*)n_valid, start, cap_g, (int32_t*)mpos, (int32_t*)mld,
-        C, (int32_t*)st, (int32_t*)freq, tile);
-  }
-  return (int)cudaGetLastError();
+                                int C, void* st, void* freq, void* ends, int batch,
+                                int tile, void* stream) {
+  return launch<false>(words, W, htab, htab_stride, n_valid, start, cap_g, mpos, mld, C, st,
+                       freq, ends, batch, tile, stream);
 }

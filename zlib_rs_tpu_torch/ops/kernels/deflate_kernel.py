@@ -16,16 +16,18 @@ The port of zlib_rs_tpu/ops/pallas/deflate_kernel.py's three routes:
 The encode pipeline runs exactly these compositions, each stage bracketed
 by `utils.stages.STAGES`.
 
-K2 (csrc/hop_chase.cu) replaces `scan_chunks_hop_pallas` (body
-`_make_kernel_hop`); K12 (csrc/hop_chase_il.cu) its K=2 branch (body
-`_make_kernel_hop_il`); K8 (csrc/chain_scan.cu) `scan_chunks_pallas` (body
+K2 (`zrs_hop_chase`) replaces `scan_chunks_hop_pallas` (body
+`_make_kernel_hop`) and K12 (`zrs_hop_chase_il`) its K=2 branch (body
+`_make_kernel_hop_il`), both from one templated body in
+csrc/hop_chase_il.cu that differs only in the overflow recount; K8 (csrc/chain_scan.cu) `scan_chunks_pallas` (body
 `_kernel`); K10 (csrc/tab_scan.cu) `scan_chunks_tab_pallas` (body
 `_make_kernel_tab`); K9 (csrc/freq.cu) the freq branch of
 `freq_pack_chunks_pallas` (body `_freq_kernel`); K3 (csrc/pack.cu)
 `freq_pack_chunks_pallas` (body `_pack_kernel`). One block takes one
-chunk. K2, K3 and K8 are serial per chunk and latency-bound on the H100;
-K12 and K10 resolve every position of a tile of the span in parallel into
-shared memory and chase it a segment a thread. Their byte floors are the
+chunk. K3 is serial per chunk and latency-bound on the H100; K8 walks a
+chain 32 candidates a warp step; K2, K12 and K10 resolve every position of
+a tile of the span in parallel into shared memory and chase it a segment
+a thread. Their byte floors are the
 operands read once and the outputs written once. The sources carry the
 design notes.
 
@@ -71,13 +73,13 @@ ZLIB_CONFIG = {
     9: (32, 258, 258, 4096),
 }
 
-# K12 and K10 keep the resolved slots of a tile of the span in dynamic
+# K2, K12 and K10 keep the resolved slots of a tile of the span in dynamic
 # shared memory, one int32 a position: TILE holds a 32 KiB chunk's span in
 # one tile; a longer span takes more (MIN_TILE..MAX_TILE, 4 bytes a slot)
 TILE = 33792
 MIN_TILE = 1024
 MAX_TILE = 49152
-RESOLVE_THREADS = 512  # threads of a K12 or K10 block
+RESOLVE_THREADS = 512  # threads of a K2, K12 or K10 block
 
 # launches of the CUDA kernels; the plain versions do not count
 launches = {"hop_chase": 0, "hop_chase_il": 0, "chain_scan": 0, "tab_scan": 0, "freq": 0,
@@ -234,13 +236,13 @@ def hop_chase_plain(words, htab, n_valid, start: int, cap_g: int):
 
 
 def _hop_entry(kernel: str):
-    """The C entry `zrs_<kernel>` of K2 or K12, typed: both take the same
-    arguments, and K12 its tile before the stream."""
-    fn = getattr(_device.library(kernel), f"zrs_{kernel}")
+    """The C entry `zrs_<kernel>` of K2 or K12, typed: both live in the
+    hop_chase_il library and take the same arguments: K2's match-end
+    scratch after freq (null for K12), the tile before the stream."""
+    fn = getattr(_device.library("hop_chase_il"), f"zrs_{kernel}")
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        tile = [I] if kernel == "hop_chase_il" else []
-        fn.argtypes = [P, I, P, L, P, I, I, P, P, I, P, P, I, *tile, P]
+        fn.argtypes = [P, I, P, L, P, I, I, P, P, I, P, P, P, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -251,12 +253,12 @@ def _check_tile(kernel: str, tile: int) -> int:
     return int(tile)
 
 
-def _launch_hop(kernel, words, htab, n_valid, start, cap_g, tile=None):
-    """K2's or K12's launch (`kernel` names it; K12 takes `tile`) over CUDA
-    operands: words int32 [B, W], htab int32 [B, 4W] (row-contiguous),
-    n_valid int [B]."""
+def _launch_hop(kernel, words, htab, n_valid, start, cap_g, tile):
+    """K2's or K12's launch (`kernel` names it) over CUDA operands: words
+    int32 [B, W], htab int32 [B, 4W] (row-contiguous), n_valid int [B];
+    `tile` resolved slots at a time."""
     _device.require_cuda(kernel, words, htab, n_valid)
-    extra = () if tile is None else (_check_tile(kernel, tile),)
+    tile = _check_tile(kernel, tile)
     B, W = words.shape
     if words.dtype != torch.int32 or htab.dtype != torch.int32:
         raise ValueError(f"{kernel}: words and htab must be int32")
@@ -271,10 +273,14 @@ def _launch_hop(kernel, words, htab, n_valid, start, cap_g, tile=None):
     mld = torch.empty((B, C), dtype=torch.int32, device=words.device)
     st = torch.empty((B, 8), dtype=torch.int32, device=words.device)
     freq = torch.empty((B, 4 * N_BINS), dtype=torch.int32, device=words.device)
+    # K2's spans start at each match's true end, which mld cannot hold
+    # for a dist past 2^15; K12 reads it back from mld as its reference does
+    ends = torch.empty((B, C), dtype=torch.int32, device=words.device) if kernel == "hop_chase" else None
     rc = _hop_entry(kernel)(
         _device.ptr(words), W, _device.ptr(htab), htab.stride(0),
         _device.ptr(n_valid), int(start), int(cap_g), _device.ptr(mpos),
-        _device.ptr(mld), C, _device.ptr(st), _device.ptr(freq), B, *extra,
+        _device.ptr(mld), C, _device.ptr(st), _device.ptr(freq),
+        None if ends is None else _device.ptr(ends), B, tile,
         _device.stream_of(words),
     )
     _device.check(rc, kernel)
@@ -282,9 +288,11 @@ def _launch_hop(kernel, words, htab, n_valid, start, cap_g, tile=None):
     return mpos, mld, st, freq
 
 
-def hop_chase_cuda(words, htab, n_valid, start: int, cap_g: int):
-    """Launch K2 over CUDA operands (see `_launch_hop`)."""
-    return _launch_hop("hop_chase", words, htab, n_valid, start, cap_g)
+def hop_chase_cuda(words, htab, n_valid, start: int, cap_g: int, *, tile: int = TILE):
+    """Launch K2 over CUDA operands (see `_launch_hop`): K12's body with
+    K2's overflow recount, one block of RESOLVE_THREADS a chunk, `tile`
+    resolved slots (4 * tile bytes of dynamic shared memory) at a time."""
+    return _launch_hop("hop_chase", words, htab, n_valid, start, cap_g, tile)
 
 
 def hop_chase(words, htab, n_valid, start: int, cap_g: int):

@@ -1,5 +1,6 @@
-"""K6: the sequential RFC 1951 inflate, one raw-deflate stream per thread
-(csrc/inflate.cu), with its plain version and the wrapper logic.
+"""K6: the sequential RFC 1951 inflate, one raw-deflate stream per block of
+a decode warp and a copy warp (csrc/inflate.cu), with its plain version
+and the wrapper logic.
 
 The port of zlib_rs_tpu/ops/pallas/inflate_kernel.py (`decode_streams_pallas`,
 body `_kernel_body`, and `pack_streams_words`). Each stream decodes whole:
@@ -13,7 +14,7 @@ Tables are the reference's two-level layout (9-bit litlen root, 852
 entries; 6-bit distance root, 592; 7-bit code-length table, 128). The
 reference's `one_level` choice of flat 2^15-entry tables is a TPU SMEM
 budget choice; the outputs are the same either way, and the port keeps
-the two-level tables, which fit a thread's share of shared memory.
+the two-level tables, which the decode warp builds in shared memory.
 
 Contract, on any input: `produced`, `bad`, `end_bit`, `fin_seen` and the
 output bytes [0, min(produced, max_out)). Every read of the compressed
@@ -42,6 +43,10 @@ from ... import _device
 
 # launches of the CUDA kernel; the plain version does not count
 launches = {"inflate": 0}
+
+# the kernel's dynamic shared memory, a 64 KiB ring of output bytes
+# (csrc/inflate.cu); the launch asks for it
+SMEM_BYTES = 1 << 16
 
 # table entry: kind (3b @28) | extra (6b @22) | nbits (6b @16) | val (16b @0)
 KIND_LIT, KIND_MATCH, KIND_EOB, KIND_SUB, KIND_INVALID = 0, 1, 2, 3, 7
@@ -487,7 +492,7 @@ def _lib():
     fn = _device.library("inflate").zrs_inflate
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I, P, P, I, P, I, P, P]
+        fn.argtypes = [P, I, I, P, P, I, P, I, P, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -496,7 +501,8 @@ def decode_streams_cuda(words, start_bits, comp_bits, out_lens, *, max_out: int,
                         win=None, stop_at_target: bool = False):
     """Launch K6 over CUDA operands: words int32 [B, W] (LE32 bit-views,
     >= 2 zero tail words), start_bits, comp_bits and out_lens int32 [B]
-    (out_len < 0: decode to BFINAL), win uint8 [B, WPAD] or None."""
+    (out_len < 0: decode to BFINAL), win uint8 [B, WPAD] or None. One block
+    of two warps a stream, SMEM_BYTES of dynamic shared memory."""
     tensors = [words, start_bits, comp_bits, out_lens] + ([] if win is None else [win])
     _device.require_cuda("inflate", *tensors)
     meta, win_w, ow, wpad = _prepare(
@@ -510,7 +516,7 @@ def decode_streams_cuda(words, start_bits, comp_bits, out_lens, *, max_out: int,
     if B:
         rc = _lib()(
             _device.ptr(words), B, W, _device.ptr(meta), _device.ptr(win_w),
-            win_w.shape[1], _device.ptr(out_w), ow, _device.ptr(st),
+            win_w.shape[1], _device.ptr(out_w), ow, _device.ptr(st), SMEM_BYTES,
             _device.stream_of(words),
         )
         _device.check(rc, "inflate")
