@@ -8,7 +8,10 @@ only under it (unset selects the XLA matcher engine, which the port does
 not carry yet, and raises). Builds the port's CUDA kernels from
 zlib_rs_tpu_torch/csrc with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
-shapes the main path gives it, then drives the main path: level-6
+shapes the main path gives it (K3 also on crafted lanes: empty,
+all-literal, 258-byte dist-1 runs, 15-bit codes; K5 also on corrupt
+tapes, a random tape, a 128-hop chain and chunks past its chase, with the
+count of chunks each body took), then drives the main path: level-6
 `compress_parallel` of an 8 MiB corpus (a tar of system binaries, the
 recipe of bench.py's corpus), checked by stdlib zlib, and
 `decompress_parallel` of its indexed zlib and gzip streams through the
@@ -216,7 +219,7 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     from zlib_rs_tpu_torch.parallel import pipeline as PL
     from zlib_rs_tpu_torch.parallel import vector_inflate as VI
 
-    bodies, sizes, seeds, staged, meta, full_args, _sub = stage_decode(VI, idx_out, index, dev)
+    bodies, sizes, seeds, staged, meta, full_args, sub_args = stage_decode(VI, idx_out, index, dev)
     S, K, B = meta["S"], meta["K"], meta["B"]
     cap = VI._twoplane_cap(meta)
     W = B * S
@@ -250,28 +253,50 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
           f"tapes, cons, bad and rem equal to plain", flush=True)
 
     # -- phase 6: K5 against its plain version -----------------------------
+    # all chunks (every one through the chase), then the edges of
+    # k5_edge_pairs: corrupt tapes of the first chunks (phase 21's faults),
+    # a random tape, a 128-hop chain, rows past the chase
     out_words = -(-max(sizes) // 4) + 2
     offs = staged["offs"]
-    outw = VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)
+    branch = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    outw = VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words, branch=branch)
     want, plain_ms = timed_ms(
         torch, lambda: VK.expand_tokens2_plain(tapeA, tapeB, offs, out_words=out_words))
     err = bytes_err(torch, outw, want, sizes)
-    if err:
-        raise AssertionError(f"K5 disagrees with its plain version: max abs err {err}")
+    main_bodies = {int(b): int(n) for b, n in zip(*torch.unique(branch, return_counts=True))}
+    if (branch != VK.BRANCH_CHASE).any():
+        raise AssertionError(f"K5 chunks of the clean stream left the chase: {main_bodies}")
     full8 = outw.cpu().numpy().view("u1")
     if b"".join(full8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
         raise AssertionError("the full K5 expansion is not the corpus")
+    k = min(COMPARE_ROWS, B)
+    flipped = sub_args[0].clone()
+    flipped[:, flipped.shape[1] // 2] ^= 0xFF
+    bad_tapes = [VK.decode_tokens_vector2_cuda(words_c, *sub_args[1:], S=S, K=K, cap=cap_c)[:2]
+                 for words_c, cap_c in ((flipped, cap), (sub_args[0], UNDERSIZED_CAP))]
+    edge, bodies_seen = k5_edge_pairs(torch, VK, dev, tapeA, tapeB, offs, sizes, bad_tapes, k)
+    err = max(err, max_abs((torch.from_numpy(g), torch.from_numpy(w)) for g, w in edge))
+    if err:
+        raise AssertionError(f"K5 disagrees with its plain version: max abs err {err}")
     nb = 8 * used_rows + 4 * offs.numel() + len(corpus)
     rows["vhuff_expand"] = dict(
         source="zlib_rs_tpu_torch/csrc/vhuff_expand.cu",
         replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:1168",
         max_abs_err=err,
-        ms=event_ms(torch, lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words), 5),
+        ms=event_ms(torch, lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words),
+                    50),
         plain_ms=plain_ms,
         # a funnel store and a match copy: ~40 operations a row
         bnd=bound(nb, 40 * used_rows),
     )
-    print(f"phase 6 K5: {B} chunks equal to plain and expand to the corpus", flush=True)
+    names = {VK.BRANCH_CHASE: "chase", VK.BRANCH_UNTILED: "serial (untiled)",
+             VK.BRANCH_TOO_LARGE: "serial (too large)"}
+    print(f"phase 6 K5: {B} chunks equal to plain and expand to the corpus, bodies "
+          f"{ {names[b]: n for b, n in main_bodies.items()} }; edge chunks "
+          f"(corrupt, random, a 128-hop chain, a 38400-byte chunk, rows of "
+          f"{VK.CHASE_MAX_ROW + 32} and 240000 bytes) equal to plain, bodies "
+          f"{ {names[b]: n for b, n in bodies_seen.items()} }",
+          flush=True)
 
     # -- phase 7: the decode path, end to end ------------------------------
     before = PL.fallback_stats()
@@ -1196,6 +1221,124 @@ def single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, 
     return result
 
 
+def pack_crafted_lanes(torch, DK, dev, width: int, dict_size: int, C: int):
+    """K3 operands the corpus does not give, at the main path's buffer
+    width: an empty chunk, an all-literal chunk, a run of 258-byte dist-1
+    matches, and random bytes under tables whose every code is 15 bits
+    (near the 16 bits a position K3's word buffer is sized for). Returns
+    (chunks u8 [4, width], n_valid, nmatch, mpos, mld, lltab, dtab) on `dev`."""
+    span = min(32768, width - dict_size - DK.PAD)
+    g = torch.Generator().manual_seed(11)
+    chunks = torch.randint(0, 256, (4, width), generator=g, dtype=torch.uint8)
+    chunks[2] = 97
+    n_valid = torch.tensor([dict_size] + [dict_size + span] * 3, dtype=torch.int32)
+    mpos = torch.zeros((4, C), dtype=torch.int32)
+    mld = torch.zeros((4, C), dtype=torch.int32)
+    runs = torch.arange(dict_size + 1, dict_size + span - 257, 258, dtype=torch.int32)
+    mpos[2, : len(runs)] = runs
+    mld[2, : len(runs)] = 255 << 15  # length 258, dist 1
+    nmatch = torch.tensor([0, 0, len(runs), 0], dtype=torch.int32)
+    words, meta, _oww = DK.pack_inputs(chunks, n_valid, dict_size, nmatch, 0)
+    lltab, dtab = DK.code_tables(DK.freq_plain(words, mpos, mld, meta))
+    codes = torch.randint(0, 1 << 15, (288,), generator=g, dtype=torch.int32)
+    lltab[3] = codes | (15 << 16)
+    dtab[3] = codes[:32] | (15 << 16)
+    return [t.to(dev) for t in (chunks, n_valid, nmatch, mpos, mld, lltab, dtab)]
+
+
+def pack_pairs(DK, chunks, n_valid, dict_size: int, nmatch, mpos, mld, lltab, dtab,
+               n_seeds: int) -> list:
+    """(got, want) pairs of a K3 launch against its plain version: total,
+    bad, the echoed lengths, both seed rows when there are seeds, and each
+    chunk's words through its slack word."""
+    words, meta, oww = DK.pack_inputs(chunks, n_valid, dict_size, nmatch, n_seeds)
+    args = (words, mpos, mld, meta, lltab, dtab, oww, n_seeds)
+    ko, po = DK.pack_cuda(*args), DK.pack_plain(*args)
+    pairs = [(ko[1][:, :2], po[1][:, :2]), (ko[4] >> 16, po[4] >> 16)]
+    if n_seeds:
+        pairs += [(ko[2], po[2]), (ko[3], po[3])]
+    for r in range(chunks.shape[0]):
+        nw = min(int(po[1][r, 0]) // 32 + 2, oww)
+        pairs.append((ko[0][r, :nw], po[0][r, :nw]))
+    return pairs
+
+
+def two_plane_tapes(np, walkers):
+    """Row-major two-plane tapes [cap, S] and offs [1, S + 1] of one chunk
+    from its walkers, each a list of rows (literal bytes, match length,
+    dist), offsets running on from 0."""
+    S = len(walkers)
+    cap = max(len(w) for w in walkers) + 1
+    ta = np.zeros((cap, S), np.uint32)
+    tb = np.zeros((cap, S), np.uint32)
+    offs = np.zeros((1, S + 1), np.int32)
+    for s, rows in enumerate(walkers):
+        n = 0
+        for t, (lits, length, dist) in enumerate(rows):
+            ta[t, s] = int.from_bytes(lits.ljust(4, b"\0"), "little")
+            tb[t, s] = len(lits) | ((8 | ((length - 3) << 4) | (dist << 12)) if length else 0)
+            n += len(lits) + length
+        offs[0, s + 1] = offs[0, s] + n
+    return ta.view(np.int32), tb.view(np.int32), offs
+
+
+def k5_edge_pairs(torch, VK, dev, tapeA, tapeB, offs, sizes, bad_tapes, k: int):
+    """(got, want) pairs of K5 against its plain version on what the
+    corpus's clean tapes do not give, and the count of chunks that took
+    each body: the first k chunks' corrupt tapes (full rows where the
+    serial body ran, [0, size) elsewhere), a random tape with a damaged
+    index (full rows), a chunk of dist-1 runs chained through all 128
+    walkers (128 hops deep), and, on full rows, the serial body for what
+    is past the chase: a chunk of 38,400 bytes, the first k chunks in rows
+    of more than CHASE_MAX_ROW bytes (in shared memory) and 2 in rows past
+    shared memory (in device memory)."""
+    import numpy as np
+
+    counts = {}
+    pairs = []
+
+    def run(ta, tb, of, out_words, full_rows, sz=None):
+        branch = torch.full((of.shape[0],), -1, dtype=torch.int32, device=dev)
+        got = VK.expand_tokens2_cuda(ta, tb, of, out_words=out_words, branch=branch)
+        want = VK.expand_tokens2_plain(ta, tb, of, out_words=out_words)
+        for r, b in enumerate(branch.tolist()):
+            counts[b] = counts.get(b, 0) + 1
+            n = 4 * out_words if full_rows or b != VK.BRANCH_CHASE else sz[r]
+            pairs.append((got[r].cpu().numpy().view("u1")[:n], want[r].cpu().numpy().view("u1")[:n]))
+        return branch, got
+
+    out_words = -(-max(sizes) // 4) + 2
+    S = offs.shape[1] - 1
+    for ta, tb in bad_tapes:
+        run(ta[:, : k * S], tb[:, : k * S], offs[:k], out_words, False, sizes)
+    if not counts.get(VK.BRANCH_UNTILED):
+        raise AssertionError("no corrupt K5 chunk took the serial body")
+    g = torch.Generator().manual_seed(6)
+    rnd = [torch.randint(-2**31, 2**31 - 1, (16, 16), generator=g, dtype=torch.int64)
+           .to(torch.int32).to(dev) for _ in range(2)]
+    roffs = torch.sort(torch.randint(-50, 400, (2, 9), generator=g), dim=1).values.to(torch.int32)
+    roffs[1, 3] = 2**31 - 8
+    branch, _ = run(*rnd, roffs.to(dev), 20, True)
+    if (branch != VK.BRANCH_UNTILED).any():
+        raise AssertionError(f"a random K5 tape took the chase: {branch.tolist()}")
+    ta, tb, of = two_plane_tapes(np, [[(b"x", 200, 1)]] + [[(b"", 200, 1)]] * 127)
+    n_deep = int(of[0, -1])
+    branch, got = run(*(torch.from_numpy(a).to(dev) for a in (ta, tb, of)), -(-n_deep // 4) + 2,
+                      False, [n_deep])
+    if int(branch[0]) != VK.BRANCH_CHASE or bytes(
+            got[0].cpu().numpy().view("u1")[:n_deep]) != b"x" * n_deep:
+        raise AssertionError("the 128-hop dist-1 chain did not expand through the chase")
+    ta, tb, of = two_plane_tapes(np, [[(b"y", 299, 1)]] + [[(b"", 300, 1)]] * 127)
+    long_chunk = [torch.from_numpy(a).to(dev) for a in (ta, tb, of)]
+    for args in ((*long_chunk, -(-int(of[0, -1]) // 4) + 2),
+                 (tapeA[:, : k * S], tapeB[:, : k * S], offs[:k], VK.CHASE_MAX_ROW // 4 + 8),
+                 (tapeA[:, : 2 * S], tapeB[:, : 2 * S], offs[:2], 60000)):
+        branch, _ = run(*args, True)
+        if (branch != VK.BRANCH_TOO_LARGE).any():
+            raise AssertionError(f"a K5 chunk past the chase took {branch.tolist()}")
+    return pairs, counts
+
+
 def hop_pairs(cuda, plain, lanes, cap_m: int) -> list:
     """(got, want) pairs of a K2 or K12 launch on `lanes` against its plain
     version: nmatch and bad, every bin of every bank, each lane's match
@@ -1485,32 +1628,26 @@ def main() -> int:
         plain_ms=plain_ms,
         bnd=bound(nb, int((span + 20 * nmatch).sum())),
     )
-    k = min(COMPARE_ROWS, bsz)
     print(f"phase 2 K2: {bsz} chunks ({int(nm_k.sum())} matches) equal to plain in every bin "
           f"at tiles of {DK.TILE} and {DK.MIN_TILE}, and an overflowing lane and far match "
           f"sources; launch: K12's body with K2's recount, {DK.RESOLVE_THREADS} threads a "
           f"block, {4 * DK.TILE} bytes of dynamic shared memory", flush=True)
 
     # -- phase 3: K3 against its plain version, with and without seeds -----
+    k = min(COMPARE_ROWS, bsz)
+    # the first chunks of the batch, then the crafted lanes: an empty
+    # chunk, an all-literal one, 258-byte dist-1 runs, 15 bits a byte
     mpos, mld, nm, kbad, freq = DK._hop_post(*chase)
     nm_eff = torch.where(kbad, 0, nm)
     lltab, dtab = DK.code_tables(freq)
-    err = 0
+    crafted = pack_crafted_lanes(torch, DK, dev, dc.shape[1], dict_size, mpos.shape[1])
+    pairs = []
     for n_seeds in (0, PL.SEEDS_PER_CHUNK):
-        words, meta, oww = DK.pack_inputs(dc[:k], dn[:k], dict_size, nm_eff[:k], n_seeds)
-        args = (words, mpos[:k], mld[:k], meta, lltab[:k], dtab[:k], oww, n_seeds)
-        ko = DK.pack_cuda(*args)
-        po = DK.pack_plain(*args)
-        total = ko[1][:, 0]
-        if not torch.equal(total, po[1][:, 0]) or not torch.equal(ko[1][:, 1], po[1][:, 1]):
-            raise AssertionError(f"K3 total/bad differ (n_seeds={n_seeds})")
-        pairs = [(ko[4] >> 16, po[4] >> 16)]
-        if n_seeds:
-            pairs += [(ko[2], po[2]), (ko[3], po[3])]
-        for r in range(k):
-            nw = int(total[r]) // 32 + 2
-            pairs.append((ko[0][r, :nw], po[0][r, :nw]))
-        err = max(err, max_abs(pairs))
+        pairs += pack_pairs(DK, dc[:k], dn[:k], dict_size, nm_eff[:k], mpos[:k], mld[:k],
+                            lltab[:k], dtab[:k], n_seeds)
+        cc, cn, cm, cp, cl, ct, cd = crafted
+        pairs += pack_pairs(DK, cc, cn, dict_size, cm, cp, cl, ct, cd, n_seeds)
+    err = max_abs(pairs)
     if err:
         raise AssertionError(f"K3 disagrees with its plain version: max abs err {err}")
     words, meta, oww = DK.pack_inputs(dc, dn, dict_size, nm_eff, 0)
@@ -1524,12 +1661,12 @@ def main() -> int:
         source="zlib_rs_tpu_torch/csrc/pack.cu",
         replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:1487",
         max_abs_err=err,
-        ms=event_ms(torch, lambda: DK.pack_cuda(*args), 5),
+        ms=event_ms(torch, lambda: DK.pack_cuda(*args), 50),
         plain_ms=event_ms(torch, lambda: DK.pack_plain(*args), 2),
         bnd=bound(nb, int((10 * (span + 2 * nmk)).sum())),
     )
-    print(f"phase 3 K3: {k} chunks equal to plain with 0 and "
-          f"{PL.SEEDS_PER_CHUNK} seeds", flush=True)
+    print(f"phase 3 K3: {k} chunks and an empty, an all-literal, a 258-byte dist-1 and a "
+          f"15-bit lane equal to plain with 0 and {PL.SEEDS_PER_CHUNK} seeds", flush=True)
 
     # -- phase 4: the main path, end to end ------------------------------
     counters = {"adler32_batch": CK.launches, "hop_chase": DK.launches, "pack": DK.launches,

@@ -1,0 +1,238 @@
+#!/usr/bin/env python3
+"""Where K3's and K5's time goes, by clock64 counters inside the kernels,
+on one card.
+
+    python3 pack_expand_clocks.py
+
+Builds copies of zlib_rs_tpu_torch/csrc/pack.cu and csrc/vhuff_expand.cu
+with counters added into build/pack_expand_clocks/, then runs K3 on the
+first level-6 super-batch of chip_smoke.py's 8 MiB corpus (128 chunks, no
+seeds) and K5 on the 256 chunks of its indexed stream, each checked
+against the plain version. The counters are thread 0's clock64 between
+the block's barriers, so each phase counts until its slowest thread is
+done. Prints, per kernel: the instrumented launch's CUDA-event ms, each
+phase's mean cycles a block and the slowest block's, and for K5 the
+chase's rounds (mean and most); then the shipped kernels' ms a launch,
+by events as chip_smoke.py times them and with the launches queued
+behind a busy card (the kernel alone, without the host's cost to launch
+each); then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CSRC = ROOT / "zlib_rs_tpu_torch" / "csrc"
+PACK_PHASES = ("tables and codes", "classify", "count and scans", "emit", "copy-out")
+EXPAND_PHASES = ("init", "resolve", "fill", "chase", "copy-out")
+DBG = """
+__device__ unsigned long long dbg[16];
+#define CLK_MARK(i) if (threadIdx.x == 0) { const long long now_ = clock64(); \\
+  clk_[i] += now_ - clk_t_; clk_t_ = now_; }
+"""
+DBG_READ = """
+extern "C" int zrs_dbg(void* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, dbg, sizeof(dbg));
+  unsigned long long z[16] = {0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(dbg, z, sizeof(z));
+  return (int)e;
+}
+"""
+# dbg[0:n] phase cycles summed over blocks, dbg[8] the slowest block's
+# total, dbg[9] chase rounds summed, dbg[10] the most rounds
+
+
+def rep(s: str, a: str, b: str, name: str) -> str:
+    if a not in s:
+        raise RuntimeError(f"pack_expand_clocks: csrc/{name} no longer has {a.strip()!r}")
+    return s.replace(a, b, 1)
+
+
+def flush(n: int) -> str:
+    return ("  if (threadIdx.x == 0) {\n    unsigned long long tot_ = 0;\n"
+            f"    for (int i_ = 0; i_ < {n}; ++i_) {{ atomicAdd(&dbg[i_], clk_[i_]); tot_ += clk_[i_]; }}\n"
+            "    atomicMax(&dbg[8], tot_);\n  }\n")
+
+
+def pack_instrumented(src: str) -> str:
+    n = "pack.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  if (tid == 0) s_last = -1;\n",
+            "  if (tid == 0) s_last = -1;\n  unsigned long long clk_[5] = {0};\n"
+            "  long long clk_t_ = clock64();\n", n)
+    s = rep(s, "    __syncthreads();\n    // 1. classify", "    __syncthreads();\n    CLK_MARK(0)\n"
+            "    // 1. classify", n)
+    s = rep(s, "    cover = max(cover, s_pre);\n", "    cover = max(cover, s_pre);\n    CLK_MARK(1)\n", n)
+    s = rep(s, "    const int off = block_scan<false>(cnt.bits, tmp, &tile_bits);\n",
+            "    const int off = block_scan<false>(cnt.bits, tmp, &tile_bits);\n    CLK_MARK(2)\n", n)
+    s = rep(s, "    if (em.last >= 0) atomicMax(&s_last, em.last);\n    __syncthreads();\n",
+            "    if (em.last >= 0) atomicMax(&s_last, em.last);\n    __syncthreads();\n"
+            "    CLK_MARK(3)\n", n)
+    s = rep(s, "    k0 = s_kmin;\n    __syncthreads();\n  }\n",
+            "    k0 = s_kmin;\n    __syncthreads();\n    CLK_MARK(4)\n  }\n" + flush(5), n)
+    return s + DBG_READ
+
+
+def expand_instrumented(src: str) -> str:
+    n = "vhuff_expand.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  if (mode == kModeChase && fits) {\n",
+            "  unsigned long long clk_[5] = {0};\n  long long clk_t_ = clock64();\n"
+            "  unsigned long long rounds_ = 0;\n  if (mode == kModeChase && fits) {\n", n)
+    s = rep(s, "    __syncthreads();\n    bool ok = true;\n",
+            "    __syncthreads();\n    CLK_MARK(0)\n    bool ok = true;\n", n)
+    s = rep(s, "    if (!__syncthreads_or(!ok)) {\n", "    if (!__syncthreads_or(!ok)) {\n      CLK_MARK(1)\n", n)
+    s = rep(s, "      fill(cell, q0, q1, last, last_cell);\n      __syncthreads();\n",
+            "      fill(cell, q0, q1, last, last_cell);\n      __syncthreads();\n      CLK_MARK(2)\n", n)
+    s = rep(s, "        if (!__syncthreads_or(moved)) break;\n",
+            "        ++rounds_;\n        if (!__syncthreads_or(moved)) break;\n", n)
+    s = rep(s, "      for (int i = tid; i < out_words; i += kThreads) {\n        const uint32_t c01",
+            "      CLK_MARK(3)\n      for (int i = tid; i < out_words; i += kThreads) {\n"
+            "        const uint32_t c01", n)
+    s = rep(s, "      if (branch && tid == 0) branch[chunk] = kChase;\n",
+            "      __syncthreads();\n      CLK_MARK(4)\n" + flush(5)
+            + "      if (tid == 0) { atomicAdd(&dbg[9], rounds_); atomicMax(&dbg[10], rounds_); }\n"
+            "      if (branch && tid == 0) branch[chunk] = kChase;\n", n)
+    return s + DBG_READ
+
+
+def build(name: str, text: str, out_dir: Path):
+    from zlib_rs_tpu_torch import _device
+
+    src = out_dir / f"{name}_clk.cu"
+    src.write_text(text)
+    lib_path = out_dir / f"libzrs_{name}_clk.so"
+    subprocess.run([_device._nvcc(), *_device.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True)
+    return ctypes.CDLL(str(lib_path))
+
+
+def queued_ms(torch, fn, reps: int = 50) -> float:
+    """Mean device time of `fn` over `reps` launches queued behind a busy
+    wait of the card, so that it runs them back to back whatever the host
+    spends to launch each (chip_smoke.py's event_ms waits for the host)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms of cycles at 1.98 GHz
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def report(label, buf, blocks, phases, ms, rounds=False):
+    d = list(buf)
+    parts = ", ".join(f"{p} {d[i] / blocks:.0f}" for i, p in enumerate(phases))
+    line = (f"{label}: {ms:.4f} ms a launch (instrumented), equal to plain; mean cycles a "
+            f"block: {parts}; slowest block {d[8]} cycles")
+    if rounds:
+        line += f"; chase rounds mean {d[9] / blocks:.2f}, most {d[10]}"
+    print(line, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("pack_expand_clocks: no CUDA device", file=sys.stderr)
+        return 2
+    if not (CSRC / "pack.cu").is_file():
+        print("pack_expand_clocks: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    os.environ["ZRS_TPU_KERNEL"] = "1"
+    import chip_smoke as cs
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch import _device
+    from zlib_rs_tpu_torch.ops import lzvec
+    from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+    from zlib_rs_tpu_torch.parallel import vector_inflate as VI
+
+    out_dir = ROOT / "build" / "pack_expand_clocks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {"pack": build("pack", pack_instrumented((CSRC / "pack.cu").read_text()), out_dir),
+            "vhuff_expand": build("vhuff_expand", expand_instrumented(
+                (CSRC / "vhuff_expand.cu").read_text()), out_dir)}
+    _device.build()
+    real = _device.library
+    _device.library = lambda name: libs.get(name) or real(name)
+    dev = torch.device("cuda")
+    buf = (ctypes.c_ulonglong * 16)()
+    corpus, _ = cs.load_corpus(cs.CORPUS_BYTES)
+
+    # K3: the first super-batch, as chip_smoke.py's phase 3 builds it
+    good, mlazy, nice, chain = PL._level_knobs(cs.LEVEL)["kernel_cfg"]
+    _variant, w_g = PL._resolve_kernel_variant((good, mlazy, nice, chain))
+    n_chunks = -(-len(corpus) // PL.DEFAULT_CHUNK)
+    dict_size = PL.priming_dict_size(n_chunks, PL.DEFAULT_CHUNK, True)
+    padded, n_valid, valid_from, _ = PL.chunk_buffers(corpus, PL.DEFAULT_CHUNK, dict_size)
+    b0, bsz = PL.batch_spans(n_chunks)[0]
+    dc = torch.from_numpy(padded[b0 : b0 + bsz]).to(dev)
+    dn = torch.from_numpy(n_valid[b0 : b0 + bsz]).to(dev)
+    dv = torch.from_numpy(valid_from[b0 : b0 + bsz]).to(dev)
+    words4 = DK.words_from_bytes(dc)
+    htab = lzvec.build_hop_tables(words4, dn, dv, depth=chain, nice=nice, good=good,
+                                  max_lazy=mlazy, w_g=w_g, bytes_arr=dc)
+    mpos, mld, nm, kbad, freq = DK._hop_post(*DK.hop_chase_cuda(words4, htab, dn, dict_size,
+                                                                 4 * w_g))
+    lltab, dtab = DK.code_tables(freq)
+    words, meta, oww = DK.pack_inputs(dc, dn, dict_size, torch.where(kbad, 0, nm), 0)
+    args = (words, mpos, mld, meta, lltab, dtab, oww, 0)
+    want = DK.pack_plain(*args)
+    torch.cuda.synchronize()
+    _device.check(libs["pack"].zrs_dbg(buf), "zrs_dbg")
+    got = DK.pack_cuda(*args)
+    torch.cuda.synchronize()
+    _device.check(libs["pack"].zrs_dbg(buf), "zrs_dbg")
+    pairs = [(got[1][:, :2], want[1][:, :2])]
+    pairs += [(got[0][r, : int(want[1][r, 0]) // 32 + 2], want[0][r, : int(want[1][r, 0]) // 32 + 2])
+              for r in range(bsz)]
+    if cs.max_abs(pairs):
+        raise AssertionError("the instrumented K3 disagrees with its plain version")
+    report(f"K3, {bsz} chunks", buf, bsz, PACK_PHASES,
+           cs.event_ms(torch, lambda: DK.pack_cuda(*args), 50))
+    pack_call = lambda: DK.pack_cuda(*args)
+
+    # K5: the indexed stream's tapes, as chip_smoke.py's phase 6 takes them
+    idx_out, index = zt.compress_parallel(corpus, cs.LEVEL, return_index=True)
+    _bodies, sizes, _seeds, staged, m, full_args, _sub = cs.stage_decode(VI, idx_out, index, dev)
+    tapeA, tapeB, *_ = VK.decode_tokens_vector2_cuda(*full_args, S=m["S"], K=m["K"],
+                                                     cap=VI._twoplane_cap(m))
+    out_words = -(-max(sizes) // 4) + 2
+    offs = staged["offs"]
+    want = VK.expand_tokens2_plain(tapeA, tapeB, offs, out_words=out_words)
+    torch.cuda.synchronize()
+    _device.check(libs["vhuff_expand"].zrs_dbg(buf), "zrs_dbg")
+    got = VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)
+    torch.cuda.synchronize()
+    _device.check(libs["vhuff_expand"].zrs_dbg(buf), "zrs_dbg")
+    if cs.bytes_err(torch, got, want, sizes):
+        raise AssertionError("the instrumented K5 disagrees with its plain version")
+    report(f"K5, {m['B']} chunks", buf, m["B"], EXPAND_PHASES,
+           cs.event_ms(torch, lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs,
+                                                             out_words=out_words), 50),
+           rounds=True)
+    # the kernels as shipped, without counters: event ms as chip_smoke.py
+    # takes them, and with the launches queued behind a busy card
+    expand_call = lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)
+    _device.library = real
+    for label, fn in (("K3", pack_call), ("K5", expand_call)):
+        print(f"{label} uninstrumented: {cs.event_ms(torch, fn, 50):.6f} ms a launch by events, "
+              f"{queued_ms(torch, fn):.6f} ms queued", flush=True)
+    print(cs.nvidia_smi())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,7 @@ the expanded bytes in [0, out_len) of each chunk."""
 
 import zlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -300,3 +301,329 @@ def test_k5_plain_bounds_every_access():
     st = interop.state_from_numpy({"tapeA": tA, "tapeB": tB, "offs": offs}, device="cpu")
     out = VK.expand_tokens2(st["tapeA"], st["tapeB"], st["offs"], out_words=20)
     assert out.shape == (2, 20) and out.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# K5's design (csrc/vhuff_expand.cu) as a numpy model
+# ---------------------------------------------------------------------------
+
+
+K5_THREADS, K5_SEG, K5_GROUP = 512, 64, 4  # csrc/vhuff_expand.cu: kThreads, kSeg, kGroup
+# a cell: a pointer to an earlier byte, KNOWN | the byte, or OPEN (the
+# kernel packs these in 16 bits, pointers in 15)
+KNOWN, OPEN = 1 << 20, 1 << 21
+
+
+def _k5_resolve(ta, tb, cap, p, p1, end, cell, edges):
+    """One walker of the resolve: its literal bytes, known, and each
+    match's first pointer, p - dist; the match's other bytes stay open.
+    False when the walker does not tile [p, p1)."""
+    if p < 0 or p > p1 or p1 > end:
+        return False
+    p0, t = p, 0
+    while t < cap and p < p1:
+        a, b = int(ta[t]), int(tb[t])
+        t += 1
+        cnt, dist = b & 7, (b >> 12) & 0xFFFF
+        length = ((b >> 4) & 0xFF) + 3 if b & 8 else 0
+        if b == 0 or cnt > 4 or p + cnt > p1:
+            return False
+        for i in range(cnt):
+            cell[p + i] = KNOWN | ((a >> (8 * i)) & 0xFF)
+        p += cnt
+        if length:
+            if dist == 0 or dist > p or p + length > p1:
+                return False
+            cell[p] = p - dist
+            edges["earlier_walker"] += p - dist < p0
+            p += length
+    return p == p1
+
+
+def _k5_resolve_windows(ta, tb, cap, p, p1, end, cell, edges):
+    """The resolve as the kernel runs it, K5_GROUP lanes a walker: a window
+    of K5_GROUP rows, one a lane, placed by an exclusive scan of their
+    lengths; the rows that start before p1 (a prefix) are taken, and the
+    walker goes on after a full window. Same result as _k5_resolve."""
+    if p < 0 or p > p1 or p1 > end:
+        return False
+    p0 = p
+    for t0 in range(0, cap, K5_GROUP):
+        if p >= p1:
+            break
+        rows = [(int(ta[t]), int(tb[t])) for t in range(t0, min(t0 + K5_GROUP, cap))]
+        adv = [(b & 7) + (((b >> 4) & 0xFF) + 3 if b & 8 else 0) for _a, b in rows]
+        pos = (p + np.concatenate([[0], np.cumsum(adv)[:-1]])).tolist()
+        taken = [g for g in range(len(rows)) if pos[g] < p1]
+        edges["windows"] += 1
+        for g in taken:
+            a, b = rows[g]
+            cnt, dist = b & 7, (b >> 12) & 0xFFFF
+            length = ((b >> 4) & 0xFF) + 3 if b & 8 else 0
+            lit_end = pos[g] + cnt
+            if b == 0 or cnt > 4 or lit_end > p1 or (length and (
+                    dist == 0 or dist > lit_end or lit_end + length > p1)):
+                return False
+            for i in range(cnt):
+                cell[pos[g] + i] = KNOWN | ((a >> (8 * i)) & 0xFF)
+            if length:
+                cell[lit_end] = lit_end - dist
+                edges["earlier_walker"] += lit_end - dist < p0
+        p = pos[taken[-1]] + adv[taken[-1]]
+        if len(taken) < K5_GROUP:
+            break
+    return p == p1
+
+
+def _k5_fill(cell, q0, q1, last, last_cell, edges):
+    """One segment of the fill: each open byte inside the match of the
+    last head before it (`last`, the last token before q0 with its cell as
+    the resolve left it, starts it); a pointer into [q0, q) takes its
+    target's cell, final there; an open byte before any head is a known
+    zero."""
+    s, d = -1, 1
+    if last >= 0 and last_cell < last:
+        s, d = last, last - last_cell
+        edges["carried"] += q0 < q1 and cell[q0] == OPEN
+    for q in range(q0, q1):
+        v = int(cell[q])
+        if v == OPEN:
+            j = q - s
+            if s < 0:
+                v = KNOWN
+                edges["orphan"] += 1
+            elif j < d:
+                v = q - d
+            else:  # inside its own match: one period back, before the match
+                v = s - d + j % d
+                edges["period"] += 1
+        elif v < q:
+            s, d = q, q - v
+        else:
+            s = -1
+            continue
+        if q0 <= v < q:
+            v = int(cell[v])
+            edges["compressed"] += 1
+        cell[q] = v
+
+
+def _k5_model(tapeA, tapeB, offs, out_words, *, max_bytes=VK.CHASE_MAX_BYTES):
+    """csrc/vhuff_expand.cu on numpy: per chunk the resolve, the fill in
+    segments of one thread each (the last token before a segment from an
+    exclusive max scan), then pointer jumping in synchronous rounds (the
+    kernel's asynchronous rounds move cells at least as far), or the
+    serial body (the plain version's `_expand_chunk`) for walkers that do
+    not tile, a chunk past max_bytes or a row past CHASE_MAX_ROW. Returns
+    (words uint32 [B, out_words], branch [B], edges)."""
+    a_all = np.asarray(tapeA).view(np.uint32)
+    b_all = np.asarray(tapeB).view(np.uint32)
+    offs = np.asarray(offs)
+    cap, W = a_all.shape
+    B = offs.shape[0]
+    S = W // B
+    nbytes = 4 * out_words
+    out = np.zeros((B, out_words), np.uint32)
+    branch = np.zeros(B, np.int64)
+    edges = dict(rounds=[], depth=[], earlier_walker=0, carried=0, orphan=0, period=0,
+                 compressed=0, windows=0)
+    for k in range(B):
+        of = offs[k].tolist()
+        cols = slice(k * S, (k + 1) * S)
+        if max_bytes is None or (of[S] <= max_bytes and nbytes <= VK.CHASE_MAX_ROW):
+            end = min(max(of[S], 0), nbytes)
+            cell = np.where(np.arange(nbytes) < end, OPEN, KNOWN)
+            # the kernel's windows, held against the serial walk of each walker
+            serial = cell.copy()
+            ok = [_k5_resolve_windows(a_all[:, k * S + s], b_all[:, k * S + s], cap, of[s],
+                                      of[s + 1], end, cell, edges) for s in range(S)]
+            assert ok == [_k5_resolve(a_all[:, k * S + s], b_all[:, k * S + s], cap, of[s],
+                                      of[s + 1], end, serial, edges) for s in range(S)]
+            assert not all(ok) or np.array_equal(cell, serial)
+            if all(ok):
+                seg = K5_SEG * -(-end // (K5_SEG * K5_THREADS))
+                spans = [(min(t * seg, end), min(t * seg + seg, end)) for t in range(K5_THREADS)]
+                lasts = [max([q for q in range(q0, q1) if cell[q] != OPEN], default=-1)
+                         for q0, q1 in spans]
+                carry = [max(lasts[:t], default=-1) for t in range(K5_THREADS)]
+                heads = [int(cell[c]) if c >= 0 else 0 for c in carry]  # before any fill
+                for t, (q0, q1) in enumerate(spans):
+                    _k5_fill(cell, q0, q1, carry[t], heads[t], edges)
+                # hops from each byte to a known cell; every pointer is earlier
+                hops = np.zeros(nbytes, np.int64)
+                for q in np.flatnonzero(cell < KNOWN):
+                    hops[q] = hops[cell[q]] + 1
+                depth = int(hops.max())
+                rounds = 1
+                while True:
+                    nxt = cell.copy()
+                    ptrs = cell < KNOWN
+                    nxt[ptrs] = cell[cell[ptrs]]
+                    if np.array_equal(nxt, cell):
+                        break
+                    cell, rounds = nxt, rounds + 1
+                # a chain of h hops is known after bit_length(h) rounds (each
+                # round doubles the hops a pointer spans); the last moves none
+                assert rounds == depth.bit_length() + 1
+                edges["rounds"].append(rounds)
+                edges["depth"].append(depth)
+                out[k] = (cell & 0xFF).astype(np.uint8).view(np.uint32)
+                continue
+            branch[k] = VK.BRANCH_UNTILED
+        else:
+            branch[k] = VK.BRANCH_TOO_LARGE
+        out[k] = VK._expand_chunk(a_all[:, cols].T.tolist(), b_all[:, cols].T.tolist(), of,
+                                  cap, out_words)
+    return out, branch, edges
+
+
+def _plain_k5(tapeA, tapeB, offs, out_words):
+    st = interop.state_from_numpy({"a": tapeA, "b": tapeB, "offs": offs}, device="cpu")
+    got = VK.expand_tokens2_plain(st["a"], st["b"], st["offs"], out_words=out_words)
+    return got.numpy().view(np.uint32)
+
+
+def _jax_k5(tapeA, tapeB, offs, out_words):
+    """JAX's expand_tokens_pallas2 in interpret mode on row-major tapes
+    [cap, W] and offs [B, S + 1]."""
+    cap, W = tapeA.shape
+    B, S = offs.shape[0], offs.shape[1] - 1
+    walker_major = lambda t: jnp.asarray(np.ascontiguousarray(t.T).reshape(B, S, cap))
+    joffs = np.concatenate([offs[:, :S], np.repeat(offs[:, S:], 8, axis=1)], axis=1)
+    return np.asarray(JK.expand_tokens_pallas2(
+        walker_major(tapeA), walker_major(tapeB), jnp.asarray(joffs), S=S, cap=cap,
+        out_words=out_words, interpret=True))
+
+
+def _assert_bytes_equal(got, want, sizes):
+    for k, n in enumerate(sizes):
+        np.testing.assert_array_equal(got[k].view(np.uint8)[:n], want[k].view(np.uint8)[:n])
+
+
+@pytest.mark.parametrize("max_bytes", [VK.CHASE_MAX_BYTES, None], ids=["kernel", "no_limit"])
+def test_k5_design_model_equals_plain_and_jax(stream, max_bytes):
+    """On the JAX package's tapes of both streams: the 32 KiB chunks take
+    the chase, the 128 KiB ones the serial body at the kernel's limit and
+    the chase without it."""
+    data, bodies, sizes, seeds = stream
+    want = _jax_k4(bodies, sizes, seeds)
+    B, S = want["meta"]["B"], want["meta"]["S"]
+    out_words = -(-max(sizes) // 4) + 2
+    tapeA, tapeB = want["tapeA"].T.copy(), want["tapeB"].T.copy()
+    offs = np.concatenate([want["offs"][:, :S], want["offs"][:, S : S + 1]], axis=1)
+    got, branch, edges = _k5_model(tapeA, tapeB, offs, out_words, max_bytes=max_bytes)
+    _assert_bytes_equal(got, _plain_k5(tapeA, tapeB, offs, out_words), sizes)
+    _assert_bytes_equal(got, _jax_k5(tapeA, tapeB, offs, out_words), sizes)
+    assert b"".join(got[k].view(np.uint8)[:n].tobytes() for k, n in enumerate(sizes)) == data
+    too_large = max(sizes) > VK.CHASE_MAX_BYTES and max_bytes is not None
+    assert (branch == (VK.BRANCH_TOO_LARGE if too_large else VK.BRANCH_CHASE)).all()
+    if not too_large:
+        assert edges["period"] > 0 and edges["earlier_walker"] > 0
+        assert edges["carried"] > 0 and edges["compressed"] > 0 and max(edges["rounds"]) >= 3
+
+
+def _row(lits=b"", length=0, dist=0):
+    """One two-plane row: (tapeA, tapeB) words."""
+    a = int.from_bytes(lits.ljust(4, b"\0")[:4], "little")
+    b = len(lits) | ((8 | ((length - 3) << 4) | (dist << 12)) if length else 0)
+    return a, b
+
+
+def _tapes(chunks, cap=None):
+    """Row-major tapes [cap, W] and offs [B, S + 1] from chunks of walkers,
+    each a list of rows (literal bytes, match length, dist); offsets run
+    on from 0 with each walker's bytes."""
+    B, S = len(chunks), len(chunks[0])
+    cap = cap or max(len(w) for c in chunks for w in c) + 1
+    tapeA = np.zeros((cap, B * S), np.uint32)
+    tapeB = np.zeros((cap, B * S), np.uint32)
+    offs = np.zeros((B, S + 1), np.int32)
+    for k, walkers in enumerate(chunks):
+        for s, rows in enumerate(walkers):
+            n = 0
+            for t, r in enumerate(rows):
+                tapeA[t, k * S + s], tapeB[t, k * S + s] = _row(*r)
+                n += len(r[0]) + (r[1] if len(r) > 1 else 0)
+            offs[k, s + 1] = offs[k, s] + n
+    return tapeA, tapeB, offs
+
+
+def _edge_chunks():
+    """A chunk of chained dist-1 runs over all 128 walkers (each walker's
+    bytes point into the walker before it: a chain 128 hops deep), and a
+    chunk of overlapping matches (dist < length) inside walkers and sources
+    in earlier walkers (padded to 128 walkers with empty ones), then that
+    chunk again, to start 5 bytes into its row."""
+    S = 128
+    deep = [[(b"x", 200, 1)]] + [[(b"", 200, 1)] for _ in range(S - 1)]
+    near = [
+        [(b"abc", 50, 3), (b"de", 30, 2), (b"f", 20, 1), (b"ghij",)],
+        [(b"", 40, 5), (b"kl", 100, 60)],
+        [(b"mnop",), (b"q", 258, 250)],
+        [(b"", 3, 500), (b"rs", 258, 1)],
+    ]
+    near += [[] for _ in range(S - len(near))]
+    return [deep, near, near]
+
+
+def test_k5_design_model_on_edge_chunks_equals_plain_and_jax():
+    tapeA, tapeB, offs = _tapes(_edge_chunks())
+    offs[2] += 5  # bytes [0, 5) stay zero: open bytes before any token
+    sizes = offs[:, -1].tolist()
+    out_words = -(-max(sizes) // 4) + 2
+    got, branch, edges = _k5_model(tapeA, tapeB, offs, out_words)
+    assert (branch == VK.BRANCH_CHASE).all()
+    _assert_bytes_equal(got, _plain_k5(tapeA, tapeB, offs, out_words), sizes)
+    _assert_bytes_equal(got, _jax_k5(tapeA, tapeB, offs, out_words), sizes)
+    assert got[0].view(np.uint8)[: sizes[0]].tobytes() == b"x" * sizes[0]
+    # the deep chunk: a hop a walker, 128 hops, so 8 rounds that move
+    # (2^7 hops span 128 nodes, the 128th takes the next) and the last
+    assert edges["depth"][0] == 128 and edges["rounds"][0] == 9
+    assert edges["period"] > 0 and edges["earlier_walker"] >= 4 and edges["carried"] > 0
+    assert edges["orphan"] == 5 and not got[2].view(np.uint8)[:5].any()
+
+
+def _corrupt_chunks():
+    """Chunks the resolve must send to the serial body, one fault each:
+    a walker ending one byte short of its offset, dist 0, a source before
+    the row, five literals in a row, a walker cut off by an all-zero row,
+    and an index past the row."""
+    good = [[(b"abcd",), (b"e", 10, 5)], [(b"fg", 20, 7)], [(b"hijk",)], [(b"", 9, 20)]]
+    chunks = [[list(w) for w in good] for _ in range(6)]
+    chunks[1][1] = [(b"fg", 20, 0)]
+    chunks[2][1] = [(b"fg", 20, 600)]
+    chunks[4][2] = []
+    tapeA, tapeB, offs = _tapes(chunks)
+    offs[0, 2] -= 1  # walker 1 ends one byte past its range
+    tapeB[0, 3 * 4 + 2] = (int(tapeB[0, 3 * 4 + 2]) & ~7) | 5  # five literals
+    offs[3, 3:] += 1  # in a range of five bytes
+    offs[4, 3:] += 4  # walker 2 has no rows for its 4 bytes
+    out_words = -(-int(offs[:, -1].max()) // 4) + 2
+    offs[5, -1] = 4 * out_words + 40  # the last walker runs past the row
+    return tapeA, tapeB, offs, out_words
+
+
+def test_k5_design_model_sends_corrupt_chunks_to_the_serial_body():
+    tapeA, tapeB, offs, out_words = _corrupt_chunks()
+    got, branch, _edges = _k5_model(tapeA, tapeB, offs, out_words)
+    assert (branch == VK.BRANCH_UNTILED).all()
+    np.testing.assert_array_equal(got, _plain_k5(tapeA, tapeB, offs, out_words))
+    # the same tapes with the faults mended take the chase
+    good = _tapes([[[(b"abcd",), (b"e", 10, 5)], [(b"fg", 20, 7)], [(b"hijk",)],
+                    [(b"", 9, 20)]]])
+    _got, ok_branch, _ = _k5_model(*good, out_words)
+    assert (ok_branch == VK.BRANCH_CHASE).all()
+
+
+def test_k5_design_model_on_random_tapes_takes_the_serial_body():
+    """test_k5_plain_bounds_every_access's tapes: every chunk serial, every
+    word of the row equal to the plain version's."""
+    rng = np.random.default_rng(3)
+    cap, S = 16, 8
+    tA = rng.integers(0, 2**32, (cap, 2 * S), dtype=np.uint64).astype(np.uint32)
+    tB = rng.integers(0, 2**32, (cap, 2 * S), dtype=np.uint64).astype(np.uint32)
+    offs = np.sort(rng.integers(-50, 400, (2, S + 1)), axis=1).astype(np.int32)
+    offs[1, 3] = 2**31 - 8
+    got, branch, _edges = _k5_model(tA, tB, offs, 20)
+    assert (branch == VK.BRANCH_UNTILED).all()
+    np.testing.assert_array_equal(got, _plain_k5(tA, tB, offs, 20))

@@ -209,3 +209,32 @@ def test_inflate_wrapper_asks_for_its_shared_memory(stub, inputs, monkeypatch):
     assert 48 * 1024 < IK.SMEM_BYTES and 3 * (IK.SMEM_BYTES + static_tables + 1024) <= 232_448
     out, meta, st = args[6], args[3], args[8]
     assert out.shape == (B, args[7]) and meta.shape == (B, IK.META_WORDS) and st.shape == (B, 4)
+
+
+def test_expand_wrapper_hands_the_kernel_its_branch_row(stub, inputs, monkeypatch):
+    """K5's C entry takes (tapeA, tapeB, offs, cap, W, S, out_words, out,
+    branch, stream): branch is a null pointer unless the caller passes an
+    int32 [B] row for each chunk's body (BRANCH_CHASE, BRANCH_UNTILED,
+    BRANCH_TOO_LARGE), and a row of another type or shape is refused
+    before the launch. The chase's 15-bit pointers cover a 32 KiB chunk,
+    the main path's, and its row."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    st, S = inputs["staged"], inputs["meta"]["S"]
+    tape = torch.zeros((64, st["start_word"].shape[0]), dtype=torch.int32)
+    B = st["offs"].shape[0]
+    entry = lambda: _device.library("vhuff_expand").zrs_vhuff_expand
+    VK.expand_tokens2_cuda(tape, tape, st["offs"], out_words=16)
+    args = entry().args
+    assert len(args) == 10 and args[3:7] == (64, tape.shape[1], S, 16)
+    assert args[7].shape == (B, 16) and args[8] is None and args[9] == 0
+    branch = torch.zeros(B, dtype=torch.int32)
+    VK.expand_tokens2_cuda(tape, tape, st["offs"], out_words=16, branch=branch)
+    assert entry().args[8] is branch
+    for bad in (torch.zeros(B, dtype=torch.int64), torch.zeros(B + 1, dtype=torch.int32),
+                torch.zeros(2 * B, dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError, match="branch"):
+            VK.expand_tokens2_cuda(tape, tape, st["offs"], out_words=16, branch=bad)
+    assert VK.launches["vhuff_expand"] == 2 and len(stub) == 2
+    assert PL.DEFAULT_CHUNK <= VK.CHASE_MAX_BYTES == 2**15
+    assert 4 * (-(-PL.DEFAULT_CHUNK // 4) + 2) <= VK.CHASE_MAX_ROW
+    assert len({VK.BRANCH_CHASE, VK.BRANCH_UNTILED, VK.BRANCH_TOO_LARGE}) == 3

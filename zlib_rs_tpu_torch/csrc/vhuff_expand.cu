@@ -1,44 +1,242 @@
 // K5: the two-plane token expansion, one block per chunk.
 //
 // Replaces zlib_rs_tpu/ops/pallas/vhuff_kernel.py:expand_tokens_pallas2
-// (body _make_expand_kernel2). The walkers of a chunk run in order; walker
-// s writes output bytes [offs[s], offs[s + 1]). Each tape row is a literal
-// funnel store of up to four bytes (the bytes below the write position in
-// its word are kept), then, if the row has a match, the match copy: a byte
-// head for dist < 4 (which turns the copy distance d4 into a multiple of
-// the period of at least 4), a word store at the head's end, then whole
-// words from d4 back. An all-zero row ends the walker.
+// (body _make_expand_kernel2). Walker s of a chunk covers output bytes
+// [offs[s], offs[s + 1]). Each tape row is up to four literal bytes, then,
+// if the row has a match, the match; an all-zero row ends the walker. The
+// reference runs the walkers in order and stores whole words (a literal
+// funnel store, a byte head for dist < 4, then word copies), so a row
+// leaves don't-care bytes past its end that the next row or walker
+// overwrites.
 //
-// Order matters: stores write whole words, leaving don't-care bytes past a
-// row's end that the next row or walker overwrites, and a walker's matches
-// read the bytes of the walkers before it. So one thread expands a chunk,
-// walker after walker, as the reference does.
+// Why the order of the walkers does not matter. When the walkers tile
+// their ranges (each ends exactly at the next one's offset, every row has
+// at most 4 literals, and every match has 1 <= dist <= its position), each
+// byte in [offs[0], offs[S]) is defined by exactly one token: a literal
+// byte, or byte q of a match, which equals byte q - dist. A later store
+// starts at or past the end of the token that defines a byte, so the
+// serial order leaves that byte as the token defines it, and bytes before
+// offs[0] stay zero. So the chunk is built in parallel, in shared memory,
+// as one 16-bit cell a byte: 0x8000 | the byte once it is known, else a
+// pointer to an earlier byte with the same value (0xFFFF while open).
+//   1. Resolve, kGroup lanes a walker. Its own rows give its positions (p
+//      += cnt + length) without the bytes of any other walker. Each lane
+//      takes one row of a window of kGroup rows, and an exclusive scan of
+//      the rows' lengths in the group places them. It writes each literal
+//      byte, known, and at each match's first byte the pointer p - dist;
+//      the match's other bytes stay open. A row costs the same whatever
+//      its match length, so the lanes of a warp stay in step. It checks
+//      the tiling as it goes.
+//   2. Fill, one segment of bytes a thread. An open byte lies inside the
+//      match of the last head before it; a block max scan of each
+//      segment's last token gives a segment the head it starts in. Byte j
+//      of a match at s takes s + j - dist, or, where that lies inside the
+//      match itself (dist <= j, an overlapping copy), the byte one period
+//      earlier before s, s - dist + j % dist. A pointer into the thread's
+//      own segment is replaced by its target's cell, final there, so a
+//      chain hops only between segments.
+//   3. Chase, all threads. Pointer jumping: a cell that holds a pointer
+//      takes its target's cell (a pointer further back, or the byte), in
+//      rounds until no cell changes (__syncthreads_or). A cell only ever
+//      moves along its own chain, so a store racing a load gives an old or
+//      a newer cell of that chain, and each round at least halves every
+//      chain. A thread takes two cells (one word) a step.
+// Then every cell holds its byte, and the row is copied out coalesced as
+// words. Pointers take 15 bits, so the chase takes a chunk of at most
+// kChaseBytes output bytes: the port's 32 KiB chunks, whose cells, with one
+// pad pair after every kSeg (so that the lanes of a warp, each on its own
+// segment, read 32 banks), take 66 KiB: two blocks an SM, all 256 chunks
+// of the main path in one wave.
 //
-// Bound on the H100: bytes (the tapes read once, the output written
-// once); in practice the serial chain of dependent word reads and writes
-// of one thread per chunk, so latency.
+// Two kinds of chunk keep the reference's serial body (one thread expands
+// the walkers in order, reads clamped to the row, stray stores dropped):
+// a chunk whose walkers do not tile their ranges (a corrupt tape or a
+// damaged index; such a chunk fails the decode's checks), whose whole row
+// then equals the plain version's, and a chunk of more than kChaseBytes
+// (the JAX package's 128 KiB chunks), built in shared memory where its row
+// fits and in device memory otherwise. The optional `branch` output gives
+// each chunk's: 0 the chase, 1 serial because the walkers do not tile, 2
+// serial because the chunk is too large.
 //
-// Design: the chunk's output is built in shared memory when it fits (32
-// KiB chunks take 32 KiB) and copied out coalesced at the end; otherwise
-// the thread works on the output row in device memory. Tapes are
-// row-major [cap, W]: row t of 8 neighbouring walkers is one 32-byte
-// sector. While thread 0 expands a group of 8 walkers from shared memory,
-// warps 1-3 stage the next group's rows (double buffer). Rows past the
-// staged depth are read from device memory directly.
+// The tape reader is a policy (`TwoPlane`): a row as (literal bytes, count,
+// match length, dist, end). The resolve, the fill and the chase take any
+// reader of that shape.
 //
-// A corrupt tape or a damaged index must not fault the context: every
-// read index is clamped to [0, out_words) and every store outside it is
-// dropped (the reference reads unclamped at its word copy).
+// Bound on the H100: bytes (the tape rows read once, the output written
+// once); the resolve is a walk of dependent windows a walker, its rows
+// loaded two windows ahead, and the fill and the chase a few passes over
+// shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kGroup = 8;           // walkers staged together
-constexpr int kSmemMax = 232448;    // dynamic shared memory a block may use
-constexpr int kMaxStageRows = 1024;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 4;             // lanes a resolving walker: a window of 4 rows
+constexpr int kSegShift = 6;
+constexpr int kSeg = 1 << kSegShift;  // the fill's segment unit, bytes
+constexpr int kChaseBytes = 32768;    // a chunk's bytes the chase takes: 15-bit pointers
+constexpr int kChaseRow = 65536;      // row bytes a launch may have for the chase
+constexpr uint16_t kKnown = 0x8000;   // | the byte
+constexpr uint16_t kOpen = 0xFFFF;
+constexpr int kSmemMax = 232448;      // dynamic shared memory a block may use
+
+enum Branch { kChase = 0, kUntiled = 1, kTooLarge = 2 };
+enum Mode { kModeChase = 0, kModeSerialSmem = 1, kModeSerialDevice = 2 };
+
+struct Row {
+  uint32_t lits;  // literal bytes, LSB first
+  int cnt;        // literals
+  int len;        // match length, 0 for none
+  int dist;
+  bool end;       // the row ends the walker
+};
+
+// The two-plane tape: row t of walker column c at t * W + c of each plane;
+// tapeB = cnt:3 | has:1 | len-3:8 | dist:16, tapeA the literal bytes.
+struct TwoPlane {
+  const int32_t* a;
+  const int32_t* b;
+  long long W;
+  struct Raw {
+    uint32_t a, b;
+  };
+  __device__ __forceinline__ Raw load(long long col, int t) const {
+    const long long i = (long long)t * W + col;
+    return {(uint32_t)__ldg(a + i), (uint32_t)__ldg(b + i)};
+  }
+  static __device__ __forceinline__ Raw zero() { return {0u, 0u}; }
+  static __device__ __forceinline__ Row decode(Raw r) {
+    const bool has = (r.b & 8u) != 0;
+    return {r.a, (int)(r.b & 7u), has ? (int)((r.b >> 4) & 0xFFu) + 3 : 0,
+            (int)((r.b >> 12) & 0xFFFFu), r.b == 0};
+  }
+};
+
+// where byte q keeps its cell: one pad pair after every kSeg
+__host__ __device__ constexpr int slot(int q) { return q + ((q >> kSegShift) << 1); }
+
+// One walker's tokens in [p, p1), kGroup lanes a walker (`act` false for a
+// lane with no walker): literal bytes, known, and each match's first
+// pointer. Each lane takes one row of a window of kGroup rows, loaded two
+// windows ahead; an exclusive scan of the rows' lengths in the group
+// gives each row its place, and the rows that start before p1 (a prefix
+// of the window) are taken, as the serial loop would take them. Returns
+// false when the walker does not tile its range (the chunk then takes the
+// serial body), the same in every lane of its group.
+template <class Tape>
+__device__ bool resolve(const Tape& tape, bool act, long long col, int cap, int p, int p1,
+                        int end, uint16_t* cell) {
+  const int lane = threadIdx.x & 31, g = lane & (kGroup - 1);
+  const unsigned gmask = ((1u << kGroup) - 1u) << (lane - g);
+  bool ok = !act || (p >= 0 && p <= p1 && p1 <= end);
+  bool live = act && ok && p < p1;
+  typename Tape::Raw cur = Tape::zero(), nxt = Tape::zero();
+  if (live && g < cap) cur = tape.load(col, g);
+  if (live && kGroup + g < cap) nxt = tape.load(col, kGroup + g);
+  for (int t0 = 0; __any_sync(0xFFFFFFFFu, live); t0 += kGroup) {
+    const int t = t0 + g;
+    typename Tape::Raw fut = Tape::zero();
+    if (live && t + 2 * kGroup < cap) fut = tape.load(col, t + 2 * kGroup);
+    const Row r = Tape::decode(cur);
+    const int adv = live && t < cap ? r.cnt + r.len : 0;
+    int incl = adv;
+#pragma unroll
+    for (int d = 1; d < kGroup; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d, kGroup);
+      if (g >= d) incl += y;
+    }
+    const int pos = p + incl - adv, lit_end = pos + r.cnt;
+    const bool take = live && t < cap && pos < p1;
+    const bool bad = take && (r.end || r.cnt > 4 || lit_end > p1 ||
+                              (r.len && (r.dist == 0 || r.dist > lit_end || lit_end + r.len > p1)));
+    if (take && !bad) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < r.cnt) cell[slot(pos + i)] = (uint16_t)(kKnown | ((r.lits >> (8 * i)) & 0xFFu));
+      if (r.len) cell[slot(lit_end)] = (uint16_t)(lit_end - r.dist);
+    }
+    const unsigned takem = __ballot_sync(0xFFFFFFFFu, take) & gmask;
+    const unsigned badm = __ballot_sync(0xFFFFFFFFu, bad) & gmask;
+    const int ntake = __popc(takem);
+    const int np = __shfl_sync(0xFFFFFFFFu, pos + adv, ntake ? ntake - 1 : 0, kGroup);
+    if (live) {
+      ok = !badm;
+      p = ntake ? np : p;
+      live = ok && ntake == kGroup && p < p1;  // a full window: the walker goes on
+    }
+    cur = nxt;
+    nxt = fut;
+  }
+  return !act || (ok && p == p1);
+}
+
+// Exclusive max scan of one int a thread (values at least -1, the
+// identity), in thread order. Every thread of the block calls it.
+__device__ int block_max_scan(int v, int* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x = max(x, y);
+  }
+  if (lane == 31) tmp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int z = lane < kWarps ? tmp[lane] : -1;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, z, d);
+      if (lane >= d) z = max(z, y);
+    }
+    if (lane < kWarps) tmp[lane] = z;
+  }
+  __syncthreads();
+  int ex = __shfl_up_sync(0xFFFFFFFFu, x, 1);
+  if (lane == 0) ex = -1;
+  const int r = max(ex, warp ? tmp[warp - 1] : -1);
+  __syncthreads();
+  return r;
+}
+
+// Fills the open bytes of [q0, q1), given the last token before q0 (-1
+// for none) and its cell as the resolve left it: each open byte lies
+// inside the match of the last head before it. A pointer into [q0, q) is
+// replaced by its target's cell, already final here, so on exit each
+// cell of the segment is known or points before q0. An open byte with no
+// head before it lies before the first walker: a known zero.
+__device__ void fill(uint16_t* cell, int q0, int q1, int last, int last_cell) {
+  int s = -1, d = 1, j = 0, r = 0;  // the match being filled: head, dist, q - s, j % d
+  if (last >= 0 && last_cell < last) {
+    s = last;
+    d = last - last_cell;
+    j = q0 - s;
+    r = j % d;
+  }
+  for (int q = q0; q < q1; ++q, ++j, r = r + 1 == d ? 0 : r + 1) {
+    int v = cell[slot(q)];
+    if (v == kOpen) {
+      // byte j of the match copies q - d, or, inside the match itself, the
+      // byte one period earlier before s
+      v = s < 0 ? kKnown : (j < d ? q - d : s - d + r);
+    } else if (v < q) {
+      s = q;
+      d = q - v;
+      j = 0;
+      r = 0;
+    } else {
+      s = -1;
+      continue;  // a literal, known
+    }
+    if (v >= q0 && v < q) v = cell[slot(v)];
+    cell[slot(q)] = (uint16_t)v;
+  }
+}
+
+// -- the reference's serial body --------------------------------------------
 
 struct Out {
   uint32_t* o;
@@ -85,20 +283,12 @@ __device__ void copy_match(const Out& out, long long p, int length, int dist) {
   }
 }
 
-__device__ void expand_walker(const Out& out, const uint32_t* sa,
-                              const uint32_t* sb, int stage_rows,
-                              const int32_t* ga, const int32_t* gb, long long W,
-                              int cap, long long p, long long p1) {
+__device__ void expand_walker(const Out& out, const TwoPlane& tape, long long col, int cap,
+                              long long p, long long p1) {
   int t = 0;
   while (t < cap && p < p1) {
-    uint32_t ta, tb;
-    if (t < stage_rows) {
-      ta = sa[t * kGroup];
-      tb = sb[t * kGroup];
-    } else {
-      ta = (uint32_t)ga[t * W];
-      tb = (uint32_t)gb[t * W];
-    }
+    const TwoPlane::Raw r = tape.load(col, t);
+    const uint32_t ta = r.a, tb = r.b;
     const int cnt = (int)(tb & 7u);
     // literal funnel: up to 4 bytes, at most one word boundary
     const long long wi = p >> 2;
@@ -116,76 +306,116 @@ __device__ void expand_walker(const Out& out, const uint32_t* sa,
   }
 }
 
-__device__ void stage(uint32_t* dst_a, uint32_t* dst_b, const int32_t* tape_a,
-                      const int32_t* tape_b, long long W, long long col0,
-                      int rows, int tid, int nth) {
-  for (int i = tid; i < rows * kGroup; i += nth) {
-    const long long g = (long long)(i / kGroup) * W + col0 + (i % kGroup);
-    dst_a[i] = (uint32_t)tape_a[g];
-    dst_b[i] = (uint32_t)tape_b[g];
-  }
-}
+// -- the kernel --------------------------------------------------------------
 
-__global__ void vhuff_expand(const int32_t* __restrict__ tape_a,
-                             const int32_t* __restrict__ tape_b,
-                             const int32_t* __restrict__ offs, int cap, int W,
-                             int S, int out_words, int stage_rows,
-                             int out_in_smem, int32_t* __restrict__ out_g) {
+__global__ void __launch_bounds__(kThreads, 2)
+vhuff_expand(const int32_t* __restrict__ tape_a, const int32_t* __restrict__ tape_b,
+             const int32_t* __restrict__ offs, int cap, int W, int S, int out_words, int mode,
+             int32_t* __restrict__ out_g, int32_t* __restrict__ branch) {
   extern __shared__ uint32_t smem[];
-  const int chunk = blockIdx.x;
-  const int per_buf = stage_rows * kGroup;
-  uint32_t* st_a[2] = {smem, smem + 2 * per_buf};
-  uint32_t* st_b[2] = {smem + per_buf, smem + 3 * per_buf};
-  uint32_t* row = (uint32_t*)out_g + (long long)chunk * out_words;
-  const Out out = {out_in_smem ? smem + 4 * per_buf : row, out_words};
-  for (int i = threadIdx.x; i < out_words; i += kThreads) out.o[i] = 0;
-
+  const int chunk = blockIdx.x, tid = threadIdx.x;
+  const TwoPlane tape{tape_a, tape_b, W};
   const long long col = (long long)chunk * S;
   const int32_t* of = offs + (long long)chunk * (S + 1);
-  const int groups = S / kGroup;
-  stage(st_a[0], st_b[0], tape_a, tape_b, W, col, stage_rows, threadIdx.x, kThreads);
-  __syncthreads();
-  for (int g = 0; g < groups; ++g) {
-    const int cur = g & 1;
-    if (threadIdx.x >= 32) {
-      if (g + 1 < groups)
-        stage(st_a[cur ^ 1], st_b[cur ^ 1], tape_a, tape_b, W,
-              col + (long long)(g + 1) * kGroup, stage_rows, threadIdx.x - 32,
-              kThreads - 32);
-    } else if (threadIdx.x == 0) {
-      for (int j = 0; j < kGroup; ++j) {
-        const int s = g * kGroup + j;
-        expand_walker(out, st_a[cur] + j, st_b[cur] + j, stage_rows,
-                      tape_a + col + s, tape_b + col + s, W, cap, of[s], of[s + 1]);
-      }
+  uint32_t* row = (uint32_t*)out_g + (long long)chunk * out_words;
+  const int nbytes = 4 * out_words;
+  // the walkers tile [of[0], end) if they tile at all; past end, zeros
+  const int end = min(max(of[S], 0), nbytes);
+  const bool fits = of[S] <= kChaseBytes;
+
+  if (mode == kModeChase && fits) {
+    __shared__ int tmp[kWarps];
+    uint16_t* cell = (uint16_t*)smem;
+    uint32_t* pair = smem;
+    for (int m = tid; 2 * m < nbytes; m += kThreads) {  // one pair of cells a step
+      const int q = 2 * m;
+      pair[slot(q) >> 1] = (q < end ? kOpen : kKnown) | (uint32_t)(q + 1 < end ? kOpen : kKnown) << 16;
     }
     __syncthreads();
+    bool ok = true;
+    for (int s0 = 0; s0 < S; s0 += kThreads / kGroup) {
+      const int s = s0 + tid / kGroup;
+      const bool act = s < S;
+      ok &= resolve(tape, act, col + s, cap, act ? of[s] : 0, act ? of[s + 1] : 0, end, cell);
+    }
+    if (!__syncthreads_or(!ok)) {
+      // fill: one segment a thread, each told the last token before it
+      const int seg = kSeg * ((end + kSeg * kThreads - 1) / (kSeg * kThreads));
+      const int q0 = min(tid * seg, end), q1 = min(q0 + seg, end);
+      int last = -1;
+      for (int q = q1 - 1; q >= q0; --q)
+        if (cell[slot(q)] != kOpen) {
+          last = q;
+          break;
+        }
+      last = block_max_scan(last, tmp);
+      // the head's cell before its own segment's fill replaces it
+      const int last_cell = last >= 0 ? cell[slot(last)] : 0;
+      __syncthreads();
+      fill(cell, q0, q1, last, last_cell);
+      __syncthreads();
+      // chase, a pair of cells (one word) a step
+      const int npairs = (end + 1) >> 1;
+      for (;;) {
+        int moved = 0;
+        for (int m = tid; m < npairs; m += kThreads) {
+          const uint32_t a = pair[slot(2 * m) >> 1], lo = a & 0xFFFFu, hi = a >> 16;
+          const uint32_t b = (lo < kKnown ? cell[slot((int)lo)] : lo) |
+                             (uint32_t)(hi < kKnown ? cell[slot((int)hi)] : hi) << 16;
+          if (b != a) {
+            pair[slot(2 * m) >> 1] = b;
+            moved = 1;
+          }
+        }
+        if (!__syncthreads_or(moved)) break;
+      }
+      for (int i = tid; i < out_words; i += kThreads) {
+        const uint32_t c01 = pair[slot(4 * i) >> 1], c23 = pair[slot(4 * i + 2) >> 1];
+        row[i] = (c01 & 0xFFu) | (c01 >> 8 & 0xFF00u) | (c23 & 0xFFu) << 16 | (c23 & 0xFF0000u) << 8;
+      }
+      if (branch && tid == 0) branch[chunk] = kChase;
+      return;
+    }
+    // the walkers do not tile: the serial body, on the row in shared memory
   }
-  if (out_in_smem)
-    for (int i = threadIdx.x; i < out_words; i += kThreads) row[i] = out.o[i];
+  const bool in_smem = mode != kModeSerialDevice;
+  const Out out = {in_smem ? smem : row, out_words};
+  for (int i = tid; i < out_words; i += kThreads) out.o[i] = 0;
+  __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) expand_walker(out, tape, col + s, cap, of[s], of[s + 1]);
+    if (branch) branch[chunk] = mode == kModeChase && fits ? kUntiled : kTooLarge;
+  }
+  __syncthreads();
+  if (in_smem)
+    for (int i = tid; i < out_words; i += kThreads) row[i] = out.o[i];
 }
 
 }  // namespace
 
-extern "C" int zrs_vhuff_expand(const void* tape_a, const void* tape_b,
-                                const void* offs, int cap, int W, int S,
-                                int out_words, void* out, void* stream) {
-  if (W <= 0 || S <= 0 || S % kGroup) return (int)cudaErrorInvalidValue;
+extern "C" int zrs_vhuff_expand(const void* tape_a, const void* tape_b, const void* offs,
+                                int cap, int W, int S, int out_words, void* out, void* branch,
+                                void* stream) {
+  if (W <= 0 || S <= 0 || W % S || out_words <= 0) return (int)cudaErrorInvalidValue;
   const int B = W / S;
-  const int row_bytes = 4 * kGroup * 4;  // two buffers of two planes
-  const long long out_bytes = 4LL * out_words;
-  const int min_rows = cap < 64 ? cap : 64;
-  const int out_in_smem = out_bytes + (long long)row_bytes * min_rows <= kSmemMax;
-  const long long avail = kSmemMax - (out_in_smem ? out_bytes : 0);
-  int stage_rows = (int)(avail / row_bytes);
-  stage_rows = stage_rows < cap ? stage_rows : cap;
-  stage_rows = stage_rows < kMaxStageRows ? stage_rows : kMaxStageRows;
-  const size_t smem = (size_t)row_bytes * stage_rows + (out_in_smem ? out_bytes : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      vhuff_expand, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long long nbytes = 4LL * out_words;
+  int mode;
+  size_t smem;
+  if (nbytes <= kChaseRow) {
+    mode = kModeChase;
+    smem = (size_t)(2 * slot((int)nbytes + 1) + 4);  // the cells, padded, and the last pair
+  } else if (nbytes <= kSmemMax) {
+    mode = kModeSerialSmem;
+    smem = (size_t)nbytes;
+  } else {
+    mode = kModeSerialDevice;
+    smem = 0;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(vhuff_expand, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   vhuff_expand<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)tape_a, (const int32_t*)tape_b, (const int32_t*)offs, cap,
-      W, S, out_words, stage_rows, out_in_smem, (int32_t*)out);
+      (const int32_t*)tape_a, (const int32_t*)tape_b, (const int32_t*)offs, cap, W, S,
+      out_words, mode, (int32_t*)out, (int32_t*)branch);
   return (int)cudaGetLastError();
 }

@@ -541,6 +541,14 @@ def decode_tokens_vector(words, start_word, align, span, tables, *, S: int, K: i
 # K5: the two-plane expansion
 # ---------------------------------------------------------------------------
 
+# K5's body for a chunk: the per-walker resolve and pointer-jumping chase,
+# or the serial body for walkers that do not tile their ranges or for a
+# chunk of more output bytes than the chase's 15-bit pointers reach
+# (CHASE_MAX_BYTES) or a row past CHASE_MAX_ROW bytes
+BRANCH_CHASE, BRANCH_UNTILED, BRANCH_TOO_LARGE = 0, 1, 2
+CHASE_MAX_BYTES = 32768
+CHASE_MAX_ROW = 65536
+
 
 def _check_expand_args(tapeA, tapeB, offs, out_words: int):
     if any(t.dtype != torch.int32 for t in (tapeA, tapeB, offs)):
@@ -644,23 +652,27 @@ def _expand_lib():
     fn = _device.library("vhuff_expand").zrs_vhuff_expand
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, I, I, P, P]
+        fn.argtypes = [P, P, P, I, I, I, I, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def expand_tokens2_cuda(tapeA, tapeB, offs, *, out_words: int):
+def expand_tokens2_cuda(tapeA, tapeB, offs, *, out_words: int, branch=None):
     """Launch K5 over CUDA operands: tapes int32 [cap, W], offs int32
-    [B, S + 1] (walker s of chunk k covers [offs[k, s], offs[k, s + 1]))."""
+    [B, S + 1] (walker s of chunk k covers [offs[k, s], offs[k, s + 1])).
+    `branch`, an int32 [B] tensor on the tapes' device if given, receives
+    each chunk's body: BRANCH_CHASE, BRANCH_UNTILED or BRANCH_TOO_LARGE."""
     _device.require_cuda("vhuff_expand", tapeA, tapeB, offs)
     cap, W, B, S = _check_expand_args(tapeA, tapeB, offs, out_words)
-    if S % 8:
-        raise ValueError("vhuff_expand: the kernel stages walkers in groups of 8")
+    if branch is not None and (branch.dtype != torch.int32 or branch.shape != (B,)
+                               or branch.device != tapeA.device or not branch.is_contiguous()):
+        raise ValueError("vhuff_expand: branch must be a contiguous int32 [B] on the tapes' device")
     tapeA, tapeB, offs = (t.contiguous() for t in (tapeA, tapeB, offs))
     out = torch.empty((B, out_words), dtype=torch.int32, device=tapeA.device)
     rc = _expand_lib()(
         _device.ptr(tapeA), _device.ptr(tapeB), _device.ptr(offs), cap, W, S,
-        out_words, _device.ptr(out), _device.stream_of(tapeA),
+        out_words, _device.ptr(out), None if branch is None else _device.ptr(branch),
+        _device.stream_of(tapeA),
     )
     _device.check(rc, "vhuff_expand")
     launches["vhuff_expand"] += 1
