@@ -27,7 +27,9 @@ stream of the corpus and `decompress_chunks` of its window-primed regions
 (phases 11-16). Then K8 (the hash-chain scan) against its plain version on
 the first super-batch at level 9 (chunk 0 and the chunk that visits the
 most candidates first) and at level 8 (that chunk), K9 (the symbol
-histogram) against its plain version on the same batch, K10 (the
+histogram) against its plain version on the level-9 and level-8 streams
+of the same batch, on crafted lanes (nmatch 0, random bytes, long gaps)
+and on the tab route's stream, K10 (the
 table walk) on the same batch under level 6 with ZRS_TPU_HOPSCAN=0, at its
 tile and at MIN_TILE, and on crafted lanes (an overflow past one tile,
 all-literal lanes, far dists, the level-9 knob set under
@@ -35,7 +37,9 @@ ZRS_TPU_CHAIN=256), every match stream checked on the card to tile its
 span with byte-valid matches, and `compress_parallel` through the chain
 route (levels 9 and 8) and the tab route, each checked by zlib (phases
 17-20). Then K11a and K11b
-(the single-plane decode and expansion) against their plain versions and
+(the single-plane decode and expansion) against their plain versions (K11b
+also on corrupt tapes, a random tape, a 128-hop chain and chunks past its
+chase, with the count of chunks each body took) and
 the single-plane route of `decompress_parallel` (ZRS_VECTOR_TWOPLANE=0) on
 both indexed streams, with its fail-safe (phases 21-23); K12 (the
 interleaved hop chase) against its plain version and K2 on the first
@@ -117,6 +121,23 @@ def event_ms(torch, fn, reps: int) -> float:
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def queued_ms(torch, fn, reps: int = 50) -> float:
+    """Mean device time of `fn` over `reps` launches queued behind a busy
+    wait of the card, so that it runs them back to back whatever the host
+    spends to launch each (event_ms waits for the host)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms of cycles at 1.98 GHz
     e0.record()
     for _ in range(reps):
         fn()
@@ -852,6 +873,26 @@ def k8_pairs(DK, inputs, got, r: int, knobs: dict) -> list:
     return [(st[r, :3], ps[0, :3]), (mpos[r, :m], pm[0, :m]), (mld[r, :m], pd[0, :m])]
 
 
+def k9_crafted_lanes(torch, words, meta, C: int, dict_size: int):
+    """K9 operands the corpus's streams do not give, on the batch's first
+    three rows: chunk 0 with nmatch 0 (all literal), random bytes with
+    nmatch 0, and chunk 2 with three matches about 12 kB apart (gaps far
+    longer than a thread's share; length 258 at dist 32,768, codes 28 and
+    29). Returns (words, mpos, mld, meta) on the batch's device."""
+    dev = words.device
+    w = words[:3].clone()
+    g = torch.Generator().manual_seed(12)
+    w[1] = torch.randint(-2**31, 2**31 - 1, (w.shape[1],), generator=g, dtype=torch.int64).to(
+        device=dev, dtype=torch.int32)
+    me = meta[:3].clone()
+    me[:, 2] = torch.tensor([0, 0, 3], dtype=torch.int32, device=dev)
+    mp = torch.zeros((3, C), dtype=torch.int32, device=dev)
+    ml = torch.zeros((3, C), dtype=torch.int32, device=dev)
+    mp[2, :3] = dict_size + torch.tensor([100, 12_000, 24_000], dtype=torch.int32, device=dev)
+    ml[2, :3] = (255 << 15) | 32767
+    return w, mp, ml, me
+
+
 def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
     """Phases 17-20: K8 at levels 9 and 8 and K9 against their plain
     versions on the first super-batch, K10 on the same batch under level 6 with
@@ -927,11 +968,18 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
           flush=True)
 
     # -- phase 18: K9 against its plain version ---------------------------
+    # level 9's stream, level 8's, then the crafted lanes of k9_crafted_lanes
+    # (phase 19 adds the tab route's stream)
     nm_eff = torch.where(bad, 0, nmatch)
     words, meta, _oww = DK.pack_inputs(dc, dn, dict_size, nm_eff, 0)
     got = DK.freq_cuda(words, mpos, mld, meta)
     want = DK.freq_plain(words, mpos, mld, meta)
-    err = max_abs([(got, want)])
+    meta8 = meta.clone()
+    meta8[:, 2] = torch.where(got8[2][:, 1] > 0, 0, got8[2][:, 0])
+    lanes = k9_crafted_lanes(torch, words, meta, mpos.shape[1], dict_size)
+    err = max_abs([(got, want), (DK.freq_cuda(words, got8[0], got8[1], meta8),
+                                 DK.freq_plain(words, got8[0], got8[1], meta8)),
+                   (DK.freq_cuda(*lanes), DK.freq_plain(*lanes))])
     if err:
         raise AssertionError(f"K9 disagrees with its plain version: max abs err {err}")
     lens = torch.where(torch.arange(mpos.shape[1], device=dev)[None, :] < nm_eff.long()[:, None],
@@ -944,13 +992,17 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
         replaces="zlib_rs_tpu/ops/pallas/deflate_kernel.py:1517",
         max_abs_err=err,
         ms=event_ms(torch, lambda: DK.freq_cuda(words, mpos, mld, meta), 20),
+        queued_ms=queued_ms(torch, lambda: DK.freq_cuda(words, mpos, mld, meta)),
         plain_ms=event_ms(torch, lambda: DK.freq_plain(words, mpos, mld, meta), 3),
         # the gap (literal) bytes, the match stream and meta in, 320 bins
         # out; a shared atomic a literal, two and the code arithmetic a match
         bnd=bound(int((lits + 8 * nml + 32 + 4 * 320).sum()), int((3 * lits + 30 * nml).sum())),
     )
-    print(f"phase 18 K9: {B} chunks, all 320 bins equal to plain; literals and matches cover "
-          f"every span", flush=True)
+    print(f"phase 18 K9: {B} chunks of levels 9 and 8, all 320 bins equal to plain; literals "
+          f"and matches cover every span; crafted lanes (nmatch 0 on a chunk and on random "
+          f"bytes, three matches 12 kB apart) equal to plain; ms a launch "
+          f"{rows['freq']['ms']:.6f} by events, {rows['freq']['queued_ms']:.6f} queued",
+          flush=True)
 
     # -- phase 19: K10 against its plain version (level 6, HOPSCAN=0) ------
     os.environ["ZRS_TPU_HOPSCAN"] = "0"
@@ -1019,6 +1071,13 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
         raise AssertionError(f"K10 disagrees with its plain version: max abs err {err}")
     if bool((tst[:, 1] > 0).any()):
         raise AssertionError("K10 flags a chunk of the corpus bad")
+    tmeta = meta.clone()
+    tmeta[:, 2] = tst[:, 0]
+    k9_err = max_abs([(DK.freq_cuda(words, tpos, tmld, tmeta),
+                       DK.freq_plain(words, tpos, tmld, tmeta))])
+    if k9_err:
+        raise AssertionError(f"K9 disagrees with its plain version on the tab route's stream: "
+                             f"max abs err {k9_err}")
     t_checked = check_stream(torch, words4, tpos, tmld, tst[:, 0], dn, dict_size, dv)
     tnm = tst[:, 0].long()
     tlens = torch.where(torch.arange(tmld.shape[1], device=dev)[None, :] < tnm[:, None],
@@ -1041,7 +1100,8 @@ def encode_route_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> d
           f"all-literal lanes, far dists (the serial walk) and the level-9 knob set under "
           f"ZRS_TPU_CHAIN=256 on 8 chunks; {t_checked} matches tile their spans and are "
           f"byte-valid on the card; launch: {DK.RESOLVE_THREADS} threads a block, "
-          f"{4 * DK.TILE} bytes of dynamic shared memory, tile {DK.TILE}", flush=True)
+          f"{4 * DK.TILE} bytes of dynamic shared memory, tile {DK.TILE}; K9 on its stream "
+          f"equal to plain", flush=True)
 
     # -- phase 20: the chain and tab routes, end to end --------------------
     result = {}
@@ -1145,42 +1205,47 @@ def single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, 
           f"words and with cap {UNDERSIZED_CAP} equal to plain", flush=True)
 
     # -- phase 22: K11b against its plain version --------------------------
+    # all chunks (every one through the chase), then the edges of
+    # k11b_edge_pairs: phase 21's corrupt tapes, a random tape, a 128-hop
+    # chain, rows past the chase
     out_words = -(-max(sizes) // 4) + 2
     offs = staged["offs"]
-    outw = VK.expand_tokens_cuda(tape, offs, out_words=out_words)
+    branch = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    outw = VK.expand_tokens_cuda(tape, offs, out_words=out_words, branch=branch)
     want, plain_ms = timed_ms(
         torch, lambda: VK.expand_tokens_plain(tape, offs, out_words=out_words))
     err = bytes_err(torch, outw, want, sizes)
+    main_bodies = {int(b): int(n) for b, n in zip(*torch.unique(branch, return_counts=True))}
+    if (branch != VK.BRANCH_CHASE).any():
+        raise AssertionError(f"K11b chunks of the clean stream left the chase: {main_bodies}")
     full8 = outw.cpu().numpy().view("u1")
     if b"".join(full8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
         raise AssertionError("the full K11b expansion is not the corpus")
-    # phase 21's corrupt tapes, and a random tape with a damaged index:
-    # reads clamp and stray stores drop alike, so every output word is equal
-    pairs = [(VK.expand_tokens_cuda(t, offs[:k], out_words=out_words),
-              VK.expand_tokens_plain(t, offs[:k], out_words=out_words)) for t in bad_tapes]
-    g = torch.Generator().manual_seed(5)
-    rtape = torch.randint(-2**31, 2**31, (16, 16), generator=g, dtype=torch.int64)
-    rtape[:, ::3] = (rtape[:, ::3] & 0x3FFFFFFF) | (VK.VTOK_LIT << 30)
-    rtape = ((rtape + 2**31) % 2**32 - 2**31).to(torch.int32)
-    roffs = torch.sort(torch.randint(-50, 400, (2, 9), generator=g), dim=1).values.to(torch.int32)
-    roffs[1, 3] = 2**31 - 8
-    pairs.append((VK.expand_tokens_cuda(rtape.to(dev), roffs.to(dev), out_words=20),
-                  VK.expand_tokens_plain(rtape, roffs, out_words=20)))
-    err = max(err, max_abs(pairs))
+    edge, bodies_seen = k11b_edge_pairs(torch, VK, dev, tape, offs, sizes, bad_tapes, k)
+    err = max(err, max_abs((torch.from_numpy(g), torch.from_numpy(w)) for g, w in edge))
     if err:
         raise AssertionError(f"K11b disagrees with its plain version: max abs err {err}")
     nb = 4 * used_rows + 4 * offs.numel() + len(corpus)
+    expand1 = lambda: VK.expand_tokens_cuda(tape, offs, out_words=out_words)
     rows["vhuff_expand1"] = dict(
-        source="zlib_rs_tpu_torch/csrc/vhuff_expand1.cu",
+        source="zlib_rs_tpu_torch/csrc/vhuff_expand.cu",
         replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:688",
         max_abs_err=err,
-        ms=event_ms(torch, lambda: VK.expand_tokens_cuda(tape, offs, out_words=out_words), 5),
+        ms=event_ms(torch, expand1, 50),
+        queued_ms=queued_ms(torch, expand1),
         plain_ms=plain_ms,
         # a funnel store a literal row, a match copy a match row: ~40 operations a row
         bnd=bound(nb, 40 * used_rows),
     )
-    print(f"phase 22 K11b: {B} chunks equal to plain and expand to the corpus; phase 21's "
-          f"corrupt tapes and a random tape with a damaged index equal to plain", flush=True)
+    names = {VK.BRANCH_CHASE: "chase", VK.BRANCH_UNTILED: "serial (untiled)",
+             VK.BRANCH_TOO_LARGE: "serial (too large)"}
+    print(f"phase 22 K11b: {B} chunks equal to plain and expand to the corpus, bodies "
+          f"{ {names[b]: n for b, n in main_bodies.items()} }; edge chunks (phase 21's "
+          f"corrupt tapes, a random tape with a damaged index, a 128-hop chain, a 38400-byte "
+          f"chunk, rows of {VK.CHASE_MAX_ROW + 32} and 240000 bytes) equal to plain, bodies "
+          f"{ {names[b]: n for b, n in bodies_seen.items()} }; ms a launch "
+          f"{rows['vhuff_expand1']['ms']:.6f} by events, "
+          f"{rows['vhuff_expand1']['queued_ms']:.6f} queued", flush=True)
 
     # -- phase 23: the single-plane route of the decode, end to end --------
     os.environ["ZRS_VECTOR_TWOPLANE"] = "0"
@@ -1282,25 +1347,46 @@ def two_plane_tapes(np, walkers):
     return ta.view(np.int32), tb.view(np.int32), offs
 
 
-def k5_edge_pairs(torch, VK, dev, tapeA, tapeB, offs, sizes, bad_tapes, k: int):
-    """(got, want) pairs of K5 against its plain version on what the
-    corpus's clean tapes do not give, and the count of chunks that took
-    each body: the first k chunks' corrupt tapes (full rows where the
-    serial body ran, [0, size) elsewhere), a random tape with a damaged
-    index (full rows), a chunk of dist-1 runs chained through all 128
-    walkers (128 hops deep), and, on full rows, the serial body for what
-    is past the chase: a chunk of 38,400 bytes, the first k chunks in rows
-    of more than CHASE_MAX_ROW bytes (in shared memory) and 2 in rows past
-    shared memory (in device memory)."""
-    import numpy as np
+def single_plane_tape(np, walkers):
+    """A row-major single-plane tape [cap, S] and offs [1, S + 1] of one
+    chunk from its walkers, each a list of tokens (literal bytes, 1-3 of
+    them, or (match length, dist)), offsets running on from 0."""
+    S = len(walkers)
+    tape = np.zeros((max(len(w) for w in walkers) + 1, S), np.uint32)
+    offs = np.zeros((1, S + 1), np.int32)
+    for s, toks in enumerate(walkers):
+        n = 0
+        for t, tok in enumerate(toks):
+            if isinstance(tok, bytes):
+                tape[t, s] = (1 << 30) | ((len(tok) - 1) << 24) | int.from_bytes(tok, "little")
+                n += len(tok)
+            else:
+                tape[t, s] = (2 << 30) | ((tok[0] - 3) << 16) | tok[1]
+                n += tok[0]
+        offs[0, s + 1] = offs[0, s] + n
+    return tape.view(np.int32), offs
 
+
+def expand_edge_pairs(torch, VK, dev, cuda, plain, label, tapes, offs, sizes, bad_tapes, k,
+                      rnd, chain, long_chunk):
+    """(got, want) pairs of an expansion (K5 or K11b: `cuda`, `plain`)
+    against its plain version on what the corpus's clean tapes do not
+    give, and the count of chunks that took each body: the first k
+    chunks' corrupt tapes (full rows where the serial body ran, [0, size)
+    elsewhere), a random tape with a damaged index (full rows; every chunk
+    must take the serial body), a chunk of dist-1 runs chained through all
+    128 walkers (128 hops deep; the chase), and, on full rows, the serial
+    body for what is past the chase: a chunk of 38,400 bytes, the first k
+    chunks in rows of more than CHASE_MAX_ROW bytes (in shared memory) and
+    2 in rows past shared memory (in device memory). Each tape argument is
+    a tuple of planes; `rnd` = (planes, offs) of the random tape."""
     counts = {}
     pairs = []
 
-    def run(ta, tb, of, out_words, full_rows, sz=None):
+    def run(planes, of, out_words, full_rows, sz=None):
         branch = torch.full((of.shape[0],), -1, dtype=torch.int32, device=dev)
-        got = VK.expand_tokens2_cuda(ta, tb, of, out_words=out_words, branch=branch)
-        want = VK.expand_tokens2_plain(ta, tb, of, out_words=out_words)
+        got = cuda(*planes, of, out_words=out_words, branch=branch)
+        want = plain(*planes, of, out_words=out_words)
         for r, b in enumerate(branch.tolist()):
             counts[b] = counts.get(b, 0) + 1
             n = 4 * out_words if full_rows or b != VK.BRANCH_CHASE else sz[r]
@@ -1309,34 +1395,62 @@ def k5_edge_pairs(torch, VK, dev, tapeA, tapeB, offs, sizes, bad_tapes, k: int):
 
     out_words = -(-max(sizes) // 4) + 2
     S = offs.shape[1] - 1
-    for ta, tb in bad_tapes:
-        run(ta[:, : k * S], tb[:, : k * S], offs[:k], out_words, False, sizes)
+    for planes in bad_tapes:
+        run([t[:, : k * S] for t in planes], offs[:k], out_words, False, sizes)
     if not counts.get(VK.BRANCH_UNTILED):
-        raise AssertionError("no corrupt K5 chunk took the serial body")
+        raise AssertionError(f"no corrupt {label} chunk took the serial body")
+    branch, _ = run(rnd[0], rnd[1], 20, True)
+    if (branch != VK.BRANCH_UNTILED).any():
+        raise AssertionError(f"a random {label} tape took the chase: {branch.tolist()}")
+    *planes, of = (torch.from_numpy(a).to(dev) for a in chain)
+    n_deep = int(of[0, -1])
+    branch, got = run(planes, of, -(-n_deep // 4) + 2, False, [n_deep])
+    if int(branch[0]) != VK.BRANCH_CHASE or bytes(
+            got[0].cpu().numpy().view("u1")[:n_deep]) != b"x" * n_deep:
+        raise AssertionError(f"{label}: the 128-hop dist-1 chain did not expand through the chase")
+    *planes, of = (torch.from_numpy(a).to(dev) for a in long_chunk)
+    for args in ((planes, of, -(-int(of[0, -1]) // 4) + 2),
+                 ([t[:, : k * S] for t in tapes], offs[:k], VK.CHASE_MAX_ROW // 4 + 8),
+                 ([t[:, : 2 * S] for t in tapes], offs[:2], 60000)):
+        branch, _ = run(*args, True)
+        if (branch != VK.BRANCH_TOO_LARGE).any():
+            raise AssertionError(f"a {label} chunk past the chase took {branch.tolist()}")
+    return pairs, counts
+
+
+def k5_edge_pairs(torch, VK, dev, tapeA, tapeB, offs, sizes, bad_tapes, k: int):
+    """expand_edge_pairs for K5, on two-plane tapes."""
+    import numpy as np
+
     g = torch.Generator().manual_seed(6)
     rnd = [torch.randint(-2**31, 2**31 - 1, (16, 16), generator=g, dtype=torch.int64)
            .to(torch.int32).to(dev) for _ in range(2)]
     roffs = torch.sort(torch.randint(-50, 400, (2, 9), generator=g), dim=1).values.to(torch.int32)
     roffs[1, 3] = 2**31 - 8
-    branch, _ = run(*rnd, roffs.to(dev), 20, True)
-    if (branch != VK.BRANCH_UNTILED).any():
-        raise AssertionError(f"a random K5 tape took the chase: {branch.tolist()}")
-    ta, tb, of = two_plane_tapes(np, [[(b"x", 200, 1)]] + [[(b"", 200, 1)]] * 127)
-    n_deep = int(of[0, -1])
-    branch, got = run(*(torch.from_numpy(a).to(dev) for a in (ta, tb, of)), -(-n_deep // 4) + 2,
-                      False, [n_deep])
-    if int(branch[0]) != VK.BRANCH_CHASE or bytes(
-            got[0].cpu().numpy().view("u1")[:n_deep]) != b"x" * n_deep:
-        raise AssertionError("the 128-hop dist-1 chain did not expand through the chase")
-    ta, tb, of = two_plane_tapes(np, [[(b"y", 299, 1)]] + [[(b"", 300, 1)]] * 127)
-    long_chunk = [torch.from_numpy(a).to(dev) for a in (ta, tb, of)]
-    for args in ((*long_chunk, -(-int(of[0, -1]) // 4) + 2),
-                 (tapeA[:, : k * S], tapeB[:, : k * S], offs[:k], VK.CHASE_MAX_ROW // 4 + 8),
-                 (tapeA[:, : 2 * S], tapeB[:, : 2 * S], offs[:2], 60000)):
-        branch, _ = run(*args, True)
-        if (branch != VK.BRANCH_TOO_LARGE).any():
-            raise AssertionError(f"a K5 chunk past the chase took {branch.tolist()}")
-    return pairs, counts
+    return expand_edge_pairs(
+        torch, VK, dev, VK.expand_tokens2_cuda, VK.expand_tokens2_plain, "K5", (tapeA, tapeB),
+        offs, sizes, bad_tapes, k, (rnd, roffs.to(dev)),
+        two_plane_tapes(np, [[(b"x", 200, 1)]] + [[(b"", 200, 1)]] * 127),
+        two_plane_tapes(np, [[(b"y", 299, 1)]] + [[(b"", 300, 1)]] * 127))
+
+
+def k11b_edge_pairs(torch, VK, dev, tape, offs, sizes, bad_tapes, k: int):
+    """expand_edge_pairs for K11b, on single-plane tapes: phase 21's
+    corrupt tapes, and a random tape (every third column LIT tokens, for
+    literal sprints) with a damaged index."""
+    import numpy as np
+
+    g = torch.Generator().manual_seed(5)
+    rtape = torch.randint(-2**31, 2**31, (16, 16), generator=g, dtype=torch.int64)
+    rtape[:, ::3] = (rtape[:, ::3] & 0x3FFFFFFF) | (VK.VTOK_LIT << 30)
+    rtape = ((rtape + 2**31) % 2**32 - 2**31).to(torch.int32)
+    roffs = torch.sort(torch.randint(-50, 400, (2, 9), generator=g), dim=1).values.to(torch.int32)
+    roffs[1, 3] = 2**31 - 8
+    return expand_edge_pairs(
+        torch, VK, dev, VK.expand_tokens_cuda, VK.expand_tokens_plain, "K11b", (tape,), offs,
+        sizes, [(t,) for t in bad_tapes], k, ((rtape.to(dev),), roffs.to(dev)),
+        single_plane_tape(np, [[b"x", (200, 1)]] + [[(200, 1)]] * 127),
+        single_plane_tape(np, [[b"y", (299, 1)]] + [[(300, 1)]] * 127))
 
 
 def hop_pairs(cuda, plain, lanes, cap_m: int) -> list:
@@ -1739,7 +1853,7 @@ def main() -> int:
             name=name, route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            **({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}),
+            **{k: r[k] for k in ("plain_rows", "queued_ms") if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {

@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Where K3's and K5's time goes, by clock64 counters inside the kernels,
-on one card.
+"""Where K3's, K5's, K11b's and K9's time goes, by clock64 counters
+inside the kernels, on one card.
 
-    python3 pack_expand_clocks.py
+    python3 pack_expand_clocks.py [--parent DIR]
 
-Builds copies of zlib_rs_tpu_torch/csrc/pack.cu and csrc/vhuff_expand.cu
-with counters added into build/pack_expand_clocks/, then runs K3 on the
-first level-6 super-batch of chip_smoke.py's 8 MiB corpus (128 chunks, no
-seeds) and K5 on the 256 chunks of its indexed stream, each checked
-against the plain version. The counters are thread 0's clock64 between
-the block's barriers, so each phase counts until its slowest thread is
-done. Prints, per kernel: the instrumented launch's CUDA-event ms, each
-phase's mean cycles a block and the slowest block's, and for K5 the
-chase's rounds (mean and most); then the shipped kernels' ms a launch,
-by events as chip_smoke.py times them and with the launches queued
-behind a busy card (the kernel alone, without the host's cost to launch
-each); then the card's name and power limit.
+Builds copies of zlib_rs_tpu_torch/csrc/pack.cu, csrc/vhuff_expand.cu (K5
+and K11b, one body; a second copy with K11b's resolve window cut from 8
+rows to 4) and csrc/freq.cu with counters added into
+build/pack_expand_clocks/, then runs K3 on the first level-6 super-batch
+of chip_smoke.py's 8 MiB corpus (128 chunks, no seeds), K5 and K11b on the
+256 chunks of its indexed stream (the two-plane and the single-plane
+tapes), and K9 on the level-9 match stream of the first super-batch, each
+checked against the plain version. The counters are thread 0's clock64
+between the block's barriers, so each phase counts until its slowest
+thread is done. Prints, per kernel: the instrumented launch's CUDA-event
+ms, each phase's mean cycles a block and the slowest block's, and for K5
+and K11b the chase's rounds (mean and most); then the shipped kernels' ms
+a launch, by events as chip_smoke.py times them and with the launches
+queued behind a busy card (the kernel alone, without the host's cost to
+launch each); then the card's name and power limit.
+
+With --parent DIR (a checkout of an earlier commit, e.g. unpacked with
+`git archive`), also builds DIR's csrc/freq.cu and, where DIR has it,
+csrc/vhuff_expand1.cu as they are, and times them on the same inputs the
+same two ways.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "zlib_rs_tpu_torch" / "csrc"
 PACK_PHASES = ("tables and codes", "classify", "count and scans", "emit", "copy-out")
 EXPAND_PHASES = ("init", "resolve", "fill", "chase", "copy-out")
+FREQ_PHASES = ("stage", "matches and scan", "literal count", "merge")
+K11B_GROUP = "  static constexpr int kGroup = 8;  // lanes a resolving walker: a window of 8 rows\n"
 DBG = """
 __device__ unsigned long long dbg[16];
 #define CLK_MARK(i) if (threadIdx.x == 0) { const long long now_ = clock64(); \\
@@ -101,6 +111,24 @@ def expand_instrumented(src: str) -> str:
     return s + DBG_READ
 
 
+def freq_instrumented(src: str) -> str:
+    n = "freq.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  const int row = blockIdx.x, tid = threadIdx.x;\n",
+            "  const int row = blockIdx.x, tid = threadIdx.x;\n  unsigned long long clk_[4] = {0};\n"
+            "  long long clk_t_ = clock64();\n", n)
+    s = rep(s, "  __syncthreads();\n\n  for (int t0 = 0; t0 <= nmatch; t0 += kTile) {\n",
+            "  __syncthreads();\n  CLK_MARK(0)\n\n  for (int t0 = 0; t0 <= nmatch; t0 += kTile) {\n", n)
+    s = rep(s, "    if (tid == 0) gap_off[ng] = total;\n    __syncthreads();\n",
+            "    if (tid == 0) gap_off[ng] = total;\n    __syncthreads();\n    CLK_MARK(1)\n", n)
+    s = rep(s, "      if (run_n) atomicAdd(&wh[run_b], run_n);\n    }\n    __syncthreads();\n  }\n",
+            "      if (run_n) atomicAdd(&wh[run_b], run_n);\n    }\n    __syncthreads();\n"
+            "    CLK_MARK(2)\n  }\n", n)
+    s = rep(s, "    f[b] = s;\n  }\n}\n",
+            "    f[b] = s;\n  }\n  __syncthreads();\n  CLK_MARK(3)\n" + flush(4) + "}\n", n)
+    return s + DBG_READ
+
+
 def build(name: str, text: str, out_dir: Path):
     from zlib_rs_tpu_torch import _device
 
@@ -110,23 +138,6 @@ def build(name: str, text: str, out_dir: Path):
     subprocess.run([_device._nvcc(), *_device.NVCC_FLAGS, "-o", str(lib_path), str(src)],
                    check=True)
     return ctypes.CDLL(str(lib_path))
-
-
-def queued_ms(torch, fn, reps: int = 50) -> float:
-    """Mean device time of `fn` over `reps` launches queued behind a busy
-    wait of the card, so that it runs them back to back whatever the host
-    spends to launch each (chip_smoke.py's event_ms waits for the host)."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # about 50 ms of cycles at 1.98 GHz
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def report(label, buf, blocks, phases, ms, rounds=False):
@@ -159,11 +170,16 @@ def main() -> int:
     from zlib_rs_tpu_torch.parallel import pipeline as PL
     from zlib_rs_tpu_torch.parallel import vector_inflate as VI
 
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1]) if "--parent" in sys.argv else None
     out_dir = ROOT / "build" / "pack_expand_clocks"
     out_dir.mkdir(parents=True, exist_ok=True)
+    expand_src = expand_instrumented((CSRC / "vhuff_expand.cu").read_text())
     libs = {"pack": build("pack", pack_instrumented((CSRC / "pack.cu").read_text()), out_dir),
-            "vhuff_expand": build("vhuff_expand", expand_instrumented(
-                (CSRC / "vhuff_expand.cu").read_text()), out_dir)}
+            "vhuff_expand": build("vhuff_expand", expand_src, out_dir),
+            "freq": build("freq", freq_instrumented((CSRC / "freq.cu").read_text()), out_dir)}
+    expand_g4 = build("vhuff_expand_g4", rep(expand_src, K11B_GROUP, K11B_GROUP.replace(
+        "kGroup = 8;  // lanes a resolving walker: a window of 8 rows",
+        "kGroup = 4;  // lanes a resolving walker: a window of 4 rows"), "vhuff_expand.cu"), out_dir)
     _device.build()
     real = _device.library
     _device.library = lambda name: libs.get(name) or real(name)
@@ -223,15 +239,96 @@ def main() -> int:
            cs.event_ms(torch, lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs,
                                                              out_words=out_words), 50),
            rounds=True)
+    expand_call = lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)
+
+    # K11b: the single-plane tape of the same chunks, as phase 22 takes it,
+    # with its resolve window as shipped (8 rows) and cut to 4
+    tape, *_ = VK.decode_tokens_vector_cuda(*full_args, S=m["S"], K=m["K"], cap=m["cap"])
+    want1 = VK.expand_tokens_plain(tape, offs, out_words=out_words)
+    expand1_call = lambda: VK.expand_tokens_cuda(tape, offs, out_words=out_words)
+    for group, lib in ((8, libs["vhuff_expand"]), (4, expand_g4)):
+        libs["vhuff_expand"] = lib
+        torch.cuda.synchronize()
+        _device.check(lib.zrs_dbg(buf), "zrs_dbg")
+        branch = torch.full((m["B"],), -1, dtype=torch.int32, device=dev)
+        got = VK.expand_tokens_cuda(tape, offs, out_words=out_words, branch=branch)
+        torch.cuda.synchronize()
+        _device.check(lib.zrs_dbg(buf), "zrs_dbg")
+        if cs.bytes_err(torch, got, want1, sizes) or (branch != VK.BRANCH_CHASE).any():
+            raise AssertionError("the instrumented K11b disagrees with its plain version")
+        report(f"K11b, {m['B']} chunks, resolve window {group}", buf, m["B"], EXPAND_PHASES,
+               cs.event_ms(torch, expand1_call, 50), rounds=True)
+
+    # K9: the level-9 match stream of the first super-batch, as phase 18 takes it
+    g9, m9, n9, c9 = PL._level_knobs(9)["kernel_cfg"]
+    starts = torch.full((bsz,), dict_size, dtype=torch.int32, device=dev)
+    mpos9, mld9, st9 = DK.chain_scan_cuda(words4, dn, starts, dv, depth=c9, nice=n9, good=g9,
+                                          max_lazy=m9)
+    meta9 = meta.clone()
+    meta9[:, 2] = torch.where(st9[:, 1] > 0, 0, st9[:, 0])
+    want = DK.freq_plain(words, mpos9, mld9, meta9)
+    torch.cuda.synchronize()
+    _device.check(libs["freq"].zrs_dbg(buf), "zrs_dbg")
+    got = DK.freq_cuda(words, mpos9, mld9, meta9)
+    torch.cuda.synchronize()
+    _device.check(libs["freq"].zrs_dbg(buf), "zrs_dbg")
+    if cs.max_abs([(got, want)]):
+        raise AssertionError("the instrumented K9 disagrees with its plain version")
+    freq_call = lambda: DK.freq_cuda(words, mpos9, mld9, meta9)
+    report(f"K9, {bsz} chunks at level 9", buf, bsz, FREQ_PHASES, cs.event_ms(torch, freq_call, 50))
+
     # the kernels as shipped, without counters: event ms as chip_smoke.py
     # takes them, and with the launches queued behind a busy card
-    expand_call = lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)
     _device.library = real
-    for label, fn in (("K3", pack_call), ("K5", expand_call)):
+    for label, fn in (("K3", pack_call), ("K5", expand_call), ("K11b", expand1_call),
+                      ("K9", freq_call)):
         print(f"{label} uninstrumented: {cs.event_ms(torch, fn, 50):.6f} ms a launch by events, "
-              f"{queued_ms(torch, fn):.6f} ms queued", flush=True)
+              f"{cs.queued_ms(torch, fn):.6f} ms queued", flush=True)
+    if parent is not None:
+        parent_kernels(torch, cs, DK, VK, parent, out_dir, (words, mpos9, mld9, meta9),
+                       (tape, offs, out_words, sizes, want1))
     print(cs.nvidia_smi())
     return 0
+
+
+def parent_kernels(torch, cs, DK, VK, parent: Path, out_dir: Path, k9_args, k11b_args) -> None:
+    """The parent checkout's K9 and K11b, built from its sources as they
+    are, on the same inputs: checked against the plain versions, then
+    timed by events and queued."""
+    from zlib_rs_tpu_torch import _device
+
+    src = parent / "zlib_rs_tpu_torch" / "csrc"
+    lib = build("parent_freq", (src / "freq.cu").read_text(), out_dir)
+    real = _device.library
+    _device.library = lambda name: lib if name == "freq" else real(name)
+    try:
+        fn = lambda: DK.freq_cuda(*k9_args)
+        if cs.max_abs([(fn(), DK.freq_plain(*k9_args))]):
+            raise AssertionError("the parent's K9 disagrees with its plain version")
+        print(f"K9 parent: {cs.event_ms(torch, fn, 50):.6f} ms a launch by events, "
+              f"{cs.queued_ms(torch, fn):.6f} ms queued", flush=True)
+    finally:
+        _device.library = real
+    if not (src / "vhuff_expand1.cu").is_file():
+        return
+    entry = build("parent_vhuff_expand1", (src / "vhuff_expand1.cu").read_text(),
+                  out_dir).zrs_vhuff_expand1
+    P, I = ctypes.c_void_p, ctypes.c_int
+    entry.argtypes, entry.restype = [P, P, I, I, I, I, P, P], ctypes.c_int
+    tape, offs, out_words, sizes, want = k11b_args
+    cap, W = tape.shape
+    S = offs.shape[1] - 1
+    out = torch.empty((offs.shape[0], out_words), dtype=torch.int32, device=tape.device)
+
+    def fn():
+        _device.check(entry(_device.ptr(tape), _device.ptr(offs), cap, W, S, out_words,
+                            _device.ptr(out), _device.stream_of(tape)), "parent vhuff_expand1")
+        return out
+
+    if cs.bytes_err(torch, fn(), want, sizes):
+        raise AssertionError("the parent's K11b disagrees with its plain version")
+    print(f"K11b parent: {cs.event_ms(torch, fn, 50):.6f} ms a launch by events, "
+          f"{cs.queued_ms(torch, fn):.6f} ms queued", flush=True)
 
 
 if __name__ == "__main__":

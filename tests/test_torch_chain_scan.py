@@ -402,6 +402,193 @@ def test_freq_pack_without_freq_equals_pallas(batch, k8_ref, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# K9's design (csrc/freq.cu) as a numpy model
+# ---------------------------------------------------------------------------
+
+K9_THREADS, K9_PER, K9_STAGE_WORDS = 1024, 4, 16384  # csrc/freq.cu: kThreads, kPer, kStageWords
+K9_TILE = K9_THREADS * K9_PER
+
+
+def _k9_len_code(mlen):
+    v = mlen - 3
+    if v == 255:
+        return 28
+    if v < 8:
+        return v
+    e = v.bit_length() - 3
+    return 4 + 4 * e + ((v >> e) & 3)
+
+
+def _k9_dist_code(dist):
+    d = dist - 1
+    if d < 4:
+        return d
+    e = d.bit_length() - 2
+    return 2 * (e + 1) + ((d >> e) & 1)
+
+
+def _k9_row(w4, mpos, mld, meta, edges):
+    """One block of csrc/freq.cu on numpy: the staged words of [start,
+    n_valid); per tile of K9_TILE gaps (one before each match, the last to
+    n_valid) each thread's K9_PER consecutive gaps, their match codes into
+    the thread's warp histogram, the block exclusive scan of the thread
+    sums that places each gap's literals; each thread's share of the run,
+    its first gap by the kernel's binary search, runs of equal bytes as one
+    increment; then the warps' histograms summed. Returns int64 [320]."""
+    w4 = np.asarray(w4).view(np.uint32)
+    mld = np.asarray(mld).view(np.uint32)
+    W, C = len(w4), len(mpos)
+    n_valid, start, nmatch = int(meta[0]), int(meta[1]), max(int(meta[2]), 0)
+    w0 = min(max(start >> 2, 0), W)
+    w1 = max(min((n_valid >> 2) + 1, min(W, w0 + K9_STAGE_WORDS)), w0)
+    stage = w4[w0:w1].copy()
+
+    def byte_at(p):
+        wi = p >> 2
+        if w0 <= wi < w1:
+            x = int(stage[wi - w0])
+        else:
+            x = int(w4[min(max(wi, 0), W - 1)])
+            edges["unstaged"] += 1
+        return (x >> ((p & 3) << 3)) & 0xFF
+
+    slot = lambda k: min(max(k, 0), C - 1)
+
+    def match_end(k):
+        return start if k < 0 else int(mpos[slot(k)]) + (int(mld[slot(k)]) >> 15) + 3
+
+    hist = np.zeros((K9_THREADS // 32, 320), np.int64)
+    for t0 in range(0, nmatch + 1, K9_TILE):
+        edges["tiles"] += 1
+        ng = min(K9_TILE, nmatch - t0 + 1)
+        a, ln = [0] * ng, [0] * ng
+        for j in range(ng):
+            k, warp = t0 + j, j // K9_PER // 32
+            b = n_valid
+            if k < nmatch:
+                x = int(mld[slot(k)])
+                hist[warp, min(257 + _k9_len_code((x >> 15) + 3), 319)] += 1
+                hist[warp, 288 + _k9_dist_code((x & 0x7FFF) + 1)] += 1
+                b = int(mpos[slot(k)])
+            a[j] = match_end(k - 1)
+            ln[j] = max(b - a[j], 0)
+            edges["empty"] += ln[j] == 0
+        # the block scan of each thread's sum, then the thread's own prefix
+        sums = [sum(ln[t : t + K9_PER]) for t in range(0, ng, K9_PER)]
+        base = np.concatenate([[0], np.cumsum(sums)]).tolist()
+        off = [base[j // K9_PER] + sum(ln[j - j % K9_PER : j]) for j in range(ng)]
+        total = base[-1]
+        off.append(total)
+        assert off == np.concatenate([[0], np.cumsum(ln)]).tolist()
+        per = -(-total // K9_THREADS)
+        for tid in range(K9_THREADS):
+            lo = min(tid * per, total)
+            hi = min(lo + per, total)
+            if lo >= hi:
+                continue
+            j, top = 0, ng - 1  # the last gap whose first literal is at or before lo
+            while j < top:
+                mid = (j + top + 1) >> 1
+                if off[mid] <= lo:
+                    j = mid
+                else:
+                    top = mid - 1
+            edges["split"] += off[j] < lo  # a gap an earlier thread began
+            p, left = a[j] + lo - off[j], off[j + 1] - lo
+            run_b = run_n = 0
+            for _ in range(lo, hi):
+                while left == 0:
+                    j += 1
+                    p, left = a[j], off[j + 1] - off[j]
+                b = byte_at(p)
+                if b != run_b and run_n:
+                    hist[tid // 32, run_b] += run_n
+                    run_n = 0
+                run_b = b
+                run_n += 1
+                edges["runs"] += run_n == 2
+                p += 1
+                left -= 1
+            if run_n:
+                hist[tid // 32, run_b] += run_n
+    edges["max_gap"] = max(edges["max_gap"], *ln)
+    return hist.sum(0)
+
+
+def _k9_model(w4, mpos, mld, meta):
+    edges = dict(tiles=0, empty=0, split=0, runs=0, unstaged=0, max_gap=0)
+    got = np.stack([_k9_row(w4[r], mpos[r], mld[r], meta[r], edges) for r in range(len(meta))])
+    return got, edges
+
+
+def _plain_freq(w4, mpos, mld, meta):
+    st = interop.state_from_numpy({"w": w4, "p": mpos, "l": mld, "m": meta}, device="cpu")
+    return tdk.freq_plain(st["w"], st["p"], st["l"], st["m"]).numpy()
+
+
+def test_k9_design_model_equals_plain_and_pallas(batch, k8_ref):
+    """The level-9 stream of the batch, lane 1 sent in with nmatch = 0."""
+    mpos, mld, nmatch, _bad = k8_ref["level9"]
+    nm = nmatch.astype(np.int32).copy()
+    nm[1] = 0
+    meta = np.zeros((4, 8), np.int32)
+    meta[:, 0], meta[:, 1], meta[:, 2] = batch["n_valid"], DICT, nm
+    got, edges = _k9_model(batch["w4"], mpos, mld, meta)
+    np.testing.assert_array_equal(got, _plain_freq(batch["w4"], mpos, mld, meta))
+    np.testing.assert_array_equal(got, _jax_freq(batch["w4"], mpos, mld, meta))
+    assert edges["tiles"] == 4 and edges["empty"] > 0 and edges["split"] > 0
+    assert edges["runs"] > 0 and edges["unstaged"] == 0
+
+
+def _k9_lanes():
+    """Lanes the corpus does not give, in one batch: nmatch = 0 over a gap
+    longer than a tile of gaps; a single match of length 258 (code 28) at
+    dist 32,768 (code 29); more matches than one tile, a byte apart; empty
+    and overlapping gaps (matches out of order, one before `start`); an
+    unaligned start and n_valid with literals at both ends."""
+    rng = np.random.default_rng(9)
+    nbytes = 24_576
+    buf = rng.integers(0, 256, (5, nbytes + PAD), dtype=np.uint8)
+    buf[:, 1000:3000] = 0  # a run of one byte value
+    w4 = _words(buf)
+    mpos = np.zeros((5, C), np.int32)
+    mld = np.zeros((5, C), np.uint32)
+    meta = np.zeros((5, 8), np.int32)
+    meta[:, 0], meta[:, 1] = nbytes, 100
+    meta[1, 2], mpos[1, 0], mld[1, 0] = 1, 9000, (255 << 15) | 32767
+    n2 = K9_TILE + 904
+    meta[2, 2] = n2
+    mpos[2, :n2] = 100 + 1 + 4 * np.arange(n2)
+    mld[2, :n2] = ((np.arange(n2) % 200) << 15) | (np.arange(n2) * 7 % 32768)
+    order = [(500, 3, 10), (503, 10, 40), (513, 4, 1), (4000, 20, 300), (2000, 6, 2),
+             (60, 8, 50), (6000, 100, 5000)]
+    meta[3, 2] = len(order)
+    for k, (p, ln, d) in enumerate(order):
+        mpos[3, k], mld[3, k] = p, ((ln - 3) << 15) | (d - 1)
+    meta[4, 0], meta[4, 1], meta[4, 2] = nbytes - 3, 7, 2
+    mpos[4, :2], mld[4, :2] = [20, 5000], [(5 << 15) | 3, (40 << 15) | 2000]
+    return w4, mpos, mld.view(np.int32), meta
+
+
+def test_k9_design_model_on_crafted_lanes_equals_plain_and_pallas():
+    w4, mpos, mld, meta = _k9_lanes()
+    got, edges = _k9_model(w4, mpos, mld, meta)
+    np.testing.assert_array_equal(got, _plain_freq(w4, mpos, mld, meta))
+    np.testing.assert_array_equal(got, _jax_freq(w4, mpos, mld, meta))
+    assert got[0, :256].sum() == meta[0, 0] - meta[0, 1] and not got[0, 256:].any()
+    assert got[1, 257 + 28] == 1 and got[1, 288 + 29] == 1 and got[1, 256:].sum() == 2
+    assert got[2, 257:].sum() == 2 * meta[2, 2]
+    # lane 3 counts the bytes of [100, 500) and [517, 4000) twice: the gap
+    # after its match at 60 (before `start`) runs on to 6000 over them
+    spans = [(100, 500), (513 + 4, 4000), (4000 + 20, 2000), (2000 + 6, 60), (60 + 8, 6000),
+             (6000 + 100, int(meta[3, 0]))]
+    assert got[3, :256].sum() == sum(max(b - a, 0) for a, b in spans)
+    assert edges["tiles"] == 1 + 1 + 2 + 1 + 1
+    assert edges["max_gap"] > K9_TILE and edges["empty"] >= 3 and edges["unstaged"] > 0
+    assert edges["split"] > 100 and edges["runs"] > 0
+
+
+# ---------------------------------------------------------------------------
 # K10
 # ---------------------------------------------------------------------------
 

@@ -25,6 +25,8 @@ from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
 from zlib_rs_tpu_torch.parallel import swarm_inflate as TS
 from zlib_rs_tpu_torch.parallel import vector_inflate as TV
 
+import expand_model
+
 # the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
 torch.set_num_threads(1)
 
@@ -304,177 +306,15 @@ def test_k5_plain_bounds_every_access():
 
 
 # ---------------------------------------------------------------------------
-# K5's design (csrc/vhuff_expand.cu) as a numpy model
+# K5's design (csrc/vhuff_expand.cu) as a numpy model (tests/expand_model.py)
 # ---------------------------------------------------------------------------
 
 
-K5_THREADS, K5_SEG, K5_GROUP = 512, 64, 4  # csrc/vhuff_expand.cu: kThreads, kSeg, kGroup
-# a cell: a pointer to an earlier byte, KNOWN | the byte, or OPEN (the
-# kernel packs these in 16 bits, pointers in 15)
-KNOWN, OPEN = 1 << 20, 1 << 21
-
-
-def _k5_resolve(ta, tb, cap, p, p1, end, cell, edges):
-    """One walker of the resolve: its literal bytes, known, and each
-    match's first pointer, p - dist; the match's other bytes stay open.
-    False when the walker does not tile [p, p1)."""
-    if p < 0 or p > p1 or p1 > end:
-        return False
-    p0, t = p, 0
-    while t < cap and p < p1:
-        a, b = int(ta[t]), int(tb[t])
-        t += 1
-        cnt, dist = b & 7, (b >> 12) & 0xFFFF
-        length = ((b >> 4) & 0xFF) + 3 if b & 8 else 0
-        if b == 0 or cnt > 4 or p + cnt > p1:
-            return False
-        for i in range(cnt):
-            cell[p + i] = KNOWN | ((a >> (8 * i)) & 0xFF)
-        p += cnt
-        if length:
-            if dist == 0 or dist > p or p + length > p1:
-                return False
-            cell[p] = p - dist
-            edges["earlier_walker"] += p - dist < p0
-            p += length
-    return p == p1
-
-
-def _k5_resolve_windows(ta, tb, cap, p, p1, end, cell, edges):
-    """The resolve as the kernel runs it, K5_GROUP lanes a walker: a window
-    of K5_GROUP rows, one a lane, placed by an exclusive scan of their
-    lengths; the rows that start before p1 (a prefix) are taken, and the
-    walker goes on after a full window. Same result as _k5_resolve."""
-    if p < 0 or p > p1 or p1 > end:
-        return False
-    p0 = p
-    for t0 in range(0, cap, K5_GROUP):
-        if p >= p1:
-            break
-        rows = [(int(ta[t]), int(tb[t])) for t in range(t0, min(t0 + K5_GROUP, cap))]
-        adv = [(b & 7) + (((b >> 4) & 0xFF) + 3 if b & 8 else 0) for _a, b in rows]
-        pos = (p + np.concatenate([[0], np.cumsum(adv)[:-1]])).tolist()
-        taken = [g for g in range(len(rows)) if pos[g] < p1]
-        edges["windows"] += 1
-        for g in taken:
-            a, b = rows[g]
-            cnt, dist = b & 7, (b >> 12) & 0xFFFF
-            length = ((b >> 4) & 0xFF) + 3 if b & 8 else 0
-            lit_end = pos[g] + cnt
-            if b == 0 or cnt > 4 or lit_end > p1 or (length and (
-                    dist == 0 or dist > lit_end or lit_end + length > p1)):
-                return False
-            for i in range(cnt):
-                cell[pos[g] + i] = KNOWN | ((a >> (8 * i)) & 0xFF)
-            if length:
-                cell[lit_end] = lit_end - dist
-                edges["earlier_walker"] += lit_end - dist < p0
-        p = pos[taken[-1]] + adv[taken[-1]]
-        if len(taken) < K5_GROUP:
-            break
-    return p == p1
-
-
-def _k5_fill(cell, q0, q1, last, last_cell, edges):
-    """One segment of the fill: each open byte inside the match of the
-    last head before it (`last`, the last token before q0 with its cell as
-    the resolve left it, starts it); a pointer into [q0, q) takes its
-    target's cell, final there; an open byte before any head is a known
-    zero."""
-    s, d = -1, 1
-    if last >= 0 and last_cell < last:
-        s, d = last, last - last_cell
-        edges["carried"] += q0 < q1 and cell[q0] == OPEN
-    for q in range(q0, q1):
-        v = int(cell[q])
-        if v == OPEN:
-            j = q - s
-            if s < 0:
-                v = KNOWN
-                edges["orphan"] += 1
-            elif j < d:
-                v = q - d
-            else:  # inside its own match: one period back, before the match
-                v = s - d + j % d
-                edges["period"] += 1
-        elif v < q:
-            s, d = q, q - v
-        else:
-            s = -1
-            continue
-        if q0 <= v < q:
-            v = int(cell[v])
-            edges["compressed"] += 1
-        cell[q] = v
-
-
 def _k5_model(tapeA, tapeB, offs, out_words, *, max_bytes=VK.CHASE_MAX_BYTES):
-    """csrc/vhuff_expand.cu on numpy: per chunk the resolve, the fill in
-    segments of one thread each (the last token before a segment from an
-    exclusive max scan), then pointer jumping in synchronous rounds (the
-    kernel's asynchronous rounds move cells at least as far), or the
-    serial body (the plain version's `_expand_chunk`) for walkers that do
-    not tile, a chunk past max_bytes or a row past CHASE_MAX_ROW. Returns
-    (words uint32 [B, out_words], branch [B], edges)."""
-    a_all = np.asarray(tapeA).view(np.uint32)
-    b_all = np.asarray(tapeB).view(np.uint32)
-    offs = np.asarray(offs)
-    cap, W = a_all.shape
-    B = offs.shape[0]
-    S = W // B
-    nbytes = 4 * out_words
-    out = np.zeros((B, out_words), np.uint32)
-    branch = np.zeros(B, np.int64)
-    edges = dict(rounds=[], depth=[], earlier_walker=0, carried=0, orphan=0, period=0,
-                 compressed=0, windows=0)
-    for k in range(B):
-        of = offs[k].tolist()
-        cols = slice(k * S, (k + 1) * S)
-        if max_bytes is None or (of[S] <= max_bytes and nbytes <= VK.CHASE_MAX_ROW):
-            end = min(max(of[S], 0), nbytes)
-            cell = np.where(np.arange(nbytes) < end, OPEN, KNOWN)
-            # the kernel's windows, held against the serial walk of each walker
-            serial = cell.copy()
-            ok = [_k5_resolve_windows(a_all[:, k * S + s], b_all[:, k * S + s], cap, of[s],
-                                      of[s + 1], end, cell, edges) for s in range(S)]
-            assert ok == [_k5_resolve(a_all[:, k * S + s], b_all[:, k * S + s], cap, of[s],
-                                      of[s + 1], end, serial, edges) for s in range(S)]
-            assert not all(ok) or np.array_equal(cell, serial)
-            if all(ok):
-                seg = K5_SEG * -(-end // (K5_SEG * K5_THREADS))
-                spans = [(min(t * seg, end), min(t * seg + seg, end)) for t in range(K5_THREADS)]
-                lasts = [max([q for q in range(q0, q1) if cell[q] != OPEN], default=-1)
-                         for q0, q1 in spans]
-                carry = [max(lasts[:t], default=-1) for t in range(K5_THREADS)]
-                heads = [int(cell[c]) if c >= 0 else 0 for c in carry]  # before any fill
-                for t, (q0, q1) in enumerate(spans):
-                    _k5_fill(cell, q0, q1, carry[t], heads[t], edges)
-                # hops from each byte to a known cell; every pointer is earlier
-                hops = np.zeros(nbytes, np.int64)
-                for q in np.flatnonzero(cell < KNOWN):
-                    hops[q] = hops[cell[q]] + 1
-                depth = int(hops.max())
-                rounds = 1
-                while True:
-                    nxt = cell.copy()
-                    ptrs = cell < KNOWN
-                    nxt[ptrs] = cell[cell[ptrs]]
-                    if np.array_equal(nxt, cell):
-                        break
-                    cell, rounds = nxt, rounds + 1
-                # a chain of h hops is known after bit_length(h) rounds (each
-                # round doubles the hops a pointer spans); the last moves none
-                assert rounds == depth.bit_length() + 1
-                edges["rounds"].append(rounds)
-                edges["depth"].append(depth)
-                out[k] = (cell & 0xFF).astype(np.uint8).view(np.uint32)
-                continue
-            branch[k] = VK.BRANCH_UNTILED
-        else:
-            branch[k] = VK.BRANCH_TOO_LARGE
-        out[k] = VK._expand_chunk(a_all[:, cols].T.tolist(), b_all[:, cols].T.tolist(), of,
-                                  cap, out_words)
-    return out, branch, edges
+    """The model through the two-plane reader: (words uint32 [B,
+    out_words], branch [B], edges)."""
+    return expand_model.model(expand_model.TwoPlane(tapeA, tapeB), offs, out_words,
+                              max_bytes=max_bytes)
 
 
 def _plain_k5(tapeA, tapeB, offs, out_words):
@@ -495,11 +335,6 @@ def _jax_k5(tapeA, tapeB, offs, out_words):
         out_words=out_words, interpret=True))
 
 
-def _assert_bytes_equal(got, want, sizes):
-    for k, n in enumerate(sizes):
-        np.testing.assert_array_equal(got[k].view(np.uint8)[:n], want[k].view(np.uint8)[:n])
-
-
 @pytest.mark.parametrize("max_bytes", [VK.CHASE_MAX_BYTES, None], ids=["kernel", "no_limit"])
 def test_k5_design_model_equals_plain_and_jax(stream, max_bytes):
     """On the JAX package's tapes of both streams: the 32 KiB chunks take
@@ -512,8 +347,8 @@ def test_k5_design_model_equals_plain_and_jax(stream, max_bytes):
     tapeA, tapeB = want["tapeA"].T.copy(), want["tapeB"].T.copy()
     offs = np.concatenate([want["offs"][:, :S], want["offs"][:, S : S + 1]], axis=1)
     got, branch, edges = _k5_model(tapeA, tapeB, offs, out_words, max_bytes=max_bytes)
-    _assert_bytes_equal(got, _plain_k5(tapeA, tapeB, offs, out_words), sizes)
-    _assert_bytes_equal(got, _jax_k5(tapeA, tapeB, offs, out_words), sizes)
+    expand_model.assert_bytes_equal(got, _plain_k5(tapeA, tapeB, offs, out_words), sizes)
+    expand_model.assert_bytes_equal(got, _jax_k5(tapeA, tapeB, offs, out_words), sizes)
     assert b"".join(got[k].view(np.uint8)[:n].tobytes() for k, n in enumerate(sizes)) == data
     too_large = max(sizes) > VK.CHASE_MAX_BYTES and max_bytes is not None
     assert (branch == (VK.BRANCH_TOO_LARGE if too_large else VK.BRANCH_CHASE)).all()
@@ -573,8 +408,8 @@ def test_k5_design_model_on_edge_chunks_equals_plain_and_jax():
     out_words = -(-max(sizes) // 4) + 2
     got, branch, edges = _k5_model(tapeA, tapeB, offs, out_words)
     assert (branch == VK.BRANCH_CHASE).all()
-    _assert_bytes_equal(got, _plain_k5(tapeA, tapeB, offs, out_words), sizes)
-    _assert_bytes_equal(got, _jax_k5(tapeA, tapeB, offs, out_words), sizes)
+    expand_model.assert_bytes_equal(got, _plain_k5(tapeA, tapeB, offs, out_words), sizes)
+    expand_model.assert_bytes_equal(got, _jax_k5(tapeA, tapeB, offs, out_words), sizes)
     assert got[0].view(np.uint8)[: sizes[0]].tobytes() == b"x" * sizes[0]
     # the deep chunk: a hop a walker, 128 hops, so 8 rounds that move
     # (2^7 hops span 128 nodes, the 128th takes the next) and the last

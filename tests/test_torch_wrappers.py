@@ -120,9 +120,11 @@ KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_s
 
 def test_every_kernel_has_a_case():
     assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK) for n in m.launches)
-    # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 1
+    # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu,
+    # and so are K5 and K11b, csrc/vhuff_expand.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 2
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
+    assert "vhuff_expand" in _device.SOURCES and "vhuff_expand1" not in _device.SOURCES
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -238,3 +240,31 @@ def test_expand_wrapper_hands_the_kernel_its_branch_row(stub, inputs, monkeypatc
     assert PL.DEFAULT_CHUNK <= VK.CHASE_MAX_BYTES == 2**15
     assert 4 * (-(-PL.DEFAULT_CHUNK // 4) + 2) <= VK.CHASE_MAX_ROW
     assert len({VK.BRANCH_CHASE, VK.BRANCH_UNTILED, VK.BRANCH_TOO_LARGE}) == 3
+
+
+def test_expand1_wrapper_hands_the_kernel_its_branch_row(stub, inputs, monkeypatch):
+    """K11b is the second C entry of K5's library, `zrs_vhuff_expand1`
+    of vhuff_expand: (tape, offs, cap, W, S, out_words, out, branch,
+    stream), branch a null pointer unless the caller passes an int32 [B]
+    row for each chunk's body, and a row of another type or shape refused
+    before the launch. Any S that divides W is taken."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    st, S = inputs["staged"], inputs["meta"]["S"]
+    tape = torch.zeros((64, st["start_word"].shape[0]), dtype=torch.int32)
+    B = st["offs"].shape[0]
+    entry = lambda: _device.library("vhuff_expand").zrs_vhuff_expand1
+    VK.expand_tokens_cuda(tape, st["offs"], out_words=16)
+    args = entry().args
+    assert len(args) == 9 and args[2:6] == (64, tape.shape[1], S, 16)
+    assert args[6].shape == (B, 16) and args[7] is None and args[8] == 0
+    branch = torch.zeros(B, dtype=torch.int32)
+    VK.expand_tokens_cuda(tape, st["offs"], out_words=16, branch=branch)
+    assert entry().args[7] is branch
+    for bad in (torch.zeros(B, dtype=torch.int64), torch.zeros(B + 1, dtype=torch.int32),
+                torch.zeros(2 * B, dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError, match="branch"):
+            VK.expand_tokens_cuda(tape, st["offs"], out_words=16, branch=bad)
+    odd = torch.zeros((1, 4), dtype=torch.int32)  # one chunk of 3 walkers
+    VK.expand_tokens_cuda(torch.zeros((8, 3), dtype=torch.int32), odd, out_words=4)
+    assert entry().args[4] == 3
+    assert VK.launches["vhuff_expand1"] == 3 and stub == ["zrs_vhuff_expand1"] * 3

@@ -1,13 +1,21 @@
-// K5: the two-plane token expansion, one block per chunk.
+// K5 and K11b: the two-plane and single-plane token expansions, one block
+// per chunk, one body over two tape readers.
 //
-// Replaces zlib_rs_tpu/ops/pallas/vhuff_kernel.py:expand_tokens_pallas2
-// (body _make_expand_kernel2). Walker s of a chunk covers output bytes
-// [offs[s], offs[s + 1]). Each tape row is up to four literal bytes, then,
-// if the row has a match, the match; an all-zero row ends the walker. The
-// reference runs the walkers in order and stores whole words (a literal
-// funnel store, a byte head for dist < 4, then word copies), so a row
-// leaves don't-care bytes past its end that the next row or walker
-// overwrites.
+// K5 (`zrs_vhuff_expand`) replaces
+// zlib_rs_tpu/ops/pallas/vhuff_kernel.py:expand_tokens_pallas2 (body
+// _make_expand_kernel2), K11b (`zrs_vhuff_expand1`) expand_tokens_pallas
+// (body _make_expand_kernel). Walker s of a chunk covers output bytes
+// [offs[s], offs[s + 1]). A two-plane tape row is up to four literal bytes,
+// then, if the row has a match, the match; an all-zero row ends the
+// walker. A single-plane row is one token: 1-3 literal bytes (LIT), one
+// match (MATCH), or anything else, which ends the walker. The references
+// run the walkers in order and store whole words (a literal funnel store,
+// a byte head for dist < 4, then word copies), so a row leaves don't-care
+// bytes past its end that the next row or walker overwrites. The
+// single-plane reference also runs each literal sprint on past its
+// walker's end, up to the next token that is no LIT, and then copies that
+// token's match (or, for an end token, a cover-0 copy: a byte head for
+// dist < 4 and one word): don't-care bytes past the walker's end too.
 //
 // Why the order of the walkers does not matter. When the walkers tile
 // their ranges (each ends exactly at the next one's offset, every row has
@@ -16,17 +24,26 @@
 // byte, or byte q of a match, which equals byte q - dist. A later store
 // starts at or past the end of the token that defines a byte, so the
 // serial order leaves that byte as the token defines it, and bytes before
-// offs[0] stay zero. So the chunk is built in parallel, in shared memory,
-// as one 16-bit cell a byte: 0x8000 | the byte once it is known, else a
-// pointer to an earlier byte with the same value (0xFFFF while open).
-//   1. Resolve, kGroup lanes a walker. Its own rows give its positions (p
-//      += cnt + length) without the bytes of any other walker. Each lane
-//      takes one row of a window of kGroup rows, and an exclusive scan of
-//      the rows' lengths in the group places them. It writes each literal
-//      byte, known, and at each match's first byte the pointer p - dist;
-//      the match's other bytes stay open. A row costs the same whatever
-//      its match length, so the lanes of a warp stay in step. It checks
-//      the tiling as it goes.
+// offs[0] stay zero. What a walker writes past its end (the single-plane
+// sprint and its copy) walker s + 1 overwrites, since it runs later and
+// tiles its own range; past offs[S] nothing is defined. The single-plane
+// sprint ORs each LIT into a word register that holds the bytes above the
+// last one, so a LIT whose bits above its count are not zero is no row the
+// resolve takes: the chunk takes the serial body. So the chunk is built in
+// parallel, in shared memory, as one 16-bit cell a byte: 0x8000 | the byte
+// once it is known, else a pointer to an earlier byte with the same value
+// (0xFFFF while open).
+//   1. Resolve, kGroup lanes a walker (the reader's: 4 for two-plane rows,
+//      8 for the shorter single-plane ones). Its own rows give its
+//      positions (p += cnt + length) without the bytes of any other
+//      walker. Each lane takes one row of a window of kGroup rows, and an
+//      exclusive scan of the rows' lengths in the group places them. It
+//      writes each literal byte, known, and at each match's first byte the
+//      pointer p - dist; the match's other bytes stay open. A row costs
+//      the same whatever its match length, so the lanes of a warp stay in
+//      step. It checks the tiling as it goes, before a match writes a
+//      cell, so a corrupt length (14 bits on the single plane) never
+//      indexes past the cells.
 //   2. Fill, one segment of bytes a thread. An open byte lies inside the
 //      match of the last head before it; a block max scan of each
 //      segment's last token gives a segment the head it starts in. Byte j
@@ -48,8 +65,9 @@
 // segment, read 32 banks), take 66 KiB: two blocks an SM, all 256 chunks
 // of the main path in one wave.
 //
-// Two kinds of chunk keep the reference's serial body (one thread expands
-// the walkers in order, reads clamped to the row, stray stores dropped):
+// Two kinds of chunk keep their reference's serial body (one thread
+// expands the walkers in order, reads clamped to the row, stray stores
+// dropped):
 // a chunk whose walkers do not tile their ranges (a corrupt tape or a
 // damaged index; such a chunk fails the decode's checks), whose whole row
 // then equals the plain version's, and a chunk of more than kChaseBytes
@@ -58,9 +76,9 @@
 // each chunk's: 0 the chase, 1 serial because the walkers do not tile, 2
 // serial because the chunk is too large.
 //
-// The tape reader is a policy (`TwoPlane`): a row as (literal bytes, count,
-// match length, dist, end). The resolve, the fill and the chase take any
-// reader of that shape.
+// The tape reader is a policy (`TwoPlane`, `SinglePlane`): a row as
+// (literal bytes, count, match length, dist, end), its window (kGroup) and
+// its serial body. The resolve, the fill and the chase take either.
 //
 // Bound on the H100: bytes (the tape rows read once, the output written
 // once); the resolve is a walk of dependent windows a walker, its rows
@@ -74,7 +92,6 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 4;             // lanes a resolving walker: a window of 4 rows
 constexpr int kSegShift = 6;
 constexpr int kSeg = 1 << kSegShift;  // the fill's segment unit, bytes
 constexpr int kChaseBytes = 32768;    // a chunk's bytes the chase takes: 15-bit pointers
@@ -91,12 +108,13 @@ struct Row {
   int cnt;        // literals
   int len;        // match length, 0 for none
   int dist;
-  bool end;       // the row ends the walker
+  bool end;       // the row ends the walker, or is no row the resolve takes
 };
 
 // The two-plane tape: row t of walker column c at t * W + c of each plane;
 // tapeB = cnt:3 | has:1 | len-3:8 | dist:16, tapeA the literal bytes.
 struct TwoPlane {
+  static constexpr int kGroup = 4;  // lanes a resolving walker: a window of 4 rows
   const int32_t* a;
   const int32_t* b;
   long long W;
@@ -115,11 +133,40 @@ struct TwoPlane {
   }
 };
 
+constexpr uint32_t kKindLit = 1, kKindMatch = 2;
+
+// The single-plane tape: row t of walker column c at t * W + c, one token
+// a row: LIT (kind 1) = (cnt - 1):2 at bit 24 | up to 3 literal bytes,
+// MATCH (kind 2) = (len - 3):14 at bit 16 | dist:16; any other kind ends
+// the walker. A LIT with bits above its count (the serial sprint would OR
+// them into the next bytes) is no row the resolve takes.
+struct SinglePlane {
+  static constexpr int kGroup = 8;  // lanes a resolving walker: a window of 8 rows
+  const int32_t* t;
+  long long W;
+  using Raw = uint32_t;
+  __device__ __forceinline__ Raw load(long long col, int row) const {
+    return (uint32_t)__ldg(t + (long long)row * W + col);
+  }
+  static __device__ __forceinline__ Raw zero() { return 0u; }
+  static __device__ __forceinline__ Row decode(Raw r) {
+    const uint32_t kind = r >> 30;
+    if (kind == kKindLit) {
+      const int cnt = (int)((r >> 24) & 3u) + 1;
+      const uint32_t lits = r & 0xFFFFFFu;
+      return {lits, cnt, 0, 0, cnt < 3 && (lits >> (8 * cnt)) != 0};
+    }
+    if (kind == kKindMatch)
+      return {0u, 0, (int)((r >> 16) & 0x3FFFu) + 3, (int)(r & 0xFFFFu), false};
+    return {0u, 0, 0, 0, true};
+  }
+};
+
 // where byte q keeps its cell: one pad pair after every kSeg
 __host__ __device__ constexpr int slot(int q) { return q + ((q >> kSegShift) << 1); }
 
-// One walker's tokens in [p, p1), kGroup lanes a walker (`act` false for a
-// lane with no walker): literal bytes, known, and each match's first
+// One walker's tokens in [p, p1), Tape::kGroup lanes a walker (`act` false
+// for a lane with no walker): literal bytes, known, and each match's first
 // pointer. Each lane takes one row of a window of kGroup rows, loaded two
 // windows ahead; an exclusive scan of the rows' lengths in the group
 // gives each row its place, and the rows that start before p1 (a prefix
@@ -129,6 +176,7 @@ __host__ __device__ constexpr int slot(int q) { return q + ((q >> kSegShift) << 
 template <class Tape>
 __device__ bool resolve(const Tape& tape, bool act, long long col, int cap, int p, int p1,
                         int end, uint16_t* cell) {
+  constexpr int kGroup = Tape::kGroup;
   const int lane = threadIdx.x & 31, g = lane & (kGroup - 1);
   const unsigned gmask = ((1u << kGroup) - 1u) << (lane - g);
   bool ok = !act || (p >= 0 && p <= p1 && p1 <= end);
@@ -248,6 +296,12 @@ struct Out {
   __device__ __forceinline__ void wr(long long i, uint32_t v) const {
     if (i >= 0 && i < n) o[i] = v;
   }
+  // the four bytes from byte position sp
+  __device__ __forceinline__ uint32_t src4(long long sp) const {
+    const int sh = (int)(sp & 3) << 3;
+    const uint32_t w0 = rd(sp >> 2);
+    return sh ? (w0 >> sh) | (rd((sp >> 2) + 1) << (32 - sh)) : w0;
+  }
 };
 
 __device__ void copy_match(const Out& out, long long p, int length, int dist) {
@@ -306,15 +360,75 @@ __device__ void expand_walker(const Out& out, const TwoPlane& tape, long long co
   }
 }
 
+// The single-plane reference's copy: a byte head for dist < 4 (which turns
+// the copy distance d4 into a multiple of the period of at least 4), a word
+// store at the head's end, then whole words, each read from d4 back.
+__device__ void copy_match1(const Out& out, long long p, int length, int dist) {
+  const int d4 = dist >= 4 ? dist : (dist == 3 ? 6 : 4);
+  const int base = dist >= 4 ? 0 : d4 - dist;
+  for (int i = 0; i < base; ++i) {  // byte head of a dist < 4 match
+    const long long q = p + i;
+    long long src = q - dist;
+    src = src < 0 ? 0 : src;
+    const uint32_t b = (out.rd(src >> 2) >> ((src & 3) << 3)) & 0xFFu;
+    const int qs = (int)(q & 3) << 3;
+    out.wr(q >> 2, (out.rd(q >> 2) & ~(0xFFu << qs)) | (b << qs));
+  }
+  const long long pw = p + base;
+  const long long wi = pw >> 2;
+  const int sh = (int)(pw & 3) << 3;
+  const uint32_t keep = out.rd(wi) & ((1u << sh) - 1u);
+  out.wr(wi, keep | (out.src4(pw - d4) << sh));
+  const long long nw = ((p + length - 1) >> 2) - wi;
+  for (long long k = 0; k < nw; ++k) {
+    const long long q = (wi + 1 + k) << 2;
+    out.wr(wi + 1 + k, out.src4(q - d4));
+  }
+}
+
+// One single-plane walker as its reference runs it: a literal sprint, then
+// one match copy, while the walker is short of p1. The sprint funnels the
+// bytes of each LIT token through a word register that starts as the bytes
+// below the write position, storing the word whenever a token crosses a
+// word boundary, and the register once it meets a token that is no LIT.
+// That token is a match (copied, and the walker goes on) or anything else
+// (a cover-0 copy, and the walker ends).
+__device__ void expand_walker(const Out& out, const SinglePlane& tape, long long col, int cap,
+                              long long p, long long p1) {
+  auto at = [&](int t) { return t < cap ? tape.load(col, t) : 0u; };
+  int t = 0;
+  while (t < cap && p < p1) {
+    uint32_t reg = out.rd(p >> 2) & ((1u << ((int)(p & 3) << 3)) - 1u);
+    uint32_t tok = at(t);
+    while ((tok >> 30) == kKindLit) {
+      const int cnt = (int)((tok >> 24) & 3u) + 1;
+      const uint32_t w = tok & 0x00FFFFFFu;
+      const int sh = (int)(p & 3) << 3;
+      const uint32_t full = reg | (w << sh);
+      const long long p2 = p + cnt;
+      out.wr(p >> 2, full);
+      // bytes past the word go to the next one (sh == 0 spills nothing)
+      reg = (p2 >> 2) > (p >> 2) ? (sh ? w >> (32 - sh) : 0u) : full;
+      p = p2;
+      tok = at(++t);
+    }
+    out.wr(p >> 2, reg);  // flush the partial word
+    const bool is_match = (tok >> 30) == kKindMatch;
+    const int cover = is_match ? (int)((tok >> 16) & 0x3FFFu) + 3 : 0;
+    copy_match1(out, p, cover, (int)(tok & 0xFFFFu));
+    p += cover;
+    t = is_match ? t + 1 : cap;
+  }
+}
+
 // -- the kernel --------------------------------------------------------------
 
+template <class Tape>
 __global__ void __launch_bounds__(kThreads, 2)
-vhuff_expand(const int32_t* __restrict__ tape_a, const int32_t* __restrict__ tape_b,
-             const int32_t* __restrict__ offs, int cap, int W, int S, int out_words, int mode,
-             int32_t* __restrict__ out_g, int32_t* __restrict__ branch) {
+vhuff_expand(const Tape tape, const int32_t* __restrict__ offs, int cap, int S, int out_words,
+             int mode, int32_t* __restrict__ out_g, int32_t* __restrict__ branch) {
   extern __shared__ uint32_t smem[];
   const int chunk = blockIdx.x, tid = threadIdx.x;
-  const TwoPlane tape{tape_a, tape_b, W};
   const long long col = (long long)chunk * S;
   const int32_t* of = offs + (long long)chunk * (S + 1);
   uint32_t* row = (uint32_t*)out_g + (long long)chunk * out_words;
@@ -333,8 +447,8 @@ vhuff_expand(const int32_t* __restrict__ tape_a, const int32_t* __restrict__ tap
     }
     __syncthreads();
     bool ok = true;
-    for (int s0 = 0; s0 < S; s0 += kThreads / kGroup) {
-      const int s = s0 + tid / kGroup;
+    for (int s0 = 0; s0 < S; s0 += kThreads / Tape::kGroup) {
+      const int s = s0 + tid / Tape::kGroup;
       const bool act = s < S;
       ok &= resolve(tape, act, col + s, cap, act ? of[s] : 0, act ? of[s + 1] : 0, end, cell);
     }
@@ -391,11 +505,9 @@ vhuff_expand(const int32_t* __restrict__ tape_a, const int32_t* __restrict__ tap
     for (int i = tid; i < out_words; i += kThreads) row[i] = out.o[i];
 }
 
-}  // namespace
-
-extern "C" int zrs_vhuff_expand(const void* tape_a, const void* tape_b, const void* offs,
-                                int cap, int W, int S, int out_words, void* out, void* branch,
-                                void* stream) {
+template <class Tape>
+int launch(const Tape& tape, const void* offs, int cap, int W, int S, int out_words, void* out,
+           void* branch, void* stream) {
   if (W <= 0 || S <= 0 || W % S || out_words <= 0) return (int)cudaErrorInvalidValue;
   const int B = W / S;
   const long long nbytes = 4LL * out_words;
@@ -411,11 +523,27 @@ extern "C" int zrs_vhuff_expand(const void* tape_a, const void* tape_b, const vo
     mode = kModeSerialDevice;
     smem = 0;
   }
-  cudaError_t err =
-      cudaFuncSetAttribute(vhuff_expand, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(vhuff_expand<Tape>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  vhuff_expand<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)tape_a, (const int32_t*)tape_b, (const int32_t*)offs, cap, W, S,
-      out_words, mode, (int32_t*)out, (int32_t*)branch);
+  vhuff_expand<Tape><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      tape, (const int32_t*)offs, cap, S, out_words, mode, (int32_t*)out, (int32_t*)branch);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K5: tapes int32 [cap, W] (A the literal bytes, B the rest of each row)
+extern "C" int zrs_vhuff_expand(const void* tape_a, const void* tape_b, const void* offs,
+                                int cap, int W, int S, int out_words, void* out, void* branch,
+                                void* stream) {
+  return launch(TwoPlane{(const int32_t*)tape_a, (const int32_t*)tape_b, W}, offs, cap, W, S,
+                out_words, out, branch, stream);
+}
+
+// K11b: one tape int32 [cap, W] of tokens
+extern "C" int zrs_vhuff_expand1(const void* tape, const void* offs, int cap, int W, int S,
+                                 int out_words, void* out, void* branch, void* stream) {
+  return launch(SinglePlane{(const int32_t*)tape, W}, offs, cap, W, S, out_words, out, branch,
+                stream);
 }

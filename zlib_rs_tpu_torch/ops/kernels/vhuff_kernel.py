@@ -16,9 +16,11 @@ The port of zlib_rs_tpu/ops/pallas/vhuff_kernel.py:
   decode_tokens_vector    the same walkers into single-plane rows (K11a,
                           csrc/vhuff_decode1.cu; replaces
                           `decode_tokens_vector`, body `_make_kernel`)
-  expand_tokens           single-plane rows to bytes (K11b,
-                          csrc/vhuff_expand1.cu; replaces
-                          `expand_tokens_pallas`, body `_make_expand_kernel`)
+  expand_tokens           single-plane rows to bytes (K11b, K5's body
+                          through a single-plane tape reader, the
+                          `zrs_vhuff_expand1` entry of csrc/vhuff_expand.cu;
+                          replaces `expand_tokens_pallas`, body
+                          `_make_expand_kernel`)
 
 A two-plane row holds up to three literals and the match that follows
 them, or four literals, or a lone match: tapeA the literal bytes LSB first,
@@ -541,13 +543,19 @@ def decode_tokens_vector(words, start_word, align, span, tables, *, S: int, K: i
 # K5: the two-plane expansion
 # ---------------------------------------------------------------------------
 
-# K5's body for a chunk: the per-walker resolve and pointer-jumping chase,
-# or the serial body for walkers that do not tile their ranges or for a
-# chunk of more output bytes than the chase's 15-bit pointers reach
-# (CHASE_MAX_BYTES) or a row past CHASE_MAX_ROW bytes
+# K5's (and K11b's) body for a chunk: the per-walker resolve and
+# pointer-jumping chase, or the serial body for walkers that do not tile
+# their ranges or for a chunk of more output bytes than the chase's 15-bit
+# pointers reach (CHASE_MAX_BYTES) or a row past CHASE_MAX_ROW bytes
 BRANCH_CHASE, BRANCH_UNTILED, BRANCH_TOO_LARGE = 0, 1, 2
 CHASE_MAX_BYTES = 32768
 CHASE_MAX_ROW = 65536
+
+
+def _check_branch(kernel: str, branch, B: int, device) -> None:
+    if branch is not None and (branch.dtype != torch.int32 or branch.shape != (B,)
+                               or branch.device != device or not branch.is_contiguous()):
+        raise ValueError(f"{kernel}: branch must be a contiguous int32 [B] on the tapes' device")
 
 
 def _check_expand_args(tapeA, tapeB, offs, out_words: int):
@@ -664,9 +672,7 @@ def expand_tokens2_cuda(tapeA, tapeB, offs, *, out_words: int, branch=None):
     each chunk's body: BRANCH_CHASE, BRANCH_UNTILED or BRANCH_TOO_LARGE."""
     _device.require_cuda("vhuff_expand", tapeA, tapeB, offs)
     cap, W, B, S = _check_expand_args(tapeA, tapeB, offs, out_words)
-    if branch is not None and (branch.dtype != torch.int32 or branch.shape != (B,)
-                               or branch.device != tapeA.device or not branch.is_contiguous()):
-        raise ValueError("vhuff_expand: branch must be a contiguous int32 [B] on the tapes' device")
+    _check_branch("vhuff_expand", branch, B, tapeA.device)
     tapeA, tapeB, offs = (t.contiguous() for t in (tapeA, tapeB, offs))
     out = torch.empty((B, out_words), dtype=torch.int32, device=tapeA.device)
     rc = _expand_lib()(
@@ -784,26 +790,28 @@ def expand_tokens_plain(tape, offs, *, out_words: int):
 
 
 def _expand1_lib():
-    fn = _device.library("vhuff_expand1").zrs_vhuff_expand1
+    # K11b is the second C entry of K5's library: one body, two tape readers
+    fn = _device.library("vhuff_expand").zrs_vhuff_expand1
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, I, P, P]
+        fn.argtypes = [P, P, I, I, I, I, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def expand_tokens_cuda(tape, offs, *, out_words: int):
+def expand_tokens_cuda(tape, offs, *, out_words: int, branch=None):
     """Launch K11b over CUDA operands: tape int32 [cap, W], offs int32
-    [B, S + 1] (walker s of chunk k covers [offs[k, s], offs[k, s + 1]))."""
+    [B, S + 1] (walker s of chunk k covers [offs[k, s], offs[k, s + 1])).
+    `branch`, an int32 [B] tensor on the tape's device if given, receives
+    each chunk's body: BRANCH_CHASE, BRANCH_UNTILED or BRANCH_TOO_LARGE."""
     _device.require_cuda("vhuff_expand1", tape, offs)
     cap, W, B, S = _check_expand1_args(tape, offs, out_words)
-    if S % 8:
-        raise ValueError("vhuff_expand1: the kernel stages walkers in groups of 8")
+    _check_branch("vhuff_expand1", branch, B, tape.device)
     tape, offs = tape.contiguous(), offs.contiguous()
     out = torch.empty((B, out_words), dtype=torch.int32, device=tape.device)
     rc = _expand1_lib()(
         _device.ptr(tape), _device.ptr(offs), cap, W, S, out_words, _device.ptr(out),
-        _device.stream_of(tape),
+        None if branch is None else _device.ptr(branch), _device.stream_of(tape),
     )
     _device.check(rc, "vhuff_expand1")
     launches["vhuff_expand1"] += 1
