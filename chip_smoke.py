@@ -9,7 +9,10 @@ not carry yet, and raises). Builds the port's CUDA kernels from
 zlib_rs_tpu_torch/csrc with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it (K3 also on crafted lanes: empty,
-all-literal, 258-byte dist-1 runs, 15-bit codes; K5 also on corrupt
+all-literal, 258-byte dist-1 runs, 15-bit codes; K4, and K11a in phase
+21, also on flipped body words, an undersized cap and a damaged index
+whose block reads the body in place, with the count of blocks on each
+branch; K5 also on corrupt
 tapes, a random tape, a 128-hop chain and chunks past its chase, with the
 count of chunks each body took), then drives the main path: level-6
 `compress_parallel` of an 8 MiB corpus (a tar of system binaries, the
@@ -229,6 +232,40 @@ def stage_decode(VI, idx_out, index, dev):
     return bodies, sizes, index.seeds, staged, meta, full_args, sub_args
 
 
+def decode_edge_pairs(torch, VK, cuda, plain, full_args, sub_args, S: int, K: int, cap: int):
+    """K4's or K11a's (`cuda`, `plain`) edge cases beside the main run: the
+    first chunks with flipped body words, then with an undersized cap, then
+    with a damaged index (one walker of the second chunk starting Lw + K
+    words before its own start, so that its block's window passes the
+    staged budget and the block reads in place). Returns (pairs of outputs, the
+    kernel's outputs of the flipped and undersized cases, blocks on each
+    branch in the main run and in the damaged one)."""
+    VK.decode_blocks()  # restart the counts
+    full = cuda(*full_args, S=S, K=K, cap=cap)
+    main_blocks = VK.decode_blocks()
+    flipped = sub_args[0].clone()
+    flipped[:, flipped.shape[1] // 2] ^= 0xFF
+    damaged = sub_args[1].clone()
+    damaged[S + 5] -= sub_args[0].shape[1] + K
+    pairs, bad_runs = [], []
+    for words_c, sw_c, cap_c, corrupt in ((flipped, sub_args[1], cap, True),
+                                          (sub_args[0], sub_args[1], UNDERSIZED_CAP, True),
+                                          (sub_args[0], damaged, cap, False)):
+        args_c = [words_c, sw_c] + sub_args[2:]
+        VK.decode_blocks()
+        got_c = cuda(*args_c, S=S, K=K, cap=cap_c)
+        blocks_c = VK.decode_blocks()
+        want_c = plain(*args_c, S=S, K=K, cap=cap_c)
+        if corrupt and not (int(want_c[-2].sum()) or int(want_c[-1].abs().sum())):
+            raise AssertionError("a corrupt decode lane set flags no walker")
+        pairs += list(zip(got_c, want_c))
+        bad_runs.append(got_c)
+    if main_blocks[1] or blocks_c[1] < 1:
+        raise AssertionError(f"decode blocks staged/global: main {main_blocks}, damaged "
+                             f"index {blocks_c}")
+    return full, pairs, bad_runs[:2], {"main": main_blocks, "damaged index": blocks_c}
+
+
 def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches) -> dict:
     """Phases 5-8: K4 and K5 against their plain versions on the indexed
     stream's chunks, the decode path end to end (zlib and gzip), and the
@@ -246,10 +283,14 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     W = B * S
 
     # -- phase 5: K4 against its plain version -----------------------------
-    full = VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap)
+    # all chunks clean, then the edges of decode_edge_pairs: flipped words,
+    # an undersized cap and a damaged index on the first chunks
+    full, edge, bad_runs, blocks = decode_edge_pairs(
+        torch, VK, VK.decode_tokens_vector2_cuda, VK.decode_tokens_vector2_plain, full_args,
+        sub_args, S, K, cap)
     want, plain_ms = timed_ms(
         torch, lambda: VK.decode_tokens_vector2_plain(*full_args, S=S, K=K, cap=cap))
-    err = max_abs(zip(full, want))
+    err = max_abs(list(zip(full, want)) + edge)
     if err:
         raise AssertionError(f"K4 disagrees with its plain version: max abs err {err}")
     tapeA, tapeB, _cons, bad, rem = full
@@ -261,17 +302,22 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     # each walker's stop are left out)
     body_bytes = sum(len(b) for b in bodies) + 4 * staged["tables"].numel()
     nb = body_bytes + 3 * 4 * W + 8 * used_rows + 3 * 4 * W
+    decode2 = lambda: VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap)
     rows["vhuff_decode"] = dict(
         source="zlib_rs_tpu_torch/csrc/vhuff_decode.cu",
         replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:1200",
         max_abs_err=err,
-        ms=event_ms(torch, lambda: VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap), 5),
+        ms=event_ms(torch, decode2, 20),
+        queued_ms=queued_ms(torch, decode2),
         plain_ms=plain_ms,
         # four cascade lookups (~30 operations each) and ~80 more a row
         bnd=bound(nb, 200 * used_rows),
     )
     print(f"phase 5 K4: {B} chunks, {W} walkers, K {K}, cap {cap}, {used_rows} rows: both "
-          f"tapes, cons, bad and rem equal to plain", flush=True)
+          f"tapes, cons, bad and rem equal to plain; the first {COMPARE_ROWS} chunks with "
+          f"flipped words, with cap {UNDERSIZED_CAP} and with a damaged index equal to plain; "
+          f"blocks staged/global {blocks}; ms a launch {rows['vhuff_decode']['ms']:.6f} by "
+          f"events, {rows['vhuff_decode']['queued_ms']:.6f} queued", flush=True)
 
     # -- phase 6: K5 against its plain version -----------------------------
     # all chunks (every one through the chase), then the edges of
@@ -291,10 +337,7 @@ def decode_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launch
     if b"".join(full8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
         raise AssertionError("the full K5 expansion is not the corpus")
     k = min(COMPARE_ROWS, B)
-    flipped = sub_args[0].clone()
-    flipped[:, flipped.shape[1] // 2] ^= 0xFF
-    bad_tapes = [VK.decode_tokens_vector2_cuda(words_c, *sub_args[1:], S=S, K=K, cap=cap_c)[:2]
-                 for words_c, cap_c in ((flipped, cap), (sub_args[0], UNDERSIZED_CAP))]
+    bad_tapes = [run[:2] for run in bad_runs]
     edge, bodies_seen = k5_edge_pairs(torch, VK, dev, tapeA, tapeB, offs, sizes, bad_tapes, k)
     err = max(err, max_abs((torch.from_numpy(g), torch.from_numpy(w)) for g, w in edge))
     if err:
@@ -1164,23 +1207,15 @@ def single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, 
     k = min(COMPARE_ROWS, B)
 
     # -- phase 21: K11a against its plain version --------------------------
-    # the first chunks with corrupt lanes (flipped body words, then an
-    # undersized cap), then all chunks clean
-    flipped = sub_args[0].clone()
-    flipped[:, flipped.shape[1] // 2] ^= 0xFF
-    err, bad_tapes = 0, []
-    for words_c, cap_c in ((flipped, cap), (sub_args[0], UNDERSIZED_CAP)):
-        args_c = [words_c] + sub_args[1:]
-        got_c = VK.decode_tokens_vector_cuda(*args_c, S=S, K=K, cap=cap_c)
-        want_c = VK.decode_tokens_vector_plain(*args_c, S=S, K=K, cap=cap_c)
-        err = max(err, max_abs(zip(got_c, want_c)))
-        if not (int(want_c[2].sum()) or int(want_c[3].abs().sum())):
-            raise AssertionError("a corrupt K11a lane set flags no walker")
-        bad_tapes.append(got_c[0])
-    full = VK.decode_tokens_vector_cuda(*full_args, S=S, K=K, cap=cap)
+    # all chunks clean, then the edges of decode_edge_pairs: flipped words,
+    # an undersized cap and a damaged index on the first chunks
+    full, edge, bad_runs, blocks = decode_edge_pairs(
+        torch, VK, VK.decode_tokens_vector_cuda, VK.decode_tokens_vector_plain, full_args,
+        sub_args, S, K, cap)
+    bad_tapes = [run[0] for run in bad_runs]
     want, plain_ms = timed_ms(
         torch, lambda: VK.decode_tokens_vector_plain(*full_args, S=S, K=K, cap=cap))
-    err = max(err, max_abs(zip(full, want)))
+    err = max_abs(list(zip(full, want)) + edge)
     if err:
         raise AssertionError(f"K11a disagrees with its plain version: max abs err {err}")
     tape, _cons, bad, rem = full
@@ -1191,18 +1226,22 @@ def single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, 
     # rows used (one word each) and three walker arrays out
     body_bytes = sum(len(b) for b in bodies) + 4 * staged["tables"].numel()
     nb = body_bytes + 3 * 4 * W + 4 * used_rows + 3 * 4 * W
+    decode1 = lambda: VK.decode_tokens_vector_cuda(*full_args, S=S, K=K, cap=cap)
     rows["vhuff_decode1"] = dict(
-        source="zlib_rs_tpu_torch/csrc/vhuff_decode1.cu",
+        source="zlib_rs_tpu_torch/csrc/vhuff_decode.cu",
         replaces="zlib_rs_tpu/ops/pallas/vhuff_kernel.py:722",
         max_abs_err=err,
-        ms=event_ms(torch, lambda: VK.decode_tokens_vector_cuda(*full_args, S=S, K=K, cap=cap), 5),
+        ms=event_ms(torch, decode1, 20),
+        queued_ms=queued_ms(torch, decode1),
         plain_ms=plain_ms,
         # four cascade lookups (~30 operations each) and ~80 more a row
         bnd=bound(nb, 200 * used_rows),
     )
     print(f"phase 21 K11a: {B} chunks, {W} walkers, K {K}, cap {cap}, {used_rows} rows: tape, "
           f"cons, bad and rem equal to plain, none flagged; the first {k} chunks with flipped "
-          f"words and with cap {UNDERSIZED_CAP} equal to plain", flush=True)
+          f"words, with cap {UNDERSIZED_CAP} and with a damaged index equal to plain; blocks "
+          f"staged/global {blocks}; ms a launch {rows['vhuff_decode1']['ms']:.6f} by events, "
+          f"{rows['vhuff_decode1']['queued_ms']:.6f} queued", flush=True)
 
     # -- phase 22: K11b against its plain version --------------------------
     # all chunks (every one through the chase), then the edges of

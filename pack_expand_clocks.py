@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""Where K3's, K5's, K11b's and K9's time goes, by clock64 counters
-inside the kernels, on one card.
+"""Where K3's, K5's, K11b's, K9's, K4's and K11a's time goes, by clock64
+counters inside the kernels, on one card.
 
     python3 pack_expand_clocks.py [--parent DIR]
 
 Builds copies of zlib_rs_tpu_torch/csrc/pack.cu, csrc/vhuff_expand.cu (K5
 and K11b, one body; a second copy with K11b's resolve window cut from 8
-rows to 4) and csrc/freq.cu with counters added into
-build/pack_expand_clocks/, then runs K3 on the first level-6 super-batch
-of chip_smoke.py's 8 MiB corpus (128 chunks, no seeds), K5 and K11b on the
-256 chunks of its indexed stream (the two-plane and the single-plane
-tapes), and K9 on the level-9 match stream of the first super-batch, each
-checked against the plain version. The counters are thread 0's clock64
-between the block's barriers, so each phase counts until its slowest
-thread is done. Prints, per kernel: the instrumented launch's CUDA-event
-ms, each phase's mean cycles a block and the slowest block's, and for K5
-and K11b the chase's rounds (mean and most); then the shipped kernels' ms
-a launch, by events as chip_smoke.py times them and with the launches
-queued behind a busy card (the kernel alone, without the host's cost to
-launch each); then the card's name and power limit.
+rows to 4), csrc/freq.cu and csrc/vhuff_decode.cu (K4 and K11a, one body)
+with counters added into build/pack_expand_clocks/, then runs K3 on the
+first level-6 super-batch of chip_smoke.py's 8 MiB corpus (128 chunks, no
+seeds), K4, K11a, K5 and K11b on the 256 chunks of its indexed stream (the
+two-plane and the single-plane tapes), and K9 on the level-9 match stream
+of the first super-batch, each checked against the plain version. The
+counters are thread 0's clock64 between the block's barriers, so each
+phase counts until its slowest thread is done. Prints, per kernel: the
+instrumented launch's CUDA-event ms, each phase's mean cycles a block and
+the slowest block's, for K5 and K11b the chase's rounds (mean and most),
+for K4 and K11a a walker's cycles a row, its rows, the blocks on each
+branch and the longest walker's chunk decoded alone; then the shipped
+kernels' ms a launch, by events as chip_smoke.py times them and with the
+launches queued behind a busy card (the kernel alone, without the host's
+cost to launch each); then copies of csrc/vhuff_decode.cu with one thing
+changed (DECODE_VARIANTS: each kernel at the other's literal/length table
+width, checked against the plain versions; no zero rows, timing only),
+timed the same two ways; then the card's name and power limit.
 
 With --parent DIR (a checkout of an earlier commit, e.g. unpacked with
-`git archive`), also builds DIR's csrc/freq.cu and, where DIR has it,
-csrc/vhuff_expand1.cu as they are, and times them on the same inputs the
-same two ways.
+`git archive`), also builds DIR's csrc/freq.cu and, where DIR has them,
+csrc/vhuff_expand1.cu and the one-thread-a-walker decodes
+csrc/vhuff_decode.cu and csrc/vhuff_decode1.cu as they are, and times them
+on the same inputs the same two ways (the decodes also with a counter pair
+a walker: its decode loop and its zero rows).
 """
 
 from __future__ import annotations
@@ -39,6 +46,18 @@ CSRC = ROOT / "zlib_rs_tpu_torch" / "csrc"
 PACK_PHASES = ("tables and codes", "classify", "count and scans", "emit", "copy-out")
 EXPAND_PHASES = ("init", "resolve", "fill", "chase", "copy-out")
 FREQ_PHASES = ("stage", "matches and scan", "literal count", "merge")
+DECODE_PHASES = ("staging", "table build", "decode loop", "zero rows")
+# copies of csrc/vhuff_decode.cu timed beside it: (label, exact, edits)
+DECODE_VARIANTS = (
+    ("K4's literal/length table at 12 bits", True,
+     (("  static constexpr int kLlBits = 13;", "  static constexpr int kLlBits = 12;"),)),
+    ("K11a's literal/length table at 13 bits", True,
+     (("  static constexpr int kLlBits = 12;", "  static constexpr int kLlBits = 13;"),)),
+    ("no zero rows (timing only)", False,
+     (("  for (int it = r.it; it < warp_end; ++it) out.zero((long long)it * W + w);\n", ""),
+      ("  for (int it = warp_end + (lane >> 3); it < cap; it += 4) out.zero4((long long)it * W + col);\n",
+       ""))),
+)
 K11B_GROUP = "  static constexpr int kGroup = 8;  // lanes a resolving walker: a window of 8 rows\n"
 DBG = """
 __device__ unsigned long long dbg[16];
@@ -129,6 +148,68 @@ def freq_instrumented(src: str) -> str:
     return s + DBG_READ
 
 
+def decode_instrumented(src: str) -> str:
+    """K4 and K11a with a barrier after each phase: the staged window's copy
+    (its cp.async waited for before the table build, which it overlaps in
+    the shipped kernel), the direct tables, the slowest walker's decode
+    loop, and the zero rows; dbg[11] the walkers' cycles in their loops and
+    dbg[12] their rows."""
+    n = "vhuff_decode.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  const int tid = threadIdx.x, lane = tid & 31;\n",
+            "  const int tid = threadIdx.x, lane = tid & 31;\n  unsigned long long clk_[4] = {0};\n"
+            "  long long clk_t_ = clock64();\n", n)
+    s = rep(s, "      cp_async4(stage + (i - sb), words + (i < 0 ? 0 : (i > last ? last : i)));\n  }\n",
+            "      cp_async4(stage + (i - sb), words + (i < 0 ? 0 : (i > last ? last : i)));\n  }\n"
+            "  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n  __syncthreads();\n  CLK_MARK(0)\n", n)
+    s = rep(s, "  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n  __syncthreads();\n  if (tid == 0)",
+            "  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n  __syncthreads();\n  CLK_MARK(1)\n"
+            "  if (tid == 0)", n)
+    s = rep(s, "  Walked r;\n", "  Walked r;\n  const long long w0_ = clock64();\n", n)
+    s = rep(s, "  // zero rows:", "  atomicAdd(&dbg[11], (unsigned long long)(clock64() - w0_));\n"
+            "  atomicAdd(&dbg[12], (unsigned long long)r.it);\n"
+            "  __syncthreads();\n  CLK_MARK(2)\n  // zero rows:", n)
+    s = rep(s, "  cons_out[w] = r.cons;\n", "  __syncthreads();\n  CLK_MARK(3)\n" + flush(4)
+            + "  cons_out[w] = r.cons;\n", n)
+    return s + DBG_READ
+
+
+def decode_variants(torch, cs, VK, out_dir: Path, calls: dict, wants: dict) -> None:
+    """DECODE_VARIANTS built in parallel and timed as the shipped K4 and
+    K11a are, by events and queued; the exact ones checked against the
+    plain versions first."""
+    from zlib_rs_tpu_torch import _device
+
+    src = (CSRC / "vhuff_decode.cu").read_text()
+    procs = []
+    for i, (label, _exact, edits) in enumerate(DECODE_VARIANTS):
+        text = src
+        for a, b in edits:
+            text = rep(text, a, b, "vhuff_decode.cu")
+        path = out_dir / f"vhuff_decode_v{i}.cu"
+        path.write_text(text)
+        lib = out_dir / f"libzrs_vhuff_decode_v{i}.so"
+        procs.append((label, lib, subprocess.Popen(
+            [_device._nvcc(), *_device.NVCC_FLAGS, "-o", str(lib), str(path)])))
+    real = _device.library
+    try:
+        for label, lib_path, proc in procs:
+            if proc.wait():
+                raise RuntimeError(f"pack_expand_clocks: the {label} variant does not build")
+            lib = ctypes.CDLL(str(lib_path))
+            _device.library = lambda name, lib=lib: lib if name == "vhuff_decode" else real(name)
+            exact = dict((v[0], v[1]) for v in DECODE_VARIANTS)[label]
+            parts = []
+            for kernel, fn in calls.items():
+                if exact and cs.max_abs(zip(fn(), wants[kernel])):
+                    raise AssertionError(f"the {label} variant of {kernel} disagrees with plain")
+                parts.append(f"{kernel} {cs.event_ms(torch, fn, 20):.6f} ms by events, "
+                              f"{cs.queued_ms(torch, fn):.6f} queued")
+            print(f"vhuff_decode.cu, {label}: " + "; ".join(parts), flush=True)
+    finally:
+        _device.library = real
+
+
 def build(name: str, text: str, out_dir: Path):
     from zlib_rs_tpu_torch import _device
 
@@ -176,7 +257,9 @@ def main() -> int:
     expand_src = expand_instrumented((CSRC / "vhuff_expand.cu").read_text())
     libs = {"pack": build("pack", pack_instrumented((CSRC / "pack.cu").read_text()), out_dir),
             "vhuff_expand": build("vhuff_expand", expand_src, out_dir),
-            "freq": build("freq", freq_instrumented((CSRC / "freq.cu").read_text()), out_dir)}
+            "freq": build("freq", freq_instrumented((CSRC / "freq.cu").read_text()), out_dir),
+            "vhuff_decode": build("vhuff_decode", decode_instrumented(
+                (CSRC / "vhuff_decode.cu").read_text()), out_dir)}
     expand_g4 = build("vhuff_expand_g4", rep(expand_src, K11B_GROUP, K11B_GROUP.replace(
         "kGroup = 8;  // lanes a resolving walker: a window of 8 rows",
         "kGroup = 4;  // lanes a resolving walker: a window of 4 rows"), "vhuff_expand.cu"), out_dir)
@@ -241,6 +324,48 @@ def main() -> int:
            rounds=True)
     expand_call = lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words)
 
+    # K4 and K11a on the same chunks, as phases 5 and 21 take them
+    decode_calls, decode_wants = {}, {}
+    for label, cuda, plain, cap in (
+            ("K4", VK.decode_tokens_vector2_cuda, VK.decode_tokens_vector2_plain,
+             VI._twoplane_cap(m)),
+            ("K11a", VK.decode_tokens_vector_cuda, VK.decode_tokens_vector_plain, m["cap"])):
+        call = lambda cuda=cuda, cap=cap: cuda(*full_args, S=m["S"], K=m["K"], cap=cap)
+        want = plain(*full_args, S=m["S"], K=m["K"], cap=cap)
+        torch.cuda.synchronize()
+        _device.check(libs["vhuff_decode"].zrs_dbg(buf), "zrs_dbg")
+        VK.decode_blocks()
+        got = call()
+        torch.cuda.synchronize()
+        _device.check(libs["vhuff_decode"].zrs_dbg(buf), "zrs_dbg")
+        blocks = VK.decode_blocks()
+        if cs.max_abs(zip(got, want)):
+            raise AssertionError(f"the instrumented {label} disagrees with its plain version")
+        rows = (want[-4] != 0).sum(dim=0)
+        blk = len(rows) // 128
+        report(f"{label}, {m['B']} chunks, cap {cap}", buf, blk, DECODE_PHASES,
+               cs.event_ms(torch, call, 20))
+        print(f"{label}: rows a walker mean {float(rows.float().mean()):.1f}, longest walker "
+              f"{int(rows.max())}; a walker's loop {buf[11] / max(buf[12], 1):.0f} cycles a row "
+              f"(mean over rows); blocks staged/global {blocks}", flush=True)
+        decode_calls[label], decode_wants[label] = call, want
+        # the chunk of the longest walker alone on the card: one block
+        k = int(rows.argmax()) // m["S"]
+        S = m["S"]
+        one = [full_args[0][k : k + 1]] + [a[k * S : (k + 1) * S] for a in full_args[1:4]] + [
+            full_args[4][k : k + 1]]
+        torch.cuda.synchronize()
+        _device.check(libs["vhuff_decode"].zrs_dbg(buf), "zrs_dbg")
+        got1 = cuda(*one, S=S, K=m["K"], cap=cap)
+        torch.cuda.synchronize()
+        _device.check(libs["vhuff_decode"].zrs_dbg(buf), "zrs_dbg")
+        if cs.max_abs(zip(got1, plain(*one, S=S, K=m["K"], cap=cap))):
+            raise AssertionError(f"the instrumented {label} disagrees on chunk {k} alone")
+        report(f"{label}, chunk {k} alone ({S // 128} blocks)", buf, S // 128, DECODE_PHASES,
+               cs.event_ms(torch, lambda: cuda(*one, S=S, K=m["K"], cap=cap), 20))
+        print(f"{label}, chunk {k} alone: a walker's loop {buf[11] / max(buf[12], 1):.0f} cycles "
+              f"a row", flush=True)
+
     # K11b: the single-plane tape of the same chunks, as phase 22 takes it,
     # with its resolve window as shipped (8 rows) and cut to 4
     tape, *_ = VK.decode_tokens_vector_cuda(*full_args, S=m["S"], K=m["K"], cap=m["cap"])
@@ -281,12 +406,15 @@ def main() -> int:
     # takes them, and with the launches queued behind a busy card
     _device.library = real
     for label, fn in (("K3", pack_call), ("K5", expand_call), ("K11b", expand1_call),
-                      ("K9", freq_call)):
+                      ("K9", freq_call), ("K4", decode_calls["K4"]),
+                      ("K11a", decode_calls["K11a"])):
         print(f"{label} uninstrumented: {cs.event_ms(torch, fn, 50):.6f} ms a launch by events, "
               f"{cs.queued_ms(torch, fn):.6f} ms queued", flush=True)
+    decode_variants(torch, cs, VK, out_dir, decode_calls, decode_wants)
     if parent is not None:
         parent_kernels(torch, cs, DK, VK, parent, out_dir, (words, mpos9, mld9, meta9),
                        (tape, offs, out_words, sizes, want1))
+        parent_decodes(torch, cs, VK, parent, out_dir, full_args, m, VI._twoplane_cap(m))
     print(cs.nvidia_smi())
     return 0
 
@@ -329,6 +457,87 @@ def parent_kernels(torch, cs, DK, VK, parent: Path, out_dir: Path, k9_args, k11b
         raise AssertionError("the parent's K11b disagrees with its plain version")
     print(f"K11b parent: {cs.event_ms(torch, fn, 50):.6f} ms a launch by events, "
           f"{cs.queued_ms(torch, fn):.6f} ms queued", flush=True)
+
+
+
+# the parent's decode kernels (one thread a walker), with one counter pair
+# a walker: its decode loop and its zero rows
+PARENT_DECODES = (("vhuff_decode", "zrs_vhuff_decode", "K4", 2),
+                  ("vhuff_decode1", "zrs_vhuff_decode1", "K11a", 1))
+
+
+def split_instrumented(src: str, name: str) -> str:
+    """A walker's cycles from its first refill to its last row (dbg[0],
+    the most dbg[2]) and in its zero-row loop (dbg[1], the most dbg[3]);
+    dbg[4] the longest walker's total."""
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", name)
+    s = rep(s, "  if (w >= W) return;\n", "  if (w >= W) return;\n  const long long c0_ = clock64();\n",
+            name)
+    s = rep(s, "  for (; it < cap; ++it) ", "  const long long c1_ = clock64();\n"
+            "  for (; it < cap; ++it) ", name)
+    s = rep(s, "  cons_out[w] = cons;\n",
+            "  const unsigned long long d_ = c1_ - c0_, z_ = clock64() - c1_;\n"
+            "  atomicAdd(&dbg[0], d_); atomicAdd(&dbg[1], z_); atomicMax(&dbg[2], d_);\n"
+            "  atomicMax(&dbg[3], z_); atomicMax(&dbg[4], d_ + z_);\n  cons_out[w] = cons;\n", name)
+    return s + DBG_READ
+
+
+def parent_decodes(torch, cs, VK, parent: Path, out_dir: Path, full_args, m, cap2) -> None:
+    """The parent checkout's K4 and K11a, where it has them as the first
+    design's two sources (csrc/vhuff_decode.cu and csrc/vhuff_decode1.cu,
+    one thread a walker), on the indexed stream's 256 chunks: checked
+    against the plain versions, timed by events and queued, then a copy
+    with the split counters."""
+    from zlib_rs_tpu_torch import _device
+
+    src = parent / "zlib_rs_tpu_torch" / "csrc"
+    S, K = m["S"], m["K"]
+    words, start_word, align, span, tables = full_args
+    B, Lw = words.shape
+    W = start_word.shape[0]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    buf = (ctypes.c_ulonglong * 16)()
+    if not (src / "vhuff_decode1.cu").is_file():
+        return
+    for name, entry_name, label, planes in PARENT_DECODES:
+        cap = cap2 if planes == 2 else m["cap"]
+        plain = VK.decode_tokens_vector2_plain if planes == 2 else VK.decode_tokens_vector_plain
+        want = plain(*full_args, S=S, K=K, cap=cap)
+        outs = [torch.empty((cap, W), dtype=torch.int32, device=words.device)
+                for _ in range(planes)]
+        outs += [torch.empty(W, dtype=torch.int32, device=words.device) for _ in range(3)]
+        text = (src / f"{name}.cu").read_text()
+        for tag, lib in (("", build(f"parent_{name}", text, out_dir)),
+                         ("_clk", build(f"parent_{name}_clk", split_instrumented(text, f"{name}.cu"),
+                                        out_dir))):
+            entry = getattr(lib, entry_name)
+            entry.argtypes = [P, I, I, P, P, P, P, I, I, I, I] + [P] * (planes + 4)
+            entry.restype = ctypes.c_int
+
+            def fn(entry=entry):
+                _device.check(entry(
+                    _device.ptr(words), B, Lw, *(_device.ptr(t) for t in full_args[1:]), S, K,
+                    cap, W, *(_device.ptr(t) for t in outs), _device.stream_of(words)),
+                    f"parent {name}")
+                return outs
+
+            if tag:
+                torch.cuda.synchronize()
+                _device.check(lib.zrs_dbg(buf), "zrs_dbg")
+            if cs.max_abs(zip(fn(), want)):
+                raise AssertionError(f"the parent's {label} disagrees with its plain version")
+            if not tag:
+                print(f"{label} parent: {cs.event_ms(torch, fn, 20):.6f} ms a launch by events, "
+                      f"{cs.queued_ms(torch, fn):.6f} ms queued", flush=True)
+                continue
+            torch.cuda.synchronize()
+            _device.check(lib.zrs_dbg(buf), "zrs_dbg")
+            d = list(buf)
+            rows = (want[planes - 1] != 0).sum(dim=0)
+            print(f"{label} parent split ({B} chunks, {W} walkers, cap {cap}): cycles a walker: "
+                  f"decode mean {d[0] / W:.0f}, most {d[2]}; zero rows mean {d[1] / W:.0f}, most "
+                  f"{d[3]}; longest walker {d[4]} cycles; rows a walker mean "
+                  f"{float(rows.float().mean()):.1f}, most {int(rows.max())}", flush=True)
 
 
 if __name__ == "__main__":

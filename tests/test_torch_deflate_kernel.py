@@ -602,12 +602,13 @@ def test_pack_design_match_code_round_trips_every_length_and_distance():
     np.testing.assert_array_equal((codes >> 15) & 0x1FFF, dv)
 
 
-@pytest.mark.parametrize("kernel", ["pack", "vhuff_expand", "freq"])
+@pytest.mark.parametrize("kernel", ["pack", "vhuff_expand", "freq", "vhuff_decode"])
 def test_clock_script_instruments_k3_and_k5(kernel):
     """pack_expand_clocks.py (the card-only measurement of K3's, K5's,
-    K11b's and K9's phases) edits csrc/pack.cu, csrc/vhuff_expand.cu and
-    csrc/freq.cu by exact text anchors and raises when one is gone; each
-    must still be there, K11b's resolve window among them."""
+    K11b's, K9's, K4's and K11a's phases) edits csrc/pack.cu,
+    csrc/vhuff_expand.cu, csrc/freq.cu and csrc/vhuff_decode.cu by exact
+    text anchors and raises when one is gone; each must still be there,
+    K11b's resolve window among them."""
     import importlib.util
     from pathlib import Path
 
@@ -617,12 +618,15 @@ def test_clock_script_instruments_k3_and_k5(kernel):
     spec.loader.exec_module(mod)
     src = (root / "zlib_rs_tpu_torch" / "csrc" / f"{kernel}.cu").read_text()
     edit = {"pack": mod.pack_instrumented, "vhuff_expand": mod.expand_instrumented,
-            "freq": mod.freq_instrumented}[kernel]
+            "freq": mod.freq_instrumented, "vhuff_decode": mod.decode_instrumented}[kernel]
     phases = {"pack": mod.PACK_PHASES, "vhuff_expand": mod.EXPAND_PHASES,
-              "freq": mod.FREQ_PHASES}[kernel]
+              "freq": mod.FREQ_PHASES, "vhuff_decode": mod.DECODE_PHASES}[kernel]
     out = edit(src)
     if kernel == "vhuff_expand":
         assert out.count(mod.K11B_GROUP) == 1
+    if kernel == "vhuff_decode":  # the variants timed beside K4 and K11a
+        for _label, _exact, edits in mod.DECODE_VARIANTS:
+            assert all(a in src for a, _b in edits)
     assert out.count("CLK_MARK(") == len(phases) + 1 and 'extern "C" int zrs_dbg' in out
     with pytest.raises(RuntimeError, match="no longer has"):
         edit(src.replace("__syncthreads();\n", "__syncthreads(); \n"))

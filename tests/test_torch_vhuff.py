@@ -25,6 +25,7 @@ from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
 from zlib_rs_tpu_torch.parallel import swarm_inflate as TS
 from zlib_rs_tpu_torch.parallel import vector_inflate as TV
 
+import decode_model
 import expand_model
 
 # the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
@@ -462,3 +463,131 @@ def test_k5_design_model_on_random_tapes_takes_the_serial_body():
     got, branch, _edges = _k5_model(tA, tB, offs, 20)
     assert (branch == VK.BRANCH_UNTILED).all()
     np.testing.assert_array_equal(got, _plain_k5(tA, tB, offs, 20))
+
+
+# ---------------------------------------------------------------------------
+# K4's design (csrc/vhuff_decode.cu) as a numpy model (tests/decode_model.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["xla_stream", "kernel_stream"])
+def test_direct_tables_equal_the_cascade_on_the_fixture_chunks(request, name):
+    """The direct tables of every chunk of both streams, at the literal/
+    length widths of K4 (13 bits) and K11a (12), over all 32,768 15-bit
+    values: wherever an entry is set it is the cascade's entry and length.
+    Canonical tables put most values on the direct path."""
+    _data, bodies, _sizes, _seeds = request.getfixturevalue(name)
+    for body in bodies:
+        _bt, ll, d, _hdr = TS.parse_block_header(body)
+        for policy in (decode_model.TwoPlane, decode_model.OnePlane):
+            ll_a, d_a = decode_model.tables_of(VK.table_row(ll, d), policy.ll_bits)
+            assert decode_model.check_direct(ll_a) > 0.9
+            assert decode_model.check_direct(d_a) > 0.5
+
+
+def _crafted_table_rows(kind, rng):
+    """Table rows the encoder does not make: canonical codes over random
+    lengths (complete or not, up to 15 bits); random limits, bases on
+    their length's grid and random work entries (some with bits 24-27
+    set); the same with the low bits of each base set; a one-code distance
+    table; the fixed tables."""
+    rows = []
+    for trial in range(6):
+        if kind == "random_codes":
+            ll = _random_lengths(rng, 286, trial % 2 == 0)
+            ll[256] = max(ll[256], 1)
+            rows.append(VK.table_row(ll, _random_lengths(rng, 30, trial % 2 == 1)))
+        elif kind in ("random_limits", "low_base_bits"):
+            row = rng.integers(-2**31, 2**31, VK.TABLE_WORDS, dtype=np.int64)
+            for lim_at, pack_at, work_at, n in ((VK.LL_LIM, VK.LL_PACK, VK.LL_WORK, 384),
+                                                (VK.D_LIM, VK.D_PACK, VK.D_WORK, 128)):
+                row[lim_at : lim_at + 16] = rng.integers(-100, 1 << 15, 16)
+                if trial % 2:
+                    row[lim_at : lim_at + 16].sort()
+                lens = np.arange(16)
+                base = rng.integers(0, 1 << 15, 16) >> (15 - lens) << (15 - lens)
+                if kind == "low_base_bits":  # the odd lengths' bases
+                    low = rng.integers(1, 1 << 15, 16) & ((1 << (15 - lens)) - 1)
+                    base |= np.where(lens % 2 == 1, np.maximum(low, 1), 0)
+                off = rng.integers(-40, n + 40, 16)
+                row[pack_at : pack_at + 16] = (off << 16) | base
+                work = rng.integers(0, 1 << 31, n)
+                work[::7] &= ~(0xF << 24)  # most entries with free bits 24-27
+                work[::3] &= ~(0xF << 24)
+                row[work_at : work_at + n] = work
+            rows.append(row.astype(np.int32))
+        elif kind == "one_code_distance":
+            ll = _random_lengths(rng, 286, True)
+            ll[256] = max(ll[256], 1)
+            d = np.zeros(320, np.int64)
+            d[int(rng.integers(0, 30))] = 1
+            rows.append(VK.table_row(ll, d))
+        else:  # the fixed tables
+            ll = np.array([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8 + [0] * 32, np.int64)
+            rows.append(VK.table_row(ll, np.array([5] * 30 + [0] * 290, np.int64)))
+    return rows
+
+
+@pytest.mark.parametrize("kind", ["random_codes", "random_limits", "low_base_bits",
+                                  "one_code_distance", "fixed"])
+def test_direct_tables_equal_the_cascade_on_crafted_tables(kind):
+    rng = np.random.default_rng(["random_codes", "random_limits", "low_base_bits",
+                                 "one_code_distance", "fixed"].index(kind) + 40)
+    shares = []
+    for row in _crafted_table_rows(kind, rng):
+        for a in decode_model.tables_of(row, decode_model.TwoPlane.ll_bits):
+            shares.append(decode_model.check_direct(a))
+            lens = {(e >> 24) & 0xF for e in a.direct if e}
+            if kind == "low_base_bits":  # no length whose base has low bits set is direct
+                assert not lens & {1, 3, 5, 7, 9, 11, 13}
+    assert max(shares) > 0  # every kind puts some values on the direct path
+    if kind == "one_code_distance":
+        assert shares[1::2] == [0.5] * 6  # the 1-bit code direct, the other half cascaded
+
+
+@pytest.mark.parametrize("case", decode_model.CASES)
+def test_k4_design_model_equals_plain_and_jax(stream, case):
+    """The model's staged window, direct tables and walk give the plain
+    version's and the JAX kernel's tapes, cons, bad and rem exactly; every
+    block of the clean index is staged and the damaged one's block reads in
+    place."""
+    bodies, sizes, seeds, ops, meta = decode_model.decode_case(stream, case)
+    S, K = meta["S"], meta["K"]
+    cap = 16 if case == "cap16" else TV._twoplane_cap(meta)
+    got = decode_model.model(decode_model.TwoPlane, *ops.values(), S=S, K=K, cap=cap)
+    plain = VK.decode_tokens_vector2_plain(*(torch.from_numpy(a) for a in ops.values()),
+                                          S=S, K=K, cap=cap)
+    decode_model.assert_equal_runs(got, plain, decode_model.jax_decode_on(
+        JK.decode_tokens_vector2, bodies, sizes, seeds, ops, meta, cap))
+    _tapes, _cons, bad, rem, staged, counts = got
+    want_staged = np.ones(len(staged), bool)
+    if case == "damaged":
+        want_staged[1] = False  # the second chunk's block
+    np.testing.assert_array_equal(staged, want_staged)
+    assert counts.direct > 0.9 * counts.total
+    if case == "clean":
+        assert not bad.any() and not rem.any()
+    elif case == "cap16":
+        assert rem.any()  # walkers stop at the cap with span left
+
+
+@pytest.mark.parametrize("case", ["clean", "damaged"])
+def test_k4_staged_window_equals_the_in_place_fifo(stream, case):
+    """Every word any walker of a staged block can fetch (widx 0..K-1)
+    lies in its block's window and reads the same from it as in place, the
+    last chunk's walkers past the end of the array among them."""
+    _b, _s, _seeds, ops, meta = decode_model.decode_case(stream, case)
+    words, sw = ops["words"], ops["start_word"]
+    B, Lw = words.shape
+    S, K = meta["S"], meta["K"]
+    flat = words.reshape(-1).view(np.uint32)
+    budget = decode_model.stage_budget(Lw, K)
+    for blk in range(len(sw) // decode_model.THREADS):
+        lo, hi = decode_model.block_window(sw, blk, S, Lw, K)
+        staged = hi - lo + 1 <= budget
+        assert staged == (case == "clean" or blk != 1)
+        for w in range(blk * decode_model.THREADS, (blk + 1) * decode_model.THREADS):
+            wbase = (w // S) * Lw + int(sw[w])
+            f = decode_model.Fifo(flat, wbase, K, lo, hi, staged)
+            in_place = decode_model.Fifo(flat, wbase, K, lo, hi, False)
+            assert [f.fetch(i) for i in range(K)] == [in_place.fetch(i) for i in range(K)]

@@ -22,6 +22,7 @@ from zlib_rs_tpu_torch import interop
 from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
 from zlib_rs_tpu_torch.parallel import vector_inflate as TV
 
+import decode_model
 import expand_model
 
 # the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
@@ -422,3 +423,51 @@ def test_k11b_design_model_on_random_tapes_takes_the_serial_body():
     got, branch, _edges = _k11b_model(tape, offs, 20)
     assert (branch == VK.BRANCH_UNTILED).all()
     np.testing.assert_array_equal(got, _plain_k11b(tape, offs, 20))
+
+
+# ---------------------------------------------------------------------------
+# K11a's design (K4's body in csrc/vhuff_decode.cu with the single-plane
+# row policy) as a numpy model (tests/decode_model.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", decode_model.CASES)
+def test_k11a_design_model_equals_plain_and_jax(stream, case):
+    """The model's staged window, direct tables and branch-free single-plane
+    walk give the plain version's and the JAX kernel's tape, cons, bad and
+    rem exactly; the damaged index's block reads in place; both token kinds
+    come from the direct path."""
+    bodies, sizes, seeds, ops, meta = decode_model.decode_case(stream, case)
+    S, K = meta["S"], meta["K"]
+    cap = 16 if case == "cap16" else meta["cap"]
+    got = decode_model.model(decode_model.OnePlane, *ops.values(), S=S, K=K, cap=cap)
+    plain = VK.decode_tokens_vector_plain(*(torch.from_numpy(a) for a in ops.values()),
+                                         S=S, K=K, cap=cap)
+    decode_model.assert_equal_runs(got, plain, decode_model.jax_decode_on(
+        JK.decode_tokens_vector, bodies, sizes, seeds, ops, meta, cap))
+    (tape,), _cons, bad, rem, staged, counts = got
+    np.testing.assert_array_equal(staged, np.arange(len(staged)) != 1 if case == "damaged"
+                                  else np.ones(len(staged), bool))
+    assert counts.direct > 0.9 * counts.total
+    if case == "clean":
+        assert not bad.any() and not rem.any()
+        assert set((tape[tape != 0] >> 30).tolist()) == {VK.VTOK_LIT, VK.VTOK_MATCH}
+    elif case == "cap16":
+        assert rem.any()
+
+
+def test_k11a_design_model_on_a_small_stage_budget_equals_plain():
+    """Every block of the port's stream forced to read in place (a budget
+    of one word): the same outputs as staged."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ZRS_TPU_KERNEL", "1")
+        out, index = zt.compress_parallel(KERNEL_DATA, 6, return_index=True, device="cpu")
+    stream = (KERNEL_DATA, *_chunks(out, index))
+    _b, _s, _seeds, ops, meta = decode_model.decode_case(stream, "clean")
+    S, K, cap = meta["S"], meta["K"], meta["cap"]
+    staged = decode_model.model(decode_model.OnePlane, *ops.values(), S=S, K=K, cap=cap)
+    in_place = decode_model.model(decode_model.OnePlane, *ops.values(), S=S, K=K, cap=cap,
+                                  stage_words=1)
+    assert staged[4].all() and not in_place[4].any()
+    for a, b in zip(staged[0] + list(staged[1:4]), in_place[0] + list(in_place[1:4])):
+        np.testing.assert_array_equal(a, b)

@@ -121,10 +121,12 @@ KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_s
 def test_every_kernel_has_a_case():
     assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK) for n in m.launches)
     # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu,
-    # and so are K5 and K11b, csrc/vhuff_expand.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 2
+    # and so are K5 and K11b, csrc/vhuff_expand.cu, and K4 and K11a,
+    # csrc/vhuff_decode.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 3 == 10
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
     assert "vhuff_expand" in _device.SOURCES and "vhuff_expand1" not in _device.SOURCES
+    assert "vhuff_decode" in _device.SOURCES and "vhuff_decode1" not in _device.SOURCES
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -268,3 +270,32 @@ def test_expand1_wrapper_hands_the_kernel_its_branch_row(stub, inputs, monkeypat
     VK.expand_tokens_cuda(torch.zeros((8, 3), dtype=torch.int32), odd, out_words=4)
     assert entry().args[4] == 3
     assert VK.launches["vhuff_expand1"] == 3 and stub == ["zrs_vhuff_expand1"] * 3
+
+
+def test_decode_wrappers_resolve_from_one_library(stub, inputs, monkeypatch):
+    """K4 and K11a are the two C entries of one library, vhuff_decode:
+    `zrs_vhuff_decode` (words, B, Lw, start_word, align, span, tables, S, K,
+    cap, W, tapeA, tapeB, cons, bad, rem, stream) and `zrs_vhuff_decode1`
+    (the same with one tape); `zrs_vhuff_decode_blocks` reads the blocks
+    on each branch."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    names = []
+    real = _device.library
+    monkeypatch.setattr(_device, "library", lambda name: names.append(name) or real(name))
+    st, meta = inputs["staged"], inputs["meta"]
+    dec = [st[n] for n in ("words", "start_word", "align", "span", "tables")]
+    B, Lw = dec[0].shape
+    W = dec[1].shape[0]
+    VK.decode_tokens_vector2_cuda(*dec, S=meta["S"], K=meta["K"], cap=64)
+    VK.decode_tokens_vector_cuda(*dec, S=meta["S"], K=meta["K"], cap=32)
+    assert VK.decode_blocks() == (0, 0)  # the stub writes nothing
+    assert set(names) == {"vhuff_decode"}
+    assert stub == ["zrs_vhuff_decode", "zrs_vhuff_decode1", "zrs_vhuff_decode_blocks"]
+    lib = real("vhuff_decode")
+    two, one = lib.zrs_vhuff_decode.args, lib.zrs_vhuff_decode1.args
+    assert len(two) == 17 and len(one) == 16
+    for args, cap in ((two, 64), (one, 32)):
+        assert args[1:3] == (B, Lw) and args[7:11] == (meta["S"], meta["K"], cap, W)
+        assert args[11].shape == (cap, W) and args[-1] == 0
+    assert two[12].shape == (64, W) and two[13].shape == (W,) and one[12].shape == (W,)
+    assert VK.launches["vhuff_decode"] == VK.launches["vhuff_decode1"] == 1

@@ -14,8 +14,10 @@ The port of zlib_rs_tpu/ops/pallas/vhuff_kernel.py:
                           replaces `expand_tokens_pallas2`, body
                           `_make_expand_kernel2`)
   decode_tokens_vector    the same walkers into single-plane rows (K11a,
-                          csrc/vhuff_decode1.cu; replaces
-                          `decode_tokens_vector`, body `_make_kernel`)
+                          K4's body with a single-plane row policy, the
+                          `zrs_vhuff_decode1` entry of csrc/vhuff_decode.cu;
+                          replaces `decode_tokens_vector`, body
+                          `_make_kernel`)
   expand_tokens           single-plane rows to bytes (K11b, K5's body
                           through a single-plane tape reader, the
                           `zrs_vhuff_expand1` entry of csrc/vhuff_expand.cu;
@@ -35,7 +37,10 @@ Walker w belongs to chunk w // S. Its input word widx is
 words.flat[clip(chunk * Lw + start_word[w] + min(widx, K - 1), 0, B * Lw - 1)]:
 the reference's staged FIFO, read in place. The flat index may run into
 the next chunk's row, as the reference's does, so `cons`, `bad` and `rem`
-agree even on corrupt input.
+agree even on corrupt input. The decode kernels stage each block's window
+of those words in shared memory when it fits (`decode_blocks` counts the
+blocks on each branch) and look codes up through direct tables beside the
+cascade; both give the in-place cascade's results on any input.
 
 Tables: one int32 row of TABLE_WORDS per chunk, the six cascade tables of
 `build_cascade_tables_np` end to end (offsets below).
@@ -388,6 +393,17 @@ def _decode_lib():
     return fn
 
 
+def decode_blocks() -> tuple[int, int]:
+    """The blocks of K4 and K11a launches that took the staged and the
+    global branch since the last call, as the kernels counted them; the
+    counts restart at 0. Synchronous."""
+    fn = _device.library("vhuff_decode").zrs_vhuff_decode_blocks
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_ulonglong * 2)()
+    _device.check(fn(ctypes.cast(out, ctypes.c_void_p)), "vhuff_decode_blocks")
+    return int(out[0]), int(out[1])
+
+
 def decode_tokens_vector2_cuda(words, start_word, align, span, tables, *, S: int,
                                K: int, cap: int):
     """Launch K4 over CUDA operands: words int32 [B, Lw], start_word,
@@ -498,7 +514,7 @@ def decode_tokens_vector_plain(words, start_word, align, span, tables, *, S: int
 
 
 def _decode1_lib():
-    fn = _device.library("vhuff_decode1").zrs_vhuff_decode1
+    fn = _device.library("vhuff_decode").zrs_vhuff_decode1
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, I, P, P, P, P, I, I, I, I, P, P, P, P, P]
