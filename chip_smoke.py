@@ -8,7 +8,10 @@ only under it (unset selects the XLA matcher engine, which the port does
 not carry yet, and raises). Builds the port's CUDA kernels from
 zlib_rs_tpu_torch/csrc with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
-shapes the main path gives it (K3 also on crafted lanes: empty,
+shapes the main path gives it (K1, and K7 in phase 9, also on rows of
+every length on an edge of their designs and on all-0xFF rows, at
+starts that are not 16-byte aligned, each row also against zlib; K3
+also on crafted lanes: empty,
 all-literal, 258-byte dist-1 runs, 15-bit codes; K4, and K11a in phase
 21, also on flipped body words, an undersized cap and a damaged index
 whose block reads the body in place, with the count of blocks on each
@@ -597,6 +600,46 @@ class k6_events:
         return False
 
 
+def design_lengths(threads: int, seg: int, n: int) -> list:
+    """Row lengths on each edge of K1's and K7's designs (threads a row,
+    bytes a thread a pass, row width n): under four bytes, one 16-byte
+    load, one segment, one pass, and past it."""
+    return [0, 1, 3, 4, 5, 15, 16, 17, seg - 1, seg, seg + 1, threads * seg - 1,
+            threads * seg, threads * seg + 1, n - 1, n]
+
+
+def checksum_edge_pairs(torch, dev, cuda, plain, zcheck, threads: int, seg: int, label: str):
+    """K1's or K7's (`cuda`, `plain`) edge rows beside the main run: rows
+    of design_lengths in a view whose row stride is 3 bytes past a
+    multiple of 16 (every row at another misaligned start), then all-0xFF
+    rows in such a view. Each row must equal `zcheck` (zlib's function)
+    of its bytes; returns the (kernel, plain) pairs."""
+    n = threads * seg + 100
+    lengths = design_lengths(threads, seg, n)
+    g = torch.Generator().manual_seed(3)
+    pairs = []
+    for fill in (None, 0xFF):
+        R = len(lengths) if fill is None else 4
+        size = 3 + R * (n + 3)
+        if fill is None:
+            flat = torch.randint(0, 256, (size,), generator=g, dtype=torch.uint8)
+            lens = torch.tensor(lengths, dtype=torch.int32)
+        else:
+            flat = torch.full((size,), fill, dtype=torch.uint8)
+            lens = torch.tensor([n, threads * seg, threads * seg - 1, 17], dtype=torch.int32)
+        view = torch.as_strided(flat.to(dev), (R, n), (n + 3, 1), 3)
+        got = cuda(view, lens.to(dev))
+        pairs.append((got, plain(view, lens.to(dev))))
+        host = torch.as_strided(flat, (R, n), (n + 3, 1), 3).numpy()
+        for r in range(R):
+            z = zcheck(host[r, : int(lens[r])].tobytes())
+            if int(got[r].item()) & 0xFFFFFFFF != z:
+                raise AssertionError(f"{label} edge row {r} (length {int(lens[r])}, start "
+                                     f"{(3 + r * (n + 3)) % 16} past 16 bytes, fill {fill}) "
+                                     f"disagrees with zlib")
+    return pairs
+
+
 def crc_phase(torch, dev, corpus, rows) -> None:
     """Phase 9: K7 against its plain version and zlib on the gzip
     trailer's 256 full 32 KiB rows and on ragged rows."""
@@ -623,6 +666,9 @@ def crc_phase(torch, dev, corpus, rows) -> None:
     for r in range(6):
         if int(rg[r].item()) & 0xFFFFFFFF != zlib.crc32(rag[r, : rlen[r]].numpy().tobytes()):
             raise AssertionError(f"K7 ragged row {r} disagrees with zlib")
+    err = max(err, max_abs(checksum_edge_pairs(torch, dev, CRC.crc32_batch_cuda,
+                                               CRC.crc32_batch_plain, zlib.crc32, CRC.THREADS,
+                                               CRC.SEG, "K7")))
     if err:
         raise AssertionError(f"K7 disagrees with its plain version: max abs err {err}")
     nb = nfull * cs
@@ -635,11 +681,15 @@ def crc_phase(torch, dev, corpus, rows) -> None:
         replaces="zlib_rs_tpu/ops/pallas/crc_kernels.py:111",
         max_abs_err=err,
         ms=event_ms(torch, lambda: CRC.crc32_batch_cuda(full, lens), 50),
+        queued_ms=queued_ms(torch, lambda: CRC.crc32_batch_cuda(full, lens)),
         plain_ms=plain_ms,
         # a table lookup, a shift and two xors a byte
         bnd=bound(nb + 8 * nfull, 4 * nb),
     )
-    print(f"phase 9 K7: {nfull}x{cs} and 6x5000 ragged equal to plain and zlib", flush=True)
+    print(f"phase 9 K7: {nfull}x{cs}, 6x5000 ragged and the design's edge rows (lengths "
+          f"{design_lengths(CRC.THREADS, CRC.SEG, CRC.THREADS * CRC.SEG + 100)} and all-0xFF "
+          f"rows at misaligned starts) equal to plain and zlib; {CRC.THREADS} threads a row, "
+          f"{CRC.SEG} bytes a thread a pass", flush=True)
 
 
 def gzip_encode_phase(torch, corpus, launches) -> dict:
@@ -1725,6 +1775,9 @@ def main() -> int:
     for r in range(3):
         if int(rg[r].item()) & 0xFFFFFFFF != zlib.adler32(rag[r, : rlen[r]].numpy().tobytes()):
             raise AssertionError(f"K1 ragged row {r} disagrees with zlib")
+    err = max(err, max_abs(checksum_edge_pairs(torch, dev, CK.adler32_batch_cuda,
+                                               CK.adler32_batch_plain, zlib.adler32, CK.THREADS,
+                                               CK.SEG, "K1")))
     if err:
         raise AssertionError(f"K1 disagrees with its plain version: max abs err {err}")
     nb = int(lens.sum())
@@ -1733,10 +1786,14 @@ def main() -> int:
         replaces="zlib_rs_tpu/ops/pallas/checksum_kernels.py:64",
         max_abs_err=err,
         ms=event_ms(torch, lambda: CK.adler32_batch_cuda(seg, lens), 50),
+        queued_ms=queued_ms(torch, lambda: CK.adler32_batch_cuda(seg, lens)),
         plain_ms=event_ms(torch, lambda: CK.adler32_batch_plain(seg, lens), 10),
         bnd=bound(nb + 8 * bsz, 3 * nb),
     )
-    print(f"phase 1 K1: {bsz}x{cs} and 3x1000 ragged equal to plain and zlib", flush=True)
+    print(f"phase 1 K1: {bsz}x{cs}, 3x1000 ragged and the design's edge rows (lengths "
+          f"{design_lengths(CK.THREADS, CK.SEG, CK.THREADS * CK.SEG + 100)} and all-0xFF rows "
+          f"at misaligned starts) equal to plain and zlib; {CK.THREADS} threads a row, "
+          f"{CK.SEG} bytes a thread a pass", flush=True)
 
     # -- phase 2: K2 against its plain version -----------------------------
     cap_g = 4 * w_g

@@ -31,12 +31,26 @@ csrc/vhuff_expand1.cu and the one-thread-a-walker decodes
 csrc/vhuff_decode.cu and csrc/vhuff_decode1.cu as they are, and times them
 on the same inputs the same two ways (the decodes also with a counter pair
 a walker: its decode loop and its zero rows).
+    python3 pack_expand_clocks.py --checksums [--parent DIR]
+
+Only K7 and K1 (csrc/crc32.cu, csrc/adler32.cu): each built with counters
+and as it is, from this checkout and, with --parent, from DIR, whichever
+of the two designs each source holds (the first: a combine tree and a
+strided walk; the second: end-aligned segments joined by XOR and 16-byte
+segment loads). K7 runs on the gzip trailer's 256 full 32 KiB rows of the
+corpus, K1 on the first level-6 super-batch's 128 chunk views, as
+chip_smoke.py's phases 9 and 1 take them, each checked against its plain
+version; prints each phase's mean cycles a block, the slowest block, and
+each kernel's ms a launch by events and queued; then this checkout's K7
+and K1 at the other geometries of CHECKSUM_VARIANTS (threads a row, bytes
+a thread a pass), checked and timed the same way.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -252,6 +266,10 @@ def main() -> int:
     from zlib_rs_tpu_torch.parallel import vector_inflate as VI
 
     parent = Path(sys.argv[sys.argv.index("--parent") + 1]) if "--parent" in sys.argv else None
+    if "--checksums" in sys.argv:
+        checksum_clocks(torch, cs, parent)
+        print(cs.nvidia_smi())
+        return 0
     out_dir = ROOT / "build" / "pack_expand_clocks"
     out_dir.mkdir(parents=True, exist_ok=True)
     expand_src = expand_instrumented((CSRC / "vhuff_expand.cu").read_text())
@@ -538,6 +556,226 @@ def parent_decodes(torch, cs, VK, parent: Path, out_dir: Path, full_args, m, cap
                   f"decode mean {d[0] / W:.0f}, most {d[2]}; zero rows mean {d[1] / W:.0f}, most "
                   f"{d[3]}; longest walker {d[4]} cycles; rows a walker mean "
                   f"{float(rows.float().mean()):.1f}, most {int(rows.max())}", flush=True)
+
+
+# K7 and K1 (--checksums): the phases of their first design (a combine
+# tree; a strided walk), which the current sources replaced, and of theirs
+CRC_FIRST_PHASES = ("table and x2n", "segment walk", "combine tree")
+ADLER_FIRST_PHASES = ("strided walk", "reduction")
+
+
+def crc_first_instrumented(src: str) -> str:
+    n = "crc32.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  const int t = threadIdx.x;\n",
+            "  const int t = threadIdx.x;\n  unsigned long long clk_[3] = {0};\n"
+            "  long long clk_t_ = clock64();\n", n)
+    s = rep(s, "  __syncthreads();\n\n  const int row = blockIdx.x;\n",
+            "  __syncthreads();\n  CLK_MARK(0)\n\n  const int row = blockIdx.x;\n", n)
+    s = rep(s, "  seg_len[t] = hi - lo;\n  __syncthreads();\n",
+            "  seg_len[t] = hi - lo;\n  __syncthreads();\n  CLK_MARK(1)\n", n)
+    s = rep(s, "  if (t == 0) out[row] = (int32_t)crc[0];\n",
+            "  CLK_MARK(2)\n" + flush(3) + "  if (t == 0) out[row] = (int32_t)crc[0];\n", n)
+    return s + DBG_READ
+
+
+def adler_first_instrumented(src: str) -> str:
+    n = "adler32.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  const int row = blockIdx.x;\n",
+            "  const int row = blockIdx.x;\n  unsigned long long clk_[2] = {0};\n"
+            "  long long clk_t_ = clock64();\n", n)
+    s = rep(s, "  sh_w[threadIdx.x] = w;\n  __syncthreads();\n",
+            "  sh_w[threadIdx.x] = w;\n  __syncthreads();\n  CLK_MARK(0)\n", n)
+    s = rep(s, "  if (threadIdx.x == 0) {\n    const uint32_t a",
+            "  CLK_MARK(1)\n" + flush(2) + "  if (threadIdx.x == 0) {\n    const uint32_t a", n)
+    return s + DBG_READ
+
+
+CRC_PHASES = ("loads and tables", "segment walk", "shift and join")
+ADLER_PHASES = ("loads and partials", "reduction")
+
+
+def crc_instrumented(src: str) -> str:
+    """K7 with a barrier after the segment walk (none in the shipped kernel)."""
+    n = "crc32.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  const int t = threadIdx.x, row = blockIdx.x;\n",
+            "  const int t = threadIdx.x, row = blockIdx.x;\n  unsigned long long clk_[3] = {0};\n"
+            "  long long clk_t_ = clock64();\n", n)
+    s = rep(s, "  __syncthreads();\n\n  uint32_t c = 0;\n",
+            "  __syncthreads();\n  CLK_MARK(0)\n\n  uint32_t c = 0;\n", n)
+    s = rep(s, "  c = multmodp(shift, c);\n",
+            "  __syncthreads();\n  CLK_MARK(1)\n  c = multmodp(shift, c);\n", n)
+    s = rep(s, "    out[row] = (int32_t)~x;\n",
+            "    CLK_MARK(2)\n" + flush(3) + "    out[row] = (int32_t)~x;\n", n)
+    return s + DBG_READ
+
+
+def adler_instrumented(src: str) -> str:
+    n = "adler32.cu"
+    s = rep(src, "namespace {\n", DBG + "namespace {\n", n)
+    s = rep(s, "  const int t = threadIdx.x, row = blockIdx.x;\n",
+            "  const int t = threadIdx.x, row = blockIdx.x;\n  unsigned long long clk_[2] = {0};\n"
+            "  long long clk_t_ = clock64();\n", n)
+    s = rep(s, "  __syncthreads();\n  if (t < 32) {\n",
+            "  __syncthreads();\n  CLK_MARK(0)\n  if (t < 32) {\n", n)
+    s = rep(s, "      out[row] = (int32_t)((b << 16) | a);\n",
+            "      CLK_MARK(1)\n" + flush(2) + "      out[row] = (int32_t)((b << 16) | a);\n", n)
+    return s + DBG_READ
+
+
+# (marker in the source, phases, instrumenting function, first design?)
+CHECKSUM_DESIGNS = {
+    "crc32": (("__shared__ uint32_t x2n[32];", CRC_FIRST_PHASES, crc_first_instrumented, True),
+              ("shifts[kThreads + k]", CRC_PHASES, crc_instrumented, False)),
+    "adler32": (("for (int i = threadIdx.x; i < len; i += kThreads)", ADLER_FIRST_PHASES,
+                 adler_first_instrumented, True),
+                ("__dp4a", ADLER_PHASES, adler_instrumented, False)),
+}
+# this checkout's K7 and K1 at other geometries (threads a row, bytes a
+# thread a pass), timed beside the shipped ones
+CHECKSUM_VARIANTS = {"crc32": ((256, 128), (1024, 32), (128, 256)),
+                     "adler32": ((512, 64), (256, 128))}
+
+
+def geometry_variant(src: str, name: str, threads: int, seg: int) -> str:
+    for const, v in (("kThreads", threads), ("kSeg", seg)):
+        found = re.search(rf"constexpr int {const} = \d+;", src)
+        if not found:
+            raise RuntimeError(f"pack_expand_clocks: csrc/{name}.cu no longer has {const}")
+        src = src.replace(found.group(0), f"constexpr int {const} = {v};", 1)
+    return src
+
+
+def build_all(out_dir: Path, texts: dict) -> dict:
+    """{name: source text} built at once, one nvcc each; {name: CDLL}."""
+    from zlib_rs_tpu_torch import _device
+
+    procs = {}
+    for name, text in texts.items():
+        src = out_dir / f"{name}.cu"
+        src.write_text(text)
+        lib = out_dir / f"libzrs_{name}.so"
+        procs[name] = (lib, subprocess.Popen([_device._nvcc(), *_device.NVCC_FLAGS, "-o", str(lib),
+                                              str(src)]))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"pack_expand_clocks: {name}.cu does not build")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def checksum_design(src: str, name: str, label: str) -> tuple:
+    found = [d for d in CHECKSUM_DESIGNS[name] if d[0] in src]
+    if not found:
+        raise RuntimeError(f"pack_expand_clocks: {label}'s {name}.cu is no design known here")
+    return found[0]
+
+
+def checksum_clocks(torch, cs, parent) -> None:
+    """--checksums: K7 and K1 of this checkout and of `parent`, each with
+    counters and as it is, on the main path's inputs."""
+    import numpy as np
+
+    from zlib_rs_tpu_torch import _device
+    from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+    from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    dev = torch.device("cuda")
+    corpus, _ = cs.load_corpus(cs.CORPUS_BYTES)
+    chunk = PL.DEFAULT_CHUNK
+    nfull = len(corpus) // chunk
+    rows = torch.from_numpy(np.frombuffer(corpus, np.uint8, count=nfull * chunk)
+                            .reshape(nfull, chunk).copy()).to(dev)
+    rlens = torch.full((nfull,), chunk, dtype=torch.int32, device=dev)
+    n_chunks = -(-len(corpus) // chunk)
+    dict_size = PL.priming_dict_size(n_chunks, chunk, True)
+    padded, n_valid, _, _ = PL.chunk_buffers(corpus, chunk, dict_size)
+    b0, bsz = PL.batch_spans(n_chunks)[0]
+    dc = torch.from_numpy(padded[b0 : b0 + bsz]).to(dev)
+    seg = dc[:, dict_size : dict_size + chunk]
+    slens = (torch.from_numpy(n_valid[b0 : b0 + bsz]).to(dev) - dict_size).to(torch.int32)
+    inputs = {"crc32": (rows, rlens, CRC.crc32_batch_cuda, CRC.crc32_batch_plain, "K7"),
+              "adler32": (seg, slens, CK.adler32_batch_cuda, CK.adler32_batch_plain, "K1")}
+    out_dir = ROOT / "build" / "checksum_clocks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    checkouts = [("this checkout", ROOT)] + ([("parent", parent)] if parent is not None else [])
+    texts, plan = {}, []
+    for tag, (label, root) in enumerate(checkouts):
+        for name in ("crc32", "adler32"):
+            src = (root / "zlib_rs_tpu_torch" / "csrc" / f"{name}.cu").read_text()
+            _marker, phases, instrument, first = checksum_design(src, name, label)
+            texts[f"{name}_{tag}"] = src
+            texts[f"{name}_{tag}_clk"] = instrument(src)
+            plan.append((label, name, tag, phases, first))
+            if tag == 0 and not first:  # the first designs have no geometry to vary
+                for threads, seg in CHECKSUM_VARIANTS[name]:
+                    texts[f"{name}_{threads}x{seg}"] = geometry_variant(src, name, threads, seg)
+    libs = build_all(out_dir, texts)
+    buf = (ctypes.c_ulonglong * 16)()
+    real = _device.library
+    wants = {name: plain(data, lens) for name, (data, lens, _c, plain, _k) in inputs.items()}
+    try:
+        for label, name, tag, phases, first in plan:
+            data, lens, cuda, plain, kname = inputs[name]
+            want = wants[name]
+            for suffix in ("_clk", ""):
+                lib = libs[f"{name}_{tag}{suffix}"]
+                if first and name == "crc32":
+                    # the first K7's C entry has no shift table
+                    entry = lib.zrs_crc32_batch
+                    P, I = ctypes.c_void_p, ctypes.c_int
+                    entry.argtypes, entry.restype = [P, ctypes.c_longlong, I, I, P, P, P], I
+                    out = torch.empty(data.shape[0], dtype=torch.int32, device=dev)
+
+                    def call(entry=entry, out=out, data=data, lens=lens):
+                        _device.check(entry(_device.ptr(data), data.stride(0), data.shape[0],
+                                            data.shape[1], _device.ptr(lens), _device.ptr(out),
+                                            _device.stream_of(data)), "crc32")
+                        return out
+                else:
+                    _device.library = lambda n, lib=lib, name=name: lib if n == name else real(n)
+                    call = lambda cuda=cuda, data=data, lens=lens: cuda(data, lens)
+                torch.cuda.synchronize()
+                if suffix:
+                    _device.check(lib.zrs_dbg(buf), "zrs_dbg")
+                got = call()
+                torch.cuda.synchronize()
+                if cs.max_abs([(got, want)]):
+                    raise AssertionError(f"{label}'s {kname}{suffix} disagrees with its plain version")
+                if suffix:
+                    _device.check(lib.zrs_dbg(buf), "zrs_dbg")
+                    report(f"{kname} ({label}), {data.shape[0]} rows of {data.shape[1]} bytes",
+                           buf, data.shape[0], phases, cs.event_ms(torch, call, 50))
+                else:
+                    print(f"{kname} ({label}) as built: {cs.event_ms(torch, call, 50):.6f} ms a "
+                          f"launch by events, {cs.queued_ms(torch, call):.6f} ms queued", flush=True)
+                _device.library = real
+        for name, geoms in CHECKSUM_VARIANTS.items():
+            data, lens, cuda, _plain, kname = inputs[name]
+            mod = CRC if name == "crc32" else CK
+            for threads, seg in geoms:
+                lib = libs.get(f"{name}_{threads}x{seg}")
+                if lib is None:
+                    continue
+                _device.library = lambda n, lib=lib, name=name: lib if n == name else real(n)
+                shipped = mod.THREADS, mod.SEG
+                mod.THREADS, mod.SEG = threads, seg  # K7's wrapper builds its shifts from them
+                try:
+                    call = lambda cuda=cuda, data=data, lens=lens: cuda(data, lens)
+                    if cs.max_abs([(call(), wants[name])]):
+                        raise AssertionError(f"{kname} at {threads}x{seg} disagrees with plain")
+                    print(f"{kname} at {threads} threads x {seg} bytes: "
+                          f"{cs.event_ms(torch, call, 50):.6f} ms a launch by events, "
+                          f"{cs.queued_ms(torch, call):.6f} ms queued", flush=True)
+                finally:
+                    mod.THREADS, mod.SEG = shipped
+                    _device.library = real
+    finally:
+        _device.library = real
 
 
 if __name__ == "__main__":

@@ -602,13 +602,15 @@ def test_pack_design_match_code_round_trips_every_length_and_distance():
     np.testing.assert_array_equal((codes >> 15) & 0x1FFF, dv)
 
 
-@pytest.mark.parametrize("kernel", ["pack", "vhuff_expand", "freq", "vhuff_decode"])
+@pytest.mark.parametrize("kernel", ["pack", "vhuff_expand", "freq", "vhuff_decode", "crc32",
+                                    "adler32"])
 def test_clock_script_instruments_k3_and_k5(kernel):
     """pack_expand_clocks.py (the card-only measurement of K3's, K5's,
-    K11b's, K9's, K4's and K11a's phases) edits csrc/pack.cu,
-    csrc/vhuff_expand.cu, csrc/freq.cu and csrc/vhuff_decode.cu by exact
-    text anchors and raises when one is gone; each must still be there,
-    K11b's resolve window among them."""
+    K11b's, K9's, K4's, K11a's, K7's and K1's phases) edits csrc/pack.cu,
+    csrc/vhuff_expand.cu, csrc/freq.cu, csrc/vhuff_decode.cu,
+    csrc/crc32.cu and csrc/adler32.cu by exact text anchors and raises
+    when one is gone; each must still be there, K11b's resolve window and
+    the checksums' geometry constants among them."""
     import importlib.util
     from pathlib import Path
 
@@ -618,10 +620,18 @@ def test_clock_script_instruments_k3_and_k5(kernel):
     spec.loader.exec_module(mod)
     src = (root / "zlib_rs_tpu_torch" / "csrc" / f"{kernel}.cu").read_text()
     edit = {"pack": mod.pack_instrumented, "vhuff_expand": mod.expand_instrumented,
-            "freq": mod.freq_instrumented, "vhuff_decode": mod.decode_instrumented}[kernel]
+            "freq": mod.freq_instrumented, "vhuff_decode": mod.decode_instrumented,
+            "crc32": mod.crc_instrumented, "adler32": mod.adler_instrumented}[kernel]
     phases = {"pack": mod.PACK_PHASES, "vhuff_expand": mod.EXPAND_PHASES,
-              "freq": mod.FREQ_PHASES, "vhuff_decode": mod.DECODE_PHASES}[kernel]
+              "freq": mod.FREQ_PHASES, "vhuff_decode": mod.DECODE_PHASES,
+              "crc32": mod.CRC_PHASES, "adler32": mod.ADLER_PHASES}[kernel]
     out = edit(src)
+    if kernel in mod.CHECKSUM_VARIANTS:  # the shipped design, at each geometry timed beside it
+        assert mod.checksum_design(src, kernel, "this checkout")[2] is edit
+        for threads, seg in mod.CHECKSUM_VARIANTS[kernel]:
+            varied = mod.geometry_variant(src, kernel, threads, seg)
+            assert f"constexpr int kThreads = {threads};" in varied
+            assert f"constexpr int kSeg = {seg};" in varied
     if kernel == "vhuff_expand":
         assert out.count(mod.K11B_GROUP) == 1
     if kernel == "vhuff_decode":  # the variants timed beside K4 and K11a

@@ -156,6 +156,23 @@ def test_chain_scan_hands_the_kernel_its_scratch(stub, inputs, monkeypatch):
     assert mpos.shape == mld.shape == (B, C) and st.shape == (B, 8)
 
 
+def test_crc32_hands_the_kernel_its_shift_table(stub, inputs, monkeypatch):
+    """K7's C entry takes (data, row stride, B, N, lens, shifts, out,
+    stream); shifts is the int32 view of shift_table() for the kernel's
+    THREADS and SEG, built once a device and handed to every launch."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    monkeypatch.setattr(CRC, "_SHIFTS", {})
+    dc, dn = inputs["dc"], inputs["dn"]
+    for _ in range(2):
+        CRC.crc32_batch_cuda(dc, dn)
+    args = _device.library("crc32").zrs_crc32_batch.args
+    assert len(args) == 8 and args[1:4] == (dc.stride(0), *dc.shape)
+    shifts = args[5]
+    assert shifts.dtype == torch.int32 and shifts.shape == (CRC.THREADS + 16,)
+    assert (shifts.numpy().view(np.uint32) == CRC.shift_table()).all()
+    assert list(CRC._SHIFTS.values()) == [shifts] and CRC.launches["crc32_batch"] == 2
+
+
 @pytest.mark.parametrize("name", ["hop_chase", "hop_chase_il", "tab_scan"])
 def test_resolve_chase_wrappers_hand_the_kernel_its_tile(stub, inputs, monkeypatch, name):
     """K2's, K12's and K10's C entries take the tile (the resolved slots a

@@ -1,5 +1,6 @@
-"""CRC-32 over GF(2): the byte table of K7's plain version, and zlib's
-`crc32_combine` for the gzip trailer.
+"""CRC-32 over GF(2): the byte table of K7's plain version, the shifts of
+K7's kernel (x^(8 n) and x^(-8 n) mod P), and zlib's `crc32_combine` for
+the gzip trailer.
 
 Polynomials are held reflected in 32 bits, bit 31 being x^0, as in zlib.
 crc32(A + B) = crc32(A) * x^(8 len(B)) mod P ^ crc32(B), the product taken
@@ -60,6 +61,21 @@ def x8nmodp(n: int) -> int:
             p = multmodp(X2N[k & 31], p)
         n >>= 1
         k += 1
+    return p
+
+
+# x^-1 mod P: x * (P - 1) / x = P - 1 = 1 mod P; reflected, P's bit for x^i
+# moves to x^(i-1) and x^31 comes in
+X_INV = ((CRC32_POLY << 1) & 0xFFFFFFFF) | 1
+
+
+def xinv8nmodp(n: int) -> int:
+    """x^(-8 n) mod P: undoes the shift past n zero bytes."""
+    p, step = 1 << 31, 1 << 31
+    for _ in range(8):
+        step = multmodp(X_INV, step)
+    for _ in range(n):
+        p = multmodp(step, p)
     return p
 
 

@@ -2,9 +2,12 @@
 
 Replaces zlib_rs_tpu/ops/pallas/checksum_kernels.py:adler32_batch_pallas.
 Bound on the H100: bytes, one read of the rows at 3.35 TB/s. Design: one
-block per row, threads strided over the bytes with absolute weights, a
-block reduction mod 65521 (see the source for the details). The kernel
-accepts any B and N and any row stride with contiguous rows.
+block of THREADS threads a row, each owning SEG contiguous bytes of every
+pass, read in 16-byte loads at once; two 32-bit partials a segment by
+__dp4a (its byte sum and its sum weighted by the distance to the
+segment's end), joined with absolute weights, a block reduction mod 65521
+(see the source). The kernel accepts any B and N, any length per row and
+any row stride with contiguous rows.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ import torch
 from ... import _device
 
 ADLER_BASE = 65521
+
+# csrc/adler32.cu's kThreads and kSeg: threads a row, bytes a thread a pass
+THREADS = 1024
+SEG = 32
 
 # launches of the CUDA kernel; the plain version does not count
 launches = {"adler32_batch": 0}

@@ -2,18 +2,21 @@
 
 Replaces zlib_rs_tpu/ops/pallas/crc_kernels.py:crc32_batch_pallas (via
 `crc32_batch_auto`). Bound on the H100: bytes, one read of the rows at
-3.35 TB/s. Design: one block per row; each thread runs the table-driven
-crc32 over a contiguous segment and a log-depth tree of zlib's
-crc32_combine joins the segments (see the source). The TPU kernel's
-limits (rows a multiple of 16 KiB, batches of 8) are its tiling: the
-kernel takes any B and N, any length per row and any row stride with
-contiguous rows.
+3.35 TB/s; its practical floor is one shared-memory table lookup a byte.
+Design: one block of THREADS threads a row, each owning SEG bytes of
+every pass, the passes aligned to the row's end; every thread loads its
+segment in 16-byte loads at once, runs slice-by-8 over it, shifts its
+raw crc to the row's end by its constant of `shift_table`, and the block
+XORs the results (see the source). The TPU kernel's limits (rows a
+multiple of 16 KiB, batches of 8) are its tiling: the kernel takes any B
+and N, any length per row and any row stride with contiguous rows.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ... import _device
@@ -23,6 +26,29 @@ from .. import gf2
 launches = {"crc32_batch": 0}
 
 _TABLE = torch.from_numpy(gf2.CRC_TABLE.astype("int64"))
+
+# csrc/crc32.cu's kThreads and kSeg: threads a row, bytes a thread a pass
+THREADS = 512
+SEG = 64
+
+_SHIFTS: dict = {}  # (device, THREADS, SEG) -> the kernel's shift table
+
+
+def shift_table(threads: int = THREADS, seg: int = SEG) -> np.ndarray:
+    """uint32 [threads + 16]: entry t < threads is x^(8 (threads - 1 - t)
+    seg) mod P, which carries thread t's raw crc to its pass's end (entry 0
+    also carries a register across the other threads' segments to the
+    next pass); entry threads + k is x^(-8 k) mod P, which takes out the k
+    zero bytes read past a row's end to its next 16-byte boundary."""
+    fwd = [gf2.x8nmodp((threads - 1 - t) * seg) for t in range(threads)]
+    return np.array(fwd + [gf2.xinv8nmodp(k) for k in range(16)], np.uint32)
+
+
+def _shifts_on(device: torch.device) -> torch.Tensor:
+    key = (device, THREADS, SEG)
+    if key not in _SHIFTS:
+        _SHIFTS[key] = torch.from_numpy(shift_table(THREADS, SEG).view(np.int32)).to(device)
+    return _SHIFTS[key]
 
 
 def crc32_batch_plain(data: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -46,7 +72,7 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -65,7 +91,8 @@ def crc32_batch_cuda(data: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     if lens.shape != (B,):
         raise ValueError("crc32_batch: lens must be [B]")
     out = torch.empty(B, dtype=torch.int32, device=data.device)
-    rc = _lib()(_device.ptr(data), data.stride(0), B, N, _device.ptr(lens),
+    shifts = _shifts_on(data.device)
+    rc = _lib()(_device.ptr(data), data.stride(0), B, N, _device.ptr(lens), _device.ptr(shifts),
                 _device.ptr(out), _device.stream_of(data))
     _device.check(rc, "crc32_batch")
     launches["crc32_batch"] += 1
