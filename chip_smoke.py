@@ -3,10 +3,9 @@
 
     python3 chip_smoke.py
 
-Sets ZRS_TPU_KERNEL=1 first: the port's encode runs the kernel engine
-only under it (unset selects the XLA matcher engine, which the port does
-not carry yet, and raises). Builds the port's CUDA kernels from
-zlib_rs_tpu_torch/csrc with nvcc,
+Sets ZRS_TPU_KERNEL=1 first, so that phases 1-25 run the kernel engine
+(unset selects the XLA matcher engine, which phases 26-31 run). Builds
+the port's CUDA kernels from zlib_rs_tpu_torch/csrc with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it (K1, and K7 in phase 9, also on rows of
 every length on an edge of their designs and on all-0xFF rows, at
@@ -52,8 +51,17 @@ interleaved hop chase) against its plain version and K2 on the first
 super-batch, at its tile and at MIN_TILE, and on crafted lanes (an odd
 batch, an overflow past one tile, far sources, serial-step landings,
 all-literal lanes), and the level-6 encode under ZRS_TPU_HOP_IL=2, whose
-stream must equal phase 4's (phases 24-25). Any mismatch raises; no phase's
-failure is caught.
+stream must equal phase 4's (phases 24-25). Then, with ZRS_TPU_KERNEL
+unset, the XLA encode engine (128 KiB chunks, torch stages, K1) at levels
+6, 1 and 9, each checked by zlib and equal to the port's CPU stream on a
+512 KiB prefix, and at chunk sizes 12345 and 65536 (the latter under
+ZRS_TPU_KERNEL=1, past the kernel engine's buffer); K1 and K7 on 128 KiB
+rows, and K4, K5, K11a, K11b and K6 on the 128 KiB indexed streams (K5
+and K11b on their serial too-large body), each against its plain
+version, and every decode route end to end on them; the seeded swarm
+engine under ZRS_TPU_KERNEL=0 (and ZRS_TPU_VECTOR=0), held against its
+CPU run; the static level-1 index through K6 (phases 26-31). Any mismatch
+raises; no phase's failure is caught.
 
 Each encode prints its stream's length and sha256, so that two checkouts
 run in one call can be shown to give the same bytes.
@@ -1697,13 +1705,335 @@ def hop_il_phases(torch, dev, corpus, batch, hop_out, rows, launches) -> dict:
     return result
 
 
+def at_128k(label, err, launch, plain_ms, nb, nops, torch, **extra) -> dict:
+    """A kernel's numbers at the XLA engine's 128 KiB chunks: its error
+    against its plain version, ms by events and queued, the plain version's
+    ms and the bound for these bytes and operations."""
+    b_ms, b_by = bound(nb, nops)
+    row = dict(max_abs_err=err, ms=event_ms(torch, launch, 20), queued_ms=queued_ms(torch, launch),
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+    print(f"{label} at 128 KiB: " + json.dumps(row), flush=True)
+    return row
+
+
+def xla_phases(torch, dev, corpus, rows) -> dict:
+    """Phases 26-31: the XLA encode engine (ZRS_TPU_KERNEL unset: 128 KiB
+    chunks, batches of 16) at levels 6, 1 and 9, each checked by zlib and
+    against the port's CPU stream on a 512 KiB prefix; the chunk sizes
+    12345 (unset) and 65536 (ZRS_TPU_KERNEL=1, past MAX_BUF); K1 and K7 on
+    128 KiB rows; the 128 KiB indexed streams through K4/K5, K11a/K11b and
+    K6, each launch against its plain version (K5 and K11b on their serial
+    too-large body) and each route end to end; the seeded swarm engine
+    under ZRS_TPU_KERNEL=0, held against its CPU run; and the static
+    level-1 index through K6. Adds each kernel's 128 KiB numbers to `rows`
+    as "at_128k"; returns the end-to-end numbers."""
+    import numpy as np
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+    from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
+    from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+    from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+    from zlib_rs_tpu_torch.parallel import swarm_inflate as SW
+    from zlib_rs_tpu_torch.parallel import vector_inflate as VI
+
+    t_start = time.perf_counter()
+    counters = (CK.launches, CRC.launches, DK.launches, VK.launches, IK.launches, SW.runs)
+
+    def zero():
+        for c in counters:
+            for name in c:
+                c[name] = 0
+
+    def counts() -> dict:
+        return {name: c[name] for c in counters for name in c if c[name]}
+
+    cs = PL.XLA_CHUNK
+    n_chunks = -(-len(corpus) // cs)
+    batches = -(-n_chunks // PL.TAIL_BATCH)
+    prefix = corpus[: 512 * 1024]
+    result = {"encode": {}}
+    kernel_env = os.environ.pop("ZRS_TPU_KERNEL", None)  # unset: the XLA engine
+    try:
+        # -- phase 26: the XLA engine's encodes ----------------------------
+        for level in (6, 1, 9):
+            zero()
+            t0 = time.perf_counter()
+            out = zt.compress_parallel(corpus, level)
+            cold_s = time.perf_counter() - t0
+            ran = counts()
+            if ran != {"adler32_batch": batches}:
+                raise AssertionError(f"the XLA level-{level} encode launched {ran}, not K1 once a "
+                                     f"batch ({batches})")
+            if zlib.decompress(out) != corpus:
+                raise AssertionError(f"the XLA level-{level} stream does not decode to the corpus")
+            zref = len(zlib.compress(corpus, level))
+            on_card = zt.compress_parallel(prefix, level)
+            t0 = time.perf_counter()
+            on_cpu = zt.compress_parallel(prefix, level, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            if on_card != on_cpu:
+                raise AssertionError(f"the XLA level-{level} stream of the 512 KiB prefix differs "
+                                     f"between the card and the CPU")
+            print(f"phase 26 XLA level {level}: {len(corpus)} -> {digest(out)}, ratio to "
+                  f"zlib-{level} {len(out) / zref:.6f} ({zref} bytes), {n_chunks} chunks of {cs} "
+                  f"bytes, cold {cold_s:.3f} s, launches {ran}; the 512 KiB prefix equal to the "
+                  f"CPU's stream ({len(on_cpu)} bytes, {cpu_s:.1f} s on the CPU)", flush=True)
+            result["encode"][f"level{level}"] = {
+                "bytes_out": len(out), "zlib_bytes": zref, "ratio_to_zlib": len(out) / zref,
+                "cold_s": cold_s, "launches": ran, **warm_runs(
+                    torch, PL, lambda: zt.compress_parallel(corpus, level), out, len(corpus),
+                    f"XLA level {level}", 26)}
+
+        # -- phase 27: a chunk size off the word grid, and a buffer past MAX_BUF
+        more = {}
+        for label, env, kw in (("chunk 12345", None, dict(chunk_size=12_345)),
+                               ("chunk 65536 under ZRS_TPU_KERNEL=1", "1",
+                                dict(chunk_size=65_536))):
+            if env:
+                os.environ["ZRS_TPU_KERNEL"] = env
+            zero()
+            t0 = time.perf_counter()
+            out = zt.compress_parallel(corpus, LEVEL, **kw)
+            wall = time.perf_counter() - t0
+            os.environ.pop("ZRS_TPU_KERNEL", None)
+            ran = counts()
+            if set(ran) != {"adler32_batch"} or zlib.decompress(out) != corpus:
+                raise AssertionError(f"the {label} encode launched {ran} or does not decode")
+            more[label] = {"bytes_out": len(out), "wall_s": wall, "launches": ran}
+            print(f"phase 27 {label}: {digest(out)}, {wall:.3f} s, launches {ran}", flush=True)
+        result["more_encodes"] = more
+
+        # -- phase 28: K1 and K7 on 128 KiB rows ---------------------------
+        dict_size = PL.priming_dict_size(n_chunks, cs, True, shrink=False)
+        padded, n_valid, _vf, _dl = PL.chunk_buffers(corpus, cs, dict_size)
+        dc = torch.from_numpy(padded[: PL.TAIL_BATCH]).to(dev)
+        dn = torch.from_numpy(n_valid[: PL.TAIL_BATCH]).to(dev)
+        seg = dc[:, dict_size : dict_size + cs]
+        lens = (dn - dict_size).to(torch.int32)
+        got = CK.adler32_batch_cuda(seg, lens)
+        want, plain_ms = timed_ms(torch, lambda: CK.adler32_batch_plain(seg, lens))
+        host = seg.cpu().numpy()
+        for r in range(seg.shape[0]):
+            if int(got[r]) & 0xFFFFFFFF != zlib.adler32(host[r, : int(lens[r])].tobytes()):
+                raise AssertionError(f"K1 row {r} of 128 KiB disagrees with zlib")
+        nb = int(lens.sum())
+        rows["adler32_batch"]["at_128k"] = at_128k(
+            f"phase 28 K1 ({seg.shape[0]} rows)", max_abs([(got, want)]),
+            lambda: CK.adler32_batch_cuda(seg, lens), plain_ms, nb + 8 * seg.shape[0], 3 * nb,
+            torch, rows=seg.shape[0])
+        nfull = len(corpus) // cs
+        full = torch.from_numpy(np.frombuffer(corpus, np.uint8, count=nfull * cs)
+                                .reshape(nfull, cs).copy()).to(dev)
+        flen = torch.full((nfull,), cs, dtype=torch.int32, device=dev)
+        got = CRC.crc32_batch_cuda(full, flen)
+        want, plain_ms = timed_ms(torch, lambda: CRC.crc32_batch_plain(full, flen))
+        for r in range(nfull):
+            if int(got[r]) & 0xFFFFFFFF != zlib.crc32(corpus[r * cs : (r + 1) * cs]):
+                raise AssertionError(f"K7 row {r} of 128 KiB disagrees with zlib")
+        nb = nfull * cs
+        rows["crc32_batch"]["at_128k"] = at_128k(
+            f"phase 28 K7 ({nfull} rows)", max_abs([(got, want)]),
+            lambda: CRC.crc32_batch_cuda(full, flen), plain_ms, nb + 8 * nfull, 4 * nb, torch,
+            rows=nfull)
+        for name in ("adler32_batch", "crc32_batch"):
+            if rows[name]["at_128k"]["max_abs_err"]:
+                raise AssertionError(f"{name} at 128 KiB rows disagrees with its plain version")
+        print(f"phase 28: K1 on {seg.shape[0]} and K7 on {nfull} rows of {cs} bytes equal to "
+              f"plain and zlib", flush=True)
+
+        # -- phase 29: the 128 KiB indexed streams through every decoder ---
+        idx_out, index = zt.compress_parallel(corpus, LEVEL, return_index=True)
+        gz, gz_index = zt.compress_parallel(corpus, LEVEL, window_bits=31, return_index=True)
+        if zlib.decompress(idx_out) != corpus or zlib.decompress(gz, 31) != corpus:
+            raise AssertionError("the 128 KiB indexed streams do not decode")
+        bodies, sizes, seeds, staged, meta, full_args, _sub = stage_decode(VI, idx_out, index, dev)
+        S, K, B = meta["S"], meta["K"], meta["B"]
+        W = B * S
+        body_bytes = sum(len(b) for b in bodies) + 4 * staged["tables"].numel()
+        out_words = -(-max(sizes) // 4) + 2
+        offs = staged["offs"]
+        names = {VK.BRANCH_CHASE: "chase", VK.BRANCH_UNTILED: "serial (untiled)",
+                 VK.BRANCH_TOO_LARGE: "serial (too large)"}
+        large = torch.tensor([n > VK.CHASE_MAX_BYTES for n in sizes], device=dev)
+
+        def expand_check(label, outw, want, branch):
+            err = bytes_err(torch, outw, want, sizes)
+            seen = {names[int(b)]: int(n)
+                    for b, n in zip(*torch.unique(branch, return_counts=True))}
+            if (large & (branch != VK.BRANCH_TOO_LARGE)).any():
+                raise AssertionError(f"{label}: a chunk past the chase left the too-large body: "
+                                     f"{seen}")
+            out8 = outw.cpu().numpy().view("u1")
+            if b"".join(out8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
+                raise AssertionError(f"{label}'s expansion is not the corpus")
+            return err, seen
+
+        # K4 and K5, two-plane
+        cap2 = VI._twoplane_cap(meta)
+        tapes = VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap2)
+        want, plain_ms = timed_ms(
+            torch, lambda: VK.decode_tokens_vector2_plain(*full_args, S=S, K=K, cap=cap2))
+        err = max_abs(zip(tapes, want))
+        tapeA, tapeB, _cons, bad, rem = tapes
+        if err or int(bad.abs().sum()) or int(rem.abs().sum()):
+            raise AssertionError(f"K4 at 128 KiB: max abs err {err}, or flagged walkers")
+        used = int((tapeB != 0).sum())
+        rows["vhuff_decode"]["at_128k"] = at_128k(
+            "phase 29 K4", err,
+            lambda: VK.decode_tokens_vector2_cuda(*full_args, S=S, K=K, cap=cap2),
+            plain_ms, body_bytes + 24 * W + 8 * used, 200 * used, torch, chunks=B, cap=cap2)
+        branch = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        outw = VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words, branch=branch)
+        want, plain_ms = timed_ms(
+            torch, lambda: VK.expand_tokens2_plain(tapeA, tapeB, offs, out_words=out_words))
+        err, seen5 = expand_check("K5", outw, want, branch)
+        rows["vhuff_expand"]["at_128k"] = at_128k(
+            "phase 29 K5", err,
+            lambda: VK.expand_tokens2_cuda(tapeA, tapeB, offs, out_words=out_words),
+            plain_ms, 8 * used + 4 * offs.numel() + len(corpus), 40 * used, torch, bodies=seen5)
+        # K11a and K11b, single-plane
+        cap1 = meta["cap"]
+        tapes = VK.decode_tokens_vector_cuda(*full_args, S=S, K=K, cap=cap1)
+        want, plain_ms = timed_ms(
+            torch, lambda: VK.decode_tokens_vector_plain(*full_args, S=S, K=K, cap=cap1))
+        err = max_abs(zip(tapes, want))
+        tape, _cons, bad, rem = tapes
+        if err or int(bad.abs().sum()) or int(rem.abs().sum()):
+            raise AssertionError(f"K11a at 128 KiB: max abs err {err}, or flagged walkers")
+        used = int((tape != 0).sum())
+        rows["vhuff_decode1"]["at_128k"] = at_128k(
+            "phase 29 K11a", err,
+            lambda: VK.decode_tokens_vector_cuda(*full_args, S=S, K=K, cap=cap1),
+            plain_ms, body_bytes + 24 * W + 4 * used, 200 * used, torch, chunks=B, cap=cap1)
+        branch = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        outw = VK.expand_tokens_cuda(tape, offs, out_words=out_words, branch=branch)
+        want, plain_ms = timed_ms(
+            torch, lambda: VK.expand_tokens_plain(tape, offs, out_words=out_words))
+        err, seen11 = expand_check("K11b", outw, want, branch)
+        rows["vhuff_expand1"]["at_128k"] = at_128k(
+            "phase 29 K11b", err, lambda: VK.expand_tokens_cuda(tape, offs, out_words=out_words),
+            plain_ms, 4 * used + 4 * offs.numel() + len(corpus), 40 * used, torch, bodies=seen11)
+        # K6, every chunk in one launch
+        max_out = max(sizes)
+        words, bits = IK.pack_streams_words(bodies)
+        args = [torch.from_numpy(words.view("i4")).to(dev),
+                torch.zeros(B, dtype=torch.int32, device=dev), torch.from_numpy(bits).to(dev),
+                torch.tensor(sizes, dtype=torch.int32, device=dev)]
+        got = IK.decode_streams_cuda(*args, max_out=max_out)
+        host_args = [a.cpu() for a in args]
+        t0 = time.perf_counter()
+        want = IK.decode_streams_plain(*host_args, max_out=max_out)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = k6_err(torch, got, want, max_out)
+        out8 = got[0].cpu().numpy()
+        if err or bool(got[2].any()) or b"".join(
+                out8[r, : sizes[r]].tobytes() for r in range(B)) != corpus:
+            raise AssertionError(f"K6 at 128 KiB: max abs err {err}, or not the corpus")
+        comp = sum(len(b) for b in bodies)
+        rows["inflate"]["at_128k"] = at_128k(
+            "phase 29 K6", err, lambda: IK.decode_streams_cuda(*args, max_out=max_out), plain_ms,
+            comp + 48 * B + len(corpus), 10 * len(corpus), torch, chunks=B)
+        for name in ("vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1", "inflate"):
+            if rows[name]["at_128k"]["max_abs_err"]:
+                raise AssertionError(f"{name} at 128 KiB disagrees with its plain version")
+        print(f"phase 29 kernels: {B} chunks of {cs} bytes, {W} walkers: K4, K5, K11a, K11b "
+              f"and K6 equal to plain and the corpus; K5 bodies {seen5}, K11b bodies {seen11}",
+              flush=True)
+        # each route of decompress_parallel, end to end
+        decodes = {}
+        for route, env, want_ran in (
+            ("two-plane", {}, {"vhuff_decode": 1, "vhuff_expand": 1}),
+            ("single-plane", {"ZRS_VECTOR_TWOPLANE": "0"},
+             {"vhuff_decode1": 1, "vhuff_expand1": 1}),
+            ("K6", {"ZRS_TPU_VECTOR": "0"}, {"inflate": 1}),
+        ):
+            os.environ.update(env)
+            try:
+                for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
+                    zero()
+                    t0 = time.perf_counter()
+                    back = zt.decompress_parallel(stream, ix)
+                    wall = time.perf_counter() - t0
+                    ran = counts()
+                    if back != corpus or ran != want_ran or PL.fallback_stats():
+                        raise AssertionError(f"the {route} decode of the 128 KiB {label} stream: "
+                                             f"launches {ran}, fallbacks {PL.fallback_stats()}")
+                    decodes[f"{route} {label}"] = {"wall_s": wall, "launches": ran}
+            finally:
+                for name in env:
+                    del os.environ[name]
+        print("phase 29 routes: " + json.dumps(decodes), flush=True)
+        result["decode_128k"] = decodes
+
+        # -- phase 30: the seeded swarm engine -----------------------------
+        os.environ.update({"ZRS_TPU_KERNEL": "0", "ZRS_TPU_VECTOR": "0"})
+        try:
+            swarm = {}
+            for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
+                zero()
+                t0 = time.perf_counter()
+                back = zt.decompress_parallel(stream, ix)
+                cold_s = time.perf_counter() - t0
+                ran = counts()
+                if back != corpus or ran != {"decode_seeded": 1} or PL.fallback_stats():
+                    raise AssertionError(f"the swarm decode of the {label} stream: runs {ran}, "
+                                         f"fallbacks {PL.fallback_stats()}")
+                swarm[label] = {"cold_s": cold_s, **warm_runs(
+                    torch, PL, lambda: zt.decompress_parallel(stream, ix), corpus, len(corpus),
+                    f"swarm decode {label}", 30)}
+        finally:
+            for name in ("ZRS_TPU_KERNEL", "ZRS_TPU_VECTOR"):
+                del os.environ[name]
+        *arrays, cap = SW.seeded_inputs(bodies[:4], sizes[:4], seeds[:4])
+        mo = max(sizes[:4])
+        on_card = SW.decode_seeded(*(torch.from_numpy(a).to(dev) for a in arrays), cap=cap,
+                                   max_out=mo)
+        t0 = time.perf_counter()
+        on_cpu = SW.decode_seeded(*(torch.from_numpy(a) for a in arrays), cap=cap, max_out=mo)
+        cpu_s = time.perf_counter() - t0
+        err = max_abs(zip(on_card, on_cpu))
+        if err or bool(on_cpu[2].any()):
+            raise AssertionError(f"decode_seeded on the card differs from the CPU: {err}")
+        swarm["first_4_chunks"] = {"max_abs_err": err, "cap": cap, "cpu_s": cpu_s}
+        print(f"phase 30 swarm: both streams through the swarm engine (one run each, no "
+              f"fallback); decode_seeded of the first 4 chunks (cap {cap}) equal to its CPU run "
+              f"(max abs err {err}, {cpu_s:.1f} s on the CPU)", flush=True)
+        result["swarm_decode"] = swarm
+
+        # -- phase 31: the static level-1 index through K6 -----------------
+        out1, index1 = zt.compress_parallel(corpus, 1, return_index=True)
+        if index1.seeds is not None or zlib.decompress(out1) != corpus:
+            raise AssertionError("the level-1 index carries seeds or does not decode")
+        zero()
+        t0 = time.perf_counter()
+        back = zt.decompress_parallel(out1, index1)
+        wall = time.perf_counter() - t0
+        ran = counts()
+        if back != corpus or ran != {"inflate": 1} or PL.fallback_stats():
+            raise AssertionError(f"the level-1 indexed decode launched {ran}, fallbacks "
+                                 f"{PL.fallback_stats()}")
+        result["level1_index_k6"] = {"bytes": len(out1), "wall_s": wall, "launches": ran}
+        print(f"phase 31 level-1 index: {digest(out1)}, no seeds, decoded by one K6 launch in "
+              f"{wall:.3f} s", flush=True)
+    finally:
+        if kernel_env is None:
+            os.environ.pop("ZRS_TPU_KERNEL", None)
+        else:
+            os.environ["ZRS_TPU_KERNEL"] = kernel_env
+    result["phases_s"] = time.perf_counter() - t_start
+    print(f"phases 26-31: {result['phases_s']:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    os.environ["ZRS_TPU_KERNEL"] = "1"  # the kernel engine; unset raises in the port
+    os.environ["ZRS_TPU_KERNEL"] = "1"  # the kernel engine (phases 26-31 unset it)
     root = Path(__file__).resolve().parent
     if not (root / "zlib_rs_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1938,6 +2268,7 @@ def main() -> int:
     single = single_plane_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launches)
     hop_il = hop_il_phases(torch, dev, corpus, (dn, dict_size, words4, htab, cap_g), out, rows,
                            launches)
+    xla = xla_phases(torch, dev, corpus, rows)
 
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
@@ -1949,14 +2280,14 @@ def main() -> int:
             name=name, route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            **{k: r[k] for k in ("plain_rows", "queued_ms") if k in r},
+            **{k: r[k] for k in ("plain_rows", "queued_ms", "at_128k") if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
         "bytes_in": len(corpus), "bytes_out": len(out), "zlib_bytes": zref,
         "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, **warm, "decode": decode,
         "gzip_encode": gzip_encode, "k6_decode": k6_decode, "encode_routes": routes,
-        "single_plane_decode": single, "hop_il_encode": hop_il,
+        "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The slice as a whole: the port's `compress_parallel` (device="cpu", every
 kernel's plain version) against the JAX package's kernel engine
-(ZRS_TPU_KERNEL=1, Pallas kernels in interpret mode) on the same inputs.
-Streams, chunk indexes and decode seeds must be byte-for-byte equal, and
-every stream must decode with stdlib zlib.
+(ZRS_TPU_KERNEL=1, Pallas kernels in interpret mode) and its XLA engine
+(ZRS_TPU_KERNEL unset or 0, levels up to 2, chunk buffers past MAX_BUF)
+on the same inputs. Streams, chunk indexes and decode seeds must be
+byte-for-byte equal, and every stream must decode with stdlib zlib.
 
 The port runs with XLA's own 2^len density weights (fixture
 `kernel_engine`, see tests/test_torch_dynhuff.py) so that both tree
@@ -36,6 +37,8 @@ torch.set_num_threads(1)
 
 _BASH = open("/bin/bash", "rb").read()
 MULTI = _BASH[400_000 : 400_000 + 70_001]  # three chunks, odd length
+XLA = _BASH[300_000 : 300_000 + 40_001]  # three 16 KiB chunks of the XLA engine
+BIG = _BASH[600_000 : 600_000 + 150_001]  # two chunks at the XLA engine's 128 KiB
 ENV = ("ZRS_TPU_KERNEL", "ZRS_TPU_CHAIN", "ZRS_TPU_WG", "ZRS_TPU_HOPSCAN",
        "ZRS_TPU_TABSCAN", "ZRS_TPU_HOP_IL")
 _JAX_CACHE = {}
@@ -168,13 +171,47 @@ def test_shipped_weights_against_jax(monkeypatch, case):
     assert _decode(got, kw.get("window_bits", 15)) == data
 
 
+# the XLA engine (ZRS_TPU_KERNEL unset, 16 KiB chunks) with the shipped
+# weights: (data, level, options, port bytes minus JAX bytes, bytes equal);
+# MULTI at level 6 breaks a density tie the other way at the same length
+XLA_SHIPPED_CASES = {
+    "level3": (XLA, 3, {}, 0, True),
+    "level6": (XLA, 6, {}, 0, True),
+    "level9": (XLA, 9, {}, 0, True),
+    "index": (XLA, 6, dict(return_index=True), 0, True),
+    "tie_level3": (TIE, 3, {}, 0, True),
+    "multi_level6": (MULTI, 6, {}, 0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(XLA_SHIPPED_CASES))
+def test_shipped_weights_against_jax_xla_engine(monkeypatch, case):
+    data, level, kw, diff, same = XLA_SHIPPED_CASES[case]
+    kw = dict(kw, chunk_size=16_384)
+    monkeypatch.delenv("ZRS_TPU_KERNEL")
+    xla_exp2 = td.EXP2_LEN
+    monkeypatch.setattr(td, "EXP2_LEN", SHIPPED_EXP2)
+    got = zt.compress_parallel(data, level, device="cpu", **kw)
+    ref = _jax(data, level, **kw)
+    if kw.get("return_index"):
+        (got, index), (ref, ref_index) = got, ref
+        assert list(index) == list(ref_index) and index.seeds == ref_index.seeds
+    assert len(got) - len(ref) == diff
+    assert (got == ref) == same
+    if not same:  # the weight table alone: XLA's values close it
+        monkeypatch.setattr(td, "EXP2_LEN", xla_exp2)
+        assert zt.compress_parallel(data, level, device="cpu", **kw) == ref
+    assert _decode(got) == data
+
+
 def test_unset_kernel_env_and_hop_il_run_the_same_engine(monkeypatch):
-    # unset selects the reference's XLA matcher engine, which the port
-    # refuses until it carries it; ZRS_TPU_HOP_IL=2 runs the kernel engine
+    # unset selects the XLA matcher engine in both packages (at 16 KiB
+    # chunks here); ZRS_TPU_HOP_IL=2 runs the kernel engine
     want = _jax(MULTI, 6)
     monkeypatch.delenv("ZRS_TPU_KERNEL")
-    with pytest.raises(NotImplementedError, match="XLA matcher.*ZRS_TPU_KERNEL=1"):
-        zt.compress_parallel(MULTI, 6, device="cpu")
+    xla = zt.compress_parallel(MULTI, 6, chunk_size=16_384, device="cpu")
+    assert xla == _jax(MULTI, 6, chunk_size=16_384) != want
+    assert _decode(xla) == MULTI
     monkeypatch.setenv("ZRS_TPU_KERNEL", "1")
     # ZRS_TPU_HOP_IL=2: the JAX package reads it inside its jitted scan, so
     # its caches are cleared around the run, and the K12 traces are counted
@@ -237,25 +274,116 @@ def test_chain_and_tab_routes_equal_jax(monkeypatch, case):
 
 
 @pytest.mark.parametrize(
-    "kw,env,match",
+    "kw,match",
     [
-        (dict(level=1), {}, "static"),
-        (dict(level=2), {}, "static"),
-        (dict(level=6), {"ZRS_TPU_KERNEL": "0"}, "XLA matcher"),
-        (dict(level=6, mesh=object()), {}, "mesh"),
-        (dict(level=6, strategy=Strategy.Filtered), {}, "host engine"),
-        (dict(level=6, chunk_size=65536), {}, "65024"),
-        (dict(level=6), {"ZRS_TPU_KERNEL": None}, "unset selects the XLA matcher"),
+        (dict(level=6, mesh=object()), "mesh"),
+        (dict(level=6, strategy=Strategy.Filtered), "host engine"),
     ],
 )
-def test_routes_not_ported_raise(monkeypatch, kw, env, match):
-    for name, value in env.items():
-        if value is None:
-            monkeypatch.delenv(name)
-        else:
-            monkeypatch.setenv(name, value)
+def test_routes_not_ported_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         zt.compress_parallel(MULTI, device="cpu", **kw)
+
+
+def _set_env(monkeypatch, env):
+    for name, value in env.items():
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+
+
+def _equal_jax(data, level, kw):
+    """The port's stream (and index and seeds) equal to the JAX package's
+    under the current environment, and decoded by zlib. Returns the port's
+    result."""
+    res = zt.compress_parallel(data, level, device="cpu", **kw)
+    ref = _jax(data, level, **kw)
+    got = res
+    if kw.get("return_index"):
+        (got, index), (ref, ref_index) = res, ref
+        assert list(index) == list(ref_index)
+        assert index.seeds == ref_index.seeds
+    assert got == ref
+    assert _decode(got, kw.get("window_bits", 15)) == data
+    return res
+
+
+# the routes that raised before the XLA engine was ported, each now equal
+# to the JAX package: static levels under ZRS_TPU_KERNEL=1 (32 KiB chunks,
+# level 2 with the kernel engine's shrunk dictionary), ZRS_TPU_KERNEL=0 and
+# unset (16 KiB and 128 KiB chunks), and a 65536-byte chunk under
+# ZRS_TPU_KERNEL=1, whose primed buffer is past MAX_BUF
+NOW_PORTED = {
+    "level1": (MULTI, 1, {}, {}),
+    "level2": (MULTI, 2, {}, {}),
+    "kernel0": (XLA, 6, dict(chunk_size=16_384), {"ZRS_TPU_KERNEL": "0"}),
+    "chunk65536": (MULTI, 6, dict(chunk_size=65536), {}),
+    "unset": (BIG, 6, {}, {"ZRS_TPU_KERNEL": None}),
+}
+
+
+@pytest.mark.parametrize("case", list(NOW_PORTED))
+def test_routes_now_ported_equal_jax(monkeypatch, case):
+    data, level, kw, env = NOW_PORTED[case]
+    _set_env(monkeypatch, env)
+    calls = []
+    real = tp._encode_batch
+    monkeypatch.setattr(tp, "_encode_batch", lambda *a, **k: calls.append(k) or real(*a, **k))
+    _equal_jax(data, level, kw)
+    assert calls and not any(k["kernel_scan"] for k in calls)  # the XLA engine
+    dict_size = calls[0]["dict_size"]
+    assert dict_size == {"level1": 0, "level2": 31_984}.get(case, 32_768)
+
+
+def test_kernel_engine_refuses_a_chunk_off_the_word_grid():
+    # under ZRS_TPU_KERNEL=1 a level-6 buffer of 32768 + 12345 + PAD bytes
+    # fits the kernel engine, whose words need a multiple of 4: both
+    # packages refuse it (the reference in its reshape into words)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        zt.compress_parallel(XLA, 6, chunk_size=12_345, device="cpu")
+    with pytest.raises(TypeError):
+        jp.compress_parallel(XLA, 6, chunk_size=12_345)
+
+
+# the XLA engine at 16 KiB chunks under an unset ZRS_TPU_KERNEL: every
+# level class, the three wrappers, static and dynamic indexes, and a chunk
+# size that is not a multiple of 4
+XLA_CASES = {
+    "level-1": (-1, {}),
+    "level0": (0, {}),
+    "level1": (1, {}),
+    "level2": (2, {}),
+    "level3": (3, {}),
+    "level6": (6, {}),
+    "level9": (9, {}),
+    "gzip": (6, dict(window_bits=31)),
+    "raw": (6, dict(window_bits=-15)),
+    "index_static": (1, dict(return_index=True)),
+    "index_dynamic": (6, dict(return_index=True)),
+    "chunk12345_level6": (6, dict(chunk_size=12_345)),
+    "chunk12345_level9": (9, dict(chunk_size=12_345)),
+}
+
+
+@pytest.mark.parametrize("case", list(XLA_CASES))
+def test_xla_engine_equal_jax(monkeypatch, case):
+    level, kw = XLA_CASES[case]
+    monkeypatch.delenv("ZRS_TPU_KERNEL")
+    kw = dict(kw)
+    kw.setdefault("chunk_size", 16_384)
+    res = _equal_jax(XLA, level, kw)
+    if kw.get("return_index"):
+        out, index = res
+        if level < 3:  # static chunks carry no seeds
+            assert index.seeds is None
+        else:
+            assert all(len(s[0]) == tp.SEEDS_PER_CHUNK for s in index.seeds)
+        pos = 0
+        for off, ln, out_len in index:  # each chunk inflates on its own
+            d = zlib.decompressobj(-15)
+            assert d.decompress(out[off : off + ln]) == XLA[pos : pos + out_len]
+            pos += out_len
 
 
 def test_default_strategy_is_the_kernel_engine():

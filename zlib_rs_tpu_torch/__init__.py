@@ -1,10 +1,13 @@
 """zlib_rs_tpu_torch: chunk-parallel DEFLATE encode and decode on a CUDA device.
 
-The PyTorch and CUDA port of zlib_rs_tpu's kernel encode engine, its
-vector decode engine (two-plane, and single-plane under
-ZRS_VECTOR_TWOPLANE=0) and its sequential inflate kernel (the
-decode of indexes with stored chunks or without seeds, the region decode
-and the checkpointed stream decode). It imports neither JAX nor
+The PyTorch and CUDA port of zlib_rs_tpu's two encode engines (the
+kernel engine under ZRS_TPU_KERNEL=1, and the XLA engine, the default,
+in torch ops), its vector decode engine (two-plane, and single-plane under
+ZRS_VECTOR_TWOPLANE=0), its sequential inflate kernel (the decode of
+indexes with stored chunks or without seeds, the region decode and the
+checkpointed stream decode) and its seeded swarm decode engine (in torch
+ops; the only device engine after the vector engine under
+ZRS_TPU_KERNEL=0). It imports neither JAX nor
 zlib_rs_tpu. Entry points run on `cuda` unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version instead.
 """

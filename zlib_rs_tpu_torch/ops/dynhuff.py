@@ -1,17 +1,27 @@
-"""Dynamic Huffman trees for a batch of histograms, in torch ops.
+"""Dynamic Huffman trees and the dynamic-block encode of the XLA engine,
+in torch ops, batched over rows.
 
-The port of zlib_rs_tpu/ops/dynhuff.py's `code_lengths_kraft` and its
-canonical code assignment, batched over rows and computed in float32 exactly
-as the reference computes them: start lengths ceil(log2(total / f) -
-1e-6) clamped to [1, 15], then bulk density-greedy rounds (density f *
-2^len, ties by index) until the Kraft sum is exactly 1, with an early
-exit at the exact sum and at most 64 rounds. Rows already at the exact sum
-are left unchanged by a round, so the batch loops until every row is done.
+The port of zlib_rs_tpu/ops/dynhuff.py. `code_lengths_kraft` and the
+canonical code assignment are computed in float32 exactly as the reference
+computes them: start lengths ceil(log2(total / f) - 1e-6) clamped to
+[1, 15], then bulk density-greedy rounds (density f * 2^len, ties by index)
+until the Kraft sum is exactly 1, with an early exit at the exact sum and
+at most 64 rounds. Rows already at the exact sum are left unchanged by a
+round, so the batch loops until every row is done.
+
+`encode_chunk_dynamic` encodes each chunk of a batch as one dynamic block
+body: the parse of ops/lz77 (or a given one), the two histograms, both
+trees, two fields a token and the EOB through `lz77.pack_bits`, and the
+decode seeds of indexed streams.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from ..utils.stages import STAGES
+from . import lz77
 
 MAX_BITS = 15
 _KRAFT_ONE = 1 << MAX_BITS
@@ -109,3 +119,113 @@ def canonical_codes(lengths: torch.Tensor) -> torch.Tensor:
         v = v >> 1
     lsb = torch.where(lengths > 0, r >> (16 - lengths.clamp(min=1)), 0)
     return lsb.to(torch.int32)
+
+
+def trees(ll_freq: torch.Tensor, d_freq: torch.Tensor):
+    """Both alphabets' trees from int [B, 286] literal/length and [B, 30]
+    distance histograms, in one batched pass over a zero-padded stack
+    (padding leaves a row's lengths alone). Returns (ll_lens, ll_codes,
+    d_lens, d_codes), int32."""
+    B = ll_freq.shape[0]
+    both = torch.cat([ll_freq.to(torch.int32),
+                      F.pad(d_freq.to(torch.int32), (0, ll_freq.shape[1] - d_freq.shape[1]))])
+    lens = code_lengths_kraft(both)
+    codes = canonical_codes(lens)
+    nd = d_freq.shape[1]
+    return lens[:B], codes[:B], lens[B:, :nd], codes[B:, :nd]
+
+
+def token_symbols(padded_u8, length, dist, tokens):
+    """Per position (ll_sym, d_sym, length extra value and bits, distance
+    extra value and bits), int64 [B, n]; d_sym is -1 off matches."""
+    n = length.shape[1]
+    byte = padded_u8[:, :n].to(torch.int64)
+    length = length.to(torch.int64)
+    is_match = tokens & (length >= lz77.MIN_MATCH)
+    lc, leb, lev = lz77.length_symbol_arith(length.clamp(lz77.MIN_MATCH, lz77.MAX_MATCH))
+    dc, deb, dev_ = lz77.dist_symbol_arith(dist.to(torch.int64).clamp(1, lz77.MAX_DIST))
+    ll_sym = torch.where(is_match, 257 + lc, byte)
+    d_sym = torch.where(is_match, dc, -1)
+    zero = torch.zeros_like(lc)
+    return (ll_sym, d_sym, torch.where(is_match, lev, zero), torch.where(is_match, leb, zero),
+            torch.where(is_match, dev_, zero), torch.where(is_match, deb, zero))
+
+
+def _histogram(sym: torch.Tensor, live: torch.Tensor, bins: int) -> torch.Tensor:
+    """Count of each symbol 0..bins-1 over the live positions of each row."""
+    hist = torch.zeros((sym.shape[0], bins + 1), dtype=torch.int32, device=sym.device)
+    hist.scatter_add_(1, torch.where(live, sym, bins), torch.ones_like(sym, dtype=torch.int32))
+    return hist[:, :bins]
+
+
+def encode_chunk_dynamic(padded_u8, n_valid, *, chain_depth: int = 4, max_words: int = 16,
+                         lazy: bool = False, start: int = 0, valid_from=0, n_seeds: int = 0,
+                         parse=None):
+    """Each chunk of a batch as one dynamic-Huffman block BODY (the symbols
+    and the EOB; the host builds the header from the lengths).
+
+    padded_u8: uint8 [B, n + PAD]; `parse`, when given, is a tokenization
+    (tokens, length, dist) of [B, n] positions used as it is, else
+    lz77.find_matches and greedy_parse make one. Returns (words int32
+    [B, W], body bits int32 [B], ll_lens int32 [B, 286], d_lens int32
+    [B, 30]), and with n_seeds > 0 also (seeds_bit, seeds_out int32
+    [B, n_seeds]): for seed j the body bit offset and the output offset of
+    the first token at or after output offset j * (out_len // n_seeds),
+    the restart points of the seeded decoders."""
+    B, L = padded_u8.shape
+    n = L - lz77.PAD
+    dev = padded_u8.device
+    if parse is not None:
+        tokens, length, dist = parse
+        tokens = tokens.to(torch.bool)
+    else:
+        with STAGES.stage("find_matches", dev):
+            length, dist = lz77.find_matches(
+                padded_u8, n_valid, chain_depth=chain_depth, max_words=max_words,
+                lazy=lazy, valid_from=valid_from,
+            )
+        with STAGES.stage("greedy_parse", dev):
+            tokens = lz77.greedy_parse(length, n_valid, start)
+    with STAGES.stage("token_codes", dev):
+        ll_sym, d_sym, e1, eb1, e2, eb2 = token_symbols(padded_u8, length, dist, tokens)
+        live = tokens
+        d_live = live & (d_sym >= 0)
+        ll_freq = _histogram(ll_sym, live, 286)
+        ll_freq[:, 256] += 1  # EOB
+        d_freq = _histogram(d_sym, d_live, 30)
+        ll_lens, ll_codes, d_lens, d_codes = trees(ll_freq, d_freq)
+        # two fields a token: the length side (<= 20 bits), then the
+        # distance side (<= 28 bits)
+        ll_n = ll_lens.to(torch.int64).gather(1, ll_sym)
+        v1 = ll_codes.to(torch.int64).gather(1, ll_sym) | (e1 << ll_n)
+        n1 = torch.where(live, ll_n + eb1, 0)
+        safe_d = d_sym.clamp(min=0)
+        d_n = d_lens.to(torch.int64).gather(1, safe_d)
+        v2 = torch.where(d_live, d_codes.to(torch.int64).gather(1, safe_d) | (e2 << d_n), 0)
+        n2 = torch.where(d_live, d_n + eb2, 0)
+        values = torch.cat([torch.stack([v1, v2], dim=2).reshape(B, 2 * n),
+                            ll_codes[:, 256:257].to(torch.int64)], dim=1)
+        nbits = torch.cat([torch.stack([n1, n2], dim=2).reshape(B, 2 * n),
+                           ll_lens[:, 256:257].to(torch.int64)], dim=1)
+    out_words = (16 * n + 64) // 32 + 4  # ~15.x bits a byte at worst, and the EOB
+    with STAGES.stage("pack_bits", dev):
+        words, total = lz77.pack_bits(values, nbits, 0, out_words)
+    if not n_seeds:
+        return words, total, ll_lens, d_lens
+
+    with STAGES.stage("seeds", dev):
+        per_pos = n1 + n2  # 0 off tokens
+        bit_off = torch.cumsum(per_pos, dim=1) - per_pos
+        idx = torch.arange(n, device=dev)
+        tok_pos = torch.where(live, idx, n + 1)
+        next_tok = torch.cummin(tok_pos.flip(1), dim=1).values.flip(1)
+        out_len = (lz77._per_row(n_valid, B, dev) - start).clamp(min=0)
+        stride = (out_len // n_seeds).clamp(min=1)
+        targets = (start + torch.arange(n_seeds, device=dev) * stride).clamp(0, n - 1)
+        seed_pos = next_tok.gather(1, targets)
+        valid = seed_pos <= n  # past the last token: an empty walker
+        safe = seed_pos.clamp(0, n - 1)
+        seeds_bit = torch.where(valid, bit_off.gather(1, safe), total[:, None].to(torch.int64))
+        seeds_out = torch.where(valid, safe - start, out_len)
+    return (words, total, ll_lens, d_lens, seeds_bit.to(torch.int32),
+            seeds_out.to(torch.int32))

@@ -49,6 +49,8 @@ import torch.nn.functional as F
 from ... import _device
 from ...utils.stages import STAGES
 from .. import dynhuff, lzvec
+from ..lz77 import dist_symbol_arith as _dist_sym
+from ..lz77 import length_symbol_arith as _len_sym
 
 MIN_MATCH = 3
 MAX_MATCH = 258
@@ -94,38 +96,6 @@ def words_from_bytes(chunks_u8: torch.Tensor) -> torch.Tensor:
         raise ValueError("chunk buffer length must be a multiple of 4")
     w = chunks_u8.contiguous().view(torch.int32)
     return F.pad(w, (0, 2))
-
-
-def _bit_length(x: torch.Tensor) -> torch.Tensor:
-    """Bit length of non-negative int values below 2^16."""
-    n = torch.zeros_like(x)
-    for k in range(16):
-        n = n + ((x >> k) > 0).to(x.dtype)
-    return n
-
-
-def _len_sym(mlen: torch.Tensor):
-    """(length code 0..28, extra bits, extra value) of match lengths."""
-    v = mlen - MIN_MATCH
-    vs = v.clamp(min=8)
-    e = _bit_length(vs) - 3
-    lc = torch.where(v < 8, v, 4 + 4 * e + ((vs >> e) & 3))
-    lc = torch.where(v == 255, 28, lc)
-    small = (v < 8) | (v == 255)
-    eb = torch.where(small, 0, e)
-    ev = torch.where(small, 0, v & ((1 << e.clamp(min=0)) - 1))
-    return lc, eb, ev
-
-
-def _dist_sym(dist: torch.Tensor):
-    """(dist code 0..29, extra bits, extra value) of distances."""
-    d = dist - 1
-    ds = d.clamp(min=4)
-    e = _bit_length(ds) - 2
-    dc = torch.where(d < 4, d, 2 * (e + 1) + ((ds >> e) & 1))
-    eb = torch.where(d < 4, 0, e)
-    ev = torch.where(d < 4, 0, d & ((1 << e.clamp(min=0)) - 1))
-    return dc, eb, ev
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +550,34 @@ def scan_chunks(words4, n_valid, start, ins_from, *, depth: int, nice: int,
     return mpos, mld, st[:, 0], st[:, 1] > 0
 
 
+def to_positional(mpos, mld, nmatch, n: int, n_valid, start):
+    """A compact match stream as positional arrays over [B, n] positions,
+    the `parse=` input of dynhuff.encode_chunk_dynamic: (tokens bool,
+    length int32, dist int32), a match's length and distance at its start,
+    tokens at every position of [start, n_valid) not inside a match (the
+    reference's `_to_positional`)."""
+    B, C = mpos.shape
+    dev = mpos.device
+    valid = torch.arange(C, device=dev) < nmatch.to(dev)[:, None]
+    pos = torch.where(valid, mpos.to(torch.int64), n)
+    mld = mld.to(torch.int64)
+    mlen = torch.where(valid, (mld >> 15) + MIN_MATCH, 0)
+    mdist = torch.where(valid, (mld & 0x7FFF) + 1, 0)
+    zeros = torch.zeros((B, n + 2), dtype=torch.int64, device=dev)
+    length = zeros.scatter(1, pos, mlen)[:, :n]
+    dist = zeros.scatter(1, pos, mdist)[:, :n]
+    # a match covers (pos, pos + len): +1 after its start, -1 at its end
+    delta = zeros.scatter_add(1, torch.where(valid, pos + 1, n + 1).clamp(max=n + 1),
+                              valid.to(torch.int64))
+    delta = delta.scatter_add(1, torch.where(valid, pos + mlen, n + 1).clamp(max=n + 1),
+                              -valid.to(torch.int64))
+    interior = torch.cumsum(delta, dim=1)[:, :n] > 0
+    idx = torch.arange(n, device=dev)
+    stt = torch.as_tensor(start, device=dev).to(torch.int64).reshape(-1, 1)
+    tokens = ~interior & (idx >= stt) & (idx < n_valid.to(dev)[:, None])
+    return tokens, length.to(torch.int32), dist.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # K10: the table walk
 # ---------------------------------------------------------------------------
@@ -978,19 +976,13 @@ def pack(words, mpos, mld, meta, lltab, dtab, oww: int, n_seeds: int):
 
 
 def code_tables(freq: torch.Tensor):
-    """Both alphabets' trees from a [B, 320] histogram (EOB added), built
-    in one batched pass over a zero-padded stack. Returns (lltab int32
-    [B, 288], dtab int32 [B, 32]) as code | nbits << 16."""
-    B = freq.shape[0]
+    """Both alphabets' trees from a [B, 320] histogram (EOB added). Returns
+    (lltab int32 [B, 288], dtab int32 [B, 32]) as code | nbits << 16."""
     ll_freq = freq[:, :286].clone()
     ll_freq[:, 256] += 1  # EOB
-    d_freq = freq[:, 288:318]
-    both = torch.cat([ll_freq, F.pad(d_freq, (0, 286 - 30))], dim=0)
-    lens = dynhuff.code_lengths_kraft(both)
-    codes = dynhuff.canonical_codes(lens)
-    tabs = codes | (lens << 16)
-    lltab = F.pad(tabs[:B], (0, 2))
-    dtab = F.pad(tabs[B:, :30], (0, 2))
+    ll_lens, ll_codes, d_lens, d_codes = dynhuff.trees(ll_freq, freq[:, 288:318])
+    lltab = F.pad(ll_codes | (ll_lens << 16), (0, 2))
+    dtab = F.pad(d_codes | (d_lens << 16), (0, 2))
     return lltab, dtab
 
 

@@ -1,8 +1,9 @@
 """Chunk-parallel deflate on one CUDA device: the encode half.
 
 Input is split into fixed-size chunks, every chunk is compressed on the
-device as one dynamic-Huffman block body, and the host stitches the
-byte-aligned chunk blocks into ONE valid zlib/gzip/raw stream:
+device as one Huffman block (a dynamic block body at levels 3-9, a whole
+static block at levels up to 2), and the host stitches the byte-aligned
+chunk blocks into ONE valid zlib/gzip/raw stream:
 
   * each non-final chunk ends byte-aligned with an empty stored block
     (a sync flush), so concatenation is pure byte concatenation;
@@ -22,14 +23,22 @@ or `scan_chunks` (the K8 hash-chain scan; levels 8-9, ZRS_TPU_TABSCAN=0)
 torch, the K3 pack) -> K1 adler32; the host builds each chunk's block
 header from the code lengths and splices it in front of the body.
 
+The XLA engine (the reference's default: ZRS_TPU_KERNEL unset or other
+than 1, levels up to 2, chunk buffers past the kernel's MAX_BUF) runs the
+torch stages of ops/lz77.py and ops/dynhuff.py on batches of 16 chunks:
+find_matches -> greedy_parse -> token codes (static codes, or the dynamic
+symbols, histograms and trees) -> pack_bits [-> seeds] -> K1 adler32.
+
 Every produced stream decodes with any zlib inflater.
 
 The decode half, `decompress_parallel`, decodes indexed streams chunk-
 parallel on the device with the vector engine (parallel/vector_inflate.py:
 K4 decode and K5 expansion, or K11a and K11b under ZRS_VECTOR_TWOPLANE=0)
 or the inflate kernel K6 (one sequential inflate
-per chunk, parallel/swarm_inflate.decode_chunks_kernel), behind the
-container checksum gate and a host exact step.
+per chunk, parallel/swarm_inflate.decode_chunks_kernel) or the seeded
+swarm engine (parallel/swarm_inflate.decode_chunks_seeded, torch walkers
+over flat decode tables), behind the container checksum gate and a host
+exact step.
 """
 
 from __future__ import annotations
@@ -44,22 +53,23 @@ import torch
 from .. import _device
 from ..config import Strategy, Wrap, decode_window_bits_deflate
 from ..models.deflate import BitWriter, _scan_code_lengths
-from ..ops import checksum
+from ..ops import checksum, dynhuff, lz77
 from ..ops import huffman as H
 from ..ops.kernels import deflate_kernel as DK
 from ..utils.stages import STAGES
 from . import swarm_inflate, vector_inflate
 
 DEFAULT_CHUNK = 32 * 1024  # the kernel engine's chunk size
-SEEDS_PER_CHUNK = 128  # decode seeds per indexed chunk
-SUPER_BATCH = 128  # chunks per batch for the bulk of an input
-TAIL_BATCH = 16  # chunks per batch for the rest
+XLA_CHUNK = 128 * 1024  # the XLA engine's chunk size (the reference's DEFAULT_CHUNK)
+SEEDS_PER_CHUNK = swarm_inflate.SEEDS_PER_CHUNK  # decode seeds per indexed dynamic chunk
+SUPER_BATCH = 128  # chunks per batch for the bulk of a kernel-engine input
+TAIL_BATCH = 16  # chunks per batch for the rest, and for the XLA engine
 
 # Observability of engine fallbacks, keyed "stage:ExcType". The encode
 # path catches nothing; the decode path counts the data faults it falls
 # back on (a VectorDataFault of the vector engine, a KernelDataFault of
-# K6, a checksum mismatch), so a healthy run leaves this empty and callers
-# can assert it.
+# K6, a SwarmDataFault of the swarm engine, a checksum mismatch), so a
+# healthy run leaves this empty and callers can assert it.
 _FALLBACKS: "collections.Counter[str]" = collections.Counter()
 
 
@@ -136,16 +146,26 @@ def _splice_bits(header: bytes, hb: int, body_u8: np.ndarray, body_bits: int) ->
 
 
 def _level_knobs(level: int) -> dict:
-    """zlib's (good, max_lazy, nice, chain) for the kernel matcher. At
-    level 6 the device chain budget is 64 instead of zlib's 128 (the
-    kernel engine's speed/ratio knee); ZRS_TPU_CHAIN overrides it."""
+    """The XLA matcher's (chain_depth, max_words, lazy) for a level, and
+    zlib's (good, max_lazy, nice, chain) for the kernel matcher. At level 6
+    the kernel's chain budget is 64 instead of zlib's 128 (the kernel
+    engine's speed/ratio knee); ZRS_TPU_CHAIN overrides it. Levels -1 and
+    0 fall in the first class, as in the reference."""
     kcfg = DK.ZLIB_CONFIG[min(max(level, 1), 9)]
     if level == 6 or level == -1:
         kcfg = (kcfg[0], kcfg[1], kcfg[2], 64)
     chain_env = os.environ.get("ZRS_TPU_CHAIN")
     if chain_env:
         kcfg = (kcfg[0], kcfg[1], kcfg[2], int(chain_env))
-    return dict(kernel_cfg=kcfg)
+    if level <= 1:
+        return dict(chain_depth=1, max_words=8, lazy=False, kernel_cfg=kcfg)
+    if level <= 3:
+        return dict(chain_depth=4, max_words=16, lazy=False, kernel_cfg=kcfg)
+    if level <= 6:
+        return dict(chain_depth=12, max_words=32, lazy=True, kernel_cfg=kcfg)
+    if level <= 8:
+        return dict(chain_depth=16, max_words=32, lazy=True, kernel_cfg=kcfg)
+    return dict(chain_depth=24, max_words=64, lazy=True, kernel_cfg=kcfg)
 
 
 def _resolve_kernel_variant(kernel_cfg) -> tuple[str, int]:
@@ -162,12 +182,28 @@ def _resolve_kernel_variant(kernel_cfg) -> tuple[str, int]:
     return "tab", wg
 
 
-def _encode_batch(chunks, n_valid, valid_from, *, dict_size, n_seeds, kernel_cfg, variant, w_g):
-    """The kernel engine on one batch: uint8 [B, dict + chunk + PAD] ->
-    (words, bits, ll_lens, d_lens, seeds_bit, seeds_out). `variant` is the
-    matcher route of `_resolve_kernel_variant`: "hop" (K2, whose chase
-    also counts the literals), "tab" (K10) or "chain" (K8); the last two
-    leave the histogram to K9 inside `freq_pack_chunks`."""
+def _encode_batch(chunks, n_valid, finals, valid_from, *, dict_size, n_seeds, dynamic,
+                  kernel_scan, chain_depth, max_words, lazy, kernel_cfg, variant=None,
+                  w_g=None):
+    """One batch, uint8 [B, dict + chunk + PAD] -> (words, bits, ll_lens,
+    d_lens, seeds_bit, seeds_out). Static chunks (levels up to 2) come back
+    as complete blocks, with None for the lengths and the seeds; dynamic
+    ones as block bodies.
+
+    With `kernel_scan`, the kernel engine: `variant` is the matcher route
+    of `_resolve_kernel_variant`, "hop" (K2, whose chase also counts the
+    literals), "tab" (K10) or "chain" (K8); the last two leave the
+    histogram to K9 inside `freq_pack_chunks`. Otherwise the XLA engine's
+    torch stages, lz77.encode_chunk_static or dynhuff.encode_chunk_dynamic
+    with the level's (chain_depth, max_words, lazy)."""
+    if not kernel_scan:
+        knobs = dict(chain_depth=chain_depth, max_words=max_words, lazy=lazy,
+                     start=dict_size, valid_from=valid_from)
+        if not dynamic:
+            words, bits = lz77.encode_chunk_static(chunks, n_valid, finals, **knobs)
+            return words, bits, None, None, None, None
+        res = dynhuff.encode_chunk_dynamic(chunks, n_valid, n_seeds=n_seeds, **knobs)
+        return res if n_seeds else (*res, None, None)
     good, mlazy, nice, chain = kernel_cfg
     with STAGES.stage("words", chunks.device):
         words4 = DK.words_from_bytes(chunks)
@@ -249,21 +285,18 @@ def _assemble(payloads, chunks_raw, n_chunks: int):
     return out, index, stored_flags
 
 
-def priming_dict_size(n_chunks: int, chunk_size: int, prime: bool) -> int:
+def priming_dict_size(n_chunks: int, chunk_size: int, prime: bool, *,
+                      shrink: bool = True) -> int:
     """Bytes of preceding data each chunk sees as dictionary: 32 KiB when
-    priming a multi-chunk input, shrunk (never below 8 KiB of room) so that
-    dict + chunk + PAD fits the kernel's u16 position space. Raises when
-    the chunk buffer cannot fit it at all."""
+    priming a multi-chunk input. With `shrink` (the kernel engine's
+    setting) it is cut, never below 8 KiB of room, so that dict + chunk +
+    PAD fits the kernel's u16 position space; a buffer that cannot fit it
+    keeps the full 32 KiB and runs the XLA engine."""
     dict_size = 32768 if (prime and n_chunks > 1) else 0
-    if dict_size:
+    if dict_size and shrink:
         room = DK.MAX_BUF - chunk_size - DK.PAD
         if 8192 <= room < dict_size:
             dict_size = room & ~7
-    if dict_size + chunk_size + DK.PAD > DK.MAX_BUF:
-        raise NotImplementedError(
-            "a chunk buffer over 65024 bytes runs the XLA matcher "
-            "engine, which is not ported yet"
-        )
     return dict_size
 
 
@@ -293,11 +326,12 @@ def chunk_buffers(data: bytes, chunk_size: int, dict_size: int):
     return padded, n_valid, valid_from, data_len
 
 
-def batch_spans(n_chunks: int) -> list[tuple[int, int]]:
-    """(first chunk, size) of each batch: super-batches for the bulk, then
-    tail batches. PyTorch has no per-shape compile, so the last batch is
-    not padded with empty rows."""
-    bulk = (n_chunks // SUPER_BATCH) * SUPER_BATCH
+def batch_spans(n_chunks: int, bulk: bool = True) -> list[tuple[int, int]]:
+    """(first chunk, size) of each batch: with `bulk` (the kernel engine)
+    super-batches for the bulk, then tail batches; without (the XLA
+    engine) tail batches only. PyTorch has no per-shape compile, so the
+    last batch is not padded with empty rows."""
+    bulk = (n_chunks // SUPER_BATCH) * SUPER_BATCH if bulk else 0
     return [(i, SUPER_BATCH) for i in range(0, bulk, SUPER_BATCH)] + [
         (i, min(TAIL_BATCH, n_chunks - i)) for i in range(bulk, n_chunks, TAIL_BATCH)
     ]
@@ -335,27 +369,31 @@ def compress_parallel(
 ):
     """Compress `data` into one valid zlib/gzip/raw stream, chunk-parallel
     on one CUDA device (`device=None`; it raises when there is none), or
-    through the kernels' plain PyTorch versions with `device="cpu"`.
+    through the kernels' plain PyTorch versions and the torch stages on
+    the CPU with `device="cpu"`.
 
-    The engine is the kernel engine at levels 3-9: 32 KiB chunks (the
-    default), each primed with up to ~31 KiB of the preceding data as
-    dictionary, batches of 128 chunks (16 for the tail), and the matcher
-    the reference picks: the hop route (K2) at levels 3-7, the chain route
-    (K8) at levels 8-9, the tab route (K10) where the hop fields do not
-    fit. ZRS_TPU_KERNEL=1 selects this engine; ZRS_TPU_CHAIN,
-    ZRS_TPU_WG, ZRS_TPU_HOPSCAN, ZRS_TPU_TABSCAN and ZRS_TPU_HOP_IL keep
-    their meanings (ZRS_TPU_HOP_IL=2 runs the hop route's chase as K12, the
-    interleaved chase, in place of K2; the stream is the same).
-    Routes not ported yet raise NotImplementedError naming what is
-    missing: levels below 3 (the static engine), ZRS_TPU_KERNEL unset or
-    other than 1 (the reference's XLA matcher engine), a chunk buffer over
-    the kernel's 65024 bytes, `mesh=` and a non-default `strategy` (the
-    host engine).
+    The engine is chosen as the reference chooses it:
+      * the kernel engine when ZRS_TPU_KERNEL=1, the level is 3-9 and
+        dict + chunk + PAD fits the kernel's 65024 bytes: 32 KiB chunks
+        (the default), each primed with up to ~31 KiB of the preceding
+        data as dictionary, batches of 128 chunks (16 for the tail), and
+        the matcher the reference picks: the hop route (K2) at levels 3-7,
+        the chain route (K8) at levels 8-9, the tab route (K10) where the
+        hop fields do not fit. ZRS_TPU_CHAIN, ZRS_TPU_WG, ZRS_TPU_HOPSCAN,
+        ZRS_TPU_TABSCAN and ZRS_TPU_HOP_IL keep their meanings
+        (ZRS_TPU_HOP_IL=2 runs the hop route's chase as K12, the
+        interleaved chase, in place of K2; the stream is the same);
+      * the XLA engine in every other case: 128 KiB chunks by default,
+        primed with 32 KiB at levels 2-9, batches of 16 chunks, a dynamic
+        block a chunk at levels 3-9 and a static one at levels up to 2
+        (levels -1 and 0 included, as in the reference: no stored level).
+    Routes not ported yet raise NotImplementedError: `mesh=` and a
+    non-default `strategy` (the host engine).
 
     With return_index=True, also returns the ChunkIndex of (body_offset,
-    body_len, out_len) per chunk with 128 decode seeds per coded chunk;
-    indexed streams are not dictionary-primed, so every chunk decodes on
-    its own.
+    body_len, out_len) per chunk, with 128 decode seeds per dynamic coded
+    chunk (a static stream's index carries none); indexed streams are not
+    dictionary-primed, so every chunk decodes on its own.
     """
     if strategy is not None and strategy != Strategy.Default:
         raise NotImplementedError(
@@ -364,45 +402,41 @@ def compress_parallel(
         )
     if mesh is not None:
         raise NotImplementedError("mesh= (the sharded encode) is not ported yet")
-    kernel_env = os.environ.get("ZRS_TPU_KERNEL")
-    if kernel_env != "1":
-        setting = " unset" if kernel_env is None else f"={kernel_env}"
-        raise NotImplementedError(
-            f"ZRS_TPU_KERNEL{setting} selects the XLA matcher engine, which "
-            "is not ported yet; ZRS_TPU_KERNEL=1 selects the kernel engine"
-        )
-    if level < 3:
-        raise NotImplementedError(
-            f"level {level} runs the static-Huffman engine, which is not "
-            "ported yet (the port covers levels 3-9 of the kernel engine)"
-        )
-    knobs = _level_knobs(level)
-    variant, w_g = _resolve_kernel_variant(knobs["kernel_cfg"])
+    kernel_env = os.environ.get("ZRS_TPU_KERNEL") == "1"
     dev = _device.resolve_device(device)
     if chunk_size is None:
-        chunk_size = DEFAULT_CHUNK
+        chunk_size = DEFAULT_CHUNK if kernel_env else XLA_CHUNK
     wrap, wbits = decode_window_bits_deflate(window_bits)
     n = len(data)
     n_chunks = max(1, -(-n // chunk_size))
     # indexed streams stay independently decodable, so priming is off
     # with return_index
     dict_size = priming_dict_size(
-        n_chunks, chunk_size, prime_dict and not return_index
+        n_chunks, chunk_size, prime_dict and not return_index and level >= 2,
+        shrink=kernel_env,
     )
     padded, n_valid, valid_from, data_len = chunk_buffers(data, chunk_size, dict_size)
-    n_seeds = SEEDS_PER_CHUNK if return_index else 0
+    finals = np.zeros(n_chunks, np.int32)
+    finals[-1] = 1
+    knobs = _level_knobs(level)
+    dynamic = level >= 3
+    kernel_scan = kernel_env and dynamic and dict_size + chunk_size + lz77.PAD <= DK.MAX_BUF
+    variant, w_g = (_resolve_kernel_variant(knobs["kernel_cfg"]) if kernel_scan
+                    else (None, None))
+    n_seeds = SEEDS_PER_CHUNK if (return_index and dynamic) else 0
 
     cw = chunk_size // 4 + 80  # compressed-size bound fetched per chunk
     parts = collections.defaultdict(list)
     full_rows = []
-    for b0, bsz in batch_spans(n_chunks):
+    for b0, bsz in batch_spans(n_chunks, bulk=kernel_scan):
         sl = slice(b0, b0 + bsz)
         dc = torch.from_numpy(padded[sl]).to(dev)
         dn = torch.from_numpy(n_valid[sl]).to(dev)
         dv = torch.from_numpy(valid_from[sl]).to(dev)
+        df = torch.from_numpy(finals[sl]).to(dev)
         words, bits, ll_lens, d_lens, sbit, sout = _encode_batch(
-            dc, dn, dv, dict_size=dict_size, n_seeds=n_seeds,
-            kernel_cfg=knobs["kernel_cfg"], variant=variant, w_g=w_g,
+            dc, dn, df, dv, dict_size=dict_size, n_seeds=n_seeds, dynamic=dynamic,
+            kernel_scan=kernel_scan, variant=variant, w_g=w_g, **knobs,
         )
         with STAGES.stage("adler32", dev):
             adlers = checksum.adler32_batch(
@@ -417,8 +451,9 @@ def compress_parallel(
         parts["words"].append(words)
         parts["bits"].append(bits)
         parts["adler"].append(adlers.to(torch.int32))
-        parts["ll"].append(ll_lens)
-        parts["d"].append(d_lens)
+        if dynamic:
+            parts["ll"].append(ll_lens)
+            parts["d"].append(d_lens)
         if n_seeds:
             parts["sbit"].append(sbit)
             parts["sout"].append(sout)
@@ -452,6 +487,12 @@ def compress_parallel(
 
         payloads = []
         for k in range(n_chunks):
+            if not dynamic:  # a complete static block: no header to splice
+                total_bits = int(bits_np[k])
+                nbytes = (total_bits + 7) // 8
+                row = row_words(k, nbytes)
+                payloads.append((row.view(np.uint8)[:nbytes].tobytes(), total_bits))
+                continue
             hdr, hb = _dyn_header(host["ll"][k], host["d"][k], final=k == n_chunks - 1)
             body_bits = int(bits_np[k])
             row = row_words(k, (body_bits + 7) // 8 + 1)
@@ -489,12 +530,13 @@ def compress_parallel(
         abs_index = ChunkIndex(
             (hdr_len + off, ln, out_len) for off, ln, out_len in index
         )
-        # seeds for coded chunks only; stored chunks decode by memcpy
-        abs_index.seeds = [
-            None if stored_flags[k]
-            else (host["sbit"][k].tolist(), host["sout"][k].tolist())
-            for k in range(n_chunks)
-        ]
+        if n_seeds:
+            # seeds for coded chunks only; stored chunks decode by memcpy
+            abs_index.seeds = [
+                None if stored_flags[k]
+                else (host["sbit"][k].tolist(), host["sout"][k].tolist())
+                for k in range(n_chunks)
+            ]
         return bytes(out), abs_index
     return bytes(out)
 
@@ -544,27 +586,28 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
 
     engine="device" (the default) runs on `device`: the GPU when None,
     raising RuntimeError when there is none; "cpu" runs the kernels' plain
-    versions. The engines run in the reference's order:
+    versions and the swarm engine on the CPU. The engines run in the
+    reference's order:
       * the vector engine (K4, K5; the single-plane K11a, K11b under
         ZRS_VECTOR_TWOPLANE=0), when every chunk has seeds and
         ZRS_TPU_VECTOR is not "0";
       * the inflate kernel K6 (`swarm_inflate.decode_chunks_kernel`), when
-        there is no result yet: an index with a stored chunk (no seeds),
-        ZRS_TPU_VECTOR=0, or a data fault of the vector engine.
-    A data fault (a VectorDataFault or a KernelDataFault: a parse failure,
-    bad or short walkers or lanes, drift, a coverage gap) is counted in
-    fallback_stats() as `vector_decode:ValueError` or
-    `kernel_decode:ValueError` and passes the decode on. A device result
-    whose container checksum fails is counted as
-    `device_checksum:ValueError`; then the host exact step (stdlib raw
+        there is no result yet and ZRS_TPU_KERNEL is not "0": an index
+        with a stored chunk (no seeds), ZRS_TPU_VECTOR=0, or a data fault
+        of the vector engine;
+      * the seeded swarm engine (`swarm_inflate.decode_chunks_seeded`),
+        when there is still no result and every chunk has seeds; under
+        ZRS_TPU_KERNEL=0 it is the only engine after the vector engine.
+    A data fault (a VectorDataFault, a KernelDataFault or a SwarmDataFault:
+    a parse failure, bad or short walkers or lanes, drift, a coverage gap)
+    is counted in fallback_stats() as `vector_decode:ValueError`,
+    `kernel_decode:ValueError` or `swarm_decode:ValueError` and passes the
+    decode on. A device result whose container checksum fails is counted
+    as `device_checksum:ValueError`; then the host exact step (stdlib raw
     inflate per chunk) decodes. Kernel build, launch and argument errors
     are not caught.
     engine="host" runs the host exact step only; index=None decodes the
-    whole stream on the host.
-
-    Routes not ported raise NotImplementedError: ZRS_TPU_KERNEL=0 on the
-    device engine (it skips K6 for the seeded swarm engine),
-    engine="native".
+    whole stream on the host. engine="native" raises NotImplementedError.
     """
     if engine == "native":
         raise NotImplementedError(
@@ -578,17 +621,12 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
 
     if engine == "device":
         dev = _device.resolve_device(device)
-        if os.environ.get("ZRS_TPU_KERNEL") == "0":
-            raise NotImplementedError(
-                "ZRS_TPU_KERNEL=0 skips the inflate kernel K6 for the seeded "
-                "swarm engine, which is not ported yet"
-            )
         seeds = getattr(index, "seeds", None)
+        seeded = seeds is not None and all(s is not None for s in seeds)
         bodies = [data[off : off + ln] for off, ln, _ in index]
         out_sizes = [out_len for _, _, out_len in index]
         result = None
-        if (seeds is not None and all(s is not None for s in seeds)
-                and os.environ.get("ZRS_TPU_VECTOR") != "0"):
+        if seeded and os.environ.get("ZRS_TPU_VECTOR") != "0":
             try:
                 result = b"".join(
                     vector_inflate.decode_chunks_vector(bodies, out_sizes, seeds, device=dev)
@@ -597,11 +635,18 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
                 # counted under the reference's key; a wrapper's argument
                 # error (a plain ValueError) is not a data fault and propagates
                 _note_fallback("vector_decode", ValueError(e))
-        if result is None:
+        if result is None and os.environ.get("ZRS_TPU_KERNEL") != "0":
             try:
                 result = b"".join(swarm_inflate.decode_chunks_kernel(bodies, out_sizes, device=dev))
             except swarm_inflate.KernelDataFault as e:
                 _note_fallback("kernel_decode", ValueError(e))
+        if result is None and seeded:
+            try:
+                result = b"".join(
+                    swarm_inflate.decode_chunks_seeded(bodies, out_sizes, seeds, device=dev)
+                )
+            except swarm_inflate.SwarmDataFault as e:
+                _note_fallback("swarm_decode", ValueError(e))
         if result is not None:
             with STAGES.host("container_check"):
                 if container_ok(data, result):

@@ -1,10 +1,23 @@
-"""The chunk decode through the inflate kernel K6, and the host parse of a
-chunk's block header for the seeded decode engines.
+"""The chunk decode through the inflate kernel K6, the seeded swarm decode
+engine, and the host parse of a chunk's block header for the seeded
+decode engines.
 
 The port of zlib_rs_tpu/parallel/swarm_inflate.py's `decode_chunks_kernel`
-(lines 296-331), `_HostBits` and `parse_block_header` (lines 65-160). The
-seeded swarm engine (the XLA walkers, `decode_chunks_seeded`) and the
-bench's `make_kernel_dispatch` are not ported yet.
+(lines 296-331), `_HostBits` and `parse_block_header` (lines 65-160), and
+its seeded swarm engine, `decode_seeded` and `decode_chunks_seeded`
+(lines 163-293, 389-436), in torch ops. The bench's `make_kernel_dispatch`
+and the sharded `make_sharded_decode_step` are not ported yet.
+
+The swarm engine decodes the chunks of an indexed stream from the seeds
+the encoder recorded (`compress_parallel(..., return_index=True)`): the
+block header is parsed on the host, the flat decode tables are built on
+the device (device_inflate._build_flat_lut), and every seed starts a
+walker that decodes one symbol a step from its own bit cursor into a
+token tape until it has covered exactly its span; the tapes then resolve
+into bytes (device_inflate.resolve_tokens). A walker must land on the
+next seed's bit cursor, and a bad symbol, a short span or drift flags its
+chunk; `decode_chunks_seeded` raises SwarmDataFault for the caller's
+fallback.
 """
 
 from __future__ import annotations
@@ -16,11 +29,27 @@ from .. import _device
 from ..ops import huffman as H
 from ..ops.kernels import inflate_kernel as IK
 from ..utils.stages import STAGES
+from . import device_inflate as DI
+
+SEEDS_PER_CHUNK = 128  # decode seeds of an indexed dynamic chunk
+CAP_QUANTUM = 512  # the walker step bound is rounded up to a multiple of this
+CHECK_EVERY = 16  # walker steps between two host checks for live walkers
+
+# runs of the swarm engine's walkers, for tests and the smoke run to show
+# the engine ran
+runs = {"decode_seeded": 0}
 
 
 class KernelDataFault(ValueError):
     """K6 could not decode the input exactly: a bad lane or a short
     output. The caller takes it as a data fault and falls back."""
+
+
+class SwarmDataFault(ValueError):
+    """The swarm engine could not decode the input exactly: a chunk that is
+    not seedable, a seed count other than SEEDS_PER_CHUNK, a bad or
+    drifting walker or a short output. The caller takes it as a data fault
+    and falls back."""
 
 
 def decode_chunks_kernel(bodies, out_sizes, *, device=None):
@@ -170,3 +199,173 @@ def parse_block_header(body: bytes):
     if ll[256] == 0:
         return None
     return btype, ll, d, br.pos
+
+
+def _words_at_every_byte(comp: torch.Tensor) -> torch.Tensor:
+    """The little-endian u32 at every byte offset of each row, int64 [B, L],
+    reading zeros past the row's end."""
+    b = torch.nn.functional.pad(comp.to(torch.int64), (0, 3))
+    return b[:, :-3] | (b[:, 1:-2] << 8) | (b[:, 2:-1] << 16) | (b[:, 3:] << 24)
+
+
+def decode_seeded(comp, ll_lens, d_lens, seeds_bit, seeds_span, cap: int, max_out: int, *,
+                  check_every: int = CHECK_EVERY):
+    """Decode B chunks with S exact walkers each, on the inputs' device.
+
+    comp: uint8 [B, L] chunk bodies zero-padded at least 12 bytes past the
+    data; ll_lens, d_lens: int [B, 320] code lengths from the host header
+    parse; seeds_bit: int [B, S] the body bit cursor of each walker's first
+    symbol; seeds_span: int [B, S] the output bytes each walker must cover;
+    cap: the most steps a walker takes. Returns (out uint8 [B, max_out],
+    produced int32 [B], bad bool [B]).
+
+    The reference loops while any walker is live. Past that point a step
+    writes empty tokens and moves nothing (a walker that went bad keeps
+    decoding the same symbol and stays bad), so the host looks for a live
+    walker only every `check_every` steps; the tapes are the same.
+    """
+    runs["decode_seeded"] += 1
+    B, L = comp.shape
+    S = seeds_bit.shape[1]
+    W = B * S
+    dev = comp.device
+    words = _words_at_every_byte(comp).reshape(-1)
+    rev = torch.from_numpy(DI._REV15_NP).to(dev)
+    ll_lut = DI._build_flat_lut(ll_lens.to(dev), *DI._ll_symbol_fields(320), rev).reshape(-1)
+    d_lut = DI._build_flat_lut(d_lens.to(dev), *DI._d_symbol_fields(320), rev).reshape(-1)
+
+    lane = torch.arange(B, device=dev).repeat_interleave(S)
+    base_byte = lane * L
+    base_lut = lane << DI.FLAT_BITS
+    mask15 = (1 << DI.FLAT_BITS) - 1
+    m32 = 0xFFFFFFFF
+    sbit = seeds_bit.to(device=dev, dtype=torch.int64)
+    sspan = seeds_span.to(device=dev, dtype=torch.int64)
+    bitpos = sbit.reshape(W).clone()
+    remaining = sspan.reshape(W).clone()
+    bad = torch.zeros(W, dtype=torch.bool, device=dev)
+    # time-major tapes: a step writes one contiguous row
+    tk = torch.zeros((cap, W), dtype=torch.uint8, device=dev)
+    ta = torch.zeros((cap, W), dtype=torch.int32, device=dev)
+    tb = torch.zeros((cap, W), dtype=torch.int32, device=dev)
+
+    def window(lo, hi, n):
+        """Bits [n, n + 32) of the 64-bit window hi:lo."""
+        return ((lo >> n) | torch.where(n > 0, hi << (32 - n), 0)) & m32
+
+    for it in range(cap):
+        if it % check_every == 0 and it and not bool(((remaining > 0) & ~bad).any()):
+            break
+        active = remaining > 0
+        byte = base_byte + (bitpos >> 3).clamp(0, L - 9)
+        sh = bitpos & 7
+        w0 = words[byte]
+        w1 = words[byte + 4]
+        w2 = words[byte + 8]
+        lo = window(w0, w1, sh)
+        hi = window(w1, w2, sh)
+
+        e = ll_lut[base_lut + (lo & mask15)]
+        kind = e >> 28
+        aux = (e >> 22) & 0x3F
+        nb = (e >> 16) & 0x3F
+        payload = e & 0xFFFF
+        # bits [nb, nb + aux): the length's extra bits
+        length = payload + (window(lo, hi, nb) & ((1 << aux) - 1))
+        p2 = nb + aux
+        win2 = window(lo, hi, p2)
+        de = d_lut[base_lut + (win2 & mask15)]
+        dkind = de >> 28
+        daux = (de >> 22) & 0x3F
+        dnb = (de >> 16) & 0x3F
+        dist = (de & 0xFFFF) + ((win2 >> dnb) & ((1 << daux) - 1))
+
+        is_lit = kind == DI.KIND_LIT
+        is_match = (kind == DI.KIND_MATCH) & (dkind == DI.KIND_MATCH)
+        is_bad = active & ((kind == DI.KIND_INVALID)
+                           | (kind == DI.KIND_EOB)  # a span ends before the EOB
+                           | ((kind == DI.KIND_MATCH) & (dkind != DI.KIND_MATCH)))
+        cover = torch.where(is_lit, 1, torch.where(is_match, length, 0))
+        is_bad |= active & (cover > remaining)
+        adv = torch.where(is_lit, nb, torch.where(is_match, nb + aux + dnb + daux, 0))
+        emit = active & ~is_bad
+        tk[it] = torch.where(emit & is_lit, DI.TOK_LIT,
+                             torch.where(emit & is_match, DI.TOK_MATCH, DI.TOK_NULL))
+        ta[it] = torch.where(emit, cover, 0)
+        tb[it] = torch.where(emit, torch.where(is_lit, payload, dist), 0)
+        bitpos = torch.where(emit, bitpos + adv, bitpos)
+        remaining = torch.where(emit, remaining - cover, remaining)
+        bad |= is_bad
+
+    # exactness: every walker drained its span and landed on the next
+    # seed's bit cursor (walkers with no span never move)
+    bad |= remaining > 0
+    end_bits = bitpos.reshape(B, S)
+    drift = (end_bits[:, :-1] != sbit[:, 1:]) & (sspan[:, :-1] > 0)
+    lane_bad = bad.reshape(B, S).any(dim=1) | drift.any(dim=1)
+    # walker-major for the resolver: walker s holds slots [s * cap, (s + 1) * cap)
+    tapes = [t.T.reshape(B, S * cap) for t in (tk, ta, tb)]
+    win = torch.zeros((B, 0), dtype=torch.uint8, device=dev)
+    out, produced = DI.resolve_tokens(comp, *tapes, win, max_out, 0)
+    return out, produced, lane_bad
+
+
+def seeded_inputs(bodies, out_sizes, seeds):
+    """The host staging of the swarm engine: (comp uint8 [B, L], ll_lens,
+    d_lens int32 [B, 320], seeds_bit, seeds_span int64 [B, S], cap) as
+    numpy arrays and an int, from the bodies, their output sizes and their
+    (bit offsets, output offsets) seeds. Raises SwarmDataFault for a chunk
+    that is not seedable or a seed count other than SEEDS_PER_CHUNK."""
+    B = len(bodies)
+    S = SEEDS_PER_CHUNK
+    L = max(len(b) for b in bodies) + 12
+    comp = np.zeros((B, L), np.uint8)
+    ll = np.zeros((B, 320), np.int32)
+    dd = np.zeros((B, 320), np.int32)
+    sbit = np.zeros((B, S), np.int64)
+    sspan = np.zeros((B, S), np.int64)
+    for k, body in enumerate(bodies):
+        comp[k, : len(body)] = np.frombuffer(body, np.uint8)
+        parsed = parse_block_header(body)
+        if parsed is None:
+            raise SwarmDataFault(f"chunk {k}: not a seedable coded block")
+        _bt, ll[k], dd[k], hdr_bits = parsed
+        bits, outs = seeds[k]
+        if len(bits) != S:
+            raise SwarmDataFault(f"chunk {k}: expected {S} seeds, got {len(bits)}")
+        sbit[k] = np.asarray(bits, np.int64) + hdr_bits
+        sspan[k] = np.diff(np.concatenate([np.asarray(outs, np.int64), [out_sizes[k]]]))
+    # the step bound in quanta, so that its value changes seldom
+    cap = -(-(int(sspan.max()) + 1) // CAP_QUANTUM) * CAP_QUANTUM
+    return comp, ll, dd, sbit, sspan, cap
+
+
+def decode_chunks_seeded(bodies, out_sizes, seeds, *, max_out=None, device=None):
+    """Decode chunk bodies with their (bit offsets, output offsets) seeds,
+    as compress_parallel records them, through the swarm engine on
+    `device` (the GPU when None; "cpu" runs it in torch on the CPU).
+    Returns a list of bytes, one per body, or raises SwarmDataFault."""
+    B = len(bodies)
+    if B == 0:
+        return []
+    dev = _device.resolve_device(device)
+    max_out = max_out or max(out_sizes)
+    with STAGES.host("swarm_prepare"):
+        *arrays, cap = seeded_inputs(bodies, out_sizes, seeds)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+    with STAGES.stage("swarm_decode", dev):
+        out, produced, bad = decode_seeded(*args, cap=cap, max_out=max_out)
+    if STAGES.enabled and dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # keep device time out of the host stage
+    with STAGES.host("swarm_checks"):
+        bad_np = bad.cpu().numpy()
+        if bad_np.any():
+            raise SwarmDataFault(f"swarm decode drift on lanes {np.nonzero(bad_np)[0][:4]}")
+        produced_np = produced.cpu().numpy()
+        out_np = out.cpu().numpy()
+        parts = []
+        for k in range(B):
+            if produced_np[k] < out_sizes[k]:
+                raise SwarmDataFault(f"chunk {k}: short output {produced_np[k]}")
+            parts.append(out_np[k, : out_sizes[k]].tobytes())
+        return parts
