@@ -60,8 +60,20 @@ rows, and K4, K5, K11a, K11b and K6 on the 128 KiB indexed streams (K5
 and K11b on their serial too-large body), each against its plain
 version, and every decode route end to end on them; the seeded swarm
 engine under ZRS_TPU_KERNEL=0 (and ZRS_TPU_VECTOR=0), held against its
-CPU run; the static level-1 index through K6 (phases 26-31). Any mismatch
-raises; no phase's failure is caught.
+CPU run; the static level-1 index through K6 (phases 26-31). Then the
+lockstep region engine (`decode_regions`, `resolve_tokens`) on 8 lanes of
+16 KiB (stdlib raw deflate at levels 0, 1, 6 and 9 and under Z_FIXED, two
+zran regions at sub-byte starts with their windows, the lone-EOB body),
+held against its CPU run and the corpus, `decompress_chunks(engine=
+"auto")` recovering the lone-EOB body that K6 refuses and a flipped bit
+raising (phase 32); `decompress_foreign` of the corpus as stdlib zlib at
+levels 6 and 9, raw deflate and gzip of 1 and 4 members, each through K6
+with no fallback, three warm runs of the level-6 stream with the zran
+index pass and the region decode timed apart, and a corrupted adler32
+raising (phase 33); `compress_parallel` under each non-default strategy
+(the host engine) at level 6 on 256 KiB as zlib and gzip, each decoded by
+zlib, and return_index raising (phase 34). Any mismatch raises; no
+phase's failure is caught.
 
 Each encode prints its stream's length and sha256, so that two checkouts
 run in one call can be shown to give the same bytes.
@@ -2027,6 +2039,233 @@ def xla_phases(torch, dev, corpus, rows) -> dict:
     return result
 
 
+LONE_EOB = bytes.fromhex("05c0810800000000207feb03")  # a dynamic block whose only code is EOB
+
+
+def lockstep_regions(corpus: bytes):
+    """Phase 32's 8 lanes: 16 KiB of the corpus as stdlib raw deflate at
+    levels 0, 1, 6 and 9 and under Z_FIXED, two regions of a level-6
+    stream of small blocks cut by the zran index at sub-byte starts with
+    their windows, and the lone-EOB body. Returns (bodies, sizes, windows,
+    starts, wants)."""
+    from zlib_rs_tpu_torch.models import zran as Z
+
+    kb16 = 16 * 1024
+    lanes = [(_raw(corpus[k * kb16 : (k + 1) * kb16], level=lv, strategy=st), k * kb16)
+             for k, (lv, st) in enumerate(((0, 0), (1, 0), (6, 0), (9, 0),
+                                           (6, zlib.Z_FIXED)))]
+    bodies = [b for b, _ in lanes]
+    wants = [corpus[o : o + kb16] for _, o in lanes]
+    windows = [b""] * len(lanes)
+    starts = [0] * len(lanes)
+    off = 5 * kb16
+    seg = corpus[off : off + 8 * kb16]
+    stream = _raw(seg, mem=1)
+    index = Z.build_index(stream, span=kb16)
+    pts = [p for p in index.points if p.bits and p.out_offset]
+    if len(pts) < 2:
+        raise AssertionError("the index has fewer than 2 sub-byte points")
+    for p in pts[:2]:
+        nxt = next((q for q in index.points if q.out_offset > p.out_offset), None)
+        end_out = nxt.out_offset if nxt else index.total_out
+        end_bit = (nxt.in_offset - 1) * 8 + (8 - nxt.bits) if nxt and nxt.bits else (
+            nxt.in_offset * 8 if nxt else len(stream) * 8)
+        bit = (p.in_offset - 1) * 8 + (8 - p.bits)
+        bodies.append(stream[bit >> 3 : ((end_bit + 7) >> 3) + 8])
+        starts.append(bit & 7)
+        windows.append(p.window)
+        wants.append(seg[p.out_offset : end_out])
+    bodies.append(LONE_EOB)
+    wants.append(b"")
+    windows.append(b"")
+    starts.append(0)
+    return bodies, [len(w) for w in wants], windows, starts, wants
+
+
+def lockstep_phase(torch, dev, corpus) -> dict:
+    """Phase 32: the lockstep engine (`decode_regions`, `resolve_tokens`)
+    on the card against its CPU run on phase 32's 8 lanes, their bytes
+    against the corpus; `decompress_chunks(engine="auto")` recovering the
+    lone-EOB body K6 refuses; a region with a flipped bit raising."""
+    import numpy as np
+
+    from zlib_rs_tpu_torch.parallel import device_inflate as DI
+    from zlib_rs_tpu_torch.parallel import inflate as RI
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    t_start = time.perf_counter()
+    bodies, sizes, windows, starts, wants = lockstep_regions(corpus)
+    B = len(bodies)
+    L = 1 << (max(len(b) for b in bodies) + 8 - 1).bit_length()
+    comp = np.zeros((B, L), np.uint8)
+    for i, b in enumerate(bodies):
+        comp[i, : len(b)] = np.frombuffer(b, np.uint8)
+    args = [torch.from_numpy(np.asarray(a, np.int32)) for a in
+            (starts, [len(b) * 8 for b in bodies], sizes)]
+    max_out = 1 << (max(sizes) - 1).bit_length()
+    max_steps = max_out + 2 + 512 * max(1, max(len(b) for b in bodies) // 4096)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = DI.decode_regions(torch.from_numpy(comp).to(dev), *(a.to(dev) for a in args),
+                                max_steps)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = DI.decode_regions(torch.from_numpy(comp), *args, max_steps)
+    cpu_s = time.perf_counter() - t0
+    n_steps = on_card[3]
+    if n_steps != on_cpu[3]:
+        raise AssertionError(f"decode_regions took {n_steps} steps on the card, {on_cpu[3]} on "
+                             "the CPU")
+    err = max_abs([(a.cpu(), b) for k, (a, b) in enumerate(zip(on_card, on_cpu)) if k != 3])
+    if err or bool(on_cpu[5].any()):
+        raise AssertionError(f"decode_regions on the card differs from the CPU: {err}, bad "
+                             f"{on_cpu[5].tolist()}")
+    wlen = 32768
+    wins = np.zeros((B, wlen), np.uint8)
+    for i, w in enumerate(windows):
+        if w:
+            wins[i, wlen - len(w[-wlen:]) :] = np.frombuffer(w[-wlen:], np.uint8)
+    t0 = time.perf_counter()
+    vals, _tot = DI.resolve_tokens(torch.from_numpy(comp).to(dev), *(t[:, :n_steps] for t in
+                                   on_card[:3]), torch.from_numpy(wins).to(dev), max_out, wlen)
+    vals = vals.cpu().numpy()
+    resolve_s = time.perf_counter() - t0
+    for i, w in enumerate(wants):
+        if vals[i, : len(w)].tobytes() != w:
+            raise AssertionError(f"lockstep lane {i} does not resolve to the corpus")
+
+    PL._FALLBACKS.clear()
+    good = bodies[2]
+    got = RI.decompress_chunks([LONE_EOB, good], [0, sizes[2]])
+    if got != [b"", wants[2]] or PL.fallback_stats() != {"region_kernel:ValueError": 1}:
+        raise AssertionError(f"auto on the lone-EOB body: {PL.fallback_stats()}")
+    PL._FALLBACKS.clear()
+    broken = bytes([good[0] ^ 0x02]) + good[1:]  # BTYPE 2 becomes the reserved 3
+    try:
+        RI.decompress_chunks([good, broken], [sizes[2]] * 2, engine="lockstep")
+    except ValueError as e:
+        why = str(e)
+    else:
+        raise AssertionError("a region with a flipped bit decoded on the lockstep engine")
+    wall = time.perf_counter() - t_start
+    result = {"lanes": B, "n_steps": n_steps, "card_s": card_s, "steps_per_s": n_steps / card_s,
+              "cpu_s": cpu_s, "resolve_s": resolve_s, "phase_s": wall}
+    print(f"phase 32 lockstep: {B} lanes (levels 0, 1, 6, 9, fixed, 2 primed at start bits "
+          f"{starts[5:7]}, lone EOB), {n_steps} steps equal to the CPU run, {card_s:.3f} s on the "
+          f"card ({n_steps / card_s:.1f} steps/s), {cpu_s:.3f} s on the CPU, resolve "
+          f"{resolve_s:.3f} s, bytes equal the corpus; auto recovered the lone-EOB body after "
+          f"one region_kernel count; a flipped bit raised ({why}); phase {wall:.1f} s", flush=True)
+    return result
+
+
+def foreign_streams(corpus: bytes) -> dict:
+    """Phase 33's foreign streams of the corpus: stdlib zlib at levels 6
+    and 9, raw deflate, a gzip member and 4 gzip members."""
+    import gzip
+
+    q = len(corpus) // 4
+    return {
+        "zlib6": zlib.compress(corpus, 6),
+        "zlib9": zlib.compress(corpus, 9),
+        "raw": _raw(corpus),
+        "gzip": gzip.compress(corpus, 6, mtime=0),
+        "gzip4": b"".join(gzip.compress(corpus[k * q : (k + 1) * q if k < 3 else None], 6,
+                                        mtime=0) for k in range(4)),
+    }
+
+
+def foreign_phase(torch, corpus, rows) -> dict:
+    """Phase 33: `decompress_foreign` of the corpus as stdlib zlib (levels
+    6 and 9), raw deflate and gzip (1 and 4 members), each equal to the
+    corpus with no fallback and its K6 launches counted: the level-6
+    stream three times with its stages (the zran index pass, the region
+    decode; K6 is warm since phase 11), the others once; a corrupted
+    adler32 raising."""
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    t_start = time.perf_counter()
+    span = 1 << 20
+    result = {"span": span, "streams": {}}
+    streams = foreign_streams(corpus)
+    for label, stream in streams.items():
+        IK.launches["inflate"] = 0
+        with k6_events(torch, IK) as k6_ms:
+            if label == "zlib6":
+                runs = warm_runs(torch, PL, lambda: zt.decompress_foreign(stream, span), corpus,
+                                 len(corpus), "foreign zlib-6", 33)
+            else:
+                PL.STAGES.enabled = True
+                PL.STAGES.reset()
+                t0 = time.perf_counter()
+                try:
+                    back = zt.decompress_foreign(stream, span)
+                finally:
+                    PL.STAGES.enabled = False
+                runs = {"warm_s": [time.perf_counter() - t0], "stage_ms": [PL.STAGES.ms()]}
+                if back != corpus:
+                    raise AssertionError(f"decompress_foreign of {label} is not the corpus")
+        ran = IK.launches["inflate"]
+        if PL.fallback_stats() or ran != len(runs["warm_s"]):
+            raise AssertionError(f"decompress_foreign of {label}: fallbacks "
+                                 f"{PL.fallback_stats()}, K6 launches {ran}")
+        result["streams"][label] = {"bytes": len(stream), "launches": ran, "k6_ms": k6_ms, **runs}
+        rows["inflate"]["foreign_launches"] = rows["inflate"].get("foreign_launches", 0) + ran
+        wall = runs["warm_s"][-1]
+        print(f"phase 33 {label}: {len(stream)} bytes -> the corpus in {wall:.3f} s "
+              f"({len(corpus) / wall / 1e6:.2f} MB/s), K6 launches {ran} "
+              f"({', '.join(f'{x:.3f}' for x in k6_ms)} ms by events), stages ms "
+              + json.dumps({n: round(v, 3) for n, v in runs["stage_ms"][-1].items()}),
+              flush=True)
+    small = zlib.compress(corpus[: 1 << 20], 6)
+    bad = small[:-1] + bytes([small[-1] ^ 1])
+    try:
+        zt.decompress_foreign(bad, span)
+    except ValueError as e:
+        if "incorrect data check" not in str(e):
+            raise
+    else:
+        raise AssertionError("a corrupted adler32 decoded")
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 33: a corrupted adler32 raised; phase {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def host_strategy_phase(corpus) -> dict:
+    """Phase 34: `compress_parallel` under each non-default strategy (the
+    host engine) at level 6 on a 256 KiB slice, as zlib and gzip, each
+    decoded by zlib with its length and sha256; return_index raising."""
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.config import Strategy
+
+    t_start = time.perf_counter()
+    data = corpus[: 256 * 1024]
+    result = {}
+    for strategy in (Strategy.Filtered, Strategy.HuffmanOnly, Strategy.Rle, Strategy.Fixed):
+        for wbits in (15, 31):
+            t0 = time.perf_counter()
+            out = zt.compress_parallel(data, 6, window_bits=wbits, strategy=strategy)
+            wall = time.perf_counter() - t0
+            if zlib.decompress(out, wbits) != data:
+                raise AssertionError(f"{strategy.name} (window_bits {wbits}) does not decode")
+            label = f"{strategy.name}_{'zlib' if wbits == 15 else 'gzip'}"
+            result[label] = {"bytes": len(out), "sha256": hashlib.sha256(out).hexdigest(),
+                             "wall_s": wall}
+            print(f"phase 34 {label}: {len(data)} -> {digest(out)}, {wall:.3f} s", flush=True)
+        try:
+            zt.compress_parallel(data, 6, strategy=strategy, return_index=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{strategy.name} with return_index did not raise")
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 34: return_index raised under every strategy; phase "
+          f"{result['phase_s']:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2269,6 +2508,9 @@ def main() -> int:
     hop_il = hop_il_phases(torch, dev, corpus, (dn, dict_size, words4, htab, cap_g), out, rows,
                            launches)
     xla = xla_phases(torch, dev, corpus, rows)
+    lockstep = lockstep_phase(torch, dev, corpus)
+    foreign = foreign_phase(torch, corpus, rows)
+    host_strategies = host_strategy_phase(corpus)
 
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
@@ -2280,7 +2522,8 @@ def main() -> int:
             name=name, route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            **{k: r[k] for k in ("plain_rows", "queued_ms", "at_128k") if k in r},
+            **{k: r[k] for k in ("plain_rows", "queued_ms", "at_128k", "foreign_launches")
+               if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
@@ -2288,6 +2531,7 @@ def main() -> int:
         "ratio_to_zlib": len(out) / zref, "cold_s": cold_s, **warm, "decode": decode,
         "gzip_encode": gzip_encode, "k6_decode": k6_decode, "encode_routes": routes,
         "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
+        "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

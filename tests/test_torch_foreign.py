@@ -1,0 +1,219 @@
+"""The decode of foreign streams: the port's zran index, its copy of the
+host inflater and `decompress_foreign` (device="cpu": K6's plain version,
+the lockstep engine's torch ops) against the JAX package's, on streams
+stdlib zlib and gzip wrote from slices of /bin/bash.
+
+The JAX index pass runs its Python path here (its native pass is patched
+out; no file of the JAX package changes). That pass auto-detects zlib or
+gzip only, so a raw stream's index is held against the JAX index of the
+same body in a zlib wrapper, two bytes later. Where the JAX Python path
+records a point after the final block, its `decompress_foreign` raises;
+the port skips regions that cover no output and decodes the stream."""
+
+import gzip
+import zlib
+
+import pytest
+import torch
+
+import zlib_rs_tpu.config as jc
+import zlib_rs_tpu.models.inflate as JINF
+import zlib_rs_tpu.models.zran as JZ
+import zlib_rs_tpu.parallel.inflate as JI
+from zlib_rs_tpu_torch import config as tc
+from zlib_rs_tpu_torch.models import inflate as TINF
+from zlib_rs_tpu_torch.models import zran as TZ
+from zlib_rs_tpu_torch.parallel import inflate as TI
+from zlib_rs_tpu_torch.parallel import pipeline as tp
+
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
+_BASH = open("/bin/bash", "rb").read()
+
+
+@pytest.fixture(autouse=True)
+def _python_index(monkeypatch):
+    monkeypatch.setattr(JZ, "_build_index_native", lambda data, span: None)
+
+
+def _stream(wrap, data, level):
+    if wrap == "zlib":
+        return zlib.compress(data, level)
+    if wrap == "gzip":
+        return gzip.compress(data, level, mtime=0)
+    c = zlib.compressobj(level, zlib.DEFLATED, -15)
+    return c.compress(data) + c.flush()
+
+
+def _points(index, shift=0):
+    return [(p.out_offset, p.in_offset + shift, p.bits, p.hold, p.window) for p in index.points]
+
+
+INDEX_CASES = [  # wrap, level, slice start, slice length, span
+    ("zlib", 1, 0, 64 * 1024, 8 * 1024),
+    ("zlib", 6, 300_000, 256 * 1024, 64 * 1024),
+    ("zlib", 9, 600_000, 128 * 1024, 16 * 1024),
+    ("gzip", 1, 100_000, 128 * 1024, 32 * 1024),
+    ("gzip", 6, 0, 192 * 1024, 16 * 1024),
+    ("gzip", 9, 400_000, 64 * 1024, 8 * 1024),
+    ("raw", 1, 500_000, 256 * 1024, 64 * 1024),
+    ("raw", 6, 200_000, 64 * 1024, 8 * 1024),
+    ("raw", 9, 700_000, 128 * 1024, 32 * 1024),
+]
+
+
+@pytest.mark.parametrize("wrap,level,start,n,span", INDEX_CASES)
+def test_build_index_equal_jax(wrap, level, start, n, span):
+    data = _BASH[start : start + n]
+    stream = _stream(wrap, data, level)
+    got = TZ.build_index(stream, span)
+    assert got.total_out == len(data) and len(got.points) >= 2
+    if wrap == "raw":
+        with pytest.raises(ValueError, match="header"):
+            JZ.build_index(stream, span)
+        want = JZ.build_index(zlib.compress(data, level), span)
+        assert _points(got, shift=2) == _points(want)
+    else:
+        want = JZ.build_index(stream, span)
+        assert _points(got) == _points(want)
+    assert (got.total_out, got.wrapper_offset) == (want.total_out, want.wrapper_offset)
+    for p in got.points:
+        assert p.window == data[max(0, p.out_offset - 32768) : p.out_offset]
+
+
+def _gzip_with_fields(data):
+    """A gzip member with FEXTRA, FNAME, FCOMMENT and FHCRC set."""
+    hdr = bytearray(b"\x1f\x8b\x08\x1e" + (1234567).to_bytes(4, "little") + b"\x02\x03")
+    hdr += (6).to_bytes(2, "little") + b"ab\x02\x00xy" + b"name.bin\x00" + b"a comment\x00"
+    hdr += (zlib.crc32(bytes(hdr)) & 0xFFFF).to_bytes(2, "little")
+    body = _stream("raw", data, 6)
+    return bytes(hdr) + body + zlib.crc32(data).to_bytes(4, "little") + (
+        len(data).to_bytes(4, "little"))
+
+
+def _inflator_case(name):
+    """(window_bits, stream, input piece, output budget)."""
+    data = _BASH[800_000:830_000]
+    if name == "zlib":
+        return 15, zlib.compress(data, 6), 701, 5_000
+    if name == "gzip_fields":
+        return 31, _gzip_with_fields(data), 333, None
+    if name == "raw":
+        return -15, _stream("raw", data, 9), 4_096, 1_000
+    if name == "auto_gzip":
+        return 47, gzip.compress(data, 1, mtime=0), 10_000, 2_048
+    if name == "corrupt":
+        z = bytearray(zlib.compress(data, 6))
+        z[len(z) // 3] ^= 0x21
+        return 15, bytes(z), 2_000, None
+    if name == "bad_check":
+        z = zlib.compress(data, 6)
+        return 15, z[:-1] + bytes([z[-1] ^ 1]), 50_000, None
+    raise KeyError(name)
+
+
+def _drive(Inflator, InflateConfig, InflateFlush, window_bits, stream, piece, budget, flush):
+    """Every call's (return code, input used, output, mark(), message),
+    feeding `piece` bytes a call (twice as many after a call that moved
+    nothing) with an output budget, until the stream ends or fails."""
+    inf = Inflator(InflateConfig(window_bits=window_bits))
+    log, pos, k = [], 0, piece
+    for _ in range(10_000):
+        rc, used, out = inf.inflate(stream[pos : pos + k], budget, getattr(InflateFlush, flush))
+        log.append((int(rc), used, bytes(out), inf.mark(), inf.msg))
+        pos += used
+        if int(rc) != 0:
+            break
+        k = k * 2 if used == 0 and not out else piece
+    return log
+
+
+@pytest.mark.parametrize("flush", ["NO_FLUSH", "BLOCK"])
+@pytest.mark.parametrize("name", ["zlib", "gzip_fields", "raw", "auto_gzip", "corrupt",
+                                  "bad_check"])
+def test_inflator_equal_jax(name, flush):
+    case = _inflator_case(name)
+    got = _drive(TINF.Inflator, tc.InflateConfig, tc.InflateFlush, *case, flush)
+    want = _drive(JINF.Inflator, jc.InflateConfig, jc.InflateFlush, *case, flush)
+    assert got == want
+    ok = name not in ("corrupt", "bad_check")
+    assert (got[-1][0] == int(tc.ReturnCode.StreamEnd)) == ok
+    if ok:
+        assert b"".join(e[2] for e in got) == _BASH[800_000:830_000]
+
+
+def _foreign(name):
+    data = _BASH[200_000:400_000]
+    if name == "zlib":
+        return data, zlib.compress(data, 9), 65_536
+    if name == "raw":
+        return data, _stream("raw", data, 9), 65_536
+    if name == "gzip":
+        return data, gzip.compress(data, 6, mtime=0), 1 << 20
+    if name == "gzip_members":
+        return data, b"".join(gzip.compress(data[k : k + 50_000], 1 + k // 50_000, mtime=0)
+                              for k in range(0, len(data), 50_000)), 1 << 20
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["zlib", "raw", "gzip", "gzip_members"])
+def test_decompress_foreign_equal_jax(name):
+    data, stream, span = _foreign(name)
+    tp._FALLBACKS.clear()
+    got = TI.decompress_foreign(stream, span, device="cpu")
+    assert got == data and tp.fallback_stats() == {}
+    if name == "raw":
+        # the JAX Python index pass does not read raw streams; the same
+        # body in a zlib wrapper decodes to the same bytes
+        with pytest.raises(ValueError, match="header"):
+            JI.decompress_foreign(stream, span)
+        assert JI.decompress_foreign(_foreign("zlib")[1], span) == got
+    else:
+        assert JI.decompress_foreign(stream, span) == got
+
+
+def test_decompress_foreign_point_after_final_block():
+    """The Python index pass records a point after the final block when
+    that block ends a span past the last point; the JAX package decodes
+    the trailer as a region and raises, the port skips it."""
+    data = _BASH[:30_000]
+    stream = zlib.compress(data, 6)
+    index = TZ.build_index(stream, 8_192)
+    assert index.points[-1].out_offset == index.total_out
+    with pytest.raises(ValueError, match="failed to decode"):
+        JI.decompress_foreign(stream, 8_192)
+    assert TI.decompress_foreign(stream, 8_192, device="cpu") == data
+
+
+@pytest.mark.parametrize("engine", ["lockstep", "kernel"])
+def test_decompress_foreign_engines(engine):
+    """A zlib stream of small blocks, 6 regions with sub-byte starts and
+    no point after its final block: each engine gives the JAX lockstep
+    engine's bytes. The JAX kernel engine refuses the stream's first
+    region, which covers no output (the stream's start, cut again by the
+    index's first point); the port does not decode it."""
+    data = _BASH[500_000:524_000]
+    c = zlib.compressobj(6, zlib.DEFLATED, 15, 1)
+    stream = c.compress(data) + c.flush()
+    index = TZ.build_index(stream, 4_096)
+    assert index.points[-1].out_offset < index.total_out
+    assert sum(p.bits != 0 for p in index.points) >= 2
+    assert TI.decompress_foreign(stream, 4_096, engine, device="cpu") == data
+    assert JI.decompress_foreign(stream, 4_096, "lockstep") == data
+    if engine == "kernel":
+        with pytest.raises(ValueError, match="region 0 failed"):
+            JI.decompress_foreign(stream, 4_096, engine)
+
+
+@pytest.mark.parametrize("name", ["zlib", "gzip", "gzip_members"])
+def test_decompress_foreign_bad_check_raises(name):
+    data, stream, span = _foreign(name)
+    if name == "zlib":
+        bad = stream[:-1] + bytes([stream[-1] ^ 1])  # the adler32
+    else:
+        bad = stream[:-5] + bytes([stream[-5] ^ 1]) + stream[-4:]  # the last member's crc32
+    with pytest.raises(ValueError, match="incorrect data check"):
+        TI.decompress_foreign(bad, span, device="cpu")
+    with pytest.raises(ValueError, match="incorrect data check"):
+        JI.decompress_foreign(bad, span)

@@ -17,6 +17,7 @@ import re
 import subprocess
 import sys
 import zlib
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -281,8 +282,18 @@ def test_chain_and_tab_routes_equal_jax(monkeypatch, case):
     ],
 )
 def test_routes_not_ported_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        zt.compress_parallel(MULTI, device="cpu", **kw)
+    """mesh= is not ported and raises. A non-default strategy runs the host
+    engine, which is ported: its stream is the JAX package's, and with
+    return_index both packages raise ValueError."""
+    if "strategy" not in kw:
+        with pytest.raises(NotImplementedError, match=match):
+            zt.compress_parallel(MULTI, device="cpu", **kw)
+        return
+    got = zt.compress_parallel(MULTI, device="cpu", **kw)
+    assert got == jp.compress_parallel(MULTI, **kw) and zlib.decompress(got) == MULTI
+    for compress in (partial(zt.compress_parallel, device="cpu"), jp.compress_parallel):
+        with pytest.raises(ValueError, match="default strategy"):
+            compress(MULTI, return_index=True, **kw)
 
 
 def _set_env(monkeypatch, env):

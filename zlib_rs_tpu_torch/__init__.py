@@ -5,9 +5,12 @@ kernel engine under ZRS_TPU_KERNEL=1, and the XLA engine, the default,
 in torch ops), its vector decode engine (two-plane, and single-plane under
 ZRS_VECTOR_TWOPLANE=0), its sequential inflate kernel (the decode of
 indexes with stored chunks or without seeds, the region decode and the
-checkpointed stream decode) and its seeded swarm decode engine (in torch
+checkpointed stream decode), its seeded swarm decode engine (in torch
 ops; the only device engine after the vector engine under
-ZRS_TPU_KERNEL=0). It imports neither JAX nor
+ZRS_TPU_KERNEL=0), its lockstep region engine (torch ops, behind K6) and
+`decompress_foreign`, the region-parallel decode of streams another
+encoder wrote (a host zran index pass, then K6). A non-default strategy
+runs the host deflate engine, as in the reference. It imports neither JAX nor
 zlib_rs_tpu. Entry points run on `cuda` unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version instead.
 """
@@ -16,6 +19,7 @@ from .ops.checksum import adler32_batch
 from .parallel.checkpoint import DeviceInflateState
 from .parallel.checkpoint import decode_step as device_decode_step
 from .parallel.checkpoint import decode_streaming as device_decode_streaming
+from .parallel.inflate import decompress_foreign
 from .parallel.pipeline import (
     ChunkIndex,
     compress_parallel,
@@ -26,5 +30,5 @@ from .parallel.pipeline import (
 __all__ = [
     "compress_parallel", "decompress_parallel", "adler32_batch", "ChunkIndex",
     "fallback_stats", "DeviceInflateState", "device_decode_step",
-    "device_decode_streaming",
+    "device_decode_streaming", "decompress_foreign",
 ]

@@ -6,7 +6,8 @@ hand-written CUDA kernel K1 (ops/kernels/checksum_kernels), and
 (ops/kernels/crc_kernels): the kernel for a CUDA tensor, its plain
 PyTorch version for a CPU tensor. `adler32_combine` and `crc32_combine`
 join per-chunk values on the host into the zlib and gzip trailers;
-`crc32` is the host crc32 of a tail.
+`adler32` and `crc32` are the host checksums of the host engines and of a
+tail (stdlib zlib's, which equal the reference's host functions).
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ from . import gf2
 from .kernels import checksum_kernels, crc_kernels
 
 ADLER_BASE = 65521
+
+
+def adler32(data, start: int = 1) -> int:
+    """Host adler32 of `data`, continuing from `start` (stdlib zlib's)."""
+    return zlib.adler32(data, start) & 0xFFFFFFFF
 
 
 def adler32_combine(adler1: int, adler2: int, len2: int) -> int:

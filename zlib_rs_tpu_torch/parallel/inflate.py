@@ -1,18 +1,27 @@
-"""Region decode on the device through the inflate kernel K6.
+"""Region decode on the device: K6 first, the lockstep engine behind it,
+and the decode of foreign streams.
 
 The port of zlib_rs_tpu/parallel/inflate.py's `decompress_chunks` (lines
-353-485), kernel route only. `decompress_foreign` (the zran-indexed decode
-of foreign streams) waits for the port of the host engines, and the XLA
-engines "lockstep" and "turbo" are not ported.
+353-485: the inflate kernel K6, then on a refused region the lockstep
+engine of parallel/device_inflate.py) and `decompress_foreign` (lines
+488-565: gzip members, or the zran regions of a monolithic zlib or raw
+stream, decoded as window-primed regions). The XLA engine "turbo" lives
+outside the reference package and is not ported.
 """
 
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
 
 from .. import _device
+from ..models import zran as Z
+from ..ops import checksum
 from ..ops.kernels import inflate_kernel as IK
+from ..utils.stages import STAGES
+from . import device_inflate as DI
 from .pipeline import _note_fallback
 
 # raw deflate of b"" (final fixed block, EOB only): pads lane counts
@@ -33,8 +42,9 @@ def decompress_chunks(
     *,
     device=None,
 ) -> list[bytes]:
-    """Decode B independent byte-aligned multi-block regions with K6 on
-    `device` (the GPU when None; "cpu" runs its plain version).
+    """Decode B independent byte-aligned multi-block regions on `device`
+    (the GPU when None; "cpu" runs K6's plain version and the lockstep
+    engine's torch ops on the CPU).
 
     Bodies may be compress_parallel chunk bodies, whole raw streams or
     regions of a longer stream: `windows` supplies each region's history
@@ -43,20 +53,24 @@ def decompress_chunks(
     row lengths are padded to powers of two (dummy lanes hold an empty
     final block), as the reference buckets its shapes.
 
-    engine="kernel" raises ValueError naming the first region that fails.
-    engine="auto" counts the failure in fallback_stats() as
-    `region_kernel:ValueError` and then raises the same ValueError: the
-    reference retries such regions on its lockstep XLA engine, which is
-    not ported. engine="lockstep" and "turbo" raise NotImplementedError.
+    Engines:
+      * "kernel": K6 alone; raises ValueError naming the first region that
+        fails;
+      * "lockstep": `device_inflate.decode_regions` (a state machine a
+        lane, one symbol a step), then `resolve_tokens`; raises ValueError
+        naming the first bad lane;
+      * "auto": K6, and when a region fails, the failure counted in
+        fallback_stats() as `region_kernel:ValueError` and every region
+        decoded again on the lockstep engine, as the reference retries
+        them.
     The reference's gate `max_out + window + row <= 384 KiB` is its TPU
     kernel's SMEM budget; the port has no such budget and drops it.
     """
-    if engine in ("lockstep", "turbo"):
+    if engine == "turbo":
         raise NotImplementedError(
-            f"engine={engine!r} is an XLA decode engine of the JAX package, "
-            "which is not ported yet"
+            "engine='turbo' is an XLA decode experiment outside the JAX package and is not ported"
         )
-    if engine not in ("auto", "kernel"):
+    if engine not in ("auto", "kernel", "lockstep"):
         raise ValueError(f"unknown engine {engine!r}")
     if not bodies:
         return []
@@ -79,7 +93,11 @@ def decompress_chunks(
         comp[i, : len(b)] = np.frombuffer(b, np.uint8)
     targets = np.asarray(out_sizes, np.int32)
     max_out = _pow2_at_least(int(targets.max()), 1024) if int(targets.max()) else 1024
-    win = None
+    sb = torch.from_numpy(np.asarray(sb_list, np.int32)).to(dev)
+    eb = torch.from_numpy(np.array([len(b) * 8 for b in bodies], np.int32)).to(dev)
+    tg = torch.from_numpy(targets).to(dev)
+    wlen = 0
+    wins = np.zeros((B, 0), np.uint8)
     if win_list is not None and any(win_list):
         wlen = 32768
         wins = np.zeros((B, wlen), np.uint8)
@@ -87,23 +105,120 @@ def decompress_chunks(
             if w:
                 w = w[-wlen:]
                 wins[i, wlen - len(w) :] = np.frombuffer(w, np.uint8)
-        win = torch.from_numpy(wins).to(dev)
-    # LE32 words with 2 zero tail words
-    words = np.concatenate([comp.view("<u4"), np.zeros((B, 2), np.uint32)], axis=1)
-    out_b, produced, bad, _end_bit = IK.decode_streams(
-        torch.from_numpy(words.view(np.int32)).to(dev),
-        torch.from_numpy(np.asarray(sb_list, np.int32)).to(dev),
-        torch.from_numpy(np.array([len(b) * 8 for b in bodies], np.int32)).to(dev),
-        torch.from_numpy(targets).to(dev),
-        max_out=max_out,
-        win=win,
-    )
-    ok = ~bad.cpu().numpy() & (produced.cpu().numpy() >= targets)
-    if not ok[:n_real].all():
+    win = torch.from_numpy(wins).to(dev)
+
+    if engine in ("auto", "kernel"):
+        # LE32 words with 2 zero tail words
+        words = np.concatenate([comp.view("<u4"), np.zeros((B, 2), np.uint32)], axis=1)
+        out_b, produced, bad, _end_bit = IK.decode_streams(
+            torch.from_numpy(words.view(np.int32)).to(dev), sb, eb, tg,
+            max_out=max_out, win=win if wlen else None,
+        )
+        ok = ~bad.cpu().numpy() & (produced.cpu().numpy() >= targets)
+        if ok[:n_real].all():
+            out_np = out_b.cpu().numpy()
+            return [out_np[i, : int(out_sizes[i])].tobytes() for i in range(n_real)]
         which = int(np.flatnonzero(~ok[:n_real])[0])
         err = ValueError(f"region {which} failed to decode on device")
-        if engine == "auto":
-            _note_fallback("region_kernel", err)
-        raise err
-    out_np = out_b.cpu().numpy()
-    return [out_np[i, : int(out_sizes[i])].tobytes() for i in range(n_real)]
+        if engine == "kernel":
+            raise err
+        _note_fallback("region_kernel", err)
+
+    # the lockstep engine; step budget: one output byte a literal plus
+    # slack for block headers
+    max_steps = max_out + 2 + 512 * max(1, max(len(b) for b in bodies) // 4096)
+    comp_t = torch.from_numpy(comp).to(dev)
+    tk, ta, tb, n_steps, _produced, lbad = DI.decode_regions(comp_t, sb, eb, tg, max_steps)
+    lbad = lbad.cpu().numpy()
+    if lbad.any():
+        raise ValueError(f"region {int(np.flatnonzero(lbad)[0])} failed to decode on device")
+    # columns past n_steps hold no token
+    S = max(1, n_steps)
+    vals, _totals = DI.resolve_tokens(comp_t, tk[:, :S], ta[:, :S], tb[:, :S], win,
+                                      out_size=max_out, wlen=wlen)
+    vals_np = vals.cpu().numpy()
+    return [vals_np[i, : int(out_sizes[i])].tobytes() for i in range(n_real)]
+
+
+def _gzip_members(data: bytes) -> list[tuple[bytes, int, int]]:
+    """(raw body, output size, crc32) of each gzip member, split on the
+    host with zlib's raw inflater, the reference's own branch without its
+    native engine."""
+    members = []
+    pos = 0
+    while pos < len(data) and data[pos : pos + 2] == b"\x1f\x8b":
+        hdr, _ = Z._wrapper_span(data[pos:])
+        body = data[pos + hdr :]
+        d = zlib.decompressobj(-15)
+        full = d.decompress(body)
+        used = len(body) - len(d.unused_data)
+        trailer = data[pos + hdr + used : pos + hdr + used + 8]
+        members.append((body[:used], len(full), int.from_bytes(trailer[:4], "little")))
+        pos = pos + hdr + used + 8
+    return members
+
+
+def decompress_foreign(data: bytes, span: int = 1 << 20, engine: str = "auto", *,
+                       device=None) -> bytes:
+    """Decode a zlib, gzip or raw stream that another encoder wrote, its
+    regions in parallel on `device` (the GPU when None; "cpu" runs the
+    plain versions).
+
+    A gzip stream's members become independent regions, each checked
+    against its crc32. A monolithic zlib or raw stream is indexed by one
+    host pass (`models.zran.build_index`, a point about every `span`
+    output bytes); each point starts a region at its sub-byte bit with its
+    32 KiB window, and a zlib stream's adler32 is checked at the end;
+    regions that cover no output are not decoded (see below).
+    `engine` is decompress_chunks'. A bad checksum raises
+    ValueError("incorrect data check"). With STAGES.enabled the host
+    stages `zran_index` (or `gzip_split`), `region_decode` and
+    `container_check` are timed.
+    """
+    if data[:2] == b"\x1f\x8b":
+        with STAGES.host("gzip_split"):
+            members = _gzip_members(data)
+        with STAGES.host("region_decode"):
+            parts = decompress_chunks([m[0] for m in members], [m[1] for m in members],
+                                      engine=engine, device=device)
+        with STAGES.host("container_check"):
+            for part, (_b, _n, crc) in zip(parts, members):
+                if checksum.crc32(part) != crc:
+                    raise ValueError("incorrect data check")
+        return b"".join(parts)
+
+    # monolithic zlib/raw stream: zran index, then window-primed regions
+    with STAGES.host("zran_index"):
+        index = Z.build_index(data, span=span)
+    hdr, _kind = Z._wrapper_span(data)
+    cuts = [(hdr * 8, 0, b"")] + [
+        ((p.in_offset - 1) * 8 + (8 - p.bits) if p.bits else p.in_offset * 8,
+         p.out_offset, p.window)
+        for p in index.points
+    ]
+    ends = [c[1] for c in cuts[1:]] + [index.total_out]
+    end_bits = [c[0] for c in cuts[1:]] + [len(data) * 8]
+    bodies, starts, targets, windows = [], [], [], []
+    for (bitpos, out_off, window), eout, ebit in zip(cuts, ends, end_bits):
+        if eout == out_off:
+            # no output: the stream's start, cut again by the index's first
+            # point, and a point after the final block (the Python index
+            # pass records one when the last block ends a span past the
+            # last point), whose bits are the trailer. The reference
+            # decodes these as regions, which K6 refuses.
+            continue
+        # region k's bits end at cut k + 1 (its last symbol ends there), so
+        # its body stops there too
+        bodies.append(data[bitpos >> 3 : ((ebit + 7) >> 3) + 8])
+        starts.append(bitpos & 7)
+        targets.append(eout - out_off)
+        windows.append(window)
+    with STAGES.host("region_decode"):
+        parts = decompress_chunks(bodies, targets, windows=windows, start_bits=starts,
+                                  engine=engine, device=device)
+        out = b"".join(parts)
+    with STAGES.host("container_check"):
+        if len(data) >= 2 and (data[0] & 0x0F) == 8 and ((data[0] << 8) | data[1]) % 31 == 0:
+            if checksum.adler32(out) != int.from_bytes(data[-4:], "big"):
+                raise ValueError("incorrect data check")
+    return out

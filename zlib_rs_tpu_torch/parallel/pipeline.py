@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from .. import _device
-from ..config import Strategy, Wrap, decode_window_bits_deflate
+from ..config import DeflateConfig, Strategy, Wrap, decode_window_bits_deflate
+from ..models import deflate as host_deflate
 from ..models.deflate import BitWriter, _scan_code_lengths
 from ..ops import checksum, dynhuff, lz77
 from ..ops import huffman as H
@@ -387,8 +388,10 @@ def compress_parallel(
         primed with 32 KiB at levels 2-9, batches of 16 chunks, a dynamic
         block a chunk at levels 3-9 and a static one at levels up to 2
         (levels -1 and 0 included, as in the reference: no stored level).
-    Routes not ported yet raise NotImplementedError: `mesh=` and a
-    non-default `strategy` (the host engine).
+    A non-default `strategy` (Filtered, HuffmanOnly, Rle, Fixed) runs the
+    host deflate engine, `models.deflate.compress`, on one stream with no
+    chunk parallelism, as the reference routes it; with return_index it
+    raises ValueError. `mesh=` (not ported yet) raises NotImplementedError.
 
     With return_index=True, also returns the ChunkIndex of (body_offset,
     body_len, out_len) per chunk, with 128 decode seeds per dynamic coded
@@ -396,9 +399,13 @@ def compress_parallel(
     dictionary-primed, so every chunk decodes on its own.
     """
     if strategy is not None and strategy != Strategy.Default:
-        raise NotImplementedError(
-            "a non-default strategy runs the host engine, which the port "
-            "does not carry yet"
+        if return_index:
+            raise ValueError(
+                "indexed parallel streams require the default strategy "
+                "(device-path limitation; see docstring)"
+            )
+        return host_deflate.compress(
+            data, DeflateConfig(level=level, window_bits=window_bits, strategy=strategy)
         )
     if mesh is not None:
         raise NotImplementedError("mesh= (the sharded encode) is not ported yet")
