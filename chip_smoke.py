@@ -72,8 +72,20 @@ with no fallback, three warm runs of the level-6 stream with the zran
 index pass and the region decode timed apart, and a corrupted adler32
 raising (phase 33); `compress_parallel` under each non-default strategy
 (the host engine) at level 6 on 256 KiB as zlib and gzip, each decoded by
-zlib, and return_index raising (phase 34). Any mismatch raises; no
-phase's failure is caught.
+zlib, and return_index raising (phase 34). Then the command line,
+`python -m zlib_rs_tpu_torch --engine cuda` on the corpus as a file in
+gzip, zlib and raw at levels 6 and 1, each output equal to
+compress_parallel's, `-d` giving the corpus back, and `--engine auto`
+taking the card for 8 MiB and the host for 100 kB (phase 35);
+decompress_parallel's engine names, "tpu" equal to "device" and "auto"
+decoding both indexed streams through the region decode with one K6
+launch, and the device chain's last step (the region decode) giving back
+a small stream whose engines all fault, through K6 and, with a region K6
+refuses, through the lockstep engine (phase 36); `python -m
+zlib_rs_tpu_torch.bench` within the time left, its last line under 500
+bytes with a torch.profiler headline and every device phase's key and
+device-busy share in the full line above it (phase 37). Any mismatch
+raises; no phase's failure is caught.
 
 Each encode prints its stream's length and sha256, so that two checkouts
 run in one call can be shown to give the same bytes.
@@ -106,6 +118,8 @@ ALU_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 COMPARE_ROWS = 8  # chunks held against the plain chase, pack, decode and expansion
 UNDERSIZED_CAP = 16  # tape rows: walkers of this corpus need ~33 on average
 PLAIN_K8_BUDGET_S = 60.0  # seconds of the plain K8 loop over the rest of phase 17's batch
+SMOKE_LIMIT_S = 1100.0  # the whole run's limit, less room for the lines after phase 37
+BENCH_BUDGET_S = 400.0  # phase 37's bench budget when the run is on time
 
 
 def load_corpus(size: int = CORPUS_BYTES) -> tuple[bytes, list[str]]:
@@ -878,6 +892,7 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
           f"one K6 launch, no fallback", flush=True)
 
     # -- phase 14: a flipped byte raises, then a clean decode --------------
+    t14 = time.perf_counter()
     broken = bytearray(idx_out)
     off, ln, _n = index[len(index) // 2]
     broken[off + ln // 2] ^= 0xFF
@@ -893,7 +908,7 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
     if zt.decompress_parallel(idx_out, index) != corpus or PL.fallback_stats():
         raise AssertionError("the clean decode after the flipped byte failed")
     print(f"phase 14 fail-safe: a flipped byte raised ValueError ({why}) after {faults}; a clean "
-          f"decode followed", flush=True)
+          f"decode followed; {time.perf_counter() - t14:.1f} s", flush=True)
 
     # -- phase 15: the checkpointed stream decode --------------------------
     raw = _raw(corpus)
@@ -2266,9 +2281,220 @@ def host_strategy_phase(corpus) -> dict:
     return result
 
 
+def cli_phase(corpus) -> dict:
+    """Phase 35: `python -m zlib_rs_tpu_torch -c --engine cuda` on the corpus
+    as a file, in gzip, zlib and raw at levels 6 and 1 (ZRS_TPU_KERNEL
+    unset, the CLI's default engine), each output decoded by zlib and equal
+    to compress_parallel with the same arguments in this process; `-d` of
+    the gzip output giving back the corpus; `--engine auto` on the corpus
+    (the card's stream) and on 100 kB of it (the host engine's)."""
+    import gzip
+
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.models import oneshot
+
+    t_start = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_cli"  # git-ignored
+    work.mkdir(parents=True, exist_ok=True)
+    big, small = work / "corpus.bin", work / "small.bin"
+    big.write_bytes(corpus)
+    small.write_bytes(corpus[:100_000])
+    env = dict(os.environ, PYTHONPATH=str(root))
+    env.pop("ZRS_TPU_KERNEL", None)
+
+    def cli(*args) -> tuple[bytes, float]:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "zlib_rs_tpu_torch", *args],
+                             capture_output=True, env=env, cwd=root, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"the CLI {args} exited {run.returncode}: "
+                                 f"{run.stderr.decode()[-2000:]}")
+        return run.stdout, wall
+
+    result = {}
+    kernel_env = os.environ.pop("ZRS_TPU_KERNEL", None)
+    try:
+        for fmt, wbits in (("gzip", 31), ("zlib", 15), ("raw", -15)):
+            for level in (6, 1):
+                out, wall = cli("-c", "--engine", "cuda", "--format", fmt, f"-{level}", str(big))
+                if zlib.decompress(out, wbits) != corpus:
+                    raise AssertionError(f"the CLI's {fmt} -{level} output does not decode")
+                if out != zt.compress_parallel(corpus, level, window_bits=wbits):
+                    raise AssertionError(f"the CLI's {fmt} -{level} output differs from "
+                                         "compress_parallel's")
+                result[f"{fmt}_{level}"] = {"bytes": len(out), "wall_s": wall,
+                                            "sha256": hashlib.sha256(out).hexdigest()}
+                print(f"phase 35 cli {fmt} -{level}: {digest(out)}, {wall:.3f} s, equal to "
+                      f"compress_parallel", flush=True)
+        gz = work / "corpus.bin.gz"
+        gz.write_bytes(zt.compress_parallel(corpus, 6, window_bits=31))
+        back, wall = cli("-d", "-c", str(gz))
+        if back != corpus:
+            raise AssertionError("the CLI's -d does not give back the corpus")
+        result["decompress_wall_s"] = wall
+        print(f"phase 35 cli -d: the corpus back in {wall:.3f} s", flush=True)
+        _out, wall = cli("-k", "-f", "--engine", "auto", str(big), str(small))
+        big_gz = (work / "corpus.bin.gz").read_bytes()
+        small_gz = (work / "small.bin.gz").read_bytes()
+        on_card = zt.compress_parallel(corpus[:100_000], 6, window_bits=31)
+        if big_gz != zt.compress_parallel(corpus, 6, window_bits=31):
+            raise AssertionError("--engine auto did not take the card for 8 MiB")
+        if (small_gz != oneshot.compress(corpus[:100_000], 6, window_bits=31)
+                or small_gz == on_card or gzip.decompress(small_gz) != corpus[:100_000]):
+            raise AssertionError("--engine auto did not take the host for 100 kB")
+        result["auto_wall_s"] = wall
+        print(f"phase 35 cli auto: the 8 MiB file took the card ({digest(big_gz)}), the 100 kB "
+              f"file the host ({digest(small_gz)}), {wall:.3f} s", flush=True)
+    finally:
+        if kernel_env is not None:
+            os.environ["ZRS_TPU_KERNEL"] = kernel_env
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 35: {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def engine_names_phase(torch, corpus, idx_out, index, gz, gz_index) -> dict:
+    """Phase 36: decompress_parallel's engine names on the indexed zlib and
+    gzip streams: "tpu" gives the bytes and fallbacks of "device"; "auto"
+    decodes through the region decode (one K6 launch, no lockstep run),
+    cold and three warm. Then the last step of the device chain on a small
+    indexed stream (two chunks of 16 KiB and one of 1,000 bytes) whose
+    engines all fault under ZRS_TPU_KERNEL=0 (phase 8's undersized cap for
+    the vector engine, every lane of the swarm engine flagged bad): the
+    region decode gives back the input through K6, and through the
+    lockstep engine on the 1,000-byte region when K6 refuses it too."""
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+    from zlib_rs_tpu_torch.parallel import device_inflate as DI
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+    from zlib_rs_tpu_torch.parallel import swarm_inflate as SW
+    from zlib_rs_tpu_torch.parallel import vector_inflate as VI
+
+    t_start = time.perf_counter()
+    result = {}
+    PL._FALLBACKS.clear()
+    for label, stream, ix in (("zlib", idx_out, index), ("gzip", gz, gz_index)):
+        outs, stats = [], []
+        for engine in ("device", "tpu"):
+            outs.append(zt.decompress_parallel(stream, ix, engine=engine))
+            stats.append(PL.fallback_stats())
+        if outs[0] != corpus or outs[1] != outs[0] or stats[0] != stats[1] or stats[0]:
+            raise AssertionError(f"tpu and device differ on the {label} stream: {stats}")
+        k0, r0 = IK.launches["inflate"], dict(DI.runs)
+        t0 = time.perf_counter()
+        back = zt.decompress_parallel(stream, ix, engine="auto")
+        cold = time.perf_counter() - t0
+        if (back != corpus or IK.launches["inflate"] != k0 + 1 or DI.runs != r0
+                or PL.fallback_stats()):
+            raise AssertionError(f"auto on the {label} stream: K6 launches "
+                                 f"{IK.launches['inflate'] - k0}, lockstep {DI.runs} against "
+                                 f"{r0}, fallbacks {PL.fallback_stats()}")
+        result[f"auto_{label}"] = {"cold_s": cold, **warm_runs(
+            torch, PL, lambda: zt.decompress_parallel(stream, ix, engine="auto"), corpus,
+            len(corpus), f"auto decode {label}", 36)}
+        print(f"phase 36 {label}: tpu equals device (no fallback); auto through the region "
+              f"decode, one K6 launch, no lockstep run, cold {cold:.3f} s", flush=True)
+
+    data = corpus[:33_768]
+    kernel_env = os.environ.pop("ZRS_TPU_KERNEL", None)
+    try:
+        small, small_ix = zt.compress_parallel(data, 6, chunk_size=16_384, return_index=True)
+    finally:
+        if kernel_env is not None:
+            os.environ["ZRS_TPU_KERNEL"] = kernel_env
+    real_cap, real_seeded, real_decode = VI._twoplane_cap, SW.decode_seeded, IK.decode_streams
+
+    def swarm_all_bad(*a, **k):
+        out, produced, bad = real_seeded(*a, **k)
+        return out, produced, torch.ones_like(bad)
+
+    def k6_refuses_lane_2(*a, **k):
+        out, produced, bad, end_bit = real_decode(*a, **k)
+        bad = bad.clone()
+        bad[2] = True
+        return out, produced, bad, end_bit
+
+    os.environ["ZRS_TPU_KERNEL"] = "0"
+    VI._twoplane_cap = lambda m: UNDERSIZED_CAP
+    SW.decode_seeded = swarm_all_bad
+    try:
+        for case in ("K6", "lockstep"):
+            if case == "lockstep":
+                IK.decode_streams = k6_refuses_lane_2
+            PL._FALLBACKS.clear()
+            k0, r0 = IK.launches["inflate"], dict(DI.runs)
+            t0 = time.perf_counter()
+            back = zt.decompress_parallel(small, small_ix)
+            wall = time.perf_counter() - t0
+            stats = PL.fallback_stats()
+            work = {"k6_launches": IK.launches["inflate"] - k0,
+                    "lockstep_runs": DI.runs["decode_regions"] - r0["decode_regions"],
+                    "lockstep_steps": DI.runs["steps"] - r0["steps"]}
+            want = {"vector_decode:ValueError": 1, "swarm_decode:ValueError": 1}
+            if case == "lockstep":
+                want["region_kernel:ValueError"] = 1
+            if (back != data or stats != want or work["k6_launches"] != 1
+                    or (work["lockstep_runs"] == 1) != (case == "lockstep")):
+                raise AssertionError(f"the last step ({case}): input back {back == data}, "
+                                     f"fallbacks {stats}, {work}")
+            result[f"last_step_{case}"] = {"wall_s": wall, "fallbacks": stats, **work}
+            print(f"phase 36 last step ({case}): {len(small_ix)} chunks back after {stats}; "
+                  f"{work}; {wall:.3f} s", flush=True)
+    finally:
+        VI._twoplane_cap, SW.decode_seeded, IK.decode_streams = (
+            real_cap, real_seeded, real_decode)
+        if kernel_env is None:
+            os.environ.pop("ZRS_TPU_KERNEL", None)
+        else:
+            os.environ["ZRS_TPU_KERNEL"] = kernel_env
+        PL._FALLBACKS.clear()
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 36: {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def bench_phase(budget_s: float) -> dict:
+    """Phase 37: `python -m zlib_rs_tpu_torch.bench` with ZRS_BENCH_BUDGET_S
+    = `budget_s`: its last line parses, `value` > 0 from torch.profiler,
+    a kernel ratio and a vector decode rate; every device phase left its
+    key in the full line above it and none failed or was skipped."""
+    from zlib_rs_tpu_torch import bench
+
+    t_start = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root), ZRS_BENCH_BUDGET_S=str(int(budget_s)))
+    for name in ("ZRS_TPU_KERNEL", "ZRS_BENCH_TARGET_MB"):
+        env.pop(name, None)
+    run = subprocess.run([sys.executable, "-m", "zlib_rs_tpu_torch.bench"],
+                         capture_output=True, text=True, env=env, cwd=root,
+                         timeout=budget_s + 120)
+    lines = run.stdout.strip().splitlines()
+    if run.returncode or len(lines) < 2:
+        raise AssertionError(f"the bench exited {run.returncode}: {run.stderr[-3000:]}")
+    compact, full = json.loads(lines[-1]), json.loads(lines[-2])
+    dev = full["device"]
+    missing = [p for p, key in bench.PHASE_KEYS.items() if key not in dev]
+    if (len(lines[-1]) >= 500 or not compact["value"] > 0
+            or "torch.profiler" not in compact["value_source"]
+            or compact["kernel_ratio"] is None or not (compact["vector_decode_gbps"] or 0) > 0
+            or missing or full["device_phase_errors"]):
+        raise AssertionError(f"the bench's result: compact {compact}, phases without their "
+                             f"key {missing}, errors {full['device_phase_errors']}; "
+                             f"{run.stderr[-3000:]}")
+    print(f"phase 37 bench full line: {lines[-2]}", flush=True)
+    print(f"phase 37 bench: {lines[-1]}; device-busy share "
+          f"{json.dumps(full['device_busy_share'])}; card {full['card']}; "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"compact": compact, "device": dev, "busy_share": full["device_busy_share"],
+            "phase_seconds": full["phase_seconds"], "phase_s": time.perf_counter() - t_start}
+
+
 def main() -> int:
     import torch
 
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2511,6 +2737,9 @@ def main() -> int:
     lockstep = lockstep_phase(torch, dev, corpus)
     foreign = foreign_phase(torch, corpus, rows)
     host_strategies = host_strategy_phase(corpus)
+    cli = cli_phase(corpus)
+    engine_names = engine_names_phase(torch, corpus, idx_out, index, gz, gz_index)
+    bench = bench_phase(min(BENCH_BUDGET_S, SMOKE_LIMIT_S - (time.perf_counter() - t_main)))
 
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
@@ -2532,6 +2761,7 @@ def main() -> int:
         "gzip_encode": gzip_encode, "k6_decode": k6_decode, "encode_routes": routes,
         "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
         "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
+        "cli": cli, "engine_names": engine_names, "bench": bench,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -188,8 +188,8 @@ def test_decompress_chunks_equal_jax(case, engine):
 
 def test_auto_recovers_lone_eob():
     """K6 refuses the lone-EOB body; "auto" counts it once and decodes
-    every region on the lockstep engine, which gives the JAX package's
-    bytes. (The JAX package's "auto" runs its kernel on a TPU only, so on
+    the refused region on the lockstep engine, which gives the JAX
+    package's bytes. (The JAX package's "auto" runs its kernel on a TPU only, so on
     the CPU it goes to its lockstep engine directly and counts nothing.)"""
     bodies, outputs, _w, _s = _case("lone_eob")
     sizes = [len(o) for o in outputs]

@@ -296,7 +296,8 @@ def test_kernel_env_0_decodes_through_the_swarm_engine(monkeypatch, stream, wrap
 
 
 def test_static_index_under_kernel_env_0_decodes_on_the_host(monkeypatch):
-    # a static stream's index has no seeds: no device engine runs
+    # a static stream's index has no seeds: no chunk engine runs, and the
+    # region decode (K6) decodes, as the reference's last step does
     data = _BASH[:50_000]
     out, index = zt.compress_parallel(data, 1, chunk_size=CHUNK, return_index=True, device="cpu")
     assert index.seeds is None
@@ -336,9 +337,11 @@ def test_swarm_fault_is_counted_and_the_host_step_decides(monkeypatch, port_stre
     off, ln, _n = s["index"][1]
     broken = bytearray(s["comp"])
     broken[off : off + ln] = _flip(s, 1)[1]
-    with pytest.raises(ValueError):
+    # the region decode decides: K6 refuses the region, the lockstep
+    # engine flags it
+    with pytest.raises(ValueError, match="failed to decode on device"):
         zt.decompress_parallel(bytes(broken), s["index"], device="cpu")
-    assert zt.fallback_stats() == {"swarm_decode:ValueError": 2}
+    assert zt.fallback_stats() == {"swarm_decode:ValueError": 2, "region_kernel:ValueError": 1}
 
 
 @pytest.mark.parametrize("exc", [RuntimeError, TypeError])

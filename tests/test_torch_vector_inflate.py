@@ -6,8 +6,8 @@ chunks) and the port's own (kernel engine, 32 KiB chunks), zlib and gzip.
 
 Also the fail-safe contract: a data fault (corrupt body, wrong seed,
 undersized tape cap, wrong bytes behind a good-looking decode) falls back
-to the next engine (the inflate kernel K6, then the host exact step) and
-is counted; a kernel error, and a wrapper's argument error, is never
+to the next engine (the inflate kernel K6, the swarm engine, then the
+region decode) and is counted; a kernel error, and a wrapper's argument error, is never
 caught; engine="native" raises NotImplementedError. The K6 route of the
 chain (ZRS_TPU_VECTOR=0, an index with a stored chunk, a vector fault)
 runs K6's plain version; the swarm engine after it is tested in
@@ -194,6 +194,7 @@ def test_silently_corrupt_device_result_falls_back(monkeypatch, kernel_stream):
 
 
 def test_corrupt_stream_raises_after_the_host_step(kernel_stream):
+    # the vector result fails the checksum, and so does the region decode's
     comp, index = kernel_stream["zlib"]
     bad = bytearray(comp)
     bad[-1] ^= 0x01  # the adler32 trailer
@@ -282,10 +283,14 @@ def test_single_plane_corrupt_body_lands_on_k6(monkeypatch, kernel_stream):
     assert stats.pop("vector_decode:ValueError") == 1
     # K6 flags the lane or returns wrong bytes; after a flag the seeded
     # swarm engine runs, as in the reference, and flags or returns wrong
-    # bytes; the checksum catches wrong bytes
+    # bytes; the checksum catches wrong bytes. The region decode runs last:
+    # K6 returns the same wrong bytes, or refuses the region (counted) and
+    # the lockstep engine flags it or returns wrong bytes
     assert stats in ({"device_checksum:ValueError": 1},
-                     {"kernel_decode:ValueError": 1, "swarm_decode:ValueError": 1},
-                     {"kernel_decode:ValueError": 1, "device_checksum:ValueError": 1})
+                     {"kernel_decode:ValueError": 1, "swarm_decode:ValueError": 1,
+                      "region_kernel:ValueError": 1},
+                     {"kernel_decode:ValueError": 1, "device_checksum:ValueError": 1,
+                      "region_kernel:ValueError": 1})
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +351,8 @@ def test_vector_fault_is_counted_and_k6_decodes(monkeypatch, stream):
 def test_kernel_fault_is_counted_and_the_decode_raises(monkeypatch, kernel_stream):
     # BTYPE 3 in the second chunk's first block header: K6 flags the lane,
     # the swarm engine after it (every chunk has seeds, as in the
-    # reference) cannot parse the header, and the host step fails on the
-    # same block
+    # reference) cannot parse the header, and the region decode fails on
+    # the same block: K6 refuses the region, the lockstep engine flags it
     comp, index = kernel_stream["zlib"]
     broken = bytearray(comp)
     off, _ln, _n = index[1]
@@ -355,7 +360,8 @@ def test_kernel_fault_is_counted_and_the_decode_raises(monkeypatch, kernel_strea
     monkeypatch.setenv("ZRS_TPU_VECTOR", "0")
     with pytest.raises(ValueError):
         zt.decompress_parallel(bytes(broken), index, device="cpu")
-    assert zt.fallback_stats() == {"kernel_decode:ValueError": 1, "swarm_decode:ValueError": 1}
+    assert zt.fallback_stats() == {"kernel_decode:ValueError": 1, "swarm_decode:ValueError": 1,
+                                   "region_kernel:ValueError": 1}
 
 
 def test_corrupt_device_result_falls_back(monkeypatch, kernel_stream):
@@ -394,7 +400,7 @@ def test_engine_native_and_unknown_engines(kernel_stream):
     with pytest.raises(NotImplementedError, match="C\\+\\+"):
         zt.decompress_parallel(comp, index, engine="native")
     with pytest.raises(ValueError, match="unknown engine"):
-        zt.decompress_parallel(comp, index, engine="tpu")
+        zt.decompress_parallel(comp, index, engine="kernel")
 
 
 def test_no_gpu_and_no_device_raises(monkeypatch, kernel_stream):

@@ -13,6 +13,11 @@ encoder wrote (a host zran index pass, then K6). A non-default strategy
 runs the host deflate engine, as in the reference. It imports neither JAX nor
 zlib_rs_tpu. Entry points run on `cuda` unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version instead.
+
+The one-shot host API (`compress`, `decompress`, `compress_bound`,
+`uncompress`) loads on first use. `python -m zlib_rs_tpu_torch` is the
+pigz-style command line (cli.py); `python -m zlib_rs_tpu_torch.bench` the
+benchmark.
 """
 
 from .ops.checksum import adler32_batch
@@ -32,3 +37,11 @@ __all__ = [
     "fallback_stats", "DeviceInflateState", "device_decode_step",
     "device_decode_streaming", "decompress_foreign",
 ]
+
+
+def __getattr__(name):
+    if name in ("compress", "decompress", "compress_bound", "uncompress"):
+        from .models import oneshot
+
+        return getattr(oneshot, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,6 +23,10 @@ import torch
 FLAT_BITS = 15
 CL_BITS = 7
 
+# runs of the lockstep engine and the steps they took, for tests and the
+# smoke run to show whether it ran
+runs = {"decode_regions": 0, "steps": 0}
+
 # token kinds in a tape
 TOK_NULL = 0  # no token: covers zero output bytes
 TOK_LIT = 1
@@ -444,6 +448,8 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
         present, clb_next, build_next = look(w0, clen_live)
 
     bad = phase == PH_BAD
+    runs["decode_regions"] += 1
+    runs["steps"] += i
     return (tk.T.contiguous(), ta.T.contiguous(), tb.T.contiguous(), i,
             produced.to(torch.int32), bad)
 

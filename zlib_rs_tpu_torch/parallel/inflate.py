@@ -60,9 +60,10 @@ def decompress_chunks(
         lane, one symbol a step), then `resolve_tokens`; raises ValueError
         naming the first bad lane;
       * "auto": K6, and when a region fails, the failure counted in
-        fallback_stats() as `region_kernel:ValueError` and every region
-        decoded again on the lockstep engine, as the reference retries
-        them.
+        fallback_stats() as `region_kernel:ValueError` and the regions K6
+        refused decoded again on the lockstep engine (the reference
+        retries every region; K6's other regions are exact, so the bytes
+        are the same).
     The reference's gate `max_out + window + row <= 384 KiB` is its TPU
     kernel's SMEM budget; the port has no such budget and drops it.
     """
@@ -115,29 +116,44 @@ def decompress_chunks(
             max_out=max_out, win=win if wlen else None,
         )
         ok = ~bad.cpu().numpy() & (produced.cpu().numpy() >= targets)
+        out_np = out_b.cpu().numpy()
+        parts = [out_np[i, : int(out_sizes[i])].tobytes() for i in range(n_real)]
         if ok[:n_real].all():
-            out_np = out_b.cpu().numpy()
-            return [out_np[i, : int(out_sizes[i])].tobytes() for i in range(n_real)]
-        which = int(np.flatnonzero(~ok[:n_real])[0])
-        err = ValueError(f"region {which} failed to decode on device")
+            return parts
+        redo = np.flatnonzero(~ok[:n_real])
+        err = ValueError(f"region {int(redo[0])} failed to decode on device")
         if engine == "kernel":
             raise err
         _note_fallback("region_kernel", err)
+        # the lockstep engine decodes the regions K6 refused; K6's others stand
+        vals_np = _lockstep(comp, sb, eb, tg, win, wlen, max_out, redo)
+        for row, i in enumerate(redo):
+            parts[i] = vals_np[row, : int(out_sizes[i])].tobytes()
+        return parts
 
-    # the lockstep engine; step budget: one output byte a literal plus
-    # slack for block headers
-    max_steps = max_out + 2 + 512 * max(1, max(len(b) for b in bodies) // 4096)
-    comp_t = torch.from_numpy(comp).to(dev)
-    tk, ta, tb, n_steps, _produced, lbad = DI.decode_regions(comp_t, sb, eb, tg, max_steps)
+    vals_np = _lockstep(comp, sb, eb, tg, win, wlen, max_out, np.arange(B))
+    return [vals_np[i, : int(out_sizes[i])].tobytes() for i in range(n_real)]
+
+
+def _lockstep(comp, sb, eb, tg, win, wlen: int, max_out: int, lanes) -> np.ndarray:
+    """The lockstep engine, then the token resolver, on the rows `lanes`
+    of a decompress_chunks batch: uint8 [len(lanes), max_out] as numpy.
+    Raises ValueError naming the first bad region by its batch index."""
+    dev = sb.device
+    rows = torch.from_numpy(np.asarray(lanes, np.int64)).to(dev)
+    comp_t = torch.from_numpy(comp[lanes]).to(dev)
+    # step budget: one output byte a literal plus slack for block headers
+    max_steps = max_out + 2 + 512 * max(1, int(eb[rows].max()) // 8 // 4096)
+    tk, ta, tb, n_steps, _produced, lbad = DI.decode_regions(
+        comp_t, sb[rows], eb[rows], tg[rows], max_steps)
     lbad = lbad.cpu().numpy()
     if lbad.any():
-        raise ValueError(f"region {int(np.flatnonzero(lbad)[0])} failed to decode on device")
+        raise ValueError(f"region {int(lanes[np.flatnonzero(lbad)[0]])} failed to decode on device")
     # columns past n_steps hold no token
     S = max(1, n_steps)
-    vals, _totals = DI.resolve_tokens(comp_t, tk[:, :S], ta[:, :S], tb[:, :S], win,
+    vals, _totals = DI.resolve_tokens(comp_t, tk[:, :S], ta[:, :S], tb[:, :S], win[rows],
                                       out_size=max_out, wlen=wlen)
-    vals_np = vals.cpu().numpy()
-    return [vals_np[i, : int(out_sizes[i])].tobytes() for i in range(n_real)]
+    return vals.cpu().numpy()
 
 
 def _gzip_members(data: bytes) -> list[tuple[bytes, int, int]]:

@@ -37,8 +37,9 @@ K4 decode and K5 expansion, or K11a and K11b under ZRS_VECTOR_TWOPLANE=0)
 or the inflate kernel K6 (one sequential inflate
 per chunk, parallel/swarm_inflate.decode_chunks_kernel) or the seeded
 swarm engine (parallel/swarm_inflate.decode_chunks_seeded, torch walkers
-over flat decode tables), behind the container checksum gate and a host
-exact step.
+over flat decode tables), behind the container checksum gate, and last
+the region decode (parallel/inflate.decompress_chunks: K6, then the
+lockstep engine), as the reference ends its device chain.
 """
 
 from __future__ import annotations
@@ -561,8 +562,8 @@ def _whole_stream_host(data: bytes) -> bytes:
 
 
 def _chunks_host_exact(data: bytes, index) -> bytes:
-    """The host exact step: stdlib raw inflate of each chunk body, held to
-    the index's out_len."""
+    """The host exact step of engine="host": stdlib raw inflate of each
+    chunk body, held to the index's out_len."""
     parts = []
     for k, (off, ln, out_len) in enumerate(index):
         d = zlib.decompressobj(-15)
@@ -589,12 +590,13 @@ def container_ok(data: bytes, result: bytes) -> bool:
 def decompress_parallel(data: bytes, index, engine: str = "device", *, device=None) -> bytes:
     """Decode a stream made by compress_parallel with its chunk index:
     every chunk body decodes on its own, the outputs concatenate in order
-    and the container checksum is verified (ValueError when it fails).
+    and the container checksum is verified (ValueError("incorrect data
+    check") when it fails).
 
     engine="device" (the default) runs on `device`: the GPU when None,
     raising RuntimeError when there is none; "cpu" runs the kernels' plain
-    versions and the swarm engine on the CPU. The engines run in the
-    reference's order:
+    versions and the torch engines on the CPU. The engines run in the
+    reference's order (its engine="tpu"):
       * the vector engine (K4, K5; the single-plane K11a, K11b under
         ZRS_VECTOR_TWOPLANE=0), when every chunk has seeds and
         ZRS_TPU_VECTOR is not "0";
@@ -604,34 +606,47 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
         of the vector engine;
       * the seeded swarm engine (`swarm_inflate.decode_chunks_seeded`),
         when there is still no result and every chunk has seeds; under
-        ZRS_TPU_KERNEL=0 it is the only engine after the vector engine.
+        ZRS_TPU_KERNEL=0 it is the only engine after the vector engine;
+      * the region decode (`inflate.decompress_chunks`: K6, then the
+        lockstep engine for the regions K6 refuses), when no engine gave a
+        result or a result failed the container checksum.
     A data fault (a VectorDataFault, a KernelDataFault or a SwarmDataFault:
     a parse failure, bad or short walkers or lanes, drift, a coverage gap)
     is counted in fallback_stats() as `vector_decode:ValueError`,
     `kernel_decode:ValueError` or `swarm_decode:ValueError` and passes the
-    decode on. A device result whose container checksum fails is counted
-    as `device_checksum:ValueError`; then the host exact step (stdlib raw
-    inflate per chunk) decodes. Kernel build, launch and argument errors
+    decode on; a device result whose container checksum fails is counted
+    as `device_checksum:ValueError`; a region K6 refuses is counted as
+    `region_kernel:ValueError`. Kernel build, launch and argument errors
     are not caught.
-    engine="host" runs the host exact step only; index=None decodes the
-    whole stream on the host. engine="native" raises NotImplementedError.
+    engine="tpu" is "device" under the reference's name. engine="auto" is
+    the reference's "auto" without its native engine: the region decode
+    alone. engine="host" runs the host exact step (stdlib raw inflate per
+    chunk) only. index=None decodes the whole stream on the host.
+    engine="native" raises NotImplementedError.
     """
     if engine == "native":
         raise NotImplementedError(
             "engine='native' is the C++ engine of the JAX package, which the "
             "port does not carry"
         )
-    if engine not in ("device", "host"):
+    if engine not in ("device", "tpu", "auto", "host"):
         raise ValueError(f"unknown engine {engine!r}")
     if index is None:
         return _whole_stream_host(data)
+    if engine == "host":
+        result = _chunks_host_exact(data, index)
+        if not container_ok(data, result):
+            raise ValueError("incorrect data check")
+        return result
 
-    if engine == "device":
-        dev = _device.resolve_device(device)
+    from . import inflate as pinf  # it imports this module
+
+    dev = _device.resolve_device(device)
+    bodies = [data[off : off + ln] for off, ln, _ in index]
+    out_sizes = [out_len for _, _, out_len in index]
+    if engine in ("device", "tpu"):
         seeds = getattr(index, "seeds", None)
         seeded = seeds is not None and all(s is not None for s in seeds)
-        bodies = [data[off : off + ln] for off, ln, _ in index]
-        out_sizes = [out_len for _, _, out_len in index]
         result = None
         if seeded and os.environ.get("ZRS_TPU_VECTOR") != "0":
             try:
@@ -660,7 +675,9 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
                     return result
             # wrong bytes without a flagged fault: the checksum discards them
             _note_fallback("device_checksum", ValueError("device checksum mismatch"))
-    result = _chunks_host_exact(data, index)
-    if not container_ok(data, result):
-        raise ValueError("incorrect data check")
+    with STAGES.host("region_decode"):
+        result = b"".join(pinf.decompress_chunks(bodies, out_sizes, device=dev))
+    with STAGES.host("container_check"):
+        if not container_ok(data, result):
+            raise ValueError("incorrect data check")
     return result

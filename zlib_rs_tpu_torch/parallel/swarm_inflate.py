@@ -5,8 +5,9 @@ decode engines.
 The port of zlib_rs_tpu/parallel/swarm_inflate.py's `decode_chunks_kernel`
 (lines 296-331), `_HostBits` and `parse_block_header` (lines 65-160), and
 its seeded swarm engine, `decode_seeded` and `decode_chunks_seeded`
-(lines 163-293, 389-436), in torch ops. The bench's `make_kernel_dispatch`
-and the sharded `make_sharded_decode_step` are not ported yet.
+(lines 163-293, 389-436), in torch ops, and the bench's
+`make_kernel_dispatch` (lines 334-353). The sharded
+`make_sharded_decode_step` is not ported yet.
 
 The swarm engine decodes the chunks of an indexed stream from the seeds
 the encoder recorded (`compress_parallel(..., return_index=True)`): the
@@ -52,6 +53,18 @@ class SwarmDataFault(ValueError):
     and falls back."""
 
 
+def _kernel_inputs(bodies, out_sizes, dev) -> list:
+    """K6's operands on `dev`: the bodies' LE32 words, zero start bits,
+    their bit lengths and the output targets."""
+    words, comp_bits = IK.pack_streams_words(bodies)
+    return [
+        torch.from_numpy(words.view(np.int32)).to(dev),
+        torch.zeros(len(bodies), dtype=torch.int32, device=dev),
+        torch.from_numpy(comp_bits).to(dev),
+        torch.from_numpy(np.asarray(out_sizes, np.int32)).to(dev),
+    ]
+
+
 def decode_chunks_kernel(bodies, out_sizes, *, device=None):
     """Decode chunk bodies (or any raw-deflate streams) with K6 on `device`
     (the GPU when None; "cpu" runs its plain version): one sequential
@@ -64,13 +77,7 @@ def decode_chunks_kernel(bodies, out_sizes, *, device=None):
     dev = _device.resolve_device(device)
     max_out = max(out_sizes)
     with STAGES.host("kernel_prepare"):
-        words, comp_bits = IK.pack_streams_words(bodies)
-        args = [
-            torch.from_numpy(words.view(np.int32)).to(dev),
-            torch.zeros(B, dtype=torch.int32, device=dev),
-            torch.from_numpy(comp_bits).to(dev),
-            torch.from_numpy(np.asarray(out_sizes, np.int32)).to(dev),
-        ]
+        args = _kernel_inputs(bodies, out_sizes, dev)
     with STAGES.stage("inflate", dev):
         out, produced, bad, _end_bit = IK.decode_streams(*args, max_out=max_out)
     if STAGES.enabled and dev.type == "cuda":
@@ -87,6 +94,21 @@ def decode_chunks_kernel(bodies, out_sizes, *, device=None):
                 raise KernelDataFault(f"chunk {k}: short output {produced_np[k]}")
             parts.append(out_np[k, : out_sizes[k]].tobytes())
         return parts
+
+
+def make_kernel_dispatch(bodies, out_sizes, *, max_out=None, device=None):
+    """A zero-argument dispatch over K6's operands staged once on `device`
+    (the GPU when None): each call launches K6 alone, through the same
+    `IK.decode_streams` call as decode_chunks_kernel, and returns its
+    outputs on the device, unchecked. The shape the bench traces."""
+    max_out = max_out or max(out_sizes)
+    args = _kernel_inputs(bodies, out_sizes, _device.resolve_device(device))
+
+    def dispatch():
+        return IK.decode_streams(*args, max_out=max_out)
+
+    return dispatch
+
 
 _CL_ORDER_NP = np.array(
     [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15], np.int64
