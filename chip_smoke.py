@@ -75,13 +75,14 @@ raising (phase 33); `compress_parallel` under each non-default strategy
 zlib, and return_index raising (phase 34). Then the command line,
 `python -m zlib_rs_tpu_torch --engine cuda` on the corpus as a file in
 gzip, zlib and raw at levels 6 and 1, each output equal to
-compress_parallel's, `-d` giving the corpus back, and `--engine auto`
-taking the card for 8 MiB and the host for 100 kB (phase 35);
-decompress_parallel's engine names, "tpu" equal to "device" and "auto"
-decoding both indexed streams through the region decode with one K6
-launch, and the device chain's last step (the region decode) giving back
-a small stream whose engines all fault, through K6 and, with a region K6
-refuses, through the lockstep engine (phase 36); `python -m
+compress_parallel's, `--engine auto` taking the card for 8 MiB and the
+host below the CLI's threshold, and `-d --engine cuda` giving the corpus
+back through K6 (phase 35); decompress_parallel's engine names, "tpu"
+equal to "device" and "auto" decoding both indexed streams through the
+region decode with one K6 launch, the device chain's last step (the
+region decode) giving back a small stream whose engines all fault,
+through K6 and, with a region K6 refuses, through the lockstep engine,
+and the time to raise on a flipped byte in a 128 KiB chunk (phase 36); `python -m
 zlib_rs_tpu_torch.bench` within the time left, its last line under 500
 bytes with a torch.profiler headline and every device phase's key and
 device-busy share in the full line above it (phase 37). Any mismatch
@@ -2285,13 +2286,17 @@ def cli_phase(corpus) -> dict:
     """Phase 35: `python -m zlib_rs_tpu_torch -c --engine cuda` on the corpus
     as a file, in gzip, zlib and raw at levels 6 and 1 (ZRS_TPU_KERNEL
     unset, the CLI's default engine), each output decoded by zlib and equal
-    to compress_parallel with the same arguments in this process; `-d` of
-    the gzip output giving back the corpus; `--engine auto` on the corpus
-    (the card's stream) and on 100 kB of it (the host engine's)."""
+    to compress_parallel with the same arguments in this process; `--engine
+    auto` on the corpus (the card's stream) and on a file of half the CLI's
+    TPU_THRESHOLD (the host engine's); `-d --engine cuda` of the corpus's
+    gzip stream giving back the corpus, as a process and in this one (one
+    K6 launch), and `-d --engine host` of the small file's."""
     import gzip
 
     import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch import cli as CLI
     from zlib_rs_tpu_torch.models import oneshot
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
 
     t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
@@ -2299,7 +2304,8 @@ def cli_phase(corpus) -> dict:
     work.mkdir(parents=True, exist_ok=True)
     big, small = work / "corpus.bin", work / "small.bin"
     big.write_bytes(corpus)
-    small.write_bytes(corpus[:100_000])
+    n_small = CLI.TPU_THRESHOLD // 2
+    small.write_bytes(corpus[:n_small])
     env = dict(os.environ, PYTHONPATH=str(root))
     env.pop("ZRS_TPU_KERNEL", None)
 
@@ -2328,25 +2334,39 @@ def cli_phase(corpus) -> dict:
                                             "sha256": hashlib.sha256(out).hexdigest()}
                 print(f"phase 35 cli {fmt} -{level}: {digest(out)}, {wall:.3f} s, equal to "
                       f"compress_parallel", flush=True)
-        gz = work / "corpus.bin.gz"
-        gz.write_bytes(zt.compress_parallel(corpus, 6, window_bits=31))
-        back, wall = cli("-d", "-c", str(gz))
-        if back != corpus:
-            raise AssertionError("the CLI's -d does not give back the corpus")
-        result["decompress_wall_s"] = wall
-        print(f"phase 35 cli -d: the corpus back in {wall:.3f} s", flush=True)
         _out, wall = cli("-k", "-f", "--engine", "auto", str(big), str(small))
         big_gz = (work / "corpus.bin.gz").read_bytes()
         small_gz = (work / "small.bin.gz").read_bytes()
-        on_card = zt.compress_parallel(corpus[:100_000], 6, window_bits=31)
+        on_card = zt.compress_parallel(corpus[:n_small], 6, window_bits=31)
         if big_gz != zt.compress_parallel(corpus, 6, window_bits=31):
             raise AssertionError("--engine auto did not take the card for 8 MiB")
-        if (small_gz != oneshot.compress(corpus[:100_000], 6, window_bits=31)
-                or small_gz == on_card or gzip.decompress(small_gz) != corpus[:100_000]):
-            raise AssertionError("--engine auto did not take the host for 100 kB")
+        if (small_gz != oneshot.compress(corpus[:n_small], 6, window_bits=31)
+                or small_gz == on_card or gzip.decompress(small_gz) != corpus[:n_small]):
+            raise AssertionError(f"--engine auto did not take the host for {n_small} bytes")
         result["auto_wall_s"] = wall
-        print(f"phase 35 cli auto: the 8 MiB file took the card ({digest(big_gz)}), the 100 kB "
-              f"file the host ({digest(small_gz)}), {wall:.3f} s", flush=True)
+        print(f"phase 35 cli auto: the 8 MiB file took the card ({digest(big_gz)}), the "
+              f"{n_small}-byte file the host ({digest(small_gz)}), {wall:.3f} s", flush=True)
+        gz = work / "corpus.bin.gz"
+        back, wall = cli("-d", "-c", "--engine", "cuda", str(gz))
+        if back != corpus:
+            raise AssertionError("the CLI's -d --engine cuda does not give back the corpus")
+        result["decompress_cuda_wall_s"] = wall
+        k0 = IK.launches["inflate"]
+        t0 = time.perf_counter()
+        if CLI.main(["-d", "-k", "-f", "--engine", "cuda", str(gz)]) != 0:
+            raise AssertionError("the CLI's -d --engine cuda failed in this process")
+        warm = time.perf_counter() - t0
+        if big.read_bytes() != corpus or IK.launches["inflate"] != k0 + 1:
+            raise AssertionError(f"the CLI's -d --engine cuda in this process: K6 launches "
+                                 f"{IK.launches['inflate'] - k0}")
+        result["decompress_cuda_in_process_s"] = warm
+        print(f"phase 35 cli -d --engine cuda: the corpus back from {len(big_gz)} gzip bytes in "
+              f"{wall:.3f} s as a process, {warm:.3f} s in this one (one K6 launch)", flush=True)
+        back, wall = cli("-d", "-c", "--engine", "host", str(work / "small.bin.gz"))
+        if back != corpus[:n_small]:
+            raise AssertionError("the CLI's -d --engine host does not give back the small file")
+        result["decompress_host_small_wall_s"] = wall
+        print(f"phase 35 cli -d --engine host: {n_small} bytes back in {wall:.3f} s", flush=True)
     finally:
         if kernel_env is not None:
             os.environ["ZRS_TPU_KERNEL"] = kernel_env
@@ -2364,8 +2384,13 @@ def engine_names_phase(torch, corpus, idx_out, index, gz, gz_index) -> dict:
     engines all fault under ZRS_TPU_KERNEL=0 (phase 8's undersized cap for
     the vector engine, every lane of the swarm engine flagged bad): the
     region decode gives back the input through K6, and through the
-    lockstep engine on the 1,000-byte region when K6 refuses it too."""
+    lockstep engine on the 1,000-byte region when K6 refuses it too.
+    Last, the time to raise on a flipped byte in a 128 KiB chunk of the
+    XLA engine's indexed stream (ZRS_TPU_KERNEL unset, a user's default):
+    every engine faults, and the region decode runs the lockstep engine on
+    the one region K6 refuses."""
     import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch import _device
     from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
     from zlib_rs_tpu_torch.parallel import device_inflate as DI
     from zlib_rs_tpu_torch.parallel import pipeline as PL
@@ -2450,6 +2475,54 @@ def engine_names_phase(torch, corpus, idx_out, index, gz, gz_index) -> dict:
         else:
             os.environ["ZRS_TPU_KERNEL"] = kernel_env
         PL._FALLBACKS.clear()
+
+    kernel_env = os.environ.pop("ZRS_TPU_KERNEL", None)
+    try:
+        data = corpus[: 4 * 131072]
+        xla_out, xla_ix = zt.compress_parallel(data, 6, return_index=True)
+        off, ln, n = xla_ix[1]
+        # the first byte from chunk 1's middle whose flip K6 refuses, so
+        # that the region decode runs the lockstep engine on it
+        flips = [off + ln // 2 + k for k in range(64)]
+        bodies = []
+        for at in flips:
+            body = bytearray(xla_out[off : off + ln])
+            body[at - off] ^= 0xFF
+            bodies.append(bytes(body))
+        _o, produced, bad, _e = IK.decode_streams(
+            *SW._kernel_inputs(bodies, [n] * len(bodies), _device.resolve_device(None)),
+            max_out=n)
+        refused = (bad | (produced < n)).cpu().numpy()
+        if not refused.any():
+            raise AssertionError("K6 refused none of 64 flipped bytes in a 128 KiB chunk")
+        at = flips[int(refused.argmax())]
+        broken = bytearray(xla_out)
+        broken[at] ^= 0xFF
+        r0 = dict(DI.runs)
+        t0 = time.perf_counter()
+        try:
+            zt.decompress_parallel(bytes(broken), xla_ix)
+        except ValueError as e:
+            why = str(e)
+        else:
+            raise AssertionError("a flipped byte in a 128 KiB chunk decoded without a ValueError")
+        wall = time.perf_counter() - t0
+        stats = PL.fallback_stats()
+        PL._FALLBACKS.clear()
+        steps = DI.runs["steps"] - r0["steps"]
+        if zt.decompress_parallel(xla_out, xla_ix) != data or PL.fallback_stats():
+            raise AssertionError("the clean 128 KiB-chunk decode after the flipped byte failed")
+    finally:
+        if kernel_env is not None:
+            os.environ["ZRS_TPU_KERNEL"] = kernel_env
+        PL._FALLBACKS.clear()
+    result["flipped_128k"] = {"raise_s": wall, "why": why, "fallbacks": stats,
+                              "flip_at": at - off, "chunk_bytes": ln,
+                              "lockstep_runs": DI.runs["decode_regions"] - r0["decode_regions"],
+                              "lockstep_steps": steps}
+    print(f"phase 36 flipped byte {at - off} of the {ln}-byte chunk 1 (128 KiB out, "
+          f"{len(xla_ix)} chunks): ValueError ({why}) "
+          f"after {stats}, {steps} lockstep steps, {wall:.3f} s to raise", flush=True)
     result["phase_s"] = time.perf_counter() - t_start
     print(f"phase 36: {result['phase_s']:.1f} s", flush=True)
     return result

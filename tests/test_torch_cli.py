@@ -106,7 +106,9 @@ def test_tpu_is_cuda(capsysbinary, src):
 
 
 def test_auto_picks_cuda_at_the_threshold(monkeypatch, capsysbinary, src):
-    assert cli.TPU_THRESHOLD == jcli.TPU_THRESHOLD == 4 * 1024 * 1024
+    # the port's threshold is measured on the H100 (cli_crossover.py); the
+    # reference's is where its TPU beats its C++ engine
+    assert (cli.TPU_THRESHOLD, jcli.TPU_THRESHOLD) == (64 * 1024, 4 * 1024 * 1024)
     assert cli._choose_engine("auto", cli.TPU_THRESHOLD) == "cuda"
     assert cli._choose_engine("auto", cli.TPU_THRESHOLD - 1) == "host"
     assert [cli._choose_engine(e, 10**9) for e in ("host", "cuda")] == ["host", "cuda"]
@@ -175,6 +177,81 @@ def test_corrupt_input_fails(capsysbinary, tmp_path):
     p.write_bytes(bytes(stream))
     rc, out, err = _run(capsysbinary, ["-d", "-c", str(p)])
     assert rc == 1 and out == b"" and "zlib_rs_tpu_torch" in err
+
+
+CARD_STREAMS = [
+    ("gzip", gzip.compress(HOST)),
+    ("gzip", gzip.compress(HOST[:5000]) + gzip.compress(HOST[5000:]) + gzip.compress(b"")),
+    ("gzip", zlib.compress(HOST)),
+    ("zlib", zlib.compress(HOST, 9)),
+    ("raw", zlib.compress(HOST, 1)[2:-4]),
+]
+
+
+@pytest.fixture
+def foreign_calls(monkeypatch):
+    from zlib_rs_tpu_torch.parallel import inflate as TI
+
+    calls = []
+    real = TI.decompress_foreign
+
+    def spy(data, *a, **k):
+        calls.append(k.get("device"))
+        return real(data, *a, **k)
+
+    monkeypatch.setattr(TI, "decompress_foreign", spy)
+    return calls
+
+
+@pytest.mark.parametrize("engine", ["cuda", "tpu", "auto"])
+@pytest.mark.parametrize("fmt,stream", CARD_STREAMS,
+                         ids=["gzip", "gzip-members", "gzip-zlib", "zlib", "raw"])
+def test_decompress_on_the_card(monkeypatch, capsysbinary, tmp_path, foreign_calls, engine,
+                                fmt, stream):
+    # auto takes the card from TPU_THRESHOLD input bytes up, as on compress
+    monkeypatch.setattr(cli, "TPU_THRESHOLD", len(stream))
+    p = tmp_path / "in.bin.gz"
+    p.write_bytes(stream)
+    rc, out, _err = _run(capsysbinary, ["-d", "-c", "--engine", engine, "--device", "cpu",
+                                        "--format", fmt, str(p)])
+    assert rc == 0 and out == HOST and foreign_calls == ["cpu"]
+
+
+@pytest.mark.parametrize("case", ["auto-below", "host", "preset-dict", "other-format"])
+def test_decompress_left_to_the_host(monkeypatch, capsysbinary, tmp_path, foreign_calls, case):
+    stream, fmt, engine, want = gzip.compress(HOST), "gzip", "cuda", HOST
+    if case == "auto-below":
+        engine = "auto"
+        monkeypatch.setattr(cli, "TPU_THRESHOLD", len(stream) + 1)
+    elif case == "host":
+        engine = "host"
+    elif case == "preset-dict":
+        c = zlib.compressobj(6, zlib.DEFLATED, 15, zdict=HOST[:2000])
+        stream, fmt = c.compress(HOST) + c.flush(), "zlib"
+    else:
+        fmt = "zlib"  # a gzip stream named zlib: the host inflater refuses it
+    p = tmp_path / "in.bin.gz"
+    p.write_bytes(stream)
+    rc, out, err = _run(capsysbinary, ["-d", "-c", "--engine", engine, "--device", "cpu",
+                                       "--format", fmt, str(p)])
+    assert foreign_calls == []
+    if case in ("auto-below", "host"):
+        assert rc == 0 and out == want
+    else:
+        assert rc == 1 and out == b"" and "zlib_rs_tpu_torch" in err
+
+
+def test_decompress_on_the_card_fails_safe(monkeypatch, capsysbinary, tmp_path, foreign_calls):
+    p = tmp_path / "bad.gz"
+    stream = bytearray(gzip.compress(HOST))
+    stream[-6] ^= 0xFF  # the crc32
+    p.write_bytes(bytes(stream))
+    rc, out, err = _run(capsysbinary, ["-d", "-c", "--engine", "cuda", "--device", "cpu", str(p)])
+    assert rc == 1 and out == b"" and "incorrect data check" in err and foreign_calls == ["cpu"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p.write_bytes(gzip.compress(HOST))
+    rc, out, err = _run(capsysbinary, ["-d", "-c", "--engine", "cuda", str(p)])
+    assert rc == 1 and out == b"" and "CUDA device" in err
 
 
 # ---------------------------------------------------------------------------

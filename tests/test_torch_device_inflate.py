@@ -7,8 +7,11 @@ The regions are at most 4 KiB of output (the port's step loop costs about
 half a millisecond a step on the CPU): stored, fixed and dynamic blocks,
 several to a region, regions cut by the zran index at sub-byte starts
 with their windows, bad regions (a truncated body, a reserved block
-type) and the lone-EOB body that K6 refuses. The port reads its loop's flags every step, so `n_steps` is the
-reference's by construction and is compared on every input."""
+type) and the lone-EOB body that K6 refuses. The port reads its loop's
+flags every step outside its symbol blocks, and a block's step counts
+only while every running lane decodes symbols at its start, so `n_steps`
+is the reference's by construction; it is compared on every input, at
+the default block and at blocks of 1 and 5 steps."""
 
 import zlib
 
@@ -136,6 +139,24 @@ def test_decode_regions_equal_jax(case):
     assert got[3] < max_steps
     assert got[5].tolist() == ([False, True, True, False] if case == "corrupt"
                                else [False] * len(bodies))
+
+
+@pytest.mark.parametrize("block", [1, 5])
+@pytest.mark.parametrize("case", ["blocks", "corrupt"])
+def test_decode_regions_symbol_blocks_equal_jax(monkeypatch, case, block):
+    """Symbol blocks of 1 and 5 steps, whose edges fall at other steps:
+    the tapes, counts and flags stay the JAX package's."""
+    bodies, outputs, _windows, start_bits = _case(case)
+    comp, sb, eb, tg = _arrays(bodies, outputs, start_bits)
+    want = JDI.decode_regions(jnp.asarray(comp), jnp.asarray(sb), jnp.asarray(eb),
+                              jnp.asarray(tg), max_steps=4096 + 514, max_out=4096)
+    monkeypatch.setattr(DI, "SYMBOL_BLOCK", block)
+    blocks = DI.runs["symbol_blocks"]
+    got = DI.decode_regions(*(torch.from_numpy(a) for a in (comp, sb, eb, tg)), 4096 + 514)
+    assert DI.runs["symbol_blocks"] > blocks
+    assert got[3] == int(want[3])
+    for g, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
+        assert np.array_equal(g.numpy(), np.asarray(w))
 
 
 def test_decode_regions_step_cap_equal_jax():

@@ -746,7 +746,7 @@ def bench_device(data: bytes, emit=None, only=None, device=None) -> dict:
     return dev
 
 
-def _device_child_main(only=None) -> int:
+def _device_child_main() -> int:
     """The killable device child: run the device phases and print
     'DEVPART <json>' after every one (the parent merges the last one
     received). Exits 1 when there is no CUDA device."""
@@ -760,7 +760,7 @@ def _device_child_main(only=None) -> int:
     data = load_corpus()
     dev = {}
     try:
-        dev = bench_device(data, emit=emit, only=only)
+        dev = bench_device(data, emit=emit)
     except Exception as e:  # no device, or a failed build: recorded for the parent
         PHASE_ERRORS["device"] = f"{type(e).__name__}: {str(e)[:300]}"
         _log(f"device phases failed: {PHASE_ERRORS['device']}")
@@ -849,12 +849,12 @@ def _compact_result(result, device):
     return compact
 
 
-def _run_device_subprocess(device, errors, card, snapshot, phases=None, reserve=30):
+def _run_device_subprocess(device, errors, card, snapshot):
     """Run the device phases in a killable child (a fresh interpreter,
     never a fork of a process that has touched CUDA), merging every
     DEVPART line into `device`, `errors` and `card` and snapshotting at
     once, so that the final kill loses nothing already measured."""
-    deadline = remaining() - reserve
+    deadline = remaining() - 30
     if deadline < 30:
         errors["device"] = "skipped: no budget left for the device child"
         _log(errors["device"])
@@ -864,8 +864,6 @@ def _run_device_subprocess(device, errors, card, snapshot, phases=None, reserve=
     root = str(Path(__file__).resolve().parent.parent)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
     args = [sys.executable, "-m", "zlib_rs_tpu_torch.bench", "--device-child"]
-    if phases:
-        args.append("--phases=" + ",".join(phases))
     proc = subprocess.Popen(args, stdout=subprocess.PIPE, stderr=sys.stderr, text=True,
                             env=env)
 
@@ -938,9 +936,5 @@ def main():
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--device-child":
-        rest = sys.argv[2:]
-        only = None
-        if rest and rest[0].startswith("--phases="):
-            only = tuple(rest[0][len("--phases="):].split(","))
-        sys.exit(_device_child_main(only=only))
+        sys.exit(_device_child_main())
     main()

@@ -13,12 +13,18 @@ Usage:
 
 The port does not carry the reference's C++ native engine: a compress
 with --engine native, --quick or --medium exits with status 1, and
---engine auto picks as the reference does without it (the card from
-TPU_THRESHOLD bytes up, the host engine below). Decompression runs the
-host inflater, every member of a gzip stream (the reference decodes only
-the first without its native engine). --device cpu runs the card's path
-through the kernels' plain PyTorch versions; without it, --engine cuda
-with no GPU fails.
+--engine auto picks as the reference does without it, the card from
+TPU_THRESHOLD input bytes up and the host engine below (a lower
+threshold than the reference's, measured for the port). Decompression
+picks the same way: the card's engine decodes a gzip, zlib or raw stream
+of the given format (`parallel.inflate.decompress_foreign`: gzip members
+or zran regions on K6, each checked against its container checksum), and
+the host engine runs the host inflater, every member of a gzip stream
+(the reference decodes only the first without its native engine), and
+takes the streams the card's engine does not (a zlib preset dictionary,
+or a stream of another format than --format names). --device cpu runs
+the card's path through the kernels' plain PyTorch versions; without it,
+--engine cuda with no GPU fails.
 """
 
 from __future__ import annotations
@@ -29,7 +35,13 @@ import sys
 
 from .config import InflateConfig, InflateFlush, ReturnCode
 
-TPU_THRESHOLD = 4 * 1024 * 1024  # auto engine: use the device path from this size
+# auto engine: the card from this many input bytes. cli_crossover.py times
+# one process of each engine: on an H100 the card's compress wall is under
+# the host engine's from 64 KiB (its smallest size) up, and its decompress
+# wall within 0.4 s of the host inflater's from 52 KB of gzip input and
+# under it from 97 KB. The reference's 4 MiB is where its TPU beats its
+# C++ engine.
+TPU_THRESHOLD = 64 * 1024
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -82,8 +94,9 @@ def _wbits_for(fmt: str, decompress: bool) -> int:
 
 
 def _choose_engine(engine: str, n: int) -> str:
-    """The engine that compresses `n` bytes: "tpu" is "cuda", and "auto"
-    is the reference's choice without its native engine."""
+    """The engine that compresses or decompresses `n` input bytes: "tpu"
+    is "cuda", and "auto" is the reference's choice without its native
+    engine."""
     if engine == "tpu":
         return "cuda"
     if engine == "auto":
@@ -128,7 +141,26 @@ def _inflate_member(data: bytes, window_bits: int) -> tuple[bytes, int]:
     return out, consumed
 
 
+# the stream kinds each --format decodes (gzip's decode sniffs zlib too)
+_KINDS = {"gzip": ("gzip", "zlib"), "zlib": ("zlib",), "raw": ("raw",)}
+
+
+def _on_card(data: bytes, args) -> bool:
+    """Whether the card's engine decodes `data`: the cuda engine chosen,
+    and a stream of a kind --format names, without a preset dictionary."""
+    if _choose_engine(args.engine, len(data)) != "cuda":
+        return False
+    from .models import zran
+
+    _hdr, kind = zran._wrapper_span(data)
+    return kind in _KINDS[args.format] and not (kind == "zlib" and data[1] & 0x20)
+
+
 def _decompress(data: bytes, args) -> bytes:
+    if _on_card(data, args):
+        from .parallel.inflate import decompress_foreign
+
+        return decompress_foreign(data, device=args.device)
     wbits = _wbits_for(args.format, True)
     if args.format != "gzip" or data[:2] != b"\x1f\x8b":
         from .models import oneshot

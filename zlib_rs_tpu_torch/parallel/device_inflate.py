@@ -23,9 +23,12 @@ import torch
 FLAT_BITS = 15
 CL_BITS = 7
 
-# runs of the lockstep engine and the steps they took, for tests and the
-# smoke run to show whether it ran
-runs = {"decode_regions": 0, "steps": 0}
+# runs of the lockstep engine, the steps they took and the symbol blocks
+# among them, for tests and the smoke run to show whether it ran
+runs = {"decode_regions": 0, "steps": 0, "symbol_blocks": 0}
+
+# steps a symbol block of decode_regions runs without a host read
+SYMBOL_BLOCK = 64
 
 # token kinds in a tape
 TOK_NULL = 0  # no token: covers zero output bytes
@@ -221,7 +224,11 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
     when the next length is the last, lit/len and distance tables for a
     fixed header next or a code-length symbol that completes the lengths)
     decides both, and ends the loop at the reference's step count, the
-    first after which every lane is done or bad.
+    first after which every lane is done or bad. While every running lane
+    decodes symbols, steps need no read: SYMBOL_BLOCK of them run as one
+    block (one CUDA graph on the card), each counting only while that
+    still holds at its start, so the tapes and the step count stay the
+    reference's.
     """
     B, L = comp.shape
     dev = comp.device
@@ -276,8 +283,108 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
                             torch.where(csym == 18, 11 + rep_extra, 1))
         return ce >> 28, cnb, csym, rep_bits, rep_n
 
+    def symbols(phase, bitpos, produced, final_f, col_kind, col_a, col_b):
+        """PH_SYMS: one literal or length/distance pair a step."""
+        in_sy = phase == PH_SYMS
+        w1 = fetch(bitpos)
+        e = ll_lut.gather(1, (w1 & 0x7FFF)[:, None])[:, 0]
+        kind = e >> 28
+        aux = (e >> 22) & 0x3F
+        nb = (e >> 16) & 0x3F
+        payload = e & 0xFFFF
+        is_lit = in_sy & (kind == KIND_LIT)
+        is_eob = in_sy & (kind == KIND_EOB)
+        is_match = in_sy & (kind == KIND_MATCH)
+        length = payload + ((w1 >> nb) & ((1 << aux) - 1))
+        p2 = nb + aux
+        de = d_lut.gather(1, ((w1 >> p2) & 0x7FFF)[:, None])[:, 0]
+        daux = (de >> 22) & 0x3F
+        dnb = (de >> 16) & 0x3F
+        dist = (de & 0xFFFF) + ((w1 >> (p2 + dnb)) & ((1 << daux) - 1))
+        s_bad = in_sy & ((kind == KIND_INVALID) | ((kind == KIND_MATCH)
+                                                   & ((de >> 28) != KIND_MATCH)))
+        good_match = is_match & ~s_bad
+        col_kind = torch.where(is_lit, TOK_LIT, torch.where(good_match, TOK_MATCH, col_kind))
+        col_a = torch.where(is_lit, 1, torch.where(is_match, length, col_a))
+        col_b = torch.where(is_lit, payload, torch.where(is_match, dist, col_b))
+        produced = torch.where(is_lit, produced + 1,
+                               torch.where(good_match, produced + length, produced))
+        bitpos = torch.where(is_lit | is_eob, bitpos + nb,
+                             torch.where(good_match, bitpos + p2 + dnb + daux, bitpos))
+        phase = torch.where(s_bad, PH_BAD, torch.where(
+            is_eob, torch.where(final_f == 1, PH_DONE, PH_HEADER),
+            torch.where((is_lit | is_match) & (produced >= target), PH_DONE, phase)))
+        return phase, bitpos, produced, col_kind, col_a, col_b
+
+    def exhausted(phase, bitpos, produced):
+        """Input exhausted: done if the lane reached its target (a body may
+        end at a block boundary with no BFINAL), else bad."""
+        running = (phase != PH_DONE) & (phase != PH_BAD)
+        return torch.where((bitpos > end) & running,
+                           torch.where(produced >= target, PH_DONE, PH_BAD), phase)
+
+    def region_end(phase, bitpos, produced):
+        """A non-final body ends when its bits run out exactly at a block
+        boundary."""
+        at_hdr_end = (phase == PH_HEADER) & (bitpos + 3 > end)
+        return torch.where(at_hdr_end & (produced >= target), PH_DONE, phase)
+
     def lanes(mask) -> torch.Tensor:
         return torch.from_numpy(np.flatnonzero(mask)).to(dev)
+
+    # the symbol block's state, copied in before each block
+    blk = {}
+
+    def symbol_step():
+        """One step of the symbol regime (every lane in PH_SYMS, done or
+        bad): the step of the loop below with only its PH_SYMS section.
+        It counts (writes its tape row, moves the state and the step
+        index) only while the regime holds at its start, some lane runs
+        and the step budget is not spent; otherwise it changes nothing."""
+        ph, bp, pr, i_t = blk["phase"], blk["bitpos"], blk["produced"], blk["i"]
+        ok = (ph >= PH_SYMS).all() & (ph == PH_SYMS).any() & (i_t < max_steps)
+        zero = torch.zeros_like(ph)
+        nph, nbp, npr, ck, ca, cb = symbols(exhausted(ph, bp, pr), bp, pr, blk["final_f"],
+                                            zero, zero, zero)
+        nph = region_end(nph, nbp, npr)
+        row = i_t.clamp(max=max_steps - 1).view(1)
+        for tape, col in ((tk, ck), (ta, ca), (tb, cb)):
+            keep = tape.index_select(0, row)[0]
+            tape.index_copy_(0, row, torch.where(ok, col.to(tape.dtype), keep)[None])
+        ph.copy_(torch.where(ok, nph, ph))
+        bp.copy_(torch.where(ok, nbp, bp))
+        pr.copy_(torch.where(ok, npr, pr))
+        i_t.add_(ok.to(i64))
+
+    def symbol_block(i: int):
+        """SYMBOL_BLOCK symbol steps from step i with no host read: one
+        CUDA graph replay on the card (captured at the first block, after
+        a warm-up block whose steps count too), the steps one by one
+        elsewhere."""
+        for name, t in (("phase", phase), ("bitpos", bitpos), ("produced", produced),
+                        ("final_f", final_f)):
+            if name in blk:
+                blk[name].copy_(t)
+            else:
+                blk[name] = t.clone()
+        blk.setdefault("i", torch.zeros((), dtype=i64, device=dev)).fill_(i)
+        runs["symbol_blocks"] += 1
+        if dev.type != "cuda":
+            for _ in range(SYMBOL_BLOCK):
+                symbol_step()
+            return
+        if "graph" not in blk:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(SYMBOL_BLOCK):
+                    symbol_step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            blk["graph"] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(blk["graph"]):
+                for _ in range(SYMBOL_BLOCK):
+                    symbol_step()
+        blk["graph"].replay()
 
     def look(w, clen_live: bool):
         """One host read: the phases present, the lanes that may build a
@@ -296,15 +403,19 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
     present, clb_next, build_next = look(w0, False)
     i = 0
     while i < max_steps and present[:PH_DONE].any():
+        if not present[:PH_SYMS].any():
+            # the symbol regime: no table build or header next
+            symbol_block(i)
+            phase, bitpos, produced = blk["phase"], blk["bitpos"], blk["produced"]
+            i = int(blk["i"])
+            w0 = fetch(bitpos)
+            present, clb_next, build_next = look(w0, False)
+            continue
         base = bitpos
         hdr_live = bool(present[PH_HEADER])
         clb_lanes = lanes(clb_next) if clb_next.any() else None
         build_lanes = lanes(build_next) if build_next.any() else None
-        # input exhausted: done if the lane reached its target (a body
-        # may end at a block boundary with no BFINAL), else bad
-        running = (phase != PH_DONE) & (phase != PH_BAD)
-        phase = torch.where((bitpos > end) & running,
-                            torch.where(produced >= target, PH_DONE, PH_BAD), phase)
+        phase = exhausted(phase, bitpos, produced)
         col_kind = z()
         col_a = z()
         col_b = z()
@@ -404,41 +515,10 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
             phase = torch.where(need, PH_SYMS, phase)
 
         if present[PH_SYMS] or build_lanes is not None:
-            # PH_SYMS: one literal or length/distance pair a step
-            in_sy = phase == PH_SYMS
-            w1 = fetch(bitpos)
-            e = ll_lut.gather(1, (w1 & 0x7FFF)[:, None])[:, 0]
-            kind = e >> 28
-            aux = (e >> 22) & 0x3F
-            nb = (e >> 16) & 0x3F
-            payload = e & 0xFFFF
-            is_lit = in_sy & (kind == KIND_LIT)
-            is_eob = in_sy & (kind == KIND_EOB)
-            is_match = in_sy & (kind == KIND_MATCH)
-            length = payload + ((w1 >> nb) & ((1 << aux) - 1))
-            p2 = nb + aux
-            de = d_lut.gather(1, ((w1 >> p2) & 0x7FFF)[:, None])[:, 0]
-            daux = (de >> 22) & 0x3F
-            dnb = (de >> 16) & 0x3F
-            dist = (de & 0xFFFF) + ((w1 >> (p2 + dnb)) & ((1 << daux) - 1))
-            s_bad = in_sy & ((kind == KIND_INVALID) | ((kind == KIND_MATCH)
-                                                       & ((de >> 28) != KIND_MATCH)))
-            good_match = is_match & ~s_bad
-            col_kind = torch.where(is_lit, TOK_LIT, torch.where(good_match, TOK_MATCH, col_kind))
-            col_a = torch.where(is_lit, 1, torch.where(is_match, length, col_a))
-            col_b = torch.where(is_lit, payload, torch.where(is_match, dist, col_b))
-            produced = torch.where(is_lit, produced + 1,
-                                   torch.where(good_match, produced + length, produced))
-            bitpos = torch.where(is_lit | is_eob, bitpos + nb,
-                                 torch.where(good_match, bitpos + p2 + dnb + daux, bitpos))
-            phase = torch.where(s_bad, PH_BAD, torch.where(
-                is_eob, torch.where(final_f == 1, PH_DONE, PH_HEADER),
-                torch.where((is_lit | is_match) & (produced >= target), PH_DONE, phase)))
+            phase, bitpos, produced, col_kind, col_a, col_b = symbols(
+                phase, bitpos, produced, final_f, col_kind, col_a, col_b)
 
-        # region end: a non-final body ends when its bits run out exactly
-        # at a block boundary
-        at_hdr_end = (phase == PH_HEADER) & (bitpos + 3 > end)
-        phase = torch.where(at_hdr_end & (produced >= target), PH_DONE, phase)
+        phase = region_end(phase, bitpos, produced)
 
         tk[i] = col_kind
         ta[i] = col_a

@@ -96,12 +96,12 @@ def decode_chunks_kernel(bodies, out_sizes, *, device=None):
         return parts
 
 
-def make_kernel_dispatch(bodies, out_sizes, *, max_out=None, device=None):
+def make_kernel_dispatch(bodies, out_sizes, *, device=None):
     """A zero-argument dispatch over K6's operands staged once on `device`
     (the GPU when None): each call launches K6 alone, through the same
     `IK.decode_streams` call as decode_chunks_kernel, and returns its
     outputs on the device, unchecked. The shape the bench traces."""
-    max_out = max_out or max(out_sizes)
+    max_out = max(out_sizes)
     args = _kernel_inputs(bodies, out_sizes, _device.resolve_device(device))
 
     def dispatch():

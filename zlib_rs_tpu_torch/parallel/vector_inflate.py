@@ -121,15 +121,15 @@ def _twoplane_cap(meta) -> int:
     return min(meta["cap"], int(_bucket(int(meta["sspan"].max()) // 3 + 40, 128)))
 
 
-def _run(dev, meta, *, max_out: int, twoplane: bool):
-    """K4 then K5 (K11a then K11b without `twoplane`) on the staged
-    inputs: (out words [B, out_words], cons, bad, rem [W]), all on the
-    inputs' device. The single-plane tape is row-major [cap, W], so it
+def _run(dev, meta, *, max_out: int):
+    """K4 then K5 (K11a then K11b under ZRS_VECTOR_TWOPLANE=0) on the
+    staged inputs: (out words [B, out_words], cons, bad, rem [W]), all on
+    the inputs' device. The single-plane tape is row-major [cap, W], so it
     needs none of the reference's relayout to walker-major order."""
     device = dev["words"].device
     out_words = -(-max_out // 4) + 2
     args = (dev["words"], dev["start_word"], dev["align"], dev["span"], dev["tables"])
-    if not twoplane:
+    if not _twoplane_default():
         with STAGES.stage("vhuff_decode1", device):
             tape, cons, bad, rem = VK.decode_tokens_vector(
                 *args, S=meta["S"], K=meta["K"], cap=meta["cap"]
@@ -157,8 +157,7 @@ def decode_chunks_vector(bodies, out_sizes, seeds, *, device=None):
         return []
     with STAGES.host("decode_prepare"):
         dev, meta = prepare_vector_inputs(bodies, out_sizes, seeds, device)
-    outw, cons, bad, rem = _run(dev, meta, max_out=max(out_sizes),
-                                twoplane=_twoplane_default())
+    outw, cons, bad, rem = _run(dev, meta, max_out=max(out_sizes))
     if STAGES.enabled and outw.device.type == "cuda":
         torch.cuda.synchronize(outw.device)  # keep device time out of the host stage
     with STAGES.host("decode_checks"):
@@ -187,19 +186,15 @@ def decode_chunks_vector(bodies, out_sizes, seeds, *, device=None):
         return [out_np[k, : out_sizes[k]].tobytes() for k in range(B)]
 
 
-
-def make_vector_dispatch(bodies, out_sizes, seeds, *, max_out=None, twoplane=None,
-                         device=None):
+def make_vector_dispatch(bodies, out_sizes, seeds, *, device=None):
     """A zero-argument dispatch over inputs staged once on `device` (the
-    GPU when None): each call re-runs K4 and K5 (K11a and K11b when
-    `twoplane` is False; None reads ZRS_VECTOR_TWOPLANE now) and returns
-    their outputs on the device, unchecked. The shape the bench traces."""
-    max_out = max_out or max(out_sizes)
+    GPU when None): each call re-runs K4 and K5 (K11a and K11b under
+    ZRS_VECTOR_TWOPLANE=0) and returns their outputs on the device,
+    unchecked. The shape the bench traces."""
     dev, meta = prepare_vector_inputs(bodies, out_sizes, seeds, device)
-    if twoplane is None:
-        twoplane = _twoplane_default()
+    max_out = max(out_sizes)
 
     def dispatch():
-        return _run(dev, meta, max_out=max_out, twoplane=twoplane)
+        return _run(dev, meta, max_out=max_out)
 
     return dispatch
