@@ -60,14 +60,19 @@ rows, and K4, K5, K11a, K11b and K6 on the 128 KiB indexed streams (K5
 and K11b on their serial too-large body), each against its plain
 version, and every decode route end to end on them; the seeded swarm
 engine under ZRS_TPU_KERNEL=0 (and ZRS_TPU_VECTOR=0), held against its
-CPU run; the static level-1 index through K6 (phases 26-31). Then the
-lockstep region engine (`decode_regions`, `resolve_tokens`) on 8 lanes of
-16 KiB (stdlib raw deflate at levels 0, 1, 6 and 9 and under Z_FIXED, two
-zran regions at sub-byte starts with their windows, the lone-EOB body),
-held against its CPU run and the corpus, `decompress_chunks(engine=
-"auto")` recovering the lone-EOB body that K6 refuses and a flipped bit
-raising (phase 32); `decompress_foreign` of the corpus as stdlib zlib at
-levels 6 and 9, raw deflate and gzip of 1 and 4 members, each through K6
+CPU run, and its walker kernel (csrc/swarm.cu) against its plain version
+on every chunk, clean and with a flipped byte; the static level-1 index
+through K6 (phases 26-31). Then the
+lockstep kernel (csrc/lockstep.cu, `decode_regions`) against its plain
+version on the CPU on 8 lanes of 16 KiB (stdlib raw deflate at levels 0,
+1, 6 and 9 and under Z_FIXED, two zran regions at sub-byte starts with
+their windows, the lone-EOB body), on the same lanes with a flipped byte
+in each and on a 128 KiB chunk of the XLA engine's stream, with its steps
+a second and ms a launch; `resolve_tokens` of the clean lanes against the
+corpus, `decompress_chunks(engine="auto")` recovering the lone-EOB body
+that K6 refuses and a flipped bit raising (phase 32); `decompress_foreign`
+of the corpus as stdlib zlib at levels 6 and 9, raw deflate and gzip of
+1 and 4 members, each through K6
 with no fallback, three warm runs of the level-6 stream with the zran
 index pass and the region decode timed apart, and a corrupted adler32
 raising (phase 33); `compress_parallel` under each non-default strategy
@@ -82,8 +87,13 @@ equal to "device" and "auto" decoding both indexed streams through the
 region decode with one K6 launch, the device chain's last step (the
 region decode) giving back a small stream whose engines all fault,
 through K6 and, with a region K6 refuses, through the lockstep engine,
-and the time to raise on a flipped byte in a 128 KiB chunk (phase 36); `python -m
-zlib_rs_tpu_torch.bench` within the time left, its last line under 500
+and the time to raise on a flipped byte in a 128 KiB chunk, through one
+launch of the lockstep kernel (phase 36); the host API layers on 64 KiB
+of the corpus, each against stdlib zlib: `Deflate`/`Inflate` through
+1-byte and 4 KiB buffers under every flush mode, a `GzFile` write and
+read, `inflate_back`, `compress_medium` and `compress_quick`, zran
+`extract` at three offsets and `crc32_combine_op` (phase 38, run before
+the bench); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
 bytes with a torch.profiler headline and every device phase's key and
 device-busy share in the full line above it (phase 37). Any mismatch
 raises; no phase's failure is caught.
@@ -253,6 +263,25 @@ def warm_runs(torch, PL, fn, want, nbytes: int, label: str, phase: int) -> dict:
         print(f"phase {phase} {label} stages ms (warm run {run}): "
               + json.dumps({n: round(v, 3) for n, v in st.items()}), flush=True)
     return {"warm_s": walls, "warm_mb_per_s": mbps, "stage_ms": stages}
+
+
+def time_to_raise(torch, PL, fn) -> tuple[str, float, dict]:
+    """`fn` must raise ValueError: (its message, the wall to the raise,
+    the stages it ran, ms, each summed, with stage timing on)."""
+    PL.STAGES.enabled = True
+    PL.STAGES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fn()
+    except ValueError as e:
+        why = str(e)
+    else:
+        raise AssertionError("a damaged stream decoded without a ValueError")
+    finally:
+        wall = time.perf_counter() - t0
+        PL.STAGES.enabled = False
+    return why, wall, {k: round(v, 3) for k, v in PL.STAGES.ms().items()}
 
 
 def stage_decode(VI, idx_out, index, dev):
@@ -897,19 +926,18 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
     broken = bytearray(idx_out)
     off, ln, _n = index[len(index) // 2]
     broken[off + ln // 2] ^= 0xFF
-    try:
-        zt.decompress_parallel(bytes(broken), index)
-    except ValueError as e:
-        why = str(e)
-    else:
-        raise AssertionError("a flipped byte decoded without a ValueError")
+    why, raise_s, raise_stages = time_to_raise(
+        torch, PL, lambda: zt.decompress_parallel(bytes(broken), index))
+    result["flipped_raise_s"] = raise_s
+    result["flipped_raise_stages_ms"] = raise_stages
     faults = PL.fallback_stats()
     PL._FALLBACKS.clear()
     torch.cuda.synchronize()
     if zt.decompress_parallel(idx_out, index) != corpus or PL.fallback_stats():
         raise AssertionError("the clean decode after the flipped byte failed")
-    print(f"phase 14 fail-safe: a flipped byte raised ValueError ({why}) after {faults}; a clean "
-          f"decode followed; {time.perf_counter() - t14:.1f} s", flush=True)
+    print(f"phase 14 fail-safe: a flipped byte raised ValueError ({why}) after {faults} in "
+          f"{raise_s:.3f} s (stages, ms: {raise_stages}); a clean decode followed; "
+          f"{time.perf_counter() - t14:.1f} s", flush=True)
 
     # -- phase 15: the checkpointed stream decode --------------------------
     raw = _raw(corpus)
@@ -1752,8 +1780,9 @@ def xla_phases(torch, dev, corpus, rows) -> dict:
     128 KiB rows; the 128 KiB indexed streams through K4/K5, K11a/K11b and
     K6, each launch against its plain version (K5 and K11b on their serial
     too-large body) and each route end to end; the seeded swarm engine
-    under ZRS_TPU_KERNEL=0, held against its CPU run; and the static
-    level-1 index through K6. Adds each kernel's 128 KiB numbers to `rows`
+    under ZRS_TPU_KERNEL=0, held against its CPU run, and its walker
+    kernel against its plain version; and the static level-1 index
+    through K6. Adds each kernel's 128 KiB numbers to `rows`
     as "at_128k"; returns the end-to-end numbers."""
     import numpy as np
     import zlib_rs_tpu_torch as zt
@@ -1762,12 +1791,14 @@ def xla_phases(torch, dev, corpus, rows) -> dict:
     from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
     from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
     from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+    from zlib_rs_tpu_torch.parallel import device_inflate as DI
     from zlib_rs_tpu_torch.parallel import pipeline as PL
     from zlib_rs_tpu_torch.parallel import swarm_inflate as SW
     from zlib_rs_tpu_torch.parallel import vector_inflate as VI
 
     t_start = time.perf_counter()
-    counters = (CK.launches, CRC.launches, DK.launches, VK.launches, IK.launches, SW.runs)
+    counters = (CK.launches, CRC.launches, DK.launches, VK.launches, IK.launches, SW.runs,
+                SW.launches)
 
     def zero():
         for c in counters:
@@ -2005,9 +2036,11 @@ def xla_phases(torch, dev, corpus, rows) -> dict:
                 back = zt.decompress_parallel(stream, ix)
                 cold_s = time.perf_counter() - t0
                 ran = counts()
-                if back != corpus or ran != {"decode_seeded": 1} or PL.fallback_stats():
+                if back != corpus or ran != {"decode_seeded": 1, "swarm_walk": 1} or \
+                        PL.fallback_stats():
                     raise AssertionError(f"the swarm decode of the {label} stream: runs {ran}, "
                                          f"fallbacks {PL.fallback_stats()}")
+                swarm_launches = ran["swarm_walk"]
                 swarm[label] = {"cold_s": cold_s, **warm_runs(
                     torch, PL, lambda: zt.decompress_parallel(stream, ix), corpus, len(corpus),
                     f"swarm decode {label}", 30)}
@@ -2025,9 +2058,49 @@ def xla_phases(torch, dev, corpus, rows) -> dict:
         if err or bool(on_cpu[2].any()):
             raise AssertionError(f"decode_seeded on the card differs from the CPU: {err}")
         swarm["first_4_chunks"] = {"max_abs_err": err, "cap": cap, "cpu_s": cpu_s}
-        print(f"phase 30 swarm: both streams through the swarm engine (one run each, no "
-              f"fallback); decode_seeded of the first 4 chunks (cap {cap}) equal to its CPU run "
-              f"(max abs err {err}, {cpu_s:.1f} s on the CPU)", flush=True)
+        # the walker kernel against its plain version on the card, on every
+        # chunk of the 128 KiB stream and with a byte flipped in chunk 1
+        *arrays, cap = SW.seeded_inputs(bodies, sizes, seeds)
+        comp, ll, dd, sbit, sspan = (torch.from_numpy(a).to(dev) for a in arrays)
+        rev = torch.from_numpy(DI._REV15_NP).to(dev)
+        luts = [DI._build_flat_lut(x, *f, rev) for x, f in
+                ((ll, DI._ll_symbol_fields(320)), (dd, DI._d_symbol_fields(320)))]
+        walk_args = (comp, *luts, sbit, sspan, cap)
+        flipped = comp.clone()
+        flipped[1, int(arrays[0].shape[1]) // 3] ^= 0xFF
+        pairs, ends = [], []
+        for c in (comp, flipped):
+            got = SW.walk_cuda(c, *walk_args[1:])
+            want = SW.walk_plain(c, *walk_args[1:])
+            pairs += list(zip(got, want))
+            ends.append(got[3])
+        walk_err = max_abs(pairs)
+        if walk_err:
+            raise AssertionError(f"the swarm walker kernel differs from its plain version: "
+                                 f"max abs err {walk_err}")
+        # walkers of the flipped stream that went bad or ended elsewhere
+        n_bad = int((pairs[-1][0] | (ends[0] != ends[1])).sum())
+        walk_ms = event_ms(torch, lambda: SW.walk_cuda(*walk_args), 10)
+        _w, walk_plain_ms = timed_ms(torch, lambda: SW.walk_plain(*walk_args))
+        W = int(sbit.numel())
+        steps = int(sspan.sum())  # at most a step an output byte
+        rows["swarm_walk"] = dict(
+            source="zlib_rs_tpu_torch/csrc/swarm.cu",
+            replaces="zlib_rs_tpu/parallel/swarm_inflate.py:163",
+            max_abs_err=walk_err, ms=walk_ms, plain_ms=walk_plain_ms,
+            # the bodies and both tables in, a tape slot a covered step out
+            bnd=bound(comp.numel() + 2 * 4 * (1 << 15) * len(bodies) + 16 * W + 9 * steps, 0),
+            launches=swarm_launches,
+        )
+        swarm["walk"] = {"walkers": W, "cap": cap, "ms": walk_ms, "plain_ms": walk_plain_ms,
+                         "flipped_bad_or_moved_walkers": n_bad}
+        print(f"phase 30 swarm: both streams through the swarm engine (one run each, one walker "
+              f"kernel launch, no fallback); decode_seeded of the first 4 chunks (cap {cap}) "
+              f"equal to its CPU run (max abs err {err}, {cpu_s:.1f} s on the CPU); the walker "
+              f"kernel on {W} walkers of {len(bodies)} chunks, clean and with a flipped byte "
+              f"({n_bad} walkers bad or moved), equal to its plain version on the card "
+              f"(max abs err {walk_err}): {walk_ms:.4f} ms a launch by events, the plain version "
+              f"{walk_plain_ms:.1f} ms", flush=True)
         result["swarm_decode"] = swarm
 
         # -- phase 31: the static level-1 index through K6 -----------------
@@ -2098,19 +2171,10 @@ def lockstep_regions(corpus: bytes):
     return bodies, [len(w) for w in wants], windows, starts, wants
 
 
-def lockstep_phase(torch, dev, corpus) -> dict:
-    """Phase 32: the lockstep engine (`decode_regions`, `resolve_tokens`)
-    on the card against its CPU run on phase 32's 8 lanes, their bytes
-    against the corpus; `decompress_chunks(engine="auto")` recovering the
-    lone-EOB body K6 refuses; a region with a flipped bit raising."""
-    import numpy as np
-
-    from zlib_rs_tpu_torch.parallel import device_inflate as DI
-    from zlib_rs_tpu_torch.parallel import inflate as RI
-    from zlib_rs_tpu_torch.parallel import pipeline as PL
-
-    t_start = time.perf_counter()
-    bodies, sizes, windows, starts, wants = lockstep_regions(corpus)
+def lockstep_arrays(np, torch, bodies, sizes, starts):
+    """decompress_chunks' operands for the lockstep engine: comp uint8 [B,
+    L] (rows padded with at least 8 zero bytes to a power of two), start
+    bits, end bits and targets as CPU tensors, and its step budget."""
     B = len(bodies)
     L = 1 << (max(len(b) for b in bodies) + 8 - 1).bit_length()
     comp = np.zeros((B, L), np.uint8)
@@ -2118,38 +2182,107 @@ def lockstep_phase(torch, dev, corpus) -> dict:
         comp[i, : len(b)] = np.frombuffer(b, np.uint8)
     args = [torch.from_numpy(np.asarray(a, np.int32)) for a in
             (starts, [len(b) * 8 for b in bodies], sizes)]
-    max_out = 1 << (max(sizes) - 1).bit_length()
+    max_out = 1 << (max(max(sizes), 1) - 1).bit_length()
     max_steps = max_out + 2 + 512 * max(1, max(len(b) for b in bodies) // 4096)
+    return torch.from_numpy(comp), args, max_steps
+
+
+def lockstep_pair(torch, DI, dev, comp, args, max_steps: int, label: str):
+    """The lockstep kernel on the card against its plain version on the
+    CPU on the same lanes: tapes, n_steps, produced and bad equal (max abs
+    err 0) or it raises. Returns (the card's outputs, card s, CPU s)."""
+    comp_d, args_d = comp.to(dev), [a.to(dev) for a in args]
+    k0 = DI.launches["lockstep"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    on_card = DI.decode_regions(torch.from_numpy(comp).to(dev), *(a.to(dev) for a in args),
-                                max_steps)
+    on_card = DI.decode_regions(comp_d, *args_d, max_steps)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
+    if DI.launches["lockstep"] != k0 + 1:
+        raise AssertionError(f"{label}: decode_regions on the card did not launch the kernel")
     t0 = time.perf_counter()
-    on_cpu = DI.decode_regions(torch.from_numpy(comp), *args, max_steps)
+    on_cpu = DI.decode_regions(comp, *args, max_steps)
     cpu_s = time.perf_counter() - t0
+    if on_card[3] != on_cpu[3]:
+        raise AssertionError(f"{label}: the kernel took {on_card[3]} steps, its plain version "
+                             f"{on_cpu[3]}")
+    err = max_abs([(a, b) for k, (a, b) in enumerate(zip(on_card, on_cpu)) if k != 3])
+    if err:
+        raise AssertionError(f"{label}: the lockstep kernel differs from its plain version: "
+                             f"max abs err {err}")
+    return on_card, card_s, cpu_s
+
+
+def lockstep_phase(torch, dev, corpus, rows) -> dict:
+    """Phase 32: the lockstep kernel (csrc/lockstep.cu, `decode_regions`)
+    against its plain version on the CPU on phase 32's 8 lanes, on the same
+    lanes with a flipped byte in each, and on one 128 KiB chunk of the XLA
+    engine's stream; `resolve_tokens` of the clean lanes against the
+    corpus; `decompress_chunks(engine="auto")` recovering the lone-EOB body
+    K6 refuses; a region with a flipped bit raising."""
+    import numpy as np
+
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.parallel import device_inflate as DI
+    from zlib_rs_tpu_torch.parallel import inflate as RI
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+
+    t_start = time.perf_counter()
+    bodies, sizes, windows, starts, wants = lockstep_regions(corpus)
+    B = len(bodies)
+    comp, args, max_steps = lockstep_arrays(np, torch, bodies, sizes, starts)
+    on_card, card_s, cpu_s = lockstep_pair(torch, DI, dev, comp, args, max_steps, "8 lanes")
     n_steps = on_card[3]
-    if n_steps != on_cpu[3]:
-        raise AssertionError(f"decode_regions took {n_steps} steps on the card, {on_cpu[3]} on "
-                             "the CPU")
-    err = max_abs([(a.cpu(), b) for k, (a, b) in enumerate(zip(on_card, on_cpu)) if k != 3])
-    if err or bool(on_cpu[5].any()):
-        raise AssertionError(f"decode_regions on the card differs from the CPU: {err}, bad "
-                             f"{on_cpu[5].tolist()}")
+    if bool(on_card[5].any()):
+        raise AssertionError(f"a clean lockstep lane is bad: {on_card[5].tolist()}")
+    comp_d, args_d = comp.to(dev), [a.to(dev) for a in args]
+    ms = event_ms(torch, lambda: DI.decode_regions(comp_d, *args_d, max_steps), 5)
+    _p, plain_ms = timed_ms(torch, lambda: DI.decode_regions_plain(comp_d, *args_d, max_steps))
     wlen = 32768
     wins = np.zeros((B, wlen), np.uint8)
     for i, w in enumerate(windows):
         if w:
             wins[i, wlen - len(w[-wlen:]) :] = np.frombuffer(w[-wlen:], np.uint8)
     t0 = time.perf_counter()
-    vals, _tot = DI.resolve_tokens(torch.from_numpy(comp).to(dev), *(t[:, :n_steps] for t in
-                                   on_card[:3]), torch.from_numpy(wins).to(dev), max_out, wlen)
+    max_out = 1 << (max(sizes) - 1).bit_length()
+    vals, _tot = DI.resolve_tokens(comp_d, *(t[:, :n_steps] for t in on_card[:3]),
+                                   torch.from_numpy(wins).to(dev), max_out, wlen)
     vals = vals.cpu().numpy()
     resolve_s = time.perf_counter() - t0
     for i, w in enumerate(wants):
         if vals[i, : len(w)].tobytes() != w:
             raise AssertionError(f"lockstep lane {i} does not resolve to the corpus")
+
+    # the same lanes, a byte flipped in the middle of each
+    flipped = [_flip(b, len(b) // 2) for b in bodies]
+    fcomp, fargs, fsteps = lockstep_arrays(np, torch, flipped, sizes, starts)
+    f_card, f_card_s, f_cpu_s = lockstep_pair(torch, DI, dev, fcomp, fargs, fsteps, "flipped")
+    n_bad = int(f_card[5].sum())
+
+    # one 128 KiB chunk of the XLA engine's stream
+    kernel_env = os.environ.pop("ZRS_TPU_KERNEL", None)
+    try:
+        xla_out, xla_ix = zt.compress_parallel(corpus[: 4 * 131072], 6, return_index=True)
+    finally:
+        if kernel_env is not None:
+            os.environ["ZRS_TPU_KERNEL"] = kernel_env
+    off, ln, n = xla_ix[1]
+    bcomp, bargs, bsteps = lockstep_arrays(np, torch, [xla_out[off : off + ln]], [n], [0])
+    b_card, b_card_s, b_cpu_s = lockstep_pair(torch, DI, dev, bcomp, bargs, bsteps, "128 KiB")
+    if bool(b_card[5].any()) or int(b_card[4][0]) != n:
+        raise AssertionError("the 128 KiB chunk did not decode on the lockstep kernel")
+    bcomp_d, bargs_d = bcomp.to(dev), [a.to(dev) for a in bargs]
+    ms_128k = event_ms(torch, lambda: DI.decode_regions(bcomp_d, *bargs_d, bsteps), 5)
+    tape = 1 + 4 + 4  # a column of tok_kind, tok_a, tok_b
+    rows["lockstep"] = dict(
+        source="zlib_rs_tpu_torch/csrc/lockstep.cu",
+        replaces="zlib_rs_tpu/parallel/device_inflate.py:234",
+        max_abs_err=0, ms=ms, plain_ms=plain_ms,
+        bnd=bound(comp.numel() + 12 * B + tape * B * n_steps + 9 * B, 0),
+        at_128k={"ms": ms_128k, "n_steps": b_card[3], "steps_per_s": b_card[3] / (ms_128k / 1e3),
+                 "bound_ms": bound(bcomp.numel() + 12 + tape * b_card[3] + 9, 0)[0],
+                 "plain_cpu_s": b_cpu_s},
+    )
 
     PL._FALLBACKS.clear()
     good = bodies[2]
@@ -2166,12 +2299,22 @@ def lockstep_phase(torch, dev, corpus) -> dict:
         raise AssertionError("a region with a flipped bit decoded on the lockstep engine")
     wall = time.perf_counter() - t_start
     result = {"lanes": B, "n_steps": n_steps, "card_s": card_s, "steps_per_s": n_steps / card_s,
-              "cpu_s": cpu_s, "resolve_s": resolve_s, "phase_s": wall}
-    print(f"phase 32 lockstep: {B} lanes (levels 0, 1, 6, 9, fixed, 2 primed at start bits "
-          f"{starts[5:7]}, lone EOB), {n_steps} steps equal to the CPU run, {card_s:.3f} s on the "
-          f"card ({n_steps / card_s:.1f} steps/s), {cpu_s:.3f} s on the CPU, resolve "
-          f"{resolve_s:.3f} s, bytes equal the corpus; auto recovered the lone-EOB body after "
-          f"one region_kernel count; a flipped bit raised ({why}); phase {wall:.1f} s", flush=True)
+              "ms": ms, "plain_card_ms": plain_ms, "cpu_s": cpu_s, "resolve_s": resolve_s,
+              "flipped": {"n_steps": f_card[3], "bad_lanes": n_bad, "card_s": f_card_s,
+                          "cpu_s": f_cpu_s},
+              "at_128k": {"n_steps": b_card[3], "card_s": b_card_s, "ms": ms_128k,
+                          "cpu_s": b_cpu_s},
+              "phase_s": wall}
+    print(f"phase 32 lockstep kernel: {B} lanes (levels 0, 1, 6, 9, fixed, 2 primed at start "
+          f"bits {starts[5:7]}, lone EOB), {n_steps} steps equal to the plain version on the CPU "
+          f"(max abs err 0), {card_s:.4f} s on the card ({n_steps / card_s:.1f} steps/s), "
+          f"{ms:.4f} ms a launch by events, the plain version {plain_ms:.1f} ms on the card "
+          f"and {cpu_s:.3f} s on the CPU; resolve {resolve_s:.3f} s, bytes equal the corpus; "
+          f"flipped: {f_card[3]} steps, {n_bad} of {B} lanes bad, equal; 128 KiB chunk of the "
+          f"XLA stream: {b_card[3]} steps equal, {ms_128k:.4f} ms a launch "
+          f"({b_card[3] / (ms_128k / 1e3):.1f} steps/s), plain {b_cpu_s:.2f} s on the CPU; "
+          f"auto recovered the lone-EOB body after one region_kernel count; a flipped bit "
+          f"raised ({why}); phase {wall:.1f} s", flush=True)
     return result
 
 
@@ -2499,14 +2642,13 @@ def engine_names_phase(torch, corpus, idx_out, index, gz, gz_index) -> dict:
         broken = bytearray(xla_out)
         broken[at] ^= 0xFF
         r0 = dict(DI.runs)
-        t0 = time.perf_counter()
-        try:
-            zt.decompress_parallel(bytes(broken), xla_ix)
-        except ValueError as e:
-            why = str(e)
-        else:
-            raise AssertionError("a flipped byte in a 128 KiB chunk decoded without a ValueError")
-        wall = time.perf_counter() - t0
+        DI.launches["lockstep"] = 0
+        why, wall, raise_stages = time_to_raise(
+            torch, PL, lambda: zt.decompress_parallel(bytes(broken), xla_ix))
+        lockstep_launches = DI.launches["lockstep"]
+        if lockstep_launches < 1:
+            raise AssertionError("the region decode of a refused 128 KiB chunk launched no "
+                                 "lockstep kernel")
         stats = PL.fallback_stats()
         PL._FALLBACKS.clear()
         steps = DI.runs["steps"] - r0["steps"]
@@ -2516,15 +2658,137 @@ def engine_names_phase(torch, corpus, idx_out, index, gz, gz_index) -> dict:
         if kernel_env is not None:
             os.environ["ZRS_TPU_KERNEL"] = kernel_env
         PL._FALLBACKS.clear()
-    result["flipped_128k"] = {"raise_s": wall, "why": why, "fallbacks": stats,
+    result["flipped_128k"] = {"raise_s": wall, "stages_ms": raise_stages, "why": why,
+                              "fallbacks": stats,
                               "flip_at": at - off, "chunk_bytes": ln,
                               "lockstep_runs": DI.runs["decode_regions"] - r0["decode_regions"],
-                              "lockstep_steps": steps}
+                              "lockstep_launches": lockstep_launches, "lockstep_steps": steps}
     print(f"phase 36 flipped byte {at - off} of the {ln}-byte chunk 1 (128 KiB out, "
           f"{len(xla_ix)} chunks): ValueError ({why}) "
-          f"after {stats}, {steps} lockstep steps, {wall:.3f} s to raise", flush=True)
+          f"after {stats}, {steps} lockstep steps in {lockstep_launches} lockstep kernel "
+          f"launch(es), {wall:.3f} s to raise (stages, ms: {raise_stages})", flush=True)
     result["phase_s"] = time.perf_counter() - t_start
     print(f"phase 36: {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def _pump_deflate(zt, data: bytes, in_bytes: int, out_bytes: int, flush) -> bytes:
+    """A `Deflate` stream of `data` fed `in_bytes` at a time with `flush`,
+    drained `out_bytes` a call, then finished."""
+    from zlib_rs_tpu_torch.config import DeflateFlush
+    from zlib_rs_tpu_torch.models.stream import Status
+
+    d = zt.Deflate(level=LEVEL)
+    out = bytearray()
+    for i in range(0, len(data), in_bytes):
+        _st, _used, o = d.compress(data[i : i + in_bytes], flush, out_bytes)
+        out += o
+        while d.pending[0]:
+            out += d.compress(b"", DeflateFlush.NO_FLUSH, out_bytes)[2]
+    while True:
+        st, _used, o = d.compress(b"", DeflateFlush.FINISH, out_bytes)
+        out += o
+        if st is Status.StreamEnd:
+            return bytes(out)
+
+
+def _pump_inflate(zt, stream: bytes, in_bytes: int, out_bytes: int, flush) -> bytes:
+    """An `Inflate` of `stream` fed `in_bytes` at a time, `out_bytes` out a
+    call, under `flush`; raises if it does not reach the stream's end."""
+    from zlib_rs_tpu_torch.models.stream import Status
+
+    inf = zt.Inflate()
+    out = bytearray()
+    pos = 0
+    for _ in range(4 * (len(stream) + 1) * max(1, 65536 // out_bytes)):
+        st, used, o = inf.decompress(stream[pos : pos + in_bytes], out_bytes, flush)
+        pos += used
+        out += o
+        if st is Status.StreamEnd:
+            return bytes(out)
+    raise AssertionError(f"Inflate under {flush.name} did not reach the stream's end")
+
+
+def host_layers_phase(corpus) -> dict:
+    """Phase 38: the host API layers on 64 KiB of the corpus, each result
+    held against stdlib zlib: `Deflate` under every flush mode through 4
+    KiB buffers and without one through 1-byte buffers, `Inflate` of each
+    stream through 4 KiB buffers under every inflate flush mode and of one
+    through 1-byte buffers; a `GzFile` write, then read; `inflate_back`;
+    `compress_medium` at 4-6 and `compress_quick`; zran `extract` at three
+    offsets; `crc32_combine_op`."""
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch.config import DeflateFlush, InflateFlush, ReturnCode
+    from zlib_rs_tpu_torch.models.medium import compress_quick
+
+    t0 = time.perf_counter()
+    data = corpus[1 << 20 : (1 << 20) + 65536]
+    modes = [m for m in DeflateFlush if m is not DeflateFlush.FINISH]
+    streams = []
+    for mode in modes:
+        stream = _pump_deflate(zt, data, 4096, 4096, mode)
+        if zlib.decompress(stream) != data:
+            raise AssertionError(f"Deflate under {mode.name} does not decode with zlib")
+        streams.append(stream)
+    one = _pump_deflate(zt, data, 1, 1, DeflateFlush.NO_FLUSH)
+    if one != streams[0] or _pump_inflate(zt, one, 1, 1, InflateFlush.NO_FLUSH) != data:
+        raise AssertionError("the 1-byte Deflate/Inflate round trip failed")
+    inflate_modes = list(InflateFlush)
+    for k, stream in enumerate(streams):
+        for fl in (inflate_modes[k % len(inflate_modes)], InflateFlush.NO_FLUSH):
+            if _pump_inflate(zt, stream, 4096, 4096, fl) != data:
+                raise AssertionError(f"Inflate under {fl.name} is not the data")
+    streams_s = time.perf_counter() - t0
+
+    buf = io.BytesIO()
+    f = zt.GzFile(fileobj=buf, mode="wb6")
+    f.write(data)
+    f.close()
+    gz = buf.getvalue()
+    f = zt.GzFile(fileobj=io.BytesIO(gz), mode="rb")
+    back = f.read()
+    f.close()
+    if zlib.decompress(gz, 31) != data or back != data:
+        raise AssertionError("the GzFile write/read round trip failed")
+
+    raw = _raw(data)
+    pieces = iter([raw[i : i + 4096] for i in range(0, len(raw), 4096)])
+    got = bytearray()
+    rc = zt.inflate_back(lambda: next(pieces, b""), lambda b: got.extend(b) or True)
+    if rc != ReturnCode.StreamEnd or bytes(got) != data:
+        raise AssertionError(f"inflate_back: {rc}")
+
+    medium = {lv: len(zt.compress_medium(data, lv)) for lv in (4, 5, 6)}
+    for lv in medium:
+        if zlib.decompress(zt.compress_medium(data, lv), -15) != data:
+            raise AssertionError(f"compress_medium({lv}) does not decode with zlib")
+    quick = compress_quick(data)
+    if zlib.decompress(quick, -15) != data:
+        raise AssertionError("compress_quick does not decode with zlib")
+
+    zs = zlib.compress(data, LEVEL)
+    index = zt.build_index(zs, span=16384)
+    offsets = (0, 30_000, len(data) - 1000)
+    for off in offsets:
+        if zt.extract(zs, index, off, 1000) != data[off : off + 1000]:
+            raise AssertionError(f"extract at {off} is not the data")
+
+    a, b = data[:40_000], data[40_000:]
+    op = zt.crc32_combine_gen(len(b))
+    if zt.crc32_combine_op(zlib.crc32(a), zlib.crc32(b), op) != zlib.crc32(data):
+        raise AssertionError("crc32_combine_op is not zlib's crc32")
+    wall = time.perf_counter() - t0
+    result = {"bytes": len(data), "streams_s": streams_s, "phase_s": wall,
+              "deflate_bytes": {m.name: len(st) for m, st in zip(modes, streams)},
+              "medium_bytes": medium, "quick_bytes": len(quick), "gzfile_bytes": len(gz),
+              "extract_points": len(index.points)}
+    print(f"phase 38 host layers: {len(data)} bytes; Deflate under "
+          f"{', '.join(m.name for m in modes)} (4 KiB buffers) and NO_FLUSH (1-byte) decode "
+          f"with zlib, Inflate of each under every inflate flush mode and through 1-byte "
+          f"buffers gives the data ({streams_s:.1f} s); GzFile write/read ({len(gz)} bytes), "
+          f"inflate_back, compress_medium {medium} and compress_quick ({len(quick)} bytes), "
+          f"extract at {offsets} over {len(index.points)} points and crc32_combine_op equal "
+          f"zlib; phase {wall:.1f} s", flush=True)
     return result
 
 
@@ -2807,17 +3071,22 @@ def main() -> int:
     hop_il = hop_il_phases(torch, dev, corpus, (dn, dict_size, words4, htab, cap_g), out, rows,
                            launches)
     xla = xla_phases(torch, dev, corpus, rows)
-    lockstep = lockstep_phase(torch, dev, corpus)
+    lockstep = lockstep_phase(torch, dev, corpus, rows)
     foreign = foreign_phase(torch, corpus, rows)
     host_strategies = host_strategy_phase(corpus)
     cli = cli_phase(corpus)
     engine_names = engine_names_phase(torch, corpus, idx_out, index, gz, gz_index)
+    host_layers = host_layers_phase(corpus)
     bench = bench_phase(min(BENCH_BUDGET_S, SMOKE_LIMIT_S - (time.perf_counter() - t_main)))
 
+    # the lockstep kernel's path: the region decode of the chunk K6 refused;
+    # the swarm walker's: phase 30's swarm decode
+    launches["lockstep"] = engine_names["flipped_128k"]["lockstep_launches"]
+    launches["swarm_walk"] = rows["swarm_walk"].pop("launches")
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
                  "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan",
-                 "vhuff_decode1", "vhuff_expand1", "hop_chase_il"):
+                 "vhuff_decode1", "vhuff_expand1", "hop_chase_il", "lockstep", "swarm_walk"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -2834,7 +3103,7 @@ def main() -> int:
         "gzip_encode": gzip_encode, "k6_decode": k6_decode, "encode_routes": routes,
         "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
         "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
-        "cli": cli, "engine_names": engine_names, "bench": bench,
+        "cli": cli, "engine_names": engine_names, "host_layers": host_layers, "bench": bench,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

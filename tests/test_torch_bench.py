@@ -190,6 +190,7 @@ def test_kernel_symbols_name_one_kernel_a_source():
     assert list(syms) == [f"zrs_{n}" for n in _device.SOURCES]
     assert syms["zrs_inflate"] == "inflate_streams" and syms["zrs_pack"] == "pack"
     assert syms["zrs_hop_chase_il"] == "hop_chase_body"
+    assert syms["zrs_lockstep"] == "lockstep_regions" and syms["zrs_swarm"] == "swarm_walk"
 
 
 def test_device_busy_is_the_union_of_device_intervals():

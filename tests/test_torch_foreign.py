@@ -6,7 +6,8 @@ stdlib zlib and gzip wrote from slices of /bin/bash.
 The JAX index pass runs its Python path here (its native pass is patched
 out; no file of the JAX package changes). That pass auto-detects zlib or
 gzip only, so a raw stream's index is held against the JAX index of the
-same body in a zlib wrapper, two bytes later. Where the JAX Python path
+same body in a zlib wrapper, two bytes later; `extract` runs its Python
+path too (its native region decoder patched out). Where the JAX Python path
 records a point after the final block, its `decompress_foreign` raises;
 the port skips regions that cover no output and decodes the stream."""
 
@@ -35,6 +36,7 @@ _BASH = open("/bin/bash", "rb").read()
 @pytest.fixture(autouse=True)
 def _python_index(monkeypatch):
     monkeypatch.setattr(JZ, "_build_index_native", lambda data, span: None)
+    monkeypatch.setattr(JZ, "_extract_native", lambda data, index, offset, length: None)
 
 
 def _stream(wrap, data, level):
@@ -217,3 +219,29 @@ def test_decompress_foreign_bad_check_raises(name):
         TI.decompress_foreign(bad, span, device="cpu")
     with pytest.raises(ValueError, match="incorrect data check"):
         JI.decompress_foreign(bad, span)
+
+
+@pytest.mark.parametrize("wrap,level,start,n,span", [c for c in INDEX_CASES if c[0] != "raw"])
+def test_extract_equal_jax(wrap, level, start, n, span):
+    """zran's extract through the port's index against the JAX package's:
+    before, at and between points, across a point, at the end and past
+    it."""
+    data = _BASH[start : start + n]
+    stream = _stream(wrap, data, level)
+    got_ix, want_ix = TZ.build_index(stream, span), JZ.build_index(stream, span)
+    p1 = got_ix.points[1].out_offset
+    for off, length in ((0, 1000), (p1, 700), (p1 - 300, 600), (n // 2 + 17, 5000),
+                        (n - 100, 1000), (n, 10), (n + 5, 10)):
+        got = TZ.extract(stream, got_ix, off, length)
+        assert got == JZ.extract(stream, want_ix, off, length)
+        assert got == data[off : off + length]
+
+
+def test_extract_raw_stream():
+    """A raw stream, which the JAX Python index pass refuses: the port's
+    index starts at bit 0 and extract reads through it."""
+    data = _BASH[200_000:264_000]
+    stream = _stream("raw", data, 6)
+    ix = TZ.build_index(stream, 8 * 1024)
+    for off in (0, 9_999, 40_000, len(data) - 1):
+        assert TZ.extract(stream, ix, off, 3000) == data[off : off + 3000]

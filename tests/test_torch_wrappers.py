@@ -16,7 +16,9 @@ from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
 from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
 from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
 from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
+from zlib_rs_tpu_torch.parallel import device_inflate as DI
 from zlib_rs_tpu_torch.parallel import pipeline as PL
+from zlib_rs_tpu_torch.parallel import swarm_inflate as SW
 from zlib_rs_tpu_torch.parallel import vector_inflate as TV
 
 # the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
@@ -52,7 +54,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(_device, "library", lambda name: libs.setdefault(name, _Library(calls)))
     monkeypatch.setattr(_device, "require_cuda", lambda *a: None)
     monkeypatch.setattr(_device, "stream_of", lambda t: 0)
-    for mod in (CK, CRC, DK, IK, VK):
+    for mod in (CK, CRC, DK, IK, VK, DI, SW):
         monkeypatch.setattr(mod, "launches", dict.fromkeys(mod.launches, 0))
     return calls
 
@@ -79,7 +81,7 @@ def inputs():
     words, bits = IK.pack_streams_words(bodies)
     return dict(dc=dc, dn=dn, dv=dv, dsz=dsz, w4=w4, htab=htab, mpos=mpos, nm=nm,
                 lltab=lltab, dtab=dtab, staged=staged, meta=meta, iwords=words, ibits=bits,
-                sizes=[m for *_, m in index])
+                sizes=[m for *_, m in index], seeds=index.seeds)
 
 
 def _calls(i):
@@ -110,20 +112,43 @@ def _calls(i):
             torch.from_numpy(i["iwords"].view(np.int32)), torch.zeros(lanes, dtype=torch.int32),
             torch.from_numpy(i["ibits"]), torch.tensor(i["sizes"], dtype=torch.int32),
             max_out=max(i["sizes"]))),
+        "lockstep": (DI, lambda: DI.decode_regions_cuda(*_lockstep_args(i), 64)),
+        "swarm_walk": (SW, lambda: SW.walk_cuda(*_walk_args(i), 512)),
     }
+
+
+def _walk_args(i):
+    """The swarm walkers' operands: the chunk bodies and their seeds as
+    seeded_inputs stages them, with flat tables of every length 8."""
+    comp, ll, dd, sbit, sspan, _cap = SW.seeded_inputs(
+        [i["iwords"].view(np.uint8)[k].tobytes() for k in range(len(i["sizes"]))],
+        i["sizes"], i["seeds"])
+    luts = torch.full((comp.shape[0], 1 << 15), 8 << 16, dtype=torch.int64)
+    return (torch.from_numpy(comp), luts, luts, torch.from_numpy(sbit),
+            torch.from_numpy(sspan))
+
+
+def _lockstep_args(i):
+    """The lockstep engine's operands: the chunk bodies as rows ending in
+    zero bytes, their bits and output sizes."""
+    lanes = len(i["sizes"])
+    comp = torch.from_numpy(np.ascontiguousarray(i["iwords"].view(np.uint8)))
+    return (comp, torch.zeros(lanes, dtype=torch.int32), torch.from_numpy(i["ibits"]),
+            torch.tensor(i["sizes"], dtype=torch.int32))
 
 
 KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_scan", "tab_scan",
            "freq", "pack", "vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1",
-           "inflate"]
+           "inflate", "lockstep", "swarm_walk"]
 
 
 def test_every_kernel_has_a_case():
-    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK) for n in m.launches)
+    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK, DI, SW) for n in m.launches)
     # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu,
     # and so are K5 and K11b, csrc/vhuff_expand.cu, and K4 and K11a,
-    # csrc/vhuff_decode.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 3 == 10
+    # csrc/vhuff_decode.cu; the lockstep engine is csrc/lockstep.cu and the
+    # swarm engine's walkers csrc/swarm.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 3 == 12
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
     assert "vhuff_expand" in _device.SOURCES and "vhuff_expand1" not in _device.SOURCES
     assert "vhuff_decode" in _device.SOURCES and "vhuff_decode1" not in _device.SOURCES
@@ -316,3 +341,76 @@ def test_decode_wrappers_resolve_from_one_library(stub, inputs, monkeypatch):
         assert args[11].shape == (cap, W) and args[-1] == 0
     assert two[12].shape == (64, W) and two[13].shape == (W,) and one[12].shape == (W,)
     assert VK.launches["vhuff_decode"] == VK.launches["vhuff_decode1"] == 1
+
+
+def test_lockstep_wrapper_hands_the_kernel_its_tables_and_tapes(stub, inputs, monkeypatch):
+    """The lockstep kernel's C entry takes (comp, B, L, start_bits,
+    end_bits, targets, max_steps, scratch, tok_kind, tok_a, tok_b,
+    produced, bad, counts, stream): a 2 x 2^15 uint32 scratch a lane for
+    its literal/length and distance tables, zeroed tapes of max_steps
+    columns, and one count a lane, whose largest is n_steps."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    runs = dict(DI.runs)
+    comp, sb, eb, tg = _lockstep_args(inputs)
+    tk, ta, tb, n_steps, produced, bad = DI.decode_regions_cuda(comp, sb, eb, tg, 77)
+    args = _device.library("lockstep").zrs_lockstep.args
+    B, L = comp.shape
+    assert len(args) == 15 and args[1] == B and args[2] == L and args[6] == 77 and args[-1] == 0
+    assert args[0].dtype == torch.uint8 and args[0].shape == (B, L)
+    assert all(a.dtype == torch.int32 and a.shape == (B,) for a in args[3:6])
+    assert args[7].shape == (B, 2 << DI.FLAT_BITS) and args[7].dtype == torch.int32
+    assert args[8] is tk and tk.dtype == torch.uint8 and tk.shape == (B, 77) and not tk.any()
+    assert args[9] is ta and args[10] is tb and ta.shape == tb.shape == (B, 77)
+    assert args[11] is produced and args[13].shape == (B,) and args[12].dtype == torch.uint8
+    assert bad.dtype == torch.bool and n_steps == 0
+    assert DI.runs["decode_regions"] == runs["decode_regions"] + 1
+    assert DI.launches["lockstep"] == 1
+    # every row must end in a zero byte, checked with the counts' one read
+    comp[:, -1] = 1
+    with pytest.raises(ValueError, match="zero byte"):
+        DI.decode_regions_cuda(comp, sb, eb, tg, 8)
+    with pytest.raises(ValueError, match="uint8"):
+        DI.decode_regions_cuda(comp.to(torch.int32), sb, eb, tg, 8)
+
+
+def test_lockstep_dispatch_by_device(monkeypatch):
+    """A CPU tensor runs the plain version; anything else the kernel."""
+    calls = []
+    monkeypatch.setattr(DI, "decode_regions_plain", lambda *a: calls.append("plain"))
+    monkeypatch.setattr(DI, "decode_regions_cuda", lambda *a: calls.append("cuda"))
+    one = torch.zeros(1, dtype=torch.int32)
+    DI.decode_regions(torch.zeros((1, 8), dtype=torch.uint8), one, one, one, 4)
+    DI.decode_regions(torch.zeros((1, 8), dtype=torch.uint8, device="meta"), one, one, one, 4)
+    assert calls == ["plain", "cuda"]
+
+
+def test_swarm_walk_wrapper_hands_the_kernel_its_tapes(stub, inputs, monkeypatch):
+    """The walker kernel's C entry takes (comp, B, L, S, ll_lut, d_lut,
+    seed_bit, seed_span, cap, tok_kind, tok_a, tok_b, end_bit, remaining,
+    bad, stream): int32 tables, int64 seeds, walker-major tapes of cap
+    slots zeroed, and the walkers' end bits, remaining spans and flags."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    comp, ll, dl, sbit, sspan = _walk_args(inputs)
+    tk, ta, tb, end, rem, bad = SW.walk_cuda(comp, ll, dl, sbit, sspan, 512)
+    args = _device.library("swarm").zrs_swarm_walk.args
+    B, L = comp.shape
+    S = sbit.shape[1]
+    assert len(args) == 16 and args[1:4] == (B, L, S) and args[8] == 512 and args[-1] == 0
+    assert args[4].dtype == args[5].dtype == torch.int32 and args[4].shape == (B, 1 << 15)
+    assert args[6].dtype == args[7].dtype == torch.int64 and args[6].shape == (B, S)
+    assert args[9].shape == (B * S, 512) and args[9].dtype == torch.uint8 and not args[9].any()
+    assert tk.shape == ta.shape == tb.shape == (B, S * 512)
+    assert end.shape == rem.shape == bad.shape == (B * S,) and bad.dtype == torch.bool
+    assert SW.launches["swarm_walk"] == 1
+    with pytest.raises(ValueError, match="L >= 12"):
+        SW.walk_cuda(comp[:, :8], ll, dl, sbit, sspan, 512)
+
+
+def test_swarm_walk_dispatch_by_device(monkeypatch):
+    calls = []
+    monkeypatch.setattr(SW, "walk_plain", lambda *a, **k: calls.append("plain"))
+    monkeypatch.setattr(SW, "walk_cuda", lambda *a: calls.append("cuda"))
+    one = torch.zeros((1, 1), dtype=torch.int64)
+    SW.walk(torch.zeros((1, 16), dtype=torch.uint8), one, one, one, one, 4)
+    SW.walk(torch.zeros((1, 16), dtype=torch.uint8, device="meta"), one, one, one, one, 4)
+    assert calls == ["plain", "cuda"]

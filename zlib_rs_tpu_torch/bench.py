@@ -24,7 +24,7 @@ Sections reported:
             (the kernel engine's level-6 batch, the headline),
             vector_decode (K4, K5), inflate_kernel (K6; the reference's
             pallas_inflate), foreign_kernel (decompress_foreign on K6),
-            swarm (the seeded swarm engine), kernel_ratio (the kernel
+            swarm (the seeded swarm engine, zrs_swarm), kernel_ratio (the kernel
             engine's compress_parallel, wall clock) and xla_encode (the
             XLA engine's batch, and its ratio over the corpus). Each checks
             its output against the zlib oracle before it records a time.
@@ -614,9 +614,10 @@ def _phase_kernel_ratio(data, dev, device):
 
 
 def _phase_swarm(seeded, dev, device):
-    """The seeded swarm engine (torch walkers, no hand-written kernel) on
-    the seeded chunks, SWARM_TILE times; every lane checked against the
-    raw-deflate oracle before the trace."""
+    """The seeded swarm engine (its walkers in the zrs_swarm kernel, the
+    tables and the resolver in torch) on the seeded chunks, SWARM_TILE
+    times; every lane checked against the raw-deflate oracle before the
+    trace."""
     from .parallel import swarm_inflate as SW
 
     bodies, out_sizes, seeds = _seeded_chunks(seeded)
@@ -639,7 +640,8 @@ def _phase_swarm(seeded, dev, device):
             raise ValueError(f"swarm decode mismatch on lane {k}")
     _log("swarm decode byte-exact vs oracle")
     sec, progs, wall = _device_trace_seconds(
-        swarm_once, 1, "swarm", min(180, remaining() - 10), device=device)
+        swarm_once, 1, "swarm", min(180, remaining() - 10), device=device,
+        expect=("zrs_swarm",))
     out_bytes = sum(out_sizes)
     if sec and progs.get("__wall_clock__"):
         dev["swarm_decode_wallclock_gbps"] = round(out_bytes / sec / 1e9, 5)

@@ -1,14 +1,17 @@
-"""zran-style index of a zlib/gzip/raw stream (a copy of
-zlib_rs_tpu/models/zran.py's `AccessPoint`, `DeflateIndex`,
-`_wrapper_span` and the Python path of `build_index`).
+"""zran-style index of a zlib/gzip/raw stream and random access through
+it (a copy of zlib_rs_tpu/models/zran.py's `AccessPoint`, `DeflateIndex`,
+`_wrapper_span` and the Python paths of `build_index` and `extract`).
 
 One sequential pass of the host inflater records (input bit position,
 32 KiB window) checkpoints at block boundaries; `decompress_foreign`
 turns each into a window-primed region with a sub-byte start bit, so a
-monolithic foreign stream decodes region-parallel on the card.
+monolithic foreign stream decodes region-parallel on the card, and
+`extract` seeks to the nearest checkpoint and decodes only the span it
+needs on the host.
 
-The reference's native index pass (its C++ host engine) is not carried:
-`build_index` is the reference's own branch for a build without it.
+The reference's native index pass and region decoder (its C++ host
+engine) are not carried: `build_index` and `extract` are the reference's
+own branches for a build without them.
 """
 
 from __future__ import annotations
@@ -122,3 +125,43 @@ def build_index(data: bytes, span: int = 1 << 20) -> DeflateIndex:
     if not points:
         raise ValueError("stream too small to index (no block boundaries)")
     return DeflateIndex(points=points, total_out=out_total, wrapper_offset=0)
+
+
+def extract(data: bytes, index: DeflateIndex, offset: int, length: int) -> bytes:
+    """Read `length` uncompressed bytes starting at `offset` using the index
+    (zran's extract pass: raw inflater + prime + dictionary + skip)."""
+    if offset >= index.total_out:
+        return b""
+    point = index.closest(offset)
+    if point.out_offset > offset:
+        # before the first checkpoint: decode from the beginning
+        inf = Inflator(InflateConfig(window_bits=47))
+        start_in = 0
+        produced = 0
+    else:
+        inf = Inflator(InflateConfig(window_bits=-15))
+        inf.prime(point.bits, point.hold)
+        if point.window:
+            inf.set_dictionary(point.window)
+        start_in = point.in_offset
+        produced = point.out_offset
+    skip = offset - produced
+    out = bytearray()
+    pos = start_in
+    while len(out) < length:
+        want = skip + (length - len(out))
+        rc, used, chunk = inf.inflate(data[pos:], want, InflateFlush.NO_FLUSH)
+        pos += used
+        if chunk:
+            if skip:
+                drop = min(skip, len(chunk))
+                chunk = chunk[drop:]
+                skip -= drop
+            out.extend(chunk)
+        if rc == ReturnCode.StreamEnd:
+            break
+        if rc not in (ReturnCode.Ok,):
+            raise ValueError(inf.msg or f"extract failed: {rc}")
+        if used == 0 and not chunk:
+            break
+    return bytes(out[:length])

@@ -5,7 +5,8 @@ hand-written CUDA kernel K1 (ops/kernels/checksum_kernels), and
 `crc32_batch(data, lens)` the per-row crc32 in front of K7
 (ops/kernels/crc_kernels): the kernel for a CUDA tensor, its plain
 PyTorch version for a CPU tensor. `adler32_combine` and `crc32_combine`
-join per-chunk values on the host into the zlib and gzip trailers;
+join per-chunk values on the host into the zlib and gzip trailers
+(`crc32_combine_gen` and `crc32_combine_op` are zlib's operator pair);
 `adler32` and `crc32` are the host checksums of the host engines and of a
 tail (stdlib zlib's, which equal the reference's host functions).
 """
@@ -53,6 +54,8 @@ def adler32_batch(data: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 
 crc32_combine = gf2.crc32_combine
+crc32_combine_gen = gf2.crc32_combine_gen
+crc32_combine_op = gf2.crc32_combine_op
 
 
 def crc32(data, start: int = 0) -> int:

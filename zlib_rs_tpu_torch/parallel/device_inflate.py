@@ -1,12 +1,13 @@
 """RFC 1951 decode tables, the lockstep region decoder and the token
 resolver shared by the decode engines.
 
-The port of zlib_rs_tpu/parallel/device_inflate.py in torch ops: its
-symbol kinds, token kinds, lane phases and length/distance tables (lines
-41-114), its flat decode-table build (`_build_flat_lut` and the symbol
-fields), its lockstep state machine over byte-padded regions
-(`decode_regions`) and its pointer-doubling token resolver
-(`resolve_tokens`), batched over rows.
+The port of zlib_rs_tpu/parallel/device_inflate.py: its symbol kinds,
+token kinds, lane phases and length/distance tables (lines 41-114), its
+flat decode-table build (`_build_flat_lut` and the symbol fields), its
+lockstep state machine over byte-padded regions (`decode_regions`: the
+hand-written CUDA kernel csrc/lockstep.cu for a CUDA tensor, its plain
+version `decode_regions_plain` in torch ops for a CPU one) and its
+pointer-doubling token resolver (`resolve_tokens`), batched over rows.
 
 A flat table has 2^15 uint32 entries, indexed by the next 15 bits of the
 stream LSB first: kind << 28 | aux (extra bits) << 22 | code length << 16
@@ -17,15 +18,22 @@ the nearest symbol.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from .. import _device
 
 FLAT_BITS = 15
 CL_BITS = 7
 
-# runs of the lockstep engine, the steps they took and the symbol blocks
-# among them, for tests and the smoke run to show whether it ran
+# runs of the lockstep engine, the steps they took and the plain
+# version's symbol blocks, for tests and the smoke run to show whether it ran
 runs = {"decode_regions": 0, "steps": 0, "symbol_blocks": 0}
+
+# launches of the CUDA kernel; the plain version does not count
+launches = {"lockstep": 0}
 
 # steps a symbol block of decode_regions runs without a host read
 SYMBOL_BLOCK = 64
@@ -197,8 +205,9 @@ def _words8(comp: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
-    """Decode B byte-padded regions in lockstep, on comp's device.
+def decode_regions_plain(comp, start_bits, end_bits, out_targets, max_steps: int):
+    """Decode B byte-padded regions in lockstep, on comp's device: the
+    plain version of the lockstep kernel (csrc/lockstep.cu), in torch ops.
 
     comp: uint8 [B, L], each lane's region starting at bit start_bits[b]
     and ending at end_bits[b]; out_targets[b] the expected output size
@@ -226,9 +235,8 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
     decides both, and ends the loop at the reference's step count, the
     first after which every lane is done or bad. While every running lane
     decodes symbols, steps need no read: SYMBOL_BLOCK of them run as one
-    block (one CUDA graph on the card), each counting only while that
-    still holds at its start, so the tapes and the step count stay the
-    reference's.
+    block, each counting only while that still holds at its start, so the
+    tapes and the step count stay the reference's.
     """
     B, L = comp.shape
     dev = comp.device
@@ -357,10 +365,7 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
         i_t.add_(ok.to(i64))
 
     def symbol_block(i: int):
-        """SYMBOL_BLOCK symbol steps from step i with no host read: one
-        CUDA graph replay on the card (captured at the first block, after
-        a warm-up block whose steps count too), the steps one by one
-        elsewhere."""
+        """SYMBOL_BLOCK symbol steps from step i with no host read."""
         for name, t in (("phase", phase), ("bitpos", bitpos), ("produced", produced),
                         ("final_f", final_f)):
             if name in blk:
@@ -369,22 +374,8 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
                 blk[name] = t.clone()
         blk.setdefault("i", torch.zeros((), dtype=i64, device=dev)).fill_(i)
         runs["symbol_blocks"] += 1
-        if dev.type != "cuda":
-            for _ in range(SYMBOL_BLOCK):
-                symbol_step()
-            return
-        if "graph" not in blk:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                for _ in range(SYMBOL_BLOCK):
-                    symbol_step()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            blk["graph"] = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(blk["graph"]):
-                for _ in range(SYMBOL_BLOCK):
-                    symbol_step()
-        blk["graph"].replay()
+        for _ in range(SYMBOL_BLOCK):
+            symbol_step()
 
     def look(w, clen_live: bool):
         """One host read: the phases present, the lanes that may build a
@@ -532,6 +523,65 @@ def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
     runs["steps"] += i
     return (tk.T.contiguous(), ta.T.contiguous(), tb.T.contiguous(), i,
             produced.to(torch.int32), bad)
+
+
+def _lib():
+    fn = _device.library("lockstep").zrs_lockstep
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, ctypes.c_longlong, P, P, P, I, P, P, P, P, P, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_regions_cuda(comp, start_bits, end_bits, out_targets, max_steps: int):
+    """Launch the lockstep kernel over CUDA operands: comp uint8 [B, L],
+    start_bits, end_bits and out_targets [B]. One block a lane runs the
+    lane to its end; the lanes' step counts come back in one host read
+    with the check that every row ends in a zero byte. Returns what
+    `decode_regions_plain` returns on the same inputs."""
+    _device.require_cuda("lockstep", comp, start_bits, end_bits, out_targets)
+    if comp.dtype != torch.uint8 or comp.dim() != 2:
+        raise ValueError(
+            f"lockstep: comp must be uint8 [B, L], got {comp.dtype} {tuple(comp.shape)}")
+    comp = comp.contiguous()
+    B, L = comp.shape
+    dev = comp.device
+    sb, eb, tg = (t.to(torch.int32).contiguous() for t in (start_bits, end_bits, out_targets))
+    tk = torch.zeros((B, max_steps), dtype=torch.uint8, device=dev)
+    ta = torch.zeros((B, max_steps), dtype=torch.int32, device=dev)
+    tb = torch.zeros((B, max_steps), dtype=torch.int32, device=dev)
+    produced = torch.zeros(B, dtype=torch.int32, device=dev)
+    bad = torch.zeros(B, dtype=torch.uint8, device=dev)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    # each lane's literal/length and distance tables
+    scratch = torch.empty((B, 2 << FLAT_BITS), dtype=torch.int32, device=dev)
+    if B:
+        rc = _lib()(
+            _device.ptr(comp), B, L, _device.ptr(sb), _device.ptr(eb), _device.ptr(tg),
+            max_steps, _device.ptr(scratch), _device.ptr(tk), _device.ptr(ta), _device.ptr(tb),
+            _device.ptr(produced), _device.ptr(bad), _device.ptr(counts),
+            _device.stream_of(comp),
+        )
+        _device.check(rc, "lockstep")
+        launches["lockstep"] += 1
+        n_steps, last_nonzero = torch.stack(
+            [counts.max(), (comp[:, -1] != 0).any().to(torch.int32)]).tolist()
+        if last_nonzero:
+            raise ValueError("each row of comp must end in a zero byte")
+    else:
+        n_steps = 0
+    runs["decode_regions"] += 1
+    runs["steps"] += n_steps
+    return tk, ta, tb, n_steps, produced, bad.bool()
+
+
+def decode_regions(comp, start_bits, end_bits, out_targets, max_steps: int):
+    """Decode B byte-padded regions in lockstep: the plain version for a
+    CPU tensor, the kernel for a CUDA one (the contract is
+    `decode_regions_plain`'s)."""
+    fn = decode_regions_plain if comp.device.type == "cpu" else decode_regions_cuda
+    return fn(comp, start_bits, end_bits, out_targets, max_steps)
 
 
 def resolve_tokens(comp, tok_kind, tok_a, tok_b, windows, out_size: int, wlen: int):

@@ -36,8 +36,8 @@ parallel on the device with the vector engine (parallel/vector_inflate.py:
 K4 decode and K5 expansion, or K11a and K11b under ZRS_VECTOR_TWOPLANE=0)
 or the inflate kernel K6 (one sequential inflate
 per chunk, parallel/swarm_inflate.decode_chunks_kernel) or the seeded
-swarm engine (parallel/swarm_inflate.decode_chunks_seeded, torch walkers
-over flat decode tables), behind the container checksum gate, and last
+swarm engine (parallel/swarm_inflate.decode_chunks_seeded, its walkers in
+the CUDA kernel csrc/swarm.cu over flat decode tables), behind the container checksum gate, and last
 the region decode (parallel/inflate.decompress_chunks: K6, then the
 lockstep engine), as the reference ends its device chain.
 """

@@ -5,9 +5,11 @@ decode engines.
 The port of zlib_rs_tpu/parallel/swarm_inflate.py's `decode_chunks_kernel`
 (lines 296-331), `_HostBits` and `parse_block_header` (lines 65-160), and
 its seeded swarm engine, `decode_seeded` and `decode_chunks_seeded`
-(lines 163-293, 389-436), in torch ops, and the bench's
-`make_kernel_dispatch` (lines 334-353). The sharded
-`make_sharded_decode_step` is not ported yet.
+(lines 163-293, 389-436), and the bench's `make_kernel_dispatch` (lines
+334-353). The swarm engine's walker loop is the hand-written CUDA kernel
+csrc/swarm.cu for CUDA tensors (`walk`; its plain version `walk_plain`,
+torch ops, for CPU ones); the table build and the resolver around it are
+torch ops. The sharded `make_sharded_decode_step` is not ported yet.
 
 The swarm engine decodes the chunks of an indexed stream from the seeds
 the encoder recorded (`compress_parallel(..., return_index=True)`): the
@@ -22,6 +24,8 @@ fallback.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -39,6 +43,9 @@ CHECK_EVERY = 16  # walker steps between two host checks for live walkers
 # runs of the swarm engine's walkers, for tests and the smoke run to show
 # the engine ran
 runs = {"decode_seeded": 0}
+
+# launches of the walker kernel; the plain version does not count
+launches = {"swarm_walk": 0}
 
 
 class KernelDataFault(ValueError):
@@ -230,41 +237,35 @@ def _words_at_every_byte(comp: torch.Tensor) -> torch.Tensor:
     return b[:, :-3] | (b[:, 1:-2] << 8) | (b[:, 2:-1] << 16) | (b[:, 3:] << 24)
 
 
-def decode_seeded(comp, ll_lens, d_lens, seeds_bit, seeds_span, cap: int, max_out: int, *,
-                  check_every: int = CHECK_EVERY):
-    """Decode B chunks with S exact walkers each, on the inputs' device.
-
-    comp: uint8 [B, L] chunk bodies zero-padded at least 12 bytes past the
-    data; ll_lens, d_lens: int [B, 320] code lengths from the host header
-    parse; seeds_bit: int [B, S] the body bit cursor of each walker's first
-    symbol; seeds_span: int [B, S] the output bytes each walker must cover;
-    cap: the most steps a walker takes. Returns (out uint8 [B, max_out],
-    produced int32 [B], bad bool [B]).
+def walk_plain(comp, ll_lut, d_lut, seeds_bit, seeds_span, cap: int, *,
+               check_every: int = CHECK_EVERY):
+    """The walkers of `decode_seeded` in torch ops, the plain version of
+    the walker kernel (csrc/swarm.cu): every live walker decodes one symbol
+    a step. comp uint8 [B, L] (L >= 12), ll_lut and d_lut int [B, 2^15]
+    flat tables, seeds_bit and seeds_span int [B, S]. Returns the tapes
+    (tok_kind uint8, tok_a, tok_b int32 [B, S * cap], walker s of a row in
+    slots [s * cap, (s + 1) * cap)), each walker's end bit and remaining
+    span (int64 [B * S]) and its bad flag (bool [B * S]).
 
     The reference loops while any walker is live. Past that point a step
     writes empty tokens and moves nothing (a walker that went bad keeps
     decoding the same symbol and stays bad), so the host looks for a live
     walker only every `check_every` steps; the tapes are the same.
     """
-    runs["decode_seeded"] += 1
     B, L = comp.shape
     S = seeds_bit.shape[1]
     W = B * S
     dev = comp.device
     words = _words_at_every_byte(comp).reshape(-1)
-    rev = torch.from_numpy(DI._REV15_NP).to(dev)
-    ll_lut = DI._build_flat_lut(ll_lens.to(dev), *DI._ll_symbol_fields(320), rev).reshape(-1)
-    d_lut = DI._build_flat_lut(d_lens.to(dev), *DI._d_symbol_fields(320), rev).reshape(-1)
-
+    ll_lut = ll_lut.to(torch.int64).reshape(-1)
+    d_lut = d_lut.to(torch.int64).reshape(-1)
     lane = torch.arange(B, device=dev).repeat_interleave(S)
     base_byte = lane * L
     base_lut = lane << DI.FLAT_BITS
     mask15 = (1 << DI.FLAT_BITS) - 1
     m32 = 0xFFFFFFFF
-    sbit = seeds_bit.to(device=dev, dtype=torch.int64)
-    sspan = seeds_span.to(device=dev, dtype=torch.int64)
-    bitpos = sbit.reshape(W).clone()
-    remaining = sspan.reshape(W).clone()
+    bitpos = seeds_bit.to(device=dev, dtype=torch.int64).reshape(W).clone()
+    remaining = seeds_span.to(device=dev, dtype=torch.int64).reshape(W).clone()
     bad = torch.zeros(W, dtype=torch.bool, device=dev)
     # time-major tapes: a step writes one contiguous row
     tk = torch.zeros((cap, W), dtype=torch.uint8, device=dev)
@@ -319,14 +320,92 @@ def decode_seeded(comp, ll_lens, d_lens, seeds_bit, seeds_span, cap: int, max_ou
         remaining = torch.where(emit, remaining - cover, remaining)
         bad |= is_bad
 
+    tapes = [t.T.reshape(B, S * cap) for t in (tk, ta, tb)]
+    return (*tapes, bitpos, remaining, bad)
+
+
+def _lib():
+    fn = _device.library("swarm").zrs_swarm_walk
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, ctypes.c_longlong, I, P, P, P, P, I, P, P, P, P, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def walk_cuda(comp, ll_lut, d_lut, seeds_bit, seeds_span, cap: int):
+    """Launch the walker kernel over CUDA operands, a thread a walker, each
+    to its own end. Returns what `walk_plain` returns on the same inputs."""
+    _device.require_cuda("swarm_walk", comp, ll_lut, d_lut, seeds_bit, seeds_span)
+    if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 12:
+        raise ValueError(f"swarm_walk: comp must be uint8 [B, L >= 12], got {comp.dtype} "
+                         f"{tuple(comp.shape)}")
+    comp = comp.contiguous()
+    B, L = comp.shape
+    S = seeds_bit.shape[1]
+    W = B * S
+    dev = comp.device
+    ll32, d32 = (t.to(torch.int32).contiguous() for t in (ll_lut, d_lut))
+    sbit, sspan = (t.to(torch.int64).contiguous() for t in (seeds_bit, seeds_span))
+    tk = torch.zeros((W, cap), dtype=torch.uint8, device=dev)
+    ta = torch.zeros((W, cap), dtype=torch.int32, device=dev)
+    tb = torch.zeros((W, cap), dtype=torch.int32, device=dev)
+    end_bit = torch.empty(W, dtype=torch.int64, device=dev)
+    remaining = torch.empty(W, dtype=torch.int64, device=dev)
+    bad = torch.empty(W, dtype=torch.uint8, device=dev)
+    if W:
+        rc = _lib()(
+            _device.ptr(comp), B, L, S, _device.ptr(ll32), _device.ptr(d32), _device.ptr(sbit),
+            _device.ptr(sspan), cap, _device.ptr(tk), _device.ptr(ta), _device.ptr(tb),
+            _device.ptr(end_bit), _device.ptr(remaining), _device.ptr(bad),
+            _device.stream_of(comp),
+        )
+        _device.check(rc, "swarm_walk")
+        launches["swarm_walk"] += 1
+    tapes = [t.reshape(B, S * cap) for t in (tk, ta, tb)]
+    return (*tapes, end_bit, remaining, bad.bool())
+
+
+def walk(comp, ll_lut, d_lut, seeds_bit, seeds_span, cap: int, *,
+         check_every: int = CHECK_EVERY):
+    """The swarm engine's walkers: the plain version for a CPU tensor, the
+    kernel for a CUDA one."""
+    if comp.device.type == "cpu":
+        return walk_plain(comp, ll_lut, d_lut, seeds_bit, seeds_span, cap,
+                          check_every=check_every)
+    return walk_cuda(comp, ll_lut, d_lut, seeds_bit, seeds_span, cap)
+
+
+def decode_seeded(comp, ll_lens, d_lens, seeds_bit, seeds_span, cap: int, max_out: int, *,
+                  check_every: int = CHECK_EVERY):
+    """Decode B chunks with S exact walkers each, on the inputs' device.
+
+    comp: uint8 [B, L] chunk bodies zero-padded at least 12 bytes past the
+    data; ll_lens, d_lens: int [B, 320] code lengths from the host header
+    parse; seeds_bit: int [B, S] the body bit cursor of each walker's first
+    symbol; seeds_span: int [B, S] the output bytes each walker must cover;
+    cap: the most steps a walker takes. Returns (out uint8 [B, max_out],
+    produced int32 [B], bad bool [B]). The walkers run in `walk`;
+    `check_every` is the plain version's.
+    """
+    runs["decode_seeded"] += 1
+    B, L = comp.shape
+    S = seeds_bit.shape[1]
+    dev = comp.device
+    rev = torch.from_numpy(DI._REV15_NP).to(dev)
+    ll_lut = DI._build_flat_lut(ll_lens.to(dev), *DI._ll_symbol_fields(320), rev)
+    d_lut = DI._build_flat_lut(d_lens.to(dev), *DI._d_symbol_fields(320), rev)
+    sbit = seeds_bit.to(device=dev, dtype=torch.int64)
+    sspan = seeds_span.to(device=dev, dtype=torch.int64)
+    *tapes, bitpos, remaining, bad = walk(comp, ll_lut, d_lut, sbit, sspan, cap,
+                                          check_every=check_every)
+
     # exactness: every walker drained its span and landed on the next
     # seed's bit cursor (walkers with no span never move)
-    bad |= remaining > 0
+    bad = bad | (remaining > 0)
     end_bits = bitpos.reshape(B, S)
     drift = (end_bits[:, :-1] != sbit[:, 1:]) & (sspan[:, :-1] > 0)
     lane_bad = bad.reshape(B, S).any(dim=1) | drift.any(dim=1)
-    # walker-major for the resolver: walker s holds slots [s * cap, (s + 1) * cap)
-    tapes = [t.T.reshape(B, S * cap) for t in (tk, ta, tb)]
     win = torch.zeros((B, 0), dtype=torch.uint8, device=dev)
     out, produced = DI.resolve_tokens(comp, *tapes, win, max_out, 0)
     return out, produced, lane_bad
