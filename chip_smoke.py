@@ -93,7 +93,13 @@ of the corpus, each against stdlib zlib: `Deflate`/`Inflate` through
 1-byte and 4 KiB buffers under every flush mode, a `GzFile` write and
 read, `inflate_back`, `compress_medium` and `compress_quick`, zran
 `extract` at three offsets and `crc32_combine_op` (phase 38, run before
-the bench); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
+the bench); the multi-device path in a one-rank NCCL group on cuda:0,
+`compress_parallel(mesh=)` of the corpus under ZRS_TPU_KERNEL=1 equal to
+phase 4's stream (K1-K3 launched) with three warm runs, the XLA engine's
+level-6 stream under the mesh equal to its unsharded one,
+`make_sharded_decode_step` on the 128 KiB indexed stream through the
+walker kernel, byte-exact, and `graft_entry.dryrun_multichip(1)` (phase
+39, run before the bench); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
 bytes with a torch.profiler headline and every device phase's key and
 device-busy share in the full line above it (phase 37). Any mismatch
 raises; no phase's failure is caught.
@@ -2792,6 +2798,124 @@ def host_layers_phase(corpus) -> dict:
     return result
 
 
+def mesh_phase(torch, corpus, out, warm) -> dict:
+    """Phase 39: the multi-device path in a one-rank NCCL group on cuda:0
+    (one card shows the collectives run, not how they scale).
+    `compress_parallel(mesh=)` of the corpus under ZRS_TPU_KERNEL=1, whose
+    stream must equal phase 4's (`out`) with K1, K2 and K3 launched, and
+    three warm runs beside phase 4's (`warm`); the XLA engine's level-6
+    stream under the mesh equal to its unsharded one; the sharded decode
+    step on the XLA engine's 128 KiB indexed stream through the walker
+    kernel, byte-exact; and `graft_entry.dryrun_multichip(1)` joining the
+    group. The group is destroyed before the next phase."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch import graft_entry
+    from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
+    from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+    from zlib_rs_tpu_torch.parallel import mesh as M
+    from zlib_rs_tpu_torch.parallel import pipeline as PL
+    from zlib_rs_tpu_torch.parallel import swarm_inflate as SW
+
+    t_start = time.perf_counter()
+    result = {}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    kernel_env = os.environ.get("ZRS_TPU_KERNEL")
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("chunks",))
+        os.environ["ZRS_TPU_KERNEL"] = "1"
+        for c in (CK.launches, DK.launches):
+            for name in c:
+                c[name] = 0
+        t0 = time.perf_counter()
+        sharded = zt.compress_parallel(corpus, LEVEL, mesh=mesh)
+        cold_s = time.perf_counter() - t0
+        launches = {"adler32_batch": CK.launches["adler32_batch"],
+                    "hop_chase": DK.launches["hop_chase"], "pack": DK.launches["pack"]}
+        if min(launches.values()) < 1:
+            raise AssertionError(f"the sharded kernel-engine encode missed a kernel: {launches}")
+        if sharded != out:
+            raise AssertionError(f"the sharded kernel-engine stream {digest(sharded)} is not "
+                                 f"phase 4's {digest(out)}")
+        if zlib.decompress(sharded) != corpus:
+            raise AssertionError("the sharded kernel-engine stream does not decode")
+        print(f"phase 39 mesh kernel engine: {digest(sharded)}, equal to phase 4's stream, cold "
+              f"{cold_s:.3f} s, launches {launches}", flush=True)
+        result["kernel_engine"] = {"cold_s": cold_s, "launches": launches, **warm_runs(
+            torch, PL, lambda: zt.compress_parallel(corpus, LEVEL, mesh=mesh), out,
+            len(corpus), "mesh warm", 39)}
+        print("phase 39 beside phase 4's warm wall s: "
+              + ", ".join(f"{w:.4f}" for w in warm["warm_s"]), flush=True)
+
+        os.environ.pop("ZRS_TPU_KERNEL")  # the XLA engine
+        t0 = time.perf_counter()
+        xla_sharded = zt.compress_parallel(corpus, LEVEL, mesh=mesh)
+        xla_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xla = zt.compress_parallel(corpus, LEVEL)
+        plain_s = time.perf_counter() - t0
+        if xla_sharded != xla or zlib.decompress(xla) != corpus:
+            raise AssertionError(f"the XLA engine's sharded stream {digest(xla_sharded)} is not "
+                                 f"its unsharded {digest(xla)}")
+        result["xla_engine"] = {"wall_s": xla_s, "unsharded_wall_s": plain_s,
+                                "bytes_out": len(xla)}
+        print(f"phase 39 mesh XLA engine level {LEVEL}: {digest(xla_sharded)}, equal to the "
+              f"unsharded stream, {xla_s:.3f} s (unsharded {plain_s:.3f} s)", flush=True)
+
+        # one all_gather of a kernel-engine batch's fields (16 rows of the
+        # fetched words, bits, adler, ll and d), alone, by events
+        lay = M.layout(mesh)
+        buf = torch.zeros((PL.TAIL_BATCH, PL.DEFAULT_CHUNK // 4 + 80 + 2 + 286 + 30),
+                          dtype=torch.int32, device=lay.device)
+        result["gather_ms"] = event_ms(torch, lambda: M.gather_rows(buf, lay), 50)
+        print(f"phase 39 one all_gather of a {tuple(buf.shape)} int32 batch buffer: "
+              f"{result['gather_ms']:.4f} ms by events", flush=True)
+
+        idx_out, index = zt.compress_parallel(corpus, LEVEL, return_index=True)
+        sizes = [n for *_, n in index]
+        *operands, cap = SW.seeded_inputs([idx_out[o : o + n] for o, n, _ in index], sizes,
+                                          index.seeds)
+        step = SW.make_sharded_decode_step(mesh, cap=cap, max_out=max(sizes))
+        args = [torch.from_numpy(a) for a in operands]
+        walks = SW.launches["swarm_walk"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outb, produced, bad = step(*args)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        walks = SW.launches["swarm_walk"] - walks
+        got = outb.cpu().numpy()
+        if bad.any() or walks < 1 or outb.device.type != "cuda":
+            raise AssertionError(f"the sharded decode step: bad lanes {int(bad.sum())}, walker "
+                                 f"launches {walks}, output on {outb.device}")
+        if b"".join(got[k, : sizes[k]].tobytes() for k in range(len(sizes))) != corpus:
+            raise AssertionError("the sharded decode step gave other bytes")
+        result["decode_step"] = {"chunks": len(sizes), "cap": cap, "wall_s": decode_s,
+                                 "walker_launches": walks}
+        print(f"phase 39 sharded decode step: {len(sizes)} chunks of {PL.XLA_CHUNK} bytes "
+              f"byte-exact through {walks} walker kernel launch(es), cap {cap}, "
+              f"{decode_s:.3f} s", flush=True)
+
+        result["dryrun"] = graft_entry.dryrun_multichip(1)
+    finally:
+        if kernel_env is None:
+            os.environ.pop("ZRS_TPU_KERNEL", None)
+        else:
+            os.environ["ZRS_TPU_KERNEL"] = kernel_env
+        dist.destroy_process_group()
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 39: {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
 def bench_phase(budget_s: float) -> dict:
     """Phase 37: `python -m zlib_rs_tpu_torch.bench` with ZRS_BENCH_BUDGET_S
     = `budget_s`: its last line parses, `value` > 0 from torch.profiler,
@@ -3077,6 +3201,7 @@ def main() -> int:
     cli = cli_phase(corpus)
     engine_names = engine_names_phase(torch, corpus, idx_out, index, gz, gz_index)
     host_layers = host_layers_phase(corpus)
+    mesh = mesh_phase(torch, corpus, out, warm)
     bench = bench_phase(min(BENCH_BUDGET_S, SMOKE_LIMIT_S - (time.perf_counter() - t_main)))
 
     # the lockstep kernel's path: the region decode of the chunk K6 refused;
@@ -3103,7 +3228,8 @@ def main() -> int:
         "gzip_encode": gzip_encode, "k6_decode": k6_decode, "encode_routes": routes,
         "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
         "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
-        "cli": cli, "engine_names": engine_names, "host_layers": host_layers, "bench": bench,
+        "cli": cli, "engine_names": engine_names, "host_layers": host_layers, "mesh": mesh,
+        "bench": bench,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -282,11 +282,12 @@ def test_chain_and_tab_routes_equal_jax(monkeypatch, case):
     ],
 )
 def test_routes_not_ported_raise(kw, match):
-    """mesh= is not ported and raises. A non-default strategy runs the host
-    engine, which is ported: its stream is the JAX package's, and with
-    return_index both packages raise ValueError."""
+    """mesh= takes a 1-D torch.distributed DeviceMesh (tests/test_torch_mesh.py
+    runs it); anything else raises ValueError. A non-default strategy runs
+    the host engine, which is ported: its stream is the JAX package's, and
+    with return_index both packages raise ValueError."""
     if "strategy" not in kw:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             zt.compress_parallel(MULTI, device="cpu", **kw)
         return
     got = zt.compress_parallel(MULTI, device="cpu", **kw)

@@ -1,4 +1,6 @@
-"""Chunk-parallel deflate on one CUDA device: the encode half.
+"""Chunk-parallel deflate on one CUDA device, or sharded over the ranks
+of a torch.distributed mesh (`mesh=`, `make_sharded_encode_step`; see
+parallel/mesh.py): the encode half.
 
 Input is split into fixed-size chunks, every chunk is compressed on the
 device as one Huffman block (a dynamic block body at levels 3-9, a whole
@@ -59,6 +61,7 @@ from ..ops import checksum, dynhuff, lz77
 from ..ops import huffman as H
 from ..ops.kernels import deflate_kernel as DK
 from ..utils.stages import STAGES
+from . import mesh as M
 from . import swarm_inflate, vector_inflate
 
 DEFAULT_CHUNK = 32 * 1024  # the kernel engine's chunk size
@@ -328,15 +331,121 @@ def chunk_buffers(data: bytes, chunk_size: int, dict_size: int):
     return padded, n_valid, valid_from, data_len
 
 
-def batch_spans(n_chunks: int, bulk: bool = True) -> list[tuple[int, int]]:
-    """(first chunk, size) of each batch: with `bulk` (the kernel engine)
-    super-batches for the bulk, then tail batches; without (the XLA
-    engine) tail batches only. PyTorch has no per-shape compile, so the
-    last batch is not padded with empty rows."""
+def batch_spans(n_chunks: int, bulk: bool = True, width: int = 1) -> list[tuple[int, int]]:
+    """(first chunk, size) of each batch: with `bulk` (the kernel engine
+    without a mesh) super-batches for the bulk, then tail batches; without
+    (the XLA engine, or a mesh) tail batches only. Under a mesh of `width`
+    ranks a tail batch is max(W, min(16, ceil(16 / W) * W)) chunks, as the
+    reference batches a mesh, and the caller pads each batch to a multiple
+    of W. PyTorch has no per-shape compile, so the last batch is not padded
+    to the batch size."""
+    tail = max(width, min(TAIL_BATCH, -(-TAIL_BATCH // width) * width))
     bulk = (n_chunks // SUPER_BATCH) * SUPER_BATCH if bulk else 0
     return [(i, SUPER_BATCH) for i in range(0, bulk, SUPER_BATCH)] + [
-        (i, min(TAIL_BATCH, n_chunks - i)) for i in range(bulk, n_chunks, TAIL_BATCH)
+        (i, min(tail, n_chunks - i)) for i in range(bulk, n_chunks, tail)
     ]
+
+
+def _shard_batch(arrays, b0: int, bsz: int, lay, dict_size: int):
+    """The rank's rows of the batch [b0, b0 + bsz) of (padded, n_valid,
+    valid_from, finals), the batch padded to a multiple of the mesh's
+    width with empty rows (n_valid = valid_from = dict_size, finals 0).
+    Returns the four arrays and the global index of the rank's first
+    row."""
+    padded, n_valid, valid_from, finals = arrays
+    rows = M.rows_of(-(-bsz // lay.width) * lay.width, lay)
+    lo, hi = b0 + rows.start, b0 + rows.stop
+    real = max(0, min(hi, b0 + bsz) - lo)
+    pad = (hi - lo) - real
+    out = [a[lo : lo + real] for a in arrays]
+    if pad:
+        fill = (np.zeros((pad, padded.shape[1]), np.uint8), np.full(pad, dict_size, np.int32),
+                np.full(pad, dict_size, np.int32), np.zeros(pad, np.int32))
+        out = [np.concatenate([a, f]) for a, f in zip(out, fill)]
+    return out, lo
+
+
+def _gather_fields(fields: dict, lay, n_real: int) -> dict:
+    """One all_gather of a batch's per-chunk results: every field, as int32
+    columns, rides one [rows, F] buffer; returns the fields of the whole
+    batch in chunk order, the padding rows dropped."""
+    b = next(iter(fields.values())).shape[0]
+    cols = {k: v.reshape(b, -1).to(torch.int32) for k, v in fields.items()}
+    flat = M.gather_rows(torch.cat(list(cols.values()), dim=1), lay)[:n_real]
+    out, pos = {}, 0
+    for k, v in cols.items():
+        w = v.shape[1]
+        out[k] = flat[:, pos : pos + w].reshape(n_real, *fields[k].shape[1:])
+        pos += w
+    return out
+
+
+def _gather_full_rows(need, full_rows, lay) -> dict:
+    """The full words rows of the chunks in `need` (the same list on every
+    rank) from the ranks that hold them: a second all_gather, in which each
+    rank fills the rows it owns and leaves the others zero."""
+    width = full_rows[0][1].shape[1]
+    buf = torch.zeros((len(need), width), dtype=torch.int32, device=lay.device)
+    for i, k in enumerate(need):
+        for g0, full in full_rows:
+            if g0 <= k < g0 + full.shape[0]:
+                buf[i] = full[k - g0]
+    # every row is nonzero on its owner alone, so the sum over the ranks is
+    # the owner's row
+    got = M.gather_rows(buf[None], lay).sum(dim=0, dtype=torch.int32)
+    host = got.cpu().numpy().view(np.uint32)
+    return {k: host[i] for i, k in enumerate(need)}
+
+
+def make_sharded_encode_step(mesh, *, chunk_size: int, dict_size: int = 0, dynamic: bool = True,
+                             gather: bool = True, kernel_scan: bool = False, kernel_cfg=None,
+                             **knobs):
+    """The sharded encode step: every rank encodes its shard of a chunk
+    batch, then all_gathers the bit sizes (every rank then has the global
+    byte offsets, their exclusive prefix sum) and the packed words.
+
+    Returns fn(chunks, n_valid, finals, valid_from), each argument the
+    rank's rows (uint8 [b, dict + chunk + PAD] and int [b], on any device;
+    they move to the rank's device), that returns (words [B, W] int32,
+    bits [B], offsets [B], ll_lens, d_lens): the first three gathered in
+    chunk order on every rank, the lengths the rank's own rows. With
+    `kernel_scan` the kernel engine encodes (its matcher from
+    `_resolve_kernel_variant(kernel_cfg)`), else the XLA engine's
+    `encode_chunk_dynamic` (with `dict_size` as its start) or, without
+    `dynamic`, `encode_chunk_static` with zero [b, 1] lengths. `knobs`
+    are the XLA engine's (chain_depth, max_words, lazy).
+
+    gather=False is the variant with no collective: every output stays the
+    rank's own and the offsets are zero."""
+    lay = M.layout(mesh)
+    kcfg = kernel_cfg or (8, 16, 128, 128)
+    variant, w_g = _resolve_kernel_variant(kernel_cfg) if kernel_scan else (None, None)
+
+    def step(chunks, n_valid, finals, valid_from):
+        chunks, n_valid, finals, valid_from = (
+            torch.as_tensor(a).to(lay.device) for a in (chunks, n_valid, finals, valid_from))
+        if kernel_scan:
+            words, bits, ll, dl, _sb, _so = _encode_batch(
+                chunks, n_valid, finals, valid_from, dict_size=dict_size, n_seeds=0,
+                dynamic=True, kernel_scan=True, chain_depth=knobs.get("chain_depth", 12),
+                max_words=knobs.get("max_words", 32), lazy=knobs.get("lazy", True),
+                kernel_cfg=kcfg, variant=variant, w_g=w_g,
+            )
+        elif dynamic:
+            words, bits, ll, dl = dynhuff.encode_chunk_dynamic(
+                chunks, n_valid, start=dict_size, valid_from=valid_from, **knobs)
+        else:
+            words, bits = lz77.encode_chunk_static(
+                chunks, n_valid, finals, start=dict_size, valid_from=valid_from, **knobs)
+            ll = dl = torch.zeros((chunks.shape[0], 1), dtype=torch.int32, device=lay.device)
+        if not gather:
+            return words, bits, torch.zeros_like(bits), ll, dl
+        all_bits = M.gather_rows(bits, lay)
+        nbytes = (all_bits + 7) // 8
+        offsets = (torch.cumsum(nbytes, 0) - nbytes).to(all_bits.dtype)
+        return M.gather_rows(words, lay), all_bits, offsets, ll, dl
+
+    return step
 
 
 def _gzip_crc(data: bytes, chunk_size: int, device: torch.device) -> int:
@@ -392,7 +501,17 @@ def compress_parallel(
     A non-default `strategy` (Filtered, HuffmanOnly, Rle, Fixed) runs the
     host deflate engine, `models.deflate.compress`, on one stream with no
     chunk parallelism, as the reference routes it; with return_index it
-    raises ValueError. `mesh=` (not ported yet) raises NotImplementedError.
+    raises ValueError.
+
+    With `mesh` (a 1-D torch.distributed DeviceMesh whose dim is named
+    "chunks"), every rank of the mesh makes the same call: the chunks are
+    sharded over the ranks in batches of max(W, min(16, ceil(16 / W) * W))
+    chunks (no super-batches), each batch padded to a multiple of W with
+    empty rows, each rank encodes its contiguous rows on its device
+    (`cuda:<local rank>` under a "cuda" mesh, the CPU under a "cpu" one;
+    a contradicting `device=` raises ValueError), and one all_gather a
+    batch brings every per-chunk result to every rank in chunk order. Every
+    rank returns the same stream (and index), equal to the unsharded one.
 
     With return_index=True, also returns the ChunkIndex of (body_offset,
     body_len, out_len) per chunk, with 128 decode seeds per dynamic coded
@@ -408,10 +527,9 @@ def compress_parallel(
         return host_deflate.compress(
             data, DeflateConfig(level=level, window_bits=window_bits, strategy=strategy)
         )
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the sharded encode) is not ported yet")
+    lay = M.layout(mesh, device) if mesh is not None else None
     kernel_env = os.environ.get("ZRS_TPU_KERNEL") == "1"
-    dev = _device.resolve_device(device)
+    dev = lay.device if lay is not None else _device.resolve_device(device)
     if chunk_size is None:
         chunk_size = DEFAULT_CHUNK if kernel_env else XLA_CHUNK
     wrap, wbits = decode_window_bits_deflate(window_bits)
@@ -435,13 +553,16 @@ def compress_parallel(
 
     cw = chunk_size // 4 + 80  # compressed-size bound fetched per chunk
     parts = collections.defaultdict(list)
-    full_rows = []
-    for b0, bsz in batch_spans(n_chunks, bulk=kernel_scan):
-        sl = slice(b0, b0 + bsz)
-        dc = torch.from_numpy(padded[sl]).to(dev)
-        dn = torch.from_numpy(n_valid[sl]).to(dev)
-        dv = torch.from_numpy(valid_from[sl]).to(dev)
-        df = torch.from_numpy(finals[sl]).to(dev)
+    full_rows = []  # (global index of the first row, the retained words)
+    spans = (batch_spans(n_chunks, bulk=kernel_scan) if lay is None
+             else batch_spans(n_chunks, bulk=False, width=lay.width))
+    for b0, bsz in spans:
+        if lay is None:
+            rows, g0 = [a[b0 : b0 + bsz] for a in (padded, n_valid, valid_from, finals)], b0
+        else:
+            rows, g0 = _shard_batch((padded, n_valid, valid_from, finals), b0, bsz, lay,
+                                    dict_size)
+        dc, dn, dv, df = (torch.from_numpy(a).to(dev) for a in rows)
         words, bits, ll_lens, d_lens, sbit, sout = _encode_batch(
             dc, dn, df, dv, dict_size=dict_size, n_seeds=n_seeds, dynamic=dynamic,
             kernel_scan=kernel_scan, variant=variant, w_g=w_g, **knobs,
@@ -454,17 +575,18 @@ def compress_parallel(
         # payload exceeds it (incompressible data, stored anyway) reads
         # its full row from the retained device array
         if words.shape[1] > cw:
-            full_rows.append((b0, words))
+            full_rows.append((g0, words))
             words = words[:, :cw]
-        parts["words"].append(words)
-        parts["bits"].append(bits)
-        parts["adler"].append(adlers.to(torch.int32))
+        fields = dict(words=words, bits=bits, adler=adlers.to(torch.int32))
         if dynamic:
-            parts["ll"].append(ll_lens)
-            parts["d"].append(d_lens)
+            fields.update(ll=ll_lens, d=d_lens)
         if n_seeds:
-            parts["sbit"].append(sbit)
-            parts["sout"].append(sout)
+            fields.update(sbit=sbit, sout=sout)
+        if lay is not None:
+            with STAGES.stage("gather", dev):
+                fields = _gather_fields(fields, lay, bsz)
+        for name, value in fields.items():
+            parts[name].append(value)
 
     # before host_assembly, so that its clock holds no K7 time
     crc = _gzip_crc(data, chunk_size, dev) if wrap == Wrap.Gzip else None
@@ -485,12 +607,26 @@ def compress_parallel(
         bits_np = host["bits"]
         adlers_np = host["adler"].astype(np.int64) & 0xFFFFFFFF
 
-        def row_words(k, need_bytes):
-            if need_bytes <= words_np.shape[1] * 4:
+        def need_bytes(k):
+            # a static chunk is a whole block; a body takes one byte of slack
+            return (int(bits_np[k]) + 7) // 8 + (1 if dynamic else 0)
+
+        # under a mesh a chunk's full row lives on one rank: every rank
+        # knows the bits, so all agree on the rows to gather
+        fetched = {}
+        if lay is not None and full_rows:
+            need = [k for k in range(n_chunks) if need_bytes(k) > words_np.shape[1] * 4]
+            if need:
+                fetched = _gather_full_rows(need, full_rows, lay)
+
+        def row_words(k):
+            if need_bytes(k) <= words_np.shape[1] * 4:
                 return words_np[k]
-            for b0, full in full_rows:
-                if b0 <= k < b0 + full.shape[0]:
-                    return full[k - b0].cpu().numpy().view(np.uint32)
+            if k in fetched:
+                return fetched[k]
+            for g0, full in full_rows:
+                if g0 <= k < g0 + full.shape[0]:
+                    return full[k - g0].cpu().numpy().view(np.uint32)
             return words_np[k]
 
         payloads = []
@@ -498,12 +634,12 @@ def compress_parallel(
             if not dynamic:  # a complete static block: no header to splice
                 total_bits = int(bits_np[k])
                 nbytes = (total_bits + 7) // 8
-                row = row_words(k, nbytes)
+                row = row_words(k)
                 payloads.append((row.view(np.uint8)[:nbytes].tobytes(), total_bits))
                 continue
             hdr, hb = _dyn_header(host["ll"][k], host["d"][k], final=k == n_chunks - 1)
             body_bits = int(bits_np[k])
-            row = row_words(k, (body_bits + 7) // 8 + 1)
+            row = row_words(k)
             payload = _splice_bits(hdr, hb, row.view(np.uint8), body_bits)
             payloads.append((payload, hb + body_bits))
 

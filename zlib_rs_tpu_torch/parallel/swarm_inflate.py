@@ -5,11 +5,13 @@ decode engines.
 The port of zlib_rs_tpu/parallel/swarm_inflate.py's `decode_chunks_kernel`
 (lines 296-331), `_HostBits` and `parse_block_header` (lines 65-160), and
 its seeded swarm engine, `decode_seeded` and `decode_chunks_seeded`
-(lines 163-293, 389-436), and the bench's `make_kernel_dispatch` (lines
-334-353). The swarm engine's walker loop is the hand-written CUDA kernel
-csrc/swarm.cu for CUDA tensors (`walk`; its plain version `walk_plain`,
-torch ops, for CPU ones); the table build and the resolver around it are
-torch ops. The sharded `make_sharded_decode_step` is not ported yet.
+(lines 163-293, 389-436), the bench's `make_kernel_dispatch` (lines
+334-353) and the sharded `make_sharded_decode_step` (lines 356-385: each
+rank of a torch.distributed mesh decodes its rows, then all_gathers them
+in chunk order). The swarm engine's walker loop is the hand-written CUDA
+kernel csrc/swarm.cu for CUDA tensors (`walk`; its plain version
+`walk_plain`, torch ops, for CPU ones); the table build and the resolver
+around it are torch ops.
 
 The swarm engine decodes the chunks of an indexed stream from the seeds
 the encoder recorded (`compress_parallel(..., return_index=True)`): the
@@ -35,6 +37,7 @@ from ..ops import huffman as H
 from ..ops.kernels import inflate_kernel as IK
 from ..utils.stages import STAGES
 from . import device_inflate as DI
+from . import mesh as M
 
 SEEDS_PER_CHUNK = 128  # decode seeds of an indexed dynamic chunk
 CAP_QUANTUM = 512  # the walker step bound is rounded up to a multiple of this
@@ -409,6 +412,27 @@ def decode_seeded(comp, ll_lens, d_lens, seeds_bit, seeds_span, cap: int, max_ou
     win = torch.zeros((B, 0), dtype=torch.uint8, device=dev)
     out, produced = DI.resolve_tokens(comp, *tapes, win, max_out, 0)
     return out, produced, lane_bad
+
+
+def make_sharded_decode_step(mesh, *, cap: int, max_out: int):
+    """The sharded decode step over a 1-D "chunks" DeviceMesh: returns
+    fn(comp, ll_lens, d_lens, seeds_bit, seeds_span), each argument the
+    rank's rows of `decode_seeded`'s operands (the same number on every
+    rank: the batch divides by the mesh's width), that decodes them with
+    `decode_seeded` on the rank's device (the walker kernel on a card) and
+    returns (out, produced, bad) of the whole batch, all_gathered in chunk
+    order on every rank."""
+    lay = M.layout(mesh)
+
+    def step(comp, ll_lens, d_lens, seeds_bit, seeds_span):
+        comp, ll_lens, d_lens, seeds_bit, seeds_span = (
+            torch.as_tensor(a).to(lay.device)
+            for a in (comp, ll_lens, d_lens, seeds_bit, seeds_span))
+        out, produced, bad = decode_seeded(comp, ll_lens, d_lens, seeds_bit, seeds_span,
+                                           cap=cap, max_out=max_out)
+        return tuple(M.gather_rows(t, lay) for t in (out, produced, bad))
+
+    return step
 
 
 def seeded_inputs(bodies, out_sizes, seeds):
