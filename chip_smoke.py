@@ -73,7 +73,9 @@ corpus, `decompress_chunks(engine="auto")` recovering the lone-EOB body
 that K6 refuses and a flipped bit raising (phase 32); `decompress_foreign`
 of the corpus as stdlib zlib at levels 6 and 9, raw deflate and gzip of
 1 and 4 members, each through K6
-with no fallback, three warm runs of the level-6 stream with the zran
+with no fallback, the monolithic streams indexed on the card (SP1-SP3
+launched in each run's zran_index stage, their launches and event ms
+printed), three warm runs of the level-6 stream with the zran
 index pass and the region decode timed apart, and a corrupted adler32
 raising (phase 33); `compress_parallel` under each non-default strategy
 (the host engine) at level 6 on 256 KiB as zlib and gzip, each decoded by
@@ -99,7 +101,16 @@ phase 4's stream (K1-K3 launched) with three warm runs, the XLA engine's
 level-6 stream under the mesh equal to its unsharded one,
 `make_sharded_decode_step` on the 128 KiB indexed stream through the
 walker kernel, byte-exact, and `graft_entry.dryrun_multichip(1)` (phase
-39, run before the bench); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
+39, run before the bench); the speculative decode of an unindexed stream
+(csrc/speculative.cu): SP1 (the block finder) on every segment of the
+corpus's level-6 raw stream, SP2 (the marker decode) on its segments
+and on crafted rows of the stored, Z_FIXED and a flipped stream, and SP3
+(the marker resolve) on the whole chain, each against its plain version
+at max abs err 0, then `inflate_speculative` of the corpus as raw deflate
+at levels 1, 6 and 9, under Z_FIXED, stored, as a zlib body and as 64
+MiB (the corpus 8 times), each back to its input with its segments,
+chain misses and each kernel's event ms (phase 40, run before the
+bench); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
 bytes with a torch.profiler headline and every device phase's key and
 device-busy share in the full line above it (phase 37). Any mismatch
 raises; no phase's failure is caught.
@@ -641,32 +652,39 @@ def k6_err(torch, got, want, max_out) -> int:
     return max_abs(pairs)
 
 
-class k6_events:
-    """Within the block, every K6 launch is bracketed by CUDA events; the
-    list it yields holds each launch's device ms once the block ends."""
+class kernel_events:
+    """Within the block, every launch of `module`'s `<name>_cuda` wrapper
+    of each of `names` is bracketed by CUDA events; the dict it yields
+    holds each name's list of device ms once the block ends."""
 
-    def __init__(self, torch, IK):
-        self.torch, self.IK, self.ms, self.events = torch, IK, [], []
+    def __init__(self, torch, module, names):
+        self.torch, self.module, self.names = torch, module, tuple(names)
+        self.ms = {n: [] for n in self.names}
+        self.events = {n: [] for n in self.names}
+        self.real = {}
 
     def __enter__(self):
-        real = self.real = self.IK.decode_streams_cuda
+        for name in self.names:
+            real = self.real[name] = getattr(self.module, f"{name}_cuda")
 
-        def timed(*a, **k):
-            e0 = self.torch.cuda.Event(enable_timing=True)
-            e1 = self.torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = real(*a, **k)
-            e1.record()
-            self.events.append((e0, e1))
-            return out
+            def timed(*a, _real=real, _name=name, **k):
+                e0 = self.torch.cuda.Event(enable_timing=True)
+                e1 = self.torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = _real(*a, **k)
+                e1.record()
+                self.events[_name].append((e0, e1))
+                return out
 
-        self.IK.decode_streams_cuda = timed
+            setattr(self.module, f"{name}_cuda", timed)
         return self.ms
 
     def __exit__(self, *exc):
-        self.IK.decode_streams_cuda = self.real
+        for name, real in self.real.items():
+            setattr(self.module, f"{name}_cuda", real)
         self.torch.cuda.synchronize()
-        self.ms.extend(e0.elapsed_time(e1) for e0, e1 in self.events)
+        for name, evs in self.events.items():
+            self.ms[name].extend(e0.elapsed_time(e1) for e0, e1 in evs)
         return False
 
 
@@ -951,11 +969,12 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
     parts, states = [], []
     # a level-6 block holds up to 16,384 symbols: on this repeated tar it
     # can cover megabytes, past the default 256 KiB overshoot budget
-    with k6_events(torch, IK) as k6_ms:
+    with kernel_events(torch, IK, ("decode_streams",)) as ev:
         for out_b, st in zt.device_decode_streaming(raw, step_bytes=1024 * 1024,
                                                     max_out=len(corpus)):
             parts.append(out_b)
             states.append(st)
+    k6_ms = ev["decode_streams"]
     stream_s = time.perf_counter() - t0
     if b"".join(parts) != corpus or states[-1].adler != zlib.adler32(corpus):
         raise AssertionError("device_decode_streaming is not the corpus")
@@ -976,8 +995,9 @@ def inflate_phases(torch, dev, corpus, idx_out, index, gz, gz_index, rows, launc
         r_windows.append(corpus[max(0, prev_out - 32768) : prev_out])
         prev_bit, prev_out = st.bit, st.produced
     t0 = time.perf_counter()
-    with k6_events(torch, IK) as k6_ms:
+    with kernel_events(torch, IK, ("decode_streams",)) as ev:
         regions = RI.decompress_chunks(r_bodies, r_sizes, r_windows, r_starts, engine="kernel")
+    k6_ms = ev["decode_streams"]
     region_s = time.perf_counter() - t0
     if b"".join(regions) != corpus or not any(r_starts):
         raise AssertionError("the primed regions are not the corpus")
@@ -2343,12 +2363,15 @@ def foreign_streams(corpus: bytes) -> dict:
 def foreign_phase(torch, corpus, rows) -> dict:
     """Phase 33: `decompress_foreign` of the corpus as stdlib zlib (levels
     6 and 9), raw deflate and gzip (1 and 4 members), each equal to the
-    corpus with no fallback and its K6 launches counted: the level-6
+    corpus with no fallback and its K6 launches counted, and the SP1-SP3
+    launches of the monolithic streams' zran index pass on the card
+    (none for the gzip members, split on the host): the level-6
     stream three times with its stages (the zran index pass, the region
     decode; K6 is warm since phase 11), the others once; a corrupted
     adler32 raising."""
     import zlib_rs_tpu_torch as zt
     from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+    from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
     from zlib_rs_tpu_torch.parallel import pipeline as PL
 
     t_start = time.perf_counter()
@@ -2357,7 +2380,10 @@ def foreign_phase(torch, corpus, rows) -> dict:
     streams = foreign_streams(corpus)
     for label, stream in streams.items():
         IK.launches["inflate"] = 0
-        with k6_events(torch, IK) as k6_ms:
+        for c in SK.launches:
+            SK.launches[c] = 0
+        with kernel_events(torch, IK, ("decode_streams",)) as ev, \
+                sp_events(torch, SK) as sp_ms:
             if label == "zlib6":
                 runs = warm_runs(torch, PL, lambda: zt.decompress_foreign(stream, span), corpus,
                                  len(corpus), "foreign zlib-6", 33)
@@ -2372,16 +2398,30 @@ def foreign_phase(torch, corpus, rows) -> dict:
                 runs = {"warm_s": [time.perf_counter() - t0], "stage_ms": [PL.STAGES.ms()]}
                 if back != corpus:
                     raise AssertionError(f"decompress_foreign of {label} is not the corpus")
+        k6_ms = ev["decode_streams"]
         ran = IK.launches["inflate"]
+        sp_ran = dict(SK.launches)
         if PL.fallback_stats() or ran != len(runs["warm_s"]):
             raise AssertionError(f"decompress_foreign of {label}: fallbacks "
                                  f"{PL.fallback_stats()}, K6 launches {ran}")
-        result["streams"][label] = {"bytes": len(stream), "launches": ran, "k6_ms": k6_ms, **runs}
+        # the monolithic streams' zran_index stage runs the speculative
+        # decode on the card (SP1 at least once a run, SP2 and SP3 too);
+        # gzip members are split on the host
+        indexed = not label.startswith("gzip")
+        if indexed and min(sp_ran.values()) < len(runs["warm_s"]) or (
+                not indexed and sum(sp_ran.values())):
+            raise AssertionError(f"decompress_foreign of {label}: SP launches {sp_ran}")
+        result["streams"][label] = {"bytes": len(stream), "launches": ran, "k6_ms": k6_ms,
+                                    "sp_launches": sp_ran, "sp_ms": sp_ms, **runs}
         rows["inflate"]["foreign_launches"] = rows["inflate"].get("foreign_launches", 0) + ran
+        if label == "zlib6":
+            result["sp_launches_zlib6"] = sp_ran
         wall = runs["warm_s"][-1]
         print(f"phase 33 {label}: {len(stream)} bytes -> the corpus in {wall:.3f} s "
               f"({len(corpus) / wall / 1e6:.2f} MB/s), K6 launches {ran} "
-              f"({', '.join(f'{x:.3f}' for x in k6_ms)} ms by events), stages ms "
+              f"({', '.join(f'{x:.3f}' for x in k6_ms)} ms by events), SP launches {sp_ran} "
+              f"(ms by events, summed: "
+              + json.dumps({k: round(sum(v), 3) for k, v in sp_ms.items()}) + "), stages ms "
               + json.dumps({n: round(v, 3) for n, v in runs["stage_ms"][-1].items()}),
               flush=True)
     small = zlib.compress(corpus[: 1 << 20], 6)
@@ -2395,6 +2435,232 @@ def foreign_phase(torch, corpus, rows) -> dict:
         raise AssertionError("a corrupted adler32 decoded")
     result["phase_s"] = time.perf_counter() - t_start
     print(f"phase 33: a corrupted adler32 raised; phase {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def sp_events(torch, SK):
+    """kernel_events of SP1, SP2 and SP3."""
+    return kernel_events(torch, SK, ("block_find", "spec_decode", "spec_resolve"))
+
+
+def speculative_streams(corpus: bytes) -> dict:
+    """Phase 40's streams of the corpus: stdlib raw deflate at levels 1, 6
+    and 9, under Z_FIXED and at level 0 (stored), zlib at level 6 (its
+    body), and 64 MiB (the corpus 8 times) at level 6."""
+    return {
+        "raw6": _raw(corpus), "raw1": _raw(corpus, 1), "raw9": _raw(corpus, 9),
+        "fixed": _raw(corpus, 6, zlib.Z_FIXED), "stored": _raw(corpus, 0),
+        "zlib6_body": zlib.compress(corpus, 6)[2:], "raw6_64m": _raw(corpus * 8),
+    }
+
+
+def sp2_pairs(torch, SK, SP, dev, stream: bytes, rows_sp, pick) -> tuple[list, dict]:
+    """SP2 on rows of one stream: the kernel over every row (the main
+    path's launch), the plain version over the rows `pick`, and the
+    kernel over those rows alone; pairs of every status value and of each
+    picked row's written cells and recorded block starts (the kernel
+    leaves the rest of its buffers unwritten), and the statuses' why
+    counts."""
+    nbits = 8 * len(stream)
+    words = torch.from_numpy(SK.stream_words(stream)).to(dev)
+    meta, nc, nr = SP.row_meta(rows_sp, nbits)
+    full = SK.spec_decode_cuda(words, nbits, torch.from_numpy(meta).to(dev), nc, nr)
+    sub = [rows_sp[i] for i in pick]
+    smeta, snc, snr = SP.row_meta(sub, nbits)
+    sm = torch.from_numpy(smeta).to(dev)
+    plain = SK.spec_decode_plain(words, nbits, sm, snc, snr)
+    alone = SK.spec_decode_cuda(words, nbits, sm, snc, snr)
+    pst = plain[2].cpu()
+    pairs = [(alone[2], plain[2])]
+    for j, i in enumerate(pick):
+        n, nrec = int(pst[j, 0]), int(pst[j, 5])
+        d0, dr0 = int(smeta[j, 4]), int(smeta[j, 5])
+        want = (plain[0][d0 : d0 + n], plain[1][dr0 : dr0 + nrec])
+        for got, c0, r0 in ((full, int(meta[i, 4]), int(meta[i, 5])), (alone, d0, dr0)):
+            pairs += [(got[0][c0 : c0 + n], want[0]), (got[1][r0 : r0 + nrec], want[1])]
+        pairs.append((full[2][i], plain[2][j]))
+    why = {}
+    for w in full[2][:, 3].tolist():
+        why[w] = why.get(w, 0) + 1
+    return pairs, why
+
+
+def speculative_phase(torch, dev, corpus, rows) -> dict:
+    """Phase 40: SP1, SP2 and SP3 against their plain versions on the card
+    at max abs err 0, on the segments of the corpus's level-6 raw stream
+    as inflate_speculative cuts them (SP1 on every segment, SP2's plain
+    version on a few rows: segment 0's exact decode, two guesses, the
+    last segment; the kernel on all of them), on rows of the stored, the
+    Z_FIXED and a flipped stream (exact and guessed starts, no start, a
+    16-cell cap, an invalid code), and SP3 on the whole chain; then
+    inflate_speculative of every stream of speculative_streams back to
+    the corpus, each with its segment size, segments, chain misses and
+    each kernel's event ms."""
+    from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
+    from zlib_rs_tpu_torch.parallel import speculative as SP
+
+    t_start = time.perf_counter()
+    streams = speculative_streams(corpus)
+    seg = SP.SEGMENT_BYTES
+    raw = streams["raw6"]
+    nbits = 8 * len(raw)
+    words = torch.from_numpy(SK.stream_words(raw)).to(dev)
+    T = len(raw) // seg
+    bounds = [8 * k * seg for k in range(T)] + [nbits]
+    lo = torch.tensor(bounds[1:T], dtype=torch.int32, device=dev)
+    hi = torch.tensor(bounds[2:], dtype=torch.int32, device=dev)
+
+    # -- SP1 on every segment of the main path's first attempt -----------
+    got = SK.block_find_cuda(words, nbits, lo, hi)
+    want, plain1_ms = timed_ms(torch, lambda: SK.block_find_plain(words, nbits, lo, hi))
+    pairs1 = [(got, want)]
+    for name in ("stored", "fixed"):
+        st = streams[name]
+        w2 = torch.from_numpy(SK.stream_words(st)).to(dev)
+        l2 = torch.tensor([8 * k * seg for k in range(1, 9)], dtype=torch.int32, device=dev)
+        pairs1.append((SK.block_find_cuda(w2, 8 * len(st), l2, l2 + 8 * seg),
+                       SK.block_find_plain(w2, 8 * len(st), l2, l2 + 8 * seg)))
+    err1 = max_abs(pairs1)
+    if err1:
+        raise AssertionError(f"SP1 disagrees with its plain version: max abs err {err1}")
+    starts = [0] + got.tolist()
+    cap = SP.segment_cap(seg, 4 * len(corpus))
+    ms1 = event_ms(torch, lambda: SK.block_find_cuda(words, nbits, lo, hi), 5)
+    offsets = nbits - bounds[1]
+    rows["block_find"] = dict(
+        source="zlib_rs_tpu_torch/csrc/speculative.cu",
+        replaces="native/zrs_native.cpp:1944",
+        max_abs_err=err1, ms=ms1, plain_ms=plain1_ms,
+        # bytes: the stream read once, a pair of bounds in and an offset out
+        # a segment; operations: the pre-filter's ~16 integer steps an offset
+        bnd=bound(len(raw) + 12 * (T - 1), 16 * offsets),
+    )
+
+    # -- SP2 on the same segments, and on crafted rows of other streams ---
+    rows_sp = [(0, bounds[1], cap, 0)] + [
+        (s, bounds[k + 1], cap if s >= 0 else 0, SK.WSIZE) for k, s in enumerate(starts[1:], 1)]
+    pick = [0, 1, T // 2, T - 1]
+    pairs2, whys = sp2_pairs(torch, SK, SP, dev, raw, rows_sp, pick)
+    crafted = {}
+    for name, stream, extra in (
+        ("stored", streams["stored"], []),
+        ("fixed", streams["fixed"], []),
+        ("flipped", _flip(raw, len(raw) // 3), [(8 * (len(raw) // 3 - 20), nbits, 1 << 20, 0)]),
+    ):
+        n2 = 8 * len(stream)
+        w2 = torch.from_numpy(SK.stream_words(stream)).to(dev)
+        l2 = torch.tensor([8 * seg, 16 * seg], dtype=torch.int32, device=dev)
+        g2 = SK.block_find_cuda(w2, n2, l2, l2 + 8 * seg).tolist()
+        r2 = [(0, 8 * seg, cap, 0), (g2[0], 16 * seg, cap if g2[0] >= 0 else 0, SK.WSIZE),
+              (g2[1], 24 * seg, 16 if g2[1] >= 0 else 0, SK.WSIZE), (-1, n2, 0, SK.WSIZE)] + extra
+        p2, w = sp2_pairs(torch, SK, SP, dev, stream, r2, list(range(len(r2))))
+        pairs2 += p2
+        crafted[name] = w
+    err2 = max_abs(pairs2)
+    if err2:
+        raise AssertionError(f"SP2 disagrees with its plain version: max abs err {err2}")
+    meta, nc, nr = SP.row_meta(rows_sp, nbits)
+    meta_t = torch.from_numpy(meta).to(dev)
+    ms2 = event_ms(torch, lambda: SK.spec_decode_cuda(words, nbits, meta_t, nc, nr), 3)
+    st_full = SK.spec_decode_cuda(words, nbits, meta_t, nc, nr)[2].cpu()
+    cells_written, n_recs = int(st_full[:, 0].sum()), int(st_full[:, 5].sum())
+    sub_meta = SP.row_meta([rows_sp[i] for i in pick], nbits)
+    sm_t = torch.from_numpy(sub_meta[0]).to(dev)
+    _p, plain2_ms = timed_ms(torch, lambda: SK.spec_decode_plain(words, nbits, sm_t,
+                                                                 *sub_meta[1:]))
+
+    # -- SP3 on the whole chain of the level-6 stream ---------------------
+    stats = {}
+    chain, ofs, total, _end = SP._speculate(raw, 4 * len(corpus), dev, stats)
+    cells = torch.cat([c.cells for c in chain])
+    seg_ofs = torch.tensor(ofs + [total], dtype=torch.int64, device=dev)
+    got3, flag = SK.spec_resolve_cuda(cells, seg_ofs)
+    want3, plain3_ms = timed_ms(torch, lambda: SK.spec_resolve_plain(cells, seg_ofs))
+    err3 = max_abs([(got3, want3[0])])
+    if err3 or flag or want3[1] or got3.cpu().numpy().tobytes() != corpus:
+        raise AssertionError(f"SP3 disagrees with its plain version or the corpus: {err3}")
+    ms3 = event_ms(torch, lambda: SK.spec_resolve_cuda(cells, seg_ofs), 5)
+    rounds = SK.resolve_rounds(len(chain))
+    n_markers = int(((cells.to(torch.int32) & 0xFFFF) >= 256).sum())
+    rows["spec_decode"] = dict(
+        source="zlib_rs_tpu_torch/csrc/speculative.cu",
+        replaces="native/zrs_native.cpp:1798",
+        max_abs_err=err2, ms=ms2, plain_ms=plain2_ms, plain_rows=len(pick),
+        # bytes: the stream read once, each cell this run's segments decode
+        # written once (2 bytes), each block start (8) and each segment's
+        # meta and status (96)
+        bnd=bound(len(raw) + 2 * cells_written + 8 * n_recs + 96 * T, 0),
+    )
+    rows["spec_resolve"] = dict(
+        source="zlib_rs_tpu_torch/csrc/speculative.cu",
+        replaces="native/zrs_native.cpp:2685",
+        max_abs_err=err3, ms=ms3, plain_ms=plain3_ms,
+        # bytes: each cell read once and each byte written once
+        bnd=bound(3 * total + 8 * (len(chain) + 1), 0),
+    )
+    print(f"phase 40 SP1-SP3: {T} segments of {seg} bytes of the {len(raw)}-byte raw-6 stream; "
+          f"SP1 equal to plain on every segment and 16 of the stored and Z_FIXED streams "
+          f"({sum(x >= 0 for x in starts[1:])} guesses); SP2 equal to plain on rows {pick} "
+          f"(whys {whys}) and on crafted rows (whys {crafted}); SP3 equal to plain and the "
+          f"corpus over {len(chain)} chained spans, {n_markers} markers, {rounds} rounds; "
+          f"chain {stats}", flush=True)
+
+    # -- inflate_speculative of every stream ------------------------------
+    result = {"segment_bytes": seg, "streams": {}}
+    for label, stream in streams.items():
+        want_out = corpus * 8 if label == "raw6_64m" else corpus
+        for c in SK.launches:
+            SK.launches[c] = 0
+        st = {}
+        with sp_events(torch, SK) as ev:
+            t0 = time.perf_counter()
+            out, used = SP.inflate_speculative(stream, 4 * len(want_out), stats=st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if out != want_out:
+            raise AssertionError(f"inflate_speculative of {label} is not the corpus")
+        launched = dict(SK.launches)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        SP.inflate_speculative(stream, 4 * len(want_out))
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        result["streams"][label] = {"bytes": len(stream), "in_used": used, "cold_s": wall,
+                                    "warm_s": warm, "launches": launched, "stats": st,
+                                    "peak_device_bytes": peak,
+                                    "event_ms": {k: round(sum(v), 4) for k, v in ev.items()}}
+        print(f"phase 40 {label}: {len(stream)} bytes -> {len(want_out)} in {warm:.4f} s warm "
+              f"({len(want_out) / warm / 1e6:.1f} MB/s; cold {wall:.4f} s), segments "
+              f"{st['segments']} of {st['segment_bytes']} bytes, chained {st['chained']}, "
+              f"misses {st['misses']}, SP1/SP2 rounds {st['attempts']}, launches {launched}, "
+              f"peak device memory {peak} bytes ({peak / len(stream):.2f} an input byte), "
+              f"event ms " + json.dumps(result["streams"][label]["event_ms"]), flush=True)
+    # the segment size against the raw-6 stream's warm wall: two warm runs each
+    sweep = {}
+    for size in (8192, 16384, 32768, 65536):
+        SP.SEGMENT_BYTES = size
+        try:
+            SP.inflate_speculative(raw, 4 * len(corpus))
+            walls = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, _used = SP.inflate_speculative(raw, 4 * len(corpus))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        finally:
+            SP.SEGMENT_BYTES = seg
+        if out != corpus:
+            raise AssertionError(f"inflate_speculative at {size}-byte segments is not the corpus")
+        sweep[size] = walls
+    result["segment_sweep_s"] = sweep
+    print("phase 40 segment sweep, raw-6, warm s by segment bytes: " + json.dumps(sweep),
+          flush=True)
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 40: {result['phase_s']:.1f} s", flush=True)
     return result
 
 
@@ -3202,16 +3468,21 @@ def main() -> int:
     engine_names = engine_names_phase(torch, corpus, idx_out, index, gz, gz_index)
     host_layers = host_layers_phase(corpus)
     mesh = mesh_phase(torch, corpus, out, warm)
+    speculative = speculative_phase(torch, dev, corpus, rows)
     bench = bench_phase(min(BENCH_BUDGET_S, SMOKE_LIMIT_S - (time.perf_counter() - t_main)))
 
     # the lockstep kernel's path: the region decode of the chunk K6 refused;
     # the swarm walker's: phase 30's swarm decode
     launches["lockstep"] = engine_names["flipped_128k"]["lockstep_launches"]
     launches["swarm_walk"] = rows["swarm_walk"].pop("launches")
+    # the speculative kernels' path: phase 33's zran_index stage of the
+    # zlib-6 stream (its three warm runs)
+    launches.update(foreign["sp_launches_zlib6"])
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
                  "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan",
-                 "vhuff_decode1", "vhuff_expand1", "hop_chase_il", "lockstep", "swarm_walk"):
+                 "vhuff_decode1", "vhuff_expand1", "hop_chase_il", "lockstep", "swarm_walk",
+                 "block_find", "spec_decode", "spec_resolve"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -3229,7 +3500,7 @@ def main() -> int:
         "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
         "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
         "cli": cli, "engine_names": engine_names, "host_layers": host_layers, "mesh": mesh,
-        "bench": bench,
+        "speculative": speculative, "bench": bench,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

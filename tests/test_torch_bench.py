@@ -130,6 +130,8 @@ PHASES = {
                        {"inflate_kernel_wallclock_gbps"}),
     "foreign_kernel": (lambda d, f, dev: B._phase_foreign_kernel(d, dev, CPU),
                        {"foreign_kernel_decode_wall_s", "foreign_kernel_decode_bytes"}),
+    "speculative": (lambda d, f, dev: B._phase_speculative(d[:65_536], dev, CPU),
+                    {"speculative_inflate_wallclock_gbps", "speculative_inflate_bytes"}),
     "swarm": (lambda d, f, dev: B._phase_swarm(B._seeded_stream(d, CPU), dev, CPU),
               {"swarm_decode_wallclock_gbps"}),
     "kernel_ratio": (lambda d, f, dev: B._phase_kernel_ratio(d[:65_536], dev, CPU),
@@ -186,11 +188,15 @@ def test_bench_device_records_each_phase(tiny, monkeypatch):
 
 
 def test_kernel_symbols_name_one_kernel_a_source():
+    """One kernel a source, but SP1-SP3's six in csrc/speculative.cu."""
     syms = B.kernel_symbols()
     assert list(syms) == [f"zrs_{n}" for n in _device.SOURCES]
-    assert syms["zrs_inflate"] == "inflate_streams" and syms["zrs_pack"] == "pack"
-    assert syms["zrs_hop_chase_il"] == "hop_chase_body"
-    assert syms["zrs_lockstep"] == "lockstep_regions" and syms["zrs_swarm"] == "swarm_walk"
+    assert syms["zrs_inflate"] == ("inflate_streams",) and syms["zrs_pack"] == ("pack",)
+    assert syms["zrs_hop_chase_il"] == ("hop_chase_body",)
+    assert syms["zrs_lockstep"] == ("lockstep_regions",) and syms["zrs_swarm"] == ("swarm_walk",)
+    assert syms["zrs_speculative"] == ("find_prefilter", "find_check", "spec_decode",
+                                       "resolve_init", "resolve_jump", "resolve_narrow")
+    assert all(len(v) == 1 for k, v in syms.items() if k != "zrs_speculative")
 
 
 def test_device_busy_is_the_union_of_device_intervals():
@@ -202,6 +208,10 @@ def test_device_busy_is_the_union_of_device_intervals():
          "name": "void (anonymous namespace)::pack<true>(unsigned int const*, int)"},
         {"ph": "X", "cat": "kernel", "ts": 140.0, "dur": 20.0,
          "name": "_ZN12_GLOBAL__N_114hop_chase_bodyILb1EEEvPKjiPKi"},
+        {"ph": "X", "cat": "kernel", "ts": 150.0, "dur": 4.0,
+         "name": "_ZN47_GLOBAL__N__9a212fde_14_speculative_cu_6793fd3912resolve_jumpEPKiPii"},
+        {"ph": "X", "cat": "kernel", "ts": 400.0, "dur": 3.0,
+         "name": "(anonymous namespace)::find_check(unsigned int const*, int)"},
         {"ph": "X", "cat": "kernel", "ts": 200.0, "dur": 5.0,
          "name": "void at::native::vectorized_elementwise_kernel<4, at::native::unpack>()"},
         {"ph": "X", "cat": "gpu_memcpy", "ts": 300.0, "dur": 7.0, "name": "Memcpy HtoD"},
@@ -210,10 +220,11 @@ def test_device_busy_is_the_union_of_device_intervals():
         {"ph": "f", "cat": "ac2g", "ts": 10.0, "name": "flow"},
     ]
     busy, per = B.device_busy(events, syms)
-    assert busy == pytest.approx((60 + 5 + 7) / 1e6)  # [100, 160), [200, 205), [300, 307)
+    # [100, 160), [200, 205), [300, 307), [400, 403)
+    assert busy == pytest.approx((60 + 5 + 7 + 3) / 1e6)
     assert per == pytest.approx({"zrs_inflate": 50e-6, "zrs_pack": 10e-6,
-                                 "zrs_hop_chase_il": 20e-6, "torch": 5e-6,
-                                 "memcpy": 7e-6, "memset": 2e-6})
+                                 "zrs_hop_chase_il": 20e-6, "zrs_speculative": 7e-6,
+                                 "torch": 5e-6, "memcpy": 7e-6, "memset": 2e-6})
 
 
 def test_trace_helper_on_the_cpu_returns_the_wall():

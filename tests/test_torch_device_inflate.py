@@ -68,7 +68,7 @@ def _primed():
     blocks, cut at the zran index's points."""
     seg = _BASH[100_000:116_000]
     stream = _raw(seg, mem=1)
-    index = TZ.build_index(stream, span=3_000)
+    index = TZ.build_index(stream, span=3_000, device="cpu")
     cuts = [(p.in_offset * 8 - p.bits, p.out_offset, p.window) for p in index.points]
     cuts.append((len(stream) * 8, index.total_out, b""))
     regions = []

@@ -4,7 +4,10 @@ the lockstep engine's torch ops) against the JAX package's, on streams
 stdlib zlib and gzip wrote from slices of /bin/bash.
 
 The JAX index pass runs its Python path here (its native pass is patched
-out; no file of the JAX package changes). That pass auto-detects zlib or
+out; no file of the JAX package changes), and so does the port's (its
+card pass, `_build_index_card` and `_extract_card`, patched out beside
+them; tests/test_torch_speculative.py holds the card pass against the
+native one). That pass auto-detects zlib or
 gzip only, so a raw stream's index is held against the JAX index of the
 same body in a zlib wrapper, two bytes later; `extract` runs its Python
 path too (its native region decoder patched out). Where the JAX Python path
@@ -37,6 +40,8 @@ _BASH = open("/bin/bash", "rb").read()
 def _python_index(monkeypatch):
     monkeypatch.setattr(JZ, "_build_index_native", lambda data, span: None)
     monkeypatch.setattr(JZ, "_extract_native", lambda data, index, offset, length: None)
+    monkeypatch.setattr(TZ, "_build_index_card", lambda data, span, device: None)
+    monkeypatch.setattr(TZ, "_extract_card", lambda data, index, offset, length, device: None)
 
 
 def _stream(wrap, data, level):
@@ -69,7 +74,7 @@ INDEX_CASES = [  # wrap, level, slice start, slice length, span
 def test_build_index_equal_jax(wrap, level, start, n, span):
     data = _BASH[start : start + n]
     stream = _stream(wrap, data, level)
-    got = TZ.build_index(stream, span)
+    got = TZ.build_index(stream, span, device="cpu")
     assert got.total_out == len(data) and len(got.points) >= 2
     if wrap == "raw":
         with pytest.raises(ValueError, match="header"):
@@ -181,7 +186,7 @@ def test_decompress_foreign_point_after_final_block():
     the trailer as a region and raises, the port skips it."""
     data = _BASH[:30_000]
     stream = zlib.compress(data, 6)
-    index = TZ.build_index(stream, 8_192)
+    index = TZ.build_index(stream, 8_192, device="cpu")
     assert index.points[-1].out_offset == index.total_out
     with pytest.raises(ValueError, match="failed to decode"):
         JI.decompress_foreign(stream, 8_192)
@@ -198,7 +203,7 @@ def test_decompress_foreign_engines(engine):
     data = _BASH[500_000:524_000]
     c = zlib.compressobj(6, zlib.DEFLATED, 15, 1)
     stream = c.compress(data) + c.flush()
-    index = TZ.build_index(stream, 4_096)
+    index = TZ.build_index(stream, 4_096, device="cpu")
     assert index.points[-1].out_offset < index.total_out
     assert sum(p.bits != 0 for p in index.points) >= 2
     assert TI.decompress_foreign(stream, 4_096, engine, device="cpu") == data
@@ -228,11 +233,11 @@ def test_extract_equal_jax(wrap, level, start, n, span):
     it."""
     data = _BASH[start : start + n]
     stream = _stream(wrap, data, level)
-    got_ix, want_ix = TZ.build_index(stream, span), JZ.build_index(stream, span)
+    got_ix, want_ix = TZ.build_index(stream, span, device="cpu"), JZ.build_index(stream, span)
     p1 = got_ix.points[1].out_offset
     for off, length in ((0, 1000), (p1, 700), (p1 - 300, 600), (n // 2 + 17, 5000),
                         (n - 100, 1000), (n, 10), (n + 5, 10)):
-        got = TZ.extract(stream, got_ix, off, length)
+        got = TZ.extract(stream, got_ix, off, length, device="cpu")
         assert got == JZ.extract(stream, want_ix, off, length)
         assert got == data[off : off + length]
 
@@ -242,6 +247,6 @@ def test_extract_raw_stream():
     index starts at bit 0 and extract reads through it."""
     data = _BASH[200_000:264_000]
     stream = _stream("raw", data, 6)
-    ix = TZ.build_index(stream, 8 * 1024)
+    ix = TZ.build_index(stream, 8 * 1024, device="cpu")
     for off in (0, 9_999, 40_000, len(data) - 1):
-        assert TZ.extract(stream, ix, off, 3000) == data[off : off + 3000]
+        assert TZ.extract(stream, ix, off, 3000, device="cpu") == data[off : off + 3000]

@@ -279,7 +279,7 @@ def _primed():
     sub-byte starts (their windows serve the resolver, not this engine)."""
     seg = _BASH[100_000:112_000]
     stream = _raw(seg, mem=1)
-    index = TZ.build_index(stream, span=2_000)
+    index = TZ.build_index(stream, span=2_000, device="cpu")
     cuts = [(p.in_offset * 8 - p.bits, p.out_offset) for p in index.points]
     cuts.append((len(stream) * 8, index.total_out))
     lanes = [(stream[bit >> 3 : ((ebit + 7) >> 3) + 8], eout - out, bit & 7)

@@ -15,6 +15,7 @@ from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
 from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
 from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
 from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
 from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
 from zlib_rs_tpu_torch.parallel import device_inflate as DI
 from zlib_rs_tpu_torch.parallel import pipeline as PL
@@ -54,7 +55,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(_device, "library", lambda name: libs.setdefault(name, _Library(calls)))
     monkeypatch.setattr(_device, "require_cuda", lambda *a: None)
     monkeypatch.setattr(_device, "stream_of", lambda t: 0)
-    for mod in (CK, CRC, DK, IK, VK, DI, SW):
+    for mod in (CK, CRC, DK, IK, VK, DI, SW, SK):
         monkeypatch.setattr(mod, "launches", dict.fromkeys(mod.launches, 0))
     return calls
 
@@ -114,7 +115,29 @@ def _calls(i):
             max_out=max(i["sizes"]))),
         "lockstep": (DI, lambda: DI.decode_regions_cuda(*_lockstep_args(i), 64)),
         "swarm_walk": (SW, lambda: SW.walk_cuda(*_walk_args(i), 512)),
+        "block_find": (SK, lambda: SK.block_find_cuda(*_spec_stream(i), *_spec_ranges(i))),
+        "spec_decode": (SK, lambda: SK.spec_decode_cuda(*_spec_stream(i), _spec_meta(i), 64, 8)),
+        "spec_resolve": (SK, lambda: SK.spec_resolve_cuda(
+            torch.tensor([65, 256, 66, 257], dtype=torch.int16),
+            torch.tensor([0, 1, 4], dtype=torch.int64))),
     }
+
+
+def _spec_stream(i):
+    """The speculative kernels' stream: the first chunk body as words."""
+    body = i["iwords"].view(np.uint8)[0].tobytes()
+    return torch.from_numpy(SK.stream_words(body)), 8 * len(body)
+
+
+def _spec_ranges(i):
+    _w, nbits = _spec_stream(i)
+    return (torch.tensor([0, nbits // 2], dtype=torch.int32),
+            torch.tensor([nbits // 2, nbits], dtype=torch.int32))
+
+
+def _spec_meta(i):
+    return torch.tensor([[0, 1 << 20, 32, 0, 0, 0, 4, 0], [-1, 1 << 20, 32, 32768, 32, 4, 4, 0]],
+                        dtype=torch.int64)
 
 
 def _walk_args(i):
@@ -139,16 +162,19 @@ def _lockstep_args(i):
 
 KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_scan", "tab_scan",
            "freq", "pack", "vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1",
-           "inflate", "lockstep", "swarm_walk"]
+           "inflate", "lockstep", "swarm_walk", "block_find", "spec_decode", "spec_resolve"]
 
 
 def test_every_kernel_has_a_case():
-    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK, DI, SW) for n in m.launches)
+    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK, DI, SW, SK)
+                                     for n in m.launches)
     # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu,
     # and so are K5 and K11b, csrc/vhuff_expand.cu, and K4 and K11a,
-    # csrc/vhuff_decode.cu; the lockstep engine is csrc/lockstep.cu and the
-    # swarm engine's walkers csrc/swarm.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 3 == 12
+    # csrc/vhuff_decode.cu; the lockstep engine is csrc/lockstep.cu, the
+    # swarm engine's walkers csrc/swarm.cu, and SP1-SP3 three C entries of
+    # csrc/speculative.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 5 == 13
+    assert "speculative" in _device.SOURCES
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
     assert "vhuff_expand" in _device.SOURCES and "vhuff_expand1" not in _device.SOURCES
     assert "vhuff_decode" in _device.SOURCES and "vhuff_decode1" not in _device.SOURCES
@@ -414,3 +440,54 @@ def test_swarm_walk_dispatch_by_device(monkeypatch):
     SW.walk(torch.zeros((1, 16), dtype=torch.uint8), one, one, one, one, 4)
     SW.walk(torch.zeros((1, 16), dtype=torch.uint8, device="meta"), one, one, one, one, 4)
     assert calls == ["plain", "cuda"]
+
+
+def test_speculative_wrappers_hand_the_kernels_their_operands(stub, inputs, monkeypatch):
+    """SP1's entry takes (words, W, nbits, lo, hi, T, span, surv, cap,
+    count, best, stream) and reruns with room for every survivor when the
+    pre-filter counts more than its list holds; SP2's (words, W, nbits,
+    meta, T, cells, recs, status, stream) with int16 cells and int32
+    [T, 8] status; SP3's (cells, n, seg_ofs, E, ptr_a, ptr_b, rounds, out,
+    flag, stream) with log2 rounds."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    lib = _device.library("speculative")
+    words, nbits = _spec_stream(inputs)
+    lo, hi = _spec_ranges(inputs)
+    caps = []
+
+    def find(*args):
+        caps.append(args[8])
+        args[9][0] = args[8] + 5 if len(caps) == 1 else args[8]
+        return 0
+
+    find.argtypes = None
+    lib.zrs_block_find = find
+    best = SK.block_find_cuda(words, nbits, lo, hi)
+    assert caps[0] == (int((hi - lo).sum()) // SK.SURVIVOR_SHARE + 1024) and caps[1] == caps[0] + 5
+    assert SK.launches["block_find"] == 2 and best.tolist() == [-1, -1]
+    SK.spec_decode_cuda(words, nbits, _spec_meta(inputs), 64, 8)
+    args = lib.zrs_spec_decode.args
+    assert args[1:5:3] == (words.shape[0], 2) and args[5].dtype == torch.int16
+    assert args[5].shape == (64,) and args[6].shape == (8, 2) and args[7].shape == (2, SK.STATUS)
+    with pytest.raises(ValueError, match="pass the buffers"):
+        SK.spec_decode_cuda(words, nbits, _spec_meta(inputs), 40, 8)
+    SK.spec_resolve_cuda(torch.zeros(40, dtype=torch.int16), torch.tensor([0, 9, 20, 33, 40]))
+    args = lib.zrs_spec_resolve.args
+    assert args[1] == 40 and args[3] == 4 and args[6] == SK.resolve_rounds(4) == 3
+    with pytest.raises(ValueError, match="int16"):
+        SK.spec_resolve_cuda(torch.zeros(4, dtype=torch.int32), torch.tensor([0, 4]))
+
+
+def test_speculative_dispatch_by_device(monkeypatch):
+    calls = []
+    for name in ("block_find", "spec_decode", "spec_resolve"):
+        monkeypatch.setattr(SK, f"{name}_plain", lambda *a, n=name: calls.append(f"{n}:plain"))
+        monkeypatch.setattr(SK, f"{name}_cuda", lambda *a, n=name: calls.append(f"{n}:cuda"))
+    w = torch.zeros(8, dtype=torch.int32)
+    one = torch.zeros(1, dtype=torch.int32)
+    for dev in ("cpu", "meta"):
+        SK.block_find(w.to(dev), 8, one, one)
+        SK.spec_decode(w.to(dev), 8, torch.zeros((1, 8), dtype=torch.int64), 0, 0)
+        SK.spec_resolve(torch.zeros(2, dtype=torch.int16, device=dev), torch.tensor([0, 2]))
+    assert calls == [f"{n}:{d}" for d in ("plain", "cuda")
+                     for n in ("block_find", "spec_decode", "spec_resolve")]

@@ -9,7 +9,8 @@ checkpointed stream decode), its seeded swarm decode engine (its walkers
 a CUDA kernel; the only device engine after the vector engine under
 ZRS_TPU_KERNEL=0), its lockstep region engine (a CUDA kernel, behind K6) and
 `decompress_foreign`, the region-parallel decode of streams another
-encoder wrote (a host zran index pass, then K6). A non-default strategy
+encoder wrote (a zran index pass through the speculative decode of
+parallel/speculative.py, its kernels SP1-SP3, then K6). A non-default strategy
 runs the host deflate engine, as in the reference. It imports neither JAX nor
 zlib_rs_tpu. Entry points run on `cuda` unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version instead.
@@ -20,7 +21,8 @@ engine: the one-shot API (`compress`, `decompress`, `compress_bound`,
 (`GzFile`, `gzopen`, `gzdopen`, `gzclose_r`, `gzclose_w`), inflateBack,
 zran `build_index`/`extract`, `compress_medium`, the compat helpers and
 the checksums with their combine operators; they load on first use.
-`native` is not carried. `python -m zlib_rs_tpu_torch` is the pigz-style
+`native` is not carried as a name; its decode half runs on the card in
+parallel/speculative.py. `python -m zlib_rs_tpu_torch` is the pigz-style
 command line (cli.py); `python -m zlib_rs_tpu_torch.bench` the benchmark.
 """
 

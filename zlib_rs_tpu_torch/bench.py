@@ -30,8 +30,12 @@ Sections reported:
             its output against the zlib oracle before it records a time.
             The indexed stream the decode phases read is compress_parallel
             of the first BATCH chunks on the card.
-  native, decode_sweep  not carried: they measure the JAX package's host
-            engines, which the port does not carry.
+  native    one row: speculative_inflate_gbps, the card's speculative
+            decode (parallel/speculative.py) of stdlib zlib-6 raw of the
+            corpus, the reference's native.inflate_speculative row, best
+            synchronized wall of 3 calls; the other rows measure the JAX
+            package's C++ host engine and are not carried.
+  decode_sweep  not carried, as native's other rows.
 
 Device seconds: the traced phases run their dispatch under
 torch.profiler (CUDA activity only, no shapes, no stacks); a dispatch's
@@ -92,6 +96,7 @@ PHASE_KEYS = {
     "vector_decode": "vector_decode_trace_gbps",
     "inflate_kernel": "inflate_kernel_gbps",
     "foreign_kernel": "foreign_kernel_decode_gbps",
+    "speculative": "speculative_inflate_gbps",
     "swarm": "swarm_decode_trace_gbps",
     "kernel_ratio": "kernel_ratio_vs_zlib",
     "xla_encode": "encode_trace_gbps",
@@ -245,26 +250,30 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def kernel_symbols() -> dict:
-    """{"zrs_<source>": the __global__ function of csrc/<source>.cu} for
-    every source of `_device.SOURCES`; each source holds one kernel."""
+    """{"zrs_<source>": the __global__ functions of csrc/<source>.cu} for
+    every source of `_device.SOURCES`, a tuple each; speculative.cu holds
+    SP1-SP3's six, every other source one."""
     out = {}
     for name in _device.SOURCES:
         text = (_device.CSRC / f"{name}.cu").read_text()
         found = re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", text)
-        if len(found) != 1:
-            raise RuntimeError(f"csrc/{name}.cu: expected one kernel, found {found}")
-        out[f"zrs_{name}"] = found[0]
+        if not found:
+            raise RuntimeError(f"csrc/{name}.cu: no kernel found")
+        out[f"zrs_{name}"] = tuple(found)
     return out
 
 
 def _owner(name: str, symbols: dict) -> str:
     """The zrs_ library whose kernel a trace event names, or "torch"."""
-    for lib, fn in symbols.items():
-        # demangled ("void (anonymous namespace)::pack<true>(...)") or
-        # mangled in the anonymous namespace ("_GLOBAL__N_14packILb1E...")
-        if re.search(rf"(?:^|[\s:]){fn}[(<]", name) or f"_GLOBAL__N_1{len(fn)}{fn}" in name:
-            return lib
+    for lib, fns in symbols.items():
+        for fn in fns:
+            # demangled ("void (anonymous namespace)::pack<true>(...)") or
+            # mangled ("_GLOBAL__N_14packILb1E..."; a file-unique prefix
+            # "_GLOBAL__N__<hash>_..._<n><fn>" also ends in the length and name)
+            if re.search(rf"(?:^|[\s:]){fn}[(<]", name) or re.search(
+                    rf"_GLOBAL__N_\w*?{len(fn)}{fn}(?:I|E|P|v|i|j)", name):
+                return lib
     return "torch"
 
 
@@ -539,10 +548,10 @@ def _phase_inflate_kernel(data, dev, device):
 
 def _phase_foreign_kernel(data, dev, device):
     """A foreign monolithic stream (stdlib zlib of FOREIGN_BYTES of the
-    corpus) through decompress_foreign: the host zran index pass, then
-    the regions on K6 with 32 KiB windows and sub-byte starts. The trace
-    gives the device seconds; the wall, index pass included, is reported
-    apart."""
+    corpus) through decompress_foreign: the zran index pass on the card
+    (SP1-SP3), then the regions on K6 with 32 KiB windows and sub-byte
+    starts. The trace gives the device seconds, the index kernels' among
+    them; the wall, host work included, is reported apart."""
     from .parallel.inflate import decompress_foreign
 
     slice_ = bytes(data[:FOREIGN_BYTES])
@@ -563,8 +572,9 @@ def _phase_foreign_kernel(data, dev, device):
     if box[-1] != slice_:
         raise ValueError("foreign decode mismatch")
     if device.type == "cuda":
-        if per.get("zrs_inflate", 0.0) <= 0.0:
-            raise RuntimeError(f"trace foreign: no zrs_inflate among {sorted(per)}")
+        for lib in ("zrs_inflate", "zrs_speculative"):
+            if per.get(lib, 0.0) <= 0.0:
+                raise RuntimeError(f"trace foreign: no {lib} among {sorted(per)}")
         dev["foreign_kernel_decode_trace_s"] = round(sec, 6)
         dev["foreign_kernel_decode_gbps"] = round(len(slice_) / sec / 1e9, 5)
         _record_trace(dev, "foreign_kernel_decode", sec,
@@ -573,6 +583,35 @@ def _phase_foreign_kernel(data, dev, device):
     dev["foreign_kernel_decode_bytes"] = len(slice_)
     _log(f"foreign kernel decode: device {dev.get('foreign_kernel_decode_gbps')} GB/s, "
          f"wall {wall:.1f} s with the index pass")
+
+
+def _phase_speculative(data, dev, device):
+    """The native section's carried row: inflate_speculative on the card
+    of stdlib zlib-6 raw of the corpus (SP1-SP3, no index), checked
+    against the corpus, then the best of 3 synchronized walls, host
+    orchestration included, as the reference times its native row."""
+    from .parallel.speculative import inflate_speculative
+
+    c = zlib.compressobj(LEVEL, zlib.DEFLATED, -15)
+    raw6 = c.compress(data) + c.flush()
+    n = len(data)
+    with _watchdog(min(120, remaining() - 10), "speculative inflate"):
+        with _phase("device:speculative"):
+            if inflate_speculative(raw6, n, device=device)[0] != data:
+                raise ValueError("speculative inflate mismatch")
+            best = float("inf")
+            for _ in range(3):
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.monotonic()
+                inflate_speculative(raw6, n, device=device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                best = min(best, time.monotonic() - t0)
+    key = "speculative_inflate_gbps" if device.type == "cuda" else "speculative_inflate_wallclock_gbps"
+    dev[key] = round(n / best / 1e9, 5)
+    dev["speculative_inflate_bytes"] = n
+    _log(f"speculative inflate: {dev[key]} GB/s ({device.type} wall)")
 
 
 def _phase_kernel_ratio(data, dev, device):
@@ -726,6 +765,7 @@ def bench_device(data: bytes, emit=None, only=None, device=None) -> dict:
         ("vector_decode", 60, with_seeds(_phase_vector)),
         ("inflate_kernel", 30, lambda: _phase_inflate_kernel(data, dev, device)),
         ("foreign_kernel", 60, lambda: _phase_foreign_kernel(data, dev, device)),
+        ("speculative", 20, lambda: _phase_speculative(data, dev, device)),
         ("swarm", 60, with_seeds(_phase_swarm)),
         ("kernel_ratio", 40, lambda: _phase_kernel_ratio(data, dev, device)),
         ("xla_encode", 40, lambda: _phase_xla_encode(data, flat, dev, device)),
@@ -808,7 +848,14 @@ def _compose_result(result, device, cpu, phase_errors=None, card=None):
             "device_busy_share": shares,
             "device_phase_errors": phase_errors or {},
             "device_unreachable": not device,
-            "native": NOT_CARRIED,
+            "native": {
+                "available": device.get("speculative_inflate_gbps") is not None,
+                "source": "the card's speculative decode (parallel/speculative.py)",
+                "speculative_inflate_gbps": device.get("speculative_inflate_gbps"),
+                "not_carried": dict(NOT_CARRIED, rows=[
+                    "compress", "parallel_compress", "quick", "medium", "inflate_gbps",
+                    "parallel_inflate_gbps"]),
+            },
             "cpu_zlib": cpu,
             "host_stream_decode_mbps_by_input_chunk": NOT_CARRIED,
             "phase_seconds": PHASE_SECONDS,

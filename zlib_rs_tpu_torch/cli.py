@@ -18,7 +18,8 @@ TPU_THRESHOLD input bytes up and the host engine below (a lower
 threshold than the reference's, measured for the port). Decompression
 picks the same way: the card's engine decodes a gzip, zlib or raw stream
 of the given format (`parallel.inflate.decompress_foreign`: gzip members
-or zran regions on K6, each checked against its container checksum), and
+or zran regions, indexed on the card, on K6, each checked against its
+container checksum), and
 the host engine runs the host inflater, every member of a gzip stream
 (the reference decodes only the first without its native engine), and
 takes the streams the card's engine does not (a zlib preset dictionary,

@@ -1,0 +1,919 @@
+// SP1-SP3: the speculative decode of one raw-deflate stream with no index.
+//
+// Replaces no pallas_call site. It is the card's counterpart of the decode
+// half of the reference's native engine (zlib_rs_tpu/native.py
+// inflate_speculative and zran_index over native/zrs_native.cpp):
+//   zrs_block_find   SP1, validate_header_at / find_candidate (depth 6)
+//   zrs_spec_decode  SP2, spec_decode with inflate_raw_impl's error codes
+//                    and its stop and point hooks
+//   zrs_spec_resolve SP3, the stitch: markers resolved, cells to bytes
+// ops/kernels/speculative_kernel.py holds each one's plain version, whose
+// control flow these kernels follow step for step, and the wrappers.
+//
+// Bounds on the H100. SP1 reads the compressed stream and writes a few
+// ints a segment: its byte bound is microseconds for megabytes, and its
+// work is a test at every bit offset of the searched ranges, most of which
+// fail within 17 bits. SP2 is one serial chain a segment, as K6 is (a
+// code's length decides where the next starts): its floor is the longest
+// segment's symbols times the latency of a table lookup and a store, not
+// bytes. SP3 moves bytes: cells in, pointers through log2(segments) rounds,
+// bytes out.
+//
+// Design.
+// - SP1 runs two passes. The pre-filter is a thread a bit offset over every
+//   searched range: the chain's first header by its type, a stored LEN and
+//   NLEN, or a dynamic header's counts and a complete code-length code,
+//   each field read from two 32-bit words (bits straddle words). Survivors
+//   (under 1% of offsets on compressed data) are appended to a list, one
+//   atomic a warp. The full check then runs a thread a survivor: the
+//   native chain of up to 6 headers (stored links over their payloads,
+//   static followers sanity-decoded for up to 192 symbols by arithmetic on
+//   the fixed code, a dynamic link's code lengths decoded canonically and
+//   both codes' Kraft sums checked, which is all that building native's
+//   tables can refuse), and an atomicMin a segment keeps its first passing
+//   offset. A survivor beyond its segment's best so far exits early. So a
+//   warp of pass 2 is 32 survivors, not the rare survivor among 31 idle
+//   lanes that a one-pass scan would make it.
+// - SP2 is one block of one warp a segment. The warp runs the native
+//   decoder's control flow, all lanes on the same values (K6's decode
+//   warp): a 64-bit reservoir of the compressed words, K6's two-level
+//   tables in shared memory built by the whole warp, with native's
+//   acceptance rules (an incomplete code of one symbol, and an empty
+//   distance code, pass), and every native error check in native's order,
+//   so that an exact decode gives native's -1, -2 or -3 where native
+//   would. Cells are u16 and go straight to the segment's row in device
+//   memory (K6's shared ring of bytes would be one of 128 KiB cells, one
+//   block an SM; a row per warp keeps ~26 blocks an SM resident instead):
+//   a literal is one store by every lane to the same cell, so each lane
+//   later reads its own store; a stored span, a run of markers and a match
+//   are copied a lane a cell, 32 a step, K6's three match cases (a run of
+//   one cell, sources before the step, a period under 32), with a
+//   __syncwarp between steps. A reference back past the segment's start
+//   writes markers 256 + back - 1, and a copy of a marker copies it. Every
+//   block start is recorded as (bit, cell offset) below a capacity the
+//   host sizes at one record per 10 bits (the shortest block).
+// - SP3 runs three kernels from one entry: each cell takes a pointer (to
+//   itself when known; a marker to its segment's offset minus back, the
+//   segment found by binary search over the offsets), then rounds of
+//   pointer jumping, p[i] = p[p[i]], in two buffers: a hop always lands in
+//   an earlier segment, so log2(segments) rounds resolve every chain, even
+//   one that crosses many segments under 32 KiB of output; then each cell
+//   reads its target and narrows to a byte.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr uint32_t kLit = 0, kMatch = 1, kEob = 2, kSub = 3, kInvalid = 7;
+constexpr int kLlRoot = 9, kDRoot = 6, kClRoot = 7;
+constexpr int kLlCap = 852, kDCap = 592, kClCap = 128;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMeta = 8, kStatus = 8;
+constexpr int kOk = 0, kInvalidData = -1, kCap = -2, kTruncated = -3, kNoStart = -4;
+constexpr int kDepth = 6, kStaticSyms = 192;
+constexpr int kFindThreads = 256, kCheckThreads = 128, kResolveThreads = 256;
+
+__constant__ int kClOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
+                                 11, 4, 12, 3, 13, 2, 14, 1, 15};
+__constant__ int kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                                  2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+__constant__ int kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6,
+                                   6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+
+// ---------------------------------------------------------------------------
+// bits: word reads clamped to [0, W - 1]; the words end in two zero words,
+// so every bit past the stream reads 0
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t word_at(const uint32_t* w, int top, long long i) {
+  i = i < 0 ? 0 : (i > top ? top : i);
+  return __ldg(w + i);
+}
+// 32 bits from bit `bp`
+__device__ __forceinline__ uint32_t peek32(const uint32_t* w, int top, long long bp) {
+  const long long wi = bp >> 5;
+  const int sh = (int)(bp & 31);
+  const uint32_t lo = word_at(w, top, wi);
+  if (!sh) return lo;
+  return (lo >> sh) | (word_at(w, top, wi + 1) << (32 - sh));
+}
+__device__ __forceinline__ uint32_t bits_at(const uint32_t* w, int top, long long bp, int k) {
+  return peek32(w, top, bp) & ((1u << k) - 1u);
+}
+
+// ---------------------------------------------------------------------------
+// SP1: the block finder
+// ---------------------------------------------------------------------------
+
+// the chain's first header without tables: a stored LEN/NLEN, or a dynamic
+// header's counts and a complete code-length code
+__device__ bool prefilter(const uint32_t* w, int top, int N, int b) {
+  if (b + 3 > N) return false;
+  const int typ = (int)bits_at(w, top, b + 1, 2);
+  if (typ == 0) {
+    const int q = (b + 10) & ~7;
+    if (q + 32 > N) return false;
+    const uint32_t v = peek32(w, top, q);
+    const uint32_t ln = v & 0xFFFFu, nln = v >> 16;
+    return (ln ^ nln) == 0xFFFFu && ln != 0;
+  }
+  if (typ != 2) return false;
+  const uint32_t h = bits_at(w, top, b + 3, 14);
+  const int ncode = (int)((h >> 10) & 15u) + 4;
+  if ((h & 31u) > 29 || ((h >> 5) & 31u) > 29 || b + 17 + 3 * ncode > N) return false;
+  int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int i = 0; i < ncode; i++) cnt[bits_at(w, top, b + 17 + 3 * i, 3)]++;
+  int left = 1;
+  for (int l = 1; l < 8; l++) {
+    left = 2 * left - cnt[l];
+    if (left < 0) return false;
+  }
+  return left == 0;
+}
+
+// native build_table's refusal from the counts: kind 1 litlen, 2 distance
+__device__ bool kraft_bad(const int* cnt, int kind) {
+  int left = 1, ncodes = 0;
+  for (int l = 1; l < 16; l++) {
+    left = 2 * left - cnt[l];
+    ncodes += cnt[l];
+    if (left < 0) return true;
+  }
+  if (kind == 1) return left > 0 && ncodes != 1;
+  return left > 0 && ncodes > 1;
+}
+
+// native parse_dynamic_tables at `pos` (after the block's 3 header bits),
+// without building the tables: 0 when it would accept the header
+__device__ int dynamic_ok(const uint32_t* w, int top, int N, int pos) {
+  if (N - pos < 14) return kTruncated;
+  const uint32_t h = bits_at(w, top, pos, 14);
+  const int nlen = (int)(h & 31u) + 257, ndist = (int)((h >> 5) & 31u) + 1;
+  const int ncode = (int)((h >> 10) & 15u) + 4;
+  pos += 14;
+  if (nlen > 286 || ndist > 30) return kInvalidData;
+  int cl[19];
+  for (int i = 0; i < 19; i++) cl[i] = 0;
+  for (int i = 0; i < ncode; i++) {
+    if (N - pos < 3) return kTruncated;
+    cl[kClOrder[i]] = (int)bits_at(w, top, pos, 3);
+    pos += 3;
+  }
+  int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int i = 0; i < 19; i++) cnt[cl[i]]++;
+  int left = 1;
+  for (int l = 1; l < 8; l++) {
+    left = 2 * left - cnt[l];
+    if (left < 0) return kInvalidData;
+  }
+  if (left != 0) return kInvalidData;
+  // the canonical order: symbols by (length, symbol)
+  int sorted[19], first_idx[8];
+  int k = 0;
+  for (int l = 1; l < 8; l++) {
+    first_idx[l] = k;
+    for (int s = 0; s < 19; s++)
+      if (cl[s] == l) sorted[k++] = s;
+  }
+  int lcnt[16], dcnt[16];
+  for (int l = 0; l < 16; l++) lcnt[l] = dcnt[l] = 0;
+  const int total = nlen + ndist;
+  int have = 0, prev = 0, len256 = 0;
+  while (have < total) {
+    if (N - pos < 7) return kTruncated;
+    // canonical decode, a bit at a time (puff's): the code is complete, so
+    // a symbol is found within its 7 bits
+    uint32_t bb = bits_at(w, top, pos, 7);
+    int code = 0, firstc = 0, sym = 0, nb = 0;
+    for (int l = 1; l < 8; l++) {
+      code |= (int)(bb & 1u);
+      bb >>= 1;
+      if (code - cnt[l] < firstc) {
+        sym = sorted[first_idx[l] + code - firstc];
+        nb = l;
+        break;
+      }
+      firstc = (firstc + cnt[l]) << 1;
+      code <<= 1;
+    }
+    int rep, fill;
+    if (sym < 16) {
+      pos += nb;
+      rep = 1;
+      fill = sym;
+    } else {
+      const int extra = sym == 16 ? 2 : sym == 17 ? 3 : 7;
+      if (N - pos < nb + extra) return kTruncated;
+      pos += nb;
+      if (sym == 16) {
+        if (have == 0) return kInvalidData;
+        rep = 3 + (int)bits_at(w, top, pos, 2);
+        fill = prev;
+      } else if (sym == 17) {
+        rep = 3 + (int)bits_at(w, top, pos, 3);
+        fill = 0;
+      } else {
+        rep = 11 + (int)bits_at(w, top, pos, 7);
+        fill = 0;
+      }
+      pos += extra;
+      if (have + rep > total) return kInvalidData;
+    }
+    const int in_lit = max(0, min(have + rep, nlen) - have);
+    lcnt[fill] += in_lit;
+    dcnt[fill] += rep - in_lit;
+    if (have <= 256 && 256 < have + rep) len256 = fill;
+    have += rep;
+    prev = fill;
+  }
+  lcnt[0] = dcnt[0] = 0;
+  if (len256 == 0 || kraft_bad(lcnt, 1) || kraft_bad(dcnt, 2)) return kInvalidData;
+  return kOk;
+}
+
+__device__ __forceinline__ uint32_t rev_bits(uint32_t v, int n) { return __brev(v) >> (32 - n); }
+
+// native validate_header_at(b, depth 6)
+__device__ bool validate(const uint32_t* w, int top, int N, int b) {
+  int pos = b, stored = 0;
+  for (int d = 0; d < kDepth; d++) {
+    if (N - pos < 3) return false;
+    const int typ = (int)bits_at(w, top, pos + 1, 2);
+    pos += 3;
+    if (typ == 3 || (typ == 1 && d == 0)) return false;
+    if (typ == 0) {
+      pos = (pos + 7) & ~7;
+      if (N - pos < 32) return false;
+      const uint32_t v = peek32(w, top, pos);
+      const int ln = (int)(v & 0xFFFFu), nln = (int)(v >> 16);
+      pos += 32;
+      if ((ln ^ nln) != 0xFFFF || ln == 0 || N - pos < 8 * ln) return false;
+      pos += 8 * ln;
+      stored++;
+      continue;
+    }
+    if (typ == 2) return dynamic_ok(w, top, N, pos) == kOk;
+    // a static follower: the fixed code by arithmetic
+    int syms = 0;
+    bool eob = false;
+    while (syms < kStaticSyms) {
+      if (N - pos == 0) return false;
+      const uint32_t p = bits_at(w, top, pos, 9);
+      int sym, nb;
+      const uint32_t r7 = rev_bits(p & 0x7Fu, 7);
+      if (r7 < 24) {
+        sym = 256 + (int)r7;
+        nb = 7;
+      } else {
+        const uint32_t r8 = rev_bits(p & 0xFFu, 8);
+        if (r8 < 192) {
+          sym = (int)r8 - 48;
+          nb = 8;
+        } else if (r8 < 200) {
+          sym = 280 + (int)r8 - 192;
+          nb = 8;
+        } else {
+          sym = 144 + (int)rev_bits(p, 9) - 400;
+          nb = 9;
+        }
+      }
+      if (N - pos < nb || sym >= 286) return false;
+      if (sym == 256) {
+        pos += nb;
+        eob = true;
+        break;
+      }
+      if (sym < 256) {
+        pos += nb;
+        syms++;
+        continue;
+      }
+      const int extra = kLenExtra[sym - 257];
+      if (N - pos < nb + extra) return false;
+      pos += nb + extra;
+      const int dsym = (int)rev_bits(bits_at(w, top, pos, 5), 5);
+      if (dsym >= 30) return false;
+      if (N - pos < 5 + kDistExtra[dsym]) return false;
+      pos += 5 + kDistExtra[dsym];
+      syms++;
+    }
+    if (!eob) return true;
+  }
+  return stored >= 2;
+}
+
+__global__ void __launch_bounds__(kFindThreads)
+find_prefilter(const uint32_t* __restrict__ w, int top, int N, const int* __restrict__ lo,
+               const int* __restrict__ hi, int tiles, int2* __restrict__ surv, int cap,
+               int* __restrict__ count) {
+  const int k = blockIdx.x / tiles;
+  const int t = blockIdx.x % tiles;
+  const long long b = (long long)lo[k] + (long long)t * kFindThreads + threadIdx.x;
+  const bool pass = b < hi[k] && b < N && b >= 0 && prefilter(w, top, N, (int)b);
+  const unsigned m = __ballot_sync(kFull, pass);
+  if (!m) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(kFull, base, leader);
+  if (pass) {
+    const int idx = base + __popc(m & ((1u << lane) - 1u));
+    if (idx < cap) surv[idx] = make_int2((int)b, k);
+  }
+}
+
+__global__ void __launch_bounds__(kCheckThreads)
+find_check(const uint32_t* __restrict__ w, int top, int N, const int2* __restrict__ surv, int cap,
+           const int* __restrict__ count, int* best) {
+  const long long i = (long long)blockIdx.x * kCheckThreads + threadIdx.x;
+  if (i >= min(*count, cap)) return;
+  const int2 s = surv[i];
+  if (s.x >= *(volatile int*)(best + s.y)) return;  // a smaller offset already passed
+  if (validate(w, top, N, s.x)) atomicMin(best + s.y, s.x);
+}
+
+// ---------------------------------------------------------------------------
+// SP2: the marker decode, one warp a segment
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t entry(uint32_t kind, uint32_t extra, uint32_t nbits,
+                                          uint32_t val) {
+  return (kind << 28) | (extra << 22) | (nbits << 16) | val;
+}
+__device__ __forceinline__ uint32_t e_kind(uint32_t e) { return e >> 28; }
+__device__ __forceinline__ int e_extra(uint32_t e) { return (e >> 22) & 0x3F; }
+__device__ __forceinline__ int e_nbits(uint32_t e) { return (e >> 16) & 0x3F; }
+__device__ __forceinline__ int e_val(uint32_t e) { return e & 0xFFFF; }
+
+// (kind, extra, val) of symbol `sym`: kind_of 0 = code lengths, 1 =
+// litlen, 2 = distance (K6's)
+__device__ uint32_t sym_entry(int kind_of, int sym, int nbits) {
+  if (kind_of == 0) return entry(kLit, 0, nbits, sym);
+  if (kind_of == 1) {
+    if (sym < 256) return entry(kLit, 0, nbits, sym);
+    if (sym == 256) return entry(kEob, 0, nbits, 0);
+    const int c = sym - 257;
+    const int e = max(0, (c - 4) >> 2);
+    const int base = c < 4 ? c + 3 : 3 + ((4 + (c & 3)) << e);
+    if (c == 28) return entry(kMatch, 0, nbits, 258);
+    return entry(c < 29 ? kMatch : kInvalid, e, nbits, base);
+  }
+  const int e = max(0, (sym >> 1) - 1);
+  const int base = sym < 2 ? sym + 1 : 1 + ((2 + (sym & 1)) << e);
+  if (sym < 30) return entry(kMatch, e, nbits, base);
+  return entry(kInvalid, e, nbits, 0);
+}
+
+struct Tables {
+  uint32_t ll[kLlCap];
+  uint32_t d[kDCap];
+  uint32_t cl[kClCap];
+  int lens[320];
+  uint16_t work[320];  // symbols in sorted order
+  int cnt[16], offs[16], run[16], next[16], rem[16];
+};
+__shared__ Tables t;
+
+__device__ __forceinline__ uint32_t huff_of(int k, int l) {
+  return __brev((uint32_t)(t.next[l] + k - t.offs[l])) >> (32 - l);
+}
+
+// K6's warp-built two-level table, with native build_table's acceptance:
+// code lengths must be complete; a litlen code may be incomplete with one
+// symbol; a distance code with one symbol or none. The root is clamped to
+// 9 (7 for code lengths) so that a long lone code takes a subtable and no
+// lookup leaves the table, and a slot no code reaches carries native's
+// root, min(max(R, minlen), maxlen) (R = 7, 10, 9), as its bit count.
+__device__ int build_table(uint32_t* tab, int cap, int nsyms, const int* lens, int root_in,
+                           int kind_of, bool* bad_out, int lane) {
+  if (lane < 16) t.cnt[lane] = 0;
+  __syncwarp();
+  for (int i = lane; i < nsyms; i += 32) {
+    const int l = lens[i];
+    if (l > 0) atomicAdd(&t.cnt[l], 1);
+  }
+  __syncwarp();
+  const int c = lane < 16 ? t.cnt[lane] : 0;
+  const unsigned nz = __ballot_sync(kFull, lane >= 1 && c > 0);
+  const int maxlen = nz ? 31 - __clz(nz) : 0;
+  const int minlen = nz ? __ffs(nz) - 1 : 15;
+  const int root = min(min(max(root_in, minlen), max(maxlen, 1)), kind_of == 0 ? 7 : 9);
+  const int native_root =
+      maxlen == 0 ? 1 : min(max(kind_of == 0 ? 7 : kind_of == 1 ? 10 : 9, minlen), maxlen);
+  int incl = c;
+  for (int dd = 1; dd < 16; dd <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, dd);
+    if (lane >= dd) incl += y;
+  }
+  const int ncodes = __shfl_sync(kFull, incl, 15);
+  int left = 1, code = 0, next_l = 0;
+  for (int i = 1; i < 16; i++) {
+    const int ci = __shfl_sync(kFull, c, i);
+    const int cp = __shfl_sync(kFull, c, i - 1);
+    left = left * 2 - ci;
+    code = (code + cp) << 1;
+    if (lane == i) next_l = code;
+  }
+  bool bad;
+  if (kind_of == 0)
+    bad = left != 0;
+  else if (kind_of == 1)
+    bad = left < 0 || (left > 0 && ncodes != 1);
+  else
+    bad = left < 0 || (left > 0 && ncodes > 1);
+  if (lane < 16) {
+    t.offs[lane] = incl - c;
+    t.run[lane] = incl - c;
+    t.next[lane] = next_l;
+    t.rem[lane] = c;
+  }
+  const uint32_t inv = entry(kInvalid, 0, native_root, 0);
+  for (int i = lane; i < cap; i += 32) tab[i] = inv;
+  __syncwarp();
+
+  const unsigned lt = (1u << lane) - 1u;
+  bool sbad = false;
+  for (int base = 0; base < nsyms; base += 32) {
+    const int i = base + lane;
+    const int l = i < nsyms ? lens[i] : 0;
+    const unsigned grp = __match_any_sync(kFull, l);
+    if (l > 0) {
+      const int k = t.run[l] + __popc(grp & lt);
+      t.work[k] = (uint16_t)i;
+      if (l <= root && !bad) {
+        const int huff = (int)huff_of(k, l);
+        const uint32_t ent = sym_entry(kind_of, i, l);
+        for (int f = (1 << root) - (1 << l); f >= 0; f -= 1 << l) {
+          if (huff + f >= cap) {
+            sbad = true;
+            break;
+          }
+          tab[huff + f] = ent;
+        }
+      }
+    }
+    __syncwarp();
+    if (l > 0 && (grp & lt) == 0) t.run[l] += __popc(grp);
+    __syncwarp();
+  }
+  bad = bad || __any_sync(kFull, sbad);
+
+  const int nshort = __shfl_sync(kFull, incl, root);
+  const uint32_t rmask = (1u << root) - 1u;
+  if (!bad && nshort < ncodes) {
+    int used = 1 << root, low = -1;
+    for (int k = nshort; k < ncodes; k++) {
+      const int l = lens[t.work[k]];
+      const uint32_t huff = huff_of(k, l);
+      if ((int)(huff & rmask) != low) {
+        int cc = l - root;
+        int lft = 1 << cc;
+        while (lft > 0 && cc + root < maxlen) {
+          lft -= t.rem[cc + root];
+          if (lft > 0 && cc + root < maxlen) {
+            cc++;
+            lft *= 2;
+          }
+        }
+        const int sub_off = used;
+        used += 1 << cc;
+        low = (int)(huff & rmask);
+        if (used > cap) {
+          bad = true;
+          break;
+        }
+        if (lane == 0) tab[low] = entry(kSub, cc, root, sub_off);
+      }
+      __syncwarp();
+      if (lane == 0) t.rem[l]--;
+      __syncwarp();
+    }
+  }
+  if (!bad) {
+    bool lbad = false;
+    for (int k = nshort + lane; k < ncodes; k += 32) {
+      const int sym = t.work[k];
+      const int l = lens[sym];
+      const uint32_t huff = huff_of(k, l);
+      const uint32_t hdr = tab[huff & rmask];
+      const int at = e_val(hdr) + (int)(huff >> root);
+      const int step = 1 << (l - root);
+      const uint32_t ent = sym_entry(kind_of, sym, l);
+      for (int f = (1 << e_extra(hdr)) - step;; f -= step) {
+        if (at + f >= cap || at + f < 0) {
+          lbad = true;
+          break;
+        }
+        tab[at + f] = ent;
+        if (f <= 0) break;
+      }
+    }
+    bad = __any_sync(kFull, lbad);
+  }
+  __syncwarp();
+  *bad_out = bad;
+  return root;
+}
+
+__device__ __forceinline__ uint32_t lookup(const uint32_t* tab, uint32_t w, uint32_t mask,
+                                           int root) {
+  const uint32_t e0 = tab[w & mask];
+  if (__builtin_expect(e_kind(e0) == kSub, 0))
+    return tab[e_val(e0) + (int)((w >> root) & ~(0xFFFFFFFFu << e_extra(e0)))];
+  return e0;
+}
+
+// the compressed stream as a bit reservoir over clamped word reads (K6's)
+struct Bits {
+  const uint32_t* words;
+  int top;
+  uint64_t res;
+  int nbits, nxt_i;
+  uint32_t nxt;
+
+  __device__ __forceinline__ uint32_t word(int i) const {
+    i = i < 0 ? 0 : (i > top ? top : i);
+    return __ldg(words + i);
+  }
+  __device__ void seek(int bp) {
+    const int wi = bp >> 5;
+    const int sh = bp & 31;
+    res = ((uint64_t)word(wi) | ((uint64_t)word(wi + 1) << 32)) >> sh;
+    nbits = 64 - sh;
+    nxt_i = wi + 2;
+    nxt = word(nxt_i);
+  }
+  __device__ __forceinline__ void refill() {
+    if (__builtin_expect(nbits <= 32, 0)) {
+      res |= (uint64_t)nxt << nbits;
+      nbits += 32;
+      nxt = __ldg(words + min(max(++nxt_i, 0), top));
+    }
+  }
+  __device__ __forceinline__ uint32_t peek() const { return (uint32_t)res; }
+  __device__ __forceinline__ void skip(int n) {
+    res >>= n;
+    nbits -= n;
+  }
+};
+
+struct Spec {
+  Bits rd;
+  int lane, N, bp, n, cap, need;
+  long long hist;
+  uint16_t* cells;
+
+  __device__ void adv(int k) {
+    rd.skip(k);
+    bp += k;
+  }
+  __device__ uint32_t peek() {
+    rd.refill();
+    return rd.peek();
+  }
+
+  // native's stored block, after its 3 header bits
+  __device__ int stored_block() {
+    adv(((bp + 7) & ~7) - bp);
+    if (N - bp < 32) return kTruncated;
+    const uint32_t w = peek();
+    const int ln = (int)(w & 0xFFFFu), nln = (int)(w >> 16);
+    adv(32);
+    if ((ln ^ nln) != 0xFFFF) return kInvalidData;
+    if ((long long)n + ln > cap) return kCap;
+    if (N - bp < 8 * ln) return kTruncated;
+    const int off = bp >> 3;
+    for (int j = lane; j < ln; j += 32) {
+      const int q = off + j;
+      cells[n + j] = (uint16_t)((rd.word(q >> 2) >> ((q & 3) << 3)) & 0xFFu);
+    }
+    __syncwarp();
+    n += ln;
+    bp += ln << 3;
+    rd.seek(bp);
+    return kOk;
+  }
+
+  __device__ void fixed_lens() {
+    for (int i = lane; i < 320; i += 32)
+      t.lens[i] = i < 144 ? 8 : i < 256 ? 9 : i < 280 ? 7 : i < 288 ? 8 : 5;
+    __syncwarp();
+  }
+
+  // native parse_dynamic_tables up to the two code-length sets, which it
+  // leaves in t.lens[0, nlen) and t.lens[288, 288 + ndist)
+  __device__ int dynamic_header(int* nlen_out, int* ndist_out) {
+    if (N - bp < 14) return kTruncated;
+    const uint32_t w = peek();
+    const int nlen = (int)(w & 31u) + 257;
+    const int ndist = (int)((w >> 5) & 31u) + 1;
+    const int hclen = (int)((w >> 10) & 15u) + 4;
+    adv(14);
+    if (nlen > 286 || ndist > 30) return kInvalidData;
+    if (lane < 19) t.lens[lane] = 0;
+    __syncwarp();
+    for (int i = 0; i < hclen; i++) {
+      if (N - bp < 3) return kTruncated;
+      const int v = (int)(peek() & 7u);
+      if (lane == 0) t.lens[kClOrder[i]] = v;
+      adv(3);
+    }
+    __syncwarp();
+    bool clbad;
+    const int clroot = build_table(t.cl, kClCap, 19, t.lens, kClRoot, 0, &clbad, lane);
+    if (clbad) return kInvalidData;
+    const uint32_t cl_mask = (1u << clroot) - 1u;
+    const int total = nlen + ndist;
+    int i = 0, prev = 0;
+    while (i < total) {
+      if (N - bp < 7) return kTruncated;
+      const uint32_t w1 = peek();
+      const uint32_t e = t.cl[w1 & cl_mask];
+      const int sym = e_val(e);
+      const int nb = e_nbits(e);
+      if (sym < 16) {
+        if (lane == 0) t.lens[i] = sym;
+        adv(nb);
+        i++;
+        prev = sym;
+        continue;
+      }
+      const int ebits = sym == 16 ? 2 : sym == 17 ? 3 : 7;
+      if (N - bp < nb + ebits) return kTruncated;
+      adv(nb);
+      if (sym == 16 && i == 0) return kInvalidData;
+      const int r = (int)((w1 >> nb) & ((1u << ebits) - 1u)) + (sym == 18 ? 11 : 3);
+      adv(ebits);
+      const int v = sym == 16 ? prev : 0;
+      if (i + r > total) return kInvalidData;
+      for (int j = lane; j < r; j += 32) t.lens[i + j] = v;
+      i += r;
+      prev = v;
+    }
+    __syncwarp();
+    if (lane == 0)
+      for (int j = 31; j >= 0; j--)
+        if (j < ndist) t.lens[288 + j] = t.lens[nlen + j];
+    __syncwarp();
+    *nlen_out = nlen;
+    *ndist_out = ndist;
+    return t.lens[256] == 0 ? kInvalidData : kOk;
+  }
+
+  // a copy of `length` cells from `dist` back, at n (every source at or
+  // past 0): 32 cells a step, K6's three cases
+  __device__ void copy_cells(int length, int dist) {
+    const int at = n;
+    if (dist == 1) {
+      const uint16_t v = cells[at - 1];
+#pragma unroll 1
+      for (int k = lane; k < length; k += 32) cells[at + k] = v;
+    } else if (dist >= 32 || dist >= length) {
+#pragma unroll 1
+      for (int k = 0; k < length; k += 32) {
+        if (k + lane < length) cells[at + k + lane] = cells[at - dist + k + lane];
+        __syncwarp();
+      }
+    } else {
+      int r = lane;
+      while (r >= dist) r -= dist;
+      int step = 32;
+      while (step >= dist) step -= dist;
+#pragma unroll 1
+      for (int k = 0; k < length; k += 32) {
+        if (k + lane < length) cells[at + k + lane] = cells[at - dist + r];
+        r += step;
+        if (r >= dist) r -= dist;
+      }
+    }
+    __syncwarp();
+    n += length;
+  }
+
+  __device__ int coded_block(int nlen, int ndist) {
+    bool b1, b2;
+    const int ll_root = build_table(t.ll, kLlCap, nlen, t.lens, kLlRoot, 1, &b1, lane);
+    if (b1) return kInvalidData;
+    const int d_root = build_table(t.d, kDCap, ndist, t.lens + 288, kDRoot, 2, &b2, lane);
+    if (b2) return kInvalidData;
+    const uint32_t ll_mask = (1u << ll_root) - 1u;
+    const uint32_t d_mask = (1u << d_root) - 1u;
+    for (;;) {
+      if (N - bp == 0) return kTruncated;
+      const uint32_t w = peek();
+      const uint32_t e = lookup(t.ll, w, ll_mask, ll_root);
+      const int nb = e_nbits(e);
+      if (N - bp < nb) return kTruncated;
+      const uint32_t kind = e_kind(e);
+      if (kind == kLit) {
+        if (n >= cap) return kCap;
+        cells[n] = (uint16_t)e_val(e);  // every lane, the same cell and value
+        adv(nb);
+        n++;
+        continue;
+      }
+      if (kind == kEob) {
+        adv(nb);
+        return kOk;
+      }
+      if (kind != kMatch) return kInvalidData;
+      const int lext = e_extra(e);
+      if (N - bp < nb + lext) return kTruncated;
+      int length = e_val(e) + (int)((w >> nb) & ~(0xFFFFFFFFu << lext));
+      adv(nb + lext);
+      const uint32_t w2 = peek();
+      const uint32_t de = lookup(t.d, w2, d_mask, d_root);
+      if (e_kind(de) != kMatch) return kInvalidData;
+      const int dnb = e_nbits(de);
+      const int dext = e_extra(de);
+      if (N - bp < dnb + dext) return kTruncated;
+      const int dist = e_val(de) + (int)((w2 >> dnb) & ~(0xFFFFFFFFu << dext));
+      adv(dnb + dext);
+      if ((long long)dist > (long long)n + hist) return kInvalidData;
+      if ((long long)n + length > cap) return kCap;
+      if (dist > n) {  // markers: the leading run that reaches before the segment
+        const int nm = min(length, dist - n);
+        need = max(need, dist - n);
+        for (int j = lane; j < nm; j += 32) cells[n + j] = (uint16_t)(256 + dist - n - j - 1);
+        __syncwarp();
+        n += nm;
+        length -= nm;
+      }
+      if (length) copy_cells(length, dist);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(32)
+spec_decode(const uint32_t* __restrict__ words, int W, int N, const long long* __restrict__ meta,
+            uint16_t* __restrict__ cells_all, int* __restrict__ recs_all, int* __restrict__ st) {
+  const int k = blockIdx.x;
+  const int lane = threadIdx.x;
+  const long long* m = meta + (size_t)k * kMeta;
+  const int start = (int)m[0], stop = (int)m[1], cap = (int)m[2];
+  int* rec = recs_all + 2 * m[5];
+  const int rec_cap = (int)m[6];
+  Spec sp{Bits{words, W - 1, 0, 0, 0, 0}, lane, N, start, 0, cap, 0, m[3], cells_all + m[4]};
+  int why = kOk, fin = 0, nrec = 0, ovf = 0;
+  if (start < 0) {
+    why = kNoStart;
+  } else {
+    sp.rd.seek(start);
+    bool first = true;
+    for (;;) {
+      if (!first && sp.bp >= stop) break;
+      first = false;
+      if (nrec < rec_cap) {
+        if (lane == 0) {
+          rec[2 * nrec] = sp.bp;
+          rec[2 * nrec + 1] = sp.n;
+        }
+        nrec++;
+      } else {
+        ovf = 1;
+      }
+      if (N - sp.bp < 3) {
+        why = kTruncated;
+        break;
+      }
+      const uint32_t w = sp.peek();
+      const int final_ = (int)(w & 1u);
+      const int typ = (int)((w >> 1) & 3u);
+      sp.adv(3);
+      if (typ == 0) {
+        why = sp.stored_block();
+      } else if (typ == 3) {
+        why = kInvalidData;
+      } else {
+        int nlen = 288, ndist = 32;
+        if (typ == 1)
+          sp.fixed_lens();
+        else
+          why = sp.dynamic_header(&nlen, &ndist);
+        if (why == kOk) why = sp.coded_block(nlen, ndist);
+      }
+      if (why != kOk) break;
+      if (final_) {
+        fin = 1;
+        break;
+      }
+    }
+  }
+  if (lane == 0) {
+    int* so = st + (size_t)k * kStatus;
+    so[0] = sp.n;
+    so[1] = why == kOk ? sp.bp : -1;
+    so[2] = fin;
+    so[3] = why;
+    so[4] = sp.need;
+    so[5] = nrec;
+    so[6] = ovf;
+    so[7] = start;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// SP3: the marker resolve
+// ---------------------------------------------------------------------------
+
+__global__ void resolve_init(const uint16_t* __restrict__ cells, int n,
+                             const long long* __restrict__ seg_ofs, int E, int* __restrict__ ptr) {
+  const long long i = (long long)blockIdx.x * kResolveThreads + threadIdx.x;
+  if (i >= n) return;
+  const int c = cells[i];
+  if (c < 256) {
+    ptr[i] = (int)i;
+    return;
+  }
+  int lo = 0, hi = E - 1;  // the last segment that starts at or before i
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (seg_ofs[mid] <= i)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  long long src = seg_ofs[lo] - (c - 255);
+  src = src < 0 ? 0 : (src > n - 1 ? n - 1 : src);
+  ptr[i] = (int)src;
+}
+
+__global__ void resolve_jump(const int* __restrict__ a, int* __restrict__ b, int n) {
+  const long long i = (long long)blockIdx.x * kResolveThreads + threadIdx.x;
+  if (i < n) b[i] = a[a[i]];
+}
+
+__global__ void resolve_narrow(const uint16_t* __restrict__ cells, const int* __restrict__ ptr,
+                               int n, uint8_t* __restrict__ out, int* flag) {
+  const long long i = (long long)blockIdx.x * kResolveThreads + threadIdx.x;
+  if (i >= n) return;
+  int c = cells[ptr[i]];
+  if (c >= 256) {
+    atomicOr(flag, 1);
+    c = 0;
+  }
+  out[i] = (uint8_t)c;
+}
+
+}  // namespace
+
+// SP1: per segment k the first offset in [lo[k], hi[k]) whose chain passes,
+// written into best[k] (which the wrapper fills with INT_MAX); the
+// survivors of the pre-filter go to surv (cap pairs), their number to
+// *count, which the wrapper zeroes and reads back
+extern "C" int zrs_block_find(const void* words, int w, int nbits, const void* lo,
+                              const void* hi, int segs, int span, void* surv, int cap,
+                              void* count, void* best, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = (span + kFindThreads - 1) / kFindThreads;
+  const long long blocks = (long long)segs * tiles;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (blocks > 0)
+    find_prefilter<<<(unsigned)blocks, kFindThreads, 0, s>>>(
+        (const uint32_t*)words, w - 1, nbits, (const int*)lo, (const int*)hi, tiles,
+        (int2*)surv, cap, (int*)count);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (cap > 0)
+    find_check<<<(cap + kCheckThreads - 1) / kCheckThreads, kCheckThreads, 0, s>>>(
+        (const uint32_t*)words, w - 1, nbits, (const int2*)surv, cap, (const int*)count,
+        (int*)best);
+  return (int)cudaGetLastError();
+}
+
+// SP2: one block of one warp a segment of meta (int64 [segs, 8]: start_bit,
+// stop_bit, cap, hist, cell_off, rec_off, rec_cap, 0); cells u16, records
+// int32 pairs, status int32 [segs, 8]
+extern "C" int zrs_spec_decode(const void* words, int w, int nbits, const void* meta, int segs,
+                               void* cells, void* recs, void* st, void* stream) {
+  if (segs > 0)
+    spec_decode<<<segs, 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, w, nbits, (const long long*)meta, (uint16_t*)cells, (int*)recs,
+        (int*)st);
+  return (int)cudaGetLastError();
+}
+
+// SP3: pointers into ptr_a, `rounds` rounds of jumping between ptr_a and
+// ptr_b, then the bytes; *flag is set where a marker outlived the rounds
+extern "C" int zrs_spec_resolve(const void* cells, int n, const void* seg_ofs, int segs,
+                                void* ptr_a, void* ptr_b, int rounds, void* out, void* flag,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((n + kResolveThreads - 1) / kResolveThreads);
+  int* a = (int*)ptr_a;
+  int* b = (int*)ptr_b;
+  resolve_init<<<blocks, kResolveThreads, 0, s>>>((const uint16_t*)cells, n,
+                                                  (const long long*)seg_ofs, segs, a);
+  for (int r = 0; r < rounds; r++) {
+    resolve_jump<<<blocks, kResolveThreads, 0, s>>>(a, b, n);
+    int* tmp = a;
+    a = b;
+    b = tmp;
+  }
+  resolve_narrow<<<blocks, kResolveThreads, 0, s>>>((const uint16_t*)cells, a, n,
+                                                    (uint8_t*)out, (int*)flag);
+  return (int)cudaGetLastError();
+}

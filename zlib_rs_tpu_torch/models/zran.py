@@ -1,17 +1,20 @@
 """zran-style index of a zlib/gzip/raw stream and random access through
 it (a copy of zlib_rs_tpu/models/zran.py's `AccessPoint`, `DeflateIndex`,
-`_wrapper_span` and the Python paths of `build_index` and `extract`).
+`_wrapper_span`, `build_index` and `extract`).
 
-One sequential pass of the host inflater records (input bit position,
-32 KiB window) checkpoints at block boundaries; `decompress_foreign`
-turns each into a window-primed region with a sub-byte start bit, so a
-monolithic foreign stream decodes region-parallel on the card, and
-`extract` seeks to the nearest checkpoint and decodes only the span it
-needs on the host.
-
-The reference's native index pass and region decoder (its C++ host
-engine) are not carried: `build_index` and `extract` are the reference's
-own branches for a build without them.
+`build_index` first runs the index pass on the card (`_build_index_card`,
+the counterpart of the reference's `_build_index_native`: the speculative
+decode of parallel/speculative.py records every block start, and a start
+at least `span` output bytes past the last point becomes a point, with
+its 32 KiB window cut from the full output). Where that pass returns None
+(a data fault, a multi-member gzip, a container-checksum mismatch), the
+host inflater's pass runs, as the reference's Python path does without
+its native engine: it stops at every block boundary (InflateFlush.BLOCK).
+`decompress_foreign` turns each point into a window-primed region with a
+sub-byte start bit, so a monolithic foreign stream decodes
+region-parallel on the card. `extract` seeks to the nearest point and
+decodes the span it needs on K6 (`_extract_card`, the counterpart of
+`_extract_native`), or on the host where that returns None.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 from ..config import InflateConfig, InflateFlush, ReturnCode
+from ..ops import checksum
+from ..parallel import speculative
 from .inflate import Inflator
 
 
@@ -72,19 +77,24 @@ def _wrapper_span(data: bytes) -> tuple[int, str]:
     return 0, "raw"
 
 
-def build_index(data: bytes, span: int = 1 << 20) -> DeflateIndex:
-    """One sequential pass over a zlib/gzip/raw stream recording access
-    points roughly every `span` uncompressed bytes (zran's build pass).
+def build_index(data: bytes, span: int = 1 << 20, *, device=None) -> DeflateIndex:
+    """One pass over a zlib/gzip/raw stream recording access points
+    roughly every `span` uncompressed bytes (zran's build pass), on
+    `device` (the GPU when None; "cpu" runs the plain versions).
 
-    The Python engine's pass: the host inflater stops at every block
-    boundary (InflateFlush.BLOCK), and a boundary at least `span` bytes
-    past the last point becomes a point.
+    The card's pass (`_build_index_card`) covers single-member streams.
+    Where it returns None, the Python engine's pass runs: the host
+    inflater stops at every block boundary (InflateFlush.BLOCK), and a
+    boundary at least `span` bytes past the last point becomes a point.
 
     A raw stream (as `_wrapper_span` tells it) runs a raw inflater from a
     point at its start, so its points are those of the same body in a
     zlib wrapper, two bytes earlier: the reference's pass auto-detects
     zlib or gzip only and raises on a raw stream, which its native pass
     indexes."""
+    card_idx = _build_index_card(data, span, device)
+    if card_idx is not None:
+        return card_idx
     raw = _wrapper_span(data)[1] == "raw"
     inf = Inflator(InflateConfig(window_bits=-15 if raw else 47))
     # a wrapped stream's first stop is its first block's start; a raw
@@ -127,11 +137,105 @@ def build_index(data: bytes, span: int = 1 << 20) -> DeflateIndex:
     return DeflateIndex(points=points, total_out=out_total, wrapper_offset=0)
 
 
-def extract(data: bytes, index: DeflateIndex, offset: int, length: int) -> bytes:
+def _build_index_card(data: bytes, span: int, device) -> DeflateIndex | None:
+    """The reference's `_build_index_native`, line for line, over the
+    card's `speculative.zran_index`: None on a data fault (native's two
+    messages, `speculative.DATA_FAULTS`), a multi-member gzip or a
+    container-checksum mismatch; a build, launch, argument or size-limit
+    error propagates."""
+    hdr, kind = _wrapper_span(data)
+    body = data[hdr:]
+    max_out = max(4 * len(body), 1 << 20)
+    for _ in range(4):
+        try:
+            full, raw_points, in_used = speculative.zran_index(body, span, max_out, device=device)
+            break
+        except BufferError:
+            max_out *= 4
+        except ValueError as e:
+            if str(e) not in speculative.DATA_FAULTS:
+                raise
+            return None
+    else:
+        return None
+    # the pass decodes one member; a multi-member gzip has another magic
+    # after this member's 8-byte trailer
+    if kind == "gzip" and len(body) - in_used > 8:
+        return None
+    # verify the container checksum so a corrupt stream is not indexed
+    if kind == "zlib":
+        if checksum.adler32(full) != int.from_bytes(body[in_used : in_used + 4], "big"):
+            return None
+    elif kind == "gzip":
+        if checksum.crc32(full) != int.from_bytes(body[in_used : in_used + 4], "little"):
+            return None
+    points = []
+    for out_off, bitpos in raw_points:
+        byte = bitpos >> 3
+        sub = bitpos & 7
+        if sub:
+            points.append(
+                AccessPoint(
+                    out_offset=int(out_off),
+                    in_offset=hdr + byte + 1,
+                    bits=8 - sub,
+                    hold=body[byte] >> sub,
+                    window=full[max(0, out_off - 32768) : out_off],
+                )
+            )
+        else:
+            points.append(
+                AccessPoint(
+                    out_offset=int(out_off),
+                    in_offset=hdr + byte,
+                    bits=0,
+                    hold=0,
+                    window=full[max(0, out_off - 32768) : out_off],
+                )
+            )
+    if not points:
+        return None
+    return DeflateIndex(points=points, total_out=len(full), wrapper_offset=hdr)
+
+
+def _extract_card(data: bytes, index: DeflateIndex, offset: int, length: int,
+                  device) -> bytes | None:
+    """The reference's `_extract_native` over `speculative.inflate_region`
+    (K6 in its stop mode): None on a data fault (`speculative.REGION_FAULT`);
+    any other error propagates."""
+    point = index.closest(offset)
+    if point.out_offset > offset:
+        hdr, _kind = _wrapper_span(data)
+        start_in, skip_bits, window, produced = hdr, 0, b"", 0
+    else:
+        if point.bits:
+            start_in = point.in_offset - 1
+            skip_bits = 8 - point.bits
+        else:
+            start_in = point.in_offset
+            skip_bits = 0
+        window, produced = point.window, point.out_offset
+    want = (offset - produced) + length
+    try:
+        out = speculative.inflate_region(data[start_in:], skip_bits, window, want, device=device)
+    except ValueError as e:
+        if str(e) != speculative.REGION_FAULT:
+            raise
+        return None
+    return out[offset - produced : offset - produced + length]
+
+
+def extract(data: bytes, index: DeflateIndex, offset: int, length: int, *,
+            device=None) -> bytes:
     """Read `length` uncompressed bytes starting at `offset` using the index
-    (zran's extract pass: raw inflater + prime + dictionary + skip)."""
+    (zran's extract pass: raw inflater + prime + dictionary + skip), on K6
+    on `device` (the GPU when None; "cpu" its plain version), or on the
+    host where that faults."""
     if offset >= index.total_out:
         return b""
+    fast = _extract_card(data, index, offset, length, device)
+    if fast is not None:
+        return fast
     point = index.closest(offset)
     if point.out_offset > offset:
         # before the first checkpoint: decode from the beginning

@@ -182,8 +182,10 @@ def decompress_foreign(data: bytes, span: int = 1 << 20, engine: str = "auto", *
 
     A gzip stream's members become independent regions, each checked
     against its crc32. A monolithic zlib or raw stream is indexed by one
-    host pass (`models.zran.build_index`, a point about every `span`
-    output bytes); each point starts a region at its sub-byte bit with its
+    pass on `device` (`models.zran.build_index`: the speculative decode's
+    block starts, a point about every `span` output bytes; its full output
+    is not kept, as the reference drops native's); each point starts a
+    region at its sub-byte bit with its
     32 KiB window, and a zlib stream's adler32 is checked at the end;
     regions that cover no output are not decoded (see below).
     `engine` is decompress_chunks'. A bad checksum raises
@@ -205,7 +207,7 @@ def decompress_foreign(data: bytes, span: int = 1 << 20, engine: str = "auto", *
 
     # monolithic zlib/raw stream: zran index, then window-primed regions
     with STAGES.host("zran_index"):
-        index = Z.build_index(data, span=span)
+        index = Z.build_index(data, span=span, device=device)
     hdr, _kind = Z._wrapper_span(data)
     cuts = [(hdr * 8, 0, b"")] + [
         ((p.in_offset - 1) * 8 + (8 - p.bits) if p.bits else p.in_offset * 8,
