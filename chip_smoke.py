@@ -109,8 +109,21 @@ and on crafted rows of the stored, Z_FIXED and a flipped stream, and SP3
 at max abs err 0, then `inflate_speculative` of the corpus as raw deflate
 at levels 1, 6 and 9, under Z_FIXED, stored, as a zlib body and as 64
 MiB (the corpus 8 times), each back to its input with its segments,
-chain misses and each kernel's event ms (phase 40, run before the
-bench); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
+chain misses and each kernel's event ms, and a stream of more than 2^28
++ 2^20 bytes (random bytes over 64 letters at level 1, bit positions
+past int32) back to its input with its seconds and peak device memory
+(phase 40, run before the bench); EX (csrc/exact_deflate.cu, the native
+engine's encode half) against its plain version on 16 KiB rows at every
+level 0-9, QUICK and MEDIUM4-6, primed and not, final and not, then
+`deflate_parallel` of the corpus at levels 1, 6 and 9, every 128 KiB
+chunk equal to stdlib zlib's primed raw deflate, QUICK and MEDIUM4-6
+back through zlib, EX's ms a launch, and the one-shot `compress` of 1 MiB
+at levels 1, 6 and 9 equal to zlib.compress (phase 41); the one-shot
+`decompress` of the corpus's zlib and gzip streams and of a 1 MiB
+stream (inflate_speculative at every size), inflate_raw against
+inflate_speculative from 16 KiB to 1 MiB, and the CLI's `--quick`,
+`--medium`, `--engine native` and `-d --engine native` (two gzip
+members) in processes (phase 42); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
 bytes with a torch.profiler headline and every device phase's key and
 device-busy share in the full line above it (phase 37). Any mismatch
 raises; no phase's failure is caught.
@@ -2507,8 +2520,8 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     words = torch.from_numpy(SK.stream_words(raw)).to(dev)
     T = len(raw) // seg
     bounds = [8 * k * seg for k in range(T)] + [nbits]
-    lo = torch.tensor(bounds[1:T], dtype=torch.int32, device=dev)
-    hi = torch.tensor(bounds[2:], dtype=torch.int32, device=dev)
+    lo = torch.tensor(bounds[1:T], dtype=torch.int64, device=dev)
+    hi = torch.tensor(bounds[2:], dtype=torch.int64, device=dev)
 
     # -- SP1 on every segment of the main path's first attempt -----------
     got = SK.block_find_cuda(words, nbits, lo, hi)
@@ -2517,7 +2530,7 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     for name in ("stored", "fixed"):
         st = streams[name]
         w2 = torch.from_numpy(SK.stream_words(st)).to(dev)
-        l2 = torch.tensor([8 * k * seg for k in range(1, 9)], dtype=torch.int32, device=dev)
+        l2 = torch.tensor([8 * k * seg for k in range(1, 9)], dtype=torch.int64, device=dev)
         pairs1.append((SK.block_find_cuda(w2, 8 * len(st), l2, l2 + 8 * seg),
                        SK.block_find_plain(w2, 8 * len(st), l2, l2 + 8 * seg)))
     err1 = max_abs(pairs1)
@@ -2549,7 +2562,7 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     ):
         n2 = 8 * len(stream)
         w2 = torch.from_numpy(SK.stream_words(stream)).to(dev)
-        l2 = torch.tensor([8 * seg, 16 * seg], dtype=torch.int32, device=dev)
+        l2 = torch.tensor([8 * seg, 16 * seg], dtype=torch.int64, device=dev)
         g2 = SK.block_find_cuda(w2, n2, l2, l2 + 8 * seg).tolist()
         r2 = [(0, 8 * seg, cap, 0), (g2[0], 16 * seg, cap if g2[0] >= 0 else 0, SK.WSIZE),
               (g2[1], 24 * seg, 16 if g2[1] >= 0 else 0, SK.WSIZE), (-1, n2, 0, SK.WSIZE)] + extra
@@ -2659,8 +2672,363 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     result["segment_sweep_s"] = sweep
     print("phase 40 segment sweep, raw-6, warm s by segment bytes: " + json.dumps(sweep),
           flush=True)
+    result["big"] = big_stream_decode(torch, SK, SP)
     result["phase_s"] = time.perf_counter() - t_start
     print(f"phase 40: {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+BIG_STREAM_MIN = (1 << 28) + (1 << 20)  # compressed bytes: bit positions past int32
+
+
+def big_stream(np) -> tuple[bytes, bytes]:
+    """Random bytes over a 64-letter alphabet (seed 7) and their raw
+    deflate at level 1 (dynamic blocks), at least BIG_STREAM_MIN bytes of
+    it: 8 pieces compressed by stdlib zlib at once, joined at sync seams."""
+    import threading
+
+    size = 400 << 20
+    data = (np.random.default_rng(7).integers(0, 64, size, dtype=np.uint8) + 48).tobytes()
+    step = -(-size // 8)
+    pieces = [b""] * 8
+
+    def job(i):
+        c = zlib.compressobj(1, zlib.DEFLATED, -15)
+        pieces[i] = c.compress(data[i * step : (i + 1) * step]) + c.flush(
+            zlib.Z_FINISH if i == 7 else zlib.Z_SYNC_FLUSH)
+
+    threads = [threading.Thread(target=job, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stream = b"".join(pieces)
+    if len(stream) < BIG_STREAM_MIN:
+        raise AssertionError(f"the big stream has {len(stream)} bytes, under {BIG_STREAM_MIN}")
+    return data, stream
+
+
+def big_stream_decode(torch, SK, SP) -> dict:
+    """Phase 40's stream past int32 bit positions: inflate_speculative of
+    big_stream, cold and warm, back to its input, with its peak device
+    memory and SP1-SP3's launches."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    data, stream = big_stream(np)
+    make_s = time.perf_counter() - t0
+    for c in SK.launches:
+        SK.launches[c] = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls, st = [], {}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out, used = SP.inflate_speculative(stream, len(data) + (1 << 20), stats=st)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if out != data or used != len(stream):
+            raise AssertionError("inflate_speculative of the big stream is not its input")
+        del out
+    peak = torch.cuda.max_memory_allocated() - base
+    res = {"bytes": len(stream), "out_bytes": len(data), "bits": 8 * len(stream),
+           "cold_s": walls[0], "warm_s": walls[1], "make_s": make_s,
+           "peak_device_bytes": peak, "launches": dict(SK.launches), "stats": st}
+    print(f"phase 40 big: {len(stream)} bytes ({8 * len(stream)} bits, past 2^31) -> "
+          f"{len(data)} in {walls[1]:.4f} s warm ({len(data) / walls[1] / 1e6:.1f} MB/s; cold "
+          f"{walls[0]:.4f} s), equal to its input; segments {st['segments']}, misses "
+          f"{st['misses']}, launches {res['launches']}, peak device memory {peak} bytes; made "
+          f"in {make_s:.1f} s", flush=True)
+    return res
+
+
+def zraw_chunk(data: bytes, level: int, final: bool, window: bytes) -> bytes:
+    """stdlib zlib's raw deflate of a chunk primed with `window` (Z_FINISH
+    when final, Z_SYNC_FLUSH when not): EX's oracle at levels 1-9."""
+    kw = {"zdict": window} if window else {}
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, 8, 0, **kw)
+    return c.compress(data) + c.flush(zlib.Z_FINISH if final else zlib.Z_SYNC_FLUSH)
+
+
+EX_MODES = [*range(10), 10, 11, 12, 13]  # levels 0-9, QUICK, MEDIUM4-6
+EX_ROW = 16 * 1024  # phase 41's rows against the plain version
+
+
+def ex_rows(corpus: bytes, level: int) -> list:
+    """Four rows of EX_ROW bytes of the corpus at `level`'s own offset:
+    (start, len, dict_len, final), unprimed and primed with 32 KiB, final
+    and not."""
+    base = (3 + 2 * level) * 65_536 + 4097 * level
+    return [(base + k * 2 * EX_ROW, EX_ROW, 32768 if k & 1 else 0, k >> 1) for k in range(4)]
+
+
+def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
+    """Phase 41: EX against its plain version on rows of EX_ROW bytes of
+    the corpus at every level 0-9, QUICK and MEDIUM4-6, primed and not,
+    final and not, on rows of random bytes, and on a row whose room
+    overflows (bytes, lengths, status; max abs err 0), then the main
+    path: `deflate_parallel` of the corpus at levels 1, 6 and 9 (128 KiB
+    chunks, one launch each), every chunk equal to stdlib zlib's primed
+    raw deflate (Z_SYNC_FLUSH, Z_FINISH for the last), cold and three warm;
+    QUICK and MEDIUM4-6 of the corpus back through zlib, their first two
+    chunks equal to the plain version's, three warm; EX's ms a launch by
+    CUDA events at level 6; the one-shot `compress` of 1 MiB at levels 1,
+    6 and 9 equal to zlib.compress, with its seconds (one warp). The
+    level-6 chunks also go through 8 warps, so that a warp's scratch
+    serves several chunks (the loop past MAX_SLOTS chunks)."""
+    import numpy as np
+
+    from zlib_rs_tpu_torch.models import oneshot
+    from zlib_rs_tpu_torch.ops.kernels import exact_deflate_kernel as EK
+    from zlib_rs_tpu_torch.parallel import chunk_deflate as CD
+
+    t_start = time.perf_counter()
+    data_t = torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).to(dev)
+
+    def meta_of(rs, level):
+        return torch.from_numpy(CD.chunk_meta(rs, level)).to(dev)
+
+    def ex_pairs(got, want, meta):
+        pairs = [(got[1], want[1]), (got[2], want[2])]
+        for k, (off, cap) in enumerate(meta[:, 4:].tolist()):
+            n = min(int(want[1][k]), cap)
+            pairs.append((got[0][off : off + n], want[0][off : off + n]))
+        return pairs
+
+    # random bytes (stored blocks, QUICK's rewind to stored) and a room of
+    # 1,000 bytes (the overflow status, the bytes within the room)
+    rnd_t = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, 32768 + EX_ROW // 2, dtype=np.uint8)).to(dev)
+    pairs = []
+    for level in EX_MODES:
+        for buf, meta in ((data_t, meta_of(ex_rows(corpus, level), level)),
+                          (rnd_t, meta_of([(32768, EX_ROW // 2, 32768, 1),
+                                           (0, EX_ROW // 2, 0, 0)], level))):
+            pairs += ex_pairs(EK.exact_deflate_cuda(buf, meta, level),
+                              EK.exact_deflate_plain(buf, meta, level), meta)
+    small = torch.tensor([[0, EX_ROW // 2, 0, 1, 0, 1000]], dtype=torch.int64, device=dev)
+    got, want = EK.exact_deflate_cuda(rnd_t, small, 1), EK.exact_deflate_plain(rnd_t, small, 1)
+    if int(got[2][0]) != EK.OVERFLOW:
+        raise AssertionError("EX did not report an output past its room")
+    pairs += ex_pairs(got, want, small)
+    err = max_abs(pairs)
+    if err:
+        raise AssertionError(f"EX disagrees with its plain version: max abs err {err}")
+    print(f"phase 41 EX: {4 * len(EX_MODES)} rows of {EX_ROW} bytes of the corpus and "
+          f"{2 * len(EX_MODES)} of {EX_ROW // 2} random bytes (levels 0-9, QUICK, MEDIUM4-6; "
+          f"primed and not, final and not) and an overflowing row equal to plain in bytes, "
+          f"lengths and status", flush=True)
+
+    # -- the main path: deflate_parallel at levels 1, 6 and 9 --------------
+    chunk = CD.DEFAULT_CHUNK
+    n = len(corpus)
+    starts = list(range(0, n, chunk))
+    result = {"levels": {}, "modes": {}}
+    launched = None
+    for level in (1, 6, 9):
+        EK.launches["exact_deflate"] = 0
+        t0 = time.perf_counter()
+        out = CD.deflate_parallel(corpus, level)
+        cold = time.perf_counter() - t0
+        if level == 6:
+            launched = EK.launches["exact_deflate"]
+        parts = [zraw_chunk(corpus[lo : lo + chunk], level, lo + chunk >= n,
+                            corpus[max(0, lo - 32768) : lo]) for lo in starts]
+        if level == 6:
+            zlib6 = parts
+        want = b"".join(parts)
+        if out != want or zlib.decompress(out, -15) != corpus:
+            raise AssertionError(f"deflate_parallel at level {level} is not zlib's chunk by chunk")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = CD.deflate_parallel(corpus, level)
+            walls.append(time.perf_counter() - t0)
+            if again != out:
+                raise AssertionError(f"a warm deflate_parallel at level {level} differs")
+        mbs = sorted(n / w / 1e6 for w in walls)
+        result["levels"][level] = {"bytes": len(out), "cold_s": cold, "warm_s": walls,
+                                   "mb_s_median": mbs[1], "sha256": hashlib.sha256(out).hexdigest()}
+        print(f"phase 41 deflate_parallel level {level}: {digest(out)}, equal to zlib on all "
+              f"{len(starts)} chunks; cold {cold:.3f} s, warm {[round(w, 4) for w in walls]} s "
+              f"(median {mbs[1]:.3f} MB/s)", flush=True)
+    for level in (CD.QUICK, CD.MEDIUM4, CD.MEDIUM5, CD.MEDIUM6):
+        out = CD.deflate_parallel(corpus, level)
+        if zlib.decompress(out, -15) != corpus:
+            raise AssertionError(f"deflate_parallel in mode {level} does not round-trip")
+        first = [EK.plain_chunk(corpus[lo : lo + chunk], level, False,
+                                corpus[max(0, lo - 32768) : lo]) for lo in starts[:2]]
+        meta = meta_of([(lo, chunk, min(32768, lo), 0) for lo in starts[:2]], level)
+        got = EK.exact_deflate_cuda(data_t, meta, level)
+        lens = got[1].tolist()
+        if [got[0][o : o + m].cpu().numpy().tobytes() for o, m in
+                zip(meta[:, 4].tolist(), lens)] != first:
+            raise AssertionError(f"mode {level}'s first two chunks differ from plain")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            CD.deflate_parallel(corpus, level)
+            walls.append(time.perf_counter() - t0)
+        mbs = sorted(n / w / 1e6 for w in walls)
+        result["modes"][level] = {"bytes": len(out), "warm_s": walls, "mb_s_median": mbs[1]}
+        print(f"phase 41 deflate_parallel mode {level}: {digest(out)}, round trip through zlib, "
+              f"first two chunks equal to plain; warm {[round(w, 4) for w in walls]} s (median "
+              f"{mbs[1]:.3f} MB/s)", flush=True)
+
+    # -- EX's ms a launch at the main path's shape (level 6) --------------
+    meta6 = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
+                     for lo in starts], 6)
+    ms = event_ms(torch, lambda: EK.exact_deflate_cuda(data_t, meta6, 6), 3)
+    first = meta6[:1]
+    _p, plain_ms = timed_ms(torch, lambda: EK.exact_deflate_plain(data_t, first, 6))
+    lens6 = EK.exact_deflate_cuda(data_t, meta6, 6)[1]
+    nout = int(lens6.sum())
+    # the slot-reuse loop (a warp taking a second chunk, as past MAX_SLOTS
+    # chunks): the level-6 chunks on 8 warps, each equal to zlib's
+    saved, EK.MAX_SLOTS = EK.MAX_SLOTS, 8
+    try:
+        reuse = EK.exact_deflate_cuda(data_t, meta6, 6)
+    finally:
+        EK.MAX_SLOTS = saved
+    got = [reuse[0][o : o + m].cpu().numpy().tobytes()
+           for o, m in zip(meta6[:, 4].tolist(), reuse[1].tolist())]
+    if got != zlib6 or bool(reuse[2].any()):
+        raise AssertionError("EX on 8 warps of 8 chunks each is not zlib's chunk by chunk")
+    print(f"phase 41 EX slot reuse: {len(starts)} level-6 chunks on 8 warps equal to zlib's "
+          f"chunk by chunk", flush=True)
+    window_bytes = int(meta6[:, 2].sum())
+    rows["exact_deflate"] = dict(
+        source="zlib_rs_tpu_torch/csrc/exact_deflate.cu",
+        replaces="native/zrs_native.cpp:1314",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_rows=1, launches=launched,
+        # bytes: the input and each chunk's window read once, the output
+        # written once; the serial scan of the longest chunk is the floor
+        bnd=bound(n + window_bytes + nout, 0),
+    )
+    print(f"phase 41 EX level 6: {ms:.3f} ms a launch ({len(starts)} chunks, one warp each), "
+          f"plain {plain_ms:.1f} ms for one chunk", flush=True)
+
+    # -- the one-shot compress of 1 MiB: one chunk, one warp ---------------
+    mib = corpus[: 1 << 20]
+    result["oneshot"] = {}
+    for level in (1, 6, 9):
+        t0 = time.perf_counter()
+        got = oneshot.compress(mib, level)
+        wall = time.perf_counter() - t0
+        if got != zlib.compress(mib, level):
+            raise AssertionError(f"the one-shot compress at level {level} is not zlib.compress")
+        result["oneshot"][level] = {"s": wall, "mb_s": len(mib) / wall / 1e6}
+        print(f"phase 41 one-shot compress 1 MiB level {level}: equal to zlib.compress, "
+              f"{wall:.3f} s ({len(mib) / wall / 1e6:.3f} MB/s)", flush=True)
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 41: {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def routes_phase(torch, corpus) -> dict:
+    """Phase 42: the one-shot `decompress` of the corpus's zlib-6 and gzip
+    streams and of a 1 MiB zlib stream (inflate_speculative), each equal
+    to its input, cold and three warm with MB/s; inflate_raw against
+    inflate_speculative on raw-6 streams of 16 KiB to 1 MiB, warm;
+    then the CLI's native routes in processes: `--quick`, `--medium` and
+    `--engine native` on the corpus as a file, each back through zlib and
+    equal to deflate_parallel in this process, and `-d --engine native` of
+    a gzip stream of two members giving back the corpus."""
+    import gzip
+
+    from zlib_rs_tpu_torch.models import oneshot
+    from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
+    from zlib_rs_tpu_torch.parallel import chunk_deflate as CD
+    from zlib_rs_tpu_torch.parallel import speculative as S
+
+    t_start = time.perf_counter()
+    result = {"decompress": {}, "cli": {}}
+    mib = corpus[: 1 << 20]
+    for label, stream, want in (("zlib6", zlib.compress(corpus, 6), corpus),
+                                ("gzip6", gzip.compress(corpus, 6), corpus),
+                                ("zlib6_1mib", zlib.compress(mib, 6), mib)):
+        for c in SK.launches:
+            SK.launches[c] = 0
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            out = oneshot.decompress(stream)
+            walls.append(time.perf_counter() - t0)
+            if out != want:
+                raise AssertionError(f"the one-shot decompress of {label} is not its input")
+        mbs = sorted(len(want) / w / 1e6 for w in walls[1:])
+        result["decompress"][label] = {"bytes": len(stream), "cold_s": walls[0],
+                                       "warm_s": walls[1:], "mb_s_median": mbs[1],
+                                       "launches": dict(SK.launches)}
+        print(f"phase 42 one-shot decompress {label}: {len(stream)} bytes, cold "
+              f"{walls[0]:.4f} s, warm {[round(w, 4) for w in walls[1:]]} s (median "
+              f"{mbs[1]:.1f} MB/s), launches {dict(SK.launches)}", flush=True)
+
+    # the one-shot decode's engine by payload size: inflate_raw (one exact
+    # SP2 decode, native's choice below 2 MiB) against inflate_speculative
+    # (the port's at every size), warm, in turn on the same raw-6 streams
+    result["raw_vs_speculative"] = {}
+    for size in (16 << 10, 64 << 10, 256 << 10, 1 << 20):
+        part = corpus[:size]
+        c = zlib.compressobj(6, zlib.DEFLATED, -15)
+        raw = c.compress(part) + c.flush()
+        walls = {"inflate_raw": [], "inflate_speculative": []}
+        for rep in range(4):
+            for name in walls:
+                t0 = time.perf_counter()
+                out, used = getattr(S, name)(raw, size)
+                wall = time.perf_counter() - t0
+                if (out, used) != (part, len(raw)):
+                    raise AssertionError(f"{name} of the {size}-byte raw-6 stream differs")
+                if rep:
+                    walls[name].append(wall)
+        med = {name: sorted(w)[1] for name, w in walls.items()}
+        result["raw_vs_speculative"][size] = {"raw_bytes": len(raw), "warm_s": walls,
+                                              "median_s": med}
+        print(f"phase 42 decode of {size} bytes ({len(raw)} raw-6), warm median s: "
+              + ", ".join(f"{k} {v:.5f} ({size / v / 1e6:.1f} MB/s)" for k, v in med.items()),
+              flush=True)
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_cli"  # git-ignored
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "native.bin"
+    src.write_bytes(corpus)
+    env = dict(os.environ, PYTHONPATH=str(root))
+
+    def cli(*args) -> tuple[bytes, float]:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "zlib_rs_tpu_torch", *args],
+                             capture_output=True, env=env, cwd=root, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"the CLI {args} exited {run.returncode}: "
+                                 f"{run.stderr.decode()[-2000:]}")
+        return run.stdout, wall
+
+    for label, flags, level, wrap_level in (("quick", ["--quick"], CD.QUICK, 1),
+                                            ("medium", ["--medium", "-5"], CD.MEDIUM5, 5),
+                                            ("native", ["--engine", "native", "-6"], 6, 6)):
+        out, wall = cli("-c", *flags, str(src))
+        if gzip.decompress(out) != corpus:
+            raise AssertionError(f"the CLI's {label} output does not decode")
+        if out != oneshot.wrap_raw(CD.deflate_parallel(corpus, level), corpus, 31, wrap_level):
+            raise AssertionError(f"the CLI's {label} output differs from deflate_parallel's")
+        result["cli"][label] = {"bytes": len(out), "wall_s": wall}
+        print(f"phase 42 cli {' '.join(flags)}: {digest(out)}, {wall:.3f} s, equal to "
+              f"deflate_parallel's and back through gzip", flush=True)
+    members = work / "members.gz"
+    half = len(corpus) // 2
+    members.write_bytes(gzip.compress(corpus[:half], 6) + gzip.compress(corpus[half:], 1))
+    back, wall = cli("-d", "-c", "--engine", "native", str(members))
+    if back != corpus:
+        raise AssertionError("the CLI's -d --engine native does not give back the corpus")
+    result["cli"]["decompress_native"] = {"wall_s": wall}
+    print(f"phase 42 cli -d --engine native: two gzip members back to the corpus, {wall:.3f} s",
+          flush=True)
+    result["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 42: {result['phase_s']:.1f} s", flush=True)
     return result
 
 
@@ -2702,8 +3070,9 @@ def cli_phase(corpus) -> dict:
     as a file, in gzip, zlib and raw at levels 6 and 1 (ZRS_TPU_KERNEL
     unset, the CLI's default engine), each output decoded by zlib and equal
     to compress_parallel with the same arguments in this process; `--engine
-    auto` on the corpus (the card's stream) and on a file of half the CLI's
-    TPU_THRESHOLD (the host engine's); `-d --engine cuda` of the corpus's
+    auto` on the corpus (the native route's stream, deflate_parallel in
+    gzip) and on a file of half the CLI's TPU_THRESHOLD (the host
+    engine's); `-d --engine cuda` of the corpus's
     gzip stream giving back the corpus, as a process and in this one (one
     K6 launch), and `-d --engine host` of the small file's."""
     import gzip
@@ -2712,6 +3081,7 @@ def cli_phase(corpus) -> dict:
     from zlib_rs_tpu_torch import cli as CLI
     from zlib_rs_tpu_torch.models import oneshot
     from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+    from zlib_rs_tpu_torch.parallel import chunk_deflate as CD
 
     t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
@@ -2753,13 +3123,14 @@ def cli_phase(corpus) -> dict:
         big_gz = (work / "corpus.bin.gz").read_bytes()
         small_gz = (work / "small.bin.gz").read_bytes()
         on_card = zt.compress_parallel(corpus[:n_small], 6, window_bits=31)
-        if big_gz != zt.compress_parallel(corpus, 6, window_bits=31):
-            raise AssertionError("--engine auto did not take the card for 8 MiB")
+        # from TPU_THRESHOLD up, auto takes the native engine's port on the card
+        if big_gz != oneshot.wrap_raw(CD.deflate_parallel(corpus, 6), corpus, 31, 6):
+            raise AssertionError("--engine auto did not take the native route for 8 MiB")
         if (small_gz != oneshot.compress(corpus[:n_small], 6, window_bits=31)
                 or small_gz == on_card or gzip.decompress(small_gz) != corpus[:n_small]):
             raise AssertionError(f"--engine auto did not take the host for {n_small} bytes")
         result["auto_wall_s"] = wall
-        print(f"phase 35 cli auto: the 8 MiB file took the card ({digest(big_gz)}), the "
+        print(f"phase 35 cli auto: the 8 MiB file took the native route ({digest(big_gz)}), the "
               f"{n_small}-byte file the host ({digest(small_gz)}), {wall:.3f} s", flush=True)
         gz = work / "corpus.bin.gz"
         back, wall = cli("-d", "-c", "--engine", "cuda", str(gz))
@@ -3245,7 +3616,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     print(f"card: {smi} ({torch.cuda.device_count()} visible), torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+          f"{torch.__version__}, CUDA {torch.version.cuda}, zlib {zlib.ZLIB_RUNTIME_VERSION}",
+          flush=True)
 
     t0 = time.perf_counter()
     _device.build()
@@ -3469,6 +3841,8 @@ def main() -> int:
     host_layers = host_layers_phase(corpus)
     mesh = mesh_phase(torch, corpus, out, warm)
     speculative = speculative_phase(torch, dev, corpus, rows)
+    exact = exact_deflate_phase(torch, dev, corpus, rows)
+    native_routes = routes_phase(torch, corpus)
     bench = bench_phase(min(BENCH_BUDGET_S, SMOKE_LIMIT_S - (time.perf_counter() - t_main)))
 
     # the lockstep kernel's path: the region decode of the chunk K6 refused;
@@ -3478,11 +3852,15 @@ def main() -> int:
     # the speculative kernels' path: phase 33's zran_index stage of the
     # zlib-6 stream (its three warm runs)
     launches.update(foreign["sp_launches_zlib6"])
+    # EX's path: phase 41's level-6 deflate_parallel of the corpus
+    launches["exact_deflate"] = rows["exact_deflate"].pop("launches")
+    if launches["exact_deflate"] < 1:
+        raise AssertionError("deflate_parallel never launched EX")
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
                  "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan",
                  "vhuff_decode1", "vhuff_expand1", "hop_chase_il", "lockstep", "swarm_walk",
-                 "block_find", "spec_decode", "spec_resolve"):
+                 "block_find", "spec_decode", "spec_resolve", "exact_deflate"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -3500,7 +3878,7 @@ def main() -> int:
         "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
         "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
         "cli": cli, "engine_names": engine_names, "host_layers": host_layers, "mesh": mesh,
-        "speculative": speculative, "bench": bench,
+        "speculative": speculative, "exact_deflate": exact, "routes": native_routes, "bench": bench,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Where the port's CLI should hand a file to the card: the wall of one
-`python -m zlib_rs_tpu_torch` process with `--engine host` and with
-`--engine cuda`, compress and decompress, on slices of the bench corpus.
+`python -m zlib_rs_tpu_torch` process with `--engine host` and with each
+card engine (`native`: EX and the speculative decode; `cuda`:
+compress_parallel and the foreign decode), compress and decompress, on
+slices of the bench corpus.
 
-    python3 cli_crossover.py [--sizes 65536,131072,...]
+    python3 cli_crossover.py [--sizes 65536,131072,...] [--engines native,cuda] [--ops c,d]
 
 Builds the kernels first (a user's later runs find them built in
 build/), writes each slice and its stdlib gzip-6 stream under
-build/cli_crossover/, then runs each size's four processes (host and
-cuda `-c`, host and cuda `-d -c` of the gzip stream) with ZRS_TPU_KERNEL
-unset, the CLI's default encode engine. Every output is checked: a
-compressed one decodes to the slice with stdlib zlib, a decompressed one
-equals the slice. Prints a line a run, then one JSON line with the walls,
-the smallest size from which the card's wall stays under the host's
-(compress and decompress: `TPU_THRESHOLD` in zlib_rs_tpu_torch/cli.py
-applies to the input bytes, so the decompress crossover is also given in
-gzip bytes), and the card's name and power limit. Exits 2 without a GPU.
+build/cli_crossover/, then runs each size's processes (`-c`, then `-d -c`
+of the gzip stream, host first, then each card engine) with
+ZRS_TPU_KERNEL unset, the CLI's default encode engine. Every output is
+checked: a compressed one decodes to the slice with stdlib zlib, a
+decompressed one equals the slice. Prints a line a run, then one JSON
+line with the walls, for each card engine the smallest size from which
+its wall stays under the host's (compress and decompress:
+`TPU_THRESHOLD` in zlib_rs_tpu_torch/cli.py applies to the input bytes,
+so the decompress crossover is also given in gzip bytes), and the card's
+name and power limit. Exits 2 without a GPU.
 """
 
 from __future__ import annotations
@@ -48,8 +51,11 @@ def crossover(sizes, host, card):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
+    ap.add_argument("--engines", default="native,cuda")
+    ap.add_argument("--ops", default="c,d", help="c (compress), d (decompress) or both")
     args = ap.parse_args()
     sizes = [int(s) for s in args.sizes.split(",")]
+    engines = ["host", *args.engines.split(",")]
     import torch
 
     if not torch.cuda.is_available():
@@ -80,7 +86,8 @@ def main() -> int:
                                  f"{run.stderr.decode()[-2000:]}")
         return run.stdout, wall
 
-    walls = {key: [] for key in ("c_host", "c_cuda", "d_host", "d_cuda")}
+    ops = args.ops.split(",")
+    walls = {f"{op}_{engine}": [] for op in ops for engine in engines}
     gz_sizes = []
     for n in sizes:
         data = corpus[:n]
@@ -89,28 +96,27 @@ def main() -> int:
         stream = gzip.compress(data, 6, mtime=0)
         gz.write_bytes(stream)
         gz_sizes.append(len(stream))
-        for engine in ("host", "cuda"):
+        for engine in engines if "c" in ops else ():
             out, wall = cli("-c", "--engine", engine, str(src))
             if zlib.decompress(out, 31) != data:
                 raise AssertionError(f"-c --engine {engine} of {n} bytes does not decode")
             walls[f"c_{engine}"].append(wall)
             print(f"{n} bytes -c --engine {engine}: {len(out)} bytes, {wall:.3f} s", flush=True)
-        for engine in ("host", "cuda"):
+        for engine in engines if "d" in ops else ():
             out, wall = cli("-d", "-c", "--engine", engine, str(gz))
             if out != data:
                 raise AssertionError(f"-d --engine {engine} of {n} bytes differs")
             walls[f"d_{engine}"].append(wall)
             print(f"{n} bytes -d --engine {engine} ({len(stream)} gzip bytes): {wall:.3f} s",
                   flush=True)
-    c_cross = crossover(sizes, walls["c_host"], walls["c_cuda"])
-    d_cross = crossover(sizes, walls["d_host"], walls["d_cuda"])
-    print(json.dumps({
-        "sizes": sizes, "gzip_sizes": gz_sizes, **walls,
-        "compress_crossover": c_cross, "decompress_crossover": d_cross,
-        "decompress_crossover_gzip_bytes":
-            None if d_cross is None else gz_sizes[sizes.index(d_cross)],
-        "card": smi,
-    }))
+    cross = {}
+    for engine in engines[1:]:
+        c = crossover(sizes, walls["c_host"], walls[f"c_{engine}"]) if "c" in ops else None
+        d = crossover(sizes, walls["d_host"], walls[f"d_{engine}"]) if "d" in ops else None
+        cross[engine] = {"compress": c, "decompress": d,
+                         "decompress_gzip_bytes": None if d is None else gz_sizes[sizes.index(d)]}
+    print(json.dumps({"sizes": sizes, "gzip_sizes": gz_sizes, **walls, "crossover": cross,
+                      "card": smi}))
     print(smi)
     return 0
 

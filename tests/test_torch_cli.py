@@ -6,7 +6,10 @@ same DeflateConfig rather than the JAX CLI, whose host route takes the C++
 native engine when it is built; the cuda route (`--device cpu`: the kernels'
 plain versions, the XLA engine's torch stages) against the JAX
 `compress_parallel` with the same arguments, with XLA's own 2^len weights
-swapped in as in tests/test_torch_pipeline.py. Every comparison is exact."""
+swapped in as in tests/test_torch_pipeline.py; the native route (--engine
+native, --quick, --medium, auto from the threshold, and -d under native and
+auto; `--device cpu`: EX's and SP2's plain versions) against the JAX CLI
+with its C++ native engine built. Every comparison is exact."""
 
 import gzip
 import subprocess
@@ -105,26 +108,30 @@ def test_tpu_is_cuda(capsysbinary, src):
     assert rc == 0 and out == _jax_parallel("gzip")
 
 
-def test_auto_picks_cuda_at_the_threshold(monkeypatch, capsysbinary, src):
-    # the port's threshold is measured on the H100 (cli_crossover.py); the
-    # reference's is where its TPU beats its C++ engine
-    assert (cli.TPU_THRESHOLD, jcli.TPU_THRESHOLD) == (64 * 1024, 4 * 1024 * 1024)
-    assert cli._choose_engine("auto", cli.TPU_THRESHOLD) == "cuda"
-    assert cli._choose_engine("auto", cli.TPU_THRESHOLD - 1) == "host"
-    assert [cli._choose_engine(e, 10**9) for e in ("host", "cuda")] == ["host", "cuda"]
-    # the reference without native picks the same way
-    monkeypatch.setattr(jnative, "available", lambda: False)
-    picked = []
-    monkeypatch.setattr(jp, "compress_parallel", lambda *a, **k: picked.append(1) or b"")
-    monkeypatch.setattr(jcli, "TPU_THRESHOLD", len(SLICE))
-    jcli.main(["-c", "--engine", "auto", str(src)])
-    assert picked == [1]
+def _jax_cli(capsysbinary, argv) -> bytes:
+    """The JAX CLI's stdout for argv, with its C++ native engine built."""
+    assert jnative.available()
     capsysbinary.readouterr()
-    # a small threshold sends the slice to the card's route
+    assert jcli.main(argv) == 0
+    return capsysbinary.readouterr().out
+
+
+def test_auto_picks_cuda_at_the_threshold(monkeypatch, capsysbinary, src):
+    # the port's threshold is measured on the H100 (cli_crossover.py); from
+    # it up auto takes the native engine's port, as the reference takes its
+    # native engine whenever it is built
+    assert (cli.TPU_THRESHOLD, jcli.TPU_THRESHOLD) == (64 * 1024, 4 * 1024 * 1024)
+    assert cli._choose_engine("auto", cli.TPU_THRESHOLD) == "native"
+    assert cli._choose_engine("auto", cli.TPU_THRESHOLD - 1) == "host"
+    assert [cli._choose_engine(e, 10**9) for e in ("host", "cuda", "native")] == \
+        ["host", "cuda", "native"]
+    # a small threshold sends the slice to the native route: the reference's
+    # auto with native built, chunk for chunk
     monkeypatch.setattr(cli, "TPU_THRESHOLD", len(SLICE))
+    want = _jax_cli(capsysbinary, ["-c", "--engine", "auto", "--chunk", str(CHUNK), str(src)])
     rc, out, _err = _run(capsysbinary, ["-c", "--device", "cpu", "--chunk", str(CHUNK),
                                         str(src)])
-    assert rc == 0 and out == _jax_parallel("gzip")
+    assert rc == 0 and out == want and gzip.decompress(out) == SLICE
     monkeypatch.setattr(cli, "TPU_THRESHOLD", len(SLICE) + 1)
     rc, out, _err = _run(capsysbinary, ["-c", "--device", "cpu", str(src)])
     assert rc == 0 and out == jdeflate.compress(SLICE, JDeflateConfig(level=6, window_bits=31))
@@ -136,10 +143,15 @@ def test_cuda_route_without_a_gpu_fails(monkeypatch, capsysbinary, src):
     assert rc == 1 and out == b"" and "CUDA device" in err
 
 
-@pytest.mark.parametrize("argv", [["--quick"], ["--medium"], ["--engine", "native"]])
-def test_native_modes_exit_1(src, argv):
-    with pytest.raises(SystemExit, match="needs the native engine"):
-        cli.main(["-c", *argv, str(src)])
+@pytest.mark.parametrize("argv", [["--quick"], ["--medium", "-5"], ["--engine", "native", "-9"]])
+def test_native_modes_exit_1(capsysbinary, src, argv):
+    # the native modes run on the card's port of the native engine (EX's
+    # plain version here) and equal the reference CLI's with native built
+    # (the name is from the slice where they exited 1)
+    want = _jax_cli(capsysbinary, ["-c", "--chunk", str(CHUNK), *argv, str(src)])
+    rc, out, _err = _run(capsysbinary, ["-c", "--device", "cpu", "--chunk", str(CHUNK), *argv,
+                                        str(src)])
+    assert rc == 0 and out == want and gzip.decompress(out) == SLICE
 
 
 # ---------------------------------------------------------------------------
@@ -203,18 +215,69 @@ def foreign_calls(monkeypatch):
     return calls
 
 
+@pytest.fixture
+def native_calls(monkeypatch):
+    calls = []
+    real = oneshot.card_inflate
+
+    def spy(payload, device):
+        calls.append(device)
+        return real(payload, device)
+
+    monkeypatch.setattr(oneshot, "card_inflate", spy)
+    return calls
+
+
 @pytest.mark.parametrize("engine", ["cuda", "tpu", "auto"])
 @pytest.mark.parametrize("fmt,stream", CARD_STREAMS,
                          ids=["gzip", "gzip-members", "gzip-zlib", "zlib", "raw"])
-def test_decompress_on_the_card(monkeypatch, capsysbinary, tmp_path, foreign_calls, engine,
-                                fmt, stream):
-    # auto takes the card from TPU_THRESHOLD input bytes up, as on compress
+def test_decompress_on_the_card(monkeypatch, capsysbinary, tmp_path, foreign_calls, native_calls,
+                                engine, fmt, stream):
+    # auto takes the card from TPU_THRESHOLD input bytes up, as on compress:
+    # the native decode (a raw decode a member); cuda the foreign decode
     monkeypatch.setattr(cli, "TPU_THRESHOLD", len(stream))
     p = tmp_path / "in.bin.gz"
     p.write_bytes(stream)
     rc, out, _err = _run(capsysbinary, ["-d", "-c", "--engine", engine, "--device", "cpu",
                                         "--format", fmt, str(p)])
-    assert rc == 0 and out == HOST and foreign_calls == ["cpu"]
+    assert rc == 0 and out == HOST
+    members = stream.count(b"\x1f\x8b\x08") if fmt == "gzip" and stream[:2] == b"\x1f\x8b" else 1
+    if engine == "auto":
+        assert foreign_calls == [] and native_calls == ["cpu"] * members
+    else:
+        assert foreign_calls == ["cpu"] and native_calls == []
+
+
+NATIVE_STREAMS = [
+    gzip.compress(HOST[:3000]) + gzip.compress(HOST[3000:]) + b"trailing garbage",
+    zlib.compress(HOST, 6),
+    zlib.compress(HOST, 1)[2:-4],
+    gzip.compress(HOST)[:-6],  # a trailer cut inside its crc32
+]
+
+
+@pytest.mark.parametrize("engine", ["native", "auto"])
+@pytest.mark.parametrize("k", range(len(NATIVE_STREAMS)),
+                         ids=["gzip-members", "zlib", "raw", "cut-trailer"])
+def test_native_decompress_equals_the_reference(monkeypatch, capsysbinary, tmp_path,
+                                                native_calls, engine, k):
+    stream = NATIVE_STREAMS[k]
+    fmt = {0: "gzip", 1: "zlib", 2: "raw", 3: "gzip"}[k]
+    monkeypatch.setattr(cli, "TPU_THRESHOLD", 0)
+    monkeypatch.setattr(jcli, "TPU_THRESHOLD", 0)
+    p = tmp_path / "in.gz"
+    p.write_bytes(stream)
+    argv = ["-d", "-c", "--engine", engine, "--format", fmt, str(p)]
+    capsysbinary.readouterr()
+    jrc = jcli.main(argv)
+    jout = capsysbinary.readouterr().out
+    rc, out, err = _run(capsysbinary, [*argv[:-1], "--device", "cpu", str(p)])
+    assert native_calls and set(native_calls) == {"cpu"}
+    assert (rc, out) == (jrc, jout)
+    if k < 3:
+        assert rc == 0 and out == HOST
+    else:  # native raises; auto hands the stream to the host, which fails too
+        assert rc == 1 and out == b"" and "zlib_rs_tpu_torch" in err
 
 
 @pytest.mark.parametrize("case", ["auto-below", "host", "preset-dict", "other-format"])
@@ -293,24 +356,28 @@ def test_keep_and_force_as_the_reference(tmp_path, flags, existing):
 # ---------------------------------------------------------------------------
 
 
-def test_module_help_and_native_exit(src):
+def test_module_help_and_native_exit(capsysbinary, src):
     help_ = subprocess.run([sys.executable, "-m", "zlib_rs_tpu_torch", "--help"],
                            capture_output=True, text=True, cwd=ROOT, timeout=120)
-    assert help_.returncode == 0 and "--engine" in help_.stdout and "cuda" in help_.stdout
-    quick = subprocess.run([sys.executable, "-m", "zlib_rs_tpu_torch", "--quick", str(src)],
-                           capture_output=True, text=True, cwd=ROOT, timeout=120)
-    assert quick.returncode == 1 and "needs the native engine" in quick.stderr
+    assert help_.returncode == 0 and "--engine" in help_.stdout and "native" in help_.stdout
+    # --quick runs as a process (EX's plain version under --device cpu) and
+    # writes the reference's bytes
+    quick = subprocess.run([sys.executable, "-m", "zlib_rs_tpu_torch", "-c", "--quick",
+                            "--device", "cpu", str(src)], capture_output=True, cwd=ROOT,
+                           timeout=300)
+    want = _jax_cli(capsysbinary, ["-c", "--quick", str(src)])
+    assert quick.returncode == 0 and quick.stdout == want
     assert src.exists()
 
 
 @pytest.mark.parametrize("level,window_bits", [(1, 15), (6, 31), (9, -15), (None, 15)])
 def test_oneshot_equals_jax_without_native(monkeypatch, level, window_bits):
     monkeypatch.setattr(jnative, "available", lambda: False)
-    got = zt.compress(HOST, level, window_bits=window_bits)
+    got = zt.compress(HOST, level, window_bits=window_bits, device="cpu")
     assert got == joneshot.compress(HOST, level, window_bits=window_bits)
     auto = 47 if window_bits > 0 else window_bits
-    assert zt.decompress(got, window_bits=auto) == joneshot.decompress(got, window_bits=auto)
-    assert zt.decompress(got, window_bits=auto) == HOST
+    back = zt.decompress(got, window_bits=auto, device="cpu")
+    assert back == joneshot.decompress(got, window_bits=auto) == HOST
     assert zt.compress_bound(len(HOST), level, window_bits=window_bits) == \
         joneshot.compress_bound(len(HOST), level, window_bits=window_bits)
 

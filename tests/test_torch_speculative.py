@@ -208,8 +208,9 @@ def test_wrapper_errors_propagate_out_of_build_index(monkeypatch):
         return real_inflator(*a, **k)
 
     monkeypatch.setattr(TZ, "Inflator", spy)
-    monkeypatch.setattr(SK, "MAX_BITS", 8 * len(stream) - 100)
-    with pytest.raises(ValueError, match="words must hold nbits"):
+    # words too short for the stream: an argument error, not a data fault
+    monkeypatch.setattr(SK, "stream_words", lambda d: np.zeros(4, "<i4"))
+    with pytest.raises(ValueError, match="words must hold the stream"):
         TZ.build_index(stream, 8192, device="cpu")
 
     def bad_args(*a, **k):

@@ -5,6 +5,8 @@ library that checks the argument count against the `argtypes` the wrapper
 declared and returns 0; a wrapper whose Python is broken fails on the CPU
 and not first in `chip_smoke.py`. Each call must count one launch."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from zlib_rs_tpu_torch import _device
 from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
 from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
 from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+from zlib_rs_tpu_torch.ops.kernels import exact_deflate_kernel as EK
 from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
 from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
 from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
@@ -55,7 +58,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(_device, "library", lambda name: libs.setdefault(name, _Library(calls)))
     monkeypatch.setattr(_device, "require_cuda", lambda *a: None)
     monkeypatch.setattr(_device, "stream_of", lambda t: 0)
-    for mod in (CK, CRC, DK, IK, VK, DI, SW, SK):
+    for mod in (CK, CRC, DK, IK, VK, DI, SW, SK, EK):
         monkeypatch.setattr(mod, "launches", dict.fromkeys(mod.launches, 0))
     return calls
 
@@ -120,7 +123,16 @@ def _calls(i):
         "spec_resolve": (SK, lambda: SK.spec_resolve_cuda(
             torch.tensor([65, 256, 66, 257], dtype=torch.int16),
             torch.tensor([0, 1, 4], dtype=torch.int64))),
+        "exact_deflate": (EK, lambda: EK.exact_deflate_cuda(*_ex_args(), 6)),
     }
+
+
+def _ex_args():
+    """EX's operands: 3,000 bytes and two chunks, the second primed."""
+    data = torch.from_numpy(np.frombuffer(DATA[:3000], np.uint8).copy())
+    meta = torch.tensor([[0, 1000, 0, 0, 0, 5100], [1000, 2000, 1000, 1, 5100, 6104]],
+                        dtype=torch.int64)
+    return data, meta
 
 
 def _spec_stream(i):
@@ -131,8 +143,8 @@ def _spec_stream(i):
 
 def _spec_ranges(i):
     _w, nbits = _spec_stream(i)
-    return (torch.tensor([0, nbits // 2], dtype=torch.int32),
-            torch.tensor([nbits // 2, nbits], dtype=torch.int32))
+    return (torch.tensor([0, nbits // 2], dtype=torch.int64),
+            torch.tensor([nbits // 2, nbits], dtype=torch.int64))
 
 
 def _spec_meta(i):
@@ -162,19 +174,20 @@ def _lockstep_args(i):
 
 KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_scan", "tab_scan",
            "freq", "pack", "vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1",
-           "inflate", "lockstep", "swarm_walk", "block_find", "spec_decode", "spec_resolve"]
+           "inflate", "lockstep", "swarm_walk", "block_find", "spec_decode", "spec_resolve",
+           "exact_deflate"]
 
 
 def test_every_kernel_has_a_case():
-    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK, DI, SW, SK)
+    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK, DI, SW, SK, EK)
                                      for n in m.launches)
     # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu,
     # and so are K5 and K11b, csrc/vhuff_expand.cu, and K4 and K11a,
     # csrc/vhuff_decode.cu; the lockstep engine is csrc/lockstep.cu, the
-    # swarm engine's walkers csrc/swarm.cu, and SP1-SP3 three C entries of
-    # csrc/speculative.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 5 == 13
-    assert "speculative" in _device.SOURCES
+    # swarm engine's walkers csrc/swarm.cu, SP1-SP3 three C entries of
+    # csrc/speculative.cu, and EX csrc/exact_deflate.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 5 == 14
+    assert "speculative" in _device.SOURCES and "exact_deflate" in _device.SOURCES
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
     assert "vhuff_expand" in _device.SOURCES and "vhuff_expand1" not in _device.SOURCES
     assert "vhuff_decode" in _device.SOURCES and "vhuff_decode1" not in _device.SOURCES
@@ -446,9 +459,10 @@ def test_speculative_wrappers_hand_the_kernels_their_operands(stub, inputs, monk
     """SP1's entry takes (words, W, nbits, lo, hi, T, span, surv, cap,
     count, best, stream) and reruns with room for every survivor when the
     pre-filter counts more than its list holds; SP2's (words, W, nbits,
-    meta, T, cells, recs, status, stream) with int16 cells and int32
-    [T, 8] status; SP3's (cells, n, seg_ofs, E, ptr_a, ptr_b, rounds, out,
-    flag, stream) with log2 rounds."""
+    meta, T, cells, recs, status, stream) with int16 cells and int64
+    records and [T, 8] status; SP3's (cells, n, seg_ofs, E, ptr_a, ptr_b,
+    rounds, out, flag, stream) with log2 rounds. Bit positions are 64-bit:
+    nbits a long long, lo/hi, the survivors and the best offsets int64."""
     monkeypatch.setattr(_device, "ptr", lambda t: t)
     lib = _device.library("speculative")
     words, nbits = _spec_stream(inputs)
@@ -465,10 +479,26 @@ def test_speculative_wrappers_hand_the_kernels_their_operands(stub, inputs, monk
     best = SK.block_find_cuda(words, nbits, lo, hi)
     assert caps[0] == (int((hi - lo).sum()) // SK.SURVIVOR_SHARE + 1024) and caps[1] == caps[0] + 5
     assert SK.launches["block_find"] == 2 and best.tolist() == [-1, -1]
+    assert best.dtype == torch.int64
+    lib.zrs_block_find = _Entry([], "zrs_block_find")
+    SK.block_find_cuda(words, nbits, lo, hi)
+    args = lib.zrs_block_find.args
+    assert lib.zrs_block_find.argtypes[2] is ctypes.c_longlong and args[2] == nbits
+    assert args[3].dtype == args[4].dtype == args[7].dtype == args[10].dtype == torch.int64
+    with pytest.raises(ValueError, match="int64"):
+        SK.block_find_cuda(words, nbits, lo.int(), hi.int())
     SK.spec_decode_cuda(words, nbits, _spec_meta(inputs), 64, 8)
     args = lib.zrs_spec_decode.args
     assert args[1:5:3] == (words.shape[0], 2) and args[5].dtype == torch.int16
     assert args[5].shape == (64,) and args[6].shape == (8, 2) and args[7].shape == (2, SK.STATUS)
+    assert lib.zrs_spec_decode.argtypes[2] is ctypes.c_longlong
+    assert args[6].dtype == args[7].dtype == torch.int64
+    # a stream past 2^31 bits: no size check of its own (the words are a
+    # view of one zero byte a word, enough for the check)
+    big = 1 << 34
+    huge = torch.zeros(1, dtype=torch.int32).expand(big // 32 + 2)
+    SK.spec_decode_cuda(huge, big, _spec_meta(inputs), 64, 8)
+    assert lib.zrs_spec_decode.args[2] == big
     with pytest.raises(ValueError, match="pass the buffers"):
         SK.spec_decode_cuda(words, nbits, _spec_meta(inputs), 40, 8)
     SK.spec_resolve_cuda(torch.zeros(40, dtype=torch.int16), torch.tensor([0, 9, 20, 33, 40]))
@@ -491,3 +521,39 @@ def test_speculative_dispatch_by_device(monkeypatch):
         SK.spec_resolve(torch.zeros(2, dtype=torch.int16, device=dev), torch.tensor([0, 2]))
     assert calls == [f"{n}:{d}" for d in ("plain", "cuda")
                      for n in ("block_find", "spec_decode", "spec_resolve")]
+
+
+def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
+    """EX's entry takes (data, meta, C, level, out, lens, status, scratch,
+    slots, stride, stream): int64 meta and lengths, a long long stride of
+    work_bytes(level), one slot a chunk up to MAX_SLOTS, the output buffer
+    the end of the last room."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    lib = _device.library("exact_deflate")
+    data, meta = _ex_args()
+    for level, slots, want_slots in ((6, 1024, 2), (EK.QUICK, 1024, 2), (EK.MEDIUM_BASE, 1, 1)):
+        monkeypatch.setattr(EK, "MAX_SLOTS", slots)
+        out, lens, st = EK.exact_deflate_cuda(data, meta, level)
+        args = lib.zrs_exact_deflate.args
+        assert lib.zrs_exact_deflate.argtypes[9] is ctypes.c_longlong
+        assert args[2:4] == (2, level) and args[1].dtype == torch.int64
+        assert args[8] == want_slots and args[9] == EK.work_bytes(level)
+        assert args[7].shape == (want_slots * EK.work_bytes(level),)
+        assert out.shape == (11_204,) and lens.dtype == torch.int64 and st.dtype == torch.int32
+    assert EK.work_bytes(6) == EK.WORK_BYTES and EK.work_bytes(EK.QUICK) == \
+        EK.WORK_BYTES + EK.WORK4_BYTES
+    assert EK.launches["exact_deflate"] == 3
+    with pytest.raises(ValueError, match="int64"):
+        EK.exact_deflate_cuda(data, meta.int(), 6)
+    with pytest.raises(ValueError, match="level"):
+        EK.exact_deflate_cuda(data, meta, 42)
+
+
+def test_exact_deflate_dispatch_by_device(monkeypatch):
+    calls = []
+    monkeypatch.setattr(EK, "exact_deflate_plain", lambda *a: calls.append("plain"))
+    monkeypatch.setattr(EK, "exact_deflate_cuda", lambda *a: calls.append("cuda"))
+    data, meta = _ex_args()
+    EK.exact_deflate(data, meta, 6)
+    EK.exact_deflate(data.to("meta"), meta, 6)
+    assert calls == ["plain", "cuda"]

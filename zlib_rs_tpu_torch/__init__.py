@@ -97,7 +97,8 @@ def __getattr__(name):
         return getattr(importlib.import_module(f".{mod}", __name__), attr)
     if name == "native":
         raise AttributeError(
-            f"module {__name__!r} does not carry 'native': the reference's C++ host engine "
-            "is not ported; the host layers run their Python paths"
+            f"module {__name__!r} does not carry 'native' yet: the reference's C++ engine "
+            "runs on the card as parallel.chunk_deflate and parallel.speculative, and its "
+            "resumable streams are not ported (the host layers run their Python paths)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,1410 @@
+// EX: zlib-exact deflate of independent chunks, one warp a chunk.
+//
+// Replaces no pallas_call site. It is the card's counterpart of the encode
+// half of the reference's native engine (zlib_rs_tpu/native.py
+// deflate_chunk and deflate_parallel over native/zrs_native.cpp): the
+// ChunkDeflater of zrs_native.cpp:489-1373, run() with its scan loops
+// run_fast (levels 1-3), run_slow (4-9), run_medium (MEDIUM 11-13) and
+// run_quick (QUICK 10), longest/longest4, flush_block with zlib's exact
+// tree build (TreeBuild), the stored schedule of level 0 and the sync seam
+// of a chunk that is not final. The output of a chunk is the bytes native's
+// deflate_chunk(chunk, level, final, window) returns, which for levels 1-9
+// are stdlib zlib's raw deflate of the chunk primed with the window.
+// ops/kernels/exact_deflate_kernel.py holds the plain version (the port's
+// host engines) and the wrapper.
+//
+// Bound on the H100. The bytes are the input and window read once and the
+// output written once: microseconds for megabytes at 3.35 TB/s. It is not
+// the floor. Each chunk is one serial chain of decisions (a position's
+// match decides where the next one starts, and the hash chains it walks
+// were written by the positions before it), so the floor is the longest
+// chunk's positions times the latency of a hash insert, a chain walk of
+// dependent loads and a compare, as native's thread is; a chunk has
+// nothing to run in parallel but the compare of each candidate.
+//
+// Design.
+// - One block of one warp a chunk; every chunk of a call is launched at
+//   once (a grid of `slots` blocks, each looping over the chunks
+//   k = blockIdx.x, blockIdx.x + slots, ...). Every lane runs native's
+//   control flow on the same values, with native's state in registers:
+//   a store to the scratch is made by every lane with the same value, so
+//   that each lane later reads its own store, and the warp stays converged
+//   (uniform branches, a __syncwarp at the top of every scan step).
+// - The match length of a candidate is the warp's: 8 bytes a lane, a
+//   ballot of the lanes that differ, the first mismatch from the first
+//   such lane's XOR (native's match_len_fast over 258 bytes); the
+//   zero-extended compare near the end of the data (native's match_len_z)
+//   the same over bytes read as 0 past the chunk, so that no byte of the
+//   next chunk or past the buffer is read. The pre-reject (two 16-bit
+//   loads) and the chain walk stay serial, so the candidate order and the
+//   best_len updates are native's.
+// - A chunk's scratch is a slot in device memory: head int32[32768],
+//   prevd u16[32768], the symbol buffer of 16,384 x 4 bytes and the tree
+//   build's heap and code arrays (kWorkBytes); QUICK and MEDIUM add
+//   head4 int32[65536] and prevd4 u16[32768] (kWork4Bytes). The warp
+//   zeroes the hash and chain tables at the start of a chunk, as native's
+//   vectors start.
+// - Output goes straight into the chunk's slot of room `cap`: a 64-bit
+//   word by lanes 0-7 a byte each, a stored span by all lanes. A byte past
+//   `cap` is dropped and the length still counts it; a length past `cap`
+//   is native's overflow (-1). QUICK's rewind to stored rewrites bytes
+//   already written, after a __syncwarp.
+// - RFC 1951's tables, the static trees and zlib's LEVELS rows are built
+//   on the host once and live in __constant__ memory (every lane reads the
+//   same entry, so each read is a broadcast).
+// - Without __CUDACC__ the same source compiles as host C++ (a warp of one
+//   lane, serial compares, zrs_exact_deflate_host), so that the CPU tests
+//   run this file's control flow against native.
+
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define EX_DEV __device__
+#define EX_INL __device__ __forceinline__
+#define EX_HD __host__ __device__
+// the large bodies taken once a block (the block flush, the tree build,
+// the stored emit): a call each, not a copy at every call site
+#define EX_BIG __device__ __noinline__
+#else
+#define EX_DEV
+#define EX_INL inline
+#define EX_HD inline
+#define EX_BIG
+#endif
+
+namespace {
+
+constexpr int MIN_MATCH = 3, MAX_MATCH = 258, WSIZE = 32768;
+constexpr int MIN_LOOKAHEAD = MAX_MATCH + MIN_MATCH + 1;  // 262
+constexpr int MAX_DIST = WSIZE - MIN_LOOKAHEAD;
+constexpr int HASH_SIZE = 1 << 15, HASH_SHIFT = 5;  // memLevel 8
+constexpr int TOO_FAR = 4096;
+constexpr int L_CODES = 286, D_CODES = 30, BL_CODES = 19;
+constexpr int HEAP_SIZE = 2 * L_CODES + 1;
+constexpr long long LIT_BUFSIZE = 1 << 14;  // memLevel 8
+constexpr long long SYM_END = LIT_BUFSIZE - 1;
+constexpr int QUICK_LEVEL = 10, MEDIUM_BASE = 11, WANT_MIN = 4;
+constexpr long long QSEG = 49152;
+constexpr int REP_3_6 = 16, REPZ_3_10 = 17, REPZ_11_138 = 18;
+constexpr int kMeta = 6;  // start, len, dict_len, final, out_off, out_cap
+constexpr int kOverflow = -1;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// a slot of scratch, in bytes: the exact levels' tables, then QUICK's and
+// MEDIUM's (the wrapper's WORK_BYTES and WORK4_BYTES)
+constexpr size_t kWorkBytes = 300 * 1024;
+constexpr size_t kWork4Bytes = 320 * 1024;
+
+struct Sym {
+  uint16_t dist;  // 0: a literal
+  uint16_t lenlit;
+};
+
+struct Work {
+  int32_t head[HASH_SIZE];
+  uint16_t prevd[WSIZE];  // 16-bit deltas to the previous occurrence, 0 = none
+  Sym syms[LIT_BUFSIZE];
+  // the tree build (TreeBuild::build)
+  uint64_t f[HEAP_SIZE];
+  int length[HEAP_SIZE], dad[HEAP_SIZE], depth[HEAP_SIZE], heap[HEAP_SIZE + 1];
+  // a block's frequencies and codes; QUICK's smoothed counts in llf/df
+  uint32_t llf[L_CODES], df[D_CODES], blf[BL_CODES];
+  uint8_t lll[L_CODES], dl[D_CODES], bll[BL_CODES];
+  uint16_t llc[L_CODES], dc[D_CODES], blc[BL_CODES];
+  uint32_t ltab[256];
+  uint8_t ltn[256];
+  // QUICK: the previous and the current segment's histograms
+  uint32_t llf_prev[L_CODES], df_prev[D_CODES], llf_cur[L_CODES], df_cur[D_CODES];
+};
+
+struct Work4 {  // QUICK and MEDIUM: the 4-byte-hash chains
+  int32_t head4[1 << 16];
+  uint16_t prevd4[WSIZE];
+};
+
+static_assert(sizeof(Work) <= kWorkBytes, "Work outgrew its slot");
+static_assert(sizeof(Work4) <= kWork4Bytes, "Work4 outgrew its slot");
+
+struct Tables {
+  int len_base[29], len_extra[29], dist_base[30], dist_extra[30];
+  uint8_t len_code[256];   // (len - 3) -> 0..28
+  uint8_t dist_code[512];  // zlib's two-part table
+  uint16_t s_llc[288], s_dc[30];
+  uint8_t s_lll[288], s_dl[30];
+  int good[10], lazy[10], nice[10], chain[10], slow[10];
+  int bl_order[19], extra_bl[19];
+};
+
+#ifdef __CUDACC__
+__constant__ Tables kT;
+#else
+Tables kT;
+#endif
+
+uint32_t host_bit_reverse(uint32_t v, int n) {
+  uint32_t r = 0;
+  for (int i = 0; i < n; i++) {
+    r = (r << 1) | (v & 1);
+    v >>= 1;
+  }
+  return r;
+}
+
+void host_canonical(const uint8_t* lens, int n, uint16_t* codes) {
+  int cnt[16] = {0};
+  for (int i = 0; i < n; i++) cnt[lens[i]]++;
+  cnt[0] = 0;
+  uint32_t next[16] = {0};
+  uint32_t code = 0;
+  for (int l = 1; l <= 15; l++) {
+    code = (code + cnt[l - 1]) << 1;
+    next[l] = code;
+  }
+  for (int i = 0; i < n; i++)
+    codes[i] = lens[i] ? (uint16_t)host_bit_reverse(next[lens[i]]++, lens[i]) : 0;
+}
+
+// native's Rfc1951, StaticTrees and LEVELS, on the host
+void make_tables(Tables* t) {
+  std::memset(t, 0, sizeof(Tables));
+  int l = 3, i = 0;
+  for (; i < 8; i++) {
+    t->len_base[i] = l;
+    t->len_extra[i] = 0;
+    l += 1;
+  }
+  for (int e = 1; e <= 5; e++)
+    for (int k = 0; k < 4; k++) {
+      t->len_base[i] = l;
+      t->len_extra[i] = e;
+      l += 1 << e;
+      i++;
+    }
+  t->len_base[28] = 258;
+  t->len_extra[28] = 0;
+  for (int c = 0; c < 28; c++)
+    for (int v = t->len_base[c] - 3; v < t->len_base[c + 1] - 3; v++) t->len_code[v] = (uint8_t)c;
+  t->len_code[255] = 28;
+  for (int c = 0; c < 4; c++) {
+    t->dist_base[c] = c + 1;
+    t->dist_extra[c] = 0;
+  }
+  int d = 5;
+  i = 4;
+  for (int e = 1; e <= 13; e++)
+    for (int k = 0; k < 2; k++) {
+      t->dist_base[i] = d;
+      t->dist_extra[i] = e;
+      d += 1 << e;
+      i++;
+    }
+  for (int c = 0; c < 30; c++) {
+    const int lo = t->dist_base[c];
+    const int hi = c < 29 ? t->dist_base[c + 1] : 32769;
+    for (int v = lo; v < hi && v <= 256; v++) t->dist_code[v - 1] = (uint8_t)c;
+    for (int v = lo > 257 ? lo : 257; v < hi; v++) t->dist_code[256 + ((v - 1) >> 7)] = (uint8_t)c;
+  }
+  for (int s = 0; s < 288; s++) t->s_lll[s] = s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
+  host_canonical(t->s_lll, 288, t->s_llc);
+  for (int s = 0; s < 30; s++) t->s_dl[s] = 5;
+  host_canonical(t->s_dl, 30, t->s_dc);
+  // zlib's configuration_table: levels 1-3 greedy, 4-9 lazy
+  const int rows[10][5] = {{0, 0, 0, 0, 0},       {4, 4, 8, 4, 0},       {4, 5, 16, 8, 0},
+                           {4, 6, 32, 32, 0},     {4, 4, 16, 16, 1},     {8, 16, 32, 32, 1},
+                           {8, 16, 128, 128, 1},  {8, 32, 128, 256, 1},  {32, 128, 258, 1024, 1},
+                           {32, 258, 258, 4096, 1}};
+  for (int v = 0; v < 10; v++) {
+    t->good[v] = rows[v][0];
+    t->lazy[v] = rows[v][1];
+    t->nice[v] = rows[v][2];
+    t->chain[v] = rows[v][3];
+    t->slow[v] = rows[v][4];
+  }
+  const int order[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
+  for (int s = 0; s < 19; s++) {
+    t->bl_order[s] = order[s];
+    t->extra_bl[s] = s == 16 ? 2 : s == 17 ? 3 : s == 18 ? 7 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// warp primitives (a warp of one lane on the host)
+// ---------------------------------------------------------------------------
+
+EX_INL void warp_sync() {
+#ifdef __CUDACC__
+  __syncwarp();
+#endif
+}
+
+EX_INL uint64_t load8(const uint8_t* p) {
+  uint64_t v = 0;
+  for (int j = 0; j < 8; j++) v |= (uint64_t)p[j] << (8 * j);
+  return v;
+}
+
+// byte i of the zero-extended buffer: 0 at or past `total`
+EX_INL uint8_t zbyte(const uint8_t* base, long long i, long long total) {
+  return i < total ? base[i] : (uint8_t)0;
+}
+
+// native match_len_fast(a, b, 258): the first index where a and b differ,
+// or 258; every byte in bounds
+EX_DEV int match258(const uint8_t* a, const uint8_t* b, int lane) {
+#ifdef __CUDACC__
+  const uint64_t d = load8(a + 8 * lane) ^ load8(b + 8 * lane);
+  const unsigned m = __ballot_sync(kFull, d != 0);
+  if (m) {
+    const int at = 8 * lane + ((__ffsll((long long)d) - 1) >> 3);
+    return __shfl_sync(kFull, at, __ffs(m) - 1);
+  }
+  if (a[256] != b[256]) return 256;
+  return a[257] != b[257] ? 257 : 258;
+#else
+  (void)lane;
+  int l = 0;
+  while (l < MAX_MATCH && a[l] == b[l]) l++;
+  return l;
+#endif
+}
+
+// native match_len_z: the same over the buffer zero-extended past `total`
+EX_DEV int match258_z(const uint8_t* base, long long p, long long q, long long total, int lane) {
+#ifdef __CUDACC__
+  uint64_t x = 0, y = 0;
+  const long long o = 8 * lane;
+  for (int j = 0; j < 8; j++) {
+    x |= (uint64_t)zbyte(base, p + o + j, total) << (8 * j);
+    y |= (uint64_t)zbyte(base, q + o + j, total) << (8 * j);
+  }
+  const uint64_t d = x ^ y;
+  const unsigned m = __ballot_sync(kFull, d != 0);
+  if (m) {
+    const int at = (int)o + ((__ffsll((long long)d) - 1) >> 3);
+    return __shfl_sync(kFull, at, __ffs(m) - 1);
+  }
+  for (int l = 256; l < MAX_MATCH; l++)
+    if (zbyte(base, p + l, total) != zbyte(base, q + l, total)) return l;
+  return MAX_MATCH;
+#else
+  (void)lane;
+  int l = 0;
+  while (l < MAX_MATCH && zbyte(base, p + l, total) == zbyte(base, q + l, total)) l++;
+  return l;
+#endif
+}
+
+EX_INL uint16_t load16(const uint8_t* p) { return (uint16_t)(p[0] | (p[1] << 8)); }
+
+EX_INL uint32_t bit_reverse(uint32_t v, int n) {
+#ifdef __CUDACC__
+  return __brev(v) >> (32 - n);
+#else
+  return host_bit_reverse(v, n);
+#endif
+}
+
+EX_INL int dist_to_code(int dist) {
+  const int d = dist - 1;
+  return d < 256 ? kT.dist_code[d] : kT.dist_code[256 + (d >> 7)];
+}
+
+// ---------------------------------------------------------------------------
+// the bit writer: native's 64-bit accumulator over the chunk's slot
+// ---------------------------------------------------------------------------
+
+struct BitW {
+  uint8_t* out;
+  long long cap, wpos;
+  uint64_t buf;
+  int cnt;  // bits held in buf, < 64
+  int lane;
+
+  EX_INL void store_byte(long long at, uint8_t v) {
+    if (at < cap) out[at] = v;
+  }
+  EX_INL void store8(uint64_t v) {
+#ifdef __CUDACC__
+    if (lane < 8) store_byte(wpos + lane, (uint8_t)(v >> (8 * lane)));
+#else
+    for (int j = 0; j < 8; j++) store_byte(wpos + j, (uint8_t)(v >> (8 * j)));
+#endif
+    wpos += 8;
+  }
+  // v masked to n bits, n <= 56
+  EX_INL void put64(uint64_t v, int n) {
+    if (cnt + n < 64) {
+      buf |= v << cnt;
+      cnt += n;
+    } else {
+      buf |= v << cnt;
+      store8(buf);
+      buf = v >> (64 - cnt);
+      cnt = cnt + n - 64;
+    }
+  }
+  EX_INL void put(uint32_t v, int nbits) { put64(v & ((1u << nbits) - 1u), nbits); }
+  EX_INL void byte(uint8_t b) {
+    if (lane == 0) store_byte(wpos, b);
+    wpos++;
+  }
+  EX_INL void align() {
+    while (cnt > 0) {
+      byte((uint8_t)buf);
+      buf >>= 8;
+      cnt -= 8;
+    }
+    buf = 0;
+    cnt = 0;
+  }
+  // a stored span from the input, every lane a byte in turn
+  EX_INL void bytes(const uint8_t* p, long long n) {
+#ifdef __CUDACC__
+    for (long long j = lane; j < n; j += 32) store_byte(wpos + j, p[j]);
+    warp_sync();
+#else
+    for (long long j = 0; j < n; j++) store_byte(wpos + j, p[j]);
+#endif
+    wpos += n;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// zlib's tree construction (native TreeBuild)
+// ---------------------------------------------------------------------------
+
+struct TreeBuild {
+  Work* w;
+  uint64_t opt_len, static_len;
+
+  EX_INL bool smaller(int a, int b) const {
+    return w->f[a] < w->f[b] || (w->f[a] == w->f[b] && w->depth[a] <= w->depth[b]);
+  }
+  EX_DEV void downheap(int k, int heap_len) {
+    int* heap = w->heap;
+    const int v = heap[k];
+    int j = k << 1;
+    while (j <= heap_len) {
+      if (j < heap_len && smaller(heap[j + 1], heap[j])) j++;
+      if (smaller(v, heap[j])) break;
+      heap[k] = heap[j];
+      k = j;
+      j <<= 1;
+    }
+    heap[k] = v;
+  }
+
+  EX_BIG int build(const uint32_t* freq_in, int elems, const uint8_t* stree_len, const int* extra,
+                   int extra_base, int max_length, uint8_t* lens, uint16_t* codes) {
+    const int nnodes = 2 * elems + 1;
+    uint64_t* f = w->f;
+    int* length = w->length;
+    int* dad = w->dad;
+    int* depth = w->depth;
+    int* heap = w->heap;
+    for (int i = 0; i < nnodes; i++) {
+      f[i] = 0;
+      length[i] = dad[i] = depth[i] = 0;
+    }
+    for (int i = 0; i <= HEAP_SIZE; i++) heap[i] = 0;
+    for (int i = 0; i < elems; i++) f[i] = freq_in[i];
+    int heap_len = 0, heap_max = HEAP_SIZE;
+    int max_code = -1;
+    for (int i = 0; i < elems; i++) {
+      if (f[i]) {
+        heap[++heap_len] = i;
+        max_code = i;
+        depth[i] = 0;
+      } else {
+        lens[i] = 0;
+      }
+    }
+    while (heap_len < 2) {
+      const int node = max_code < 2 ? ++max_code : 0;
+      heap[++heap_len] = node;
+      f[node] = 1;
+      depth[node] = 0;
+      opt_len--;
+      if (stree_len) static_len -= stree_len[node];
+    }
+    for (int k = heap_len / 2; k >= 1; k--) downheap(k, heap_len);
+    int node = elems;
+    do {
+      const int nmin = heap[1];
+      heap[1] = heap[heap_len--];
+      downheap(1, heap_len);
+      const int m = heap[1];
+      heap[--heap_max] = nmin;
+      heap[--heap_max] = m;
+      f[node] = f[nmin] + f[m];
+      depth[node] = (depth[nmin] > depth[m] ? depth[nmin] : depth[m]) + 1;
+      dad[nmin] = dad[m] = node;
+      heap[1] = node++;
+      downheap(1, heap_len);
+    } while (heap_len >= 2);
+    heap[--heap_max] = heap[1];
+
+    // gen_bitlen
+    int bl_count[16] = {0};
+    length[heap[heap_max]] = 0;
+    int overflow = 0;
+    for (int h = heap_max + 1; h < HEAP_SIZE; h++) {
+      const int nn = heap[h];
+      int bits = length[dad[nn]] + 1;
+      if (bits > max_length) {
+        bits = max_length;
+        overflow++;
+      }
+      length[nn] = bits;
+      if (nn > max_code) continue;
+      bl_count[bits]++;
+      const int xbits = nn >= extra_base ? extra[nn - extra_base] : 0;
+      const uint64_t fr = f[nn];
+      opt_len += fr * (uint64_t)(bits + xbits);
+      if (stree_len) static_len += fr * (uint64_t)(stree_len[nn] + xbits);
+    }
+    if (overflow > 0) {
+      do {
+        int bits = max_length - 1;
+        while (bl_count[bits] == 0) bits--;
+        bl_count[bits]--;
+        bl_count[bits + 1] += 2;
+        bl_count[max_length]--;
+        overflow -= 2;
+      } while (overflow > 0);
+      int h = HEAP_SIZE;
+      for (int bits = max_length; bits != 0; bits--) {
+        int nn = bl_count[bits];
+        while (nn != 0) {
+          const int m = heap[--h];
+          if (m > max_code) continue;
+          if (length[m] != bits) {
+            opt_len += (uint64_t)(bits - length[m]) * f[m];
+            length[m] = bits;
+          }
+          nn--;
+        }
+      }
+    }
+    // gen_codes
+    uint32_t next_code[16] = {0};
+    uint32_t code = 0;
+    for (int bits = 1; bits <= max_length; bits++) {
+      code = (code + bl_count[bits - 1]) << 1;
+      next_code[bits] = code;
+    }
+    for (int nn = 0; nn <= max_code; nn++) {
+      const int ln = length[nn];
+      lens[nn] = (uint8_t)ln;
+      codes[nn] = ln ? (uint16_t)bit_reverse(next_code[ln]++, ln) : 0;
+    }
+    for (int nn = max_code + 1; nn < elems; nn++) {
+      lens[nn] = 0;
+      codes[nn] = 0;
+    }
+    return max_code;
+  }
+};
+
+// scan_tree / send_tree: zlib's run-coalescing state machine
+EX_BIG void scan_tree(const uint8_t* lens, int max_code, uint32_t* bl_freq) {
+  int prevlen = -1, nextlen = lens[0], count = 0;
+  int max_count = nextlen == 0 ? 138 : 7;
+  int min_count = nextlen == 0 ? 3 : 4;
+  for (int n = 0; n <= max_code; n++) {
+    const int curlen = nextlen;
+    nextlen = n + 1 <= max_code ? lens[n + 1] : 0xffff;
+    if (++count < max_count && curlen == nextlen) continue;
+    if (count < min_count) {
+      bl_freq[curlen] += count;
+    } else if (curlen != 0) {
+      if (curlen != prevlen) bl_freq[curlen]++;
+      bl_freq[REP_3_6]++;
+    } else if (count <= 10) {
+      bl_freq[REPZ_3_10]++;
+    } else {
+      bl_freq[REPZ_11_138]++;
+    }
+    count = 0;
+    prevlen = curlen;
+    if (nextlen == 0) {
+      max_count = 138;
+      min_count = 3;
+    } else if (curlen == nextlen) {
+      max_count = 6;
+      min_count = 3;
+    } else {
+      max_count = 7;
+      min_count = 4;
+    }
+  }
+}
+
+EX_BIG void send_tree(BitW& bw, const uint8_t* lens, int max_code, const uint8_t* bl_len,
+                      const uint16_t* bl_code) {
+  int prevlen = -1, nextlen = lens[0], count = 0;
+  int max_count = nextlen == 0 ? 138 : 7;
+  int min_count = nextlen == 0 ? 3 : 4;
+  for (int n = 0; n <= max_code; n++) {
+    const int curlen = nextlen;
+    nextlen = n + 1 <= max_code ? lens[n + 1] : 0xffff;
+    if (++count < max_count && curlen == nextlen) continue;
+    if (count < min_count) {
+      do {
+        bw.put(bl_code[curlen], bl_len[curlen]);
+      } while (--count != 0);
+    } else if (curlen != 0) {
+      if (curlen != prevlen) {
+        bw.put(bl_code[curlen], bl_len[curlen]);
+        count--;
+      }
+      bw.put(bl_code[REP_3_6], bl_len[REP_3_6]);
+      bw.put(count - 3, 2);
+    } else if (count <= 10) {
+      bw.put(bl_code[REPZ_3_10], bl_len[REPZ_3_10]);
+      bw.put(count - 3, 3);
+    } else {
+      bw.put(bl_code[REPZ_11_138], bl_len[REPZ_11_138]);
+      bw.put(count - 11, 7);
+    }
+    count = 0;
+    prevlen = curlen;
+    if (nextlen == 0) {
+      max_count = 138;
+      min_count = 3;
+    } else if (curlen == nextlen) {
+      max_count = 6;
+      min_count = 3;
+    } else {
+      max_count = 7;
+      min_count = 4;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the chunk deflater (native ChunkDeflater), one per warp
+// ---------------------------------------------------------------------------
+
+struct MedMatch {
+  long long start;     // the match's source
+  long long strstart;  // its destination
+  long long orgstart;  // the original destination (insert bookkeeping)
+  int length;
+};
+
+struct Deflater {
+  const uint8_t* base;  // the window's position 0: the dictionary, then the chunk
+  long long dict_len, n, total;
+  int level, klevel, lane;
+  Work* w;
+  Work4* w4;
+  BitW bw;
+  long long ns, block_start;
+  // the lazy matcher's carry state (zlib's)
+  int match_length, prev_length;
+  long long match_start, prev_start;
+  bool match_available;
+  long long spos;
+  uint32_t sh;
+  bool shv;
+  // MEDIUM's pre-found next match
+  long long med_next_start, med_next_strstart, med_next_orgstart;
+  int med_next_len;
+
+  EX_INL uint32_t hash3(long long p) const {
+    return (((uint32_t)base[p] << (2 * HASH_SHIFT)) ^ ((uint32_t)base[p + 1] << HASH_SHIFT) ^
+            (uint32_t)base[p + 2]) & (uint32_t)(HASH_SIZE - 1);
+  }
+  EX_INL uint32_t roll_h(uint32_t h, long long pos) const {
+    return ((h << HASH_SHIFT) ^ (uint32_t)base[pos + 2]) & (uint32_t)(HASH_SIZE - 1);
+  }
+  EX_INL void insert_h(long long pos, uint32_t h) {
+    const long long d = pos - w->head[h];  // head 0: the delta walks to NIL
+    w->prevd[pos & (WSIZE - 1)] = (uint16_t)(d < 0xffff ? d : 0xffff);
+    w->head[h] = (int32_t)pos;
+  }
+  EX_INL long long chain_prev(long long pos) const {
+    const long long d = w->prevd[pos & (WSIZE - 1)];
+    return d ? pos - d : 0;
+  }
+  // zlib's dictionary insertion: deflateSetDictionary hashes positions
+  // 0..dict_len-3, and the first fill_window the last two (its `insert`)
+  // once the chunk's bytes complete their strings. Native stops at
+  // dict_len-3; here every dictionary position p with p + 3 <= total goes
+  // in, so that levels 1-9 give zlib's bytes where the two differ.
+  EX_DEV void insert_dict() {
+    const long long last = dict_len - 1 < total - MIN_MATCH ? dict_len - 1 : total - MIN_MATCH;
+    if (last < 0) return;
+    uint32_t h = hash3(0);
+    for (long long i = 0;; i++) {
+      insert_h(i, h);
+      if (i == last) break;
+      h = roll_h(h, i + 1);
+    }
+  }
+
+  // zlib's longest_match, decision for decision
+  EX_DEV int longest(long long pos, long long cur, int prev_len, int& best_dist) {
+    const int lookahead = (int)(total - pos);
+    int chain = kT.chain[klevel];
+    int best_len = prev_len;
+    if (prev_len >= kT.good[klevel]) chain >>= 2;
+    int nice = kT.nice[klevel];
+    if (nice > lookahead) nice = lookahead;
+    long long limit = pos - MAX_DIST;
+    if (limit < 0) limit = 0;
+    best_dist = 0;
+    if (pos + MAX_MATCH <= total) {
+      const uint8_t* here = base + pos;
+      uint16_t scan_end = load16(here + best_len - 1);
+      const uint16_t scan_start = load16(here);
+      for (;;) {
+        const uint8_t* cand = base + cur;
+        const long long next_cur = cur - w->prevd[cur & (WSIZE - 1)];
+        if (load16(cand + best_len - 1) == scan_end && load16(cand) == scan_start) {
+          const int ml = match258(here, cand, lane);
+          if (ml > best_len) {
+            best_len = ml;
+            best_dist = (int)(pos - cur);
+            if (ml >= nice) break;
+            scan_end = load16(here + best_len - 1);
+          }
+        }
+        if (next_cur >= cur) break;  // an empty link (delta 0)
+        cur = next_cur;
+        if (cur <= limit) break;
+        if (--chain == 0) break;
+      }
+    } else {
+      for (;;) {
+        const int ml = match258_z(base, pos, cur, total, lane);
+        if (ml > best_len) {
+          best_len = ml;
+          best_dist = (int)(pos - cur);
+          if (ml >= nice) break;
+        }
+        const long long next_cur = chain_prev(cur);
+        if (next_cur <= limit || next_cur >= cur) break;
+        cur = next_cur;
+        if (--chain == 0) break;
+      }
+    }
+    return best_len <= lookahead ? best_len : lookahead;
+  }
+
+  // ---- block emission ----------------------------------------------------
+
+  EX_BIG void emit_stored(long long p, long long len, bool last) {
+    long long i = 0;
+    do {
+      const long long take = len - i < 65535 ? len - i : 65535;
+      const bool fin = last && i + take == len;
+      bw.put(fin ? 1 : 0, 1);
+      bw.put(0, 2);
+      bw.align();
+      bw.byte(take & 0xff);
+      bw.byte((take >> 8) & 0xff);
+      bw.byte(~take & 0xff);
+      bw.byte((~take >> 8) & 0xff);
+      bw.bytes(base + p + i, take);
+      i += take;
+    } while (i < len);
+  }
+
+  // a block's fused length table: code and extra bits in one value
+  EX_DEV void fuse_lengths(const uint16_t* llc, const uint8_t* lll) {
+    for (int v = 0; v < 256; v++) {
+      const int lc = kT.len_code[v];
+      const int sym = 257 + lc;
+      w->ltab[v] = (uint32_t)llc[sym] | ((uint32_t)(v + 3 - kT.len_base[lc]) << lll[sym]);
+      w->ltn[v] = (uint8_t)(lll[sym] + kT.len_extra[lc]);
+    }
+  }
+
+  EX_INL void put_match(int len, int dist, const uint16_t* dc, const uint8_t* dl) {
+    const int v = len - 3;
+    const int c = dist_to_code(dist);
+    const uint64_t dfused = (uint64_t)dc[c] | ((uint64_t)(dist - kT.dist_base[c]) << dl[c]);
+    const int dn = dl[c] + kT.dist_extra[c];
+    bw.put64((uint64_t)w->ltab[v] | (dfused << w->ltn[v]), w->ltn[v] + dn);
+  }
+
+  EX_BIG void emit_symbols(const uint16_t* llc, const uint8_t* lll, const uint16_t* dc,
+                           const uint8_t* dl) {
+    fuse_lengths(llc, lll);
+    for (long long i = 0; i < ns; i++) {
+      const Sym s = w->syms[i];
+      if (s.dist == 0)
+        bw.put64(llc[s.lenlit], lll[s.lenlit]);
+      else
+        put_match(s.lenlit, s.dist, dc, dl);
+    }
+    bw.put64(llc[256], lll[256]);  // EOB
+  }
+
+  // the dynamic header of trees built from llf/df into lll/llc, dl/dc;
+  // returns (l_max, d_max, max_blindex) through the pointers and the bits
+  // of the trees in opt_len, static_len
+  EX_BIG void build_trees(int* l_max, int* d_max, int* max_blindex, uint64_t* opt_len,
+                          uint64_t* static_len) {
+    TreeBuild tb{w, 0, 0};
+    *l_max = tb.build(w->llf, L_CODES, kT.s_lll, kT.len_extra, 257, 15, w->lll, w->llc);
+    *d_max = tb.build(w->df, D_CODES, kT.s_dl, kT.dist_extra, 0, 15, w->dl, w->dc);
+    for (int i = 0; i < BL_CODES; i++) w->blf[i] = 0;
+    scan_tree(w->lll, *l_max, w->blf);
+    scan_tree(w->dl, *d_max, w->blf);
+    tb.build(w->blf, BL_CODES, nullptr, kT.extra_bl, 0, 7, w->bll, w->blc);
+    int mb = BL_CODES - 1;
+    while (mb >= 3 && w->bll[kT.bl_order[mb]] == 0) mb--;
+    *max_blindex = mb;
+    *opt_len = tb.opt_len;
+    *static_len = tb.static_len;
+  }
+
+  EX_DEV void send_header(bool last, int l_max, int d_max, int max_blindex) {
+    bw.put((2u << 1) + (last ? 1u : 0u), 3);
+    bw.put(l_max + 1 - 257, 5);
+    bw.put(d_max + 1 - 1, 5);
+    bw.put(max_blindex + 1 - 4, 4);
+    for (int i = 0; i <= max_blindex; i++) bw.put(w->bll[kT.bl_order[i]], 3);
+    send_tree(bw, w->lll, l_max, w->bll, w->blc);
+    send_tree(bw, w->dl, d_max, w->bll, w->blc);
+  }
+
+  // zlib's _tr_flush_block: exact trees, the whole-byte cost rule
+  EX_BIG void flush_block(bool last, long long block_end) {
+    warp_sync();
+    const long long stored_len = block_end - block_start;
+    uint64_t opt_lenb, static_lenb;
+    int l_max = 0, d_max = 0, max_blindex = 0;
+    if (level > 0) {
+      for (int i = 0; i < L_CODES; i++) w->llf[i] = 0;
+      for (int i = 0; i < D_CODES; i++) w->df[i] = 0;
+      w->llf[256] = 1;
+      for (long long i = 0; i < ns; i++) {
+        const Sym s = w->syms[i];
+        if (s.dist == 0) {
+          w->llf[s.lenlit]++;
+        } else {
+          w->llf[257 + kT.len_code[s.lenlit - 3]]++;
+          w->df[dist_to_code(s.dist)]++;
+        }
+      }
+      uint64_t opt_len, static_len;
+      build_trees(&l_max, &d_max, &max_blindex, &opt_len, &static_len);
+      opt_len += 3ull * (max_blindex + 1) + 5 + 5 + 4;
+      opt_lenb = (opt_len + 3 + 7) >> 3;
+      static_lenb = (static_len + 3 + 7) >> 3;
+      if (static_lenb <= opt_lenb) opt_lenb = static_lenb;
+    } else {
+      opt_lenb = static_lenb = (uint64_t)stored_len + 5;
+    }
+    if ((uint64_t)stored_len + 4 <= opt_lenb) {
+      emit_stored(block_start, stored_len, last);
+    } else if (static_lenb == opt_lenb) {
+      bw.put((1u << 1) + (last ? 1u : 0u), 3);
+      emit_symbols(kT.s_llc, kT.s_lll, kT.s_dc, kT.s_dl);
+    } else {
+      send_header(last, l_max, d_max, max_blindex);
+      emit_symbols(w->llc, w->lll, w->dc, w->dl);
+    }
+    ns = 0;
+    block_start = block_end;
+    warp_sync();
+  }
+
+  EX_INL void push(int dist, int lenlit) {
+    w->syms[ns].dist = (uint16_t)dist;
+    w->syms[ns].lenlit = (uint16_t)lenlit;
+    ns++;
+  }
+
+  // greedy loop, levels 1-3 (zlib deflate_fast)
+  EX_DEV void run_fast() {
+    const int lazy = kT.lazy[klevel];
+    spos = dict_len;
+    insert_dict();
+    while (spos < total) {
+      warp_sync();
+      long long hash_head = 0;
+      if (spos + MIN_MATCH <= total) {
+        if (!shv) {
+          sh = hash3(spos);
+          shv = true;
+        }
+        insert_h(spos, sh);
+        hash_head = chain_prev(spos);
+      }
+      int ml = 0, mdist = 0;
+      if (hash_head > 0 && spos - hash_head <= MAX_DIST) ml = longest(spos, hash_head, MIN_MATCH - 1, mdist);
+      if (ml >= MIN_MATCH && mdist > 0) {
+        push(mdist, ml);
+        const long long end = spos + ml;
+        if (ml <= lazy && total - end >= MIN_MATCH) {
+          uint32_t h2 = sh;  // the hash at spos; interiors roll from it
+          for (long long p2 = spos + 1; p2 < end; p2++) {
+            h2 = roll_h(h2, p2);
+            insert_h(p2, h2);
+          }
+        }
+        spos = end;
+        shv = false;
+      } else {
+        push(0, base[spos]);
+        spos++;
+        if (shv) {
+          if (spos + MIN_MATCH <= total)
+            sh = roll_h(sh, spos);
+          else
+            shv = false;
+        }
+      }
+      if (ns >= SYM_END) flush_block(false, spos);
+    }
+  }
+
+  // lazy loop, levels 4-9 (zlib deflate_slow), then the deferred literal
+  EX_DEV void run_slow() {
+    const int lazy = kT.lazy[klevel];
+    spos = dict_len;
+    insert_dict();
+    while (spos < total) {
+      warp_sync();
+      long long hash_head = 0;
+      if (spos + MIN_MATCH <= total) {
+        if (!shv) {
+          sh = hash3(spos);
+          shv = true;
+        }
+        insert_h(spos, sh);
+        hash_head = chain_prev(spos);
+      }
+      prev_length = match_length;
+      prev_start = match_start;
+      match_length = MIN_MATCH - 1;
+      if (hash_head > 0 && prev_length < lazy && spos - hash_head <= MAX_DIST) {
+        int mdist = 0;
+        match_length = longest(spos, hash_head, prev_length, mdist);
+        if (mdist > 0) match_start = spos - mdist;
+        if (match_length <= 5 && (match_length == MIN_MATCH && spos - match_start > TOO_FAR))
+          match_length = MIN_MATCH - 1;
+      }
+      if (prev_length >= MIN_MATCH && match_length <= prev_length) {
+        push((int)(spos - 1 - prev_start), prev_length);
+        const long long end_ins = spos + prev_length - 1;  // exclusive
+        uint32_t h2 = sh;  // the hash at spos
+        for (long long p2 = spos + 1; p2 < end_ins; p2++) {
+          if (p2 + MIN_MATCH > total) break;
+          h2 = roll_h(h2, p2);
+          insert_h(p2, h2);
+        }
+        spos = spos + prev_length - 1;
+        shv = false;
+        match_available = false;
+        match_length = MIN_MATCH - 1;
+        if (ns >= SYM_END) flush_block(false, spos);
+      } else if (match_available) {
+        push(0, base[spos - 1]);
+        if (ns >= SYM_END) flush_block(false, spos);
+        spos++;
+        if (shv) {
+          if (spos + MIN_MATCH <= total)
+            sh = roll_h(sh, spos);
+          else
+            shv = false;
+        }
+      } else {
+        match_available = true;
+        spos++;
+        if (shv) {
+          if (spos + MIN_MATCH <= total)
+            sh = roll_h(sh, spos);
+          else
+            shv = false;
+        }
+      }
+    }
+    if (match_available) {  // zlib's end-of-stream step
+      push(0, base[total - 1]);
+      match_available = false;
+    }
+  }
+
+  // ---- MEDIUM (levels 11-13) ----------------------------------------------
+
+  EX_INL uint32_t hash4(long long p) const {
+    const uint32_t v = (uint32_t)base[p] | ((uint32_t)base[p + 1] << 8) |
+                       ((uint32_t)base[p + 2] << 16) | ((uint32_t)base[p + 3] << 24);
+    return (v * 2654435761u) >> 16;
+  }
+  EX_INL void insert4(long long pos) {
+    const uint32_t h = hash4(pos);
+    const long long d = pos - w4->head4[h];
+    w4->prevd4[pos & (WSIZE - 1)] = (uint16_t)(d < 0xffff ? d : 0xffff);
+    w4->head4[h] = (int32_t)pos;
+  }
+  EX_INL long long chain_prev4(long long pos) const {
+    const long long d = w4->prevd4[pos & (WSIZE - 1)];
+    return d ? pos - d : 0;
+  }
+  EX_DEV void insert_range(long long p, long long count) {
+    for (long long i = 0; i < count && p + i + 4 <= total; i++) insert4(p + i);
+  }
+
+  EX_DEV int longest4(long long pos, long long cur, int& best_dist) {
+    const int lookahead = (int)(total - pos);
+    int chain = kT.chain[klevel];
+    int best_len = WANT_MIN - 1;
+    int nice = kT.nice[klevel];
+    if (nice > lookahead) nice = lookahead;
+    long long limit = pos - MAX_DIST;
+    if (limit < 0) limit = 0;
+    best_dist = 0;
+    if (pos + MAX_MATCH <= total) {
+      const uint8_t* here = base + pos;
+      uint16_t scan_end = load16(here + best_len - 1);
+      const uint16_t scan_start = load16(here);
+      for (;;) {
+        const uint8_t* cand = base + cur;
+        const long long next_cur = cur - w4->prevd4[cur & (WSIZE - 1)];
+        if (load16(cand + best_len - 1) == scan_end && load16(cand) == scan_start) {
+          const int ml = match258(here, cand, lane);
+          if (ml > best_len) {
+            best_len = ml;
+            best_dist = (int)(pos - cur);
+            if (ml >= nice) break;
+            scan_end = load16(here + best_len - 1);
+          }
+        }
+        if (next_cur >= cur) break;
+        cur = next_cur;
+        if (cur <= limit) break;
+        if (--chain == 0) break;
+      }
+    } else {
+      for (;;) {
+        const int ml = match258_z(base, pos, cur, total, lane);
+        if (ml > best_len) {
+          best_len = ml;
+          best_dist = (int)(pos - cur);
+          if (ml >= nice) break;
+        }
+        const long long next_cur = chain_prev4(cur);
+        if (next_cur <= limit || next_cur >= cur) break;
+        cur = next_cur;
+        if (--chain == 0) break;
+      }
+    }
+    if (!best_dist) return 0;
+    return best_len <= lookahead ? best_len : lookahead;
+  }
+
+  EX_DEV void med_insert_match(MedMatch m) {
+    if (total - m.strstart <= (long long)m.length + WANT_MIN) return;
+    if (m.length < WANT_MIN) {  // a literal run: hash the covered tail
+      m.strstart += 1;
+      m.length -= 1;
+      if (m.length > 0 && m.strstart >= m.orgstart) {
+        const long long cnt =
+            m.strstart + m.length > m.orgstart ? (long long)m.length : m.orgstart - m.strstart + 1;
+        insert_range(m.strstart, cnt);
+      }
+      return;
+    }
+    if ((long long)m.length <= 16LL * kT.lazy[klevel] && total - m.strstart >= WANT_MIN) {
+      m.length -= 1;  // the string at strstart is in the table already
+      m.strstart += 1;
+      if (m.strstart >= m.orgstart) {
+        const long long cnt =
+            m.strstart + m.length > m.orgstart ? (long long)m.length : m.orgstart - m.strstart + 1;
+        insert_range(m.strstart, cnt);
+      } else if (m.orgstart < m.strstart + m.length) {
+        insert_range(m.orgstart, m.strstart + m.length - m.orgstart);
+      }
+    } else {  // a jump: only the position before the landing spot
+      m.strstart += m.length;
+      m.length = 0;
+      if (m.strstart >= 1 && m.strstart - 1 + 4 <= total) insert4(m.strstart - 1);
+    }
+  }
+
+  EX_DEV void med_fizzle(MedMatch& cur, MedMatch& nm) {
+    if (cur.length <= 1) return;
+    if ((long long)cur.length > 1 + nm.start) return;
+    if ((long long)cur.length > 1 + nm.strstart) return;
+    if (base[nm.start - cur.length + 1] != base[nm.strstart - cur.length + 1]) return;
+    const long long limit = nm.strstart > MAX_DIST ? nm.strstart - MAX_DIST : 0;
+    MedMatch c = cur, nx = nm;
+    long long mi = nx.start, oi = nx.strstart;
+    int changed = 0;
+    while (mi >= 1 && oi >= 1 && base[mi - 1] == base[oi - 1]) {
+      if (c.length < 1) break;
+      if (nx.strstart <= limit) break;
+      if (nx.length >= 256) break;
+      if (nx.start <= 1) break;
+      nx.strstart--;
+      nx.start--;
+      nx.length++;
+      c.length--;
+      mi--;
+      oi--;
+      changed++;
+    }
+    if (!changed) return;
+    if (c.length <= 1 && nx.length != 2) {
+      nx.orgstart += 1;
+      cur = c;
+      nm = nx;
+    }
+  }
+
+  EX_DEV void run_medium() {
+    const bool early_exit = klevel < 5;
+    spos = dict_len;
+    for (long long i = 0; i + 4 <= dict_len; i++) insert4(i);
+    while (spos < total) {
+      warp_sync();
+      MedMatch cur;
+      if (!early_exit && med_next_len > 0) {
+        cur = MedMatch{med_next_start, med_next_strstart, med_next_orgstart, med_next_len};
+        med_next_len = 0;
+      } else {
+        long long hash_head = 0;
+        if (spos + 4 <= total) {
+          insert4(spos);
+          hash_head = chain_prev4(spos);
+        }
+        cur = MedMatch{0, spos, spos, 1};
+        if (hash_head > 0 && spos - hash_head <= MAX_DIST) {
+          int mdist = 0;
+          const int ml = longest4(spos, hash_head, mdist);
+          if (mdist > 0 && ml >= WANT_MIN) {
+            cur.start = spos - mdist;
+            cur.length = ml;
+          }
+          if (cur.start >= cur.strstart) cur.length = 1;
+        }
+      }
+      med_insert_match(cur);
+      // look one match ahead and trim the overlap
+      if (!early_exit && total - cur.strstart > MIN_LOOKAHEAD) {
+        const long long nxt = cur.strstart + cur.length;
+        long long hh = 0;
+        if (nxt + 4 <= total) {
+          insert4(nxt);
+          hh = chain_prev4(nxt);
+        }
+        MedMatch nm{0, nxt, nxt, 1};
+        if (hh > 0 && nxt - hh <= MAX_DIST) {
+          int mdist = 0;
+          const int ml = longest4(nxt, hh, mdist);
+          if (mdist > 0 && ml >= WANT_MIN) {
+            nm.start = nxt - mdist;
+            nm.length = ml;
+          }
+          if (nm.start >= nm.strstart) nm.length = 1;
+          if (nm.length >= WANT_MIN) med_fizzle(cur, nm);
+        }
+        med_next_start = nm.start;
+        med_next_strstart = nm.strstart;
+        med_next_orgstart = nm.orgstart;
+        med_next_len = nm.length;
+      } else {
+        med_next_len = 0;
+      }
+      if (cur.length < WANT_MIN) {
+        for (int i = 0; i < cur.length; i++) push(0, base[cur.strstart + i]);
+      } else {
+        push((int)(cur.strstart - cur.start), cur.length);
+      }
+      spos = cur.strstart + cur.length;
+      if (ns >= SYM_END - 4) flush_block(false, spos);
+    }
+  }
+
+  // ---- QUICK (level 10): adaptive trees a 48 KiB segment ----------------
+
+  EX_DEV void run_quick(bool last) {
+    for (long long i = 0; i + 4 <= dict_len; i++) insert4(i);
+    long long pos = dict_len;
+    if (pos >= total) {  // empty input: one empty static block
+      bw.put((1u << 1) + (last ? 1u : 0u), 3);
+      bw.put64(kT.s_llc[256], kT.s_lll[256]);
+      return;
+    }
+    bool have_prev = false, final_emitted = false;
+    while (pos < total) {
+      const long long seg_start = pos;
+      const long long seg_end = pos + QSEG < total ? pos + QSEG : total;
+      const bool seg_last_possible = last && seg_end == total;
+      const uint64_t sb = bw.buf;
+      const int sc = bw.cnt;
+      const long long sw = bw.wpos;
+      const uint16_t *llc_c, *dc_c;
+      const uint8_t *lll_c, *dl_c;
+      if (have_prev) {
+        for (int i = 0; i < L_CODES; i++) w->llf[i] = w->llf_prev[i] + 1;
+        for (int i = 0; i < D_CODES; i++) w->df[i] = w->df_prev[i] + 1;
+        int l_max, d_max, max_blindex;
+        uint64_t opt_len, static_len;
+        build_trees(&l_max, &d_max, &max_blindex, &opt_len, &static_len);
+        send_header(seg_last_possible, l_max, d_max, max_blindex);
+        llc_c = w->llc;
+        lll_c = w->lll;
+        dc_c = w->dc;
+        dl_c = w->dl;
+      } else {
+        bw.put((1u << 1) + (seg_last_possible ? 1u : 0u), 3);
+        llc_c = kT.s_llc;
+        lll_c = kT.s_lll;
+        dc_c = kT.s_dc;
+        dl_c = kT.s_dl;
+      }
+      fuse_lengths(llc_c, lll_c);
+      for (int i = 0; i < L_CODES; i++) w->llf_cur[i] = 0;
+      for (int i = 0; i < D_CODES; i++) w->df_cur[i] = 0;
+      while (pos < seg_end) {
+        warp_sync();
+        if (pos + 4 <= total) {
+          insert4(pos);
+          const long long cand = chain_prev4(pos);
+          if (cand > 0 && pos - cand <= MAX_DIST) {
+            int ml = pos + MAX_MATCH <= total ? match258(base + pos, base + cand, lane)
+                                             : match258_z(base, cand, pos, total, lane);
+            if (ml > (int)(total - pos)) ml = (int)(total - pos);
+            if (ml >= 4) {
+              const int dist = (int)(pos - cand);
+              put_match(ml, dist, dc_c, dl_c);
+              w->llf_cur[257 + kT.len_code[ml - 3]]++;
+              w->df_cur[dist_to_code(dist)]++;
+              pos += ml;
+              continue;
+            }
+          }
+        }
+        const uint8_t c = base[pos];
+        bw.put64(llc_c[c], lll_c[c]);
+        w->llf_cur[c]++;
+        pos++;
+      }
+      bw.put64(llc_c[256], lll_c[256]);  // EOB
+      w->llf_cur[256]++;
+      // the whole-byte cost rule: rewind to stored when the block expanded
+      const long long seg_bytes = pos - seg_start;  // a match may overshoot seg_end
+      const long long bits_used = (bw.wpos * 8 + bw.cnt) - (sw * 8 + sc);
+      const long long nstored = (seg_bytes + 65534) / 65535;
+      const long long stored_bits = 7 + nstored * 40 + seg_bytes * 8;
+      const bool is_seg_last = last && pos >= total;
+      if (bits_used <= stored_bits) {
+        final_emitted |= seg_last_possible;
+      } else {
+        warp_sync();
+        bw.buf = sb;
+        bw.cnt = sc;
+        bw.wpos = sw;
+        long long p = seg_start;
+        while (p < pos) {
+          const long long take = pos - p < 65535 ? pos - p : 65535;
+          const bool lb = is_seg_last && p + take == pos;
+          bw.put(lb ? 1u : 0u, 3);  // BFINAL, BTYPE 00
+          bw.align();
+          bw.byte((uint8_t)(take & 0xFF));
+          bw.byte((uint8_t)(take >> 8));
+          bw.byte((uint8_t)(~take & 0xFF));
+          bw.byte((uint8_t)((~take >> 8) & 0xFF));
+          bw.bytes(base + p, take);
+          p += take;
+          final_emitted |= lb;
+        }
+      }
+      for (int i = 0; i < L_CODES; i++) w->llf_prev[i] = w->llf_cur[i];
+      for (int i = 0; i < D_CODES; i++) w->df_prev[i] = w->df_cur[i];
+      have_prev = true;
+    }
+    if (last && !final_emitted) {
+      // a match overshot its segment to the end of the input after the
+      // header had BFINAL 0: an empty final static block closes the stream
+      bw.put((1u << 1) + 1u, 3);
+      bw.put64(kT.s_llc[256], kT.s_lll[256]);
+    }
+  }
+
+  EX_DEV void seam() {  // byte-align with an empty stored block
+    bw.put(0, 1);
+    bw.put(0, 2);
+    bw.align();
+    bw.byte(0x00);
+    bw.byte(0x00);
+    bw.byte(0xff);
+    bw.byte(0xff);
+  }
+
+  EX_DEV void run(bool final_flag) {
+    if (level == QUICK_LEVEL) {
+      run_quick(final_flag);
+      if (!final_flag)
+        seam();
+      else
+        bw.align();
+      return;
+    }
+    if (level == 0) {  // the ample-output stored schedule
+      if (final_flag) {
+        long long pos = dict_len;
+        for (;;) {
+          const long long take = total - pos < 65535 ? total - pos : 65535;
+          const bool lastb = take == total - pos;
+          emit_stored(pos, take, lastb);
+          pos += take;
+          if (lastb) break;
+        }
+      } else {
+        emit_stored(dict_len, n, false);
+        bw.align();
+        seam();
+      }
+      return;
+    }
+    if (level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2)
+      run_medium();
+    else if (kT.slow[level])
+      run_slow();
+    else
+      run_fast();
+    if (final_flag) {
+      flush_block(true, total);
+      bw.align();
+    } else {
+      if (ns != 0 || block_start < total) flush_block(false, total);
+      seam();
+    }
+  }
+};
+
+// one chunk: m = its meta row; returns its length, *status 0 or kOverflow
+EX_DEV long long deflate_one(const uint8_t* in, const long long* m, int level, uint8_t* out,
+                             Work* w, Work4* w4, int lane, int lanes, int* status) {
+  const long long start = m[0], n = m[1], dict_len = m[2];
+  const bool final_flag = m[3] != 0;
+  for (int i = lane; i < HASH_SIZE; i += lanes) w->head[i] = 0;
+  for (int i = lane; i < WSIZE; i += lanes) w->prevd[i] = 0;
+  if (w4) {
+    for (int i = lane; i < (1 << 16); i += lanes) w4->head4[i] = 0;
+    for (int i = lane; i < WSIZE; i += lanes) w4->prevd4[i] = 0;
+  }
+  warp_sync();
+  Deflater d;
+  d.base = in + start - dict_len;
+  d.dict_len = dict_len;
+  d.n = n;
+  d.total = dict_len + n;
+  d.level = level;
+  d.klevel = level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2 ? level - MEDIUM_BASE + 5
+             : level >= 0 && level <= 9                         ? level
+                                                                : 6;
+  d.lane = lane;
+  d.w = w;
+  d.w4 = w4;
+  d.bw = BitW{out + m[4], m[5], 0, 0, 0, lane};
+  d.ns = 0;
+  d.block_start = dict_len;
+  d.match_length = d.prev_length = MIN_MATCH - 1;
+  d.match_start = d.prev_start = 0;
+  d.match_available = false;
+  d.spos = 0;
+  d.sh = 0;
+  d.shv = false;
+  d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
+  d.med_next_len = 0;
+  d.run(final_flag);
+  warp_sync();
+  *status = d.bw.wpos > d.bw.cap ? kOverflow : 0;
+  return d.bw.wpos;
+}
+
+EX_HD bool needs_work4(int level) {
+  return level == QUICK_LEVEL || (level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2);
+}
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(32)
+exact_deflate(const uint8_t* __restrict__ in, const long long* __restrict__ meta, int chunks,
+              int level, uint8_t* __restrict__ out, long long* __restrict__ lens,
+              int* __restrict__ status, uint8_t* __restrict__ scratch, long long stride) {
+  const int lane = threadIdx.x;
+  uint8_t* slot = scratch + (size_t)blockIdx.x * (size_t)stride;
+  Work* w = (Work*)slot;
+  Work4* w4 = needs_work4(level) ? (Work4*)(slot + kWorkBytes) : nullptr;
+  for (int k = blockIdx.x; k < chunks; k += gridDim.x) {
+    int st = 0;
+    const long long len = deflate_one(in, meta + (size_t)k * kMeta, level, out, w, w4, lane, 32, &st);
+    if (lane == 0) {
+      lens[k] = len;
+      status[k] = st;
+    }
+    __syncwarp();
+  }
+}
+
+int g_tables_ready[64];
+#endif
+
+}  // namespace
+
+// the bytes of a slot of scratch a chunk needs at `level`
+extern "C" long long zrs_exact_deflate_work_bytes(int level) {
+  return (long long)(kWorkBytes + (needs_work4(level) ? kWork4Bytes : 0));
+}
+
+#ifdef __CUDACC__
+// EX over `chunks` chunks of meta (int64 [chunks, 6]: start, len, dict_len,
+// final, out_off, out_cap; the input bytes of a chunk are
+// in[start - dict_len, start + len), its dictionary first), all at one
+// level (0-9, 10 QUICK, 11-13 MEDIUM), on `slots` warps each with a slot of
+// `stride` bytes of scratch; lens int64 [chunks], status int32 [chunks]
+extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, int level, void* out,
+                                 void* lens, void* status, void* scratch, int slots,
+                                 long long stride, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!g_tables_ready[dev]) {
+    Tables t;
+    make_tables(&t);
+    err = cudaMemcpyToSymbol(kT, &t, sizeof(Tables));
+    if (err != cudaSuccess) return (int)err;
+    g_tables_ready[dev] = 1;
+  }
+  if (stride < zrs_exact_deflate_work_bytes(level)) return (int)cudaErrorInvalidValue;
+  if (chunks > 0 && slots > 0)
+    exact_deflate<<<slots, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)in, (const long long*)meta, chunks, level, (uint8_t*)out,
+        (long long*)lens, (int*)status, (uint8_t*)scratch, stride);
+  return (int)cudaGetLastError();
+}
+#else
+// the same on the host, a chunk at a time with one lane: the CPU tests'
+// way into this file's control flow
+extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chunks, int level,
+                                      void* out, void* lens, void* status) {
+  static bool ready = false;
+  if (!ready) {
+    make_tables(&kT);
+    ready = true;
+  }
+  uint8_t* slot = (uint8_t*)std::malloc(kWorkBytes + kWork4Bytes);
+  if (!slot) return 1;
+  Work* w = (Work*)slot;
+  Work4* w4 = needs_work4(level) ? (Work4*)(slot + kWorkBytes) : nullptr;
+  for (int k = 0; k < chunks; k++)
+    ((long long*)lens)[k] = deflate_one((const uint8_t*)in, (const long long*)meta + (size_t)k * kMeta,
+                                        level, (uint8_t*)out, w, w4, 0, 1, (int*)status + k);
+  std::free(slot);
+  return 0;
+}
+#endif

@@ -20,6 +20,11 @@
 // bytes out.
 //
 // Design.
+// - Stream bit positions are 64-bit everywhere: SP1's ranges, survivors and
+//   best offsets, SP2's start, stop and end bits and its block-start
+//   records, int64 from the host's chain walk on (a stream of 2^28 bytes
+//   or more has bit positions past int32). Cell counts stay int32, a
+//   segment's room being under 2^31 cells.
 // - SP1 runs two passes. The pre-filter is a thread a bit offset over every
 //   searched range: the chain's first header by its type, a stored LEN and
 //   NLEN, or a dynamic header's counts and a complete code-length code,
@@ -108,11 +113,11 @@ __device__ __forceinline__ uint32_t bits_at(const uint32_t* w, int top, long lon
 
 // the chain's first header without tables: a stored LEN/NLEN, or a dynamic
 // header's counts and a complete code-length code
-__device__ bool prefilter(const uint32_t* w, int top, int N, int b) {
+__device__ bool prefilter(const uint32_t* w, int top, long long N, long long b) {
   if (b + 3 > N) return false;
   const int typ = (int)bits_at(w, top, b + 1, 2);
   if (typ == 0) {
-    const int q = (b + 10) & ~7;
+    const long long q = (b + 10) & ~7LL;
     if (q + 32 > N) return false;
     const uint32_t v = peek32(w, top, q);
     const uint32_t ln = v & 0xFFFFu, nln = v >> 16;
@@ -146,7 +151,7 @@ __device__ bool kraft_bad(const int* cnt, int kind) {
 
 // native parse_dynamic_tables at `pos` (after the block's 3 header bits),
 // without building the tables: 0 when it would accept the header
-__device__ int dynamic_ok(const uint32_t* w, int top, int N, int pos) {
+__device__ int dynamic_ok(const uint32_t* w, int top, long long N, long long pos) {
   if (N - pos < 14) return kTruncated;
   const uint32_t h = bits_at(w, top, pos, 14);
   const int nlen = (int)(h & 31u) + 257, ndist = (int)((h >> 5) & 31u) + 1;
@@ -235,15 +240,16 @@ __device__ int dynamic_ok(const uint32_t* w, int top, int N, int pos) {
 __device__ __forceinline__ uint32_t rev_bits(uint32_t v, int n) { return __brev(v) >> (32 - n); }
 
 // native validate_header_at(b, depth 6)
-__device__ bool validate(const uint32_t* w, int top, int N, int b) {
-  int pos = b, stored = 0;
+__device__ bool validate(const uint32_t* w, int top, long long N, long long b) {
+  long long pos = b;
+  int stored = 0;
   for (int d = 0; d < kDepth; d++) {
     if (N - pos < 3) return false;
     const int typ = (int)bits_at(w, top, pos + 1, 2);
     pos += 3;
     if (typ == 3 || (typ == 1 && d == 0)) return false;
     if (typ == 0) {
-      pos = (pos + 7) & ~7;
+      pos = (pos + 7) & ~7LL;
       if (N - pos < 32) return false;
       const uint32_t v = peek32(w, top, pos);
       const int ln = (int)(v & 0xFFFFu), nln = (int)(v >> 16);
@@ -304,13 +310,13 @@ __device__ bool validate(const uint32_t* w, int top, int N, int b) {
 }
 
 __global__ void __launch_bounds__(kFindThreads)
-find_prefilter(const uint32_t* __restrict__ w, int top, int N, const int* __restrict__ lo,
-               const int* __restrict__ hi, int tiles, int2* __restrict__ surv, int cap,
+find_prefilter(const uint32_t* __restrict__ w, int top, long long N, const long long* __restrict__ lo,
+               const long long* __restrict__ hi, int tiles, longlong2* __restrict__ surv, int cap,
                int* __restrict__ count) {
   const int k = blockIdx.x / tiles;
   const int t = blockIdx.x % tiles;
-  const long long b = (long long)lo[k] + (long long)t * kFindThreads + threadIdx.x;
-  const bool pass = b < hi[k] && b < N && b >= 0 && prefilter(w, top, N, (int)b);
+  const long long b = lo[k] + (long long)t * kFindThreads + threadIdx.x;
+  const bool pass = b < hi[k] && b < N && b >= 0 && prefilter(w, top, N, b);
   const unsigned m = __ballot_sync(kFull, pass);
   if (!m) return;
   const int lane = threadIdx.x & 31;
@@ -320,18 +326,19 @@ find_prefilter(const uint32_t* __restrict__ w, int top, int N, const int* __rest
   base = __shfl_sync(kFull, base, leader);
   if (pass) {
     const int idx = base + __popc(m & ((1u << lane) - 1u));
-    if (idx < cap) surv[idx] = make_int2((int)b, k);
+    if (idx < cap) surv[idx] = make_longlong2(b, k);
   }
 }
 
 __global__ void __launch_bounds__(kCheckThreads)
-find_check(const uint32_t* __restrict__ w, int top, int N, const int2* __restrict__ surv, int cap,
-           const int* __restrict__ count, int* best) {
+find_check(const uint32_t* __restrict__ w, int top, long long N, const longlong2* __restrict__ surv,
+           int cap, const int* __restrict__ count, unsigned long long* best) {
   const long long i = (long long)blockIdx.x * kCheckThreads + threadIdx.x;
   if (i >= min(*count, cap)) return;
-  const int2 s = surv[i];
-  if (s.x >= *(volatile int*)(best + s.y)) return;  // a smaller offset already passed
-  if (validate(w, top, N, s.x)) atomicMin(best + s.y, s.x);
+  const longlong2 s = surv[i];
+  // a smaller offset already passed
+  if ((unsigned long long)s.x >= *(volatile unsigned long long*)(best + s.y)) return;
+  if (validate(w, top, N, s.x)) atomicMin(best + s.y, (unsigned long long)s.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -530,16 +537,17 @@ struct Bits {
   const uint32_t* words;
   int top;
   uint64_t res;
-  int nbits, nxt_i;
+  int nbits;
+  long long nxt_i;
   uint32_t nxt;
 
-  __device__ __forceinline__ uint32_t word(int i) const {
+  __device__ __forceinline__ uint32_t word(long long i) const {
     i = i < 0 ? 0 : (i > top ? top : i);
     return __ldg(words + i);
   }
-  __device__ void seek(int bp) {
-    const int wi = bp >> 5;
-    const int sh = bp & 31;
+  __device__ void seek(long long bp) {
+    const long long wi = bp >> 5;
+    const int sh = (int)(bp & 31);
     res = ((uint64_t)word(wi) | ((uint64_t)word(wi + 1) << 32)) >> sh;
     nbits = 64 - sh;
     nxt_i = wi + 2;
@@ -549,7 +557,7 @@ struct Bits {
     if (__builtin_expect(nbits <= 32, 0)) {
       res |= (uint64_t)nxt << nbits;
       nbits += 32;
-      nxt = __ldg(words + min(max(++nxt_i, 0), top));
+      nxt = word(++nxt_i);
     }
   }
   __device__ __forceinline__ uint32_t peek() const { return (uint32_t)res; }
@@ -561,7 +569,9 @@ struct Bits {
 
 struct Spec {
   Bits rd;
-  int lane, N, bp, n, cap, need;
+  int lane;
+  long long N, bp;
+  int n, cap, need;
   long long hist;
   uint16_t* cells;
 
@@ -576,7 +586,7 @@ struct Spec {
 
   // native's stored block, after its 3 header bits
   __device__ int stored_block() {
-    adv(((bp + 7) & ~7) - bp);
+    adv((int)(((bp + 7) & ~7LL) - bp));
     if (N - bp < 32) return kTruncated;
     const uint32_t w = peek();
     const int ln = (int)(w & 0xFFFFu), nln = (int)(w >> 16);
@@ -584,14 +594,14 @@ struct Spec {
     if ((ln ^ nln) != 0xFFFF) return kInvalidData;
     if ((long long)n + ln > cap) return kCap;
     if (N - bp < 8 * ln) return kTruncated;
-    const int off = bp >> 3;
+    const long long off = bp >> 3;
     for (int j = lane; j < ln; j += 32) {
-      const int q = off + j;
+      const long long q = off + j;
       cells[n + j] = (uint16_t)((rd.word(q >> 2) >> ((q & 3) << 3)) & 0xFFu);
     }
     __syncwarp();
     n += ln;
-    bp += ln << 3;
+    bp += (long long)ln << 3;
     rd.seek(bp);
     return kOk;
   }
@@ -747,13 +757,15 @@ struct Spec {
 };
 
 __global__ void __launch_bounds__(32)
-spec_decode(const uint32_t* __restrict__ words, int W, int N, const long long* __restrict__ meta,
-            uint16_t* __restrict__ cells_all, int* __restrict__ recs_all, int* __restrict__ st) {
+spec_decode(const uint32_t* __restrict__ words, int W, long long N,
+            const long long* __restrict__ meta, uint16_t* __restrict__ cells_all,
+            long long* __restrict__ recs_all, long long* __restrict__ st) {
   const int k = blockIdx.x;
   const int lane = threadIdx.x;
   const long long* m = meta + (size_t)k * kMeta;
-  const int start = (int)m[0], stop = (int)m[1], cap = (int)m[2];
-  int* rec = recs_all + 2 * m[5];
+  const long long start = m[0], stop = m[1];
+  const int cap = (int)m[2];
+  long long* rec = recs_all + 2 * m[5];
   const int rec_cap = (int)m[6];
   Spec sp{Bits{words, W - 1, 0, 0, 0, 0}, lane, N, start, 0, cap, 0, m[3], cells_all + m[4]};
   int why = kOk, fin = 0, nrec = 0, ovf = 0;
@@ -802,7 +814,7 @@ spec_decode(const uint32_t* __restrict__ words, int W, int N, const long long* _
     }
   }
   if (lane == 0) {
-    int* so = st + (size_t)k * kStatus;
+    long long* so = st + (size_t)k * kStatus;
     so[0] = sp.n;
     so[1] = why == kOk ? sp.bp : -1;
     so[2] = fin;
@@ -863,7 +875,7 @@ __global__ void resolve_narrow(const uint16_t* __restrict__ cells, const int* __
 // written into best[k] (which the wrapper fills with INT_MAX); the
 // survivors of the pre-filter go to surv (cap pairs), their number to
 // *count, which the wrapper zeroes and reads back
-extern "C" int zrs_block_find(const void* words, int w, int nbits, const void* lo,
+extern "C" int zrs_block_find(const void* words, int w, long long nbits, const void* lo,
                               const void* hi, int segs, int span, void* surv, int cap,
                               void* count, void* best, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -872,26 +884,26 @@ extern "C" int zrs_block_find(const void* words, int w, int nbits, const void* l
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   if (blocks > 0)
     find_prefilter<<<(unsigned)blocks, kFindThreads, 0, s>>>(
-        (const uint32_t*)words, w - 1, nbits, (const int*)lo, (const int*)hi, tiles,
-        (int2*)surv, cap, (int*)count);
+        (const uint32_t*)words, w - 1, nbits, (const long long*)lo, (const long long*)hi, tiles,
+        (longlong2*)surv, cap, (int*)count);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (cap > 0)
     find_check<<<(cap + kCheckThreads - 1) / kCheckThreads, kCheckThreads, 0, s>>>(
-        (const uint32_t*)words, w - 1, nbits, (const int2*)surv, cap, (const int*)count,
-        (int*)best);
+        (const uint32_t*)words, w - 1, nbits, (const longlong2*)surv, cap, (const int*)count,
+        (unsigned long long*)best);
   return (int)cudaGetLastError();
 }
 
 // SP2: one block of one warp a segment of meta (int64 [segs, 8]: start_bit,
 // stop_bit, cap, hist, cell_off, rec_off, rec_cap, 0); cells u16, records
 // int32 pairs, status int32 [segs, 8]
-extern "C" int zrs_spec_decode(const void* words, int w, int nbits, const void* meta, int segs,
+extern "C" int zrs_spec_decode(const void* words, int w, long long nbits, const void* meta, int segs,
                                void* cells, void* recs, void* st, void* stream) {
   if (segs > 0)
     spec_decode<<<segs, 32, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, w, nbits, (const long long*)meta, (uint16_t*)cells, (int*)recs,
-        (int*)st);
+        (const uint32_t*)words, w, nbits, (const long long*)meta, (uint16_t*)cells,
+        (long long*)recs, (long long*)st);
   return (int)cudaGetLastError();
 }
 

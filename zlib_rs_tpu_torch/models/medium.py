@@ -34,8 +34,11 @@ _KNOBS = {4: (8, 16, 32, 32), 5: (8, 16, 128, 128), 6: (8, 32, 128, 256)}
 
 
 class _Medium:
-    def __init__(self, data: bytes, knobs):
+    def __init__(self, data: bytes, knobs, dict_len: int = 0):
+        # `data` is the priming dictionary followed by the input; positions
+        # are absolute in it, the scan starting at dict_len (native's base)
         self.data = data
+        self.dict_len = dict_len
         self.good, self.lazy, self.nice, self.chain = knobs
         self.head4 = [0] * (1 << 16)
         self.prevd4 = [0] * WSIZE
@@ -43,7 +46,9 @@ class _Medium:
         self.bw = BitWriter(self.out)
         self.sym_dist: list[int] = []
         self.sym_lit: list[int] = []
-        self.block_start = 0
+        self.block_start = dict_len
+        for i in range(dict_len - 3):  # native's priming: every 4-byte string
+            self.insert4(i)
 
     def _hash4(self, pos: int) -> int:
         v = int.from_bytes(self.data[pos : pos + 4], "little")
@@ -178,11 +183,11 @@ class _Medium:
         self.sym_lit = []
         self.block_start = spos
 
-    def run(self) -> bytes:
+    def run(self, final: bool = True) -> bytes:
         data = self.data
         total = len(data)
         early_exit = False  # all mirrored rows have klevel >= 5
-        spos = 0
+        spos = self.dict_len
         nxt_carry = None  # [start, strstart, orgstart, length]
         while spos < total:
             if nxt_carry is not None and nxt_carry[3] > 0:
@@ -233,16 +238,39 @@ class _Medium:
             spos = cur[1] + cur[3]
             if len(self.sym_dist) >= SYM_END - 4:
                 self.flush_block(spos, False)
-        self.flush_block(total, True)
-        self.bw.align()
-        return bytes(self.out)
+        if final:
+            self.flush_block(total, True)
+            self.bw.align()
+            return bytes(self.out)
+        if self.sym_dist or self.block_start < total:
+            self.flush_block(total, False)
+        return _seam(self.bw, self.out)
 
 
-def compress_medium(data: bytes, level: int = 6) -> bytes:
-    """One-shot MEDIUM-mode raw deflate (host mirror). level in {4,5,6}."""
+def _seam(bw: BitWriter, out: bytearray) -> bytes:
+    """Close a non-final chunk: an empty stored block, byte aligned."""
+    bw.send_bits(0, 3)
+    bw.align()
+    out.extend(b"\x00\x00\xff\xff")
+    return bytes(out)
+
+
+def _primed(data: bytes, dictionary) -> tuple[bytes, int]:
+    """The dictionary's last 32 KiB followed by the input, and its length."""
+    d = bytes(dictionary[-WSIZE:]) if dictionary else b""
+    return d + bytes(data), len(d)
+
+
+def compress_medium(data: bytes, level: int = 6, final: bool = True,
+                    dictionary: bytes | None = None) -> bytes:
+    """MEDIUM-mode raw deflate of one chunk (host mirror of native's
+    deflate_chunk(data, MEDIUM_BASE + level - 4, final, dictionary)).
+    level in {4,5,6}; a chunk that is not final ends in a sync seam; the
+    dictionary's last 32 KiB prime the 4-byte-hash chains."""
     if level not in _KNOBS:
         raise ValueError("medium level must be 4, 5, or 6")
-    return _Medium(bytes(data), _KNOBS[level]).run()
+    buf, dict_len = _primed(data, dictionary)
+    return _Medium(buf, _KNOBS[level], dict_len).run(final)
 
 
 # ---------------------------------------------------------------------------
@@ -255,12 +283,14 @@ from .trees import STATIC_LL_LEN, STATIC_LL_CODE, STATIC_D_LEN, STATIC_D_CODE
 from ..ops import huffman as _H
 
 
-def compress_quick(data: bytes, final: bool = True) -> bytes:
+def compress_quick(data: bytes, final: bool = True, dictionary: bytes | None = None) -> bytes:
     """The adaptive QUICK mode: a single 4-byte-hash probe per position,
     each ~48 KiB segment its own block whose trees come from the PREVIOUS
     segment's histogram (+1 smoothing on every symbol), segment 0 static,
     expanded segments rewound to stored. Byte-identical to the reference's
-    compress_quick (tests/test_torch_medium.py)."""
+    compress_quick (tests/test_torch_medium.py); the dictionary's last 32
+    KiB prime the chains as native's deflate_chunk(data, QUICK, final,
+    dictionary) does."""
     import numpy as np
 
     from .trees import (
@@ -275,7 +305,7 @@ def compress_quick(data: bytes, final: bool = True) -> bytes:
     )
     from ..config import BL_CODES, D_CODES, L_CODES, MAX_BITS, MAX_BL_BITS
 
-    data = bytes(data)
+    data, dict_len = _primed(data, dictionary)
     total = len(data)
     out = bytearray()
     bw = BitWriter(out)
@@ -286,18 +316,19 @@ def compress_quick(data: bytes, final: bool = True) -> bytes:
         v = int.from_bytes(data[pos : pos + 4], "little")
         return ((v * 2654435761) & 0xFFFFFFFF) >> 16
 
+    for i in range(dict_len - 3):  # native's priming: every 4-byte string
+        h = hash4(i)
+        prevd4[i & (WSIZE - 1)] = min(i - head4[h], 0xFFFF)
+        head4[h] = i
+
     def close(final_flag):
         if final_flag:
             bw.align()
-        else:
-            # sync seam: empty stored block, byte aligned
-            bw.send_bits(0, 3)
-            bw.align()
-            out.extend(b"\x00\x00\xff\xff")
-        return bytes(out)
+            return bytes(out)
+        return _seam(bw, out)
 
     QSEG = 49152
-    if total == 0:
+    if total == dict_len:
         bw.send_bits((1 << 1) + (1 if final else 0), 3)
         bw.send_bits(int(STATIC_LL_CODE[256]), int(STATIC_LL_LEN[256]))
         return close(final)
@@ -305,7 +336,7 @@ def compress_quick(data: bytes, final: bool = True) -> bytes:
     llf_prev = None
     df_prev = None
     final_emitted = False
-    pos = 0
+    pos = dict_len
     while pos < total:
         seg_start = pos
         seg_end = min(pos + QSEG, total)

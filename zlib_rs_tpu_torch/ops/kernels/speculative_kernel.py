@@ -42,7 +42,9 @@ the kernels' control flow on the host (SP1's pre-filter is torch over
 every offset, its full check and SP2 a scalar loop, SP3 torch). The
 wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA one; nothing falls back. Words cross as int32 bit-views of
-LE32 words and cells as int16 bit-views of u16.
+LE32 words and cells as int16 bit-views of u16. Bit positions are int64
+everywhere (SP1's ranges and results, SP2's status and block starts), so
+a stream has no size limit of its own; a segment's cells stay under 2^31.
 """
 
 from __future__ import annotations
@@ -63,7 +65,6 @@ STATIC_SYMS = 192  # symbols a static follower is sanity-decoded for
 MIN_BLOCK_BITS = 10  # the shortest block: a fixed header and its EOB
 META = 8  # start_bit, stop_bit, cap, hist, cell_off, rec_off, rec_cap, 0
 STATUS = 8  # n, end_bit, final_seen, why, need_hist, nrec, overflow, start_bit
-MAX_BITS = (1 << 31) - (1 << 20)  # int32 bit positions, with room past the end
 OK, INVALID, CAP, TRUNCATED, NO_START = 0, -1, -2, -3, -4
 SURVIVOR_SHARE = 8  # SP1's survivor list holds a 1/8 of the offsets at first
 
@@ -96,8 +97,8 @@ def stream_words(data: bytes) -> np.ndarray:
 def _check_words(words, nbits: int, kernel: str) -> None:
     if words.dim() != 1 or words.dtype != torch.int32:
         raise ValueError(f"{kernel}: words must be int32 [W] (uint32 bit-views)")
-    if nbits < 0 or nbits >= MAX_BITS or words.shape[0] * 32 < nbits + 64:
-        raise ValueError(f"{kernel}: words must hold nbits < 2^31 - 2^20 and 2 zero tail words")
+    if nbits < 0 or words.shape[0] * 32 < nbits + 64:
+        raise ValueError(f"{kernel}: words must hold the stream's nbits and 2 zero tail words")
 
 
 def _host_bytes(words) -> bytes:
@@ -327,7 +328,7 @@ def prefilter_plain(words, nbits: int, offs: torch.Tensor) -> torch.Tensor:
 
 def block_find_plain(words, nbits: int, lo, hi) -> torch.Tensor:
     """The plain SP1: per segment, the first offset in [lo, hi) that passes
-    the pre-filter and then `_validate`, or -1. int32 [T] on lo's device."""
+    the pre-filter and then `_validate`, or -1. int64 [T] on lo's device."""
     _check_words(words, nbits, "block_find")
     buf = _host_bytes(words)
     lo_l, hi_l = lo.tolist(), hi.tolist()
@@ -343,7 +344,7 @@ def block_find_plain(words, nbits: int, lo, hi) -> torch.Tensor:
                     found = c
                     break
         best.append(found)
-    return torch.tensor(best, dtype=torch.int32, device=lo.device)
+    return torch.tensor(best, dtype=torch.int64, device=lo.device)
 
 
 # ---------------------------------------------------------------------------
@@ -462,13 +463,13 @@ def _prepare_decode(words, nbits: int, meta, cell_total: int, rec_total: int):
 
 def spec_decode_plain(words, nbits: int, meta, cell_total: int, rec_total: int):
     """The plain SP2: each segment through `_spec_lane`. Returns (cells
-    int16 [cell_total], records int32 [rec_total, 2], status int32
+    int16 [cell_total], records int64 [rec_total, 2], status int64
     [T, STATUS]) on meta's device; cells past a segment's n are 0."""
     _prepare_decode(words, nbits, meta, cell_total, rec_total)
     buf = _host_bytes(words)
     cells = np.zeros(cell_total, np.uint16)
-    recs = np.zeros((rec_total, 2), np.int32)
-    st = np.zeros((meta.shape[0], STATUS), np.int32)
+    recs = np.zeros((rec_total, 2), np.int64)
+    st = np.zeros((meta.shape[0], STATUS), np.int64)
     for k, (start, stop, cap, hist, coff, roff, rcap, _z) in enumerate(meta.tolist()):
         c, s, r = _spec_lane(buf, nbits, start, stop, cap, hist, rcap)
         cells[coff : coff + len(c)] = c
@@ -530,21 +531,22 @@ def _fn(name: str, argtypes):
     return fn
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_NONE = 1 << 62  # SP1's best offset before any passes
 
 
 def block_find_cuda(words, nbits: int, lo, hi) -> torch.Tensor:
-    """Launch SP1 over CUDA operands: words int32 [W], lo and hi int32 [T]
-    bit offsets. Its pre-filter pass writes the survivors into a list of a
+    """Launch SP1 over CUDA operands: words int32 [W], lo and hi int64 [T]
+    bit offsets; returns int64 [T]. Its pre-filter pass writes the survivors into a list of a
     1/SURVIVOR_SHARE of the offsets; where more survive, the launch runs
     again with room for all of them (the count is exact either way)."""
     _device.require_cuda("block_find", words, lo, hi)
     _check_words(words, nbits, "block_find")
     T = lo.shape[0]
-    if hi.shape != (T,) or lo.dtype != torch.int32 or hi.dtype != torch.int32:
-        raise ValueError("block_find: lo and hi must be int32 [T]")
+    if hi.shape != (T,) or lo.dtype != torch.int64 or hi.dtype != torch.int64:
+        raise ValueError("block_find: lo and hi must be int64 [T]")
     dev = words.device
-    best = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    best = torch.full((T,), -1, dtype=torch.int64, device=dev)
     if T == 0:
         return best
     lo, hi = lo.contiguous(), hi.contiguous()
@@ -552,10 +554,10 @@ def block_find_cuda(words, nbits: int, lo, hi) -> torch.Tensor:
     offsets = int((hi.clamp(max=nbits) - lo).clamp(min=0).sum())
     cap = offsets // SURVIVOR_SHARE + 1024
     while True:
-        surv = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+        surv = torch.empty((cap, 2), dtype=torch.int64, device=dev)
         count = torch.zeros(1, dtype=torch.int32, device=dev)
-        best.fill_((1 << 31) - 1)
-        rc = _fn("zrs_block_find", [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P])(
+        best.fill_(_NONE)
+        rc = _fn("zrs_block_find", [_P, _I, _L, _P, _P, _I, _I, _P, _I, _P, _P, _P])(
             _device.ptr(words), words.shape[0], nbits, _device.ptr(lo), _device.ptr(hi), T,
             span, _device.ptr(surv), cap, _device.ptr(count), _device.ptr(best),
             _device.stream_of(words),
@@ -566,11 +568,12 @@ def block_find_cuda(words, nbits: int, lo, hi) -> torch.Tensor:
         if got <= cap:
             break
         cap = got
-    return torch.where(best == (1 << 31) - 1, -1, best)
+    return torch.where(best == _NONE, -1, best)
 
 
 def spec_decode_cuda(words, nbits: int, meta, cell_total: int, rec_total: int):
-    """Launch SP2 over CUDA operands: words int32 [W], meta int64 [T, 8].
+    """Launch SP2 over CUDA operands: words int32 [W], meta int64 [T, 8];
+    records int64 [rec_total, 2] and status int64 [T, STATUS] back.
     One block of one warp a segment, its tables in shared memory, its
     cells in device memory. Cells past a segment's n and records past its
     count are left unwritten (the plain version's are 0)."""
@@ -581,11 +584,11 @@ def spec_decode_cuda(words, nbits: int, meta, cell_total: int, rec_total: int):
     # a segment writes cells [0, n) and records [0, nrec) of its room; no
     # reader goes past them, so nothing is zeroed
     cells = torch.empty(max(cell_total, 1), dtype=torch.int16, device=dev)[:cell_total]
-    recs = torch.empty((max(rec_total, 1), 2), dtype=torch.int32, device=dev)[:rec_total]
-    st = torch.zeros((T, STATUS), dtype=torch.int32, device=dev)
+    recs = torch.empty((max(rec_total, 1), 2), dtype=torch.int64, device=dev)[:rec_total]
+    st = torch.zeros((T, STATUS), dtype=torch.int64, device=dev)
     if T:
         meta = meta.contiguous()
-        rc = _fn("zrs_spec_decode", [_P, _I, _I, _P, _I, _P, _P, _P, _P])(
+        rc = _fn("zrs_spec_decode", [_P, _I, _L, _P, _I, _P, _P, _P, _P])(
             _device.ptr(words), words.shape[0], nbits, _device.ptr(meta), T,
             _device.ptr(cells), _device.ptr(recs), _device.ptr(st), _device.stream_of(words),
         )

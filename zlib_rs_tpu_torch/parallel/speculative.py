@@ -2,10 +2,12 @@
 speculative decode of one raw-deflate stream with no index, the zran index
 pass built on it, and the region decode at an access point.
 
-The port of zlib_rs_tpu/native.py's `inflate_speculative` (line 232),
-`zran_index` (:289) and `inflate_region` (:315), whose C++ is
-native/zrs_native.cpp (`zrs_inflate_speculative`, `zrs_zran_index`,
-`zrs_inflate_region`). The first two run the speculative decode of
+The port of zlib_rs_tpu/native.py's `inflate_raw` (line 212),
+`inflate_speculative` (:232), `zran_index` (:289) and `inflate_region`
+(:315), whose C++ is native/zrs_native.cpp (`zrs_inflate_raw`,
+`zrs_inflate_speculative`, `zrs_zran_index`, `zrs_inflate_region`).
+`inflate_raw` is SP2's exact decode from bit 0 alone (native's one-thread
+branch). The next two run the speculative decode of
 ops/kernels/speculative_kernel.py:
 
 1. The stream is cut into segments of SEGMENT_BYTES of input. Segment 0
@@ -39,9 +41,12 @@ data") (-3) and BufferError (-2, past `max_out`), each where a sequential
 decode meets it first (the ordering of a reference before the start and
 the output cap inside one segment aside); DATA_FAULTS holds the two
 messages. Every other error (an argument, the kernels' size limits: a
-stream under 2^31 - 2^20 bits, a span under 2^31 - 1 cells) has its own
-message and is not a data fault. Every function takes `device=None`,
-meaning the GPU, and raises without one; "cpu" runs the plain versions.
+span and the whole output under 2^31 - 1 cells) has its own message and
+is not a data fault. Bit positions are int64 throughout (SP1's ranges,
+SP2's start, stop and end bits, the block starts, the chain walk), so the
+compressed stream has no size limit of its own. Every function takes
+`device=None`, meaning the GPU, and raises without one; "cpu" runs the
+plain versions.
 """
 
 from __future__ import annotations
@@ -157,8 +162,8 @@ def _speculate(data: bytes, max_out: int, device, stats):
     find, lo = list(range(1, T)), bounds[1:T]
     for attempt in range(MAX_ATTEMPTS):
         if find:
-            lo_t = torch.tensor(lo, dtype=torch.int32, device=dev)
-            hi_t = torch.tensor([bounds[k + 1] for k in find], dtype=torch.int32, device=dev)
+            lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
+            hi_t = torch.tensor([bounds[k + 1] for k in find], dtype=torch.int64, device=dev)
             starts = SK.block_find(words, N, lo_t, hi_t).tolist()
             rows += [(s, bounds[k + 1], caps[k] if s >= 0 else 0, SK.WSIZE)
                      for k, s in zip(find, starts)]
@@ -221,6 +226,24 @@ def _resolve(chain, ofs, total: int) -> bytes:
     if unresolved:
         raise RuntimeError("speculative decode: a marker outlived its resolve rounds")
     return out.cpu().numpy().tobytes()
+
+
+def inflate_raw(data: bytes, max_out: int, *, device=None) -> tuple[bytes, int]:
+    """Decode one raw deflate stream from bit 0 through its BFINAL block:
+    (output, input bytes consumed). The counterpart of native's
+    inflate_raw: one exact SP2 decode (no history before the stream, so
+    no marker), its room grown four times a try up to `max_out`, narrowed
+    to bytes on the device. Native's errors: ValueError("invalid deflate
+    data"), ValueError("truncated deflate data") (a stream that ends
+    without BFINAL is one), BufferError past `max_out`."""
+    dev = _device.resolve_device(device)
+    data = bytes(data)
+    N = 8 * len(data)
+    words = torch.from_numpy(SK.stream_words(data)).to(dev)
+    s = _exact(words, N, 0, N + 1, 0, max_out)
+    if s.why != SK.OK:
+        _raise(s.why)
+    return s.cells.to(torch.uint8).cpu().numpy().tobytes(), (s.end + 7) // 8
 
 
 def inflate_speculative(data: bytes, max_out: int, *, device=None,
