@@ -141,6 +141,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gzip
 import hashlib
 import io
 import json
@@ -148,6 +149,7 @@ import os
 import subprocess
 import sys
 import tarfile
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -2926,6 +2928,288 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
     return result
 
 
+STREAM_PAIR_BYTES = 64 * 1024  # phase 43's pump scripts against the plain versions
+STREAM_PUMP = 128 * 1024  # GZBUFSIZE: the stream path's pump
+
+
+def stream_pairs(torch, dev, corpus):
+    """Phase 43's pairs: IS and DS against their plain versions on pump
+    scripts over 64 KiB of the corpus, pump for pump (bytes, flags;
+    window() and copies), as max abs err over the bytes. IS: zlib levels
+    0, 1, 6 and 9, Z_FIXED and a flipped stream at random boundaries and
+    bounded max_out, 1-byte pumps over the first 4 KiB, a copy mid-stream,
+    and 1 MiB of zeros from one pump (room regrowths).
+    DS: levels 1, 6 and 9 under every flush kind at random boundaries,
+    1-byte pumps over the first 4 KiB, window() at a seam, a copy."""
+    import random
+
+    from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DS
+    from zlib_rs_tpu_torch.ops.kernels import istream_kernel as IS
+
+    data = corpus[len(corpus) // 3 :][:STREAM_PAIR_BYTES]
+    rng = random.Random(43)
+    pairs, n_is, n_ds = [], 0, 0
+
+    def as_t(b):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8) if b else torch.zeros(0)
+
+    def same(got, want, what):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} results against {len(want)}")
+        for g, w in zip(got, want):
+            if isinstance(g, bytes):
+                if len(g) != len(w):
+                    raise AssertionError(f"{what}: a pump gave {len(g)} bytes, plain {len(w)}")
+                pairs.append((as_t(g), as_t(w)))
+            elif g != w:
+                raise AssertionError(f"{what}: {g} against plain {w}")
+
+    streams = {f"zlib{lv}": _raw(data, lv) for lv in (0, 1, 6, 9)}
+    streams["fixed"] = _raw(data, 6, zlib.Z_FIXED)
+    streams["flipped"] = _flip(streams["zlib6"], len(streams["zlib6"]) // 3)
+    # 1 MiB from about 1 KiB: IS stops for room and the wrapper regrows it
+    streams["zeros"] = _raw(bytes(1 << 20) + data[:4096], 9)
+    for name, comp in streams.items():
+        script = [(comp[i : i + 1], rng.choice((1, 4096, None))) for i in range(4096)] \
+            if name == "zlib6" else []
+        pos = len(script)
+        if name == "zeros":
+            script.append((comp, None))
+            pos = len(comp)
+        while pos < len(comp):
+            n = rng.choice((1, 7, 300, 5000, 40_000))
+            script.append((comp[pos : pos + n], rng.choice((1, 500, 70_000, None))))
+            pos += n
+        script += [(b"", None)] * 3
+        logs = []
+        for d in (dev, "cpu"):
+            launched = IS.launches["istream"]
+            h, log = IS.Handle(d), []
+            for k, (chunk, cap) in enumerate(script):
+                if name == "zlib1" and k == len(script) // 2:
+                    log.append(("original", [h.pump(c, 1 << 22) for c, _ in script[k:]]))
+                    h = h.copy()
+                out, flags = h.pump(chunk, 1 << 22 if cap is None else cap)
+                log += [out, (flags, h.total_out, h.at_boundary(), h.mode)]
+            log.append(h.take_tail(1 << 20))
+            logs.append(log)
+            if name == "zeros" and d is dev and IS.launches["istream"] - launched < 2:
+                raise AssertionError("IS decoded 1 MiB of zeros without regrowing its room")
+        for g, w in zip(logs[0], logs[1]):
+            if isinstance(g, tuple) and g and g[0] == "original":
+                same([o for o, _ in g[1]], [o for o, _ in w[1]], f"IS {name} (original)")
+                same([f for _, f in g[1]], [f for _, f in w[1]], f"IS {name} (original)")
+            else:
+                same([g], [w], f"IS {name}")
+        n_is += len(script)
+    for level in (1, 6, 9):
+        script = [(data[i : i + 1], 0) for i in range(4096)] if level == 1 else []
+        pos = len(script)
+        while pos < len(data):
+            n = rng.choice((1, 100, 3000, 20_000))
+            script.append((data[pos : pos + n], rng.choice((0, 0, 0, 2, 3))))
+            pos += n
+        script.append((b"", 4))
+        logs = []
+        for h in (DS.Handle(level, dev), DS.Plain(level)):
+            log = []
+            for k, (chunk, flush) in enumerate(script):
+                log.append(h.pump(chunk, flush))
+                if flush:
+                    log.append(h.window())
+                if k == len(script) // 2:
+                    c = h.copy()
+                    log += [c.pump(b"copy", 2), c.pump(b"", 4)]
+            logs.append(log)
+        same(logs[0], logs[1], f"DS level {level}")
+        n_ds += len(script)
+    return max_abs(pairs), n_is, n_ds
+
+
+def stream_phase(torch, dev, corpus, rows) -> dict:
+    """Phase 43: the stream path on IS and DS. First IS and DS against
+    their plain versions (stream_pairs, max abs err 0); then the path at
+    full size through the entry points a user calls: `Deflate(level=1)`
+    over the corpus in 128 KiB pumps with a SYNC_FLUSH every 1 MiB, level 6
+    over 2 MiB and level 9 over 256 KiB, each equal to zlib.compressobj's
+    bytes for the same script; `Inflate()` of the corpus's zlib-6 stream in
+    128 KiB pumps with a 64 KiB out_budget, back to the corpus; a `gzopen`
+    write of the corpus at level 1 in 128 KiB writes, read by stdlib gzip
+    and read back by `gzopen`. Each wall in MB/s; IS's and DS's launches
+    on that path, and each one's ms for one 128 KiB pump by CUDA events
+    (the launch alone, each from the same saved record, tables or Work,
+    with two device-to-device copies of them) beside its bound and its
+    plain version's ms for the same pump."""
+    import zlib_rs_tpu_torch as zt
+    from zlib_rs_tpu_torch._device import ptr as _ptr
+    from zlib_rs_tpu_torch.config import DeflateFlush
+    from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DS
+    from zlib_rs_tpu_torch.ops.kernels import istream_kernel as IS
+
+    t_start = time.perf_counter()
+    err, n_is, n_ds = stream_pairs(torch, dev, corpus)
+    if err:
+        raise AssertionError(f"IS or DS disagrees with its plain version: max abs err {err}")
+    print(f"phase 43 pairs: IS on {n_is} pumps (zlib 0/1/6/9, Z_FIXED, a flipped stream, "
+          f"1 MiB of zeros from one pump; 1-byte pumps, bounded max_out, a copy) and DS on {n_ds} pumps (levels 1/6/9, every "
+          f"flush, 1-byte pumps, window(), a copy) equal to plain, max abs err {err} "
+          f"({time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    # -- the path at full size ---------------------------------------------
+    result = {"deflate": {}}
+    IS.launches["istream"] = DS.launches["dstream"] = 0
+    pump = STREAM_PUMP
+    for level, size in ((1, len(corpus)), (6, 2 << 20), (9, 256 << 10)):
+        data = corpus[:size]
+        size = len(data)
+        d = zt.Deflate(level=level)
+        z = zlib.compressobj(level)
+        got, want = bytearray(), bytearray()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, size, pump):
+            flush = DeflateFlush.SYNC_FLUSH if (i + pump) % (1 << 20) == 0 else \
+                DeflateFlush.NO_FLUSH
+            got += d.compress(data[i : i + pump], flush)[2]
+        got += d.finish()
+        wall = time.perf_counter() - t0
+        if d._fast is None:
+            raise AssertionError("Deflate did not take DS")
+        for i in range(0, size, pump):
+            want += z.compress(data[i : i + pump])
+            if (i + pump) % (1 << 20) == 0:
+                want += z.flush(zlib.Z_SYNC_FLUSH)
+        want += z.flush()
+        if got != want:
+            raise AssertionError(f"Deflate level {level} is not zlib.compressobj's stream")
+        result["deflate"][level] = {"bytes_in": size, "bytes_out": len(got), "wall_s": wall,
+                                    "mb_s": size / wall / 1e6}
+        print(f"phase 43 Deflate level {level}: {size} bytes in 128 KiB pumps, SYNC_FLUSH every "
+              f"1 MiB -> {digest(bytes(got))}, equal to zlib.compressobj; {wall:.3f} s "
+              f"({size / wall / 1e6:.3f} MB/s)", flush=True)
+    zs = zlib.compress(corpus, 6)
+    inf = zt.Inflate()
+    back = bytearray()
+    pos = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        st, used, o = inf.decompress(zs[pos : pos + pump], 65536)
+        pos += used
+        back += o
+        if st.name == "StreamEnd":
+            break
+    wall = time.perf_counter() - t0
+    if bytes(back) != corpus or inf._fast is None:
+        raise AssertionError("Inflate of the zlib-6 stream is not the corpus (or not on IS)")
+    result["inflate"] = {"bytes_in": len(zs), "bytes_out": len(back), "wall_s": wall,
+                         "mb_s": len(back) / wall / 1e6}
+    print(f"phase 43 Inflate: the corpus's zlib-6 stream ({len(zs)} bytes) in 128 KiB pumps, "
+          f"64 KiB out_budget, back to the corpus; {wall:.3f} s ({len(back) / wall / 1e6:.3f} "
+          f"MB/s of output)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "corpus.gz"
+        t0 = time.perf_counter()
+        with zt.gzopen(path, "wb1") as f:
+            for i in range(0, len(corpus), pump):
+                f.write(corpus[i : i + pump])
+        w_wall = time.perf_counter() - t0
+        blob = path.read_bytes()
+        if gzip.decompress(blob) != corpus:
+            raise AssertionError("stdlib gzip does not read the gzopen file back to the corpus")
+        t0 = time.perf_counter()
+        with zt.gzopen(path, "rb") as f:
+            back = f.read()
+        r_wall = time.perf_counter() - t0
+        if back != corpus:
+            raise AssertionError("gzopen does not read its file back to the corpus")
+    result["gzfile"] = {"bytes": len(blob), "write_s": w_wall, "read_s": r_wall,
+                        "write_mb_s": len(corpus) / w_wall / 1e6,
+                        "read_mb_s": len(corpus) / r_wall / 1e6}
+    launched = {"istream": IS.launches["istream"], "dstream": DS.launches["dstream"]}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"the stream path did not launch IS and DS: {launched}")
+    print(f"phase 43 gzopen level 1: {len(blob)} bytes written in {w_wall:.3f} s "
+          f"({len(corpus) / w_wall / 1e6:.3f} MB/s), read by stdlib gzip and back by gzopen "
+          f"in {r_wall:.3f} s ({len(corpus) / r_wall / 1e6:.3f} MB/s); launches {launched}",
+          flush=True)
+
+    # -- one 128 KiB pump of each, by CUDA events from a saved state -------
+    raw6 = zs[2:-4]  # IS takes the raw body
+    h = IS.Handle(dev)
+    h.pump(raw6[:pump], 1 << 30)
+    h._append(raw6[pump : 2 * pump])
+    h._room(16 << 20)
+    snap = torch.from_numpy(h.rec.copy()).to(dev)
+    rec_dev = torch.empty_like(snap)
+    tables = h.tables.clone()  # a launch rebuilds them at each block
+    fn_is = IS._fn()
+
+    def is_launch():
+        rec_dev.copy_(snap)
+        h.tables.copy_(tables)
+        fn_is(_ptr(rec_dev), _ptr(h.tables), _ptr(h.inbuf), _ptr(h.outbuf),
+              torch.cuda.current_stream().cuda_stream)
+
+    is_ms = event_ms(torch, is_launch, 5)
+    is_out = int(rec_dev[IS.R_OP].item()) - int(h.rec[IS.R_OP])
+    p = IS.Handle("cpu")
+    p.pump(raw6[:pump], 1 << 30)
+    p._append(raw6[pump : 2 * pump])
+    p._room(16 << 20)
+    t0 = time.perf_counter()
+    IS.advance_plain(p.rec, p.tables, p.inbuf, p.outbuf)
+    is_plain_ms = (time.perf_counter() - t0) * 1e3
+    if is_out <= 0 or int(p.rec[IS.R_OP]) - int(h.rec[IS.R_OP]) != is_out:
+        raise AssertionError("the timed IS pump and its plain version decode different lengths")
+    rows["istream"] = dict(
+        source="zlib_rs_tpu_torch/csrc/istream.cu",
+        replaces="native/zrs_native.cpp:2244",
+        max_abs_err=err, ms=is_ms, plain_ms=is_plain_ms, launches=launched["istream"],
+        # bytes: the pump's compressed input read once, its output written once
+        bnd=bound(pump + is_out, 0),
+    )
+    d = DS.Handle(1, dev)
+    d.pump(corpus[:pump], 0)
+    d._append(corpus[pump : 2 * pump])
+    unflushed = int(d.rec[DS.D_TOTAL] - d.rec[DS.D_BLOCK_START])
+    out = torch.empty(DS.room(unflushed), dtype=torch.uint8, device=dev)
+    d.rec[DS.D_FLUSH], d.rec[DS.D_OUT_CAP] = 0, out.numel()
+    snap = torch.from_numpy(d.rec.copy()).to(dev)
+    rec_dev = torch.empty_like(snap)
+    work = d.work.clone()
+    fn_ds = DS._fn()
+
+    def ds_launch():
+        rec_dev.copy_(snap)
+        d.work.copy_(work)
+        fn_ds(_ptr(rec_dev), _ptr(d.data), _ptr(d.work), _ptr(out),
+              torch.cuda.current_stream().cuda_stream)
+
+    ds_ms = event_ms(torch, ds_launch, 3)
+    ds_out = int(rec_dev[DS.D_OUT_LEN].item())
+    pd = DS.Plain(1)
+    pd.pump(corpus[:pump], 0)
+    t0 = time.perf_counter()
+    pd.pump(corpus[pump : 2 * pump], 0)
+    ds_plain_ms = (time.perf_counter() - t0) * 1e3
+    rows["dstream"] = dict(
+        source="zlib_rs_tpu_torch/csrc/exact_deflate.cu",
+        replaces="native/zrs_native.cpp:2107",
+        max_abs_err=err, ms=ds_ms, plain_ms=ds_plain_ms, launches=launched["dstream"],
+        # bytes: the pump's input and the 32 KiB window read once, its
+        # output written once; the serial scan is the floor, as EX's
+        bnd=bound(pump + 32768 + ds_out, 0),
+    )
+    result.update(is_pump_ms=is_ms, ds_pump_ms=ds_ms, launches=launched,
+                  phase_s=time.perf_counter() - t_start)
+    print(f"phase 43 IS: {is_ms:.3f} ms for a 128 KiB pump ({is_out} bytes out; bound "
+          f"{rows['istream']['bnd'][0]:.6f} ms by bytes), plain {is_plain_ms:.1f} ms; DS level 1: "
+          f"{ds_ms:.3f} ms for a 128 KiB NO_FLUSH pump (bound {rows['dstream']['bnd'][0]:.6f} ms "
+          f"by bytes), plain {ds_plain_ms:.1f} ms; phase {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
 def routes_phase(torch, corpus) -> dict:
     """Phase 42: the one-shot `decompress` of the corpus's zlib-6 and gzip
     streams and of a 1 MiB zlib stream (inflate_speculative), each equal
@@ -3843,6 +4127,7 @@ def main() -> int:
     speculative = speculative_phase(torch, dev, corpus, rows)
     exact = exact_deflate_phase(torch, dev, corpus, rows)
     native_routes = routes_phase(torch, corpus)
+    streams = stream_phase(torch, dev, corpus, rows)
     bench = bench_phase(min(BENCH_BUDGET_S, SMOKE_LIMIT_S - (time.perf_counter() - t_main)))
 
     # the lockstep kernel's path: the region decode of the chunk K6 refused;
@@ -3856,11 +4141,15 @@ def main() -> int:
     launches["exact_deflate"] = rows["exact_deflate"].pop("launches")
     if launches["exact_deflate"] < 1:
         raise AssertionError("deflate_parallel never launched EX")
+    # IS's and DS's path: phase 43's stream objects and gzip file at full size
+    launches["istream"] = rows["istream"].pop("launches")
+    launches["dstream"] = rows["dstream"].pop("launches")
     kernels = []
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
                  "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan",
                  "vhuff_decode1", "vhuff_expand1", "hop_chase_il", "lockstep", "swarm_walk",
-                 "block_find", "spec_decode", "spec_resolve", "exact_deflate"):
+                 "block_find", "spec_decode", "spec_resolve", "exact_deflate", "istream",
+                 "dstream"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -3878,7 +4167,8 @@ def main() -> int:
         "single_plane_decode": single, "hop_il_encode": hop_il, "xla": xla,
         "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
         "cli": cli, "engine_names": engine_names, "host_layers": host_layers, "mesh": mesh,
-        "speculative": speculative, "exact_deflate": exact, "routes": native_routes, "bench": bench,
+        "speculative": speculative, "exact_deflate": exact, "routes": native_routes,
+        "streams": streams, "bench": bench,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -188,7 +188,8 @@ def test_bench_device_records_each_phase(tiny, monkeypatch):
 
 
 def test_kernel_symbols_name_one_kernel_a_source():
-    """One kernel a source, but SP1-SP3's six in csrc/speculative.cu."""
+    """One kernel a source, but SP1-SP3's six in csrc/speculative.cu and
+    EX's and DS's two in csrc/exact_deflate.cu."""
     syms = B.kernel_symbols()
     assert list(syms) == [f"zrs_{n}" for n in _device.SOURCES]
     assert syms["zrs_inflate"] == ("inflate_streams",) and syms["zrs_pack"] == ("pack",)
@@ -196,7 +197,10 @@ def test_kernel_symbols_name_one_kernel_a_source():
     assert syms["zrs_lockstep"] == ("lockstep_regions",) and syms["zrs_swarm"] == ("swarm_walk",)
     assert syms["zrs_speculative"] == ("find_prefilter", "find_check", "spec_decode",
                                        "resolve_init", "resolve_jump", "resolve_narrow")
-    assert all(len(v) == 1 for k, v in syms.items() if k != "zrs_speculative")
+    assert syms["zrs_exact_deflate"] == ("exact_deflate", "dstream_pump")
+    assert syms["zrs_istream"] == ("istream_advance",)
+    assert all(len(v) == 1 for k, v in syms.items()
+               if k not in ("zrs_speculative", "zrs_exact_deflate"))
 
 
 def test_device_busy_is_the_union_of_device_intervals():

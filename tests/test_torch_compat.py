@@ -2,7 +2,7 @@
 (zlib_rs_tpu_torch.compat) and checksum combine operators
 (ops/gf2.crc32_combine_gen, crc32_combine_op) against the JAX package's:
 every name of zlib_rs_tpu's package, read from its __init__.py, is found
-on the port except `native`, which the port does not carry."""
+on the port, `native` included (the port's facade over its kernels)."""
 
 import ast
 import zlib
@@ -45,13 +45,16 @@ def reference_names() -> list[str]:
 
 
 def test_every_reference_name_but_native():
+    """Every reference name, `native` included since the port carries the
+    native engine on the card: `T.native` is the port's facade."""
     names = reference_names()
     # 48 names beside __getattr__ itself
     assert len(names) == len(set(names)) == 48
-    missing = [n for n in names if n != "native" and not hasattr(T, n)]
+    missing = [n for n in names if not hasattr(T, n)]
     assert missing == []
-    with pytest.raises(AttributeError, match="does not carry 'native'"):
-        T.native
+    import zlib_rs_tpu_torch.native as facade
+
+    assert T.native is facade and T.native.RawInflateStream.__module__ == "zlib_rs_tpu_torch.native"
     with pytest.raises(AttributeError, match="no attribute 'nothing'"):
         T.nothing
 

@@ -1,0 +1,206 @@
+"""DS (the `zrs_dstream_pump` entry of csrc/exact_deflate.cu), EX's
+Deflater paused and resumed under the port's stream objects and gzip
+files, on the CPU: its source built as host C++ by g++ (a warp of one
+lane) through the kernel's handle (`dstream_kernel.Handle` on CPU tensors,
+its launch patched to the host build), and its plain version
+(`dstream_kernel.Plain`, the host Deflator), each through the port's
+`native.RawDeflateStream`, against the reference's native handle
+(`zlib_rs_tpu.native.RawDeflateStream`, built with g++ here) pump for pump
+and against stdlib zlib on the whole stream. Every comparison is exact."""
+
+import ctypes
+import random
+import shutil
+import subprocess
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from zlib_rs_tpu import native as jnative
+from zlib_rs_tpu_torch import native as tnative
+from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DK
+
+# the test workers share the cores, and an oversubscribed OpenMP pool spin-waits
+torch.set_num_threads(1)
+
+SRC = Path(__file__).resolve().parents[1] / "zlib_rs_tpu_torch" / "csrc" / "exact_deflate.cu"
+_BASH = open("/bin/bash", "rb").read()
+_rng = np.random.default_rng(20)
+SOURCES = {
+    "binary": _BASH[120_000:136_384],
+    "text": b"".join(b"line %d of a log: status=%s\n" % (i, b"ok" if i % 7 else b"retry")
+                     for i in range(600))[:16_384],
+    "random": _rng.integers(0, 256, 16_384, dtype=np.uint8).tobytes(),
+}
+ZFLUSH = {0: zlib.Z_NO_FLUSH, 2: zlib.Z_SYNC_FLUSH, 3: zlib.Z_FULL_FLUSH, 4: zlib.Z_FINISH}
+
+
+@pytest.fixture(scope="module")
+def host_ds(tmp_path_factory):
+    """csrc/exact_deflate.cu built by g++ (no __CUDACC__: one lane), as a
+    stand-in for dstream_kernel.pump."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the reference's native engine and this file's host build"
+    lib = tmp_path_factory.mktemp("ds") / "libds_host.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-x", "c++", str(SRC), "-o",
+                    str(lib)], check=True, capture_output=True, timeout=300)
+    dll = ctypes.CDLL(str(lib))
+    dll.zrs_dstream_pump_host.argtypes = [ctypes.c_void_p] * 4
+    dll.zrs_dstream_record_len.restype = ctypes.c_longlong
+    assert dll.zrs_dstream_record_len() == DK.REC
+
+    def pump(rec, data, work, out, rec_dev=None):
+        dll.zrs_dstream_pump_host(rec.ctypes.data, data.data_ptr(), work.data_ptr(),
+                                  out.data_ptr())
+
+    return pump
+
+
+@pytest.fixture(params=["host", "plain"])
+def make(request, monkeypatch, host_ds):
+    """A port stream at a level: 'host' DS's source through its handle,
+    'plain' the plain version."""
+    if request.param == "host":
+        monkeypatch.setattr(DK, "pump", host_ds)
+        return lambda level: tnative.RawDeflateStream(
+            level, _handle=DK.Handle(level, "cpu"))
+    return lambda level: tnative.RawDeflateStream(level, device="cpu")
+
+
+def run(s, script):
+    """Steps ("pump", data, flush), ("window",) and ("copy",) on stream s;
+    at a copy the original runs the rest (logged) and the copy goes on."""
+    log = []
+    for i, step in enumerate(script):
+        if step[0] == "window":
+            log.append(s.window())
+        elif step[0] == "copy":
+            c = s.copy()
+            log.append([s.pump(st[1], st[2]) for st in script[i + 1 :] if st[0] == "pump"])
+            s = c
+        else:
+            log.append(s.pump(step[1], step[2]))
+    return log
+
+
+def zlib_of(script, level: int) -> bytes:
+    """stdlib zlib's raw stream for a script (no empty repeated flush)."""
+    c = zlib.compressobj(level, zlib.DEFLATED, -15)
+    out = b""
+    for kind, data, flush in script:
+        out += c.compress(data)
+        if flush:
+            out += c.flush(ZFLUSH[flush])
+    return out
+
+
+def scripted(data: bytes, rng, sizes, flushes=(0, 0, 0, 0, 2, 3)):
+    script, pos = [], 0
+    while pos < len(data):
+        n = rng.choice(sizes)
+        script.append(("pump", data[pos : pos + n], rng.choice(flushes)))
+        pos += n
+    return script + [("pump", b"", 4)]
+
+
+@pytest.mark.parametrize("level", range(1, 10))
+@pytest.mark.parametrize("source", sorted(SOURCES))
+def test_flush_scripts_equal_native_and_zlib(make, source, level):
+    rng = random.Random(level * 31 + len(source))
+    script = scripted(SOURCES[source], rng, [1, 50, 700, 3000, 9000])
+    got = run(make(level), script)
+    assert got == run(jnative.RawDeflateStream(level), script)
+    assert b"".join(got) == zlib_of(script, level)
+
+
+@pytest.mark.parametrize("level", [1, 6])
+def test_pump_sizes_from_one_byte_to_64k(make, level):
+    data = _BASH[200_000:202_048] + _BASH[300_000:365_536]
+    script = [("pump", data[i : i + 1], 0) for i in range(2048)]
+    script += [("pump", data[2048 + i : 2048 + i + 65536], 0) for i in range(0, 65536, 65536)]
+    script += [("pump", b"", 4)]
+    got = run(make(level), script)
+    assert got == run(jnative.RawDeflateStream(level), script)
+    assert b"".join(got) == zlib_of(script, level)
+
+
+def test_empty_pumps_and_repeated_flushes(make):
+    data = SOURCES["binary"][:6000]
+    script = [("pump", b"", 0), ("pump", data[:3000], 0), ("pump", b"", 0), ("pump", b"", 2),
+              ("pump", b"", 2), ("pump", b"", 3), ("pump", data[3000:], 2), ("pump", b"", 0),
+              ("pump", b"", 4)]
+    got = run(make(6), script)
+    assert got == run(jnative.RawDeflateStream(6), script)
+    assert zlib.decompress(b"".join(got), -15) == data
+
+
+@pytest.mark.parametrize("flush", [2, 3])
+def test_window_at_a_seam_and_copy_mid_stream(make, flush):
+    data = SOURCES["text"]
+    script = [("pump", data[:5000], 0), ("pump", data[5000:9000], flush), ("window",),
+              ("copy",), ("pump", data[9000:12000], 0), ("window",),
+              ("pump", data[12000:], 4)]
+    got = run(make(6), script)
+    assert got == run(jnative.RawDeflateStream(6), script)
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_a_stream_past_1mib_prunes_and_rebases(monkeypatch, host_ds, level):
+    """The host build alone (the plain version takes about a minute a
+    MiB): 1.5 MiB in 128 KiB pumps, a flush now and then, pump for pump
+    native's bytes, with the data pruned by multiples of 32 KiB."""
+    monkeypatch.setattr(DK, "pump", host_ds)
+    data = (_BASH * 2)[: 3 << 19]
+    rng = random.Random(level)
+    script = scripted(data, rng, [1 << 17], flushes=(0, 0, 0, 2))
+    handle = DK.Handle(level, "cpu")
+    got = run(tnative.RawDeflateStream(level, _handle=handle), script)
+    assert got == run(jnative.RawDeflateStream(level), script)
+    assert b"".join(got) == zlib_of(script, level)
+    assert handle.rec[DK.D_TOTAL] <= len(data) - DK.PRUNE  # the prune ran
+
+
+def test_an_outgrown_room_raises(monkeypatch, host_ds):
+    monkeypatch.setattr(DK, "pump", host_ds)
+    monkeypatch.setattr(DK, "room", lambda unflushed: 16)
+    s = tnative.RawDeflateStream(6, _handle=DK.Handle(6, "cpu"))
+    with pytest.raises(RuntimeError, match="overflow"):
+        s.pump(SOURCES["random"], 2)
+
+
+@pytest.mark.parametrize("level", [0, tnative.QUICK])
+def test_level_0_and_quick_are_misuse(make, level):
+    with pytest.raises(RuntimeError, match="misuse"):
+        jnative.RawDeflateStream(level).pump(b"abc", 0)
+    s = make(level)
+    with pytest.raises(RuntimeError, match="misuse"):
+        s.pump(b"abc", 0)
+
+
+def test_finished_stream_is_misuse(make):
+    s = make(6)
+    s.pump(b"abc", 4)
+    with pytest.raises(RuntimeError, match="misuse"):
+        s.pump(b"more", 0)
+
+
+@pytest.mark.parametrize("level", [tnative.MEDIUM4, tnative.MEDIUM5, tnative.MEDIUM6])
+def test_medium_streams_wait(level):
+    for device in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DK.open_stream(level, device)
+    with pytest.raises(NotImplementedError, match="MEDIUM"):
+        tnative.RawDeflateStream(level, device="cpu")
+
+
+def test_wrapper_refuses_cpu_state_and_no_gpu_raises(monkeypatch):
+    h = DK.Handle(6, "cpu")
+    out = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="expected CUDA"):
+        DK.pump_cuda(h.rec, h.data, h.work, out, torch.zeros(DK.REC, dtype=torch.int64))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tnative.RawDeflateStream(6)

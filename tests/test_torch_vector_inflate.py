@@ -8,7 +8,7 @@ Also the fail-safe contract: a data fault (corrupt body, wrong seed,
 undersized tape cap, wrong bytes behind a good-looking decode) falls back
 to the next engine (the inflate kernel K6, the swarm engine, then the
 region decode) and is counted; a kernel error, and a wrapper's argument error, is never
-caught; engine="native" raises NotImplementedError. The K6 route of the
+caught; engine="native" runs native.inflate_parallel (K6). The K6 route of the
 chain (ZRS_TPU_VECTOR=0, an index with a stored chunk, a vector fault)
 runs K6's plain version; the swarm engine after it is tested in
 tests/test_torch_swarm_inflate.py."""
@@ -397,8 +397,12 @@ def test_kernel_wrapper_errors_propagate(monkeypatch, kernel_stream):
 
 def test_engine_native_and_unknown_engines(kernel_stream):
     comp, index = kernel_stream["zlib"]
-    with pytest.raises(NotImplementedError, match="C\\+\\+"):
+    # engine="native": native.inflate_parallel on the card, or its plain
+    # K6 on the CPU, equal to the reference's native engine
+    with pytest.raises(RuntimeError, match="CUDA"):
         zt.decompress_parallel(comp, index, engine="native")
+    got = zt.decompress_parallel(comp, index, engine="native", device="cpu")
+    assert got == jp.decompress_parallel(comp, index, engine="native") == kernel_stream["data"]
     with pytest.raises(ValueError, match="unknown engine"):
         zt.decompress_parallel(comp, index, engine="kernel")
 

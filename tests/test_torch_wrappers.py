@@ -16,8 +16,10 @@ from zlib_rs_tpu_torch import _device
 from zlib_rs_tpu_torch.ops.kernels import checksum_kernels as CK
 from zlib_rs_tpu_torch.ops.kernels import crc_kernels as CRC
 from zlib_rs_tpu_torch.ops.kernels import deflate_kernel as DK
+from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DSK
 from zlib_rs_tpu_torch.ops.kernels import exact_deflate_kernel as EK
 from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+from zlib_rs_tpu_torch.ops.kernels import istream_kernel as ISK
 from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
 from zlib_rs_tpu_torch.ops.kernels import vhuff_kernel as VK
 from zlib_rs_tpu_torch.parallel import device_inflate as DI
@@ -58,7 +60,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(_device, "library", lambda name: libs.setdefault(name, _Library(calls)))
     monkeypatch.setattr(_device, "require_cuda", lambda *a: None)
     monkeypatch.setattr(_device, "stream_of", lambda t: 0)
-    for mod in (CK, CRC, DK, IK, VK, DI, SW, SK, EK):
+    for mod in (CK, CRC, DK, IK, VK, DI, SW, SK, EK, ISK, DSK):
         monkeypatch.setattr(mod, "launches", dict.fromkeys(mod.launches, 0))
     return calls
 
@@ -124,7 +126,23 @@ def _calls(i):
             torch.tensor([65, 256, 66, 257], dtype=torch.int16),
             torch.tensor([0, 1, 4], dtype=torch.int64))),
         "exact_deflate": (EK, lambda: EK.exact_deflate_cuda(*_ex_args(), 6)),
+        "istream": (ISK, lambda: ISK.advance_cuda(*_is_args())),
+        "dstream": (DSK, lambda: DSK.pump_cuda(*_ds_args())),
     }
+
+
+def _is_args():
+    """IS's operands: a fresh handle's record, tables and buffers."""
+    h = ISK.Handle("cpu")
+    return h.rec, h.tables, h.inbuf, h.outbuf, torch.zeros(ISK.REC, dtype=torch.int64)
+
+
+def _ds_args():
+    """DS's operands: a level-6 handle's record, data, Work and room."""
+    h = DSK.Handle(6, "cpu")
+    h.rec[DSK.D_OUT_CAP] = 64
+    return h.rec, h.data, h.work, torch.zeros(64, dtype=torch.uint8), \
+        torch.zeros(DSK.REC, dtype=torch.int64)
 
 
 def _ex_args():
@@ -175,19 +193,21 @@ def _lockstep_args(i):
 KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_scan", "tab_scan",
            "freq", "pack", "vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1",
            "inflate", "lockstep", "swarm_walk", "block_find", "spec_decode", "spec_resolve",
-           "exact_deflate"]
+           "exact_deflate", "istream", "dstream"]
 
 
 def test_every_kernel_has_a_case():
-    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK, DI, SW, SK, EK)
+    assert sorted(KERNELS) == sorted(n for m in (CK, CRC, DK, IK, VK, DI, SW, SK, EK, ISK, DSK)
                                      for n in m.launches)
     # K2 and K12 are one templated body in one source, csrc/hop_chase_il.cu,
     # and so are K5 and K11b, csrc/vhuff_expand.cu, and K4 and K11a,
     # csrc/vhuff_decode.cu; the lockstep engine is csrc/lockstep.cu, the
     # swarm engine's walkers csrc/swarm.cu, SP1-SP3 three C entries of
-    # csrc/speculative.cu, and EX csrc/exact_deflate.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 5 == 14
+    # csrc/speculative.cu, EX and DS two of csrc/exact_deflate.cu, and IS
+    # csrc/istream.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 6 == 15
     assert "speculative" in _device.SOURCES and "exact_deflate" in _device.SOURCES
+    assert "istream" in _device.SOURCES
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
     assert "vhuff_expand" in _device.SOURCES and "vhuff_expand1" not in _device.SOURCES
     assert "vhuff_decode" in _device.SOURCES and "vhuff_decode1" not in _device.SOURCES

@@ -15,14 +15,15 @@ runs the host deflate engine, as in the reference. It imports neither JAX nor
 zlib_rs_tpu. Entry points run on `cuda` unless the caller passes
 `device="cpu"`, which runs every kernel's plain PyTorch version instead.
 
-The host API layers are the reference's, copied without its native
-engine: the one-shot API (`compress`, `decompress`, `compress_bound`,
-`uncompress`), the `Deflate`/`Inflate` stream objects, the gzip file API
-(`GzFile`, `gzopen`, `gzdopen`, `gzclose_r`, `gzclose_w`), inflateBack,
-zran `build_index`/`extract`, `compress_medium`, the compat helpers and
-the checksums with their combine operators; they load on first use.
-`native` is not carried as a name; its decode half runs on the card in
-parallel/speculative.py. `python -m zlib_rs_tpu_torch` is the pigz-style
+The host API layers are the reference's: the one-shot API (`compress`,
+`decompress`, `compress_bound`, `uncompress`), the `Deflate`/`Inflate`
+stream objects and the gzip file API (`GzFile`, `gzopen`, `gzdopen`,
+`gzclose_r`, `gzclose_w`), whose raw bodies run on the card's resumable
+handles IS and DS (models/faststream.py), inflateBack, zran
+`build_index`/`extract`, `compress_medium`, the compat helpers and the
+checksums with their combine operators; they load on first use. `native`
+is the reference's native engine on the card (native.py: EX, SP1-SP3,
+K6, IS and DS). `python -m zlib_rs_tpu_torch` is the pigz-style
 command line (cli.py); `python -m zlib_rs_tpu_torch.bench` the benchmark.
 """
 
@@ -96,9 +97,7 @@ def __getattr__(name):
         mod, attr = _LAZY[name]
         return getattr(importlib.import_module(f".{mod}", __name__), attr)
     if name == "native":
-        raise AttributeError(
-            f"module {__name__!r} does not carry 'native' yet: the reference's C++ engine "
-            "runs on the card as parallel.chunk_deflate and parallel.speculative, and its "
-            "resumable streams are not ported (the host layers run their Python paths)"
-        )
+        import importlib
+
+        return importlib.import_module(".native", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -24,7 +24,8 @@ from pathlib import Path
 import torch
 
 SOURCES = ("adler32", "pack", "vhuff_decode", "vhuff_expand", "inflate", "crc32", "chain_scan",
-           "tab_scan", "freq", "hop_chase_il", "lockstep", "swarm", "speculative", "exact_deflate")
+           "tab_scan", "freq", "hop_chase_il", "lockstep", "swarm", "speculative", "exact_deflate",
+           "istream")
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"

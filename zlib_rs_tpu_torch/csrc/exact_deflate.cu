@@ -1,4 +1,5 @@
-// EX: zlib-exact deflate of independent chunks, one warp a chunk.
+// EX: zlib-exact deflate of independent chunks, one warp a chunk; and DS,
+// the same Deflater paused and resumed as a resumable stream.
 //
 // Replaces no pallas_call site. It is the card's counterpart of the encode
 // half of the reference's native engine (zlib_rs_tpu/native.py
@@ -53,8 +54,30 @@
 //   on the host once and live in __constant__ memory (every lane reads the
 //   same entry, so each read is a broadcast).
 // - Without __CUDACC__ the same source compiles as host C++ (a warp of one
-//   lane, serial compares, zrs_exact_deflate_host), so that the CPU tests
-//   run this file's control flow against native.
+//   lane, serial compares, zrs_exact_deflate_host and zrs_dstream_pump_host),
+//   so that the CPU tests run this file's control flow against native.
+//
+// DS (zrs_dstream_pump) is the card's counterpart of native's resumable
+// deflate (zlib_rs_tpu/native.py RawDeflateStream over DefStream::pump,
+// zrs_native.cpp:2107), the raw-body engine under the port's stream
+// objects and gzip files (models/faststream.py): one block of one warp a
+// handle and a pump. The Deflater's scalar state (spos, block_start, ns,
+// the lazy match's carry, sh/shv, started, BitW's partial word, zlib's
+// `insert`) is restored from the handle's record before the pump and saved
+// after it; the handle's Work (hash chains, the block's symbols) and its
+// data (the window and the unflushed block, then the pump's input) stay
+// in device memory. The scan loops take `limit`, as native's do: total -
+// (MIN_LOOKAHEAD - 1) under NO_FLUSH, so that no decision depends on how
+// much input has arrived, and total under a flush (a chunk passes total,
+// so its bytes do not change); the scan starts once (start_scan). A flush
+// then runs native's tail: the trailing literal, flush_block, the sync
+// seam, FULL_FLUSH's hash clear and window restart, FINISH's last block
+// and alignment, and the retroactive insert of the <= 2 tail positions at
+// the next pump. The wrapper (ops/kernels/dstream_kernel.py) sizes the
+// pump's room from the unflushed bytes, raises when a pump passed it, and
+// prunes the data after a pump as native does (by multiples of WSIZE,
+// the hash heads rebased). Its bound is EX's: the pump's bytes are
+// microseconds; its floor is the serial scan of the pump's positions.
 
 #include <cstdint>
 #include <cstdlib>
@@ -611,6 +634,7 @@ struct Deflater {
   long long spos;
   uint32_t sh;
   bool shv;
+  bool started;  // the scan's start (dictionary insertion) is behind it
   // MEDIUM's pre-found next match
   long long med_next_start, med_next_strstart, med_next_orgstart;
   int med_next_len;
@@ -823,12 +847,21 @@ struct Deflater {
     ns++;
   }
 
-  // greedy loop, levels 1-3 (zlib deflate_fast)
-  EX_DEV void run_fast() {
-    const int lazy = kT.lazy[klevel];
+  EX_DEV void start_scan() {
+    if (started) return;
+    started = true;
     spos = dict_len;
     insert_dict();
-    while (spos < total) {
+  }
+
+  // greedy loop, levels 1-3 (zlib deflate_fast), over positions < limit
+  // with every clamp against total: a chunk and a flushing pump pass
+  // limit = total, a NO_FLUSH pump total - (MIN_LOOKAHEAD - 1), so that no
+  // decision depends on how much input has arrived (native's contract)
+  EX_DEV void run_fast(long long limit) {
+    const int lazy = kT.lazy[klevel];
+    start_scan();
+    while (spos < limit) {
       warp_sync();
       long long hash_head = 0;
       if (spos + MIN_MATCH <= total) {
@@ -867,12 +900,11 @@ struct Deflater {
     }
   }
 
-  // lazy loop, levels 4-9 (zlib deflate_slow), then the deferred literal
-  EX_DEV void run_slow() {
+  // lazy loop, levels 4-9 (zlib deflate_slow); the same limit contract
+  EX_DEV void run_slow(long long limit) {
     const int lazy = kT.lazy[klevel];
-    spos = dict_len;
-    insert_dict();
-    while (spos < total) {
+    start_scan();
+    while (spos < limit) {
       warp_sync();
       long long hash_head = 0;
       if (spos + MIN_MATCH <= total) {
@@ -928,7 +960,12 @@ struct Deflater {
         }
       }
     }
-    if (match_available) {  // zlib's end-of-stream step
+  }
+
+  // zlib's deflate_slow end-of-stream step: the deferred literal at the
+  // last position, emitted when a finish or a flush drains the scan
+  EX_DEV void emit_trailing_literal() {
+    if (match_available) {
       push(0, base[total - 1]);
       match_available = false;
     }
@@ -1062,11 +1099,14 @@ struct Deflater {
     }
   }
 
-  EX_DEV void run_medium() {
+  EX_DEV void run_medium(long long limit) {
     const bool early_exit = klevel < 5;
-    spos = dict_len;
-    for (long long i = 0; i + 4 <= dict_len; i++) insert4(i);
-    while (spos < total) {
+    if (!started) {
+      started = true;
+      spos = dict_len;
+      for (long long i = 0; i + 4 <= dict_len; i++) insert4(i);
+    }
+    while (spos < limit) {
       warp_sync();
       MedMatch cur;
       if (!early_exit && med_next_len > 0) {
@@ -1269,12 +1309,14 @@ struct Deflater {
       }
       return;
     }
-    if (level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2)
-      run_medium();
-    else if (kT.slow[level])
-      run_slow();
-    else
-      run_fast();
+    if (level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2) {
+      run_medium(total);
+    } else if (kT.slow[level]) {
+      run_slow(total);
+      emit_trailing_literal();
+    } else {
+      run_fast(total);
+    }
     if (final_flag) {
       flush_block(true, total);
       bw.align();
@@ -1318,6 +1360,7 @@ EX_DEV long long deflate_one(const uint8_t* in, const long long* m, int level, u
   d.spos = 0;
   d.sh = 0;
   d.shv = false;
+  d.started = false;
   d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
   d.med_next_len = 0;
   d.run(final_flag);
@@ -1328,6 +1371,122 @@ EX_DEV long long deflate_one(const uint8_t* in, const long long* m, int level, u
 
 EX_HD bool needs_work4(int level) {
   return level == QUICK_LEVEL || (level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2);
+}
+
+// ---------------------------------------------------------------------------
+// DS: the Deflater paused and resumed, native's DefStream::pump
+// ---------------------------------------------------------------------------
+
+// DS's record, int64 a field (the wrapper's D_* names): the scan state
+// between pumps, the flush and the room of this pump, and its results
+enum {
+  D_TOTAL, D_SPOS, D_BLOCK_START, D_NS, D_MATCH_LENGTH, D_PREV_LENGTH, D_MATCH_START,
+  D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
+  D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS, D_FINISHED, kDRec = 24
+};
+constexpr int kMisuse = -2;
+
+// one pump of a stream: `data` holds positions [0, rec[D_TOTAL]) (the
+// window, the unflushed block and this pump's input; position 0 is NIL),
+// `w` the handle's Work (hash chains, the block's symbols), `out` the
+// pump's room. Flush 0 none, 2 sync, 3 full, 4 finish.
+EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, int lane,
+                    int lanes) {
+  const int level = (int)r[D_LEVEL], flush = (int)r[D_FLUSH];
+  if (r[D_FINISHED] || level < 1 || level > 9) {  // native's -2
+    warp_sync();
+    if (lane == 0) {
+      r[D_STATUS] = kMisuse;
+      r[D_OUT_LEN] = 0;
+    }
+    return;
+  }
+  Deflater d;
+  d.base = data;
+  d.dict_len = 0;
+  d.total = d.n = r[D_TOTAL];
+  d.level = d.klevel = level;
+  d.lane = lane;
+  d.w = w;
+  d.w4 = nullptr;
+  d.bw = BitW{out, r[D_OUT_CAP], 0, (uint64_t)r[D_BW_BUF], (int)r[D_BW_CNT], lane};
+  d.ns = r[D_NS];
+  d.block_start = r[D_BLOCK_START];
+  d.match_length = (int)r[D_MATCH_LENGTH];
+  d.prev_length = (int)r[D_PREV_LENGTH];
+  d.match_start = r[D_MATCH_START];
+  d.prev_start = r[D_PREV_START];
+  d.match_available = r[D_MATCH_AVAILABLE] != 0;
+  d.spos = r[D_SPOS];
+  d.sh = (uint32_t)r[D_SH];
+  d.shv = r[D_SHV] != 0;
+  d.started = r[D_STARTED] != 0;
+  d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
+  d.med_next_len = 0;
+  long long total = d.total;
+  long long insert_pending = r[D_INSERT_PENDING];
+  d.start_scan();
+  // zlib's `insert`: the <= 2 tail positions a flush could not hash enter
+  // the chains once the new input completes their strings (native
+  // retro_insert, fill_window's role)
+  const long long lookahead = total - d.spos;
+  if (insert_pending && lookahead + insert_pending >= MIN_MATCH) {
+    long long str = d.spos - insert_pending;
+    while (insert_pending) {
+      d.insert_h(str, d.hash3(str));
+      str++;
+      insert_pending--;
+      if (lookahead + insert_pending < MIN_MATCH) break;
+    }
+  }
+  const long long limit =
+      flush ? total : (total >= MIN_LOOKAHEAD ? total - (MIN_LOOKAHEAD - 1) : 0);
+  if (kT.slow[level])
+    d.run_slow(limit);
+  else
+    d.run_fast(limit);
+  bool finished = false;
+  if (flush) {
+    if (kT.slow[level]) d.emit_trailing_literal();
+    insert_pending = d.spos < MIN_MATCH - 1 ? d.spos : MIN_MATCH - 1;
+    if (flush == 4) {
+      d.flush_block(true, total);
+      d.bw.align();
+      finished = true;
+    } else {
+      if (d.ns != 0 || d.block_start < total) d.flush_block(false, total);
+      d.seam();
+      if (flush == 3) {  // FULL_FLUSH: the hash cleared, the window restarts
+        for (int i = lane; i < HASH_SIZE; i += lanes) w->head[i] = 0;
+        total = 0;
+        d.spos = 0;
+        d.block_start = 0;
+        d.shv = false;
+        insert_pending = 0;
+      }
+    }
+  }
+  warp_sync();
+  if (lane == 0) {
+    r[D_TOTAL] = total;
+    r[D_SPOS] = d.spos;
+    r[D_BLOCK_START] = d.block_start;
+    r[D_NS] = d.ns;
+    r[D_MATCH_LENGTH] = d.match_length;
+    r[D_PREV_LENGTH] = d.prev_length;
+    r[D_MATCH_START] = d.match_start;
+    r[D_PREV_START] = d.prev_start;
+    r[D_MATCH_AVAILABLE] = d.match_available ? 1 : 0;
+    r[D_SH] = d.sh;
+    r[D_SHV] = d.shv ? 1 : 0;
+    r[D_STARTED] = d.started ? 1 : 0;
+    r[D_BW_BUF] = (long long)d.bw.buf;
+    r[D_BW_CNT] = d.bw.cnt;
+    r[D_INSERT_PENDING] = insert_pending;
+    r[D_OUT_LEN] = d.bw.wpos;
+    r[D_STATUS] = d.bw.wpos > d.bw.cap ? kOverflow : 0;
+    r[D_FINISHED] = finished ? 1 : 0;
+  }
 }
 
 #ifdef __CUDACC__
@@ -1350,10 +1509,45 @@ exact_deflate(const uint8_t* __restrict__ in, const long long* __restrict__ meta
   }
 }
 
+// DS: one pump of one handle, one warp
+__global__ void __launch_bounds__(32)
+dstream_pump(long long* __restrict__ rec, const uint8_t* __restrict__ data,
+             uint8_t* __restrict__ work, uint8_t* __restrict__ out) {
+  ds_pump(rec, data, (Work*)work, out, threadIdx.x, 32);
+}
+
 int g_tables_ready[64];
+
+// RFC 1951's tables and the LEVELS rows in the current device's constant
+// memory, once a device
+int ensure_tables() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!g_tables_ready[dev]) {
+    Tables t;
+    make_tables(&t);
+    err = cudaMemcpyToSymbol(kT, &t, sizeof(Tables));
+    if (err != cudaSuccess) return (int)err;
+    g_tables_ready[dev] = 1;
+  }
+  return 0;
+}
+#else
+void ensure_host_tables() {
+  static bool ready = false;
+  if (!ready) {
+    make_tables(&kT);
+    ready = true;
+  }
+}
 #endif
 
 }  // namespace
+
+// DS's record length in int64
+extern "C" long long zrs_dstream_record_len() { return kDRec; }
 
 // the bytes of a slot of scratch a chunk needs at `level`
 extern "C" long long zrs_exact_deflate_work_bytes(int level) {
@@ -1369,17 +1563,8 @@ extern "C" long long zrs_exact_deflate_work_bytes(int level) {
 extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, int level, void* out,
                                  void* lens, void* status, void* scratch, int slots,
                                  long long stride, void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!g_tables_ready[dev]) {
-    Tables t;
-    make_tables(&t);
-    err = cudaMemcpyToSymbol(kT, &t, sizeof(Tables));
-    if (err != cudaSuccess) return (int)err;
-    g_tables_ready[dev] = 1;
-  }
+  const int terr = ensure_tables();
+  if (terr) return terr;
   if (stride < zrs_exact_deflate_work_bytes(level)) return (int)cudaErrorInvalidValue;
   if (chunks > 0 && slots > 0)
     exact_deflate<<<slots, 32, 0, (cudaStream_t)stream>>>(
@@ -1387,16 +1572,24 @@ extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, i
         (long long*)lens, (int*)status, (uint8_t*)scratch, stride);
   return (int)cudaGetLastError();
 }
+
+// DS over one handle: rec int64 [kDRec], data uint8 (rec[D_TOTAL] bytes),
+// work uint8 [kWorkBytes] (Work; head int32[32768] first), out uint8
+// (rec[D_OUT_CAP] bytes of room)
+extern "C" int zrs_dstream_pump(void* rec, const void* data, void* work, void* out,
+                                void* stream) {
+  const int terr = ensure_tables();
+  if (terr) return terr;
+  dstream_pump<<<1, 32, 0, (cudaStream_t)stream>>>((long long*)rec, (const uint8_t*)data,
+                                                   (uint8_t*)work, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
 #else
 // the same on the host, a chunk at a time with one lane: the CPU tests'
 // way into this file's control flow
 extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chunks, int level,
                                       void* out, void* lens, void* status) {
-  static bool ready = false;
-  if (!ready) {
-    make_tables(&kT);
-    ready = true;
-  }
+  ensure_host_tables();
   uint8_t* slot = (uint8_t*)std::malloc(kWorkBytes + kWork4Bytes);
   if (!slot) return 1;
   Work* w = (Work*)slot;
@@ -1405,6 +1598,13 @@ extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chun
     ((long long*)lens)[k] = deflate_one((const uint8_t*)in, (const long long*)meta + (size_t)k * kMeta,
                                         level, (uint8_t*)out, w, w4, 0, 1, (int*)status + k);
   std::free(slot);
+  return 0;
+}
+
+// DS on the host with one lane
+extern "C" int zrs_dstream_pump_host(void* rec, const void* data, void* work, void* out) {
+  ensure_host_tables();
+  ds_pump((long long*)rec, (const uint8_t*)data, (Work*)work, (uint8_t*)out, 0, 1);
   return 0;
 }
 #endif

@@ -1,5 +1,5 @@
-"""Buffered gzip file API (a copy of zlib_rs_tpu/models/gzfile.py without
-its native route): gzopen/gzread/gzwrite/gzseek/gztell/gzflush/gzeof/
+"""Buffered gzip file API (a copy of zlib_rs_tpu/models/gzfile.py over the
+port's engines): gzopen/gzread/gzwrite/gzseek/gztell/gzflush/gzeof/
 gzdirect/gzerror/gzbuffer/gzungetc/gzgets/gzputs/gzprintf.
 
 Semantics carried over:
@@ -12,8 +12,14 @@ Semantics carried over:
   * append mode starts a fresh member;
   * default buffer size 128 KiB, adjustable via `buffer_size` (gzbuffer).
 
-Every member runs on the exact host engines: the reference's native
-fast-stream engine (models/faststream.py) is not carried.
+A member runs on the fast engines of models/faststream.py (IS and DS, the
+raw body on the card) where they take its configuration, as in the
+reference: the writer when faststream.deflate_eligible(config), the
+reader for every member (it takes every gzip member at the full window),
+both unless ZRS_NATIVE_STREAM is "0" (which the reference's reader does
+not read). `device` (None: the GPU, which a writer needs
+at open and a reader at its first member; "cpu": IS's and DS's plain
+versions) is where they run.
 """
 
 from __future__ import annotations
@@ -82,8 +88,11 @@ class GzFile:
         mode: str = "rb",
         fileobj=None,
         buffer_size: int = GZBUFSIZE,
+        *,
+        device=None,
     ):
         op, level, strategy, transparent = _parse_mode(mode)
+        self.device = device
         self.mode = op
         self.level = level
         self.strategy = strategy
@@ -118,9 +127,13 @@ class GzFile:
                 cfg = DeflateConfig(level=level, window_bits=31, strategy=strategy)
                 self._def = self._new_deflater(cfg)
 
-    @staticmethod
-    def _new_deflater(cfg: DeflateConfig):
-        """gzip-member deflater: the exact host engine."""
+    def _new_deflater(self, cfg: DeflateConfig):
+        """gzip-member deflater: DS's engine where it takes the config
+        and ZRS_NATIVE_STREAM is not "0", else the exact host engine."""
+        from . import faststream
+
+        if faststream.native_route() and faststream.deflate_eligible(cfg):
+            return faststream.FastDeflateEngine(cfg, self.device)
         return Deflator(cfg)
 
     # -- error surface (gzerror / gzclearerr) -------------------------------
@@ -148,10 +161,17 @@ class GzFile:
         self._comp_read += len(chunk)
         return True
 
-    @staticmethod
-    def _new_inflater():
-        """gzip-member inflater: the exact host engine."""
-        return Inflator(InflateConfig(window_bits=31))
+    def _new_inflater(self):
+        """gzip-member inflater: IS's engine (it takes every gzip member)
+        unless ZRS_NATIVE_STREAM is "0". The reference's reader does not
+        read that variable; here it switches the reader as it switches the
+        writer and the stream objects."""
+        from . import faststream
+
+        cfg = InflateConfig(window_bits=31)
+        if faststream.native_route() and faststream.eligible(cfg):
+            return faststream.FastInflateEngine(cfg, self.device)
+        return Inflator(cfg)
 
     def _look(self) -> None:
         """Sniff gzip magic vs transparent mode (gz.rs:1226 gz_look)."""
@@ -454,19 +474,20 @@ class GzFile:
             pass
 
 
-def gzopen(path, mode: str = "rb", buffer_size: int = GZBUFSIZE) -> GzFile:
+def gzopen(path, mode: str = "rb", buffer_size: int = GZBUFSIZE, *, device=None) -> GzFile:
     """gzopen (reference: gz.rs gzopen)."""
-    return GzFile(path, mode, buffer_size=buffer_size)
+    return GzFile(path, mode, buffer_size=buffer_size, device=device)
 
 
-def gzdopen(fd: int, mode: str = "rb", buffer_size: int = GZBUFSIZE) -> GzFile:
+def gzdopen(fd: int, mode: str = "rb", buffer_size: int = GZBUFSIZE, *,
+            device=None) -> GzFile:
     """gzdopen (reference: gz.rs:258): open a gz stream over an existing
     file descriptor. The descriptor is owned by the returned handle (closed
     on close), matching zlib's contract."""
     op = mode.replace("b", "")[:1] or "r"
     fmode = {"r": "rb", "w": "wb", "a": "ab"}.get(op, "rb")
     fileobj = os.fdopen(fd, fmode)
-    f = GzFile(None, mode, fileobj=fileobj, buffer_size=buffer_size)
+    f = GzFile(None, mode, fileobj=fileobj, buffer_size=buffer_size, device=device)
     f._owns_fp = True  # gzdopen transfers fd ownership
     return f
 
@@ -490,7 +511,11 @@ def gzclose_w(f: GzFile) -> ReturnCode:
 
 
 def _inf_finished(inf) -> bool:
-    """True when the member decoded to StreamEnd."""
+    """True when the member decoded to StreamEnd (works for both the exact
+    Inflator and the FastInflateEngine)."""
+    fin = getattr(inf, "finished", None)
+    if fin is not None:
+        return bool(fin)
     from .inflate import Mode as _IMode
 
     return inf.mode == _IMode.DONE

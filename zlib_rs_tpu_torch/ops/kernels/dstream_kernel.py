@@ -1,0 +1,328 @@
+"""DS: EX's Deflater paused and resumed (the `zrs_dstream_pump` entry of
+csrc/exact_deflate.cu), its plain version, the wrapper and the handles.
+
+The port of the reference's native resumable deflate
+(zlib_rs_tpu/native.py `RawDeflateStream`, C++ `DefStream` in
+native/zrs_native.cpp): it replaces no `pallas_call` site. A `Handle`
+keeps one stream's state in device memory between pumps:
+
+- the record, int64 [REC]: EX's scan state (spos, block_start, the
+  symbols buffered, the lazy match's carry, the rolling hash, whether the
+  scan started, the bit writer's partial word), zlib's `insert` (the
+  <= 2 tail positions of the last flush), the level, and this pump's
+  flush, room and results;
+- the data, uint8: the match window and the unflushed block, then each
+  pump's input (position 0 is NIL);
+- EX's Work, uint8 [WORK_BYTES]: the hash chains (head int32[32768] at
+  byte 0, prevd), the block's symbols and the tree build's arrays.
+
+A pump (native's `DefStream::pump` then `read`) appends its input (one
+host-to-device copy), launches DS once with the flush (0 none, 2 sync,
+3 full, 4 finish) and reads back the record and the output (device to
+host). Under NO_FLUSH DS scans the positions with at least MIN_LOOKAHEAD
+bytes after them; a flush scans all, emits the trailing literal, the
+block and the seam (FULL_FLUSH also clears the hash and restarts the
+window; FINISH ends the stream). The room of a pump is sized from the
+unflushed bytes (`room`); a pump that outgrew it raises, as native's -1
+would, and drops nothing silently. After the pump the wrapper prunes the
+data as native does: the window and the unflushed block stay, the rest
+goes in multiples of WSIZE once it passes 1 MiB, and the hash heads are
+rebased (slide_hash's role).
+
+The plain version (`Plain`) is the port's host `Deflator` in raw mode
+driven by the same flushes, for levels 1-9: zlib's bytes, which native's
+handle gives for every NO/SYNC/FULL/FINISH script. Its output is handed
+out at native's granularity (a 64-bit accumulator: a NO_FLUSH pump
+returns only whole 8-byte words since the last byte alignment), so that
+both give the same bytes pump for pump, and it scans NO_FLUSH input to
+native's limit. Levels 0 and QUICK are misuse (native's -2) and raise
+RuntimeError at the first pump; MEDIUM (11-13), which native's handle
+takes, raises NotImplementedError at construction: the port has no
+resumable MEDIUM plain version yet (ROADMAP queue 1). `open_stream`
+gives the plain version for the CPU and the kernel's handle for a CUDA
+device; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ... import _device
+from .exact_deflate_kernel import WORK_BYTES, WSIZE, is_medium
+
+# launches of the CUDA kernel; the plain version does not count
+launches = {"dstream": 0}
+
+REC = 24
+(D_TOTAL, D_SPOS, D_BLOCK_START, D_NS, D_MATCH_LENGTH, D_PREV_LENGTH, D_MATCH_START,
+ D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
+ D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS,
+ D_FINISHED) = range(21)
+OVERFLOW, MISUSE = -1, -2
+MIN_MATCH, MIN_LOOKAHEAD = 3, 262
+HASH_SIZE = 1 << 15
+PRUNE = 1 << 20  # bytes of dead data before the buffer is pruned (native's)
+FLUSHES = (0, 2, 3, 4)  # none, sync, full, finish
+MEDIUM_WAITS = ("MEDIUM streaming (levels 11-13) waits for a resumable plain "
+                "models/medium (ROADMAP queue 1)")
+
+
+def room(unflushed: int) -> int:
+    """A pump's output room: every unflushed byte stored (4 bytes of
+    header a block of at least 16,383 symbols, 5 a stored piece of 65,535
+    bytes), the bit writer's partial word, the seam and the alignment."""
+    return unflushed + (unflushed >> 11) + 64
+
+
+def _misuse() -> RuntimeError:
+    return RuntimeError("native deflate stream misuse")
+
+
+def _check_level(level: int) -> None:
+    if is_medium(level):
+        raise NotImplementedError(MEDIUM_WAITS)
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+
+_CLASSES = {}
+
+
+def _classes():
+    """The host Deflator scanning NO_FLUSH input to native's limit
+    (positions with >= MIN_LOOKAHEAD bytes after them), and its bit writer
+    reporting byte alignments to the stream: native's writer stores 8
+    bytes each time 64 bits have gathered since the last alignment, and
+    all of them at an alignment."""
+    if not _CLASSES:
+        from ...models import deflate as D
+
+        class StreamDeflator(D.Deflator):
+            def _compress_pending_input(self, final: bool, finish: bool = False) -> None:
+                n = len(self.buf)
+                limit = n if final else max(self.strstart, n - (MIN_LOOKAHEAD - 1))
+                if self.func == "fast":
+                    self._deflate_fast(limit)
+                else:
+                    self._deflate_slow(limit, final)
+
+        class Writer(D.BitWriter):
+            owner = None
+
+            def send_bits(self, value: int, nbits: int) -> None:
+                o = self.owner
+                if o.aligned:  # the first bits after an alignment start the accumulator
+                    o.epoch = o.drained + len(self.out)
+                    o.aligned = False
+                super().send_bits(value, nbits)
+
+            def align(self) -> None:
+                super().align()
+                self.owner.aligned = True
+
+        _CLASSES.update(deflator=StreamDeflator, writer=Writer)
+    return _CLASSES["deflator"], _CLASSES["writer"]
+
+
+class Plain:
+    """The plain DS: a stream over the host Deflator, native's pump."""
+
+    def __init__(self, level: int):
+        _check_level(level)
+        self.level = level
+        self.finished = False
+        self.z = None
+        if 1 <= level <= 9:
+            from ...config import DeflateConfig
+
+            deflator, writer = _classes()
+            self.z = deflator(DeflateConfig(level=level, window_bits=-15))
+            self.z.bw = writer(self.z.pending)
+            self.z.bw.owner = self
+        self.aligned = True  # the stream starts byte-aligned
+        self.epoch = 0  # absolute byte where native's accumulator started
+        self.drained = 0  # bytes handed out so far
+        self.win = b""  # the last <= 32 KiB of data native keeps
+
+    def pump(self, data: bytes, flush: int) -> bytes:
+        from ...config import DeflateFlush
+
+        if self.finished or self.z is None:
+            raise _misuse()
+        z = self.z
+        data = bytes(data)
+        z._last_flush = -2  # native flushes even an empty repeat
+        z.deflate(data, {0: DeflateFlush.NO_FLUSH, 2: DeflateFlush.SYNC_FLUSH,
+                         3: DeflateFlush.FULL_FLUSH, 4: DeflateFlush.FINISH}[flush])
+        emitted = self.drained + len(z.pending)
+        if self.aligned:
+            commit = emitted
+        else:
+            bits = 8 * (emitted - self.epoch) + z.bw.bitcnt
+            commit = self.epoch + 8 * (bits // 64)
+        take = commit - self.drained
+        out = bytes(z.pending[:take])
+        del z.pending[:take]
+        self.drained = commit
+        self.win = b"" if flush == 3 else (self.win + data)[-WSIZE:]
+        if flush == 4:
+            self.finished = True
+        return out
+
+    def window(self) -> bytes:
+        return self.win
+
+    def copy(self) -> "Plain":
+        import copy as _copy
+
+        c = object.__new__(Plain)
+        c.__dict__ = dict(self.__dict__)
+        if self.z is not None:
+            self.z.bw.owner = None
+            c.z = _copy.deepcopy(self.z)
+            self.z.bw.owner, c.z.bw.owner = self, c
+        return c
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+
+
+def _fn():
+    fn = _device.library("exact_deflate").zrs_dstream_pump
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pump_cuda(rec: np.ndarray, data, work, out, rec_dev) -> None:
+    """One DS launch over CUDA state; the record crosses both ways through
+    `rec_dev` (int64 [REC] on the device)."""
+    _device.require_cuda("dstream", data, work, out, rec_dev)
+    if work.dtype != torch.uint8 or work.numel() < WORK_BYTES:
+        raise ValueError(f"dstream: work must be uint8 [>= {WORK_BYTES}]")
+    if data.numel() < int(rec[D_TOTAL]) or out.numel() < int(rec[D_OUT_CAP]):
+        raise ValueError("dstream: the data or the room is smaller than the record says")
+    rec_dev.copy_(torch.from_numpy(rec))
+    rc = _fn()(_device.ptr(rec_dev), _device.ptr(data), _device.ptr(work), _device.ptr(out),
+               _device.stream_of(data))
+    _device.check(rc, "dstream")
+    launches["dstream"] += 1
+    rec[:] = rec_dev.cpu().numpy()
+
+
+class Handle:
+    """One resumable raw deflate whose state lives on a CUDA device."""
+
+    def __init__(self, level: int, device):
+        _check_level(level)
+        dev = torch.device(device)
+        self.device = dev
+        self.rec = np.zeros(REC, np.int64)
+        self.rec[D_LEVEL] = level
+        self.rec[D_MATCH_LENGTH] = self.rec[D_PREV_LENGTH] = MIN_MATCH - 1
+        self.rec_dev = torch.zeros(REC, dtype=torch.int64, device=dev) \
+            if dev.type == "cuda" else None
+        self.data = torch.zeros(1 << 16, dtype=torch.uint8, device=dev)
+        self.work = torch.zeros(WORK_BYTES, dtype=torch.uint8, device=dev)
+        self.level = level
+
+    @property
+    def finished(self) -> bool:
+        return bool(self.rec[D_FINISHED])
+
+    def _append(self, data: bytes) -> None:
+        total = int(self.rec[D_TOTAL])
+        need = total + len(data) + 8
+        if need > self.data.numel():
+            grown = torch.zeros(max(need, 2 * self.data.numel()), dtype=torch.uint8,
+                                device=self.device)
+            grown[:total] = self.data[:total]
+            self.data = grown
+        if data:
+            self.data[total : total + len(data)] = torch.frombuffer(
+                bytearray(data), dtype=torch.uint8).to(self.device)
+        self.rec[D_TOTAL] = total + len(data)
+
+    def _prune(self) -> None:
+        """native DefStream::prune: keep the match window and the
+        unflushed block, drop a multiple of WSIZE (the chain slots are
+        keyed by position mod WSIZE) once it reaches 1 MiB."""
+        rec = self.rec
+        if not rec[D_STARTED]:
+            return
+        spos, block_start = int(rec[D_SPOS]), int(rec[D_BLOCK_START])
+        keep = min(spos - WSIZE if spos > WSIZE else 0, block_start) & ~(WSIZE - 1)
+        if keep < PRUNE:
+            return
+        total = int(rec[D_TOTAL])
+        self.data[: total - keep] = self.data[keep:total].clone()
+        head = self.work[: 4 * HASH_SIZE].view(torch.int32)
+        head.copy_(torch.where(head > keep, head - keep, torch.zeros_like(head)))
+        rec[D_TOTAL] = total - keep
+        rec[D_SPOS] = spos - keep
+        rec[D_BLOCK_START] = block_start - keep
+        for f in (D_MATCH_START, D_PREV_START):
+            rec[f] = max(int(rec[f]) - keep, 0)
+
+    def pump(self, data: bytes, flush: int) -> bytes:
+        rec = self.rec
+        if self.finished or not 1 <= self.level <= 9:
+            raise _misuse()
+        if flush not in FLUSHES:
+            raise ValueError(f"dstream: flush must be one of {FLUSHES}, got {flush}")
+        data = bytes(data)
+        self._append(data)
+        cap = room(int(rec[D_TOTAL] - rec[D_BLOCK_START]))
+        out = torch.empty(cap, dtype=torch.uint8, device=self.device)
+        rec[D_FLUSH], rec[D_OUT_CAP] = flush, cap
+        pump(rec, self.data, self.work, out, self.rec_dev)
+        if rec[D_STATUS] == OVERFLOW:
+            raise RuntimeError("native deflate buffer overflow")
+        if rec[D_STATUS] == MISUSE:
+            raise _misuse()
+        n = int(rec[D_OUT_LEN])
+        self._prune()
+        return out[:n].cpu().numpy().tobytes()
+
+    def window(self) -> bytes:
+        """The last <= 32 KiB of input the stream keeps (the live match
+        window): meaningful at a flush seam."""
+        total = int(self.rec[D_TOTAL])
+        n = min(total, WSIZE)
+        return self.data[total - n : total].cpu().numpy().tobytes()
+
+    def copy(self) -> "Handle":
+        """A device-to-device clone of the handle."""
+        c = object.__new__(Handle)
+        c.__dict__ = dict(self.__dict__)
+        c.rec = self.rec.copy()
+        c.rec_dev = None if self.rec_dev is None else self.rec_dev.clone()
+        c.data = self.data.clone()
+        c.work = self.work.clone()
+        return c
+
+
+def pump(rec: np.ndarray, data, work, out, rec_dev=None) -> None:
+    """DS on CUDA state. The plain DS is a different engine (`Plain`), so
+    a CPU handle has no launch; the CPU tests patch this name with the
+    source's host build."""
+    pump_cuda(rec, data, work, out, rec_dev)
+
+
+def open_stream(level: int, device):
+    """A DS stream at `level`: the plain version on the CPU, the kernel's
+    handle on a CUDA device."""
+    dev = torch.device(device)
+    return Plain(level) if dev.type == "cpu" else Handle(level, dev)
+

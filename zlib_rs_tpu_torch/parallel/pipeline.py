@@ -756,21 +756,24 @@ def decompress_parallel(data: bytes, index, engine: str = "device", *, device=No
     are not caught.
     engine="tpu" is "device" under the reference's name. engine="auto" is
     the reference's "auto" without its native engine: the region decode
-    alone. engine="host" runs the host exact step (stdlib raw inflate per
-    chunk) only. index=None decodes the whole stream on the host.
-    engine="native" raises NotImplementedError.
+    alone. engine="native" is the reference's native engine on `device`:
+    `native.inflate_parallel` (K6 over the indexed chunks, one launch),
+    whose ValueError (a chunk that fails to decode, chunks that end short)
+    propagates as the reference's does. engine="host" runs the host exact
+    step (stdlib raw inflate per chunk) only. index=None decodes the whole
+    stream on the host.
     """
-    if engine == "native":
-        raise NotImplementedError(
-            "engine='native' is the C++ engine of the JAX package, which the "
-            "port does not carry"
-        )
-    if engine not in ("device", "tpu", "auto", "host"):
+    if engine not in ("device", "tpu", "auto", "host", "native"):
         raise ValueError(f"unknown engine {engine!r}")
     if index is None:
         return _whole_stream_host(data)
-    if engine == "host":
-        result = _chunks_host_exact(data, index)
+    if engine in ("host", "native"):
+        if engine == "host":
+            result = _chunks_host_exact(data, index)
+        else:
+            from .. import native
+
+            result = native.inflate_parallel(data, index, device=device)
         if not container_ok(data, result):
             raise ValueError("incorrect data check")
         return result
