@@ -72,10 +72,13 @@ a second and ms a launch; `resolve_tokens` of the clean lanes against the
 corpus, `decompress_chunks(engine="auto")` recovering the lone-EOB body
 that K6 refuses and a flipped bit raising (phase 32); `decompress_foreign`
 of the corpus as stdlib zlib at levels 6 and 9, raw deflate and gzip of
-1 and 4 members, each through K6
+1, 4 and 64 members, each through K6
 with no fallback, the monolithic streams indexed on the card (SP1-SP3
 launched in each run's zran_index stage, their launches and event ms
-printed), three warm runs of the level-6 stream with the zran
+printed), each gzip member skimmed on the card (SP2 at least once a
+member; the gzip_split stage beside the host zlib skim of the same
+stream, and a member of 8 MiB of zeros through its room's regrowths),
+three warm runs of the level-6 stream with the zran
 index pass and the region decode timed apart, and a corrupted adler32
 raising (phase 33); `compress_parallel` under each non-default strategy
 (the host engine) at level 6 on 256 KiB as zlib and gzip, each decoded by
@@ -123,9 +126,16 @@ at levels 1, 6 and 9 equal to zlib.compress (phase 41); the one-shot
 stream (inflate_speculative at every size), inflate_raw against
 inflate_speculative from 16 KiB to 1 MiB, and the CLI's `--quick`,
 `--medium`, `--engine native` and `-d --engine native` (two gzip
-members) in processes (phase 42); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
-bytes with a torch.profiler headline and every device phase's key and
-device-busy share in the full line above it (phase 37). Any mismatch
+members) in processes (phase 42); DS at MEDIUM4-6 against its plain
+version on pump scripts, `native.RawDeflateStream` over 1 MiB at each
+MEDIUM level, a MEDIUM5 pump's event ms and bytes against the plain
+version's, one MEDIUM5 stream past DS's 1 MiB prune held pump for pump
+against the plain version, and the K6 and SP launches of
+`native.inflate_parallel` and `native.inflate_raw` (phase 44, after the
+stream path's phase 43); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
+bytes with a torch.profiler headline, both native inflate rates, every
+device phase's key and device-busy share in the full line above it, and
+every native and decode-sweep row measured or cut by its budget (phase 37). Any mismatch
 raises; no phase's failure is caught.
 
 Each encode prints its stream's length and sha256, so that two checkouts
@@ -2361,10 +2371,12 @@ def lockstep_phase(torch, dev, corpus, rows) -> dict:
 
 def foreign_streams(corpus: bytes) -> dict:
     """Phase 33's foreign streams of the corpus: stdlib zlib at levels 6
-    and 9, raw deflate, a gzip member and 4 gzip members."""
+    and 9, raw deflate, a gzip member, 4 gzip members and gzip members of
+    128 KiB each (64 over 8 MiB)."""
     import gzip
 
     q = len(corpus) // 4
+    m = GZIP_MANY_BYTES
     return {
         "zlib6": zlib.compress(corpus, 6),
         "zlib9": zlib.compress(corpus, 9),
@@ -2372,22 +2384,49 @@ def foreign_streams(corpus: bytes) -> dict:
         "gzip": gzip.compress(corpus, 6, mtime=0),
         "gzip4": b"".join(gzip.compress(corpus[k * q : (k + 1) * q if k < 3 else None], 6,
                                         mtime=0) for k in range(4)),
+        "gzip_many": b"".join(gzip.compress(corpus[k : k + m], 6, mtime=0)
+                              for k in range(0, len(corpus), m)),
     }
+
+
+GZIP_MANY_BYTES = 128 * 1024  # the input of each member of phase 33's gzip_many
+
+
+def host_skim_s(stream: bytes) -> float:
+    """Seconds of the gzip split as the port ran it before its skims moved
+    to the card: each member's end and size from zlib's raw inflater over
+    the rest of the file, on the host. Phase 33's baseline for its
+    gzip_split stage."""
+    from zlib_rs_tpu_torch.models import zran as Z
+
+    t0 = time.perf_counter()
+    pos = 0
+    while pos < len(stream) and stream[pos : pos + 2] == b"\x1f\x8b":
+        hdr, _ = Z._wrapper_span(stream[pos:])
+        body = stream[pos + hdr :]
+        d = zlib.decompressobj(-15)
+        d.decompress(body)
+        pos = pos + hdr + len(body) - len(d.unused_data) + 8
+    return time.perf_counter() - t0
 
 
 def foreign_phase(torch, corpus, rows) -> dict:
     """Phase 33: `decompress_foreign` of the corpus as stdlib zlib (levels
-    6 and 9), raw deflate and gzip (1 and 4 members), each equal to the
+    6 and 9), raw deflate and gzip (1, 4 and 64 members), each equal to the
     corpus with no fallback and its K6 launches counted, and the SP1-SP3
-    launches of the monolithic streams' zran index pass on the card
-    (none for the gzip members, split on the host): the level-6
-    stream three times with its stages (the zran index pass, the region
-    decode; K6 is warm since phase 11), the others once; a corrupted
+    launches of the monolithic streams' zran index pass on the card and of
+    the gzip split's member skims (SP2 at least once a member), each gzip
+    stream's gzip_split stage beside `host_skim_s` of it: the
+    level-6 stream three times with its stages (the zran index pass, the
+    region decode; K6 is warm since phase 11), the others once; a gzip
+    member of 8 MiB of zeros, whose skim's room must grow past its first
+    (the reference's, which raises there), with its rooms; a corrupted
     adler32 raising."""
     import zlib_rs_tpu_torch as zt
     from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
     from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
     from zlib_rs_tpu_torch.parallel import pipeline as PL
+    from zlib_rs_tpu_torch.parallel import speculative as SP
 
     t_start = time.perf_counter()
     span = 1 << 20
@@ -2421,13 +2460,22 @@ def foreign_phase(torch, corpus, rows) -> dict:
                                  f"{PL.fallback_stats()}, K6 launches {ran}")
         # the monolithic streams' zran_index stage runs the speculative
         # decode on the card (SP1 at least once a run, SP2 and SP3 too);
-        # gzip members are split on the host
-        indexed = not label.startswith("gzip")
-        if indexed and min(sp_ran.values()) < len(runs["warm_s"]) or (
-                not indexed and sum(sp_ran.values())):
+        # the gzip split skims every member on it (SP2 at least once a
+        # member; SP1 where a member has more than one segment)
+        members = {"gzip": 1, "gzip4": 4,
+                   "gzip_many": -(-len(corpus) // GZIP_MANY_BYTES)}.get(label)
+        if members is None and min(sp_ran.values()) < len(runs["warm_s"]) or (
+                members and sp_ran["spec_decode"] < members * len(runs["warm_s"])):
             raise AssertionError(f"decompress_foreign of {label}: SP launches {sp_ran}")
         result["streams"][label] = {"bytes": len(stream), "launches": ran, "k6_ms": k6_ms,
                                     "sp_launches": sp_ran, "sp_ms": sp_ms, **runs}
+        if members:
+            host_s = min(host_skim_s(stream) for _ in range(3))
+            result["streams"][label].update(members=members, host_skim_ms=host_s * 1e3)
+            print(f"phase 33 {label}: {members} members, gzip_split "
+                  f"{runs['stage_ms'][-1]['gzip_split']:.3f} ms on the card; the host skim "
+                  f"of zlib's raw inflater over each member's rest (the split before the "
+                  f"card's skim), best of 3: {host_s * 1e3:.3f} ms", flush=True)
         rows["inflate"]["foreign_launches"] = rows["inflate"].get("foreign_launches", 0) + ran
         if label == "zlib6":
             result["sp_launches_zlib6"] = sp_ran
@@ -2439,6 +2487,32 @@ def foreign_phase(torch, corpus, rows) -> dict:
               + json.dumps({k: round(sum(v), 3) for k, v in sp_ms.items()}) + "), stages ms "
               + json.dumps({n: round(v, 3) for n, v in runs["stage_ms"][-1].items()}),
               flush=True)
+    # 8 MiB of zeros in one gzip member of about 8 KiB: the skim's first
+    # room (4 x the body + 1 MiB) is too small, and it grows 4x
+    zeros = bytes(8 << 20)
+    zmember = gzip.compress(zeros, 6, mtime=0)
+    rooms, real = [], SP.skim
+
+    def spy(data, max_out, **kw):
+        rooms.append(max_out)
+        return real(data, max_out, **kw)
+
+    for c in SK.launches:
+        SK.launches[c] = 0
+    SP.skim = spy
+    try:
+        t0 = time.perf_counter()
+        back = zt.decompress_foreign(zmember, span)
+        wall = time.perf_counter() - t0
+    finally:
+        SP.skim = real
+    if back != zeros or len(rooms) < 2:
+        raise AssertionError(f"the 8 MiB-of-zeros member: {len(back)} bytes, rooms {rooms}")
+    result["zeros_member"] = {"bytes": len(zmember), "rooms": rooms, "wall_s": wall,
+                              "sp_launches": dict(SK.launches)}
+    print(f"phase 33 gzip member of 8 MiB of zeros ({len(zmember)} bytes): back in {wall:.3f} s "
+          f"after {len(rooms) - 1} room regrowths (rooms {rooms}), SP launches "
+          f"{dict(SK.launches)}", flush=True)
     small = zlib.compress(corpus[: 1 << 20], 6)
     bad = small[:-1] + bytes([small[-1] ^ 1])
     try:
@@ -3210,6 +3284,208 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     return result
 
 
+MEDIUM_LEVELS = (11, 12, 13)  # native.MEDIUM4-6
+MEDIUM_PRUNE_BYTES = (1 << 20) + (256 << 10)  # phase 44's stream past DS's prune
+
+
+def medium_stream_phase(torch, dev, corpus, rows) -> dict:
+    """Phase 44: DS at MEDIUM4-6 (run_medium under zrs_dstream_pump).
+    First DS against its plain version (models.medium.MediumStream, which
+    the CPU tests hold to native's handle pump for pump) on pump scripts
+    over 64 KiB of the corpus: 1-byte pumps over the first 4 KiB at MEDIUM4,
+    then pieces of 1 byte to 20 KB under every flush kind, window() at each
+    seam and a copy mid-stream, pump for pump as max abs err, and each
+    stream decoded by zlib. Then a `native.RawDeflateStream` over 1 MiB of
+    the corpus at each level in 128 KiB NO_FLUSH pumps and a FINISH,
+    decoded by zlib, in MB/s of input; DS's ms for one 128 KiB MEDIUM5
+    NO_FLUSH pump by CUDA events (the launch alone, from a saved record and
+    Work), beside its bound and its plain version's ms, its bytes equal to
+    the plain version's; one MEDIUM5 stream of 1.25 MiB in 128 KiB pumps
+    against the plain version pump for pump, which the wrapper prunes past
+    1 MiB (rebasing head4 and the next match on the card). Last, the native
+    bench rows' decode paths in process: `native.inflate_parallel` of the
+    corpus's indexed body (stdlib zlib's raw level 6 a 128 KiB chunk, which
+    is deflate_chunk's bytes) and `native.inflate_raw` of 1 MiB, their K6
+    and SP launches."""
+    import random
+
+    from zlib_rs_tpu_torch import native
+    from zlib_rs_tpu_torch._device import ptr as _ptr
+    from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DS
+    from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
+    from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
+
+    t_start = time.perf_counter()
+    data = corpus[len(corpus) // 3 :][:STREAM_PAIR_BYTES]
+    rng = random.Random(44)
+    pairs, n_ds = [], 0
+    launched = DS.launches["dstream"]
+
+    def as_t(b):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8) if b else torch.zeros(0)
+
+    for level in MEDIUM_LEVELS:
+        script = [(data[i : i + 1], 0) for i in range(4096)] if level == 11 else []
+        pos = len(script)
+        while pos < len(data):
+            n = rng.choice((1, 100, 3000, 20_000))
+            script.append((data[pos : pos + n], rng.choice((0, 0, 0, 2, 3))))
+            pos += n
+        script.append((b"", 4))
+        logs, mains = [], []
+        for h in (DS.Handle(level, dev), DS.Plain(level)):
+            log, main = [], []
+            for k, (chunk, flush) in enumerate(script):
+                out = h.pump(chunk, flush)
+                log.append(out)
+                main.append(out)
+                if flush:
+                    log.append(h.window())
+                if k == len(script) // 2:
+                    c = h.copy()
+                    log += [c.pump(b"copy", 2), c.pump(b"", 4)]
+            logs.append(log)
+            mains.append(b"".join(main))
+        if len(logs[0]) != len(logs[1]):
+            raise AssertionError(f"DS MEDIUM level {level}: {len(logs[0])} results, plain "
+                                 f"{len(logs[1])}")
+        for g, w in zip(*logs):
+            if len(g) != len(w):
+                raise AssertionError(f"DS MEDIUM level {level}: {len(g)} bytes, plain {len(w)}")
+            pairs.append((as_t(g), as_t(w)))
+        if zlib.decompress(mains[0], -15) != data:
+            raise AssertionError(f"DS MEDIUM level {level}: the stream does not decode")
+        n_ds += len(script)
+    err = max_abs(pairs)
+    if err:
+        raise AssertionError(f"DS at MEDIUM disagrees with its plain version: max abs err {err}")
+    print(f"phase 44 pairs: DS at MEDIUM4-6 on {n_ds} pumps (1-byte pumps, every flush, "
+          f"window(), a copy) equal to plain, max abs err {err}, every stream decoded by zlib "
+          f"({time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    result = {"streams": {}, "pairs_max_abs_err": err}
+    pump = STREAM_PUMP
+    mib = corpus[: 1 << 20]
+    for level in MEDIUM_LEVELS:
+        s = native.RawDeflateStream(level)
+        got = bytearray()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(mib), pump):
+            got += s.pump(mib[i : i + pump], 0)
+        got += s.pump(b"", 4)
+        wall = time.perf_counter() - t0
+        if zlib.decompress(bytes(got), -15) != mib:
+            raise AssertionError(f"RawDeflateStream MEDIUM{level - 7} does not decode")
+        result["streams"][level - 7] = {"bytes_out": len(got), "wall_s": wall,
+                                        "mb_s": len(mib) / wall / 1e6}
+        print(f"phase 44 RawDeflateStream MEDIUM{level - 7}: 1 MiB in 128 KiB pumps -> "
+              f"{digest(bytes(got))}, decoded by zlib; {wall:.3f} s "
+              f"({len(mib) / wall / 1e6:.3f} MB/s)", flush=True)
+
+    d = DS.Handle(12, dev)
+    d.pump(corpus[:pump], 0)
+    d._append(corpus[pump : 2 * pump])
+    unflushed = int(d.rec[DS.D_TOTAL] - d.rec[DS.D_BLOCK_START])
+    out = torch.empty(DS.room(unflushed), dtype=torch.uint8, device=dev)
+    d.rec[DS.D_FLUSH], d.rec[DS.D_OUT_CAP] = 0, out.numel()
+    snap = torch.from_numpy(d.rec.copy()).to(dev)
+    rec_dev = torch.empty_like(snap)
+    work = d.work.clone()
+    fn_ds = DS._fn()
+
+    def ds_launch():
+        rec_dev.copy_(snap)
+        d.work.copy_(work)
+        fn_ds(_ptr(rec_dev), _ptr(d.data), _ptr(d.work), _ptr(out),
+              torch.cuda.current_stream().cuda_stream)
+
+    ms = event_ms(torch, ds_launch, 3)
+    ds_out = int(rec_dev[DS.D_OUT_LEN].item())
+    pd = DS.Plain(12)
+    pd.pump(corpus[:pump], 0)
+    t0 = time.perf_counter()
+    plain_out = pd.pump(corpus[pump : 2 * pump], 0)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if len(plain_out) != ds_out:
+        raise AssertionError(f"the timed MEDIUM5 pump gave {ds_out} bytes, plain {len(plain_out)}")
+    timed_err = max_abs([(out[:ds_out].cpu(), as_t(plain_out))])
+    if timed_err:
+        raise AssertionError(f"the timed MEDIUM5 pump gave {ds_out} bytes, plain "
+                             f"{len(plain_out)}, max abs err {timed_err}")
+    b_ms, _by = bound(pump + 32768 + ds_out, 0)
+    rows["dstream"].update(medium_ms=ms, medium_plain_ms=plain_ms, medium_bound_ms=b_ms)
+    result.update(medium5_pump_ms=ms, medium5_plain_ms=plain_ms, medium5_pump_err=timed_err)
+    print(f"phase 44 DS MEDIUM5: {ms:.3f} ms for a 128 KiB NO_FLUSH pump ({ds_out} bytes out, "
+          f"equal to plain, max abs err {timed_err}; bound {b_ms:.6f} ms by bytes), plain "
+          f"{plain_ms:.1f} ms", flush=True)
+
+    # one MEDIUM5 stream past PRUNE + 32 KiB in 128 KiB pumps, pump for
+    # pump against the plain version: the wrapper prunes the buffer and
+    # rebases head, head4 and the carried next match on the card
+    t0 = time.perf_counter()
+    long_in = corpus[: MEDIUM_PRUNE_BYTES]
+    h, pl = DS.Handle(12, dev), DS.Plain(12)
+    long_pairs, long_out, pruned = [], [], 0
+    for i in range(0, len(long_in), pump):
+        g, w = h.pump(long_in[i : i + pump], 0), pl.pump(long_in[i : i + pump], 0)
+        long_pairs.append((as_t(g), as_t(w)))
+        long_out.append(g)
+        pruned = max(pruned, i + pump - int(h.rec[DS.D_TOTAL]))
+    g, w = h.pump(b"", 4), pl.pump(b"", 4)
+    long_pairs.append((as_t(g), as_t(w)))
+    long_out.append(g)
+    if any(len(a) != len(b) for a, b in long_pairs):
+        raise AssertionError("DS MEDIUM5 past the prune: a pump's length differs from plain")
+    long_err = max_abs(long_pairs)
+    if (long_err or pruned < DS.PRUNE
+            or zlib.decompress(b"".join(long_out), -15) != long_in):
+        raise AssertionError(f"DS MEDIUM5 past the prune: max abs err {long_err}, "
+                             f"{pruned} bytes pruned")
+    result.update(prune_stream={"bytes": len(long_in), "pumps": len(long_pairs),
+                                "pruned": pruned, "max_abs_err": long_err,
+                                "s": time.perf_counter() - t0},
+                  launches=DS.launches["dstream"] - launched)
+    print(f"phase 44 DS MEDIUM5 past the prune: {len(long_in)} bytes in {len(long_pairs)} "
+          f"pumps equal to plain (max abs err {long_err}), {pruned} bytes pruned on the card, "
+          f"decoded by zlib ({result['prune_stream']['s']:.1f} s); DS launches in the phase "
+          f"{result['launches']}", flush=True)
+
+    # the native bench rows' decode paths: inflate_parallel (K6), inflate_raw (SP2)
+    body, index = bytearray(), []
+    for k in range(0, len(corpus), 128 << 10):
+        seg = corpus[k : k + (128 << 10)]
+        c = zlib.compressobj(6, zlib.DEFLATED, -15)
+        part = c.compress(seg) + c.flush(zlib.Z_FINISH if k + len(seg) == len(corpus)
+                                         else zlib.Z_SYNC_FLUSH)
+        index.append((len(body), len(part), len(seg)))
+        body += part
+    IK.launches["inflate"] = 0
+    t0 = time.perf_counter()
+    if native.inflate_parallel(bytes(body), index) != corpus:
+        raise AssertionError("native.inflate_parallel is not the corpus")
+    par_wall = time.perf_counter() - t0
+    k6 = IK.launches["inflate"]
+    for c in SK.launches:
+        SK.launches[c] = 0
+    raw1 = _raw(mib)
+    t0 = time.perf_counter()
+    if native.inflate_raw(raw1, len(mib))[0] != mib:
+        raise AssertionError("native.inflate_raw is not the input")
+    raw_wall = time.perf_counter() - t0
+    sp = dict(SK.launches)
+    if k6 < 1 or sp["spec_decode"] < 1:
+        raise AssertionError(f"the native decode rows did not launch K6 ({k6}) or SP2 ({sp})")
+    rows["inflate"]["inflate_parallel_launches"] = k6
+    result.update(inflate_parallel={"chunks": len(index), "k6_launches": k6, "wall_s": par_wall},
+                  inflate_raw={"sp_launches": sp, "wall_s": raw_wall},
+                  phase_s=time.perf_counter() - t_start)
+    print(f"phase 44 native.inflate_parallel: {len(index)} chunks back to the corpus in "
+          f"{par_wall:.3f} s, K6 launches {k6}; native.inflate_raw of 1 MiB in {raw_wall:.3f} s, "
+          f"SP launches {sp}; phase {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
 def routes_phase(torch, corpus) -> dict:
     """Phase 42: the one-shot `decompress` of the corpus's zlib-6 and gzip
     streams and of a 1 MiB zlib stream (inflate_speculative), each equal
@@ -3837,11 +4113,48 @@ def mesh_phase(torch, corpus, out, warm) -> dict:
     return result
 
 
+NATIVE_ROWS = {  # bench.py's bench_native rows: each one's keys
+    **{f"compress.{lv}": ("gbps", "ratio_vs_zlib", "bit_exact") for lv in range(10)},
+    **{f"parallel_compress.{lv}": ("gbps", "ratio_vs_zlib") for lv in (1, 6, 9)},
+    "quick": ("gbps", "ratio_vs_zlib1"),
+    **{f"medium.{lv}": ("gbps", "ratio_vs_zlib") for lv in (4, 5, 6)},
+    "inflate_gbps": None, "parallel_inflate_gbps": None, "speculative_inflate_gbps": None,
+}
+SWEEP_ROWS = [f"2^{b}" for b in range(4, 25)] + ["pure_engine_2^14"]
+
+
+def bench_rows(full: dict) -> list:
+    """(section, row, engine, value) of every native and decode-sweep row
+    of the bench's full line; raises where a row is missing or is neither
+    measured (its keys, or a rate) nor cut_by_budget."""
+    native, sweep = full["native"], full["host_stream_decode_mbps_by_input_chunk"]
+    out = []
+    for name, keys in NATIVE_ROWS.items():
+        group, _, lv = name.partition(".")
+        v = native.get(group, {}).get(lv) if lv else native.get(group)
+        ok = isinstance(v, dict) and (v.get("cut_by_budget") or (
+            keys is not None and all(k in v for k in keys))) or (
+            keys is None and isinstance(v, (int, float)))
+        if not ok:
+            raise AssertionError(f"the bench's native row {name}: {v}")
+        out.append(("native", name, native["engines"][group], v))
+    for name in SWEEP_ROWS:
+        v = sweep.get(name)
+        if not (isinstance(v, (int, float)) or isinstance(v, dict) and v.get("cut_by_budget")):
+            raise AssertionError(f"the bench's decode sweep row {name}: {v}")
+        out.append(("decode_sweep", name,
+                    sweep["engines"]["2^N" if name.startswith("2^") else name], v))
+    return out
+
+
 def bench_phase(budget_s: float) -> dict:
     """Phase 37: `python -m zlib_rs_tpu_torch.bench` with ZRS_BENCH_BUDGET_S
     = `budget_s`: its last line parses, `value` > 0 from torch.profiler,
-    a kernel ratio and a vector decode rate; every device phase left its
-    key in the full line above it and none failed or was skipped."""
+    a kernel ratio, a vector decode rate and both native inflate rates;
+    every device phase left its key in the full line above it (the native
+    rows and the decode sweep at its top level) and none failed or was
+    skipped; every row of bench.py's bench_native and bench_decode_sweep
+    is there, measured or cut_by_budget, and is printed with its engine."""
     from zlib_rs_tpu_torch import bench
 
     t_start = time.perf_counter()
@@ -3857,19 +4170,30 @@ def bench_phase(budget_s: float) -> dict:
         raise AssertionError(f"the bench exited {run.returncode}: {run.stderr[-3000:]}")
     compact, full = json.loads(lines[-1]), json.loads(lines[-2])
     dev = full["device"]
-    missing = [p for p, key in bench.PHASE_KEYS.items() if key not in dev]
+    where = dict(dev, native=full["native"],
+                 decode_sweep=full["host_stream_decode_mbps_by_input_chunk"])
+    missing = [p for p, key in bench.PHASE_KEYS.items() if key not in where]
     if (len(lines[-1]) >= 500 or not compact["value"] > 0
             or "torch.profiler" not in compact["value_source"]
             or compact["kernel_ratio"] is None or not (compact["vector_decode_gbps"] or 0) > 0
+            or compact["native_inflate_gbps"] is None
+            or compact["parallel_inflate_gbps"] is None
             or missing or full["device_phase_errors"]):
         raise AssertionError(f"the bench's result: compact {compact}, phases without their "
                              f"key {missing}, errors {full['device_phase_errors']}; "
                              f"{run.stderr[-3000:]}")
+    table = bench_rows(full)
+    for section, name, engine, v in table:
+        print(f"phase 37 bench {section} {name} [{engine}]: {json.dumps(v)}", flush=True)
     print(f"phase 37 bench full line: {lines[-2]}", flush=True)
     print(f"phase 37 bench: {lines[-1]}; device-busy share "
           f"{json.dumps(full['device_busy_share'])}; card {full['card']}; "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     return {"compact": compact, "device": dev, "busy_share": full["device_busy_share"],
+            "native": full["native"],
+            "decode_sweep": full["host_stream_decode_mbps_by_input_chunk"],
+            "cut_by_budget": [n for _s, n, _e, v in table
+                              if isinstance(v, dict) and v.get("cut_by_budget")],
             "phase_seconds": full["phase_seconds"], "phase_s": time.perf_counter() - t_start}
 
 
@@ -4128,6 +4452,7 @@ def main() -> int:
     exact = exact_deflate_phase(torch, dev, corpus, rows)
     native_routes = routes_phase(torch, corpus)
     streams = stream_phase(torch, dev, corpus, rows)
+    medium_streams = medium_stream_phase(torch, dev, corpus, rows)
     bench = bench_phase(min(BENCH_BUDGET_S, SMOKE_LIMIT_S - (time.perf_counter() - t_main)))
 
     # the lockstep kernel's path: the region decode of the chunk K6 refused;
@@ -4156,8 +4481,9 @@ def main() -> int:
             name=name, route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            **{k: r[k] for k in ("plain_rows", "queued_ms", "at_128k", "foreign_launches")
-               if k in r},
+            **{k: r[k] for k in ("plain_rows", "queued_ms", "at_128k", "foreign_launches",
+                                 "inflate_parallel_launches", "medium_ms", "medium_plain_ms",
+                                 "medium_bound_ms") if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {
@@ -4168,7 +4494,7 @@ def main() -> int:
         "lockstep": lockstep, "foreign_decode": foreign, "host_strategies": host_strategies,
         "cli": cli, "engine_names": engine_names, "host_layers": host_layers, "mesh": mesh,
         "speculative": speculative, "exact_deflate": exact, "routes": native_routes,
-        "streams": streams, "bench": bench,
+        "streams": streams, "medium_streams": medium_streams, "bench": bench,
     }}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -183,6 +183,93 @@ def test_bench_device_records_each_phase(tiny, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the native rows and the decode sweep, on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _shape(v):
+    """A section's key structure: the keys of every nested dict."""
+    return {k: _shape(x) for k, x in v.items()} if isinstance(v, dict) else None
+
+
+NATIVE_BYTES = 4096  # the plain deflate_chunk takes about 10 us a byte here
+
+
+def test_native_and_decode_sweep_have_the_reference_keys(tiny, monkeypatch):
+    """The native rows and the decode sweep through the plain versions
+    (device="cpu"), held against bench.py's bench_native (the JAX
+    package's native engine, built by g++) and bench_decode_sweep on the
+    same bytes: the reference's keys, every row measured, zlib's bytes at
+    levels 1-9 (EX follows zlib on a window's tail, so only the keys and
+    the round trips are compared, not the ratios); the compact line then
+    carries the two inflate rates."""
+    data = tiny[0][:NATIVE_BYTES]
+    monkeypatch.setattr(B, "CHUNK", 2048)
+    monkeypatch.setattr(bench, "CHUNK", 2048)
+    monkeypatch.setattr(B, "PHASE_ERRORS", {})
+    dev = B.bench_device(data, only=("native", "decode_sweep", "native_levels"), device="cpu")
+    assert B.PHASE_ERRORS == {}
+    _cpu, zstreams = bench.bench_cpu(data)
+    ref_native, ref_sweep = bench.bench_native(data, zstreams), bench.bench_decode_sweep(data)
+    nat, sweep = dev["native"], dev["decode_sweep"]
+    extra = {"engines", "timing", "bytes"}
+    assert _shape({k: v for k, v in nat.items() if k not in extra}) == _shape(ref_native)
+    assert set(nat["engines"]) == {k for k in ref_native if k != "available"}
+    assert _shape({k: v for k, v in sweep.items() if k not in ("engines", "timing")}) == \
+        _shape(ref_sweep)
+    assert "not a device measurement" in nat["timing"] == sweep["timing"]
+    rates = [r["gbps"] for g in ("compress", "parallel_compress", "medium") for r in nat[g].values()]
+    rates += [nat["quick"]["gbps"], nat["inflate_gbps"], nat["parallel_inflate_gbps"],
+              nat["speculative_inflate_gbps"]] + [v for k, v in sweep.items() if k.startswith("2^")]
+    assert all(v >= 0 for v in rates) and sweep["pure_engine_2^14"] > 0
+    assert all(nat["compress"][str(lvl)]["bit_exact"] for lvl in range(1, 10))
+    result = {"metric": "m", "value": 0.0, "unit": "GB/s", "vs_baseline": None}
+    B._compose_result(result, dev, None, B.PHASE_ERRORS, {})
+    assert result["native"] is nat and "native" not in result["device"]
+    assert result["host_stream_decode_mbps_by_input_chunk"] is sweep
+    compact = B._compact_result(dict(result, elapsed_s=123456.7), dev)
+    assert compact["native_inflate_gbps"] == nat["inflate_gbps"] is not None
+    assert compact["parallel_inflate_gbps"] == nat["parallel_inflate_gbps"] is not None
+    assert len(json.dumps(compact)) < 500
+
+
+def test_rows_past_the_budget_are_cut_not_phase_errors(tiny, monkeypatch):
+    """With 40 s left and a clock on which every call takes 10 s: a row
+    whose reps, priced at its first call, pass the 25 s left past the
+    margin is cut_by_budget with its first call's seconds (3 reps and
+    more, the sweep's rows whose first call read the clock three times);
+    the 2-rep rows and the one-call host row run; no phase error."""
+    import types
+
+    data = tiny[0][:NATIVE_BYTES]
+    monkeypatch.setattr(B, "CHUNK", 2048)
+    monkeypatch.setattr(B, "PHASE_ERRORS", {})
+    monkeypatch.setattr(B, "remaining", lambda: 40.0)
+    ticks = iter(range(0, 10 ** 9, 10))
+    monkeypatch.setattr(B, "time", types.SimpleNamespace(
+        monotonic=B.time.monotonic, perf_counter=lambda: float(next(ticks))))
+    emitted = []
+    dev = B.bench_device(data, emit=lambda d: emitted.append(1),
+                         only=("native", "decode_sweep", "native_levels"), device="cpu")
+    assert B.PHASE_ERRORS == {}
+    nat, sweep = dev["native"], dev["decode_sweep"]
+    cut = {"cut_by_budget": True, "first_call_s": 10.0}
+    assert nat["parallel_compress"] == {"1": cut, "6": cut, "9": cut}
+    assert nat["inflate_gbps"] == cut
+    assert nat["parallel_inflate_gbps"] == {"cut_by_budget": True, "first_call_s": 30.0}
+    assert all(nat["compress"][str(lvl)] == cut for lvl in (1, 6, 9))
+    assert all("gbps" in nat["compress"][str(lvl)] for lvl in (0, 2, 3, 4, 5, 7, 8))
+    assert "gbps" in nat["quick"] and all("gbps" in r for r in nat["medium"].values())
+    assert all(sweep[f"2^{b}"] == {"cut_by_budget": True, "first_call_s": 30.0}
+               for b in range(4, 25))
+    assert isinstance(sweep["pure_engine_2^14"], float)
+    assert len(emitted) > 30  # a snapshot after every row
+    compact = B._compact_result(B._compose_result(
+        {"metric": "m", "value": 0.0, "unit": "GB/s", "vs_baseline": None}, dev, None), dev)
+    assert compact["native_inflate_gbps"] is None and compact["parallel_inflate_gbps"] is None
+
+
+# ---------------------------------------------------------------------------
 # the trace helper
 # ---------------------------------------------------------------------------
 

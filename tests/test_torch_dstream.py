@@ -187,13 +187,74 @@ def test_finished_stream_is_misuse(make):
         s.pump(b"more", 0)
 
 
-@pytest.mark.parametrize("level", [tnative.MEDIUM4, tnative.MEDIUM5, tnative.MEDIUM6])
-def test_medium_streams_wait(level):
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DK.open_stream(level, device)
-    with pytest.raises(NotImplementedError, match="MEDIUM"):
-        tnative.RawDeflateStream(level, device="cpu")
+MEDIUMS = [tnative.MEDIUM4, tnative.MEDIUM5, tnative.MEDIUM6]
+
+
+def medium_checked(make, level, script, want_out: bytes) -> list:
+    """A MEDIUM script on the port's stream, pump for pump native's bytes,
+    the whole stream decoded by zlib to `want_out`."""
+    got = run(make(level), script)
+    assert got == run(jnative.RawDeflateStream(level), script)
+    assert zlib.decompress(b"".join(g for g in got if isinstance(g, bytes)), -15) == want_out
+    return got
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+@pytest.mark.parametrize("source", sorted(SOURCES))
+def test_medium_flush_scripts_equal_native(make, source, level):
+    """MEDIUM4-6 under NO/SYNC/FULL/FINISH scripts, pieces of 1 byte to 9
+    KB: zlib's bytes are not the contract here, native's are."""
+    rng = random.Random(level * 31 + len(source))
+    script = scripted(SOURCES[source], rng, [1, 50, 700, 3000, 9000])
+    medium_checked(make, level, script, SOURCES[source])
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_pump_sizes_from_one_byte_to_64k(make, level):
+    data = _BASH[200_000:202_048] + _BASH[300_000:365_536]
+    script = [("pump", data[i : i + 1], 0) for i in range(2048)]
+    script += [("pump", data[2048:], 0), ("pump", b"", 4)]
+    medium_checked(make, level, script, data)
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_full_flush_keeps_head4_and_decodes(make, level):
+    """FULL_FLUSH restarts the window at position 0 but leaves head4's
+    positions of up to 200 KB behind (native's): the deltas of the first
+    inserts after it are negative and wrap in their u16 slots. Native's
+    bytes, which the port gives, decode; a copy and the window at the
+    seam too."""
+    d1, d2 = _BASH[300_000:500_000], _BASH[300_000:400_000] + _BASH[600_000:650_000]
+    script = [("pump", d1, 0), ("pump", b"", 3), ("window",), ("copy",), ("pump", d2, 0),
+              ("pump", b"", 3), ("pump", d2[:5000], 2), ("pump", b"", 4)]
+    got = medium_checked(make, level, script, d1 + d2 + d2[:5000])
+    assert got[2] == b""  # the window restarts at a FULL_FLUSH
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_finish_only_equals_compress_medium(make, level):
+    from zlib_rs_tpu_torch.models import medium as TM
+
+    data = SOURCES["binary"] + SOURCES["text"]
+    got = medium_checked(make, level, [("pump", data, 4)], data)
+    assert got == [TM.compress_medium(data, level - tnative.MEDIUM_BASE + 4)]
+    assert got == [jnative.deflate_chunk(data, level, True)]
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_stream_past_1mib_prunes_and_rebases(monkeypatch, host_ds, level):
+    """The host build alone (the plain version takes about 10 s a MiB):
+    1.5 MiB in 128 KiB pumps, a flush now and then, pump for pump native's
+    bytes, with the data pruned and head4 and the next match rebased."""
+    monkeypatch.setattr(DK, "pump", host_ds)
+    data = (_BASH * 2)[: 3 << 19]
+    script = scripted(data, random.Random(level), [1 << 17], flushes=(0, 0, 0, 2))
+    handle = DK.Handle(level, "cpu")
+    got = run(tnative.RawDeflateStream(level, _handle=handle), script)
+    assert got == run(jnative.RawDeflateStream(level), script)
+    assert zlib.decompress(b"".join(got), -15) == data
+    assert handle.rec[DK.D_TOTAL] <= len(data) - DK.PRUNE  # the prune ran
+    assert handle.work.numel() == DK.WORK_BYTES + 320 * 1024  # Work, then Work4
 
 
 def test_wrapper_refuses_cpu_state_and_no_gpu_raises(monkeypatch):

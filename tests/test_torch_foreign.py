@@ -250,3 +250,93 @@ def test_extract_raw_stream():
     ix = TZ.build_index(stream, 8 * 1024, device="cpu")
     for off in (0, 9_999, 40_000, len(data) - 1):
         assert TZ.extract(stream, ix, off, 3000, device="cpu") == data[off : off + 3000]
+
+
+# ---------------------------------------------------------------------------
+# the gzip split: each member skimmed by the speculative decode
+# ---------------------------------------------------------------------------
+
+
+def _members(k: int) -> tuple[bytes, bytes]:
+    """k stdlib gzip members of slices of /bin/bash at mixed levels."""
+    data = _BASH[250_000:250_000 + 60_000 * k]
+    parts = [data[i * 60_000 : (i + 1) * 60_000] for i in range(k)]
+    return data, b"".join(gzip.compress(p, (1, 9, 6, 0)[i % 4], mtime=0)
+                          for i, p in enumerate(parts))
+
+
+@pytest.fixture
+def skims(monkeypatch):
+    """The rooms of the port's member skims (speculative.skim calls); each
+    call's input length goes into `skims.reads`."""
+    from zlib_rs_tpu_torch.parallel import speculative as SP
+
+    class Rooms(list):
+        reads: list
+
+    rooms = Rooms()
+    rooms.reads = []
+    real = SP.skim
+
+    def spy(data, max_out, *, device=None, stats=None):
+        rooms.append(max_out)
+        rooms.reads.append(len(data))
+        return real(data, max_out, device=device, stats=stats)
+
+    monkeypatch.setattr(SP, "skim", spy)
+    return rooms
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_gzip_split_on_the_speculative_decode_equal_jax_native(skims, k):
+    """The port skims every member on the speculative decode, as the JAX
+    package skims them with native's zran_index (built with g++ here)."""
+    import zlib_rs_tpu.native as JN
+
+    assert JN.available()
+    data, stream = _members(k)
+    tp._FALLBACKS.clear()
+    got = TI.decompress_foreign(stream, device="cpu")
+    assert got == data == JI.decompress_foreign(stream) and tp.fallback_stats() == {}
+    assert len(skims) == k  # 60 kB members: every first read holds its member
+
+
+def test_gzip_split_reads_each_members_own_bytes(skims, monkeypatch):
+    """16 members of 6 kB with SKIM_FIRST and SKIM_MIN cut to 1 KiB: the
+    first member's skim grows its read 4x on each truncation, the next ones
+    read twice the last body, and the skims read under 3 times the file in
+    all (a skim of
+    each member's whole rest would read it about 8 times over). The bytes
+    equal the JAX package's split with native built."""
+    import zlib_rs_tpu.native as JN
+
+    assert JN.available()
+    monkeypatch.setattr(TI, "SKIM_FIRST", 1024)
+    monkeypatch.setattr(TI, "SKIM_MIN", 1024)
+    data = _BASH[250_000:250_000 + 16 * 6_000]
+    stream = b"".join(gzip.compress(data[i : i + 6_000], (1, 9, 6, 0)[(i // 6_000) % 4], mtime=0)
+                      for i in range(0, len(data), 6_000))
+    assert TI.decompress_foreign(stream, device="cpu") == data == JI.decompress_foreign(stream)
+    assert skims.reads[:2] == [1024, 4096] and len(skims) > 16
+    assert sum(skims.reads) < 3 * len(stream), (skims.reads, len(stream))
+
+
+def test_gzip_split_room_grows_past_the_references(skims):
+    """2 MiB of zeros in one member: the first room (4 x the body plus 1
+    MiB, the reference's) is too small, and the port grows it 4x, up to
+    deflate's limit. The reference raises BufferError on the same member
+    (a reference note, not a contract of the port)."""
+    data = bytes(2 << 20)
+    stream = gzip.compress(data, 6, mtime=0)
+    assert TI.decompress_foreign(stream, device="cpu") == data
+    body = len(stream) - 10  # past gzip's 10-byte header, the trailer included
+    first, cap = 4 * body + (1 << 20), TI.DEFLATE_MAX_RATIO * body + (1 << 20)
+    assert skims == [first, min(4 * first, cap)] and first < len(data) <= skims[-1]
+    with pytest.raises(BufferError):
+        JI.decompress_foreign(stream)
+
+
+def test_gzip_split_truncated_member_raises():
+    data, stream = _members(2)
+    with pytest.raises(ValueError):
+        TI.decompress_foreign(stream[: len(stream) - 20_000], device="cpu")

@@ -136,6 +136,16 @@ def test_stream_handles_surface():
     assert d.pump(b"x", 4) == e.pump(b"x", 4) and d.finished and e.finished
 
 
+@pytest.mark.parametrize("level", [T.MEDIUM4, T.MEDIUM5, T.MEDIUM6])
+def test_medium_stream_handle_surface(level):
+    """RawDeflateStream takes MEDIUM4-6, as native's handle does: the
+    bytes, the window and a copy pump for pump."""
+    d, e = T.RawDeflateStream(level, **CPU), J.RawDeflateStream(level)
+    assert d.pump(DATA, 2) == e.pump(DATA, 2) and d.window() == e.window()
+    assert d.copy().pump(b"", 4) == e.copy().pump(b"", 4)
+    assert d.pump(b"x", 4) == e.pump(b"x", 4) and d.finished and e.finished
+
+
 def test_no_gpu_and_no_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: T.deflate_chunk(DATA), lambda: T.inflate_raw(b"\x03\x00", 10),

@@ -107,6 +107,29 @@ def test_zran_index_equal_native(src, level, span, monkeypatch):
             assert (full, points, used) == native.zran_index(raw, span, 4 * len(data))
 
 
+@pytest.mark.parametrize("level", LEVELS)
+def test_skim_equal_native_and_truncated_on_every_prefix(level, monkeypatch):
+    """skim (no SP3, no output) of a raw stream with bytes after it, as a
+    gzip member has its trailer and the next member: the output size and
+    the input used equal zran_index's and native's; every prefix that
+    ends inside the stream raises "truncated deflate data", as native's
+    zran_index does on it, which is what lets the gzip split grow its
+    read."""
+    data, raw = _stream("mix", level)
+    monkeypatch.setattr(S, "SEGMENT_BYTES", 4096)
+    tail = bytes(8) + _raw(data[:5000], 6)
+    got = S.skim(raw + tail, 4 * len(data), device="cpu")
+    assert got == (len(data), len(raw))
+    if native.available():
+        full, _points, used = native.zran_index(raw + tail, 1 << 62, 4 * len(data))
+        assert got == (len(full), used)
+    for cut in (1, 4095, 4097, len(raw) // 2, len(raw) - 1):
+        want = (ValueError, "truncated deflate data")
+        assert _outcome(lambda: S.skim(raw[:cut], 4 * len(data), device="cpu")) == want
+        if native.available():
+            assert _outcome(lambda: native.zran_index(raw[:cut], 1 << 62, 4 * len(data))) == want
+
+
 def _wrapped(wrap, data, level):
     """zlib, gzip or raw at memLevel 2 (blocks of about 500 symbols, so
     that a small stream has many block starts)."""

@@ -577,3 +577,20 @@ def test_exact_deflate_dispatch_by_device(monkeypatch):
     EK.exact_deflate(data, meta, 6)
     EK.exact_deflate(data.to("meta"), meta, 6)
     assert calls == ["plain", "cuda"]
+
+
+@pytest.mark.parametrize("level", [6, EK.MEDIUM_BASE + 1])
+def test_dstream_wrapper_hands_the_kernel_its_work(stub, monkeypatch, level):
+    """DS's entry takes (rec, data, work, out, stream); a MEDIUM handle's
+    work is Work then Work4 (EX's work_bytes), and a shorter one raises."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    h = DSK.Handle(level, "cpu")
+    assert h.work.numel() == EK.work_bytes(level)
+    h.rec[DSK.D_OUT_CAP] = 64
+    out, rec_dev = torch.zeros(64, dtype=torch.uint8), torch.zeros(DSK.REC, dtype=torch.int64)
+    DSK.pump_cuda(h.rec, h.data, h.work, out, rec_dev)
+    args = _device.library("exact_deflate").zrs_dstream_pump.args
+    assert args[2] is h.work and int(rec_dev[DSK.D_LEVEL]) == level
+    assert DSK.launches["dstream"] == 1
+    with pytest.raises(ValueError, match="work"):
+        DSK.pump_cuda(h.rec, h.data, h.work[: DSK.WORK_BYTES - 1], out, rec_dev)

@@ -30,12 +30,32 @@ Sections reported:
             its output against the zlib oracle before it records a time.
             The indexed stream the decode phases read is compress_parallel
             of the first BATCH chunks on the card.
-  native    one row: speculative_inflate_gbps, the card's speculative
-            decode (parallel/speculative.py) of stdlib zlib-6 raw of the
-            corpus, the reference's native.inflate_speculative row, best
-            synchronized wall of 3 calls; the other rows measure the JAX
-            package's C++ host engine and are not carried.
-  decode_sweep  not carried, as native's other rows.
+  native    every row of bench.py's bench_native, its keys, reps and
+            checks against stdlib zlib, through the port's `native` facade
+            on the card, each row's engine in `engines`: deflate_chunk at
+            levels 0-9 (`compress`, one EX warp over the corpus),
+            deflate_parallel at 1, 6, 9 (`parallel_compress`, EX), QUICK and
+            MEDIUM4-6 (EX), inflate_raw (`inflate_gbps`, SP2 from bit 0),
+            inflate_parallel over a body of one deflate_chunk a CHUNK
+            (`parallel_inflate_gbps`, K6) and `speculative_inflate_gbps`
+            (SP1-SP3; the speculative phase's number: best of 3 calls on
+            stdlib zlib-6 raw of the corpus). The inflate rows read stdlib
+            zlib's raw level 6, which is deflate_chunk's bytes (EX gives
+            zlib's at 1-9), so that they need not wait on EX's serial
+            level-6 call. Walls of whole calls, host included (the facade
+            returns host bytes). The rows run cheapest first; the level
+            sweep is a phase of its own, native_levels, run after the
+            decode sweep, into native["compress"]. A row whose reps, priced
+            at its first call (its check), would overrun the budget, or
+            whose first call would (priced at twice the last level's), is
+            {"cut_by_budget": true, "first_call_s": ...}, not a phase error.
+  decode_sweep  bench.py's bench_decode_sweep: the port's models.stream
+            Inflate (IS on the card) fed a zlib-6 stream of the corpus's
+            first 4 MiB (256 KiB below 2^10) in pieces of 2^4-2^24 bytes,
+            median MB/s of 3 runs, and pure_engine_2^14 through the host
+            Inflator; budgeted as the native rows.
+  On the CPU (device="cpu") both run the plain versions, labelled wall
+  clock of the plain versions in their `timing`.
 
 Device seconds: the traced phases run their dispatch under
 torch.profiler (CUDA activity only, no shapes, no stacks); a dispatch's
@@ -88,8 +108,12 @@ VECTOR_BYTES = 8 << 20  # the vector phase tiles its batch to about this output
 SWARM_TILE = 4  # the swarm phase's lanes: the seeded chunks, this many times
 FOREIGN_BYTES = 4 * 1024 * 1024  # the foreign stream's input
 VALUE_SOURCE = "CUDA device time (torch.profiler)"
-NOT_CARRIED = {"available": False, "reason": "measures the JAX package's C++ host "
-               "engine, which the port does not carry"}
+ROW_MARGIN_S = 15.0  # kept free past a native or sweep row's predicted cost
+NATIVE_ENGINES = {  # the card's engine of each native row
+    "compress": "EX", "parallel_compress": "EX", "quick": "EX", "medium": "EX",
+    "inflate_gbps": "SP", "parallel_inflate_gbps": "K6", "speculative_inflate_gbps": "SP",
+}
+SWEEP_ENGINES = {"2^N": "IS", "pure_engine_2^14": "host"}
 # the key each device phase leaves on success
 PHASE_KEYS = {
     "kernel_encode": "kernel_encode_trace_gbps",
@@ -100,7 +124,11 @@ PHASE_KEYS = {
     "swarm": "swarm_decode_trace_gbps",
     "kernel_ratio": "kernel_ratio_vs_zlib",
     "xla_encode": "encode_trace_gbps",
+    "native": "native",
+    "decode_sweep": "decode_sweep",
+    "native_levels": "native",  # its rows are native["compress"]
 }
+SECTIONS = ("native", "decode_sweep")  # device entries the result carries at its top level
 
 T0 = time.monotonic()
 BUDGET = float(os.environ.get("ZRS_BENCH_BUDGET_S", "1200"))
@@ -184,6 +212,16 @@ def _time_median(fn, reps=5):
         ts.append(time.perf_counter() - t0)
     ts.sort()
     return ts[len(ts) // 2]
+
+
+def _time_best(fn, reps=3):
+    """Best-of-reps wall time."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def bench_cpu(data: bytes) -> dict:
@@ -739,6 +777,242 @@ def _phase_xla_encode(data, flat, dev, device):
     dev["ratio_vs_zlib"] = round(len(comp) / len(zlib.compress(data, LEVEL)), 4)
 
 
+def _timing(device) -> str:
+    if device.type == "cuda":
+        return "wall of whole calls on the card, host included (the calls return host bytes)"
+    return "wall clock of the plain versions on the CPU, not a device measurement"
+
+
+def _budgeted(out: dict, key: str, first, timed, reps: int, predicted=None, price=None):
+    """One native or sweep row under the budget, into out[key]. `first()`
+    is the row's first call and its check; `timed(first's result)` runs
+    its reps and returns the row's value. The first call is not started
+    when the budget less ROW_MARGIN_S is spent or cannot hold `predicted`
+    seconds, and the reps are not run when their price (`price(result,
+    first seconds)`, by default `reps` times the first call) does not fit;
+    the row is then {"cut_by_budget": True, "first_call_s": ...} (None when
+    the first call did not run). A watchdog ends a first call that runs
+    past the budget, and it too is cut. Returns the first call's seconds,
+    or None when it did not run to its end."""
+    left = remaining() - ROW_MARGIN_S
+    if left <= 1 or (predicted is not None and predicted > left):
+        out[key] = {"cut_by_budget": True, "first_call_s": None}
+        if predicted is not None:
+            out[key]["predicted_s"] = round(predicted, 3)
+        return None
+    t0 = time.perf_counter()
+    try:
+        with _watchdog(left, f"row {key}"):
+            got = first()
+    except TimeoutError:
+        out[key] = {"cut_by_budget": True, "first_call_s": round(time.perf_counter() - t0, 3)}
+        return None
+    first_s = time.perf_counter() - t0
+    cost = price(got, first_s) if price is not None else reps * first_s
+    if cost > remaining() - ROW_MARGIN_S:
+        out[key] = {"cut_by_budget": True, "first_call_s": round(first_s, 3)}
+        return first_s
+    try:
+        with _watchdog(max(1, remaining() - 5), f"row {key} reps"):
+            out[key] = timed(got)
+    except TimeoutError:
+        out[key] = {"cut_by_budget": True, "first_call_s": round(first_s, 3)}
+    return first_s
+
+
+def _native_section(data, dev, device) -> dict:
+    """The `native` entry of `dev`, made on its first use."""
+    return dev.setdefault("native", {"available": True, "engines": dict(NATIVE_ENGINES),
+                                     "timing": _timing(device), "bytes": len(data)})
+
+
+def _native_checked(data, stream: bytes, label: str) -> bytes:
+    """`stream` when it inflates (raw) to `data`; raises otherwise."""
+    if zlib.decompress(stream, -15) != data:
+        raise ValueError(f"native {label}: the stream does not inflate to the corpus")
+    return stream
+
+
+def _phase_native_levels(data, dev, device, tick=lambda: None):
+    """bench.py's bench_native compress rows: deflate_chunk of the corpus
+    at levels 0-9 through the port's `native` facade on `device` (after
+    the decode sweep: the costliest rows), each level priced at twice the
+    last one's first call, its first call checked against stdlib zlib;
+    `tick()` after each row hands the result so far to the parent."""
+    from . import native
+
+    n = len(data)
+    comp = _native_section(data, dev, device).setdefault("compress", {})
+    last = None
+    for lvl in LEVELS_SWEEP:
+        def first(l=lvl):
+            return _native_checked(data, native.deflate_chunk(data, level=l, final=True,
+                                                              device=device), f"level {l}")
+
+        def timed(raw, l=lvl):
+            t = _time_median(lambda: native.deflate_chunk(data, level=l, final=True,
+                                                          device=device),
+                             reps=5 if l in LEVELS_MATRIX else 2)
+            z = zlib.compress(data, l)  # zlib stream = 2-byte header + raw + 4-byte adler32
+            return {"gbps": round(n / t / 1e9, 4),
+                    "ratio_vs_zlib": round(len(raw) / (len(z) - 6), 4),
+                    "bit_exact": raw == z[2:-4]}
+
+        fs = _budgeted(comp, str(lvl), first, timed, 5 if lvl in LEVELS_MATRIX else 2,
+                       predicted=None if last is None else 2 * last)
+        last = fs if fs is not None else last
+        tick()
+
+
+def _phase_native(data, dev, device, tick=lambda: None):
+    """bench.py's bench_native through the port's `native` facade on
+    `device`, cheapest rows first: parallel_compress, QUICK, MEDIUM4-6,
+    inflate_raw, inflate_parallel and the speculative row (the speculative
+    phase's number, that phase run here when it has not run); the level
+    rows are `_phase_native_levels`. Every row is checked against stdlib
+    zlib on its first call; `tick()` after each row hands the result so
+    far to the parent."""
+    from . import native
+
+    n = len(data)
+    nat = _native_section(data, dev, device)
+    zstreams = {}
+
+    def zref(level: int) -> bytes:  # stdlib zlib of the corpus, as bench_cpu makes it
+        if level not in zstreams:
+            zstreams[level] = zlib.compress(data, level)
+        return zstreams[level]
+
+    def checked(stream: bytes, label: str) -> bytes:
+        return _native_checked(data, stream, label)
+
+    pc = nat.setdefault("parallel_compress", {})
+    for lvl in LEVELS_MATRIX:
+        def par(l=lvl):
+            return native.deflate_parallel(data, level=l, chunk_size=CHUNK, prime_dict=True,
+                                           device=device)
+
+        _budgeted(pc, str(lvl), lambda p=par, l=lvl: checked(p(), f"deflate_parallel {l}"),
+                  lambda pout, p=par, l=lvl: {
+                      "gbps": round(n / _time_median(p, reps=3) / 1e9, 4),
+                      "ratio_vs_zlib": round(len(pout) / (len(zref(l)) - 6), 4)}, 3)
+        tick()
+
+    def quick():
+        return native.deflate_chunk(data, level=native.QUICK, final=True, device=device)
+
+    _budgeted(nat, "quick", lambda: checked(quick(), "QUICK"), lambda q: {
+        "gbps": round(n / _time_best(quick, reps=2) / 1e9, 4),
+        "ratio_vs_zlib1": round(len(q) / (len(zref(1)) - 6), 4)}, 2)
+    tick()
+    med = nat.setdefault("medium", {})
+    for mlvl, zl in ((native.MEDIUM4, 4), (native.MEDIUM5, 5), (native.MEDIUM6, 6)):
+        def medium(lv=mlvl):
+            return native.deflate_chunk(data, level=lv, final=True, device=device)
+
+        _budgeted(med, str(zl), lambda m=medium, zl=zl: checked(m(), f"MEDIUM{zl}"),
+                  lambda m, f=medium, zl=zl: {
+                      "gbps": round(n / _time_best(f, reps=2) / 1e9, 4),
+                      "ratio_vs_zlib": round(len(m) / (len(zref(zl)) - 6), 4)}, 2)
+        tick()
+
+    c = zlib.compressobj(LEVEL, zlib.DEFLATED, -15)
+    raw6 = c.compress(data) + c.flush()
+
+    def inflate_raw():
+        return native.inflate_raw(raw6, n, device=device)
+
+    def inflate_first():
+        if inflate_raw()[0] != data:
+            raise ValueError("native inflate_raw: not the corpus")
+
+    _budgeted(nat, "inflate_gbps", inflate_first,
+              lambda _r: round(n / _time_median(inflate_raw, reps=5) / 1e9, 4), 5)
+    tick()
+
+    def indexed():
+        """The indexed body, one deflate_chunk a CHUNK (the reference's),
+        and inflate_parallel's check, timed apart."""
+        body, index = bytearray(), []
+        n_chunks = -(-n // CHUNK)
+        for k in range(n_chunks):
+            seg = data[k * CHUNK : (k + 1) * CHUNK]
+            part_ = native.deflate_chunk(seg, level=LEVEL, final=(k == n_chunks - 1),
+                                         device=device)
+            index.append((len(body), len(part_), len(seg)))
+            body.extend(part_)
+        body = bytes(body)
+        t0 = time.perf_counter()
+        if native.inflate_parallel(body, index, device=device) != data:
+            raise ValueError("native inflate_parallel: not the corpus")
+        return body, index, time.perf_counter() - t0
+
+    _budgeted(nat, "parallel_inflate_gbps", indexed,
+              lambda r: round(n / _time_best(
+                  lambda: native.inflate_parallel(r[0], r[1], device=device)) / 1e9, 4),
+              3, price=lambda r, _s: 3 * r[2])
+    tick()
+    key = "speculative_inflate_gbps" if device.type == "cuda" else \
+        "speculative_inflate_wallclock_gbps"
+    if key not in dev:
+        _phase_speculative(data, dev, device)
+    nat["speculative_inflate_gbps"] = dev[key]
+    tick()
+
+
+def _phase_decode_sweep(data, dev, device, tick=lambda: None):
+    """bench.py's bench_decode_sweep: the port's models.stream.Inflate (IS
+    on the card, its plain version on the CPU) fed a zlib-6 stream of the
+    corpus's first 4 MiB (256 KiB below 2^10) in 2^N-byte pieces, N = 4..24,
+    the median MB/s of 3 runs (the first is the row's check and prices the
+    other two), then pure_engine_2^14: the host Inflator once at 2^14."""
+    from .config import InflateConfig, InflateFlush
+    from .models.inflate import Inflator
+    from .models.stream import Inflate
+
+    sweep = dev.setdefault("decode_sweep", {"engines": dict(SWEEP_ENGINES),
+                                            "timing": _timing(device)})
+    slice_ = bytes(data[: 4 * 1024 * 1024])
+    small = slice_[: 256 * 1024]
+    z, zs = zlib.compress(slice_, LEVEL), zlib.compress(small, LEVEL)
+    for nbits in range(4, 25):
+        step = 1 << nbits
+        sl, zz = (small, zs) if nbits < 10 else (slice_, z)
+
+        def once(sl=sl, zz=zz, step=step):
+            t0 = time.perf_counter()
+            inf = Inflate(device=device)
+            produced = 0
+            for i in range(0, len(zz), step):
+                _st, _consumed, chunk = inf.decompress(zz[i : i + step], None)
+                produced += len(chunk)
+            if produced != len(sl):
+                raise ValueError(f"decode sweep 2^{step.bit_length() - 1}: {produced} bytes "
+                                 f"of {len(sl)}")
+            return time.perf_counter() - t0
+
+        def timed(t1, sl=sl, once=once):
+            times = sorted([t1, once(), once()])
+            return round(len(sl) / times[1] / 1e6, 2)  # median MB/s
+
+        _budgeted(sweep, f"2^{nbits}", once, timed, 2)
+        tick()
+
+    def pure():
+        t0 = time.perf_counter()
+        inf = Inflator(InflateConfig(window_bits=15))
+        produced = 0
+        for i in range(0, len(zs), 1 << 14):
+            _rc, _c, chunk = inf.inflate(zs[i : i + (1 << 14)], None, InflateFlush.NO_FLUSH)
+            produced += len(chunk)
+        if produced != len(small):
+            raise ValueError("decode sweep: the host Inflator fell short")
+        return round(len(small) / (time.perf_counter() - t0) / 1e6, 2)
+
+    _budgeted(sweep, "pure_engine_2^14", pure, lambda v: v, 0)
+    tick()
+
+
 def bench_device(data: bytes, emit=None, only=None, device=None) -> dict:
     """The device phases in the reference's order, each gated on
     remaining() so that the bench finishes inside its budget; a phase that
@@ -761,6 +1035,10 @@ def bench_device(data: bytes, emit=None, only=None, device=None) -> dict:
             fn(seeded["stream"], dev, device)
         return run
 
+    def tick():
+        if emit is not None:
+            emit(dev)
+
     phases = [
         ("kernel_encode", 30, lambda: _phase_kernel_encode(data, flat, dev, device)),
         ("vector_decode", 60, with_seeds(_phase_vector)),
@@ -770,6 +1048,11 @@ def bench_device(data: bytes, emit=None, only=None, device=None) -> dict:
         ("swarm", 60, with_seeds(_phase_swarm)),
         ("kernel_ratio", 40, lambda: _phase_kernel_ratio(data, dev, device)),
         ("xla_encode", 40, lambda: _phase_xla_encode(data, flat, dev, device)),
+        # the native rows cheapest first, the decode sweep, then the level
+        # sweep: each row is budgeted on its own (cut_by_budget, no skip)
+        ("native", 20, lambda: _phase_native(data, dev, device, tick)),
+        ("decode_sweep", 20, lambda: _phase_decode_sweep(data, dev, device, tick)),
+        ("native_levels", 0, lambda: _phase_native_levels(data, dev, device, tick)),
     ]
     for name, need, fn in phases:
         if only is not None and name not in only:
@@ -784,15 +1067,15 @@ def bench_device(data: bytes, emit=None, only=None, device=None) -> dict:
         except Exception as e:  # a phase's failure is recorded; the next runs
             PHASE_ERRORS[name] = f"{type(e).__name__}: {str(e)[:300]}"
             _log(f"{name} phase failed: {PHASE_ERRORS[name]}")
-        if emit is not None:
-            emit(dev)
+        tick()
     return dev
 
 
-def _device_child_main() -> int:
-    """The killable device child: run the device phases and print
-    'DEVPART <json>' after every one (the parent merges the last one
-    received). Exits 1 when there is no CUDA device."""
+def _device_child_main(only=None) -> int:
+    """The killable device child: run the device phases (those named in
+    `only`, or all) and print 'DEVPART <json>' after every one, and after
+    every native and sweep row (the parent merges the last one received).
+    Exits 1 when there is no CUDA device."""
     card = {"kind": torch.cuda.get_device_name(0) if torch.cuda.is_available() else None}
 
     def emit(dev):
@@ -803,7 +1086,7 @@ def _device_child_main() -> int:
     data = load_corpus()
     dev = {}
     try:
-        dev = bench_device(data, emit=emit)
+        dev = bench_device(data, emit=emit, only=only)
     except Exception as e:  # no device, or a failed build: recorded for the parent
         PHASE_ERRORS["device"] = f"{type(e).__name__}: {str(e)[:300]}"
         _log(f"device phases failed: {PHASE_ERRORS['device']}")
@@ -845,26 +1128,26 @@ def _compose_result(result, device, cpu, phase_errors=None, card=None):
                 "traced reps. cpu_zlib is single-thread stdlib zlib on the same host."
             ),
             "card": card,
-            "device": device,
+            "device": {k: v for k, v in device.items() if k not in SECTIONS},
             "device_busy_share": shares,
             "device_phase_errors": phase_errors or {},
             "device_unreachable": not device,
-            "native": {
-                "available": device.get("speculative_inflate_gbps") is not None,
-                "source": "the card's speculative decode (parallel/speculative.py)",
-                "speculative_inflate_gbps": device.get("speculative_inflate_gbps"),
-                "not_carried": dict(NOT_CARRIED, rows=[
-                    "compress", "parallel_compress", "quick", "medium", "inflate_gbps",
-                    "parallel_inflate_gbps"]),
-            },
+            "native": device.get("native") or {
+                "available": False, "reason": "the device child ran no native row"},
             "cpu_zlib": cpu,
-            "host_stream_decode_mbps_by_input_chunk": NOT_CARRIED,
+            "host_stream_decode_mbps_by_input_chunk": device.get("decode_sweep") or {
+                "available": False, "reason": "the device child ran no decode sweep row"},
             "phase_seconds": PHASE_SECONDS,
             "budget_s": BUDGET,
             "elapsed_s": round(time.monotonic() - T0, 1),
         }
     )
     return result
+
+
+def _number(v):
+    """A measured rate, or None for a row cut by the budget."""
+    return v if isinstance(v, (int, float)) else None
 
 
 def _compact_result(result, device):
@@ -886,8 +1169,8 @@ def _compact_result(result, device):
             device.get("kernel_e2e_steady_gbps")
             or device.get("kernel_e2e_wall_gbps")
         ),
-        "native_inflate_gbps": native.get("inflate_gbps"),
-        "parallel_inflate_gbps": native.get("parallel_inflate_gbps"),
+        "native_inflate_gbps": _number(native.get("inflate_gbps")),
+        "parallel_inflate_gbps": _number(native.get("parallel_inflate_gbps")),
         "elapsed_s": result.get("elapsed_s"),
     }
     if len(json.dumps(compact)) >= 500:  # drop optional keys in order
@@ -986,5 +1269,6 @@ def main():
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--device-child":
-        sys.exit(_device_child_main())
+        phases = [a[len("--phases="):] for a in sys.argv[2:] if a.startswith("--phases=")]
+        sys.exit(_device_child_main(tuple(phases[0].split(",")) if phases else None))
     main()

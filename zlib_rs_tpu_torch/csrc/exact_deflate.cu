@@ -63,20 +63,22 @@
 // objects and gzip files (models/faststream.py): one block of one warp a
 // handle and a pump. The Deflater's scalar state (spos, block_start, ns,
 // the lazy match's carry, sh/shv, started, BitW's partial word, zlib's
-// `insert`) is restored from the handle's record before the pump and saved
-// after it; the handle's Work (hash chains, the block's symbols) and its
-// data (the window and the unflushed block, then the pump's input) stay
-// in device memory. The scan loops take `limit`, as native's do: total -
+// `insert`, MEDIUM's pre-found next match) is restored from the handle's
+// record before the pump and saved after it; the handle's Work (hash
+// chains, the block's symbols; MEDIUM4-6 add Work4's head4 and prevd4) and
+// its data (the window and the unflushed block, then the pump's input)
+// stay in device memory. The scan loops (run_fast, run_slow, run_medium)
+// take `limit`, as native's do: total -
 // (MIN_LOOKAHEAD - 1) under NO_FLUSH, so that no decision depends on how
 // much input has arrived, and total under a flush (a chunk passes total,
 // so its bytes do not change); the scan starts once (start_scan). A flush
-// then runs native's tail: the trailing literal, flush_block, the sync
+// then runs native's tail: the trailing literal (not at MEDIUM), flush_block, the sync
 // seam, FULL_FLUSH's hash clear and window restart, FINISH's last block
 // and alignment, and the retroactive insert of the <= 2 tail positions at
 // the next pump. The wrapper (ops/kernels/dstream_kernel.py) sizes the
 // pump's room from the unflushed bytes, raises when a pump passed it, and
 // prunes the data after a pump as native does (by multiples of WSIZE,
-// the hash heads rebased). Its bound is EX's: the pump's bytes are
+// the hash heads, head4 and MEDIUM's next match rebased). Its bound is EX's: the pump's bytes are
 // microseconds; its floor is the serial scan of the pump's positions.
 
 #include <cstdint>
@@ -1378,22 +1380,27 @@ EX_HD bool needs_work4(int level) {
 // ---------------------------------------------------------------------------
 
 // DS's record, int64 a field (the wrapper's D_* names): the scan state
-// between pumps, the flush and the room of this pump, and its results
+// between pumps, the flush and the room of this pump, its results, and
+// MEDIUM's pre-found next match
 enum {
   D_TOTAL, D_SPOS, D_BLOCK_START, D_NS, D_MATCH_LENGTH, D_PREV_LENGTH, D_MATCH_START,
   D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
-  D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS, D_FINISHED, kDRec = 24
+  D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS, D_FINISHED,
+  D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART, D_MED_NEXT_LEN, kDRec = 28
 };
 constexpr int kMisuse = -2;
 
 // one pump of a stream: `data` holds positions [0, rec[D_TOTAL]) (the
 // window, the unflushed block and this pump's input; position 0 is NIL),
-// `w` the handle's Work (hash chains, the block's symbols), `out` the
-// pump's room. Flush 0 none, 2 sync, 3 full, 4 finish.
+// `w` the handle's Work (hash chains, the block's symbols; at MEDIUM
+// followed by Work4, the 4-byte-hash chains), `out` the pump's room.
+// Flush 0 none, 2 sync, 3 full, 4 finish. Levels 1-9 and MEDIUM4-6
+// (11-13), as native's handle takes them.
 EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, int lane,
                     int lanes) {
   const int level = (int)r[D_LEVEL], flush = (int)r[D_FLUSH];
-  if (r[D_FINISHED] || level < 1 || level > 9) {  // native's -2
+  const bool medium = level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2;
+  if (r[D_FINISHED] || (!medium && (level < 1 || level > 9))) {  // native's -2
     warp_sync();
     if (lane == 0) {
       r[D_STATUS] = kMisuse;
@@ -1405,10 +1412,11 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   d.base = data;
   d.dict_len = 0;
   d.total = d.n = r[D_TOTAL];
-  d.level = d.klevel = level;
+  d.level = level;
+  d.klevel = medium ? level - MEDIUM_BASE + 5 : level;
   d.lane = lane;
   d.w = w;
-  d.w4 = nullptr;
+  d.w4 = medium ? (Work4*)((uint8_t*)w + kWorkBytes) : nullptr;
   d.bw = BitW{out, r[D_OUT_CAP], 0, (uint64_t)r[D_BW_BUF], (int)r[D_BW_CNT], lane};
   d.ns = r[D_NS];
   d.block_start = r[D_BLOCK_START];
@@ -1421,8 +1429,10 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   d.sh = (uint32_t)r[D_SH];
   d.shv = r[D_SHV] != 0;
   d.started = r[D_STARTED] != 0;
-  d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
-  d.med_next_len = 0;
+  d.med_next_start = r[D_MED_NEXT_START];
+  d.med_next_strstart = r[D_MED_NEXT_STRSTART];
+  d.med_next_orgstart = r[D_MED_NEXT_ORGSTART];
+  d.med_next_len = (int)r[D_MED_NEXT_LEN];
   long long total = d.total;
   long long insert_pending = r[D_INSERT_PENDING];
   d.start_scan();
@@ -1441,13 +1451,15 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   }
   const long long limit =
       flush ? total : (total >= MIN_LOOKAHEAD ? total - (MIN_LOOKAHEAD - 1) : 0);
-  if (kT.slow[level])
+  if (medium)
+    d.run_medium(limit);
+  else if (kT.slow[level])
     d.run_slow(limit);
   else
     d.run_fast(limit);
   bool finished = false;
   if (flush) {
-    if (kT.slow[level]) d.emit_trailing_literal();
+    if (!medium && kT.slow[level]) d.emit_trailing_literal();
     insert_pending = d.spos < MIN_MATCH - 1 ? d.spos : MIN_MATCH - 1;
     if (flush == 4) {
       d.flush_block(true, total);
@@ -1456,7 +1468,10 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     } else {
       if (d.ns != 0 || d.block_start < total) d.flush_block(false, total);
       d.seam();
-      if (flush == 3) {  // FULL_FLUSH: the hash cleared, the window restarts
+      // FULL_FLUSH: the 3-byte hash cleared, the window restarts; as
+      // native, MEDIUM's head4 and next match stay (a stale head's delta
+      // wraps in its u16 slot, and every candidate's bytes are compared)
+      if (flush == 3) {
         for (int i = lane; i < HASH_SIZE; i += lanes) w->head[i] = 0;
         total = 0;
         d.spos = 0;
@@ -1486,6 +1501,10 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     r[D_OUT_LEN] = d.bw.wpos;
     r[D_STATUS] = d.bw.wpos > d.bw.cap ? kOverflow : 0;
     r[D_FINISHED] = finished ? 1 : 0;
+    r[D_MED_NEXT_START] = d.med_next_start;
+    r[D_MED_NEXT_STRSTART] = d.med_next_strstart;
+    r[D_MED_NEXT_ORGSTART] = d.med_next_orgstart;
+    r[D_MED_NEXT_LEN] = d.med_next_len;
   }
 }
 
@@ -1574,8 +1593,8 @@ extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, i
 }
 
 // DS over one handle: rec int64 [kDRec], data uint8 (rec[D_TOTAL] bytes),
-// work uint8 [kWorkBytes] (Work; head int32[32768] first), out uint8
-// (rec[D_OUT_CAP] bytes of room)
+// work uint8 [zrs_exact_deflate_work_bytes(level)] (Work, head int32[32768]
+// first; at MEDIUM then Work4), out uint8 (rec[D_OUT_CAP] bytes of room)
 extern "C" int zrs_dstream_pump(void* rec, const void* data, void* work, void* out,
                                 void* stream) {
   const int terr = ensure_tables();

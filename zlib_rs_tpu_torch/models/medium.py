@@ -6,9 +6,11 @@ zlib_rs_tpu/models/medium.py, host code).
 fizzle_matches backward overlap trimming) decision for decision, with the
 realization choices of the reference's native engine (4-byte Knuth hash
 into a 16-bit table, 16-bit capped delta chains, one-deeper zlib knob
-rows); `compress_quick` is the adaptive QUICK mode. The reference holds
-both byte-identical to its native engine, which the port does not carry;
-the port's copies are held byte-identical to the reference's.
+rows); `MediumStream` is the same scan paused and resumed with native's
+pump contract (the plain version of DS at MEDIUM4-6); `compress_quick` is
+the adaptive QUICK mode. The reference holds both one-shot modes
+byte-identical to its native engine; the port's copies are held
+byte-identical to the reference's, and MediumStream to native's handle.
 
 This is NOT the bit-exact zlib path (levels 1-9 keep that contract);
 medium trades ~0-2% ratio for 2-3x scan speed, like zlib-ng does.
@@ -47,6 +49,8 @@ class _Medium:
         self.sym_dist: list[int] = []
         self.sym_lit: list[int] = []
         self.block_start = dict_len
+        self.spos = dict_len
+        self.med_next = None  # the pre-found next match: [start, strstart, orgstart, length]
         for i in range(dict_len - 3):  # native's priming: every 4-byte string
             self.insert4(i)
 
@@ -57,7 +61,9 @@ class _Medium:
     def insert4(self, pos: int) -> None:
         h = self._hash4(pos)
         delta = pos - self.head4[h]
-        self.prevd4[pos & (WSIZE - 1)] = min(delta, 0xFFFF)
+        # native's uint16 store: a negative delta (a head left from before a
+        # stream's FULL_FLUSH) wraps, as it does there
+        self.prevd4[pos & (WSIZE - 1)] = min(delta, 0xFFFF) & 0xFFFF
         self.head4[h] = pos
 
     def chain_prev4(self, pos: int) -> int:
@@ -183,16 +189,17 @@ class _Medium:
         self.sym_lit = []
         self.block_start = spos
 
-    def run(self, final: bool = True) -> bytes:
+    def scan(self, limit: int) -> None:
+        """native run_medium(limit, total): the positions below `limit`,
+        every clamp against the data's current end."""
         data = self.data
         total = len(data)
         early_exit = False  # all mirrored rows have klevel >= 5
-        spos = self.dict_len
-        nxt_carry = None  # [start, strstart, orgstart, length]
-        while spos < total:
-            if nxt_carry is not None and nxt_carry[3] > 0:
-                cur = nxt_carry
-                nxt_carry = None
+        spos = self.spos
+        while spos < limit:
+            if self.med_next is not None and self.med_next[3] > 0:
+                cur = self.med_next
+                self.med_next = None
             else:
                 hash_head = 0
                 if spos + 4 <= total:
@@ -224,9 +231,9 @@ class _Medium:
                         nm[3] = 1
                     if nm[3] >= WANT_MIN:
                         self.fizzle(cur, nm)
-                nxt_carry = nm
+                self.med_next = nm
             else:
-                nxt_carry = None
+                self.med_next = None
 
             if cur[3] < WANT_MIN:
                 for i in range(cur[3]):
@@ -238,21 +245,94 @@ class _Medium:
             spos = cur[1] + cur[3]
             if len(self.sym_dist) >= SYM_END - 4:
                 self.flush_block(spos, False)
+        self.spos = spos
+
+    def run(self, final: bool = True) -> bytes:
+        total = len(self.data)
+        self.scan(total)
         if final:
             self.flush_block(total, True)
             self.bw.align()
             return bytes(self.out)
         if self.sym_dist or self.block_start < total:
             self.flush_block(total, False)
-        return _seam(self.bw, self.out)
+        _seam(self.bw, self.out)
+        return bytes(self.out)
 
 
-def _seam(bw: BitWriter, out: bytearray) -> bytes:
+class MediumStream(_Medium):
+    """A resumable MEDIUM raw deflate: native's DefStream::pump over
+    run_medium (native/zrs_native.cpp:2107-2150), step by step, the plain
+    version of DS at MEDIUM4-6 (ops/kernels/dstream_kernel.py).
+
+    `pump(data, flush)` appends `data` and scans to native's limit: under
+    NO_FLUSH (0) the positions with at least MIN_LOOKAHEAD - 1 bytes after
+    them, under a flush all. A flush then ends the block: SYNC (2) and
+    FULL (3) flush it (when it holds a symbol or a byte) and write the sync
+    seam; FULL also restarts the window at position 0 but, as native, keeps
+    head4, prevd4 and the carried next match (a stale head's delta wraps in
+    its uint16 slot, and every candidate's bytes are compared, so the
+    matches stay inside the new window). FINISH (4) writes the last block
+    and aligns. Native has no trailing literal at MEDIUM, and its `insert`
+    (insert_pending, retro_insert) feeds only the 3-byte chain, which MEDIUM
+    never reads, so neither appears here. After each pump the data is
+    pruned as native prunes it: once a multiple of WSIZE of at least 1 MiB
+    lies before both the match window and the unflushed block, it goes,
+    and head4 and the next match are rebased (prevd4 holds deltas). The
+    bytes gather in `pending`; dstream_kernel.Plain hands them out at
+    native's commit points."""
+
+    PRUNE = 1 << 20  # bytes of dead data before the buffer is pruned (native's)
+
+    def __init__(self, level: int):
+        if level not in _KNOBS:
+            raise ValueError("medium level must be 4, 5, or 6")
+        super().__init__(bytearray(), _KNOBS[level], 0)
+        self.pending = self.out
+        self.finished = False
+
+    def pump(self, data: bytes, flush: int) -> None:
+        if self.finished:
+            raise RuntimeError("native deflate stream misuse")
+        self.data += data
+        total = len(self.data)
+        if flush:
+            limit = total
+        else:
+            limit = total - (MIN_LOOKAHEAD - 1) if total >= MIN_LOOKAHEAD else 0
+        self.scan(limit)
+        if flush == 4:
+            self.flush_block(total, True)
+            self.bw.align()
+            self.finished = True
+        elif flush:
+            if self.sym_dist or self.block_start < total:
+                self.flush_block(total, False)
+            _seam(self.bw, self.out)
+            if flush == 3:
+                del self.data[:]
+                self.spos = self.block_start = 0
+        self._prune()
+
+    def _prune(self) -> None:
+        spos = self.spos
+        keep = min(spos - WSIZE if spos > WSIZE else 0, self.block_start) & ~(WSIZE - 1)
+        if keep < self.PRUNE:
+            return
+        del self.data[:keep]
+        self.spos -= keep
+        self.block_start -= keep
+        self.head4 = [h - keep if h > keep else 0 for h in self.head4]
+        if self.med_next is not None:
+            nm = self.med_next
+            nm[:3] = [x - keep if x > keep else 0 for x in nm[:3]]
+
+
+def _seam(bw: BitWriter, out: bytearray) -> None:
     """Close a non-final chunk: an empty stored block, byte aligned."""
     bw.send_bits(0, 3)
     bw.align()
     out.extend(b"\x00\x00\xff\xff")
-    return bytes(out)
 
 
 def _primed(data: bytes, dictionary) -> tuple[bytes, int]:
@@ -325,7 +405,8 @@ def compress_quick(data: bytes, final: bool = True, dictionary: bytes | None = N
         if final_flag:
             bw.align()
             return bytes(out)
-        return _seam(bw, out)
+        _seam(bw, out)
+        return bytes(out)
 
     QSEG = 49152
     if total == dict_len:

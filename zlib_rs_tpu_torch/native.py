@@ -222,9 +222,9 @@ class RawInflateStream:
 
 class RawDeflateStream:
     """Resumable raw-deflate compressor handle on DS: byte-identical to
-    zlib for every NO/SYNC/FULL/FINISH pump script at levels 1-9. Levels 0
-    and QUICK raise RuntimeError at the first pump (native's misuse);
-    MEDIUM4-6 raise NotImplementedError (ROADMAP queue 1)."""
+    zlib for every NO/SYNC/FULL/FINISH pump script at levels 1-9, and to
+    native's handle at MEDIUM4-6. Levels 0 and QUICK raise RuntimeError at
+    the first pump (native's misuse)."""
 
     __slots__ = ("_h", "finished")
 

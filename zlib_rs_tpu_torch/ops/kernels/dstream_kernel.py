@@ -9,36 +9,38 @@ keeps one stream's state in device memory between pumps:
 - the record, int64 [REC]: EX's scan state (spos, block_start, the
   symbols buffered, the lazy match's carry, the rolling hash, whether the
   scan started, the bit writer's partial word), zlib's `insert` (the
-  <= 2 tail positions of the last flush), the level, and this pump's
-  flush, room and results;
+  <= 2 tail positions of the last flush), the level, this pump's flush,
+  room and results, and MEDIUM's pre-found next match;
 - the data, uint8: the match window and the unflushed block, then each
   pump's input (position 0 is NIL);
-- EX's Work, uint8 [WORK_BYTES]: the hash chains (head int32[32768] at
-  byte 0, prevd), the block's symbols and the tree build's arrays.
+- EX's Work, uint8 [work_bytes(level)]: the hash chains (head
+  int32[32768] at byte 0, prevd), the block's symbols and the tree
+  build's arrays; at MEDIUM then Work4, the 4-byte-hash chains (head4
+  int32[65536] at byte WORK_BYTES, prevd4).
 
 A pump (native's `DefStream::pump` then `read`) appends its input (one
 host-to-device copy), launches DS once with the flush (0 none, 2 sync,
 3 full, 4 finish) and reads back the record and the output (device to
 host). Under NO_FLUSH DS scans the positions with at least MIN_LOOKAHEAD
-bytes after them; a flush scans all, emits the trailing literal, the
-block and the seam (FULL_FLUSH also clears the hash and restarts the
-window; FINISH ends the stream). The room of a pump is sized from the
-unflushed bytes (`room`); a pump that outgrew it raises, as native's -1
+bytes after them; a flush scans all, emits the trailing literal (not at
+MEDIUM, as native), the block and the seam (FULL_FLUSH also clears the
+3-byte hash and restarts the window, and leaves head4 and MEDIUM's next
+match as native does; FINISH ends the stream). The room of a pump is
+sized from the unflushed bytes (`room`); a pump that outgrew it raises, as native's -1
 would, and drops nothing silently. After the pump the wrapper prunes the
 data as native does: the window and the unflushed block stay, the rest
-goes in multiples of WSIZE once it passes 1 MiB, and the hash heads are
-rebased (slide_hash's role).
+goes in multiples of WSIZE once it passes 1 MiB, and the hash heads
+(head4 and MEDIUM's next match too) are rebased (slide_hash's role).
 
-The plain version (`Plain`) is the port's host `Deflator` in raw mode
-driven by the same flushes, for levels 1-9: zlib's bytes, which native's
-handle gives for every NO/SYNC/FULL/FINISH script. Its output is handed
-out at native's granularity (a 64-bit accumulator: a NO_FLUSH pump
-returns only whole 8-byte words since the last byte alignment), so that
-both give the same bytes pump for pump, and it scans NO_FLUSH input to
-native's limit. Levels 0 and QUICK are misuse (native's -2) and raise
-RuntimeError at the first pump; MEDIUM (11-13), which native's handle
-takes, raises NotImplementedError at construction: the port has no
-resumable MEDIUM plain version yet (ROADMAP queue 1). `open_stream`
+The plain version (`Plain`) is, for levels 1-9, the port's host
+`Deflator` in raw mode driven by the same flushes: zlib's bytes, which
+native's handle gives for every NO/SYNC/FULL/FINISH script; for MEDIUM4-6
+(levels 11-13) `models.medium.MediumStream`, native's pump over
+run_medium. Its output is handed out at native's granularity (a 64-bit
+accumulator: a NO_FLUSH pump returns only whole 8-byte words since the
+last byte alignment), so that both give the same bytes pump for pump, and
+it scans NO_FLUSH input to native's limit. Levels 0 and QUICK are misuse
+(native's -2) and raise RuntimeError at the first pump. `open_stream`
 gives the plain version for the CPU and the kernel's handle for a CUDA
 device; nothing falls back.
 """
@@ -51,23 +53,24 @@ import numpy as np
 import torch
 
 from ... import _device
-from .exact_deflate_kernel import WORK_BYTES, WSIZE, is_medium
+from .exact_deflate_kernel import MEDIUM_BASE, WORK_BYTES, WSIZE, is_medium, work_bytes
 
 # launches of the CUDA kernel; the plain version does not count
 launches = {"dstream": 0}
 
-REC = 24
+REC = 28
 (D_TOTAL, D_SPOS, D_BLOCK_START, D_NS, D_MATCH_LENGTH, D_PREV_LENGTH, D_MATCH_START,
  D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
  D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS,
- D_FINISHED) = range(21)
+ D_FINISHED, D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART,
+ D_MED_NEXT_LEN) = range(25)
+MED_NEXT = (D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART)
 OVERFLOW, MISUSE = -1, -2
 MIN_MATCH, MIN_LOOKAHEAD = 3, 262
 HASH_SIZE = 1 << 15
+HASH4_SIZE = 1 << 16  # MEDIUM's head4
 PRUNE = 1 << 20  # bytes of dead data before the buffer is pruned (native's)
 FLUSHES = (0, 2, 3, 4)  # none, sync, full, finish
-MEDIUM_WAITS = ("MEDIUM streaming (levels 11-13) waits for a resumable plain "
-                "models/medium (ROADMAP queue 1)")
 
 
 def room(unflushed: int) -> int:
@@ -81,9 +84,9 @@ def _misuse() -> RuntimeError:
     return RuntimeError("native deflate stream misuse")
 
 
-def _check_level(level: int) -> None:
-    if is_medium(level):
-        raise NotImplementedError(MEDIUM_WAITS)
+def _takes(level: int) -> bool:
+    """The levels native's handle takes: 1-9 and MEDIUM4-6."""
+    return 1 <= level <= 9 or is_medium(level)
 
 
 # ---------------------------------------------------------------------------
@@ -131,18 +134,23 @@ def _classes():
 
 
 class Plain:
-    """The plain DS: a stream over the host Deflator, native's pump."""
+    """The plain DS: a stream over the host Deflator (levels 1-9) or
+    MediumStream (MEDIUM4-6), native's pump."""
 
     def __init__(self, level: int):
-        _check_level(level)
         self.level = level
         self.finished = False
         self.z = None
-        if 1 <= level <= 9:
-            from ...config import DeflateConfig
-
+        if _takes(level):
             deflator, writer = _classes()
-            self.z = deflator(DeflateConfig(level=level, window_bits=-15))
+            if is_medium(level):
+                from ...models.medium import MediumStream
+
+                self.z = MediumStream(level - MEDIUM_BASE + 4)
+            else:
+                from ...config import DeflateConfig
+
+                self.z = deflator(DeflateConfig(level=level, window_bits=-15))
             self.z.bw = writer(self.z.pending)
             self.z.bw.owner = self
         self.aligned = True  # the stream starts byte-aligned
@@ -157,9 +165,12 @@ class Plain:
             raise _misuse()
         z = self.z
         data = bytes(data)
-        z._last_flush = -2  # native flushes even an empty repeat
-        z.deflate(data, {0: DeflateFlush.NO_FLUSH, 2: DeflateFlush.SYNC_FLUSH,
-                         3: DeflateFlush.FULL_FLUSH, 4: DeflateFlush.FINISH}[flush])
+        if is_medium(self.level):
+            z.pump(data, flush)
+        else:
+            z._last_flush = -2  # native flushes even an empty repeat
+            z.deflate(data, {0: DeflateFlush.NO_FLUSH, 2: DeflateFlush.SYNC_FLUSH,
+                             3: DeflateFlush.FULL_FLUSH, 4: DeflateFlush.FINISH}[flush])
         emitted = self.drained + len(z.pending)
         if self.aligned:
             commit = emitted
@@ -209,8 +220,10 @@ def pump_cuda(rec: np.ndarray, data, work, out, rec_dev) -> None:
     """One DS launch over CUDA state; the record crosses both ways through
     `rec_dev` (int64 [REC] on the device)."""
     _device.require_cuda("dstream", data, work, out, rec_dev)
-    if work.dtype != torch.uint8 or work.numel() < WORK_BYTES:
-        raise ValueError(f"dstream: work must be uint8 [>= {WORK_BYTES}]")
+    level = int(rec[D_LEVEL])
+    need = work_bytes(level) if is_medium(level) else WORK_BYTES
+    if work.dtype != torch.uint8 or work.numel() < need:
+        raise ValueError(f"dstream: work must be uint8 [>= {need}] at level {level}")
     if data.numel() < int(rec[D_TOTAL]) or out.numel() < int(rec[D_OUT_CAP]):
         raise ValueError("dstream: the data or the room is smaller than the record says")
     rec_dev.copy_(torch.from_numpy(rec))
@@ -225,7 +238,6 @@ class Handle:
     """One resumable raw deflate whose state lives on a CUDA device."""
 
     def __init__(self, level: int, device):
-        _check_level(level)
         dev = torch.device(device)
         self.device = dev
         self.rec = np.zeros(REC, np.int64)
@@ -234,7 +246,8 @@ class Handle:
         self.rec_dev = torch.zeros(REC, dtype=torch.int64, device=dev) \
             if dev.type == "cuda" else None
         self.data = torch.zeros(1 << 16, dtype=torch.uint8, device=dev)
-        self.work = torch.zeros(WORK_BYTES, dtype=torch.uint8, device=dev)
+        self.work = torch.zeros(work_bytes(level) if is_medium(level) else WORK_BYTES,
+                                dtype=torch.uint8, device=dev)
         self.level = level
 
     @property
@@ -267,17 +280,22 @@ class Handle:
             return
         total = int(rec[D_TOTAL])
         self.data[: total - keep] = self.data[keep:total].clone()
-        head = self.work[: 4 * HASH_SIZE].view(torch.int32)
-        head.copy_(torch.where(head > keep, head - keep, torch.zeros_like(head)))
+        heads = [self.work[: 4 * HASH_SIZE].view(torch.int32)]
+        fields = [D_MATCH_START, D_PREV_START]
+        if is_medium(self.level):
+            heads.append(self.work[WORK_BYTES : WORK_BYTES + 4 * HASH4_SIZE].view(torch.int32))
+            fields += MED_NEXT
+        for head in heads:
+            head.copy_(torch.where(head > keep, head - keep, torch.zeros_like(head)))
         rec[D_TOTAL] = total - keep
         rec[D_SPOS] = spos - keep
         rec[D_BLOCK_START] = block_start - keep
-        for f in (D_MATCH_START, D_PREV_START):
+        for f in fields:
             rec[f] = max(int(rec[f]) - keep, 0)
 
     def pump(self, data: bytes, flush: int) -> bytes:
         rec = self.rec
-        if self.finished or not 1 <= self.level <= 9:
+        if self.finished or not _takes(self.level):
             raise _misuse()
         if flush not in FLUSHES:
             raise ValueError(f"dstream: flush must be one of {FLUSHES}, got {flush}")

@@ -11,7 +11,6 @@ outside the reference package and is not ported.
 
 from __future__ import annotations
 
-import zlib
 
 import numpy as np
 import torch
@@ -156,21 +155,65 @@ def _lockstep(comp, sb, eb, tg, win, wlen: int, max_out: int, lanes) -> np.ndarr
     return vals.cpu().numpy()
 
 
-def _gzip_members(data: bytes) -> list[tuple[bytes, int, int]]:
-    """(raw body, output size, crc32) of each gzip member, split on the
-    host with zlib's raw inflater, the reference's own branch without its
-    native engine."""
+GZIP_ROOM_GROWTH = 4  # the skim's room grows 4x on each BufferError
+DEFLATE_MAX_RATIO = 1032  # deflate's largest expansion: a 258-byte match a 2-bit code
+SKIM_FIRST = 4 << 20  # the input the first member's first skim reads
+SKIM_MIN = 64 * 1024  # the least input a later member's first skim reads
+SKIM_GROWTH = 4  # a skim's input grows 4x while the member ends past it
+
+
+def _skim_member(rest, first: int, device) -> tuple[int, int]:
+    """(output size, input bytes consumed) of the raw deflate member at the
+    start of `rest` (bytes or a memoryview of the rest of the file): the
+    card's speculative decode (`speculative.skim`: SP1 and SP2, no SP3),
+    native's zran_index skim in the reference. The skim reads a prefix of
+    `rest`, `first` bytes at first, SKIM_GROWTH times longer on each
+    ValueError("truncated deflate data") until it is the whole rest, so a
+    member's skim decodes about its own bytes, not every member after it.
+    The room starts at the reference's, 4 x the prefix plus 1 MiB, and
+    grows 4x on each BufferError up to deflate's own limit, 1032 x the
+    prefix plus 1 MiB; past that the BufferError propagates. A data fault
+    raises ValueError; a build, launch or no-GPU error propagates."""
+    from . import speculative
+
+    cut = min(first, len(rest))
+    room = 0
+    while True:
+        cap = DEFLATE_MAX_RATIO * cut + (1 << 20)
+        room = min(max(room, 4 * cut + (1 << 20)), cap)
+        try:
+            return speculative.skim(bytes(rest[:cut]), room, device=device)
+        except BufferError:
+            if room >= cap:
+                raise
+            room = min(room * GZIP_ROOM_GROWTH, cap)
+        except ValueError as e:
+            if cut == len(rest) or str(e) != "truncated deflate data":
+                raise
+            cut = min(cut * SKIM_GROWTH, len(rest))
+
+
+def _gzip_members(data: bytes, device=None) -> list[tuple[bytes, int, int]]:
+    """(raw body, output size, crc32) of each gzip member, each skimmed on
+    `device` by `_skim_member`, as the reference splits members with its
+    native engine (zlib_rs_tpu/parallel/inflate.py:503-519). The first
+    member's first skim reads SKIM_FIRST bytes, a later member's twice the
+    last member's body, at least SKIM_MIN: a skim's time is about one
+    segment's serial decode whatever its input (its segments decode in
+    parallel), so fewer, longer reads cost less than exact ones."""
+    from ..models.oneshot import gzip_header_end
+
+    view = memoryview(data)
     members = []
-    pos = 0
+    pos, first = 0, SKIM_FIRST
     while pos < len(data) and data[pos : pos + 2] == b"\x1f\x8b":
-        hdr, _ = Z._wrapper_span(data[pos:])
-        body = data[pos + hdr :]
-        d = zlib.decompressobj(-15)
-        full = d.decompress(body)
-        used = len(body) - len(d.unused_data)
-        trailer = data[pos + hdr + used : pos + hdr + used + 8]
-        members.append((body[:used], len(full), int.from_bytes(trailer[:4], "little")))
-        pos = pos + hdr + used + 8
+        start = gzip_header_end(data, pos)
+        if start is None:
+            raise ValueError("truncated gzip header")
+        size, used = _skim_member(view[start:], first, device)
+        trailer = data[start + used : start + used + 8]
+        members.append((data[start : start + used], size, int.from_bytes(trailer[:4], "little")))
+        pos, first = start + used + 8, max(SKIM_MIN, 2 * used)
     return members
 
 
@@ -181,7 +224,9 @@ def decompress_foreign(data: bytes, span: int = 1 << 20, engine: str = "auto", *
     plain versions).
 
     A gzip stream's members become independent regions, each checked
-    against its crc32. A monolithic zlib or raw stream is indexed by one
+    against its crc32; each member's end is found by a skim on `device`
+    (the speculative decode, `_skim_member`), whose room grows where the
+    reference's fixed one raises BufferError. A monolithic zlib or raw stream is indexed by one
     pass on `device` (`models.zran.build_index`: the speculative decode's
     block starts, a point about every `span` output bytes; its full output
     is not kept, as the reference drops native's); each point starts a
@@ -195,7 +240,7 @@ def decompress_foreign(data: bytes, span: int = 1 << 20, engine: str = "auto", *
     """
     if data[:2] == b"\x1f\x8b":
         with STAGES.host("gzip_split"):
-            members = _gzip_members(data)
+            members = _gzip_members(data, device)
         with STAGES.host("region_decode"):
             parts = decompress_chunks([m[0] for m in members], [m[1] for m in members],
                                       engine=engine, device=device)

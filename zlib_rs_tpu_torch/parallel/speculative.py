@@ -4,7 +4,7 @@ pass built on it, and the region decode at an access point.
 
 The port of zlib_rs_tpu/native.py's `inflate_raw` (line 212),
 `inflate_speculative` (:232), `zran_index` (:289) and `inflate_region`
-(:315), whose C++ is native/zrs_native.cpp (`zrs_inflate_raw`,
+(:315), plus `skim`, zran_index's size and end without its output, whose C++ is native/zrs_native.cpp (`zrs_inflate_raw`,
 `zrs_inflate_speculative`, `zrs_zran_index`, `zrs_inflate_region`).
 `inflate_raw` is SP2's exact decode from bit 0 alone (native's one-thread
 branch). The next two run the speculative decode of
@@ -255,6 +255,19 @@ def inflate_speculative(data: bytes, max_out: int, *, device=None,
     (`misses`) and the guessed segments it took (`chained`)."""
     chain, ofs, total, end = _speculate(bytes(data), max_out, device, stats)
     return _resolve(chain, ofs, total), (end + 7) // 8
+
+
+def skim(data: bytes, max_out: int, *, device=None,
+         stats: dict | None = None) -> tuple[int, int]:
+    """Steps 1-3 alone: (output size, input bytes consumed through the
+    BFINAL block) of ONE raw deflate stream, with no SP3 pass and no
+    output on the host; the errors are inflate_speculative's. Where `data`
+    is a prefix of a stream, ValueError("truncated deflate data") says the
+    stream ends past it: a sequential decode of a prefix reads the
+    stream's own bits up to its end, so it meets every other fault and the
+    BFINAL block's end where the whole stream's decode does."""
+    _chain, _ofs, total, end = _speculate(bytes(data), max_out, device, stats)
+    return total, (end + 7) // 8
 
 
 def zran_index(data: bytes, span: int, max_out: int, *, device=None,
