@@ -117,11 +117,14 @@ chain misses and each kernel's event ms, and a stream of more than 2^28
 past int32) back to its input with its seconds and peak device memory
 (phase 40, run before the bench); EX (csrc/exact_deflate.cu, the native
 engine's encode half) against its plain version on 16 KiB rows at every
-level 0-9, QUICK and MEDIUM4-6, primed and not, final and not, then
-`deflate_parallel` of the corpus at levels 1, 6 and 9, every 128 KiB
-chunk equal to stdlib zlib's primed raw deflate, QUICK and MEDIUM4-6
-back through zlib, EX's ms a launch, and the one-shot `compress` of 1 MiB
-at levels 1, 6 and 9 equal to zlib.compress (phase 41); the one-shot
+level 0-9, QUICK and MEDIUM4-6, primed and not, final and not, the
+levels 4-9 resolve's deltas and slots against its plain version on the
+same rows, then `deflate_parallel` of the corpus at levels 1, 6 and 9,
+every 128 KiB chunk equal to stdlib zlib's primed raw deflate, QUICK and
+MEDIUM4-6 back through zlib, EX's ms a call and at levels 6 and 9 the
+resolve's, the chase's and flush_block's ms, and the one-shot `compress`
+of 1 MiB at levels 1, 6 and 9 and of the corpus at level 6 (two pieces)
+equal to zlib.compress (phase 41); the one-shot
 `decompress` of the corpus's zlib and gzip streams and of a 1 MiB
 stream (inflate_speculative at every size), inflate_raw against
 inflate_speculative from 16 KiB to 1 MiB, and the CLI's `--quick`,
@@ -2839,20 +2842,72 @@ def ex_rows(corpus: bytes, level: int) -> list:
     return [(base + k * 2 * EX_ROW, EX_ROW, 32768 if k & 1 else 0, k >> 1) for k in range(4)]
 
 
+def ex_split(torch, EK, dev, data_t, meta, level: int, reps: int = 3) -> dict:
+    """EX at levels 4-9 over one round of meta's chunks, by CUDA events: the
+    resolve's ms and the chase's ms (a mean of `reps` after a warm-up), the
+    chase's share in flush_block by clock64 (the slowest warp's, times the
+    chase's ms), and the candidates the walks compare."""
+    [(nch, [(pieces, nd, ns, cb, wb)])] = EK.plan(meta.cpu().tolist())
+    pt = torch.from_numpy(pieces).to(dev)
+    deltas = torch.empty(nd, dtype=torch.int16, device=dev)
+    slots = torch.empty(ns, 2, dtype=torch.int32, device=dev)
+    out = torch.empty(int((meta[:, 4] + meta[:, 5]).max()), dtype=torch.uint8, device=dev)
+    lens = torch.zeros(meta.shape[0], dtype=torch.int64, device=dev)
+    st = torch.zeros(meta.shape[0], dtype=torch.int32, device=dev)
+    recs = torch.zeros(nch * EK.REC, dtype=torch.int64, device=dev)
+    scratch = torch.empty(nch * EK.WORK_BYTES, dtype=torch.uint8, device=dev)
+    clk = torch.zeros(pieces.shape[0], 3, dtype=torch.int64, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    res_ms = chase_ms = 0.0
+    saved = dict(EK.launches)
+    for rep in range(reps + 1):
+        count.zero_()
+        ev[0].record()
+        EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, count=count)
+        ev[1].record()
+        EK.chase_cuda(data_t, meta, pt, level, out, lens, st, recs, scratch, slots, deltas, clk)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if rep:
+            res_ms += ev[0].elapsed_time(ev[1]) / reps
+            chase_ms += ev[1].elapsed_time(ev[2]) / reps
+    EK.launches.update(saved)
+    c = clk.cpu()
+    slow = int(c[:, 0].argmax())
+    share = float(c[slow, 1]) / float(c[slow, 0])
+    emit = float(c[slow, 2]) / float(c[slow, 0])
+    r = {"resolve_ms": res_ms, "chase_ms": chase_ms, "flush_ms": chase_ms * share,
+         "emit_ms": chase_ms * emit, "flush_share_slowest": share,
+         "flush_share_all": float(c[:, 1].sum() / c[:, 0].sum()),
+         "candidates": int(count.item()), "positions": ns, "chain_positions": nd}
+    print(f"phase 41 EX level {level} split ({meta.shape[0]} chunks, {ns} positions): resolve "
+          f"{res_ms:.3f} ms ({r['candidates']} candidates compared), chase {chase_ms:.3f} ms, of "
+          f"which flush_block {r['flush_ms']:.3f} ms and of that emit_symbols "
+          f"{r['emit_ms']:.3f} ms (the slowest warp's clock64 shares {share:.3f} and "
+          f"{emit:.3f}; flush_block's over all warps {r['flush_share_all']:.3f})", flush=True)
+    return r
+
+
 def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
     """Phase 41: EX against its plain version on rows of EX_ROW bytes of
     the corpus at every level 0-9, QUICK and MEDIUM4-6, primed and not,
     final and not, on rows of random bytes, and on a row whose room
-    overflows (bytes, lengths, status; max abs err 0), then the main
-    path: `deflate_parallel` of the corpus at levels 1, 6 and 9 (128 KiB
-    chunks, one launch each), every chunk equal to stdlib zlib's primed
-    raw deflate (Z_SYNC_FLUSH, Z_FINISH for the last), cold and three warm;
-    QUICK and MEDIUM4-6 of the corpus back through zlib, their first two
-    chunks equal to the plain version's, three warm; EX's ms a launch by
-    CUDA events at level 6; the one-shot `compress` of 1 MiB at levels 1,
-    6 and 9 equal to zlib.compress, with its seconds (one warp). The
-    level-6 chunks also go through 8 warps, so that a warp's scratch
-    serves several chunks (the loop past MAX_SLOTS chunks)."""
+    overflows (bytes, lengths, status; max abs err 0); the levels 4-9
+    resolve's deltas and slots against its plain version on the same rows
+    (max abs err 0); then the main path: `deflate_parallel` of the corpus
+    at levels 1, 6 and 9 (128 KiB chunks; one launch at level 1, the
+    resolve and the chase at 6 and 9), every chunk equal to stdlib zlib's
+    primed raw deflate (Z_SYNC_FLUSH, Z_FINISH for the last), cold and
+    three warm; QUICK and MEDIUM4-6 of the corpus back through zlib, their
+    first two chunks equal to the plain version's, three warm; EX's ms a
+    call by CUDA events at levels 6 and 9, and the resolve's, the chase's
+    and flush_block's (ex_split); the one-shot `compress` of 1 MiB at
+    levels 1, 6 and 9 and of the corpus at level 6 (two pieces) equal to
+    zlib.compress, with its seconds (one warp a piece). The level-6 chunks
+    also go in several batches, cut once by ROUND positions and once by
+    MAX_SLOTS chunks (fresh records and scratch a batch), a resolve and a
+    chase a batch."""
     import numpy as np
 
     from zlib_rs_tpu_torch.models import oneshot
@@ -2896,6 +2951,25 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
           f"primed and not, final and not) and an overflowing row equal to plain in bytes, "
           f"lengths and status", flush=True)
 
+    # -- the resolve (levels 4-9) against its plain version on the rows --
+    t0 = time.perf_counter()
+    res_pairs = []
+    for level in range(4, 10):
+        rs = meta_of(ex_rows(corpus, level), level).tolist()
+        pieces, nd, ns, cb, wb = EK.with_offsets([EK.ex_piece(m, m[2], k, k)
+                                                  for k, m in enumerate(rs)])
+        pt = torch.from_numpy(pieces).to(dev)
+        deltas = torch.empty(nd, dtype=torch.int16, device=dev)
+        slots = torch.empty(ns, 2, dtype=torch.int32, device=dev)
+        EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb)
+        want_d, want_s = EK.resolve_plain(data_t, pt, level)
+        res_pairs += [(EK.unsigned(deltas), EK.unsigned(want_d)), (slots, want_s)]
+    res_err = max_abs(res_pairs)
+    if res_err:
+        raise AssertionError(f"the resolve disagrees with its plain version: max abs err {res_err}")
+    print(f"phase 41 resolve: the deltas and slots of phase 41's rows at levels 4-9 equal to "
+          f"plain, max abs err {res_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # -- the main path: deflate_parallel at levels 1, 6 and 9 --------------
     chunk = CD.DEFAULT_CHUNK
     n = len(corpus)
@@ -2903,12 +2977,13 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
     result = {"levels": {}, "modes": {}}
     launched = None
     for level in (1, 6, 9):
-        EK.launches["exact_deflate"] = 0
+        EK.launches["exact_deflate"] = EK.launches["exact_resolve"] = 0
         t0 = time.perf_counter()
         out = CD.deflate_parallel(corpus, level)
         cold = time.perf_counter() - t0
         if level == 6:
             launched = EK.launches["exact_deflate"]
+            launched_res = EK.launches["exact_resolve"]
         parts = [zraw_chunk(corpus[lo : lo + chunk], level, lo + chunk >= n,
                             corpus[max(0, lo - 32768) : lo]) for lo in starts]
         if level == 6:
@@ -2952,38 +3027,79 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
               f"first two chunks equal to plain; warm {[round(w, 4) for w in walls]} s (median "
               f"{mbs[1]:.3f} MB/s)", flush=True)
 
-    # -- EX's ms a launch at the main path's shape (level 6) --------------
+    # -- EX at the main path's shape: the call, and at levels 6 and 9 the
+    # resolve, the chase and the chase's share in flush_block --------------
     meta6 = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
                      for lo in starts], 6)
-    ms = event_ms(torch, lambda: EK.exact_deflate_cuda(data_t, meta6, 6), 3)
+    meta9 = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
+                     for lo in starts], 9)
+    call_ms = event_ms(torch, lambda: EK.exact_deflate_cuda(data_t, meta6, 6), 3)
+    call9_ms = event_ms(torch, lambda: EK.exact_deflate_cuda(data_t, meta9, 9), 3)
     first = meta6[:1]
     _p, plain_ms = timed_ms(torch, lambda: EK.exact_deflate_plain(data_t, first, 6))
     lens6 = EK.exact_deflate_cuda(data_t, meta6, 6)[1]
     nout = int(lens6.sum())
-    # the slot-reuse loop (a warp taking a second chunk, as past MAX_SLOTS
-    # chunks): the level-6 chunks on 8 warps, each equal to zlib's
-    saved, EK.MAX_SLOTS = EK.MAX_SLOTS, 8
-    try:
-        reuse = EK.exact_deflate_cuda(data_t, meta6, 6)
-    finally:
-        EK.MAX_SLOTS = saved
-    got = [reuse[0][o : o + m].cpu().numpy().tobytes()
-           for o, m in zip(meta6[:, 4].tolist(), reuse[1].tolist())]
-    if got != zlib6 or bool(reuse[2].any()):
-        raise AssertionError("EX on 8 warps of 8 chunks each is not zlib's chunk by chunk")
-    print(f"phase 41 EX slot reuse: {len(starts)} level-6 chunks on 8 warps equal to zlib's "
-          f"chunk by chunk", flush=True)
+    split = {level: ex_split(torch, EK, dev, data_t, m, level)
+             for level, m in ((6, meta6), (9, meta9))}
+    result["split"] = split
+    result["call_ms"] = {6: call_ms, 9: call9_ms}
+    # the batch loop: the level-6 chunks in batches cut by ROUND positions,
+    # then by MAX_SLOTS chunks, a resolve and a chase a batch, each chunk
+    # equal to zlib's
+    result["batches"] = {}
+    for name, value in (("ROUND", 1 << 20), ("MAX_SLOTS", 5)):
+        saved = getattr(EK, name)
+        setattr(EK, name, value)
+        try:
+            want_batches = len(EK.plan(meta6.cpu().tolist()))
+            EK.launches["exact_deflate"] = EK.launches["exact_resolve"] = 0
+            reuse = EK.exact_deflate_cuda(data_t, meta6, 6)
+            ran = dict(EK.launches)
+        finally:
+            setattr(EK, name, saved)
+        got = [reuse[0][o : o + m].cpu().numpy().tobytes()
+               for o, m in zip(meta6[:, 4].tolist(), reuse[1].tolist())]
+        if got != zlib6 or bool(reuse[2].any()):
+            raise AssertionError(f"EX in batches ({name} {value}) is not zlib's chunk by chunk")
+        if want_batches < 2 or ran != {"exact_deflate": want_batches,
+                                       "exact_resolve": want_batches}:
+            raise AssertionError(f"EX with {name} {value} ran {ran} for {want_batches} batches")
+        result["batches"][name] = {"value": value, "batches": want_batches, "launches": ran}
+        print(f"phase 41 EX batches: {len(starts)} level-6 chunks with {name} {value} in "
+              f"{want_batches} batches, a resolve and a chase each ({ran}), equal to zlib's "
+              f"chunk by chunk", flush=True)
     window_bytes = int(meta6[:, 2].sum())
+    s6 = split[6]
     rows["exact_deflate"] = dict(
         source="zlib_rs_tpu_torch/csrc/exact_deflate.cu",
         replaces="native/zrs_native.cpp:1314",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_rows=1, launches=launched,
-        # bytes: the input and each chunk's window read once, the output
-        # written once; the serial scan of the longest chunk is the floor
+        max_abs_err=err, ms=call_ms, plain_ms=plain_ms, plain_rows=1, launches=launched,
+        resolve_ms=s6["resolve_ms"], chase_ms=s6["chase_ms"], flush_ms=s6["flush_ms"],
+        emit_ms=s6["emit_ms"], level9_ms=call9_ms, level9_resolve_ms=split[9]["resolve_ms"],
+        level9_chase_ms=split[9]["chase_ms"],
+        # the whole call (the resolve and the chase); bytes: the input and
+        # each chunk's window read once, the output written once; the serial
+        # chase of the longest chunk is the floor
         bnd=bound(n + window_bytes + nout, 0),
     )
-    print(f"phase 41 EX level 6: {ms:.3f} ms a launch ({len(starts)} chunks, one warp each), "
-          f"plain {plain_ms:.1f} ms for one chunk", flush=True)
+    first_piece = torch.from_numpy(EK.with_offsets([EK.ex_piece(meta6[0].tolist(), 0, 0, 0)])[0])
+    _p, res_plain_ms = timed_ms(torch, lambda: EK.resolve_plain(data_t, first_piece.to(dev), 6))
+    rows["exact_resolve"] = dict(
+        source="zlib_rs_tpu_torch/csrc/exact_deflate.cu",
+        replaces="native/zrs_native.cpp:604",
+        max_abs_err=res_err, ms=s6["resolve_ms"], plain_ms=res_plain_ms, plain_rows=1,
+        launches=launched_res, level9_ms=split[9]["resolve_ms"], candidates=s6["candidates"],
+        # bytes: the input and the windows read once, 2 bytes of delta and
+        # 8 of slot a position written once; operations: the two 16-bit
+        # compares of the anchored pre-reject a candidate this data's walks
+        # compare
+        bnd=bound(n + window_bytes + 2 * s6["chain_positions"] + 8 * s6["positions"],
+                  2 * s6["candidates"]),
+    )
+    print(f"phase 41 EX level 6: {call_ms:.3f} ms a call ({len(starts)} chunks: the resolve, "
+          f"one warp a chunk's chase), level 9 {call9_ms:.3f} ms; plain {plain_ms:.1f} ms for "
+          f"one chunk at level 6; the resolve's plain {res_plain_ms:.1f} ms for one chunk",
+          flush=True)
 
     # -- the one-shot compress of 1 MiB: one chunk, one warp ---------------
     mib = corpus[: 1 << 20]
@@ -2997,6 +3113,19 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         result["oneshot"][level] = {"s": wall, "mb_s": len(mib) / wall / 1e6}
         print(f"phase 41 one-shot compress 1 MiB level {level}: equal to zlib.compress, "
               f"{wall:.3f} s ({len(mib) / wall / 1e6:.3f} MB/s)", flush=True)
+    # the whole corpus in one chunk: two pieces, the chase resumed from its
+    # record between two rounds
+    EK.launches["exact_deflate"] = EK.launches["exact_resolve"] = 0
+    t0 = time.perf_counter()
+    got = oneshot.compress(corpus, 6)
+    wall = time.perf_counter() - t0
+    pieces_run = dict(EK.launches)
+    if got != zlib.compress(corpus, 6) or pieces_run != {"exact_deflate": 2, "exact_resolve": 2}:
+        raise AssertionError(f"the one-shot compress of the corpus at level 6 is not "
+                             f"zlib.compress in two pieces: launches {pieces_run}")
+    result["oneshot"]["corpus_6"] = {"s": wall, "mb_s": n / wall / 1e6, "launches": pieces_run}
+    print(f"phase 41 one-shot compress of the corpus level 6: equal to zlib.compress in two "
+          f"pieces of {EK.PIECE} positions, {wall:.3f} s ({n / wall / 1e6:.3f} MB/s)", flush=True)
     result["phase_s"] = time.perf_counter() - t_start
     print(f"phase 41: {result['phase_s']:.1f} s", flush=True)
     return result
@@ -3100,6 +3229,57 @@ def stream_pairs(torch, dev, corpus):
     return max_abs(pairs), n_is, n_ds
 
 
+def ds_pump_ms(torch, DS, EK, dev, corpus, level: int, reps: int = 3) -> dict:
+    """One 128 KiB NO_FLUSH DS pump at `level` after a first one, by CUDA
+    events from a saved record and Work (copied back before each rep, a
+    mean of `reps` after a warm-up): at levels 4-9 the resolve's ms (its
+    operands staged before the first event, so that the span holds only
+    its launches), then DS's (the chase and ds_tables), with the chase's
+    clock64 share in flush_block; the pump's output (uint8 on the card)
+    and length."""
+    from zlib_rs_tpu_torch._device import ptr as _ptr
+
+    pump = STREAM_PUMP
+    d = DS.Handle(level, dev)
+    d.pump(corpus[:pump], 0)
+    d._append(corpus[pump : 2 * pump])
+    unflushed = int(d.rec[DS.D_TOTAL] - d.rec[DS.D_BLOCK_START])
+    out = torch.empty(DS.room(unflushed), dtype=torch.uint8, device=dev)
+    d.rec[DS.D_FLUSH], d.rec[DS.D_OUT_CAP] = 0, out.numel()
+    snap = torch.from_numpy(d.rec.copy()).to(dev)
+    rec_dev = torch.empty_like(snap)
+    work = d.work.clone()
+    clk = torch.zeros(3, dtype=torch.int64, device=dev)
+    fn = DS._fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    res_ms = ds_ms = 0.0
+    saved = dict(EK.launches)
+    ops = DS.resolve_operands(d.rec, dev) if EK.static_level(level) else None
+    for rep in range(reps + 1):
+        d.work.copy_(work)
+        rec_dev.copy_(snap)
+        slots = deltas = None
+        n_slots = span = 0
+        ev[0].record()
+        if ops is not None:
+            slots, deltas, n_slots, span = DS.resolve_pump(d.rec, d.data, d.work, ops)
+        ev[1].record()
+        fn(_ptr(rec_dev), _ptr(d.data), _ptr(d.work), _ptr(out), EK._opt(slots), n_slots,
+           EK._opt(deltas), span, _ptr(clk), torch.cuda.current_stream().cuda_stream)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if rep:
+            res_ms += ev[0].elapsed_time(ev[1]) / reps
+            ds_ms += ev[1].elapsed_time(ev[2]) / reps
+    EK.launches.update(saved)
+    n = int(rec_dev[DS.D_OUT_LEN].item())
+    c = clk.cpu()
+    share = float(c[1]) / float(c[0])
+    return {"resolve_ms": res_ms, "ds_ms": ds_ms, "flush_ms": ds_ms * share,
+            "emit_ms": ds_ms * float(c[2]) / float(c[0]), "flush_share": share, "out_len": n,
+            "out": out[:n].cpu()}
+
+
 def stream_phase(torch, dev, corpus, rows) -> dict:
     """Phase 43: the stream path on IS and DS. First IS and DS against
     their plain versions (stream_pairs, max abs err 0); then the path at
@@ -3109,15 +3289,18 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     bytes for the same script; `Inflate()` of the corpus's zlib-6 stream in
     128 KiB pumps with a 64 KiB out_budget, back to the corpus; a `gzopen`
     write of the corpus at level 1 in 128 KiB writes, read by stdlib gzip
-    and read back by `gzopen`. Each wall in MB/s; IS's and DS's launches
-    on that path, and each one's ms for one 128 KiB pump by CUDA events
-    (the launch alone, each from the same saved record, tables or Work,
-    with two device-to-device copies of them) beside its bound and its
-    plain version's ms for the same pump."""
+    and read back by `gzopen`. Each wall in MB/s; IS's, DS's and the
+    resolve's launches on that path, and IS's ms for one 128 KiB pump by
+    CUDA events (the launch alone, from a saved record and tables, with
+    two device-to-device copies of them) beside its bound and its plain
+    version's ms; DS's at levels 1, 6 and 9 (ds_pump_ms: the resolve, then
+    the chase and its tables, flush_block's share), the pump's bytes at 1
+    and 6 against the plain version's."""
     import zlib_rs_tpu_torch as zt
     from zlib_rs_tpu_torch._device import ptr as _ptr
     from zlib_rs_tpu_torch.config import DeflateFlush
     from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DS
+    from zlib_rs_tpu_torch.ops.kernels import exact_deflate_kernel as EK
     from zlib_rs_tpu_torch.ops.kernels import istream_kernel as IS
 
     t_start = time.perf_counter()
@@ -3131,7 +3314,7 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
 
     # -- the path at full size ---------------------------------------------
     result = {"deflate": {}}
-    IS.launches["istream"] = DS.launches["dstream"] = 0
+    IS.launches["istream"] = DS.launches["dstream"] = EK.launches["exact_resolve"] = 0
     pump = STREAM_PUMP
     for level, size in ((1, len(corpus)), (6, 2 << 20), (9, 256 << 10)):
         data = corpus[:size]
@@ -3200,9 +3383,10 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     result["gzfile"] = {"bytes": len(blob), "write_s": w_wall, "read_s": r_wall,
                         "write_mb_s": len(corpus) / w_wall / 1e6,
                         "read_mb_s": len(corpus) / r_wall / 1e6}
-    launched = {"istream": IS.launches["istream"], "dstream": DS.launches["dstream"]}
+    launched = {"istream": IS.launches["istream"], "dstream": DS.launches["dstream"],
+                "exact_resolve": EK.launches["exact_resolve"]}
     if min(launched.values()) < 1:
-        raise AssertionError(f"the stream path did not launch IS and DS: {launched}")
+        raise AssertionError(f"the stream path did not launch IS, DS and the resolve: {launched}")
     print(f"phase 43 gzopen level 1: {len(blob)} bytes written in {w_wall:.3f} s "
           f"({len(corpus) / w_wall / 1e6:.3f} MB/s), read by stdlib gzip and back by gzopen "
           f"in {r_wall:.3f} s ({len(corpus) / r_wall / 1e6:.3f} MB/s); launches {launched}",
@@ -3243,44 +3427,51 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
         # bytes: the pump's compressed input read once, its output written once
         bnd=bound(pump + is_out, 0),
     )
-    d = DS.Handle(1, dev)
-    d.pump(corpus[:pump], 0)
-    d._append(corpus[pump : 2 * pump])
-    unflushed = int(d.rec[DS.D_TOTAL] - d.rec[DS.D_BLOCK_START])
-    out = torch.empty(DS.room(unflushed), dtype=torch.uint8, device=dev)
-    d.rec[DS.D_FLUSH], d.rec[DS.D_OUT_CAP] = 0, out.numel()
-    snap = torch.from_numpy(d.rec.copy()).to(dev)
-    rec_dev = torch.empty_like(snap)
-    work = d.work.clone()
-    fn_ds = DS._fn()
-
-    def ds_launch():
-        rec_dev.copy_(snap)
-        d.work.copy_(work)
-        fn_ds(_ptr(rec_dev), _ptr(d.data), _ptr(d.work), _ptr(out),
-              torch.cuda.current_stream().cuda_stream)
-
-    ds_ms = event_ms(torch, ds_launch, 3)
-    ds_out = int(rec_dev[DS.D_OUT_LEN].item())
-    pd = DS.Plain(1)
-    pd.pump(corpus[:pump], 0)
-    t0 = time.perf_counter()
-    pd.pump(corpus[pump : 2 * pump], 0)
-    ds_plain_ms = (time.perf_counter() - t0) * 1e3
+    # the plain version takes about 30 s for a level-9 pump on the host, and
+    # phase 43's level-9 pump scripts already hold DS against it
+    pumps = {level: ds_pump_ms(torch, DS, EK, dev, corpus, level) for level in (1, 6, 9)}
+    for level, r in pumps.items():
+        if level == 9:
+            r.pop("out")
+            continue
+        pd = DS.Plain(level)
+        pd.pump(corpus[:pump], 0)
+        t0 = time.perf_counter()
+        want = pd.pump(corpus[pump : 2 * pump], 0)
+        r["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        r["max_abs_err"] = max_abs([(r.pop("out"), torch.frombuffer(bytearray(want),
+                                                                     dtype=torch.uint8))]) \
+            if len(want) == r["out_len"] else -1
+        if r["max_abs_err"]:
+            raise AssertionError(f"the timed DS pump at level {level} is not plain's: {r}")
+    p6 = pumps[6]
     rows["dstream"] = dict(
         source="zlib_rs_tpu_torch/csrc/exact_deflate.cu",
         replaces="native/zrs_native.cpp:2107",
-        max_abs_err=err, ms=ds_ms, plain_ms=ds_plain_ms, launches=launched["dstream"],
-        # bytes: the pump's input and the 32 KiB window read once, its
-        # output written once; the serial scan is the floor, as EX's
-        bnd=bound(pump + 32768 + ds_out, 0),
+        max_abs_err=err, ms=p6["resolve_ms"] + p6["ds_ms"], plain_ms=p6["plain_ms"],
+        launches=launched["dstream"], resolve_ms=p6["resolve_ms"], chase_ms=p6["ds_ms"],
+        flush_ms=p6["flush_ms"], level1_ms=pumps[1]["ds_ms"],
+        level9_ms=pumps[9]["resolve_ms"] + pumps[9]["ds_ms"],
+        level9_resolve_ms=pumps[9]["resolve_ms"], level9_chase_ms=pumps[9]["ds_ms"],
+        # the pump (the resolve, the chase and its tables); bytes: the
+        # pump's input and the 32 KiB window read once, its output written
+        # once; the serial chase is the floor, as EX's
+        bnd=bound(pump + 32768 + p6["out_len"], 0),
     )
-    result.update(is_pump_ms=is_ms, ds_pump_ms=ds_ms, launches=launched,
+    rows["exact_resolve"]["stream_launches"] = launched["exact_resolve"]
+    result.update(is_pump_ms=is_ms, ds_pumps=pumps, launches=launched,
                   phase_s=time.perf_counter() - t_start)
     print(f"phase 43 IS: {is_ms:.3f} ms for a 128 KiB pump ({is_out} bytes out; bound "
-          f"{rows['istream']['bnd'][0]:.6f} ms by bytes), plain {is_plain_ms:.1f} ms; DS level 1: "
-          f"{ds_ms:.3f} ms for a 128 KiB NO_FLUSH pump (bound {rows['dstream']['bnd'][0]:.6f} ms "
-          f"by bytes), plain {ds_plain_ms:.1f} ms; phase {result['phase_s']:.1f} s", flush=True)
+          f"{rows['istream']['bnd'][0]:.6f} ms by bytes), plain {is_plain_ms:.1f} ms", flush=True)
+    for level, r in pumps.items():
+        held = (f"equal to plain's, plain {r['plain_ms']:.1f} ms" if "plain_ms" in r
+                else "(held by the pump scripts above)")
+        print(f"phase 43 DS level {level}: a 128 KiB NO_FLUSH pump, resolve {r['resolve_ms']:.3f} ms "
+              f"+ DS {r['ds_ms']:.3f} ms (chase and tables; flush_block {r['flush_ms']:.3f} ms, "
+              f"emit_symbols {r['emit_ms']:.3f} ms of it, by the chase's clock64 shares), "
+              f"{r['out_len']} bytes {held}", flush=True)
+    print(f"phase 43: bound {rows['dstream']['bnd'][0]:.6f} ms by bytes; resolve launches on the "
+          f"path {launched['exact_resolve']}; phase {result['phase_s']:.1f} s", flush=True)
     return result
 
 
@@ -3310,8 +3501,8 @@ def medium_stream_phase(torch, dev, corpus, rows) -> dict:
     import random
 
     from zlib_rs_tpu_torch import native
-    from zlib_rs_tpu_torch._device import ptr as _ptr
     from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DS
+    from zlib_rs_tpu_torch.ops.kernels import exact_deflate_kernel as EK
     from zlib_rs_tpu_torch.ops.kernels import inflate_kernel as IK
     from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK
 
@@ -3383,25 +3574,8 @@ def medium_stream_phase(torch, dev, corpus, rows) -> dict:
               f"{digest(bytes(got))}, decoded by zlib; {wall:.3f} s "
               f"({len(mib) / wall / 1e6:.3f} MB/s)", flush=True)
 
-    d = DS.Handle(12, dev)
-    d.pump(corpus[:pump], 0)
-    d._append(corpus[pump : 2 * pump])
-    unflushed = int(d.rec[DS.D_TOTAL] - d.rec[DS.D_BLOCK_START])
-    out = torch.empty(DS.room(unflushed), dtype=torch.uint8, device=dev)
-    d.rec[DS.D_FLUSH], d.rec[DS.D_OUT_CAP] = 0, out.numel()
-    snap = torch.from_numpy(d.rec.copy()).to(dev)
-    rec_dev = torch.empty_like(snap)
-    work = d.work.clone()
-    fn_ds = DS._fn()
-
-    def ds_launch():
-        rec_dev.copy_(snap)
-        d.work.copy_(work)
-        fn_ds(_ptr(rec_dev), _ptr(d.data), _ptr(d.work), _ptr(out),
-              torch.cuda.current_stream().cuda_stream)
-
-    ms = event_ms(torch, ds_launch, 3)
-    ds_out = int(rec_dev[DS.D_OUT_LEN].item())
+    timed = ds_pump_ms(torch, DS, EK, dev, corpus, 12)
+    ms, ds_out, out = timed["ds_ms"], timed["out_len"], timed["out"]
     pd = DS.Plain(12)
     pd.pump(corpus[:pump], 0)
     t0 = time.perf_counter()
@@ -4462,10 +4636,12 @@ def main() -> int:
     # the speculative kernels' path: phase 33's zran_index stage of the
     # zlib-6 stream (its three warm runs)
     launches.update(foreign["sp_launches_zlib6"])
-    # EX's path: phase 41's level-6 deflate_parallel of the corpus
+    # EX's and the resolve's path: phase 41's level-6 deflate_parallel of
+    # the corpus (the resolve also on phase 43's stream path)
     launches["exact_deflate"] = rows["exact_deflate"].pop("launches")
-    if launches["exact_deflate"] < 1:
-        raise AssertionError("deflate_parallel never launched EX")
+    launches["exact_resolve"] = rows["exact_resolve"].pop("launches")
+    if launches["exact_deflate"] < 1 or launches["exact_resolve"] < 1:
+        raise AssertionError("deflate_parallel never launched EX's chase and the resolve")
     # IS's and DS's path: phase 43's stream objects and gzip file at full size
     launches["istream"] = rows["istream"].pop("launches")
     launches["dstream"] = rows["dstream"].pop("launches")
@@ -4473,8 +4649,8 @@ def main() -> int:
     for name in ("adler32_batch", "hop_chase", "pack", "vhuff_decode", "vhuff_expand",
                  "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan",
                  "vhuff_decode1", "vhuff_expand1", "hop_chase_il", "lockstep", "swarm_walk",
-                 "block_find", "spec_decode", "spec_resolve", "exact_deflate", "istream",
-                 "dstream"):
+                 "block_find", "spec_decode", "spec_resolve", "exact_deflate", "exact_resolve",
+                 "istream", "dstream"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -4483,7 +4659,10 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
             **{k: r[k] for k in ("plain_rows", "queued_ms", "at_128k", "foreign_launches",
                                  "inflate_parallel_launches", "medium_ms", "medium_plain_ms",
-                                 "medium_bound_ms") if k in r},
+                                 "medium_bound_ms", "call_ms", "flush_ms", "emit_ms", "level9_ms",
+                                 "candidates", "resolve_ms", "chase_ms", "level1_ms",
+                                 "level9_resolve_ms", "level9_chase_ms", "stream_launches")
+                       if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {

@@ -125,7 +125,8 @@ def _calls(i):
         "spec_resolve": (SK, lambda: SK.spec_resolve_cuda(
             torch.tensor([65, 256, 66, 257], dtype=torch.int16),
             torch.tensor([0, 1, 4], dtype=torch.int64))),
-        "exact_deflate": (EK, lambda: EK.exact_deflate_cuda(*_ex_args(), 6)),
+        "exact_deflate": (EK, lambda: EK.exact_deflate_cuda(*_ex_args(), 1)),
+        "exact_resolve": (EK, lambda: EK.resolve_cuda(*_resolve_args(), 1, 1)),
         "istream": (ISK, lambda: ISK.advance_cuda(*_is_args())),
         "dstream": (DSK, lambda: DSK.pump_cuda(*_ds_args())),
     }
@@ -143,6 +144,15 @@ def _ds_args():
     h.rec[DSK.D_OUT_CAP] = 64
     return h.rec, h.data, h.work, torch.zeros(64, dtype=torch.uint8), \
         torch.zeros(DSK.REC, dtype=torch.int64)
+
+
+def _resolve_args():
+    """The resolve's operands: EX's data, one piece of its first chunk at
+    level 6, its deltas and slots."""
+    data, meta = _ex_args()
+    pieces, nd, ns, _cb, _wb = EK.with_offsets([EK.ex_piece(meta[0].tolist(), 0, 0, 0)])
+    return (data, torch.from_numpy(pieces), 6, torch.zeros(nd, dtype=torch.int16),
+            torch.zeros(ns, 2, dtype=torch.int32))
 
 
 def _ex_args():
@@ -193,7 +203,7 @@ def _lockstep_args(i):
 KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_scan", "tab_scan",
            "freq", "pack", "vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1",
            "inflate", "lockstep", "swarm_walk", "block_find", "spec_decode", "spec_resolve",
-           "exact_deflate", "istream", "dstream"]
+           "exact_deflate", "exact_resolve", "istream", "dstream"]
 
 
 def test_every_kernel_has_a_case():
@@ -203,9 +213,9 @@ def test_every_kernel_has_a_case():
     # and so are K5 and K11b, csrc/vhuff_expand.cu, and K4 and K11a,
     # csrc/vhuff_decode.cu; the lockstep engine is csrc/lockstep.cu, the
     # swarm engine's walkers csrc/swarm.cu, SP1-SP3 three C entries of
-    # csrc/speculative.cu, EX and DS two of csrc/exact_deflate.cu, and IS
-    # csrc/istream.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 6 == 15
+    # csrc/speculative.cu, EX, its resolve and DS three of
+    # csrc/exact_deflate.cu, and IS csrc/istream.cu
+    assert len(_device.SOURCES) == len(KERNELS) - 7 == 15
     assert "speculative" in _device.SOURCES and "exact_deflate" in _device.SOURCES
     assert "istream" in _device.SOURCES
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
@@ -547,11 +557,27 @@ def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
     """EX's entry takes (data, meta, C, level, out, lens, status, scratch,
     slots, stride, stream): int64 meta and lengths, a long long stride of
     work_bytes(level), one slot a chunk up to MAX_SLOTS, the output buffer
-    the end of the last room."""
+    the end of the last room. At levels 4-9 a round is the resolve (data,
+    pieces, P, level, head, ring, deltas, slots, chain and walk blocks,
+    stream) and the chase (data, meta, pieces, P, level, out, lens, status,
+    records, scratch, stride, slots, deltas, clk, stream): one piece a
+    chunk, a Work and a record each."""
     monkeypatch.setattr(_device, "ptr", lambda t: t)
     lib = _device.library("exact_deflate")
     data, meta = _ex_args()
-    for level, slots, want_slots in ((6, 1024, 2), (EK.QUICK, 1024, 2), (EK.MEDIUM_BASE, 1, 1)):
+    out, lens, st = EK.exact_deflate_cuda(data, meta, 6)
+    res, ch = lib.zrs_exact_resolve.args, lib.zrs_exact_chase.args
+    assert stub == ["zrs_exact_resolve", "zrs_exact_chase"]
+    assert res[2:4] == (2, 6) and res[4] is None and res[5] is None
+    assert res[1][:, EK.P_S].tolist() == [0, 1000] and res[1][:, EK.P_E].tolist() == [1000, 3000]
+    assert res[6].dtype == torch.int16 and res[6].numel() == 998 + 2998
+    assert tuple(res[7].shape) == (3000, 2) and res[8:10] == (1 + 1, 8 + 16)
+    assert ch[3:5] == (2, 6) and ch[8].numel() == 2 * EK.REC and ch[10] == EK.WORK_BYTES
+    assert ch[9].numel() == 2 * EK.WORK_BYTES and ch[11] is res[7] and ch[12] is res[6]
+    assert ch[13] is None and out.shape == (11_204,)
+    assert EK.launches == {"exact_deflate": 1, "exact_resolve": 1}
+    stub.clear()
+    for level, slots, want_slots in ((1, 1024, 2), (EK.QUICK, 1024, 2), (EK.MEDIUM_BASE, 1, 1)):
         monkeypatch.setattr(EK, "MAX_SLOTS", slots)
         out, lens, st = EK.exact_deflate_cuda(data, meta, level)
         args = lib.zrs_exact_deflate.args
@@ -562,7 +588,7 @@ def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
         assert out.shape == (11_204,) and lens.dtype == torch.int64 and st.dtype == torch.int32
     assert EK.work_bytes(6) == EK.WORK_BYTES and EK.work_bytes(EK.QUICK) == \
         EK.WORK_BYTES + EK.WORK4_BYTES
-    assert EK.launches["exact_deflate"] == 3
+    assert EK.launches["exact_deflate"] == 4
     with pytest.raises(ValueError, match="int64"):
         EK.exact_deflate_cuda(data, meta.int(), 6)
     with pytest.raises(ValueError, match="level"):

@@ -14,14 +14,66 @@
 // ops/kernels/exact_deflate_kernel.py holds the plain version (the port's
 // host engines) and the wrapper.
 //
-// Bound on the H100. The bytes are the input and window read once and the
-// output written once: microseconds for megabytes at 3.35 TB/s. It is not
-// the floor. Each chunk is one serial chain of decisions (a position's
-// match decides where the next one starts, and the hash chains it walks
-// were written by the positions before it), so the floor is the longest
-// chunk's positions times the latency of a hash insert, a chain walk of
-// dependent loads and a compare, as native's thread is; a chunk has
-// nothing to run in parallel but the compare of each candidate.
+// Bound on the H100, levels 0-3, QUICK and MEDIUM. The bytes are the input
+// and window read once and the output written once: microseconds for
+// megabytes at 3.35 TB/s. It is not the floor. Each chunk is one serial
+// chain of decisions (a position's match decides where the next one
+// starts, and the hash chains it walks were written by the positions
+// before it), so the floor is the longest chunk's positions times the
+// latency of a hash insert, a chain walk of dependent loads and a compare.
+//
+// Levels 4-9 (zlib's deflate_slow) in three parts.
+// - Static chains. deflate_slow inserts every position once and in
+//   increasing order, whatever the parse decides (the loop top, then every
+//   interior of an emitted match), and the hash depends only on the 3 bytes
+//   at the position. So the chain at every position is fixed by the data
+//   before the parse runs: build_chains writes each position's delta to the
+//   last earlier position with its hash, capped at 0xffff, which is the
+//   prevd value zlib's insert writes (position 0 and a head of 0 are NIL),
+//   held by absolute position and not in a 32 KiB ring. A block takes a
+//   tile of kTile positions: the last occurrences in the kLookback
+//   positions before it (an older one lies past the cap) by shared-memory
+//   atomics, then the tile in order, 32 positions a step (equal hashes of a
+//   step grouped by __match_any_sync). EX's chains start at the window's
+//   position 0; DS's at the pump's first insert, those before it read from
+//   the handle's head and prevd.
+// - The resolve (resolve_walk), a thread a position over the whole card.
+//   longest(pos, cur, prev_len) depends on the parse only through prev_len:
+//   the walk's best starts at prev_len < lazy <= nice, so it returns
+//   max(prev_len, M), M the longest length among the candidates up to the
+//   first that reaches nice (the distance of the first with length M; the
+//   anchored pre-reject passes over only candidates that cannot beat the
+//   running best), and the budget is quartered when prev_len >= good. So
+//   two results a position decide every parse: (M, dist) after chain >> 2
+//   and after chain candidates, one walk with a snapshot, each packed in 32
+//   bits (length << 15 | distance). nice is clamped by total - pos and the
+//   zero-extended compare applies near the end of the data, as in longest.
+//   K8's warp group (a warp a position, 32 candidates a step reached
+//   through pointer-jumping tables) gave the same slots and was slower at
+//   every level 4-9 on the H100 (PERF.md keeps its times), so a thread a
+//   position is the one mapping.
+// - The chase: run_slow on one warp, its inserts no-ops and longest a
+//   lookup of the position's slot (the quartered one when prev_len >= good),
+//   min(max(prev_len, M), total - pos), its distance taken when M passes
+//   prev_len. Where prev_len >= total - pos (nice clamped below prev_len, at
+//   the end of the data) the chase walks the static chains itself. The warp
+//   stages the slots kStage at a time through shared memory, one stage
+//   ahead with cp.async. Every other line keeps its place: the carry state,
+//   TOO_FAR, the emission, flush_block at SYM_END, the trailing literal,
+//   the seam, DS's record and its limit contract. The loop's state stays
+//   in registers; flush_block counts a block's symbols by shared-memory
+//   atomics and emits them 32 at a time across the warp (a scan of their
+//   bit lengths); the chases ask for the largest L1, which holds the Work.
+// A chunk larger than a piece (the wrapper's PIECE positions) is resolved
+// and chased a piece at a time, its state in a record between launches.
+// After a DS pump ds_tables leaves the handle's head and prevd as the
+// serial inserts would have: the last inserted position of each hash
+// (atomicMax) and the deltas of the last 32 KiB of inserted positions.
+// Bound of the resolve: the bytes (the input read once, 2 bytes of delta
+// and 8 of slot a position written once) and the candidate compares the
+// walks make on this data; the chase's floor is the positions it visits,
+// times one slot read from shared memory and one step of the parse, plus
+// flush_block's tree build and emission a block.
 //
 // Design.
 // - One block of one warp a chunk; every chunk of a call is launched at
@@ -38,13 +90,14 @@
 //   the same over bytes read as 0 past the chunk, so that no byte of the
 //   next chunk or past the buffer is read. The pre-reject (two 16-bit
 //   loads) and the chain walk stay serial, so the candidate order and the
-//   best_len updates are native's.
+//   best_len updates are native's (levels 1-3, QUICK, MEDIUM; the resolve's
+//   thread compares 4 bytes a step).
 // - A chunk's scratch is a slot in device memory: head int32[32768],
 //   prevd u16[32768], the symbol buffer of 16,384 x 4 bytes and the tree
 //   build's heap and code arrays (kWorkBytes); QUICK and MEDIUM add
 //   head4 int32[65536] and prevd4 u16[32768] (kWork4Bytes). The warp
 //   zeroes the hash and chain tables at the start of a chunk, as native's
-//   vectors start.
+//   vectors start (levels 4-9 leave them unused: their chains are static).
 // - Output goes straight into the chunk's slot of room `cap`: a 64-bit
 //   word by lanes 0-7 a byte each, a stored span by all lanes. A byte past
 //   `cap` is dropped and the length still counts it; a length past `cap`
@@ -54,8 +107,9 @@
 //   on the host once and live in __constant__ memory (every lane reads the
 //   same entry, so each read is a broadcast).
 // - Without __CUDACC__ the same source compiles as host C++ (a warp of one
-//   lane, serial compares, zrs_exact_deflate_host and zrs_dstream_pump_host),
-//   so that the CPU tests run this file's control flow against native.
+//   lane, serial compares, zrs_exact_deflate_host and zrs_dstream_pump_host;
+//   at levels 4-9 the resolve's serial loops, then the chase), so that the
+//   CPU tests run this file's control flow against native and zlib.
 //
 // DS (zrs_dstream_pump) is the card's counterpart of native's resumable
 // deflate (zlib_rs_tpu/native.py RawDeflateStream over DefStream::pump,
@@ -78,8 +132,15 @@
 // the next pump. The wrapper (ops/kernels/dstream_kernel.py) sizes the
 // pump's room from the unflushed bytes, raises when a pump passed it, and
 // prunes the data after a pump as native does (by multiples of WSIZE,
-// the hash heads, head4 and MEDIUM's next match rebased). Its bound is EX's: the pump's bytes are
-// microseconds; its floor is the serial scan of the pump's positions.
+// the hash heads, head4 and MEDIUM's next match rebased). At levels 4-9 a
+// pump is a resolve of its positions [spos, limit) over chains from its
+// first insert (the retroactive ones included), the chase, and ds_tables;
+// the wrapper hands input longer than a piece to DS a piece at a time
+// (NO_FLUSH but the last, which takes the pump's flush: the same bytes,
+// since no decision depends on how much input has arrived), so that a
+// pump's deltas and slots cover at most a piece and MIN_LOOKAHEAD.
+// Its bound is EX's: the pump's bytes are microseconds; its floor is the
+// serial chase of the pump's positions.
 
 #include <cstdint>
 #include <cstdlib>
@@ -123,9 +184,45 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr size_t kWorkBytes = 300 * 1024;
 constexpr size_t kWork4Bytes = 320 * 1024;
 
+// levels 4-9: the static chains, the resolve and the chase
+constexpr int kTile = 4096;             // positions a block of build_chains inserts in order
+constexpr long long kLookback = 65536;  // positions before a tile whose last occurrences seed it
+constexpr int kChainThreads = 256;
+constexpr int kWalkThreads = 128;       // resolve_walk: a thread a position
+constexpr int kStage = 512;             // slots a stage of the chase's shared ring
+constexpr int kTableThreads = 256;
+constexpr int kEmitWords = 26;  // 32 symbols of <= 48 bits past a partial word, in 64-bit words
+
+// a piece: one resolve's and one chase's range of a chunk (or of a DS
+// pump), int64 a field (the wrapper's P_* names)
+enum {
+  P_BASE,   // offset in `in` of the piece's position 0 (the window's first byte)
+  P_TOTAL,  // the data's positions: the dictionary and the chunk
+  P_LO,     // the first position the chains insert (EX 0; DS the pump's first insert)
+  P_C0,     // deltas are computed for positions [c0, c1) ...
+  P_C1,
+  P_DOFF,   // ... at deltas[doff + p - c0]
+  P_S,      // slots for positions [s, e) ...
+  P_E,
+  P_SOFF,   // ... at slots[soff + p - s]
+  P_CBLK,   // the piece's first block in build_chains
+  P_WBLK,   // and in resolve_walk
+  P_CHUNK,  // EX: the chunk's meta row
+  P_LAST,   // EX: 1 if the piece ends its chunk
+  P_WORK,   // EX: the chunk's Work and record in the call's scratch
+  kPiece
+};
+
 struct Sym {
   uint16_t dist;  // 0: a literal
   uint16_t lenlit;
+};
+
+// a position's two resolved walks, (length << 15) | distance each: the
+// full budget's and the quartered one's; 0 where the position has no
+// first candidate
+struct alignas(8) Slot {
+  uint32_t full, quarter;
 };
 
 struct Work {
@@ -336,6 +433,249 @@ EX_INL int dist_to_code(int dist) {
   const int d = dist - 1;
   return d < 256 ? kT.dist_code[d] : kT.dist_code[256 + (d >> 7)];
 }
+
+// ---------------------------------------------------------------------------
+// levels 4-9: the static chains and the resolve
+// ---------------------------------------------------------------------------
+
+EX_INL uint32_t hash_at(const uint8_t* b, long long p) {
+  return (((uint32_t)b[p] << (2 * HASH_SHIFT)) ^ ((uint32_t)b[p + 1] << HASH_SHIFT) ^
+          (uint32_t)b[p + 2]) & (uint32_t)(HASH_SIZE - 1);
+}
+
+EX_INL void block_sync() {
+#ifdef __CUDACC__
+  __syncthreads();
+#endif
+}
+
+EX_INL void atomic_max_i32(int32_t* a, int32_t v) {
+#ifdef __CUDACC__
+  atomicMax(a, v);
+#else
+  if (v > *a) *a = v;
+#endif
+}
+
+// the chain links a walk reads: a position's delta (prevd's value) from the
+// static deltas at and past c0, before it from the handle's prevd ring (DS)
+struct Chains {
+  const uint16_t* delta;  // position p's at delta[p - c0]
+  long long c0;
+  const uint16_t* ring;   // null for EX: its walks never pass below c0
+  EX_INL long long prev(long long p) const {
+    const uint32_t d = p >= c0 ? delta[p - c0] : ring ? ring[p & (WSIZE - 1)] : 0u;
+    return d ? p - d : 0;
+  }
+};
+
+// 4 bytes from any address of the input
+EX_INL uint32_t load32u(const uint8_t* p) {
+#ifdef __CUDACC__
+  const uintptr_t a = (uintptr_t)p;
+  const uint32_t* w = (const uint32_t*)(a & ~(uintptr_t)3);
+  const uint32_t sh = (uint32_t)(a & 3) * 8;
+  const uint32_t lo = __ldg(w);
+  return sh ? __funnelshift_r(lo, __ldg(w + 1), sh) : lo;
+#else
+  uint32_t v;
+  std::memcpy(&v, p, 4);
+  return v;
+#endif
+}
+
+// match258 in one thread: the first index where a and b differ, or 258;
+// every byte in bounds
+EX_DEV int match_thread(const uint8_t* a, const uint8_t* b) {
+  for (int l = 0; l < 256; l += 4) {
+    const uint32_t x = load32u(a + l) ^ load32u(b + l);
+#ifdef __CUDACC__
+    if (x) return l + ((__ffs(x) - 1) >> 3);
+#else
+    if (x) return l + (__builtin_ctz(x) >> 3);
+#endif
+  }
+  if (a[256] != b[256]) return 256;
+  return a[257] != b[257] ? 257 : 258;
+}
+
+// match258_z in one thread: over the data zero-extended past `total`
+EX_DEV int match_z_thread(const uint8_t* base, long long p, long long q, long long total) {
+  int l = 0;
+  while (l < MAX_MATCH && zbyte(base, p + l, total) == zbyte(base, q + l, total)) l++;
+  return l;
+}
+
+EX_INL uint32_t pack_slot(int len, int dist) { return ((uint32_t)len << 15) | (uint32_t)dist; }
+
+// zlib's longest_match over the static chains from the candidate `cur`,
+// the best starting at `best`: the result packed after `chain` candidates
+// (or at nice, or at the chain's end), and in *q the result after `qchain`
+// of them (the quartered budget's walk is this walk's prefix); qchain 0
+// takes no snapshot; *visited (if given) the candidates compared. The
+// candidate order, the anchored pre-reject, the stops and the updates are
+// longest's.
+EX_DEV uint32_t walk(const uint8_t* base, long long total, long long pos, long long cur,
+                     const Chains& ch, int best, int chain, int qchain, int nice, uint32_t* q,
+                     int* visited) {
+  const int lookahead = (int)(total - pos);
+  if (nice > lookahead) nice = lookahead;
+  long long limit = pos - MAX_DIST;
+  if (limit < 0) limit = 0;
+  const bool inb = pos + MAX_MATCH <= total;
+  const uint8_t* here = base + pos;
+  uint16_t scan_end = inb ? load16(here + best - 1) : 0;
+  const uint16_t scan_start = inb ? load16(here) : 0;
+  int bd = 0, n = 0, seen = 0;
+  bool snap = false;
+  for (;;) {
+    seen++;
+    int ml = 0;
+    if (!inb)
+      ml = match_z_thread(base, pos, cur, total);
+    else if (load16(base + cur + best - 1) == scan_end && load16(base + cur) == scan_start)
+      ml = match_thread(here, base + cur);
+    if (ml > best) {
+      best = ml;
+      bd = (int)(pos - cur);
+      if (ml >= nice) break;
+      if (inb) scan_end = load16(here + best - 1);
+    }
+    if (++n == qchain) {
+      *q = pack_slot(best, bd);
+      snap = true;
+    }
+    const long long next = ch.prev(cur);
+    if (next <= limit || next >= cur) break;
+    cur = next;
+    if (n == chain) break;
+  }
+  const uint32_t full = pack_slot(best, bd);
+  if (qchain && !snap) *q = full;
+  if (visited) *visited = seen;
+  return full;
+}
+
+// a position's slot: its two walks from its first candidate with the best
+// starting at MIN_MATCH - 1, or 0 where run_slow would not call longest
+EX_DEV Slot resolve_at(const uint8_t* base, long long total, long long p, const Chains& ch,
+                       int level, int* visited) {
+  Slot r{0u, 0u};
+  *visited = 0;
+  if (p + MIN_MATCH > total) return r;
+  const long long first = ch.prev(p);
+  if (first <= 0 || p - first > MAX_DIST) return r;
+  const int chain = kT.chain[level];
+  r.full = walk(base, total, p, first, ch, MIN_MATCH - 1, chain, chain >> 2, kT.nice[level],
+                &r.quarter, visited);
+  return r;
+}
+
+// the deltas of a piece's positions [t0, t1): each position's delta to the
+// last position before it with its hash (positions [lo, t0) and the tile
+// inserted in order, those before lo summed up by head_old), capped at
+// 0xffff: the prevd value zlib's serial insert writes. The tile starts from
+// the last occurrences in the kLookback positions before it: an older one
+// lies at least kLookback back, where the cap gives the same delta.
+EX_DEV void tile_chains(const uint8_t* base, const long long* pr, long long t0, long long t1,
+                        const int32_t* head_old, int32_t* table, uint16_t* deltas, int tid,
+                        int nthreads) {
+  const long long lo = pr[P_LO];
+  const long long ws = t0 - kLookback > lo ? t0 - kLookback : lo;
+  const bool seeded = ws == lo && head_old;
+  for (int h = tid; h < HASH_SIZE; h += nthreads) table[h] = seeded ? head_old[h] : 0;
+  block_sync();
+  for (long long p = ws + tid; p < t0; p += nthreads)
+    atomic_max_i32(table + hash_at(base, p), (int32_t)p);
+  block_sync();
+  uint16_t* out = deltas + pr[P_DOFF];
+  const long long c0 = pr[P_C0];
+#ifdef __CUDACC__
+  if (tid >= 32) return;
+  const int lane = tid;
+  for (long long q0 = t0; q0 < t1; q0 += 32) {
+    const long long p = q0 + lane;
+    const bool on = p < t1;
+    const unsigned act = __ballot_sync(kFull, on);
+    uint32_t h = 0;
+    unsigned peers = 0;
+    int32_t pred = 0;
+    if (on) {
+      h = hash_at(base, p);
+      peers = __match_any_sync(act, h);
+      const unsigned lower = peers & ((1u << lane) - 1u);
+      pred = lower ? (int32_t)(q0 + 31 - __clz(lower)) : table[h];
+    }
+    __syncwarp();
+    if (on) {
+      if (lane == 31 - __clz(peers)) table[h] = (int32_t)p;
+      const long long d = p - pred;
+      out[p - c0] = (uint16_t)(d < 0xffff ? d : 0xffff);
+    }
+    __syncwarp();
+  }
+#else
+  (void)tid;
+  for (long long p = t0; p < t1; p++) {
+    const uint32_t h = hash_at(base, p);
+    const long long d = p - table[h];
+    out[p - c0] = (uint16_t)(d < 0xffff ? d : 0xffff);
+    table[h] = (int32_t)p;
+  }
+#endif
+}
+
+// the piece a block serves: the last row whose first block (column `col`)
+// is at or below `block`
+EX_INL int find_piece(const long long* pieces, int P, int col, long long block) {
+  int lo = 0, hi = P - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pieces[(size_t)mid * kPiece + col] <= block)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// the chase's slots of positions [s, s + n): on the card staged kStage at a
+// time into a ring of two stages in shared memory, the next stage loading
+// (cp.async, 8 bytes a copy) while the warp reads this one; every lane calls
+// at() with the same position
+struct SlotSrc {
+  const Slot* g;
+  long long s, n;
+  Slot* sm;
+  long long cur;  // the stage the warp reads, -1 before the first
+
+#ifdef __CUDACC__
+  __device__ void stage(long long blk, int lane) {
+    Slot* dst = sm + (blk & 1) * kStage;
+    const long long i0 = blk * kStage;
+    for (int i = lane; i < kStage; i += 32) {
+      if (i0 + i >= n) break;
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(g + i0 + i));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  __device__ Slot at(long long pos, int lane) {
+    const long long i = pos - s;
+    const long long blk = i / kStage;
+    if (blk != cur) {
+      if (blk != cur + 1 || cur < 0) stage(blk, lane);  // the first read
+      asm volatile("cp.async.wait_all;\n" ::);
+      __syncwarp();
+      cur = blk;
+      stage(blk + 1, lane);
+    }
+    return sm[(blk & 1) * kStage + (i - blk * kStage)];
+  }
+#else
+  Slot at(long long pos, int) const { return g[pos - s]; }
+#endif
+};
 
 // ---------------------------------------------------------------------------
 // the bit writer: native's 64-bit accumulator over the chunk's slot
@@ -640,11 +980,17 @@ struct Deflater {
   // MEDIUM's pre-found next match
   long long med_next_start, med_next_strstart, med_next_orgstart;
   int med_next_len;
+  // levels 4-9: static chains and the resolve's slots instead of inserts
+  // and walks (the live walk at the end of the data reads `ch`)
+  bool fixed;
+  Chains ch;
+  SlotSrc sl;
+  uint32_t* hist;       // levels 4-9 on the card: a block's frequencies in shared memory
+  uint64_t* ewords;     // and the emission's words (kEmitWords)
+  long long clk_flush;  // clock64 cycles inside flush_block (the card)
+  long long clk_emit;   // of which in emit_symbols
 
-  EX_INL uint32_t hash3(long long p) const {
-    return (((uint32_t)base[p] << (2 * HASH_SHIFT)) ^ ((uint32_t)base[p + 1] << HASH_SHIFT) ^
-            (uint32_t)base[p + 2]) & (uint32_t)(HASH_SIZE - 1);
-  }
+  EX_INL uint32_t hash3(long long p) const { return hash_at(base, p); }
   EX_INL uint32_t roll_h(uint32_t h, long long pos) const {
     return ((h << HASH_SHIFT) ^ (uint32_t)base[pos + 2]) & (uint32_t)(HASH_SIZE - 1);
   }
@@ -759,9 +1105,78 @@ struct Deflater {
     bw.put64((uint64_t)w->ltab[v] | (dfused << w->ltn[v]), w->ltn[v] + dn);
   }
 
+#ifdef __CUDACC__
+  // levels 4-9 on the card: the block's symbols 32 at a time, a symbol a
+  // lane: its code and extra bits fused (at most 48 bits), their offsets
+  // by a warp scan past the bit writer's partial word, ORed into 64-bit
+  // words in shared memory; the finished words are stored a byte a lane
+  // and the rest is the bit writer's partial word, as put64 leaves them
+  __device__ void emit_symbols_warp(const uint16_t* llc, const uint8_t* lll, const uint16_t* dc,
+                                    const uint8_t* dl) {
+    const Sym* syms = w->syms;
+    BitW out = bw;
+    for (long long g = 0; g < ns; g += 32) {
+      const long long i = g + lane;
+      uint64_t v = 0;
+      int nb = 0;
+      if (i < ns) {
+        const Sym s = syms[i];
+        if (s.dist == 0) {
+          v = llc[s.lenlit];
+          nb = lll[s.lenlit];
+        } else {
+          const int l = s.lenlit - 3;
+          const int c = dist_to_code(s.dist);
+          const uint64_t dfused =
+              (uint64_t)dc[c] | ((uint64_t)(s.dist - kT.dist_base[c]) << dl[c]);
+          v = (uint64_t)w->ltab[l] | (dfused << w->ltn[l]);
+          nb = w->ltn[l] + dl[c] + kT.dist_extra[c];
+        }
+      }
+      int inc = nb;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += y;
+      }
+      const int bits = out.cnt + __shfl_sync(kFull, inc, 31);
+      if (lane < kEmitWords) ewords[lane] = lane == 0 ? out.buf : 0;
+      __syncwarp();
+      if (nb) {
+        const int at = out.cnt + inc - nb, sh = at & 63;
+        atomicOr((unsigned long long*)ewords + (at >> 6), (unsigned long long)(v << sh));
+        if (sh + nb > 64)
+          atomicOr((unsigned long long*)ewords + (at >> 6) + 1,
+                   (unsigned long long)(v >> (64 - sh)));
+      }
+      __syncwarp();
+      const int full = bits >> 6;
+      for (int b = lane; b < 8 * full; b += 32)
+        out.store_byte(out.wpos + b, (uint8_t)(ewords[b >> 3] >> (8 * (b & 7))));
+      out.wpos += 8 * full;
+      out.buf = ewords[full];
+      out.cnt = bits & 63;
+      __syncwarp();
+    }
+    bw = out;
+  }
+#endif
+
   EX_BIG void emit_symbols(const uint16_t* llc, const uint8_t* lll, const uint16_t* dc,
                            const uint8_t* dl) {
+#ifdef __CUDACC__
+    const long long clk0 = clock64();
+#endif
     fuse_lengths(llc, lll);
+#ifdef __CUDACC__
+    if (ewords) {
+      warp_sync();
+      emit_symbols_warp(llc, lll, dc, dl);
+      bw.put64(llc[256], lll[256]);  // EOB
+      clk_emit += clock64() - clk0;
+      return;
+    }
+    (void)clk0;
+#endif
     for (long long i = 0; i < ns; i++) {
       const Sym s = w->syms[i];
       if (s.dist == 0)
@@ -804,20 +1219,44 @@ struct Deflater {
   // zlib's _tr_flush_block: exact trees, the whole-byte cost rule
   EX_BIG void flush_block(bool last, long long block_end) {
     warp_sync();
+#ifdef __CUDACC__
+    const long long clk0 = clock64();
+#endif
     const long long stored_len = block_end - block_start;
     uint64_t opt_lenb, static_lenb;
     int l_max = 0, d_max = 0, max_blindex = 0;
     if (level > 0) {
-      for (int i = 0; i < L_CODES; i++) w->llf[i] = 0;
-      for (int i = 0; i < D_CODES; i++) w->df[i] = 0;
-      w->llf[256] = 1;
-      for (long long i = 0; i < ns; i++) {
-        const Sym s = w->syms[i];
-        if (s.dist == 0) {
-          w->llf[s.lenlit]++;
-        } else {
-          w->llf[257 + kT.len_code[s.lenlit - 3]]++;
-          w->df[dist_to_code(s.dist)]++;
+#ifdef __CUDACC__
+      if (hist) {  // levels 4-9: the lanes share the symbols, shared-memory atomics
+        for (int i = lane; i < L_CODES + D_CODES; i += 32) hist[i] = 0;
+        __syncwarp();
+        for (long long i = lane; i < ns; i += 32) {
+          const Sym s = w->syms[i];
+          if (s.dist == 0) {
+            atomicAdd(hist + s.lenlit, 1u);
+          } else {
+            atomicAdd(hist + 257 + kT.len_code[s.lenlit - 3], 1u);
+            atomicAdd(hist + L_CODES + dist_to_code(s.dist), 1u);
+          }
+        }
+        __syncwarp();
+        for (int i = lane; i < L_CODES; i += 32) w->llf[i] = hist[i] + (i == 256 ? 1u : 0u);
+        for (int i = lane; i < D_CODES; i += 32) w->df[i] = hist[L_CODES + i];
+        __syncwarp();
+      } else
+#endif
+      {
+        for (int i = 0; i < L_CODES; i++) w->llf[i] = 0;
+        for (int i = 0; i < D_CODES; i++) w->df[i] = 0;
+        w->llf[256] = 1;
+        for (long long i = 0; i < ns; i++) {
+          const Sym s = w->syms[i];
+          if (s.dist == 0) {
+            w->llf[s.lenlit]++;
+          } else {
+            w->llf[257 + kT.len_code[s.lenlit - 3]]++;
+            w->df[dist_to_code(s.dist)]++;
+          }
         }
       }
       uint64_t opt_len, static_len;
@@ -841,6 +1280,9 @@ struct Deflater {
     ns = 0;
     block_start = block_end;
     warp_sync();
+#ifdef __CUDACC__
+    clk_flush += clock64() - clk0;
+#endif
   }
 
   EX_INL void push(int dist, int lenlit) {
@@ -853,7 +1295,7 @@ struct Deflater {
     if (started) return;
     started = true;
     spos = dict_len;
-    insert_dict();
+    if (!fixed) insert_dict();  // static chains hold the dictionary already
   }
 
   // greedy loop, levels 1-3 (zlib deflate_fast), over positions < limit
@@ -902,66 +1344,111 @@ struct Deflater {
     }
   }
 
-  // lazy loop, levels 4-9 (zlib deflate_slow); the same limit contract
+  // longest(pos, hash_head, prev_len) from the position's slot: the
+  // quartered walk's when prev_len >= good; max(prev_len, M) clamped by
+  // total - pos, the distance taken only when M passes prev_len. Where nice
+  // falls below prev_len (prev_len >= total - pos, at the end of the data)
+  // zlib's walk over the static chains, live (live_walk).
+  EX_INL int lookup(const Slot& slot, int lookahead, int prev_len, int good, int& mdist) {
+    const uint32_t v = prev_len >= good ? slot.quarter : slot.full;
+    const int m = (int)(v >> 15);
+    const int best = m > prev_len ? m : prev_len;
+    mdist = m > prev_len ? (int)(v & 0x7fff) : 0;
+    return best <= lookahead ? best : lookahead;
+  }
+  EX_BIG int live_walk(long long pos, int prev_len, int& mdist) {
+    const int lookahead = (int)(total - pos);
+    const int chain = prev_len >= kT.good[klevel] ? kT.chain[klevel] >> 2 : kT.chain[klevel];
+    const uint32_t v = walk(base, total, pos, ch.prev(pos), ch, prev_len, chain, 0,
+                            kT.nice[klevel], nullptr, nullptr);
+    mdist = (int)(v & 0x7fff);
+    const int best = (int)(v >> 15);
+    return best <= lookahead ? best : lookahead;
+  }
+
+  // lazy loop, levels 4-9 (zlib deflate_slow); the same limit contract.
+  // The chains are static (a match's interior and the loop top need no
+  // insert) and longest is the slot's lookup. The loop's state stays in
+  // registers (this object lives in local memory), written back for
+  // flush_block and at the end.
   EX_DEV void run_slow(long long limit) {
-    const int lazy = kT.lazy[klevel];
+    const int lazy = kT.lazy[klevel], good = kT.good[klevel];
     start_scan();
-    while (spos < limit) {
+    const uint8_t* const b = base;
+    const long long tot = total;
+    Sym* const syms = w->syms;
+    SlotSrc src = sl;
+    long long p = spos, mstart = match_start, pstart = prev_start, n = ns;
+    int mlen = match_length, plen = prev_length;
+    bool avail = match_available, hv = shv;
+    uint32_t h = sh;
+    while (p < limit) {
       warp_sync();
-      long long hash_head = 0;
-      if (spos + MIN_MATCH <= total) {
-        if (!shv) {
-          sh = hash3(spos);
-          shv = true;
+      Slot slot{0u, 0u};
+      if (p + MIN_MATCH <= tot) {
+        if (!hv) {
+          h = hash_at(b, p);
+          hv = true;
         }
-        insert_h(spos, sh);
-        hash_head = chain_prev(spos);
+        slot = src.at(p, lane);
       }
-      prev_length = match_length;
-      prev_start = match_start;
-      match_length = MIN_MATCH - 1;
-      if (hash_head > 0 && prev_length < lazy && spos - hash_head <= MAX_DIST) {
+      plen = mlen;
+      pstart = mstart;
+      mlen = MIN_MATCH - 1;
+      if (slot.full && plen < lazy) {
         int mdist = 0;
-        match_length = longest(spos, hash_head, prev_length, mdist);
-        if (mdist > 0) match_start = spos - mdist;
-        if (match_length <= 5 && (match_length == MIN_MATCH && spos - match_start > TOO_FAR))
-          match_length = MIN_MATCH - 1;
+        const int lookahead = (int)(tot - p);
+        mlen = plen >= lookahead ? live_walk(p, plen, mdist)
+                                 : lookup(slot, lookahead, plen, good, mdist);
+        if (mdist > 0) mstart = p - mdist;
+        if (mlen <= 5 && (mlen == MIN_MATCH && p - mstart > TOO_FAR)) mlen = MIN_MATCH - 1;
       }
-      if (prev_length >= MIN_MATCH && match_length <= prev_length) {
-        push((int)(spos - 1 - prev_start), prev_length);
-        const long long end_ins = spos + prev_length - 1;  // exclusive
-        uint32_t h2 = sh;  // the hash at spos
-        for (long long p2 = spos + 1; p2 < end_ins; p2++) {
-          if (p2 + MIN_MATCH > total) break;
-          h2 = roll_h(h2, p2);
-          insert_h(p2, h2);
+      if (plen >= MIN_MATCH && mlen <= plen) {
+        syms[n++] = Sym{(uint16_t)(p - 1 - pstart), (uint16_t)plen};
+        p = p + plen - 1;
+        hv = false;
+        avail = false;
+        mlen = MIN_MATCH - 1;
+        if (n >= SYM_END) {
+          ns = n;
+          flush_block(false, p);
+          n = ns;
         }
-        spos = spos + prev_length - 1;
-        shv = false;
-        match_available = false;
-        match_length = MIN_MATCH - 1;
-        if (ns >= SYM_END) flush_block(false, spos);
-      } else if (match_available) {
-        push(0, base[spos - 1]);
-        if (ns >= SYM_END) flush_block(false, spos);
-        spos++;
-        if (shv) {
-          if (spos + MIN_MATCH <= total)
-            sh = roll_h(sh, spos);
+      } else if (avail) {
+        syms[n++] = Sym{0, b[p - 1]};
+        if (n >= SYM_END) {
+          ns = n;
+          flush_block(false, p);
+          n = ns;
+        }
+        p++;
+        if (hv) {
+          if (p + MIN_MATCH <= tot)
+            h = ((h << HASH_SHIFT) ^ (uint32_t)b[p + 2]) & (uint32_t)(HASH_SIZE - 1);
           else
-            shv = false;
+            hv = false;
         }
       } else {
-        match_available = true;
-        spos++;
-        if (shv) {
-          if (spos + MIN_MATCH <= total)
-            sh = roll_h(sh, spos);
+        avail = true;
+        p++;
+        if (hv) {
+          if (p + MIN_MATCH <= tot)
+            h = ((h << HASH_SHIFT) ^ (uint32_t)b[p + 2]) & (uint32_t)(HASH_SIZE - 1);
           else
-            shv = false;
+            hv = false;
         }
       }
     }
+    spos = p;
+    match_start = mstart;
+    prev_start = pstart;
+    ns = n;
+    match_length = mlen;
+    prev_length = plen;
+    match_available = avail;
+    sh = h;
+    shv = hv;
+    sl = src;
   }
 
   // zlib's deflate_slow end-of-stream step: the deferred literal at the
@@ -1365,6 +1852,10 @@ EX_DEV long long deflate_one(const uint8_t* in, const long long* m, int level, u
   d.started = false;
   d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
   d.med_next_len = 0;
+  d.fixed = false;
+  d.hist = nullptr;
+  d.ewords = nullptr;
+  d.clk_flush = d.clk_emit = 0;
   d.run(final_flag);
   warp_sync();
   *status = d.bw.wpos > d.bw.cap ? kOverflow : 0;
@@ -1386,7 +1877,9 @@ enum {
   D_TOTAL, D_SPOS, D_BLOCK_START, D_NS, D_MATCH_LENGTH, D_PREV_LENGTH, D_MATCH_START,
   D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
   D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS, D_FINISHED,
-  D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART, D_MED_NEXT_LEN, kDRec = 28
+  D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART, D_MED_NEXT_LEN,
+  D_INS_LO, D_INS_HI,  // levels 4-9: the positions [lo, hi) the pump inserted, for ds_tables
+  kDRec = 28
 };
 constexpr int kMisuse = -2;
 
@@ -1396,8 +1889,13 @@ constexpr int kMisuse = -2;
 // followed by Work4, the 4-byte-hash chains), `out` the pump's room.
 // Flush 0 none, 2 sync, 3 full, 4 finish. Levels 1-9 and MEDIUM4-6
 // (11-13), as native's handle takes them.
+// At levels 4-9 `slots` holds the resolve's slots of positions [spos,
+// spos + n_slots) and `deltas` the static chains' deltas from the pump's
+// first insert (D_INS_LO); the chase leaves the inserted range's end in
+// D_INS_HI for ds_tables.
 EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, int lane,
-                    int lanes) {
+                    int lanes, const Slot* slots, long long n_slots, const uint16_t* deltas,
+                    Slot* stage, uint32_t* hist, uint64_t* ewords, long long* clk) {
   const int level = (int)r[D_LEVEL], flush = (int)r[D_FLUSH];
   const bool medium = level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2;
   if (r[D_FINISHED] || (!medium && (level < 1 || level > 9))) {  // native's -2
@@ -1405,9 +1903,14 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     if (lane == 0) {
       r[D_STATUS] = kMisuse;
       r[D_OUT_LEN] = 0;
+      r[D_INS_LO] = r[D_INS_HI] = 0;
     }
     return;
   }
+  const bool fixed = !medium && kT.slow[level];
+#ifdef __CUDACC__
+  const long long clk0 = clock64();
+#endif
   Deflater d;
   d.base = data;
   d.dict_len = 0;
@@ -1433,17 +1936,26 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   d.med_next_strstart = r[D_MED_NEXT_STRSTART];
   d.med_next_orgstart = r[D_MED_NEXT_ORGSTART];
   d.med_next_len = (int)r[D_MED_NEXT_LEN];
+  d.fixed = fixed;
+  d.hist = fixed ? hist : nullptr;
+  d.ewords = fixed ? ewords : nullptr;
+  d.clk_flush = d.clk_emit = 0;
   long long total = d.total;
   long long insert_pending = r[D_INSERT_PENDING];
   d.start_scan();
+  const long long ins_lo = d.spos - insert_pending;
+  if (fixed) {
+    d.ch = Chains{deltas, ins_lo, w->prevd};
+    d.sl = SlotSrc{slots, d.spos, n_slots, stage, -1};
+  }
   // zlib's `insert`: the <= 2 tail positions a flush could not hash enter
   // the chains once the new input completes their strings (native
-  // retro_insert, fill_window's role)
+  // retro_insert, fill_window's role); static chains hold them already
   const long long lookahead = total - d.spos;
   if (insert_pending && lookahead + insert_pending >= MIN_MATCH) {
     long long str = d.spos - insert_pending;
     while (insert_pending) {
-      d.insert_h(str, d.hash3(str));
+      if (!fixed) d.insert_h(str, d.hash3(str));
       str++;
       insert_pending--;
       if (lookahead + insert_pending < MIN_MATCH) break;
@@ -1451,15 +1963,19 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   }
   const long long limit =
       flush ? total : (total >= MIN_LOOKAHEAD ? total - (MIN_LOOKAHEAD - 1) : 0);
-  if (medium)
-    d.run_medium(limit);
-  else if (kT.slow[level])
+  if (fixed)
     d.run_slow(limit);
+  else if (medium)
+    d.run_medium(limit);
   else
     d.run_fast(limit);
+  // the inserted positions end where the scan stopped, short of the last
+  // two (their strings end past the data), never below the first insert
+  long long ins_hi = d.spos < total - (MIN_MATCH - 1) ? d.spos : total - (MIN_MATCH - 1);
+  if (ins_hi < ins_lo) ins_hi = ins_lo;
   bool finished = false;
   if (flush) {
-    if (!medium && kT.slow[level]) d.emit_trailing_literal();
+    if (fixed) d.emit_trailing_literal();
     insert_pending = d.spos < MIN_MATCH - 1 ? d.spos : MIN_MATCH - 1;
     if (flush == 4) {
       d.flush_block(true, total);
@@ -1472,7 +1988,9 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
       // native, MEDIUM's head4 and next match stay (a stale head's delta
       // wraps in its u16 slot, and every candidate's bytes are compared)
       if (flush == 3) {
-        for (int i = lane; i < HASH_SIZE; i += lanes) w->head[i] = 0;
+        // levels 4-9: ds_tables clears the heads after it writes the chains
+        if (!fixed)
+          for (int i = lane; i < HASH_SIZE; i += lanes) w->head[i] = 0;
         total = 0;
         d.spos = 0;
         d.block_start = 0;
@@ -1505,7 +2023,166 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     r[D_MED_NEXT_STRSTART] = d.med_next_strstart;
     r[D_MED_NEXT_ORGSTART] = d.med_next_orgstart;
     r[D_MED_NEXT_LEN] = d.med_next_len;
+    r[D_INS_LO] = fixed ? ins_lo : 0;
+    r[D_INS_HI] = fixed ? ins_hi : 0;
+#ifdef __CUDACC__
+    if (clk) {
+      clk[0] = clock64() - clk0;
+      clk[1] = d.clk_flush;
+      clk[2] = d.clk_emit;
+    }
+#endif
   }
+#ifndef __CUDACC__
+  (void)clk;
+#endif
+}
+
+// after a DS pump at levels 4-9 (positions [D_INS_LO, D_INS_HI) inserted,
+// deltas from D_INS_LO): the handle's head and prevd as zlib's serial
+// inserts leave them. head takes each inserted position by atomicMax (a
+// head is an older position), prevd's ring the deltas of the last WSIZE;
+// FULL_FLUSH clears the heads, after the inserts, as zlib does.
+EX_DEV void ds_tables_range(const long long* r, const uint8_t* data, Work* w,
+                            const uint16_t* deltas, long long i0, long long step) {
+  if (r[D_STATUS] == kMisuse) return;
+  const long long lo = r[D_INS_LO], hi = r[D_INS_HI];
+  const bool clear = r[D_FLUSH] == 3;
+  for (long long p = lo + i0; p < hi; p += step) {
+    if (!clear) atomic_max_i32(w->head + hash_at(data, p), (int32_t)p);
+    if (p >= hi - WSIZE) w->prevd[p & (WSIZE - 1)] = deltas[p - lo];
+  }
+}
+
+// FULL_FLUSH at levels 4-9: the heads cleared once ds_tables_range has
+// written the chains (it writes no head then)
+EX_DEV void ds_tables_clear(const long long* r, Work* w, long long i0, long long step) {
+  if (r[D_STATUS] == kMisuse || r[D_FLUSH] != 3) return;
+  for (long long h = i0; h < HASH_SIZE; h += step) w->head[h] = 0;
+}
+
+// a DS pump's ranges at levels 4-9, from its record before the pump: g[0]
+// the first position it inserts (spos less zlib's pending `insert`), g[1]
+// the end of the positions it can insert (the deltas cover [g[0], g[1])),
+// g[2] spos and g[3] the scan's limit (the slots cover [g[2], g[3]))
+EX_HD void ds_ranges(const long long* r, long long* g) {
+  const long long total = r[D_TOTAL];
+  const long long s = r[D_STARTED] ? r[D_SPOS] : 0;
+  const long long a = s - (r[D_STARTED] ? r[D_INSERT_PENDING] : 0);
+  const long long limit =
+      r[D_FLUSH] ? total : (total >= MIN_LOOKAHEAD ? total - (MIN_LOOKAHEAD - 1) : 0);
+  const long long we = limit > s ? limit : s;
+  // the scan stops before limit + MAX_MATCH - 1; no insert reaches total - 2
+  long long c1 = limit + MAX_MATCH > s ? limit + MAX_MATCH : s;
+  if (c1 > total - (MIN_MATCH - 1)) c1 = total - (MIN_MATCH - 1);
+  if (c1 < a) c1 = a;
+  g[0] = a;
+  g[1] = c1;
+  g[2] = s;
+  g[3] = we;
+}
+
+// EX at levels 4-9: one piece of one chunk, resumed from the chunk's record
+// (a first piece starts the Deflater as deflate_one does) and chased to the
+// piece's end, or to the chunk's and then ended as run() ends it
+EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long long* pr, int level,
+                        uint8_t* out, long long* lens, int* status, long long* recs,
+                        uint8_t* scratch, long long stride, const Slot* slots,
+                        const uint16_t* deltas, Slot* stage, uint32_t* hist, uint64_t* ewords,
+                        int lane, long long* clk) {
+#ifdef __CUDACC__
+  const long long clk0 = clock64();
+#endif
+  const long long k = pr[P_CHUNK];
+  const long long* m = meta + (size_t)k * kMeta;
+  const long long start = m[0], n = m[1], dict_len = m[2];
+  long long* r = recs + (size_t)pr[P_WORK] * kDRec;
+  Deflater d;
+  d.base = in + start - dict_len;
+  d.dict_len = dict_len;
+  d.n = n;
+  d.total = dict_len + n;
+  d.level = d.klevel = level;
+  d.lane = lane;
+  d.w = (Work*)(scratch + (size_t)pr[P_WORK] * (size_t)stride);
+  d.w4 = nullptr;
+  d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
+  d.med_next_len = 0;
+  if (pr[P_S] == dict_len) {  // the chunk's first piece
+    d.bw = BitW{out + m[4], m[5], 0, 0, 0, lane};
+    d.ns = 0;
+    d.block_start = dict_len;
+    d.match_length = d.prev_length = MIN_MATCH - 1;
+    d.match_start = d.prev_start = 0;
+    d.match_available = false;
+    d.spos = 0;
+    d.sh = 0;
+    d.shv = false;
+    d.started = false;
+  } else {
+    d.bw = BitW{out + m[4], m[5], r[D_OUT_LEN], (uint64_t)r[D_BW_BUF], (int)r[D_BW_CNT], lane};
+    d.ns = r[D_NS];
+    d.block_start = r[D_BLOCK_START];
+    d.match_length = (int)r[D_MATCH_LENGTH];
+    d.prev_length = (int)r[D_PREV_LENGTH];
+    d.match_start = r[D_MATCH_START];
+    d.prev_start = r[D_PREV_START];
+    d.match_available = r[D_MATCH_AVAILABLE] != 0;
+    d.spos = r[D_SPOS];
+    d.sh = (uint32_t)r[D_SH];
+    d.shv = r[D_SHV] != 0;
+    d.started = r[D_STARTED] != 0;
+  }
+  d.fixed = true;
+  d.hist = hist;
+  d.ewords = ewords;
+  d.clk_flush = d.clk_emit = 0;
+  d.ch = Chains{deltas + pr[P_DOFF], pr[P_C0], nullptr};
+  d.sl = SlotSrc{slots + pr[P_SOFF], pr[P_S], pr[P_E] - pr[P_S], stage, -1};
+  const bool last = pr[P_LAST] != 0;
+  d.run_slow(last ? d.total : pr[P_E]);
+  if (last) {
+    d.emit_trailing_literal();
+    if (m[3]) {
+      d.flush_block(true, d.total);
+      d.bw.align();
+    } else {
+      if (d.ns != 0 || d.block_start < d.total) d.flush_block(false, d.total);
+      d.seam();
+    }
+  }
+  warp_sync();
+  if (lane == 0) {
+    if (last) {
+      lens[k] = d.bw.wpos;
+      status[k] = d.bw.wpos > d.bw.cap ? kOverflow : 0;
+    } else {
+      r[D_SPOS] = d.spos;
+      r[D_BLOCK_START] = d.block_start;
+      r[D_NS] = d.ns;
+      r[D_MATCH_LENGTH] = d.match_length;
+      r[D_PREV_LENGTH] = d.prev_length;
+      r[D_MATCH_START] = d.match_start;
+      r[D_PREV_START] = d.prev_start;
+      r[D_MATCH_AVAILABLE] = d.match_available ? 1 : 0;
+      r[D_SH] = d.sh;
+      r[D_SHV] = d.shv ? 1 : 0;
+      r[D_STARTED] = d.started ? 1 : 0;
+      r[D_BW_BUF] = (long long)d.bw.buf;
+      r[D_BW_CNT] = d.bw.cnt;
+      r[D_OUT_LEN] = d.bw.wpos;
+    }
+#ifdef __CUDACC__
+    if (clk) {
+      clk[0] = clock64() - clk0;
+      clk[1] = d.clk_flush;
+      clk[2] = d.clk_emit;
+    }
+#endif
+  }
+#ifndef __CUDACC__
+  (void)clk;
+#endif
 }
 
 #ifdef __CUDACC__
@@ -1531,14 +2208,76 @@ exact_deflate(const uint8_t* __restrict__ in, const long long* __restrict__ meta
 // DS: one pump of one handle, one warp
 __global__ void __launch_bounds__(32)
 dstream_pump(long long* __restrict__ rec, const uint8_t* __restrict__ data,
-             uint8_t* __restrict__ work, uint8_t* __restrict__ out) {
-  ds_pump(rec, data, (Work*)work, out, threadIdx.x, 32);
+             uint8_t* __restrict__ work, uint8_t* __restrict__ out, const Slot* __restrict__ slots,
+             long long n_slots, const uint16_t* __restrict__ deltas, long long* __restrict__ clk) {
+  __shared__ Slot stage[2 * kStage];
+  __shared__ uint32_t hist[L_CODES + D_CODES];
+  __shared__ uint64_t ewords[kEmitWords];
+  ds_pump(rec, data, (Work*)work, out, threadIdx.x, 32, slots, n_slots, deltas, stage, hist,
+          ewords, clk);
+}
+
+// the resolve, part 1: a tile of a piece's deltas a block
+__global__ void __launch_bounds__(kChainThreads)
+build_chains(const uint8_t* __restrict__ in, const long long* __restrict__ pieces, int P,
+             const int32_t* __restrict__ head_old, uint16_t* __restrict__ deltas) {
+  extern __shared__ int32_t table[];  // HASH_SIZE last occurrences
+  const long long* pr = pieces + (size_t)find_piece(pieces, P, P_CBLK, blockIdx.x) * kPiece;
+  const long long t0 = pr[P_C0] + (blockIdx.x - pr[P_CBLK]) * (long long)kTile;
+  const long long t1 = t0 + kTile < pr[P_C1] ? t0 + kTile : pr[P_C1];
+  tile_chains(in + pr[P_BASE], pr, t0, t1, head_old, table, deltas, threadIdx.x, blockDim.x);
+}
+
+// the resolve, part 2: a thread a position of every piece's [s, e); count
+// (null, or one uint64) sums the candidates the walks compare
+__global__ void __launch_bounds__(kWalkThreads)
+resolve_walk(const uint8_t* __restrict__ in, const long long* __restrict__ pieces, int P,
+             int level, const uint16_t* __restrict__ deltas, const uint16_t* __restrict__ ring,
+             Slot* __restrict__ slots, unsigned long long* __restrict__ count) {
+  const long long* pr = pieces + (size_t)find_piece(pieces, P, P_WBLK, blockIdx.x) * kPiece;
+  const long long p = pr[P_S] + (blockIdx.x - pr[P_WBLK]) * (long long)kWalkThreads + threadIdx.x;
+  int visited = 0;
+  if (p < pr[P_E]) {
+    const Chains ch{deltas + pr[P_DOFF], pr[P_C0], ring};
+    slots[pr[P_SOFF] + p - pr[P_S]] =
+        resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
+  }
+  if (count) {
+    const unsigned sum = __reduce_add_sync(kFull, (unsigned)visited);
+    if ((threadIdx.x & 31) == 0 && sum) atomicAdd(count, (unsigned long long)sum);
+  }
+}
+
+// EX's chase at levels 4-9: a piece a block of one warp
+__global__ void __launch_bounds__(32)
+exact_chase(const uint8_t* __restrict__ in, const long long* __restrict__ meta,
+            const long long* __restrict__ pieces, int level, uint8_t* __restrict__ out,
+            long long* __restrict__ lens, int* __restrict__ status, long long* __restrict__ recs,
+            uint8_t* __restrict__ scratch, long long stride, const Slot* __restrict__ slots,
+            const uint16_t* __restrict__ deltas, long long* __restrict__ clk) {
+  __shared__ Slot stage[2 * kStage];
+  __shared__ uint32_t hist[L_CODES + D_CODES];
+  __shared__ uint64_t ewords[kEmitWords];
+  chase_piece(in, meta, pieces + (size_t)blockIdx.x * kPiece, level, out, lens, status, recs,
+              scratch, stride, slots, deltas, stage, hist, ewords, threadIdx.x,
+              clk ? clk + 3 * (size_t)blockIdx.x : nullptr);
+}
+
+// DS after a pump at levels 4-9: the handle's head and prevd
+__global__ void __launch_bounds__(kTableThreads)
+ds_tables(const long long* __restrict__ rec, const uint8_t* __restrict__ data,
+          uint8_t* __restrict__ work, const uint16_t* __restrict__ deltas) {
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  ds_tables_range(rec, data, (Work*)work, deltas, i0, step);
+  ds_tables_clear(rec, (Work*)work, i0, step);
 }
 
 int g_tables_ready[64];
 
 // RFC 1951's tables and the LEVELS rows in the current device's constant
-// memory, once a device
+// memory, build_chains's shared memory past 48 KB and the chases' L1, once
+// a device
 int ensure_tables() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1548,6 +2287,17 @@ int ensure_tables() {
     Tables t;
     make_tables(&t);
     err = cudaMemcpyToSymbol(kT, &t, sizeof(Tables));
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(build_chains, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               HASH_SIZE * (int)sizeof(int32_t));
+    if (err != cudaSuccess) return (int)err;
+    // the chases' few KB of shared memory leave L1 its most: their warp's
+    // hash chains and Work are read through it
+    err = cudaFuncSetAttribute(dstream_pump, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxL1);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(exact_chase, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxL1);
     if (err != cudaSuccess) return (int)err;
     g_tables_ready[dev] = 1;
   }
@@ -1561,30 +2311,65 @@ void ensure_host_tables() {
     ready = true;
   }
 }
+
+// the resolve on the host: every piece's deltas tile by tile, then every
+// slot, in order
+void resolve_host(const uint8_t* in, const long long* pieces, int P, int level,
+                  const int32_t* head_old, const uint16_t* ring, uint16_t* deltas, Slot* slots,
+                  int32_t* table) {
+  for (int i = 0; i < P; i++) {
+    const long long* pr = pieces + (size_t)i * kPiece;
+    for (long long t0 = pr[P_C0]; t0 < pr[P_C1]; t0 += kTile)
+      tile_chains(in + pr[P_BASE], pr, t0, t0 + kTile < pr[P_C1] ? t0 + kTile : pr[P_C1],
+                  head_old, table, deltas, 0, 1);
+  }
+  for (int i = 0; i < P; i++) {
+    const long long* pr = pieces + (size_t)i * kPiece;
+    const Chains ch{deltas + pr[P_DOFF], pr[P_C0], ring};
+    int visited;
+    for (long long p = pr[P_S]; p < pr[P_E]; p++)
+      slots[pr[P_SOFF] + p - pr[P_S]] =
+          resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
+  }
+}
+
+long long g_piece = 1LL << 22;  // the host build's piece, in positions
 #endif
+
+EX_HD bool static_level(int level) { return level >= 4 && level <= 9; }
 
 }  // namespace
 
 // DS's record length in int64
 extern "C" long long zrs_dstream_record_len() { return kDRec; }
 
+// a piece row's length in int64
+extern "C" long long zrs_exact_piece_len() { return kPiece; }
+
 // the bytes of a slot of scratch a chunk needs at `level`
 extern "C" long long zrs_exact_deflate_work_bytes(int level) {
   return (long long)(kWorkBytes + (needs_work4(level) ? kWork4Bytes : 0));
+}
+
+// ds_ranges of a record: int64 [4]
+extern "C" void zrs_dstream_ranges(const void* rec, void* out) {
+  ds_ranges((const long long*)rec, (long long*)out);
 }
 
 #ifdef __CUDACC__
 // EX over `chunks` chunks of meta (int64 [chunks, 6]: start, len, dict_len,
 // final, out_off, out_cap; the input bytes of a chunk are
 // in[start - dict_len, start + len), its dictionary first), all at one
-// level (0-9, 10 QUICK, 11-13 MEDIUM), on `slots` warps each with a slot of
-// `stride` bytes of scratch; lens int64 [chunks], status int32 [chunks]
+// level (0-3, 10 QUICK, 11-13 MEDIUM; levels 4-9 take zrs_exact_resolve and
+// zrs_exact_chase), on `slots` warps each with a slot of `stride` bytes of
+// scratch; lens int64 [chunks], status int32 [chunks]
 extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, int level, void* out,
                                  void* lens, void* status, void* scratch, int slots,
                                  long long stride, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  if (stride < zrs_exact_deflate_work_bytes(level)) return (int)cudaErrorInvalidValue;
+  if (static_level(level) || stride < zrs_exact_deflate_work_bytes(level))
+    return (int)cudaErrorInvalidValue;
   if (chunks > 0 && slots > 0)
     exact_deflate<<<slots, 32, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)in, (const long long*)meta, chunks, level, (uint8_t*)out,
@@ -1592,20 +2377,118 @@ extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, i
   return (int)cudaGetLastError();
 }
 
-// DS over one handle: rec int64 [kDRec], data uint8 (rec[D_TOTAL] bytes),
-// work uint8 [zrs_exact_deflate_work_bytes(level)] (Work, head int32[32768]
-// first; at MEDIUM then Work4), out uint8 (rec[D_OUT_CAP] bytes of room)
-extern "C" int zrs_dstream_pump(void* rec, const void* data, void* work, void* out,
-                                void* stream) {
+// the resolve at levels 4-9 over P pieces (int64 [P, kPiece]): deltas u16
+// (each piece's [c0, c1) at its doff), then slots (8 bytes a position of
+// each piece's [s, e) at its soff); chain_blocks and walk_blocks are the
+// pieces' blocks in all. head_old int32 [32768] and ring u16 [32768] are
+// DS's handle tables (null for EX); count (null, or one uint64) takes the
+// candidates the walks compare. build_chains, then resolve_walk (a thread a
+// position).
+extern "C" int zrs_exact_resolve(const void* in, const void* pieces, int P, int level,
+                                 const void* head_old, const void* ring, void* deltas, void* slots,
+                                 long long chain_blocks, long long walk_blocks, void* count,
+                                 void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  dstream_pump<<<1, 32, 0, (cudaStream_t)stream>>>((long long*)rec, (const uint8_t*)data,
-                                                   (uint8_t*)work, (uint8_t*)out);
+  if (!static_level(level) || P <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (chain_blocks > 0) {
+    build_chains<<<(unsigned)chain_blocks, kChainThreads, HASH_SIZE * sizeof(int32_t), st>>>(
+        (const uint8_t*)in, (const long long*)pieces, P, (const int32_t*)head_old,
+        (uint16_t*)deltas);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (walk_blocks > 0)
+    resolve_walk<<<(unsigned)walk_blocks, kWalkThreads, 0, st>>>(
+        (const uint8_t*)in, (const long long*)pieces, P, level, (const uint16_t*)deltas,
+        (const uint16_t*)ring, (Slot*)slots, (unsigned long long*)count);
+  return (int)cudaGetLastError();
+}
+
+// EX's chase at levels 4-9: one block of one warp a piece (at most one
+// piece of a chunk a launch), after the resolve of the same pieces. recs
+// int64 [*, kDRec] and scratch (`stride` bytes each) hold each chunk's
+// state between its pieces, at the piece's P_WORK; clk (null, or int64
+// [P, 3]) takes each piece's clock64 cycles: in all, in flush_block, and of
+// those in emit_symbols.
+extern "C" int zrs_exact_chase(const void* in, const void* meta, const void* pieces, int P,
+                               int level, void* out, void* lens, void* status, void* recs,
+                               void* scratch, long long stride, const void* slots,
+                               const void* deltas, void* clk, void* stream) {
+  const int terr = ensure_tables();
+  if (terr) return terr;
+  if (!static_level(level) || stride < (long long)kWorkBytes) return (int)cudaErrorInvalidValue;
+  if (P > 0)
+    exact_chase<<<P, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)in, (const long long*)meta, (const long long*)pieces, level,
+        (uint8_t*)out, (long long*)lens, (int*)status, (long long*)recs, (uint8_t*)scratch, stride,
+        (const Slot*)slots, (const uint16_t*)deltas, (long long*)clk);
+  return (int)cudaGetLastError();
+}
+
+// DS over one handle: rec int64 [kDRec], data uint8 (rec[D_TOTAL] bytes),
+// work uint8 [zrs_exact_deflate_work_bytes(level)] (Work, head int32[32768]
+// first; at MEDIUM then Work4), out uint8 (rec[D_OUT_CAP] bytes of room).
+// Levels 4-9 also take the resolve's slots (n_slots of them, from spos) and
+// deltas (from ds_ranges' first insert, `span` of them), and after the
+// chase ds_tables writes the handle's head and prevd; clk (null, or int64
+// [3]) takes the chase's clock64 cycles: in all, in flush_block, and of
+// those in emit_symbols.
+extern "C" int zrs_dstream_pump(void* rec, const void* data, void* work, void* out,
+                                const void* slots, long long n_slots, const void* deltas,
+                                long long span, void* clk, void* stream) {
+  const int terr = ensure_tables();
+  if (terr) return terr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  dstream_pump<<<1, 32, 0, st>>>((long long*)rec, (const uint8_t*)data, (uint8_t*)work,
+                                 (uint8_t*)out, (const Slot*)slots, n_slots,
+                                 (const uint16_t*)deltas, (long long*)clk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !deltas) return (int)err;
+  long long blocks = (span + kTableThreads - 1) / kTableThreads;
+  blocks = blocks < 1 ? 1 : blocks > 1024 ? 1024 : blocks;
+  ds_tables<<<(unsigned)blocks, kTableThreads, 0, st>>>(
+      (const long long*)rec, (const uint8_t*)data, (uint8_t*)work, (const uint16_t*)deltas);
   return (int)cudaGetLastError();
 }
 #else
+// the resolve on the host (the same arguments as zrs_exact_resolve but the
+// block counts and the stream)
+extern "C" int zrs_exact_resolve_host(const void* in, const void* pieces, int P, int level,
+                                      const void* head_old, const void* ring, void* deltas,
+                                      void* slots) {
+  ensure_host_tables();
+  if (!static_level(level)) return 1;
+  int32_t* table = (int32_t*)std::malloc(HASH_SIZE * sizeof(int32_t));
+  if (!table) return 1;
+  resolve_host((const uint8_t*)in, (const long long*)pieces, P, level, (const int32_t*)head_old,
+               (const uint16_t*)ring, (uint16_t*)deltas, (Slot*)slots, table);
+  std::free(table);
+  return 0;
+}
+
+// EX's chase on the host, the pieces in order
+extern "C" int zrs_exact_chase_host(const void* in, const void* meta, const void* pieces, int P,
+                                    int level, void* out, void* lens, void* status, void* recs,
+                                    void* scratch, long long stride, const void* slots,
+                                    const void* deltas) {
+  ensure_host_tables();
+  if (!static_level(level) || stride < (long long)kWorkBytes) return 1;
+  for (int i = 0; i < P; i++)
+    chase_piece((const uint8_t*)in, (const long long*)meta, (const long long*)pieces + (size_t)i * kPiece,
+                level, (uint8_t*)out, (long long*)lens, (int*)status, (long long*)recs,
+                (uint8_t*)scratch, stride, (const Slot*)slots, (const uint16_t*)deltas, nullptr,
+                nullptr, nullptr, 0, nullptr);
+  return 0;
+}
+
+// the host build's piece, in positions (the tests' way to many pieces)
+extern "C" void zrs_exact_set_piece(long long positions) { g_piece = positions; }
+
 // the same on the host, a chunk at a time with one lane: the CPU tests'
-// way into this file's control flow
+// way into this file's control flow; levels 4-9 a piece of g_piece
+// positions at a time, each resolved and chased
 extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chunks, int level,
                                       void* out, void* lens, void* status) {
   ensure_host_tables();
@@ -1613,17 +2496,82 @@ extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chun
   if (!slot) return 1;
   Work* w = (Work*)slot;
   Work4* w4 = needs_work4(level) ? (Work4*)(slot + kWorkBytes) : nullptr;
-  for (int k = 0; k < chunks; k++)
-    ((long long*)lens)[k] = deflate_one((const uint8_t*)in, (const long long*)meta + (size_t)k * kMeta,
-                                        level, (uint8_t*)out, w, w4, 0, 1, (int*)status + k);
+  const long long* mt = (const long long*)meta;
+  for (int k = 0; k < chunks; k++) {
+    if (!static_level(level)) {
+      ((long long*)lens)[k] = deflate_one((const uint8_t*)in, mt + (size_t)k * kMeta, level,
+                                          (uint8_t*)out, w, w4, 0, 1, (int*)status + k);
+      continue;
+    }
+    const long long start = mt[k * kMeta], dict_len = mt[k * kMeta + 2];
+    const long long total = dict_len + mt[k * kMeta + 1];
+    long long rec[kDRec] = {0};
+    for (long long s = dict_len;; s += g_piece) {
+      const long long e = s + g_piece < total ? s + g_piece : total;
+      long long pr[kPiece] = {0};
+      pr[P_BASE] = start - dict_len;
+      pr[P_TOTAL] = total;
+      pr[P_C0] = s > WSIZE ? s - WSIZE : 0;
+      pr[P_C1] = e < total - (MIN_MATCH - 1) ? e : total - (MIN_MATCH - 1);
+      if (pr[P_C1] < pr[P_C0]) pr[P_C1] = pr[P_C0];
+      pr[P_S] = s;
+      pr[P_E] = e;
+      pr[P_CHUNK] = k;
+      pr[P_LAST] = e == total;
+      uint16_t* deltas = (uint16_t*)std::malloc((size_t)(pr[P_C1] - pr[P_C0] + 1) * 2);
+      Slot* slots = (Slot*)std::malloc((size_t)(e - s + 1) * sizeof(Slot));
+      if (!deltas || !slots) {
+        std::free(deltas);
+        std::free(slots);
+        std::free(slot);
+        return 1;
+      }
+      zrs_exact_resolve_host(in, pr, 1, level, nullptr, nullptr, deltas, slots);
+      zrs_exact_chase_host(in, meta, pr, 1, level, out, lens, status, rec, slot, kWorkBytes,
+                           slots, deltas);
+      std::free(deltas);
+      std::free(slots);
+      if (e == total) break;
+    }
+  }
   std::free(slot);
   return 0;
 }
 
-// DS on the host with one lane
+// DS on the host with one lane; levels 4-9 the resolve of ds_ranges, the
+// chase, then ds_tables, as on the card
 extern "C" int zrs_dstream_pump_host(void* rec, const void* data, void* work, void* out) {
   ensure_host_tables();
-  ds_pump((long long*)rec, (const uint8_t*)data, (Work*)work, (uint8_t*)out, 0, 1);
+  long long* r = (long long*)rec;
+  Work* w = (Work*)work;
+  const int level = (int)r[D_LEVEL];
+  if (!static_level(level)) {
+    ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, nullptr, 0, nullptr, nullptr,
+            nullptr, nullptr, nullptr);
+    return 0;
+  }
+  long long g[4];
+  ds_ranges(r, g);
+  long long pr[kPiece] = {0};
+  pr[P_TOTAL] = r[D_TOTAL];
+  pr[P_LO] = pr[P_C0] = g[0];
+  pr[P_C1] = g[1];
+  pr[P_S] = g[2];
+  pr[P_E] = g[3];
+  uint16_t* deltas = (uint16_t*)std::malloc((size_t)(g[1] - g[0] + 1) * 2);
+  Slot* slots = (Slot*)std::malloc((size_t)(g[3] - g[2] + 1) * sizeof(Slot));
+  if (!deltas || !slots) {
+    std::free(deltas);
+    std::free(slots);
+    return 1;
+  }
+  zrs_exact_resolve_host(data, pr, 1, level, w->head, w->prevd, deltas, slots);
+  ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, slots, g[3] - g[2], deltas, nullptr,
+          nullptr, nullptr, nullptr);
+  ds_tables_range(r, (const uint8_t*)data, w, deltas, 0, 1);
+  ds_tables_clear(r, w, 0, 1);
+  std::free(deltas);
+  std::free(slots);
   return 0;
 }
 #endif

@@ -27,7 +27,13 @@ MEDIUM, as native), the block and the seam (FULL_FLUSH also clears the
 3-byte hash and restarts the window, and leaves head4 and MEDIUM's next
 match as native does; FINISH ends the stream). The room of a pump is
 sized from the unflushed bytes (`room`); a pump that outgrew it raises, as native's -1
-would, and drops nothing silently. After the pump the wrapper prunes the
+would, and drops nothing silently. At levels 4-9 a pump first launches the
+resolve (`exact_deflate_kernel.resolve_cuda`) over the pump's positions
+(`ranges`): static chains from its first insert, the older positions read
+from the handle's head and prevd, and every position's two walks; DS then
+chases the slots, and leaves head and prevd as zlib's serial inserts
+would. Input longer than a piece (EK.PIECE) is pumped a piece at a time,
+so that the resolve's memory stays bounded. After the pump the wrapper prunes the
 data as native does: the window and the unflushed block stay, the rest
 goes in multiples of WSIZE once it passes 1 MiB, and the hash heads
 (head4 and MEDIUM's next match too) are rebased (slide_hash's role).
@@ -53,17 +59,18 @@ import numpy as np
 import torch
 
 from ... import _device
+from . import exact_deflate_kernel as EK
 from .exact_deflate_kernel import MEDIUM_BASE, WORK_BYTES, WSIZE, is_medium, work_bytes
 
 # launches of the CUDA kernel; the plain version does not count
 launches = {"dstream": 0}
 
-REC = 28
+REC = EK.REC
 (D_TOTAL, D_SPOS, D_BLOCK_START, D_NS, D_MATCH_LENGTH, D_PREV_LENGTH, D_MATCH_START,
  D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
  D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS,
  D_FINISHED, D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART,
- D_MED_NEXT_LEN) = range(25)
+ D_MED_NEXT_LEN, D_INS_LO, D_INS_HI) = range(27)
 MED_NEXT = (D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART)
 OVERFLOW, MISUSE = -1, -2
 MIN_MATCH, MIN_LOOKAHEAD = 3, 262
@@ -78,6 +85,22 @@ def room(unflushed: int) -> int:
     header a block of at least 16,383 symbols, 5 a stored piece of 65,535
     bytes), the bit writer's partial word, the seam and the alignment."""
     return unflushed + (unflushed >> 11) + 64
+
+
+def ranges(rec) -> tuple[int, int, int, int]:
+    """A pump's ranges at levels 4-9 from its record before the pump (the
+    source's ds_ranges): its first insert (spos less zlib's pending
+    `insert`), the end of the positions it can insert (the deltas cover
+    [first, end)), spos and the scan's limit (the slots cover [spos,
+    limit))."""
+    total = int(rec[D_TOTAL])
+    started = bool(rec[D_STARTED])
+    s = int(rec[D_SPOS]) if started else 0
+    a = s - (int(rec[D_INSERT_PENDING]) if started else 0)
+    limit = total if rec[D_FLUSH] else (total - (MIN_LOOKAHEAD - 1) if total >= MIN_LOOKAHEAD
+                                        else 0)
+    c1 = max(a, min(max(s, limit + EK.MAX_MATCH), total - (MIN_MATCH - 1)))
+    return a, c1, s, max(s, limit)
 
 
 def _misuse() -> RuntimeError:
@@ -211,14 +234,41 @@ _P = ctypes.c_void_p
 def _fn():
     fn = _device.library("exact_deflate").zrs_dstream_pump
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def pump_cuda(rec: np.ndarray, data, work, out, rec_dev) -> None:
-    """One DS launch over CUDA state; the record crosses both ways through
-    `rec_dev` (int64 [REC] on the device)."""
+def resolve_operands(rec: np.ndarray, dev):
+    """A pump's resolve operands at levels 4-9 from its record: (its piece
+    row on `dev`, or None when its ranges are empty; chain blocks, walk
+    blocks, deltas int16 and slots int32 [*, 2] to fill, the slots' count,
+    the deltas' count)."""
+    a, c1, s, we = ranges(rec)
+    deltas = torch.empty(max(c1 - a, 1), dtype=torch.int16, device=dev)
+    slots = torch.empty(max(we - s, 1), 2, dtype=torch.int32, device=dev)
+    pieces, _nd, _ns, cb, wb = EK.with_offsets(
+        [[0, int(rec[D_TOTAL]), a, a, c1, 0, s, we, 0, 0, 0, 0, 0, 0]])
+    pt = torch.from_numpy(pieces).to(dev) if c1 > a or we > s else None
+    return pt, cb, wb, deltas, slots, we - s, c1 - a
+
+
+def resolve_pump(rec: np.ndarray, data, work, ops=None):
+    """The resolve of a pump at levels 4-9 (launched when its ranges are
+    not empty) over resolve_operands (`ops`, staged here when None):
+    (slots, deltas, the slots' count, the deltas' count)."""
+    pt, cb, wb, deltas, slots, n_slots, span = ops or resolve_operands(rec, data.device)
+    if pt is not None:
+        EK.resolve_cuda(data, pt, int(rec[D_LEVEL]), deltas, slots, cb, wb, head_old=work,
+                        ring=work[4 * HASH_SIZE :])
+    return slots, deltas, n_slots, span
+
+
+def pump_cuda(rec: np.ndarray, data, work, out, rec_dev, clk=None) -> None:
+    """One DS launch over CUDA state (at levels 4-9 the resolve first); the
+    record crosses both ways through `rec_dev` (int64 [REC] on the device);
+    clk (int64 [3] or None) takes the chase's clock64 cycles: in all, in
+    flush_block, and of those in emit_symbols."""
     _device.require_cuda("dstream", data, work, out, rec_dev)
     level = int(rec[D_LEVEL])
     need = work_bytes(level) if is_medium(level) else WORK_BYTES
@@ -226,8 +276,13 @@ def pump_cuda(rec: np.ndarray, data, work, out, rec_dev) -> None:
         raise ValueError(f"dstream: work must be uint8 [>= {need}] at level {level}")
     if data.numel() < int(rec[D_TOTAL]) or out.numel() < int(rec[D_OUT_CAP]):
         raise ValueError("dstream: the data or the room is smaller than the record says")
+    slots = deltas = None
+    n_slots = span = 0
+    if EK.static_level(level):
+        slots, deltas, n_slots, span = resolve_pump(rec, data, work)
     rec_dev.copy_(torch.from_numpy(rec))
     rc = _fn()(_device.ptr(rec_dev), _device.ptr(data), _device.ptr(work), _device.ptr(out),
+               EK._opt(slots), n_slots, EK._opt(deltas), span, EK._opt(clk),
                _device.stream_of(data))
     _device.check(rc, "dstream")
     launches["dstream"] += 1
@@ -294,12 +349,23 @@ class Handle:
             rec[f] = max(int(rec[f]) - keep, 0)
 
     def pump(self, data: bytes, flush: int) -> bytes:
-        rec = self.rec
+        """native's pump and read. At levels 4-9 input longer than
+        EK.PIECE goes to DS a piece at a time, NO_FLUSH but the last, which
+        takes `flush` (the same bytes: no decision depends on how much input
+        has arrived), so that a pump's deltas and slots cover at most a
+        piece and MIN_LOOKAHEAD positions."""
         if self.finished or not _takes(self.level):
             raise _misuse()
         if flush not in FLUSHES:
             raise ValueError(f"dstream: flush must be one of {FLUSHES}, got {flush}")
         data = bytes(data)
+        step = EK.PIECE if EK.static_level(self.level) else max(len(data), 1)
+        last = max(len(data) - 1, 0) // step * step
+        return b"".join(self._pump_one(data[i : i + step], flush if i == last else 0)
+                        for i in range(0, last + 1, step))
+
+    def _pump_one(self, data: bytes, flush: int) -> bytes:
+        rec = self.rec
         self._append(data)
         cap = room(int(rec[D_TOTAL] - rec[D_BLOCK_START]))
         out = torch.empty(cap, dtype=torch.uint8, device=self.device)

@@ -25,6 +25,14 @@ and ended by FINISH or SYNC_FLUSH for levels 0-9, `models/medium` for
 QUICK and MEDIUM. A deflate in torch ops would only repeat the same
 sequential loop more slowly. The wrapper runs the plain version for a CPU
 tensor and launches the kernel for a CUDA one; nothing falls back.
+
+Levels 4-9 take two launches a round (`plan`): the resolve
+(`zrs_exact_resolve`: static hash chains, then every position's two walks
+into 8-byte slots) and the chase (`zrs_exact_chase`: one warp a chunk
+runs zlib's lazy parse reading the slots). A chunk longer than PIECE
+positions is resolved and chased a piece at a time, its state kept in a
+record. The resolve has its own plain version, `resolve_plain` (torch),
+which returns the same deltas and slots.
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ import torch
 
 from ... import _device
 
-# launches of the CUDA kernel; the plain version does not count
-launches = {"exact_deflate": 0}
+# launches of the CUDA kernels (at levels 4-9 "exact_deflate" counts the
+# chase, "exact_resolve" the resolve); the plain versions do not count
+launches = {"exact_deflate": 0, "exact_resolve": 0}
 
 QUICK = 10
 MEDIUM_BASE = 11  # MEDIUM_BASE + k: the medium variant of zlib level 4 + k
@@ -47,6 +56,18 @@ WSIZE = 32768
 WORK_BYTES = 300 * 1024  # a warp's scratch (kWorkBytes in the source)
 WORK4_BYTES = 320 * 1024  # QUICK's and MEDIUM's 4-byte-hash chains (kWork4Bytes)
 MAX_SLOTS = 1024  # warps a launch; each loops over its share of the chunks
+MAX_MATCH, MIN_MATCH, MAX_DIST = 258, 3, 32768 - 262
+HASH_SIZE = 1 << 15
+# levels 4-9 (the source's kPiece row, kTile, kLookback, kWalkThreads)
+(P_BASE, P_TOTAL, P_LO, P_C0, P_C1, P_DOFF, P_S, P_E, P_SOFF, P_CBLK, P_WBLK, P_CHUNK, P_LAST,
+ P_WORK) = range(14)
+PIECE_FIELDS = 14
+TILE = 4096  # positions a block of the chain build inserts in order
+LOOKBACK = 65536  # positions before a tile whose last occurrences seed it
+WALK_THREADS = 128  # resolve_walk: a thread a position
+PIECE = 1 << 22  # positions of a chunk (or of a DS pump) one resolve and one chase take
+ROUND = 1 << 24  # positions the pieces of one round hold at most
+REC = 28  # a record in int64: DS's between pumps, a chunk's between its pieces
 # native's empty stored block, which it emits for an empty chunk at level 0
 # before the seam (the host engine's SYNC_FLUSH emits only the seam)
 EMPTY_STORED = b"\x00\x00\x00\xff\xff"
@@ -54,6 +75,11 @@ EMPTY_STORED = b"\x00\x00\x00\xff\xff"
 
 def is_medium(level: int) -> bool:
     return MEDIUM_BASE <= level <= MEDIUM_BASE + 2
+
+
+def static_level(level: int) -> bool:
+    """zlib's deflate_slow levels, whose hash chains the data fixes."""
+    return 4 <= level <= 9
 
 
 def work_bytes(level: int) -> int:
@@ -132,6 +158,202 @@ def exact_deflate_plain(data, meta, level: int):
 
 
 # ---------------------------------------------------------------------------
+# levels 4-9: the plan, the plain resolve
+# ---------------------------------------------------------------------------
+
+
+def with_offsets(rows: list) -> tuple:
+    """Piece rows with their deltas' and slots' offsets and their first
+    blocks in the chain build and the walk filled in: (int64 [P,
+    PIECE_FIELDS], deltas, slots, chain blocks, walk blocks) in all."""
+    pieces = np.array(rows, np.int64).reshape(-1, PIECE_FIELDS)
+    nd = ns = cb = wb = 0
+    for r in pieces:
+        r[P_DOFF], r[P_SOFF], r[P_CBLK], r[P_WBLK] = nd, ns, cb, wb
+        nd += r[P_C1] - r[P_C0]
+        ns += r[P_E] - r[P_S]
+        cb += -(-(r[P_C1] - r[P_C0]) // TILE)
+        wb += -(-(r[P_E] - r[P_S]) // WALK_THREADS)
+    return pieces, int(nd), int(ns), int(cb), int(wb)
+
+
+def ex_piece(row, s: int, k: int, work: int, piece: int = PIECE) -> list:
+    """Chunk k's piece from position s (window-relative; the body starts at
+    dict_len): the slots of [s, s + piece), the deltas from 32 KiB before
+    s (a walk reaches no further back) to the last position zlib hashes."""
+    start, n, dlen = row[:3]
+    total = dlen + n
+    e = min(s + piece, total)
+    c0 = max(0, s - WSIZE)
+    c1 = max(c0, min(e, total - (MIN_MATCH - 1)))
+    return [start - dlen, total, 0, c0, c1, 0, s, e, 0, 0, 0, k, int(e == total), work]
+
+
+def plan(rows, piece: int | None = None, round_positions: int | None = None,
+         max_slots: int | None = None) -> list:
+    """EX's work at levels 4-9 over meta rows (start, len, dict_len, ...):
+    batches of consecutive chunks (at most max_slots, at most
+    round_positions positions a round), each (chunks, rounds), a round one
+    piece of each chunk that has one left, as with_offsets gives it. A
+    chunk's Work and record are its index in the batch. The limits default
+    to PIECE, ROUND and MAX_SLOTS as they stand at the call."""
+    piece = PIECE if piece is None else piece
+    round_positions = ROUND if round_positions is None else round_positions
+    max_slots = MAX_SLOTS if max_slots is None else max_slots
+    out, i, C = [], 0, len(rows)
+    while i < C:
+        j, held = i, 0
+        while j < C and j - i < max_slots:
+            take = min(int(rows[j][1]), piece)
+            if j > i and held + take > round_positions:
+                break
+            held += take
+            j += 1
+        rounds, r = [], 0
+        while True:
+            prs = []
+            for w, k in enumerate(range(i, j)):
+                s = int(rows[k][2]) + r * piece
+                if r == 0 or s < int(rows[k][2]) + int(rows[k][1]):
+                    prs.append(ex_piece(rows[k], s, k, w, piece))
+            if not prs:
+                break
+            rounds.append(with_offsets(prs))
+            r += 1
+        out.append((j - i, rounds))
+        i = j
+    return out
+
+
+def unsigned(t):
+    """A resolve's deltas (int16 storage of u16) or slots as their values,
+    int64."""
+    return t.to(torch.int64) & (0xFFFF if t.dtype == torch.int16 else 0xFFFFFFFF)
+
+
+def _lcp(data, base, total, pos, cur):
+    """match258 and match258_z of longest, vectorised: the first index < 258
+    where the bytes at pos and cur differ over each entry's data (from
+    `base`) zero-extended past its `total`, or 258."""
+    out = torch.full_like(pos, MAX_MATCH)
+    alive = torch.arange(pos.numel(), device=pos.device)
+    for off in range(0, MAX_MATCH, 16):
+        w = min(16, MAX_MATCH - off)
+        ar = torch.arange(off, off + w, device=pos.device)
+        b, t = base[alive, None], total[alive, None]
+
+        def at(x):
+            x = x[:, None] + ar
+            v = data[b + torch.minimum(x, t - 1)]
+            return torch.where(x < t, v, torch.zeros_like(v))
+
+        neq = at(pos[alive]) != at(cur[alive])
+        hit = neq.any(1)
+        out[alive[hit]] = off + neq[hit].to(torch.int8).argmax(1)
+        alive = alive[~hit]
+        if not alive.numel():
+            break
+    return out
+
+
+def resolve_plain(data, pieces, level: int, head_old=None, ring=None):
+    """The plain resolve over piece rows (int64 [P, PIECE_FIELDS], on any
+    device): (deltas int16 [n] holding u16, slots int32 [m, 2]) as
+    zrs_exact_resolve writes them. The deltas by definition: each position's
+    distance to the last earlier position of [lo, p) with its hash (else
+    head_old's, else 0), capped at 0xffff. The walks longest's, every
+    piece's positions at once, a step of every live walk per candidate;
+    without the anchored pre-reject, which passes over only candidates that
+    cannot beat the best and so changes no result. head_old int32 [32768]
+    and ring (int16 [32768] holding u16) are DS's handle tables."""
+    if not static_level(level):
+        raise ValueError(f"exact_resolve: level must be 4-9, got {level}")
+    from ...config import CONFIGURATION_TABLE
+
+    dev = data.device
+    rows = pieces.cpu().tolist()
+    nd = sum(r[P_C1] - r[P_C0] for r in rows)
+    ns = sum(r[P_E] - r[P_S] for r in rows)
+    deltas = torch.zeros(max(nd, 1), dtype=torch.int64, device=dev)
+    slots = torch.zeros(max(ns, 1), 2, dtype=torch.int64, device=dev)
+    cfg = CONFIGURATION_TABLE[level]
+    nice, chain = cfg.nice_length, cfg.max_chain
+    data = data.to(torch.int64)
+    for r in rows:  # the deltas: a stable sort of each piece's positions by hash
+        base, lo, c0, c1 = r[P_BASE], r[P_LO], r[P_C0], r[P_C1]
+        if c1 <= c0:
+            continue
+        q0 = max(lo, c0 - LOOKBACK)
+        q = torch.arange(q0, c1, device=dev)
+        h = ((data[base + q] << 10) ^ (data[base + q + 1] << 5) ^ data[base + q + 2]) & 0x7FFF
+        order = torch.argsort(h * (c1 - q0) + (q - q0))
+        hs, qs = h[order], q[order]
+        same = torch.zeros_like(hs, dtype=torch.bool)
+        same[1:] = hs[1:] == hs[:-1]
+        if q0 == lo and head_old is not None:
+            seed = head_old.to(dev).to(torch.int64)[hs]
+        else:
+            seed = torch.zeros_like(hs)
+        pred = torch.empty_like(qs)
+        pred[order] = torch.where(same, torch.roll(qs, 1), seed)
+        deltas[r[P_DOFF] : r[P_DOFF] + c1 - c0] = (q - pred).clamp(max=0xFFFF)[c0 - q0 :]
+
+    # the walks: an entry a position of every piece
+    def col(k):
+        return torch.cat([torch.full((r[P_E] - r[P_S],), r[k], dtype=torch.int64, device=dev)
+                          for r in rows])
+
+    if ns == 0:
+        return deltas.to(torch.int16), slots.to(torch.int32)
+    pos = torch.cat([torch.arange(r[P_S], r[P_E], device=dev) for r in rows])
+    slot_at = col(P_SOFF) + pos - col(P_S)
+    base, total, c0, doff = col(P_BASE), col(P_TOTAL), col(P_C0), col(P_DOFF)
+    ring_v = None if ring is None else unsigned(ring).to(dev)
+
+    def prev(x, k):
+        inside = x >= c0[k]
+        dv = deltas[(doff[k] + x - c0[k]).clamp(0, deltas.numel() - 1)]
+        old = ring_v[x & (WSIZE - 1)] if ring_v is not None else torch.zeros_like(dv)
+        dv = torch.where(inside, dv, old)
+        return torch.where(dv != 0, x - dv, torch.zeros_like(x))
+
+    every = torch.arange(pos.numel(), device=dev)
+    first = prev(torch.minimum(pos, (total - MIN_MATCH).clamp(min=0)), every)
+    ok = (pos + MIN_MATCH <= total) & (first > 0) & (pos - first <= MAX_DIST)
+    idx = torch.nonzero(ok).flatten()
+    pos, cur, base, total = pos[idx], first[idx], base[idx], total[idx]
+    nice_e = (total - pos).clamp(max=nice)
+    limit = (pos - MAX_DIST).clamp(min=0)
+    best = torch.full_like(pos, MIN_MATCH - 1)
+    bd = torch.zeros_like(pos)
+    q = torch.zeros_like(pos)
+    qset = torch.zeros_like(pos, dtype=torch.bool)
+    live = torch.arange(pos.numel(), device=dev)
+    n = 0
+    while live.numel():
+        n += 1
+        lp, lc = pos[live], cur[live]
+        ml = _lcp(data, base[live], total[live], lp, lc)
+        up = ml > best[live]
+        best[live] = torch.where(up, ml, best[live])
+        bd[live] = torch.where(up, lp - lc, bd[live])
+        brk = up & (ml >= nice_e[live])
+        if n == chain >> 2:
+            snap = live[~brk]
+            q[snap] = (best[snap] << 15) | bd[snap]
+            qset[snap] = True
+        nxt = prev(lc, idx[live])
+        end = brk | (nxt <= limit[live]) | (nxt >= lc) | (n == chain)
+        cur[live] = torch.where(end, lc, nxt)
+        live = live[~end]
+    full = (best << 15) | bd
+    at = slot_at[idx]
+    slots[at, 0] = full
+    slots[at, 1] = torch.where(qset, q, full)
+    return deltas.to(torch.int16), slots.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
 
@@ -146,13 +368,94 @@ def _fn():
     return fn
 
 
+def _resolve_fn():
+    fn = _device.library("exact_deflate").zrs_exact_resolve
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _chase_fn():
+    fn = _device.library("exact_deflate").zrs_exact_chase
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _opt(t):
+    return None if t is None else _device.ptr(t)
+
+
+def resolve_cuda(data, pieces, level: int, deltas, slots, chain_blocks: int, walk_blocks: int,
+                 head_old=None, ring=None, count=None) -> None:
+    """Launch the resolve over CUDA operands: data uint8, pieces int64 [P,
+    PIECE_FIELDS] (with_offsets), deltas int16 and slots int32 [*, 2] to
+    fill; head_old and ring DS's handle tables (uint8 views of its Work);
+    count (int64 [1] or None) adds the candidates the walks compare."""
+    _device.require_cuda("exact_resolve", data, pieces, deltas, slots)
+    if not static_level(level):
+        raise ValueError(f"exact_resolve: level must be 4-9, got {level}")
+    rc = _resolve_fn()(
+        _device.ptr(data), _device.ptr(pieces), pieces.shape[0], level, _opt(head_old), _opt(ring),
+        _device.ptr(deltas), _device.ptr(slots), chain_blocks, walk_blocks, _opt(count),
+        _device.stream_of(data),
+    )
+    _device.check(rc, "exact_resolve")
+    launches["exact_resolve"] += 1
+
+
+def chase_cuda(data, meta, pieces, level: int, out, lens, st, recs, scratch, slots, deltas,
+               clk=None) -> None:
+    """Launch EX's chase at levels 4-9: one warp a piece of `pieces` (one
+    piece of a chunk a launch), after the resolve of the same pieces; clk
+    (int64 [P, 3] or None) takes each warp's clock64 cycles: in all, in
+    flush_block, and of those in emit_symbols."""
+    _device.require_cuda("exact_deflate", data, meta, pieces, out, recs, scratch, slots, deltas)
+    rc = _chase_fn()(
+        _device.ptr(data), _device.ptr(meta), _device.ptr(pieces), pieces.shape[0], level,
+        _device.ptr(out), _device.ptr(lens), _device.ptr(st), _device.ptr(recs),
+        _device.ptr(scratch), WORK_BYTES, _device.ptr(slots), _device.ptr(deltas), _opt(clk),
+        _device.stream_of(data),
+    )
+    _device.check(rc, "exact_deflate")
+    launches["exact_deflate"] += 1
+
+
+def run_static(data, meta, level: int, resolve, chase):
+    """EX at levels 4-9 over `plan`: each round a resolve, then a chase.
+    `resolve(data, pieces, level, deltas, slots, chain_blocks, walk_blocks)`
+    and `chase(data, meta, pieces, level, out, lens, st, recs, scratch,
+    slots, deltas)` are the launches (the CPU tests pass the host build's)."""
+    dev = data.device
+    C = meta.shape[0]
+    nout = out_bytes(meta)
+    out = torch.empty(max(nout, 1), dtype=torch.uint8, device=dev)[:nout]
+    lens = torch.zeros(C, dtype=torch.int64, device=dev)
+    st = torch.zeros(C, dtype=torch.int32, device=dev)
+    for nchunks, rounds in plan(meta.cpu().tolist()):
+        recs = torch.zeros(nchunks * REC, dtype=torch.int64, device=dev)
+        scratch = torch.empty(nchunks * WORK_BYTES, dtype=torch.uint8, device=dev)
+        for pieces, nd, ns, cb, wb in rounds:
+            pt = torch.from_numpy(pieces).to(dev)
+            deltas = torch.empty(max(nd, 1), dtype=torch.int16, device=dev)
+            slots = torch.empty(max(ns, 1), 2, dtype=torch.int32, device=dev)
+            resolve(data, pt, level, deltas, slots, cb, wb)
+            chase(data, meta, pt, level, out, lens, st, recs, scratch, slots, deltas)
+    return out, lens, st
+
+
 def exact_deflate_cuda(data, meta, level: int):
     """Launch EX over CUDA operands: data uint8 [N], meta int64 [C, META].
     One warp a chunk, at most MAX_SLOTS warps (each loops over its share
-    of the chunks), each with work_bytes(level) of scratch. Room a chunk
-    did not fill is left unwritten (the plain version's is 0)."""
+    of the chunks), each with work_bytes(level) of scratch; at levels 4-9
+    the resolve and the chase a round (run_static). Room a chunk did not
+    fill is left unwritten (the plain version's is 0)."""
     _device.require_cuda("exact_deflate", data, meta)
     _check(data, meta, level, "exact_deflate")
+    if static_level(level):
+        return run_static(data.contiguous(), meta.contiguous(), level, resolve_cuda, chase_cuda)
     dev = data.device
     C = meta.shape[0]
     nout = out_bytes(meta)
