@@ -118,13 +118,18 @@ past int32) back to its input with its seconds and peak device memory
 (phase 40, run before the bench); EX (csrc/exact_deflate.cu, the native
 engine's encode half) against its plain version on 16 KiB rows at every
 level 0-9, QUICK and MEDIUM4-6, primed and not, final and not, the
-levels 4-9 resolve's deltas and slots against its plain version on the
-same rows, then `deflate_parallel` of the corpus at levels 1, 6 and 9,
+resolve's deltas and slots at levels 1-9 (at 1-3 under two skip maps)
+and the levels 1-3 dry parse against their plain versions on the same
+rows, then `deflate_parallel` of the corpus at levels 1, 2, 3, 6 and 9,
 every 128 KiB chunk equal to stdlib zlib's primed raw deflate, QUICK and
-MEDIUM4-6 back through zlib, EX's ms a call and at levels 6 and 9 the
-resolve's, the chase's and flush_block's ms, and the one-shot `compress`
-of 1 MiB at levels 1, 6 and 9 and of the corpus at level 6 (two pieces)
-equal to zlib.compress (phase 41); the one-shot
+MEDIUM4-6 back through zlib, EX's ms a call, at levels 6 and 9 the
+resolve's, the chase's and flush_block's ms and at 1-3 the resolve's,
+the dry parse's and the chase's at EK.ROUNDS rounds with the live walks
+a loop top, at levels 1 and 3 the dry parse and the next round's resolve
+against their plain versions at the main path's shape, and the one-shot
+`compress` of 1 MiB at levels 1, 2, 3, 6 and 9 and of the corpus at
+level 6 (two pieces) equal to zlib.compress
+(phase 41); the one-shot
 `decompress` of the corpus's zlib and gzip streams and of a 1 MiB
 stream (inflate_speculative at every size), inflate_raw against
 inflate_speculative from 16 KiB to 1 MiB, and the CLI's `--quick`,
@@ -2889,25 +2894,91 @@ def ex_split(torch, EK, dev, data_t, meta, level: int, reps: int = 3) -> dict:
     return r
 
 
+def ex_split_greedy(torch, EK, dev, data_t, meta, level: int, reps: int = 3) -> dict:
+    """EX at levels 1-3 over one round of meta's chunks, by CUDA events (a
+    mean of `reps` after a warm-up, EK.ROUNDS[level] rounds): the resolve's
+    ms a round (the chains under the map and the walks), the dry parse's ms
+    a parse and the chase's ms (and of it flush_block's, by the slowest
+    warp's clock64 share), with the chase's loop tops and live walks and
+    the candidates a round's walks compare."""
+    [(nch, [(pieces, nd, ns, cb, wb)])] = EK.plan(meta.cpu().tolist())
+    pt = torch.from_numpy(pieces).to(dev)
+    deltas = torch.empty(nd, dtype=torch.int16, device=dev)
+    dlist = torch.empty_like(deltas)
+    slots = torch.empty(ns, 2, dtype=torch.int32, device=dev)
+    out = torch.empty(int((meta[:, 4] + meta[:, 5]).max()), dtype=torch.uint8, device=dev)
+    lens = torch.zeros(meta.shape[0], dtype=torch.int64, device=dev)
+    st = torch.zeros(meta.shape[0], dtype=torch.int32, device=dev)
+    recs = torch.zeros(nch * EK.REC, dtype=torch.int64, device=dev)
+    scratch = torch.empty(nch * EK.WORK_BYTES, dtype=torch.uint8, device=dev)
+    stride = max(EK.bit_words(int(m[1] + m[2])) for m in meta.tolist())
+    bits = torch.zeros(nch * stride, dtype=torch.int32, device=dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    clk = torch.zeros(pieces.shape[0], 3, dtype=torch.int64, device=dev)
+    rounds = EK.ROUNDS[level]
+    res_ms = dry_ms = chase_ms = 0.0
+    saved = dict(EK.launches)
+    for rep in range(reps + 1):
+        bits.zero_()
+        stats.zero_()
+        count.zero_()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * rounds + 1)]
+        for r in range(rounds):
+            if r:
+                EK.dry_cuda(pt, level, slots, bits, stride, recs)
+            ev[2 * r].record()
+            EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, count=count, bits=bits,
+                            bit_stride=stride)
+            ev[2 * r + 1].record()
+        EK.chase_cuda(data_t, meta, pt, level, out, lens, st, recs, scratch, slots, deltas, clk,
+                      dlist=dlist, bits=bits, bit_stride=stride, stats=stats)
+        ev[2 * rounds].record()
+        torch.cuda.synchronize()
+        if rep:
+            res_ms += sum(ev[2 * r].elapsed_time(ev[2 * r + 1])
+                          for r in range(rounds)) / rounds / reps
+            dry_ms += sum(ev[2 * r - 1].elapsed_time(ev[2 * r])
+                          for r in range(1, rounds)) / max(rounds - 1, 1) / reps
+            chase_ms += ev[2 * rounds - 1].elapsed_time(ev[2 * rounds]) / reps
+    EK.launches.update(saved)
+    tops, lives = stats.tolist()
+    c = clk.cpu()
+    slow = int(c[:, 0].argmax())
+    return {"rounds": rounds, "resolve_ms": res_ms, "dry_ms": dry_ms, "chase_ms": chase_ms,
+            "flush_ms": chase_ms * float(c[slow, 1]) / float(c[slow, 0]),
+            "tops": tops, "lives": lives, "live_share": lives / max(tops, 1), "positions": ns,
+            "chain_positions": nd, "candidates": int(count.item()) // rounds}
+
+
 def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
     """Phase 41: EX against its plain version on rows of EX_ROW bytes of
     the corpus at every level 0-9, QUICK and MEDIUM4-6, primed and not,
     final and not, on rows of random bytes, and on a row whose room
-    overflows (bytes, lengths, status; max abs err 0); the levels 4-9
-    resolve's deltas and slots against its plain version on the same rows
-    (max abs err 0); then the main path: `deflate_parallel` of the corpus
-    at levels 1, 6 and 9 (128 KiB chunks; one launch at level 1, the
-    resolve and the chase at 6 and 9), every chunk equal to stdlib zlib's
+    overflows (bytes, lengths, status; max abs err 0); the resolve's deltas
+    and slots at levels 1-9 against its plain version on the same rows (at
+    1-3 under no skipped position and under a random skip map), and at 1-3
+    the dry parse of those slots against its plain version (max abs err
+    0); then the main path: `deflate_parallel` of the corpus at levels 1,
+    2, 3, 6 and 9 (128 KiB chunks; the resolve and the chase, at 1-3 with
+    EK.ROUNDS[level] rounds and the dry parse), every chunk equal to stdlib zlib's
     primed raw deflate (Z_SYNC_FLUSH, Z_FINISH for the last), cold and
     three warm; QUICK and MEDIUM4-6 of the corpus back through zlib, their
     first two chunks equal to the plain version's, three warm; EX's ms a
-    call by CUDA events at levels 6 and 9, and the resolve's, the chase's
-    and flush_block's (ex_split); the one-shot `compress` of 1 MiB at
-    levels 1, 6 and 9 and of the corpus at level 6 (two pieces) equal to
-    zlib.compress, with its seconds (one warp a piece). The level-6 chunks
-    also go in several batches, cut once by ROUND positions and once by
-    MAX_SLOTS chunks (fresh records and scratch a batch), a resolve and a
-    chase a batch."""
+    call by CUDA events at levels 1, 2, 3, 6 and 9, and the resolve's, the
+    chase's and flush_block's at 6 and 9 (ex_split); at 1-3 an `ex_split`
+    line at EK.ROUNDS[level] rounds (the call's ms, the resolve's a round,
+    the dry parse's, the chase's, the live walks a loop top;
+    ex_split_greedy);
+    at levels 1 and 3 the dry parse of the first round over the corpus
+    chunks (as run_static runs it) against its plain version on every
+    chunk, and the second round's resolve under that map against its plain
+    version on two whole chunks (max abs err 0);
+    the one-shot `compress` of 1 MiB at levels 1, 2, 3, 6 and 9 and of the
+    corpus at level 6 (two pieces) equal to zlib.compress, with its
+    seconds (one warp a piece). The level-6 chunks also go in several
+    batches, cut once by ROUND positions and once by MAX_SLOTS chunks
+    (fresh records and scratch a batch), a resolve and a chase a batch."""
     import numpy as np
 
     from zlib_rs_tpu_torch.models import oneshot
@@ -2951,24 +3022,43 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
           f"primed and not, final and not) and an overflowing row equal to plain in bytes, "
           f"lengths and status", flush=True)
 
-    # -- the resolve (levels 4-9) against its plain version on the rows --
+    # -- the resolve (levels 1-9) and the dry parse (1-3) against their
+    # plain versions on the rows ------------------------------------------
     t0 = time.perf_counter()
-    res_pairs = []
-    for level in range(4, 10):
+    res_pairs, dry_pairs = [], []
+    for level in range(1, 10):
         rs = meta_of(ex_rows(corpus, level), level).tolist()
         pieces, nd, ns, cb, wb = EK.with_offsets([EK.ex_piece(m, m[2], k, k)
                                                   for k, m in enumerate(rs)])
         pt = torch.from_numpy(pieces).to(dev)
-        deltas = torch.empty(nd, dtype=torch.int16, device=dev)
-        slots = torch.empty(ns, 2, dtype=torch.int32, device=dev)
-        EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb)
-        want_d, want_s = EK.resolve_plain(data_t, pt, level)
-        res_pairs += [(EK.unsigned(deltas), EK.unsigned(want_d)), (slots, want_s)]
-    res_err = max_abs(res_pairs)
-    if res_err:
-        raise AssertionError(f"the resolve disagrees with its plain version: max abs err {res_err}")
-    print(f"phase 41 resolve: the deltas and slots of phase 41's rows at levels 4-9 equal to "
-          f"plain, max abs err {res_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        stride = max(EK.bit_words(int(m[1] + m[2])) for m in rs)
+        rng = np.random.default_rng(level)
+        # a quarter of the positions skipped, at random
+        rand = (rng.integers(0, 1 << 32, len(rs) * stride, dtype=np.uint64)
+                & rng.integers(0, 1 << 32, len(rs) * stride, dtype=np.uint64)).astype(np.uint32)
+        maps = [np.zeros_like(rand), rand] if EK.greedy_level(level) else [None]
+        for words in maps:
+            kw = {} if words is None else {
+                "bits": torch.from_numpy(words.view(np.int32).copy()).to(dev), "bit_stride": stride}
+            deltas = torch.empty(nd, dtype=torch.int16, device=dev)
+            slots = torch.empty(ns, 2, dtype=torch.int32, device=dev)
+            EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, **kw)
+            want_d, want_s = EK.resolve_plain(data_t, pt, level, **kw)
+            res_pairs += [(EK.unsigned(deltas), EK.unsigned(want_d)), (slots, want_s)]
+            if words is not None:
+                EK.dry_cuda(pt, level, slots, kw["bits"], stride)
+                plain = words.copy()
+                EK.dry_plain(pieces, level, slots.cpu().numpy().astype(np.int64), plain, stride)
+                dry_pairs.append((EK.unsigned(kw["bits"]).cpu(),
+                                  torch.from_numpy(plain.astype(np.int64))))
+    res_err, dry_err = max_abs(res_pairs), max_abs(dry_pairs)
+    if res_err or dry_err:
+        raise AssertionError(f"the resolve or the dry parse disagrees with its plain version: "
+                             f"max abs err {res_err}, {dry_err}")
+    print(f"phase 41 resolve: the deltas and slots of phase 41's rows at levels 1-9 (at 1-3 "
+          f"under no skipped position and under a random map) equal to plain, max abs err "
+          f"{res_err}; the dry parse of those at 1-3 equal to plain, max abs err {dry_err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # -- the main path: deflate_parallel at levels 1, 6 and 9 --------------
     chunk = CD.DEFAULT_CHUNK
@@ -2976,11 +3066,13 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
     starts = list(range(0, n, chunk))
     result = {"levels": {}, "modes": {}}
     launched = None
-    for level in (1, 6, 9):
-        EK.launches["exact_deflate"] = EK.launches["exact_resolve"] = 0
+    for level in (1, 2, 3, 6, 9):
+        EK.launches.update(dict.fromkeys(EK.launches, 0))
         t0 = time.perf_counter()
         out = CD.deflate_parallel(corpus, level)
         cold = time.perf_counter() - t0
+        if level == 1:
+            launched1 = dict(EK.launches)
         if level == 6:
             launched = EK.launches["exact_deflate"]
             launched_res = EK.launches["exact_resolve"]
@@ -3043,6 +3135,70 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
              for level, m in ((6, meta6), (9, meta9))}
     result["split"] = split
     result["call_ms"] = {6: call_ms, 9: call9_ms}
+    # levels 1-3: the call and its split (EK.ROUNDS[level] rounds; the
+    # other round counts are ex_fast_probe.py's)
+    greedy = {}
+    for level in (1, 2, 3):
+        meta = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
+                        for lo in starts], level)
+        call = event_ms(torch, lambda: EK.exact_deflate_cuda(data_t, meta, level), 3)
+        g = ex_split_greedy(torch, EK, dev, data_t, meta, level)
+        g["call_ms"] = call
+        greedy[level] = g
+        rounds = g["rounds"]
+        print(f"phase 41 ex_split level {level}: call {call:.3f} ms; resolve "
+              f"{g['resolve_ms']:.3f} ms a round x {rounds}, dry parse {g['dry_ms']:.3f} ms x "
+              f"{rounds - 1}, chase {g['chase_ms']:.3f} ms (flush_block {g['flush_ms']:.3f} ms "
+              f"of it); live walks {g['lives']} / loop tops {g['tops']} = "
+              f"{g['live_share']:.4f}; {g['candidates']} candidates a round", flush=True)
+    result["greedy"] = greedy
+    g1 = greedy[1]
+
+    # the dry parse and the resolve under its map at the main path's shape
+    # (levels 1 and 3): the first round over the corpus chunks as
+    # run_static runs it (EK.plan's pieces, fresh records, no position
+    # skipped), the dry parse of its slots against dry_plain on every chunk,
+    # then the second round's resolve under that map against resolve_plain
+    # on chunk 1 and the last
+    t0 = time.perf_counter()
+    main_dry, main_res = [], []
+    for level in (1, 3):
+        meta = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
+                        for lo in starts], level)
+        rs = meta.cpu().tolist()
+        [(nch, [(pieces, nd, ns, cb, wb)])] = EK.plan(rs)
+        pt = torch.from_numpy(pieces).to(dev)
+        stride = max(EK.bit_words(int(m[1]) + int(m[2])) for m in rs)
+        bits = torch.zeros(nch * stride, dtype=torch.int32, device=dev)
+        recs = torch.zeros(nch * EK.REC, dtype=torch.int64, device=dev)
+        deltas = torch.empty(nd, dtype=torch.int16, device=dev)
+        slots = torch.empty(ns, 2, dtype=torch.int32, device=dev)
+        EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, bits=bits, bit_stride=stride)
+        plain = bits.cpu().numpy().view(np.uint32).copy()
+        EK.dry_cuda(pt, level, slots, bits, stride, recs)
+        EK.dry_plain(pieces, level, slots.cpu().numpy().astype(np.int64), plain, stride,
+                     recs.cpu().numpy())
+        main_dry.append((EK.unsigned(bits).cpu(), torch.from_numpy(plain.astype(np.int64))))
+        EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, bits=bits, bit_stride=stride)
+        for k in (1, len(rs) - 1):
+            r = pieces[k]
+            one = torch.from_numpy(EK.with_offsets([r.tolist()])[0]).to(dev)
+            want_d, want_s = EK.resolve_plain(data_t, one, level, bits=bits, bit_stride=stride)
+            d0, s0 = int(r[EK.P_DOFF]), int(r[EK.P_SOFF])
+            nd1, ns1 = int(r[EK.P_C1] - r[EK.P_C0]), int(r[EK.P_E] - r[EK.P_S])
+            main_res += [(EK.unsigned(deltas[d0 : d0 + nd1]), EK.unsigned(want_d[:nd1])),
+                         (slots[s0 : s0 + ns1], want_s)]
+    main_dry_err, main_res_err = max_abs(main_dry), max_abs(main_res)
+    if main_dry_err or main_res_err:
+        raise AssertionError(f"at the main path's shape the dry parse or the resolve under its "
+                             f"map disagrees with its plain version: max abs err {main_dry_err}, "
+                             f"{main_res_err}")
+    dry_err, res_err = max(dry_err, main_dry_err), max(res_err, main_res_err)
+    print(f"phase 41 main shape: levels 1 and 3 over {len(starts)} chunks of {chunk} bytes: the "
+          f"dry parse of the first round equal to plain on every chunk, max abs err "
+          f"{main_dry_err}; the second round's resolve under that map equal to plain on chunks 1 "
+          f"and {len(starts) - 1}, max abs err {main_res_err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     # the batch loop: the level-6 chunks in batches cut by ROUND positions,
     # then by MAX_SLOTS chunks, a resolve and a chase a batch, each chunk
     # equal to zlib's
@@ -3052,7 +3208,7 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         setattr(EK, name, value)
         try:
             want_batches = len(EK.plan(meta6.cpu().tolist()))
-            EK.launches["exact_deflate"] = EK.launches["exact_resolve"] = 0
+            EK.launches.update(dict.fromkeys(EK.launches, 0))
             reuse = EK.exact_deflate_cuda(data_t, meta6, 6)
             ran = dict(EK.launches)
         finally:
@@ -3062,7 +3218,7 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         if got != zlib6 or bool(reuse[2].any()):
             raise AssertionError(f"EX in batches ({name} {value}) is not zlib's chunk by chunk")
         if want_batches < 2 or ran != {"exact_deflate": want_batches,
-                                       "exact_resolve": want_batches}:
+                                       "exact_resolve": want_batches, "exact_dry": 0}:
             raise AssertionError(f"EX with {name} {value} ran {ran} for {want_batches} batches")
         result["batches"][name] = {"value": value, "batches": want_batches, "launches": ran}
         print(f"phase 41 EX batches: {len(starts)} level-6 chunks with {name} {value} in "
@@ -3081,6 +3237,8 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         # each chunk's window read once, the output written once; the serial
         # chase of the longest chunk is the floor
         bnd=bound(n + window_bytes + nout, 0),
+        **{f"level{lv}_ms": greedy[lv]["call_ms"] for lv in (1, 2, 3)},
+        level1_chase_ms=g1["chase_ms"], rounds=dict(EK.ROUNDS), live_share=g1["live_share"],
     )
     first_piece = torch.from_numpy(EK.with_offsets([EK.ex_piece(meta6[0].tolist(), 0, 0, 0)])[0])
     _p, res_plain_ms = timed_ms(torch, lambda: EK.resolve_plain(data_t, first_piece.to(dev), 6))
@@ -3095,6 +3253,31 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         # compare
         bnd=bound(n + window_bytes + 2 * s6["chain_positions"] + 8 * s6["positions"],
                   2 * s6["candidates"]),
+        level1_ms=g1["resolve_ms"], level3_ms=greedy[3]["resolve_ms"],
+        level1_launches=launched1["exact_resolve"],
+    )
+    # the dry parse (levels 1-3): its time on the main path's shape, its
+    # plain version's on the first chunk, and its bound: each loop top's
+    # slot read once (8 bytes) and the map written once (a bit a position)
+    meta1 = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
+                     for lo in starts], 1)
+    one = meta1[:1]
+    [(_nch, [(p1, nd1, ns1, cb1, wb1)])] = EK.plan(one.cpu().tolist())
+    pt1 = torch.from_numpy(p1).to(dev)
+    sl1 = torch.empty(ns1, 2, dtype=torch.int32, device=dev)
+    st1 = EK.bit_words(int(one[0, 1] + one[0, 2]))
+    b1 = torch.zeros(st1, dtype=torch.int32, device=dev)
+    EK.resolve_cuda(data_t, pt1, 1, torch.empty(nd1, dtype=torch.int16, device=dev), sl1, cb1,
+                    wb1, bits=b1, bit_stride=st1)
+    sl1_np = sl1.cpu().numpy().astype(np.int64)
+    w1 = np.zeros(st1, np.uint32)
+    _p, dry_plain_ms = timed_ms(torch, lambda: EK.dry_plain(p1, 1, sl1_np, w1, st1))
+    rows["exact_dry"] = dict(
+        source="zlib_rs_tpu_torch/csrc/exact_deflate.cu",
+        replaces="native/zrs_native.cpp:794",
+        max_abs_err=dry_err, ms=g1["dry_ms"], plain_ms=dry_plain_ms, plain_rows=1,
+        launches=launched1["exact_dry"], level3_ms=greedy[3]["dry_ms"],
+        bnd=bound(8 * g1["tops"] + (g1["positions"] + 7) // 8, g1["tops"]),
     )
     print(f"phase 41 EX level 6: {call_ms:.3f} ms a call ({len(starts)} chunks: the resolve, "
           f"one warp a chunk's chase), level 9 {call9_ms:.3f} ms; plain {plain_ms:.1f} ms for "
@@ -3104,7 +3287,7 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
     # -- the one-shot compress of 1 MiB: one chunk, one warp ---------------
     mib = corpus[: 1 << 20]
     result["oneshot"] = {}
-    for level in (1, 6, 9):
+    for level in (1, 2, 3, 6, 9):
         t0 = time.perf_counter()
         got = oneshot.compress(mib, level)
         wall = time.perf_counter() - t0
@@ -3115,12 +3298,13 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
               f"{wall:.3f} s ({len(mib) / wall / 1e6:.3f} MB/s)", flush=True)
     # the whole corpus in one chunk: two pieces, the chase resumed from its
     # record between two rounds
-    EK.launches["exact_deflate"] = EK.launches["exact_resolve"] = 0
+    EK.launches.update(dict.fromkeys(EK.launches, 0))
     t0 = time.perf_counter()
     got = oneshot.compress(corpus, 6)
     wall = time.perf_counter() - t0
     pieces_run = dict(EK.launches)
-    if got != zlib.compress(corpus, 6) or pieces_run != {"exact_deflate": 2, "exact_resolve": 2}:
+    if got != zlib.compress(corpus, 6) or pieces_run != {"exact_deflate": 2, "exact_resolve": 2,
+                                                         "exact_dry": 0}:
         raise AssertionError(f"the one-shot compress of the corpus at level 6 is not "
                              f"zlib.compress in two pieces: launches {pieces_run}")
     result["oneshot"]["corpus_6"] = {"s": wall, "mb_s": n / wall / 1e6, "launches": pieces_run}
@@ -3142,7 +3326,7 @@ def stream_pairs(torch, dev, corpus):
     0, 1, 6 and 9, Z_FIXED and a flipped stream at random boundaries and
     bounded max_out, 1-byte pumps over the first 4 KiB, a copy mid-stream,
     and 1 MiB of zeros from one pump (room regrowths).
-    DS: levels 1, 6 and 9 under every flush kind at random boundaries,
+    DS: levels 1, 3, 6 and 9 under every flush kind at random boundaries,
     1-byte pumps over the first 4 KiB, window() at a seam, a copy."""
     import random
 
@@ -3205,7 +3389,7 @@ def stream_pairs(torch, dev, corpus):
             else:
                 same([g], [w], f"IS {name}")
         n_is += len(script)
-    for level in (1, 6, 9):
+    for level in (1, 3, 6, 9):
         script = [(data[i : i + 1], 0) for i in range(4096)] if level == 1 else []
         pos = len(script)
         while pos < len(data):
@@ -3232,11 +3416,14 @@ def stream_pairs(torch, dev, corpus):
 def ds_pump_ms(torch, DS, EK, dev, corpus, level: int, reps: int = 3) -> dict:
     """One 128 KiB NO_FLUSH DS pump at `level` after a first one, by CUDA
     events from a saved record and Work (copied back before each rep, a
-    mean of `reps` after a warm-up): at levels 4-9 the resolve's ms (its
-    operands staged before the first event, so that the span holds only
-    its launches), then DS's (the chase and ds_tables), with the chase's
-    clock64 share in flush_block; the pump's output (uint8 on the card)
-    and length."""
+    mean of `reps` after a warm-up): the resolve's ms (its operands staged
+    before the first event, so that the span holds only its launches; at
+    levels 1-3 all EK.ROUNDS[level] rounds and the dry parses between them, with
+    the resolve's ms a round and the dry parse's apart), then DS's (the
+    chase, at 1-3 the chains of the inserted positions, and ds_tables),
+    with the chase's clock64 share in flush_block and at 1-3 its loop tops,
+    live walks and walks of slots that gave up; the pump's output (uint8
+    on the card) and length."""
     from zlib_rs_tpu_torch._device import ptr as _ptr
 
     pump = STREAM_PUMP
@@ -3250,34 +3437,55 @@ def ds_pump_ms(torch, DS, EK, dev, corpus, level: int, reps: int = 3) -> dict:
     rec_dev = torch.empty_like(snap)
     work = d.work.clone()
     clk = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
     fn = DS._fn()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    res_ms = ds_ms = 0.0
+    res_ms = ds_ms = round_ms = dry_ms = 0.0
     saved = dict(EK.launches)
-    ops = DS.resolve_operands(d.rec, dev) if EK.static_level(level) else None
+    pt = deltas = slots = bits = dlist = None  # MEDIUM: no resolve
+    cb = wb = n_slots = span = 0
+    if EK.static_level(level):
+        pt, cb, wb, deltas, slots, n_slots, span, bits, dlist = DS.resolve_operands(d.rec, dev)
+    greedy = bits is not None
+    rounds = EK.ROUNDS[level] if greedy else (1 if EK.static_level(level) else 0)
+    tables = {"head_old": d.work, "ring": d.work[4 * EK.HASH_SIZE :], "bits": bits}
     for rep in range(reps + 1):
         d.work.copy_(work)
         rec_dev.copy_(snap)
-        slots = deltas = None
-        n_slots = span = 0
+        stats.zero_()
+        if greedy:
+            bits.zero_()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * rounds)]
         ev[0].record()
-        if ops is not None:
-            slots, deltas, n_slots, span = DS.resolve_pump(d.rec, d.data, d.work, ops)
+        for r in range(rounds):
+            if r:
+                EK.dry_cuda(pt, level, slots, bits, 0)
+            marks[2 * r].record()
+            EK.resolve_cuda(d.data, pt, level, deltas, slots, cb, wb, **tables)
+            marks[2 * r + 1].record()
         ev[1].record()
         fn(_ptr(rec_dev), _ptr(d.data), _ptr(d.work), _ptr(out), EK._opt(slots), n_slots,
-           EK._opt(deltas), span, _ptr(clk), torch.cuda.current_stream().cuda_stream)
+           EK._opt(deltas), EK._opt(dlist), span, EK._opt(pt), cb, EK._opt(bits), _ptr(clk),
+           _ptr(stats), torch.cuda.current_stream().cuda_stream)
         ev[2].record()
         torch.cuda.synchronize()
         if rep:
             res_ms += ev[0].elapsed_time(ev[1]) / reps
             ds_ms += ev[1].elapsed_time(ev[2]) / reps
+            if greedy:
+                round_ms += sum(marks[2 * r].elapsed_time(marks[2 * r + 1])
+                                for r in range(rounds)) / rounds / reps
+                dry_ms += sum(marks[2 * r - 1].elapsed_time(marks[2 * r])
+                              for r in range(1, rounds)) / max(rounds - 1, 1) / reps
     EK.launches.update(saved)
     n = int(rec_dev[DS.D_OUT_LEN].item())
     c = clk.cpu()
     share = float(c[1]) / float(c[0])
+    tops, lives = stats.tolist()
     return {"resolve_ms": res_ms, "ds_ms": ds_ms, "flush_ms": ds_ms * share,
             "emit_ms": ds_ms * float(c[2]) / float(c[0]), "flush_share": share, "out_len": n,
-            "out": out[:n].cpu()}
+            "rounds": rounds, "round_ms": round_ms, "dry_ms": dry_ms, "tops": tops,
+            "lives": lives, "out": out[:n].cpu()}
 
 
 def stream_phase(torch, dev, corpus, rows) -> dict:
@@ -3308,13 +3516,14 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     if err:
         raise AssertionError(f"IS or DS disagrees with its plain version: max abs err {err}")
     print(f"phase 43 pairs: IS on {n_is} pumps (zlib 0/1/6/9, Z_FIXED, a flipped stream, "
-          f"1 MiB of zeros from one pump; 1-byte pumps, bounded max_out, a copy) and DS on {n_ds} pumps (levels 1/6/9, every "
+          f"1 MiB of zeros from one pump; 1-byte pumps, bounded max_out, a copy) and DS on {n_ds} pumps (levels 1/3/6/9, every "
           f"flush, 1-byte pumps, window(), a copy) equal to plain, max abs err {err} "
           f"({time.perf_counter() - t_start:.1f} s)", flush=True)
 
     # -- the path at full size ---------------------------------------------
     result = {"deflate": {}}
-    IS.launches["istream"] = DS.launches["dstream"] = EK.launches["exact_resolve"] = 0
+    IS.launches["istream"] = DS.launches["dstream"] = 0
+    EK.launches.update(dict.fromkeys(EK.launches, 0))
     pump = STREAM_PUMP
     for level, size in ((1, len(corpus)), (6, 2 << 20), (9, 256 << 10)):
         data = corpus[:size]
@@ -3384,7 +3593,7 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
                         "write_mb_s": len(corpus) / w_wall / 1e6,
                         "read_mb_s": len(corpus) / r_wall / 1e6}
     launched = {"istream": IS.launches["istream"], "dstream": DS.launches["dstream"],
-                "exact_resolve": EK.launches["exact_resolve"]}
+                "exact_resolve": EK.launches["exact_resolve"], "exact_dry": EK.launches["exact_dry"]}
     if min(launched.values()) < 1:
         raise AssertionError(f"the stream path did not launch IS, DS and the resolve: {launched}")
     print(f"phase 43 gzopen level 1: {len(blob)} bytes written in {w_wall:.3f} s "
@@ -3429,7 +3638,7 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     )
     # the plain version takes about 30 s for a level-9 pump on the host, and
     # phase 43's level-9 pump scripts already hold DS against it
-    pumps = {level: ds_pump_ms(torch, DS, EK, dev, corpus, level) for level in (1, 6, 9)}
+    pumps = {level: ds_pump_ms(torch, DS, EK, dev, corpus, level) for level in (1, 3, 6, 9)}
     for level, r in pumps.items():
         if level == 9:
             r.pop("out")
@@ -3450,7 +3659,9 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
         replaces="native/zrs_native.cpp:2107",
         max_abs_err=err, ms=p6["resolve_ms"] + p6["ds_ms"], plain_ms=p6["plain_ms"],
         launches=launched["dstream"], resolve_ms=p6["resolve_ms"], chase_ms=p6["ds_ms"],
-        flush_ms=p6["flush_ms"], level1_ms=pumps[1]["ds_ms"],
+        flush_ms=p6["flush_ms"], level1_ms=pumps[1]["resolve_ms"] + pumps[1]["ds_ms"],
+        level1_resolve_ms=pumps[1]["resolve_ms"], level1_chase_ms=pumps[1]["ds_ms"],
+        level3_ms=pumps[3]["resolve_ms"] + pumps[3]["ds_ms"],
         level9_ms=pumps[9]["resolve_ms"] + pumps[9]["ds_ms"],
         level9_resolve_ms=pumps[9]["resolve_ms"], level9_chase_ms=pumps[9]["ds_ms"],
         # the pump (the resolve, the chase and its tables); bytes: the
@@ -3459,6 +3670,7 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
         bnd=bound(pump + 32768 + p6["out_len"], 0),
     )
     rows["exact_resolve"]["stream_launches"] = launched["exact_resolve"]
+    rows["exact_dry"]["stream_launches"] = launched["exact_dry"]
     result.update(is_pump_ms=is_ms, ds_pumps=pumps, launches=launched,
                   phase_s=time.perf_counter() - t_start)
     print(f"phase 43 IS: {is_ms:.3f} ms for a 128 KiB pump ({is_out} bytes out; bound "
@@ -3466,9 +3678,12 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     for level, r in pumps.items():
         held = (f"equal to plain's, plain {r['plain_ms']:.1f} ms" if "plain_ms" in r
                 else "(held by the pump scripts above)")
+        greedy = (f"; {r['rounds']} rounds: resolve {r['round_ms']:.3f} ms a round, dry parse "
+                  f"{r['dry_ms']:.3f} ms; live walks {r['lives']} / loop tops {r['tops']}"
+                  if EK.greedy_level(level) else "")
         print(f"phase 43 DS level {level}: a 128 KiB NO_FLUSH pump, resolve {r['resolve_ms']:.3f} ms "
               f"+ DS {r['ds_ms']:.3f} ms (chase and tables; flush_block {r['flush_ms']:.3f} ms, "
-              f"emit_symbols {r['emit_ms']:.3f} ms of it, by the chase's clock64 shares), "
+              f"emit_symbols {r['emit_ms']:.3f} ms of it, by the chase's clock64 shares){greedy}, "
               f"{r['out_len']} bytes {held}", flush=True)
     print(f"phase 43: bound {rows['dstream']['bnd'][0]:.6f} ms by bytes; resolve launches on the "
           f"path {launched['exact_resolve']}; phase {result['phase_s']:.1f} s", flush=True)
@@ -4637,11 +4852,15 @@ def main() -> int:
     # zlib-6 stream (its three warm runs)
     launches.update(foreign["sp_launches_zlib6"])
     # EX's and the resolve's path: phase 41's level-6 deflate_parallel of
-    # the corpus (the resolve also on phase 43's stream path)
+    # the corpus (the resolve also on phase 43's stream path); the dry
+    # parse's: phase 41's level-1 deflate_parallel (and phase 43's)
     launches["exact_deflate"] = rows["exact_deflate"].pop("launches")
     launches["exact_resolve"] = rows["exact_resolve"].pop("launches")
-    if launches["exact_deflate"] < 1 or launches["exact_resolve"] < 1:
-        raise AssertionError("deflate_parallel never launched EX's chase and the resolve")
+    launches["exact_dry"] = rows["exact_dry"].pop("launches")
+    if min(launches[k] for k in ("exact_deflate", "exact_resolve", "exact_dry")) < 1 or \
+            rows["exact_resolve"]["level1_launches"] < 1:
+        raise AssertionError("deflate_parallel never launched EX's chase, the resolve or the dry "
+                             "parse")
     # IS's and DS's path: phase 43's stream objects and gzip file at full size
     launches["istream"] = rows["istream"].pop("launches")
     launches["dstream"] = rows["dstream"].pop("launches")
@@ -4650,7 +4869,7 @@ def main() -> int:
                  "inflate", "crc32_batch", "chain_scan", "freq", "tab_scan",
                  "vhuff_decode1", "vhuff_expand1", "hop_chase_il", "lockstep", "swarm_walk",
                  "block_find", "spec_decode", "spec_resolve", "exact_deflate", "exact_resolve",
-                 "istream", "dstream"):
+                 "exact_dry", "istream", "dstream"):
         r = rows[name]
         b_ms, b_by = r.pop("bnd")
         kernels.append(dict(
@@ -4661,7 +4880,9 @@ def main() -> int:
                                  "inflate_parallel_launches", "medium_ms", "medium_plain_ms",
                                  "medium_bound_ms", "call_ms", "flush_ms", "emit_ms", "level9_ms",
                                  "candidates", "resolve_ms", "chase_ms", "level1_ms",
-                                 "level9_resolve_ms", "level9_chase_ms", "stream_launches")
+                                 "level9_resolve_ms", "level9_chase_ms", "stream_launches",
+                                 "level2_ms", "level3_ms", "level1_chase_ms", "level1_resolve_ms",
+                                 "rounds", "live_share", "level1_launches")
                        if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

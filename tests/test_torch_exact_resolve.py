@@ -106,8 +106,8 @@ def host(tmp_path_factory):
                     str(lib)], check=True, capture_output=True, timeout=300)
     dll = ctypes.CDLL(str(lib))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    dll.zrs_exact_resolve_host.argtypes = [P, P, I, I, P, P, P, P]
-    dll.zrs_exact_chase_host.argtypes = [P, P, P, I, I, P, P, P, P, P, L, P, P]
+    dll.zrs_exact_resolve_host.argtypes = [P, P, I, I, P, P, P, P, P, L, I]
+    dll.zrs_exact_chase_host.argtypes = [P, P, P, I, I, P, P, P, P, P, L, P, P, P, P, L, P]
     dll.zrs_exact_deflate_host.argtypes = [P, P, I, I, P, P, P]
     dll.zrs_exact_set_piece.argtypes = [L]
     dll.zrs_exact_piece_len.restype = L
@@ -125,12 +125,13 @@ def _host_launches(dll):
 
     def resolve(data, pieces, level, deltas, slots, cb, wb):
         assert dll.zrs_exact_resolve_host(_p(data), _p(pieces), pieces.shape[0], level, None, None,
-                                          _p(deltas), _p(slots)) == 0
+                                          _p(deltas), _p(slots), None, 0, 1) == 0
 
     def chase(data, meta, pieces, level, out, lens, st, recs, scratch, slots, deltas):
         assert dll.zrs_exact_chase_host(_p(data), _p(meta), _p(pieces), pieces.shape[0], level,
                                         _p(out), _p(lens), _p(st), _p(recs), _p(scratch),
-                                        EK.WORK_BYTES, _p(slots), _p(deltas)) == 0
+                                        EK.WORK_BYTES, _p(slots), _p(deltas), None, None, 0,
+                                        None) == 0
 
     return resolve, chase
 
@@ -140,7 +141,7 @@ def _host_resolve(dll, data, pieces, level, head_old=None, ring=None):
     deltas = torch.zeros(max(nd, 1), dtype=torch.int16)
     slots = torch.zeros(max(ns, 1), 2, dtype=torch.int32)
     assert dll.zrs_exact_resolve_host(_p(data), _p(pieces), pieces.shape[0], level, _p(head_old),
-                                      _p(ring), _p(deltas), _p(slots)) == 0
+                                      _p(ring), _p(deltas), _p(slots), None, 0, 1) == 0
     return deltas, slots
 
 
@@ -625,8 +626,8 @@ def test_resolve_wrapper_refuses_cpu_tensors_and_other_levels():
     d, s = torch.zeros(1, dtype=torch.int16), torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="expected CUDA"):
         EK.resolve_cuda(data, pieces, 6, d, s, 0, 0)
-    with pytest.raises(ValueError, match="4-9"):
-        EK.resolve_plain(data, pieces, 3)
+    with pytest.raises(ValueError, match="1-9"):
+        EK.resolve_plain(data, pieces, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -125,8 +125,9 @@ def _calls(i):
         "spec_resolve": (SK, lambda: SK.spec_resolve_cuda(
             torch.tensor([65, 256, 66, 257], dtype=torch.int16),
             torch.tensor([0, 1, 4], dtype=torch.int64))),
-        "exact_deflate": (EK, lambda: EK.exact_deflate_cuda(*_ex_args(), 1)),
+        "exact_deflate": (EK, lambda: EK.exact_deflate_cuda(*_ex_args(), 0)),
         "exact_resolve": (EK, lambda: EK.resolve_cuda(*_resolve_args(), 1, 1)),
+        "exact_dry": (EK, lambda: EK.dry_cuda(*_dry_args())),
         "istream": (ISK, lambda: ISK.advance_cuda(*_is_args())),
         "dstream": (DSK, lambda: DSK.pump_cuda(*_ds_args())),
     }
@@ -153,6 +154,15 @@ def _resolve_args():
     pieces, nd, ns, _cb, _wb = EK.with_offsets([EK.ex_piece(meta[0].tolist(), 0, 0, 0)])
     return (data, torch.from_numpy(pieces), 6, torch.zeros(nd, dtype=torch.int16),
             torch.zeros(ns, 2, dtype=torch.int32))
+
+
+def _dry_args():
+    """The dry parse's operands at level 1: the resolve's piece and slots,
+    a skip map and the records."""
+    _data, pieces, _level, _deltas, slots = _resolve_args()
+    stride = EK.bit_words(1000)
+    return (pieces, 1, slots, torch.zeros(stride, dtype=torch.int32), stride,
+            torch.zeros(EK.REC, dtype=torch.int64))
 
 
 def _ex_args():
@@ -203,7 +213,7 @@ def _lockstep_args(i):
 KERNELS = ["adler32_batch", "crc32_batch", "hop_chase", "hop_chase_il", "chain_scan", "tab_scan",
            "freq", "pack", "vhuff_decode", "vhuff_expand", "vhuff_decode1", "vhuff_expand1",
            "inflate", "lockstep", "swarm_walk", "block_find", "spec_decode", "spec_resolve",
-           "exact_deflate", "exact_resolve", "istream", "dstream"]
+           "exact_deflate", "exact_resolve", "exact_dry", "istream", "dstream"]
 
 
 def test_every_kernel_has_a_case():
@@ -213,9 +223,9 @@ def test_every_kernel_has_a_case():
     # and so are K5 and K11b, csrc/vhuff_expand.cu, and K4 and K11a,
     # csrc/vhuff_decode.cu; the lockstep engine is csrc/lockstep.cu, the
     # swarm engine's walkers csrc/swarm.cu, SP1-SP3 three C entries of
-    # csrc/speculative.cu, EX, its resolve and DS three of
+    # csrc/speculative.cu, EX, its resolve, its dry parse and DS four of
     # csrc/exact_deflate.cu, and IS csrc/istream.cu
-    assert len(_device.SOURCES) == len(KERNELS) - 7 == 15
+    assert len(_device.SOURCES) == len(KERNELS) - 8 == 15
     assert "speculative" in _device.SOURCES and "exact_deflate" in _device.SOURCES
     assert "istream" in _device.SOURCES
     assert "hop_chase_il" in _device.SOURCES and "hop_chase" not in _device.SOURCES
@@ -559,9 +569,10 @@ def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
     work_bytes(level), one slot a chunk up to MAX_SLOTS, the output buffer
     the end of the last room. At levels 4-9 a round is the resolve (data,
     pieces, P, level, head, ring, deltas, slots, chain and walk blocks,
-    stream) and the chase (data, meta, pieces, P, level, out, lens, status,
-    records, scratch, stride, slots, deltas, clk, stream): one piece a
-    chunk, a Work and a record each."""
+    count, bits, bit_stride, stream) and the chase (data, meta, pieces, P,
+    level, out, lens, status, records, scratch, stride, slots, deltas,
+    dlist, bits, bit_stride, clk, stats, stream): one piece a chunk, a Work
+    and a record each."""
     monkeypatch.setattr(_device, "ptr", lambda t: t)
     lib = _device.library("exact_deflate")
     data, meta = _ex_args()
@@ -572,12 +583,13 @@ def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
     assert res[1][:, EK.P_S].tolist() == [0, 1000] and res[1][:, EK.P_E].tolist() == [1000, 3000]
     assert res[6].dtype == torch.int16 and res[6].numel() == 998 + 2998
     assert tuple(res[7].shape) == (3000, 2) and res[8:10] == (1 + 1, 8 + 16)
+    assert res[11] is None and ch[13] is None and ch[14] is None
     assert ch[3:5] == (2, 6) and ch[8].numel() == 2 * EK.REC and ch[10] == EK.WORK_BYTES
     assert ch[9].numel() == 2 * EK.WORK_BYTES and ch[11] is res[7] and ch[12] is res[6]
-    assert ch[13] is None and out.shape == (11_204,)
-    assert EK.launches == {"exact_deflate": 1, "exact_resolve": 1}
+    assert ch[16] is None and out.shape == (11_204,)
+    assert EK.launches == {"exact_deflate": 1, "exact_resolve": 1, "exact_dry": 0}
     stub.clear()
-    for level, slots, want_slots in ((1, 1024, 2), (EK.QUICK, 1024, 2), (EK.MEDIUM_BASE, 1, 1)):
+    for level, slots, want_slots in ((0, 1024, 2), (EK.QUICK, 1024, 2), (EK.MEDIUM_BASE, 1, 1)):
         monkeypatch.setattr(EK, "MAX_SLOTS", slots)
         out, lens, st = EK.exact_deflate_cuda(data, meta, level)
         args = lib.zrs_exact_deflate.args
@@ -595,6 +607,39 @@ def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
         EK.exact_deflate_cuda(data, meta, 42)
 
 
+@pytest.mark.parametrize("rounds", [1, 2, 3])
+def test_exact_deflate_wrapper_runs_the_rounds_at_levels_1_to_3(stub, monkeypatch, rounds):
+    """At levels 1-3 a round of pieces is ROUNDS[level] resolves over chains
+    built under the skip map, the dry parse before each but the first,
+    then the chase over those chains with a scratch list of its own; the
+    map is bit_words(the longest chunk) words a chunk, zeros to start."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    monkeypatch.setattr(EK, "ROUNDS", {2: rounds})
+    lib = _device.library("exact_deflate")
+    seen = []
+    for name in ("zrs_exact_resolve", "zrs_exact_dry", "zrs_exact_chase"):
+        entry = getattr(lib, name)
+        entry.__class__ = type("Logged", (type(entry),), {
+            "__call__": lambda self, *a: (seen.append((self.name, a)), _Entry.__call__(self, *a))[1]})
+    data, meta = _ex_args()
+    EK.exact_deflate_cuda(data, meta, 2)
+    assert stub == ["zrs_exact_resolve"] + ["zrs_exact_dry", "zrs_exact_resolve"] * \
+        (rounds - 1) + ["zrs_exact_chase"]
+    stride = EK.bit_words(3000)
+    deltas, bits = seen[0][1][6], seen[0][1][11]
+    assert bits.dtype == torch.int32 and bits.shape == (2 * stride,) and not bits.any()
+    for name, a in seen:
+        if name == "zrs_exact_resolve":
+            assert a[11] is bits and a[12] == stride and a[3] == 2 and a[6] is deltas
+            assert a[8] == 2 and a[9] == 8 + 16
+        elif name == "zrs_exact_dry":
+            assert a[1:3] == (2, 2) and a[5] is bits and a[6] == stride and a[3].numel() == 2 * EK.REC
+        else:
+            assert a[12] is deltas and a[13].shape == deltas.shape and a[13] is not deltas
+            assert a[14] is bits and a[15] == stride
+    assert EK.launches == {"exact_deflate": 1, "exact_resolve": rounds, "exact_dry": rounds - 1}
+
+
 def test_exact_deflate_dispatch_by_device(monkeypatch):
     calls = []
     monkeypatch.setattr(EK, "exact_deflate_plain", lambda *a: calls.append("plain"))
@@ -605,10 +650,13 @@ def test_exact_deflate_dispatch_by_device(monkeypatch):
     assert calls == ["plain", "cuda"]
 
 
-@pytest.mark.parametrize("level", [6, EK.MEDIUM_BASE + 1])
+@pytest.mark.parametrize("level", [1, 6, EK.MEDIUM_BASE + 1])
 def test_dstream_wrapper_hands_the_kernel_its_work(stub, monkeypatch, level):
-    """DS's entry takes (rec, data, work, out, stream); a MEDIUM handle's
-    work is Work then Work4 (EX's work_bytes), and a shorter one raises."""
+    """DS's entry takes (rec, data, work, out, slots, n_slots, deltas,
+    dlist, span, pieces, chain blocks, bits, clk, stats, stream); a MEDIUM
+    handle's work is Work then Work4 (EX's work_bytes), and a shorter one
+    raises; at levels 1-3 it takes a skip map and the chase's scratch
+    list."""
     monkeypatch.setattr(_device, "ptr", lambda t: t)
     h = DSK.Handle(level, "cpu")
     assert h.work.numel() == EK.work_bytes(level)
@@ -617,6 +665,11 @@ def test_dstream_wrapper_hands_the_kernel_its_work(stub, monkeypatch, level):
     DSK.pump_cuda(h.rec, h.data, h.work, out, rec_dev)
     args = _device.library("exact_deflate").zrs_dstream_pump.args
     assert args[2] is h.work and int(rec_dev[DSK.D_LEVEL]) == level
+    greedy = level == 1
+    assert (args[11] is not None, args[7] is not None) == (greedy, greedy)
+    if greedy:
+        assert args[11].dtype == torch.int32 and not args[11].any()
+        assert args[7].dtype == torch.int16 and args[7].shape == args[6].shape
     assert DSK.launches["dstream"] == 1
     with pytest.raises(ValueError, match="work"):
         DSK.pump_cuda(h.rec, h.data, h.work[: DSK.WORK_BYTES - 1], out, rec_dev)

@@ -14,13 +14,15 @@
 // ops/kernels/exact_deflate_kernel.py holds the plain version (the port's
 // host engines) and the wrapper.
 //
-// Bound on the H100, levels 0-3, QUICK and MEDIUM. The bytes are the input
+// Bound on the H100, level 0, QUICK and MEDIUM. The bytes are the input
 // and window read once and the output written once: microseconds for
 // megabytes at 3.35 TB/s. It is not the floor. Each chunk is one serial
 // chain of decisions (a position's match decides where the next one
 // starts, and the hash chains it walks were written by the positions
 // before it), so the floor is the longest chunk's positions times the
 // latency of a hash insert, a chain walk of dependent loads and a compare.
+// Levels 1-9 move the inserts and the walks off that chain (below); their
+// floor is the chase's one step a loop top and flush_block.
 //
 // Levels 4-9 (zlib's deflate_slow) in three parts.
 // - Static chains. deflate_slow inserts every position once and in
@@ -33,10 +35,12 @@
 //   held by absolute position and not in a 32 KiB ring. A block takes a
 //   tile of kTile positions: the last occurrences in the kLookback
 //   positions before it (an older one lies past the cap) by shared-memory
-//   atomics, then the tile in order, 32 positions a step (equal hashes of a
-//   step grouped by __match_any_sync). EX's chains start at the window's
-//   position 0; DS's at the pump's first insert, those before it read from
-//   the handle's head and prevd.
+//   atomics, 4 positions a thread; then the tile kSort positions at a time
+//   (tile_pass): their (hash, position) keys sorted in shared memory and a
+//   max-scan over them give each position the last one before it with its
+//   hash, and each hash's last one goes into the table for the next. EX's
+//   chains start at the window's position 0; DS's at the pump's first
+//   insert, those before it read from the handle's head and prevd.
 // - The resolve (resolve_walk), a thread a position over the whole card.
 //   longest(pos, cur, prev_len) depends on the parse only through prev_len:
 //   the walk's best starts at prev_len < lazy <= nice, so it returns
@@ -64,11 +68,49 @@
 //   in registers; flush_block counts a block's symbols by shared-memory
 //   atomics and emits them 32 at a time across the warp (a scan of their
 //   bit lengths); the chases ask for the largest L1, which holds the Work.
+//
+// Levels 1-3 (zlib's deflate_fast), speculative. longest is always called
+// with prev_len = MIN_MATCH - 1 < good, so a position's walk depends on
+// the parse only through which earlier positions were inserted: the parse
+// leaves out the interior of a match longer than lazy (zlib's
+// max_insert_length) and every interior of a match ending within
+// MIN_MATCH of total. Call that set, a bit a position, the skip map T.
+// - The resolve under an assumed map S (a round): build_chains leaves S's
+//   positions out of the chains (each position still gets its delta to the
+//   last one left in before it), then resolve_greedy walks every
+//   position's chain (a thread a position) and keeps the result and the
+//   walk's reach (the lowest position of its hash whose bit the result
+//   depends on). If S agrees with T on every position of p's hash from the
+//   reach up to p, the walk is zlib's: the chain less S's positions is
+//   then the chain zlib's inserts built (T's bits below a position are
+//   final when the parse reaches it, by induction on the parse).
+// - Rounds: the first assumes what the map holds (none skipped at a
+//   chunk's start); a dry parse (dry_piece, a warp a piece) follows a
+//   round's slots unchecked and writes the next round's S; the wrapper's
+//   ROUNDS rounds (by level).
+// - The checked chase (run_greedy, one warp): run_fast with no insert,
+//   reading the slots. It keeps T as it emits (mark: a long or near-end
+//   match's interior set, the rest clear, overwriting S, at most 10 words
+//   across the warp) and, for each hash, its positions where S and T
+//   differ, newest first (ldh, a position a hash, and a list in `dlist`).
+//   EX's ldh lies in the chunk's Work head (128 KB of shared memory a block
+//   would hold each SM to one chase), DS's in shared memory (its Work head
+//   is the handle's). A slot stands when its reach lies above its hash's
+//   newest disagreement; else zlib's walk runs live over S's chains,
+//   corrected by the list (true_prev). So the bytes are zlib's whatever S is: S decides
+//   only how many walks run live.
+// - DS: a pump's map starts at its first insert; after the chase
+//   build_chains runs again leaving T's positions out, so that ds_tables
+//   leaves head and prevd as zlib's serial inserts do (a skipped
+//   position's ring slot keeps its value; a flushing pump's near-end
+//   interiors stay out, for the next pump's walks).
 // A chunk larger than a piece (the wrapper's PIECE positions) is resolved
-// and chased a piece at a time, its state in a record between launches.
+// and chased a piece at a time, its state in a record between launches;
+// at 1-3 its map in device memory across the pieces (a bit a position),
+// since a match can cross a piece's end.
 // After a DS pump ds_tables leaves the handle's head and prevd as the
 // serial inserts would have: the last inserted position of each hash
-// (atomicMax) and the deltas of the last 32 KiB of inserted positions.
+// (atomicMax) and each ring slot's last inserted position's delta.
 // Bound of the resolve: the bytes (the input read once, 2 bytes of delta
 // and 8 of slot a position written once) and the candidate compares the
 // walks make on this data; the chase's floor is the positions it visits,
@@ -90,14 +132,15 @@
 //   the same over bytes read as 0 past the chunk, so that no byte of the
 //   next chunk or past the buffer is read. The pre-reject (two 16-bit
 //   loads) and the chain walk stay serial, so the candidate order and the
-//   best_len updates are native's (levels 1-3, QUICK, MEDIUM; the resolve's
-//   thread compares 4 bytes a step).
+//   best_len updates are native's (QUICK, MEDIUM; the resolve's thread
+//   compares 4 bytes a step).
 // - A chunk's scratch is a slot in device memory: head int32[32768],
 //   prevd u16[32768], the symbol buffer of 16,384 x 4 bytes and the tree
 //   build's heap and code arrays (kWorkBytes); QUICK and MEDIUM add
 //   head4 int32[65536] and prevd4 u16[32768] (kWork4Bytes). The warp
 //   zeroes the hash and chain tables at the start of a chunk, as native's
-//   vectors start (levels 4-9 leave them unused: their chains are static).
+//   vectors start (levels 1-9 leave them unused: their chains are static;
+//   EX's chase at 1-3 keeps its ldh in head).
 // - Output goes straight into the chunk's slot of room `cap`: a 64-bit
 //   word by lanes 0-7 a byte each, a stored span by all lanes. A byte past
 //   `cap` is dropped and the length still counts it; a length past `cap`
@@ -108,8 +151,9 @@
 //   same entry, so each read is a broadcast).
 // - Without __CUDACC__ the same source compiles as host C++ (a warp of one
 //   lane, serial compares, zrs_exact_deflate_host and zrs_dstream_pump_host;
-//   at levels 4-9 the resolve's serial loops, then the chase), so that the
-//   CPU tests run this file's control flow against native and zlib.
+//   at levels 1-9 the resolve's serial loops, at 1-3 its rounds and dry
+//   parses, then the chase), so that the CPU tests run this file's control
+//   flow against native and zlib.
 //
 // DS (zrs_dstream_pump) is the card's counterpart of native's resumable
 // deflate (zlib_rs_tpu/native.py RawDeflateStream over DefStream::pump,
@@ -121,7 +165,7 @@
 // record before the pump and saved after it; the handle's Work (hash
 // chains, the block's symbols; MEDIUM4-6 add Work4's head4 and prevd4) and
 // its data (the window and the unflushed block, then the pump's input)
-// stay in device memory. The scan loops (run_fast, run_slow, run_medium)
+// stay in device memory. The scan loops (run_greedy, run_slow, run_medium)
 // take `limit`, as native's do: total -
 // (MIN_LOOKAHEAD - 1) under NO_FLUSH, so that no decision depends on how
 // much input has arrived, and total under a flush (a chunk passes total,
@@ -132,9 +176,10 @@
 // the next pump. The wrapper (ops/kernels/dstream_kernel.py) sizes the
 // pump's room from the unflushed bytes, raises when a pump passed it, and
 // prunes the data after a pump as native does (by multiples of WSIZE,
-// the hash heads, head4 and MEDIUM's next match rebased). At levels 4-9 a
+// the hash heads, head4 and MEDIUM's next match rebased). At levels 1-9 a
 // pump is a resolve of its positions [spos, limit) over chains from its
-// first insert (the retroactive ones included), the chase, and ds_tables;
+// first insert (the retroactive ones included; at 1-3 its rounds), the
+// chase, at 1-3 the chains of the positions it inserted, and ds_tables;
 // the wrapper hands input longer than a piece to DS a piece at a time
 // (NO_FLUSH but the last, which takes the pump's flush: the same bytes,
 // since no decision depends on how much input has arrived), so that a
@@ -178,16 +223,27 @@ constexpr int REP_3_6 = 16, REPZ_3_10 = 17, REPZ_11_138 = 18;
 constexpr int kMeta = 6;  // start, len, dict_len, final, out_off, out_cap
 constexpr int kOverflow = -1;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+#ifdef __CUDACC__
+constexpr int kLanes = 32;
+#else
+constexpr int kLanes = 1;
+#endif
 
 // a slot of scratch, in bytes: the exact levels' tables, then QUICK's and
 // MEDIUM's (the wrapper's WORK_BYTES and WORK4_BYTES)
 constexpr size_t kWorkBytes = 300 * 1024;
 constexpr size_t kWork4Bytes = 320 * 1024;
 
-// levels 4-9: the static chains, the resolve and the chase
-constexpr int kTile = 4096;             // positions a block of build_chains inserts in order
+// levels 1-9: the static chains, the resolve and the chase
+constexpr int kTile = 16384;            // positions a block of build_chains inserts in order
+constexpr int kSort = 4096;             // of which tile_pass sorts at a time
 constexpr long long kLookback = 65536;  // positions before a tile whose last occurrences seed it
-constexpr int kChainThreads = 256;
+constexpr int kChainThreads = 1024;  // build_chains: a block a tile, 4 keys a thread a sort
+static_assert(kSort % kChainThreads == 0 && kTile % kSort == 0, "tile_pass's shares");
+// build_chains' dynamic shared memory: the hash table, then a sort's keys,
+// its deltas and a total a warp (tile_pass)
+constexpr int kChainSmem = HASH_SIZE * (int)sizeof(int32_t) + kSort * (int)sizeof(uint32_t) +
+                           kSort * (int)sizeof(uint16_t) + (kChainThreads / 32) * 4;
 constexpr int kWalkThreads = 128;       // resolve_walk: a thread a position
 constexpr int kStage = 512;             // slots a stage of the chase's shared ring
 constexpr int kTableThreads = 256;
@@ -218,11 +274,12 @@ struct Sym {
   uint16_t lenlit;
 };
 
-// a position's two resolved walks, (length << 15) | distance each: the
-// full budget's and the quartered one's; 0 where the position has no
-// first candidate
+// a position's resolved walk, (length << 15) | distance, 0 where zlib
+// calls no longest there; and `aux`: at levels 4-9 the quartered budget's
+// walk, packed the same, at levels 1-3 the walk's reach (how far back from
+// the position the positions with its hash lie whose bits it depends on)
 struct alignas(8) Slot {
-  uint32_t full, quarter;
+  uint32_t full, aux;
 };
 
 struct Work {
@@ -429,13 +486,29 @@ EX_INL uint32_t bit_reverse(uint32_t v, int n) {
 #endif
 }
 
+EX_INL int clz32(uint32_t v) {  // v != 0
+#ifdef __CUDACC__
+  return __clz(v);
+#else
+  return __builtin_clz(v);
+#endif
+}
+
+EX_INL int ctz32(uint32_t v) {  // v != 0
+#ifdef __CUDACC__
+  return __ffs(v) - 1;
+#else
+  return __builtin_ctz(v);
+#endif
+}
+
 EX_INL int dist_to_code(int dist) {
   const int d = dist - 1;
   return d < 256 ? kT.dist_code[d] : kT.dist_code[256 + (d >> 7)];
 }
 
 // ---------------------------------------------------------------------------
-// levels 4-9: the static chains and the resolve
+// levels 1-9: the static chains and the resolve
 // ---------------------------------------------------------------------------
 
 EX_INL uint32_t hash_at(const uint8_t* b, long long p) {
@@ -466,6 +539,18 @@ struct Chains {
   EX_INL long long prev(long long p) const {
     const uint32_t d = p >= c0 ? delta[p - c0] : ring ? ring[p & (WSIZE - 1)] : 0u;
     return d ? p - d : 0;
+  }
+};
+
+// levels 1-3: the positions a parse leaves out of the chains (the
+// interior of a match longer than lazy, every interior of a match ending
+// within MIN_MATCH of the data's end), a bit a position from b0 (a multiple
+// of 32); positions below b0 are never skipped, and a null map skips none
+struct Skip {
+  const uint32_t* bits;
+  long long b0;
+  EX_INL bool on(long long p) const {
+    return bits && p >= b0 && ((bits[(p - b0) >> 5] >> ((p - b0) & 31)) & 1u);
   }
 };
 
@@ -567,9 +652,242 @@ EX_DEV Slot resolve_at(const uint8_t* base, long long total, long long p, const 
   if (first <= 0 || p - first > MAX_DIST) return r;
   const int chain = kT.chain[level];
   r.full = walk(base, total, p, first, ch, MIN_MATCH - 1, chain, chain >> 2, kT.nice[level],
-                &r.quarter, visited);
+                &r.aux, visited);
   return r;
 }
+
+// zlib's deflate_fast at its loop top p (levels 1-3) under an assumed skip
+// map S, over chains `mch` built with S's positions left out (each
+// position's delta to the last earlier position with its hash that S
+// leaves in): hash_head is the first such predecessor, taken while p -
+// hash_head <= MAX_DIST, then longest(p, hash_head, MIN_MATCH - 1) with
+// level's chain and nice. Where S agrees with the parse's own map T on
+// every position with p's hash from *reach up to p, this is zlib's walk:
+// those chains are then the chains zlib's inserts built. *reach is the
+// last candidate where the walk stops at nice or at its budget, limit + 1
+// where a link leaves the window (every position of the window then
+// counts; hash_head may lie at limit itself), p - MAX_DIST where hash_head
+// lies outside it. The candidate order, the anchored pre-reject, the stops
+// and the updates are longest's; the budget ends after its last compare,
+// before a link that could not change the result. Returns the result
+// packed, 0 where zlib calls no longest.
+EX_DEV uint32_t greedy_walk(const uint8_t* base, long long total, long long p, const Chains& mch,
+                            int level, long long* reach, int* visited) {
+  long long cur = mch.prev(p);
+  *visited = 0;
+  if (cur <= 0 || p - cur > MAX_DIST) {
+    *reach = p - MAX_DIST > 0 ? p - MAX_DIST : 0;
+    return 0;
+  }
+  const int lookahead = (int)(total - p);
+  int nice = kT.nice[level];
+  if (nice > lookahead) nice = lookahead;
+  long long limit = p - MAX_DIST;
+  if (limit < 0) limit = 0;
+  const int chain = kT.chain[level];
+  const bool inb = p + MAX_MATCH <= total;
+  const uint8_t* here = base + p;
+  int best = MIN_MATCH - 1, bd = 0, n = 0;
+  uint16_t scan_end = inb ? load16(here + best - 1) : 0;
+  const uint16_t scan_start = inb ? load16(here) : 0;
+  for (;;) {
+    int ml = 0;
+    if (!inb)
+      ml = match_z_thread(base, p, cur, total);
+    else if (load16(base + cur + best - 1) == scan_end && load16(base + cur) == scan_start)
+      ml = match_thread(here, base + cur);
+    if (ml > best) {
+      best = ml;
+      bd = (int)(p - cur);
+      if (ml >= nice) break;
+      if (inb) scan_end = load16(here + best - 1);
+    }
+    if (++n == chain) break;
+    const long long next = mch.prev(cur);
+    if (next <= limit || next >= cur) {
+      if (cur > limit) cur = limit + 1;
+      break;
+    }
+    cur = next;
+  }
+  *reach = cur;
+  *visited = n;
+  return pack_slot(best, bd);
+}
+
+// a position's slot at levels 1-3: its greedy walk under the assumed map
+// and its reach back (p - reach); 0 and 0 where p + MIN_MATCH passes the
+// data (the loop top hashes nothing there)
+EX_DEV Slot resolve_greedy(const uint8_t* base, long long total, long long p, const Chains& mch,
+                           int level, int* visited) {
+  Slot r{0u, 0u};
+  *visited = 0;
+  if (p + MIN_MATCH > total) return r;
+  long long reach;
+  r.full = greedy_walk(base, total, p, mch, level, &reach, visited);
+  r.aux = (uint32_t)(p - reach);
+  return r;
+}
+
+// a hash's positions where the chase found its map T and the assumed map
+// S to differ, newest first: ldh holds the newest of each hash, `d` each
+// one's distance to the one before it (0: none, or past the window), at
+// d[q - c0]
+struct Disagree {
+  const uint16_t* d;
+  long long c0;
+  EX_INL long long prev(long long q) const {
+    const uint32_t v = d[q - c0];
+    return v ? q - v : -1;
+  }
+};
+
+// the last position before x with p's hash that T leaves in (a value <=
+// lim where none lies above lim). `ch` (S's chains) gives m, the last one
+// S leaves in; `dc` walks down the hash's disagreements: one above m is
+// T's (S left it out, T did not); m itself disagreeing is T's skip, so the
+// search goes on below m; else m is T's.
+EX_DEV long long true_prev(long long x, long long lim, const Chains& ch, const Disagree& dg,
+                           long long& dc) {
+  for (;;) {
+    const long long m = ch.prev(x);
+    while (dc >= x) dc = dg.prev(dc);
+    if (dc > m) return dc;
+    if (dc < m || m <= 0 || m <= lim) return m;
+    x = m;
+  }
+}
+
+// zlib's deflate_fast walk at p over the parse's own map T (the chase's
+// live walk, every bit below p final), from S's chains and the
+// disagreements of p's hash (`dc` the newest below p): longest's stops and
+// updates, as in greedy_walk (every lane the same walk: the candidates'
+// compares mostly end within a few bytes, where one thread's is the
+// cheaper).
+EX_DEV uint32_t live_greedy_walk(const uint8_t* base, long long total, long long p,
+                                 const Chains& ch, const Disagree& dg, long long dc, int level) {
+  long long limit = p - MAX_DIST;
+  if (limit < 0) limit = 0;
+  long long cur = true_prev(p, p - MAX_DIST - 1, ch, dg, dc);
+  if (cur <= 0 || p - cur > MAX_DIST) return 0;
+  const int lookahead = (int)(total - p);
+  int nice = kT.nice[level];
+  if (nice > lookahead) nice = lookahead;
+  const int chain = kT.chain[level];
+  const bool inb = p + MAX_MATCH <= total;
+  const uint8_t* here = base + p;
+  int best = MIN_MATCH - 1, bd = 0, n = 0;
+  uint16_t scan_end = inb ? load16(here + best - 1) : 0;
+  const uint16_t scan_start = inb ? load16(here) : 0;
+  for (;;) {
+    int ml = 0;
+    if (!inb)
+      ml = match_z_thread(base, p, cur, total);
+    else if (load16(base + cur + best - 1) == scan_end && load16(base + cur) == scan_start)
+      ml = match_thread(here, base + cur);
+    if (ml > best) {
+      best = ml;
+      bd = (int)(p - cur);
+      if (ml >= nice) break;
+      if (inb) scan_end = load16(here + best - 1);
+    }
+    if (++n == chain) break;
+    const long long next = true_prev(cur, limit, ch, dg, dc);
+    if (next <= limit || next >= cur) break;
+    cur = next;
+  }
+  return pack_slot(best, bd);
+}
+
+#ifdef __CUDACC__
+// kSort positions [s0, s0 + n) of build_chains' tile on the card, `table`
+// holding each hash's last position before s0 that is left in: the keys
+// (hash << 13 | position - s0 << 1 | skipped, kSort of them, the padding
+// all ones) sorted in shared memory (bitonic), then an exclusive max-scan
+// over hash << 13 | (position - s0 + 1, or 0 where skipped) gives each
+// key the last position before it in the sort with its hash that is left
+// in (low bits 0: none, the table's); the capped deltas go out in order,
+// and the last key of each hash leaves its hash's last position in the
+// table for the next sort. After the keys lie kSort 16-bit deltas and a
+// total a warp.
+__device__ void tile_pass(uint32_t* keys, int32_t* table, long long s0, int n, uint16_t* out,
+                          int tid) {
+  constexpr int kPer = kSort / kChainThreads;
+  for (int k = 2; k <= kSort; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      __syncthreads();
+      for (int i = tid; i < kSort; i += kChainThreads) {
+        const int x = i ^ j;
+        if (x > i) {
+          const uint32_t a = keys[i], b = keys[x];
+          if ((a > b) == ((i & k) == 0)) {
+            keys[i] = b;
+            keys[x] = a;
+          }
+        }
+      }
+    }
+  __syncthreads();
+  uint16_t* dl = (uint16_t*)(keys + kSort);
+  uint32_t* wsum = keys + kSort + kSort / 2;
+  const int lane = tid & 31, warp = tid >> 5;
+  uint32_t key[kPer], ex[kPer], m = 0;
+#pragma unroll
+  for (int r = 0; r < kPer; r++) {
+    key[r] = keys[kPer * tid + r];
+    const uint32_t hi = key[r] >> 13 << 13, pos1 = (key[r] >> 1 & 0xfffu) + 1u;
+    const uint32_t wv = key[r] == 0xffffffffu ? 0u : hi | ((key[r] & 1u) ? 0u : pos1);
+    ex[r] = m;
+    m = m > wv ? m : wv;
+  }
+  uint32_t x = m;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off && y > x) x = y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t v = wsum[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, v, off);
+      if (lane >= off && y > v) v = y;
+    }
+    wsum[lane] = v;
+  }
+  __syncthreads();
+  uint32_t before = __shfl_up_sync(kFull, x, 1);
+  if (lane == 0) before = 0;
+  if (warp > 0 && wsum[warp - 1] > before) before = wsum[warp - 1];
+  int32_t last[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; r++) {
+    last[r] = -1;
+    if (key[r] == 0xffffffffu) continue;
+    const uint32_t e = ex[r] > before ? ex[r] : before;
+    const uint32_t h = key[r] >> 13;
+    const int i = (int)(key[r] >> 1 & 0xfffu);
+    const long long pred = (e >> 13) == h && (e & 0x1fffu) ? s0 + (e & 0x1fffu) - 1 : table[h];
+    const long long d = s0 + i - pred;
+    dl[i] = (uint16_t)(d < 0xffff ? d : 0xffff);
+    // the last key of its hash: the hash's last position left in, if any
+    const int at = kPer * tid + r;
+    if (at + 1 == kSort || keys[at + 1] >> 13 != h) {
+      const uint32_t wv = (key[r] & 1u) ? h << 13 : h << 13 | ((uint32_t)i + 1u);
+      const uint32_t incl = e > wv ? e : wv;
+      if (incl & 0x1fffu) last[r] = (int32_t)(s0 + (incl & 0x1fffu) - 1);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kPer; r++)
+    if (last[r] >= 0) table[key[r] >> 13] = last[r];
+  for (int i = tid; i < n; i += kChainThreads) out[i] = dl[i];
+  __syncthreads();
+}
+#endif
 
 // the deltas of a piece's positions [t0, t1): each position's delta to the
 // last position before it with its hash (positions [lo, t0) and the tile
@@ -577,50 +895,56 @@ EX_DEV Slot resolve_at(const uint8_t* base, long long total, long long p, const 
 // 0xffff: the prevd value zlib's serial insert writes. The tile starts from
 // the last occurrences in the kLookback positions before it: an older one
 // lies at least kLookback back, where the cap gives the same delta.
+// Positions `sk` skips are left out of the chains (levels 1-3: the chains
+// under an assumed skip map, and DS's after a pump under the parse's own);
+// each position still gets its delta to the last one left in before it.
+// On the card the whole block takes kSort positions at once (tile_pass).
 EX_DEV void tile_chains(const uint8_t* base, const long long* pr, long long t0, long long t1,
-                        const int32_t* head_old, int32_t* table, uint16_t* deltas, int tid,
-                        int nthreads) {
+                        const int32_t* head_old, int32_t* table, uint32_t* keys, uint16_t* deltas,
+                        int tid, int nthreads, const Skip& sk) {
   const long long lo = pr[P_LO];
   const long long ws = t0 - kLookback > lo ? t0 - kLookback : lo;
   const bool seeded = ws == lo && head_old;
   for (int h = tid; h < HASH_SIZE; h += nthreads) table[h] = seeded ? head_old[h] : 0;
-  block_sync();
-  for (long long p = ws + tid; p < t0; p += nthreads)
-    atomic_max_i32(table + hash_at(base, p), (int32_t)p);
-  block_sync();
   uint16_t* out = deltas + pr[P_DOFF];
   const long long c0 = pr[P_C0];
 #ifdef __CUDACC__
-  if (tid >= 32) return;
-  const int lane = tid;
-  for (long long q0 = t0; q0 < t1; q0 += 32) {
-    const long long p = q0 + lane;
-    const bool on = p < t1;
-    const unsigned act = __ballot_sync(kFull, on);
-    uint32_t h = 0;
-    unsigned peers = 0;
-    int32_t pred = 0;
-    if (on) {
-      h = hash_at(base, p);
-      peers = __match_any_sync(act, h);
-      const unsigned lower = peers & ((1u << lane) - 1u);
-      pred = lower ? (int32_t)(q0 + 31 - __clz(lower)) : table[h];
+  // the lookback: 4 positions a thread a step, their 6 bytes in two loads
+  for (long long g = ws + 4LL * tid; g < t0; g += 4LL * nthreads) {
+    if (g + 3 < t0) {
+      const uint32_t a = load32u(base + g), b = load32u(base + g + 2);
+      const uint32_t by[6] = {a & 0xff, a >> 8 & 0xff, a >> 16 & 0xff, a >> 24, b >> 16 & 0xff,
+                              b >> 24};
+#pragma unroll
+      for (int r = 0; r < 4; r++) {
+        const uint32_t h =
+            (by[r] << (2 * HASH_SHIFT) ^ by[r + 1] << HASH_SHIFT ^ by[r + 2]) & (HASH_SIZE - 1);
+        if (!sk.on(g + r)) atomic_max_i32(table + h, (int32_t)(g + r));
+      }
+    } else {
+      for (long long q = g; q < t0; q++)
+        if (!sk.on(q)) atomic_max_i32(table + hash_at(base, q), (int32_t)q);
     }
-    __syncwarp();
-    if (on) {
-      if (lane == 31 - __clz(peers)) table[h] = (int32_t)p;
-      const long long d = p - pred;
-      out[p - c0] = (uint16_t)(d < 0xffff ? d : 0xffff);
-    }
-    __syncwarp();
+  }
+  // then the tile kSort positions at a time, each sort's keys (hash,
+  // position in the sort, skipped; the padding last) after the last one's
+  for (long long s0 = t0; s0 < t1; s0 += kSort) {
+    const int n = (int)(t1 - s0 < kSort ? t1 - s0 : kSort);
+    for (int i = tid; i < kSort; i += nthreads)
+      keys[i] = i < n ? hash_at(base, s0 + i) << 13 | (uint32_t)i << 1 | (sk.on(s0 + i) ? 1u : 0u)
+                      : 0xffffffffu;
+    tile_pass(keys, table, s0, n, out + (s0 - c0), tid);
   }
 #else
+  (void)keys;
   (void)tid;
+  for (long long p = ws; p < t0; p++)
+    if (!sk.on(p)) atomic_max_i32(table + hash_at(base, p), (int32_t)p);
   for (long long p = t0; p < t1; p++) {
     const uint32_t h = hash_at(base, p);
     const long long d = p - table[h];
     out[p - c0] = (uint16_t)(d < 0xffff ? d : 0xffff);
-    table[h] = (int32_t)p;
+    if (!sk.on(p)) table[h] = (int32_t)p;
   }
 #endif
 }
@@ -980,93 +1304,22 @@ struct Deflater {
   // MEDIUM's pre-found next match
   long long med_next_start, med_next_strstart, med_next_orgstart;
   int med_next_len;
-  // levels 4-9: static chains and the resolve's slots instead of inserts
-  // and walks (the live walk at the end of the data reads `ch`)
-  bool fixed;
+  // levels 1-9: static chains and the resolve's slots instead of inserts
+  // and walks (the live walks read `ch`); levels 1-3 keep the parse's skip
+  // map in `map` from map_b0 (the truth below the chase's position, the
+  // map the slots assumed above it), and count loop tops and live walks
   Chains ch;
   SlotSrc sl;
-  uint32_t* hist;       // levels 4-9 on the card: a block's frequencies in shared memory
+  uint32_t* map;
+  long long map_b0;
+  int32_t* ldh;  // levels 1-3: each hash's last position where the two maps differ
+  uint16_t* dlist;            // levels 1-3: the disagreements' list (Disagree's d) ...
+  long long dlist_c0, dlist_c1;  // ... for positions [c0, c1)
+  long long tops, lives;         // levels 1-3: loop tops, live walks
+  uint32_t* hist;       // on the card: a block's frequencies in shared memory
   uint64_t* ewords;     // and the emission's words (kEmitWords)
   long long clk_flush;  // clock64 cycles inside flush_block (the card)
   long long clk_emit;   // of which in emit_symbols
-
-  EX_INL uint32_t hash3(long long p) const { return hash_at(base, p); }
-  EX_INL uint32_t roll_h(uint32_t h, long long pos) const {
-    return ((h << HASH_SHIFT) ^ (uint32_t)base[pos + 2]) & (uint32_t)(HASH_SIZE - 1);
-  }
-  EX_INL void insert_h(long long pos, uint32_t h) {
-    const long long d = pos - w->head[h];  // head 0: the delta walks to NIL
-    w->prevd[pos & (WSIZE - 1)] = (uint16_t)(d < 0xffff ? d : 0xffff);
-    w->head[h] = (int32_t)pos;
-  }
-  EX_INL long long chain_prev(long long pos) const {
-    const long long d = w->prevd[pos & (WSIZE - 1)];
-    return d ? pos - d : 0;
-  }
-  // zlib's dictionary insertion: deflateSetDictionary hashes positions
-  // 0..dict_len-3, and the first fill_window the last two (its `insert`)
-  // once the chunk's bytes complete their strings. Native stops at
-  // dict_len-3; here every dictionary position p with p + 3 <= total goes
-  // in, so that levels 1-9 give zlib's bytes where the two differ.
-  EX_DEV void insert_dict() {
-    const long long last = dict_len - 1 < total - MIN_MATCH ? dict_len - 1 : total - MIN_MATCH;
-    if (last < 0) return;
-    uint32_t h = hash3(0);
-    for (long long i = 0;; i++) {
-      insert_h(i, h);
-      if (i == last) break;
-      h = roll_h(h, i + 1);
-    }
-  }
-
-  // zlib's longest_match, decision for decision
-  EX_DEV int longest(long long pos, long long cur, int prev_len, int& best_dist) {
-    const int lookahead = (int)(total - pos);
-    int chain = kT.chain[klevel];
-    int best_len = prev_len;
-    if (prev_len >= kT.good[klevel]) chain >>= 2;
-    int nice = kT.nice[klevel];
-    if (nice > lookahead) nice = lookahead;
-    long long limit = pos - MAX_DIST;
-    if (limit < 0) limit = 0;
-    best_dist = 0;
-    if (pos + MAX_MATCH <= total) {
-      const uint8_t* here = base + pos;
-      uint16_t scan_end = load16(here + best_len - 1);
-      const uint16_t scan_start = load16(here);
-      for (;;) {
-        const uint8_t* cand = base + cur;
-        const long long next_cur = cur - w->prevd[cur & (WSIZE - 1)];
-        if (load16(cand + best_len - 1) == scan_end && load16(cand) == scan_start) {
-          const int ml = match258(here, cand, lane);
-          if (ml > best_len) {
-            best_len = ml;
-            best_dist = (int)(pos - cur);
-            if (ml >= nice) break;
-            scan_end = load16(here + best_len - 1);
-          }
-        }
-        if (next_cur >= cur) break;  // an empty link (delta 0)
-        cur = next_cur;
-        if (cur <= limit) break;
-        if (--chain == 0) break;
-      }
-    } else {
-      for (;;) {
-        const int ml = match258_z(base, pos, cur, total, lane);
-        if (ml > best_len) {
-          best_len = ml;
-          best_dist = (int)(pos - cur);
-          if (ml >= nice) break;
-        }
-        const long long next_cur = chain_prev(cur);
-        if (next_cur <= limit || next_cur >= cur) break;
-        cur = next_cur;
-        if (--chain == 0) break;
-      }
-    }
-    return best_len <= lookahead ? best_len : lookahead;
-  }
 
   // ---- block emission ----------------------------------------------------
 
@@ -1106,7 +1359,7 @@ struct Deflater {
   }
 
 #ifdef __CUDACC__
-  // levels 4-9 on the card: the block's symbols 32 at a time, a symbol a
+  // levels 1-9 on the card: the block's symbols 32 at a time, a symbol a
   // lane: its code and extra bits fused (at most 48 bits), their offsets
   // by a warp scan past the bit writer's partial word, ORed into 64-bit
   // words in shared memory; the finished words are stored a byte a lane
@@ -1227,7 +1480,7 @@ struct Deflater {
     int l_max = 0, d_max = 0, max_blindex = 0;
     if (level > 0) {
 #ifdef __CUDACC__
-      if (hist) {  // levels 4-9: the lanes share the symbols, shared-memory atomics
+      if (hist) {  // levels 1-9: the lanes share the symbols, shared-memory atomics
         for (int i = lane; i < L_CODES + D_CODES; i += 32) hist[i] = 0;
         __syncwarp();
         for (long long i = lane; i < ns; i += 32) {
@@ -1294,54 +1547,162 @@ struct Deflater {
   EX_DEV void start_scan() {
     if (started) return;
     started = true;
-    spos = dict_len;
-    if (!fixed) insert_dict();  // static chains hold the dictionary already
+    spos = dict_len;  // the static chains hold the dictionary
+  }
+
+  // the parse's map over [a, e): position a (a loop top, hashed) left in,
+  // the rest `skip`. The map held what the slots assumed there; it is left
+  // holding the truth, each position where the two differed is the last of
+  // its hash in ldh, and the result is the highest such position (-1 if
+  // none). The word holding e - 1 stays in (cw, cv), written back (dirty)
+  // once the parse leaves it or a live walk reads the map. On the card a
+  // lane a word (a range spans at most 10); ldh's stores go lane by lane,
+  // so that the highest position of a hash stays.
+  EX_INL long long mark(long long a, long long e, bool skip, long long& cw, uint32_t& cv,
+                        bool& dirty) {
+    const long long ra = a - map_b0, re = e - map_b0;
+    const long long w0 = ra >> 5, w1 = (re - 1) >> 5;
+    if (dirty && cw != w0) {
+      if (lane == 0) map[cw] = cv;
+      dirty = false;
+    }
+    long long hit = -1;
+    uint32_t last = 0, last_diff = 0;
+#ifdef __CUDACC__
+    uint32_t diff = 0;
+    if (lane <= w1 - w0) {
+      const long long w = w0 + lane;
+#else
+    for (long long w = w0; w <= w1; w++) {
+      uint32_t diff;
+#endif
+      const long long wb = w << 5;
+      const int lo = ra > wb ? (int)(ra - wb) : 0;
+      const int hi = re < wb + 32 ? (int)(re - wb) : 32;
+      const uint32_t mask = (hi == 32 ? kFull : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+      uint32_t t = skip ? mask : 0u;
+      if (w == w0) t &= ~(1u << lo);
+      const uint32_t old = w == cw ? cv : map[w];
+      const uint32_t nv = (old & ~mask) | t;
+      diff = (old ^ t) & mask;
+      if (diff) hit = map_b0 + wb + 31 - clz32(diff);
+      if (w == w1) {
+        last = nv;
+        last_diff = diff;
+      } else if (diff || (w == cw && dirty)) {
+        map[w] = nv;
+      }
+#ifndef __CUDACC__
+      for (uint32_t d = diff; d; d &= d - 1) note(map_b0 + wb + ctz32(d));
+#endif
+    }
+#ifdef __CUDACC__
+    for (unsigned dm = __ballot_sync(kFull, diff != 0); dm; dm &= dm - 1) {
+      if (lane == __ffs(dm) - 1)
+        for (uint32_t d = diff; d; d &= d - 1) note(map_b0 + ((w0 + lane) << 5) + ctz32(d));
+      __syncwarp();
+    }
+    const int top = (int)(w1 - w0);
+    last = __shfl_sync(kFull, last, top);
+    last_diff = __shfl_sync(kFull, last_diff, top);
+#endif
+    dirty = last_diff != 0 || (w1 == cw && dirty);
+    cw = w1;
+    cv = last;
+#ifdef __CUDACC__
+    const unsigned m = __ballot_sync(kFull, hit >= 0);
+    return m ? __shfl_sync(kFull, hit, 31 - __clz(m)) : -1;
+#else
+    return hit;
+#endif
+  }
+
+  // a disagreement at q: the newest of its hash (only positions a walk of
+  // this chase can read: hashed, below dlist_c1)
+  EX_INL void note(long long q) {
+    if (q >= dlist_c1 || q + MIN_MATCH > total) return;
+    const uint32_t h = hash_at(base, q);
+    const long long before = ldh[h];
+    dlist[q - dlist_c0] = (uint16_t)(before >= 0 && q - before < 0xffff ? q - before : 0);
+    ldh[h] = (int32_t)q;
+  }
+
+  // write the map's cached word back (before the map is read)
+  EX_INL void map_flush(long long cw, uint32_t cv, bool& dirty) {
+    if (dirty) {
+      if (lane == 0) map[cw] = cv;
+      dirty = false;
+    }
+    warp_sync();
   }
 
   // greedy loop, levels 1-3 (zlib deflate_fast), over positions < limit
   // with every clamp against total: a chunk and a flushing pump pass
   // limit = total, a NO_FLUSH pump total - (MIN_LOOKAHEAD - 1), so that no
-  // decision depends on how much input has arrived (native's contract)
-  EX_DEV void run_fast(long long limit) {
+  // decision depends on how much input has arrived (native's contract).
+  // The chains are static and longest is the slot's walk, taken when the
+  // walk read no position at or below the last one where the map it
+  // assumed and the parse's own map differ (`ld`: the bits below a loop
+  // top are final when the parse reaches it); else zlib's walk over the
+  // static chains and the true map, live. The walk reads the bits of p's
+  // hash chain alone, so a slot whose reach passes `ld` stands where its
+  // hash's last disagreement (ldh) lies below the reach. So the symbols
+  // are zlib's whatever the slots assumed. The loop's state stays in
+  // registers.
+  EX_DEV void run_greedy(long long limit) {
     const int lazy = kT.lazy[klevel];
     start_scan();
-    while (spos < limit) {
+    const uint8_t* const b = base;
+    const long long tot = total;
+    Sym* const syms = w->syms;
+    SlotSrc src = sl;
+    for (int h = lane; h < HASH_SIZE; h += kLanes) ldh[h] = -1;
+    long long p = spos, n = ns, ld = -1, nt = 0, nl = 0, cw = -1;
+    uint32_t cv = 0;
+    bool dirty = false;
+    while (p < limit) {
       warp_sync();
-      long long hash_head = 0;
-      if (spos + MIN_MATCH <= total) {
-        if (!shv) {
-          sh = hash3(spos);
-          shv = true;
-        }
-        insert_h(spos, sh);
-        hash_head = chain_prev(spos);
-      }
-      int ml = 0, mdist = 0;
-      if (hash_head > 0 && spos - hash_head <= MAX_DIST) ml = longest(spos, hash_head, MIN_MATCH - 1, mdist);
-      if (ml >= MIN_MATCH && mdist > 0) {
-        push(mdist, ml);
-        const long long end = spos + ml;
-        if (ml <= lazy && total - end >= MIN_MATCH) {
-          uint32_t h2 = sh;  // the hash at spos; interiors roll from it
-          for (long long p2 = spos + 1; p2 < end; p2++) {
-            h2 = roll_h(h2, p2);
-            insert_h(p2, h2);
+      int mdist = 0, ml = 0;
+      if (p + MIN_MATCH <= tot) {
+        const Slot slot = src.at(p, lane);
+        uint32_t v = slot.full;
+        const long long reach = p - (long long)slot.aux;
+        if (reach <= ld) {
+          const long long lh = ldh[hash_at(b, p)];
+          if (reach <= lh) {
+            v = live_greedy_walk(b, tot, p, ch, Disagree{dlist, dlist_c0}, lh, klevel);
+            nl++;
           }
         }
-        spos = end;
-        shv = false;
-      } else {
-        push(0, base[spos]);
-        spos++;
-        if (shv) {
-          if (spos + MIN_MATCH <= total)
-            sh = roll_h(sh, spos);
-          else
-            shv = false;
-        }
+        nt++;
+        mdist = (int)(v & 0x7fff);
+        const long long m = v >> 15;
+        ml = (int)(m < tot - p ? m : tot - p);
       }
-      if (ns >= SYM_END) flush_block(false, spos);
+      long long h;
+      if (mdist > 0) {
+        syms[n++] = Sym{(uint16_t)mdist, (uint16_t)ml};
+        const long long end = p + ml;
+        h = mark(p, end, !(ml <= lazy && tot - end >= MIN_MATCH), cw, cv, dirty);
+        p = end;
+      } else {
+        syms[n++] = Sym{0, b[p]};
+        h = mark(p, p + 1, false, cw, cv, dirty);
+        p++;
+      }
+      if (h > ld) ld = h;
+      if (n >= SYM_END) {
+        ns = n;
+        flush_block(false, p);
+        n = ns;
+      }
     }
+    map_flush(cw, cv, dirty);
+    spos = p;
+    ns = n;
+    sl = src;
+    tops += nt;
+    lives += nl;
   }
 
   // longest(pos, hash_head, prev_len) from the position's slot: the
@@ -1350,7 +1711,7 @@ struct Deflater {
   // falls below prev_len (prev_len >= total - pos, at the end of the data)
   // zlib's walk over the static chains, live (live_walk).
   EX_INL int lookup(const Slot& slot, int lookahead, int prev_len, int good, int& mdist) {
-    const uint32_t v = prev_len >= good ? slot.quarter : slot.full;
+    const uint32_t v = prev_len >= good ? slot.aux : slot.full;
     const int m = (int)(v >> 15);
     const int best = m > prev_len ? m : prev_len;
     mdist = m > prev_len ? (int)(v & 0x7fff) : 0;
@@ -1798,14 +2159,7 @@ struct Deflater {
       }
       return;
     }
-    if (level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2) {
-      run_medium(total);
-    } else if (kT.slow[level]) {
-      run_slow(total);
-      emit_trailing_literal();
-    } else {
-      run_fast(total);
-    }
+    run_medium(total);  // levels 1-9 take the pieces' resolve and chase
     if (final_flag) {
       flush_block(true, total);
       bw.align();
@@ -1852,9 +2206,11 @@ EX_DEV long long deflate_one(const uint8_t* in, const long long* m, int level, u
   d.started = false;
   d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
   d.med_next_len = 0;
-  d.fixed = false;
   d.hist = nullptr;
   d.ewords = nullptr;
+  d.map = nullptr;
+  d.ldh = nullptr;
+  d.map_b0 = d.tops = d.lives = 0;
   d.clk_flush = d.clk_emit = 0;
   d.run(final_flag);
   warp_sync();
@@ -1878,7 +2234,7 @@ enum {
   D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
   D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS, D_FINISHED,
   D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART, D_MED_NEXT_LEN,
-  D_INS_LO, D_INS_HI,  // levels 4-9: the positions [lo, hi) the pump inserted, for ds_tables
+  D_INS_LO, D_INS_HI,  // levels 1-9: the positions [lo, hi) the pump inserted, for ds_tables
   kDRec = 28
 };
 constexpr int kMisuse = -2;
@@ -1889,13 +2245,19 @@ constexpr int kMisuse = -2;
 // followed by Work4, the 4-byte-hash chains), `out` the pump's room.
 // Flush 0 none, 2 sync, 3 full, 4 finish. Levels 1-9 and MEDIUM4-6
 // (11-13), as native's handle takes them.
-// At levels 4-9 `slots` holds the resolve's slots of positions [spos,
+// At levels 1-9 `slots` holds the resolve's slots of positions [spos,
 // spos + n_slots) and `deltas` the static chains' deltas from the pump's
 // first insert (D_INS_LO); the chase leaves the inserted range's end in
-// D_INS_HI for ds_tables.
+// D_INS_HI for ds_tables. At levels 1-3 `deltas` are the chains the
+// slots' walks took (the assumed map's positions left out; `span` of
+// them), `map` the skip map from D_INS_LO rounded down to 32 (the map the
+// slots assumed; the chase leaves the parse's own in it), and `dlist` (as
+// deltas) and `ldh` int32 [32768] the chase's scratch; stats (null, or
+// int64 [2]) adds the loop tops and the live walks.
 EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, int lane,
                     int lanes, const Slot* slots, long long n_slots, const uint16_t* deltas,
-                    Slot* stage, uint32_t* hist, uint64_t* ewords, long long* clk) {
+                    uint16_t* dlist, long long span, uint32_t* map, int32_t* ldh, Slot* stage,
+                    uint32_t* hist, uint64_t* ewords, long long* clk, long long* stats) {
   const int level = (int)r[D_LEVEL], flush = (int)r[D_FLUSH];
   const bool medium = level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2;
   if (r[D_FINISHED] || (!medium && (level < 1 || level > 9))) {  // native's -2
@@ -1907,7 +2269,7 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     }
     return;
   }
-  const bool fixed = !medium && kT.slow[level];
+  const bool fixed = !medium;
 #ifdef __CUDACC__
   const long long clk0 = clock64();
 #endif
@@ -1936,39 +2298,42 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   d.med_next_strstart = r[D_MED_NEXT_STRSTART];
   d.med_next_orgstart = r[D_MED_NEXT_ORGSTART];
   d.med_next_len = (int)r[D_MED_NEXT_LEN];
-  d.fixed = fixed;
   d.hist = fixed ? hist : nullptr;
   d.ewords = fixed ? ewords : nullptr;
+  d.map = map;
+  d.ldh = ldh;
+  d.tops = d.lives = 0;
   d.clk_flush = d.clk_emit = 0;
   long long total = d.total;
   long long insert_pending = r[D_INSERT_PENDING];
   d.start_scan();
   const long long ins_lo = d.spos - insert_pending;
+  d.map_b0 = ins_lo & ~31LL;
   if (fixed) {
     d.ch = Chains{deltas, ins_lo, w->prevd};
     d.sl = SlotSrc{slots, d.spos, n_slots, stage, -1};
+    d.dlist = dlist;
+    d.dlist_c0 = ins_lo;
+    d.dlist_c1 = ins_lo + span;
   }
   // zlib's `insert`: the <= 2 tail positions a flush could not hash enter
   // the chains once the new input completes their strings (native
-  // retro_insert, fill_window's role); static chains hold them already
+  // retro_insert, fill_window's role); the static chains hold them already
   const long long lookahead = total - d.spos;
   if (insert_pending && lookahead + insert_pending >= MIN_MATCH) {
-    long long str = d.spos - insert_pending;
     while (insert_pending) {
-      if (!fixed) d.insert_h(str, d.hash3(str));
-      str++;
       insert_pending--;
       if (lookahead + insert_pending < MIN_MATCH) break;
     }
   }
   const long long limit =
       flush ? total : (total >= MIN_LOOKAHEAD ? total - (MIN_LOOKAHEAD - 1) : 0);
-  if (fixed)
-    d.run_slow(limit);
-  else if (medium)
+  if (medium)
     d.run_medium(limit);
+  else if (kT.slow[level])
+    d.run_slow(limit);
   else
-    d.run_fast(limit);
+    d.run_greedy(limit);
   // the inserted positions end where the scan stopped, short of the last
   // two (their strings end past the data), never below the first insert
   long long ins_hi = d.spos < total - (MIN_MATCH - 1) ? d.spos : total - (MIN_MATCH - 1);
@@ -1988,8 +2353,8 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
       // native, MEDIUM's head4 and next match stay (a stale head's delta
       // wraps in its u16 slot, and every candidate's bytes are compared)
       if (flush == 3) {
-        // levels 4-9: ds_tables clears the heads after it writes the chains
-        if (!fixed)
+        // levels 1-9: ds_tables clears the heads after it writes the chains
+        if (medium)
           for (int i = lane; i < HASH_SIZE; i += lanes) w->head[i] = 0;
         total = 0;
         d.spos = 0;
@@ -2025,6 +2390,10 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     r[D_MED_NEXT_LEN] = d.med_next_len;
     r[D_INS_LO] = fixed ? ins_lo : 0;
     r[D_INS_HI] = fixed ? ins_hi : 0;
+    if (stats) {
+      stats[0] += d.tops;
+      stats[1] += d.lives;
+    }
 #ifdef __CUDACC__
     if (clk) {
       clk[0] = clock64() - clk0;
@@ -2038,30 +2407,36 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
 #endif
 }
 
-// after a DS pump at levels 4-9 (positions [D_INS_LO, D_INS_HI) inserted,
-// deltas from D_INS_LO): the handle's head and prevd as zlib's serial
+// after a DS pump at levels 1-9 (positions [D_INS_LO, D_INS_HI) inserted
+// but those the parse's map `sk` skips, deltas from D_INS_LO over the
+// inserted positions alone): the handle's head and prevd as zlib's serial
 // inserts leave them. head takes each inserted position by atomicMax (a
-// head is an older position), prevd's ring the deltas of the last WSIZE;
-// FULL_FLUSH clears the heads, after the inserts, as zlib does.
+// head is an older position); a ring slot takes the delta of the last
+// inserted position it holds and keeps its value where the pump inserted
+// none (a skipped position's slot is untouched); FULL_FLUSH clears the
+// heads, after the inserts, as zlib does.
 EX_DEV void ds_tables_range(const long long* r, const uint8_t* data, Work* w,
-                            const uint16_t* deltas, long long i0, long long step) {
+                            const uint16_t* deltas, long long i0, long long step, const Skip& sk) {
   if (r[D_STATUS] == kMisuse) return;
   const long long lo = r[D_INS_LO], hi = r[D_INS_HI];
   const bool clear = r[D_FLUSH] == 3;
   for (long long p = lo + i0; p < hi; p += step) {
+    if (sk.on(p)) continue;
     if (!clear) atomic_max_i32(w->head + hash_at(data, p), (int32_t)p);
-    if (p >= hi - WSIZE) w->prevd[p & (WSIZE - 1)] = deltas[p - lo];
+    bool latest = true;
+    for (long long q = p + WSIZE; q < hi && latest; q += WSIZE) latest = sk.on(q);
+    if (latest) w->prevd[p & (WSIZE - 1)] = deltas[p - lo];
   }
 }
 
-// FULL_FLUSH at levels 4-9: the heads cleared once ds_tables_range has
+// FULL_FLUSH at levels 1-9: the heads cleared once ds_tables_range has
 // written the chains (it writes no head then)
 EX_DEV void ds_tables_clear(const long long* r, Work* w, long long i0, long long step) {
   if (r[D_STATUS] == kMisuse || r[D_FLUSH] != 3) return;
   for (long long h = i0; h < HASH_SIZE; h += step) w->head[h] = 0;
 }
 
-// a DS pump's ranges at levels 4-9, from its record before the pump: g[0]
+// a DS pump's ranges at levels 1-9, from its record before the pump: g[0]
 // the first position it inserts (spos less zlib's pending `insert`), g[1]
 // the end of the positions it can insert (the deltas cover [g[0], g[1])),
 // g[2] spos and g[3] the scan's limit (the slots cover [g[2], g[3]))
@@ -2082,14 +2457,76 @@ EX_HD void ds_ranges(const long long* r, long long* g) {
   g[3] = we;
 }
 
-// EX at levels 4-9: one piece of one chunk, resumed from the chunk's record
+// levels 1-3, between two rounds of the resolve: the dry parse of a piece.
+// zlib's greedy parse follows the piece's slots unchecked (p += M, or p++)
+// from the chase's position (the record's spos for EX, the piece's start
+// for DS, whose `recs` is null) to the piece's end, and writes the map the
+// next round assumes from start to the end of the word holding min(e +
+// MAX_MATCH, total) - 1: a long match's interior, and every interior of a
+// match ending within MIN_MATCH of total, set; the rest clear. The bits
+// below start (the parse's own) stay. The lanes clear the map; the parse
+// reads the slots staged as the chase does and gathers a word's bits in a
+// register, stored once the parse leaves the word.
+EX_DEV void dry_piece(const long long* pr, int level, const long long* recs, const Slot* slots,
+                      uint32_t* bits, long long bit_stride, Slot* stage, int lane, int lanes) {
+  const long long total = pr[P_TOTAL], b0 = pr[P_LO] & ~31LL, e = pr[P_E];
+  uint32_t* map = bits + pr[P_WORK] * bit_stride;
+  long long start = pr[P_S];
+  if (recs && recs[pr[P_WORK] * kDRec + D_SPOS] > start) start = recs[pr[P_WORK] * kDRec + D_SPOS];
+  const long long stop = e + MAX_MATCH < total ? e + MAX_MATCH : total;
+  if (start >= stop) return;
+  long long aw = (start - b0) >> 5;  // the word in acc
+  uint32_t acc = map[aw] & ((1u << ((start - b0) & 31)) - 1u);
+  warp_sync();
+  for (long long w = aw + lane; w <= (stop - 1 - b0) >> 5; w += lanes) map[w] = 0u;
+  warp_sync();
+  const int lazy = kT.lazy[level];
+  SlotSrc src{slots + pr[P_SOFF], pr[P_S], e - pr[P_S], stage, -1};
+  long long p = start;
+  while (p < e) {
+    if (p + MIN_MATCH <= total) {
+      const uint32_t v = src.at(p, lane).full;
+      if (v & 0x7fff) {
+        const long long m = v >> 15;
+        const long long end = p + (m < total - p ? m : total - p);
+        if (!(end - p <= lazy && total - end >= MIN_MATCH)) {  // set [p + 1, end)
+          const long long ra = p + 1 - b0, re = end - b0;
+          for (long long w = ra >> 5; w <= (re - 1) >> 5; w++) {
+            if (w != aw) {
+              if (acc && lane == 0) map[aw] = acc;
+              aw = w;
+              acc = 0;
+            }
+            const long long wb = w << 5;
+            const int lo = ra > wb ? (int)(ra - wb) : 0;
+            const int hi = re < wb + 32 ? (int)(re - wb) : 32;
+            acc |= (hi == 32 ? kFull : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+          }
+        }
+        p = end;
+        continue;
+      }
+    }
+    p++;
+  }
+  if (acc && lane == 0) map[aw] = acc;
+}
+
+// EX at levels 1-9: one piece of one chunk, resumed from the chunk's record
 // (a first piece starts the Deflater as deflate_one does) and chased to the
-// piece's end, or to the chunk's and then ended as run() ends it
+// piece's end, or to the chunk's and then ended as run() ends it; at
+// levels 1-3 `deltas` are the chains the slots' walks took, `dlist` (as
+// deltas) and ldh (in the chunk's Work head, which the static chains
+// leave unused) the chase's scratch, the chunk's skip
+// map is read and left in `bits` (bit_stride words a chunk), and stats
+// (null, or int64 [2]) adds the loop tops and the live walks
 EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long long* pr, int level,
                         uint8_t* out, long long* lens, int* status, long long* recs,
                         uint8_t* scratch, long long stride, const Slot* slots,
-                        const uint16_t* deltas, Slot* stage, uint32_t* hist, uint64_t* ewords,
-                        int lane, long long* clk) {
+                        const uint16_t* deltas, uint16_t* dlist, uint32_t* bits,
+                        long long bit_stride, Slot* stage, uint32_t* hist,
+                        uint64_t* ewords,
+                        int lane, long long* clk, long long* stats) {
 #ifdef __CUDACC__
   const long long clk0 = clock64();
 #endif
@@ -2133,14 +2570,23 @@ EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long lon
     d.shv = r[D_SHV] != 0;
     d.started = r[D_STARTED] != 0;
   }
-  d.fixed = true;
   d.hist = hist;
   d.ewords = ewords;
+  d.map = bits ? bits + pr[P_WORK] * bit_stride : nullptr;
+  d.map_b0 = pr[P_LO] & ~31LL;
+  d.ldh = d.w->head;
+  d.tops = d.lives = 0;
   d.clk_flush = d.clk_emit = 0;
   d.ch = Chains{deltas + pr[P_DOFF], pr[P_C0], nullptr};
+  d.dlist = dlist ? dlist + pr[P_DOFF] : nullptr;
+  d.dlist_c0 = pr[P_C0];
+  d.dlist_c1 = pr[P_C1];
   d.sl = SlotSrc{slots + pr[P_SOFF], pr[P_S], pr[P_E] - pr[P_S], stage, -1};
   const bool last = pr[P_LAST] != 0;
-  d.run_slow(last ? d.total : pr[P_E]);
+  if (kT.slow[level])
+    d.run_slow(last ? d.total : pr[P_E]);
+  else
+    d.run_greedy(last ? d.total : pr[P_E]);
   if (last) {
     d.emit_trailing_literal();
     if (m[3]) {
@@ -2171,6 +2617,15 @@ EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long lon
       r[D_BW_BUF] = (long long)d.bw.buf;
       r[D_BW_CNT] = d.bw.cnt;
       r[D_OUT_LEN] = d.bw.wpos;
+    }
+    if (stats) {
+#ifdef __CUDACC__
+      atomicAdd((unsigned long long*)stats, (unsigned long long)d.tops);
+      atomicAdd((unsigned long long*)stats + 1, (unsigned long long)d.lives);
+#else
+      stats[0] += d.tops;
+      stats[1] += d.lives;
+#endif
     }
 #ifdef __CUDACC__
     if (clk) {
@@ -2209,23 +2664,31 @@ exact_deflate(const uint8_t* __restrict__ in, const long long* __restrict__ meta
 __global__ void __launch_bounds__(32)
 dstream_pump(long long* __restrict__ rec, const uint8_t* __restrict__ data,
              uint8_t* __restrict__ work, uint8_t* __restrict__ out, const Slot* __restrict__ slots,
-             long long n_slots, const uint16_t* __restrict__ deltas, long long* __restrict__ clk) {
+             long long n_slots, const uint16_t* __restrict__ deltas,
+             uint16_t* __restrict__ dlist, long long span, uint32_t* __restrict__ bits,
+             long long* __restrict__ clk, long long* __restrict__ stats) {
+  extern __shared__ int32_t ldh[];  // levels 1-3: HASH_SIZE entries
   __shared__ Slot stage[2 * kStage];
   __shared__ uint32_t hist[L_CODES + D_CODES];
   __shared__ uint64_t ewords[kEmitWords];
-  ds_pump(rec, data, (Work*)work, out, threadIdx.x, 32, slots, n_slots, deltas, stage, hist,
-          ewords, clk);
+  ds_pump(rec, data, (Work*)work, out, threadIdx.x, 32, slots, n_slots, deltas, dlist, span, bits,
+          ldh, stage, hist, ewords, clk, stats);
 }
 
-// the resolve, part 1: a tile of a piece's deltas a block
+// the resolve, part 1: a tile of a piece's deltas a block; `skip` (null,
+// or a skip map a piece at P_WORK * bit_stride from its P_LO rounded down
+// to 32) leaves positions out of the chains
 __global__ void __launch_bounds__(kChainThreads)
 build_chains(const uint8_t* __restrict__ in, const long long* __restrict__ pieces, int P,
-             const int32_t* __restrict__ head_old, uint16_t* __restrict__ deltas) {
-  extern __shared__ int32_t table[];  // HASH_SIZE last occurrences
+             const int32_t* __restrict__ head_old, uint16_t* __restrict__ deltas,
+             const uint32_t* __restrict__ skip, long long bit_stride) {
+  extern __shared__ int32_t table[];  // HASH_SIZE last occurrences, then tile_pass's
   const long long* pr = pieces + (size_t)find_piece(pieces, P, P_CBLK, blockIdx.x) * kPiece;
   const long long t0 = pr[P_C0] + (blockIdx.x - pr[P_CBLK]) * (long long)kTile;
   const long long t1 = t0 + kTile < pr[P_C1] ? t0 + kTile : pr[P_C1];
-  tile_chains(in + pr[P_BASE], pr, t0, t1, head_old, table, deltas, threadIdx.x, blockDim.x);
+  tile_chains(in + pr[P_BASE], pr, t0, t1, head_old, table, (uint32_t*)(table + HASH_SIZE),
+              deltas, threadIdx.x, blockDim.x,
+              Skip{skip ? skip + pr[P_WORK] * bit_stride : nullptr, pr[P_LO] & ~31LL});
 }
 
 // the resolve, part 2: a thread a position of every piece's [s, e); count
@@ -2240,7 +2703,8 @@ resolve_walk(const uint8_t* __restrict__ in, const long long* __restrict__ piece
   if (p < pr[P_E]) {
     const Chains ch{deltas + pr[P_DOFF], pr[P_C0], ring};
     slots[pr[P_SOFF] + p - pr[P_S]] =
-        resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
+        kT.slow[level] ? resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited)
+                       : resolve_greedy(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
   }
   if (count) {
     const unsigned sum = __reduce_add_sync(kFull, (unsigned)visited);
@@ -2248,32 +2712,48 @@ resolve_walk(const uint8_t* __restrict__ in, const long long* __restrict__ piece
   }
 }
 
-// EX's chase at levels 4-9: a piece a block of one warp
+// levels 1-3: the dry parse, a piece a block of one warp
+__global__ void __launch_bounds__(32)
+exact_dry(const long long* __restrict__ pieces, int level, const long long* __restrict__ recs,
+          const Slot* __restrict__ slots, uint32_t* __restrict__ bits, long long bit_stride) {
+  __shared__ Slot stage[2 * kStage];
+  dry_piece(pieces + (size_t)blockIdx.x * kPiece, level, recs, slots, bits, bit_stride, stage,
+            threadIdx.x, 32);
+}
+
+// EX's chase at levels 1-9: a piece a block of one warp
 __global__ void __launch_bounds__(32)
 exact_chase(const uint8_t* __restrict__ in, const long long* __restrict__ meta,
             const long long* __restrict__ pieces, int level, uint8_t* __restrict__ out,
             long long* __restrict__ lens, int* __restrict__ status, long long* __restrict__ recs,
             uint8_t* __restrict__ scratch, long long stride, const Slot* __restrict__ slots,
-            const uint16_t* __restrict__ deltas, long long* __restrict__ clk) {
+            const uint16_t* __restrict__ deltas, uint16_t* __restrict__ dlist,
+            uint32_t* __restrict__ bits, long long bit_stride, long long* __restrict__ clk,
+            long long* __restrict__ stats) {
   __shared__ Slot stage[2 * kStage];
   __shared__ uint32_t hist[L_CODES + D_CODES];
   __shared__ uint64_t ewords[kEmitWords];
   chase_piece(in, meta, pieces + (size_t)blockIdx.x * kPiece, level, out, lens, status, recs,
-              scratch, stride, slots, deltas, stage, hist, ewords, threadIdx.x,
-              clk ? clk + 3 * (size_t)blockIdx.x : nullptr);
+              scratch, stride, slots, deltas, dlist, bits, bit_stride, stage, hist, ewords,
+              threadIdx.x, clk ? clk + 3 * (size_t)blockIdx.x : nullptr, stats);
 }
 
-// DS after a pump at levels 4-9: the handle's head and prevd
+// DS after a pump at levels 1-9: the handle's head and prevd; `bits` (null
+// at 4-9) the parse's skip map from D_INS_LO rounded down to 32
 __global__ void __launch_bounds__(kTableThreads)
 ds_tables(const long long* __restrict__ rec, const uint8_t* __restrict__ data,
-          uint8_t* __restrict__ work, const uint16_t* __restrict__ deltas) {
+          uint8_t* __restrict__ work, const uint16_t* __restrict__ deltas,
+          const uint32_t* __restrict__ bits) {
   const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long step = (long long)gridDim.x * blockDim.x;
-  ds_tables_range(rec, data, (Work*)work, deltas, i0, step);
+  ds_tables_range(rec, data, (Work*)work, deltas, i0, step, Skip{bits, rec[D_INS_LO] & ~31LL});
   ds_tables_clear(rec, (Work*)work, i0, step);
 }
 
 int g_tables_ready[64];
+// each device's SMs and shared memory an SM, exact_chase's shared memory
+// a block (the runtime's reserved KB included)
+int g_sms[64], g_sm_smem[64], g_chase_smem;
 
 // RFC 1951's tables and the LEVELS rows in the current device's constant
 // memory, build_chains's shared memory past 48 KB and the chases' L1, once
@@ -2288,16 +2768,27 @@ int ensure_tables() {
     make_tables(&t);
     err = cudaMemcpyToSymbol(kT, &t, sizeof(Tables));
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(build_chains, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               HASH_SIZE * (int)sizeof(int32_t));
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    // the chases' few KB of shared memory leave L1 its most: their warp's
-    // hash chains and Work are read through it
+    err = cudaDeviceGetAttribute(&g_sm_smem[dev], cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, exact_chase);
+    if (err != cudaSuccess) return (int)err;
+    g_chase_smem = (int)fa.sharedSizeBytes + 1024;
+    err = cudaFuncSetAttribute(build_chains, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kChainSmem);
+    if (err != cudaSuccess) return (int)err;
+    // DS's few KB of shared memory leave L1 its most: its warp's hash
+    // chains and Work are read through it (EX's chase sets its own at
+    // each launch)
     err = cudaFuncSetAttribute(dstream_pump, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxL1);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(exact_chase, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxL1);
+    // levels 1-3: DS keeps each hash's last disagreement in shared memory
+    err = cudaFuncSetAttribute(dstream_pump, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               HASH_SIZE * (int)sizeof(int32_t));
     if (err != cudaSuccess) return (int)err;
     g_tables_ready[dev] = 1;
   }
@@ -2312,31 +2803,40 @@ void ensure_host_tables() {
   }
 }
 
-// the resolve on the host: every piece's deltas tile by tile, then every
-// slot, in order
+// the resolve on the host: every piece's deltas tile by tile (when
+// `chains`; the positions `skip` names, a piece's at P_WORK * bit_stride,
+// left out of the chains), then every slot (when `slots`), in order
 void resolve_host(const uint8_t* in, const long long* pieces, int P, int level,
                   const int32_t* head_old, const uint16_t* ring, uint16_t* deltas, Slot* slots,
-                  int32_t* table) {
-  for (int i = 0; i < P; i++) {
+                  int32_t* table, const uint32_t* skip, long long bit_stride, bool chains) {
+  for (int i = 0; chains && i < P; i++) {
     const long long* pr = pieces + (size_t)i * kPiece;
+    const Skip sk{skip ? skip + pr[P_WORK] * bit_stride : nullptr, pr[P_LO] & ~31LL};
     for (long long t0 = pr[P_C0]; t0 < pr[P_C1]; t0 += kTile)
       tile_chains(in + pr[P_BASE], pr, t0, t0 + kTile < pr[P_C1] ? t0 + kTile : pr[P_C1],
-                  head_old, table, deltas, 0, 1);
+                  head_old, table, nullptr, deltas, 0, 1, sk);
   }
-  for (int i = 0; i < P; i++) {
+  for (int i = 0; slots && i < P; i++) {
     const long long* pr = pieces + (size_t)i * kPiece;
     const Chains ch{deltas + pr[P_DOFF], pr[P_C0], ring};
     int visited;
     for (long long p = pr[P_S]; p < pr[P_E]; p++)
       slots[pr[P_SOFF] + p - pr[P_S]] =
-          resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
+          kT.slow[level] ? resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited)
+                         : resolve_greedy(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
   }
 }
 
 long long g_piece = 1LL << 22;  // the host build's piece, in positions
+// the host build's rounds at levels 1-3, by level (the wrapper's ROUNDS)
+constexpr int kHostRounds[4] = {0, 2, 2, 3};
+
+// a skip map's words for positions [b0, total) (b0 a multiple of 32), one spare
+long long map_words(long long b0, long long total) { return ((total - b0 + 31) >> 5) + 1; }
 #endif
 
-EX_HD bool static_level(int level) { return level >= 4 && level <= 9; }
+EX_HD bool static_level(int level) { return level >= 1 && level <= 9; }
+EX_HD bool greedy_level(int level) { return level >= 1 && level <= 3; }
 
 }  // namespace
 
@@ -2360,7 +2860,7 @@ extern "C" void zrs_dstream_ranges(const void* rec, void* out) {
 // EX over `chunks` chunks of meta (int64 [chunks, 6]: start, len, dict_len,
 // final, out_off, out_cap; the input bytes of a chunk are
 // in[start - dict_len, start + len), its dictionary first), all at one
-// level (0-3, 10 QUICK, 11-13 MEDIUM; levels 4-9 take zrs_exact_resolve and
+// level (0, 10 QUICK, 11-13 MEDIUM; levels 1-9 take zrs_exact_resolve and
 // zrs_exact_chase), on `slots` warps each with a slot of `stride` bytes of
 // scratch; lens int64 [chunks], status int32 [chunks]
 extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, int level, void* out,
@@ -2377,25 +2877,29 @@ extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, i
   return (int)cudaGetLastError();
 }
 
-// the resolve at levels 4-9 over P pieces (int64 [P, kPiece]): deltas u16
+// the resolve at levels 1-9 over P pieces (int64 [P, kPiece]): deltas u16
 // (each piece's [c0, c1) at its doff), then slots (8 bytes a position of
 // each piece's [s, e) at its soff); chain_blocks and walk_blocks are the
-// pieces' blocks in all. head_old int32 [32768] and ring u16 [32768] are
-// DS's handle tables (null for EX); count (null, or one uint64) takes the
-// candidates the walks compare. build_chains, then resolve_walk (a thread a
+// pieces' blocks in all (either 0: that part not run). head_old int32
+// [32768] and ring u16 [32768] are DS's handle tables (null for EX);
+// count (null, or one uint64) takes the candidates the walks compare;
+// bits (null, or levels 1-3's assumed skip maps, a piece's at P_WORK *
+// bit_stride words from its P_LO rounded down to 32) leaves the positions
+// it skips out of the chains. build_chains, then resolve_walk (a thread a
 // position).
 extern "C" int zrs_exact_resolve(const void* in, const void* pieces, int P, int level,
                                  const void* head_old, const void* ring, void* deltas, void* slots,
                                  long long chain_blocks, long long walk_blocks, void* count,
-                                 void* stream) {
+                                 const void* bits, long long bit_stride, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  if (!static_level(level) || P <= 0) return (int)cudaErrorInvalidValue;
+  if (!static_level(level) || P <= 0 || (bits && !greedy_level(level)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (chain_blocks > 0) {
-    build_chains<<<(unsigned)chain_blocks, kChainThreads, HASH_SIZE * sizeof(int32_t), st>>>(
+    build_chains<<<(unsigned)chain_blocks, kChainThreads, kChainSmem, st>>>(
         (const uint8_t*)in, (const long long*)pieces, P, (const int32_t*)head_old,
-        (uint16_t*)deltas);
+        (uint16_t*)deltas, (const uint32_t*)bits, bit_stride);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -2406,105 +2910,194 @@ extern "C" int zrs_exact_resolve(const void* in, const void* pieces, int P, int 
   return (int)cudaGetLastError();
 }
 
-// EX's chase at levels 4-9: one block of one warp a piece (at most one
+// levels 1-3: the dry parse of P pieces after a round of the resolve, one
+// block of one warp a piece; recs (EX's records, null for DS) give each
+// piece's start, and it writes the next round's map into bits
+extern "C" int zrs_exact_dry(const void* pieces, int P, int level, const void* recs,
+                             const void* slots, void* bits, long long bit_stride, void* stream) {
+  const int terr = ensure_tables();
+  if (terr) return terr;
+  if (!greedy_level(level) || !bits) return (int)cudaErrorInvalidValue;
+  if (P > 0)
+    exact_dry<<<P, 32, 0, (cudaStream_t)stream>>>((const long long*)pieces, level,
+                                                  (const long long*)recs, (const Slot*)slots,
+                                                  (uint32_t*)bits, bit_stride);
+  return (int)cudaGetLastError();
+}
+
+// EX's chase at levels 1-9: one block of one warp a piece (at most one
 // piece of a chunk a launch), after the resolve of the same pieces. recs
 // int64 [*, kDRec] and scratch (`stride` bytes each) hold each chunk's
-// state between its pieces, at the piece's P_WORK; clk (null, or int64
-// [P, 3]) takes each piece's clock64 cycles: in all, in flush_block, and of
-// those in emit_symbols.
+// state between its pieces, at the piece's P_WORK; at levels 1-3 `deltas`
+// are the last round's chains, `dlist` (as deltas) the chase's scratch, and
+// each chunk's skip map is read and left at bits + P_WORK * bit_stride; clk (null, or
+// int64 [P, 3]) takes each piece's clock64 cycles: in all, in flush_block,
+// and of those in emit_symbols; stats (null, or int64 [2]) adds the loop
+// tops and the live walks.
 extern "C" int zrs_exact_chase(const void* in, const void* meta, const void* pieces, int P,
                                int level, void* out, void* lens, void* status, void* recs,
                                void* scratch, long long stride, const void* slots,
-                               const void* deltas, void* clk, void* stream) {
+                               const void* deltas, void* dlist, void* bits,
+                               long long bit_stride, void* clk, void* stats, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  if (!static_level(level) || stride < (long long)kWorkBytes) return (int)cudaErrorInvalidValue;
-  if (P > 0)
-    exact_chase<<<P, 32, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)in, (const long long*)meta, (const long long*)pieces, level,
-        (uint8_t*)out, (long long*)lens, (int*)status, (long long*)recs, (uint8_t*)scratch, stride,
-        (const Slot*)slots, (const uint16_t*)deltas, (long long*)clk);
+  if (!static_level(level) || stride < (long long)kWorkBytes ||
+      (greedy_level(level) && (!bits || !dlist)))
+    return (int)cudaErrorInvalidValue;
+  if (P <= 0) return 0;
+  // the shared memory the call's blocks need an SM (each a warp), the rest
+  // L1, which holds each warp's Work and chains: L1's most would leave an
+  // SM room for one chase
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  const long long per_sm = (P + g_sms[dev] - 1) / g_sms[dev];
+  const long long pct = (100 * per_sm * g_chase_smem + g_sm_smem[dev] - 1) / g_sm_smem[dev];
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      exact_chase, cudaFuncAttributePreferredSharedMemoryCarveout, pct < 100 ? (int)pct : 100);
+  if (cerr != cudaSuccess) return (int)cerr;
+  exact_chase<<<P, 32, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)in, (const long long*)meta, (const long long*)pieces, level, (uint8_t*)out,
+      (long long*)lens, (int*)status, (long long*)recs, (uint8_t*)scratch, stride,
+      (const Slot*)slots, (const uint16_t*)deltas, (uint16_t*)dlist, (uint32_t*)bits, bit_stride,
+      (long long*)clk, (long long*)stats);
   return (int)cudaGetLastError();
 }
 
 // DS over one handle: rec int64 [kDRec], data uint8 (rec[D_TOTAL] bytes),
 // work uint8 [zrs_exact_deflate_work_bytes(level)] (Work, head int32[32768]
 // first; at MEDIUM then Work4), out uint8 (rec[D_OUT_CAP] bytes of room).
-// Levels 4-9 also take the resolve's slots (n_slots of them, from spos) and
+// Levels 1-9 also take the resolve's slots (n_slots of them, from spos) and
 // deltas (from ds_ranges' first insert, `span` of them), and after the
-// chase ds_tables writes the handle's head and prevd; clk (null, or int64
-// [3]) takes the chase's clock64 cycles: in all, in flush_block, and of
-// those in emit_symbols.
+// chase ds_tables writes the handle's head and prevd. At levels 1-3
+// `deltas` are the last round's chains, `bits` the skip map the slots
+// assumed (from the first insert rounded down to 32), which the chase
+// leaves holding the parse's own, and `dlist` (as deltas) the chase's
+// scratch; after the chase build_chains writes dlist
+// over the positions the parse inserted (the pump's piece row `pieces`,
+// chain_blocks blocks) for ds_tables. clk (null, or int64 [3]) takes the
+// chase's clock64 cycles: in all, in flush_block, and of those in
+// emit_symbols; stats (null, or int64 [2]) adds the loop tops and the
+// live walks.
 extern "C" int zrs_dstream_pump(void* rec, const void* data, void* work, void* out,
                                 const void* slots, long long n_slots, const void* deltas,
-                                long long span, void* clk, void* stream) {
+                                void* dlist, long long span, const void* pieces,
+                                long long chain_blocks, void* bits, void* clk, void* stats,
+                                void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
   const cudaStream_t st = (cudaStream_t)stream;
-  dstream_pump<<<1, 32, 0, st>>>((long long*)rec, (const uint8_t*)data, (uint8_t*)work,
-                                 (uint8_t*)out, (const Slot*)slots, n_slots,
-                                 (const uint16_t*)deltas, (long long*)clk);
+  dstream_pump<<<1, 32, bits ? HASH_SIZE * sizeof(int32_t) : 0, st>>>(
+      (long long*)rec, (const uint8_t*)data, (uint8_t*)work, (uint8_t*)out, (const Slot*)slots,
+      n_slots, (const uint16_t*)deltas, (uint16_t*)dlist, span, (uint32_t*)bits,
+      (long long*)clk, (long long*)stats);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !deltas) return (int)err;
+  const void* tables = deltas;
+  if (bits && dlist && pieces && chain_blocks > 0) {
+    build_chains<<<(unsigned)chain_blocks, kChainThreads, kChainSmem, st>>>(
+        (const uint8_t*)data, (const long long*)pieces, 1, (const int32_t*)work,
+        (uint16_t*)dlist, (const uint32_t*)bits, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    tables = dlist;
+  }
   long long blocks = (span + kTableThreads - 1) / kTableThreads;
   blocks = blocks < 1 ? 1 : blocks > 1024 ? 1024 : blocks;
-  ds_tables<<<(unsigned)blocks, kTableThreads, 0, st>>>(
-      (const long long*)rec, (const uint8_t*)data, (uint8_t*)work, (const uint16_t*)deltas);
+  ds_tables<<<(unsigned)blocks, kTableThreads, 0, st>>>((const long long*)rec,
+                                                        (const uint8_t*)data, (uint8_t*)work,
+                                                        (const uint16_t*)tables,
+                                                        (const uint32_t*)bits);
   return (int)cudaGetLastError();
 }
 #else
 // the resolve on the host (the same arguments as zrs_exact_resolve but the
-// block counts and the stream)
+// block counts, the count and the stream; chains 0 keeps the deltas of an
+// earlier build, slots null builds the chains alone)
 extern "C" int zrs_exact_resolve_host(const void* in, const void* pieces, int P, int level,
                                       const void* head_old, const void* ring, void* deltas,
-                                      void* slots) {
+                                      void* slots, const void* bits, long long bit_stride,
+                                      int chains) {
   ensure_host_tables();
-  if (!static_level(level)) return 1;
+  if (!static_level(level) || (bits && !greedy_level(level))) return 1;
   int32_t* table = (int32_t*)std::malloc(HASH_SIZE * sizeof(int32_t));
   if (!table) return 1;
   resolve_host((const uint8_t*)in, (const long long*)pieces, P, level, (const int32_t*)head_old,
-               (const uint16_t*)ring, (uint16_t*)deltas, (Slot*)slots, table);
+               (const uint16_t*)ring, (uint16_t*)deltas, (Slot*)slots, table,
+               (const uint32_t*)bits, bit_stride, chains != 0);
   std::free(table);
   return 0;
 }
 
-// EX's chase on the host, the pieces in order
+// the dry parse on the host, the pieces in order (zrs_exact_dry's arguments
+// but the stream)
+extern "C" int zrs_exact_dry_host(const void* pieces, int P, int level, const void* recs,
+                                  const void* slots, void* bits, long long bit_stride) {
+  ensure_host_tables();
+  if (!greedy_level(level) || !bits) return 1;
+  for (int i = 0; i < P; i++)
+    dry_piece((const long long*)pieces + (size_t)i * kPiece, level, (const long long*)recs,
+              (const Slot*)slots, (uint32_t*)bits, bit_stride, nullptr, 0, 1);
+  return 0;
+}
+
+// EX's chase on the host, the pieces in order (zrs_exact_chase's arguments
+// but clk and the stream)
 extern "C" int zrs_exact_chase_host(const void* in, const void* meta, const void* pieces, int P,
                                     int level, void* out, void* lens, void* status, void* recs,
                                     void* scratch, long long stride, const void* slots,
-                                    const void* deltas) {
+                                    const void* deltas, void* dlist, void* bits,
+                                    long long bit_stride, void* stats) {
   ensure_host_tables();
-  if (!static_level(level) || stride < (long long)kWorkBytes) return 1;
+  if (!static_level(level) || stride < (long long)kWorkBytes ||
+      (greedy_level(level) && (!bits || !dlist)))
+    return 1;
   for (int i = 0; i < P; i++)
     chase_piece((const uint8_t*)in, (const long long*)meta, (const long long*)pieces + (size_t)i * kPiece,
                 level, (uint8_t*)out, (long long*)lens, (int*)status, (long long*)recs,
-                (uint8_t*)scratch, stride, (const Slot*)slots, (const uint16_t*)deltas, nullptr,
-                nullptr, nullptr, 0, nullptr);
+                (uint8_t*)scratch, stride, (const Slot*)slots, (const uint16_t*)deltas,
+                (uint16_t*)dlist, (uint32_t*)bits, bit_stride, nullptr, nullptr, nullptr, 0,
+                nullptr, (long long*)stats);
   return 0;
 }
 
 // the host build's piece, in positions (the tests' way to many pieces)
 extern "C" void zrs_exact_set_piece(long long positions) { g_piece = positions; }
 
-// the same on the host, a chunk at a time with one lane: the CPU tests'
-// way into this file's control flow; levels 4-9 a piece of g_piece
-// positions at a time, each resolved and chased
-extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chunks, int level,
-                                      void* out, void* lens, void* status) {
+// levels 1-9 on the host, a chunk at a time, a piece of g_piece positions
+// at a time, each resolved and chased as on the card; at levels 1-3
+// `rounds` rounds of the resolve over chains built under the map (a dry
+// parse between two), the chunk's first round
+// assuming `seed` (uint32 [chunks, seed_words]: chunk k's map of its
+// window-relative positions, the dictionary's taken as clear; null, or
+// words past seed_words, assume none skipped); truth (null, or as seed)
+// takes each chunk's map of the parse, stats (null, or int64 [2]) as
+// zrs_exact_chase's
+extern "C" int zrs_exact_greedy_host(const void* in, const void* meta, int chunks, int level,
+                                     void* out, void* lens, void* status, const void* seed,
+                                     long long seed_words, int rounds, void* truth,
+                                     void* stats) {
   ensure_host_tables();
-  uint8_t* slot = (uint8_t*)std::malloc(kWorkBytes + kWork4Bytes);
-  if (!slot) return 1;
-  Work* w = (Work*)slot;
-  Work4* w4 = needs_work4(level) ? (Work4*)(slot + kWorkBytes) : nullptr;
+  if (!static_level(level) || rounds < 1) return 1;
+  const bool greedy = greedy_level(level);
+  uint8_t* scratch = (uint8_t*)std::malloc(kWorkBytes);
+  if (!scratch) return 1;
   const long long* mt = (const long long*)meta;
-  for (int k = 0; k < chunks; k++) {
-    if (!static_level(level)) {
-      ((long long*)lens)[k] = deflate_one((const uint8_t*)in, mt + (size_t)k * kMeta, level,
-                                          (uint8_t*)out, w, w4, 0, 1, (int*)status + k);
-      continue;
-    }
+  int rc = 0;
+  for (int k = 0; k < chunks && !rc; k++) {
     const long long start = mt[k * kMeta], dict_len = mt[k * kMeta + 2];
     const long long total = dict_len + mt[k * kMeta + 1];
+    const long long words = map_words(0, total);
+    uint32_t* map = greedy ? (uint32_t*)std::calloc((size_t)words, 4) : nullptr;
+    if (greedy && !map) {
+      rc = 1;
+      break;
+    }
+    if (map && seed) {  // the dictionary is in the chains whatever the seed says
+      std::memcpy(map, (const uint32_t*)seed + (size_t)k * seed_words,
+                  (size_t)(words < seed_words ? words : seed_words) * 4);
+      for (long long q = 0; q < dict_len; q++) map[q >> 5] &= ~(1u << (q & 31));
+    }
     long long rec[kDRec] = {0};
     for (long long s = dict_len;; s += g_piece) {
       const long long e = s + g_piece < total ? s + g_piece : total;
@@ -2518,38 +3111,70 @@ extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chun
       pr[P_E] = e;
       pr[P_CHUNK] = k;
       pr[P_LAST] = e == total;
-      uint16_t* deltas = (uint16_t*)std::malloc((size_t)(pr[P_C1] - pr[P_C0] + 1) * 2);
+      const size_t nd = (size_t)(pr[P_C1] - pr[P_C0] + 1);
+      uint16_t* deltas = (uint16_t*)std::malloc(nd * 2);
+      uint16_t* dlist = greedy ? (uint16_t*)std::malloc(nd * 2) : nullptr;
       Slot* slots = (Slot*)std::malloc((size_t)(e - s + 1) * sizeof(Slot));
-      if (!deltas || !slots) {
-        std::free(deltas);
-        std::free(slots);
-        std::free(slot);
-        return 1;
+      if (!deltas || !slots || (greedy && !dlist)) {
+        rc = 1;
+      } else {
+        for (int r = 0; r < (greedy ? rounds : 1); r++) {
+          if (r) zrs_exact_dry_host(pr, 1, level, rec, slots, map, 0);
+          zrs_exact_resolve_host(in, pr, 1, level, nullptr, nullptr, deltas, slots, map, 0, 1);
+        }
+        zrs_exact_chase_host(in, meta, pr, 1, level, out, lens, status, rec, scratch, kWorkBytes,
+                             slots, deltas, dlist, map, 0, stats);
       }
-      zrs_exact_resolve_host(in, pr, 1, level, nullptr, nullptr, deltas, slots);
-      zrs_exact_chase_host(in, meta, pr, 1, level, out, lens, status, rec, slot, kWorkBytes,
-                           slots, deltas);
       std::free(deltas);
+      std::free(dlist);
       std::free(slots);
-      if (e == total) break;
+      if (rc || e == total) break;
     }
+    if (map && truth)
+      std::memcpy((uint32_t*)truth + (size_t)k * seed_words, map,
+                  (size_t)(words < seed_words ? words : seed_words) * 4);
+    std::free(map);
   }
+  std::free(scratch);
+  return rc;
+}
+
+// EX on the host with one lane: the CPU tests' way into this file's control
+// flow; levels 1-9 as zrs_exact_greedy_host (levels 1-3 kHostRounds rounds
+// from a map of no skipped position), the others a chunk at a time
+extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chunks, int level,
+                                      void* out, void* lens, void* status) {
+  ensure_host_tables();
+  if (static_level(level))
+    return zrs_exact_greedy_host(in, meta, chunks, level, out, lens, status, nullptr, 0,
+                                 greedy_level(level) ? kHostRounds[level] : 1, nullptr, nullptr);
+  uint8_t* slot = (uint8_t*)std::malloc(kWorkBytes + kWork4Bytes);
+  if (!slot) return 1;
+  Work* w = (Work*)slot;
+  Work4* w4 = needs_work4(level) ? (Work4*)(slot + kWorkBytes) : nullptr;
+  const long long* mt = (const long long*)meta;
+  for (int k = 0; k < chunks; k++)
+    ((long long*)lens)[k] = deflate_one((const uint8_t*)in, mt + (size_t)k * kMeta, level,
+                                        (uint8_t*)out, w, w4, 0, 1, (int*)status + k);
   std::free(slot);
   return 0;
 }
 
-// DS on the host with one lane; levels 4-9 the resolve of ds_ranges, the
-// chase, then ds_tables, as on the card
+// DS on the host with one lane; levels 1-9 the resolve of ds_ranges (at
+// 1-3 kHostRounds rounds over chains built under the map, a dry parse
+// between two, from a map of no skipped position), the chase, then at 1-3
+// the chains of the inserted positions, and ds_tables, as on the card
 extern "C" int zrs_dstream_pump_host(void* rec, const void* data, void* work, void* out) {
   ensure_host_tables();
   long long* r = (long long*)rec;
   Work* w = (Work*)work;
   const int level = (int)r[D_LEVEL];
   if (!static_level(level)) {
-    ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, nullptr, 0, nullptr, nullptr,
-            nullptr, nullptr, nullptr);
+    ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, nullptr, 0, nullptr, nullptr, 0,
+            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr);
     return 0;
   }
+  const bool greedy = greedy_level(level);
   long long g[4];
   ds_ranges(r, g);
   long long pr[kPiece] = {0};
@@ -2558,20 +3183,32 @@ extern "C" int zrs_dstream_pump_host(void* rec, const void* data, void* work, vo
   pr[P_C1] = g[1];
   pr[P_S] = g[2];
   pr[P_E] = g[3];
-  uint16_t* deltas = (uint16_t*)std::malloc((size_t)(g[1] - g[0] + 1) * 2);
+  const long long b0 = g[0] & ~31LL;
+  const size_t nd = (size_t)(g[1] - g[0] + 1);
+  uint16_t* deltas = (uint16_t*)std::malloc(nd * 2);
+  uint16_t* dlist = greedy ? (uint16_t*)std::malloc(nd * 2) : nullptr;
   Slot* slots = (Slot*)std::malloc((size_t)(g[3] - g[2] + 1) * sizeof(Slot));
-  if (!deltas || !slots) {
-    std::free(deltas);
-    std::free(slots);
-    return 1;
+  uint32_t* map = greedy ? (uint32_t*)std::calloc((size_t)map_words(b0, pr[P_TOTAL]), 4) : nullptr;
+  int32_t* ldh = (int32_t*)std::malloc(HASH_SIZE * sizeof(int32_t));
+  int rc = 1;
+  if (deltas && slots && ldh && (!greedy || (map && dlist))) {
+    for (int i = 0; i < (greedy ? kHostRounds[level] : 1); i++) {
+      if (i) zrs_exact_dry_host(pr, 1, level, nullptr, slots, map, 0);
+      zrs_exact_resolve_host(data, pr, 1, level, w->head, w->prevd, deltas, slots, map, 0, 1);
+    }
+    ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, slots, g[3] - g[2], deltas, dlist,
+            g[1] - g[0], map, ldh, nullptr, nullptr, nullptr, nullptr, nullptr);
+    if (greedy && r[D_STATUS] != kMisuse)
+      zrs_exact_resolve_host(data, pr, 1, level, w->head, nullptr, dlist, nullptr, map, 0, 1);
+    ds_tables_range(r, (const uint8_t*)data, w, greedy ? dlist : deltas, 0, 1, Skip{map, b0});
+    ds_tables_clear(r, w, 0, 1);
+    rc = 0;
   }
-  zrs_exact_resolve_host(data, pr, 1, level, w->head, w->prevd, deltas, slots);
-  ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, slots, g[3] - g[2], deltas, nullptr,
-          nullptr, nullptr, nullptr);
-  ds_tables_range(r, (const uint8_t*)data, w, deltas, 0, 1);
-  ds_tables_clear(r, w, 0, 1);
   std::free(deltas);
+  std::free(dlist);
   std::free(slots);
-  return 0;
+  std::free(map);
+  std::free(ldh);
+  return rc;
 }
 #endif

@@ -27,13 +27,15 @@ MEDIUM, as native), the block and the seam (FULL_FLUSH also clears the
 3-byte hash and restarts the window, and leaves head4 and MEDIUM's next
 match as native does; FINISH ends the stream). The room of a pump is
 sized from the unflushed bytes (`room`); a pump that outgrew it raises, as native's -1
-would, and drops nothing silently. At levels 4-9 a pump first launches the
+would, and drops nothing silently. At levels 1-9 a pump first launches the
 resolve (`exact_deflate_kernel.resolve_cuda`) over the pump's positions
 (`ranges`): static chains from its first insert, the older positions read
-from the handle's head and prevd, and every position's two walks; DS then
-chases the slots, and leaves head and prevd as zlib's serial inserts
-would. Input longer than a piece (EK.PIECE) is pumped a piece at a time,
-so that the resolve's memory stays bounded. After the pump the wrapper prunes the
+from the handle's head and prevd, and every position's walks (at 1-3
+EK.ROUNDS[level] rounds under an assumed skip map, a dry parse between two); DS
+then chases the slots, and leaves head and prevd as zlib's serial inserts
+would (at 1-3 over the chains rebuilt from the positions the parse
+inserted). Input longer than a piece (EK.PIECE) is pumped a piece at a
+time, so that the resolve's memory stays bounded. After the pump the wrapper prunes the
 data as native does: the window and the unflushed block stay, the rest
 goes in multiples of WSIZE once it passes 1 MiB, and the hash heads
 (head4 and MEDIUM's next match too) are rebased (slide_hash's role).
@@ -88,7 +90,7 @@ def room(unflushed: int) -> int:
 
 
 def ranges(rec) -> tuple[int, int, int, int]:
-    """A pump's ranges at levels 4-9 from its record before the pump (the
+    """A pump's ranges at levels 1-9 from its record before the pump (the
     source's ds_ranges): its first insert (spos less zlib's pending
     `insert`), the end of the positions it can insert (the deltas cover
     [first, end)), spos and the scan's limit (the slots cover [spos,
@@ -234,41 +236,57 @@ _P = ctypes.c_void_p
 def _fn():
     fn = _device.library("exact_deflate").zrs_dstream_pump
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P]
+        L = ctypes.c_longlong
+        fn.argtypes = [_P, _P, _P, _P, _P, L, _P, _P, L, _P, L, _P, _P, _P, _P]
         fn.restype = ctypes.c_int
     return fn
 
 
 def resolve_operands(rec: np.ndarray, dev):
-    """A pump's resolve operands at levels 4-9 from its record: (its piece
+    """A pump's resolve operands at levels 1-9 from its record: (its piece
     row on `dev`, or None when its ranges are empty; chain blocks, walk
     blocks, deltas int16 and slots int32 [*, 2] to fill, the slots' count,
-    the deltas' count)."""
+    the deltas' count, and at levels 1-3 the skip map, zeros from the
+    first insert rounded down to 32, and the chase's scratch int16 (as
+    deltas), else None and None)."""
     a, c1, s, we = ranges(rec)
+    total = int(rec[D_TOTAL])
     deltas = torch.empty(max(c1 - a, 1), dtype=torch.int16, device=dev)
     slots = torch.empty(max(we - s, 1), 2, dtype=torch.int32, device=dev)
     pieces, _nd, _ns, cb, wb = EK.with_offsets(
-        [[0, int(rec[D_TOTAL]), a, a, c1, 0, s, we, 0, 0, 0, 0, 0, 0]])
+        [[0, total, a, a, c1, 0, s, we, 0, 0, 0, 0, 0, 0]])
     pt = torch.from_numpy(pieces).to(dev) if c1 > a or we > s else None
-    return pt, cb, wb, deltas, slots, we - s, c1 - a
+    greedy = EK.greedy_level(int(rec[D_LEVEL]))
+    bits = torch.zeros(EK.bit_words(total, a & ~31), dtype=torch.int32, device=dev) \
+        if greedy else None
+    dlist = torch.empty_like(deltas) if greedy else None
+    return pt, cb, wb, deltas, slots, we - s, c1 - a, bits, dlist
 
 
 def resolve_pump(rec: np.ndarray, data, work, ops=None):
-    """The resolve of a pump at levels 4-9 (launched when its ranges are
-    not empty) over resolve_operands (`ops`, staged here when None):
-    (slots, deltas, the slots' count, the deltas' count)."""
-    pt, cb, wb, deltas, slots, n_slots, span = ops or resolve_operands(rec, data.device)
+    """The resolve of a pump at levels 1-9 (launched when its ranges are
+    not empty; at 1-3 EK.ROUNDS[level] rounds over chains built under the skip
+    map, the dry parse between two) over resolve_operands (`ops`, staged
+    here when None): (slots, deltas, the slots' count, the deltas' count,
+    the piece row, its chain blocks, the skip map, the chase's scratch)."""
+    pt, cb, wb, deltas, slots, n_slots, span, bits, dlist = \
+        ops or resolve_operands(rec, data.device)
+    level = int(rec[D_LEVEL])
     if pt is not None:
-        EK.resolve_cuda(data, pt, int(rec[D_LEVEL]), deltas, slots, cb, wb, head_old=work,
-                        ring=work[4 * HASH_SIZE :])
-    return slots, deltas, n_slots, span
+        for r in range(EK.ROUNDS[level] if bits is not None else 1):
+            if r:
+                EK.dry_cuda(pt, level, slots, bits, 0)
+            EK.resolve_cuda(data, pt, level, deltas, slots, cb, wb, head_old=work,
+                            ring=work[4 * HASH_SIZE :], bits=bits)
+    return slots, deltas, n_slots, span, pt, cb, bits, dlist
 
 
-def pump_cuda(rec: np.ndarray, data, work, out, rec_dev, clk=None) -> None:
-    """One DS launch over CUDA state (at levels 4-9 the resolve first); the
+def pump_cuda(rec: np.ndarray, data, work, out, rec_dev, clk=None, stats=None) -> None:
+    """One DS launch over CUDA state (at levels 1-9 the resolve first); the
     record crosses both ways through `rec_dev` (int64 [REC] on the device);
-    clk (int64 [3] or None) takes the chase's clock64 cycles: in all, in
-    flush_block, and of those in emit_symbols."""
+    at levels 1-3 stats (int64 [2] or None) adds the loop tops and the live
+    walks; clk (int64 [3] or None) takes the chase's clock64 cycles: in all,
+    in flush_block, and of those in emit_symbols."""
     _device.require_cuda("dstream", data, work, out, rec_dev)
     level = int(rec[D_LEVEL])
     need = work_bytes(level) if is_medium(level) else WORK_BYTES
@@ -276,14 +294,14 @@ def pump_cuda(rec: np.ndarray, data, work, out, rec_dev, clk=None) -> None:
         raise ValueError(f"dstream: work must be uint8 [>= {need}] at level {level}")
     if data.numel() < int(rec[D_TOTAL]) or out.numel() < int(rec[D_OUT_CAP]):
         raise ValueError("dstream: the data or the room is smaller than the record says")
-    slots = deltas = None
-    n_slots = span = 0
+    slots = deltas = pt = bits = dlist = None
+    n_slots = span = cb = 0
     if EK.static_level(level):
-        slots, deltas, n_slots, span = resolve_pump(rec, data, work)
+        slots, deltas, n_slots, span, pt, cb, bits, dlist = resolve_pump(rec, data, work)
     rec_dev.copy_(torch.from_numpy(rec))
     rc = _fn()(_device.ptr(rec_dev), _device.ptr(data), _device.ptr(work), _device.ptr(out),
-               EK._opt(slots), n_slots, EK._opt(deltas), span, EK._opt(clk),
-               _device.stream_of(data))
+               EK._opt(slots), n_slots, EK._opt(deltas), EK._opt(dlist), span, EK._opt(pt), cb,
+               EK._opt(bits), EK._opt(clk), EK._opt(stats), _device.stream_of(data))
     _device.check(rc, "dstream")
     launches["dstream"] += 1
     rec[:] = rec_dev.cpu().numpy()
@@ -349,7 +367,7 @@ class Handle:
             rec[f] = max(int(rec[f]) - keep, 0)
 
     def pump(self, data: bytes, flush: int) -> bytes:
-        """native's pump and read. At levels 4-9 input longer than
+        """native's pump and read. At levels 1-9 input longer than
         EK.PIECE goes to DS a piece at a time, NO_FLUSH but the last, which
         takes `flush` (the same bytes: no decision depends on how much input
         has arrived), so that a pump's deltas and slots cover at most a

@@ -26,13 +26,24 @@ QUICK and MEDIUM. A deflate in torch ops would only repeat the same
 sequential loop more slowly. The wrapper runs the plain version for a CPU
 tensor and launches the kernel for a CUDA one; nothing falls back.
 
-Levels 4-9 take two launches a round (`plan`): the resolve
-(`zrs_exact_resolve`: static hash chains, then every position's two walks
-into 8-byte slots) and the chase (`zrs_exact_chase`: one warp a chunk
-runs zlib's lazy parse reading the slots). A chunk longer than PIECE
+Levels 1-9 go a piece at a time (`plan`): a chunk longer than PIECE
 positions is resolved and chased a piece at a time, its state kept in a
-record. The resolve has its own plain version, `resolve_plain` (torch),
-which returns the same deltas and slots.
+record. At levels 4-9 a piece takes the resolve (`zrs_exact_resolve`:
+static hash chains, then every position's two walks into 8-byte slots)
+and the chase (`zrs_exact_chase`: one warp a chunk runs zlib's lazy parse
+reading the slots). At levels 1-3 each slot is zlib's greedy walk under
+an assumed skip map (the positions deflate_fast leaves out of its
+chains), over chains built with the map's positions left out, with the
+walk's reach: ROUNDS[level] rounds of the resolve, each but the first after a
+dry parse
+(`zrs_exact_dry`: the parse followed over the last round's slots,
+unchecked, writes the next round's map), then the chase, which takes a
+slot only where the map it assumed agrees with the parse's own on the
+positions of its hash the walk depends on, and walks live elsewhere (over
+the map's chains and the positions where the two maps differ). The bytes
+are zlib's whatever the map. The resolve has its own plain version, `resolve_plain`
+(torch), which returns the same deltas and slots, and the dry parse
+`dry_plain` (numpy).
 """
 
 from __future__ import annotations
@@ -44,9 +55,10 @@ import torch
 
 from ... import _device
 
-# launches of the CUDA kernels (at levels 4-9 "exact_deflate" counts the
-# chase, "exact_resolve" the resolve); the plain versions do not count
-launches = {"exact_deflate": 0, "exact_resolve": 0}
+# launches of the CUDA kernels (at levels 1-9 "exact_deflate" counts the
+# chase, "exact_resolve" the resolve, "exact_dry" the dry parse of levels
+# 1-3); the plain versions do not count
+launches = {"exact_deflate": 0, "exact_resolve": 0, "exact_dry": 0}
 
 QUICK = 10
 MEDIUM_BASE = 11  # MEDIUM_BASE + k: the medium variant of zlib level 4 + k
@@ -58,16 +70,24 @@ WORK4_BYTES = 320 * 1024  # QUICK's and MEDIUM's 4-byte-hash chains (kWork4Bytes
 MAX_SLOTS = 1024  # warps a launch; each loops over its share of the chunks
 MAX_MATCH, MIN_MATCH, MAX_DIST = 258, 3, 32768 - 262
 HASH_SIZE = 1 << 15
-# levels 4-9 (the source's kPiece row, kTile, kLookback, kWalkThreads)
+# levels 1-9 (the source's kPiece row, kTile, kLookback, kWalkThreads)
 (P_BASE, P_TOTAL, P_LO, P_C0, P_C1, P_DOFF, P_S, P_E, P_SOFF, P_CBLK, P_WBLK, P_CHUNK, P_LAST,
  P_WORK) = range(14)
 PIECE_FIELDS = 14
-TILE = 4096  # positions a block of the chain build inserts in order
+TILE = 16384  # positions a block of the chain build inserts in order
 LOOKBACK = 65536  # positions before a tile whose last occurrences seed it
 WALK_THREADS = 128  # resolve_walk: a thread a position
 PIECE = 1 << 22  # positions of a chunk (or of a DS pump) one resolve and one chase take
-ROUND = 1 << 24  # positions the pieces of one round hold at most
+# positions the pieces of one round hold at most: MAX_SLOTS chunks of
+# 128 KiB, so that a round's chases overlap as many chunks as a launch
+# takes (about 2 GB of slots, deltas, dlist and scratch at the most)
+ROUND = 1 << 27
 REC = 28  # a record in int64: DS's between pumps, a chunk's between its pieces
+REC_SPOS = 1  # the record's scan position (DS's D_SPOS)
+# levels 1-3: rounds of the resolve a piece (a dry parse between two), by
+# level: the fastest of 1-4 on the H100 (PERF.md); level 3's longer
+# walks make a live walk dearer, so one more round pays there
+ROUNDS = {1: 2, 2: 2, 3: 3}
 # native's empty stored block, which it emits for an empty chunk at level 0
 # before the seam (the host engine's SYNC_FLUSH emits only the seam)
 EMPTY_STORED = b"\x00\x00\x00\xff\xff"
@@ -78,8 +98,21 @@ def is_medium(level: int) -> bool:
 
 
 def static_level(level: int) -> bool:
-    """zlib's deflate_slow levels, whose hash chains the data fixes."""
-    return 4 <= level <= 9
+    """The levels whose chains are built before the parse: zlib's
+    deflate_slow (4-9), whose chains the data fixes, and deflate_fast
+    (1-3), whose chains an assumed skip map thins."""
+    return 1 <= level <= 9
+
+
+def greedy_level(level: int) -> bool:
+    """zlib's deflate_fast levels, resolved under a skip map."""
+    return 1 <= level <= 3
+
+
+def bit_words(total: int, b0: int = 0) -> int:
+    """The words of a skip map of positions [b0, total) (b0 a multiple of
+    32), one spare."""
+    return (total - b0 + 31) // 32 + 1
 
 
 def work_bytes(level: int) -> int:
@@ -256,18 +289,21 @@ def _lcp(data, base, total, pos, cur):
     return out
 
 
-def resolve_plain(data, pieces, level: int, head_old=None, ring=None):
+def resolve_plain(data, pieces, level: int, head_old=None, ring=None, bits=None,
+                  bit_stride: int = 0):
     """The plain resolve over piece rows (int64 [P, PIECE_FIELDS], on any
     device): (deltas int16 [n] holding u16, slots int32 [m, 2]) as
     zrs_exact_resolve writes them. The deltas by definition: each position's
-    distance to the last earlier position of [lo, p) with its hash (else
-    head_old's, else 0), capped at 0xffff. The walks longest's, every
-    piece's positions at once, a step of every live walk per candidate;
-    without the anchored pre-reject, which passes over only candidates that
-    cannot beat the best and so changes no result. head_old int32 [32768]
-    and ring (int16 [32768] holding u16) are DS's handle tables."""
+    distance to the last earlier position of [lo, p) with its hash that
+    `bits` leaves in (else head_old's, else 0), capped at 0xffff. The walks
+    longest's, every piece's positions at once, a step of every live walk
+    per candidate; without the anchored pre-reject, which passes over only
+    candidates that cannot beat the best and so changes no result. head_old int32 [32768] and ring
+    (int16 [32768] holding u16) are DS's handle tables; bits (int32 words
+    holding u32) levels 1-3's skip maps, a piece's at P_WORK * bit_stride
+    from its P_LO rounded down to 32 (None: every position in)."""
     if not static_level(level):
-        raise ValueError(f"exact_resolve: level must be 4-9, got {level}")
+        raise ValueError(f"exact_resolve: level must be 1-9, got {level}")
     from ...config import CONFIGURATION_TABLE
 
     dev = data.device
@@ -279,6 +315,7 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None):
     cfg = CONFIGURATION_TABLE[level]
     nice, chain = cfg.nice_length, cfg.max_chain
     data = data.to(torch.int64)
+    words = None if bits is None else unsigned(bits).to(dev)
     for r in rows:  # the deltas: a stable sort of each piece's positions by hash
         base, lo, c0, c1 = r[P_BASE], r[P_LO], r[P_C0], r[P_C1]
         if c1 <= c0:
@@ -288,14 +325,23 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None):
         h = ((data[base + q] << 10) ^ (data[base + q + 1] << 5) ^ data[base + q + 2]) & 0x7FFF
         order = torch.argsort(h * (c1 - q0) + (q - q0))
         hs, qs = h[order], q[order]
-        same = torch.zeros_like(hs, dtype=torch.bool)
-        same[1:] = hs[1:] == hs[:-1]
         if q0 == lo and head_old is not None:
             seed = head_old.to(dev).to(torch.int64)[hs]
         else:
             seed = torch.zeros_like(hs)
+        # the last earlier position of the same hash left in: a running
+        # maximum of (hash, position) over the positions left in
+        left = torch.ones_like(qs, dtype=torch.bool)
+        if words is not None:
+            b0 = lo & ~31
+            w = words[r[P_WORK] * bit_stride + ((qs - b0) >> 5).clamp(min=0)]
+            left = (qs < b0) | (((w >> ((qs - b0) & 31)) & 1) == 0)
+        key = torch.where(left, (hs << 32) + qs, torch.full_like(qs, -1))
+        run = torch.cummax(key, 0).values
+        before = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev), run[:-1]])
+        same = (before >= 0) & ((before >> 32) == hs)
         pred = torch.empty_like(qs)
-        pred[order] = torch.where(same, torch.roll(qs, 1), seed)
+        pred[order] = torch.where(same, before & 0xFFFFFFFF, seed)
         deltas[r[P_DOFF] : r[P_DOFF] + c1 - c0] = (q - pred).clamp(max=0xFFFF)[c0 - q0 :]
 
     # the walks: an entry a position of every piece
@@ -317,8 +363,16 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None):
         dv = torch.where(inside, dv, old)
         return torch.where(dv != 0, x - dv, torch.zeros_like(x))
 
+    greedy = greedy_level(level)
     every = torch.arange(pos.numel(), device=dev)
-    first = prev(torch.minimum(pos, (total - MIN_MATCH).clamp(min=0)), every)
+    if greedy:
+        # no walk: the reach is hash_head's window, max(p - MAX_DIST, 0)
+        live_p = pos + MIN_MATCH <= total
+        slots[slot_at[live_p], 1] = torch.minimum(pos[live_p], torch.full_like(
+            pos[live_p], MAX_DIST))
+        first = prev(pos, every)
+    else:
+        first = prev(torch.minimum(pos, (total - MIN_MATCH).clamp(min=0)), every)
     ok = (pos + MIN_MATCH <= total) & (first > 0) & (pos - first <= MAX_DIST)
     idx = torch.nonzero(ok).flatten()
     pos, cur, base, total = pos[idx], first[idx], base[idx], total[idx]
@@ -328,6 +382,7 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None):
     bd = torch.zeros_like(pos)
     q = torch.zeros_like(pos)
     qset = torch.zeros_like(pos, dtype=torch.bool)
+    reach = torch.zeros_like(pos)
     live = torch.arange(pos.numel(), device=dev)
     n = 0
     while live.numel():
@@ -338,19 +393,56 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None):
         best[live] = torch.where(up, ml, best[live])
         bd[live] = torch.where(up, lp - lc, bd[live])
         brk = up & (ml >= nice_e[live])
-        if n == chain >> 2:
+        if n == chain >> 2 and not greedy:
             snap = live[~brk]
             q[snap] = (best[snap] << 15) | bd[snap]
             qset[snap] = True
         nxt = prev(lc, idx[live])
-        end = brk | (nxt <= limit[live]) | (nxt >= lc) | (n == chain)
+        gone = ~brk & (n != chain) & ((nxt <= limit[live]) | (nxt >= lc))
+        end = brk | (n == chain) | gone
+        # the reach: the last candidate, or the window past limit (and
+        # hash_head, which may lie at limit)
+        reach[live] = torch.where(gone, torch.minimum(limit[live] + 1, lc), lc)
         cur[live] = torch.where(end, lc, nxt)
         live = live[~end]
     full = (best << 15) | bd
     at = slot_at[idx]
     slots[at, 0] = full
-    slots[at, 1] = torch.where(qset, q, full)
+    slots[at, 1] = pos - reach if greedy else torch.where(qset, q, full)
     return deltas.to(torch.int16), slots.to(torch.int32)
+
+
+def dry_plain(pieces, level: int, slots, bits, bit_stride: int, recs=None) -> None:
+    """The plain dry parse (numpy): over piece rows (int64 [P,
+    PIECE_FIELDS]), the resolve's slots (int64 values [*, 2]) and the skip
+    maps `bits` (uint32 words, written in place, a piece's at P_WORK *
+    bit_stride from its P_LO rounded down to 32), as zrs_exact_dry: from
+    max(P_S, the record's spos) (recs int64 [*, REC], or None) to P_E,
+    the map rewritten from start to the end of the word that holds
+    min(e + MAX_MATCH, total) - 1, the bits below start kept."""
+    from ...config import CONFIGURATION_TABLE
+
+    lazy = CONFIGURATION_TABLE[level].max_lazy
+    for r in np.asarray(pieces).tolist():
+        total, e, b0 = r[P_TOTAL], r[P_E], r[P_LO] & ~31
+        off = r[P_WORK] * bit_stride
+        start = r[P_S] if recs is None else max(r[P_S], int(recs[r[P_WORK] * REC + REC_SPOS]))
+        stop = min(e + MAX_MATCH, total)
+        bitv = np.unpackbits(bits[off:].view(np.uint8), bitorder="little")
+        if start < stop:
+            bitv[start - b0 : ((stop - 1 - b0) // 32 + 1) * 32] = 0
+        p = start
+        while p < e:
+            if p + MIN_MATCH <= total:
+                v = int(slots[r[P_SOFF] + p - r[P_S], 0])
+                if v & 0x7FFF:
+                    end = p + min(v >> 15, total - p)
+                    if not (end - p <= lazy and total - end >= MIN_MATCH):
+                        bitv[p + 1 - b0 : end - b0] = 1
+                    p = end
+                    continue
+            p += 1
+        bits[off:] = np.packbits(bitv, bitorder="little").view(np.uint32)
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +463,15 @@ def _fn():
 def _resolve_fn():
     fn = _device.library("exact_deflate").zrs_exact_resolve
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P]
+        fn.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _L, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _dry_fn():
+    fn = _device.library("exact_deflate").zrs_exact_dry
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _I, _I, _P, _P, _P, _L, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -379,7 +479,7 @@ def _resolve_fn():
 def _chase_fn():
     fn = _device.library("exact_deflate").zrs_exact_chase
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P]
+        fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _L, _P, _P, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -389,73 +489,116 @@ def _opt(t):
 
 
 def resolve_cuda(data, pieces, level: int, deltas, slots, chain_blocks: int, walk_blocks: int,
-                 head_old=None, ring=None, count=None) -> None:
+                 head_old=None, ring=None, count=None, bits=None, bit_stride: int = 0) -> None:
     """Launch the resolve over CUDA operands: data uint8, pieces int64 [P,
     PIECE_FIELDS] (with_offsets), deltas int16 and slots int32 [*, 2] to
-    fill; head_old and ring DS's handle tables (uint8 views of its Work);
-    count (int64 [1] or None) adds the candidates the walks compare."""
+    fill (chain_blocks 0 keeps the deltas of an earlier build, walk_blocks
+    0 builds them alone); head_old and ring DS's handle tables (uint8 views
+    of its Work); count (int64 [1] or None) adds the candidates the walks
+    compare; at levels 1-3 bits (int32, or None) the assumed skip maps, a
+    piece's at P_WORK * bit_stride, whose positions the chains leave out."""
     _device.require_cuda("exact_resolve", data, pieces, deltas, slots)
     if not static_level(level):
-        raise ValueError(f"exact_resolve: level must be 4-9, got {level}")
+        raise ValueError(f"exact_resolve: level must be 1-9, got {level}")
+    if bits is not None and not greedy_level(level):
+        raise ValueError("exact_resolve: a skip map is for levels 1-3")
     rc = _resolve_fn()(
         _device.ptr(data), _device.ptr(pieces), pieces.shape[0], level, _opt(head_old), _opt(ring),
         _device.ptr(deltas), _device.ptr(slots), chain_blocks, walk_blocks, _opt(count),
-        _device.stream_of(data),
+        _opt(bits), bit_stride, _device.stream_of(data),
     )
     _device.check(rc, "exact_resolve")
     launches["exact_resolve"] += 1
 
 
+def dry_cuda(pieces, level: int, slots, bits, bit_stride: int, recs=None) -> None:
+    """Launch the dry parse at levels 1-3: one warp a piece follows the
+    last round's slots from max(P_S, its record's spos) (recs None: P_S)
+    and writes the next round's skip map into bits."""
+    _device.require_cuda("exact_dry", pieces, slots, bits)
+    if not greedy_level(level):
+        raise ValueError(f"exact_dry: level must be 1-3, got {level}")
+    rc = _dry_fn()(_device.ptr(pieces), pieces.shape[0], level, _opt(recs), _device.ptr(slots),
+                   _device.ptr(bits), bit_stride, _device.stream_of(slots))
+    _device.check(rc, "exact_dry")
+    launches["exact_dry"] += 1
+
+
 def chase_cuda(data, meta, pieces, level: int, out, lens, st, recs, scratch, slots, deltas,
-               clk=None) -> None:
-    """Launch EX's chase at levels 4-9: one warp a piece of `pieces` (one
+               clk=None, dlist=None, bits=None, bit_stride: int = 0, stats=None) -> None:
+    """Launch EX's chase at levels 1-9: one warp a piece of `pieces` (one
     piece of a chunk a launch), after the resolve of the same pieces; clk
     (int64 [P, 3] or None) takes each warp's clock64 cycles: in all, in
-    flush_block, and of those in emit_symbols."""
+    flush_block, and of those in emit_symbols; at levels 1-3 `deltas` are
+    the last round's chains, `dlist` (int16, as deltas) the chase's
+    scratch, bits holds the maps the slots assumed (the chase leaves the
+    parse's own there) and stats (int64 [2] or None) adds the loop tops
+    and the live walks."""
     _device.require_cuda("exact_deflate", data, meta, pieces, out, recs, scratch, slots, deltas)
     rc = _chase_fn()(
         _device.ptr(data), _device.ptr(meta), _device.ptr(pieces), pieces.shape[0], level,
         _device.ptr(out), _device.ptr(lens), _device.ptr(st), _device.ptr(recs),
-        _device.ptr(scratch), WORK_BYTES, _device.ptr(slots), _device.ptr(deltas), _opt(clk),
-        _device.stream_of(data),
+        _device.ptr(scratch), WORK_BYTES, _device.ptr(slots), _device.ptr(deltas), _opt(dlist),
+        _opt(bits), bit_stride, _opt(clk), _opt(stats), _device.stream_of(data),
     )
     _device.check(rc, "exact_deflate")
     launches["exact_deflate"] += 1
 
 
-def run_static(data, meta, level: int, resolve, chase):
-    """EX at levels 4-9 over `plan`: each round a resolve, then a chase.
-    `resolve(data, pieces, level, deltas, slots, chain_blocks, walk_blocks)`
-    and `chase(data, meta, pieces, level, out, lens, st, recs, scratch,
-    slots, deltas)` are the launches (the CPU tests pass the host build's)."""
+def run_static(data, meta, level: int, resolve, chase, dry=None):
+    """EX at levels 1-9 over `plan`: each round of pieces a resolve, then a
+    chase. At levels 1-3 ROUNDS[level] rounds each build the chains under the skip
+    map and walk them, a dry parse before each but the first, over each
+    batch's maps (zeros to start, bit_words of its longest chunk a chunk).
+    `resolve(data, pieces, level, deltas, slots, chain_blocks,
+    walk_blocks)`, `dry(pieces, level, slots, bits, bit_stride, recs)` and
+    `chase(data, meta, pieces, level, out, lens, st, recs, scratch, slots,
+    deltas)` are the launches (the CPU tests pass the host build's); at
+    levels 1-3 the resolve also takes bits= and bit_stride=, and the chase
+    dlist= (its scratch), bits= and bit_stride=."""
     dev = data.device
     C = meta.shape[0]
+    rows = meta.cpu().tolist()
     nout = out_bytes(meta)
     out = torch.empty(max(nout, 1), dtype=torch.uint8, device=dev)[:nout]
     lens = torch.zeros(C, dtype=torch.int64, device=dev)
     st = torch.zeros(C, dtype=torch.int32, device=dev)
-    for nchunks, rounds in plan(meta.cpu().tolist()):
+    greedy = greedy_level(level)
+    first = 0
+    for nchunks, rounds in plan(rows):
         recs = torch.zeros(nchunks * REC, dtype=torch.int64, device=dev)
         scratch = torch.empty(nchunks * WORK_BYTES, dtype=torch.uint8, device=dev)
+        kw = {}
+        if greedy:
+            stride = max(bit_words(int(r[1]) + int(r[2])) for r in rows[first : first + nchunks])
+            bits = torch.zeros(nchunks * stride, dtype=torch.int32, device=dev)
+            kw = {"bits": bits, "bit_stride": stride}
+        first += nchunks
         for pieces, nd, ns, cb, wb in rounds:
             pt = torch.from_numpy(pieces).to(dev)
             deltas = torch.empty(max(nd, 1), dtype=torch.int16, device=dev)
             slots = torch.empty(max(ns, 1), 2, dtype=torch.int32, device=dev)
-            resolve(data, pt, level, deltas, slots, cb, wb)
-            chase(data, meta, pt, level, out, lens, st, recs, scratch, slots, deltas)
+            for r in range(ROUNDS[level] if greedy else 1):
+                if r:
+                    dry(pt, level, slots, bits, stride, recs)
+                resolve(data, pt, level, deltas, slots, cb, wb, **kw)
+            more = {"dlist": torch.empty_like(deltas), **kw} if greedy else {}
+            chase(data, meta, pt, level, out, lens, st, recs, scratch, slots, deltas, **more)
     return out, lens, st
 
 
 def exact_deflate_cuda(data, meta, level: int):
     """Launch EX over CUDA operands: data uint8 [N], meta int64 [C, META].
     One warp a chunk, at most MAX_SLOTS warps (each loops over its share
-    of the chunks), each with work_bytes(level) of scratch; at levels 4-9
-    the resolve and the chase a round (run_static). Room a chunk did not
-    fill is left unwritten (the plain version's is 0)."""
+    of the chunks), each with work_bytes(level) of scratch; at levels 1-9
+    the resolve and the chase a round (run_static; at 1-3 with the dry
+    parse). Room a chunk did not fill is left unwritten (the plain
+    version's is 0)."""
     _device.require_cuda("exact_deflate", data, meta)
     _check(data, meta, level, "exact_deflate")
     if static_level(level):
-        return run_static(data.contiguous(), meta.contiguous(), level, resolve_cuda, chase_cuda)
+        return run_static(data.contiguous(), meta.contiguous(), level, resolve_cuda, chase_cuda,
+                          dry_cuda)
     dev = data.device
     C = meta.shape[0]
     nout = out_bytes(meta)
