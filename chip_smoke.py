@@ -118,15 +118,17 @@ past int32) back to its input with its seconds and peak device memory
 (phase 40, run before the bench); EX (csrc/exact_deflate.cu, the native
 engine's encode half) against its plain version on 16 KiB rows at every
 level 0-9, QUICK and MEDIUM4-6, primed and not, final and not, the
-resolve's deltas and slots at levels 1-9 (at 1-3 under two skip maps)
-and the levels 1-3 dry parse against their plain versions on the same
-rows, then `deflate_parallel` of the corpus at levels 1, 2, 3, 6 and 9,
-every 128 KiB chunk equal to stdlib zlib's primed raw deflate, QUICK and
-MEDIUM4-6 back through zlib, EX's ms a call, at levels 6 and 9 the
-resolve's, the chase's and flush_block's ms and at 1-3 the resolve's,
-the dry parse's and the chase's at EK.ROUNDS rounds with the live walks
-a loop top, at levels 1 and 3 the dry parse and the next round's resolve
-against their plain versions at the main path's shape, and the one-shot
+resolve's deltas and slots at levels 1-9 and MEDIUM4-6 (at 1-3 and
+MEDIUM under two skip maps) and the dry parse of 1-3 and MEDIUM against
+their plain versions on the same rows, then `deflate_parallel` of the
+corpus at levels 1, 2, 3, 6 and 9, every 128 KiB chunk equal to stdlib
+zlib's primed raw deflate, QUICK and MEDIUM4-6 back through zlib (MEDIUM
+on the resolve and the chase, no one-warp launch), EX's ms a call, at
+levels 6 and 9 the resolve's, the chase's and flush_block's ms and at
+1-3 and MEDIUM4-6 the resolve's, the dry parse's and the chase's at
+EK.ROUNDS rounds with the live walks a loop top (`ex_split` lines), at
+levels 1, 3, MEDIUM4 and MEDIUM6 the dry parse and the next round's
+resolve against their plain versions at the main path's shape, and the one-shot
 `compress` of 1 MiB at levels 1, 2, 3, 6 and 9 and of the corpus at
 level 6 (two pieces) equal to zlib.compress
 (phase 41); the one-shot
@@ -136,8 +138,9 @@ inflate_speculative from 16 KiB to 1 MiB, and the CLI's `--quick`,
 `--medium`, `--engine native` and `-d --engine native` (two gzip
 members) in processes (phase 42); DS at MEDIUM4-6 against its plain
 version on pump scripts, `native.RawDeflateStream` over 1 MiB at each
-MEDIUM level, a MEDIUM5 pump's event ms and bytes against the plain
-version's, one MEDIUM5 stream past DS's 1 MiB prune held pump for pump
+MEDIUM level, a MEDIUM5 pump's event ms (the resolve, then the chase and
+its tables) and bytes against the plain version's, one MEDIUM5 stream
+past DS's 1 MiB prune held pump for pump
 against the plain version, and the K6 and SP launches of
 `native.inflate_parallel` and `native.inflate_raw` (phase 44, after the
 stream path's phase 43); `python -m zlib_rs_tpu_torch.bench` within the time left, its last line under 500
@@ -2895,13 +2898,17 @@ def ex_split(torch, EK, dev, data_t, meta, level: int, reps: int = 3) -> dict:
 
 
 def ex_split_greedy(torch, EK, dev, data_t, meta, level: int, reps: int = 3) -> dict:
-    """EX at levels 1-3 over one round of meta's chunks, by CUDA events (a
-    mean of `reps` after a warm-up, EK.ROUNDS[level] rounds): the resolve's
-    ms a round (the chains under the map and the walks), the dry parse's ms
-    a parse and the chase's ms (and of it flush_block's, by the slowest
-    warp's clock64 share), with the chase's loop tops and live walks and
-    the candidates a round's walks compare."""
-    [(nch, [(pieces, nd, ns, cb, wb)])] = EK.plan(meta.cpu().tolist())
+    """EX at levels 1-3 and MEDIUM over one round of meta's chunks, by CUDA
+    events (a mean of `reps` after a warm-up, EK.ROUNDS[level] rounds): the
+    resolve's ms a round (the chains under the map and the walks), the dry
+    parse's ms a parse and the chase's ms (and of it flush_block's, by the
+    slowest warp's clock64 share), with the chase's loop tops and live
+    walks (MEDIUM: its walks, a loop top's and the lookahead's) and the
+    candidates a round's walks compare."""
+    import numpy as np
+
+    medium = EK.is_medium(level)
+    [(nch, [(pieces, nd, ns, cb, wb)])] = EK.plan(meta.cpu().tolist(), level=level)
     pt = torch.from_numpy(pieces).to(dev)
     deltas = torch.empty(nd, dtype=torch.int16, device=dev)
     dlist = torch.empty_like(deltas)
@@ -2912,21 +2919,31 @@ def ex_split_greedy(torch, EK, dev, data_t, meta, level: int, reps: int = 3) -> 
     recs = torch.zeros(nch * EK.REC, dtype=torch.int64, device=dev)
     scratch = torch.empty(nch * EK.WORK_BYTES, dtype=torch.uint8, device=dev)
     stride = max(EK.bit_words(int(m[1] + m[2])) for m in meta.tolist())
-    bits = torch.zeros(nch * stride, dtype=torch.int32, device=dev)
+    first = torch.zeros(nch * stride, dtype=torch.int32, device=dev)
+    if medium:
+        first = torch.from_numpy(EK.medium_map(meta.tolist(), stride).view(np.int32)).to(dev)
+    bits = first.clone()
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
     clk = torch.zeros(pieces.shape[0], 3, dtype=torch.int64, device=dev)
     rounds = EK.ROUNDS[level]
     res_ms = dry_ms = chase_ms = 0.0
     saved = dict(EK.launches)
+    extra = {"data": data_t} if medium else {}
+    share = None
+    if medium:  # the rounds run_static takes: the first round's long matches decide
+        EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, bits=bits, bit_stride=stride)
+        share = EK.long_share(slots, level)
+        if rounds > 1 and not EK.take_round(level, slots):
+            rounds = 1
     for rep in range(reps + 1):
-        bits.zero_()
+        bits.copy_(first)
         stats.zero_()
         count.zero_()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * rounds + 1)]
         for r in range(rounds):
             if r:
-                EK.dry_cuda(pt, level, slots, bits, stride, recs)
+                EK.dry_cuda(pt, level, slots, bits, stride, recs, **extra)
             ev[2 * r].record()
             EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, count=count, bits=bits,
                             bit_stride=stride)
@@ -2945,7 +2962,8 @@ def ex_split_greedy(torch, EK, dev, data_t, meta, level: int, reps: int = 3) -> 
     tops, lives = stats.tolist()
     c = clk.cpu()
     slow = int(c[:, 0].argmax())
-    return {"rounds": rounds, "resolve_ms": res_ms, "dry_ms": dry_ms, "chase_ms": chase_ms,
+    return {"rounds": rounds, "long_share": share, "resolve_ms": res_ms, "dry_ms": dry_ms,
+            "chase_ms": chase_ms,
             "flush_ms": chase_ms * float(c[slow, 1]) / float(c[slow, 0]),
             "tops": tops, "lives": lives, "live_share": lives / max(tops, 1), "positions": ns,
             "chain_positions": nd, "candidates": int(count.item()) // rounds}
@@ -3022,21 +3040,25 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
           f"primed and not, final and not) and an overflowing row equal to plain in bytes, "
           f"lengths and status", flush=True)
 
-    # -- the resolve (levels 1-9) and the dry parse (1-3) against their
-    # plain versions on the rows ------------------------------------------
+    # -- the resolve (levels 1-9, MEDIUM4-6) and the dry parse (1-3,
+    # MEDIUM4-6) against their plain versions on the rows ----------------
     t0 = time.perf_counter()
     res_pairs, dry_pairs = [], []
-    for level in range(1, 10):
-        rs = meta_of(ex_rows(corpus, level), level).tolist()
-        pieces, nd, ns, cb, wb = EK.with_offsets([EK.ex_piece(m, m[2], k, k)
-                                                  for k, m in enumerate(rs)])
+    for level in (*range(1, 10), *MEDIUM_LEVELS):
+        medium = EK.is_medium(level)
+        rs = meta_of(ex_rows(corpus, level % 10), level).tolist()
+        pieces, nd, ns, cb, wb = EK.with_offsets([EK.ex_piece(m, m[2], k, k, EK.PIECE, medium)
+                                                  for k, m in enumerate(rs)], medium)
         pt = torch.from_numpy(pieces).to(dev)
         stride = max(EK.bit_words(int(m[1] + m[2])) for m in rs)
         rng = np.random.default_rng(level)
         # a quarter of the positions skipped, at random
         rand = (rng.integers(0, 1 << 32, len(rs) * stride, dtype=np.uint64)
                 & rng.integers(0, 1 << 32, len(rs) * stride, dtype=np.uint64)).astype(np.uint32)
-        maps = [np.zeros_like(rand), rand] if EK.greedy_level(level) else [None]
+        first = EK.medium_map(rs, stride) if medium else np.zeros_like(rand)
+        maps = [first, rand] if EK.mapped_level(level) else [None]
+        recs = torch.zeros(len(rs) * EK.REC, dtype=torch.int64, device=dev)
+        more = {"recs": recs, "data": data_t} if medium else {}
         for words in maps:
             kw = {} if words is None else {
                 "bits": torch.from_numpy(words.view(np.int32).copy()).to(dev), "bit_stride": stride}
@@ -3046,19 +3068,20 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
             want_d, want_s = EK.resolve_plain(data_t, pt, level, **kw)
             res_pairs += [(EK.unsigned(deltas), EK.unsigned(want_d)), (slots, want_s)]
             if words is not None:
-                EK.dry_cuda(pt, level, slots, kw["bits"], stride)
+                EK.dry_cuda(pt, level, slots, kw["bits"], stride, **more)
                 plain = words.copy()
-                EK.dry_plain(pieces, level, slots.cpu().numpy().astype(np.int64), plain, stride)
+                EK.dry_plain(pieces, level, slots.cpu().numpy().astype(np.int64), plain, stride,
+                             recs.cpu().numpy() if medium else None, corpus if medium else None)
                 dry_pairs.append((EK.unsigned(kw["bits"]).cpu(),
                                   torch.from_numpy(plain.astype(np.int64))))
     res_err, dry_err = max_abs(res_pairs), max_abs(dry_pairs)
     if res_err or dry_err:
         raise AssertionError(f"the resolve or the dry parse disagrees with its plain version: "
                              f"max abs err {res_err}, {dry_err}")
-    print(f"phase 41 resolve: the deltas and slots of phase 41's rows at levels 1-9 (at 1-3 "
-          f"under no skipped position and under a random map) equal to plain, max abs err "
-          f"{res_err}; the dry parse of those at 1-3 equal to plain, max abs err {dry_err} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"phase 41 resolve: the deltas and slots of phase 41's rows at levels 1-9 and MEDIUM4-6 "
+          f"(at 1-3 and MEDIUM under the first round's map and under a random map) equal to "
+          f"plain, max abs err {res_err}; the dry parse of those at 1-3 and MEDIUM equal to "
+          f"plain, max abs err {dry_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # -- the main path: deflate_parallel at levels 1, 6 and 9 --------------
     chunk = CD.DEFAULT_CHUNK
@@ -3096,10 +3119,19 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         print(f"phase 41 deflate_parallel level {level}: {digest(out)}, equal to zlib on all "
               f"{len(starts)} chunks; cold {cold:.3f} s, warm {[round(w, 4) for w in walls]} s "
               f"(median {mbs[1]:.3f} MB/s)", flush=True)
+    medium_launches = {}
     for level in (CD.QUICK, CD.MEDIUM4, CD.MEDIUM5, CD.MEDIUM6):
+        EK.launches.update(dict.fromkeys(EK.launches, 0))
         out = CD.deflate_parallel(corpus, level)
         if zlib.decompress(out, -15) != corpus:
             raise AssertionError(f"deflate_parallel in mode {level} does not round-trip")
+        if EK.is_medium(level):  # the resolve's rounds and one chase, no one-warp run_medium
+            medium_launches[level] = dict(EK.launches)
+            r = EK.launches["exact_resolve"]
+            if not 1 <= r <= EK.ROUNDS[level] or medium_launches[level] != {
+                    "exact_deflate": 1, "exact_resolve": r, "exact_dry": r - 1}:
+                raise AssertionError(f"deflate_parallel at MEDIUM {level} launched "
+                                     f"{medium_launches[level]}")
         first = [EK.plain_chunk(corpus[lo : lo + chunk], level, False,
                                 corpus[max(0, lo - 32768) : lo]) for lo in starts[:2]]
         meta = meta_of([(lo, chunk, min(32768, lo), 0) for lo in starts[:2]], level)
@@ -3114,7 +3146,8 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
             CD.deflate_parallel(corpus, level)
             walls.append(time.perf_counter() - t0)
         mbs = sorted(n / w / 1e6 for w in walls)
-        result["modes"][level] = {"bytes": len(out), "warm_s": walls, "mb_s_median": mbs[1]}
+        result["modes"][level] = {"bytes": len(out), "warm_s": walls, "mb_s_median": mbs[1],
+                                  "sha256": hashlib.sha256(out).hexdigest()}
         print(f"phase 41 deflate_parallel mode {level}: {digest(out)}, round trip through zlib, "
               f"first two chunks equal to plain; warm {[round(w, 4) for w in walls]} s (median "
               f"{mbs[1]:.3f} MB/s)", flush=True)
@@ -3153,6 +3186,24 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
               f"{g['live_share']:.4f}; {g['candidates']} candidates a round", flush=True)
     result["greedy"] = greedy
     g1 = greedy[1]
+    # MEDIUM4-6: the call and its split (EK.ROUNDS[level] rounds; a walk a
+    # fresh loop top and one a lookahead)
+    mediums = {}
+    for level in MEDIUM_LEVELS:
+        meta = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
+                        for lo in starts], level)
+        call = event_ms(torch, lambda: EK.exact_deflate_cuda(data_t, meta, level), 3)
+        g = ex_split_greedy(torch, EK, dev, data_t, meta, level)
+        g["call_ms"] = call
+        mediums[level] = g
+        rounds = g["rounds"]
+        print(f"phase 41 ex_split MEDIUM{level - 7}: call {call:.3f} ms; resolve "
+              f"{g['resolve_ms']:.3f} ms a round x {rounds}, dry parse {g['dry_ms']:.3f} ms x "
+              f"{rounds - 1}, chase {g['chase_ms']:.3f} ms (flush_block {g['flush_ms']:.3f} ms "
+              f"of it); live walks {g['lives']} / walks {g['tops']} = {g['live_share']:.4f}; "
+              f"{g['candidates']} candidates a round; long matches "
+              f"{g['long_share']:.4f} of the first round's slots", flush=True)
+    result["medium"] = mediums
 
     # the dry parse and the resolve under its map at the main path's shape
     # (levels 1 and 3): the first round over the corpus chunks as
@@ -3162,30 +3213,40 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
     # on chunk 1 and the last
     t0 = time.perf_counter()
     main_dry, main_res = [], []
-    for level in (1, 3):
+    for level in (1, 3, CD.MEDIUM4, CD.MEDIUM6):
+        medium = EK.is_medium(level)
         meta = meta_of([(lo, min(n, lo + chunk) - lo, min(32768, lo), int(lo + chunk >= n))
                         for lo in starts], level)
         rs = meta.cpu().tolist()
-        [(nch, [(pieces, nd, ns, cb, wb)])] = EK.plan(rs)
+        [(nch, [(pieces, nd, ns, cb, wb)])] = EK.plan(rs, level=level)
         pt = torch.from_numpy(pieces).to(dev)
         stride = max(EK.bit_words(int(m[1]) + int(m[2])) for m in rs)
         bits = torch.zeros(nch * stride, dtype=torch.int32, device=dev)
+        if medium:
+            bits = torch.from_numpy(EK.medium_map(rs, stride).view(np.int32)).to(dev)
         recs = torch.zeros(nch * EK.REC, dtype=torch.int64, device=dev)
         deltas = torch.empty(nd, dtype=torch.int16, device=dev)
         slots = torch.empty(ns, 2, dtype=torch.int32, device=dev)
         EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, bits=bits, bit_stride=stride)
         plain = bits.cpu().numpy().view(np.uint32).copy()
-        EK.dry_cuda(pt, level, slots, bits, stride, recs)
-        EK.dry_plain(pieces, level, slots.cpu().numpy().astype(np.int64), plain, stride,
-                     recs.cpu().numpy())
-        main_dry.append((EK.unsigned(bits).cpu(), torch.from_numpy(plain.astype(np.int64))))
+        EK.dry_cuda(pt, level, slots, bits, stride, recs, **({"data": data_t} if medium else {}))
+        # MEDIUM's plain dry parse (a Python step a walk) on three chunks
+        held = pieces[[0, 1, len(rs) - 1]] if medium else pieces
+        EK.dry_plain(held, level, slots.cpu().numpy().astype(np.int64), plain, stride,
+                     recs.cpu().numpy(), corpus if medium else None)
+        got_w = EK.unsigned(bits).cpu()
+        for r in held if medium else pieces[:1]:
+            w0 = int(r[EK.P_WORK]) * stride if medium else 0
+            w1 = w0 + stride if medium else len(plain)
+            main_dry.append((got_w[w0:w1], torch.from_numpy(plain[w0:w1].astype(np.int64))))
         EK.resolve_cuda(data_t, pt, level, deltas, slots, cb, wb, bits=bits, bit_stride=stride)
         for k in (1, len(rs) - 1):
             r = pieces[k]
-            one = torch.from_numpy(EK.with_offsets([r.tolist()])[0]).to(dev)
+            one = torch.from_numpy(EK.with_offsets([r.tolist()], medium)[0]).to(dev)
             want_d, want_s = EK.resolve_plain(data_t, one, level, bits=bits, bit_stride=stride)
             d0, s0 = int(r[EK.P_DOFF]), int(r[EK.P_SOFF])
-            nd1, ns1 = int(r[EK.P_C1] - r[EK.P_C0]), int(r[EK.P_E] - r[EK.P_S])
+            nd1 = int(r[EK.P_C1] - r[EK.P_C0])
+            ns1 = EK.slot_end(r, medium) - int(r[EK.P_S])
             main_res += [(EK.unsigned(deltas[d0 : d0 + nd1]), EK.unsigned(want_d[:nd1])),
                          (slots[s0 : s0 + ns1], want_s)]
     main_dry_err, main_res_err = max_abs(main_dry), max_abs(main_res)
@@ -3194,11 +3255,11 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
                              f"map disagrees with its plain version: max abs err {main_dry_err}, "
                              f"{main_res_err}")
     dry_err, res_err = max(dry_err, main_dry_err), max(res_err, main_res_err)
-    print(f"phase 41 main shape: levels 1 and 3 over {len(starts)} chunks of {chunk} bytes: the "
-          f"dry parse of the first round equal to plain on every chunk, max abs err "
-          f"{main_dry_err}; the second round's resolve under that map equal to plain on chunks 1 "
-          f"and {len(starts) - 1}, max abs err {main_res_err} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"phase 41 main shape: levels 1, 3, MEDIUM4 and MEDIUM6 over {len(starts)} chunks of "
+          f"{chunk} bytes: the dry parse of the first round equal to plain on every chunk (MEDIUM: "
+          f"chunks 0, 1 and {len(starts) - 1}), max abs err {main_dry_err}; the second round's "
+          f"resolve under that map equal to plain on chunks 1 and {len(starts) - 1}, max abs err "
+          f"{main_res_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
     # the batch loop: the level-6 chunks in batches cut by ROUND positions,
     # then by MAX_SLOTS chunks, a resolve and a chase a batch, each chunk
     # equal to zlib's
@@ -3239,6 +3300,9 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         bnd=bound(n + window_bytes + nout, 0),
         **{f"level{lv}_ms": greedy[lv]["call_ms"] for lv in (1, 2, 3)},
         level1_chase_ms=g1["chase_ms"], rounds=dict(EK.ROUNDS), live_share=g1["live_share"],
+        **{f"medium{lv - 7}_ms": mediums[lv]["call_ms"] for lv in MEDIUM_LEVELS},
+        **{f"medium{lv - 7}_chase_ms": mediums[lv]["chase_ms"] for lv in MEDIUM_LEVELS},
+        medium_launches=medium_launches,
     )
     first_piece = torch.from_numpy(EK.with_offsets([EK.ex_piece(meta6[0].tolist(), 0, 0, 0)])[0])
     _p, res_plain_ms = timed_ms(torch, lambda: EK.resolve_plain(data_t, first_piece.to(dev), 6))
@@ -3255,6 +3319,8 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
                   2 * s6["candidates"]),
         level1_ms=g1["resolve_ms"], level3_ms=greedy[3]["resolve_ms"],
         level1_launches=launched1["exact_resolve"],
+        **{f"medium{lv - 7}_ms": mediums[lv]["resolve_ms"] for lv in MEDIUM_LEVELS},
+        medium5_launches=medium_launches[CD.MEDIUM5]["exact_resolve"],
     )
     # the dry parse (levels 1-3): its time on the main path's shape, its
     # plain version's on the first chunk, and its bound: each loop top's
@@ -3278,6 +3344,9 @@ def exact_deflate_phase(torch, dev, corpus, rows) -> dict:
         max_abs_err=dry_err, ms=g1["dry_ms"], plain_ms=dry_plain_ms, plain_rows=1,
         launches=launched1["exact_dry"], level3_ms=greedy[3]["dry_ms"],
         bnd=bound(8 * g1["tops"] + (g1["positions"] + 7) // 8, g1["tops"]),
+        **{f"medium{lv - 7}_ms": mediums[lv]["dry_ms"] for lv in MEDIUM_LEVELS
+           if mediums[lv]["rounds"] > 1},
+        medium5_launches=medium_launches[CD.MEDIUM5]["exact_dry"],
     )
     print(f"phase 41 EX level 6: {call_ms:.3f} ms a call ({len(starts)} chunks: the resolve, "
           f"one warp a chunk's chase), level 9 {call9_ms:.3f} ms; plain {plain_ms:.1f} ms for "
@@ -3418,12 +3487,12 @@ def ds_pump_ms(torch, DS, EK, dev, corpus, level: int, reps: int = 3) -> dict:
     events from a saved record and Work (copied back before each rep, a
     mean of `reps` after a warm-up): the resolve's ms (its operands staged
     before the first event, so that the span holds only its launches; at
-    levels 1-3 all EK.ROUNDS[level] rounds and the dry parses between them, with
-    the resolve's ms a round and the dry parse's apart), then DS's (the
-    chase, at 1-3 the chains of the inserted positions, and ds_tables),
-    with the chase's clock64 share in flush_block and at 1-3 its loop tops,
-    live walks and walks of slots that gave up; the pump's output (uint8
-    on the card) and length."""
+    levels 1-3 and MEDIUM all EK.ROUNDS[level] rounds and the dry parses
+    between them, with the resolve's ms a round and the dry parse's apart),
+    then DS's (the chase, at 1-3 and MEDIUM the chains of the inserted
+    positions, and ds_tables), with the chase's clock64 share in
+    flush_block and at 1-3 and MEDIUM its loop tops (MEDIUM: its walks)
+    and live walks; the pump's output (uint8 on the card) and length."""
     from zlib_rs_tpu_torch._device import ptr as _ptr
 
     pump = STREAM_PUMP
@@ -3442,13 +3511,19 @@ def ds_pump_ms(torch, DS, EK, dev, corpus, level: int, reps: int = 3) -> dict:
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     res_ms = ds_ms = round_ms = dry_ms = 0.0
     saved = dict(EK.launches)
-    pt = deltas = slots = bits = dlist = None  # MEDIUM: no resolve
+    pt = deltas = slots = bits = dlist = None
     cb = wb = n_slots = span = 0
-    if EK.static_level(level):
+    if DS.resolved(d.rec):
         pt, cb, wb, deltas, slots, n_slots, span, bits, dlist = DS.resolve_operands(d.rec, dev)
     greedy = bits is not None
     rounds = EK.ROUNDS[level] if greedy else (1 if EK.static_level(level) else 0)
-    tables = {"head_old": d.work, "ring": d.work[4 * EK.HASH_SIZE :], "bits": bits}
+    head, ring = DS.handle_tables(d.work, level)
+    tables = {"head_old": head, "ring": ring, "bits": bits}
+    more = {"recs": rec_dev, "data": d.data} if EK.is_medium(level) else {}
+    if EK.is_medium(level) and rounds > 1:  # the rounds the pump takes (EK.take_round)
+        EK.resolve_cuda(d.data, pt, level, deltas, slots, cb, wb, **tables)
+        if not EK.take_round(level, slots):
+            rounds = 1
     for rep in range(reps + 1):
         d.work.copy_(work)
         rec_dev.copy_(snap)
@@ -3459,14 +3534,14 @@ def ds_pump_ms(torch, DS, EK, dev, corpus, level: int, reps: int = 3) -> dict:
         ev[0].record()
         for r in range(rounds):
             if r:
-                EK.dry_cuda(pt, level, slots, bits, 0)
+                EK.dry_cuda(pt, level, slots, bits, 0, **more)
             marks[2 * r].record()
             EK.resolve_cuda(d.data, pt, level, deltas, slots, cb, wb, **tables)
             marks[2 * r + 1].record()
         ev[1].record()
         fn(_ptr(rec_dev), _ptr(d.data), _ptr(d.work), _ptr(out), EK._opt(slots), n_slots,
            EK._opt(deltas), EK._opt(dlist), span, EK._opt(pt), cb, EK._opt(bits), _ptr(clk),
-           _ptr(stats), torch.cuda.current_stream().cuda_stream)
+           _ptr(stats), level, torch.cuda.current_stream().cuda_stream)
         ev[2].record()
         torch.cuda.synchronize()
         if rep:
@@ -3695,7 +3770,8 @@ MEDIUM_PRUNE_BYTES = (1 << 20) + (256 << 10)  # phase 44's stream past DS's prun
 
 
 def medium_stream_phase(torch, dev, corpus, rows) -> dict:
-    """Phase 44: DS at MEDIUM4-6 (run_medium under zrs_dstream_pump).
+    """Phase 44: DS at MEDIUM4-6 (the resolve, then run_medium_slots under
+    zrs_dstream_pump; native's serial run_medium after a FULL_FLUSH).
     First DS against its plain version (models.medium.MediumStream, which
     the CPU tests hold to native's handle pump for pump) on pump scripts
     over 64 KiB of the corpus: 1-byte pumps over the first 4 KiB at MEDIUM4,
@@ -3704,9 +3780,10 @@ def medium_stream_phase(torch, dev, corpus, rows) -> dict:
     stream decoded by zlib. Then a `native.RawDeflateStream` over 1 MiB of
     the corpus at each level in 128 KiB NO_FLUSH pumps and a FINISH,
     decoded by zlib, in MB/s of input; DS's ms for one 128 KiB MEDIUM5
-    NO_FLUSH pump by CUDA events (the launch alone, from a saved record and
-    Work), beside its bound and its plain version's ms, its bytes equal to
-    the plain version's; one MEDIUM5 stream of 1.25 MiB in 128 KiB pumps
+    NO_FLUSH pump by CUDA events (ds_pump_ms: the resolve, then the chase
+    and its tables, from a saved record and Work), beside its bound and its
+    plain version's ms, its bytes equal to the plain version's, and its
+    split; one MEDIUM5 stream of 1.25 MiB in 128 KiB pumps
     against the plain version pump for pump, which the wrapper prunes past
     1 MiB (rebasing head4 and the next match on the card). Last, the native
     bench rows' decode paths in process: `native.inflate_parallel` of the
@@ -3790,7 +3867,8 @@ def medium_stream_phase(torch, dev, corpus, rows) -> dict:
               f"({len(mib) / wall / 1e6:.3f} MB/s)", flush=True)
 
     timed = ds_pump_ms(torch, DS, EK, dev, corpus, 12)
-    ms, ds_out, out = timed["ds_ms"], timed["out_len"], timed["out"]
+    ds_out, out = timed["out_len"], timed["out"]
+    ms = timed["resolve_ms"] + timed["ds_ms"]
     pd = DS.Plain(12)
     pd.pump(corpus[:pump], 0)
     t0 = time.perf_counter()
@@ -3803,11 +3881,18 @@ def medium_stream_phase(torch, dev, corpus, rows) -> dict:
         raise AssertionError(f"the timed MEDIUM5 pump gave {ds_out} bytes, plain "
                              f"{len(plain_out)}, max abs err {timed_err}")
     b_ms, _by = bound(pump + 32768 + ds_out, 0)
-    rows["dstream"].update(medium_ms=ms, medium_plain_ms=plain_ms, medium_bound_ms=b_ms)
-    result.update(medium5_pump_ms=ms, medium5_plain_ms=plain_ms, medium5_pump_err=timed_err)
+    rows["dstream"].update(medium_ms=ms, medium_plain_ms=plain_ms, medium_bound_ms=b_ms,
+                           medium_resolve_ms=timed["resolve_ms"], medium_ds_ms=timed["ds_ms"])
+    result.update(medium5_pump_ms=ms, medium5_plain_ms=plain_ms, medium5_pump_err=timed_err,
+                  medium5_split={k: timed[k] for k in ("resolve_ms", "round_ms", "dry_ms",
+                                                       "ds_ms", "flush_ms", "rounds", "tops",
+                                                       "lives")})
     print(f"phase 44 DS MEDIUM5: {ms:.3f} ms for a 128 KiB NO_FLUSH pump ({ds_out} bytes out, "
-          f"equal to plain, max abs err {timed_err}; bound {b_ms:.6f} ms by bytes), plain "
-          f"{plain_ms:.1f} ms", flush=True)
+          f"equal to plain, max abs err {timed_err}; bound {b_ms:.6f} ms by bytes) = the resolve "
+          f"{timed['resolve_ms']:.3f} ms ({timed['rounds']} rounds of {timed['round_ms']:.3f} ms, "
+          f"dry parse {timed['dry_ms']:.3f} ms) + DS {timed['ds_ms']:.3f} ms (flush_block "
+          f"{timed['flush_ms']:.3f} ms; live walks {timed['lives']} / walks {timed['tops']}); "
+          f"plain {plain_ms:.1f} ms", flush=True)
 
     # one MEDIUM5 stream past PRUNE + 32 KiB in 128 KiB pumps, pump for
     # pump against the plain version: the wrapper prunes the buffer and

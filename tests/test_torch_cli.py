@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.cli as jcli
 import zlib_rs_tpu.models.deflate as jdeflate
 import zlib_rs_tpu.models.oneshot as joneshot

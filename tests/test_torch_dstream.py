@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 from zlib_rs_tpu import native as jnative
 from zlib_rs_tpu_torch import native as tnative
 from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DK
@@ -255,6 +257,74 @@ def test_medium_stream_past_1mib_prunes_and_rebases(monkeypatch, host_ds, level)
     assert zlib.decompress(b"".join(got), -15) == data
     assert handle.rec[DK.D_TOTAL] <= len(data) - DK.PRUNE  # the prune ran
     assert handle.work.numel() == DK.WORK_BYTES + 320 * 1024  # Work, then Work4
+
+
+def _medium_tables(handle) -> tuple:
+    """A MEDIUM handle's head4 (int32 [65536]) and prevd4 (u16 [32768])."""
+    w4 = handle.work[DK.WORK_BYTES :]
+    head4 = w4[: 4 * DK.HASH4_SIZE].view(torch.int32).numpy().astype(np.int64)
+    prevd4 = w4[4 * DK.HASH4_SIZE : 4 * DK.HASH4_SIZE + 2 * 32768].view(torch.int16).numpy()
+    return head4, prevd4.astype(np.int64) & 0xFFFF
+
+
+MEDIUM_SOURCES = {
+    "binary": _BASH[120_000:160_000],
+    # runs of one byte: 257 and 258 matches, whose interiors MEDIUM4/5 never insert
+    "runs": (bytes(2000) + _rng.integers(0, 256, 40, dtype=np.uint8).tobytes() + b"\x07" * 900 +
+             b"ab" * 400) * 6,
+}
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+@pytest.mark.parametrize("source", sorted(MEDIUM_SOURCES))
+def test_medium_tables_after_each_pump_equal_natives_inserts(monkeypatch, host_ds, level, source):
+    """DS's source at MEDIUM4-6 (the resolve over hash4's chains, the
+    checked chase, the tables rebuilt under the parse's own map): after
+    each pump of a script of 1-byte pumps and NO/SYNC/FULL/FINISH pumps of
+    1 byte to 9 KB, pump for pump native's bytes, and head4 and prevd4 as
+    native's serial inserts leave them. After a FULL_FLUSH head4 keeps the
+    old window's positions and the pumps take native's serial inserts
+    (D_MED_STALE), its stale heads included."""
+    monkeypatch.setattr(DK, "pump", host_ds)
+    data = MEDIUM_SOURCES[source]
+    rng = random.Random(level + len(source))
+    script = [("pump", data[i : i + 1], 0) for i in range(300)]
+    script += scripted(data[300:], rng, [1, 50, 700, 3000, 9000], flushes=(0, 0, 0, 2))[:-1]
+    script += [("pump", b"", 3), ("pump", data[:5000], 0), ("pump", data[5000:9000], 2),
+               ("pump", b"", 4)]
+    handle = DK.Handle(level, "cpu")
+    s = tnative.RawDeflateStream(level, _handle=handle)
+    plain = DK.Plain(level)
+    jn = jnative.RawDeflateStream(level)
+    stale_seen = False
+    for k, (_kind, chunk, flush) in enumerate(script):
+        got = s.pump(chunk, flush)
+        assert got == plain.pump(chunk, flush) == jn.pump(chunk, flush), k
+        head4, prevd4 = _medium_tables(handle)
+        assert np.array_equal(head4, np.array(plain.z.head4, np.int64)), k
+        assert np.array_equal(prevd4, np.array(plain.z.prevd4, np.int64)), k
+        stale_seen |= bool(handle.rec[DK.D_MED_STALE])
+        assert bool(handle.rec[DK.D_MED_STALE]) == any(f == 3 for _k, _c, f in script[: k + 1])
+    assert stale_seen
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_pumps_before_a_full_flush_take_the_slots(monkeypatch, host_ds, level):
+    """Until a FULL_FLUSH, every MEDIUM pump of the card's handle runs the
+    resolve (the launch has its slots); the plain version's bytes."""
+    seen = []
+
+    def pump(rec, data, work, out, rec_dev=None):
+        seen.append((DK.resolved(rec), int(rec[DK.D_MED_STALE])))
+        host_ds(rec, data, work, out)
+
+    monkeypatch.setattr(DK, "pump", pump)
+    data = MEDIUM_SOURCES["runs"][:20_000]
+    h, p = DK.Handle(level, "cpu"), DK.Plain(level)
+    for chunk, flush in ((data[:7000], 0), (data[7000:9000], 2), (data[9000:], 3),
+                         (data[:3000], 0), (b"", 4)):
+        assert h.pump(chunk, flush) == p.pump(chunk, flush)
+    assert seen == [(True, 0)] * 3 + [(False, 1)] * 2
 
 
 def test_wrapper_refuses_cpu_state_and_no_gpu_raises(monkeypatch):

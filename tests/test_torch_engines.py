@@ -16,6 +16,8 @@ import zlib
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.native as jnative
 import zlib_rs_tpu.parallel.pipeline as jp
 import zlib_rs_tpu_torch as zt

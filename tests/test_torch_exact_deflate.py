@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.models.oneshot as joneshot
 from zlib_rs_tpu import native
 from zlib_rs_tpu_torch import _device

@@ -34,8 +34,11 @@ import numpy as np
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 from zlib_rs_tpu_torch import native as tnative
 from zlib_rs_tpu_torch.config import CONFIGURATION_TABLE
+from zlib_rs_tpu_torch.models import medium as TM
 from zlib_rs_tpu_torch.ops.kernels import dstream_kernel as DK
 from zlib_rs_tpu_torch.ops.kernels import exact_deflate_kernel as EK
 from zlib_rs_tpu_torch.parallel import chunk_deflate as CD
@@ -136,7 +139,7 @@ def host(tmp_path_factory):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dll.zrs_exact_greedy_host.argtypes = [P, P, I, I, P, P, P, P, L, I, P, P]
     dll.zrs_exact_resolve_host.argtypes = [P, P, I, I, P, P, P, P, P, L, I]
-    dll.zrs_exact_dry_host.argtypes = [P, I, I, P, P, P, L]
+    dll.zrs_exact_dry_host.argtypes = [P, P, I, I, P, P, P, L]
     dll.zrs_exact_chase_host.argtypes = [P, P, P, I, I, P, P, P, P, P, L, P, P, P, P, L, P]
     dll.zrs_exact_set_piece.argtypes = [L]
     dll.zrs_dstream_pump_host.argtypes = [P] * 4
@@ -484,7 +487,7 @@ def test_plain_resolve_and_dry_parse_equal_host_build(host, level):
         if spos is not None:
             recs[EK.REC + EK.REC_SPOS] = spos
         got = words.copy()
-        assert host.zrs_exact_dry_host(pieces_np.ctypes.data, len(prs), level,
+        assert host.zrs_exact_dry_host(None, pieces_np.ctypes.data, len(prs), level,
                                        None if spos is None else recs.ctypes.data,
                                        slots.numpy().ctypes.data, got.ctypes.data, stride) == 0
         plain = words.copy()
@@ -538,8 +541,8 @@ def test_run_static_through_the_host_build(host, level):
 
     def dry(pieces, level, slots, bits, bit_stride, recs):
         calls.append(("dry", pieces.shape[0]))
-        assert host.zrs_exact_dry_host(_p(pieces), pieces.shape[0], level, _p(recs), _p(slots),
-                                       _p(bits), bit_stride) == 0
+        assert host.zrs_exact_dry_host(None, _p(pieces), pieces.shape[0], level, _p(recs),
+                                       _p(slots), _p(bits), bit_stride) == 0
 
     def chase(data, meta, pieces, level, out, lens, st, recs, scratch, slots, deltas, dlist,
               bits, bit_stride):
@@ -701,3 +704,325 @@ def test_ds_pump_longer_than_a_piece_runs_a_piece_at_a_time(monkeypatch, host, l
                                              4: zlib.Z_FINISH}[flush]) if flush else b"")
         assert seen == [0] * (-(-n // 5000) - 1) + [flush]
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# MEDIUM4-6 (levels 11-13): native's run_medium over the slots
+# ---------------------------------------------------------------------------
+
+MEDIUMS = (EK.MEDIUM_BASE, EK.MEDIUM_BASE + 1, EK.MEDIUM_BASE + 2)
+
+
+class TrackedMedium(TM._Medium):
+    """The port's copy of native's MEDIUM scan, its inserts and accepted
+    fizzles recorded."""
+
+    def __init__(self, buf: bytes, level: int, dict_len: int):
+        self.ins, self.fizzles = [], 0
+        super().__init__(buf, TM._KNOBS[level - EK.MEDIUM_BASE + 4], dict_len)
+
+    def insert4(self, pos: int) -> None:
+        self.ins.append(pos)
+        super().insert4(pos)
+
+    def fizzle(self, cur: list, nm: list) -> None:
+        before = list(cur)
+        super().fizzle(cur, nm)
+        self.fizzles += cur != before
+
+    def truth(self, n: int) -> np.ndarray:
+        """The parse's map as n words below its frontier (the positions it
+        never inserts set: none past its last insert is decided), the
+        dictionary's tail set."""
+        bits = np.zeros(32 * n, np.uint8)
+        front = max(self.ins) + 1 if self.ins else 0
+        bits[:front] = 1
+        bits[np.array(self.ins, np.int64)] = 0
+        bits[max(0, self.dict_len - 3) : self.dict_len] = 1
+        return np.packbits(bits, bitorder="little").view(np.uint32), front
+
+
+def _fizzled(n: int) -> bytes:
+    """A short match whose next match extends back over it (med_fizzle
+    takes it): 'wxyz' + T, then n candidates of 'wxyz' and 3 fresh bytes
+    (more than MEDIUM6's chain of 256 when n is 300), then a byte found
+    before no 'wxyz' and 'wxyz' + T again."""
+    t = _rnd(80, 180)
+    fill = b"".join(b"wxyz" + _rnd(3, 180) for _ in range(n))
+    return _rnd(10, 180) + b"wxyz" + t + fill + b"\x01wxyz" + t + _rnd(300, 180)
+
+
+def _medium_inputs() -> dict:
+    out = {name: (b"", d) for name, d in CRAFTED.items()}
+    out["max_dist"] = (b"", MAX_DIST_DATA)
+    out["dict_tail"] = DICT_TAIL
+    # runs of one byte: 257 and 258 matches at MEDIUM4/5, their interiors never inserted
+    out["zero_runs"] = (b"", bytes(3000) + _rnd(50) + b"\xff" * 1200 + _rnd(20) + bytes(600))
+    out["fizzle"] = (b"", _fizzled(300))
+    # a 100-byte copy ending 150, 60 and 3 bytes before the end (within
+    # MIN_LOOKAHEAD and within length + WANT_MIN of it)
+    for k in (150, 60, 3):
+        x = _rnd(100, 180)
+        out[f"near_end{k}"] = (b"", _rnd(500, 180) + x + _rnd(400, 180) + x + _rnd(k, 180))
+    return out
+
+
+MEDIUM_INPUTS = _medium_inputs()
+
+
+def _native(data: bytes, level: int, final: bool, window: bytes) -> bytes:
+    from zlib_rs_tpu import native as jnative
+
+    return jnative.deflate_chunk(data, level, final, window or None)
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_inserts_each_position_once_and_reaches_its_cases(level):
+    """native's MEDIUM inserts go in increasing order and never twice (the
+    orgstart rule keeps a fizzled next match from inserting again: a
+    re-insert would write a delta of 0 and cut its chain), so the chains
+    are static but for the positions it never inserts; the crafted inputs
+    hold what they are for: a 257-258 match's interior left out at MEDIUM4/5
+    (every interior in at MEDIUM6), an accepted fizzle, a match's interior
+    near the end left out."""
+    for name, (window, data) in MEDIUM_INPUTS.items():
+        m = TrackedMedium(window + data, level, len(window))
+        m.run(True)
+        assert m.ins == sorted(set(m.ins)), name
+        _w, front = m.truth(EK.bit_words(len(window + data)))
+        skipped = front - len(window) - len([q for q in m.ins if q >= len(window)])
+        if name == "zero_runs":
+            assert (skipped > 1000) == (level != EK.MEDIUM_BASE + 2), (level, skipped)
+        if name == "fizzle":
+            assert m.fizzles >= 1
+        if name == "near_end3":  # the copy's interior, within length + WANT_MIN of the end
+            total = len(window + data)
+            assert not any(total - 103 < q < total - 3 for q in m.ins)
+            assert total - 103 in m.ins
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_host_build_gives_natives_bytes_under_every_assumed_map(host, level):
+    """Every MEDIUM input, primed and not, final and not: native's
+    deflate_chunk bytes (the plain version's too) from the host build in 1
+    and 2 rounds, from every assumed map in one round, whole and in pieces
+    of 777 positions; no live walk under the true map, and the map the chase
+    leaves is native's inserts' below their frontier."""
+    for name, (window, data) in MEDIUM_INPUTS.items():
+        for win in {window, _BASH[50_000 - 4000 : 50_000]}:
+            for final in (True, False):
+                want = _native(data, level, final, win)
+                assert TM.compress_medium(data, level - EK.MEDIUM_BASE + 4, final, win) == want
+                got, truth, stats = _greedy(host, data, level, final, win, rounds=1)
+                assert got == want, (name, len(win), final)
+                n = EK.bit_words(len(win + data))
+                m = TrackedMedium(win + data, level, len(win))
+                m.run(final)
+                model, front = m.truth(n)
+                bits = np.unpackbits(truth.view(np.uint8), bitorder="little")[:front]
+                assert np.array_equal(bits, np.unpackbits(model.view(np.uint8),
+                                                          bitorder="little")[:front]), name
+                maps = _maps(n, model)
+                for label, seed in maps.items():
+                    got, _t, st = _greedy(host, data, level, final, win, seed, rounds=1)
+                    assert got == want, (name, len(win), final, label)
+                    assert label != "true" or st[1] == 0, (name, st)
+                assert _greedy(host, data, level, final, win, rounds=2)[0] == want
+                assert _greedy(host, data, level, final, win, piece=777)[0] == want
+                assert _greedy(host, data, level, final, win, seed=maps["all"], rounds=2,
+                               piece=777)[0] == want
+
+
+@pytest.mark.parametrize("piece", [1, 100, 257, 258, 300, 1000])
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_chunk_of_1024_positions_in_pieces(host, level, piece):
+    """A chunk of 1,024 positions (runs, copies, a fizzle) cut into pieces:
+    each piece's slots run MAX_MATCH past it for the lookahead, the carried
+    next match and the frontier cross in the record; native's bytes."""
+    data = (bytes(300) + _fizzled(40)[:400] + b"ab" * 200)[:1024]
+    for win in (b"", _BASH[60_000:70_000]):
+        for final in (True, False):
+            want = _native(data, level, final, win)
+            for rounds in (1, 2):
+                assert _greedy(host, data, level, final, win, rounds=rounds, piece=piece)[0] \
+                    == want, (len(win), final, rounds)
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_host_build_on_binary_data_and_the_live_walks(host, level):
+    """60 KB of /bin/bash and 60 KB of runs: native's bytes in 1 and 2
+    rounds; under the true map no live walk."""
+    for data in (_BASH[100_000:160_000], (bytes(700) + _rnd(40) + b"\x01" * 500) * 50):
+        want = _native(data, level, True, b"")
+        for rounds in (1, 2):
+            got, truth, (tops, _live) = _greedy(host, data, level, True, b"", rounds=rounds)
+            assert got == want and tops > 0
+        got, _t, (_tops, live) = _greedy(host, data, level, True, b"", truth, rounds=1)
+        assert got == want and live == 0
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_plain_resolve_and_dry_parse_equal_host_build(host, level):
+    """EX's pieces at MEDIUM (slots past each piece by MAX_MATCH, deltas of
+    hash4's chains) under random maps: resolve_plain's deltas and slots are
+    the host build's; then the dry parse of the slots from records not
+    started and from a record left by the chase of a chunk's first piece
+    (its carried next match, its frontier): dry_plain's maps are the host
+    build's. A DS pump's piece seeded by a handle's head4 and prevd4 too."""
+    buf = (_BASH[200_000:240_000] + bytes(5000) + _fizzled(40) + _BASH[300_000:330_000])
+    data = torch.from_numpy(np.frombuffer(buf + bytes(8), np.uint8).copy())
+    rows = CD.chunk_meta([(0, 6000, 0, 1), (40_000, 30_000, 32768, 0)], level).tolist()
+    prs = [EK.ex_piece(rows[0], 0, 0, 0, EK.PIECE, True),
+           EK.ex_piece(rows[1], 32768, 1, 1, 9000, True),
+           EK.ex_piece(rows[1], 32768 + 9000, 1, 1, 9000, True)]
+    pieces_np, nd, ns, *_ = EK.with_offsets(prs, True)
+    assert ns == sum(EK.slot_end(r, True) - r[EK.P_S] for r in prs)
+    pieces = torch.from_numpy(pieces_np)
+    stride = EK.bit_words(32768 + 30_000)
+    words = np.random.default_rng(level).integers(0, 1 << 32, 2 * stride,
+                                                  dtype=np.uint64).astype(np.uint32)
+    words &= np.random.default_rng(level + 9).integers(0, 1 << 32, 2 * stride,
+                                                       dtype=np.uint64).astype(np.uint32)
+    bits = torch.from_numpy(words.view(np.int32).copy())
+    deltas = torch.zeros(max(nd, 1), dtype=torch.int16)
+    slots = torch.zeros(max(ns, 1), 2, dtype=torch.int32)
+    _host_resolve(host, data, pieces, level, deltas, slots, bits, stride, 1)
+    want_d, want_s = EK.resolve_plain(data, pieces, level, bits=bits, bit_stride=stride)
+    assert torch.equal(EK.unsigned(deltas), EK.unsigned(want_d))
+    assert torch.equal(slots, want_s)
+    assert int((slots[:, 0] != 0).sum()) > 10_000
+    # the records: none started, then chunk 1's after its first piece's chase
+    recs = np.zeros(2 * EK.REC, np.int64)
+    meta = torch.from_numpy(np.array(rows, np.int64))
+    out = torch.zeros(EK.out_bytes(meta), dtype=torch.uint8)
+    lens, st = torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.int32)
+    scratch = torch.zeros(2 * EK.WORK_BYTES, dtype=torch.uint8)
+    dlist = torch.zeros_like(deltas)
+    for chased in (False, True):
+        if chased:
+            first = torch.from_numpy(pieces_np[1:2].copy())
+            assert host.zrs_exact_chase_host(_p(data), _p(meta), _p(first), 1, level, _p(out),
+                                             _p(lens), _p(st), recs.ctypes.data, _p(scratch),
+                                             EK.WORK_BYTES, _p(slots), _p(deltas), _p(dlist),
+                                             _p(bits.clone()), stride, None) == 0
+            assert recs[EK.REC + EK.REC_STARTED] and recs[EK.REC + EK.REC_FRONT] > 32768 + 9000
+        got = words.copy()
+        assert host.zrs_exact_dry_host(_p(data), pieces_np.ctypes.data, len(prs), level,
+                                       recs.ctypes.data, slots.numpy().ctypes.data,
+                                       got.ctypes.data, stride) == 0
+        plain = words.copy()
+        EK.dry_plain(pieces_np, level, slots.numpy().astype(np.int64), plain, stride, recs,
+                     np.frombuffer(buf, np.uint8))
+        assert np.array_equal(got, plain) and not np.array_equal(got, words), chased
+    # DS: a handle's tables after 40,000 bytes, then a pump of 20,000
+    rec = np.zeros(DK.REC, np.int64)
+    rec[DK.D_LEVEL] = level
+    rec[DK.D_MATCH_LENGTH] = rec[DK.D_PREV_LENGTH] = 2
+    work = torch.zeros(EK.work_bytes(level), dtype=torch.uint8)
+    for chunk, flush in ((buf[:40_000], 2), (buf[40_000:60_000], 0)):
+        rec[DK.D_TOTAL] += len(chunk)
+        rec[DK.D_FLUSH], rec[DK.D_OUT_CAP] = flush, DK.room(int(rec[DK.D_TOTAL]))
+        a, c1, s, we = DK.ranges(rec)
+        row = [0, int(rec[DK.D_TOTAL]), a, a, c1, 0, s, we, 0, 0, 0, 0, 0, 0]
+        pieces, _nd, dns, *_ = EK.with_offsets([row], True)
+        pieces = torch.from_numpy(pieces)
+        n = EK.bit_words(int(rec[DK.D_TOTAL]), a & ~31)
+        m = np.random.default_rng(a).integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        mbits = torch.from_numpy(m.view(np.int32).copy())
+        head, ring = DK.handle_tables(work, level)
+        head = head[: 4 * 65536].view(torch.int32)
+        ring = ring[: 2 * 32768].view(torch.int16)
+        ddeltas = torch.zeros(max(c1 - a, 1), dtype=torch.int16)
+        dslots = torch.zeros(max(dns, 1), 2, dtype=torch.int32)
+        _host_resolve(host, data, pieces, level, ddeltas, dslots, mbits, 0, 1, head, ring)
+        want_d, want_s = EK.resolve_plain(data, pieces, level, head, ring, bits=mbits)
+        assert torch.equal(EK.unsigned(ddeltas), EK.unsigned(want_d))
+        assert torch.equal(dslots, want_s)
+        dout = torch.zeros(int(rec[DK.D_OUT_CAP]), dtype=torch.uint8)
+        host.zrs_dstream_pump_host(rec.ctypes.data, data.data_ptr(), work.data_ptr(),
+                                   dout.data_ptr())
+        assert rec[DK.D_STATUS] == 0 and head.any()
+
+
+@pytest.mark.parametrize("level", MEDIUMS)
+def test_medium_run_static_through_the_host_build(host, level):
+    """The wrapper's plan and run_static at MEDIUM over the host build's
+    launches (pieces of 30,000 positions, ROUNDS 2): the first map holds
+    each dictionary's tail, the dry parse gets the records and the data,
+    each chunk native's bytes, final and not."""
+    data = (_BASH[120_000:170_000] + bytes(9000) + _fizzled(300))
+    n = len(data)
+    dt = torch.from_numpy(np.frombuffer(data + bytes(8), np.uint8).copy())
+    calls = []
+
+    def resolve(data, pieces, level, deltas, slots, cb, wb, bits=None, bit_stride=0):
+        calls.append("resolve")
+        _host_resolve(host, data, pieces, level, deltas, slots if wb else None, bits, bit_stride,
+                      int(cb > 0))
+
+    def dry(pieces, level, slots, bits, bit_stride, recs, data=None):
+        calls.append("dry")
+        assert host.zrs_exact_dry_host(_p(data), _p(pieces), pieces.shape[0], level, _p(recs),
+                                       _p(slots), _p(bits), bit_stride) == 0
+
+    def chase(data, meta, pieces, level, out, lens, st, recs, scratch, slots, deltas, dlist,
+              bits, bit_stride):
+        calls.append("chase")
+        assert host.zrs_exact_chase_host(_p(data), _p(meta), _p(pieces), pieces.shape[0], level,
+                                         _p(out), _p(lens), _p(st), _p(recs), _p(scratch),
+                                         EK.WORK_BYTES, _p(slots), _p(deltas), _p(dlist),
+                                         _p(bits), bit_stride, None) == 0
+
+    rows = [(lo, min(n, lo + 16_384) - lo, min(32768, lo), int(lo + 16_384 >= n))
+            for lo in range(0, n, 16_384)]
+    meta = torch.from_numpy(CD.chunk_meta(rows, level))
+    for share, want in ((0.0, ["resolve", "dry", "resolve", "chase"] * 3),
+                        (1.1, ["resolve", "chase"] * 3)):
+        calls.clear()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(EK, "PIECE", 7000)
+            mp.setattr(EK, "ROUNDS", {level: 2})
+            mp.setattr(EK, "LONG_SHARE", share)
+            out, lens, st = EK.run_static(dt, meta, level, resolve, chase, dry)
+        assert calls == want, share
+        for (lo, ln, dl, fin), off, m in zip(rows, meta[:, 4].tolist(), lens.tolist()):
+            got = out[off : off + m].numpy().tobytes()
+            assert got == _native(data[lo : lo + ln], level, bool(fin), data[lo - dl : lo])
+
+
+def test_medium_second_round_where_the_slots_hold_long_matches():
+    """MEDIUM4/5 take a second round where the first round's slots hold
+    matches longer than 16 x lazy (257-258, whose interiors med_insert_match
+    never inserts) at LONG_SHARE of the positions or more; MEDIUM6 (lazy
+    32) and levels 1-3 whatever the slots."""
+    def slots(n_long, n):
+        v = torch.zeros(n, 2, dtype=torch.int32)
+        v[:n_long, 0] = (258 << 15) | 1
+        v[n_long : n_long + 5, 0] = (256 << 15) | 7  # not past 16 x lazy
+        v[n_long + 5 : n_long + 9, 0] = 258 << 15  # no match (distance 0)
+        return v
+
+    for lv in (EK.MEDIUM_BASE, EK.MEDIUM_BASE + 1):
+        assert EK.long_share(slots(25, 100), lv) == 0.25
+        assert EK.take_round(lv, slots(25, 100)) and not EK.take_round(lv, slots(24, 100))
+    assert EK.long_share(slots(25, 100), EK.MEDIUM_BASE + 2) == 0.0
+    assert EK.take_round(1, slots(0, 100)) and EK.take_round(3, slots(0, 100))
+    assert EK.ROUNDS[EK.MEDIUM_BASE + 2] == 1 < EK.ROUNDS[EK.MEDIUM_BASE]
+
+
+def test_medium_constants_match_the_source():
+    """The host build's MEDIUM rounds are the wrapper's ROUNDS; MEDIUM is
+    resolved under a map, on its one-deeper knob rows; a piece's slots run
+    MAX_MATCH past its end, short of the last three positions."""
+    src = SRC.read_text()
+    rounds = ", ".join(str(EK.ROUNDS[lv]) for lv in MEDIUMS)
+    assert f"kHostMediumRounds[3] = {{{rounds}}};" in src
+    assert all(EK.resolved_level(lv) and EK.mapped_level(lv) for lv in MEDIUMS)
+    assert not EK.static_level(EK.MEDIUM_BASE) and not EK.mapped_level(6)
+    assert [EK.knob_level(lv) for lv in (*MEDIUMS, 6)] == [5, 6, 7, 6]
+    row = [0, 10_000, 0, 0, 0, 0, 100, 2000, 0, 0, 0, 0, 0, 0]
+    assert EK.slot_end(row, False) == 2000 and EK.slot_end(row, True) == 2000 + 258
+    row[EK.P_E] = 9900
+    assert EK.slot_end(row, True) == 9997
+    row[EK.P_S] = row[EK.P_E] = 9999
+    assert EK.slot_end(row, True) == 9999

@@ -20,6 +20,8 @@ import zlib
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.config as jc
 import zlib_rs_tpu.models.inflate as JINF
 import zlib_rs_tpu.models.zran as JZ

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.config as jc
 import zlib_rs_tpu.models.faststream as JF
 import zlib_rs_tpu.models.gzfile as JG

@@ -17,6 +17,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 from zlib_rs_tpu import native as jnative
 from zlib_rs_tpu_torch import native as tnative
 from zlib_rs_tpu_torch.ops.kernels import istream_kernel as ISK

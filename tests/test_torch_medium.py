@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.models.medium as JM
 from zlib_rs_tpu_torch.models import medium as TM
 

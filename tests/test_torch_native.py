@@ -12,6 +12,8 @@ import zlib
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.native as J
 import zlib_rs_tpu_torch as zt
 import zlib_rs_tpu_torch.native as T

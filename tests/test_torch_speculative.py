@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import native_build  # noqa: F401  (the JAX package's native library, built once under a lock)
+
 import zlib_rs_tpu.models.zran as JZ
 import zlib_rs_tpu.parallel.inflate as JI
 from zlib_rs_tpu import native

@@ -589,7 +589,7 @@ def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
     assert ch[16] is None and out.shape == (11_204,)
     assert EK.launches == {"exact_deflate": 1, "exact_resolve": 1, "exact_dry": 0}
     stub.clear()
-    for level, slots, want_slots in ((0, 1024, 2), (EK.QUICK, 1024, 2), (EK.MEDIUM_BASE, 1, 1)):
+    for level, slots, want_slots in ((0, 1024, 2), (EK.QUICK, 1, 1)):
         monkeypatch.setattr(EK, "MAX_SLOTS", slots)
         out, lens, st = EK.exact_deflate_cuda(data, meta, level)
         args = lib.zrs_exact_deflate.args
@@ -600,11 +600,55 @@ def test_exact_deflate_wrapper_hands_the_kernel_its_scratch(stub, monkeypatch):
         assert out.shape == (11_204,) and lens.dtype == torch.int64 and st.dtype == torch.int32
     assert EK.work_bytes(6) == EK.WORK_BYTES and EK.work_bytes(EK.QUICK) == \
         EK.WORK_BYTES + EK.WORK4_BYTES
-    assert EK.launches["exact_deflate"] == 4
+    assert EK.launches["exact_deflate"] == 3
     with pytest.raises(ValueError, match="int64"):
         EK.exact_deflate_cuda(data, meta.int(), 6)
     with pytest.raises(ValueError, match="level"):
         EK.exact_deflate_cuda(data, meta, 42)
+
+
+def _rounds_logged(stub, monkeypatch, level, rounds):
+    """EX's call at `level` with ROUNDS[level] = rounds through the stub:
+    the resolve's, the dry parse's and the chase's arguments in order."""
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    monkeypatch.setattr(EK, "ROUNDS", {level: rounds})
+    lib = _device.library("exact_deflate")
+    seen = []
+    for name in ("zrs_exact_resolve", "zrs_exact_dry", "zrs_exact_chase"):
+        entry = getattr(lib, name)
+        entry.__class__ = type("Logged", (type(entry),), {
+            "__call__": lambda self, *a: (seen.append((self.name, a)), _Entry.__call__(self, *a))[1]})
+    data, meta = _ex_args()
+    EK.exact_deflate_cuda(data, meta, level)
+    assert stub == ["zrs_exact_resolve"] + ["zrs_exact_dry", "zrs_exact_resolve"] * \
+        (rounds - 1) + ["zrs_exact_chase"]
+    return data, seen
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("level", [EK.MEDIUM_BASE, EK.MEDIUM_BASE + 2])
+def test_exact_deflate_wrapper_runs_the_rounds_at_medium(stub, monkeypatch, level, rounds):
+    """MEDIUM takes the resolve and the chase as levels 1-3 do, no
+    one-warp zrs_exact_deflate: its slots run MAX_MATCH past each piece
+    (slot_end), its deltas to the last position hash4 hashes, its first
+    map holds the second chunk's dictionary tail, and the dry parse reads
+    the records and the data (its second round taken whatever the first's
+    slots, LONG_SHARE 0)."""
+    monkeypatch.setattr(EK, "LONG_SHARE", 0.0)
+    data, seen = _rounds_logged(stub, monkeypatch, level, rounds)
+    stride = EK.bit_words(3000)
+    res = seen[0][1]
+    bits = res[11]
+    assert res[1][:, EK.P_C1].tolist() == [997, 2997] and tuple(res[7].shape) == (997 + 1997, 2)
+    words = bits.numpy().view(np.uint32)
+    assert words[:stride].tolist() == [0] * stride
+    assert words[stride + 31] == 0b111 << 5  # positions 997-999 of the second map
+    for name, a in seen:
+        if name == "zrs_exact_dry":
+            assert a[0] is data and a[2:4] == (2, level) and a[6] is bits and a[7] == stride
+        elif name == "zrs_exact_chase":
+            assert a[4] == level and a[14] is bits and a[13] is not None
+    assert EK.launches == {"exact_deflate": 1, "exact_resolve": rounds, "exact_dry": rounds - 1}
 
 
 @pytest.mark.parametrize("rounds", [1, 2, 3])
@@ -633,7 +677,7 @@ def test_exact_deflate_wrapper_runs_the_rounds_at_levels_1_to_3(stub, monkeypatc
             assert a[11] is bits and a[12] == stride and a[3] == 2 and a[6] is deltas
             assert a[8] == 2 and a[9] == 8 + 16
         elif name == "zrs_exact_dry":
-            assert a[1:3] == (2, 2) and a[5] is bits and a[6] == stride and a[3].numel() == 2 * EK.REC
+            assert a[2:4] == (2, 2) and a[6] is bits and a[7] == stride and a[4].numel() == 2 * EK.REC
         else:
             assert a[12] is deltas and a[13].shape == deltas.shape and a[13] is not deltas
             assert a[14] is bits and a[15] == stride
@@ -653,10 +697,10 @@ def test_exact_deflate_dispatch_by_device(monkeypatch):
 @pytest.mark.parametrize("level", [1, 6, EK.MEDIUM_BASE + 1])
 def test_dstream_wrapper_hands_the_kernel_its_work(stub, monkeypatch, level):
     """DS's entry takes (rec, data, work, out, slots, n_slots, deltas,
-    dlist, span, pieces, chain blocks, bits, clk, stats, stream); a MEDIUM
-    handle's work is Work then Work4 (EX's work_bytes), and a shorter one
-    raises; at levels 1-3 it takes a skip map and the chase's scratch
-    list."""
+    dlist, span, pieces, chain blocks, bits, clk, stats, level, stream); a
+    MEDIUM handle's work is Work then Work4 (EX's work_bytes), and a shorter
+    one raises; at levels 1-3 and MEDIUM it takes a skip map and the chase's
+    scratch list."""
     monkeypatch.setattr(_device, "ptr", lambda t: t)
     h = DSK.Handle(level, "cpu")
     assert h.work.numel() == EK.work_bytes(level)
@@ -664,8 +708,8 @@ def test_dstream_wrapper_hands_the_kernel_its_work(stub, monkeypatch, level):
     out, rec_dev = torch.zeros(64, dtype=torch.uint8), torch.zeros(DSK.REC, dtype=torch.int64)
     DSK.pump_cuda(h.rec, h.data, h.work, out, rec_dev)
     args = _device.library("exact_deflate").zrs_dstream_pump.args
-    assert args[2] is h.work and int(rec_dev[DSK.D_LEVEL]) == level
-    greedy = level == 1
+    assert args[2] is h.work and int(rec_dev[DSK.D_LEVEL]) == level and args[14] == level
+    greedy = EK.mapped_level(level)
     assert (args[11] is not None, args[7] is not None) == (greedy, greedy)
     if greedy:
         assert args[11].dtype == torch.int32 and not args[11].any()

@@ -14,15 +14,15 @@
 // ops/kernels/exact_deflate_kernel.py holds the plain version (the port's
 // host engines) and the wrapper.
 //
-// Bound on the H100, level 0, QUICK and MEDIUM. The bytes are the input
+// Bound on the H100, level 0 and QUICK. The bytes are the input
 // and window read once and the output written once: microseconds for
 // megabytes at 3.35 TB/s. It is not the floor. Each chunk is one serial
 // chain of decisions (a position's match decides where the next one
 // starts, and the hash chains it walks were written by the positions
 // before it), so the floor is the longest chunk's positions times the
 // latency of a hash insert, a chain walk of dependent loads and a compare.
-// Levels 1-9 move the inserts and the walks off that chain (below); their
-// floor is the chase's one step a loop top and flush_block.
+// Levels 1-9 and MEDIUM move the inserts and the walks off that chain
+// (below); their floor is the chase's one step a loop top and flush_block.
 //
 // Levels 4-9 (zlib's deflate_slow) in three parts.
 // - Static chains. deflate_slow inserts every position once and in
@@ -104,10 +104,43 @@
 //   leaves head and prevd as zlib's serial inserts do (a skipped
 //   position's ring slot keeps its value; a flushing pump's near-end
 //   interiors stay out, for the next pump's walks).
+// MEDIUM4-6 (levels 11-13, native's run_medium on its one-deeper knob
+// rows), the same way over 4-byte-hash chains. med_insert_match inserts a
+// match's interior up to 16 x lazy (all of it at MEDIUM6), only the
+// position before a 257-258 match's end at MEDIUM4/5, nothing of a match
+// ending within its length + 4 of total; the loop top and the lookahead's
+// next match start are inserted; native never hashes the dictionary's last
+// three positions. The inserts go in increasing order and never twice (the
+// orgstart rule keeps a fizzled next match's insert past the lookahead's),
+// so every position is inserted or passed over once: the map is the
+// positions passed over.
+// - The resolve: build_chains keys by hash4 (16 bits: two passes over the
+//   tile, a half of the hash space each, so that the table stays 128 KB),
+//   a thread a position runs longest4 (greedy_walk from WANT_MIN - 1 on the
+//   klevel row) and keeps its reach. A piece's slots run MAX_MATCH past
+//   its end (slot_end): the lookahead walks the next match's start.
+// - The chase (run_medium_slots, one warp) is run_medium with each walk a
+//   slot checked as at 1-3 (ldh by the hash folded to 15 bits; the live
+//   walk passes over the other hash's disagreements), the inserts decided
+//   into the map from a frontier (the first position not yet decided, in
+//   the record between pieces and pumps), the fizzle's byte compares, the
+//   emit and flush_block serial. Where the map holds no skipped position
+//   past the frontier (the first round's), only the positions passed over
+//   are marked. MEDIUM6 takes one round; MEDIUM4/5 a second (a dry parse,
+//   dry_medium: the chase with every slot taken and no output) where the
+//   first round's slots hold many 257-258 matches (the wrapper's
+//   take_round; the host build takes its rounds as given).
+// - DS: a pump's chains start at the last pump's frontier, from the
+//   handle's head4 and prevd4, and ds_tables leaves those as the serial
+//   inserts do. A FULL_FLUSH leaves head4 stale, as native does (the new
+//   window restarts at 0): a stale head can put a position of another hash,
+//   or one never inserted, on a chain, where native reads the ring slot
+//   another position wrote; the static chains do not model that, so from
+//   then on the handle's pumps run native's serial run_medium (D_MED_STALE).
 // A chunk larger than a piece (the wrapper's PIECE positions) is resolved
 // and chased a piece at a time, its state in a record between launches;
-// at 1-3 its map in device memory across the pieces (a bit a position),
-// since a match can cross a piece's end.
+// at 1-3 and MEDIUM its map in device memory across the pieces (a bit a
+// position), since a match can cross a piece's end.
 // After a DS pump ds_tables leaves the handle's head and prevd as the
 // serial inserts would have: the last inserted position of each hash
 // (atomicMax) and each ring slot's last inserted position's delta.
@@ -136,11 +169,11 @@
 //   compares 4 bytes a step).
 // - A chunk's scratch is a slot in device memory: head int32[32768],
 //   prevd u16[32768], the symbol buffer of 16,384 x 4 bytes and the tree
-//   build's heap and code arrays (kWorkBytes); QUICK and MEDIUM add
-//   head4 int32[65536] and prevd4 u16[32768] (kWork4Bytes). The warp
-//   zeroes the hash and chain tables at the start of a chunk, as native's
-//   vectors start (levels 1-9 leave them unused: their chains are static;
-//   EX's chase at 1-3 keeps its ldh in head).
+//   build's heap and code arrays (kWorkBytes); QUICK (and a DS handle at
+//   MEDIUM) add head4 int32[65536] and prevd4 u16[32768] (kWork4Bytes).
+//   The warp zeroes the hash and chain tables at the start of a chunk, as
+//   native's vectors start (levels 1-9 and MEDIUM leave them unused: their
+//   chains are static; EX's chase at 1-3 and MEDIUM keeps its ldh in head).
 // - Output goes straight into the chunk's slot of room `cap`: a 64-bit
 //   word by lanes 0-7 a byte each, a stored span by all lanes. A byte past
 //   `cap` is dropped and the length still counts it; a length past `cap`
@@ -151,9 +184,9 @@
 //   same entry, so each read is a broadcast).
 // - Without __CUDACC__ the same source compiles as host C++ (a warp of one
 //   lane, serial compares, zrs_exact_deflate_host and zrs_dstream_pump_host;
-//   at levels 1-9 the resolve's serial loops, at 1-3 its rounds and dry
-//   parses, then the chase), so that the CPU tests run this file's control
-//   flow against native and zlib.
+//   at levels 1-9 and MEDIUM the resolve's serial loops, at 1-3 and MEDIUM
+//   its rounds and dry parses, then the chase), so that the CPU tests run
+//   this file's control flow against native and zlib.
 //
 // DS (zrs_dstream_pump) is the card's counterpart of native's resumable
 // deflate (zlib_rs_tpu/native.py RawDeflateStream over DefStream::pump,
@@ -166,7 +199,7 @@
 // chains, the block's symbols; MEDIUM4-6 add Work4's head4 and prevd4) and
 // its data (the window and the unflushed block, then the pump's input)
 // stay in device memory. The scan loops (run_greedy, run_slow, run_medium)
-// take `limit`, as native's do: total -
+// (and run_medium_slots) take `limit`, as native's do: total -
 // (MIN_LOOKAHEAD - 1) under NO_FLUSH, so that no decision depends on how
 // much input has arrived, and total under a flush (a chunk passes total,
 // so its bytes do not change); the scan starts once (start_scan). A flush
@@ -176,14 +209,17 @@
 // the next pump. The wrapper (ops/kernels/dstream_kernel.py) sizes the
 // pump's room from the unflushed bytes, raises when a pump passed it, and
 // prunes the data after a pump as native does (by multiples of WSIZE,
-// the hash heads, head4 and MEDIUM's next match rebased). At levels 1-9 a
-// pump is a resolve of its positions [spos, limit) over chains from its
-// first insert (the retroactive ones included; at 1-3 its rounds), the
-// chase, at 1-3 the chains of the positions it inserted, and ds_tables;
-// the wrapper hands input longer than a piece to DS a piece at a time
-// (NO_FLUSH but the last, which takes the pump's flush: the same bytes,
-// since no decision depends on how much input has arrived), so that a
-// pump's deltas and slots cover at most a piece and MIN_LOOKAHEAD.
+// the hash heads, head4 and MEDIUM's next match and frontier rebased). At
+// levels 1-9 and MEDIUM a pump is a resolve of its positions [spos, limit)
+// over chains from its first insert (the retroactive ones included; at 1-3
+// and MEDIUM its rounds), the chase, at 1-3 and MEDIUM the chains of the
+// positions it inserted, and ds_tables;
+// at levels 1-9 the wrapper hands input longer than a piece to DS a piece
+// at a time (NO_FLUSH but the last, which takes the pump's flush: the same
+// bytes, since no decision depends on how much input has arrived), so that
+// a pump's deltas and slots cover at most a piece and MIN_LOOKAHEAD.
+// MEDIUM's pumps go whole: native's lookahead and its no-insert rule read
+// the pump's total.
 // Its bound is EX's: the pump's bytes are microseconds; its floor is the
 // serial chase of the pump's positions.
 
@@ -322,6 +358,17 @@ __constant__ Tables kT;
 #else
 Tables kT;
 #endif
+
+// MEDIUM4-6 (levels 11-13) and the zlib knob row each runs (native's
+// klevel: one row deeper, 5-7)
+EX_HD bool medium_level(int level) { return level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2; }
+EX_HD int knob_level(int level) { return medium_level(level) ? level - MEDIUM_BASE + 5 : level; }
+EX_HD bool static_level(int level) { return level >= 1 && level <= 9; }
+EX_HD bool greedy_level(int level) { return level >= 1 && level <= 3; }
+// the levels whose walks are resolved over the card: 1-9 and MEDIUM
+EX_HD bool resolved_level(int level) { return static_level(level) || medium_level(level); }
+// the levels resolved under a skip map: 1-3 and MEDIUM
+EX_HD bool mapped_level(int level) { return greedy_level(level) || medium_level(level); }
 
 uint32_t host_bit_reverse(uint32_t v, int n) {
   uint32_t r = 0;
@@ -478,6 +525,16 @@ EX_DEV int match258_z(const uint8_t* base, long long p, long long q, long long t
 
 EX_INL uint16_t load16(const uint8_t* p) { return (uint16_t)(p[0] | (p[1] << 8)); }
 
+// a byte of the input through the read-only path (the serial scans read
+// the input while they store symbols: no ordering with those stores)
+EX_INL uint8_t ldb(const uint8_t* p) {
+#ifdef __CUDACC__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
 EX_INL uint32_t bit_reverse(uint32_t v, int n) {
 #ifdef __CUDACC__
   return __brev(v) >> (32 - n);
@@ -502,6 +559,12 @@ EX_INL int ctz32(uint32_t v) {  // v != 0
 #endif
 }
 
+// the bits [lo, hi) of a word (0 <= lo, hi <= 32; none where hi <= lo)
+EX_INL uint32_t bit_range(int lo, int hi) {
+  if (hi <= lo) return 0u;
+  return (hi == 32 ? kFull : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
 EX_INL int dist_to_code(int dist) {
   const int d = dist - 1;
   return d < 256 ? kT.dist_code[d] : kT.dist_code[256 + (d >> 7)];
@@ -515,6 +578,27 @@ EX_INL uint32_t hash_at(const uint8_t* b, long long p) {
   return (((uint32_t)b[p] << (2 * HASH_SHIFT)) ^ ((uint32_t)b[p + 1] << HASH_SHIFT) ^
           (uint32_t)b[p + 2]) & (uint32_t)(HASH_SIZE - 1);
 }
+
+// MEDIUM's 4-byte Knuth hash into 16 bits (native's hash4)
+EX_INL uint32_t hash4_at(const uint8_t* b, long long p) {
+  const uint32_t v = (uint32_t)b[p] | ((uint32_t)b[p + 1] << 8) | ((uint32_t)b[p + 2] << 16) |
+                     ((uint32_t)b[p + 3] << 24);
+  return (v * 2654435761u) >> 16;
+}
+
+// the end of a piece's slots: its scan's end; at MEDIUM past it by the
+// lookahead's reach (a walk at the next match's start, up to MAX_MATCH - 1
+// past the last loop top), short of the positions hash4 cannot hash
+EX_HD long long slot_end(const long long* pr, bool medium) {
+  if (!medium) return pr[P_E];
+  long long se = pr[P_E] + MAX_MATCH;
+  if (se > pr[P_TOTAL] - (WANT_MIN - 1)) se = pr[P_TOTAL] - (WANT_MIN - 1);
+  return se > pr[P_S] ? se : pr[P_S];
+}
+
+// a skip map's words for positions [b0, total) (b0 a multiple of 32), one
+// spare (the wrapper's bit_words)
+EX_HD long long map_words(long long b0, long long total) { return ((total - b0 + 31) >> 5) + 1; }
 
 EX_INL void block_sync() {
 #ifdef __CUDACC__
@@ -670,9 +754,11 @@ EX_DEV Slot resolve_at(const uint8_t* base, long long total, long long p, const 
 // lies outside it. The candidate order, the anchored pre-reject, the stops
 // and the updates are longest's; the budget ends after its last compare,
 // before a link that could not change the result. Returns the result
-// packed, 0 where zlib calls no longest.
+// packed, 0 where zlib calls no longest. MEDIUM's walk (native's run_medium
+// and longest4, over 4-byte-hash chains) is the same with the best from
+// WANT_MIN - 1 (best0) and its klevel's row as `level`.
 EX_DEV uint32_t greedy_walk(const uint8_t* base, long long total, long long p, const Chains& mch,
-                            int level, long long* reach, int* visited) {
+                            int level, int best0, long long* reach, int* visited) {
   long long cur = mch.prev(p);
   *visited = 0;
   if (cur <= 0 || p - cur > MAX_DIST) {
@@ -687,7 +773,7 @@ EX_DEV uint32_t greedy_walk(const uint8_t* base, long long total, long long p, c
   const int chain = kT.chain[level];
   const bool inb = p + MAX_MATCH <= total;
   const uint8_t* here = base + p;
-  int best = MIN_MATCH - 1, bd = 0, n = 0;
+  int best = best0, bd = 0, n = 0;
   uint16_t scan_end = inb ? load16(here + best - 1) : 0;
   const uint16_t scan_start = inb ? load16(here) : 0;
   for (;;) {
@@ -715,17 +801,20 @@ EX_DEV uint32_t greedy_walk(const uint8_t* base, long long total, long long p, c
   return pack_slot(best, bd);
 }
 
-// a position's slot at levels 1-3: its greedy walk under the assumed map
-// and its reach back (p - reach); 0 and 0 where p + MIN_MATCH passes the
-// data (the loop top hashes nothing there)
+// a position's slot at levels 1-3 and MEDIUM: its greedy walk under the
+// assumed map and its reach back (p - reach, at most MAX_DIST); 0 and 0
+// where p + need (MIN_MATCH; MEDIUM's WANT_MIN) passes the data (nothing is
+// hashed there). MEDIUM's also holds its hash4 folded to 15 bits in the
+// high half, the chase's index into ldh.
 EX_DEV Slot resolve_greedy(const uint8_t* base, long long total, long long p, const Chains& mch,
-                           int level, int* visited) {
+                           int level, int need, int* visited) {
   Slot r{0u, 0u};
   *visited = 0;
-  if (p + MIN_MATCH > total) return r;
+  if (p + need > total) return r;
   long long reach;
-  r.full = greedy_walk(base, total, p, mch, level, &reach, visited);
+  r.full = greedy_walk(base, total, p, mch, level, need - 1, &reach, visited);
   r.aux = (uint32_t)(p - reach);
+  if (need == WANT_MIN) r.aux |= (hash4_at(base, p) & (HASH_SIZE - 1)) << 16;
   return r;
 }
 
@@ -746,12 +835,15 @@ struct Disagree {
 // lim where none lies above lim). `ch` (S's chains) gives m, the last one
 // S leaves in; `dc` walks down the hash's disagreements: one above m is
 // T's (S left it out, T did not); m itself disagreeing is T's skip, so the
-// search goes on below m; else m is T's.
+// search goes on below m; else m is T's. At MEDIUM the disagreements are
+// listed by the hash folded to 15 bits: those of the other hash (hp >= 0,
+// p's hash4) are passed over.
 EX_DEV long long true_prev(long long x, long long lim, const Chains& ch, const Disagree& dg,
-                           long long& dc) {
+                           long long& dc, const uint8_t* base, long long hp) {
   for (;;) {
     const long long m = ch.prev(x);
-    while (dc >= x) dc = dg.prev(dc);
+    while (dc >= x || (hp >= 0 && dc >= 0 && (long long)hash4_at(base, dc) != hp))
+      dc = dg.prev(dc);
     if (dc > m) return dc;
     if (dc < m || m <= 0 || m <= lim) return m;
     x = m;
@@ -763,12 +855,14 @@ EX_DEV long long true_prev(long long x, long long lim, const Chains& ch, const D
 // disagreements of p's hash (`dc` the newest below p): longest's stops and
 // updates, as in greedy_walk (every lane the same walk: the candidates'
 // compares mostly end within a few bytes, where one thread's is the
-// cheaper).
+// cheaper). MEDIUM's (`four`): longest4's, the best from WANT_MIN - 1.
 EX_DEV uint32_t live_greedy_walk(const uint8_t* base, long long total, long long p,
-                                 const Chains& ch, const Disagree& dg, long long dc, int level) {
+                                 const Chains& ch, const Disagree& dg, long long dc, int level,
+                                 bool four) {
   long long limit = p - MAX_DIST;
   if (limit < 0) limit = 0;
-  long long cur = true_prev(p, p - MAX_DIST - 1, ch, dg, dc);
+  const long long hp = four ? (long long)hash4_at(base, p) : -1;
+  long long cur = true_prev(p, p - MAX_DIST - 1, ch, dg, dc, base, hp);
   if (cur <= 0 || p - cur > MAX_DIST) return 0;
   const int lookahead = (int)(total - p);
   int nice = kT.nice[level];
@@ -776,7 +870,7 @@ EX_DEV uint32_t live_greedy_walk(const uint8_t* base, long long total, long long
   const int chain = kT.chain[level];
   const bool inb = p + MAX_MATCH <= total;
   const uint8_t* here = base + p;
-  int best = MIN_MATCH - 1, bd = 0, n = 0;
+  int best = four ? WANT_MIN - 1 : MIN_MATCH - 1, bd = 0, n = 0;
   uint16_t scan_end = inb ? load16(here + best - 1) : 0;
   const uint16_t scan_start = inb ? load16(here) : 0;
   for (;;) {
@@ -792,7 +886,7 @@ EX_DEV uint32_t live_greedy_walk(const uint8_t* base, long long total, long long
       if (inb) scan_end = load16(here + best - 1);
     }
     if (++n == chain) break;
-    const long long next = true_prev(cur, limit, ch, dg, dc);
+    const long long next = true_prev(cur, limit, ch, dg, dc, base, hp);
     if (next <= limit || next >= cur) break;
     cur = next;
   }
@@ -809,9 +903,11 @@ EX_DEV uint32_t live_greedy_walk(const uint8_t* base, long long total, long long
 // in (low bits 0: none, the table's); the capped deltas go out in order,
 // and the last key of each hash leaves its hash's last position in the
 // table for the next sort. After the keys lie kSort 16-bit deltas and a
-// total a warp.
+// total a warp. MEDIUM's 16-bit hash4 takes two passes, a half of the hash
+// space each (`half`; -1 for the 3-byte hash): the other half's positions
+// are padding, and only the half's deltas go out.
 __device__ void tile_pass(uint32_t* keys, int32_t* table, long long s0, int n, uint16_t* out,
-                          int tid) {
+                          int tid, const uint8_t* base, int half) {
   constexpr int kPer = kSort / kChainThreads;
   for (int k = 2; k <= kSort; k <<= 1)
     for (int j = k >> 1; j > 0; j >>= 1) {
@@ -884,7 +980,8 @@ __device__ void tile_pass(uint32_t* keys, int32_t* table, long long s0, int n, u
 #pragma unroll
   for (int r = 0; r < kPer; r++)
     if (last[r] >= 0) table[key[r] >> 13] = last[r];
-  for (int i = tid; i < n; i += kChainThreads) out[i] = dl[i];
+  for (int i = tid; i < n; i += kChainThreads)
+    if (half < 0 || (int)(hash4_at(base, s0 + i) >> 15) == half) out[i] = dl[i];
   __syncthreads();
 }
 #endif
@@ -895,53 +992,83 @@ __device__ void tile_pass(uint32_t* keys, int32_t* table, long long s0, int n, u
 // 0xffff: the prevd value zlib's serial insert writes. The tile starts from
 // the last occurrences in the kLookback positions before it: an older one
 // lies at least kLookback back, where the cap gives the same delta.
-// Positions `sk` skips are left out of the chains (levels 1-3: the chains
-// under an assumed skip map, and DS's after a pump under the parse's own);
-// each position still gets its delta to the last one left in before it.
-// On the card the whole block takes kSort positions at once (tile_pass).
+// Positions `sk` skips are left out of the chains (levels 1-3 and MEDIUM:
+// the chains under an assumed skip map, and DS's after a pump under the
+// parse's own); each position still gets its delta to the last one left in
+// before it. `four`: MEDIUM's chains, keyed by hash4 (head_old int32
+// [65536], a half of it a pass on the card); the caller keeps t1 where
+// hash4 can hash. On the card the whole block takes kSort positions at
+// once (tile_pass).
 EX_DEV void tile_chains(const uint8_t* base, const long long* pr, long long t0, long long t1,
                         const int32_t* head_old, int32_t* table, uint32_t* keys, uint16_t* deltas,
-                        int tid, int nthreads, const Skip& sk) {
+                        int tid, int nthreads, const Skip& sk, bool four) {
   const long long lo = pr[P_LO];
   const long long ws = t0 - kLookback > lo ? t0 - kLookback : lo;
   const bool seeded = ws == lo && head_old;
-  for (int h = tid; h < HASH_SIZE; h += nthreads) table[h] = seeded ? head_old[h] : 0;
   uint16_t* out = deltas + pr[P_DOFF];
   const long long c0 = pr[P_C0];
 #ifdef __CUDACC__
-  // the lookback: 4 positions a thread a step, their 6 bytes in two loads
-  for (long long g = ws + 4LL * tid; g < t0; g += 4LL * nthreads) {
-    if (g + 3 < t0) {
-      const uint32_t a = load32u(base + g), b = load32u(base + g + 2);
-      const uint32_t by[6] = {a & 0xff, a >> 8 & 0xff, a >> 16 & 0xff, a >> 24, b >> 16 & 0xff,
-                              b >> 24};
+  for (int half = 0; half < (four ? 2 : 1); half++) {
+    const uint32_t hb = (uint32_t)half << 15;
+    for (int h = tid; h < HASH_SIZE; h += nthreads) table[h] = seeded ? head_old[hb | h] : 0;
+    __syncthreads();
+    // the lookback: 4 positions a thread a step, their 6 (hash4: 7) bytes
+    // in two loads
+    for (long long g = ws + 4LL * tid; g < t0; g += 4LL * nthreads) {
+      if (g + 3 < t0) {
+        const uint32_t a = load32u(base + g), b = load32u(base + g + (four ? 4 : 2));
+        if (four) {
 #pragma unroll
-      for (int r = 0; r < 4; r++) {
-        const uint32_t h =
-            (by[r] << (2 * HASH_SHIFT) ^ by[r + 1] << HASH_SHIFT ^ by[r + 2]) & (HASH_SIZE - 1);
-        if (!sk.on(g + r)) atomic_max_i32(table + h, (int32_t)(g + r));
+          for (int r = 0; r < 4; r++) {
+            const uint32_t v = r ? (a >> (8 * r)) | (b << (32 - 8 * r)) : a;
+            const uint32_t h = (v * 2654435761u) >> 16;
+            if ((h >> 15) == (uint32_t)half && !sk.on(g + r))
+              atomic_max_i32(table + (h & (HASH_SIZE - 1)), (int32_t)(g + r));
+          }
+        } else {
+          const uint32_t by[6] = {a & 0xff, a >> 8 & 0xff, a >> 16 & 0xff, a >> 24,
+                                  b >> 16 & 0xff, b >> 24};
+#pragma unroll
+          for (int r = 0; r < 4; r++) {
+            const uint32_t h = (by[r] << (2 * HASH_SHIFT) ^ by[r + 1] << HASH_SHIFT ^ by[r + 2]) &
+                               (HASH_SIZE - 1);
+            if (!sk.on(g + r)) atomic_max_i32(table + h, (int32_t)(g + r));
+          }
+        }
+      } else {
+        for (long long q = g; q < t0; q++) {
+          if (sk.on(q)) continue;
+          const uint32_t h = four ? hash4_at(base, q) : hash_at(base, q);
+          if (!four || (h >> 15) == (uint32_t)half)
+            atomic_max_i32(table + (h & (HASH_SIZE - 1)), (int32_t)q);
+        }
       }
-    } else {
-      for (long long q = g; q < t0; q++)
-        if (!sk.on(q)) atomic_max_i32(table + hash_at(base, q), (int32_t)q);
     }
-  }
-  // then the tile kSort positions at a time, each sort's keys (hash,
-  // position in the sort, skipped; the padding last) after the last one's
-  for (long long s0 = t0; s0 < t1; s0 += kSort) {
-    const int n = (int)(t1 - s0 < kSort ? t1 - s0 : kSort);
-    for (int i = tid; i < kSort; i += nthreads)
-      keys[i] = i < n ? hash_at(base, s0 + i) << 13 | (uint32_t)i << 1 | (sk.on(s0 + i) ? 1u : 0u)
-                      : 0xffffffffu;
-    tile_pass(keys, table, s0, n, out + (s0 - c0), tid);
+    // then the tile kSort positions at a time, each sort's keys (hash,
+    // position in the sort, skipped; the padding last) after the last one's
+    for (long long s0 = t0; s0 < t1; s0 += kSort) {
+      const int n = (int)(t1 - s0 < kSort ? t1 - s0 : kSort);
+      for (int i = tid; i < kSort; i += nthreads) {
+        uint32_t key = 0xffffffffu;
+        if (i < n) {
+          const uint32_t h = four ? hash4_at(base, s0 + i) : hash_at(base, s0 + i);
+          if (!four || (h >> 15) == (uint32_t)half)
+            key = (h & (HASH_SIZE - 1)) << 13 | (uint32_t)i << 1 | (sk.on(s0 + i) ? 1u : 0u);
+        }
+        keys[i] = key;
+      }
+      tile_pass(keys, table, s0, n, out + (s0 - c0), tid, base, four ? half : -1);
+    }
   }
 #else
   (void)keys;
   (void)tid;
+  const int hsize = four ? 1 << 16 : HASH_SIZE;
+  for (int h = 0; h < hsize; h++) table[h] = seeded ? head_old[h] : 0;
   for (long long p = ws; p < t0; p++)
-    if (!sk.on(p)) atomic_max_i32(table + hash_at(base, p), (int32_t)p);
+    if (!sk.on(p)) atomic_max_i32(table + (four ? hash4_at(base, p) : hash_at(base, p)), (int32_t)p);
   for (long long p = t0; p < t1; p++) {
-    const uint32_t h = hash_at(base, p);
+    const uint32_t h = four ? hash4_at(base, p) : hash_at(base, p);
     const long long d = p - table[h];
     out[p - c0] = (uint16_t)(d < 0xffff ? d : 0xffff);
     if (!sk.on(p)) table[h] = (int32_t)p;
@@ -1316,6 +1443,10 @@ struct Deflater {
   uint16_t* dlist;            // levels 1-3: the disagreements' list (Disagree's d) ...
   long long dlist_c0, dlist_c1;  // ... for positions [c0, c1)
   long long tops, lives;         // levels 1-3: loop tops, live walks
+  // MEDIUM over the slots: 4-byte-hash chains (ldh by the hash folded to
+  // 15 bits), and the first position whose insert the parse has not decided
+  bool four;
+  long long front;
   uint32_t* hist;       // on the card: a block's frequencies in shared memory
   uint64_t* ewords;     // and the emission's words (kEmitWords)
   long long clk_flush;  // clock64 cycles inside flush_block (the card)
@@ -1550,21 +1681,34 @@ struct Deflater {
     spos = dict_len;  // the static chains hold the dictionary
   }
 
-  // the parse's map over [a, e): position a (a loop top, hashed) left in,
-  // the rest `skip`. The map held what the slots assumed there; it is left
+  // the parse's map over [a, e) (a < e): the positions in [s0, s1) skipped,
+  // the rest left in. The map held what the slots assumed there; it is left
   // holding the truth, each position where the two differed is the last of
   // its hash in ldh, and the result is the highest such position (-1 if
   // none). The word holding e - 1 stays in (cw, cv), written back (dirty)
   // once the parse leaves it or a live walk reads the map. On the card a
   // lane a word (a range spans at most 10); ldh's stores go lane by lane,
   // so that the highest position of a hash stays.
-  EX_INL long long mark(long long a, long long e, bool skip, long long& cw, uint32_t& cv,
-                        bool& dirty) {
-    const long long ra = a - map_b0, re = e - map_b0;
+  EX_INL long long mark(long long a, long long e, long long s0, long long s1, long long& cw,
+                        uint32_t& cv, bool& dirty) {
+    const long long ra = a - map_b0, re = e - map_b0, rs0 = s0 - map_b0, rs1 = s1 - map_b0;
     const long long w0 = ra >> 5, w1 = (re - 1) >> 5;
     if (dirty && cw != w0) {
       if (lane == 0) map[cw] = cv;
       dirty = false;
+    }
+    if (w0 == w1) {  // one word: the same values on every lane, no shuffle
+      const long long wb = w0 << 5, k0 = rs0 - wb, k1 = rs1 - wb;
+      const uint32_t mask = bit_range((int)(ra - wb), (int)(re - wb));
+      const uint32_t t = mask & bit_range(k0 < 0 ? 0 : k0 > 32 ? 32 : (int)k0,
+                                          k1 < 0 ? 0 : k1 > 32 ? 32 : (int)k1);
+      const uint32_t old = w0 == cw ? cv : map[w0];
+      const uint32_t diff = (old ^ t) & mask;
+      for (uint32_t d = diff; d; d &= d - 1) note(map_b0 + wb + ctz32(d));
+      dirty = diff != 0 || (w0 == cw && dirty);
+      cw = w0;
+      cv = (old & ~mask) | t;
+      return diff ? map_b0 + wb + 31 - clz32(diff) : -1;
     }
     long long hit = -1;
     uint32_t last = 0, last_diff = 0;
@@ -1579,9 +1723,10 @@ struct Deflater {
       const long long wb = w << 5;
       const int lo = ra > wb ? (int)(ra - wb) : 0;
       const int hi = re < wb + 32 ? (int)(re - wb) : 32;
-      const uint32_t mask = (hi == 32 ? kFull : (1u << hi) - 1u) & ~((1u << lo) - 1u);
-      uint32_t t = skip ? mask : 0u;
-      if (w == w0) t &= ~(1u << lo);
+      const uint32_t mask = bit_range(lo, hi);
+      const long long k0 = rs0 - wb, k1 = rs1 - wb;
+      const uint32_t t = mask & bit_range(k0 < 0 ? 0 : k0 > 32 ? 32 : (int)k0,
+                                          k1 < 0 ? 0 : k1 > 32 ? 32 : (int)k1);
       const uint32_t old = w == cw ? cv : map[w];
       const uint32_t nv = (old & ~mask) | t;
       diff = (old ^ t) & mask;
@@ -1618,10 +1763,10 @@ struct Deflater {
   }
 
   // a disagreement at q: the newest of its hash (only positions a walk of
-  // this chase can read: hashed, below dlist_c1)
+  // this chase can read: hashed, below dlist_c1; none in a dry parse)
   EX_INL void note(long long q) {
-    if (q >= dlist_c1 || q + MIN_MATCH > total) return;
-    const uint32_t h = hash_at(base, q);
+    if (!ldh || q >= dlist_c1 || q + (four ? WANT_MIN : MIN_MATCH) > total) return;
+    const uint32_t h = four ? hash4_at(base, q) & (HASH_SIZE - 1) : hash_at(base, q);
     const long long before = ldh[h];
     dlist[q - dlist_c0] = (uint16_t)(before >= 0 && q - before < 0xffff ? q - before : 0);
     ldh[h] = (int32_t)q;
@@ -1670,7 +1815,7 @@ struct Deflater {
         if (reach <= ld) {
           const long long lh = ldh[hash_at(b, p)];
           if (reach <= lh) {
-            v = live_greedy_walk(b, tot, p, ch, Disagree{dlist, dlist_c0}, lh, klevel);
+            v = live_greedy_walk(b, tot, p, ch, Disagree{dlist, dlist_c0}, lh, klevel, false);
             nl++;
           }
         }
@@ -1683,11 +1828,12 @@ struct Deflater {
       if (mdist > 0) {
         syms[n++] = Sym{(uint16_t)mdist, (uint16_t)ml};
         const long long end = p + ml;
-        h = mark(p, end, !(ml <= lazy && tot - end >= MIN_MATCH), cw, cv, dirty);
+        h = mark(p, end, p + 1, !(ml <= lazy && tot - end >= MIN_MATCH) ? end : p + 1, cw, cv,
+                 dirty);
         p = end;
       } else {
         syms[n++] = Sym{0, b[p]};
-        h = mark(p, p + 1, false, cw, cv, dirty);
+        h = mark(p, p + 1, p + 1, p + 1, cw, cv, dirty);
         p++;
       }
       if (h > ld) ld = h;
@@ -1919,16 +2065,16 @@ struct Deflater {
     }
   }
 
-  EX_DEV void med_fizzle(MedMatch& cur, MedMatch& nm) {
+  EX_INL void med_fizzle(MedMatch& cur, MedMatch& nm) {
     if (cur.length <= 1) return;
     if ((long long)cur.length > 1 + nm.start) return;
     if ((long long)cur.length > 1 + nm.strstart) return;
-    if (base[nm.start - cur.length + 1] != base[nm.strstart - cur.length + 1]) return;
+    if (ldb(base + nm.start - cur.length + 1) != ldb(base + nm.strstart - cur.length + 1)) return;
     const long long limit = nm.strstart > MAX_DIST ? nm.strstart - MAX_DIST : 0;
     MedMatch c = cur, nx = nm;
     long long mi = nx.start, oi = nx.strstart;
     int changed = 0;
-    while (mi >= 1 && oi >= 1 && base[mi - 1] == base[oi - 1]) {
+    while (mi >= 1 && oi >= 1 && ldb(base + mi - 1) == ldb(base + oi - 1)) {
       if (c.length < 1) break;
       if (nx.strstart <= limit) break;
       if (nx.length >= 256) break;
@@ -1949,6 +2095,190 @@ struct Deflater {
     }
   }
 
+  // MEDIUM over the slots: the positions whose insert the parse decides
+  // from the frontier F to e, those in [F, s) never inserted (the serial
+  // inserts go in increasing order, so a position passed over stays out)
+  // and [s, e) inserted; F moves to e. Where the map holds no skipped
+  // position from F on (`clean`: the first round's), an insert differs
+  // from nothing and only the positions passed over are marked.
+  EX_INL long long med_decide(long long& F, long long s, long long e, bool clean, long long& cw,
+                              uint32_t& cv, bool& dirty) {
+    if (e <= F) return -1;
+    const long long h = clean ? (s > F ? mark(F, s, F, s, cw, cv, dirty) : -1)
+                              : mark(F, e, F, s, cw, cv, dirty);
+    F = e;
+    return h;
+  }
+
+  // whether the map holds no skipped position from `from` on, over its
+  // `words` words
+  EX_DEV bool map_clean(long long from, long long words) {
+    const long long w0 = (from - map_b0) >> 5;
+    bool set = false;
+    for (long long wi = w0 + lane; wi < words; wi += kLanes) {
+      uint32_t v = map[wi];
+      if (wi == w0) v &= ~bit_range(0, (int)((from - map_b0) & 31));
+      set |= v != 0;
+    }
+#ifdef __CUDACC__
+    return !__any_sync(kFull, set);
+#else
+    return !set;
+#endif
+  }
+
+  // the positions med_insert_match inserts for a match, [*a, *e) (none
+  // where e <= a; insert_range stops where hash4 would read past the data)
+  EX_INL void med_insert_range(MedMatch m, long long& a, long long& e) const {
+    a = e = 0;
+    if (total - m.strstart <= (long long)m.length + WANT_MIN) return;
+    if (m.length < WANT_MIN) {  // a literal run: its covered tail
+      m.strstart += 1;
+      m.length -= 1;
+      if (m.length > 0 && m.strstart >= m.orgstart) {
+        a = m.strstart;
+        e = a + (m.strstart + m.length > m.orgstart ? (long long)m.length
+                                                    : m.orgstart - m.strstart + 1);
+      }
+    } else if ((long long)m.length <= 16LL * kT.lazy[klevel] && total - m.strstart >= WANT_MIN) {
+      m.length -= 1;
+      m.strstart += 1;
+      if (m.strstart >= m.orgstart) {
+        a = m.strstart;
+        e = a + (m.strstart + m.length > m.orgstart ? (long long)m.length
+                                                    : m.orgstart - m.strstart + 1);
+      } else if (m.orgstart < m.strstart + m.length) {
+        a = m.orgstart;
+        e = m.strstart + m.length;
+      }
+    } else if (m.strstart + m.length >= 1) {  // a jump: only the position before the landing
+      a = m.strstart + m.length - 1;
+      e = a + 1;
+    }
+    if (e > total - (WANT_MIN - 1)) e = total - (WANT_MIN - 1);
+  }
+
+  // a MEDIUM walk at p (a loop top's or the lookahead's, p just inserted):
+  // the slot, taken when its reach lies above the newest disagreement of
+  // its (folded) hash, else longest4 over the parse's own map, live; a dry
+  // parse takes every slot
+  EX_INL uint32_t med_walk(SlotSrc& src, long long p, long long ld, bool dry, long long& nl) {
+    const Slot slot = src.at(p, lane);
+    if (dry) return slot.full;
+    const long long reach = p - (long long)(slot.aux & 0xffffu);
+    if (reach <= ld) {
+      const long long lh = ldh[slot.aux >> 16];
+      if (reach <= lh) {
+        nl++;
+        return live_greedy_walk(base, total, p, ch, Disagree{dlist, dlist_c0}, lh, klevel, true);
+      }
+    }
+    return slot.full;
+  }
+
+  // MEDIUM (native's run_medium), levels 11-13, over static 4-byte-hash
+  // chains: every walk (a fresh loop top's and the lookahead's at the next
+  // match) is a slot lookup checked as at levels 1-3, the parse's own map
+  // kept by med_decide. The inserts med_insert_match would make are
+  // decisions in the map; the fizzle's byte compares, the emit and
+  // flush_block stay serial. A dry parse (`dry`) follows the slots
+  // unchecked and only writes the map: no symbol, no live walk, no list.
+  EX_DEV void run_medium_slots(long long limit, bool dry, long long map_len) {
+    if (!started) {
+      started = true;
+      spos = front = dict_len;
+    }
+    const bool clean = map_clean(front, map_len);
+    const long long tot = total;
+    SlotSrc src = sl;
+    if (!dry)
+      for (int h = lane; h < HASH_SIZE; h += kLanes) ldh[h] = -1;
+    long long sp = spos, F = front, ld = -1, nt = 0, nl = 0, cw = -1, n = ns;
+    uint32_t cv = 0;
+    bool dirty = false;
+    Sym* const syms = dry ? nullptr : w->syms;
+    const uint8_t* const b = base;
+    MedMatch carry{med_next_start, med_next_strstart, med_next_orgstart, med_next_len};
+    while (sp < limit) {
+      warp_sync();
+      MedMatch cur;
+      long long h;
+      if (carry.length > 0) {
+        cur = carry;
+        carry.length = 0;
+      } else {
+        cur = MedMatch{0, sp, sp, 1};
+        if (sp + WANT_MIN <= tot) {
+          h = med_decide(F, sp, sp + 1, clean, cw, cv, dirty);
+          if (h > ld) ld = h;
+          const uint32_t v = med_walk(src, sp, ld, dry, nl);
+          nt++;
+          const int mdist = (int)(v & 0x7fff);
+          const long long m = v >> 15;
+          if (mdist > 0) {
+            cur.start = sp - mdist;
+            cur.length = (int)(m < tot - sp ? m : tot - sp);
+          }
+        }
+      }
+      // med_insert_match's inserts, decided with the lookahead's insert
+      // where they meet it (one mark: the interior, then the next match's
+      // start)
+      long long ia, ie;
+      med_insert_range(cur, ia, ie);
+      const long long nxt = cur.strstart + cur.length;
+      const bool look = tot - cur.strstart > MIN_LOOKAHEAD;  // look one match ahead
+      const bool walk = look && nxt + WANT_MIN <= tot;
+      if (ie > ia && !(walk && ie == nxt)) {
+        h = med_decide(F, ia, ie, clean, cw, cv, dirty);
+        if (h > ld) ld = h;
+      }
+      if (look) {
+        MedMatch nm{0, nxt, nxt, 1};
+        if (walk) {
+          h = med_decide(F, ie > ia && ie == nxt ? ia : nxt, nxt + 1, clean, cw, cv, dirty);
+          if (h > ld) ld = h;
+          const uint32_t v = med_walk(src, nxt, ld, dry, nl);
+          nt++;
+          const int mdist = (int)(v & 0x7fff);
+          const long long m = v >> 15;
+          if (mdist > 0) {
+            nm.start = nxt - mdist;
+            nm.length = (int)(m < tot - nxt ? m : tot - nxt);
+            med_fizzle(cur, nm);
+          }
+        }
+        carry = nm;
+      }
+      if (!dry) {
+        if (cur.length < WANT_MIN) {
+          for (int i = 0; i < cur.length; i++) syms[n++] = Sym{0, ldb(b + cur.strstart + i)};
+        } else {
+          syms[n++] = Sym{(uint16_t)(cur.strstart - cur.start), (uint16_t)cur.length};
+        }
+      }
+      sp = cur.strstart + cur.length;
+      if (!dry && n >= SYM_END - 4) {
+        ns = n;
+        flush_block(false, sp);
+        n = ns;
+      }
+    }
+    map_flush(cw, cv, dirty);
+    ns = n;
+    spos = sp;
+    front = F;
+    med_next_start = carry.start;
+    med_next_strstart = carry.strstart;
+    med_next_orgstart = carry.orgstart;
+    med_next_len = carry.length;
+    sl = src;
+    tops += nt;
+    lives += nl;
+  }
+
+  // native's serial run_medium, its inserts into head4 and prevd4 and its
+  // walks over them: DS's pumps once a FULL_FLUSH has left head4 stale
   EX_DEV void run_medium(long long limit) {
     const bool early_exit = klevel < 5;
     if (!started) {
@@ -2133,6 +2463,8 @@ struct Deflater {
     bw.byte(0xff);
   }
 
+  // level 0 and QUICK (levels 1-9 and MEDIUM take the pieces' resolve and
+  // chase)
   EX_DEV void run(bool final_flag) {
     if (level == QUICK_LEVEL) {
       run_quick(final_flag);
@@ -2142,29 +2474,19 @@ struct Deflater {
         bw.align();
       return;
     }
-    if (level == 0) {  // the ample-output stored schedule
-      if (final_flag) {
-        long long pos = dict_len;
-        for (;;) {
-          const long long take = total - pos < 65535 ? total - pos : 65535;
-          const bool lastb = take == total - pos;
-          emit_stored(pos, take, lastb);
-          pos += take;
-          if (lastb) break;
-        }
-      } else {
-        emit_stored(dict_len, n, false);
-        bw.align();
-        seam();
-      }
-      return;
-    }
-    run_medium(total);  // levels 1-9 take the pieces' resolve and chase
+    // level 0: the ample-output stored schedule
     if (final_flag) {
-      flush_block(true, total);
-      bw.align();
+      long long pos = dict_len;
+      for (;;) {
+        const long long take = total - pos < 65535 ? total - pos : 65535;
+        const bool lastb = take == total - pos;
+        emit_stored(pos, take, lastb);
+        pos += take;
+        if (lastb) break;
+      }
     } else {
-      if (ns != 0 || block_start < total) flush_block(false, total);
+      emit_stored(dict_len, n, false);
+      bw.align();
       seam();
     }
   }
@@ -2211,6 +2533,8 @@ EX_DEV long long deflate_one(const uint8_t* in, const long long* m, int level, u
   d.map = nullptr;
   d.ldh = nullptr;
   d.map_b0 = d.tops = d.lives = 0;
+  d.four = false;
+  d.front = 0;
   d.clk_flush = d.clk_emit = 0;
   d.run(final_flag);
   warp_sync();
@@ -2235,6 +2559,8 @@ enum {
   D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS, D_FINISHED,
   D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART, D_MED_NEXT_LEN,
   D_INS_LO, D_INS_HI,  // levels 1-9: the positions [lo, hi) the pump inserted, for ds_tables
+                       // (MEDIUM: hi, the parse's frontier, carries to the next pump)
+  D_MED_STALE,  // MEDIUM: a FULL_FLUSH left head4 stale; the pumps run the serial inserts
   kDRec = 28
 };
 constexpr int kMisuse = -2;
@@ -2248,18 +2574,23 @@ constexpr int kMisuse = -2;
 // At levels 1-9 `slots` holds the resolve's slots of positions [spos,
 // spos + n_slots) and `deltas` the static chains' deltas from the pump's
 // first insert (D_INS_LO); the chase leaves the inserted range's end in
-// D_INS_HI for ds_tables. At levels 1-3 `deltas` are the chains the
-// slots' walks took (the assumed map's positions left out; `span` of
+// D_INS_HI for ds_tables. At levels 1-3 and MEDIUM `deltas` are the chains
+// the slots' walks took (the assumed map's positions left out; `span` of
 // them), `map` the skip map from D_INS_LO rounded down to 32 (the map the
 // slots assumed; the chase leaves the parse's own in it), and `dlist` (as
 // deltas) and `ldh` int32 [32768] the chase's scratch; stats (null, or
-// int64 [2]) adds the loop tops and the live walks.
+// int64 [2]) adds the loop tops and the live walks. MEDIUM's first insert
+// is the last pump's frontier (D_INS_HI); once a FULL_FLUSH has left head4
+// stale (D_MED_STALE), a pump takes no slots and runs native's serial
+// inserts and walks (run_medium): a stale head can put a position of
+// another hash, or one never inserted, on a chain, which the static chains
+// do not model.
 EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, int lane,
                     int lanes, const Slot* slots, long long n_slots, const uint16_t* deltas,
                     uint16_t* dlist, long long span, uint32_t* map, int32_t* ldh, Slot* stage,
                     uint32_t* hist, uint64_t* ewords, long long* clk, long long* stats) {
   const int level = (int)r[D_LEVEL], flush = (int)r[D_FLUSH];
-  const bool medium = level >= MEDIUM_BASE && level <= MEDIUM_BASE + 2;
+  const bool medium = medium_level(level);
   if (r[D_FINISHED] || (!medium && (level < 1 || level > 9))) {  // native's -2
     warp_sync();
     if (lane == 0) {
@@ -2269,7 +2600,8 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     }
     return;
   }
-  const bool fixed = !medium;
+  const bool serial = medium && r[D_MED_STALE] != 0;  // MEDIUM's serial inserts
+  const bool fixed = !serial;                          // the slots' chase
 #ifdef __CUDACC__
   const long long clk0 = clock64();
 #endif
@@ -2278,7 +2610,7 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   d.dict_len = 0;
   d.total = d.n = r[D_TOTAL];
   d.level = level;
-  d.klevel = medium ? level - MEDIUM_BASE + 5 : level;
+  d.klevel = knob_level(level);
   d.lane = lane;
   d.w = w;
   d.w4 = medium ? (Work4*)((uint8_t*)w + kWorkBytes) : nullptr;
@@ -2298,19 +2630,21 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   d.med_next_strstart = r[D_MED_NEXT_STRSTART];
   d.med_next_orgstart = r[D_MED_NEXT_ORGSTART];
   d.med_next_len = (int)r[D_MED_NEXT_LEN];
-  d.hist = fixed ? hist : nullptr;
-  d.ewords = fixed ? ewords : nullptr;
+  d.hist = hist;
+  d.ewords = ewords;
   d.map = map;
   d.ldh = ldh;
+  d.four = medium;
+  d.front = d.started ? r[D_INS_HI] : 0;
   d.tops = d.lives = 0;
   d.clk_flush = d.clk_emit = 0;
   long long total = d.total;
   long long insert_pending = r[D_INSERT_PENDING];
   d.start_scan();
-  const long long ins_lo = d.spos - insert_pending;
+  const long long ins_lo = medium ? d.front : d.spos - insert_pending;
   d.map_b0 = ins_lo & ~31LL;
   if (fixed) {
-    d.ch = Chains{deltas, ins_lo, w->prevd};
+    d.ch = Chains{deltas, ins_lo, medium ? d.w4->prevd4 : w->prevd};
     d.sl = SlotSrc{slots, d.spos, n_slots, stage, -1};
     d.dlist = dlist;
     d.dlist_c0 = ins_lo;
@@ -2328,19 +2662,24 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
   }
   const long long limit =
       flush ? total : (total >= MIN_LOOKAHEAD ? total - (MIN_LOOKAHEAD - 1) : 0);
-  if (medium)
+  if (serial)
     d.run_medium(limit);
+  else if (medium)
+    d.run_medium_slots(limit, false, map_words(d.map_b0, total));
   else if (kT.slow[level])
     d.run_slow(limit);
   else
     d.run_greedy(limit);
   // the inserted positions end where the scan stopped, short of the last
-  // two (their strings end past the data), never below the first insert
+  // two (their strings end past the data), never below the first insert;
+  // MEDIUM's at the parse's frontier
   long long ins_hi = d.spos < total - (MIN_MATCH - 1) ? d.spos : total - (MIN_MATCH - 1);
+  if (medium) ins_hi = d.front;
   if (ins_hi < ins_lo) ins_hi = ins_lo;
   bool finished = false;
+  bool stale = serial;
   if (flush) {
-    if (fixed) d.emit_trailing_literal();
+    if (!medium) d.emit_trailing_literal();
     insert_pending = d.spos < MIN_MATCH - 1 ? d.spos : MIN_MATCH - 1;
     if (flush == 4) {
       d.flush_block(true, total);
@@ -2354,8 +2693,10 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
       // wraps in its u16 slot, and every candidate's bytes are compared)
       if (flush == 3) {
         // levels 1-9: ds_tables clears the heads after it writes the chains
-        if (medium)
+        if (medium) {
           for (int i = lane; i < HASH_SIZE; i += lanes) w->head[i] = 0;
+          stale = true;
+        }
         total = 0;
         d.spos = 0;
         d.block_start = 0;
@@ -2390,6 +2731,7 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
     r[D_MED_NEXT_LEN] = d.med_next_len;
     r[D_INS_LO] = fixed ? ins_lo : 0;
     r[D_INS_HI] = fixed ? ins_hi : 0;
+    r[D_MED_STALE] = stale ? 1 : 0;
     if (stats) {
       stats[0] += d.tops;
       stats[1] += d.lives;
@@ -2407,7 +2749,7 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
 #endif
 }
 
-// after a DS pump at levels 1-9 (positions [D_INS_LO, D_INS_HI) inserted
+// after a DS pump at levels 1-9 and MEDIUM (positions [D_INS_LO, D_INS_HI) inserted
 // but those the parse's map `sk` skips, deltas from D_INS_LO over the
 // inserted positions alone): the handle's head and prevd as zlib's serial
 // inserts leave them. head takes each inserted position by atomicMax (a
@@ -2415,17 +2757,23 @@ EX_DEV void ds_pump(long long* r, const uint8_t* data, Work* w, uint8_t* out, in
 // inserted position it holds and keeps its value where the pump inserted
 // none (a skipped position's slot is untouched); FULL_FLUSH clears the
 // heads, after the inserts, as zlib does.
+// MEDIUM: head4 and prevd4 (Work4, after Work), FULL_FLUSH clearing
+// neither, as native.
 EX_DEV void ds_tables_range(const long long* r, const uint8_t* data, Work* w,
                             const uint16_t* deltas, long long i0, long long step, const Skip& sk) {
   if (r[D_STATUS] == kMisuse) return;
   const long long lo = r[D_INS_LO], hi = r[D_INS_HI];
-  const bool clear = r[D_FLUSH] == 3;
+  const bool four = medium_level((int)r[D_LEVEL]);
+  const bool clear = r[D_FLUSH] == 3 && !four;
+  Work4* w4 = (Work4*)((uint8_t*)w + kWorkBytes);
+  int32_t* head = four ? w4->head4 : w->head;
+  uint16_t* prevd = four ? w4->prevd4 : w->prevd;
   for (long long p = lo + i0; p < hi; p += step) {
     if (sk.on(p)) continue;
-    if (!clear) atomic_max_i32(w->head + hash_at(data, p), (int32_t)p);
+    if (!clear) atomic_max_i32(head + (four ? hash4_at(data, p) : hash_at(data, p)), (int32_t)p);
     bool latest = true;
     for (long long q = p + WSIZE; q < hi && latest; q += WSIZE) latest = sk.on(q);
-    if (latest) w->prevd[p & (WSIZE - 1)] = deltas[p - lo];
+    if (latest) prevd[p & (WSIZE - 1)] = deltas[p - lo];
   }
 }
 
@@ -2436,20 +2784,24 @@ EX_DEV void ds_tables_clear(const long long* r, Work* w, long long i0, long long
   for (long long h = i0; h < HASH_SIZE; h += step) w->head[h] = 0;
 }
 
-// a DS pump's ranges at levels 1-9, from its record before the pump: g[0]
-// the first position it inserts (spos less zlib's pending `insert`), g[1]
-// the end of the positions it can insert (the deltas cover [g[0], g[1])),
-// g[2] spos and g[3] the scan's limit (the slots cover [g[2], g[3]))
+// a DS pump's ranges at levels 1-9 and MEDIUM, from its record before the
+// pump: g[0] the first position it inserts (spos less zlib's pending
+// `insert`; MEDIUM's frontier), g[1] the end of the positions it can
+// insert (the deltas cover [g[0], g[1])), g[2] spos and g[3] the scan's
+// limit (the slots cover [g[2], slot_end), at MEDIUM past the limit)
 EX_HD void ds_ranges(const long long* r, long long* g) {
   const long long total = r[D_TOTAL];
+  const bool medium = medium_level((int)r[D_LEVEL]);
   const long long s = r[D_STARTED] ? r[D_SPOS] : 0;
-  const long long a = s - (r[D_STARTED] ? r[D_INSERT_PENDING] : 0);
+  const long long a = !r[D_STARTED] ? 0 : medium ? r[D_INS_HI] : s - r[D_INSERT_PENDING];
   const long long limit =
       r[D_FLUSH] ? total : (total >= MIN_LOOKAHEAD ? total - (MIN_LOOKAHEAD - 1) : 0);
   const long long we = limit > s ? limit : s;
   // the scan stops before limit + MAX_MATCH - 1; no insert reaches total - 2
+  // (MEDIUM's, whose hash4 reads 4 bytes, total - 3)
   long long c1 = limit + MAX_MATCH > s ? limit + MAX_MATCH : s;
-  if (c1 > total - (MIN_MATCH - 1)) c1 = total - (MIN_MATCH - 1);
+  const long long end = total - (medium ? WANT_MIN - 1 : MIN_MATCH - 1);
+  if (c1 > end) c1 = end;
   if (c1 < a) c1 = a;
   g[0] = a;
   g[1] = c1;
@@ -2467,8 +2819,17 @@ EX_HD void ds_ranges(const long long* r, long long* g) {
 // below start (the parse's own) stay. The lanes clear the map; the parse
 // reads the slots staged as the chase does and gathers a word's bits in a
 // register, stored once the parse leaves the word.
-EX_DEV void dry_piece(const long long* pr, int level, const long long* recs, const Slot* slots,
-                      uint32_t* bits, long long bit_stride, Slot* stage, int lane, int lanes) {
+EX_DEV void dry_medium(const uint8_t* in, const long long* pr, int level, const long long* recs,
+                       const Slot* slots, uint32_t* bits, long long bit_stride, Slot* stage,
+                       int lane);
+
+EX_DEV void dry_piece(const uint8_t* in, const long long* pr, int level, const long long* recs,
+                      const Slot* slots, uint32_t* bits, long long bit_stride, Slot* stage,
+                      int lane, int lanes) {
+  if (medium_level(level)) {
+    dry_medium(in, pr, level, recs, slots, bits, bit_stride, stage, lane);
+    return;
+  }
   const long long total = pr[P_TOTAL], b0 = pr[P_LO] & ~31LL, e = pr[P_E];
   uint32_t* map = bits + pr[P_WORK] * bit_stride;
   long long start = pr[P_S];
@@ -2512,10 +2873,48 @@ EX_DEV void dry_piece(const long long* pr, int level, const long long* recs, con
   if (acc && lane == 0) map[aw] = acc;
 }
 
-// EX at levels 1-9: one piece of one chunk, resumed from the chunk's record
-// (a first piece starts the Deflater as deflate_one does) and chased to the
-// piece's end, or to the chunk's and then ended as run() ends it; at
-// levels 1-3 `deltas` are the chains the slots' walks took, `dlist` (as
+// MEDIUM, between two rounds of the resolve: the dry parse of a piece,
+// run_medium_slots with every slot taken unchecked and no output, resumed
+// from the record (EX's chunk's, or DS's; a record not started starts at
+// the piece's P_S, which is then the chunk's dict_len or DS's 0) to the
+// piece's scan end. Its decisions overwrite the map from the record's
+// frontier on; the bits past the last one keep the round's.
+EX_DEV void dry_medium(const uint8_t* in, const long long* pr, int level, const long long* recs,
+                       const Slot* slots, uint32_t* bits, long long bit_stride, Slot* stage,
+                       int lane) {
+  const long long* r = recs + (size_t)pr[P_WORK] * kDRec;
+  Deflater d;
+  d.base = in + pr[P_BASE];
+  d.total = pr[P_TOTAL];
+  d.dict_len = pr[P_S];
+  d.n = d.total - d.dict_len;
+  d.level = level;
+  d.klevel = knob_level(level);
+  d.lane = lane;
+  d.w = nullptr;
+  d.w4 = nullptr;
+  d.four = true;
+  d.started = r[D_STARTED] != 0;
+  d.spos = r[D_SPOS];
+  d.front = r[D_INS_HI];
+  d.med_next_start = r[D_MED_NEXT_START];
+  d.med_next_strstart = r[D_MED_NEXT_STRSTART];
+  d.med_next_orgstart = r[D_MED_NEXT_ORGSTART];
+  d.med_next_len = d.started ? (int)r[D_MED_NEXT_LEN] : 0;
+  d.map = bits + pr[P_WORK] * bit_stride;
+  d.map_b0 = pr[P_LO] & ~31LL;
+  d.ldh = nullptr;
+  d.dlist = nullptr;
+  d.tops = d.lives = 0;
+  d.sl = SlotSrc{slots + pr[P_SOFF], pr[P_S], slot_end(pr, true) - pr[P_S], stage, -1};
+  d.run_medium_slots(pr[P_E], true, bit_stride ? bit_stride : map_words(d.map_b0, d.total));
+}
+
+// EX at levels 1-9 and MEDIUM: one piece of one chunk, resumed from the
+// chunk's record (a first piece starts the Deflater as deflate_one does;
+// MEDIUM's carried next match and frontier in the record too) and chased
+// to the piece's end, or to the chunk's and then ended as run() ends it; at
+// levels 1-3 and MEDIUM `deltas` are the chains the slots' walks took, `dlist` (as
 // deltas) and ldh (in the chunk's Work head, which the static chains
 // leave unused) the chase's scratch, the chunk's skip
 // map is read and left in `bits` (bit_stride words a chunk), and stats
@@ -2534,17 +2933,21 @@ EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long lon
   const long long* m = meta + (size_t)k * kMeta;
   const long long start = m[0], n = m[1], dict_len = m[2];
   long long* r = recs + (size_t)pr[P_WORK] * kDRec;
+  const bool medium = medium_level(level);
   Deflater d;
   d.base = in + start - dict_len;
   d.dict_len = dict_len;
   d.n = n;
   d.total = dict_len + n;
-  d.level = d.klevel = level;
+  d.level = level;
+  d.klevel = knob_level(level);
   d.lane = lane;
   d.w = (Work*)(scratch + (size_t)pr[P_WORK] * (size_t)stride);
   d.w4 = nullptr;
+  d.four = medium;
   d.med_next_start = d.med_next_strstart = d.med_next_orgstart = 0;
   d.med_next_len = 0;
+  d.front = dict_len;
   if (pr[P_S] == dict_len) {  // the chunk's first piece
     d.bw = BitW{out + m[4], m[5], 0, 0, 0, lane};
     d.ns = 0;
@@ -2569,6 +2972,11 @@ EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long lon
     d.sh = (uint32_t)r[D_SH];
     d.shv = r[D_SHV] != 0;
     d.started = r[D_STARTED] != 0;
+    d.med_next_start = r[D_MED_NEXT_START];
+    d.med_next_strstart = r[D_MED_NEXT_STRSTART];
+    d.med_next_orgstart = r[D_MED_NEXT_ORGSTART];
+    d.med_next_len = (int)r[D_MED_NEXT_LEN];
+    d.front = r[D_INS_HI];
   }
   d.hist = hist;
   d.ewords = ewords;
@@ -2581,9 +2989,12 @@ EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long lon
   d.dlist = dlist ? dlist + pr[P_DOFF] : nullptr;
   d.dlist_c0 = pr[P_C0];
   d.dlist_c1 = pr[P_C1];
-  d.sl = SlotSrc{slots + pr[P_SOFF], pr[P_S], pr[P_E] - pr[P_S], stage, -1};
+  d.sl = SlotSrc{slots + pr[P_SOFF], pr[P_S], slot_end(pr, medium) - pr[P_S], stage, -1};
   const bool last = pr[P_LAST] != 0;
-  if (kT.slow[level])
+  if (medium)
+    d.run_medium_slots(last ? d.total : pr[P_E], false,
+                       bit_stride ? bit_stride : map_words(d.map_b0, d.total));
+  else if (kT.slow[level])
     d.run_slow(last ? d.total : pr[P_E]);
   else
     d.run_greedy(last ? d.total : pr[P_E]);
@@ -2617,6 +3028,11 @@ EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long lon
       r[D_BW_BUF] = (long long)d.bw.buf;
       r[D_BW_CNT] = d.bw.cnt;
       r[D_OUT_LEN] = d.bw.wpos;
+      r[D_MED_NEXT_START] = d.med_next_start;
+      r[D_MED_NEXT_STRSTART] = d.med_next_strstart;
+      r[D_MED_NEXT_ORGSTART] = d.med_next_orgstart;
+      r[D_MED_NEXT_LEN] = d.med_next_len;
+      r[D_INS_HI] = d.front;
     }
     if (stats) {
 #ifdef __CUDACC__
@@ -2638,6 +3054,16 @@ EX_DEV void chase_piece(const uint8_t* in, const long long* meta, const long lon
 #ifndef __CUDACC__
   (void)clk;
 #endif
+}
+
+// a position's slot at `level`: run_slow's two walks (4-9), the greedy walk
+// and its reach (1-3), MEDIUM's walk and its reach
+EX_DEV Slot resolve_one(const uint8_t* base, long long total, long long p, const Chains& ch,
+                        int level, int* visited) {
+  if (medium_level(level))
+    return resolve_greedy(base, total, p, ch, knob_level(level), WANT_MIN, visited);
+  return kT.slow[level] ? resolve_at(base, total, p, ch, level, visited)
+                        : resolve_greedy(base, total, p, ch, level, MIN_MATCH, visited);
 }
 
 #ifdef __CUDACC__
@@ -2667,7 +3093,7 @@ dstream_pump(long long* __restrict__ rec, const uint8_t* __restrict__ data,
              long long n_slots, const uint16_t* __restrict__ deltas,
              uint16_t* __restrict__ dlist, long long span, uint32_t* __restrict__ bits,
              long long* __restrict__ clk, long long* __restrict__ stats) {
-  extern __shared__ int32_t ldh[];  // levels 1-3: HASH_SIZE entries
+  extern __shared__ int32_t ldh[];  // levels 1-3 and MEDIUM: HASH_SIZE entries
   __shared__ Slot stage[2 * kStage];
   __shared__ uint32_t hist[L_CODES + D_CODES];
   __shared__ uint64_t ewords[kEmitWords];
@@ -2677,22 +3103,23 @@ dstream_pump(long long* __restrict__ rec, const uint8_t* __restrict__ data,
 
 // the resolve, part 1: a tile of a piece's deltas a block; `skip` (null,
 // or a skip map a piece at P_WORK * bit_stride from its P_LO rounded down
-// to 32) leaves positions out of the chains
+// to 32) leaves positions out of the chains; `four`: MEDIUM's hash4 chains
 __global__ void __launch_bounds__(kChainThreads)
 build_chains(const uint8_t* __restrict__ in, const long long* __restrict__ pieces, int P,
              const int32_t* __restrict__ head_old, uint16_t* __restrict__ deltas,
-             const uint32_t* __restrict__ skip, long long bit_stride) {
+             const uint32_t* __restrict__ skip, long long bit_stride, int four) {
   extern __shared__ int32_t table[];  // HASH_SIZE last occurrences, then tile_pass's
   const long long* pr = pieces + (size_t)find_piece(pieces, P, P_CBLK, blockIdx.x) * kPiece;
   const long long t0 = pr[P_C0] + (blockIdx.x - pr[P_CBLK]) * (long long)kTile;
   const long long t1 = t0 + kTile < pr[P_C1] ? t0 + kTile : pr[P_C1];
   tile_chains(in + pr[P_BASE], pr, t0, t1, head_old, table, (uint32_t*)(table + HASH_SIZE),
               deltas, threadIdx.x, blockDim.x,
-              Skip{skip ? skip + pr[P_WORK] * bit_stride : nullptr, pr[P_LO] & ~31LL});
+              Skip{skip ? skip + pr[P_WORK] * bit_stride : nullptr, pr[P_LO] & ~31LL}, four != 0);
 }
 
-// the resolve, part 2: a thread a position of every piece's [s, e); count
-// (null, or one uint64) sums the candidates the walks compare
+// the resolve, part 2: a thread a position of every piece's slots [s,
+// slot_end); count (null, or one uint64) sums the candidates the walks
+// compare
 __global__ void __launch_bounds__(kWalkThreads)
 resolve_walk(const uint8_t* __restrict__ in, const long long* __restrict__ pieces, int P,
              int level, const uint16_t* __restrict__ deltas, const uint16_t* __restrict__ ring,
@@ -2700,11 +3127,10 @@ resolve_walk(const uint8_t* __restrict__ in, const long long* __restrict__ piece
   const long long* pr = pieces + (size_t)find_piece(pieces, P, P_WBLK, blockIdx.x) * kPiece;
   const long long p = pr[P_S] + (blockIdx.x - pr[P_WBLK]) * (long long)kWalkThreads + threadIdx.x;
   int visited = 0;
-  if (p < pr[P_E]) {
+  if (p < slot_end(pr, medium_level(level))) {
     const Chains ch{deltas + pr[P_DOFF], pr[P_C0], ring};
     slots[pr[P_SOFF] + p - pr[P_S]] =
-        kT.slow[level] ? resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited)
-                       : resolve_greedy(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
+        resolve_one(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
   }
   if (count) {
     const unsigned sum = __reduce_add_sync(kFull, (unsigned)visited);
@@ -2712,16 +3138,17 @@ resolve_walk(const uint8_t* __restrict__ in, const long long* __restrict__ piece
   }
 }
 
-// levels 1-3: the dry parse, a piece a block of one warp
+// levels 1-3 and MEDIUM: the dry parse, a piece a block of one warp
 __global__ void __launch_bounds__(32)
-exact_dry(const long long* __restrict__ pieces, int level, const long long* __restrict__ recs,
-          const Slot* __restrict__ slots, uint32_t* __restrict__ bits, long long bit_stride) {
+exact_dry(const uint8_t* __restrict__ in, const long long* __restrict__ pieces, int level,
+          const long long* __restrict__ recs, const Slot* __restrict__ slots,
+          uint32_t* __restrict__ bits, long long bit_stride) {
   __shared__ Slot stage[2 * kStage];
-  dry_piece(pieces + (size_t)blockIdx.x * kPiece, level, recs, slots, bits, bit_stride, stage,
+  dry_piece(in, pieces + (size_t)blockIdx.x * kPiece, level, recs, slots, bits, bit_stride, stage,
             threadIdx.x, 32);
 }
 
-// EX's chase at levels 1-9: a piece a block of one warp
+// EX's chase at levels 1-9 and MEDIUM: a piece a block of one warp
 __global__ void __launch_bounds__(32)
 exact_chase(const uint8_t* __restrict__ in, const long long* __restrict__ meta,
             const long long* __restrict__ pieces, int level, uint8_t* __restrict__ out,
@@ -2738,8 +3165,9 @@ exact_chase(const uint8_t* __restrict__ in, const long long* __restrict__ meta,
               threadIdx.x, clk ? clk + 3 * (size_t)blockIdx.x : nullptr, stats);
 }
 
-// DS after a pump at levels 1-9: the handle's head and prevd; `bits` (null
-// at 4-9) the parse's skip map from D_INS_LO rounded down to 32
+// DS after a pump at levels 1-9 and MEDIUM: the handle's head and prevd
+// (head4 and prevd4); `bits` (null at 4-9) the parse's skip map from
+// D_INS_LO rounded down to 32
 __global__ void __launch_bounds__(kTableThreads)
 ds_tables(const long long* __restrict__ rec, const uint8_t* __restrict__ data,
           uint8_t* __restrict__ work, const uint16_t* __restrict__ deltas,
@@ -2814,29 +3242,31 @@ void resolve_host(const uint8_t* in, const long long* pieces, int P, int level,
     const Skip sk{skip ? skip + pr[P_WORK] * bit_stride : nullptr, pr[P_LO] & ~31LL};
     for (long long t0 = pr[P_C0]; t0 < pr[P_C1]; t0 += kTile)
       tile_chains(in + pr[P_BASE], pr, t0, t0 + kTile < pr[P_C1] ? t0 + kTile : pr[P_C1],
-                  head_old, table, nullptr, deltas, 0, 1, sk);
+                  head_old, table, nullptr, deltas, 0, 1, sk, medium_level(level));
   }
   for (int i = 0; slots && i < P; i++) {
     const long long* pr = pieces + (size_t)i * kPiece;
     const Chains ch{deltas + pr[P_DOFF], pr[P_C0], ring};
     int visited;
-    for (long long p = pr[P_S]; p < pr[P_E]; p++)
+    for (long long p = pr[P_S]; p < slot_end(pr, medium_level(level)); p++)
       slots[pr[P_SOFF] + p - pr[P_S]] =
-          kT.slow[level] ? resolve_at(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited)
-                         : resolve_greedy(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
+          resolve_one(in + pr[P_BASE], pr[P_TOTAL], p, ch, level, &visited);
   }
 }
 
 long long g_piece = 1LL << 22;  // the host build's piece, in positions
-// the host build's rounds at levels 1-3, by level (the wrapper's ROUNDS)
+// the host build's rounds at levels 1-3 and at MEDIUM4-6, by level (the
+// wrapper's ROUNDS, MEDIUM's taken whatever the slots); 1 at 4-9
 constexpr int kHostRounds[4] = {0, 2, 2, 3};
+constexpr int kHostMediumRounds[3] = {2, 2, 1};
+int host_rounds(int level) {
+  return greedy_level(level)  ? kHostRounds[level]
+         : medium_level(level) ? kHostMediumRounds[level - MEDIUM_BASE]
+                               : 1;
+}
 
-// a skip map's words for positions [b0, total) (b0 a multiple of 32), one spare
-long long map_words(long long b0, long long total) { return ((total - b0 + 31) >> 5) + 1; }
 #endif
 
-EX_HD bool static_level(int level) { return level >= 1 && level <= 9; }
-EX_HD bool greedy_level(int level) { return level >= 1 && level <= 3; }
 
 }  // namespace
 
@@ -2860,15 +3290,15 @@ extern "C" void zrs_dstream_ranges(const void* rec, void* out) {
 // EX over `chunks` chunks of meta (int64 [chunks, 6]: start, len, dict_len,
 // final, out_off, out_cap; the input bytes of a chunk are
 // in[start - dict_len, start + len), its dictionary first), all at one
-// level (0, 10 QUICK, 11-13 MEDIUM; levels 1-9 take zrs_exact_resolve and
-// zrs_exact_chase), on `slots` warps each with a slot of `stride` bytes of
-// scratch; lens int64 [chunks], status int32 [chunks]
+// level (0 or 10 QUICK; levels 1-9 and MEDIUM 11-13 take zrs_exact_resolve
+// and zrs_exact_chase), on `slots` warps each with a slot of `stride` bytes
+// of scratch; lens int64 [chunks], status int32 [chunks]
 extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, int level, void* out,
                                  void* lens, void* status, void* scratch, int slots,
                                  long long stride, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  if (static_level(level) || stride < zrs_exact_deflate_work_bytes(level))
+  if (resolved_level(level) || stride < zrs_exact_deflate_work_bytes(level))
     return (int)cudaErrorInvalidValue;
   if (chunks > 0 && slots > 0)
     exact_deflate<<<slots, 32, 0, (cudaStream_t)stream>>>(
@@ -2877,29 +3307,29 @@ extern "C" int zrs_exact_deflate(const void* in, const void* meta, int chunks, i
   return (int)cudaGetLastError();
 }
 
-// the resolve at levels 1-9 over P pieces (int64 [P, kPiece]): deltas u16
-// (each piece's [c0, c1) at its doff), then slots (8 bytes a position of
-// each piece's [s, e) at its soff); chain_blocks and walk_blocks are the
-// pieces' blocks in all (either 0: that part not run). head_old int32
-// [32768] and ring u16 [32768] are DS's handle tables (null for EX);
-// count (null, or one uint64) takes the candidates the walks compare;
-// bits (null, or levels 1-3's assumed skip maps, a piece's at P_WORK *
-// bit_stride words from its P_LO rounded down to 32) leaves the positions
-// it skips out of the chains. build_chains, then resolve_walk (a thread a
-// position).
+// the resolve at levels 1-9 and MEDIUM over P pieces (int64 [P, kPiece]):
+// deltas u16 (each piece's [c0, c1) at its doff), then slots (8 bytes a
+// position of each piece's [s, slot_end) at its soff); chain_blocks and
+// walk_blocks are the pieces' blocks in all (either 0: that part not run).
+// head_old int32 [32768] (MEDIUM's head4 [65536]) and ring u16 [32768] are
+// DS's handle tables (null for EX); count (null, or one uint64) takes the
+// candidates the walks compare; bits (null, or the assumed skip maps of
+// levels 1-3 and MEDIUM, a piece's at P_WORK * bit_stride words from its
+// P_LO rounded down to 32) leaves the positions it skips out of the
+// chains. build_chains, then resolve_walk (a thread a position).
 extern "C" int zrs_exact_resolve(const void* in, const void* pieces, int P, int level,
                                  const void* head_old, const void* ring, void* deltas, void* slots,
                                  long long chain_blocks, long long walk_blocks, void* count,
                                  const void* bits, long long bit_stride, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  if (!static_level(level) || P <= 0 || (bits && !greedy_level(level)))
+  if (!resolved_level(level) || P <= 0 || (bits && !mapped_level(level)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (chain_blocks > 0) {
     build_chains<<<(unsigned)chain_blocks, kChainThreads, kChainSmem, st>>>(
         (const uint8_t*)in, (const long long*)pieces, P, (const int32_t*)head_old,
-        (uint16_t*)deltas, (const uint32_t*)bits, bit_stride);
+        (uint16_t*)deltas, (const uint32_t*)bits, bit_stride, medium_level(level) ? 1 : 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -2910,25 +3340,30 @@ extern "C" int zrs_exact_resolve(const void* in, const void* pieces, int P, int 
   return (int)cudaGetLastError();
 }
 
-// levels 1-3: the dry parse of P pieces after a round of the resolve, one
-// block of one warp a piece; recs (EX's records, null for DS) give each
-// piece's start, and it writes the next round's map into bits
-extern "C" int zrs_exact_dry(const void* pieces, int P, int level, const void* recs,
-                             const void* slots, void* bits, long long bit_stride, void* stream) {
+// levels 1-3 and MEDIUM: the dry parse of P pieces after a round of the
+// resolve, one block of one warp a piece; recs (EX's records; DS's own
+// record at MEDIUM, null at 1-3) give each piece's start (MEDIUM: its scan
+// state), and it writes the next round's map into bits; `in` the data
+// (MEDIUM's fizzle compares bytes)
+extern "C" int zrs_exact_dry(const void* in, const void* pieces, int P, int level,
+                             const void* recs, const void* slots, void* bits,
+                             long long bit_stride, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  if (!greedy_level(level) || !bits) return (int)cudaErrorInvalidValue;
+  if (!mapped_level(level) || !bits || (medium_level(level) && (!recs || !in)))
+    return (int)cudaErrorInvalidValue;
   if (P > 0)
-    exact_dry<<<P, 32, 0, (cudaStream_t)stream>>>((const long long*)pieces, level,
-                                                  (const long long*)recs, (const Slot*)slots,
-                                                  (uint32_t*)bits, bit_stride);
+    exact_dry<<<P, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)in, (const long long*)pieces, level, (const long long*)recs,
+        (const Slot*)slots, (uint32_t*)bits, bit_stride);
   return (int)cudaGetLastError();
 }
 
-// EX's chase at levels 1-9: one block of one warp a piece (at most one
-// piece of a chunk a launch), after the resolve of the same pieces. recs
-// int64 [*, kDRec] and scratch (`stride` bytes each) hold each chunk's
-// state between its pieces, at the piece's P_WORK; at levels 1-3 `deltas`
+// EX's chase at levels 1-9 and MEDIUM: one block of one warp a piece (at
+// most one piece of a chunk a launch), after the resolve of the same
+// pieces. recs int64 [*, kDRec] and scratch (`stride` bytes each) hold
+// each chunk's state between its pieces, at the piece's P_WORK; at levels
+// 1-3 and MEDIUM `deltas`
 // are the last round's chains, `dlist` (as deltas) the chase's scratch, and
 // each chunk's skip map is read and left at bits + P_WORK * bit_stride; clk (null, or
 // int64 [P, 3]) takes each piece's clock64 cycles: in all, in flush_block,
@@ -2941,8 +3376,8 @@ extern "C" int zrs_exact_chase(const void* in, const void* meta, const void* pie
                                long long bit_stride, void* clk, void* stats, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
-  if (!static_level(level) || stride < (long long)kWorkBytes ||
-      (greedy_level(level) && (!bits || !dlist)))
+  if (!resolved_level(level) || stride < (long long)kWorkBytes ||
+      (mapped_level(level) && (!bits || !dlist)))
     return (int)cudaErrorInvalidValue;
   if (P <= 0) return 0;
   // the shared memory the call's blocks need an SM (each a warp), the rest
@@ -2967,10 +3402,11 @@ extern "C" int zrs_exact_chase(const void* in, const void* meta, const void* pie
 // DS over one handle: rec int64 [kDRec], data uint8 (rec[D_TOTAL] bytes),
 // work uint8 [zrs_exact_deflate_work_bytes(level)] (Work, head int32[32768]
 // first; at MEDIUM then Work4), out uint8 (rec[D_OUT_CAP] bytes of room).
-// Levels 1-9 also take the resolve's slots (n_slots of them, from spos) and
-// deltas (from ds_ranges' first insert, `span` of them), and after the
-// chase ds_tables writes the handle's head and prevd. At levels 1-3
-// `deltas` are the last round's chains, `bits` the skip map the slots
+// Levels 1-9 and MEDIUM (but a stale one, D_MED_STALE) also take the
+// resolve's slots (n_slots of them, from spos) and deltas (from ds_ranges'
+// first insert, `span` of them), and after the chase ds_tables writes the
+// handle's head and prevd (MEDIUM's head4 and prevd4). At levels 1-3 and
+// MEDIUM `deltas` are the last round's chains, `bits` the skip map the slots
 // assumed (from the first insert rounded down to 32), which the chase
 // leaves holding the parse's own, and `dlist` (as deltas) the chase's
 // scratch; after the chase build_chains writes dlist
@@ -2978,12 +3414,13 @@ extern "C" int zrs_exact_chase(const void* in, const void* meta, const void* pie
 // chain_blocks blocks) for ds_tables. clk (null, or int64 [3]) takes the
 // chase's clock64 cycles: in all, in flush_block, and of those in
 // emit_symbols; stats (null, or int64 [2]) adds the loop tops and the
-// live walks.
+// live walks; `level` the record's (the host's copy: MEDIUM's chains key
+// by hash4).
 extern "C" int zrs_dstream_pump(void* rec, const void* data, void* work, void* out,
                                 const void* slots, long long n_slots, const void* deltas,
                                 void* dlist, long long span, const void* pieces,
                                 long long chain_blocks, void* bits, void* clk, void* stats,
-                                void* stream) {
+                                int level, void* stream) {
   const int terr = ensure_tables();
   if (terr) return terr;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -2995,9 +3432,11 @@ extern "C" int zrs_dstream_pump(void* rec, const void* data, void* work, void* o
   if (err != cudaSuccess || !deltas) return (int)err;
   const void* tables = deltas;
   if (bits && dlist && pieces && chain_blocks > 0) {
+    const bool four = medium_level(level);
     build_chains<<<(unsigned)chain_blocks, kChainThreads, kChainSmem, st>>>(
-        (const uint8_t*)data, (const long long*)pieces, 1, (const int32_t*)work,
-        (uint16_t*)dlist, (const uint32_t*)bits, 0);
+        (const uint8_t*)data, (const long long*)pieces, 1,
+        (const int32_t*)((const uint8_t*)work + (four ? kWorkBytes : 0)), (uint16_t*)dlist,
+        (const uint32_t*)bits, 0, four ? 1 : 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     tables = dlist;
@@ -3019,8 +3458,8 @@ extern "C" int zrs_exact_resolve_host(const void* in, const void* pieces, int P,
                                       void* slots, const void* bits, long long bit_stride,
                                       int chains) {
   ensure_host_tables();
-  if (!static_level(level) || (bits && !greedy_level(level))) return 1;
-  int32_t* table = (int32_t*)std::malloc(HASH_SIZE * sizeof(int32_t));
+  if (!resolved_level(level) || (bits && !mapped_level(level))) return 1;
+  int32_t* table = (int32_t*)std::malloc((1 << 16) * sizeof(int32_t));
   if (!table) return 1;
   resolve_host((const uint8_t*)in, (const long long*)pieces, P, level, (const int32_t*)head_old,
                (const uint16_t*)ring, (uint16_t*)deltas, (Slot*)slots, table,
@@ -3031,13 +3470,15 @@ extern "C" int zrs_exact_resolve_host(const void* in, const void* pieces, int P,
 
 // the dry parse on the host, the pieces in order (zrs_exact_dry's arguments
 // but the stream)
-extern "C" int zrs_exact_dry_host(const void* pieces, int P, int level, const void* recs,
-                                  const void* slots, void* bits, long long bit_stride) {
+extern "C" int zrs_exact_dry_host(const void* in, const void* pieces, int P, int level,
+                                  const void* recs, const void* slots, void* bits,
+                                  long long bit_stride) {
   ensure_host_tables();
-  if (!greedy_level(level) || !bits) return 1;
+  if (!mapped_level(level) || !bits || (medium_level(level) && (!recs || !in))) return 1;
   for (int i = 0; i < P; i++)
-    dry_piece((const long long*)pieces + (size_t)i * kPiece, level, (const long long*)recs,
-              (const Slot*)slots, (uint32_t*)bits, bit_stride, nullptr, 0, 1);
+    dry_piece((const uint8_t*)in, (const long long*)pieces + (size_t)i * kPiece, level,
+              (const long long*)recs, (const Slot*)slots, (uint32_t*)bits, bit_stride, nullptr,
+              0, 1);
   return 0;
 }
 
@@ -3049,8 +3490,8 @@ extern "C" int zrs_exact_chase_host(const void* in, const void* meta, const void
                                     const void* deltas, void* dlist, void* bits,
                                     long long bit_stride, void* stats) {
   ensure_host_tables();
-  if (!static_level(level) || stride < (long long)kWorkBytes ||
-      (greedy_level(level) && (!bits || !dlist)))
+  if (!resolved_level(level) || stride < (long long)kWorkBytes ||
+      (mapped_level(level) && (!bits || !dlist)))
     return 1;
   for (int i = 0; i < P; i++)
     chase_piece((const uint8_t*)in, (const long long*)meta, (const long long*)pieces + (size_t)i * kPiece,
@@ -3064,22 +3505,23 @@ extern "C" int zrs_exact_chase_host(const void* in, const void* meta, const void
 // the host build's piece, in positions (the tests' way to many pieces)
 extern "C" void zrs_exact_set_piece(long long positions) { g_piece = positions; }
 
-// levels 1-9 on the host, a chunk at a time, a piece of g_piece positions
-// at a time, each resolved and chased as on the card; at levels 1-3
-// `rounds` rounds of the resolve over chains built under the map (a dry
-// parse between two), the chunk's first round
+// levels 1-9 and MEDIUM on the host, a chunk at a time, a piece of g_piece
+// positions at a time, each resolved and chased as on the card; at levels
+// 1-3 and MEDIUM `rounds` rounds of the resolve over chains built under the
+// map (a dry parse between two), the chunk's first round
 // assuming `seed` (uint32 [chunks, seed_words]: chunk k's map of its
-// window-relative positions, the dictionary's taken as clear; null, or
-// words past seed_words, assume none skipped); truth (null, or as seed)
-// takes each chunk's map of the parse, stats (null, or int64 [2]) as
+// window-relative positions, the dictionary's taken as clear, but at
+// MEDIUM its last three, which native never hashes; null, or words past
+// seed_words, assume none skipped); truth (null, or as seed) takes each
+// chunk's map of the parse, stats (null, or int64 [2]) as
 // zrs_exact_chase's
 extern "C" int zrs_exact_greedy_host(const void* in, const void* meta, int chunks, int level,
                                      void* out, void* lens, void* status, const void* seed,
                                      long long seed_words, int rounds, void* truth,
                                      void* stats) {
   ensure_host_tables();
-  if (!static_level(level) || rounds < 1) return 1;
-  const bool greedy = greedy_level(level);
+  if (!resolved_level(level) || rounds < 1) return 1;
+  const bool greedy = mapped_level(level), medium = medium_level(level);
   uint8_t* scratch = (uint8_t*)std::malloc(kWorkBytes);
   if (!scratch) return 1;
   const long long* mt = (const long long*)meta;
@@ -3098,6 +3540,9 @@ extern "C" int zrs_exact_greedy_host(const void* in, const void* meta, int chunk
                   (size_t)(words < seed_words ? words : seed_words) * 4);
       for (long long q = 0; q < dict_len; q++) map[q >> 5] &= ~(1u << (q & 31));
     }
+    if (medium)  // native hashes no dictionary position whose string passes it
+      for (long long q = dict_len > 3 ? dict_len - 3 : 0; q < dict_len; q++)
+        map[q >> 5] |= 1u << (q & 31);
     long long rec[kDRec] = {0};
     for (long long s = dict_len;; s += g_piece) {
       const long long e = s + g_piece < total ? s + g_piece : total;
@@ -3105,7 +3550,8 @@ extern "C" int zrs_exact_greedy_host(const void* in, const void* meta, int chunk
       pr[P_BASE] = start - dict_len;
       pr[P_TOTAL] = total;
       pr[P_C0] = s > WSIZE ? s - WSIZE : 0;
-      pr[P_C1] = e < total - (MIN_MATCH - 1) ? e : total - (MIN_MATCH - 1);
+      const long long c1 = medium ? e + MAX_MATCH : e, end = total - (medium ? 3 : 2);
+      pr[P_C1] = c1 < end ? c1 : end;
       if (pr[P_C1] < pr[P_C0]) pr[P_C1] = pr[P_C0];
       pr[P_S] = s;
       pr[P_E] = e;
@@ -3114,12 +3560,12 @@ extern "C" int zrs_exact_greedy_host(const void* in, const void* meta, int chunk
       const size_t nd = (size_t)(pr[P_C1] - pr[P_C0] + 1);
       uint16_t* deltas = (uint16_t*)std::malloc(nd * 2);
       uint16_t* dlist = greedy ? (uint16_t*)std::malloc(nd * 2) : nullptr;
-      Slot* slots = (Slot*)std::malloc((size_t)(e - s + 1) * sizeof(Slot));
+      Slot* slots = (Slot*)std::malloc((size_t)(slot_end(pr, medium) - s + 1) * sizeof(Slot));
       if (!deltas || !slots || (greedy && !dlist)) {
         rc = 1;
       } else {
         for (int r = 0; r < (greedy ? rounds : 1); r++) {
-          if (r) zrs_exact_dry_host(pr, 1, level, rec, slots, map, 0);
+          if (r) zrs_exact_dry_host(in, pr, 1, level, rec, slots, map, 0);
           zrs_exact_resolve_host(in, pr, 1, level, nullptr, nullptr, deltas, slots, map, 0, 1);
         }
         zrs_exact_chase_host(in, meta, pr, 1, level, out, lens, status, rec, scratch, kWorkBytes,
@@ -3140,14 +3586,15 @@ extern "C" int zrs_exact_greedy_host(const void* in, const void* meta, int chunk
 }
 
 // EX on the host with one lane: the CPU tests' way into this file's control
-// flow; levels 1-9 as zrs_exact_greedy_host (levels 1-3 kHostRounds rounds
-// from a map of no skipped position), the others a chunk at a time
+// flow; levels 1-9 and MEDIUM as zrs_exact_greedy_host (levels 1-3 and
+// MEDIUM host_rounds rounds from a map of no skipped position), the others
+// a chunk at a time
 extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chunks, int level,
                                       void* out, void* lens, void* status) {
   ensure_host_tables();
-  if (static_level(level))
+  if (resolved_level(level))
     return zrs_exact_greedy_host(in, meta, chunks, level, out, lens, status, nullptr, 0,
-                                 greedy_level(level) ? kHostRounds[level] : 1, nullptr, nullptr);
+                                 host_rounds(level), nullptr, nullptr);
   uint8_t* slot = (uint8_t*)std::malloc(kWorkBytes + kWork4Bytes);
   if (!slot) return 1;
   Work* w = (Work*)slot;
@@ -3161,7 +3608,7 @@ extern "C" int zrs_exact_deflate_host(const void* in, const void* meta, int chun
 }
 
 // DS on the host with one lane; levels 1-9 the resolve of ds_ranges (at
-// 1-3 kHostRounds rounds over chains built under the map, a dry parse
+// 1-3 and MEDIUM host_rounds rounds over chains built under the map, a dry parse
 // between two, from a map of no skipped position), the chase, then at 1-3
 // the chains of the inserted positions, and ds_tables, as on the card
 extern "C" int zrs_dstream_pump_host(void* rec, const void* data, void* work, void* out) {
@@ -3169,12 +3616,17 @@ extern "C" int zrs_dstream_pump_host(void* rec, const void* data, void* work, vo
   long long* r = (long long*)rec;
   Work* w = (Work*)work;
   const int level = (int)r[D_LEVEL];
-  if (!static_level(level)) {
+  const bool medium = medium_level(level);
+  if (!resolved_level(level) || (medium && r[D_MED_STALE])) {
     ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, nullptr, 0, nullptr, nullptr, 0,
             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr);
     return 0;
   }
-  const bool greedy = greedy_level(level);
+  const bool greedy = mapped_level(level);
+  // MEDIUM's chains: head4 and prevd4 (Work4, after Work)
+  Work4* w4 = (Work4*)((uint8_t*)work + kWorkBytes);
+  const int32_t* head = medium ? w4->head4 : w->head;
+  const uint16_t* ring = medium ? w4->prevd4 : w->prevd;
   long long g[4];
   ds_ranges(r, g);
   long long pr[kPiece] = {0};
@@ -3183,23 +3635,23 @@ extern "C" int zrs_dstream_pump_host(void* rec, const void* data, void* work, vo
   pr[P_C1] = g[1];
   pr[P_S] = g[2];
   pr[P_E] = g[3];
-  const long long b0 = g[0] & ~31LL;
+  const long long b0 = g[0] & ~31LL, n_slots = slot_end(pr, medium) - g[2];
   const size_t nd = (size_t)(g[1] - g[0] + 1);
   uint16_t* deltas = (uint16_t*)std::malloc(nd * 2);
   uint16_t* dlist = greedy ? (uint16_t*)std::malloc(nd * 2) : nullptr;
-  Slot* slots = (Slot*)std::malloc((size_t)(g[3] - g[2] + 1) * sizeof(Slot));
+  Slot* slots = (Slot*)std::malloc((size_t)(n_slots + 1) * sizeof(Slot));
   uint32_t* map = greedy ? (uint32_t*)std::calloc((size_t)map_words(b0, pr[P_TOTAL]), 4) : nullptr;
   int32_t* ldh = (int32_t*)std::malloc(HASH_SIZE * sizeof(int32_t));
   int rc = 1;
   if (deltas && slots && ldh && (!greedy || (map && dlist))) {
-    for (int i = 0; i < (greedy ? kHostRounds[level] : 1); i++) {
-      if (i) zrs_exact_dry_host(pr, 1, level, nullptr, slots, map, 0);
-      zrs_exact_resolve_host(data, pr, 1, level, w->head, w->prevd, deltas, slots, map, 0, 1);
+    for (int i = 0; i < host_rounds(level); i++) {
+      if (i) zrs_exact_dry_host(data, pr, 1, level, medium ? r : nullptr, slots, map, 0);
+      zrs_exact_resolve_host(data, pr, 1, level, head, ring, deltas, slots, map, 0, 1);
     }
-    ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, slots, g[3] - g[2], deltas, dlist,
+    ds_pump(r, (const uint8_t*)data, w, (uint8_t*)out, 0, 1, slots, n_slots, deltas, dlist,
             g[1] - g[0], map, ldh, nullptr, nullptr, nullptr, nullptr, nullptr);
     if (greedy && r[D_STATUS] != kMisuse)
-      zrs_exact_resolve_host(data, pr, 1, level, w->head, nullptr, dlist, nullptr, map, 0, 1);
+      zrs_exact_resolve_host(data, pr, 1, level, head, nullptr, dlist, nullptr, map, 0, 1);
     ds_tables_range(r, (const uint8_t*)data, w, greedy ? dlist : deltas, 0, 1, Skip{map, b0});
     ds_tables_clear(r, w, 0, 1);
     rc = 0;

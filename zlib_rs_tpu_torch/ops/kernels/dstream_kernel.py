@@ -27,18 +27,24 @@ MEDIUM, as native), the block and the seam (FULL_FLUSH also clears the
 3-byte hash and restarts the window, and leaves head4 and MEDIUM's next
 match as native does; FINISH ends the stream). The room of a pump is
 sized from the unflushed bytes (`room`); a pump that outgrew it raises, as native's -1
-would, and drops nothing silently. At levels 1-9 a pump first launches the
-resolve (`exact_deflate_kernel.resolve_cuda`) over the pump's positions
-(`ranges`): static chains from its first insert, the older positions read
-from the handle's head and prevd, and every position's walks (at 1-3
-EK.ROUNDS[level] rounds under an assumed skip map, a dry parse between two); DS
-then chases the slots, and leaves head and prevd as zlib's serial inserts
-would (at 1-3 over the chains rebuilt from the positions the parse
-inserted). Input longer than a piece (EK.PIECE) is pumped a piece at a
-time, so that the resolve's memory stays bounded. After the pump the wrapper prunes the
-data as native does: the window and the unflushed block stay, the rest
-goes in multiples of WSIZE once it passes 1 MiB, and the hash heads
-(head4 and MEDIUM's next match too) are rebased (slide_hash's role).
+would, and drops nothing silently. At levels 1-9 and MEDIUM a pump first
+launches the resolve (`exact_deflate_kernel.resolve_cuda`) over the pump's
+positions (`ranges`): static chains from its first insert (MEDIUM's:
+hash4's, from the last pump's frontier), the older positions read from the
+handle's head and prevd (head4 and prevd4), and every position's walks (at
+1-3 and MEDIUM EK.ROUNDS[level] rounds under an assumed skip map, a dry
+parse between two); DS then chases the slots, and leaves head and prevd
+(head4 and prevd4) as the serial inserts would (at 1-3 and MEDIUM over the
+chains rebuilt from the positions the parse inserted). At levels 1-9 input
+longer than a piece (EK.PIECE) is pumped a piece at a time, so that the
+resolve's memory stays bounded (MEDIUM's pumps go whole: native's
+lookahead reads the pump's end). Once a FULL_FLUSH has left a MEDIUM
+handle's head4 stale (D_MED_STALE), its pumps run native's serial inserts
+and walks, with no resolve (`resolved`). After the pump the wrapper prunes
+the data as native does: the window and the unflushed block stay, the
+rest goes in multiples of WSIZE once it passes 1 MiB, and the hash heads
+(head4, MEDIUM's next match and frontier too) are rebased (slide_hash's
+role).
 
 The plain version (`Plain`) is, for levels 1-9, the port's host
 `Deflator` in raw mode driven by the same flushes: zlib's bytes, which
@@ -72,7 +78,7 @@ REC = EK.REC
  D_PREV_START, D_MATCH_AVAILABLE, D_SH, D_SHV, D_STARTED, D_BW_BUF, D_BW_CNT,
  D_INSERT_PENDING, D_LEVEL, D_FLUSH, D_OUT_CAP, D_OUT_LEN, D_STATUS,
  D_FINISHED, D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART,
- D_MED_NEXT_LEN, D_INS_LO, D_INS_HI) = range(27)
+ D_MED_NEXT_LEN, D_INS_LO, D_INS_HI, D_MED_STALE) = range(28)
 MED_NEXT = (D_MED_NEXT_START, D_MED_NEXT_STRSTART, D_MED_NEXT_ORGSTART)
 OVERFLOW, MISUSE = -1, -2
 MIN_MATCH, MIN_LOOKAHEAD = 3, 262
@@ -90,18 +96,24 @@ def room(unflushed: int) -> int:
 
 
 def ranges(rec) -> tuple[int, int, int, int]:
-    """A pump's ranges at levels 1-9 from its record before the pump (the
-    source's ds_ranges): its first insert (spos less zlib's pending
-    `insert`), the end of the positions it can insert (the deltas cover
-    [first, end)), spos and the scan's limit (the slots cover [spos,
-    limit))."""
+    """A pump's ranges at levels 1-9 and MEDIUM from its record before the
+    pump (the source's ds_ranges): its first insert (spos less zlib's
+    pending `insert`; MEDIUM's the last pump's frontier, D_INS_HI), the end
+    of the positions it can insert (the deltas cover [first, end)), spos
+    and the scan's limit (the slots cover [spos, limit), at MEDIUM to
+    EK.slot_end)."""
     total = int(rec[D_TOTAL])
     started = bool(rec[D_STARTED])
+    medium = is_medium(int(rec[D_LEVEL]))
     s = int(rec[D_SPOS]) if started else 0
-    a = s - (int(rec[D_INSERT_PENDING]) if started else 0)
+    if not started:
+        a = 0
+    else:
+        a = int(rec[D_INS_HI]) if medium else s - int(rec[D_INSERT_PENDING])
     limit = total if rec[D_FLUSH] else (total - (MIN_LOOKAHEAD - 1) if total >= MIN_LOOKAHEAD
                                         else 0)
-    c1 = max(a, min(max(s, limit + EK.MAX_MATCH), total - (MIN_MATCH - 1)))
+    end = total - (EK.WANT_MIN - 1 if medium else MIN_MATCH - 1)
+    c1 = max(a, min(max(s, limit + EK.MAX_MATCH), end))
     return a, c1, s, max(s, limit)
 
 
@@ -237,52 +249,79 @@ def _fn():
     fn = _device.library("exact_deflate").zrs_dstream_pump
     if fn.argtypes is None:
         L = ctypes.c_longlong
-        fn.argtypes = [_P, _P, _P, _P, _P, L, _P, _P, L, _P, L, _P, _P, _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, L, _P, _P, L, _P, L, _P, _P, _P, ctypes.c_int, _P]
         fn.restype = ctypes.c_int
     return fn
 
 
 def resolve_operands(rec: np.ndarray, dev):
-    """A pump's resolve operands at levels 1-9 from its record: (its piece
-    row on `dev`, or None when its ranges are empty; chain blocks, walk
-    blocks, deltas int16 and slots int32 [*, 2] to fill, the slots' count,
-    the deltas' count, and at levels 1-3 the skip map, zeros from the
-    first insert rounded down to 32, and the chase's scratch int16 (as
-    deltas), else None and None)."""
+    """A pump's resolve operands at levels 1-9 and MEDIUM from its record:
+    (its piece row on `dev`, or None when its ranges are empty; chain
+    blocks, walk blocks, deltas int16 and slots int32 [*, 2] to fill, the
+    slots' count, the deltas' count, and at levels 1-3 and MEDIUM the skip
+    map, zeros from the first insert rounded down to 32, and the chase's
+    scratch int16 (as deltas), else None and None)."""
     a, c1, s, we = ranges(rec)
     total = int(rec[D_TOTAL])
+    level = int(rec[D_LEVEL])
+    row = [0, total, a, a, c1, 0, s, we, 0, 0, 0, 0, 0, 0]
+    n_slots = EK.slot_end(row, is_medium(level)) - s
     deltas = torch.empty(max(c1 - a, 1), dtype=torch.int16, device=dev)
-    slots = torch.empty(max(we - s, 1), 2, dtype=torch.int32, device=dev)
-    pieces, _nd, _ns, cb, wb = EK.with_offsets(
-        [[0, total, a, a, c1, 0, s, we, 0, 0, 0, 0, 0, 0]])
-    pt = torch.from_numpy(pieces).to(dev) if c1 > a or we > s else None
-    greedy = EK.greedy_level(int(rec[D_LEVEL]))
+    slots = torch.empty(max(n_slots, 1), 2, dtype=torch.int32, device=dev)
+    pieces, _nd, _ns, cb, wb = EK.with_offsets([row], is_medium(level))
+    pt = torch.from_numpy(pieces).to(dev) if c1 > a or n_slots > 0 else None
+    mapped = EK.mapped_level(level)
     bits = torch.zeros(EK.bit_words(total, a & ~31), dtype=torch.int32, device=dev) \
-        if greedy else None
-    dlist = torch.empty_like(deltas) if greedy else None
-    return pt, cb, wb, deltas, slots, we - s, c1 - a, bits, dlist
+        if mapped else None
+    dlist = torch.empty_like(deltas) if mapped else None
+    return pt, cb, wb, deltas, slots, n_slots, c1 - a, bits, dlist
 
 
-def resolve_pump(rec: np.ndarray, data, work, ops=None):
-    """The resolve of a pump at levels 1-9 (launched when its ranges are
-    not empty; at 1-3 EK.ROUNDS[level] rounds over chains built under the skip
-    map, the dry parse between two) over resolve_operands (`ops`, staged
-    here when None): (slots, deltas, the slots' count, the deltas' count,
-    the piece row, its chain blocks, the skip map, the chase's scratch)."""
+def handle_tables(work, level: int):
+    """The handle's chains the resolve reads (uint8 views of its Work):
+    head (int32 [32768]; MEDIUM's head4 [65536]) and the prevd ring."""
+    if is_medium(level):
+        return work[WORK_BYTES:], work[WORK_BYTES + 4 * HASH4_SIZE :]
+    return work, work[4 * HASH_SIZE :]
+
+
+def resolve_pump(rec: np.ndarray, data, work, ops=None, rec_dev=None):
+    """The resolve of a pump at levels 1-9 and MEDIUM (launched when its
+    ranges are not empty; at 1-3 and MEDIUM EK.ROUNDS[level] rounds over
+    chains built under the skip map, the dry parse between two, which at
+    MEDIUM resumes from the record already on the device, `rec_dev`, and
+    runs only where EK.take_round says) over
+    resolve_operands (`ops`, staged here when None): (slots, deltas, the
+    slots' count, the deltas' count, the piece row, its chain blocks, the
+    skip map, the chase's scratch)."""
     pt, cb, wb, deltas, slots, n_slots, span, bits, dlist = \
         ops or resolve_operands(rec, data.device)
     level = int(rec[D_LEVEL])
+    head, ring = handle_tables(work, level)
     if pt is not None:
         for r in range(EK.ROUNDS[level] if bits is not None else 1):
             if r:
-                EK.dry_cuda(pt, level, slots, bits, 0)
-            EK.resolve_cuda(data, pt, level, deltas, slots, cb, wb, head_old=work,
-                            ring=work[4 * HASH_SIZE :], bits=bits)
+                if not EK.take_round(level, slots):
+                    break
+                if is_medium(level):
+                    EK.dry_cuda(pt, level, slots, bits, 0, recs=rec_dev, data=data)
+                else:
+                    EK.dry_cuda(pt, level, slots, bits, 0)
+            EK.resolve_cuda(data, pt, level, deltas, slots, cb, wb, head_old=head, ring=ring,
+                            bits=bits)
     return slots, deltas, n_slots, span, pt, cb, bits, dlist
 
 
+def resolved(rec) -> bool:
+    """Whether a pump takes the resolve's slots: levels 1-9, and MEDIUM
+    until a FULL_FLUSH has left head4 stale (D_MED_STALE: DS then runs
+    native's serial inserts and walks, which a stale head's chains need)."""
+    level = int(rec[D_LEVEL])
+    return EK.static_level(level) or (is_medium(level) and not rec[D_MED_STALE])
+
+
 def pump_cuda(rec: np.ndarray, data, work, out, rec_dev, clk=None, stats=None) -> None:
-    """One DS launch over CUDA state (at levels 1-9 the resolve first); the
+    """One DS launch over CUDA state (at levels 1-9 and MEDIUM the resolve first); the
     record crosses both ways through `rec_dev` (int64 [REC] on the device);
     at levels 1-3 stats (int64 [2] or None) adds the loop tops and the live
     walks; clk (int64 [3] or None) takes the chase's clock64 cycles: in all,
@@ -296,12 +335,13 @@ def pump_cuda(rec: np.ndarray, data, work, out, rec_dev, clk=None, stats=None) -
         raise ValueError("dstream: the data or the room is smaller than the record says")
     slots = deltas = pt = bits = dlist = None
     n_slots = span = cb = 0
-    if EK.static_level(level):
-        slots, deltas, n_slots, span, pt, cb, bits, dlist = resolve_pump(rec, data, work)
     rec_dev.copy_(torch.from_numpy(rec))
+    if resolved(rec):
+        slots, deltas, n_slots, span, pt, cb, bits, dlist = resolve_pump(rec, data, work,
+                                                                         rec_dev=rec_dev)
     rc = _fn()(_device.ptr(rec_dev), _device.ptr(data), _device.ptr(work), _device.ptr(out),
                EK._opt(slots), n_slots, EK._opt(deltas), EK._opt(dlist), span, EK._opt(pt), cb,
-               EK._opt(bits), EK._opt(clk), EK._opt(stats), _device.stream_of(data))
+               EK._opt(bits), EK._opt(clk), EK._opt(stats), level, _device.stream_of(data))
     _device.check(rc, "dstream")
     launches["dstream"] += 1
     rec[:] = rec_dev.cpu().numpy()
@@ -357,7 +397,7 @@ class Handle:
         fields = [D_MATCH_START, D_PREV_START]
         if is_medium(self.level):
             heads.append(self.work[WORK_BYTES : WORK_BYTES + 4 * HASH4_SIZE].view(torch.int32))
-            fields += MED_NEXT
+            fields += MED_NEXT + (D_INS_HI,)
         for head in heads:
             head.copy_(torch.where(head > keep, head - keep, torch.zeros_like(head)))
         rec[D_TOTAL] = total - keep

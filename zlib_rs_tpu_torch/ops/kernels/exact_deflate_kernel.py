@@ -41,9 +41,16 @@ unchecked, writes the next round's map), then the chase, which takes a
 slot only where the map it assumed agrees with the parse's own on the
 positions of its hash the walk depends on, and walks live elsewhere (over
 the map's chains and the positions where the two maps differ). The bytes
-are zlib's whatever the map. The resolve has its own plain version, `resolve_plain`
-(torch), which returns the same deltas and slots, and the dry parse
-`dry_plain` (numpy).
+are zlib's whatever the map. MEDIUM4-6 (11-13) go the same way with
+native's run_medium in place of deflate_fast: 4-byte-hash chains, each
+slot longest4's walk and its reach, the lookahead's walk at the next match
+(so a piece's slots run MAX_MATCH past its end, `slot_end`), the map the
+positions med_insert_match never inserts (a 257-258 match's interior at
+MEDIUM4/5, a match's interior near the end, the dictionary's last three),
+ROUNDS[level] rounds, the chase native's medium parse with the fizzle and
+the carried next match. The resolve has its own plain version,
+`resolve_plain` (torch), which returns the same deltas and slots, and the
+dry parse `dry_plain` (numpy).
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ WORK_BYTES = 300 * 1024  # a warp's scratch (kWorkBytes in the source)
 WORK4_BYTES = 320 * 1024  # QUICK's and MEDIUM's 4-byte-hash chains (kWork4Bytes)
 MAX_SLOTS = 1024  # warps a launch; each loops over its share of the chunks
 MAX_MATCH, MIN_MATCH, MAX_DIST = 258, 3, 32768 - 262
+WANT_MIN = 4  # MEDIUM's shortest match, and the bytes its hash4 reads
 HASH_SIZE = 1 << 15
 # levels 1-9 (the source's kPiece row, kTile, kLookback, kWalkThreads)
 (P_BASE, P_TOTAL, P_LO, P_C0, P_C1, P_DOFF, P_S, P_E, P_SOFF, P_CBLK, P_WBLK, P_CHUNK, P_LAST,
@@ -84,10 +92,20 @@ PIECE = 1 << 22  # positions of a chunk (or of a DS pump) one resolve and one ch
 ROUND = 1 << 27
 REC = 28  # a record in int64: DS's between pumps, a chunk's between its pieces
 REC_SPOS = 1  # the record's scan position (DS's D_SPOS)
-# levels 1-3: rounds of the resolve a piece (a dry parse between two), by
-# level: the fastest of 1-4 on the H100 (PERF.md); level 3's longer
-# walks make a live walk dearer, so one more round pays there
-ROUNDS = {1: 2, 2: 2, 3: 3}
+# MEDIUM's scan state in a record: whether the scan started, the carried
+# next match (start, strstart, orgstart, length) and the parse's frontier
+REC_STARTED, REC_MED_NEXT, REC_FRONT = 11, 21, 26
+# levels 1-3 and MEDIUM: rounds of the resolve a piece (a dry parse between
+# two), by level: the fastest on the H100 (PERF.md); level 3's longer
+# walks make a live walk dearer, so one more round pays there. MEDIUM6
+# never skips a position but near the end: one round. MEDIUM4/5 skip a
+# 257-258 match's interior, which the first map gets wrong: their second
+# round is taken only where the first round's slots hold such matches at
+# LONG_SHARE of the positions or more (take_round): on the corpus a dry
+# parse costs more than the live walks it saves, on runs of one byte it
+# saves more
+ROUNDS = {1: 2, 2: 2, 3: 3, MEDIUM_BASE: 2, MEDIUM_BASE + 1: 2, MEDIUM_BASE + 2: 1}
+LONG_SHARE = 0.25
 # native's empty stored block, which it emits for an empty chunk at level 0
 # before the seam (the host engine's SYNC_FLUSH emits only the seam)
 EMPTY_STORED = b"\x00\x00\x00\xff\xff"
@@ -107,6 +125,50 @@ def static_level(level: int) -> bool:
 def greedy_level(level: int) -> bool:
     """zlib's deflate_fast levels, resolved under a skip map."""
     return 1 <= level <= 3
+
+
+def resolved_level(level: int) -> bool:
+    """The levels whose walks the resolve runs over the card: 1-9 and
+    MEDIUM."""
+    return static_level(level) or is_medium(level)
+
+
+def mapped_level(level: int) -> bool:
+    """The levels resolved under a skip map: 1-3 and MEDIUM."""
+    return greedy_level(level) or is_medium(level)
+
+
+def knob_level(level: int) -> int:
+    """The zlib knob row a level runs (MEDIUM4-6: native's one row deeper,
+    5-7)."""
+    return level - MEDIUM_BASE + 5 if is_medium(level) else level
+
+
+def slot_end(row, medium: bool) -> int:
+    """The end of a piece's slots: its scan's end (P_E); at MEDIUM past it
+    by the lookahead's reach (MAX_MATCH), short of the positions hash4
+    cannot hash (the source's slot_end)."""
+    if not medium:
+        return int(row[P_E])
+    return max(int(row[P_S]), min(int(row[P_E]) + MAX_MATCH, int(row[P_TOTAL]) - (WANT_MIN - 1)))
+
+
+def long_share(slots, level: int) -> float:
+    """The share of a round's slots holding a match longer than 16 x lazy
+    (one med_insert_match jumps over: its interior is never inserted)."""
+    from ...config import CONFIGURATION_TABLE
+
+    full = unsigned(slots[:, 0])
+    jump = ((full & 0x7FFF) != 0) & ((full >> 15) > 16 * CONFIGURATION_TABLE[
+        knob_level(level)].max_lazy)
+    return float(jump.sum()) / max(slots.shape[0], 1)
+
+
+def take_round(level: int, slots) -> bool:
+    """Whether a round after the first runs (a dry parse, then the resolve
+    again): always at levels 1-3, at MEDIUM where the last round's slots
+    hold long matches at LONG_SHARE of the positions or more."""
+    return not is_medium(level) or long_share(slots, level) >= LONG_SHARE
 
 
 def bit_words(total: int, b0: int = 0) -> int:
@@ -195,39 +257,46 @@ def exact_deflate_plain(data, meta, level: int):
 # ---------------------------------------------------------------------------
 
 
-def with_offsets(rows: list) -> tuple:
+def with_offsets(rows: list, medium: bool = False) -> tuple:
     """Piece rows with their deltas' and slots' offsets and their first
     blocks in the chain build and the walk filled in: (int64 [P,
-    PIECE_FIELDS], deltas, slots, chain blocks, walk blocks) in all."""
+    PIECE_FIELDS], deltas, slots, chain blocks, walk blocks) in all (at
+    MEDIUM the slots to each piece's slot_end)."""
     pieces = np.array(rows, np.int64).reshape(-1, PIECE_FIELDS)
     nd = ns = cb = wb = 0
     for r in pieces:
         r[P_DOFF], r[P_SOFF], r[P_CBLK], r[P_WBLK] = nd, ns, cb, wb
+        nslot = slot_end(r, medium) - r[P_S]
         nd += r[P_C1] - r[P_C0]
-        ns += r[P_E] - r[P_S]
+        ns += nslot
         cb += -(-(r[P_C1] - r[P_C0]) // TILE)
-        wb += -(-(r[P_E] - r[P_S]) // WALK_THREADS)
+        wb += -(-nslot // WALK_THREADS)
     return pieces, int(nd), int(ns), int(cb), int(wb)
 
 
-def ex_piece(row, s: int, k: int, work: int, piece: int = PIECE) -> list:
+def ex_piece(row, s: int, k: int, work: int, piece: int = PIECE, medium: bool = False) -> list:
     """Chunk k's piece from position s (window-relative; the body starts at
     dict_len): the slots of [s, s + piece), the deltas from 32 KiB before
-    s (a walk reaches no further back) to the last position zlib hashes."""
+    s (a walk reaches no further back) to the last position zlib hashes
+    (at MEDIUM to the lookahead's reach past the piece, short of the last
+    three, which hash4 cannot hash)."""
     start, n, dlen = row[:3]
     total = dlen + n
     e = min(s + piece, total)
     c0 = max(0, s - WSIZE)
-    c1 = max(c0, min(e, total - (MIN_MATCH - 1)))
+    if medium:
+        c1 = max(c0, min(e + MAX_MATCH, total - (WANT_MIN - 1)))
+    else:
+        c1 = max(c0, min(e, total - (MIN_MATCH - 1)))
     return [start - dlen, total, 0, c0, c1, 0, s, e, 0, 0, 0, k, int(e == total), work]
 
 
 def plan(rows, piece: int | None = None, round_positions: int | None = None,
-         max_slots: int | None = None) -> list:
-    """EX's work at levels 4-9 over meta rows (start, len, dict_len, ...):
-    batches of consecutive chunks (at most max_slots, at most
-    round_positions positions a round), each (chunks, rounds), a round one
-    piece of each chunk that has one left, as with_offsets gives it. A
+         max_slots: int | None = None, level: int = 6) -> list:
+    """EX's work at levels 1-9 and MEDIUM over meta rows (start, len,
+    dict_len, ...): batches of consecutive chunks (at most max_slots, at
+    most round_positions positions a round), each (chunks, rounds), a round
+    one piece of each chunk that has one left, as with_offsets gives it. A
     chunk's Work and record are its index in the batch. The limits default
     to PIECE, ROUND and MAX_SLOTS as they stand at the call."""
     piece = PIECE if piece is None else piece
@@ -248,10 +317,10 @@ def plan(rows, piece: int | None = None, round_positions: int | None = None,
             for w, k in enumerate(range(i, j)):
                 s = int(rows[k][2]) + r * piece
                 if r == 0 or s < int(rows[k][2]) + int(rows[k][1]):
-                    prs.append(ex_piece(rows[k], s, k, w, piece))
+                    prs.append(ex_piece(rows[k], s, k, w, piece, is_medium(level)))
             if not prs:
                 break
-            rounds.append(with_offsets(prs))
+            rounds.append(with_offsets(prs, is_medium(level)))
             r += 1
         out.append((j - i, rounds))
         i = j
@@ -300,19 +369,26 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None, bits=None,
     per candidate; without the anchored pre-reject, which passes over only
     candidates that cannot beat the best and so changes no result. head_old int32 [32768] and ring
     (int16 [32768] holding u16) are DS's handle tables; bits (int32 words
-    holding u32) levels 1-3's skip maps, a piece's at P_WORK * bit_stride
-    from its P_LO rounded down to 32 (None: every position in)."""
-    if not static_level(level):
-        raise ValueError(f"exact_resolve: level must be 1-9, got {level}")
+    holding u32) the skip maps of levels 1-3 and MEDIUM, a piece's at P_WORK
+    * bit_stride from its P_LO rounded down to 32 (None: every position
+    in). MEDIUM: hash4's chains (head_old int32 [65536]), each slot
+    longest4's walk (the best from WANT_MIN - 1) and its reach, with the
+    position's hash4 folded to 15 bits in the reach word's high half, to
+    the piece's slot_end."""
+    if not resolved_level(level):
+        raise ValueError(f"exact_resolve: level must be 1-9 or MEDIUM, got {level}")
     from ...config import CONFIGURATION_TABLE
 
+    medium = is_medium(level)
+    need = WANT_MIN if medium else MIN_MATCH
     dev = data.device
     rows = pieces.cpu().tolist()
+    ends = [slot_end(r, medium) for r in rows]
     nd = sum(r[P_C1] - r[P_C0] for r in rows)
-    ns = sum(r[P_E] - r[P_S] for r in rows)
+    ns = sum(se - r[P_S] for r, se in zip(rows, ends))
     deltas = torch.zeros(max(nd, 1), dtype=torch.int64, device=dev)
     slots = torch.zeros(max(ns, 1), 2, dtype=torch.int64, device=dev)
-    cfg = CONFIGURATION_TABLE[level]
+    cfg = CONFIGURATION_TABLE[knob_level(level)]
     nice, chain = cfg.nice_length, cfg.max_chain
     data = data.to(torch.int64)
     words = None if bits is None else unsigned(bits).to(dev)
@@ -322,7 +398,12 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None, bits=None,
             continue
         q0 = max(lo, c0 - LOOKBACK)
         q = torch.arange(q0, c1, device=dev)
-        h = ((data[base + q] << 10) ^ (data[base + q + 1] << 5) ^ data[base + q + 2]) & 0x7FFF
+        if medium:
+            v = data[base + q] | (data[base + q + 1] << 8) | (data[base + q + 2] << 16) | \
+                (data[base + q + 3] << 24)
+            h = ((v * 2654435761) & 0xFFFFFFFF) >> 16
+        else:
+            h = ((data[base + q] << 10) ^ (data[base + q + 1] << 5) ^ data[base + q + 2]) & 0x7FFF
         order = torch.argsort(h * (c1 - q0) + (q - q0))
         hs, qs = h[order], q[order]
         if q0 == lo and head_old is not None:
@@ -346,12 +427,12 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None, bits=None,
 
     # the walks: an entry a position of every piece
     def col(k):
-        return torch.cat([torch.full((r[P_E] - r[P_S],), r[k], dtype=torch.int64, device=dev)
-                          for r in rows])
+        return torch.cat([torch.full((se - r[P_S],), r[k], dtype=torch.int64, device=dev)
+                          for r, se in zip(rows, ends)])
 
     if ns == 0:
         return deltas.to(torch.int16), slots.to(torch.int32)
-    pos = torch.cat([torch.arange(r[P_S], r[P_E], device=dev) for r in rows])
+    pos = torch.cat([torch.arange(r[P_S], se, device=dev) for r, se in zip(rows, ends)])
     slot_at = col(P_SOFF) + pos - col(P_S)
     base, total, c0, doff = col(P_BASE), col(P_TOTAL), col(P_C0), col(P_DOFF)
     ring_v = None if ring is None else unsigned(ring).to(dev)
@@ -363,22 +444,23 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None, bits=None,
         dv = torch.where(inside, dv, old)
         return torch.where(dv != 0, x - dv, torch.zeros_like(x))
 
-    greedy = greedy_level(level)
+    greedy = mapped_level(level)
     every = torch.arange(pos.numel(), device=dev)
+    base_all, pos_all, slot_at_all = base, pos, slot_at
     if greedy:
         # no walk: the reach is hash_head's window, max(p - MAX_DIST, 0)
-        live_p = pos + MIN_MATCH <= total
+        live_p = pos + need <= total
         slots[slot_at[live_p], 1] = torch.minimum(pos[live_p], torch.full_like(
             pos[live_p], MAX_DIST))
         first = prev(pos, every)
     else:
         first = prev(torch.minimum(pos, (total - MIN_MATCH).clamp(min=0)), every)
-    ok = (pos + MIN_MATCH <= total) & (first > 0) & (pos - first <= MAX_DIST)
+    ok = (pos + need <= total) & (first > 0) & (pos - first <= MAX_DIST)
     idx = torch.nonzero(ok).flatten()
     pos, cur, base, total = pos[idx], first[idx], base[idx], total[idx]
     nice_e = (total - pos).clamp(max=nice)
     limit = (pos - MAX_DIST).clamp(min=0)
-    best = torch.full_like(pos, MIN_MATCH - 1)
+    best = torch.full_like(pos, need - 1)
     bd = torch.zeros_like(pos)
     q = torch.zeros_like(pos)
     qset = torch.zeros_like(pos, dtype=torch.bool)
@@ -409,19 +491,104 @@ def resolve_plain(data, pieces, level: int, head_old=None, ring=None, bits=None,
     at = slot_at[idx]
     slots[at, 0] = full
     slots[at, 1] = pos - reach if greedy else torch.where(qset, q, full)
+    if medium:  # each hashed position's hash4 folded to 15 bits, the chase's ldh index
+        hp = torch.nonzero(live_p).flatten()
+        q4 = base_all[hp] + pos_all[hp]
+        v = data[q4] | (data[q4 + 1] << 8) | (data[q4 + 2] << 16) | (data[q4 + 3] << 24)
+        slots[slot_at_all[hp], 1] |= (((v * 2654435761) & 0xFFFFFFFF) >> 16 & 0x7FFF) << 16
     return deltas.to(torch.int16), slots.to(torch.int32)
 
 
-def dry_plain(pieces, level: int, slots, bits, bit_stride: int, recs=None) -> None:
+def _dry_medium(r, level: int, slots, bitv, rec, buf) -> None:
+    """MEDIUM's dry parse of one piece (the source's dry_medium): native's
+    run_medium over the slots, unchecked, from the record's state (rec,
+    int64 [REC], not started: from P_S) to P_E, each insert
+    med_insert_match would make a decision in `bitv` (the piece's map as
+    bits from its P_LO rounded down to 32): the positions from the frontier
+    to an insert never inserted, the insert in."""
+    from ...config import CONFIGURATION_TABLE
+    from ...models.medium import _Medium
+
+    total, base, b0 = r[P_TOTAL], r[P_BASE], r[P_LO] & ~31
+    lazy = CONFIGURATION_TABLE[knob_level(level)].max_lazy
+    win = _Medium.__new__(_Medium)
+    win.data = bytes(buf[base : base + total])
+    if rec[REC_STARTED]:
+        sp, front = int(rec[REC_SPOS]), int(rec[REC_FRONT])
+        carry = [int(x) for x in rec[REC_MED_NEXT : REC_MED_NEXT + 4]]
+    else:
+        sp = front = r[P_S]
+        carry = [0, 0, 0, 0]
+    end4 = total - (WANT_MIN - 1)
+
+    def decide(a: int, e: int) -> None:
+        nonlocal front
+        e = min(e, end4)
+        if e <= front or e <= a:
+            return
+        bitv[front - b0 : a - b0] = 1
+        bitv[max(a, front) - b0 : e - b0] = 0
+        front = e
+
+    def walk(p: int) -> list:
+        m = [0, p, p, 1]
+        if p + WANT_MIN <= total:
+            decide(p, p + 1)
+            v = int(slots[r[P_SOFF] + p - r[P_S], 0])
+            if v & 0x7FFF:
+                m[0], m[3] = p - (v & 0x7FFF), min(v >> 15, total - p)
+        return m
+
+    while sp < r[P_E]:
+        if carry[3] > 0:
+            cur, carry = carry, [0, 0, 0, 0]
+        else:
+            cur = walk(sp)
+        start, strstart, org, length = cur
+        if total - strstart > length + WANT_MIN:  # med_insert_match's inserts
+            if length < WANT_MIN:
+                strstart, length = strstart + 1, length - 1
+                if length > 0 and strstart >= org:
+                    decide(strstart, strstart + (length if strstart + length > org
+                                                 else org - strstart + 1))
+            elif length <= 16 * lazy and total - strstart >= WANT_MIN:
+                strstart, length = strstart + 1, length - 1
+                if strstart >= org:
+                    decide(strstart, strstart + (length if strstart + length > org
+                                                 else org - strstart + 1))
+                elif org < strstart + length:
+                    decide(org, strstart + length)
+            elif strstart + length >= 1:
+                decide(strstart + length - 1, strstart + length)
+        if total - cur[1] > MIN_MATCH + MAX_MATCH + 1:  # the lookahead and the fizzle
+            nm = walk(cur[1] + cur[3])
+            if nm[3] >= WANT_MIN:
+                win.fizzle(cur, nm)
+            carry = nm
+        sp = cur[1] + cur[3]
+
+
+def dry_plain(pieces, level: int, slots, bits, bit_stride: int, recs=None, data=None) -> None:
     """The plain dry parse (numpy): over piece rows (int64 [P,
     PIECE_FIELDS]), the resolve's slots (int64 values [*, 2]) and the skip
     maps `bits` (uint32 words, written in place, a piece's at P_WORK *
     bit_stride from its P_LO rounded down to 32), as zrs_exact_dry: from
     max(P_S, the record's spos) (recs int64 [*, REC], or None) to P_E,
     the map rewritten from start to the end of the word that holds
-    min(e + MAX_MATCH, total) - 1, the bits below start kept."""
+    min(e + MAX_MATCH, total) - 1, the bits below start kept. MEDIUM
+    (`_dry_medium`) takes the records (EX's, or DS's one) and the data
+    (bytes or uint8, the pieces' P_BASE into it)."""
     from ...config import CONFIGURATION_TABLE
 
+    if is_medium(level):
+        buf = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
+            else np.asarray(data, np.uint8)
+        for r in np.asarray(pieces).tolist():
+            off = r[P_WORK] * bit_stride
+            bitv = np.unpackbits(bits[off:].view(np.uint8), bitorder="little")
+            _dry_medium(r, level, slots, bitv, recs[r[P_WORK] * REC :], buf)
+            bits[off:] = np.packbits(bitv, bitorder="little").view(np.uint32)
+        return
     lazy = CONFIGURATION_TABLE[level].max_lazy
     for r in np.asarray(pieces).tolist():
         total, e, b0 = r[P_TOTAL], r[P_E], r[P_LO] & ~31
@@ -471,7 +638,7 @@ def _resolve_fn():
 def _dry_fn():
     fn = _device.library("exact_deflate").zrs_exact_dry
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _I, _P, _P, _P, _L, _P]
+        fn.argtypes = [_P, _P, _I, _I, _P, _P, _P, _L, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -495,13 +662,14 @@ def resolve_cuda(data, pieces, level: int, deltas, slots, chain_blocks: int, wal
     fill (chain_blocks 0 keeps the deltas of an earlier build, walk_blocks
     0 builds them alone); head_old and ring DS's handle tables (uint8 views
     of its Work); count (int64 [1] or None) adds the candidates the walks
-    compare; at levels 1-3 bits (int32, or None) the assumed skip maps, a
-    piece's at P_WORK * bit_stride, whose positions the chains leave out."""
+    compare; at levels 1-3 and MEDIUM bits (int32, or None) the assumed skip
+    maps, a piece's at P_WORK * bit_stride, whose positions the chains leave
+    out (MEDIUM's head_old is head4, int32 [65536])."""
     _device.require_cuda("exact_resolve", data, pieces, deltas, slots)
-    if not static_level(level):
-        raise ValueError(f"exact_resolve: level must be 1-9, got {level}")
-    if bits is not None and not greedy_level(level):
-        raise ValueError("exact_resolve: a skip map is for levels 1-3")
+    if not resolved_level(level):
+        raise ValueError(f"exact_resolve: level must be 1-9 or MEDIUM, got {level}")
+    if bits is not None and not mapped_level(level):
+        raise ValueError("exact_resolve: a skip map is for levels 1-3 and MEDIUM")
     rc = _resolve_fn()(
         _device.ptr(data), _device.ptr(pieces), pieces.shape[0], level, _opt(head_old), _opt(ring),
         _device.ptr(deltas), _device.ptr(slots), chain_blocks, walk_blocks, _opt(count),
@@ -511,25 +679,30 @@ def resolve_cuda(data, pieces, level: int, deltas, slots, chain_blocks: int, wal
     launches["exact_resolve"] += 1
 
 
-def dry_cuda(pieces, level: int, slots, bits, bit_stride: int, recs=None) -> None:
-    """Launch the dry parse at levels 1-3: one warp a piece follows the
-    last round's slots from max(P_S, its record's spos) (recs None: P_S)
-    and writes the next round's skip map into bits."""
+def dry_cuda(pieces, level: int, slots, bits, bit_stride: int, recs=None, data=None) -> None:
+    """Launch the dry parse at levels 1-3 and MEDIUM: one warp a piece
+    follows the last round's slots from max(P_S, its record's spos) (recs
+    None: P_S) and writes the next round's skip map into bits. MEDIUM
+    resumes each piece from its record (DS's own) and reads `data` (the
+    pieces' bytes, for the fizzle)."""
     _device.require_cuda("exact_dry", pieces, slots, bits)
-    if not greedy_level(level):
-        raise ValueError(f"exact_dry: level must be 1-3, got {level}")
-    rc = _dry_fn()(_device.ptr(pieces), pieces.shape[0], level, _opt(recs), _device.ptr(slots),
-                   _device.ptr(bits), bit_stride, _device.stream_of(slots))
+    if not mapped_level(level):
+        raise ValueError(f"exact_dry: level must be 1-3 or MEDIUM, got {level}")
+    if is_medium(level) and (recs is None or data is None):
+        raise ValueError("exact_dry: MEDIUM takes the records and the data")
+    rc = _dry_fn()(_opt(data), _device.ptr(pieces), pieces.shape[0], level, _opt(recs),
+                   _device.ptr(slots), _device.ptr(bits), bit_stride, _device.stream_of(slots))
     _device.check(rc, "exact_dry")
     launches["exact_dry"] += 1
 
 
 def chase_cuda(data, meta, pieces, level: int, out, lens, st, recs, scratch, slots, deltas,
                clk=None, dlist=None, bits=None, bit_stride: int = 0, stats=None) -> None:
-    """Launch EX's chase at levels 1-9: one warp a piece of `pieces` (one
-    piece of a chunk a launch), after the resolve of the same pieces; clk
-    (int64 [P, 3] or None) takes each warp's clock64 cycles: in all, in
-    flush_block, and of those in emit_symbols; at levels 1-3 `deltas` are
+    """Launch EX's chase at levels 1-9 and MEDIUM: one warp a piece of
+    `pieces` (one piece of a chunk a launch), after the resolve of the same
+    pieces; clk (int64 [P, 3] or None) takes each warp's clock64 cycles: in
+    all, in flush_block, and of those in emit_symbols; at levels 1-3 and
+    MEDIUM `deltas` are
     the last round's chains, `dlist` (int16, as deltas) the chase's
     scratch, bits holds the maps the slots assumed (the chase leaves the
     parse's own there) and stats (int64 [2] or None) adds the loop tops
@@ -545,17 +718,32 @@ def chase_cuda(data, meta, pieces, level: int, out, lens, st, recs, scratch, slo
     launches["exact_deflate"] += 1
 
 
+def medium_map(rows, stride: int) -> np.ndarray:
+    """MEDIUM's first map of a batch of chunks (meta rows), bit_words
+    `stride` a chunk: the last three positions of each dictionary set
+    (native hashes no dictionary string that passes its end), the rest
+    clear."""
+    words = np.zeros(len(rows) * stride, np.uint32)
+    for w, r in enumerate(rows):
+        for q in range(max(0, int(r[2]) - 3), int(r[2])):
+            words[w * stride + (q >> 5)] |= np.uint32(1 << (q & 31))
+    return words
+
+
 def run_static(data, meta, level: int, resolve, chase, dry=None):
-    """EX at levels 1-9 over `plan`: each round of pieces a resolve, then a
-    chase. At levels 1-3 ROUNDS[level] rounds each build the chains under the skip
-    map and walk them, a dry parse before each but the first, over each
-    batch's maps (zeros to start, bit_words of its longest chunk a chunk).
-    `resolve(data, pieces, level, deltas, slots, chain_blocks,
-    walk_blocks)`, `dry(pieces, level, slots, bits, bit_stride, recs)` and
-    `chase(data, meta, pieces, level, out, lens, st, recs, scratch, slots,
-    deltas)` are the launches (the CPU tests pass the host build's); at
-    levels 1-3 the resolve also takes bits= and bit_stride=, and the chase
-    dlist= (its scratch), bits= and bit_stride=."""
+    """EX at levels 1-9 and MEDIUM over `plan`: each round of pieces a
+    resolve, then a chase. At levels 1-3 and MEDIUM ROUNDS[level] rounds
+    each build the chains under the skip map and walk them, a dry parse
+    before each but the first (at MEDIUM only where take_round says), over
+    each batch's maps (zeros to start, at MEDIUM the dictionaries' tails
+    set; bit_words of its longest chunk a chunk). `resolve(data, pieces,
+    level, deltas, slots, chain_blocks,
+    walk_blocks)`, `dry(pieces, level, slots, bits, bit_stride, recs)` (at
+    MEDIUM also data=) and `chase(data, meta, pieces, level, out, lens, st,
+    recs, scratch, slots, deltas)` are the launches (the CPU tests pass the
+    host build's); at levels 1-3 and MEDIUM the resolve also takes bits=
+    and bit_stride=, and the chase dlist= (its scratch), bits= and
+    bit_stride=."""
     dev = data.device
     C = meta.shape[0]
     rows = meta.cpu().tolist()
@@ -563,24 +751,32 @@ def run_static(data, meta, level: int, resolve, chase, dry=None):
     out = torch.empty(max(nout, 1), dtype=torch.uint8, device=dev)[:nout]
     lens = torch.zeros(C, dtype=torch.int64, device=dev)
     st = torch.zeros(C, dtype=torch.int32, device=dev)
-    greedy = greedy_level(level)
+    greedy = mapped_level(level)
+    medium = is_medium(level)
     first = 0
-    for nchunks, rounds in plan(rows):
+    for nchunks, rounds in plan(rows, level=level):
         recs = torch.zeros(nchunks * REC, dtype=torch.int64, device=dev)
         scratch = torch.empty(nchunks * WORK_BYTES, dtype=torch.uint8, device=dev)
         kw = {}
         if greedy:
-            stride = max(bit_words(int(r[1]) + int(r[2])) for r in rows[first : first + nchunks])
-            bits = torch.zeros(nchunks * stride, dtype=torch.int32, device=dev)
+            batch = rows[first : first + nchunks]
+            stride = max(bit_words(int(r[1]) + int(r[2])) for r in batch)
+            if medium:
+                bits = torch.from_numpy(medium_map(batch, stride).view(np.int32)).to(dev)
+            else:
+                bits = torch.zeros(nchunks * stride, dtype=torch.int32, device=dev)
             kw = {"bits": bits, "bit_stride": stride}
         first += nchunks
+        extra = {"data": data} if medium else {}
         for pieces, nd, ns, cb, wb in rounds:
             pt = torch.from_numpy(pieces).to(dev)
             deltas = torch.empty(max(nd, 1), dtype=torch.int16, device=dev)
             slots = torch.empty(max(ns, 1), 2, dtype=torch.int32, device=dev)
             for r in range(ROUNDS[level] if greedy else 1):
                 if r:
-                    dry(pt, level, slots, bits, stride, recs)
+                    if not take_round(level, slots):
+                        break
+                    dry(pt, level, slots, bits, stride, recs, **extra)
                 resolve(data, pt, level, deltas, slots, cb, wb, **kw)
             more = {"dlist": torch.empty_like(deltas), **kw} if greedy else {}
             chase(data, meta, pt, level, out, lens, st, recs, scratch, slots, deltas, **more)
@@ -591,12 +787,12 @@ def exact_deflate_cuda(data, meta, level: int):
     """Launch EX over CUDA operands: data uint8 [N], meta int64 [C, META].
     One warp a chunk, at most MAX_SLOTS warps (each loops over its share
     of the chunks), each with work_bytes(level) of scratch; at levels 1-9
-    the resolve and the chase a round (run_static; at 1-3 with the dry
-    parse). Room a chunk did not fill is left unwritten (the plain
-    version's is 0)."""
+    and MEDIUM the resolve and the chase a round (run_static; at 1-3 and
+    MEDIUM with the dry parse). Room a chunk did not fill is left
+    unwritten (the plain version's is 0)."""
     _device.require_cuda("exact_deflate", data, meta)
     _check(data, meta, level, "exact_deflate")
-    if static_level(level):
+    if resolved_level(level):
         return run_static(data.contiguous(), meta.contiguous(), level, resolve_cuda, chase_cuda,
                           dry_cuda)
     dev = data.device
