@@ -3391,10 +3391,12 @@ STREAM_PUMP = 128 * 1024  # GZBUFSIZE: the stream path's pump
 def stream_pairs(torch, dev, corpus):
     """Phase 43's pairs: IS and DS against their plain versions on pump
     scripts over 64 KiB of the corpus, pump for pump (bytes, flags;
-    window() and copies), as max abs err over the bytes. IS: zlib levels
-    0, 1, 6 and 9, Z_FIXED and a flipped stream at random boundaries and
-    bounded max_out, 1-byte pumps over the first 4 KiB, a copy mid-stream,
-    and 1 MiB of zeros from one pump (room regrowths).
+    window() and copies), as max abs err over the bytes. IS (its
+    whole-block launch): zlib levels 0, 1, 6 and 9, Z_FIXED, a flipped
+    stream, runs of one byte (dist 1 at length 258) and a stream on a
+    preset dictionary at random boundaries and bounded max_out, 1-byte
+    pumps over the first 4 KiB, a copy mid-stream, and 1 MiB of zeros from
+    one pump (room regrowths).
     DS: levels 1, 3, 6 and 9 under every flush kind at random boundaries,
     1-byte pumps over the first 4 KiB, window() at a seam, a copy."""
     import random
@@ -3425,6 +3427,9 @@ def stream_pairs(torch, dev, corpus):
     streams["flipped"] = _flip(streams["zlib6"], len(streams["zlib6"]) // 3)
     # 1 MiB from about 1 KiB: IS stops for room and the wrapper regrows it
     streams["zeros"] = _raw(bytes(1 << 20) + data[:4096], 9)
+    streams["runs"] = _raw(bytes([0x41]) * 150_000 + data[:4096] + bytes(70_000), 9)
+    window = corpus[len(corpus) // 3 - 32768 : len(corpus) // 3]
+    streams["dict"] = _raw(data, 6, zdict=window)
     for name, comp in streams.items():
         script = [(comp[i : i + 1], rng.choice((1, 4096, None))) for i in range(4096)] \
             if name == "zlib6" else []
@@ -3440,7 +3445,7 @@ def stream_pairs(torch, dev, corpus):
         logs = []
         for d in (dev, "cpu"):
             launched = IS.launches["istream"]
-            h, log = IS.Handle(d), []
+            h, log = IS.Handle(d, window if name == "dict" else None), []
             for k, (chunk, cap) in enumerate(script):
                 if name == "zlib1" and k == len(script) // 2:
                     log.append(("original", [h.pump(c, 1 << 22) for c, _ in script[k:]]))
@@ -3590,8 +3595,9 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     err, n_is, n_ds = stream_pairs(torch, dev, corpus)
     if err:
         raise AssertionError(f"IS or DS disagrees with its plain version: max abs err {err}")
-    print(f"phase 43 pairs: IS on {n_is} pumps (zlib 0/1/6/9, Z_FIXED, a flipped stream, "
-          f"1 MiB of zeros from one pump; 1-byte pumps, bounded max_out, a copy) and DS on {n_ds} pumps (levels 1/3/6/9, every "
+    print(f"phase 43 pairs: IS on {n_is} pumps (zlib 0/1/6/9, Z_FIXED, a flipped stream, runs "
+          f"of one byte, a preset dictionary, 1 MiB of zeros from one pump; 1-byte pumps, "
+          f"bounded max_out, a copy) and DS on {n_ds} pumps (levels 1/3/6/9, every "
           f"flush, 1-byte pumps, window(), a copy) equal to plain, max abs err {err} "
           f"({time.perf_counter() - t_start:.1f} s)", flush=True)
 
@@ -3685,15 +3691,37 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     snap = torch.from_numpy(h.rec.copy()).to(dev)
     rec_dev = torch.empty_like(snap)
     tables = h.tables.clone()  # a launch rebuilds them at each block
-    fn_is = IS._fn()
+    scratch = torch.empty(IS.SCRATCH, dtype=torch.int32, device=dev)
+    stats = torch.zeros(IS.STATS, dtype=torch.int64, device=dev)
+    fn_is, fn_warp = IS._fn(), IS._fn_warp()
+    stream = torch.cuda.current_stream().cuda_stream
 
-    def is_launch():
+    def is_launch(with_stats=False):
         rec_dev.copy_(snap)
         h.tables.copy_(tables)
-        fn_is(_ptr(rec_dev), _ptr(h.tables), _ptr(h.inbuf), _ptr(h.outbuf),
-              torch.cuda.current_stream().cuda_stream)
+        fn_is(_ptr(rec_dev), _ptr(h.tables), _ptr(h.inbuf), h.inbuf.numel() // 4,
+              _ptr(h.outbuf), _ptr(scratch), _ptr(stats) if with_stats else None, stream)
 
-    is_ms = event_ms(torch, is_launch, 5)
+    def warp_launch():
+        rec_dev.copy_(snap)
+        h.tables.copy_(tables)
+        fn_warp(_ptr(rec_dev), _ptr(h.tables), _ptr(h.inbuf), _ptr(h.outbuf), stream)
+
+    # the whole-block launch and the one-warp launch it replaces, in turn
+    times = {"block": [], "warp": []}
+    outs = {}
+    for who in ("block", "warp", "warp", "block"):
+        times[who].append(event_ms(torch, is_launch if who == "block" else warp_launch, 5))
+        rec_after = rec_dev.cpu().numpy()
+        at0 = int(h.rec[IS.R_OP]) - int(h.rec[IS.R_BASE])
+        at1 = int(rec_after[IS.R_OP]) - int(h.rec[IS.R_BASE])
+        outs.setdefault(who, set()).add((digest(h.outbuf[at0:at1].cpu().numpy().tobytes()),
+                                         tuple(rec_after[:12].tolist())))
+    if len(outs["block"] | outs["warp"]) != 1:
+        raise AssertionError(f"the timed IS pump: block and warp launches disagree: {outs}")
+    is_ms, warp_ms = sum(times["block"]) / 2, sum(times["warp"]) / 2
+    is_launch(True)
+    st = dict(zip(IS.STAT_NAMES, stats.cpu().tolist()))
     is_out = int(rec_dev[IS.R_OP].item()) - int(h.rec[IS.R_OP])
     p = IS.Handle("cpu")
     p.pump(raw6[:pump], 1 << 30)
@@ -3708,6 +3736,11 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
         source="zlib_rs_tpu_torch/csrc/istream.cu",
         replaces="native/zrs_native.cpp:2244",
         max_abs_err=err, ms=is_ms, plain_ms=is_plain_ms, launches=launched["istream"],
+        warp_ms=warp_ms, head_ms=st["ns_head"] / 1e6, sync_ms=st["ns_sync"] / 1e6,
+        expand_ms=st["ns_expand"] / 1e6, spec_ms=st["ns_spec"] / 1e6, windows=st["windows"],
+        sync_rounds=st["sync_rounds"],
+        max_sync_rounds=st["max_sync_rounds"], jump_rounds=st["jump_rounds"],
+        serial_finishes=st["serial_finishes"],
         # bytes: the pump's compressed input read once, its output written once
         bnd=bound(pump + is_out, 0),
     )
@@ -3746,10 +3779,19 @@ def stream_phase(torch, dev, corpus, rows) -> dict:
     )
     rows["exact_resolve"]["stream_launches"] = launched["exact_resolve"]
     rows["exact_dry"]["stream_launches"] = launched["exact_dry"]
-    result.update(is_pump_ms=is_ms, ds_pumps=pumps, launches=launched,
-                  phase_s=time.perf_counter() - t_start)
-    print(f"phase 43 IS: {is_ms:.3f} ms for a 128 KiB pump ({is_out} bytes out; bound "
-          f"{rows['istream']['bnd'][0]:.6f} ms by bytes), plain {is_plain_ms:.1f} ms", flush=True)
+    result.update(is_pump_ms=is_ms, is_warp_ms=warp_ms, is_stats=st, ds_pumps=pumps,
+                  launches=launched, phase_s=time.perf_counter() - t_start)
+    print(f"phase 43 IS: {is_ms:.3f} ms for a 128 KiB pump by the whole-block launch, the "
+          f"one-warp launch {warp_ms:.3f} ms from the same state (block, warp, warp, block; "
+          f"equal bytes and records; {is_out} bytes out; bound "
+          f"{rows['istream']['bnd'][0]:.6f} ms by bytes), plain {is_plain_ms:.1f} ms; split by "
+          f"%globaltimer: head and tails {st['ns_head'] / 1e6:.3f} ms, sync decode "
+          f"{st['ns_sync'] / 1e6:.3f} ms, expansion {st['ns_expand'] / 1e6:.3f} ms (the next "
+          f"{st['specs']} headers parsed meanwhile in {st['ns_spec'] / 1e6:.3f} ms) over "
+          f"{st['windows']} windows, {st['sync_rounds']} sync rounds (at most "
+          f"{st['max_sync_rounds']} a window, {st['serial_finishes']} serial finishes), "
+          f"{st['jump_rounds']} jumping rounds (at most {st['max_jump_rounds']}); launches on "
+          f"the path {launched['istream']}", flush=True)
     for level, r in pumps.items():
         held = (f"equal to plain's, plain {r['plain_ms']:.1f} ms" if "plain_ms" in r
                 else "(held by the pump scripts above)")
@@ -4967,7 +5009,10 @@ def main() -> int:
                                  "candidates", "resolve_ms", "chase_ms", "level1_ms",
                                  "level9_resolve_ms", "level9_chase_ms", "stream_launches",
                                  "level2_ms", "level3_ms", "level1_chase_ms", "level1_resolve_ms",
-                                 "rounds", "live_share", "level1_launches")
+                                 "rounds", "live_share", "level1_launches", "warp_ms",
+                                 "head_ms", "sync_ms", "expand_ms", "spec_ms", "windows",
+                                 "sync_rounds",
+                                 "max_sync_rounds", "jump_rounds", "serial_finishes")
                        if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

@@ -275,10 +275,11 @@ def test_rows_past_the_budget_are_cut_not_phase_errors(tiny, monkeypatch):
 
 
 def test_kernel_symbols_name_one_kernel_a_source():
-    """One kernel a source, but SP1-SP3's six in csrc/speculative.cu and
+    """One kernel a source, but SP1-SP3's six in csrc/speculative.cu,
     EX's, DS's, the resolve's (the chain build and the walk), the levels
     1-3 dry parse's, the chase's and the tables' seven in
-    csrc/exact_deflate.cu."""
+    csrc/exact_deflate.cu, and IS's two in csrc/istream.cu (the one-warp
+    launch the probes time and the whole-block launch)."""
     syms = B.kernel_symbols()
     assert list(syms) == [f"zrs_{n}" for n in _device.SOURCES]
     assert syms["zrs_inflate"] == ("inflate_streams",) and syms["zrs_pack"] == ("pack",)
@@ -288,9 +289,9 @@ def test_kernel_symbols_name_one_kernel_a_source():
                                        "resolve_init", "resolve_jump", "resolve_narrow")
     assert syms["zrs_exact_deflate"] == ("exact_deflate", "dstream_pump", "build_chains",
                                          "resolve_walk", "exact_dry", "exact_chase", "ds_tables")
-    assert syms["zrs_istream"] == ("istream_advance",)
+    assert syms["zrs_istream"] == ("istream_advance", "istream_sync")
     assert all(len(v) == 1 for k, v in syms.items()
-               if k not in ("zrs_speculative", "zrs_exact_deflate"))
+               if k not in ("zrs_speculative", "zrs_exact_deflate", "zrs_istream"))
 
 
 def test_device_busy_is_the_union_of_device_intervals():

@@ -1,4 +1,5 @@
-// IS: a resumable raw-deflate decoder, one warp a handle and a launch.
+// IS: a resumable raw-deflate decoder, one thread block a handle and a
+// launch.
 //
 // Replaces no pallas_call site. It is the card's counterpart of the
 // reference's native resumable inflate (zlib_rs_tpu/native.py
@@ -33,51 +34,95 @@
 // The handle's state lives in device memory between pumps: the record
 // (kRec int64: mode, last, stored_left, the unconsumed input's offset and
 // end, its bit offset, op, base, the output capacity, the two roots, the
-// room flag), the current block's litlen and distance tables and the
-// code-length table (table_words() uint32), the input not yet consumed
-// (with 8 zero bytes past its end, so that a peek near the end reads
-// zeros, as native's BitReader does), and the output behind op (the
-// 32 KiB window plus what is not yet served; out[0] is absolute `base`).
+// room flag), the current block's litlen and distance tables and its
+// code lengths (table_words() uint32),
+// the input not yet consumed (with 8 zero bytes past its end, so that a
+// peek near the end reads zeros, as native's BitReader does), and the
+// output behind op (the 32 KiB window plus what is not yet served; out[0]
+// is absolute `base`).
 //
 // Bound on the H100. The bytes are the pump's input read once and its
-// output written once, microseconds at 3.35 TB/s. That is not the floor:
-// a deflate body is one serial chain (a code's length decides where the
-// next code starts), so the floor is the pump's symbols times the latency
-// of a table lookup and the shifts around it, as native's thread is.
+// output written once, microseconds at 3.35 TB/s. A deflate body is one
+// serial chain (a code's length decides where the next code starts), so a
+// decoder that follows it is bound by the pump's symbols times the latency
+// of a table lookup, as native's thread is. The design below breaks the
+// chain inside each coded block.
 //
-// Design. All 32 lanes run native's control flow on the same values (EX's
-// and SP2's way), so a table build, a stored copy and a match copy use
-// every lane with no divergent branch: a literal is one store by every
-// lane to the same byte; a match is copied 32 bytes a step (K6's and
-// SP2's three cases: a run of one byte, every source before the step
-// with a __syncwarp between steps, a period under 32 from the bytes
-// before the match); a stored span a lane a byte; the table fills a lane
-// a symbol, the subtable placement serial in symbol order as native's.
-// The bits are read as 64 bits from two aligned words, cached while the
-// position stays in the first word. Without __CUDACC__ the same source
-// compiles as host C++ (a warp of one lane, zrs_istream_advance_host), so
-// that the CPU tests run this file's control flow against native.
+// Design: one block of kThreads threads a launch (istream_sync).
+// - The head is warp 0. It runs native's control flow (Inflater below,
+//   all 32 lanes on the same values, EX's and SP2's way) for block
+//   headers (parse_dynamic, with build_table's verdict from the code
+//   lengths' counts), stored blocks (copied by the whole block) and every
+//   symbol within kMargin bits of the input's end: the tail, where
+//   native's pauses live. Native's tables, in native's layout in device
+//   memory, are built only where the tail decodes or the launch ends
+//   inside a block. The head hands a coded body to the block whenever more
+//   than kMargin + kMinBody bits are left, and takes the state back after
+//   it; below that it decodes alone, as the one-warp launch does.
+// - The body decodes a window of up to 32 KiB of input at a time, staged
+//   in shared memory with cp.async, from a known litlen-code start w0. A
+//   compact decode table in shared memory (roots 10 and 8, a canonical
+//   walk for longer codes; a hole of an incomplete code decodes as bad) is
+//   built once a block from the code lengths the head kept.
+// - The sync decode. The window is cut into sub-ranges of L bits, one a
+//   thread. Each thread decodes from its sub-range's start as though a
+//   litlen code began there, marks every litlen-code start it passes in a
+//   bitmap (a bit an input bit), and stops at the first litlen start past
+//   its sub-range (its exit), or at an EOB or a bad symbol. Thread 0's
+//   start is exact; thread i's true entry is thread i-1's true exit. In
+//   rounds, a thread whose entry changed decodes again from it until it
+//   lands on a litlen start its first pass marked (from there both decodes
+//   are the same: a litlen start is a whole decoder state, a bit position
+//   is not) or leaves its sub-range. After kMaxRounds rounds thread 0
+//   finishes the chain alone, so the result is exact whatever the data.
+// - The expansion. Each thread counts its confirmed tokens' output, a
+//   block scan gives every token its output position, literals are
+//   written at once and every match byte takes a pointer to its source
+//   (into the period of a match shorter than its length; a pointer before
+//   the window is a byte already) in a scratch in device memory (L2) of
+//   kPtrCap entries. Pointer jumping, p[i] = p[p[i]], one barrier a round,
+//   eight pointers a thread in flight, resolves the chains. Where the sync
+//   decode ends the window at an EOB, the head warp parses the next
+//   block's header meanwhile (it writes no output) and the other 31 warps
+//   expand, on a named barrier of their own; the parse is taken if the
+//   window does end there, else undone. The first
+//   token that is bad, points too far back (native's `dist > op`), does
+//   not fit the room, or starts within kMargin bits of the input's end,
+//   ends the body before it: from that litlen start the head decodes on
+//   with native's code, so every pause, error and bit offset is native's.
+//
+// Without __CUDACC__ the same source compiles as host C++: the one-warp
+// launch as a warp of one lane (zrs_istream_advance_host) and the block's
+// launch with its threads run in turn, L an argument
+// (zrs_istream_sync_host), so that the CPU tests run this file's control
+// flow against native. zrs_istream_advance, the one-warp launch, stays for
+// the probes that time the two.
 
+#include <climits>
 #include <cstdint>
 #include <cstring>
 
 #ifdef __CUDACC__
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #define IS_DEV __device__
 #define IS_INL __device__ __forceinline__
 #define IS_CONST __constant__
+#define IS_UNROLL _Pragma("unroll")
 #else
 #define IS_DEV
 #define IS_INL inline
 #define IS_CONST static const
+#define IS_UNROLL
 #endif
 
 namespace {
 
 constexpr int WSIZE = 32768;
 constexpr int kTCap = 32768;  // entries a table: root 15 (a lone code) at most
-constexpr int kClCap = 128;
-constexpr int kTableWords = 2 * kTCap + kClCap;  // litlen, distance, code lengths
+constexpr int kClCap = 128;  // the code-length code's table (shared memory)
+constexpr int kLensOff = 2 * kTCap;  // the block's code lengths, uint16 [320]
+constexpr int kTableWords = kLensOff + 160;  // litlen, distance, the code lengths
 constexpr int kPrefixes = 1024;  // root prefixes that can own a subtable (root <= 10)
 
 // the record, int64 a field (the wrapper's R_* names)
@@ -87,7 +132,31 @@ enum {
 };
 constexpr int M_HEAD = 0, M_STORED = 1, M_CODED = 2, M_DONE = 3, M_ERR = -1;
 // table entry (native's): bits 0-15 payload, 16-21 bits, 22-27 aux, 28-31 kind
-constexpr int K_LIT = 0, K_MATCH = 1, K_EOB = 2, K_SUB = 3, K_BAD = 4;
+constexpr int K_LIT = 0, K_MATCH = 1, K_EOB = 2, K_SUB = 3, K_BAD = 4, K_LONG = 5;
+
+// the block's launch
+constexpr int kThreads = 1024;  // threads, and sub-ranges a window at most
+constexpr int kMargin = 64;     // bits the tail keeps: 15 + 5 + 15 + 13 rounded up
+// bits past the margin below which the head decodes alone: the block's
+// body costs more than one warp's serial decode up to about 150 bytes of
+// fresh input (stream_probe.py's small pumps, PERF.md §6)
+constexpr int kMinBody = 1024;
+constexpr int kStageWords = 8192;  // a window's input: 32 KiB
+constexpr int kStagePad = 8;       // words past the window: a token's last bits
+constexpr int kLmin = 128, kLmax = kStageWords * 32 / kThreads;  // the adaptive sub-range, bits
+constexpr int kMaxRounds = 32;
+constexpr int kPtrCap = 1 << 18;  // output bytes a window expands at most: the scratch, int32
+constexpr int kLlBits = 10, kDBits = 8;  // the compact table's roots
+constexpr int kBlockCopy = 256;  // stored bytes the whole block copies
+constexpr int A_STOP = 0, A_BODY = 1, A_COPY = 2;
+constexpr int X_NEXT = 0, X_EOB = 1, X_BAD = 2;  // a walk's end
+constexpr int V_FAR = 1, V_ROOM = 2, V_WIN = 3, V_BAD = 4;  // why a window ends before a token
+// stats, int64 a field
+enum {
+  S_WINDOWS, S_ROUNDS, S_MAX_ROUNDS, S_SERIAL, S_JUMPS, S_MAX_JUMPS, S_NS_HEAD, S_NS_SYNC,
+  S_NS_EXPAND, S_COPIES, S_BODY_OUT, S_BODY_BITS, S_LUTS, S_NS_WRITE, S_NS_SPEC, S_SPECS,
+  kStats = 16
+};
 
 IS_CONST int kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
                              31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
@@ -106,9 +175,40 @@ IS_INL uint32_t mk_entry(int kind, int aux, int nbits, int payload) {
 }
 IS_INL uint32_t low_bits(uint32_t v, int n) { return n ? v & ((1u << n) - 1u) : 0u; }
 
+IS_INL uint32_t sym_entry(int alphabet, int s, int nbits_) {
+  if (alphabet == 0) {
+    if (s < 256) return mk_entry(K_LIT, 0, nbits_, s);
+    if (s == 256) return mk_entry(K_EOB, 0, nbits_, 0);
+    const int c = s - 257;
+    if (c >= 29) return mk_entry(K_BAD, 0, nbits_, 0);
+    return mk_entry(K_MATCH, kLenExtra[c], nbits_, kLenBase[c]);
+  }
+  if (alphabet == 1) {
+    if (s >= 30) return mk_entry(K_BAD, 0, nbits_, 0);
+    return mk_entry(K_MATCH, kDistExtra[s], nbits_, kDistBase[s]);
+  }
+  return mk_entry(K_LIT, 0, nbits_, s);
+}
+
 IS_INL void warp_sync() {
 #ifdef __CUDACC__
   __syncwarp();
+#endif
+}
+
+IS_INL void block_sync() {
+#ifdef __CUDACC__
+  __syncthreads();
+#endif
+}
+
+// a barrier of the `count` threads that expand a window (all of them, or
+// all but the head warp while it parses the next header)
+IS_INL void part_sync(int count) {
+#ifdef __CUDACC__
+  asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
+#else
+  (void)count;
 #endif
 }
 
@@ -135,8 +235,19 @@ IS_INL uint32_t bit_reverse(uint32_t v, int n) {
 #endif
 }
 
+IS_INL long long now_ns() {
+#ifdef __CUDACC__
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+#else
+  return 0;
+#endif
+}
+
 // a table build's scratch (shared memory on the card)
 struct Scratch {
+  uint32_t ct[kClCap];  // the code-length code's table: it lives only inside parse_dynamic
   uint16_t lens[320];
   uint16_t codes[320];
   uint16_t cl[19];
@@ -144,11 +255,34 @@ struct Scratch {
   int32_t sub_bits[kPrefixes];
 };
 
+// the block's body state (dynamic shared memory on the card)
+struct Body {
+  uint32_t stage[kStageWords + kStagePad];  // the window's input words
+  uint32_t marks[kStageWords + kStagePad];  // litlen starts of the first passes
+  uint32_t ll[1 << kLlBits];                // compact litlen table
+  uint32_t d[1 << kDBits];                  // compact distance table
+  int32_t first[kThreads];  // a sub-range's first-pass exit; later its refused token
+  int32_t cur[kThreads];    // its exit from its current entry
+  int32_t used[kThreads];   // the entry it was computed from
+  int32_t inb[kThreads];    // a round's entries; later the refused token's output
+  int32_t cnt[kThreads];    // its tokens' output, then their exclusive offsets
+  int32_t wsum[32];
+  uint16_t sorted[320];  // symbols in canonical order: litlen [0, 288), distance [288, 320)
+  uint16_t lens[320];
+  int32_t cnt_ll[16], cnt_d[16];
+  // the hand-off between the head and the body
+  long long bp, op, nbits, base, cap, copy_src, copy_dst, copy_len;
+  int action, mode, last, no_par, gen, lut_gen, go;
+  int flag[3], endi[3];  // a round's change and first block end, three in turn
+  int vmin, total, L, r0, last_sub;
+};
+
 struct Inflater {
   long long* rec;
   uint32_t* lt;
   uint32_t* dt;
   uint32_t* ct;
+  uint16_t* lens_out;  // the block's code lengths, for the body's table
   const uint8_t* in;
   uint8_t* out;
   Scratch* sc;
@@ -157,6 +291,11 @@ struct Inflater {
   long long op, base, cap, stored_left;
   int mode, last, lt_root, dt_root;
   bool room;
+  bool par;     // the block's launch: hand coded bodies and stored spans to the block
+  bool no_par;  // the body refused a token: decode on here
+  bool built;   // native's tables hold the current block's code
+  int gen;      // code lengths kept in this launch
+  long long pending;  // a stored span the block is copying
   long long cq;  // the word index the cached 64 bits start at
   uint64_t cw;
 
@@ -181,21 +320,6 @@ struct Inflater {
     return (uint32_t)(cw >> (bp & 31));
   }
 
-  IS_INL uint32_t sym_entry(int alphabet, int s, int nbits_) const {
-    if (alphabet == 0) {
-      if (s < 256) return mk_entry(K_LIT, 0, nbits_, s);
-      if (s == 256) return mk_entry(K_EOB, 0, nbits_, 0);
-      const int c = s - 257;
-      if (c >= 29) return mk_entry(K_BAD, 0, nbits_, 0);
-      return mk_entry(K_MATCH, kLenExtra[c], nbits_, kLenBase[c]);
-    }
-    if (alphabet == 1) {
-      if (s >= 30) return mk_entry(K_BAD, 0, nbits_, 0);
-      return mk_entry(K_MATCH, kDistExtra[s], nbits_, kDistBase[s]);
-    }
-    return mk_entry(K_LIT, 0, nbits_, s);
-  }
-
   // native's maxlen_for_prefix: the longest code past the root under a
   // root prefix, a lane a symbol and a warp max
   IS_DEV int prefix_bits(const uint16_t* lens, int n, int low, int root) const {
@@ -206,20 +330,40 @@ struct Inflater {
     return warp_max(mx);
   }
 
+  // a code's count of each length 1-15, its longest and shortest length
+  // and its number of codes: on the card a lane a symbol and a ballot a
+  // length
+  IS_DEV void count_lengths(const uint16_t* lens, int n, int* cnt, int* maxlen, int* minlen,
+                            int* ncodes) const {
+    for (int l = 0; l < 16; l++) cnt[l] = 0;
+#ifdef __CUDACC__
+    for (int base = 0; base < n; base += 32) {
+      const int l = base + lane < n ? lens[base + lane] : 0;
+IS_UNROLL
+      for (int k = 1; k < 16; k++) cnt[k] += __popc(__ballot_sync(0xFFFFFFFFu, l == k));
+    }
+#else
+    for (int i = 0; i < n; i++) cnt[lens[i]]++;
+    cnt[0] = 0;
+#endif
+    *maxlen = 0;
+    *minlen = 16;
+    *ncodes = 0;
+    for (int l = 1; l < 16; l++) {
+      if (!cnt[l]) continue;
+      *ncodes += cnt[l];
+      *maxlen = l;
+      if (*minlen == 16) *minlen = l;
+    }
+  }
+
   // native build_table: alphabet 0 litlen, 1 distance, 2 code lengths;
   // 0, or -1 where native refuses the code
   IS_DEV int build_table(int alphabet, const uint16_t* lens, int n, int root, uint32_t* t,
                          int* root_out) {
-    int cnt[16] = {0};
-    int maxlen = 0, minlen = 16, ncodes = 0;
-    for (int i = 0; i < n; i++) {
-      const int l = lens[i];
-      if (!l) continue;
-      cnt[l]++;
-      ncodes++;
-      maxlen = l > maxlen ? l : maxlen;
-      minlen = l < minlen ? l : minlen;
-    }
+    int cnt[16];
+    int maxlen, minlen, ncodes;
+    count_lengths(lens, n, cnt, &maxlen, &minlen, &ncodes);
     if (maxlen == 0) {
       if (alphabet != 1) return -1;
       if (lane == 0) t[0] = t[1] = mk_entry(K_BAD, 0, 1, 0);
@@ -290,11 +434,45 @@ struct Inflater {
     return 0;
   }
 
-  IS_DEV int fixed_tables() {
+  // the block's code lengths for the body's table: litlen [0, 288),
+  // distance [288, 320), zero where the header sends none
+  IS_DEV void keep_lens(const uint16_t* ll, int nlen, const uint16_t* dl, int ndist) {
+    for (int i = lane; i < 320; i += lanes)
+      lens_out[i] = i < 288 ? (i < nlen ? ll[i] : 0) : (i - 288 < ndist ? dl[i - 288] : 0);
+    warp_sync();
+    gen++;
+    built = false;
+  }
+
+  // native build_table's verdict alone, from the counts
+  IS_DEV bool code_ok(int alphabet, const uint16_t* lens, int n) const {
+    int cnt[16];
+    int maxlen, minlen, ncodes;
+    count_lengths(lens, n, cnt, &maxlen, &minlen, &ncodes);
+    if (maxlen == 0) return alphabet == 1;
+    int left = 1;
+    for (int l = 1; l <= 15; l++) {
+      left = (left << 1) - cnt[l];
+      if (left < 0) return false;
+    }
+    return !(left > 0 && (alphabet == 2 || ncodes != 1));
+  }
+
+  // native's litlen and distance tables of the kept code lengths, built
+  // where a symbol is decoded here (the tail) or the launch ends inside
+  // the block: the body never reads them. Roots 10 and 9 give the fixed
+  // code native's 9 and 5 (min(max(R, minlen), maxlen)).
+  IS_DEV void ensure_tables() {
+    if (built) return;
+    build_table(0, lens_out, 288, 10, lt, &lt_root);
+    build_table(1, lens_out + 288, 32, 9, dt, &dt_root);
+    built = true;
+  }
+
+  IS_DEV void fixed_tables() {
     for (int i = 0; i < 288; i++) sc->lens[i] = i < 144 ? 8 : i < 256 ? 9 : i < 280 ? 7 : 8;
-    if (build_table(0, sc->lens, 288, 9, lt, &lt_root)) return -1;
-    for (int i = 0; i < 32; i++) sc->lens[i] = 5;
-    return build_table(1, sc->lens, 32, 5, dt, &dt_root);
+    for (int i = 288; i < 320; i++) sc->lens[i] = 5;
+    keep_lens(sc->lens, 288, sc->lens + 288, 32);
   }
 
   // native parse_dynamic_tables: 0, -1 data error, -3 cut short
@@ -316,20 +494,23 @@ struct Inflater {
     if (build_table(2, sc->cl, 19, 7, ct, &ct_root)) return -1;
     const int total = nlen + ndist;
     int have = 0;
+    // with 14 bits a code length at hand (a 7-bit code and 7 extra bits),
+    // no check below can find the header cut short
+    const bool whole = avail() >= 14LL * total;
     while (have < total) {
-      if (avail() < 7) return -3;
+      if (!whole && avail() < 7) return -3;
       const uint32_t w = peek();
       const uint32_t e = ct[low_bits(w, ct_root)];
       const int nb = (e >> 16) & 0x3f;
       const int sym = e & 0xffff;
-      if (avail() < nb) return -3;
+      if (!whole && avail() < nb) return -3;
       if (sym < 16) {
         bp += nb;
         sc->lens[have++] = (uint16_t)sym;
         continue;
       }
       const int extra = sym == 16 ? 2 : sym == 17 ? 3 : 7;
-      if (avail() < nb + extra) return -3;
+      if (!whole && avail() < nb + extra) return -3;
       bp += nb;
       const int v = (int)low_bits(w >> nb, extra);
       bp += extra;
@@ -345,11 +526,8 @@ struct Inflater {
       while (rep--) sc->lens[have++] = (uint16_t)fill;
     }
     if (sc->lens[256] == 0) return -1;
-    int lr = 0, dr = 0;
-    if (build_table(0, sc->lens, nlen, 10, lt, &lr)) return -1;
-    if (build_table(1, sc->lens + nlen, ndist, 9, dt, &dr)) return -1;
-    lt_root = lr;
-    dt_root = dr;
+    if (!code_ok(0, sc->lens, nlen) || !code_ok(1, sc->lens + nlen, ndist)) return -1;
+    keep_lens(sc->lens, nlen, sc->lens + nlen, ndist);
     return 0;
   }
 
@@ -359,7 +537,9 @@ struct Inflater {
     uint8_t* dst = out + (op - base);
     const uint8_t* src = dst - dist;
 #ifdef __CUDACC__
-    if (dist == 1) {
+    if (lanes == 1) {
+      for (int i = 0; i < length; i++) dst[i] = src[i];
+    } else if (dist == 1) {
       const uint8_t v = src[0];
       for (int k = lane; k < length; k += 32) dst[k] = v;
     } else if (dist >= 32 || dist >= length) {
@@ -384,78 +564,146 @@ struct Inflater {
 #endif
   }
 
-  // native InfStream::advance, with the room pause
-  IS_DEV void advance() {
+  // a block header at bp (native's M_HEAD step): true where the advance
+  // stops (input short, or a data error), with bp as native leaves it
+  IS_DEV bool head_step() {
+    const long long sv = bp;
+    if (avail() < 3) {
+      bp = sv;
+      return true;
+    }
+    const uint32_t w = peek();
+    const int fin = (int)(w & 1u), type = (int)((w >> 1) & 3u);
+    bp += 3;
+    if (type == 3) {
+      mode = M_ERR;
+      return true;
+    }
+    if (type == 0) {
+      bp = (bp + 7) & ~7LL;
+      if (avail() < 32) {
+        bp = sv;
+        return true;
+      }
+      const uint32_t v = peek();
+      bp += 32;
+      if (((v & 0xffffu) ^ (v >> 16)) != 0xffffu) {
+        mode = M_ERR;
+        return true;
+      }
+      last = fin;
+      stored_left = v & 0xffffu;
+      mode = M_STORED;
+    } else if (type == 1) {
+      fixed_tables();
+      last = fin;
+      mode = M_CODED;
+    } else {
+      const int perr = parse_dynamic();
+      if (perr == -3) {  // the header is cut short: wait for it
+        bp = sv;
+        return true;
+      }
+      if (perr) {
+        mode = M_ERR;
+        return true;
+      }
+      last = fin;
+      mode = M_CODED;
+    }
+    return false;
+  }
+
+  // the state a speculative header parse may change
+  struct Saved {
+    long long bp, stored_left;
+    int mode, last, gen;
+    bool built;
+  };
+
+  // the next block's header at bit `at`, parsed while the other warps
+  // expand the window that the sync decode ends there (an EOB): it writes
+  // no output, only this warp's scratch and the kept code lengths
+  IS_DEV void speculate(long long at, Saved& sv) {
+    sv.bp = bp;
+    sv.stored_left = stored_left;
+    sv.mode = mode;
+    sv.last = last;
+    sv.gen = gen;
+    sv.built = built;
+    bp = at;
+    mode = M_HEAD;
+    head_step();
+  }
+
+  // the window ended before its EOB: back to the state before the
+  // speculation, the kept code lengths (`lens`, the body's copy) too
+  IS_DEV void restore(const Saved& sv, const uint16_t* lens) {
+    if (gen != sv.gen) {
+      for (int i = lane; i < 320; i += lanes) lens_out[i] = lens[i];
+      warp_sync();
+    }
+    bp = sv.bp;
+    stored_left = sv.stored_left;
+    mode = sv.mode;
+    last = sv.last;
+    gen = sv.gen;
+    built = sv.built;
+  }
+
+  // native InfStream::advance's entry: false where it decodes nothing
+  IS_DEV bool begin() {
     room = false;
-    if (mode == M_DONE || mode == M_ERR) return;
+    if (mode == M_DONE || mode == M_ERR) return false;
     const long long in_off = rec[R_IN_OFF];
     const int bit_off = (int)rec[R_BIT_OFF];
-    if (bit_off && rec[R_IN_END] - in_off < 1) return;  // no byte to resume into
+    if (bit_off && rec[R_IN_END] - in_off < 1) return false;  // no byte to resume into
     bp = in_off * 8 + bit_off;
     nbits = rec[R_IN_END] * 8;
+    return true;
+  }
+
+  // the end of a stored span of `take` bytes; true where the advance stops
+  IS_DEV bool stored_taken(long long take) {
+    op += take;
+    bp += 8 * take;
+    stored_left -= take;
+    if (stored_left) return true;  // more input (or room) first
+    mode = last ? M_DONE : M_HEAD;
+    return mode == M_DONE;
+  }
+
+  // native InfStream::advance, with the room pause: A_STOP where it
+  // stops; in the block's launch A_BODY (a coded body with more than
+  // kMargin bits left) and A_COPY (a stored span), each resumed here
+  IS_DEV int resume() {
+    if (mode == M_DONE || mode == M_ERR) return A_STOP;  // the body ended the stream
+    if (pending >= 0) {
+      const long long take = pending;
+      pending = -1;
+      if (stored_taken(take)) return A_STOP;
+    }
     for (;;) {
       if (mode == M_HEAD) {
-        const long long sv = bp;
-        if (avail() < 3) {
-          bp = sv;
-          break;
-        }
-        const uint32_t w = peek();
-        const int fin = (int)(w & 1u), type = (int)((w >> 1) & 3u);
-        bp += 3;
-        if (type == 3) {
-          mode = M_ERR;
-          break;
-        }
-        if (type == 0) {
-          bp = (bp + 7) & ~7LL;
-          if (avail() < 32) {
-            bp = sv;
-            break;
-          }
-          const uint32_t v = peek();
-          bp += 32;
-          if (((v & 0xffffu) ^ (v >> 16)) != 0xffffu) {
-            mode = M_ERR;
-            break;
-          }
-          last = fin;
-          stored_left = v & 0xffffu;
-          mode = M_STORED;
-        } else if (type == 1) {
-          fixed_tables();
-          last = fin;
-          mode = M_CODED;
-        } else {
-          const int perr = parse_dynamic();
-          if (perr == -3) {  // the header is cut short: wait for it
-            bp = sv;
-            break;
-          }
-          if (perr) {
-            mode = M_ERR;
-            break;
-          }
-          last = fin;
-          mode = M_CODED;
-        }
+        if (head_step()) break;
       } else if (mode == M_STORED) {  // bp is on a byte here
         const long long have = (nbits - bp) >> 3;
         const long long want = stored_left < have ? stored_left : have;
         const long long free = cap - (op - base);
         const long long take = want < free ? want : free;
         room = take < want;
+        if (par && take >= kBlockCopy) {
+          pending = take;
+          return A_COPY;
+        }
         const uint8_t* src = in + (bp >> 3);
         uint8_t* dst = out + (op - base);
         for (long long j = lane; j < take; j += lanes) dst[j] = src[j];
         warp_sync();
-        op += take;
-        bp += 8 * take;
-        stored_left -= take;
-        if (stored_left) break;  // more input (or room) first
-        mode = last ? M_DONE : M_HEAD;
-        if (mode == M_DONE) break;
+        if (stored_taken(take)) break;
       } else {  // a coded block's body
+        if (par && !no_par && avail() > kMargin + kMinBody) return A_BODY;
+        ensure_tables();
         bool pause = false;
         const uint32_t lmask = (1u << lt_root) - 1u, dmask = (1u << dt_root) - 1u;
         long long sv = bp;  // the symbol's first bit, restored on a pause
@@ -544,47 +792,626 @@ struct Inflater {
       }
       if (mode == M_ERR) break;
     }
+    return A_STOP;
+  }
+
+  IS_DEV void load(long long* rec_, uint32_t* tables, const uint8_t* in_, uint8_t* out_,
+                   Scratch* sc_, int lane_, int lanes_, bool par_) {
+    rec = rec_;
+    lt = tables;
+    dt = tables + kTCap;
+    ct = sc_->ct;
+    lens_out = (uint16_t*)(tables + kLensOff);
+    in = in_;
+    out = out_;
+    sc = sc_;
+    lane = lane_;
+    lanes = lanes_;
+    par = par_;
+    no_par = false;
+    built = true;  // the record's block, if any, was built before this launch
+    gen = 0;
+    pending = -1;
+    mode = (int)rec[R_MODE];
+    last = (int)rec[R_LAST];
+    stored_left = rec[R_STORED_LEFT];
+    op = rec[R_OP];
+    base = rec[R_BASE];
+    cap = rec[R_OUT_CAP];
+    lt_root = (int)rec[R_LT_ROOT];
+    dt_root = (int)rec[R_DT_ROOT];
+    cq = -1;
+    cw = 0;
+    bp = -1;
+  }
+
+  IS_DEV void store() {
+    if (mode == M_CODED) ensure_tables();
+    if (lane == 0) {
+      if (bp >= 0) {  // the input it consumed: whole bytes leave, the sub-byte stays
+        rec[R_IN_OFF] = bp >> 3;
+        rec[R_BIT_OFF] = bp & 7;
+      }
+      rec[R_MODE] = mode;
+      rec[R_LAST] = last;
+      rec[R_STORED_LEFT] = stored_left;
+      rec[R_OP] = op;
+      rec[R_LT_ROOT] = lt_root;
+      rec[R_DT_ROOT] = dt_root;
+      rec[R_ROOM] = room ? 1 : 0;
+    }
   }
 };
 
-// one handle's pump: load the record, advance, store the record
+// one handle's pump, one warp: load the record, advance, store the record
 IS_DEV void run(long long* rec, uint32_t* tables, const uint8_t* in, uint8_t* out, Scratch* sc,
                 int lane, int lanes) {
   Inflater s;
-  s.rec = rec;
-  s.lt = tables;
-  s.dt = tables + kTCap;
-  s.ct = tables + 2 * kTCap;
-  s.in = in;
-  s.out = out;
-  s.sc = sc;
-  s.lane = lane;
-  s.lanes = lanes;
-  s.mode = (int)rec[R_MODE];
-  s.last = (int)rec[R_LAST];
-  s.stored_left = rec[R_STORED_LEFT];
-  s.op = rec[R_OP];
-  s.base = rec[R_BASE];
-  s.cap = rec[R_OUT_CAP];
-  s.lt_root = (int)rec[R_LT_ROOT];
-  s.dt_root = (int)rec[R_DT_ROOT];
-  s.cq = -1;
-  s.cw = 0;
-  s.bp = -1;
-  s.advance();
+  s.load(rec, tables, in, out, sc, lane, lanes, false);
+  if (s.begin()) s.resume();
   warp_sync();
-  if (lane == 0) {
-    if (s.bp >= 0) {  // the input it consumed: whole bytes leave, the sub-byte stays
-      rec[R_IN_OFF] = s.bp >> 3;
-      rec[R_BIT_OFF] = s.bp & 7;
+  s.store();
+}
+
+// ---------------------------------------------------------------------------
+// the body: a coded block's symbols decoded by the whole block
+// ---------------------------------------------------------------------------
+
+IS_INL void s_or(uint32_t* a, uint32_t v) {
+#ifdef __CUDACC__
+  atomicOr(a, v);
+#else
+  *a |= v;
+#endif
+}
+
+IS_INL void s_min(int* a, int v) {
+#ifdef __CUDACC__
+  atomicMin(a, v);
+#else
+  if (v < *a) *a = v;
+#endif
+}
+
+IS_INL void s_add(int* a, int v) {
+#ifdef __CUDACC__
+  atomicAdd(a, v);
+#else
+  *a += v;
+#endif
+}
+
+IS_INL int pack(int pos, int kind) { return pos * 4 + kind; }
+IS_INL int pos_of(int x) { return x >> 2; }
+IS_INL int kind_of(int x) { return x & 3; }
+
+// 64 bits of the window from relative bit p
+IS_INL uint64_t peek64(const uint32_t* w, int p) {
+  const int i = p >> 5, s = p & 31;
+  uint64_t v = (uint64_t)w[i] | ((uint64_t)w[i + 1] << 32);
+  if (s) v = (v >> s) | ((uint64_t)w[i + 2] << (64 - s));
+  return v;
+}
+
+// the canonical decode of `w` (LSB first) over codes of at most `maxbits`
+// bits: the symbol, or -1; its length in *len
+IS_INL int canon(uint32_t w, int maxbits, const int32_t* cnt, const uint16_t* sorted, int* len) {
+  int code = 0, first = 0, index = 0;
+  for (int l = 1; l <= maxbits; l++) {
+    code |= (int)((w >> (l - 1)) & 1u);
+    const int count = cnt[l];
+    if (code < first + count) {
+      *len = l;
+      return sorted[index + code - first];
     }
-    rec[R_MODE] = s.mode;
-    rec[R_LAST] = s.last;
-    rec[R_STORED_LEFT] = s.stored_left;
-    rec[R_OP] = s.op;
-    rec[R_LT_ROOT] = s.lt_root;
-    rec[R_DT_ROOT] = s.dt_root;
-    rec[R_ROOM] = s.room ? 1 : 0;
+    index += count;
+    first = (first + count) << 1;
+    code <<= 1;
+  }
+  return -1;
+}
+
+// the compact entry for a root index, or for the bits of a long code
+IS_INL uint32_t canon_entry(uint32_t w, int maxbits, int alphabet, const int32_t* cnt,
+                            const uint16_t* sorted) {
+  int len = 0;
+  const int s = canon(w, maxbits, cnt, sorted, &len);
+  if (s >= 0) return sym_entry(alphabet, s, len);
+  return maxbits < 15 ? mk_entry(K_LONG, 0, 0, 0) : mk_entry(K_BAD, 0, 0, 0);
+}
+
+struct Tok {
+  int kind, bits, len, dist, lit;
+};
+
+// the token whose litlen code starts at window bit p
+IS_INL void decode_tok(const Body* b, int p, Tok& t) {
+  const uint64_t w = peek64(b->stage, p);
+  uint32_t e = b->ll[w & ((1u << kLlBits) - 1u)];
+  if ((int)(e >> 28) == K_LONG) e = canon_entry((uint32_t)w, 15, 0, b->cnt_ll, b->sorted);
+  t.kind = (int)(e >> 28);
+  const int nb = (e >> 16) & 0x3f;
+  t.bits = nb;
+  if (t.kind == K_LIT) {
+    t.len = 1;
+    t.lit = e & 0xff;
+    return;
+  }
+  if (t.kind != K_MATCH) return;
+  const int aux = (e >> 22) & 0x3f;
+  t.len = (int)(e & 0xffff) + (int)low_bits((uint32_t)(w >> nb), aux);
+  const uint64_t w2 = w >> (nb + aux);
+  uint32_t de = b->d[w2 & ((1u << kDBits) - 1u)];
+  if ((int)(de >> 28) == K_LONG) de = canon_entry((uint32_t)w2, 15, 1, b->cnt_d, b->sorted + 288);
+  if ((int)(de >> 28) == K_BAD) {
+    t.kind = K_BAD;
+    return;
+  }
+  const int dnb = (de >> 16) & 0x3f, daux = (de >> 22) & 0x3f;
+  t.dist = (int)(de & 0xffff) + (int)low_bits((uint32_t)(w2 >> dnb), daux);
+  t.bits = nb + aux + dnb + daux;
+}
+
+// a walk from litlen start p to the first litlen start at or past `end`,
+// an EOB or a bad symbol. The first pass marks every litlen start it
+// passes; a later walk stops at a marked one with the first pass's exit.
+IS_INL int walk(Body* b, int p, int end, bool mark, int synced) {
+  for (;;) {
+    if (p >= end) return pack(p, X_NEXT);
+    if (mark)
+      s_or(&b->marks[p >> 5], 1u << (p & 31));
+    else if ((b->marks[p >> 5] >> (p & 31)) & 1u)
+      return synced;
+    Tok t;
+    decode_tok(b, p, t);
+    if (t.kind == K_BAD) return pack(p, X_BAD);
+    if (t.kind == K_EOB) return pack(p + t.bits, X_EOB);
+    p += t.bits;
+  }
+}
+
+IS_INL int sub_end(const Body* b, int i, int wlim) {
+  const int e = b->r0 + (i + 1) * b->L;
+  return e < wlim ? e : wlim;
+}
+
+// the compact table from the code lengths the head kept
+IS_DEV void build_lut(Body* b, const uint16_t* lens_in, int tid, int nthr) {
+  for (int i = tid; i < 16; i += nthr) b->cnt_ll[i] = b->cnt_d[i] = 0;
+  for (int s = tid; s < 320; s += nthr) b->lens[s] = lens_in[s];
+  block_sync();
+  for (int s = tid; s < 320; s += nthr)
+    if (b->lens[s]) s_add(s < 288 ? &b->cnt_ll[b->lens[s]] : &b->cnt_d[b->lens[s]], 1);
+  block_sync();
+  for (int s = tid; s < 320; s += nthr) {
+    const int l = b->lens[s];
+    if (!l) continue;
+    const int lo = s < 288 ? 0 : 288;
+    const int32_t* cnt = s < 288 ? b->cnt_ll : b->cnt_d;
+    int at = lo;
+    for (int k = 1; k < l; k++) at += cnt[k];
+    for (int q = lo; q < s; q++) at += b->lens[q] == l;
+    b->sorted[at] = (uint16_t)(s - lo);
+  }
+  block_sync();
+  for (int i = tid; i < (1 << kLlBits); i += nthr)
+    b->ll[i] = canon_entry((uint32_t)i, kLlBits, 0, b->cnt_ll, b->sorted);
+  for (int i = tid; i < (1 << kDBits); i += nthr)
+    b->d[i] = canon_entry((uint32_t)i, kDBits, 1, b->cnt_d, b->sorted + 288);
+  block_sync();
+}
+
+// the exclusive scan of a[0, n) in place (a sub-range's count each); the
+// total in *total
+IS_DEV void scan_counts(Body* b, int32_t* a, int n, int* total, int tid, int nthr) {
+#ifdef __CUDACC__
+  const int lane = tid & 31, wid = tid >> 5;
+  const int v = tid < n ? a[tid] : 0;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) b->wsum[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    const int nw = (nthr + 31) >> 5;
+    int s = lane < nw ? b->wsum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, s, o);
+      if (lane >= o) s += y;
+    }
+    b->wsum[lane] = s;  // inclusive over warps
+    if (lane == 31) *total = s;
+  }
+  __syncthreads();
+  if (tid < n) a[tid] = incl - v + (wid ? b->wsum[wid - 1] : 0);
+  __syncthreads();
+#else
+  (void)b;
+  (void)tid;
+  (void)nthr;
+  int run_ = 0;
+  for (int i = 0; i < n; i++) {
+    const int v = a[i];
+    a[i] = run_;
+    run_ += v;
+  }
+  *total = run_;
+#endif
+}
+
+// the expansion of a window whose sync decode is done: literals and
+// pointers (and the first token the expansion refuses), pointer jumping,
+// the bytes, and the state after the window in b; run by `nthr` threads
+// (tid counts from 0 among them)
+IS_DEV void expand(Body* b, uint8_t* out, int32_t* ptrs, long long* stats, long long w0,
+                   long long wq0, int wlim, int last_sub, int tid, int nthr) {
+  const long long t1 = stats && tid == 0 ? now_ns() : 0;
+  const long long op0 = b->op;
+  const long long q0 = op0 - b->base;  // the window's first byte in out
+  const long long room_left = b->cap - q0;
+  const long long lim = room_left < kPtrCap ? room_left : kPtrCap;
+  uint8_t* wout = out + q0;
+  for (int i = tid; i <= last_sub; i += nthr) {
+    int p = pos_of(b->used[i]);
+    int q = b->cnt[i];
+    const int end = sub_end(b, i, wlim);
+    while (p < end) {
+      Tok t;
+      decode_tok(b, p, t);
+      if (t.kind == K_BAD || t.kind == K_EOB) break;
+      int v = 0;
+      if (t.kind == K_MATCH && (long long)t.dist > op0 + q)
+        v = V_FAR;
+      else if (q + t.len > lim)
+        v = q + t.len > room_left ? V_ROOM : V_WIN;
+      if (v) {
+        b->first[i] = pack(p, v);
+        b->inb[i] = q;
+        s_min(&b->vmin, i);
+        break;
+      }
+      // a literal is a byte now and points at itself; a match byte points
+      // at its source (into the period of a match shorter than its
+      // length), below 0 where that lies before the window: a byte too
+      if (t.kind == K_LIT) {
+        wout[q] = (uint8_t)t.lit;
+        ptrs[q] = q;
+      } else {
+        int r = 0;
+        for (int k = 0; k < t.len; k++) {
+          ptrs[q + k] = q + r - t.dist;
+          if (++r == t.dist) r = 0;
+        }
+      }
+      q += t.len;
+      p += t.bits;
+    }
+  }
+  part_sync(nthr);
+  if (stats && tid == 0) stats[S_NS_WRITE] += now_ns() - t1;
+  // where the window ends
+  int stop, c_stop, why;
+  if (b->vmin != INT_MAX) {
+    const int i = b->vmin;
+    stop = pos_of(b->first[i]);
+    why = kind_of(b->first[i]);
+    c_stop = b->inb[i];
+  } else {
+    const int x = b->cur[last_sub];
+    stop = pos_of(x);
+    why = kind_of(x) == X_EOB ? -1 : kind_of(x) == X_BAD ? V_BAD : 0;
+    c_stop = b->total;
+  }
+  // pointer jumping over the window's output, eight pointers a thread in
+  // flight (the scratch lives in L2)
+  constexpr int U = 8;
+  int jumps = 0;
+  for (;;) {
+    if (tid == 0) b->flag[(jumps + 1) % 3] = 0;
+    int changed = 0;
+    for (int q0_ = tid; q0_ < c_stop; q0_ += U * nthr) {
+      int p[U], pp[U];
+IS_UNROLL
+      for (int u = 0; u < U; u++) {
+        const int q = q0_ + u * nthr;
+        p[u] = q < c_stop ? ptrs[q] : q;
+      }
+IS_UNROLL
+      for (int u = 0; u < U; u++) {
+        const int q = q0_ + u * nthr;
+        pp[u] = p[u] >= 0 && p[u] != q ? ptrs[p[u]] : p[u];
+      }
+IS_UNROLL
+      for (int u = 0; u < U; u++) {
+        const int q = q0_ + u * nthr;
+        if (pp[u] != p[u]) {
+          ptrs[q] = pp[u];
+          changed = 1;
+        }
+      }
+    }
+    if (changed) b->flag[jumps % 3] = 1;
+    part_sync(nthr);
+    const int any = b->flag[jumps % 3];
+    if (!any) break;
+    jumps++;
+  }
+  for (int q0_ = tid; q0_ < c_stop; q0_ += U * nthr) {
+    int p[U];
+IS_UNROLL
+    for (int u = 0; u < U; u++) {
+      const int q = q0_ + u * nthr;
+      p[u] = q < c_stop ? ptrs[q] : q;
+    }
+IS_UNROLL
+    for (int u = 0; u < U; u++) {
+      const int q = q0_ + u * nthr;
+      if (p[u] != q) wout[q] = wout[p[u]];
+    }
+  }
+  part_sync(nthr);
+  if (tid == 0) {
+    b->bp = wq0 * 32 + stop;
+    b->op = op0 + c_stop;
+    if (why == -1) b->mode = b->last ? M_DONE : M_HEAD;
+    if (why == V_FAR || why == V_ROOM || why == V_BAD) b->no_par = 1;  // the head decodes it
+    if (stats) {
+      stats[S_NS_EXPAND] += now_ns() - t1;
+      stats[S_JUMPS] += jumps;
+      if (jumps > stats[S_MAX_JUMPS]) stats[S_MAX_JUMPS] = jumps;
+      stats[S_BODY_OUT] += c_stop;
+      stats[S_BODY_BITS] += b->bp - w0;
+    }
+  }
+}
+
+// one window of a coded body, from the litlen start b->bp: decode it,
+// expand it into out and ptrs, and leave the state after it in b
+IS_DEV bool body(Body* b, Inflater* hs, const uint32_t* inw, long long in_words,
+                 const uint16_t* lens_in, uint8_t* out, int32_t* ptrs, long long* stats, int Larg,
+                 int T, int tid, int nthr) {
+  long long t0 = 0;
+  if (stats && tid == 0) t0 = now_ns();
+  if (b->lut_gen != b->gen) {
+    build_lut(b, lens_in, tid, nthr);
+    if (tid == 0) {
+      b->lut_gen = b->gen;
+      if (stats) stats[S_LUTS]++;
+    }
+  }
+  // the window: word-aligned to 16 bytes, its bits relative to word wq0
+  const long long w0 = b->bp;
+  const long long wq0 = (w0 >> 5) & ~3LL;
+  const int r0 = (int)(w0 - wq0 * 32);
+  long long range = b->nbits - kMargin - w0;
+  const long long room_bits = (long long)kStageWords * 32 - r0;
+  if (range > room_bits) range = room_bits;
+  int L = Larg;
+  if (L <= 0) {
+    const long long want = (range + T - 1) / T;
+    L = want < kLmin ? kLmin : want > kLmax ? kLmax : (int)want;
+  }
+  long long nsub = (range + L - 1) / L;
+  if (nsub > T) nsub = T;
+  const int wlim = r0 + (int)(range < nsub * L ? range : nsub * L);
+  if (tid == 0) {
+    b->L = L;
+    b->r0 = r0;
+  }
+  // stage the window's words (a token from below wlim reads up to 48
+  // bits past it, a peek three words), zero past the buffer
+  const int nstage = ((((wlim + 48) >> 5) + 3) + 3) & ~3;
+#ifdef __CUDACC__
+  for (int j = tid * 4; j < nstage; j += nthr * 4) {
+    if (wq0 + j + 4 <= in_words) {
+      __pipeline_memcpy_async(&b->stage[j], &inw[wq0 + j], 16);
+    } else {
+      for (int k = 0; k < 4; k++) b->stage[j + k] = wq0 + j + k < in_words ? inw[wq0 + j + k] : 0u;
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+#else
+  for (int j = 0; j < nstage; j++) b->stage[j] = wq0 + j < in_words ? inw[wq0 + j] : 0u;
+#endif
+  for (int j = tid; j < nstage; j += nthr) b->marks[j] = 0;
+  if (tid == 0) {
+    b->flag[0] = 0;
+    b->endi[0] = INT_MAX;
+  }
+  block_sync();
+  const int n = (int)nsub;
+  // the first pass
+  for (int i = tid; i < n; i += nthr) {
+    const int s = r0 + i * L;
+    const int x = walk(b, s, sub_end(b, i, wlim), true, 0);
+    b->first[i] = b->cur[i] = x;
+    b->used[i] = pack(s, X_NEXT);
+  }
+  block_sync();
+  // rounds: an entry that changed decodes again until it meets its first
+  // pass. Sub-ranges past the first that ends the block (an EOB or a bad
+  // symbol) wait: their entries come after the block's end.
+  int rounds = 0;
+  for (;;) {
+    if (rounds == kMaxRounds) {
+      if (tid == 0) {  // the lone serial finish
+        int e = n - 1;
+        for (int i = 0; i < n; i++) {
+          const int in_ = i ? b->cur[i - 1] : pack(r0, X_NEXT);
+          if (in_ != b->used[i]) {
+            b->used[i] = in_;
+            b->cur[i] = walk(b, pos_of(in_), sub_end(b, i, wlim), false, b->first[i]);
+          }
+          if (kind_of(b->cur[i]) != X_NEXT) {
+            e = i;
+            break;
+          }
+        }
+        b->last_sub = e;
+        if (stats) stats[S_SERIAL]++;
+      }
+      block_sync();
+      break;
+    }
+    if (tid == 0) {
+      b->flag[(rounds + 1) % 3] = 0;
+      b->endi[(rounds + 1) % 3] = INT_MAX;
+    }
+    for (int i = tid; i < n; i += nthr) {
+      b->inb[i] = i ? b->cur[i - 1] : pack(r0, X_NEXT);
+      if (kind_of(b->cur[i]) != X_NEXT) s_min(&b->endi[rounds % 3], i);
+    }
+    block_sync();
+    const int e = b->endi[rounds % 3];
+    for (int i = tid; i < n && i <= e; i += nthr) {
+      const int in_ = b->inb[i];
+      if (in_ == b->used[i]) continue;
+      b->used[i] = in_;
+      b->cur[i] = walk(b, pos_of(in_), sub_end(b, i, wlim), false, b->first[i]);
+      b->flag[rounds % 3] = 1;
+    }
+    block_sync();
+    const int changed = b->flag[rounds % 3];
+    if (!changed) {
+      if (tid == 0) b->last_sub = e < n ? e : n - 1;
+      block_sync();
+      break;
+    }
+    rounds++;
+  }
+  const int last_sub = b->last_sub;  // the sub-ranges [0, last_sub] hold the window's tokens
+  // each sub-range's confirmed tokens: their output
+  for (int i = tid; i < n; i += nthr) {
+    int c = 0;
+    if (i <= last_sub) {
+      int p = pos_of(b->used[i]);
+      const int end = sub_end(b, i, wlim);
+      while (p < end) {
+        Tok t;
+        decode_tok(b, p, t);
+        if (t.kind == K_BAD || t.kind == K_EOB) break;
+        c += t.len;
+        p += t.bits;
+      }
+    }
+    b->cnt[i] = c;
+  }
+  if (tid == 0) {
+    b->vmin = INT_MAX;
+    b->flag[0] = 0;
+  }
+  block_sync();
+  scan_counts(b, b->cnt, n, &b->total, tid, nthr);
+  if (stats && tid == 0) {  // the sync decode, its count and scan
+    stats[S_NS_SYNC] += now_ns() - t0;
+    stats[S_WINDOWS]++;
+    stats[S_ROUNDS] += rounds;
+    if (rounds > stats[S_MAX_ROUNDS]) stats[S_MAX_ROUNDS] = rounds;
+  }
+  // The window ends at an EOB unless the expansion refuses a token before
+  // it: the head warp parses the next header meanwhile (taken if the
+  // window does end there), and the other warps expand.
+  const int xe = b->cur[last_sub];
+  const bool spec = kind_of(xe) == X_EOB && !b->last;
+  int etid = tid, enthr = nthr;
+#ifdef __CUDACC__
+  if (spec) {
+    etid = tid - 32;
+    enthr = nthr - 32;
+  }
+#endif
+  Inflater::Saved saved = {};
+  if (spec && tid < 32) {
+    const long long ts = stats && tid == 0 ? now_ns() : 0;
+    hs->speculate(wq0 * 32 + pos_of(xe), saved);
+    if (stats && tid == 0) {
+      stats[S_NS_SPEC] += now_ns() - ts;
+      stats[S_SPECS]++;
+    }
+  }
+  if (etid >= 0) expand(b, out, ptrs, stats, w0, wq0, wlim, last_sub, etid, enthr);
+  block_sync();
+  bool taken = false;
+  if (spec && tid < 32) {
+    taken = b->mode == M_HEAD;
+    if (taken)
+      hs->op = b->op;
+    else
+      hs->restore(saved, b->lens);
+  }
+  return taken;
+}
+
+// one handle's pump, the whole block: the head hands bodies and stored
+// spans to the block until it stops
+IS_DEV void run_sync(long long* rec, uint32_t* tables, const uint8_t* in, long long in_words,
+                     uint8_t* out, int32_t* ptrs, long long* stats, int L, int T, Body* b,
+                     Scratch* sc, int tid, int nthr) {
+  const bool head = tid < 32;
+  const int lanes = nthr < 32 ? nthr : 32;
+  Inflater s;
+  if (head) {
+    s.load(rec, tables, in, out, sc, tid, lanes, true);
+    const bool go = s.begin();
+    if (tid == 0) {
+      b->go = go;
+      b->gen = 0;
+      b->lut_gen = -1;
+    }
+  }
+  block_sync();
+  if (b->go) {
+    for (;;) {
+      if (head) {
+        const long long t0 = stats && tid == 0 ? now_ns() : 0;
+        const int a = s.resume();
+        if (tid == 0) {
+          b->action = a;
+          b->bp = s.bp;
+          b->op = s.op;
+          b->nbits = s.nbits;
+          b->base = s.base;
+          b->cap = s.cap;
+          b->mode = s.mode;
+          b->last = s.last;
+          b->no_par = 0;
+          b->gen = s.gen;
+          b->copy_src = s.bp >> 3;
+          b->copy_dst = s.op - s.base;
+          b->copy_len = s.pending;
+          if (stats) {
+            stats[S_NS_HEAD] += now_ns() - t0;
+            if (a == A_COPY) stats[S_COPIES]++;
+          }
+        }
+      }
+      block_sync();
+      const int a = b->action;
+      if (a == A_STOP) break;
+      bool taken = false;  // the head parsed the next header during the expansion
+      if (a == A_COPY) {
+        const uint8_t* src = in + b->copy_src;
+        uint8_t* dst = out + b->copy_dst;
+        for (long long j = tid; j < b->copy_len; j += nthr) dst[j] = src[j];
+      } else {
+        taken = body(b, &s, (const uint32_t*)in, in_words, (const uint16_t*)(tables + kLensOff),
+                     out, ptrs, stats, L, T, tid, nthr);
+      }
+      block_sync();
+      if (head && a == A_BODY && !taken) {
+        s.bp = b->bp;
+        s.op = b->op;
+        s.mode = b->mode;
+        s.no_par = b->no_par != 0;
+      }
+    }
+  }
+  if (head) {
+    warp_sync();
+    s.store();
   }
 }
 
@@ -595,22 +1422,53 @@ istream_advance(long long* __restrict__ rec, uint32_t* __restrict__ tables,
   __shared__ Scratch sc;
   run(rec, tables, in, out, &sc, threadIdx.x, 32);
 }
+
+__global__ void __launch_bounds__(kThreads)
+istream_sync(long long* __restrict__ rec, uint32_t* __restrict__ tables, const uint8_t* in,
+             long long in_words, uint8_t* out, int32_t* ptrs, long long* stats) {
+  __shared__ Scratch sc;
+  extern __shared__ __align__(16) unsigned char body_smem[];
+  run_sync(rec, tables, in, in_words, out, ptrs, stats, 0, kThreads, (Body*)body_smem, &sc,
+           threadIdx.x, kThreads);
+}
 #endif
 
 }  // namespace
 
-// uint32 words of a handle's tables; the record's length in int64
+// uint32 words of a handle's tables; the record's length in int64; the
+// block's pointer scratch in int32 and its stats in int64
 extern "C" long long zrs_istream_table_words() { return kTableWords; }
 extern "C" long long zrs_istream_record_len() { return kRec; }
+extern "C" long long zrs_istream_scratch_words() { return kPtrCap; }
+extern "C" long long zrs_istream_stats_len() { return kStats; }
 
 #ifdef __CUDACC__
-// IS on one handle: rec int64 [kRec], tables uint32 [kTableWords], the
-// input buffer (its capacity a multiple of 4, 8 zero bytes past R_IN_END)
-// and the output buffer (R_OUT_CAP bytes from absolute R_BASE)
+// IS on one handle, one warp: rec int64 [kRec], tables uint32
+// [kTableWords], the input buffer (its capacity a multiple of 4, 8 zero
+// bytes past R_IN_END) and the output buffer (R_OUT_CAP bytes from
+// absolute R_BASE)
 extern "C" int zrs_istream_advance(void* rec, void* tables, const void* in, void* out,
                                    void* stream) {
   istream_advance<<<1, 32, 0, (cudaStream_t)stream>>>(
       (long long*)rec, (uint32_t*)tables, (const uint8_t*)in, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// IS on one handle, one block: the same state, the input buffer's words
+// (16-byte aligned), the pointer scratch int32 [kPtrCap] and stats int64
+// [kStats] or null
+extern "C" int zrs_istream_sync(void* rec, void* tables, const void* in, long long in_words,
+                                void* out, void* ptrs, void* stats, void* stream) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        istream_sync, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Body));
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  istream_sync<<<1, kThreads, sizeof(Body), (cudaStream_t)stream>>>(
+      (long long*)rec, (uint32_t*)tables, (const uint8_t*)in, in_words, (uint8_t*)out,
+      (int32_t*)ptrs, (long long*)stats);
   return (int)cudaGetLastError();
 }
 #else
@@ -619,6 +1477,18 @@ extern "C" int zrs_istream_advance(void* rec, void* tables, const void* in, void
 extern "C" int zrs_istream_advance_host(void* rec, void* tables, const void* in, void* out) {
   static Scratch sc;
   run((long long*)rec, (uint32_t*)tables, (const uint8_t*)in, (uint8_t*)out, &sc, 0, 1);
+  return 0;
+}
+
+// the block's launch on the host, its T threads in turn, sub-ranges of L
+// bits (0: the card's adaptive L)
+extern "C" int zrs_istream_sync_host(void* rec, void* tables, const void* in, long long in_words,
+                                     void* out, void* ptrs, void* stats, int L, int T) {
+  static Scratch sc;
+  static Body b;
+  if (T < 1 || T > kThreads || L < 0 || L > kStageWords * 8) return 1;
+  run_sync((long long*)rec, (uint32_t*)tables, (const uint8_t*)in, in_words, (uint8_t*)out,
+           (int32_t*)ptrs, (long long*)stats, L, T, &b, &sc, 0, 1);
   return 0;
 }
 #endif

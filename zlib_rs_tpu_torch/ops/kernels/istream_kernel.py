@@ -12,25 +12,31 @@ keeps one stream's state in device memory between pumps:
   position, a preset dictionary included), base (the absolute position
   of the output buffer's byte 0), the output buffer's capacity, the two
   tables' roots and the room flag of the last launch;
-- the current block's decode tables, uint32 [TABLE_WORDS] (litlen,
-  distance, code lengths; native's layout);
+- the current block's decode tables, uint32 [TABLE_WORDS]: litlen and
+  distance in native's layout, then the block's code lengths (uint16
+  [320] from word LENS_OFF: litlen [0, 288), distance [288, 320)), from
+  which the kernel's body builds its own table;
 - the input buffer, uint8: the bytes not yet consumed, 8 zero bytes past
   their end;
 - the output buffer, uint8: the 32 KiB window behind op and every byte
   not yet served.
 
 A pump (native's `zrs_istream_pump`) appends its input (one host-to-device
-copy), advances (one launch; more where the output room ran out, each
-after the room was grown), and serves up to `cap` bytes of [served, op)
-(one device-to-host copy), with native's flags: 1 done (the final block
-decoded and all of it served), 2 data error, 4 more output pending.
-`take_tail`, `total_out`, `at_boundary`, `set_dict` and `copy` are
-native's. The record crosses to the device before each launch and back
-after it.
+copy), advances (one launch of the whole-block decoder, `zrs_istream_sync`;
+more where the output room ran out, each after the room was grown), and
+serves up to `cap` bytes of [served, op) (one device-to-host copy), with
+native's flags: 1 done (the final block decoded and all of it served), 2
+data error, 4 more output pending. `take_tail`, `total_out`,
+`at_boundary`, `set_dict` and `copy` are native's. The record crosses to
+the device before each launch and back after it.
 
-`advance_plain` is the kernel's control flow in Python over the same
-state (numpy views of CPU tensors); `advance` runs it for a CPU handle
-and launches the kernel for a CUDA one. Nothing falls back.
+`advance_plain` is native's control flow in Python over the same state
+(numpy views of CPU tensors): the kernel computes the same function of
+the record, tables and buffers. `advance` runs it for a CPU handle and
+launches the kernel for a CUDA one. Nothing falls back. `_fn_warp` is the
+one-warp decoder's entry (`zrs_istream_advance`), whose control flow the
+kernel's head and tail still run: no route of the handle, only the probes
+launch it, to time the two on the same state.
 """
 
 from __future__ import annotations
@@ -42,12 +48,19 @@ import torch
 
 from ... import _device
 
-# launches of the CUDA kernel; the plain version does not count
+# launches of the CUDA kernel (the whole-block decoder); the plain version
+# and the one-warp launch do not count
 launches = {"istream": 0}
 
 WSIZE = 32768
 TCAP = 32768  # entries a table (kTCap)
-TABLE_WORDS = 2 * TCAP + 128  # litlen, distance, code lengths (kTableWords)
+LENS_OFF = 2 * TCAP  # the block's code lengths, uint16 [320] (kLensOff)
+TABLE_WORDS = LENS_OFF + 160  # litlen, distance, the code lengths (kTableWords)
+SCRATCH = 1 << 18  # the kernel's pointer scratch, int32 (kPtrCap)
+STATS = 16  # the kernel's counters, int64 (kStats), where a probe passes them
+STAT_NAMES = ("windows", "sync_rounds", "max_sync_rounds", "serial_finishes", "jump_rounds",
+              "max_jump_rounds", "ns_head", "ns_sync", "ns_expand", "block_copies", "body_out",
+              "body_bits", "tables", "ns_write", "ns_spec", "specs")
 REC = 16
 (R_MODE, R_LAST, R_STORED_LEFT, R_IN_OFF, R_IN_END, R_BIT_OFF, R_OP, R_BASE,
  R_OUT_CAP, R_LT_ROOT, R_DT_ROOT, R_ROOM) = range(12)
@@ -165,6 +178,7 @@ class _Plain:
         self.lt = tables[:TCAP].tolist()
         self.dt = tables[TCAP : 2 * TCAP].tolist()
         self.new_tables = False
+        self.lens = None
         self.room = False
         self.bp = -1
 
@@ -172,67 +186,69 @@ class _Plain:
         i = self.bp >> 3
         return int.from_bytes(self.inb[i : i + 5], "little") >> (self.bp & 7)
 
-    def set_tables(self, lt, dt) -> None:
+    def set_tables(self, lt, dt, ll_lens, d_lens) -> None:
         self.lt, self.lt_root = lt
         self.dt, self.dt_root = dt
+        self.lens = (list(ll_lens) + [0] * 288)[:288] + (list(d_lens) + [0] * 32)[:32]
         self.new_tables = True
 
     def parse_dynamic(self):
-        """Native parse_dynamic_tables: (0 | -1 | -3, litlen, distance)."""
+        """Native parse_dynamic_tables: (0 | -1 | -3, litlen, distance,
+        code lengths)."""
         if self.nbits - self.bp < 14:
-            return -3, None, None
+            return -3, None, None, None
         h = self.peek()
         nlen, ndist, ncode = (h & 31) + 257, ((h >> 5) & 31) + 1, ((h >> 10) & 15) + 4
         self.bp += 14
         if nlen > 286 or ndist > 30:
-            return -1, None, None
+            return -1, None, None, None
         cl = [0] * 19
         for i in range(ncode):
             if self.nbits - self.bp < 3:
-                return -3, None, None
+                return -3, None, None, None
             cl[CL_ORDER[i]] = self.peek() & 7
             self.bp += 3
         ct = build_table(2, cl, 7)
         if ct is None:
-            return -1, None, None
+            return -1, None, None, None
         ct, ct_root = ct
         total = nlen + ndist
         lens = []
         while len(lens) < total:
             if self.nbits - self.bp < 7:
-                return -3, None, None
+                return -3, None, None, None
             w = self.peek()
             e = ct[w & ((1 << ct_root) - 1)]
             nb, sym = (e >> 16) & 0x3F, e & 0xFFFF
             if self.nbits - self.bp < nb:
-                return -3, None, None
+                return -3, None, None, None
             if sym < 16:
                 self.bp += nb
                 lens.append(sym)
                 continue
             extra = 2 if sym == 16 else 3 if sym == 17 else 7
             if self.nbits - self.bp < nb + extra:
-                return -3, None, None
+                return -3, None, None, None
             self.bp += nb + extra
             v = (w >> nb) & ((1 << extra) - 1)
             if sym == 16:
                 if not lens:
-                    return -1, None, None
+                    return -1, None, None, None
                 rep, fill = 3 + v, lens[-1]
             else:
                 rep, fill = (3 if sym == 17 else 11) + v, 0
             if len(lens) + rep > total:
-                return -1, None, None
+                return -1, None, None, None
             lens.extend([fill] * rep)
         if lens[256] == 0:
-            return -1, None, None
+            return -1, None, None, None
         lt = build_table(0, lens[:nlen], 10)
         if lt is None:
-            return -1, None, None
+            return -1, None, None, None
         dt = build_table(1, lens[nlen:], 9)
         if dt is None:
-            return -1, None, None
-        return 0, lt, dt
+            return -1, None, None, None
+        return 0, lt, dt, (lens[:nlen], lens[nlen:])
 
     def advance(self) -> None:
         rec = self.rec
@@ -267,17 +283,18 @@ class _Plain:
                         break
                     self.last, self.stored_left, self.mode = fin, v & 0xFFFF, M_STORED
                 elif typ == 1:
-                    self.set_tables(build_table(0, _FIXED_LIT, 9), build_table(1, [5] * 32, 5))
+                    self.set_tables(build_table(0, _FIXED_LIT, 9), build_table(1, [5] * 32, 5),
+                                    _FIXED_LIT, [5] * 32)
                     self.last, self.mode = fin, M_CODED
                 else:
-                    perr, lt, dt = self.parse_dynamic()
+                    perr, lt, dt, lens = self.parse_dynamic()
                     if perr == -3:
                         self.bp = sv
                         break
                     if perr:
                         self.mode = M_ERR
                         break
-                    self.set_tables(lt, dt)
+                    self.set_tables(lt, dt, *lens)
                     self.last, self.mode = fin, M_CODED
             elif self.mode == M_STORED:
                 have = (self.nbits - self.bp) >> 3
@@ -391,6 +408,7 @@ class _Plain:
         if self.new_tables:
             self.tables[: len(self.lt)] = self.lt
             self.tables[TCAP : TCAP + len(self.dt)] = self.dt
+            self.tables[LENS_OFF:TABLE_WORDS].view(np.uint16)[:] = self.lens
 
 
 def advance_plain(rec: np.ndarray, tables, inbuf, outbuf) -> None:
@@ -409,6 +427,14 @@ _P = ctypes.c_void_p
 
 
 def _fn():
+    fn = _device.library("istream").zrs_istream_sync
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _fn_warp():
     fn = _device.library("istream").zrs_istream_advance
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _P, _P, _P]
@@ -416,20 +442,28 @@ def _fn():
     return fn
 
 
-def advance_cuda(rec: np.ndarray, tables, inbuf, outbuf, rec_dev) -> None:
-    """One IS launch over CUDA state; the record crosses both ways
-    through `rec_dev` (int64 [REC] on the device)."""
+def advance_cuda(rec: np.ndarray, tables, inbuf, outbuf, rec_dev, scratch=None) -> None:
+    """One IS launch over CUDA state, the whole-block decoder; the record
+    crosses both ways through `rec_dev` (int64 [REC] on the device).
+    `scratch` is its pointer scratch in device memory (int32 [SCRATCH],
+    made here where not given)."""
     _device.require_cuda("istream", tables, inbuf, outbuf, rec_dev)
     if tables.dtype != torch.int32 or tables.numel() != TABLE_WORDS:
         raise ValueError(f"istream: tables must be int32 [{TABLE_WORDS}]")
-    if inbuf.numel() % 4 or inbuf.numel() < int(rec[R_IN_END]) + PAD:
+    if inbuf.numel() % 4 or inbuf.numel() < int(rec[R_IN_END]) + PAD or inbuf.data_ptr() % 16:
         raise ValueError("istream: the input buffer must hold its bytes, 8 zero bytes and "
-                         "a whole number of words")
+                         "a whole number of words, from a 16-byte boundary")
     if outbuf.numel() < int(rec[R_OUT_CAP]):
         raise ValueError("istream: the output buffer is smaller than its capacity")
+    if scratch is None:
+        scratch = torch.empty(SCRATCH, dtype=torch.int32, device=tables.device)
+    _device.require_cuda("istream", tables, scratch)
+    if scratch.dtype != torch.int32 or scratch.numel() < SCRATCH:
+        raise ValueError(f"istream: the scratch must be int32 [{SCRATCH}]")
     rec_dev.copy_(torch.from_numpy(rec))
     rc = _fn()(_device.ptr(rec_dev), _device.ptr(tables), _device.ptr(inbuf),
-               _device.ptr(outbuf), _device.stream_of(tables))
+               inbuf.numel() // 4, _device.ptr(outbuf), _device.ptr(scratch), None,
+               _device.stream_of(tables))
     _device.check(rc, "istream")
     launches["istream"] += 1
     rec[:] = rec_dev.cpu().numpy()
@@ -450,6 +484,7 @@ class Handle:
         self.rec_dev = torch.zeros(REC, dtype=torch.int64, device=dev) if dev.type == "cuda" \
             else None
         self.tables = torch.zeros(TABLE_WORDS, dtype=torch.int32, device=dev)
+        self.scratch = None  # the kernel's pointer scratch, made at the first launch
         self.inbuf = torch.zeros(1 << 12, dtype=torch.uint8, device=dev)
         self.outbuf = torch.zeros(MIN_ROOM, dtype=torch.uint8, device=dev)
         self.rec[R_OUT_CAP] = MIN_ROOM
@@ -514,8 +549,10 @@ class Handle:
         self.fresh = False
         self._compact()
         self._room(max(MIN_ROOM, 4 * int(rec[R_IN_END] - rec[R_IN_OFF])))
+        if self.scratch is None and self.device.type == "cuda":
+            self.scratch = torch.empty(SCRATCH, dtype=torch.int32, device=self.device)
         while True:
-            advance(rec, self.tables, self.inbuf, self.outbuf, self.rec_dev)
+            advance(rec, self.tables, self.inbuf, self.outbuf, self.rec_dev, self.scratch)
             if not rec[R_ROOM]:
                 break
             self._room(int(rec[R_OUT_CAP]))  # twice the room
@@ -575,12 +612,13 @@ class Handle:
         c.tables = self.tables.clone()
         c.inbuf = self.inbuf.clone()
         c.outbuf = self.outbuf.clone()
+        c.scratch = None
         return c
 
 
-def advance(rec: np.ndarray, tables, inbuf, outbuf, rec_dev=None) -> None:
+def advance(rec: np.ndarray, tables, inbuf, outbuf, rec_dev=None, scratch=None) -> None:
     """IS: the plain version for CPU state, the kernel for CUDA state."""
     if tables.device.type == "cpu":
         advance_plain(rec, tables, inbuf, outbuf)
     else:
-        advance_cuda(rec, tables, inbuf, outbuf, rec_dev)
+        advance_cuda(rec, tables, inbuf, outbuf, rec_dev, scratch)
