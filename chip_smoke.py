@@ -106,10 +106,13 @@ level-6 stream under the mesh equal to its unsharded one,
 walker kernel, byte-exact, and `graft_entry.dryrun_multichip(1)` (phase
 39, run before the bench); the speculative decode of an unindexed stream
 (csrc/speculative.cu): SP1 (the block finder) on every segment of the
-corpus's level-6 raw stream, SP2 (the marker decode) on its segments
-and on crafted rows of the stored, Z_FIXED and a flipped stream, and SP3
+corpus's level-6 raw stream, SP2 (the marker decode, a thread block a
+row) on its segments, on crafted rows of the stored, Z_FIXED and a
+flipped stream and on its design's edge rows (sp2_edge_rows), and SP3
 (the marker resolve) on the whole chain, each against its plain version
-at max abs err 0, then `inflate_speculative` of the corpus as raw deflate
+at max abs err 0 (SP2's crafted and edge rows also against the one-warp
+launch it replaced, which is timed against it over the segments and
+the exact row of the whole stream, in the same call), then `inflate_speculative` of the corpus as raw deflate
 at levels 1, 6 and 9, under Z_FIXED, stored, as a zlib body and as 64
 MiB (the corpus 8 times), each back to its input with its segments,
 chain misses and each kernel's event ms, and a stream of more than 2^28
@@ -2554,19 +2557,30 @@ def speculative_streams(corpus: bytes) -> dict:
     }
 
 
-def sp2_pairs(torch, SK, SP, dev, stream: bytes, rows_sp, pick) -> tuple[list, dict]:
+def sp2_meta(SP, rows, nbits: int, rec_cap=None):
+    """SP.row_meta, each row's block-start list cut to `rec_cap` where given."""
+    meta, nc, nr = SP.row_meta(rows, nbits)
+    if rec_cap is not None:
+        meta[:, 6] = meta[:, 6].clip(max=rec_cap)
+    return meta, nc, nr
+
+
+def sp2_pairs(torch, SK, SP, dev, stream: bytes, rows_sp, pick, rec_cap=None,
+              warp: bool = False) -> tuple[list, dict]:
     """SP2 on rows of one stream: the kernel over every row (the main
     path's launch), the plain version over the rows `pick`, and the
     kernel over those rows alone; pairs of every status value and of each
     picked row's written cells and recorded block starts (the kernel
     leaves the rest of its buffers unwritten), and the statuses' why
-    counts."""
+    counts. `warp` adds the one-warp launch over every row, each row's
+    status, cells and records paired with the block launch's."""
     nbits = 8 * len(stream)
     words = torch.from_numpy(SK.stream_words(stream)).to(dev)
-    meta, nc, nr = SP.row_meta(rows_sp, nbits)
-    full = SK.spec_decode_cuda(words, nbits, torch.from_numpy(meta).to(dev), nc, nr)
+    meta, nc, nr = sp2_meta(SP, rows_sp, nbits, rec_cap)
+    mt = torch.from_numpy(meta).to(dev)
+    full = SK.spec_decode_cuda(words, nbits, mt, nc, nr)
     sub = [rows_sp[i] for i in pick]
-    smeta, snc, snr = SP.row_meta(sub, nbits)
+    smeta, snc, snr = sp2_meta(SP, sub, nbits, rec_cap)
     sm = torch.from_numpy(smeta).to(dev)
     plain = SK.spec_decode_plain(words, nbits, sm, snc, snr)
     alone = SK.spec_decode_cuda(words, nbits, sm, snc, snr)
@@ -2579,10 +2593,56 @@ def sp2_pairs(torch, SK, SP, dev, stream: bytes, rows_sp, pick) -> tuple[list, d
         for got, c0, r0 in ((full, int(meta[i, 4]), int(meta[i, 5])), (alone, d0, dr0)):
             pairs += [(got[0][c0 : c0 + n], want[0]), (got[1][r0 : r0 + nrec], want[1])]
         pairs.append((full[2][i], plain[2][j]))
+    if warp:
+        wp = SK.spec_decode_warp_cuda(words, nbits, mt, nc, nr)
+        fst = full[2].cpu()
+        pairs.append((full[2], wp[2]))
+        for i in range(len(rows_sp)):
+            n, nrec = int(fst[i, 0]), int(fst[i, 5])
+            c0, r0 = int(meta[i, 4]), int(meta[i, 5])
+            pairs += [(full[0][c0 : c0 + n], wp[0][c0 : c0 + n]),
+                      (full[1][r0 : r0 + nrec], wp[1][r0 : r0 + nrec])]
     why = {}
     for w in full[2][:, 3].tolist():
         why[w] = why.get(w, 0) + 1
     return pairs, why
+
+
+def sp2_edge_rows(torch, SK, SP, corpus: bytes) -> list:
+    """SP2's design edges as (label, stream, rows, rec_cap), each coded
+    body long enough for the block: a fixed block of 1,500 runs (258,
+    distance 1) right at a row's start (every cell a marker of back 1);
+    a stream that needs a dictionary, exact (hist 0 and 100: a reference
+    too far back) and guessed; 3,000 literals then 500 (3, 1) matches in
+    rooms that overflow on a literal, on a match, and fit; small blocks
+    (memLevel 1) from block starts with stops inside a block and on the
+    next start, and with record lists of 0, 1 and 3; byte cuts inside a
+    symbol, a dynamic header and a stored block."""
+    w = BitWriter().fixed_block([65] * 40, 0)
+    b = 8 * len(w.out) + w.n
+    runs = w.fixed_block([(258, 1)] * 1500 + [65], 1).done()
+    far = _raw(corpus[:6000], 6, zdict=corpus[-32768:])
+    room = BitWriter().fixed_block([65] * 3000 + [(3, 1)] * 500, 1).done()
+    small = _raw(corpus[:64_000], 6, mem=1)
+    N = 8 * len(small)
+    meta, nc, nr = SP.row_meta([(0, N + 1, 1 << 20, 0)], N)
+    _c, recs, st = SK.spec_decode_plain(torch.from_numpy(SK.stream_words(small)), N,
+                                        torch.from_numpy(meta), nc, nr)
+    starts = recs[: int(st[0, 5]), 0].tolist()
+    a, nxt = starts[5], starts[6]
+    stored = _raw(corpus[:200_000], 0)
+    out = [("runs", runs, [(b, 8 * len(runs) + 1, 1 << 20, SK.WSIZE),
+                           (0, 8 * len(runs) + 1, 1 << 20, 0)], None),
+           ("far", far, [(0, 8 * len(far) + 1, 1 << 20, h) for h in (0, 100, SK.WSIZE)], None),
+           ("room", room, [(0, 8 * len(room) + 1, c, 0) for c in (1000, 3001, 4499, 4500)], None),
+           ("stops", small, [(a, nxt - 5, 1 << 20, SK.WSIZE), (a, nxt, 1 << 20, SK.WSIZE),
+                             (a, nxt + 1, 1 << 20, SK.WSIZE), (0, a + 1, 1 << 20, 0)], None)]
+    out += [(f"records {k}", small, [(0, N + 1, 1 << 20, 0), (a, N + 1, 1 << 20, SK.WSIZE)], k)
+            for k in (0, 1, 3)]
+    for cut in (len(small) // 2, starts[7] // 8 + 20, len(small) - 3):
+        out.append((f"cut {cut}", small[:cut], [(0, 8 * cut + 1, 1 << 20, 0)], None))
+    out.append(("cut stored", stored[:100_000], [(0, 800_001, 1 << 20, 0)], None))
+    return out
 
 
 def speculative_phase(torch, dev, corpus, rows) -> dict:
@@ -2653,7 +2713,12 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
         g2 = SK.block_find_cuda(w2, n2, l2, l2 + 8 * seg).tolist()
         r2 = [(0, 8 * seg, cap, 0), (g2[0], 16 * seg, cap if g2[0] >= 0 else 0, SK.WSIZE),
               (g2[1], 24 * seg, 16 if g2[1] >= 0 else 0, SK.WSIZE), (-1, n2, 0, SK.WSIZE)] + extra
-        p2, w = sp2_pairs(torch, SK, SP, dev, stream, r2, list(range(len(r2))))
+        p2, w = sp2_pairs(torch, SK, SP, dev, stream, r2, list(range(len(r2))), warp=True)
+        pairs2 += p2
+        crafted[name] = w
+    for name, stream, r2, rec_cap in sp2_edge_rows(torch, SK, SP, corpus):
+        p2, w = sp2_pairs(torch, SK, SP, dev, stream, r2, list(range(len(r2))), rec_cap,
+                          warp=True)
         pairs2 += p2
         crafted[name] = w
     err2 = max_abs(pairs2)
@@ -2661,9 +2726,27 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
         raise AssertionError(f"SP2 disagrees with its plain version: max abs err {err2}")
     meta, nc, nr = SP.row_meta(rows_sp, nbits)
     meta_t = torch.from_numpy(meta).to(dev)
-    ms2 = event_ms(torch, lambda: SK.spec_decode_cuda(words, nbits, meta_t, nc, nr), 3)
-    st_full = SK.spec_decode_cuda(words, nbits, meta_t, nc, nr)[2].cpu()
+    # the block launch against the one-warp launch it replaced, in turn
+    sp2_fns = {"block": lambda: SK.spec_decode_cuda(words, nbits, meta_t, nc, nr),
+               "warp": lambda: SK.spec_decode_warp_cuda(words, nbits, meta_t, nc, nr)}
+    sp2_ms = {"block": [], "warp": []}
+    for who in ("block", "warp", "warp", "block"):
+        sp2_ms[who].append(event_ms(torch, sp2_fns[who], 3))
+    ms2, warp2 = (sum(sp2_ms[k]) / 2 for k in ("block", "warp"))
+    sp2_stats = {}
+    st_full = SK.spec_decode_cuda(words, nbits, meta_t, nc, nr, stats=sp2_stats)[2].cpu()
     cells_written, n_recs = int(st_full[:, 0].sum()), int(st_full[:, 5].sum())
+    # the exact row of the whole stream (inflate_raw's launch), both launches
+    emeta, enc, enr = SP.row_meta([(0, nbits + 1, 4 * len(corpus), 0)], nbits)
+    em = torch.from_numpy(emeta).to(dev)
+    exact, exact_ms = {}, {}
+    for who, fn in (("block", SK.spec_decode_cuda), ("warp", SK.spec_decode_warp_cuda)):
+        exact_ms[who] = event_ms(torch, lambda fn=fn: fn(words, nbits, em, enc, enr), 1)
+        exact[who] = fn(words, nbits, em, enc, enr)
+    got_exact = exact["block"][0][: len(corpus)].cpu().numpy().astype("u1").tobytes()
+    if (not torch.equal(exact["block"][2], exact["warp"][2]) or int(exact["block"][2][0, 0])
+            != len(corpus) or got_exact != corpus):
+        raise AssertionError("SP2's exact row is not the corpus or not the one-warp launch's")
     sub_meta = SP.row_meta([rows_sp[i] for i in pick], nbits)
     sm_t = torch.from_numpy(sub_meta[0]).to(dev)
     _p, plain2_ms = timed_ms(torch, lambda: SK.spec_decode_plain(words, nbits, sm_t,
@@ -2685,7 +2768,13 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     rows["spec_decode"] = dict(
         source="zlib_rs_tpu_torch/csrc/speculative.cu",
         replaces="native/zrs_native.cpp:1798",
-        max_abs_err=err2, ms=ms2, plain_ms=plain2_ms, plain_rows=len(pick),
+        max_abs_err=err2, ms=ms2, plain_ms=plain2_ms, plain_rows=len(pick), warp_ms=warp2,
+        windows=sp2_stats["windows"], sync_rounds=sp2_stats["sync_rounds"],
+        max_sync_rounds=sp2_stats["max_sync_rounds"], jump_rounds=sp2_stats["jump_rounds"],
+        serial_finishes=sp2_stats["serial_finishes"],
+        head_ms=sp2_stats["ns_head"] / 1e6, sync_ms=sp2_stats["ns_sync"] / 1e6,
+        expand_ms=sp2_stats["ns_expand"] / 1e6, exact_ms=exact_ms["block"],
+        exact_warp_ms=exact_ms["warp"],
         # bytes: the stream read once, each cell this run's segments decode
         # written once (2 bytes), each block start (8) and each segment's
         # meta and status (96)
@@ -2698,6 +2787,11 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
         # bytes: each cell read once and each byte written once
         bnd=bound(3 * total + 8 * (len(chain) + 1), 0),
     )
+    print(f"phase 40 SP2: the block launch over the {T} rows {sp2_ms['block']} ms against the "
+          f"one-warp launch's {sp2_ms['warp']} in turn; the exact row of the stream "
+          f"{exact_ms['block']:.3f} ms against {exact_ms['warp']:.3f} ({len(corpus)} cells, equal); "
+          f"the block's counters over the rows (blocks' ns summed) " + json.dumps(sp2_stats),
+          flush=True)
     print(f"phase 40 SP1-SP3: {T} segments of {seg} bytes of the {len(raw)}-byte raw-6 stream; "
           f"SP1 equal to plain on every segment and 16 of the stored and Z_FIXED streams "
           f"({sum(x >= 0 for x in starts[1:])} guesses); SP2 equal to plain on rows {pick} "
@@ -5012,7 +5106,8 @@ def main() -> int:
                                  "rounds", "live_share", "level1_launches", "warp_ms",
                                  "head_ms", "sync_ms", "expand_ms", "spec_ms", "windows",
                                  "sync_rounds",
-                                 "max_sync_rounds", "jump_rounds", "serial_finishes")
+                                 "max_sync_rounds", "jump_rounds", "serial_finishes", "exact_ms",
+                                 "exact_warp_ms")
                        if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

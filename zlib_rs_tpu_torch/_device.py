@@ -8,14 +8,16 @@ use each source is compiled by `nvcc` for `sm_90a` into its own shared
 library under `build/zlib_rs_tpu_torch/` (beside the package, listed in
 `.gitignore`) and loaded with `ctypes`. All missing libraries are built
 in parallel, one `nvcc` process per source. A library is rebuilt when its
-source is newer. Every C entry returns `cudaGetLastError()` after its
-launch; `check` raises on anything but 0.
+source, or a header of `csrc/` that the source includes, is newer. Every
+C entry returns `cudaGetLastError()` after its launch; `check` raises on
+anything but 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -64,10 +66,16 @@ def lib_path(name: str) -> Path:
     return BUILD / f"libzrs_{name}.so"
 
 
+def _sources_of(name: str) -> list:
+    """csrc/<name>.cu and the headers of csrc it includes."""
+    src = CSRC / f"{name}.cu"
+    return [src] + [CSRC / h for h in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)]
+
+
 def _stale(name: str) -> bool:
     lib = lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime
+                                                          for p in _sources_of(name))
 
 
 def build(names=SOURCES) -> float:

@@ -290,8 +290,8 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 def kernel_symbols() -> dict:
     """{"zrs_<source>": the __global__ functions of csrc/<source>.cu} for
     every source of `_device.SOURCES`, a tuple each; speculative.cu holds
-    SP1-SP3's six, exact_deflate.cu EX's and DS's seven, every other source
-    one."""
+    SP1-SP3's seven, exact_deflate.cu EX's and DS's seven, istream.cu IS's
+    two, every other source one."""
     out = {}
     for name in _device.SOURCES:
         text = (_device.CSRC / f"{name}.cu").read_text()

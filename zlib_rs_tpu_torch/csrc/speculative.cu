@@ -5,7 +5,9 @@
 // inflate_speculative and zran_index over native/zrs_native.cpp):
 //   zrs_block_find   SP1, validate_header_at / find_candidate (depth 6)
 //   zrs_spec_decode  SP2, spec_decode with inflate_raw_impl's error codes
-//                    and its stop and point hooks
+//                    and its stop and point hooks (a thread block a row;
+//                    zrs_spec_decode_warp, the one-warp launch it
+//                    replaced, stays to be timed against it)
 //   zrs_spec_resolve SP3, the stitch: markers resolved, cells to bytes
 // ops/kernels/speculative_kernel.py holds each one's plain version, whose
 // control flow these kernels follow step for step, and the wrappers.
@@ -13,11 +15,10 @@
 // Bounds on the H100. SP1 reads the compressed stream and writes a few
 // ints a segment: its byte bound is microseconds for megabytes, and its
 // work is a test at every bit offset of the searched ranges, most of which
-// fail within 17 bits. SP2 is one serial chain a segment, as K6 is (a
-// code's length decides where the next starts): its floor is the longest
-// segment's symbols times the latency of a table lookup and a store, not
-// bytes. SP3 moves bytes: cells in, pointers through log2(segments) rounds,
-// bytes out.
+// fail within 17 bits. SP2 moves the stream in and 2 bytes a cell out; a
+// row is one serial chain (a code's length decides where the next
+// starts), which its design breaks inside each coded block. SP3 moves
+// bytes: cells in, pointers through log2(segments) rounds, bytes out.
 //
 // Design.
 // - Stream bit positions are 64-bit everywhere: SP1's ranges, survivors and
@@ -39,24 +40,33 @@
 //   offset. A survivor beyond its segment's best so far exits early. So a
 //   warp of pass 2 is 32 survivors, not the rare survivor among 31 idle
 //   lanes that a one-pass scan would make it.
-// - SP2 is one block of one warp a segment. The warp runs the native
-//   decoder's control flow, all lanes on the same values (K6's decode
-//   warp): a 64-bit reservoir of the compressed words, K6's two-level
-//   tables in shared memory built by the whole warp, with native's
-//   acceptance rules (an incomplete code of one symbol, and an empty
-//   distance code, pass), and every native error check in native's order,
-//   so that an exact decode gives native's -1, -2 or -3 where native
-//   would. Cells are u16 and go straight to the segment's row in device
-//   memory (K6's shared ring of bytes would be one of 128 KiB cells, one
-//   block an SM; a row per warp keeps ~26 blocks an SM resident instead):
-//   a literal is one store by every lane to the same cell, so each lane
-//   later reads its own store; a stored span, a run of markers and a match
-//   are copied a lane a cell, 32 a step, K6's three match cases (a run of
-//   one cell, sources before the step, a period under 32), with a
-//   __syncwarp between steps. A reference back past the segment's start
-//   writes markers 256 + back - 1, and a copy of a marker copies it. Every
-//   block start is recorded as (bit, cell offset) below a capacity the
-//   host sizes at one record per 10 bits (the shortest block).
+// - SP2 is a thread block of 1,024 a row (spec_sync), over the body that
+//   IS decodes its coded blocks with (sync_body.cuh): a persistent grid of
+//   as many blocks as are resident, each taking the next row from an
+//   atomic counter, the longest first (a row's bit span), each with a
+//   pointer scratch of kPtrCap int32 in device memory. Warp 0 is the head
+//   (SpecHead): native spec_decode's control flow, all lanes on the same
+//   values, for the row's start, every block header (the stop rule, the
+//   record or the overflow flag, fixed code lengths, the dynamic header
+//   with native's acceptance), stored blocks (copied by the whole block
+//   from 256 bytes) and every symbol within kMargin + kMinBody bits of the
+//   stream's end. Each coded body with more bits left goes to the block:
+//   windows of up to 32 KiB of the stream's words staged with cp.async,
+//   sub-ranges that resynchronise on litlen-code starts, a scan of each
+//   token's output position, and pointer jumping into u16 cells; a cell
+//   whose pointer lands before the row's start becomes its marker
+//   256 + back - 1 (so a copy of a marker copies it), and the window's
+//   deepest such reach is `need`. The window stops before a token that is
+//   bad, points past n + hist, does not fit `cap` or starts within the
+//   margin of the stream's end, and the head decodes on from that litlen
+//   start with native's checks (a canonical decode over the code lengths'
+//   counts; a slot no code reaches carries native's root, the lone code's
+//   length), so every status, error and end bit is native's. Every block
+//   start is recorded as (bit, cell offset) below a capacity the host
+//   sizes at one record per 10 bits (the shortest block).
+// - The one-warp launch (spec_decode): a warp a row on native's serial
+//   code, K6's warp-built two-level tables in shared memory, every literal
+//   a store to device memory; 4.4 MB/s of output a warp.
 // - SP3 runs three kernels from one entry: each cell takes a pointer (to
 //   itself when known; a marker to its segment's offset minus back, the
 //   segment found by binary search over the offsets), then rounds of
@@ -64,9 +74,13 @@
 //   an earlier segment, so log2(segments) rounds resolve every chain, even
 //   one that crosses many segments under 32 KiB of output; then each cell
 //   reads its target and narrows to a byte.
+//
+// Without __CUDACC__ the file compiles as host C++ with SP2's block launch
+// alone (zrs_spec_decode_host): the rows in turn, the block's threads in
+// turn, L an argument, so that the CPU tests run this file's SP2 against
+// its plain version and native.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "sync_body.cuh"
 
 namespace {
 
@@ -79,33 +93,32 @@ constexpr int kOk = 0, kInvalidData = -1, kCap = -2, kTruncated = -3, kNoStart =
 constexpr int kDepth = 6, kStaticSyms = 192;
 constexpr int kFindThreads = 256, kCheckThreads = 128, kResolveThreads = 256;
 
-__constant__ int kClOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
-                                 11, 4, 12, 3, 13, 2, 14, 1, 15};
-__constant__ int kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
-                                  2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
-__constant__ int kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6,
-                                   6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
-
 // ---------------------------------------------------------------------------
 // bits: word reads clamped to [0, W - 1]; the words end in two zero words,
 // so every bit past the stream reads 0
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t word_at(const uint32_t* w, int top, long long i) {
+IS_INL uint32_t word_at(const uint32_t* w, int top, long long i) {
   i = i < 0 ? 0 : (i > top ? top : i);
+#ifdef __CUDACC__
   return __ldg(w + i);
+#else
+  return w[i];
+#endif
 }
 // 32 bits from bit `bp`
-__device__ __forceinline__ uint32_t peek32(const uint32_t* w, int top, long long bp) {
+IS_INL uint32_t peek32(const uint32_t* w, int top, long long bp) {
   const long long wi = bp >> 5;
   const int sh = (int)(bp & 31);
   const uint32_t lo = word_at(w, top, wi);
   if (!sh) return lo;
   return (lo >> sh) | (word_at(w, top, wi + 1) << (32 - sh));
 }
-__device__ __forceinline__ uint32_t bits_at(const uint32_t* w, int top, long long bp, int k) {
+IS_INL uint32_t bits_at(const uint32_t* w, int top, long long bp, int k) {
   return peek32(w, top, bp) & ((1u << k) - 1u);
 }
+
+#ifdef __CUDACC__
 
 // ---------------------------------------------------------------------------
 // SP1: the block finder
@@ -356,7 +369,7 @@ __device__ __forceinline__ int e_val(uint32_t e) { return e & 0xFFFF; }
 
 // (kind, extra, val) of symbol `sym`: kind_of 0 = code lengths, 1 =
 // litlen, 2 = distance (K6's)
-__device__ uint32_t sym_entry(int kind_of, int sym, int nbits) {
+__device__ uint32_t k6_entry(int kind_of, int sym, int nbits) {
   if (kind_of == 0) return entry(kLit, 0, nbits, sym);
   if (kind_of == 1) {
     if (sym < 256) return entry(kLit, 0, nbits, sym);
@@ -451,7 +464,7 @@ __device__ int build_table(uint32_t* tab, int cap, int nsyms, const int* lens, i
       t.work[k] = (uint16_t)i;
       if (l <= root && !bad) {
         const int huff = (int)huff_of(k, l);
-        const uint32_t ent = sym_entry(kind_of, i, l);
+        const uint32_t ent = k6_entry(kind_of, i, l);
         for (int f = (1 << root) - (1 << l); f >= 0; f -= 1 << l) {
           if (huff + f >= cap) {
             sbad = true;
@@ -507,7 +520,7 @@ __device__ int build_table(uint32_t* tab, int cap, int nsyms, const int* lens, i
       const uint32_t hdr = tab[huff & rmask];
       const int at = e_val(hdr) + (int)(huff >> root);
       const int step = 1 << (l - root);
-      const uint32_t ent = sym_entry(kind_of, sym, l);
+      const uint32_t ent = k6_entry(kind_of, sym, l);
       for (int f = (1 << e_extra(hdr)) - step;; f -= step) {
         if (at + f >= cap || at + f < 0) {
           lbad = true;
@@ -869,8 +882,477 @@ __global__ void resolve_narrow(const uint16_t* __restrict__ cells, const int* __
   out[i] = (uint8_t)c;
 }
 
+
+#endif  // __CUDACC__
+
+// ---------------------------------------------------------------------------
+// SP2: the marker decode, a thread block a row (spec_sync)
+// ---------------------------------------------------------------------------
+
+constexpr int P_HEAD = 0, P_BODY = 1, P_DONE = 2;  // the head: at a header, in a body, done
+constexpr int kNext = -1;  // a header step's outcome besides A_STOP and A_COPY
+
+// the head's scratch (shared memory on the card)
+struct HeadScratch {
+  uint16_t lens[320];    // the block's code lengths: litlen [0, 288), distance [288, 320)
+  uint16_t sorted[320];  // the same order as Body::sorted, for the serial decode
+  uint16_t cl[19], cl_sorted[19];
+  uint32_t ct[128];  // the code-length code by 7-bit peeks: symbol | length << 16
+  int32_t cl_cnt[16], cnt_ll[16], cnt_d[16];
+};
+
+// native build_table's refusal from a code's counts: kind 0 code lengths
+// (complete), 1 litlen (incomplete with one code), 2 distance (one code
+// or none)
+IS_INL bool code_bad(const int32_t* cnt, int kind) {
+  int left = 1, ncodes = 0;
+  for (int l = 1; l < 16; l++) {
+    left = 2 * left - cnt[l];
+    ncodes += cnt[l];
+    if (left < 0) return true;
+  }
+  if (kind == 0) return left != 0;
+  if (kind == 1) return left > 0 && ncodes != 1;
+  return left > 0 && ncodes > 1;
+}
+
+// the counts of lens[0, n) and its symbols in canonical order, on one lane
+IS_INL void canon_order(const uint16_t* lens, int n, int32_t* cnt, uint16_t* sorted) {
+  int offs[16];
+  for (int l = 0; l < 16; l++) cnt[l] = 0;
+  for (int s = 0; s < n; s++) cnt[lens[s]]++;
+  cnt[0] = 0;
+  offs[1] = 0;
+  for (int l = 1; l < 15; l++) offs[l + 1] = offs[l] + cnt[l];
+  for (int s = 0; s < n; s++)
+    if (lens[s]) sorted[offs[lens[s]]++] = (uint16_t)s;
+}
+
+// SP2's head: native spec_decode's control flow (Spec's, the plain
+// version's), all lanes of warp 0 on the same values. It runs a row's
+// block headers (the stop rule, the records, stored blocks, fixed and
+// dynamic headers with native's acceptance) and hands each coded body
+// with more than kMargin + kMinBody bits of the stream left to the
+// block (A_BODY), a long stored span too (A_COPY). It decodes a body's
+// symbols itself in the stream's last bits and from the first token the
+// block refused (a bad code, a reference past n + hist, a cell past cap):
+// a canonical decode over the code lengths' counts, with native's
+// truncation and error order.
+struct SpecHead {
+  // the head parses each header between windows: parsed during the
+  // expansion, as IS's head does, the launch measured slower (PERF.md §6)
+  static constexpr bool kSpeculates = false;
+  struct Saved {};
+
+  const uint32_t* words;
+  int top;
+  long long N, start, stop, hist, bp, pending;
+  uint16_t* cells;
+  long long* rec;
+  HeadScratch* sc;
+  int cap, rec_cap, n, need, nrec, ovf, why, fin, lane, lanes, phase, gen, maxlen_ll;
+  bool first, final_, no_par, par, canon_ready;
+
+  IS_INL uint32_t word(long long i) const { return word_at(words, top, i); }
+  IS_INL uint32_t peek() const { return peek32(words, top, bp); }
+
+  IS_DEV void load(const uint32_t* words_, int W, long long N_, const long long* m,
+                   uint16_t* cells_all, long long* recs_all, HeadScratch* sc_, int lane_,
+                   int lanes_, bool par_) {
+    words = words_;
+    top = W - 1;
+    N = N_;
+    start = m[0];
+    stop = m[1];
+    cap = (int)m[2];
+    hist = m[3];
+    cells = cells_all + m[4];
+    rec = recs_all + 2 * m[5];
+    rec_cap = (int)m[6];
+    sc = sc_;
+    lane = lane_;
+    lanes = lanes_;
+    par = par_;
+    bp = start;
+    pending = -1;
+    n = need = nrec = ovf = fin = gen = maxlen_ll = 0;
+    why = start < 0 ? kNoStart : kOk;
+    phase = start < 0 ? P_DONE : P_HEAD;
+    first = true;
+    final_ = no_par = canon_ready = false;
+  }
+
+  IS_DEV void finish(int why_) {
+    why = why_;
+    phase = P_DONE;
+  }
+
+  // a block's end: true where the row ends with it
+  IS_DEV bool end_block() {
+    if (final_) {
+      fin = 1;
+      finish(kOk);
+      return true;
+    }
+    phase = P_HEAD;
+    return false;
+  }
+
+  // the litlen and distance codes' counts (lane-strided), their
+  // acceptance, and a new generation of code lengths for the body's table
+  IS_DEV int take_lens() {
+    for (int l = lane; l < 16; l += lanes) sc->cnt_ll[l] = sc->cnt_d[l] = 0;
+    warp_sync();
+    for (int s = lane; s < 320; s += lanes)
+      if (sc->lens[s]) s_add(s < 288 ? &sc->cnt_ll[sc->lens[s]] : &sc->cnt_d[sc->lens[s]], 1);
+    warp_sync();
+    if (code_bad(sc->cnt_ll, 1) || code_bad(sc->cnt_d, 2)) return kInvalidData;
+    maxlen_ll = 0;
+    for (int l = 1; l < 16; l++)
+      if (sc->cnt_ll[l]) maxlen_ll = l;
+    gen++;
+    canon_ready = false;
+    return kOk;
+  }
+
+  IS_DEV void fixed_lens() {
+    for (int i = lane; i < 320; i += lanes)
+      sc->lens[i] = (uint16_t)(i < 144 ? 8 : i < 256 ? 9 : i < 280 ? 7 : i < 288 ? 8 : 5);
+    warp_sync();
+    take_lens();
+  }
+
+  // native parse_dynamic_tables: the code lengths into sc->lens
+  IS_DEV int dynamic_header() {
+    if (N - bp < 14) return kTruncated;
+    const uint32_t w = peek();
+    const int nlen = (int)(w & 31u) + 257;
+    const int ndist = (int)((w >> 5) & 31u) + 1;
+    const int ncode = (int)((w >> 10) & 15u) + 4;
+    bp += 14;
+    if (nlen > 286 || ndist > 30) return kInvalidData;
+    if (lane == 0)
+      for (int i = 0; i < 19; i++) sc->cl[i] = 0;
+    for (int i = 0; i < ncode; i++) {
+      if (N - bp < 3) return kTruncated;
+      const uint16_t v = (uint16_t)(peek() & 7u);
+      if (lane == 0) sc->cl[kClOrder[i]] = v;
+      bp += 3;
+    }
+    warp_sync();
+    if (lane == 0) canon_order(sc->cl, 19, sc->cl_cnt, sc->cl_sorted);
+    warp_sync();
+    if (code_bad(sc->cl_cnt, 0)) return kInvalidData;
+    for (int i = lane; i < 128; i += lanes) {
+      int len = 0;
+      const int s = canon((uint32_t)i, 7, sc->cl_cnt, sc->cl_sorted, &len);
+      sc->ct[i] = (uint32_t)s | ((uint32_t)len << 16);
+    }
+    warp_sync();
+    const int total = nlen + ndist;
+    int have = 0, prev = 0;
+    while (have < total) {
+      if (N - bp < 7) return kTruncated;
+      const uint32_t w1 = peek();
+      const uint32_t e = sc->ct[w1 & 127u];
+      const int sym = (int)(e & 0xFFFFu), nb = (int)(e >> 16);
+      if (sym < 16) {
+        if (lane == 0) sc->lens[have < nlen ? have : 288 + have - nlen] = (uint16_t)sym;
+        bp += nb;
+        have++;
+        prev = sym;
+        continue;
+      }
+      const int ebits = sym == 16 ? 2 : sym == 17 ? 3 : 7;
+      if (N - bp < nb + ebits) return kTruncated;
+      bp += nb;
+      if (sym == 16 && have == 0) return kInvalidData;
+      const int r = (int)low_bits(w1 >> nb, ebits) + (sym == 18 ? 11 : 3);
+      bp += ebits;
+      const int v = sym == 16 ? prev : 0;
+      if (have + r > total) return kInvalidData;
+      for (int j = lane; j < r; j += lanes) {
+        const int i = have + j;
+        sc->lens[i < nlen ? i : 288 + i - nlen] = (uint16_t)v;
+      }
+      have += r;
+      prev = v;
+    }
+    warp_sync();
+    for (int i = lane; i < 320; i += lanes)
+      if ((i >= nlen && i < 288) || i >= 288 + ndist) sc->lens[i] = 0;
+    warp_sync();
+    if (sc->lens[256] == 0) return kInvalidData;
+    return take_lens();
+  }
+
+  // native's stored block after its 3 header bits: A_COPY where the
+  // block copies the span, else kOk once copied here, or an error
+  IS_DEV int stored_block() {
+    bp = (bp + 7) & ~7LL;
+    if (N - bp < 32) return kTruncated;
+    const uint32_t v = peek();
+    const int ln = (int)(v & 0xFFFFu), nln = (int)(v >> 16);
+    bp += 32;
+    if ((ln ^ nln) != 0xFFFF) return kInvalidData;
+    if ((long long)n + ln > cap) return kCap;
+    if (N - bp < 8LL * ln) return kTruncated;
+    if (par && ln >= kBlockCopy) {
+      pending = ln;
+      return A_COPY;
+    }
+    const long long off = bp >> 3;
+    for (int j = lane; j < ln; j += lanes) {
+      const long long q = off + j;
+      cells[n + j] = (uint16_t)((word(q >> 2) >> ((q & 3) << 3)) & 0xFFu);
+    }
+    warp_sync();
+    n += ln;
+    bp += 8LL * ln;
+    return kOk;
+  }
+
+  // one symbol of a coded body: 0, 1 at its EOB, or an error
+  IS_DEV int token() {
+    if (!canon_ready) {
+      if (lane == 0) {
+        canon_order(sc->lens, 288, sc->cnt_ll, sc->sorted);
+        canon_order(sc->lens + 288, 32, sc->cnt_d, sc->sorted + 288);
+      }
+      warp_sync();
+      canon_ready = true;
+    }
+    if (N - bp == 0) return kTruncated;
+    const uint32_t w = peek();
+    int len = 0;
+    const int sym = canon(w, 15, sc->cnt_ll, sc->sorted, &len);
+    // a slot no code reaches (an incomplete code has one code) carries
+    // native's root: that code's length
+    const int nb = sym >= 0 ? len : maxlen_ll;
+    if (N - bp < nb) return kTruncated;
+    if (sym >= 0 && sym < 256) {
+      if (n >= cap) return kCap;
+      if (lane == 0) cells[n] = (uint16_t)sym;
+      n++;
+      bp += nb;
+      return 0;
+    }
+    if (sym == 256) {
+      bp += nb;
+      return 1;
+    }
+    if (sym < 0 || sym >= 286) return kInvalidData;
+    const int lext = kLenExtra[sym - 257];
+    if (N - bp < nb + lext) return kTruncated;
+    const int length = kLenBase[sym - 257] + (int)low_bits(w >> nb, lext);
+    bp += nb + lext;
+    const uint32_t w2 = peek();
+    int dl = 0;
+    const int dsym = canon(w2, 15, sc->cnt_d, sc->sorted + 288, &dl);
+    if (dsym < 0 || dsym >= 30) return kInvalidData;
+    const int dext = kDistExtra[dsym];
+    if (N - bp < dl + dext) return kTruncated;
+    const int dist = kDistBase[dsym] + (int)low_bits(w2 >> dl, dext);
+    bp += dl + dext;
+    if ((long long)dist > (long long)n + hist) return kInvalidData;
+    if ((long long)n + length > cap) return kCap;
+    if (dist > n && dist - n > need) need = dist - n;
+    // a cell whose source lies before the row is its marker
+    if (lane == 0)
+      for (int k = 0; k < length; k++) {
+        const int src = n + k - dist;
+        cells[n + k] = src < 0 ? (uint16_t)(255 - src) : cells[src];
+      }
+    warp_sync();
+    n += length;
+    return 0;
+  }
+
+  // one block header at bp: A_STOP where the row ends, A_COPY where the
+  // block copies a stored span, kNext where the head goes on (a coded
+  // body, or the next header after a stored block copied here)
+  IS_DEV int header_step() {
+    if (!first && bp >= stop) {
+      finish(kOk);
+      return A_STOP;
+    }
+    first = false;
+    if (nrec < rec_cap) {
+      if (lane == 0) {
+        rec[2 * nrec] = bp;
+        rec[2 * nrec + 1] = n;
+      }
+      nrec++;
+    } else {
+      ovf = 1;
+    }
+    if (N - bp < 3) {
+      finish(kTruncated);
+      return A_STOP;
+    }
+    const uint32_t w = peek();
+    const int typ = (int)((w >> 1) & 3u);
+    final_ = (w & 1u) != 0;
+    bp += 3;
+    no_par = false;
+    int r = kOk;
+    if (typ == 0) {
+      r = stored_block();
+      if (r == A_COPY) return A_COPY;
+      if (r == kOk) return end_block() ? A_STOP : kNext;
+    } else if (typ == 3) {
+      r = kInvalidData;
+    } else {
+      if (typ == 1)
+        fixed_lens();
+      else
+        r = dynamic_header();
+      phase = P_BODY;
+    }
+    if (r != kOk) {
+      finish(r);
+      return A_STOP;
+    }
+    return kNext;
+  }
+
+  // native spec_decode from where the head stands: A_STOP at the row's
+  // end, A_BODY or A_COPY where the block takes over
+  IS_DEV int resume() {
+    if (pending >= 0) {  // a stored span the block copied
+      n += (int)pending;
+      bp += 8 * pending;
+      pending = -1;
+      if (end_block()) return A_STOP;
+    }
+    for (;;) {
+      if (phase == P_DONE) return A_STOP;
+      if (phase == P_HEAD) {
+        const int a = header_step();
+        if (a != kNext) return a;
+        continue;
+      }
+      if (par && !no_par && N - bp > kMargin + kMinBody) return A_BODY;
+      int r;
+      do {
+        r = token();
+      } while (r == 0);
+      if (r < 0) {
+        finish(r);
+        return A_STOP;
+      }
+      if (end_block()) return A_STOP;
+    }
+  }
+
+  IS_DEV void store(long long* so) const {
+    if (lane) return;
+    so[0] = n;
+    so[1] = why == kOk ? bp : -1;
+    so[2] = fin;
+    so[3] = why;
+    so[4] = need;
+    so[5] = nrec;
+    so[6] = ovf;
+    so[7] = start;
+  }
+};
+
+// one row k of meta, the whole block: the head hands bodies and stored
+// spans to the block until the row ends
+IS_DEV void run_row(const uint32_t* words, int W, long long N, const long long* meta, int k,
+                    uint16_t* cells_all, long long* recs_all, long long* st, int32_t* ptrs,
+                    long long* stats, int L, int T, Body* b, HeadScratch* sc, int tid, int nthr) {
+  const bool head = tid < 32;
+  const long long* m = meta + (size_t)k * kMeta;
+  uint16_t* cells = cells_all + m[4];
+  SpecHead h;
+  if (head) h.load(words, W, N, m, cells_all, recs_all, sc, tid, nthr < 32 ? nthr : 32, true);
+  if (tid == 0) {
+    b->gen = 0;
+    b->lut_gen = -1;
+  }
+  block_sync();
+  for (;;) {
+    if (head) {
+      const long long t0 = stats && tid == 0 ? now_ns() : 0;
+      const int a = h.resume();
+      if (tid == 0) {
+        b->action = a;
+        b->bp = h.bp;
+        b->op = h.n;
+        b->nbits = N;
+        b->base = 0;
+        b->cap = h.cap;
+        b->reach = h.hist;
+        b->mode = M_CODED;
+        b->last = h.final_;
+        b->no_par = 0;
+        b->gen = h.gen;
+        b->copy_src = h.bp >> 3;
+        b->copy_dst = h.n;
+        b->copy_len = h.pending;
+        if (stats) {
+          stats[S_NS_HEAD] += now_ns() - t0;
+          if (a == A_COPY) stats[S_COPIES]++;
+        }
+      }
+    }
+    block_sync();
+    const int a = b->action;
+    if (a == A_STOP) break;
+    if (a == A_COPY) {
+      for (long long j = tid; j < b->copy_len; j += nthr) {
+        const long long q = b->copy_src + j;
+        cells[b->copy_dst + j] =
+            (uint16_t)((word_at(words, W - 1, q >> 2) >> ((q & 3) << 3)) & 0xFFu);
+      }
+    }
+    if (a == A_BODY) body(b, &h, words, W, sc->lens, cells, ptrs, stats, L, T, tid, nthr);
+    block_sync();
+    if (head && a == A_BODY) {
+      h.bp = b->bp;
+      h.n = (int)b->op;
+      h.no_par = b->no_par != 0;
+      if (b->need_max > h.need) h.need = b->need_max;
+      if (b->mode != M_CODED) h.end_block();
+    }
+  }
+  if (head) h.store(st + (size_t)k * kStatus);
+}
+
+#ifdef __CUDACC__
+// a block of kThreads a row, as many blocks as are resident: each takes
+// the next row of `order` (the longest first) from the counter `next`
+__global__ void __launch_bounds__(kThreads)
+spec_sync(const uint32_t* __restrict__ words, int W, long long N,
+          const long long* __restrict__ meta, int segs, const int* __restrict__ order, int* next,
+          uint16_t* cells, long long* __restrict__ recs, long long* __restrict__ st, int32_t* ptrs,
+          long long* stats) {
+  __shared__ HeadScratch sc;
+  extern __shared__ __align__(16) unsigned char body_smem[];
+  Body* b = (Body*)body_smem;
+  int32_t* my_ptrs = ptrs + (size_t)blockIdx.x * kPtrCap;
+  long long* my_stats = stats ? stats + (size_t)blockIdx.x * kStats : nullptr;
+  for (;;) {
+    if (threadIdx.x == 0) b->row = atomicAdd(next, 1);
+    __syncthreads();
+    const int r = b->row;
+    __syncthreads();
+    if (r >= segs) break;
+    run_row(words, W, N, meta, order[r], cells, recs, st, my_ptrs, my_stats, 0, kThreads, b, &sc,
+            threadIdx.x, kThreads);
+  }
+}
+#endif
+
 }  // namespace
 
+// int32 a block's pointer scratch; int64 a block's stats
+extern "C" long long zrs_spec_scratch_words() { return kPtrCap; }
+extern "C" long long zrs_spec_stats_len() { return kStats; }
+
+#ifdef __CUDACC__
 // SP1: per segment k the first offset in [lo[k], hi[k]) whose chain passes,
 // written into best[k] (which the wrapper fills with INT_MAX); the
 // survivors of the pre-filter go to surv (cap pairs), their number to
@@ -895,11 +1377,53 @@ extern "C" int zrs_block_find(const void* words, int w, long long nbits, const v
   return (int)cudaGetLastError();
 }
 
-// SP2: one block of one warp a segment of meta (int64 [segs, 8]: start_bit,
-// stop_bit, cap, hist, cell_off, rec_off, rec_cap, 0); cells u16, records
-// int32 pairs, status int32 [segs, 8]
+namespace {
+constexpr int kMaxDevices = 64;
+int g_sync_blocks[kMaxDevices];  // a device's resident spec_sync blocks, once its attribute is set
+}  // namespace
+
+// SP2 over rows of meta (int64 [segs, 8]: start_bit, stop_bit, cap, hist,
+// cell_off, rec_off, rec_cap, 0): cells u16, records int64 pairs, status
+// int64 [segs, 8]. A block of kThreads a row, as many blocks as the
+// device holds resident and ptr_blocks scratches of kPtrCap int32 allow
+// (at most segs); the blocks take the rows of `order` (int32 [segs]) from
+// the zeroed counter `next`; stats int64 [blocks, kStats] or null. The
+// words must be 16-byte aligned (the body stages them with cp.async).
 extern "C" int zrs_spec_decode(const void* words, int w, long long nbits, const void* meta, int segs,
-                               void* cells, void* recs, void* st, void* stream) {
+                               void* cells, void* recs, void* st, const void* order, void* next,
+                               void* ptrs, int ptr_blocks, void* stats, void* stream) {
+  if (segs <= 0) return (int)cudaGetLastError();
+  if (((uintptr_t)words & 15u) != 0) return (int)cudaErrorMisalignedAddress;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!g_sync_blocks[dev]) {  // the attribute is the device's, not the process's
+    e = cudaFuncSetAttribute(spec_sync, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(Body));
+    if (e != cudaSuccess) return (int)e;
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spec_sync, kThreads, sizeof(Body));
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    g_sync_blocks[dev] = per_sm * sms;
+  }
+  int blocks = g_sync_blocks[dev] < ptr_blocks ? g_sync_blocks[dev] : ptr_blocks;
+  blocks = blocks < segs ? blocks : segs;
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  spec_sync<<<blocks, kThreads, sizeof(Body), (cudaStream_t)stream>>>(
+      (const uint32_t*)words, w, nbits, (const long long*)meta, segs, (const int*)order,
+      (int*)next, (uint16_t*)cells, (long long*)recs, (long long*)st, (int32_t*)ptrs,
+      (long long*)stats);
+  return (int)cudaGetLastError();
+}
+
+// the same rows through the one-warp launch (spec_decode, a warp a row):
+// kept to be timed against zrs_spec_decode, and called by no route
+extern "C" int zrs_spec_decode_warp(const void* words, int w, long long nbits, const void* meta,
+                                    int segs, void* cells, void* recs, void* st, void* stream) {
   if (segs > 0)
     spec_decode<<<segs, 32, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)words, w, nbits, (const long long*)meta, (uint16_t*)cells,
@@ -929,3 +1453,21 @@ extern "C" int zrs_spec_resolve(const void* cells, int n, const void* seg_ofs, i
                                                     (uint8_t*)out, (int*)flag);
   return (int)cudaGetLastError();
 }
+#else
+// zrs_spec_decode on the host: the rows in turn, each by one block whose
+// T threads run in turn, sub-ranges of L bits (0: the card's adaptive L);
+// ptrs int32 [kPtrCap], stats int64 [kStats] or null. The CPU tests' way
+// into this file's SP2.
+extern "C" int zrs_spec_decode_host(const void* words, int w, long long nbits, const void* meta,
+                                    int segs, void* cells, void* recs, void* st, void* ptrs,
+                                    void* stats, int L, int T) {
+  static HeadScratch sc;
+  static Body b;
+  if (T < 1 || T > kThreads || L < 0 || L > kStageWords * 8) return 1;
+  for (int k = 0; k < segs; k++)
+    run_row((const uint32_t*)words, w, nbits, (const long long*)meta, k, (uint16_t*)cells,
+            (long long*)recs, (long long*)st, (int32_t*)ptrs, (long long*)stats, L, T, &b, &sc, 0,
+            1);
+  return 0;
+}
+#endif

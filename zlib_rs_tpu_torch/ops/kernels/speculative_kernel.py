@@ -27,7 +27,11 @@ against the real output (SP3).
   data. Status a segment: n, end_bit, final_seen, why (0 ok, -1 invalid,
   -2 past the cell cap, -3 truncated, -4 no start), the deepest reference
   before the start, and every block start as (bit, cell offset), into a
-  list with a capacity and an overflow flag.
+  list with a capacity and an overflow flag. On the card a row is a thread
+  block of 1,024 (native's headers and the stream's last bits on one
+  warp, each coded body decoded by the whole block over IS's
+  resynchronising body, csrc/sync_body.cuh); `spec_decode_warp_cuda`, the
+  one-warp launch it replaced, is kept to be timed against it.
 - SP3 `spec_resolve` (the native stitch): the cells of the chained
   segments, in order, and each segment's output offset. A marker in the
   segment at `ofs` points at absolute byte `ofs - back`, which may itself
@@ -55,6 +59,7 @@ import numpy as np
 import torch
 
 from ... import _device
+from .istream_kernel import SCRATCH, STAT_NAMES, STATS
 
 # launches of the CUDA kernels; the plain versions do not count
 launches = {"block_find": 0, "spec_decode": 0, "spec_resolve": 0}
@@ -450,6 +455,7 @@ def _spec_lane(buf: bytes, N: int, start: int, stop: int, cap: int, hist: int, r
 
 
 def _prepare_decode(words, nbits: int, meta, cell_total: int, rec_total: int):
+    """The checks of SP2's operands; meta on the host."""
     _check_words(words, nbits, "spec_decode")
     if meta.dim() != 2 or meta.shape[1] != META or meta.dtype != torch.int64:
         raise ValueError("spec_decode: meta must be int64 [T, 8]")
@@ -459,6 +465,7 @@ def _prepare_decode(words, nbits: int, meta, cell_total: int, rec_total: int):
         raise ValueError("spec_decode: a segment's cells or records pass the buffers")
     if bool((m[:, 2] >= 1 << 31).any()) or cell_total >= 1 << 40:
         raise ValueError("spec_decode: a cell cap must be < 2^31")
+    return m
 
 
 def spec_decode_plain(words, nbits: int, meta, cell_total: int, rec_total: int):
@@ -571,14 +578,47 @@ def block_find_cuda(words, nbits: int, lo, hi) -> torch.Tensor:
     return torch.where(best == _NONE, -1, best)
 
 
-def spec_decode_cuda(words, nbits: int, meta, cell_total: int, rec_total: int):
+def _sm_count(dev) -> int:
+    """The SMs of `dev`, which bound SP2's resident blocks (one a SM: 1,024
+    threads of at most 64 registers); a device with no CUDA properties
+    (the wrapper tests' stub) counts one."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 1
+
+
+def longest_first(m, nbits: int) -> torch.Tensor:
+    """The rows of meta `m` (host int64 [T, 8]) by their bit span, the
+    longest first (rows with no start last): the order in which SP2's
+    persistent blocks take them. int32 [T]."""
+    span = torch.where(m[:, 0] >= 0, m[:, 1].clamp(max=nbits) - m[:, 0], -1)
+    return torch.argsort(span, descending=True, stable=True).to(torch.int32)
+
+
+def fold_stats(rows) -> dict:
+    """SP2's counters, int64 [blocks, STATS], as one dict of STAT_NAMES:
+    summed over the blocks, the max_ fields their largest; and
+    `slowest_block_ns`, the largest of a block's head, sync and expansion
+    ns (its rows' time, the next headers' parses hidden in the expansion)."""
+    rows = rows.cpu()
+    out = {name: int(rows[:, i].max() if name.startswith("max_") else rows[:, i].sum())
+           for i, name in enumerate(STAT_NAMES)}
+    busy = rows[:, [STAT_NAMES.index(k) for k in ("ns_head", "ns_sync", "ns_expand")]].sum(1)
+    out["slowest_block_ns"] = int(busy.max()) if busy.numel() else 0
+    return out
+
+
+def spec_decode_cuda(words, nbits: int, meta, cell_total: int, rec_total: int,
+                     stats: dict | None = None):
     """Launch SP2 over CUDA operands: words int32 [W], meta int64 [T, 8];
-    records int64 [rec_total, 2] and status int64 [T, STATUS] back.
-    One block of one warp a segment, its tables in shared memory, its
-    cells in device memory. Cells past a segment's n and records past its
-    count are left unwritten (the plain version's are 0)."""
+    records int64 [rec_total, 2] and status int64 [T, STATUS] back. A
+    thread block of 1,024 a row (csrc/speculative.cu `spec_sync`: warp 0
+    runs native's headers and the stream's last bits, the block each
+    coded body), as many blocks as are resident, each with a pointer
+    scratch of SCRATCH int32, taking the rows the longest first. Cells
+    past a row's n and records past its count are left unwritten (the
+    plain version's are 0). `stats`, where given, receives the body's
+    counters (fold_stats)."""
     _device.require_cuda("spec_decode", words, meta)
-    _prepare_decode(words, nbits, meta, cell_total, rec_total)
+    m = _prepare_decode(words, nbits, meta, cell_total, rec_total)
     dev = words.device
     T = meta.shape[0]
     # a segment writes cells [0, n) and records [0, nrec) of its room; no
@@ -588,12 +628,46 @@ def spec_decode_cuda(words, nbits: int, meta, cell_total: int, rec_total: int):
     st = torch.zeros((T, STATUS), dtype=torch.int64, device=dev)
     if T:
         meta = meta.contiguous()
-        rc = _fn("zrs_spec_decode", [_P, _I, _L, _P, _I, _P, _P, _P, _P])(
+        if words.data_ptr() % 16:  # the body stages words 16 bytes at a time
+            words = words.clone()
+        blocks = min(T, _sm_count(dev))
+        order = longest_first(m, nbits).to(dev)
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+        ptrs = torch.empty(blocks * SCRATCH, dtype=torch.int32, device=dev)
+        rows = None if stats is None else torch.zeros((blocks, STATS), dtype=torch.int64,
+                                                      device=dev)
+        rc = _fn("zrs_spec_decode", [_P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P])(
+            _device.ptr(words), words.shape[0], nbits, _device.ptr(meta), T,
+            _device.ptr(cells), _device.ptr(recs), _device.ptr(st), _device.ptr(order),
+            _device.ptr(nxt), _device.ptr(ptrs), blocks,
+            None if rows is None else _device.ptr(rows), _device.stream_of(words),
+        )
+        _device.check(rc, "spec_decode")
+        launches["spec_decode"] += 1
+        if stats is not None:
+            stats.update(fold_stats(rows), blocks=blocks)
+    return cells, recs, st
+
+
+def spec_decode_warp_cuda(words, nbits: int, meta, cell_total: int, rec_total: int):
+    """SP2's one-warp launch (csrc/speculative.cu `spec_decode`, a warp a
+    row), the design before the block's: the same operands and results
+    as spec_decode_cuda. It is timed against it and called by no route,
+    so it counts no launch."""
+    _device.require_cuda("spec_decode", words, meta)
+    _prepare_decode(words, nbits, meta, cell_total, rec_total)
+    dev = words.device
+    T = meta.shape[0]
+    cells = torch.empty(max(cell_total, 1), dtype=torch.int16, device=dev)[:cell_total]
+    recs = torch.empty((max(rec_total, 1), 2), dtype=torch.int64, device=dev)[:rec_total]
+    st = torch.zeros((T, STATUS), dtype=torch.int64, device=dev)
+    if T:
+        meta = meta.contiguous()
+        rc = _fn("zrs_spec_decode_warp", [_P, _I, _L, _P, _I, _P, _P, _P, _P])(
             _device.ptr(words), words.shape[0], nbits, _device.ptr(meta), T,
             _device.ptr(cells), _device.ptr(recs), _device.ptr(st), _device.stream_of(words),
         )
         _device.check(rc, "spec_decode")
-        launches["spec_decode"] += 1
     return cells, recs, st
 
 
