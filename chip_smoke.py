@@ -109,10 +109,11 @@ walker kernel, byte-exact, and `graft_entry.dryrun_multichip(1)` (phase
 corpus's level-6 raw stream, SP2 (the marker decode, a thread block a
 row) on its segments, on crafted rows of the stored, Z_FIXED and a
 flipped stream and on its design's edge rows (sp2_edge_rows), and SP3
-(the marker resolve) on the whole chain, each against its plain version
-at max abs err 0 (SP2's crafted and edge rows also against the one-warp
-launch it replaced, which is timed against it over the segments and
-the exact row of the whole stream, in the same call), then `inflate_speculative` of the corpus as raw deflate
+(the marker resolve) on the whole chain and a long-chain stream, each
+against its plain version at max abs err 0 (each also against the first
+design it replaced, timed against it in the same call: SP2 over the
+segments and the exact row of the whole stream, SP1 and SP3 in turn by
+events and by kernel), then `inflate_speculative` of the corpus as raw deflate
 at levels 1, 6 and 9, under Z_FIXED, stored, as a zlib body and as 64
 MiB (the corpus 8 times), each back to its input with its segments,
 chain misses and each kernel's event ms, and a stream of more than 2^28
@@ -2541,6 +2542,212 @@ def foreign_phase(torch, corpus, rows) -> dict:
     return result
 
 
+def kernel_ms(torch, fn, reps: int) -> dict:
+    """Device ms a call by kernel, over `reps` calls after a warm-up, from a
+    torch.profiler trace (CUDA activity): each kernel of csrc/ by its
+    function's name, torch's kernels as "torch", copies and fills as
+    "memcpy" and "memset"."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from zlib_rs_tpu_torch import bench as ZB
+
+    names = [f for fns in ZB.kernel_symbols().values() for f in fns]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(prefix="zrs_smoke_trace_", suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    out = {}
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = e.get("name", "")
+        key = next((f for f in names if re.search(rf"(?:^|[\s:]){f}[(<]", name) or re.search(
+            rf"_GLOBAL__N_\w*?{len(f)}{f}(?:I|E|P|v|i|j)", name)),
+                   "torch" if cat == "kernel" else cat[4:])
+        out[key] = out.get(key, 0.0) + float(e.get("dur", 0)) / 1e3 / reps
+    return {k: round(v, 6) for k, v in out.items()}
+
+
+def wall_ms(torch, fn, reps: int) -> list:
+    """Host ms of each of `reps` calls of `fn` after a warm-up, each
+    ending in a synchronize (a wrapper's own host syncs included)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def in_turn(torch, fns: dict, reps: int) -> dict:
+    """The route's launch ("new") against its first design ("old") on the
+    same operands, in turn (new, old, old, new): event ms (host syncs
+    inside the wrapper included), device ms by kernel (torch.profiler) and
+    host wall ms a call, each a list of the two turns; and the peak device
+    memory a call allocates."""
+    out = {k: {"new": [], "old": []} for k in ("event_ms", "kernel_ms", "wall_ms")}
+    for who in ("new", "old", "old", "new"):
+        out["event_ms"][who].append(event_ms(torch, fns[who], reps))
+        out["kernel_ms"][who].append(kernel_ms(torch, fns[who], reps))
+        out["wall_ms"][who].append(sorted(wall_ms(torch, fns[who], reps))[reps // 2])
+    out["peak_bytes"] = {}
+    for who in ("new", "old"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fns[who]()
+        torch.cuda.synchronize()
+        out["peak_bytes"][who] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def mean_of(turns: dict, who: str, key: str = "event_ms") -> float:
+    """A launch's mean over its turns: event ms, or (key "kernel_ms") its
+    device ms, every kernel, copy and fill of the call summed."""
+    vals = turns[key][who]
+    return sum(sum(v.values()) if isinstance(v, dict) else v for v in vals) / len(vals)
+
+
+def sp1_pairs(torch, SK, dev, stream: bytes, lo: list, hi: list) -> tuple:
+    """SP1 on ranges of one stream: the route's launch (with its counters)
+    against the plain version and the first design; the pairs, the
+    launch's offsets, its counters and the plain version's wall ms."""
+    nbits = 8 * len(stream)
+    words = torch.from_numpy(SK.stream_words(stream)).to(dev)
+    st = {}
+    got = SK.block_find_cuda(words, nbits, lo, hi, stats=st)
+    want, plain_ms = timed_ms(torch, lambda: SK.block_find_plain(words, nbits, lo, hi))
+    lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
+    hi_t = torch.tensor(hi, dtype=torch.int64, device=dev)
+    pairs = [(got, want), (got, SK.block_find_thread_cuda(words, nbits, lo_t, hi_t))]
+    return pairs, got.tolist(), st, plain_ms
+
+
+def survivors_to_first_pass(torch, SK, words, nbits: int, lo: list, hi: list, best: list):
+    """The pre-filter's survivors a segment (its plain version on the card)
+    up to and with the segment's first pass (all of them where none
+    passes): what the check must take at least."""
+    upto = []
+    for a, z, b in zip(lo, hi, best):
+        offs = torch.arange(max(a, 0), min(z, nbits), dtype=torch.int64, device=words.device)
+        keep = offs[SK.prefilter_plain(words, nbits, offs)] if offs.numel() else offs
+        upto.append(int((keep <= b).sum()) if b >= 0 else int(keep.numel()))
+    return upto
+
+
+def sp1_case(torch, SK, dev, streams: dict, seg: int) -> dict:
+    """SP1 as phase 40 holds it, at max abs err 0 against the plain
+    version and the first design: every segment of the raw-6 stream's
+    first attempt (as inflate_speculative cuts it), a retry round's ranges
+    (one bit past each segment's first pass) and 8 segments each of the
+    stored and Z_FIXED streams; then the raw-6 and stored ranges again
+    with rooms of 1 and 0 survivors a tile (SURVIVOR_SHARE raised), so
+    that tiles overflow and the launch reruns with room for every offset,
+    against the plain version's offsets. The route's launch and the first
+    design timed in turn; the counters, the survivors up to each
+    segment's first pass and the reruns' rooms and launches."""
+    raw = streams["raw6"]
+    nbits = 8 * len(raw)
+    words = torch.from_numpy(SK.stream_words(raw)).to(dev)
+    T = len(raw) // seg
+    bounds = [8 * k * seg for k in range(T)] + [nbits]
+    lo, hi = bounds[1:T], bounds[2:]
+    pairs, found, stats, plain_ms = sp1_pairs(torch, SK, dev, raw, lo, hi)
+    cases = [(raw, lo, hi, pairs[0][1])]
+    retry = [(b + 1, z) for b, z in zip(found, hi) if b >= 0][:16]
+    pairs += sp1_pairs(torch, SK, dev, raw, [a for a, _ in retry], [z for _, z in retry])[0]
+    for name in ("stored", "fixed"):
+        l2 = [8 * k * seg for k in range(1, 9)]
+        h2 = [x + 8 * seg for x in l2]
+        p2 = sp1_pairs(torch, SK, dev, streams[name], l2, h2)[0]
+        pairs += p2
+        if name == "stored":
+            cases.append((streams[name], l2, h2, p2[0][1]))
+    reruns, share = [], SK.SURVIVOR_SHARE
+    try:
+        for room in (1, 0):
+            SK.SURVIVOR_SHARE = SK.TILE_BITS // room if room else SK.TILE_BITS + 1
+            for stream, a, z, want in cases:
+                w2 = words if stream is raw else torch.from_numpy(SK.stream_words(stream)).to(dev)
+                before, st = SK.launches["block_find"], {}
+                got = SK.block_find_cuda(w2, 8 * len(stream), a, z, stats=st)
+                pairs.append((got, want))
+                reruns.append({"room": room, "segments": len(a), "last_room": st["room"],
+                               "launches": SK.launches["block_find"] - before})
+    finally:
+        SK.SURVIVOR_SHARE = share
+    err = max_abs(pairs)
+    if err or any(r["last_room"] != SK.TILE_BITS or r["launches"] != 2 for r in reruns):
+        raise AssertionError(f"SP1 disagrees with its plain version or its first design, or "
+                             f"a small room did not rerun: max abs err {err}, reruns {reruns}")
+    lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
+    hi_t = torch.tensor(hi, dtype=torch.int64, device=dev)
+    turns = in_turn(torch, {
+        "new": lambda: SK.block_find_cuda(words, nbits, lo, hi),
+        "old": lambda: SK.block_find_thread_cuda(words, nbits, lo_t, hi_t)}, 5)
+    upto = survivors_to_first_pass(torch, SK, words, nbits, lo, hi, found)
+    return {"segments": T - 1, "offsets": nbits - bounds[1], "max_abs_err": err,
+            "stats": stats, "plain_ms": plain_ms, "found": found, "upto": upto,
+            "reruns": reruns, "turns": turns}
+
+
+def long_chain_corpus(np, corpus: bytes, size: int = 16 << 20, seed: int = 27) -> bytes:
+    """SP3's long chains: a 24 KiB block of the corpus (at an offset drawn
+    from `seed`) repeated to `size` bytes, each copy the one before with
+    one byte in every 100 changed at random. Deflate copies each from the
+    one before, so a segment's cells are markers into the segment before,
+    a chain through every segment."""
+    rng = np.random.default_rng(seed)
+    off = int(rng.integers(0, len(corpus) - 24576))
+    blk = np.frombuffer(corpus[off : off + 24576], np.uint8).copy()
+    reps = size // 24576
+    out = np.empty((reps, 24576), np.uint8)
+    at = np.arange(0, 24576, 100)
+    for r in range(reps):
+        blk[np.minimum(at + rng.integers(0, 100, len(at)), 24575)] = rng.integers(0, 256, len(at))
+        out[r] = blk
+    return out.tobytes()
+
+
+def sp3_case(torch, SK, SP, dev, stream: bytes, want: bytes, max_out: int) -> dict:
+    """SP3 on the whole chain of one stream as inflate_speculative cuts it:
+    the route's launch against the plain version, the first design and
+    `want`, all at max abs err 0, with its counters."""
+    chain, ofs, total, _end = SP._speculate(stream, max_out, dev, {})
+    cells = torch.cat([c.cells for c in chain])
+    seg_ofs = torch.tensor(ofs + [total], dtype=torch.int64, device=dev)
+    st = {}
+    got, flag = SK.spec_resolve_cuda(cells, seg_ofs, stats=st)
+    plain, plain_ms = timed_ms(torch, lambda: SK.spec_resolve_plain(cells, seg_ofs))
+    old, old_flag = SK.spec_resolve_jump_cuda(cells, seg_ofs)
+    err = max_abs([(got, plain[0]), (got, old)])
+    if err or flag or plain[1] or old_flag or got.cpu().numpy().tobytes() != want:
+        raise AssertionError(f"SP3 disagrees with its plain version, its first design or the "
+                             f"stream's input: max abs err {err}")
+    fns = {"new": lambda: SK.spec_resolve_cuda(cells, seg_ofs),
+           "old": lambda: SK.spec_resolve_jump_cuda(cells, seg_ofs)}
+    return {"cells": int(cells.numel()), "spans": len(chain), "max_abs_err": err,
+            "plain_ms": plain_ms, "stats": st, "hops_mean": st["hops"] / max(st["markers"], 1),
+            "turns": in_turn(torch, fns, 5), "rounds": SK.resolve_rounds(len(chain)),
+            "bytes": 3 * total + 8 * (len(chain) + 1)}
+
+
 def sp_events(torch, SK):
     """kernel_events of SP1, SP2 and SP3."""
     return kernel_events(torch, SK, ("block_find", "spec_decode", "spec_resolve"))
@@ -2667,34 +2874,30 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     words = torch.from_numpy(SK.stream_words(raw)).to(dev)
     T = len(raw) // seg
     bounds = [8 * k * seg for k in range(T)] + [nbits]
-    lo = torch.tensor(bounds[1:T], dtype=torch.int64, device=dev)
-    hi = torch.tensor(bounds[2:], dtype=torch.int64, device=dev)
 
     # -- SP1 on every segment of the main path's first attempt -----------
-    got = SK.block_find_cuda(words, nbits, lo, hi)
-    want, plain1_ms = timed_ms(torch, lambda: SK.block_find_plain(words, nbits, lo, hi))
-    pairs1 = [(got, want)]
-    for name in ("stored", "fixed"):
-        st = streams[name]
-        w2 = torch.from_numpy(SK.stream_words(st)).to(dev)
-        l2 = torch.tensor([8 * k * seg for k in range(1, 9)], dtype=torch.int64, device=dev)
-        pairs1.append((SK.block_find_cuda(w2, 8 * len(st), l2, l2 + 8 * seg),
-                       SK.block_find_plain(w2, 8 * len(st), l2, l2 + 8 * seg)))
-    err1 = max_abs(pairs1)
-    if err1:
-        raise AssertionError(f"SP1 disagrees with its plain version: max abs err {err1}")
-    starts = [0] + got.tolist()
+    sp1 = sp1_case(torch, SK, dev, streams, seg)
+    starts = [0] + sp1["found"]
     cap = SP.segment_cap(seg, 4 * len(corpus))
-    ms1 = event_ms(torch, lambda: SK.block_find_cuda(words, nbits, lo, hi), 5)
-    offsets = nbits - bounds[1]
+    sp1_stats, upto, sp1_turns = sp1["stats"], sp1["upto"], sp1["turns"]
+    offsets = sp1["offsets"]
     rows["block_find"] = dict(
         source="zlib_rs_tpu_torch/csrc/speculative.cu",
         replaces="native/zrs_native.cpp:1944",
-        max_abs_err=err1, ms=ms1, plain_ms=plain1_ms,
+        max_abs_err=sp1["max_abs_err"], ms=mean_of(sp1_turns, "new"), plain_ms=sp1["plain_ms"],
+        old_ms=mean_of(sp1_turns, "old"), device_ms=mean_of(sp1_turns, "new", "kernel_ms"),
+        old_device_ms=mean_of(sp1_turns, "old", "kernel_ms"),
+        turns=sp1_turns, survivors=sp1_stats["survivors"], checked=sp1_stats["checked"],
+        survivors_to_first_pass=sum(upto), small_room_reruns=sp1["reruns"],
         # bytes: the stream read once, a pair of bounds in and an offset out
         # a segment; operations: the pre-filter's ~16 integer steps an offset
-        bnd=bound(len(raw) + 12 * (T - 1), 16 * offsets),
+        bnd=bound(len(raw) + 24 * (T - 1), 16 * offsets),
     )
+    print(f"phase 40 SP1: {T - 1} segments, {offsets} offsets, {sp1_stats['survivors']} "
+          f"survivors, {sp1_stats['checked']} checked ({sum(upto)} up to each segment's first "
+          f"pass, at most {max(upto)} in one); rooms of 1 and 0 rerun "
+          + json.dumps(sp1["reruns"]) + "; the launch against its first design in turn "
+          + json.dumps(sp1_turns), flush=True)
 
     # -- SP2 on the same segments, and on crafted rows of other streams ---
     rows_sp = [(0, bounds[1], cap, 0)] + [
@@ -2709,8 +2912,7 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     ):
         n2 = 8 * len(stream)
         w2 = torch.from_numpy(SK.stream_words(stream)).to(dev)
-        l2 = torch.tensor([8 * seg, 16 * seg], dtype=torch.int64, device=dev)
-        g2 = SK.block_find_cuda(w2, n2, l2, l2 + 8 * seg).tolist()
+        g2 = SK.block_find_cuda(w2, n2, [8 * seg, 16 * seg], [16 * seg, 24 * seg]).tolist()
         r2 = [(0, 8 * seg, cap, 0), (g2[0], 16 * seg, cap if g2[0] >= 0 else 0, SK.WSIZE),
               (g2[1], 24 * seg, 16 if g2[1] >= 0 else 0, SK.WSIZE), (-1, n2, 0, SK.WSIZE)] + extra
         p2, w = sp2_pairs(torch, SK, SP, dev, stream, r2, list(range(len(r2))), warp=True)
@@ -2752,19 +2954,15 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     _p, plain2_ms = timed_ms(torch, lambda: SK.spec_decode_plain(words, nbits, sm_t,
                                                                  *sub_meta[1:]))
 
-    # -- SP3 on the whole chain of the level-6 stream ---------------------
+    # -- SP3 on the whole chain of the level-6 stream, and on long chains --
+    import numpy as np
+
     stats = {}
-    chain, ofs, total, _end = SP._speculate(raw, 4 * len(corpus), dev, stats)
-    cells = torch.cat([c.cells for c in chain])
-    seg_ofs = torch.tensor(ofs + [total], dtype=torch.int64, device=dev)
-    got3, flag = SK.spec_resolve_cuda(cells, seg_ofs)
-    want3, plain3_ms = timed_ms(torch, lambda: SK.spec_resolve_plain(cells, seg_ofs))
-    err3 = max_abs([(got3, want3[0])])
-    if err3 or flag or want3[1] or got3.cpu().numpy().tobytes() != corpus:
-        raise AssertionError(f"SP3 disagrees with its plain version or the corpus: {err3}")
-    ms3 = event_ms(torch, lambda: SK.spec_resolve_cuda(cells, seg_ofs), 5)
-    rounds = SK.resolve_rounds(len(chain))
-    n_markers = int(((cells.to(torch.int32) & 0xFFFF) >= 256).sum())
+    SP._speculate(raw, 4 * len(corpus), dev, stats)
+    sp3 = sp3_case(torch, SK, SP, dev, raw, corpus, 4 * len(corpus))
+    chains = long_chain_corpus(np, corpus)
+    sp3_long = sp3_case(torch, SK, SP, dev, _raw(chains), chains, 4 * len(chains))
+    ms3, err3 = mean_of(sp3["turns"], "new"), sp3["max_abs_err"] + sp3_long["max_abs_err"]
     rows["spec_decode"] = dict(
         source="zlib_rs_tpu_torch/csrc/speculative.cu",
         replaces="native/zrs_native.cpp:1798",
@@ -2783,10 +2981,19 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
     rows["spec_resolve"] = dict(
         source="zlib_rs_tpu_torch/csrc/speculative.cu",
         replaces="native/zrs_native.cpp:2685",
-        max_abs_err=err3, ms=ms3, plain_ms=plain3_ms,
-        # bytes: each cell read once and each byte written once
-        bnd=bound(3 * total + 8 * (len(chain) + 1), 0),
+        max_abs_err=err3, ms=ms3, plain_ms=sp3["plain_ms"], old_ms=mean_of(sp3["turns"], "old"),
+        device_ms=mean_of(sp3["turns"], "new", "kernel_ms"),
+        old_device_ms=mean_of(sp3["turns"], "old", "kernel_ms"),
+        turns=sp3["turns"], hops_max=sp3["stats"]["max_hops"], hops_mean=sp3["hops_mean"],
+        pending=sp3["stats"]["pending"], long_chain=sp3_long,
+        # bytes: each cell read once (2 bytes), each byte written once, the
+        # segments' offsets read once
+        bnd=bound(sp3["bytes"], 0),
     )
+    print(f"phase 40 SP3: the {sp3['spans']} spans of raw-6 ({sp3['cells']} cells) "
+          + json.dumps({k: v for k, v in sp3.items() if k != "bytes"}) + f"; long chains "
+          f"({len(chains)} bytes) " + json.dumps({k: v for k, v in sp3_long.items()
+                                                   if k != "bytes"}), flush=True)
     print(f"phase 40 SP2: the block launch over the {T} rows {sp2_ms['block']} ms against the "
           f"one-warp launch's {sp2_ms['warp']} in turn; the exact row of the stream "
           f"{exact_ms['block']:.3f} ms against {exact_ms['warp']:.3f} ({len(corpus)} cells, equal); "
@@ -2796,11 +3003,12 @@ def speculative_phase(torch, dev, corpus, rows) -> dict:
           f"SP1 equal to plain on every segment and 16 of the stored and Z_FIXED streams "
           f"({sum(x >= 0 for x in starts[1:])} guesses); SP2 equal to plain on rows {pick} "
           f"(whys {whys}) and on crafted rows (whys {crafted}); SP3 equal to plain and the "
-          f"corpus over {len(chain)} chained spans, {n_markers} markers, {rounds} rounds; "
-          f"chain {stats}", flush=True)
+          f"corpus over {sp3['spans']} chained spans, {sp3['stats']['markers']} markers, and "
+          f"on {sp3_long['spans']} spans of long chains; chain {stats}", flush=True)
 
     # -- inflate_speculative of every stream ------------------------------
-    result = {"segment_bytes": seg, "streams": {}}
+    result = {"segment_bytes": seg, "streams": {}, "sp1": rows["block_find"]["turns"],
+              "sp3": sp3, "sp3_long_chains": sp3_long}
     for label, stream in streams.items():
         want_out = corpus * 8 if label == "raw6_64m" else corpus
         for c in SK.launches:
@@ -2892,7 +3100,7 @@ def big_stream(np) -> tuple[bytes, bytes]:
 def big_stream_decode(torch, SK, SP) -> dict:
     """Phase 40's stream past int32 bit positions: inflate_speculative of
     big_stream, cold and warm, back to its input, with its peak device
-    memory and SP1-SP3's launches."""
+    memory, SP1-SP3's launches and the warm run's event ms a kernel."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -2905,22 +3113,24 @@ def big_stream_decode(torch, SK, SP) -> dict:
     torch.cuda.reset_peak_memory_stats()
     walls, st = [], {}
     for _ in range(2):
-        t0 = time.perf_counter()
-        out, used = SP.inflate_speculative(stream, len(data) + (1 << 20), stats=st)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        with sp_events(torch, SK) as ev:
+            t0 = time.perf_counter()
+            out, used = SP.inflate_speculative(stream, len(data) + (1 << 20), stats=st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
         if out != data or used != len(stream):
             raise AssertionError("inflate_speculative of the big stream is not its input")
         del out
     peak = torch.cuda.max_memory_allocated() - base
     res = {"bytes": len(stream), "out_bytes": len(data), "bits": 8 * len(stream),
            "cold_s": walls[0], "warm_s": walls[1], "make_s": make_s,
-           "peak_device_bytes": peak, "launches": dict(SK.launches), "stats": st}
+           "peak_device_bytes": peak, "launches": dict(SK.launches), "stats": st,
+           "warm_event_ms": {k: round(sum(v), 4) for k, v in ev.items()}}
     print(f"phase 40 big: {len(stream)} bytes ({8 * len(stream)} bits, past 2^31) -> "
           f"{len(data)} in {walls[1]:.4f} s warm ({len(data) / walls[1] / 1e6:.1f} MB/s; cold "
           f"{walls[0]:.4f} s), equal to its input; segments {st['segments']}, misses "
-          f"{st['misses']}, launches {res['launches']}, peak device memory {peak} bytes; made "
-          f"in {make_s:.1f} s", flush=True)
+          f"{st['misses']}, launches {res['launches']}, peak device memory {peak} bytes, the "
+          f"warm run's event ms {res['warm_event_ms']}; made in {make_s:.1f} s", flush=True)
     return res
 
 
@@ -5107,7 +5317,9 @@ def main() -> int:
                                  "head_ms", "sync_ms", "expand_ms", "spec_ms", "windows",
                                  "sync_rounds",
                                  "max_sync_rounds", "jump_rounds", "serial_finishes", "exact_ms",
-                                 "exact_warp_ms")
+                                 "exact_warp_ms", "old_ms", "survivors", "checked",
+                                 "survivors_to_first_pass", "hops_max", "hops_mean", "device_ms",
+                                 "old_device_ms", "pending")
                        if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

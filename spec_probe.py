@@ -1,10 +1,18 @@
-"""A short call for SP2, the speculative marker decode, on one H100
-(csrc/speculative.cu: `spec_sync`, a thread block a row, and `spec_decode`,
-the one-warp launch it replaced).
+"""A short call for the speculative decode's kernels on one H100
+(csrc/speculative.cu): SP2 (`spec_sync`, a thread block a row, and
+`spec_decode`, the one-warp launch it replaced), SP1 (`find_tiles` and
+`find_first` against `find_prefilter` and `find_check`) and SP3
+(`resolve_chase` and `resolve_tail` against the pointer jumping).
 
 Prints the card's name and power limit; builds speculative.cu once with
-`-Xptxas -v` and prints the two SP2 kernels' registers, stack and spills;
+`-Xptxas -v` and prints those kernels' registers, stack and spills;
 then, on chip_smoke.py's 8 MiB corpus as raw deflate at level 6:
+- SP1 and SP3 against their plain versions and their first designs and
+  timed against them in turn (new, old, old, new: event ms, device ms by
+  kernel, host wall, peak memory), with SP1's survivors (counted, checked,
+  up to each segment's first pass) and SP3's hops (the longest, the mean), on
+  the raw-6 chain and a 16 MiB long-chain stream (chip_smoke's
+  `sp1_pairs`, `in_turn`, `sp3_case`); `inflate_speculative`'s warm walls;
 - cuts the stream as `inflate_speculative` does (SP1 on every 32 KiB
   segment) and holds the block launch against the plain version on four
   rows and against the one-warp launch on every row (cells [0, n),
@@ -16,12 +24,14 @@ then, on chip_smoke.py's 8 MiB corpus as raw deflate at level 6:
   launches, and `inflate_raw`'s warm wall, equal to the corpus;
 - `inflate_raw` against `inflate_speculative` on raw-6 streams of 16 KiB
   to 1 MiB of the corpus, warm walls.
-Its last line is OK or FAIL. `--times` keeps the build, the block launch
-against the one-warp launch on every segment row, the timings and
-`inflate_raw`'s walls (to compare two trees in one call).
+Its last line is OK or FAIL. `--times` keeps the build, SP1 and SP3, the
+block launch against the one-warp launch on every segment row, the
+timings and `inflate_raw`'s walls (to compare two trees in one call);
+`--sp13` the build, SP1 and SP3 and `inflate_speculative`'s walls alone.
 
-    python3 spec_probe.py            # one H100, under a minute of command time
-    python3 spec_probe.py --times    # about 30 s
+    python3 spec_probe.py            # one H100, about a minute of command time
+    python3 spec_probe.py --times
+    python3 spec_probe.py --sp13
 """
 
 import json
@@ -33,6 +43,7 @@ import zlib
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
@@ -41,8 +52,13 @@ from zlib_rs_tpu_torch.ops.kernels import speculative_kernel as SK  # noqa: E402
 from zlib_rs_tpu_torch.parallel import speculative as SP  # noqa: E402
 
 
+KERNELS = ("spec_sync", "spec_decode", "find_tiles", "find_first", "find_prefilter",
+           "find_check", "resolve_chase", "resolve_tail")
+
+
 def ptxas_lines() -> list:
-    """speculative.cu's ptxas report for the two SP2 kernels."""
+    """speculative.cu's ptxas report for SP2's two kernels and SP1's and
+    SP3's, both designs."""
     out = _device.BUILD / "spec_probe"
     out.mkdir(parents=True, exist_ok=True)
     res = subprocess.run([_device._nvcc(), *_device.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -52,7 +68,7 @@ def ptxas_lines() -> list:
     keep, name = [], None
     for ln in lines:
         if "Compiling entry function" in ln:
-            name = "spec_sync" if "spec_sync" in ln else "spec_decode" if "spec_decode" in ln else None
+            name = next((k for k in KERNELS if k in ln), None)
         elif name and ("registers" in ln or "stack frame" in ln):
             keep.append(f"{name}: {ln.strip()}")
     return keep
@@ -65,9 +81,7 @@ def rows_of(torch, dev, stream: bytes, seg: int, max_out: int):
     words = torch.from_numpy(SK.stream_words(stream)).to(dev)
     T = len(stream) // seg
     bounds = [8 * k * seg for k in range(T)] + [nbits]
-    lo = torch.tensor(bounds[1:T], dtype=torch.int64, device=dev)
-    hi = torch.tensor(bounds[2:], dtype=torch.int64, device=dev)
-    starts = SK.block_find_cuda(words, nbits, lo, hi).tolist()
+    starts = SK.block_find_cuda(words, nbits, bounds[1:T], bounds[2:]).tolist()
     cap = SP.segment_cap(seg, max_out)
     rows = [(0, bounds[1], cap, 0)] + [
         (s, bounds[k + 1], cap if s >= 0 else 0, SK.WSIZE) for k, s in enumerate(starts, 1)]
@@ -109,8 +123,29 @@ def timed_pair(torch, words, nbits, rows, reps: int) -> dict:
     return {"ms": ms, "stats": stats}
 
 
+def sp1_sp3(torch, dev, corpus: bytes, streams: dict) -> tuple[bool, dict]:
+    """SP1 and SP3, the route's launches against their first designs
+    (chip_smoke.py phase 40's comparisons, `sp1_case` and `sp3_case`):
+    SP1 on every segment of the raw-6 stream, a retry round's ranges and
+    8 segments each of the stored and Z_FIXED streams against the plain
+    version and the first design, and with rooms of 1 and 0 survivors a
+    tile; SP3 on the raw-6 chain and a long-chain stream against the plain
+    version, the first design and the input; each timed in turn with its
+    counters."""
+    raw = streams["raw6"]
+    sp1 = CS.sp1_case(torch, SK, dev, streams, SP.SEGMENT_BYTES)
+    upto = sp1.pop("upto")
+    sp1.update(survivors_to_first_pass=sum(upto), max_to_first_pass=max(upto),
+               found=sum(b >= 0 for b in sp1["found"]))
+    sp3 = CS.sp3_case(torch, SK, SP, dev, raw, corpus, 4 * len(corpus))
+    chains = CS.long_chain_corpus(np, corpus)
+    sp3_long = CS.sp3_case(torch, SK, SP, dev, CS._raw(chains), chains, 4 * len(chains))
+    return sp1["max_abs_err"] == 0, {"sp1": sp1, "sp3": sp3, "sp3_long_chains": sp3_long}
+
+
 def main() -> int:
     times_only = "--times" in sys.argv[1:]
+    sp_only = "--sp13" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
         return 1
@@ -124,7 +159,21 @@ def main() -> int:
     corpus, _names = CS.load_corpus()
     streams = CS.speculative_streams(corpus)
     raw = streams["raw6"]
-    ok = True
+    ok, res = sp1_sp3(torch, dev, corpus, streams)
+    print("SP1 and SP3: " + json.dumps(res), flush=True)
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _used = SP.inflate_speculative(raw, 4 * len(corpus))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ok = ok and out == corpus
+    print(f"inflate_speculative of raw-6: warm s {walls[1:]} (cold {walls[0]:.4f}), "
+          f"{len(corpus) / min(walls[1:]) / 1e6:.1f} MB/s", flush=True)
+    if sp_only:
+        print("OK" if ok else "FAIL", flush=True)
+        return 0 if ok else 1
 
     # -- the segments' rows: block against plain and the one-warp launch --
     seg = SP.SEGMENT_BYTES
@@ -145,8 +194,7 @@ def main() -> int:
     ):
         n2 = 8 * len(stream)
         w2 = torch.from_numpy(SK.stream_words(stream)).to(dev)
-        l2 = torch.tensor([8 * seg, 16 * seg], dtype=torch.int64, device=dev)
-        g2 = SK.block_find_cuda(w2, n2, l2, l2 + 8 * seg).tolist()
+        g2 = SK.block_find_cuda(w2, n2, [8 * seg, 16 * seg], [16 * seg, 24 * seg]).tolist()
         cap = SP.segment_cap(seg, 4 * len(corpus))
         r2 = [(0, 8 * seg, cap, 0), (g2[0], 16 * seg, cap if g2[0] >= 0 else 0, SK.WSIZE),
               (g2[1], 24 * seg, 16 if g2[1] >= 0 else 0, SK.WSIZE), (-1, n2, 0, SK.WSIZE)] + extra

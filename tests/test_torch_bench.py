@@ -275,8 +275,9 @@ def test_rows_past_the_budget_are_cut_not_phase_errors(tiny, monkeypatch):
 
 
 def test_kernel_symbols_name_one_kernel_a_source():
-    """One kernel a source, but SP1-SP3's seven in csrc/speculative.cu (SP2's
-    block launch and the one-warp launch it replaced),
+    """One kernel a source, but SP1-SP3's eleven in csrc/speculative.cu (SP2's
+    block launch and the one-warp launch it replaced, SP1's tiles and
+    checks and SP3's chases and the first designs they replaced),
     EX's, DS's, the resolve's (the chain build and the walk), the levels
     1-3 dry parse's, the chase's and the tables' seven in
     csrc/exact_deflate.cu, and IS's two in csrc/istream.cu (the one-warp
@@ -288,7 +289,8 @@ def test_kernel_symbols_name_one_kernel_a_source():
     assert syms["zrs_lockstep"] == ("lockstep_regions",) and syms["zrs_swarm"] == ("swarm_walk",)
     assert syms["zrs_speculative"] == ("find_prefilter", "find_check", "spec_decode",
                                        "resolve_init", "resolve_jump", "resolve_narrow",
-                                       "spec_sync")
+                                       "spec_sync", "find_tiles", "find_first",
+                                       "resolve_chase", "resolve_tail")
     assert syms["zrs_exact_deflate"] == ("exact_deflate", "dstream_pump", "build_chains",
                                          "resolve_walk", "exact_dry", "exact_chase", "ds_tables")
     assert syms["zrs_istream"] == ("istream_advance", "istream_sync")

@@ -181,8 +181,7 @@ def _spec_stream(i):
 
 def _spec_ranges(i):
     _w, nbits = _spec_stream(i)
-    return (torch.tensor([0, nbits // 2], dtype=torch.int64),
-            torch.tensor([nbits // 2, nbits], dtype=torch.int64))
+    return [0, nbits // 2], [nbits // 2, nbits]
 
 
 def _spec_meta(i):
@@ -496,37 +495,45 @@ def test_swarm_walk_dispatch_by_device(monkeypatch):
 
 
 def test_speculative_wrappers_hand_the_kernels_their_operands(stub, inputs, monkeypatch):
-    """SP1's entry takes (words, W, nbits, lo, hi, T, span, surv, cap,
-    count, best, stream) and reruns with room for every survivor when the
-    pre-filter counts more than its list holds; SP2's (words, W, nbits,
-    meta, T, cells, recs, status, stream) with int16 cells and int64
-    records and [T, 8] status; SP3's (cells, n, seg_ofs, E, ptr_a, ptr_b,
-    rounds, out, flag, stream) with log2 rounds. Bit positions are 64-bit:
-    nbits a long long, lo/hi, the survivors and the best offsets int64."""
+    """SP1's entry takes (words, W, nbits, ops, T, tiles, surv, room,
+    counts, res, stats, stream): ops int64 [3T + 1] (lo, hi, each
+    segment's first pre-filter tile), u16 survivors a tile in a room of
+    TILE_BITS // SURVIVOR_SHARE, and res int64 [2T] (the offsets, then an
+    overflow flag a segment), rerun with room for every offset when a
+    flag is set; SP2's (words, W, nbits, meta, T, cells, recs, status,
+    stream) with int16 cells and int64 records and [T, 8] status; SP3's
+    (work, n, seg_ofs, E, limit, budget, out, ctl, stats, stream) with a
+    copy of the cells to rewrite and 2^rounds hops. Bit positions are 64-bit: nbits a long long, the ranges and
+    the offsets int64."""
     monkeypatch.setattr(_device, "ptr", lambda t: t)
     lib = _device.library("speculative")
     words, nbits = _spec_stream(inputs)
     lo, hi = _spec_ranges(inputs)
-    caps = []
+    rooms = []
 
     def find(*args):
-        caps.append(args[8])
-        args[9][0] = args[8] + 5 if len(caps) == 1 else args[8]
+        rooms.append(args[7])
+        args[9][2:] = 1 if len(rooms) == 1 else 0  # the first launch overflows
         return 0
 
     find.argtypes = None
     lib.zrs_block_find = find
     best = SK.block_find_cuda(words, nbits, lo, hi)
-    assert caps[0] == (int((hi - lo).sum()) // SK.SURVIVOR_SHARE + 1024) and caps[1] == caps[0] + 5
-    assert SK.launches["block_find"] == 2 and best.tolist() == [-1, -1]
+    assert rooms == [SK.TILE_BITS // SK.SURVIVOR_SHARE, SK.TILE_BITS]
+    assert SK.launches["block_find"] == 2 and best.tolist() == [0, 0]
     assert best.dtype == torch.int64
     lib.zrs_block_find = _Entry([], "zrs_block_find")
     SK.block_find_cuda(words, nbits, lo, hi)
     args = lib.zrs_block_find.args
     assert lib.zrs_block_find.argtypes[2] is ctypes.c_longlong and args[2] == nbits
-    assert args[3].dtype == args[4].dtype == args[7].dtype == args[10].dtype == torch.int64
-    with pytest.raises(ValueError, match="int64"):
-        SK.block_find_cuda(words, nbits, lo.int(), hi.int())
+    tiles = SK.tile_counts(lo, hi, nbits)
+    assert args[3].tolist() == lo + hi + [0, tiles[0], sum(tiles)]
+    assert args[4:6] == (2, sum(tiles)) and args[6].shape == (sum(tiles), args[7])
+    assert args[3].dtype == args[9].dtype == torch.int64 and args[9].shape == (4,)
+    with pytest.raises(ValueError, match="lists"):
+        SK.block_find_cuda(words, nbits, torch.tensor(lo), torch.tensor(hi))
+    with pytest.raises(ValueError, match="lists"):
+        SK.block_find_cuda(words, nbits, lo, hi[:1])
     SK.spec_decode_cuda(words, nbits, _spec_meta(inputs), 64, 8)
     args = lib.zrs_spec_decode.args
     assert args[1:5:3] == (words.shape[0], 2) and args[5].dtype == torch.int16
@@ -543,9 +550,40 @@ def test_speculative_wrappers_hand_the_kernels_their_operands(stub, inputs, monk
         SK.spec_decode_cuda(words, nbits, _spec_meta(inputs), 40, 8)
     SK.spec_resolve_cuda(torch.zeros(40, dtype=torch.int16), torch.tensor([0, 9, 20, 33, 40]))
     args = lib.zrs_spec_resolve.args
-    assert args[1] == 40 and args[3] == 4 and args[6] == SK.resolve_rounds(4) == 3
+    assert args[1] == 40 and args[3] == 4 and args[4] == 1 << SK.resolve_rounds(4) == 8
+    assert args[0].shape == (40,) and args[0].dtype == torch.int16 and args[8] is None
+    assert args[5] == SK.HOP_BUDGET and args[7].shape == (2,)
+    assert lib.zrs_spec_resolve.argtypes[4] is ctypes.c_longlong
     with pytest.raises(ValueError, match="int16"):
         SK.spec_resolve_cuda(torch.zeros(4, dtype=torch.int32), torch.tensor([0, 4]))
+
+
+def test_block_find_reads_back_once_a_launch(stub, inputs, monkeypatch):
+    """SP1's wrapper, given the ranges as lists (as the route gives them),
+    reaches the host once a launch: one copy of the offsets and the
+    overflow flags, and one more for the rerun; no other read of a device
+    tensor (item, tolist, numpy, a second copy)."""
+    reads = []
+    for name in ("cpu", "item", "tolist", "numpy"):
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda self, *a, _r=real, _n=name, **k: (reads.append(_n),
+                                                                     _r(self, *a, **k))[1])
+    monkeypatch.setattr(_device, "ptr", lambda t: t)
+    words, nbits = _spec_stream(inputs)
+    lo, hi = [0, nbits // 3, nbits // 2], [nbits // 3, nbits // 2, nbits]
+    best = SK.block_find_cuda(words, nbits, lo, hi)
+    assert reads == ["cpu"] and best.shape == (3,)
+
+    def overflow(*args):
+        args[9][3:] = 1 if args[7] < SK.TILE_BITS else 0
+        return 0
+
+    overflow.argtypes = None
+    _device.library("speculative").zrs_block_find = overflow
+    reads.clear()
+    SK.block_find_cuda(words, nbits, lo, hi)
+    assert reads == ["cpu", "cpu"]
 
 
 def test_speculative_dispatch_by_device(monkeypatch):

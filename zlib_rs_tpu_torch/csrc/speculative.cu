@@ -3,12 +3,17 @@
 // Replaces no pallas_call site. It is the card's counterpart of the decode
 // half of the reference's native engine (zlib_rs_tpu/native.py
 // inflate_speculative and zran_index over native/zrs_native.cpp):
-//   zrs_block_find   SP1, validate_header_at / find_candidate (depth 6)
+//   zrs_block_find   SP1, validate_header_at / find_candidate (depth 6): a
+//                    tile's pre-filter, then a block a segment checks its
+//                    survivors in order (zrs_block_find_thread, the first
+//                    design, stays to be timed against it)
 //   zrs_spec_decode  SP2, spec_decode with inflate_raw_impl's error codes
 //                    and its stop and point hooks (a thread block a row;
 //                    zrs_spec_decode_warp, the one-warp launch it
 //                    replaced, stays to be timed against it)
-//   zrs_spec_resolve SP3, the stitch: markers resolved, cells to bytes
+//   zrs_spec_resolve SP3, the stitch: markers resolved, cells to bytes, a
+//                    chase a cell (zrs_spec_resolve_jump, the first
+//                    design's pointer jumping, stays to be timed)
 // ops/kernels/speculative_kernel.py holds each one's plain version, whose
 // control flow these kernels follow step for step, and the wrappers.
 //
@@ -18,7 +23,8 @@
 // fail within 17 bits. SP2 moves the stream in and 2 bytes a cell out; a
 // row is one serial chain (a code's length decides where the next
 // starts), which its design breaks inside each coded block. SP3 moves
-// bytes: cells in, pointers through log2(segments) rounds, bytes out.
+// bytes: cells in, bytes out, and a chain's hops read cells within 32 KiB
+// before each segment, which the 50 MB L2 holds.
 //
 // Design.
 // - Stream bit positions are 64-bit everywhere: SP1's ranges, survivors and
@@ -26,20 +32,27 @@
 //   records, int64 from the host's chain walk on (a stream of 2^28 bytes
 //   or more has bit positions past int32). Cell counts stay int32, a
 //   segment's room being under 2^31 cells.
-// - SP1 runs two passes. The pre-filter is a thread a bit offset over every
-//   searched range: the chain's first header by its type, a stored LEN and
-//   NLEN, or a dynamic header's counts and a complete code-length code,
-//   each field read from two 32-bit words (bits straddle words). Survivors
-//   (under 1% of offsets on compressed data) are appended to a list, one
-//   atomic a warp. The full check then runs a thread a survivor: the
-//   native chain of up to 6 headers (stored links over their payloads,
-//   static followers sanity-decoded for up to 192 symbols by arithmetic on
-//   the fixed code, a dynamic link's code lengths decoded canonically and
-//   both codes' Kraft sums checked, which is all that building native's
-//   tables can refuse), and an atomicMin a segment keeps its first passing
-//   offset. A survivor beyond its segment's best so far exits early. So a
-//   warp of pass 2 is 32 survivors, not the rare survivor among 31 idle
-//   lanes that a one-pass scan would make it.
+// - SP1 (zrs_block_find) runs two kernels. find_tiles is a block a tile of
+//   8,192 bit offsets of one segment's range, its words staged in shared
+//   memory, a thread a word's 32 offsets: the offsets whose chain could
+//   start there (stored or dynamic type) come from two shifts of the word,
+//   and each reads its fields by funnel shifts: a stored LEN/NLEN, or a
+//   dynamic header's counts and its code-length code's Kraft sum (PRMT
+//   lookups, no local array). The survivors (under 1% of offsets on
+//   compressed data) go in offset order into the tile's room of u16
+//   offsets (a block scan), the exact count beside it. find_first is a
+//   block a segment: its survivors in offset order, 256 at a time, a thread
+//   each, through the native chain of up to 6 headers (stored links over
+//   their payloads, static followers sanity-decoded for up to 192 symbols
+//   by arithmetic on the fixed code, a dynamic link's code lengths through
+//   the thread's 128-entry table of the code-length code in shared memory
+//   with both codes' Kraft sums kept as integers, which is all that
+//   building native's tables can refuse), up to the first group in which
+//   one passes, the smallest winning. No survivor past a segment's first
+//   pass is checked but the rest of its group. The first design
+//   (find_prefilter, a thread an offset, then find_check, a thread a
+//   survivor of an unordered list, an atomicMin a segment) stays as
+//   zrs_block_find_thread, to be timed against it.
 // - SP2 is a thread block of 1,024 a row (spec_sync), over the body that
 //   IS decodes its coded blocks with (sync_body.cuh): a persistent grid of
 //   as many blocks as are resident, each taking the next row from an
@@ -67,18 +80,28 @@
 // - The one-warp launch (spec_decode): a warp a row on native's serial
 //   code, K6's warp-built two-level tables in shared memory, every literal
 //   a store to device memory; 4.4 MB/s of output a warp.
-// - SP3 runs three kernels from one entry: each cell takes a pointer (to
-//   itself when known; a marker to its segment's offset minus back, the
-//   segment found by binary search over the offsets), then rounds of
-//   pointer jumping, p[i] = p[p[i]], in two buffers: a hop always lands in
-//   an earlier segment, so log2(segments) rounds resolve every chain, even
-//   one that crosses many segments under 32 KiB of output; then each cell
-//   reads its target and narrows to a byte.
+// - SP3 (zrs_spec_resolve) is a chase a cell over a copy of the cells:
+//   resolve_chase runs a warp 32 consecutive cells, each marker's chain
+//   followed (a hop lands in an earlier segment; seg_ofs in shared memory,
+//   the target's segment tried one back before a binary search) until a
+//   literal, a cell that is its own target, or the plain version's
+//   2^rounds hops. Where seg_ofs starts at 0 (every chain then ends within
+//   its segments' count of hops) a resolved marker's byte is written back
+//   into the copy as a literal, so that a later chain through it ends
+//   there: a racing read sees the marker or its byte, which end the chain
+//   alike. A chain still going after kHopBudget hops stays a marker, and
+//   resolve_tail follows those to their ends.
+//   The first design (resolve_init, rounds of resolve_jump over two int32
+//   pointer arrays of every cell, resolve_narrow) stays as
+//   zrs_spec_resolve_jump, to be timed against it.
 //
 // Without __CUDACC__ the file compiles as host C++ with SP2's block launch
-// alone (zrs_spec_decode_host): the rows in turn, the block's threads in
-// turn, L an argument, so that the CPU tests run this file's SP2 against
-// its plain version and native.
+// (zrs_spec_decode_host: the rows in turn, the block's threads in turn, L
+// an argument) and SP1's and SP3's second designs (zrs_block_find_host: one
+// thread runs each tile, then each segment, so its block scans and group
+// picks see one thread; zrs_spec_resolve_host: the cells in turn), so that
+// the CPU tests run this file's SP1-SP3 against their plain versions and
+// native.
 
 #include "sync_body.cuh"
 
@@ -874,17 +897,592 @@ __global__ void resolve_narrow(const uint16_t* __restrict__ cells, const int* __
                                int n, uint8_t* __restrict__ out, int* flag) {
   const long long i = (long long)blockIdx.x * kResolveThreads + threadIdx.x;
   if (i >= n) return;
-  int c = cells[ptr[i]];
-  if (c >= 256) {
-    atomicOr(flag, 1);
-    c = 0;
-  }
-  out[i] = (uint8_t)c;
+  const int c = cells[ptr[i]];
+  if (c >= 256) atomicOr(flag, 1);
+  out[i] = (uint8_t)c;  // an unresolved marker's low byte, as the plain version
 }
 
 
 #endif  // __CUDACC__
 
+// ---------------------------------------------------------------------------
+// SP1, the block finder: a tile's pre-filter, then a block a segment checks
+// its survivors in offset order (zrs_block_find; find_prefilter and
+// find_check above are the first design, zrs_block_find_thread)
+// ---------------------------------------------------------------------------
+
+constexpr int kTileWords = 256;  // a pre-filter tile: a word of 32 offsets a thread (a u16 offset)
+constexpr int kGroup = 256;      // the check: survivors a round, a thread each
+
+IS_INL uint32_t funnel(uint32_t lo, uint32_t hi, int s) {  // 32 bits of hi:lo from bit s < 32
+#ifdef __CUDACC__
+  return __funnelshift_r(lo, hi, s);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> s);
+#endif
+}
+
+IS_INL int low_bit(uint32_t m) {
+#ifdef __CUDACC__
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+IS_INL int popcount(uint32_t m) {
+#ifdef __CUDACC__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
+IS_INL void add64(long long* p, long long v) {
+#ifdef __CUDACC__
+  atomicAdd((unsigned long long*)p, (unsigned long long)v);
+#else
+  *p += v;
+#endif
+}
+
+IS_INL int block_any(int v) {
+#ifdef __CUDACC__
+  return __syncthreads_or(v);
+#else
+  return v;
+#endif
+}
+
+// the exclusive scan of v over the block's threads in order (a multiple of
+// 32 of them; thread 0 of 1 on the host), the sum in *total. Every thread
+// calls it; wsum is 32 ints of shared memory.
+IS_INL int block_scan(int v, int* wsum, int* total, int tid, int nthr) {
+#ifdef __CUDACC__
+  const int lane = tid & 31, warp = tid >> 5, nw = nthr >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < nw ? wsum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < nw) wsum[lane] = s;
+  }
+  __syncthreads();
+  *total = wsum[nw - 1];
+  const int r = (warp ? wsum[warp - 1] : 0) + x - v;
+  __syncthreads();  // wsum is free for the next scan
+  return r;
+#else
+  (void)wsum, (void)tid, (void)nthr;
+  *total = v;
+  return 0;
+#endif
+}
+
+// the Kraft sum of a code-length code, 2^(7 - len) over the 3-bit lengths
+// of y (a length 0 adds nothing): 128 exactly when the code is complete,
+// more when it is over-subscribed at any length
+IS_INL uint32_t cl_kraft(uint64_t y) {
+  uint32_t sum = 0;
+#ifdef __CUDACC__
+#pragma unroll
+  for (int g = 0; g < 5; g++) {  // four lengths a PRMT, each picking its byte 2^(7 - len)
+    const uint32_t v = (uint32_t)(y >> (12 * g)) & 0xFFFu;
+    const uint32_t sel =
+        (v & 7u) | ((v << 1) & 0x70u) | ((v << 2) & 0x700u) | ((v << 3) & 0x7000u);
+    sum = __dp4a(__byte_perm(0x10204000u, 0x01020408u, sel), 0x01010101u, sum);
+  }
+#else
+  for (int i = 0; i < 19; i++) {
+    const uint32_t l = (uint32_t)(y >> (3 * i)) & 7u;
+    sum += l ? 128u >> l : 0u;
+  }
+#endif
+  return sum;
+}
+
+// the pre-filter over the 32 offsets b0 + s of one word (w0-w3 the words
+// from b0's on, `valid` the offsets in range), a bit a survivor:
+// prefilter_plain's checks, so every offset validate_header_at accepts
+// passes. The stored and dynamic types come from two shifts of the word
+// (bits b + 1 and b + 2); each such offset reads its fields from three
+// funnel shifts.
+IS_INL uint32_t prefilter_word(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3, long long b0,
+                               long long N, uint32_t valid) {
+  const uint32_t t1 = funnel(w0, w1, 1), t2 = funnel(w0, w1, 2);
+  uint32_t dyn = ~t1 & t2 & valid, sto = ~t1 & ~t2 & valid, keep = 0;
+  while (dyn) {
+    const int s = low_bit(dyn);
+    dyn &= dyn - 1;
+    const uint32_t p0 = funnel(w0, w1, s), p1 = funnel(w1, w2, s), p2 = funnel(w2, w3, s);
+    const uint32_t h = (p0 >> 3) & 0x3FFFu;
+    const int ncode = (int)(h >> 10) + 4;
+    if ((h & 31u) > 29 || ((h >> 5) & 31u) > 29 || b0 + s + 17 + 3 * ncode > N) continue;
+    const uint64_t y = (((uint64_t)funnel(p1, p2, 17) << 32) | funnel(p0, p1, 17)) &
+                       ((1ull << (3 * ncode)) - 1);
+    if (cl_kraft(y) == 128) keep |= 1u << s;
+  }
+  while (sto) {
+    const int s = low_bit(sto);
+    sto &= sto - 1;
+    const int d = ((s + 10) & ~7) - s;  // LEN at the byte boundary past the 3 header bits
+    const uint32_t v = funnel(funnel(w0, w1, s), funnel(w1, w2, s), d);
+    if (b0 + s + d + 32 <= N && ((v & 0xFFFFu) ^ (v >> 16)) == 0xFFFFu && (v & 0xFFFFu) != 0)
+      keep |= 1u << s;
+  }
+  return keep;
+}
+
+// segment k's offsets [a, e): at or past 0, within [lo, hi), b + 3 <= N.
+// ops is int64 [3T + 1]: lo [T], hi [T], each segment's first tile [T + 1]
+// (its tiles of kTileWords words from word a >> 5 on; tile_counts in
+// ops/kernels/speculative_kernel.py counts them).
+IS_INL void seg_range(const long long* ops, int T, int k, long long N, long long* a, long long* e) {
+  *a = ops[k] < 0 ? 0 : ops[k];
+  *e = ops[T + k] < N - 2 ? ops[T + k] : N - 2;
+}
+
+// the segment of tile g: the last k whose first tile is at or before g
+IS_INL int tile_segment(const long long* first, int T, int g) {
+  int lo = 0, hi = T - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first[mid] <= g)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// the bits of offsets b0 + s that lie in [a, e)
+IS_INL uint32_t range_mask(long long b0, long long a, long long e) {
+  const long long l = a - b0 < 0 ? 0 : a - b0, h = e - b0 > 32 ? 32 : e - b0;
+  if (h <= l) return 0;
+  return (h == 32 ? kFull : (1u << h) - 1u) & ~((1u << l) - 1u);
+}
+
+// tile g's pre-filter: its words staged (stage: kTileWords + 4 words), a
+// thread kTileWords / nthr consecutive words, the survivors in offset order
+// into the tile's room of u16 offsets from its first word's bit 0, at most
+// `room` of them, the exact count into counts[g]
+IS_DEV void find_tile(const uint32_t* w, int top, long long N, const long long* ops, int T, int g,
+                      uint16_t* surv, int room, int* counts, uint32_t* stage, int* wsum, int tid,
+                      int nthr) {
+  const long long* first = ops + 2 * T;
+  const int k = tile_segment(first, T, g);
+  long long a, e;
+  seg_range(ops, T, k, N, &a, &e);
+  const long long wb = (a >> 5) + (g - first[k]) * kTileWords;
+  for (int i = tid; i < kTileWords + 4; i += nthr) stage[i] = word_at(w, top, wb + i);
+  block_sync();
+  const int per = kTileWords / nthr, j0 = tid * per;
+  uint32_t keep0 = 0;
+  int c = 0;
+  for (int j = j0; j < j0 + per; j++) {
+    const long long b0 = (wb + j) * 32;
+    keep0 = prefilter_word(stage[j], stage[j + 1], stage[j + 2], stage[j + 3], b0, N,
+                           range_mask(b0, a, e));
+    c += popcount(keep0);
+  }
+  int total;
+  int r = block_scan(c, wsum, &total, tid, nthr);
+  if (tid == 0) counts[g] = total;
+  uint16_t* out = surv + (size_t)g * room;
+  for (int j = j0; j < j0 + per && r < room; j++) {
+    const long long b0 = (wb + j) * 32;
+    uint32_t keep = per == 1 ? keep0
+                             : prefilter_word(stage[j], stage[j + 1], stage[j + 2], stage[j + 3],
+                                              b0, N, range_mask(b0, a, e));
+    for (; keep && r < room; keep &= keep - 1, r++) out[r] = (uint16_t)(j * 32 + low_bit(keep));
+  }
+}
+
+// stream bits from a position, 64 at a time in a register (at least 33
+// after every step); reads past the words see zeros
+struct BitBuf {
+  const uint32_t* w;
+  int top;
+  long long wi;
+  uint64_t acc;
+  int n;
+  IS_INL void init(const uint32_t* w_, int top_, long long pos) {
+    w = w_;
+    top = top_;
+    wi = pos >> 5;
+    acc = word_at(w, top, wi++) >> (pos & 31);
+    n = 32 - (int)(pos & 31);
+    acc |= (uint64_t)word_at(w, top, wi++) << n;
+    n += 32;
+  }
+  IS_INL uint32_t peek(int k) const { return (uint32_t)acc & ((1u << k) - 1u); }
+  IS_INL void skip(int k) {
+    acc >>= k;
+    n -= k;
+    if (n <= 32) {
+      acc |= (uint64_t)word_at(w, top, wi++) << n;
+      n += 32;
+    }
+  }
+};
+
+// native parse_dynamic_tables at `pos` (after the block's 3 header bits),
+// without building the tables: 0 when it would accept the header. The
+// code lengths decode through this thread's 128 entries of the
+// code-length code by 7-bit peeks (symbol | length << 5), entry r at
+// tab[r * kGroup + tid] (a warp's 32 tables interleaved, so that a fill
+// of one slot by every lane touches 8 banks once), and both codes' Kraft
+// sums are kept as integers (2^(15 - len) a length and the number of
+// codes), which is all native's build_table checks.
+IS_DEV int dynamic_check(const uint32_t* w, int top, long long N, long long pos, uint8_t* tab,
+                         int tid) {
+  if (N - pos < 14) return kTruncated;
+  BitBuf bb;
+  bb.init(w, top, pos);
+  const uint32_t h = bb.peek(14);
+  const int nlen = (int)(h & 31u) + 257, ndist = (int)((h >> 5) & 31u) + 1;
+  const int ncode = (int)((h >> 10) & 15u) + 4;
+  bb.skip(14);
+  pos += 14;
+  if (nlen > 286 || ndist > 30) return kInvalidData;
+  uint64_t lens = 0;  // the code-length code's lengths by symbol, 3 bits each
+  for (int i = 0; i < ncode; i++) {
+    if (N - pos < 3) return kTruncated;
+    lens |= (uint64_t)bb.peek(3) << (3 * kClOrder[i]);
+    bb.skip(3);
+    pos += 3;
+  }
+  uint64_t cnt = 0;  // its codes a length, 8 bits each
+  for (int s = 0; s < 19; s++) {
+    const int l = (int)(lens >> (3 * s)) & 7;
+    if (l) cnt += 1ull << (8 * l);
+  }
+  uint32_t kraft = 0;
+  for (int l = 1; l < 8; l++) kraft += (uint32_t)((cnt >> (8 * l)) & 0xFFu) << (7 - l);
+  if (kraft != 128) return kInvalidData;
+  uint64_t next = 0;  // canonical next codes a length, 8 bits each
+  uint32_t code = 0;
+  for (int l = 1; l < 8; l++) {
+    code = (code + (uint32_t)((cnt >> (8 * (l - 1))) & 0xFFu)) << 1;
+    next |= (uint64_t)code << (8 * l);
+  }
+  for (int s = 0; s < 19; s++) {
+    const int l = (int)(lens >> (3 * s)) & 7;
+    if (!l) continue;
+    const uint32_t c = (uint32_t)(next >> (8 * l)) & 0xFFu;
+    next += 1ull << (8 * l);
+    for (uint32_t r = bit_reverse(c, l); r < 128; r += 1u << l)
+      tab[r * kGroup + tid] = (uint8_t)(s | (l << 5));
+  }
+  const int total = nlen + ndist;
+  int have = 0, prev = 0, len256 = 0, n_lit = 0, n_dist = 0;
+  uint32_t k_lit = 0, k_dist = 0;
+  while (have < total) {
+    if (N - pos < 7) return kTruncated;
+    const int ent = tab[bb.peek(7) * kGroup + tid];
+    const int sym = ent & 31, nb = ent >> 5;
+    int rep, fill;
+    if (sym < 16) {
+      bb.skip(nb);
+      pos += nb;
+      rep = 1;
+      fill = sym;
+    } else {
+      const int extra = sym == 16 ? 2 : sym == 17 ? 3 : 7;
+      if (N - pos < nb + extra) return kTruncated;
+      const int x = (int)(bb.peek(nb + extra) >> nb);
+      bb.skip(nb + extra);
+      pos += nb + extra;
+      if (sym == 16) {
+        if (have == 0) return kInvalidData;
+        rep = 3 + x;
+        fill = prev;
+      } else {
+        rep = (sym == 17 ? 3 : 11) + x;
+        fill = 0;
+      }
+      if (have + rep > total) return kInvalidData;
+    }
+    const int in_lit = (have + rep < nlen ? have + rep : nlen) - have;
+    const int lit = in_lit > 0 ? in_lit : 0;
+    if (fill) {
+      k_lit += (uint32_t)lit << (15 - fill);
+      k_dist += (uint32_t)(rep - lit) << (15 - fill);
+      n_lit += lit;
+      n_dist += rep - lit;
+    }
+    if (have <= 256 && 256 < have + rep) len256 = fill;
+    have += rep;
+    prev = fill;
+  }
+  // build_table's refusals: over-subscribed, or incomplete with other than
+  // one litlen code, or with more than one distance code
+  const bool lit_bad = k_lit > 32768u || (k_lit < 32768u && n_lit != 1);
+  const bool dist_bad = k_dist > 32768u || (k_dist < 32768u && n_dist > 1);
+  return len256 == 0 || lit_bad || dist_bad ? kInvalidData : kOk;
+}
+
+// native validate_header_at(b, depth 6), its dynamic link by dynamic_check
+IS_DEV bool validate_chain(const uint32_t* w, int top, long long N, long long b, uint8_t* tab,
+                           int tid) {
+  long long pos = b;
+  int stored = 0;
+  for (int d = 0; d < kDepth; d++) {
+    if (N - pos < 3) return false;
+    const int typ = (int)bits_at(w, top, pos + 1, 2);
+    pos += 3;
+    if (typ == 3 || (typ == 1 && d == 0)) return false;
+    if (typ == 0) {
+      pos = (pos + 7) & ~7LL;
+      if (N - pos < 32) return false;
+      const uint32_t v = peek32(w, top, pos);
+      const int ln = (int)(v & 0xFFFFu), nln = (int)(v >> 16);
+      pos += 32;
+      if ((ln ^ nln) != 0xFFFF || ln == 0 || N - pos < 8 * ln) return false;
+      pos += 8 * ln;
+      stored++;
+      continue;
+    }
+    if (typ == 2) return dynamic_check(w, top, N, pos, tab, tid) == kOk;
+    // a static follower: the fixed code by arithmetic, its bits from a
+    // register buffer (a load a word, not two a symbol)
+    BitBuf bb;
+    bb.init(w, top, pos);
+    int syms = 0;
+    bool eob = false;
+    while (syms < kStaticSyms) {
+      if (N - pos == 0) return false;
+      const uint32_t p = bb.peek(9);
+      int sym, nb;
+      const uint32_t r7 = bit_reverse(p & 0x7Fu, 7);
+      if (r7 < 24) {
+        sym = 256 + (int)r7;
+        nb = 7;
+      } else {
+        const uint32_t r8 = bit_reverse(p & 0xFFu, 8);
+        if (r8 < 192) {
+          sym = (int)r8 - 48;
+          nb = 8;
+        } else if (r8 < 200) {
+          sym = 280 + (int)r8 - 192;
+          nb = 8;
+        } else {
+          sym = 144 + (int)bit_reverse(p, 9) - 400;
+          nb = 9;
+        }
+      }
+      if (N - pos < nb || sym >= 286) return false;
+      if (sym == 256) {
+        pos += nb;
+        eob = true;
+        break;
+      }
+      if (sym < 256) {
+        bb.skip(nb);
+        pos += nb;
+        syms++;
+        continue;
+      }
+      const int extra = kLenExtra[sym - 257];
+      if (N - pos < nb + extra) return false;
+      bb.skip(nb + extra);
+      pos += nb + extra;
+      const int dsym = (int)bit_reverse(bb.peek(5), 5);
+      if (dsym >= 30) return false;
+      if (N - pos < 5 + kDistExtra[dsym]) return false;
+      bb.skip(5 + kDistExtra[dsym]);
+      pos += 5 + kDistExtra[dsym];
+      syms++;
+    }
+    if (!eob) return true;
+  }
+  return stored >= 2;
+}
+
+// the check's scratch (shared memory on the card)
+struct CheckScratch {
+  uint8_t tab[128 * kGroup];  // each thread's code-length code by 7-bit peeks, interleaved
+  int prefix[kGroup];        // a window of tiles: the offsets of their survivors
+  int wsum[32];
+  int pick[2];  // a group's smallest passing survivor, two groups in turn
+  long long found;
+};
+
+// segment k's check: its survivors in offset order, nthr at a time, a
+// thread each, up to the first group in which one passes (the smallest
+// wins). res[k] gets the offset or -1, res[T + k] 1 where a tile of the
+// segment outgrew its room (the survivors past the room were not kept, so
+// the host reruns with room for all). stats (or null) gets the segment's
+// survivors and the ones it checked.
+IS_DEV void check_segment(const uint32_t* w, int top, long long N, const long long* ops, int T,
+                          int k, const uint16_t* surv, int room, const int* counts, long long* res,
+                          long long* stats, CheckScratch* sc, int tid, int nthr) {
+  const long long* first = ops + 2 * T;
+  const int t0 = (int)first[k], t1 = (int)first[k + 1];
+  long long a, e;
+  seg_range(ops, T, k, N, &a, &e);
+  const long long wb = a >> 5;
+  if (tid == 0) sc->pick[0] = INT_MAX;
+  int over = 0, counted = 0;
+  for (int t = t0 + tid; t < t1; t += nthr) {
+    over |= counts[t] > room;
+    counted += counts[t];
+  }
+  over = block_any(over);
+  block_scan(counted, sc->wsum, &counted, tid, nthr);
+  long long best = -1, checked = 0;
+  int group = 0;
+  for (int win = t0; win < t1 && best < 0; win += nthr) {
+    const int nt = t1 - win < nthr ? t1 - win : nthr;
+    int c = 0, total;
+    if (tid < nt) c = counts[win + tid] < room ? counts[win + tid] : room;
+    const int p = block_scan(c, sc->wsum, &total, tid, nthr);
+    if (tid < nt) sc->prefix[tid] = p;
+    block_sync();
+    for (int g0 = 0; g0 < total && best < 0; g0 += nthr) {
+      const int j = g0 + tid;
+      bool pass = false;
+      long long b = 0;
+      if (j < total) {
+        int lo = 0, hi = nt - 1;  // the window's last tile whose survivors start at or before j
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (sc->prefix[mid] <= j)
+            lo = mid;
+          else
+            hi = mid - 1;
+        }
+        b = (wb + (long long)(win - t0 + lo) * kTileWords) * 32 +
+            surv[(size_t)(win + lo) * room + (j - sc->prefix[lo])];
+        pass = validate_chain(w, top, N, b, sc->tab, tid);
+      }
+      int* pk = sc->pick + (group & 1);
+      if (pass) s_min(pk, j);
+      block_sync();
+      const int pick = *pk;
+      if (tid == 0) sc->pick[~group & 1] = INT_MAX;  // the next group's, read before the last barrier
+      if (pass && j == pick) sc->found = b;
+      block_sync();
+      if (pick != INT_MAX) best = sc->found;
+      checked += total - g0 < nthr ? total - g0 : nthr;
+      group++;
+    }
+  }
+  if (tid == 0) {
+    res[k] = best;
+    res[T + k] = over;
+    if (stats) {
+      add64(stats, counted);
+      add64(stats + 1, checked);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// SP3, the marker resolve: a chase a cell (zrs_spec_resolve; resolve_init,
+// resolve_jump and resolve_narrow above are the first design,
+// zrs_spec_resolve_jump)
+// ---------------------------------------------------------------------------
+
+constexpr int kHopBudget = 16;    // hops a chain takes in the first launch
+constexpr int kSegStage = 6144;   // seg_ofs entries held in shared memory (48 KiB)
+constexpr int kResolveStats = 4;  // markers, hops, most hops, pending after the first launch
+
+// the segment of cell q: the last s < E whose offset is at or before q (0
+// when none is)
+IS_INL int seg_of(const long long* so, int E, long long q) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (so[mid] <= q)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// the resolve's counters a thread, summed (the most hops: the largest)
+// into stats at the end of a launch
+struct HopStats {
+  long long v[kResolveStats];
+};
+
+IS_INL void flush_stats(long long* stats, HopStats& hs) {
+  if (!stats) return;
+#ifdef __CUDACC__
+  for (int f = 0; f < kResolveStats; f++) {
+    long long x = hs.v[f];
+    for (int o = 16; o; o >>= 1) {
+      const long long y = __shfl_xor_sync(kFull, x, o);
+      x = f == 2 ? (x > y ? x : y) : x + y;
+    }
+    if ((threadIdx.x & 31) == 0) {
+      if (f == 2)
+        atomicMax(stats + f, x);
+      else
+        atomicAdd((unsigned long long*)(stats + f), (unsigned long long)x);
+    }
+  }
+#else
+  for (int f = 0; f < kResolveStats; f++)
+    stats[f] = f == 2 ? (hs.v[f] > stats[f] ? hs.v[f] : stats[f]) : stats[f] + hs.v[f];
+#endif
+}
+
+// cell i's byte from `work` (a copy of the cells): its marker's chain
+// followed, q <- seg_ofs[seg(q)] - back(q) clamped to the cells, until a
+// literal, a cell that is its own target (a marker at cell 0 that clamps
+// onto itself), `limit` hops (the plain version's 2^rounds: the pointer
+// jumping's end), or `budget` hops (INT_MAX: the second launch). A hop
+// lands in the segment before its source's in most streams (a reference
+// reaches 32 KiB back), which is tried before a binary search. Writes
+// out[i] and returns true, or false when the budget ran out (the cell
+// stays a marker: pending). With `memo` (where seg_ofs[0] <= 0: every
+// chain then ends within its segments' count of hops, under `limit`) a
+// resolved marker's byte goes back into work[i] as a literal, so that a
+// later chain through it ends there; a racing read sees the marker or its
+// byte, which end the chain alike. A chain that ends on a marker sets
+// ctl[0].
+IS_DEV bool resolve_one(uint16_t* work, int n, const long long* so, int E, long long limit,
+                        int budget, bool memo, uint8_t* out, int* ctl, int i, HopStats& hs) {
+  int c = work[i];
+  if (c < 256) {
+    out[i] = (uint8_t)c;
+    return true;
+  }
+  if (budget != INT_MAX) hs.v[0]++;  // a marker, counted on the first launch
+  int q = i, s = seg_of(so, E, i);
+  long long h = 0;
+  for (int k = 0; c >= 256 && h < limit; k++) {
+    long long t = so[s] - (c - 255);
+    t = t < 0 ? 0 : (t > n - 1 ? n - 1 : t);
+    if (t == q) break;
+    if (k == budget) {
+      hs.v[1] += h;
+      hs.v[3]++;
+      return false;
+    }
+    s = s > 0 && so[s - 1] <= t && t < so[s] ? s - 1 : seg_of(so, E, t);
+    q = (int)t;
+    c = work[q];
+    h++;
+  }
+  hs.v[1] += h;
+  hs.v[2] = h > hs.v[2] ? h : hs.v[2];
+  if (c >= 256) s_or((uint32_t*)ctl, 1u);
+  out[i] = (uint8_t)c;
+  if (memo) work[i] = (uint16_t)(c & 0xFF);
+  return true;
+}
 // ---------------------------------------------------------------------------
 // SP2: the marker decode, a thread block a row (spec_sync)
 // ---------------------------------------------------------------------------
@@ -1344,6 +1942,71 @@ spec_sync(const uint32_t* __restrict__ words, int W, long long N,
             threadIdx.x, kThreads);
   }
 }
+
+// SP1's pre-filter: a block a tile
+__global__ void __launch_bounds__(kTileWords)
+find_tiles(const uint32_t* __restrict__ w, int top, long long N, const long long* __restrict__ ops,
+           int T, uint16_t* __restrict__ surv, int room, int* __restrict__ counts) {
+  __shared__ uint32_t stage[kTileWords + 4];
+  __shared__ int wsum[32];
+  find_tile(w, top, N, ops, T, blockIdx.x, surv, room, counts, stage, wsum, threadIdx.x,
+            kTileWords);
+}
+
+// SP1's check: a block a segment
+__global__ void __launch_bounds__(kGroup)
+find_first(const uint32_t* __restrict__ w, int top, long long N, const long long* __restrict__ ops,
+           int T, const uint16_t* __restrict__ surv, int room, const int* __restrict__ counts,
+           long long* __restrict__ res, long long* stats) {
+  __shared__ CheckScratch sc;
+  check_segment(w, top, N, ops, T, blockIdx.x, surv, room, counts, res, stats, &sc, threadIdx.x,
+                kGroup);
+}
+
+// seg_ofs in the block's shared memory where it fits (E <= kSegStage)
+__device__ const long long* stage_offsets(const long long* seg_ofs, int E, long long* smem) {
+  if (E > kSegStage) return seg_ofs;
+  for (int i = threadIdx.x; i < E; i += blockDim.x) smem[i] = seg_ofs[i];
+  __syncthreads();
+  return smem;
+}
+
+// SP3's first launch: a warp 32 consecutive cells at a time, grid-strided,
+// each chain for `budget` hops; the cells left pending counted in ctl[1]
+__global__ void __launch_bounds__(kResolveThreads)
+resolve_chase(uint16_t* work, int n, const long long* __restrict__ seg_ofs, int E,
+              long long limit, int budget, uint8_t* __restrict__ out, int* ctl, long long* stats) {
+  extern __shared__ long long so_stage[];
+  const long long* so = stage_offsets(seg_ofs, E, so_stage);
+  const bool memo = so[0] <= 0;
+  HopStats hs = {};
+  const long long stride = (long long)gridDim.x * kResolveThreads;
+  for (long long base = (long long)blockIdx.x * kResolveThreads + (threadIdx.x & ~31); base < n;
+       base += stride) {
+    const long long i = base + (threadIdx.x & 31);
+    const bool pend =
+        i < n && !resolve_one(work, n, so, E, limit, memo ? budget : INT_MAX, memo, out, ctl,
+                              (int)i, hs);
+    const unsigned m = __ballot_sync(kFull, pend);
+    if ((threadIdx.x & 31) == 0 && m) atomicAdd(ctl + 1, __popc(m));
+  }
+  flush_stats(stats, hs);
+}
+
+// SP3's second launch, where the first left cells pending (still markers
+// in work): each one's chain to its end
+__global__ void __launch_bounds__(kResolveThreads)
+resolve_tail(uint16_t* work, int n, const long long* __restrict__ seg_ofs, int E,
+             long long limit, uint8_t* __restrict__ out, int* ctl, long long* stats) {
+  if (*(volatile int*)(ctl + 1) == 0) return;
+  extern __shared__ long long so_stage[];
+  const long long* so = stage_offsets(seg_ofs, E, so_stage);
+  HopStats hs = {};
+  const long long stride = (long long)gridDim.x * kResolveThreads;
+  for (long long i = (long long)blockIdx.x * kResolveThreads + threadIdx.x; i < n; i += stride)
+    if (work[i] >= 256) resolve_one(work, n, so, E, limit, INT_MAX, true, out, ctl, (int)i, hs);
+  flush_stats(stats, hs);
+}
 #endif
 
 }  // namespace
@@ -1353,11 +2016,55 @@ extern "C" long long zrs_spec_scratch_words() { return kPtrCap; }
 extern "C" long long zrs_spec_stats_len() { return kStats; }
 
 #ifdef __CUDACC__
-// SP1: per segment k the first offset in [lo[k], hi[k]) whose chain passes,
-// written into best[k] (which the wrapper fills with INT_MAX); the
-// survivors of the pre-filter go to surv (cap pairs), their number to
-// *count, which the wrapper zeroes and reads back
-extern "C" int zrs_block_find(const void* words, int w, long long nbits, const void* lo,
+namespace {
+constexpr int kMaxDevices = 64;
+int g_sync_blocks[kMaxDevices];  // a device's resident spec_sync blocks, once its attribute is set
+int g_sms[kMaxDevices];          // a device's SMs, once read
+
+int sm_count(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!g_sms[dev]) {
+    e = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  *out = g_sms[dev];
+  return 0;
+}
+}  // namespace
+
+// SP1: per segment k of ops (int64 [3T + 1]: lo [T], hi [T], the first
+// of its pre-filter tiles [T + 1], `tiles` in all), the first offset in
+// [lo[k], hi[k]) whose chain passes, or -1, into res[k], and into res[T + k]
+// 1 where a tile of the segment counted more survivors than its room (u16
+// surv [tiles, room], int32 counts [tiles]; the host reruns with room
+// 32 * kTileWords); stats int64 [2] (zeroed: the survivors counted and
+// checked) or null
+extern "C" int zrs_block_find(const void* words, int w, long long nbits, const void* ops, int segs,
+                              int tiles, void* surv, int room, void* counts, void* res,
+                              void* stats, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (segs <= 0) return (int)cudaGetLastError();
+  if (tiles > 0)
+    find_tiles<<<tiles, kTileWords, 0, s>>>((const uint32_t*)words, w - 1, nbits,
+                                            (const long long*)ops, segs, (uint16_t*)surv, room,
+                                            (int*)counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  find_first<<<segs, kGroup, 0, s>>>((const uint32_t*)words, w - 1, nbits, (const long long*)ops,
+                                     segs, (const uint16_t*)surv, room, (const int*)counts,
+                                     (long long*)res, (long long*)stats);
+  return (int)cudaGetLastError();
+}
+
+// SP1's first design (find_prefilter, find_check), kept to be timed against
+// zrs_block_find and called by no route: per segment k the first offset in
+// [lo[k], hi[k]) whose chain passes, written into best[k] (which the wrapper
+// fills with INT_MAX); the survivors of the pre-filter go to surv (cap
+// pairs), their number to *count, which the wrapper zeroes and reads back
+extern "C" int zrs_block_find_thread(const void* words, int w, long long nbits, const void* lo,
                               const void* hi, int segs, int span, void* surv, int cap,
                               void* count, void* best, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -1376,11 +2083,6 @@ extern "C" int zrs_block_find(const void* words, int w, long long nbits, const v
         (unsigned long long*)best);
   return (int)cudaGetLastError();
 }
-
-namespace {
-constexpr int kMaxDevices = 64;
-int g_sync_blocks[kMaxDevices];  // a device's resident spec_sync blocks, once its attribute is set
-}  // namespace
 
 // SP2 over rows of meta (int64 [segs, 8]: start_bit, stop_bit, cap, hist,
 // cell_off, rec_off, rec_cap, 0): cells u16, records int64 pairs, status
@@ -1431,9 +2133,40 @@ extern "C" int zrs_spec_decode_warp(const void* words, int w, long long nbits, c
   return (int)cudaGetLastError();
 }
 
-// SP3: pointers into ptr_a, `rounds` rounds of jumping between ptr_a and
-// ptr_b, then the bytes; *flag is set where a marker outlived the rounds
-extern "C" int zrs_spec_resolve(const void* cells, int n, const void* seg_ofs, int segs,
+// SP3 over work (u16 [n], a copy of the cells, which it rewrites) and
+// seg_ofs (int64 [segs + 1]): the bytes into out, each cell's chain
+// followed for `budget` hops in a first launch, the chains still pending
+// to their ends in a second; ctl int32 [2], zeroed: set where a chain
+// ended on a marker after `limit` hops (the plain version's 2^rounds),
+// then the cells the first launch left pending; stats int64
+// [kResolveStats] (zeroed) or null
+extern "C" int zrs_spec_resolve(void* work, int n, const void* seg_ofs, int segs, long long limit,
+                                int budget, void* out, void* ctl, void* stats, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || segs <= 0) return (int)cudaGetLastError();
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc) return rc;
+  const long long need = ((long long)n + kResolveThreads - 1) / kResolveThreads;
+  const int blocks = (int)(need < 8LL * sms ? need : 8LL * sms);
+  const size_t smem = segs <= kSegStage ? sizeof(long long) * segs : 0;
+  resolve_chase<<<blocks, kResolveThreads, smem, s>>>((uint16_t*)work, n,
+                                                      (const long long*)seg_ofs, segs, limit,
+                                                      budget, (uint8_t*)out, (int*)ctl,
+                                                      (long long*)stats);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  resolve_tail<<<blocks, kResolveThreads, smem, s>>>((uint16_t*)work, n,
+                                                     (const long long*)seg_ofs, segs, limit,
+                                                     (uint8_t*)out, (int*)ctl, (long long*)stats);
+  return (int)cudaGetLastError();
+}
+
+// SP3's first design (resolve_init, resolve_jump, resolve_narrow), kept to
+// be timed against zrs_spec_resolve and called by no route: pointers into
+// ptr_a, `rounds` rounds of jumping between ptr_a and ptr_b, then the
+// bytes; *flag is set where a marker outlived the rounds
+extern "C" int zrs_spec_resolve_jump(const void* cells, int n, const void* seg_ofs, int segs,
                                 void* ptr_a, void* ptr_b, int rounds, void* out, void* flag,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -1468,6 +2201,46 @@ extern "C" int zrs_spec_decode_host(const void* words, int w, long long nbits, c
     run_row((const uint32_t*)words, w, nbits, (const long long*)meta, k, (uint16_t*)cells,
             (long long*)recs, (long long*)st, (int32_t*)ptrs, (long long*)stats, L, T, &b, &sc, 0,
             1);
+  return 0;
+}
+
+// zrs_block_find on the host: every tile's pre-filter, then every
+// segment's check, by one block whose one thread runs them in turn (the
+// CPU tests' way into this file's SP1)
+extern "C" int zrs_block_find_host(const void* words, int w, long long nbits, const void* ops,
+                                   int segs, int tiles, void* surv, int room, void* counts,
+                                   void* res, void* stats) {
+  static uint32_t stage[kTileWords + 4];
+  static int wsum[32];
+  static CheckScratch sc;
+  for (int g = 0; g < tiles; g++)
+    find_tile((const uint32_t*)words, w - 1, nbits, (const long long*)ops, segs, g,
+              (uint16_t*)surv, room, (int*)counts, stage, wsum, 0, 1);
+  for (int k = 0; k < segs; k++)
+    check_segment((const uint32_t*)words, w - 1, nbits, (const long long*)ops, segs, k,
+                  (const uint16_t*)surv, room, (const int*)counts, (long long*)res,
+                  (long long*)stats, &sc, 0, 1);
+  return 0;
+}
+
+// zrs_spec_resolve on the host: the first launch's cells in turn
+// (`descending`: from the last, so that no chain meets a resolved cell),
+// then the pending cells in turn (the CPU tests' way into this file's SP3)
+extern "C" int zrs_spec_resolve_host(void* work, int n, const void* seg_ofs, int segs,
+                                     long long limit, int budget, void* out, void* ctl,
+                                     void* stats, int descending) {
+  if (n <= 0 || segs <= 0) return 0;
+  uint16_t* wk = (uint16_t*)work;
+  const long long* so = (const long long*)seg_ofs;
+  int* ct = (int*)ctl;
+  const bool memo = so[0] <= 0;
+  HopStats hs = {};
+  for (int k = 0; k < n; k++)
+    ct[1] += !resolve_one(wk, n, so, segs, limit, memo ? budget : INT_MAX, memo, (uint8_t*)out,
+                          ct, descending ? n - 1 - k : k, hs);
+  for (int i = 0; i < n && ct[1]; i++)
+    if (wk[i] >= 256) resolve_one(wk, n, so, segs, limit, INT_MAX, true, (uint8_t*)out, ct, i, hs);
+  flush_stats((long long*)stats, hs);
   return 0;
 }
 #endif

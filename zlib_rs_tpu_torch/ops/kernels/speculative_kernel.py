@@ -16,7 +16,12 @@ against the real output (SP3).
   value; type 3 fails; a static block cannot anchor, and as a follower it
   is sanity-decoded up to 192 symbols; a stored link needs LEN ^ NLEN ==
   0xffff and LEN != 0, and two stored links pass; a dynamic header passes
-  when the native `parse_dynamic_tables` would accept it.
+  when the native `parse_dynamic_tables` would accept it. On the card a
+  block pre-filters a tile of 8,192 offsets (a word of 32 a thread, the
+  tile's survivors kept in offset order), then a block a segment checks
+  its survivors 256 at a time up to the first group in which one passes;
+  `block_find_thread_cuda`, the first design (a thread an offset, then a
+  thread a survivor), is kept to be timed against it.
 - SP2 `spec_decode` (native `spec_decode` with `inflate_raw_impl`'s error
   codes and its stop and point hooks): each segment decodes from its start
   bit to the first block start at or after its stop bit, or through the
@@ -37,7 +42,12 @@ against the real output (SP3).
   segment at `ofs` points at absolute byte `ofs - back`, which may itself
   be a marker of an earlier segment; pointer jumping over every cell in
   log2(segments) rounds resolves all at once, then the cells narrow to
-  bytes.
+  bytes. On the card a thread follows a cell's chain instead (a hop
+  lands in an earlier segment; most chains are a few hops), a resolved
+  marker's byte written back so that later chains stop there, and a
+  second launch follows the chains past HOP_BUDGET hops;
+  `spec_resolve_jump_cuda`, the pointer jumping over every cell, is kept
+  to be timed against it.
 
 The bit semantics are the native BitReader's: a read past the stream's
 `nbits` is truncation, checked where the native code checks it, and a
@@ -71,7 +81,12 @@ MIN_BLOCK_BITS = 10  # the shortest block: a fixed header and its EOB
 META = 8  # start_bit, stop_bit, cap, hist, cell_off, rec_off, rec_cap, 0
 STATUS = 8  # n, end_bit, final_seen, why, need_hist, nrec, overflow, start_bit
 OK, INVALID, CAP, TRUNCATED, NO_START = 0, -1, -2, -3, -4
-SURVIVOR_SHARE = 8  # SP1's survivor list holds a 1/8 of the offsets at first
+SURVIVOR_SHARE = 8  # SP1's survivor room holds a 1/8 of the offsets at first
+TILE_WORDS = 256  # SP1's pre-filter tile: a word of 32 bit offsets a thread (kTileWords)
+TILE_BITS = 32 * TILE_WORDS  # a tile's offsets; its room on a rerun
+FIND_STATS = ("survivors", "checked")  # SP1's counters
+HOP_BUDGET = 16  # hops an SP3 chain takes in its first launch (kHopBudget)
+RESOLVE_STATS = ("markers", "hops", "max_hops", "pending")  # SP3's counters (kResolveStats)
 
 CL_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15)
 LEN_BASE = (3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59,
@@ -331,12 +346,40 @@ def prefilter_plain(words, nbits: int, offs: torch.Tensor) -> torch.Tensor:
     return (offs >= 0) & (offs + 3 <= nbits) & (stored | dyn)
 
 
+def _ranges(lo, hi) -> tuple[list, list]:
+    """SP1's segment ranges, lists of T ints each (the route builds them on
+    the host, so the wrapper reads nothing back to size its launch)."""
+    if not isinstance(lo, list) or not isinstance(hi, list) or len(lo) != len(hi):
+        raise ValueError("block_find: lo and hi must be lists of T ints")
+    return [int(x) for x in lo], [int(x) for x in hi]
+
+
+def tile_counts(lo: list, hi: list, nbits: int) -> list:
+    """SP1's pre-filter tiles a segment: TILE_WORDS words a tile from the
+    word of max(lo, 0) through the last offset b < hi with b + 3 <= nbits
+    (csrc/speculative.cu `seg_range`)."""
+    out = []
+    for a, z in zip(lo, hi):
+        a, e = max(a, 0), min(z, nbits - 2)
+        out.append(0 if e <= a else -(-(((e - 1) >> 5) - (a >> 5) + 1) // TILE_WORDS))
+    return out
+
+
+def find_operands(lo: list, hi: list, nbits: int) -> tuple[np.ndarray, int]:
+    """SP1's ranges as one int64 [3T + 1] row (lo, hi, each segment's first
+    tile and the tiles' total) and the number of tiles."""
+    first = np.concatenate([[0], np.cumsum(tile_counts(lo, hi, nbits), dtype=np.int64)])
+    return np.concatenate([np.asarray(lo, np.int64), np.asarray(hi, np.int64), first]), \
+        int(first[-1])
+
+
 def block_find_plain(words, nbits: int, lo, hi) -> torch.Tensor:
     """The plain SP1: per segment, the first offset in [lo, hi) that passes
-    the pre-filter and then `_validate`, or -1. int64 [T] on lo's device."""
+    the pre-filter and then `_validate`, or -1: int64 [T] on the host, lo
+    and hi anything that iterates to T ints each."""
     _check_words(words, nbits, "block_find")
     buf = _host_bytes(words)
-    lo_l, hi_l = lo.tolist(), hi.tolist()
+    lo_l, hi_l = [int(x) for x in lo], [int(x) for x in hi]
     best = []
     for a, z in zip(lo_l, hi_l):
         z = min(z, nbits)
@@ -349,7 +392,7 @@ def block_find_plain(words, nbits: int, lo, hi) -> torch.Tensor:
                     found = c
                     break
         best.append(found)
-    return torch.tensor(best, dtype=torch.int64, device=lo.device)
+    return torch.tensor(best, dtype=torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -510,9 +553,12 @@ def _check_resolve(cells, seg_ofs):
 
 def spec_resolve_plain(cells, seg_ofs):
     """The plain SP3: (bytes uint8 [n], unresolved bool) on cells' device.
-    seg_ofs holds each segment's first cell and the total; every marker's
-    target must lie at or past 0 (the host checks the deepest reference of
-    each segment against its offset first)."""
+    seg_ofs holds each segment's first cell and the total, non-decreasing;
+    a marker's target clamps to the cells (the host checks the deepest
+    reference of each segment against its offset first). A cell whose
+    chain still ends on a marker after resolve_rounds rounds (a marker at
+    cell 0 whose target clamps onto itself) sets `unresolved` and gives
+    that marker's low byte."""
     _check_resolve(cells, seg_ofs)
     c = cells.to(torch.int32) & 0xFFFF
     idx = torch.arange(c.shape[0], dtype=torch.int64, device=c.device)
@@ -542,11 +588,67 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _NONE = 1 << 62  # SP1's best offset before any passes
 
 
-def block_find_cuda(words, nbits: int, lo, hi) -> torch.Tensor:
-    """Launch SP1 over CUDA operands: words int32 [W], lo and hi int64 [T]
-    bit offsets; returns int64 [T]. Its pre-filter pass writes the survivors into a list of a
-    1/SURVIVOR_SHARE of the offsets; where more survive, the launch runs
-    again with room for all of them (the count is exact either way)."""
+def _to_card(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array on `dev` without a host sync: staged in pinned memory
+    and copied on the current stream."""
+    t = torch.from_numpy(a)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def block_find_cuda(words, nbits: int, lo: list, hi: list, *,
+                    stats: dict | None = None) -> torch.Tensor:
+    """Launch SP1 over CUDA words int32 [W], lo and hi the segments' bit
+    ranges (lists of T ints); returns int64 [T] on the host. The
+    pre-filter writes each tile's survivors in offset order into a room
+    of TILE_BITS // SURVIVOR_SHARE u16 offsets (SURVIVOR_SHARE read at
+    each call); the check takes each segment's survivors in that order,
+    256 at a time, up to the first group in which one passes. The results
+    and an overflow flag a segment come back in one copy, the launch's one
+    host sync; where a tile counted more survivors than its room, the
+    launch runs again with room for every offset (exact either way).
+    `stats`, where given, gets FIND_STATS summed over the launches and
+    the last launch's `room`."""
+    _device.require_cuda("block_find", words)
+    _check_words(words, nbits, "block_find")
+    lo, hi = _ranges(lo, hi)
+    T = len(lo)
+    dev = words.device
+    if T == 0:
+        return torch.zeros(0, dtype=torch.int64)
+    ops, tiles = find_operands(lo, hi, nbits)
+    ops_d = _to_card(ops, dev)
+    room = TILE_BITS // SURVIVOR_SHARE
+    st = None if stats is None else torch.zeros(len(FIND_STATS), dtype=torch.int64, device=dev)
+    while True:
+        surv = torch.empty((max(tiles, 1), room), dtype=torch.int16, device=dev)
+        counts = torch.empty(max(tiles, 1), dtype=torch.int32, device=dev)
+        res = torch.zeros(2 * T, dtype=torch.int64, device=dev)
+        rc = _fn("zrs_block_find", [_P, _I, _L, _P, _I, _I, _P, _I, _P, _P, _P, _P])(
+            _device.ptr(words), words.shape[0], nbits, _device.ptr(ops_d), T, tiles,
+            _device.ptr(surv), room, _device.ptr(counts), _device.ptr(res),
+            None if st is None else _device.ptr(st), _device.stream_of(words),
+        )
+        _device.check(rc, "block_find")
+        launches["block_find"] += 1
+        got = res.cpu()
+        if room >= TILE_BITS or not bool(got[T:].any()):
+            break
+        room = TILE_BITS
+    if stats is not None:
+        stats.update(zip(FIND_STATS, st.tolist()), room=room)
+    return got[:T]
+
+
+def block_find_thread_cuda(words, nbits: int, lo, hi) -> torch.Tensor:
+    """SP1's first design (csrc/speculative.cu `find_prefilter`, a thread an
+    offset, then `find_check`, a thread a survivor) over CUDA operands:
+    words int32 [W], lo and hi int64 [T] on the card; returns int64 [T] on
+    the card. Its survivors go into a list of a 1/SURVIVOR_SHARE of the
+    offsets, rerun with room for all where more survive. It is timed
+    against block_find_cuda and called by no route, so it counts no
+    launch."""
     _device.require_cuda("block_find", words, lo, hi)
     _check_words(words, nbits, "block_find")
     T = lo.shape[0]
@@ -564,13 +666,12 @@ def block_find_cuda(words, nbits: int, lo, hi) -> torch.Tensor:
         surv = torch.empty((cap, 2), dtype=torch.int64, device=dev)
         count = torch.zeros(1, dtype=torch.int32, device=dev)
         best.fill_(_NONE)
-        rc = _fn("zrs_block_find", [_P, _I, _L, _P, _P, _I, _I, _P, _I, _P, _P, _P])(
+        rc = _fn("zrs_block_find_thread", [_P, _I, _L, _P, _P, _I, _I, _P, _I, _P, _P, _P])(
             _device.ptr(words), words.shape[0], nbits, _device.ptr(lo), _device.ptr(hi), T,
             span, _device.ptr(surv), cap, _device.ptr(count), _device.ptr(best),
             _device.stream_of(words),
         )
         _device.check(rc, "block_find")
-        launches["block_find"] += 1
         got = int(count.item())
         if got <= cap:
             break
@@ -671,10 +772,46 @@ def spec_decode_warp_cuda(words, nbits: int, meta, cell_total: int, rec_total: i
     return cells, recs, st
 
 
-def spec_resolve_cuda(cells, seg_ofs):
+def spec_resolve_cuda(cells, seg_ofs, *, stats: dict | None = None):
     """Launch SP3 over CUDA operands: cells int16 [n], seg_ofs int64
-    [E + 1]. Pointers int32 in two device buffers, resolve_rounds rounds,
-    then the narrow to bytes; one C entry, one stream."""
+    [E + 1]. A warp takes 32 cells at a time, each marker's chain followed
+    over a copy of the cells for HOP_BUDGET hops (seg_ofs in shared memory);
+    where seg_ofs starts at 0, a resolved marker's byte is written back
+    into the copy, so that later chains through it end there, and a second
+    launch follows the chains left pending to their ends. A chain stops at
+    a literal, at a marker that is its own target, or after
+    2^resolve_rounds hops (the plain version's rounds), so the bytes and
+    the flag are the plain version's. One C entry, one stream; the flag's
+    read is the one host sync. `stats`, where given, gets RESOLVE_STATS."""
+    _device.require_cuda("spec_resolve", cells, seg_ofs)
+    _check_resolve(cells, seg_ofs)
+    dev = cells.device
+    n = cells.shape[0]
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    ctl = torch.zeros(2, dtype=torch.int32, device=dev)
+    st = None if stats is None else torch.zeros(len(RESOLVE_STATS), dtype=torch.int64,
+                                                device=dev)
+    if n:
+        work = cells.clone(memory_format=torch.contiguous_format)
+        seg_ofs = seg_ofs.contiguous()
+        rc = _fn("zrs_spec_resolve", [_P, _I, _P, _I, _L, _I, _P, _P, _P, _P])(
+            _device.ptr(work), n, _device.ptr(seg_ofs), seg_ofs.shape[0] - 1,
+            1 << resolve_rounds(seg_ofs.shape[0] - 1), HOP_BUDGET, _device.ptr(out),
+            _device.ptr(ctl), None if st is None else _device.ptr(st), _device.stream_of(cells),
+        )
+        _device.check(rc, "spec_resolve")
+        launches["spec_resolve"] += 1
+    if stats is not None:
+        stats.update(zip(RESOLVE_STATS, st.tolist()))
+    return out, bool(ctl[0].item())
+
+
+def spec_resolve_jump_cuda(cells, seg_ofs):
+    """SP3's first design (csrc/speculative.cu `resolve_init`, rounds of
+    `resolve_jump`, `resolve_narrow`: a pointer a cell in two int32 device
+    buffers, resolve_rounds rounds over every cell) over the same operands
+    and results as spec_resolve_cuda. It is timed against it and called by
+    no route, so it counts no launch."""
     _device.require_cuda("spec_resolve", cells, seg_ofs)
     _check_resolve(cells, seg_ofs)
     dev = cells.device
@@ -685,13 +822,12 @@ def spec_resolve_cuda(cells, seg_ofs):
         cells, seg_ofs = cells.contiguous(), seg_ofs.contiguous()
         ptr_a = torch.empty(n, dtype=torch.int32, device=dev)
         ptr_b = torch.empty(n, dtype=torch.int32, device=dev)
-        rc = _fn("zrs_spec_resolve", [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P])(
+        rc = _fn("zrs_spec_resolve_jump", [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P])(
             _device.ptr(cells), n, _device.ptr(seg_ofs), seg_ofs.shape[0] - 1,
             _device.ptr(ptr_a), _device.ptr(ptr_b), resolve_rounds(seg_ofs.shape[0] - 1),
             _device.ptr(out), _device.ptr(flag), _device.stream_of(cells),
         )
         _device.check(rc, "spec_resolve")
-        launches["spec_resolve"] += 1
     return out, bool(flag.item())
 
 

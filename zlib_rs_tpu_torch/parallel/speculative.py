@@ -161,10 +161,8 @@ def _speculate(data: bytes, max_out: int, device, stats):
     rows, keys = [(0, bounds[1], caps[0], 0)], [0]
     find, lo = list(range(1, T)), bounds[1:T]
     for attempt in range(MAX_ATTEMPTS):
-        if find:
-            lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
-            hi_t = torch.tensor([bounds[k + 1] for k in find], dtype=torch.int64, device=dev)
-            starts = SK.block_find(words, N, lo_t, hi_t).tolist()
+        if find:  # the ranges go as lists: SP1 reads its results back in one copy
+            starts = SK.block_find(words, N, lo, [bounds[k + 1] for k in find]).tolist()
             rows += [(s, bounds[k + 1], caps[k] if s >= 0 else 0, SK.WSIZE)
                      for k, s in zip(find, starts)]
             keys += find
